@@ -20,14 +20,30 @@ Phases (one line each; any failure exits non-zero):
      slots, all fp32: convergence; the merged per-lane results (phase-2
      slots folded back into their lanes) and one phase-0 launch with its
      carry, each against the plain version; kernel vs plain times;
+  7. K1's linear and cone projections (K1e) vs plain at B = 4096: (a) the
+     rocket (box on u and x, thrust and glide-slope cones), cold, 72
+     iterations with its carry; (b) the kernel's rocket 24 + 48 warm chain,
+     which must equal its 72-iteration solve bit for bit; (c) the cartpole
+     with two state halfspaces and no state box, 150 iterations; with the
+     cones (within 5e-3) or halfspaces checked on every solved lane;
+  8. the rocket main path through the API: rocket.make_solver on "cuda" in
+     fp32 at B = 65,536, solve_batch(method="fused") for 24 iterations with
+     its carry, then 48 warm; convergence, the merged per-lane results
+     against the same chain on the plain version, the chain's time and one
+     cold 72-iteration launch's, kernel vs plain;
+  9. the single-instance solve() on the card: a 20-step float64 rocket
+     closed loop against the same loop on the CPU (controls within 1e-6);
 then the kernels' JSON line, the card's name and power limit, and the
-result line.  Kernel launches are counted over phases 5 and 6 (their first,
-untimed runs).  The agreement bar of every kernel-vs-plain comparison:
-identical per-lane iteration counts on >= 99% of lanes (fp32 sums in another
-order may move a lane that sits on the tolerance by one check interval) and
-1e-4 on the controls and states of lanes with equal counts that both
-solved, and on the carry, where there is one, of lanes with equal counts.
+result line.  K1's launches are counted over phases 5 and 6, K1e's (the
+launches that run projections) over phase 8, each from 0 just before the
+phase and on its first, untimed runs.  The agreement bar of every
+kernel-vs-plain comparison: identical per-lane iteration counts on >= 99%
+of lanes (fp32 sums in another order may move a lane that sits on the
+tolerance by one check interval) and 1e-4 on the controls and states of
+lanes with equal counts that both solved, and on the carry, where there is
+one, of lanes with equal counts.
 """
+import functools
 import json
 import subprocess
 import time
@@ -41,6 +57,9 @@ B_CHECK = 4096
 B_QUAD = 512
 ITERS_AGREE = 0.99
 ATOL = 1e-4
+CONE_TOL = 5e-3
+LOOP_STEPS = 20
+LOOP_ATOL = 1e-6
 
 
 def check(cond, msg):
@@ -118,6 +137,28 @@ def carry_agreement(name, same, carry_k, carry_p):
     return err
 
 
+def cone_violation(xs, us, mu_x, mu_u, solved):
+    """Largest excess of ||w[0:2]|| over mu * w[2] at any stage of a solved
+    lane, over the state and the input cones."""
+    ok = solved == 1
+    ex = [(torch.linalg.vector_norm(w[ok][..., :2], dim=-1)
+           - mu * w[ok][..., 2]).max().item()
+          for w, mu in ((xs, mu_x), (us, mu_u)) if bool(ok.any())]
+    return max(ex, default=0.0)
+
+
+def rocket_chain(f, head=24, tail=48):
+    """The rocket's 24-iteration cold solve with its carry, then a 48-
+    iteration warm continuation; (xs, us, merged count, solved) per lane.
+    ``f(max_iter, warm_start, carry_out, warm)`` runs one solve."""
+    x0, u0, it0, ok0, carry = f(head, False, True, None)
+    x1, u1, it1, ok1 = f(tail, True, False, carry)
+    done = (ok0 == 1)
+    return (torch.where(done[:, None, None], x0, x1),
+            torch.where(done[:, None, None], u0, u1),
+            torch.where(done, it0, head + it1), torch.maximum(ok0, ok1))
+
+
 def pipeline_lanes(res):
     """(xs, us, final iteration count, solved) per lane of a pipeline
     result, with each valid phase-2 slot merged back into its lane."""
@@ -140,11 +181,12 @@ def main():
           f"card {card}", flush=True)
 
     from tinympc_julia_tpu_torch import TinyMPCSolver, make_problem
-    from tinympc_julia_tpu_torch.models import cartpole, quadrotor
+    from tinympc_julia_tpu_torch.models import cartpole, quadrotor, rocket
     from tinympc_julia_tpu_torch.ops.condensed import build_condensed
     from tinympc_julia_tpu_torch.ops.cuda._build import load_library
     from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
-        condensed_fused_cuda, condensed_fused_reference, fused_tile_plan)
+        condensed_fused_cuda, condensed_fused_reference, fused_constraints,
+        fused_tile_plan, problem_constraint_kw)
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.parallel.pipeline import three_phase_solve
 
@@ -320,12 +362,173 @@ def main():
           f"launch (phase-0 shape) {t_k1:.3f} ms, plain {t_k1_p:.3f} ms",
           flush=True)
 
+    # -- phase 7: K1e, the projections, kernel vs plain ---------------------
+    rN = rocket.HORIZON
+    r_solver = rocket.make_solver(dtype=f32, device="cuda")
+    Xref, Uref = rocket.reference_trajectory(0)
+    r_solver.set_x_ref(Xref)
+    r_solver.set_u_ref(Uref)
+    rp, rc, rs = r_solver.problem, r_solver.cache, r_solver.settings
+    r_maps = build_condensed(rp, rc)
+    r_cons = fused_constraints(**problem_constraint_kw(rp, rs), nx=6, nu=3,
+                               dtype=f32, device=dev)
+    r_args = (r_maps, float(rc.rho), rp.u_min, rp.u_max, rp.x_min, rp.x_max)
+    r_kw = dict(nx=6, nu=3, N=rN, abs_pri_tol=rs.abs_pri_tol,
+                abs_dua_tol=rs.abs_dua_tol, en_state_bound=True,
+                en_input_bound=True, relaxation_alpha=1.0,
+                check_termination=1, constraints=r_cons)
+    mu_x, mu_u = rocket.MU_STATE, rocket.MU_INPUT
+
+    def rocket_x0(B):
+        return torch.as_tensor(
+            rocket.X_INIT[None, :]
+            * np.random.default_rng(2).uniform(0.9, 1.1, size=(B, 1)),
+            dtype=f32, device=dev)
+
+    def rocket_solve(fn, x0s, max_iter, warm_start, carry_out, warm):
+        return fn(*r_args, x0s, warm, max_iter=max_iter,
+                  warm_start=warm_start, carry_out=carry_out, **r_kw)
+
+    x0_r = rocket_x0(B_CHECK)
+    e_errs = []
+    out_k = rocket_solve(condensed_fused_cuda, x0_r, 72, False, True, None)
+    out_p = rocket_solve(condensed_fused_reference, x0_r, 72, False, True,
+                         None)
+    e_errs.append(agreement("phase 7a rocket cold 72 (box + 2 cones)", out_k,
+                            out_p))
+    e_errs.append(carry_agreement("phase 7a rocket", out_k[2] == out_p[2],
+                                  out_k[4], out_p[4]))
+    viol = cone_violation(out_k[0], out_k[1], mu_x, mu_u, out_k[3])
+    print(f"phase 7a rocket: largest cone excess on solved lanes "
+          f"{viol:.3e} (bar {CONE_TOL})", flush=True)
+    check(viol <= CONE_TOL, f"phase 7a: cone excess {viol:.3e}")
+    xc, uc, itc, okc = rocket_chain(
+        functools.partial(rocket_solve, condensed_fused_cuda, x0_r))
+    exact = (torch.equal(itc, out_k[2]) and torch.equal(okc, out_k[3])
+             and torch.equal(uc, out_k[1]) and torch.equal(xc, out_k[0]))
+    print(f"phase 7b rocket warm chain 24+48 vs one-shot 72: bit-exact "
+          f"{exact} ({int(okc.sum())}/{B_CHECK} solved)", flush=True)
+    check(exact, "the kernel's rocket 24+48 chain differs from its "
+          "72-iteration solve")
+
+    A_lin = np.array([[1.0, 1.0, 0.0, 0.0], [0.0, 0.0, 1.0, 0.5]])
+    b_lin = np.array([1.0, 0.8])
+    h_cons = fused_constraints(lin_x=(A_lin, b_lin), nx=4, nu=1, dtype=f32,
+                               device=dev)
+    h_args = (maps, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max,
+              x0_check, None)
+    h_kw = dict(nx=4, nu=1, N=N, max_iter=150, abs_pri_tol=1e-3,
+                abs_dua_tol=1e-3, en_state_bound=False, en_input_bound=True,
+                relaxation_alpha=1.0, check_termination=1, warm_start=False,
+                carry_out=True, constraints=h_cons)
+    out_k = condensed_fused_cuda(*h_args, **h_kw)
+    out_p = condensed_fused_reference(*h_args, **h_kw)
+    e_errs.append(agreement("phase 7c cartpole 2 state halfspaces, no state "
+                            "box", out_k, out_p))
+    e_errs.append(carry_agreement("phase 7c cartpole", out_k[2] == out_p[2],
+                                  out_k[4], out_p[4]))
+    ok = out_k[3] == 1
+    h_ex = (out_k[0][ok] @ torch.as_tensor(A_lin.T, dtype=f32, device=dev)
+            - torch.as_tensor(b_lin, dtype=f32, device=dev)).max().item()
+    print(f"phase 7c cartpole: largest halfspace excess on solved lanes "
+          f"{h_ex:.3e} (bar {CONE_TOL})", flush=True)
+    check(h_ex <= CONE_TOL, f"phase 7c: halfspace excess {h_ex:.3e}")
+
+    # -- phase 8: the rocket main path through the API -----------------------
+    x0_rm = rocket_x0(B_MAIN)
+    condensed_fused_cuda.launches = 0
+    condensed_fused_cuda.projected_launches = 0
+
+    def api_solve(max_iter, warm_start, carry_out, warm):
+        r_solver.update_settings(max_iter=max_iter)
+        out = r_solver.solve_batch(x0_rm, method="fused", warm=warm,
+                                   return_carry=carry_out)
+        return out[:4] + ((out[4],) if carry_out else ())
+
+    xs_a, us_a, it_a, ok_a = rocket_chain(api_solve)
+    torch.cuda.synchronize()
+    e_launches = condensed_fused_cuda.projected_launches
+    check(e_launches == 2, f"the rocket API chain launched K1e {e_launches} "
+          "times, not 2")
+    n_rock = int(ok_a.sum())
+    check(tuple(us_a.shape) == (B_MAIN, rN - 1, 3), f"controls {us_a.shape}")
+    check(bool(torch.isfinite(us_a).all())
+          and bool(torch.isfinite(xs_a).all()), "non-finite rocket solutions")
+    check(n_rock >= 0.99 * B_MAIN, f"rocket chain converged {n_rock}/"
+          f"{B_MAIN}")
+    plain_chain = functools.partial(rocket_solve, condensed_fused_reference,
+                                    x0_rm)
+    kernel_chain = functools.partial(rocket_solve, condensed_fused_cuda,
+                                     x0_rm)
+    res_p = rocket_chain(plain_chain)
+    e_errs.append(agreement("phase 8 rocket API chain 24+48, merged per-lane "
+                            "results vs plain", (xs_a, us_a, it_a, ok_a),
+                            res_p, min_solved=int(0.99 * B_MAIN)))
+    viol = cone_violation(xs_a, us_a, mu_x, mu_u, ok_a)
+    check(viol <= CONE_TOL, f"phase 8: cone excess {viol:.3e}")
+    t_chain, t_chain_p = paired_ms(lambda: rocket_chain(kernel_chain),
+                                   lambda: rocket_chain(plain_chain))
+    cold = dict(max_iter=72, warm_start=False, carry_out=False)
+    t_e, t_e_p = paired_ms(
+        lambda: kernel_chain(warm=None, **cold),
+        lambda: plain_chain(warm=None, **cold))
+    # per-iteration cost of the projections: every lane runs all 72
+    # iterations (one check, at the end), with and without the cones
+    full = dict(r_kw, max_iter=72, check_termination=72, warm_start=False,
+                carry_out=False)
+    t_cones, t_box = paired_ms(
+        lambda: condensed_fused_cuda(*r_args, x0_rm, None, **full),
+        lambda: condensed_fused_cuda(*r_args, x0_rm, None,
+                                     **dict(full, constraints=None)))
+    print(f"phase 8 rocket API chain B={B_MAIN}, fp32 24+48: {n_rock} "
+          f"converged ({100.0 * n_rock / B_MAIN:.2f}%), mean iterations "
+          f"{it_a.float().mean().item():.2f}, largest cone excess "
+          f"{viol:.3e}; median of 5: chain kernel {t_chain:.3f} ms, plain "
+          f"{t_chain_p:.3f} ms -> {n_rock / (t_chain * 1e-3):.0f} solves/s "
+          f"on {card}; one cold 72-iteration launch {t_e:.3f} ms, plain "
+          f"{t_e_p:.3f} ms; 72 iterations on every lane: with the cones "
+          f"{t_cones:.3f} ms, box only {t_box:.3f} ms "
+          f"({t_cones / t_box:.3f}x per iteration)", flush=True)
+
+    # -- phase 9: the single-instance solve() on the card, float64 -----------
+    loops = [rocket.make_solver(dtype=torch.float64, device=d)
+             for d in ("cuda", "cpu")]
+    xs_loop = [rocket.X_INIT * 1.1, rocket.X_INIT * 1.1]
+    its, du = [], 0.0
+    t0 = time.perf_counter()
+    for k in range(LOOP_STEPS):
+        Xref, Uref = rocket.reference_trajectory(k)
+        us_k = []
+        for j, sv in enumerate(loops):
+            sv.set_x0(xs_loop[j])
+            sv.set_x_ref(Xref)
+            sv.set_u_ref(Uref)
+            sv.solve()
+            us_k.append(sv.get_solution().controls[:, 0])
+            xs_loop[j] = rocket.simulate(xs_loop[j], us_k[-1])
+        its.append((int(loops[0].solution.iter), int(loops[1].solution.iter)))
+        du = max(du, float(np.abs(us_k[0] - us_k[1]).max()))
+    same_its = all(a == b for a, b in its)
+    print(f"phase 9 solve() closed loop, {LOOP_STEPS} rocket steps in float64 "
+          f"on the card vs the CPU ({time.perf_counter() - t0:.1f} s): "
+          f"iterations per step (card, cpu) {its}; equal on every step "
+          f"{same_its}; max |diff| of the controls {du:.3e}", flush=True)
+    check(loops[0].state.x.is_cuda, "the card's solver state is not on the "
+          "card")
+    check(du <= LOOP_ATOL, f"phase 9: controls differ by {du:.3e}")
+
     print(json.dumps({"kernels": [{
-        "name": "condensed_fused (K1)", "route": "cuda",
+        "name": "condensed_fused (K1), box path", "route": "cuda",
         "source": "tinympc_julia_tpu_torch/csrc/condensed_fused.cu",
         "replaces": "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:232",
         "launches": launches, "max_abs_err": max(errs), "ms": t_k1,
-        "plain_ms": t_k1_p}]}))
+        "plain_ms": t_k1_p}, {
+        "name": "condensed_fused projections (K1e), constrained path",
+        "route": "cuda",
+        "source": "tinympc_julia_tpu_torch/csrc/condensed_fused.cu",
+        "replaces": "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:127",
+        "launches": e_launches, "max_abs_err": max(e_errs), "ms": t_e,
+        "plain_ms": t_e_p}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

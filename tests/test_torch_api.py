@@ -108,27 +108,19 @@ def test_set_cache_terms_and_refs_rebuild_the_maps():
 
 
 @pytest.mark.parametrize("call", [
-    lambda s: s.solve(),
     lambda s: s.solve_batch(np.zeros((2, 4)), method="standard"),
     lambda s: s.solve_batch(np.zeros((2, 4)), method="chunked"),
-    lambda s: s.set_linear_constraints(np.ones((1, 4)), [1.0],
-                                       np.ones((1, 1)), [1.0]),
-    lambda s: s.set_cone_constraints([0], [1], [0.5], [0], [3], [0.5]),
-    lambda s: s.set_equality_constraints(np.ones((1, 4)), [0.0]),
     lambda s: (s.update_settings(adaptive_rho=True),
                s.solve_batch(np.zeros((2, 4)), method="fused")),
     lambda s: (s.update_settings(bf16_head_iters=4, check_termination=4,
                                  max_iter=40),
                s.solve_batch(np.zeros((2, 4)), method="fused")),
-    lambda s: (s.update_settings(en_state_soc=True),
-               s.solve_batch(np.zeros((2, 4)), method="fused")),
     lambda s: s.solve_batch_rebuild_adaptive(np.zeros((2, 4))),
     lambda s: s.compute_sensitivity_autograd(),
     lambda s: s.codegen("out"),
     lambda s: s.save("x"),
-], ids=["solve", "standard", "chunked", "linear", "cones", "equality",
-        "adaptive-rho", "bf16-head", "soc-fused", "rebuild", "sensitivity",
-        "codegen", "save"])
+], ids=["standard", "chunked", "adaptive-rho", "bf16-head", "rebuild",
+        "sensitivity", "codegen", "save"])
 def test_unported_surface_raises(call):
     s = _setup(P.TinyMPCSolver(dtype=torch.float32, device=CPU))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -113,7 +113,6 @@ def test_solve_condensed_warm_chain_matches_jax():
 def test_solve_condensed_rejects_unported_settings():
     (_, _, _), (pp, pc, pm) = cartpole_setup(F64)
     x0 = torch.zeros((2, 4), dtype=torch.float64)
-    for kw in (dict(adaptive_rho=True), dict(en_state_soc=True),
-               dict(en_input_linear=True)):
+    for kw in (dict(adaptive_rho=True),):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             C.solve_condensed(pp, pc, C.Settings(**kw), x0, pm)

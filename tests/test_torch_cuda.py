@@ -1,7 +1,8 @@
-"""Kernel K1 on the card: the CUDA kernel vs its plain PyTorch version, and
-the port's main path through it.  Every test here is marked ``cuda`` and
-skips where CUDA is not available.  The file imports no JAX, so it also runs
-on a machine that has only the port's dependencies:
+"""Kernel K1 on the card, with and without its linear and cone projections
+(K1e): the CUDA kernel vs its plain PyTorch version, the port's main paths
+through it, and the single-instance solve() on the card.  Every test here
+is marked ``cuda`` and skips where CUDA is not available.  The file imports
+no JAX, so it also runs on a machine that has only the port's dependencies:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -10,7 +11,7 @@ import pytest
 import torch
 
 from tinympc_julia_tpu_torch import TinyMPCSolver, make_problem
-from tinympc_julia_tpu_torch.models import cartpole, quadrotor
+from tinympc_julia_tpu_torch.models import cartpole, quadrotor, rocket
 from tinympc_julia_tpu_torch.ops.condensed import build_condensed
 from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
 from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
@@ -140,3 +141,109 @@ def test_api_and_pipeline_run_through_the_kernel(dev):
                             straggler_slots=512)
     assert K.condensed_fused_cuda.launches == before + 4
     assert int(res.converged()) >= 0.99 * 3000
+
+
+def _rocket(dev, **settings):
+    s = rocket.make_solver(dtype=torch.float32, device=dev, **settings)
+    Xref, Uref = rocket.reference_trajectory(0)
+    s.set_x_ref(Xref)
+    s.set_u_ref(Uref)
+    return s
+
+
+def _rocket_x0(B, dev, lateral=1.0):
+    x0 = rocket.X_INIT[None, :] * np.random.default_rng(2).uniform(
+        0.9, 1.1, size=(B, 1))
+    x0[:, :2] *= lateral
+    return torch.as_tensor(x0, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("case", ["rocket", "rocket-no-state-box",
+                                  "cartpole-halfspaces"])
+def test_projections_match_plain_version(dev, case):
+    """K1e: the rocket's cones (with and without the state box) and the
+    cartpole's state halfspaces, kernel vs plain on 1000 lanes."""
+    if case.startswith("rocket"):
+        s = _rocket(dev)
+        p, c = s.problem, s.cache
+        m = build_condensed(p, c)
+        cons = K.fused_constraints(**K.problem_constraint_kw(p, s.settings),
+                                   nx=6, nu=3, dtype=torch.float32,
+                                   device=dev)
+        x0 = _rocket_x0(1000, dev, 1.5 if case.endswith("box") else 1.0)
+        kw = _kw(6, 3, N=rocket.HORIZON, abs_pri_tol=2e-3,
+                 relaxation_alpha=1.0, max_iter=200,
+                 en_state_bound=not case.endswith("box"), constraints=cons)
+    else:
+        p, c, m = _plant(cartpole, 5.0, dev)
+        cons = K.fused_constraints(
+            lin_x=(np.array([[1.0, 1, 0, 0], [0, 0, 1, 0.5]]),
+                   np.array([1.0, 0.8])), nx=4, nu=1, dtype=torch.float32,
+            device=dev)
+        x0 = _x0(1000, 4, 4, 0.5, dev)
+        kw = _kw(4, 1, relaxation_alpha=1.0, max_iter=150, constraints=cons)
+    args = (m, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max, x0, None)
+    before = K.condensed_fused_cuda.projected_launches
+    k = K.condensed_fused_cuda(*args, **kw)
+    r = K.condensed_fused_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert K.condensed_fused_cuda.projected_launches == before + 1
+    _agree(k, r)
+    same = k[2] == r[2]
+    for a, b in zip(k[4], r[4]):
+        assert (a - b)[:, same].abs().max().item() <= 1e-3
+
+
+def test_rocket_warm_chain_is_bit_exact(dev):
+    s = _rocket(dev)
+    p, c = s.problem, s.cache
+    m = build_condensed(p, c)
+    cons = K.fused_constraints(**K.problem_constraint_kw(p, s.settings),
+                               nx=6, nu=3, dtype=torch.float32, device=dev)
+    args = (m, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max,
+            _rocket_x0(2048, dev))
+    kw = dict(nx=6, nu=3, N=rocket.HORIZON, abs_pri_tol=2e-3,
+              abs_dua_tol=1e-3, en_state_bound=True, en_input_bound=True,
+              relaxation_alpha=1.0, check_termination=1, constraints=cons)
+    one = K.condensed_fused_cuda(*args, max_iter=72, warm_start=False,
+                                 carry_out=False, **kw)
+    a = K.condensed_fused_cuda(*args, max_iter=24, warm_start=False,
+                               carry_out=True, **kw)
+    b = K.condensed_fused_cuda(*args, a[4], max_iter=48, warm_start=True,
+                               carry_out=False, **kw)
+    done = a[3] == 1
+    assert torch.equal(torch.where(done, a[2], 24 + b[2]), one[2])
+    assert torch.equal(torch.where(done[:, None, None], a[1], b[1]), one[1])
+    assert torch.equal(torch.where(done[:, None, None], a[0], b[0]), one[0])
+
+
+def test_rocket_api_runs_the_projections(dev):
+    s = _rocket(dev, max_iter=72)
+    before = K.condensed_fused_cuda.projected_launches
+    xs, us, it, ok = s.solve_batch(_rocket_x0(3000, dev), method="fused")
+    assert K.condensed_fused_cuda.projected_launches == before + 1
+    assert us.is_cuda and int(ok.sum()) >= 0.99 * 3000
+    u = us[ok == 1]
+    assert (torch.linalg.vector_norm(u[..., :2], dim=-1)
+            <= rocket.MU_INPUT * u[..., 2] + 5e-3).all()
+
+
+def test_single_instance_solve_on_the_card(dev):
+    """float64 solve() on the card equals the CPU's: 5 closed-loop rocket
+    steps, the same iteration counts and controls within 1e-9."""
+    card, cpu = (rocket.make_solver(dtype=torch.float64, device=d)
+                 for d in (dev, "cpu"))
+    x = rocket.X_INIT * 1.1
+    for k in range(5):
+        Xref, Uref = rocket.reference_trajectory(k)
+        for s in (card, cpu):
+            s.set_x0(x)
+            s.set_x_ref(Xref)
+            s.set_u_ref(Uref)
+            s.solve()
+        assert card.state.x.is_cuda
+        assert int(card.solution.iter) == int(cpu.solution.iter)
+        u_card = card.get_solution().controls[:, 0]
+        u_cpu = cpu.get_solution().controls[:, 0]
+        np.testing.assert_allclose(u_card, u_cpu, atol=1e-9)
+        x = rocket.simulate(x, u_cpu)

@@ -45,13 +45,14 @@ def test_make_problem_matches_jax(model, kw):
                                       kw.items()})
     pp = P.make_problem(*args, device=CPU, dtype=torch.float64, **kw)
     want = jax_arrays(jp)
-    got = {f.name: getattr(pp, f.name) for f in dataclasses.fields(pp)
-           if f.name not in ("cones_x", "cones_u")}
+    got = {f.name: getattr(pp, f.name) for f in dataclasses.fields(pp)}
     assert set(got) == set(want)
     for k, v in want.items():
+        if k in ("cones_x", "cones_u"):
+            assert got[k].num_cones == 0 and v["starts"] == (), k
+            continue
         assert got[k].dtype == torch.float64, k
         np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
-    assert pp.cones_x.num_cones == pp.cones_u.num_cones == 0
     assert (pp.nx, pp.nu, pp.N) == (jp.nx, jp.nu, jp.N)
 
 
@@ -92,4 +93,9 @@ def test_convert_round_trip():
         again = convert.to_numpy(back(d, dtype=torch.float64, device=CPU))
         assert set(again) == set(d)
         for k in d:
-            np.testing.assert_array_equal(again[k], d[k], err_msg=k)
+            if isinstance(d[k], dict):  # a cone set
+                assert again[k]["starts"] == d[k]["starts"], k
+                assert again[k]["dims"] == d[k]["dims"], k
+                np.testing.assert_array_equal(again[k]["mus"], d[k]["mus"])
+            else:
+                np.testing.assert_array_equal(again[k], d[k], err_msg=k)

@@ -26,15 +26,22 @@ TORCH_DTYPE = {jnp.float32: torch.float32, jnp.float64: torch.float64}
 CART_X_BOUND = np.array([2.0, 1e17, 1e17, 1e17])
 
 
+def jax_cones(cones) -> dict:
+    """A JAX ConeSet as the port's converters take it."""
+    return dict(mus=np.asarray(cones.mus), starts=tuple(cones.starts),
+                dims=tuple(cones.dims))
+
+
 def jax_arrays(obj) -> dict:
-    """The numpy arrays of a JAX pytree dataclass or NamedTuple (cone sets
-    left out)."""
+    """The numpy arrays of a JAX pytree dataclass or NamedTuple; a cone set
+    becomes a ``{"mus", "starts", "dims"}`` dict."""
     if dataclasses.is_dataclass(obj):
         items = ((f.name, getattr(obj, f.name))
                  for f in dataclasses.fields(obj))
     else:
         items = obj._asdict().items()
-    return {k: np.asarray(v) for k, v in items if not hasattr(v, "starts")}
+    return {k: jax_cones(v) if hasattr(v, "starts") else np.asarray(v)
+            for k, v in items}
 
 
 def cartpole_setup(dtype, *, state_bound=False, rho=1.0):
@@ -62,3 +69,45 @@ def cartpole_setup(dtype, *, state_bound=False, rho=1.0):
 def x0_batch(B, seed, scale=0.5, nx=4):
     return np.random.default_rng(seed).uniform(-scale, scale, size=(B, nx))
 
+
+def rocket_setup(dtype, *, state_bound=True, mu_x=None):
+    """(JAX problem, cache, maps) and the port's copies for the rocket lander
+    with its box, thrust cone and glide-slope cone and the reference at step
+    0 (the JAX bench row's configuration; ``mu_x`` overrides the glide-slope
+    coefficient, ``state_bound=False`` drops the state box)."""
+    from tinympc_julia_tpu.models import rocket
+    N = rocket.HORIZON
+    x_min, x_max, _, _ = rocket.bounds()
+    kw = {}
+    if state_bound:
+        kw = dict(x_min=jnp.asarray(x_min.T, dtype),
+                  x_max=jnp.asarray(x_max.T, dtype))
+    Xref, Uref = rocket.reference_trajectory(0)
+    cone = lambda mu: J.ConeSet(mus=jnp.asarray([mu], dtype), starts=(0,),
+                                dims=(3,))
+    jp = J.make_problem(jnp.asarray(rocket.A, dtype),
+                        jnp.asarray(rocket.B, dtype),
+                        jnp.asarray(np.diag(rocket.Q_DIAG), dtype),
+                        jnp.asarray(np.diag(rocket.R_DIAG), dtype),
+                        rocket.RHO, N, f=jnp.asarray(rocket.F, dtype),
+                        u_min=-10.0, u_max=105.0,
+                        Xref=jnp.asarray(Xref.T, dtype),
+                        Uref=jnp.asarray(Uref.T, dtype),
+                        cones_u=cone(rocket.MU_INPUT),
+                        cones_x=cone(rocket.MU_STATE if mu_x is None
+                                     else mu_x), **kw)
+    jc = J.precompute_cache(jp.A, jp.B, jp.Q, jp.R,
+                            jnp.asarray(rocket.RHO, dtype))
+    jm = jax_build(jp, jc)
+    tdt = TORCH_DTYPE[dtype]
+    pp = convert.problem_from_numpy(jax_arrays(jp), dtype=tdt, device=CPU)
+    pc = convert.cache_from_numpy(jax_arrays(jc), dtype=tdt, device=CPU)
+    pm = convert.maps_from_numpy(jax_arrays(jm), dtype=tdt, device=CPU)
+    return (jp, jc, jm), (pp, pc, pm)
+
+
+def rocket_x0(B, seed=2):
+    """The bench row's initial states: X_INIT scaled by U(0.9, 1.1)."""
+    from tinympc_julia_tpu.models import rocket
+    return rocket.X_INIT[None, :] * np.random.default_rng(seed).uniform(
+        0.9, 1.1, size=(B, 1))

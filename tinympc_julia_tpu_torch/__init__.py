@@ -6,10 +6,13 @@ nvcc at first use) where the JAX package has Pallas kernels.  It imports
 neither jax nor flax; its tests hold it against the JAX package, which stays
 beside it as the reference.
 
-This first slice covers the main path of a batched user: setup (problem,
-Riccati cache, condensed maps), ``TinyMPCSolver.solve_batch`` on the
-condensed and fused paths, and the three-phase straggler pipeline, all
-through kernel K1 (ops/cuda/condensed_kernel.py).
+Ported so far: the main path of a batched user (setup: problem, Riccati
+cache, condensed maps; ``TinyMPCSolver.solve_batch`` on the condensed and
+fused paths; the three-phase straggler pipeline, all through kernel K1 in
+ops/cuda/condensed_kernel.py), and the constrained path: the
+reference-ordered single-instance ``solve`` (ops/admm.py), the projections
+(ops/projections.py), the linear, cone and equality setters, and K1's
+halfspace and cone projections, with the rocket lander (models/rocket.py).
 """
 
 from .types import (  # noqa: F401
@@ -17,7 +20,10 @@ from .types import (  # noqa: F401
     ConeSet,
     Problem,
     Settings,
+    Solution,
+    State,
     default_settings,
+    init_state,
     make_problem,
     settings_bake_key,
 )
@@ -27,7 +33,7 @@ from .api import BatchWarmCarry, TinyMPCSolver  # noqa: F401
 __version__ = "0.1.0"
 
 __all__ = [
-    "BatchWarmCarry", "Cache", "ConeSet", "Problem", "Settings",
-    "TinyMPCSolver", "default_settings", "make_problem", "precompute_cache",
-    "settings_bake_key",
+    "BatchWarmCarry", "Cache", "ConeSet", "Problem", "Settings", "Solution",
+    "State", "TinyMPCSolver", "default_settings", "init_state",
+    "make_problem", "precompute_cache", "settings_bake_key",
 ]

@@ -1,11 +1,13 @@
-"""User-facing solver (counterpart of tinympc_julia_tpu/api.py), first slice.
+"""User-facing solver (counterpart of tinympc_julia_tpu/api.py).
 
-``TinyMPCSolver`` holds a Problem, its Riccati Cache and Settings on one
-device, chosen by the caller.  Ported so far: setup, the x0/reference and
-bound setters, settings and cache injection, and ``solve_batch`` on the
-condensed and fused (kernel K1) paths with exact warm continuation.  Every
-other method raises ``NotImplementedError`` naming the ROADMAP.md item that
-ports it.
+``TinyMPCSolver`` holds a Problem, its Riccati Cache, Settings and the
+single-instance workspace on one device, chosen by the caller.  Ported so
+far: setup, the x0/reference setters, the bound, linear, cone and equality
+constraints, settings and cache injection, the single-instance ``solve``
+(ops/admm.py) with its persisted warm start, and ``solve_batch`` on the
+condensed and fused (kernel K1 with its projections) paths with exact warm
+continuation.  Every other method raises ``NotImplementedError`` naming the
+ROADMAP.md item that ports it.
 
 Matrix layout at this boundary follows the reference: states (nx, N),
 controls (nu, N-1); ``solve_batch`` returns tensors on the solver's device,
@@ -20,10 +22,11 @@ import numpy as np
 import torch
 
 from . import types as T
-from .ops import riccati
-from .ops.condensed import (auto_uses_condensed, build_condensed,
-                            solve_condensed)
-from .ops.cuda.condensed_kernel import make_condensed_fused_solver
+from .ops import admm, not_ported, riccati
+from .ops.condensed import (auto_chunk_size, auto_uses_condensed,
+                            build_condensed, solve_condensed)
+from .ops.cuda.condensed_kernel import (make_condensed_fused_solver,
+                                        problem_constraint_kw)
 
 
 class MPCSolution(NamedTuple):
@@ -41,17 +44,13 @@ class BatchWarmCarry:
     data: object
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to "
-                               f"tinympc_julia_tpu_torch yet ({item})")
-
-
 class TinyMPCSolver:
     """Stateful wrapper over the functional core, on an explicit device.
 
         solver = TinyMPCSolver(dtype=torch.float32, device="cuda")
         solver.setup(A, B, f, Q, R, rho, nx, nu, N)
         solver.set_bound_constraints(x_min, x_max, u_min, u_max)
+        solver.set_x0(x0); solver.solve(); solver.get_solution()
         xs, us, iters, solved = solver.solve_batch(x0s, method="fused")
     """
 
@@ -61,7 +60,8 @@ class TinyMPCSolver:
         self.problem: Optional[T.Problem] = None
         self.cache: Optional[T.Cache] = None
         self.settings: T.Settings = T.default_settings()
-        self.solution = None
+        self.state: Optional[T.State] = None
+        self.solution: Optional[T.Solution] = None
         self.is_setup = False
         self._condensed_maps = None
 
@@ -105,7 +105,8 @@ class TinyMPCSolver:
             adaptive_rho_min=float(adaptive_rho_min),
             adaptive_rho_max=float(adaptive_rho_max),
             adaptive_rho_enable_clipping=bool(adaptive_rho_clipping))
-        self._x0 = torch.zeros((nx,), dtype=self.dtype, device=self.device)
+        self.state = T.init_state(nx, nu, N, dtype=self.dtype,
+                                  device=self.device)
         self.solution = None
         self._condensed_maps = None
         self.is_setup = True
@@ -124,12 +125,15 @@ class TinyMPCSolver:
     # -- state / reference setters -----------------------------------------
 
     def set_x0(self, x0, *, verbose=False):
-        """Initial state of the single-instance ``solve`` (not ported yet)."""
+        """Initial state of the single-instance ``solve``: the workspace's
+        x[0]."""
         self._require_setup()
         x0 = self._tensor(np.asarray(x0, float).reshape(-1))
         if x0.shape[0] != self.problem.nx:
             raise ValueError("x0 is not the correct length")
-        self._x0 = x0
+        x = self.state.x.clone()
+        x[0] = x0
+        self.state = self.state.replace(x=x)
         return 0
 
     def set_x_ref(self, x_ref, *, verbose=False):
@@ -176,17 +180,73 @@ class TinyMPCSolver:
                                               en_input_bound=True)
         return 0
 
-    def set_linear_constraints(self, *args, **kwargs):
-        raise _not_ported("set_linear_constraints", "ROADMAP.md queue 1, "
-                          "item 7")
+    def set_linear_constraints(self, Alin_x, blin_x, Alin_u, blin_u, *,
+                               verbose=False):
+        """Per-stage halfspaces Alin_x x <= blin_x, Alin_u u <= blin_u;
+        enables each family's flag when it has rows."""
+        self._require_setup()
+        p = self.problem
+        Alin_x = np.asarray(Alin_x, float).reshape(-1, p.nx)
+        Alin_u = np.asarray(Alin_u, float).reshape(-1, p.nu)
+        blin_x = np.asarray(blin_x, float).reshape(-1)
+        blin_u = np.asarray(blin_u, float).reshape(-1)
+        if blin_x.shape[0] != Alin_x.shape[0] or \
+                blin_u.shape[0] != Alin_u.shape[0]:
+            raise ValueError("each halfspace row needs one bound")
+        self.problem = p.replace(
+            Alin_x=self._tensor(Alin_x), blin_x=self._tensor(blin_x),
+            Alin_u=self._tensor(Alin_u), blin_u=self._tensor(blin_u))
+        s = self.settings
+        self.settings = s.replace(
+            en_state_linear=s.en_state_linear or Alin_x.shape[0] > 0,
+            en_input_linear=s.en_input_linear or Alin_u.shape[0] > 0)
+        return 0
 
-    def set_cone_constraints(self, *args, **kwargs):
-        raise _not_ported("set_cone_constraints", "ROADMAP.md queue 1, "
-                          "item 7")
+    def set_cone_constraints(self, Acu, qcu, cu, Acx, qcx, cx, *,
+                             verbose=False):
+        """Scaled SOC constraints ||w[start:start+q-1]|| <= mu *
+        w[start+q-1]: start indices, cone dims and coefficients, inputs
+        first, then states; enables each family's flag when it has cones."""
+        self._require_setup()
 
-    def set_equality_constraints(self, *args, **kwargs):
-        raise _not_ported("set_equality_constraints", "ROADMAP.md queue 1, "
-                          "item 7")
+        def cones(starts, dims, mus, n):
+            c = T.ConeSet(mus=self._tensor(np.asarray(mus, float)
+                                           .reshape(-1)),
+                          starts=tuple(int(i) for i in np.asarray(starts)
+                                       .reshape(-1)),
+                          dims=tuple(int(i) for i in np.asarray(dims)
+                                     .reshape(-1)))
+            if not len(c.starts) == len(c.dims) == c.mus.shape[0]:
+                raise ValueError("each cone needs a start, a dim and a mu")
+            for st, dm in zip(c.starts, c.dims):
+                if st < 0 or dm < 2 or st + dm > n:
+                    raise ValueError(f"cone [{st}, {st + dm}) does not fit "
+                                     f"a stage vector of {n}")
+            return c
+
+        cones_u = cones(Acu, qcu, cu, self.problem.nu)
+        cones_x = cones(Acx, qcx, cx, self.problem.nx)
+        self.problem = self.problem.replace(cones_u=cones_u, cones_x=cones_x)
+        s = self.settings
+        self.settings = s.replace(
+            en_input_soc=s.en_input_soc or cones_u.num_cones > 0,
+            en_state_soc=s.en_state_soc or cones_x.num_cones > 0)
+        return 0
+
+    def set_equality_constraints(self, Aeq_x, beq_x, Aeq_u=None, beq_u=None):
+        """Equalities lowered to inequality pairs (A w <= b, -A w <= -b), as
+        the Julia layer does."""
+        self._require_setup()
+        nx, nu = self.problem.nx, self.problem.nu
+        Aeq_x = np.asarray(Aeq_x, float).reshape(-1, nx)
+        beq_x = np.asarray(beq_x, float).reshape(-1)
+        Aeq_u = np.zeros((0, nu)) if Aeq_u is None else \
+            np.asarray(Aeq_u, float).reshape(-1, nu)
+        beq_u = np.zeros(0) if beq_u is None else \
+            np.asarray(beq_u, float).reshape(-1)
+        return self.set_linear_constraints(
+            np.vstack([Aeq_x, -Aeq_x]), np.concatenate([beq_x, -beq_x]),
+            np.vstack([Aeq_u, -Aeq_u]), np.concatenate([beq_u, -beq_u]))
 
     # -- settings / cache ----------------------------------------------------
 
@@ -228,16 +288,37 @@ class TinyMPCSolver:
     # -- solve ---------------------------------------------------------------
 
     def solve(self, *, verbose=False, chunked=None):
-        raise _not_ported("the single-instance solve (ops/admm.py)",
-                          "ROADMAP.md queue 1, item 3")
+        """Run ADMM to convergence from the persisted workspace (the
+        reference's warm start) and persist the new workspace and cache.
+        Returns 0 on convergence, 1 when max_iter runs out.
+
+        ``chunked=None`` takes the exact sequential recursions wherever the
+        JAX package would; where it would pick the chunked horizon
+        recursions (long horizons beyond the condensed-maps budget), and for
+        ``chunked=True``, this raises: ops/scans.py is not ported yet."""
+        self._require_setup()
+        p = self.problem
+        if chunked is None:
+            chunked = (not self.settings.adaptive_rho
+                       and not auto_uses_condensed(p.nx, p.nu, p.N)
+                       and auto_chunk_size(p.nx, p.nu, p.N) is not None)
+        if chunked:
+            raise not_ported("chunked horizon recursions (ops/scans.py)",
+                             "ROADMAP.md queue 1, item 12")
+        self.state, self.cache, self.solution = admm.solve(
+            p, self.cache, self.settings, self.state)
+        status = 1 - int(self.solution.solved)
+        if verbose:
+            print(f"Solve completed with status: {status}")
+        return status
 
     def get_solution(self) -> MPCSolution:
         """(states (nx, N), controls (nu, N-1)) of the last ``solve``."""
         self._require_setup()
         if self.solution is None:
             raise RuntimeError("No solution available; call solve() first")
-        return MPCSolution(states=np.asarray(self.solution.x).T,
-                           controls=np.asarray(self.solution.u).T)
+        return MPCSolution(states=self.solution.x.cpu().numpy().T,
+                           controls=self.solution.u.cpu().numpy().T)
 
     def _maps(self):
         if self._condensed_maps is None:
@@ -262,13 +343,13 @@ class TinyMPCSolver:
         if method == "auto":
             if not auto_uses_condensed(p.nx, p.nu, p.N,
                                        adaptive=s.adaptive_rho):
-                raise _not_ported("the chunked and standard paths of "
-                                  "method='auto'", "ROADMAP.md queue 1, "
-                                  "items 8 and 12")
+                raise not_ported("the chunked and standard paths of "
+                                 "method='auto'", "ROADMAP.md queue 1, "
+                                 "items 8 and 12")
             method = "condensed"
         if method in ("standard", "chunked"):
-            raise _not_ported(f"method={method!r}",
-                              "ROADMAP.md queue 1, items 8 and 12")
+            raise not_ported(f"method={method!r}",
+                             "ROADMAP.md queue 1, items 8 and 12")
         if method not in ("condensed", "fused"):
             raise ValueError(f"unknown method: {method}")
         if warm is not None:
@@ -282,7 +363,7 @@ class TinyMPCSolver:
                 raise ValueError(f"warm carry holds {warm.batch} lanes, "
                                  f"x0s has {B}")
         if s.adaptive_rho:
-            raise _not_ported("adaptive rho", "ROADMAP.md queue 1, item 10")
+            raise not_ported("adaptive rho", "ROADMAP.md queue 1, item 10")
         if method == "fused":
             out = self._solve_batch_fused(x0s, warm, return_carry)
         else:
@@ -299,7 +380,9 @@ class TinyMPCSolver:
     def _solve_batch_fused(self, x0s, warm, return_carry):
         """Kernel K1 on the batch as given: the kernel masks its ragged last
         tile and a lane's result does not depend on its tile, so no padding
-        is needed."""
+        is needed.  The solver is made anew for every call from the current
+        problem's constraint data, so a constraint setter between two calls
+        always reaches the kernel."""
         p, s = self.problem, self.settings
         ct = s.check_termination
         if ct < 1 or s.max_iter % ct != 0:
@@ -307,11 +390,7 @@ class TinyMPCSolver:
                 "the fused path needs check_termination >= 1 dividing "
                 f"max_iter (got {ct} / {s.max_iter})")
         if s.bf16_head_iters:
-            raise _not_ported("bf16_head_iters", "ROADMAP.md queue 2, K1c")
-        if (s.en_state_linear or s.en_input_linear or s.en_state_soc
-                or s.en_input_soc):
-            raise _not_ported("linear and cone constraints on the fused path",
-                              "ROADMAP.md queue 2, K1e")
+            raise not_ported("bf16_head_iters", "ROADMAP.md queue 2, K1c")
         if self.dtype != torch.float32:
             raise TypeError("the fused path is float32: build the solver "
                             "with dtype=torch.float32")
@@ -320,7 +399,8 @@ class TinyMPCSolver:
             abs_pri_tol=s.abs_pri_tol, abs_dua_tol=s.abs_dua_tol,
             en_state_bound=s.en_state_bound, en_input_bound=s.en_input_bound,
             relaxation_alpha=s.relaxation_alpha, check_termination=ct,
-            warm_start=warm is not None, carry_out=return_carry)
+            warm_start=warm is not None, carry_out=return_carry,
+            **problem_constraint_kw(p, s))
         args = (self._maps(), float(self.cache.rho), p.u_min, p.u_max,
                 p.x_min, p.x_max, x0s)
         if warm is not None:
@@ -330,26 +410,26 @@ class TinyMPCSolver:
     # -- not ported yet ------------------------------------------------------
 
     def solve_batch_rebuild_adaptive(self, *args, **kwargs):
-        raise _not_ported("solve_batch_rebuild_adaptive",
-                          "ROADMAP.md queue 1, item 11")
+        raise not_ported("solve_batch_rebuild_adaptive",
+                         "ROADMAP.md queue 1, item 11")
 
     def compute_sensitivity_autograd(self):
-        raise _not_ported("compute_sensitivity_autograd",
-                          "ROADMAP.md queue 1, item 14")
+        raise not_ported("compute_sensitivity_autograd",
+                         "ROADMAP.md queue 1, item 14")
 
     def print_problem_data(self, *, verbose=False):
-        raise _not_ported("print_problem_data", "ROADMAP.md queue 1, item 14")
+        raise not_ported("print_problem_data", "ROADMAP.md queue 1, item 14")
 
     def codegen(self, *args, **kwargs):
-        raise _not_ported("codegen", "ROADMAP.md queue 1, item 14")
+        raise not_ported("codegen", "ROADMAP.md queue 1, item 14")
 
     def codegen_with_sensitivity(self, *args, **kwargs):
-        raise _not_ported("codegen_with_sensitivity",
-                          "ROADMAP.md queue 1, item 14")
+        raise not_ported("codegen_with_sensitivity",
+                         "ROADMAP.md queue 1, item 14")
 
     def save(self, path):
-        raise _not_ported("save", "ROADMAP.md queue 1, item 14")
+        raise not_ported("save", "ROADMAP.md queue 1, item 14")
 
     @classmethod
     def load(cls, path):
-        raise _not_ported("load", "ROADMAP.md queue 1, item 14")
+        raise not_ported("load", "ROADMAP.md queue 1, item 14")

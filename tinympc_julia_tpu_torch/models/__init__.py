@@ -1,2 +1,2 @@
 """Benchmark plants (numpy-only copies of tinympc_julia_tpu/models)."""
-from . import cartpole, quadrotor  # noqa: F401
+from . import cartpole, quadrotor, rocket  # noqa: F401

@@ -1,0 +1,229 @@
+"""The reference-ordered ADMM solve of one instance (counterpart of
+tinympc_julia_tpu/ops/admm.py).
+
+Update ordering reproduces the reference exactly, quirks included:
+  * iteration 0 runs the slack, dual and linear-cost updates on the initial
+    trajectory before the first backward pass;
+  * the solution is the slack iterates vnew/znew;
+  * on the converging iteration v, z, p and d are not advanced (the
+    reference returns before the slack copy and the backward pass);
+  * residuals are stored only on check iterations;
+  * p_N uses Pinf.T @ Xref[-1].
+
+This is the single-instance oracle the batched paths are held against, not a
+hot path: the outer loop and the horizon recursions are Python loops over
+small tensors, and the loop reads its convergence flag on the host once per
+iteration.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..types import Cache, Problem, Settings, Solution, State
+from . import not_ported, projections
+
+TINY_SOLVED = 1
+TINY_UNSOLVED = 11
+
+
+# ---------------------------------------------------------------------------
+# Stage updates (one ADMM iteration's building blocks)
+# ---------------------------------------------------------------------------
+
+def forward_pass(state: State, problem: Problem, cache: Cache) -> State:
+    """LQR-feedback rollout: u_i = -Kinf x_i - d_i;
+    x_{i+1} = A x_i + B u_i + f."""
+    A, B, f, K = problem.A, problem.B, problem.f, cache.Kinf
+    xs = [state.x[0]]
+    us = []
+    for i in range(state.d.shape[0]):
+        u_i = -(K @ xs[-1]) - state.d[i]
+        us.append(u_i)
+        xs.append(A @ xs[-1] + B @ u_i + f)
+    return state.replace(x=torch.stack(xs), u=torch.stack(us))
+
+
+def _relaxed(settings: Settings, state: State):
+    """Over-relaxed iterates u_hat/x_hat (alpha = 1 gives the reference's
+    plain u/x; z/v are the previous slack iterates)."""
+    a = settings.relaxation_alpha
+    if a == 1.0:
+        return state.u, state.x
+    return a * state.u + (1.0 - a) * state.z, a * state.x + (1.0 - a) * state.v
+
+
+def update_slack(state: State, problem: Problem, settings: Settings) -> State:
+    """znew = u_hat + y, vnew = x_hat + g, then box -> linear -> SOC."""
+    u_hat, x_hat = _relaxed(settings, state)
+    znew = u_hat + state.y
+    vnew = x_hat + state.g
+    if settings.en_input_bound:
+        znew = projections.project_box(znew, problem.u_min, problem.u_max)
+    if settings.en_state_bound:
+        vnew = projections.project_box(vnew, problem.x_min, problem.x_max)
+    if settings.en_input_linear:
+        znew = projections.project_halfspaces(znew, problem.Alin_u,
+                                              problem.blin_u)
+    if settings.en_state_linear:
+        vnew = projections.project_halfspaces(vnew, problem.Alin_x,
+                                              problem.blin_x)
+    if settings.en_input_soc:
+        znew = projections.project_cones(znew, problem.cones_u)
+    if settings.en_state_soc:
+        vnew = projections.project_cones(vnew, problem.cones_x)
+    return state.replace(znew=znew, vnew=vnew)
+
+
+def update_dual(state: State, settings: Settings = None) -> State:
+    """Dual ascent: y += u_hat - znew;  g += x_hat - vnew."""
+    if settings is None or settings.relaxation_alpha == 1.0:
+        u_hat, x_hat = state.u, state.x
+    else:
+        u_hat, x_hat = _relaxed(settings, state)
+    return state.replace(y=state.y + u_hat - state.znew,
+                         g=state.g + x_hat - state.vnew)
+
+
+def update_linear_cost(state: State, problem: Problem, cache: Cache) -> State:
+    """r, q and p_N.  p_N = -(Pinf.T @ Xref_N) - rho (vnew_N - g_N): the
+    reference's row product Xref^T . Pinf, kept transposed for iterate
+    parity (Pinf is symmetric only up to roundoff)."""
+    rho = cache.rho
+    r = -(problem.Uref * problem.R) - rho * (state.znew - state.y)
+    q = -(problem.Xref * problem.Q) - rho * (state.vnew - state.g)
+    p_N = (-(cache.Pinf.T @ problem.Xref[-1])
+           - rho * (state.vnew[-1] - state.g[-1]))
+    p = torch.cat([state.p[:-1], p_N[None]])
+    return state.replace(r=r, q=q, p=p)
+
+
+def backward_pass(state: State, problem: Problem, cache: Cache, *,
+                  horizon_parallel: bool = False) -> State:
+    """Linear-term Riccati backward recursion:
+        d_i = Quu_inv (B^T p_{i+1} + r_i)
+        p_i = q_i + AmBKt p_{i+1} - Kinf^T r_i
+    """
+    if horizon_parallel:
+        raise not_ported("horizon_parallel (the associative scans)",
+                         "ROADMAP.md queue 1, item 12")
+    BT, Quu_inv, AmBKt, KT = (problem.B.T, cache.Quu_inv, cache.AmBKt,
+                              cache.Kinf.T)
+    n = state.r.shape[0]
+    p_next = state.p[-1]
+    ds, ps = [None] * n, [None] * n
+    for i in range(n - 1, -1, -1):
+        r_i = state.r[i]
+        ds[i] = Quu_inv @ (BT @ p_next + r_i)
+        p_next = state.q[i] + AmBKt @ p_next - KT @ r_i
+        ps[i] = p_next
+    return state.replace(d=torch.stack(ds),
+                         p=torch.stack(ps + [state.p[-1]]))
+
+
+def compute_residuals(state: State, cache: Cache):
+    """The four infinity-norm residuals of the termination check."""
+    pri_state = (state.x - state.vnew).abs().max()
+    dua_state = (state.v - state.vnew).abs().max() * cache.rho
+    pri_input = (state.u - state.znew).abs().max()
+    dua_input = (state.z - state.znew).abs().max() * cache.rho
+    return pri_state, pri_input, dua_state, dua_input
+
+
+# ---------------------------------------------------------------------------
+# The solve loop
+# ---------------------------------------------------------------------------
+
+def make_loop_fns(problem: Problem, settings: Settings, *,
+                  horizon_parallel: bool = False, dtype=None,
+                  chunk_maps=None):
+    """(cond_fn, body_fn) of the ADMM loop over the carry
+    ``(state, cache, z_prev, v_prev, converged, i)``; ``converged`` is a
+    Python bool and ``i`` a Python int."""
+    if settings.adaptive_rho:
+        raise not_ported("adaptive rho in the single-instance solve",
+                         "ROADMAP.md queue 1, item 10")
+    if horizon_parallel or chunk_maps is not None:
+        raise not_ported("horizon_parallel and chunk_maps (ops/scans.py)",
+                         "ROADMAP.md queue 1, item 12")
+    dtype = dtype or problem.dtype
+    pri_tol = torch.tensor(settings.abs_pri_tol, dtype=dtype,
+                           device=problem.device)
+    dua_tol = torch.tensor(settings.abs_dua_tol, dtype=dtype,
+                           device=problem.device)
+    ct = settings.check_termination
+
+    def cond_fn(carry):
+        *_, converged, i = carry
+        return i < settings.max_iter and not converged
+
+    def body_fn(carry):
+        st, ca, z_prev, v_prev, _, i = carry
+        st = forward_pass(st, problem, ca)
+        st = update_slack(st, problem, settings)
+        st = update_dual(st, settings)
+        st = update_linear_cost(st, problem, ca)
+        st = st.replace(iter=st.iter + 1)
+        z_prev, v_prev = st.znew, st.vnew
+
+        # termination check only on iterations where iter % ct == 0;
+        # residuals are stored only then
+        converged = False
+        if ct > 0 and (i + 1) % ct == 0:
+            pri_s, pri_i, dua_s, dua_i = compute_residuals(st, ca)
+            st = st.replace(primal_residual_state=pri_s,
+                            primal_residual_input=pri_i,
+                            dual_residual_state=dua_s,
+                            dual_residual_input=dua_i)
+            converged = bool((pri_s < pri_tol) & (pri_i < pri_tol)
+                             & (dua_s < dua_tol) & (dua_i < dua_tol))
+        if converged:
+            # the reference returns before the slack copy and the backward
+            # pass: v/z/p/d stay as they were
+            st = st.replace(status=torch.full_like(st.status, TINY_SOLVED))
+        else:
+            st = backward_pass(st.replace(v=st.vnew, z=st.znew), problem, ca)
+        return (st, ca, z_prev, v_prev, converged, i + 1)
+
+    return cond_fn, body_fn
+
+
+def init_carry(state: State, cache: Cache):
+    """Initial loop carry (the solve's preamble)."""
+    state = state.replace(status=torch.full_like(state.status, TINY_UNSOLVED),
+                          iter=torch.zeros_like(state.iter))
+    return (state, cache, state.znew, state.vnew, False, 0)
+
+
+def finalize(carry) -> Tuple[State, Cache, Solution]:
+    state, cache, _, _, converged, _ = carry
+    solution = Solution(
+        iter=state.iter.clone(),
+        solved=torch.tensor(int(converged), dtype=torch.int32,
+                            device=state.iter.device),
+        x=state.vnew, u=state.znew)
+    return state, cache, solution
+
+
+def solve_impl(problem: Problem, cache: Cache, settings: Settings,
+               state: State, *, horizon_parallel: bool = False,
+               chunk_maps=None) -> Tuple[State, Cache, Solution]:
+    cond_fn, body_fn = make_loop_fns(problem, settings,
+                                     horizon_parallel=horizon_parallel,
+                                     dtype=state.x.dtype,
+                                     chunk_maps=chunk_maps)
+    carry = init_carry(state, cache)
+    while cond_fn(carry):
+        carry = body_fn(carry)
+    return finalize(carry)
+
+
+def solve(problem: Problem, cache: Cache, settings: Settings, state: State,
+          *, horizon_parallel: bool = False, chunk_maps=None
+          ) -> Tuple[State, Cache, Solution]:
+    """One full ADMM solve.  Pure: returns the advanced (state, cache) and
+    the Solution; the caller persists state and cache for warm starts."""
+    return solve_impl(problem, cache, settings, state,
+                      horizon_parallel=horizon_parallel,
+                      chunk_maps=chunk_maps)

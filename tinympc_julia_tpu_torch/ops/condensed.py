@@ -21,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..types import Cache, Problem, Settings
+from ..types import Cache, ConeSet, Problem, Settings
 
 
 # method="auto" uses the condensed solve while its maps fit this memory
@@ -240,6 +240,79 @@ def build_condensed(problem: Problem, cache: Cache) -> CondensedMaps:
     return CondensedMaps(T1=cast(T1), T2=cast(T2), T12=cast(T12))
 
 
+def halfspace_rows(Alin, blin) -> torch.Tensor:
+    """The packed rows (m, 2*dim + 1) of per-stage halfspaces a.w <= b:
+    ``[a, a / max(||a||^2, 1e-30), b]``, computed in float64 and cast to
+    ``Alin``'s dtype.  Both the condensed solve and kernel K1 (and its plain
+    version) project with these rows, so kernel and plain start from the
+    same data."""
+    A = torch.as_tensor(Alin).to(torch.float64)
+    b = torch.as_tensor(blin, device=A.device).to(torch.float64)
+    if A.ndim != 2 or b.shape != (A.shape[0],):
+        raise ValueError(f"halfspaces need Alin (m, dim) and blin (m,); got "
+                         f"{tuple(A.shape)} and {tuple(b.shape)}")
+    inv_sq = 1.0 / torch.clamp_min((A * A).sum(-1), 1e-30)
+    rows = torch.cat([A, A * inv_sq[:, None], b[:, None]], dim=1)
+    return rows.to(torch.as_tensor(Alin).dtype)
+
+
+def _halfspaces_stacked(w, rows, n_stages, dim):
+    """Cyclic halfspace projections on a stacked (n_stages*dim, B) array:
+    per stage k and row j in order, w_k -= max(a_j.w_k - b_j, 0) a_j/||a_j||^2
+    (ops/projections.py semantics).  ``rows`` is ``halfspace_rows``'s
+    packing; the inner product is summed in index order, as kernel K1 sums
+    it."""
+    if rows.shape[0] == 0:
+        return w
+    B = w.shape[1]
+    w3 = w.reshape(n_stages, dim, B)
+    for row in rows:
+        a, a_scaled, b = row[:dim], row[dim:2 * dim], row[2 * dim]
+        dot = w3[:, 0] * a[0]
+        for d in range(1, dim):
+            dot = dot + w3[:, d] * a[d]
+        viol = torch.clamp_min(dot - b, 0.0)
+        w3 = w3 - viol[:, None, :] * a_scaled[None, :, None]
+    return w3.reshape(n_stages * dim, B)
+
+
+def _sqrt_rn(x):
+    """Square root rounded to nearest, as kernel K1's ``__fsqrt_rn``: the
+    CPU's vectorised float32 sqrt is off by an ulp at times, so float32 goes
+    through float64, whose second rounding lands on the nearest float."""
+    if x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
+def _cones_stacked(w, cones: ConeSet, n_stages, dim):
+    """Scaled-SOC projections (``projections._project_soc_scaled``) of every
+    stage of a stacked (n_stages*dim, B) array, cone by cone; the norm's
+    squares are summed in index order, as kernel K1 sums them."""
+    if cones.num_cones == 0:
+        return w
+    B = w.shape[1]
+    w3 = w.reshape(n_stages, dim, B).clone()
+    for k, (start, cdim) in enumerate(zip(cones.starts, cones.dims)):
+        seg = w3[:, start:start + cdim, :]          # (n_stages, cdim, B)
+        vpart = seg[:, :-1, :]
+        s = seg[:, -1, :]
+        mu = cones.mus[k]
+        sq = vpart[:, 0] * vpart[:, 0]
+        for d in range(1, cdim - 1):
+            sq = sq + vpart[:, d] * vpart[:, d]
+        a = _sqrt_rn(sq)
+        u0 = s * mu
+        factor = (a + u0) / (2.0 * torch.clamp_min(a, 1e-30))
+        proj = torch.cat([factor[:, None, :] * vpart,
+                          (factor * (a / mu))[:, None, :]], dim=1)
+        below = (a <= -u0)[:, None, :]
+        inside = (a <= u0)[:, None, :]
+        w3[:, start:start + cdim, :] = torch.where(
+            below, torch.zeros_like(seg), torch.where(inside, seg, proj))
+    return w3.reshape(n_stages * dim, B)
+
+
 class CondensedCarry(NamedTuple):
     """Warm-start carry of the condensed solver, stacked (dim, B) layout."""
     d: torch.Tensor  # (su, B)
@@ -258,19 +331,14 @@ def solve_condensed(problem: Problem, cache: Cache, settings: Settings, x0s,
     Returns (xs (B, N, nx), us (B, N-1, nu), iters (B,), solved (B,)), plus
     the carry when ``return_carry=True`` (pass it back as ``warm=``: the
     continuation equals one long solve lane for lane).  The solutions are
-    the slack iterates, as in the reference.  Box constraints and fixed rho
-    only: the linear and cone projections and adaptive rho are not ported
-    yet (ROADMAP.md queue 1, items 7 and 10)."""
+    the slack iterates, as in the reference.  Box, linear and cone
+    constraints, composed box -> linear -> SOC; fixed rho only (adaptive rho
+    is ROADMAP.md queue 1, item 10)."""
     s = settings
     if s.adaptive_rho:
         raise NotImplementedError(
             "adaptive rho on the condensed path is not ported yet "
             "(ROADMAP.md queue 1, item 10)")
-    if (s.en_state_linear or s.en_input_linear or s.en_state_soc
-            or s.en_input_soc):
-        raise NotImplementedError(
-            "linear and cone constraints are not ported yet "
-            "(ROADMAP.md queue 1, item 7)")
     if maps is None:
         maps = build_condensed(problem, cache)
     nx, nu, N = problem.nx, problem.nu, problem.N
@@ -284,6 +352,10 @@ def solve_condensed(problem: Problem, cache: Cache, settings: Settings, x0s,
     dua_tol = torch.tensor(s.abs_dua_tol, dtype=dtype, device=dev)
     alpha = s.relaxation_alpha
     ct = s.check_termination
+    lin_u = halfspace_rows(problem.Alin_u, problem.blin_u) \
+        if s.en_input_linear else None
+    lin_x = halfspace_rows(problem.Alin_x, problem.blin_x) \
+        if s.en_state_linear else None
 
     T1, T2 = maps.T1, maps.T2
     # the duals enter T2 only through rho (y - znew) and rho (g - vnew), so
@@ -317,6 +389,14 @@ def solve_condensed(problem: Problem, cache: Cache, settings: Settings, x0s,
         vnew = x_hat + g
         if s.en_state_bound:
             vnew = torch.clamp(vnew, xmin, xmax)
+        if lin_u is not None:
+            znew = _halfspaces_stacked(znew, lin_u, N - 1, nu)
+        if lin_x is not None:
+            vnew = _halfspaces_stacked(vnew, lin_x, N, nx)
+        if s.en_input_soc:
+            znew = _cones_stacked(znew, problem.cones_u, N - 1, nu)
+        if s.en_state_soc:
+            vnew = _cones_stacked(vnew, problem.cones_x, N, nx)
 
         # lanes converged in an earlier iteration are frozen entirely
         y = torch.where(conv, y, y + u_hat - znew)

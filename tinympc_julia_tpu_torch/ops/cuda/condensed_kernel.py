@@ -1,5 +1,6 @@
-"""Kernel K1: the fixed-rho, box-constrained condensed ADMM solve, fused
-(counterpart of tinympc_julia_tpu/ops/pallas/condensed_kernel.py).
+"""Kernel K1: the fixed-rho condensed ADMM solve, fused, with its box,
+linear and cone projections (K1e) (counterpart of
+tinympc_julia_tpu/ops/pallas/condensed_kernel.py).
 
 ``make_condensed_fused_solver`` returns ``solve_fn(maps, rho, u_min, u_max,
 x_min, x_max, x0s[, warm])``.  On CUDA tensors it launches the hand-written
@@ -9,10 +10,12 @@ CPU tensors it runs the kernel's plain PyTorch version
 
 Per-lane semantics are those of the Pallas kernel: one fused matmul per
 iteration ``ux = T12w @ w2 + uxc``; a cold iteration 0 that is the pure
-rollout; residual checks on the last iteration of each ``check_termination``
-group; converged lanes latch and freeze; the warm carry
-``FusedCarry(w2, y, g, v, z)`` makes a chained solve equal one long solve.
-Tolerances, rho and alpha are run-time arguments of the kernel.
+rollout; slack projections box -> per-stage halfspaces (cyclic) -> per-stage
+scaled SOCs; residual checks on the last iteration of each
+``check_termination`` group; converged lanes latch and freeze; the warm
+carry ``FusedCarry(w2, y, g, v, z)`` makes a chained solve equal one long
+solve.  Tolerances, rho, alpha and the constraint data are run-time
+arguments of the kernel.
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..condensed import CondensedMaps
+from ...types import ConeSet
+from ..condensed import (CondensedMaps, _cones_stacked, _halfspaces_stacked,
+                         halfspace_rows)
 from ._build import load_library
 
 
@@ -37,13 +42,89 @@ class FusedCarry(NamedTuple):
     z: torch.Tensor   # (su, B)
 
 
+class FusedConstraints(NamedTuple):
+    """The linear and cone constraint data of one fused solve, on the solve's
+    device and in its dtype: halfspace rows packed by
+    ``condensed.halfspace_rows`` (None where the family is off) and a cone
+    set per side.  Kernel and plain version read the same tensors."""
+    lin_u: torch.Tensor | None  # (m_u, 2*nu + 1)
+    lin_x: torch.Tensor | None  # (m_x, 2*nx + 1)
+    cones_u: ConeSet
+    cones_x: ConeSet
+
+
 # The launch layout is decided here and passed to the kernel, which checks
 # it: shared memory one block may use on sm_90 (opt-in maximum, bytes), the
 # row padding of the transposed T12 (a multiple of the kernel's output-row
 # register block, csrc/condensed_fused.cu kRowBlock) and the largest tile.
+# The projections hold one stage of a side in a per-thread buffer of
+# MAX_STAGE floats (kMaxStage) and take at most MAX_CONES cones a side
+# (kMaxCones).
 SMEM_PER_BLOCK = 232448
 ROW_BLOCK = 8
 MAX_TILE = 128
+MAX_STAGE = 12
+MAX_CONES = 8
+
+
+def cone_spec(cones: ConeSet) -> tuple:
+    """ConeSet -> the factory's ``(start, dim, mu)`` tuples; ``mu`` stays a
+    0-d tensor on the problem's device (no host round trip)."""
+    return tuple((int(st), int(dm), cones.mus[k])
+                 for k, (st, dm) in enumerate(zip(cones.starts, cones.dims)))
+
+
+def problem_constraint_kw(problem, settings) -> dict:
+    """The constraint kwargs of ``make_condensed_fused_solver`` from a
+    Problem and Settings (``()``/None for the families that are off)."""
+    p, s = problem, settings
+    return dict(
+        soc_u=cone_spec(p.cones_u) if s.en_input_soc else (),
+        soc_x=cone_spec(p.cones_x) if s.en_state_soc else (),
+        lin_u=(p.Alin_u, p.blin_u) if s.en_input_linear else None,
+        lin_x=(p.Alin_x, p.blin_x) if s.en_state_linear else None)
+
+
+def fused_constraints(soc_u=(), soc_x=(), lin_u=None, lin_x=None, *, nx,
+                      nu, dtype, device) -> FusedConstraints:
+    """The factory's constraint options as tensors on ``device``: the
+    halfspace rows packed in float64 then cast to ``dtype``, the cone
+    coefficients stacked.  A family given with no rows is left out."""
+    def cones(spec, n):
+        spec = tuple(spec)
+        for st, dm, _ in spec:
+            if st < 0 or dm < 2 or st + dm > n:
+                raise ValueError(f"cone [{st}, {st + dm}) does not fit a "
+                                 f"stage vector of {n}")
+        if not spec:
+            return ConeSet.empty(dtype, device)
+        mus = torch.stack([torch.as_tensor(mu).to(device, torch.float64)
+                           .reshape(()) for _, _, mu in spec])
+        return ConeSet(mus=mus.to(dtype), starts=tuple(int(c[0]) for c in
+                                                       spec),
+                       dims=tuple(int(c[1]) for c in spec))
+
+    def rows(lin, n):
+        if lin is None:
+            return None
+        A = torch.as_tensor(lin[0]).to(device, torch.float64)
+        b = torch.as_tensor(lin[1]).to(device, torch.float64)
+        if A.ndim != 2 or A.shape[1] != n:
+            raise ValueError(f"Alin must be (m, {n}); got {tuple(A.shape)}")
+        if A.shape[0] == 0:
+            return None
+        return halfspace_rows(A, b).to(dtype)
+
+    return FusedConstraints(lin_u=rows(lin_u, nu), lin_x=rows(lin_x, nx),
+                            cones_u=cones(soc_u, nu), cones_x=cones(soc_x, nx))
+
+
+def _state_free(en_state_bound, cons: FusedConstraints) -> bool:
+    """No state-side constraint at all: the state dual stays 0, vnew =
+    x_hat (the Pallas kernel's rule)."""
+    return (not en_state_bound
+            and (cons.lin_x is None or cons.lin_x.shape[0] == 0)
+            and cons.cones_x.num_cones == 0)
 
 
 def _padded_rows(sw: int) -> int:
@@ -77,7 +158,7 @@ def _dims(nx, nu, N):
     return su, sx, su + sx
 
 
-def _validate(maps, bounds, x0s, warm, nx, nu, N, warm_start):
+def _validate(maps, bounds, x0s, warm, nx, nu, N, warm_start, cons):
     su, sx, sw = _dims(nx, nu, N)
     if x0s.ndim != 2 or x0s.shape[1] != nx:
         raise ValueError(f"x0s must be (B, {nx}); got {tuple(x0s.shape)}")
@@ -96,6 +177,13 @@ def _validate(maps, bounds, x0s, warm, nx, nu, N, warm_start):
     if not warm_start and warm is not None:
         raise ValueError("pass warm only to a warm_start=True solver")
     tensors = [maps.T12, maps.T1, *bounds, x0s]
+    for rows, n in ((cons.lin_u, nu), (cons.lin_x, nx)):
+        if rows is not None:
+            if rows.ndim != 2 or rows.shape[1] != 2 * n + 1:
+                raise ValueError(f"halfspace rows must be (m, {2 * n + 1}); "
+                                 f"got {tuple(rows.shape)}")
+            tensors.append(rows)
+    tensors += [cons.cones_u.mus, cons.cones_x.mus]
     if warm is not None:
         for w, n in zip(warm, (sw, su, sx, sx, su)):
             if tuple(w.shape) != (n, B):
@@ -109,16 +197,24 @@ def _validate(maps, bounds, x0s, warm, nx, nu, N, warm_start):
     return tensors
 
 
+def _no_constraints(x0s) -> FusedConstraints:
+    empty = ConeSet.empty(x0s.dtype, x0s.device)
+    return FusedConstraints(None, None, empty, empty)
+
+
 def condensed_fused_reference(maps: CondensedMaps, rho, u_min, u_max, x_min,
                               x_max, x0s, warm=None, *, nx, nu, N, max_iter,
                               abs_pri_tol, abs_dua_tol, en_state_bound,
                               en_input_bound, relaxation_alpha,
-                              check_termination, warm_start, carry_out):
+                              check_termination, warm_start, carry_out,
+                              constraints: FusedConstraints | None = None):
     """Plain PyTorch version of kernel K1: the same computation in the same
     order, on the whole batch at once (a lane's result does not depend on
-    which lanes share its tile).  Any float dtype and device."""
+    which lanes share its tile).  Any float dtype and device;
+    ``constraints`` (``fused_constraints``) in the same dtype."""
+    cons = constraints or _no_constraints(x0s)
     _validate(maps, (u_min, u_max, x_min, x_max), x0s, warm, nx, nu, N,
-              warm_start)
+              warm_start, cons)
     su, sx, sw = _dims(nx, nu, N)
     ct = check_termination
     dt, dev = x0s.dtype, x0s.device
@@ -131,7 +227,12 @@ def condensed_fused_reference(maps: CondensedMaps, rho, u_min, u_max, x_min,
     pri_tol = torch.tensor(abs_pri_tol, dtype=dt, device=dev)
     dua_tol = torch.tensor(abs_dua_tol, dtype=dt, device=dev)
     alpha = relaxation_alpha
-    state_free = not en_state_bound
+    state_free = _state_free(en_state_bound, cons)
+
+    def project(w, rows, cones, n_stages, dim):
+        if rows is not None:
+            w = _halfspaces_stacked(w, rows, n_stages, dim)
+        return _cones_stacked(w, cones, n_stages, dim)
 
     uxc = Tx0 @ x0s.T + T1c
     if warm_start:
@@ -160,10 +261,14 @@ def condensed_fused_reference(maps: CondensedMaps, rho, u_min, u_max, x_min,
         znew = u_hat + y
         if en_input_bound:
             znew = torch.minimum(umax, torch.maximum(umin, znew))
+        znew = project(znew, cons.lin_u, cons.cones_u, N - 1, nu)
         if state_free:
             vnew = x_hat  # no state projection and g == 0
         else:
-            vnew = torch.minimum(xmax, torch.maximum(xmin, x_hat + g))
+            vnew = x_hat + g
+            if en_state_bound:
+                vnew = torch.minimum(xmax, torch.maximum(xmin, vnew))
+            vnew = project(vnew, cons.lin_x, cons.cones_x, N, nx)
         prev = conv
         y = torch.where(prev, y, y + u_hat - znew)
         if not state_free:
@@ -212,7 +317,12 @@ def condensed_fused_reference(maps: CondensedMaps, rho, u_min, u_max, x_min,
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLT = ctypes.c_float
-_ARGTYPES = ([_PTR] * 24 + [_INT] * 6 + [_FLT] * 5 + [_INT] * 8 + [_PTR])
+_IPTR = ctypes.POINTER(ctypes.c_int)
+# one side's constraints: halfspace rows (device), their count, the cones'
+# (start, dim) pairs (host), the cones' mu (device), the cone count
+_SIDE = [_PTR, _INT, _IPTR, _PTR, _INT]
+_ARGTYPES = ([_PTR] * 24 + [_INT] * 6 + [_FLT] * 5 + [_INT] * 8
+             + _SIDE + _SIDE + [_PTR])
 
 
 @functools.cache
@@ -227,17 +337,39 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _side_args(rows, cones: ConeSet, dim: int, side: str) -> list:
+    """The five C arguments of one side's constraints (``_SIDE``)."""
+    n_lin = 0 if rows is None else int(rows.shape[0])
+    n_soc = cones.num_cones
+    if (n_lin or n_soc) and dim > MAX_STAGE:
+        raise ValueError(f"the fused kernel projects stages of at most "
+                         f"{MAX_STAGE} entries; the {side} side has {dim} "
+                         "(ROADMAP.md queue 2, K1e stage width)")
+    if n_soc > MAX_CONES:
+        raise ValueError(f"the fused kernel takes at most {MAX_CONES} cones "
+                         f"a side; the {side} side has {n_soc}")
+    spec = (ctypes.c_int * max(2 * n_soc, 1))(
+        *(v for c in zip(cones.starts, cones.dims) for v in c))
+    return [_ptr(rows), n_lin, spec, _ptr(cones.mus) if n_soc else None,
+            n_soc]
+
+
 def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
                          x_max, x0s, warm=None, *, nx, nu, N, max_iter,
                          abs_pri_tol, abs_dua_tol, en_state_bound,
                          en_input_bound, relaxation_alpha, check_termination,
-                         warm_start, carry_out):
+                         warm_start, carry_out,
+                         constraints: FusedConstraints | None = None):
     """Launch kernel K1 (csrc/condensed_fused.cu) on CUDA tensors; the
     arguments and results are those of ``condensed_fused_reference``.
     Raises on CPU tensors, on any dtype but float32, on non-contiguous
-    inputs, and when the build or the launch fails."""
+    inputs, on a projected stage wider than MAX_STAGE, and when the build
+    or the launch fails.  Counts every launch in ``.launches`` and those
+    that run linear or cone projections (K1e) also in
+    ``.projected_launches``."""
+    cons = constraints or _no_constraints(x0s)
     tensors = _validate(maps, (u_min, u_max, x_min, x_max), x0s, warm, nx,
-                        nu, N, warm_start)
+                        nu, N, warm_start, cons)
     for t in tensors:
         if not t.is_cuda:
             raise ValueError("condensed_fused_cuda takes CUDA tensors only")
@@ -254,7 +386,9 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
     dev = x0s.device
     tile, resident = fused_tile_plan(nx, nu, N)
     swp = _padded_rows(sw)
-    state_free = not en_state_bound
+    state_free = _state_free(en_state_bound, cons)
+    side_u = _side_args(cons.lin_u, cons.cones_u, nu, "input")
+    side_x = _side_args(cons.lin_x, cons.cones_x, nx, "state")
 
     f32 = dict(dtype=torch.float32, device=dev)
     # kernel-side layouts of the maps: T12w transposed with its rows padded,
@@ -294,11 +428,13 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
                  abs_pri_tol, abs_dua_tol, int(en_input_bound),
                  int(en_state_bound), int(warm_start), int(carry_out),
                  tile, int(resident), swp,
-                 _smem_bytes(sw, tile, resident), stream)
+                 _smem_bytes(sw, tile, resident), *side_u, *side_x, stream)
     if err != 0:
         raise RuntimeError(f"condensed_fused kernel launch failed: CUDA "
                            f"error {err}")
     condensed_fused_cuda.launches += 1
+    if side_u[1] or side_u[4] or side_x[1] or side_x[4]:
+        condensed_fused_cuda.projected_launches += 1
     out = (xout.T.reshape(B, N, nx), uout.T.reshape(B, N - 1, nu), iters,
            solved)
     if carry_out:
@@ -307,6 +443,7 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
 
 
 condensed_fused_cuda.launches = 0
+condensed_fused_cuda.projected_launches = 0
 
 
 def make_condensed_fused_solver(nx: int, nu: int, N: int, *,
@@ -332,9 +469,15 @@ def make_condensed_fused_solver(nx: int, nu: int, N: int, *,
     ``warm_start=True`` the extra ``warm`` argument is a FusedCarry; with
     ``carry_out=True`` the result gains one.  ``check_termination=k``
     evaluates residuals only on every k-th iteration and must divide
-    ``max_iter``.  The reduced-precision head, the group grid and the
-    linear and cone projections of the JAX factory are not ported yet and
-    raise ``NotImplementedError`` (ROADMAP.md queue 2, K1c, K1d, K1e)."""
+    ``max_iter``.
+
+    Constraints beyond the box, in the JAX factory's form, composed box ->
+    linear -> SOC on every stage: ``soc_u``/``soc_x`` tuples of ``(start,
+    dim, mu)`` scaled SOCs (``mu`` a float or 0-d tensor), ``lin_u``/
+    ``lin_x`` ``(Alin (m, dim), blin (m,))`` cyclic halfspaces.  They are
+    moved to the solve's device at its first call on that device.  The
+    reduced-precision head and the group grid are not ported yet and raise
+    ``NotImplementedError`` (ROADMAP.md queue 2, K1c, K1d)."""
     ct = check_termination
     if ct < 1 or max_iter % ct != 0:
         raise ValueError(
@@ -347,15 +490,13 @@ def make_condensed_fused_solver(nx: int, nu: int, N: int, *,
     if num_groups != 1:
         raise NotImplementedError(
             "num_groups > 1 is not ported yet (ROADMAP.md queue 2, K1d)")
-    if soc_u or soc_x or lin_u is not None or lin_x is not None:
-        raise NotImplementedError(
-            "linear and cone projections in the fused kernel are not ported "
-            "yet (ROADMAP.md queue 2, K1e)")
     kw = dict(nx=nx, nu=nu, N=N, max_iter=max_iter, abs_pri_tol=abs_pri_tol,
               abs_dua_tol=abs_dua_tol, en_state_bound=en_state_bound,
               en_input_bound=en_input_bound,
               relaxation_alpha=relaxation_alpha, check_termination=ct,
               warm_start=warm_start, carry_out=carry_out)
+
+    constraints = {}  # (device, dtype) -> FusedConstraints
 
     def solve_fn(maps, rho, u_min, u_max, x_min, x_max, x0s, warm=None):
         if x0s.device.type == "cuda":
@@ -364,6 +505,12 @@ def make_condensed_fused_solver(nx: int, nu: int, N: int, *,
             fn = condensed_fused_reference
         else:
             raise ValueError(f"no fused solver for device {x0s.device}")
-        return fn(maps, rho, u_min, u_max, x_min, x_max, x0s, warm, **kw)
+        key = (x0s.device, x0s.dtype)
+        if key not in constraints:
+            constraints[key] = fused_constraints(
+                soc_u, soc_x, lin_u, lin_x, nx=nx, nu=nu, dtype=x0s.dtype,
+                device=x0s.device)
+        return fn(maps, rho, u_min, u_max, x_min, x_max, x0s, warm,
+                  constraints=constraints[key], **kw)
 
     return solve_fn

@@ -28,9 +28,10 @@ def _as(v, dtype, device) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class ConeSet:
-    """Second-order cone constraints on a stage vector (scaled SOC
-    ``||w[:-1]|| <= mu * w[-1]`` on ``vec[start:start+dim]``).  The port's
-    first slice carries it empty, so the structure matches the JAX Problem."""
+    """Second-order cone constraints on a stage vector: cone k is the scaled
+    SOC ``||w[:-1]|| <= mus[k] * w[-1]`` on ``w = vec[starts[k]:starts[k] +
+    dims[k]]`` (JAX ConeSet).  ``starts``/``dims`` are plain ints, ``mus`` a
+    tensor on the problem's device."""
     mus: torch.Tensor
     starts: Tuple[int, ...] = ()
     dims: Tuple[int, ...] = ()
@@ -95,10 +96,10 @@ class Problem:
 class Settings:
     """Solver settings; field names and defaults as in the JAX Settings.
 
-    The port's first slice runs fixed-rho box-constrained solves; the
-    adaptive-rho, linear, cone and bf16-head fields are kept so the two
-    packages share one settings surface, and the solve paths raise
-    ``NotImplementedError`` when one of them is switched on."""
+    The port runs fixed-rho solves with box, linear and cone constraints;
+    the adaptive-rho and bf16-head fields are kept so the two packages share
+    one settings surface, and the solve paths raise ``NotImplementedError``
+    when one of them is switched on."""
     abs_pri_tol: float = 1e-3
     abs_dua_tol: float = 1e-3
     adaptive_rho_min: float = 1.0
@@ -200,3 +201,59 @@ def make_problem(A, B, Q, R, rho, N, *, device, f=None, x_min=None,
         cones_u=cones_u if cones_u is not None else ConeSet.empty(dtype, device),
         rho_setup=rho,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class State:
+    """The solver workspace of the single-instance solve (JAX State):
+    horizon-major iterates, the four residuals of the last check, the status
+    (11 unsolved, 1 solved) and the iteration count.  Persisting it across
+    ``solve`` calls is the reference's warm start."""
+    x: torch.Tensor     # (N, nx)   state trajectory
+    u: torch.Tensor     # (N-1, nu) input trajectory
+    q: torch.Tensor     # (N, nx)   linear state cost
+    r: torch.Tensor     # (N-1, nu) linear input cost
+    p: torch.Tensor     # (N, nx)   Riccati linear terms
+    d: torch.Tensor     # (N-1, nu) feedforward terms
+    v: torch.Tensor     # (N, nx)   previous state slack
+    vnew: torch.Tensor  # (N, nx)
+    z: torch.Tensor     # (N-1, nu) previous input slack
+    znew: torch.Tensor  # (N-1, nu)
+    g: torch.Tensor     # (N, nx)   state dual
+    y: torch.Tensor     # (N-1, nu) input dual
+    primal_residual_state: torch.Tensor  # 0-d
+    primal_residual_input: torch.Tensor
+    dual_residual_state: torch.Tensor
+    dual_residual_input: torch.Tensor
+    status: torch.Tensor  # 0-d int32
+    iter: torch.Tensor    # 0-d int32
+
+    def replace(self, **kw) -> "State":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Solution:
+    """JAX Solution: ``x``/``u`` are the slack iterates vnew/znew, as the
+    reference returns them."""
+    iter: torch.Tensor    # 0-d int32
+    solved: torch.Tensor  # 0-d int32
+    x: torch.Tensor       # (N, nx)
+    u: torch.Tensor       # (N-1, nu)
+
+
+def init_state(nx: int, nu: int, N: int, *, device,
+               dtype=torch.float64) -> State:
+    """Zero workspace (JAX init_state)."""
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    i32 = dict(dtype=torch.int32, device=device)
+    return State(
+        x=zeros(N, nx), u=zeros(N - 1, nu), q=zeros(N, nx),
+        r=zeros(N - 1, nu), p=zeros(N, nx), d=zeros(N - 1, nu),
+        v=zeros(N, nx), vnew=zeros(N, nx), z=zeros(N - 1, nu),
+        znew=zeros(N - 1, nu), g=zeros(N, nx), y=zeros(N - 1, nu),
+        primal_residual_state=zeros(), primal_residual_input=zeros(),
+        dual_residual_state=zeros(), dual_residual_input=zeros(),
+        status=torch.zeros((), **i32), iter=torch.zeros((), **i32))

@@ -2,9 +2,8 @@
 
 Each ``*_from_numpy`` takes a dict of numpy arrays (the JAX pytree's fields
 after ``np.asarray``) and returns the port's object with every tensor on the
-given device in the given dtype; ``to_numpy`` goes the other way.  Cone sets
-are not carried: the port's first slice has none, and the Problem gets empty
-ones.
+given device in the given dtype; ``to_numpy`` goes the other way.  A cone set
+travels as a dict ``{"mus": array, "starts": ints, "dims": ints}``.
 """
 from __future__ import annotations
 
@@ -26,10 +25,25 @@ def _t(a, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
+def cones_from_numpy(d, *, dtype, device) -> ConeSet:
+    """A ConeSet from ``{"mus", "starts", "dims"}`` (numpy and ints)."""
+    starts = tuple(int(i) for i in d["starts"])
+    dims = tuple(int(i) for i in d["dims"])
+    mus = _t(np.asarray(d["mus"], float).reshape(-1), dtype, device)
+    if not len(starts) == len(dims) == mus.shape[0]:
+        raise ValueError(f"a cone set needs one start, dim and mu per cone; "
+                         f"got {len(starts)}, {len(dims)}, {mus.shape[0]}")
+    return ConeSet(mus=mus, starts=starts, dims=dims)
+
+
 def problem_from_numpy(d, *, dtype, device) -> Problem:
+    """A Problem from its arrays and its two cone sets (``d["cones_x"]``,
+    ``d["cones_u"]``, both required)."""
     arrays = {k: _t(d[k], dtype, device) for k in _PROBLEM_ARRAYS}
-    empty = ConeSet.empty(dtype, device)
-    return Problem(cones_x=empty, cones_u=empty, **arrays)
+    return Problem(
+        cones_x=cones_from_numpy(d["cones_x"], dtype=dtype, device=device),
+        cones_u=cones_from_numpy(d["cones_u"], dtype=dtype, device=device),
+        **arrays)
 
 
 def cache_from_numpy(d, *, dtype, device) -> Cache:
@@ -50,12 +64,18 @@ def carry_from_numpy(d, *, dtype, device):
 
 
 def to_numpy(obj) -> dict:
-    """Dict of numpy arrays from a port dataclass or NamedTuple of tensors
-    (cone sets are left out)."""
+    """Dict of numpy arrays from a port dataclass or NamedTuple of tensors;
+    cone sets become ``{"mus", "starts", "dims"}`` dicts."""
     if dataclasses.is_dataclass(obj):
         items = ((f.name, getattr(obj, f.name))
                  for f in dataclasses.fields(obj))
     else:
         items = obj._asdict().items()
-    return {k: v.detach().cpu().numpy() for k, v in items
-            if isinstance(v, torch.Tensor)}
+    out = {}
+    for k, v in items:
+        if isinstance(v, torch.Tensor):
+            out[k] = v.detach().cpu().numpy()
+        elif isinstance(v, ConeSet):
+            out[k] = dict(mus=v.mus.detach().cpu().numpy(), starts=v.starts,
+                          dims=v.dims)
+    return out
