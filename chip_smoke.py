@@ -6,8 +6,8 @@
 Phases (one line each; any failure exits non-zero):
   1. environment: torch and CUDA versions, the card's name and power limit;
      TF32 off, so every fp32 matmul of the plain versions is full fp32;
-  2. build: nvcc compiles kernel K1 (csrc/condensed_fused.cu) into
-     build/torch_kernels/;
+  2. build: nvcc compiles kernels K1 (csrc/condensed_fused.cu) and K2
+     (csrc/condensed_adaptive.cu), side by side, into build/torch_kernels/;
   3. kernel vs plain at the cartpole shape (B = 4096): (a) cold, ct=1,
      alpha=1.7, no state bound; (b) ct=4; (c) the generic path with the
      constrained cartpole's state bound |x0| <= 2; (d) a 30 + 50 warm chain
@@ -33,20 +33,52 @@ Phases (one line each; any failure exits non-zero):
      cold 72-iteration launch's, kernel vs plain;
   9. the single-instance solve() on the card: a 20-step float64 rocket
      closed loop against the same loop on the CPU (controls within 1e-6);
+ 10. kernel K2 (per-lane adaptive rho) vs plain at B = 4096: (a) the
+     cartpole, OSQP-form controller, rho0 = 1 clipped to [0.5, 5], 200
+     iterations cold with its carry; (b) the same with the cart position
+     held to |x_0| <= 0.5, so the state dual and the A^T g terms of the
+     prediction are live; (c) a 30 + 50 warm chain against the plain
+     version's chain (the continuation restarts the rho-update counter, so
+     the chain is not an 80-iteration solve); (d) the rocket with its box and
+     both cones, termination controller; (e) the quadrotor shape (B = 512),
+     where the Taylor maps are read from global memory, termination
+     controller with trust 2;
+ 11. the adaptive main path through the API at the quadrotor's full width:
+     quadrotor.make_solver on "cuda" in fp32, B = 16,384, x0 ~ U(-0.3, 0.3)
+     from seed 1, |u| <= 0.5, the termination controller floored at rho0 = 5,
+     capped at 1e3, trust 2: solve_batch(method="fused") for 150 iterations
+     with its carry, then parallel.two_phase_adaptive_solve with 2,048
+     straggler slots and a 2,500-iteration warm continuation; convergence,
+     stragglers, slot overflow and the rho span, each against the plain
+     pipeline; kernel vs plain times of the bulk launch and the pipeline;
+ 12. the adaptive single-instance solve() on the card: the quadrotor case of
+     tests/golden/quadrotor_adaptive.npz in float64 (OSQP-form controller,
+     the reference binary's finite-difference sensitivities) against the
+     same solve on the CPU and the reference binary's record (the same
+     iteration count, rho within 1e-9, controls within 1e-6);
 then the kernels' JSON line, the card's name and power limit, and the
 result line.  K1's launches are counted over phases 5 and 6, K1e's (the
-launches that run projections) over phase 8, each from 0 just before the
-phase and on its first, untimed runs.  The agreement bar of every
-kernel-vs-plain comparison: identical per-lane iteration counts on >= 99%
-of lanes (fp32 sums in another order may move a lane that sits on the
+launches that run projections) over phase 8, K2's over phase 11, each from
+0 just before the phase and on its first, untimed runs.  The agreement bar
+of every kernel-vs-plain comparison: identical per-lane iteration counts on
+>= 99% of lanes (fp32 sums in another order may move a lane that sits on the
 tolerance by one check interval) and 1e-4 on the controls and states of
 lanes with equal counts that both solved, and on the carry, where there is
-one, of lanes with equal counts.
+one, of lanes with equal counts; for K2 the states, controls and carry of
+every lane with equal counts (a carry entry relative to the larger of 1 and
+its magnitude) and the lane's final rho within rtol 1e-4.
+
+Each kernel's ``bound_ms`` is the least time the card could take for the
+timed launch: the larger of its operations (the matvecs' multiply-adds on
+the iterations its lanes really ran) over the H100's 67 TFLOP/s fp32 rate
+and its bytes (each input read once, each output written once) over 3.35
+TB/s.  ``library_ms`` is null: no single PyTorch call computes an ADMM solve.
 """
 import functools
 import json
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -60,6 +92,12 @@ ATOL = 1e-4
 CONE_TOL = 5e-3
 LOOP_STEPS = 20
 LOOP_ATOL = 1e-6
+B_ADAPT = 16384
+SLOTS_ADAPT = 2048
+RHO_RTOL = 1e-4
+RHO_ATOL64 = 1e-9
+PEAK_FP32 = 67e12    # H100 SXM, fp32 outside the tensor cores, FLOP/s
+PEAK_BYTES = 3.35e12  # H100 SXM, HBM3, bytes/s
 
 
 def check(cond, msg):
@@ -137,6 +175,58 @@ def carry_agreement(name, same, carry_k, carry_p):
     return err
 
 
+def adaptive_agreement(name, out_k, out_p, min_solved=None):
+    """Per-lane agreement of K2 and its plain version: (x, u, iters, solved,
+    rho[, carry]).  Returns the max |diff| of x and u and of the carry's d,
+    y, g, v, z, each carry entry's taken relative to the larger of 1 and
+    its magnitude (the duals are not of order 1), on lanes with equal
+    counts; rho is held to RHO_RTOL there."""
+    ik, sk, rk = out_k[2:5]
+    ip, sp, rp = out_p[2:5]
+    B = ik.numel()
+    min_solved = B // 2 if min_solved is None else min_solved
+    same = (ik == ip) & (sk == sp)
+    frac = same.float().mean().item()
+    err = max((out_k[j] - out_p[j])[same].abs().max().item() for j in (0, 1))
+    if len(out_k) > 5:
+        err = max([err] + [
+            ((a - b).abs() / b.abs().clamp(min=1.0))[:, same].max().item()
+            for a, b in zip(out_k[5][:5], out_p[5][:5])])
+    rho_err = ((rk - rp).abs() / rp)[same].max().item()
+    nk, npl = int(sk.sum()), int(sp.sum())
+    print(f"{name}: iteration counts equal on {int(same.sum())}/{B} lanes "
+          f"({frac:.4f}); solved kernel {nk}, plain {npl}; on lanes with "
+          f"equal counts max |diff| {err:.3e}, rho rel. diff {rho_err:.3e}; "
+          f"rho span [{rk.min().item():.4g}, {rk.max().item():.4g}]",
+          flush=True)
+    check(frac >= ITERS_AGREE, f"{name}: counts agree on {frac:.4f} < "
+          f"{ITERS_AGREE}")
+    check(err <= ATOL, f"{name}: max |diff| {err:.3e} > {ATOL}")
+    check(rho_err <= RHO_RTOL, f"{name}: rho differs by {rho_err:.3e}")
+    check(nk >= min_solved, f"{name}: only {nk}/{B} lanes solved")
+    check(all(bool(torch.isfinite(t).all()) for t in out_k[:2]),
+          f"{name}: non-finite kernel output")
+    return err
+
+
+def tensor_bytes(*items):
+    """Bytes of every tensor in ``items`` (tuples are walked, None skipped)."""
+    n = 0
+    for t in items:
+        if isinstance(t, tuple):
+            n += tensor_bytes(*t)
+        elif t is not None:
+            n += t.numel() * t.element_size()
+    return n
+
+
+def bound(flops, nbytes):
+    """(least ms the card could take, what bounds it)."""
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def cone_violation(xs, us, mu_x, mu_u, solved):
     """Largest excess of ||w[0:2]|| over mu * w[2] at any stage of a solved
     lane, over the state and the input cones."""
@@ -182,21 +272,31 @@ def main():
 
     from tinympc_julia_tpu_torch import TinyMPCSolver, make_problem
     from tinympc_julia_tpu_torch.models import cartpole, quadrotor, rocket
-    from tinympc_julia_tpu_torch.ops.condensed import build_condensed
-    from tinympc_julia_tpu_torch.ops.cuda._build import load_library
+    from tinympc_julia_tpu_torch.ops.condensed import (
+        build_condensed, build_condensed_taylor)
+    from tinympc_julia_tpu_torch.ops.cuda._build import load_libraries
+    from tinympc_julia_tpu_torch.ops.cuda.adaptive_kernel import (
+        AdaptivePlant, adaptive_tile_plan, condensed_adaptive_cuda,
+        condensed_adaptive_reference)
     from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
         condensed_fused_cuda, condensed_fused_reference, fused_constraints,
         fused_tile_plan, problem_constraint_kw)
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
-    from tinympc_julia_tpu_torch.parallel.pipeline import three_phase_solve
+    from tinympc_julia_tpu_torch.parallel.pipeline import (
+        three_phase_solve, two_phase_adaptive_solve)
 
     t0 = time.perf_counter()
-    built = load_library("condensed_fused")
-    ptxas = " | ".join(l.strip() for l in built.log.splitlines()
-                       if "registers" in l or "spill" in l)
-    print(f"phase 2 build: {built.path.name} in {built.seconds:.1f} s of nvcc "
-          f"({time.perf_counter() - t0:.1f} s with loading); ptxas: {ptxas}",
-          flush=True)
+    libs = load_libraries(["condensed_fused", "condensed_adaptive"])
+    print(f"phase 2 build: {len(libs)} kernels side by side in "
+          f"{time.perf_counter() - t0:.1f} s with loading", flush=True)
+    for built in libs:
+        regs = sorted({int(l.split("Used ")[1].split()[0])
+                       for l in built.log.splitlines() if "Used " in l})
+        spills = sum("spill" in l and "0 bytes spill stores" not in l
+                     for l in built.log.splitlines())
+        print(f"phase 2 build: {built.path.name} in {built.seconds:.1f} s "
+              f"of nvcc; registers per thread over its variants {regs}, "
+              f"variants that spill {spills}", flush=True)
 
     dev = torch.device("cuda")
     f32 = torch.float32
@@ -346,6 +446,11 @@ def main():
     errs.append(carry_agreement("phase 6 phase-0 launch", out_k[2] == out_p[2],
                                 out_k[4], out_p[4]))
 
+    sw_c = maps.T12.shape[0]
+    k1_bound = bound(
+        2.0 * sw_c * sw_c * (int(out_k[2].sum()) - B_MAIN)  # no matvec at i=0
+        + 2.0 * sw_c * 4 * B_MAIN,
+        tensor_bytes(maps.T12, maps.T1, *pipe_args[2:], out_k))
     t_pipe, t_pipe_p = paired_ms(
         lambda: three_phase_solve(*pipe_args, **pkw),
         lambda: three_phase_solve(*pipe_args, fused=condensed_fused_reference,
@@ -469,6 +574,14 @@ def main():
     t_chain, t_chain_p = paired_ms(lambda: rocket_chain(kernel_chain),
                                    lambda: rocket_chain(plain_chain))
     cold = dict(max_iter=72, warm_start=False, carry_out=False)
+    out_e = kernel_chain(warm=None, **cold)
+    sw_r = r_maps.T12.shape[0]
+    k1e_bound = bound(
+        2.0 * sw_r * sw_r * (int(out_e[2].sum()) - B_MAIN)
+        + 2.0 * sw_r * 6 * B_MAIN,
+        tensor_bytes(r_maps.T12, r_maps.T1, *r_args[2:], x0_rm, r_cons.lin_u,
+                     r_cons.lin_x, r_cons.cones_u.mus, r_cons.cones_x.mus,
+                     out_e))
     t_e, t_e_p = paired_ms(
         lambda: kernel_chain(warm=None, **cold),
         lambda: plain_chain(warm=None, **cold))
@@ -517,18 +630,218 @@ def main():
           "card")
     check(du <= LOOP_ATOL, f"phase 9: controls differ by {du:.3e}")
 
+    # -- phase 10: K2, per-lane adaptive rho, kernel vs plain ---------------
+    def k2_both(pp, cc, tmaps, x0s, warm=(None, None), **kw):
+        """K2 and its plain version on the same inputs; ``warm`` is the pair
+        of carries (kernel's, plain's) of an earlier call."""
+        full = dict(plant=AdaptivePlant(pp.A, pp.B, pp.Q, pp.R, cc.Pinf,
+                                        cc.dPinf_drho),
+                    nx=pp.nx, nu=pp.nu, N=pp.N, max_iter=200,
+                    abs_pri_tol=1e-3, abs_dua_tol=1e-3, en_state_bound=False,
+                    en_input_bound=True, relaxation_alpha=1.0,
+                    adaptive_rho_min=0.5, adaptive_rho_max=5.0,
+                    adaptive_rho_clipping=True, check_termination=1,
+                    controller="osqp", taylor_trust=float("inf"),
+                    warm_start=warm[0] is not None, carry_out=True)
+        full.update(kw)
+        args = (tmaps, pp.u_min, pp.u_max, pp.x_min, pp.x_max, x0s)
+        return (condensed_adaptive_cuda(*args, warm[0], **full),
+                condensed_adaptive_reference(*args, warm[1], **full))
+
+    a_errs = []
+    pa, ca, _ = plant(cartpole, 5.0, 1.0)
+    ta = build_condensed_taylor(pa, ca)
+    out_k, out_p = k2_both(pa, ca, ta, x0_check)
+    a_errs.append(adaptive_agreement(
+        "phase 10a cartpole, OSQP-form controller, rho in [0.5, 5]", out_k,
+        out_p))
+    check(bool((out_k[4] != 1.0).any()), "phase 10a: no lane moved its rho")
+    pb, cb, _ = plant(cartpole, 5.0, 1.0,
+                      x_bound=np.array([0.5, 1e17, 1e17, 1e17]))
+    x0_b = x0_check * torch.tensor([0.9, 3.0, 0.8, 1.0], device=dev)
+    out_k, out_p = k2_both(pb, cb, build_condensed_taylor(pb, cb), x0_b,
+                           en_state_bound=True)
+    a_errs.append(adaptive_agreement(
+        "phase 10b cartpole |x_0| <= 0.5, generic g path", out_k, out_p))
+    g_max = out_k[5].g.abs().max().item()
+    print(f"phase 10b: largest state dual {g_max:.3e}", flush=True)
+    check(g_max > 0.0, "phase 10b: the state dual never left 0")
+    h_k, h_p = k2_both(pa, ca, ta, x0_check, max_iter=30)
+    a_errs.append(adaptive_agreement("phase 10c chain, first 30", h_k, h_p,
+                                     min_solved=0))
+    t_k, t_p = k2_both(pa, ca, ta, x0_check, warm=(h_k[5], h_p[5]),
+                       max_iter=50)
+    a_errs.append(adaptive_agreement("phase 10c chain, 50 warm", t_k, t_p,
+                                     min_solved=0))
+    rt = build_condensed_taylor(rp, rc)
+    out_k, out_p = k2_both(rp, rc, rt, x0_r, controller="termination",
+                           en_state_bound=True, abs_pri_tol=rs.abs_pri_tol,
+                           abs_dua_tol=rs.abs_dua_tol, adaptive_rho_min=1.0,
+                           adaptive_rho_max=100.0, max_iter=100,
+                           constraints=r_cons)
+    a_errs.append(adaptive_agreement(
+        "phase 10d rocket (box + 2 cones), termination controller", out_k,
+        out_p))
+    viol = cone_violation(out_k[0], out_k[1], mu_x, mu_u, out_k[3])
+    check(viol <= CONE_TOL, f"phase 10d: cone excess {viol:.3e}")
+    quad_kw = dict(controller="termination", taylor_trust=2.0,
+                   adaptive_rho_min=quadrotor.RHO, adaptive_rho_max=1e3)
+    tq = build_condensed_taylor(pq, cq)
+    tile_a, resident_a = adaptive_tile_plan(
+        12, 4, qN, 2, B_QUAD,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    out_k, out_p = k2_both(pq, cq, tq, x0_q, max_iter=300, **quad_kw)
+    a_errs.append(adaptive_agreement(
+        f"phase 10e quadrotor (sw=316, tile {tile_a}, maps in shared "
+        f"memory: {resident_a}), termination controller, trust 2", out_k,
+        out_p))
+
+    # -- phase 11: the adaptive main path at the quadrotor's full width ------
+    x0_a = torch.as_tensor(np.random.default_rng(1).uniform(
+        -0.3, 0.3, size=(B_ADAPT, 12)), dtype=f32, device=dev)
+    q_solver = quadrotor.make_solver(dtype=f32, device="cuda")
+    q_solver.update_settings(
+        adaptive_rho=True, adaptive_rho_controller="termination",
+        adaptive_rho_taylor_trust=2.0, adaptive_rho_min=quadrotor.RHO,
+        adaptive_rho_max=1e3, max_iter=150)
+    condensed_adaptive_cuda.launches = 0
+    xs, us, it, ok, carry = q_solver.solve_batch(x0_a, method="fused",
+                                                 return_carry=True)
+    torch.cuda.synchronize()
+    check(tuple(us.shape) == (B_ADAPT, qN - 1, 4), f"controls {us.shape}")
+    check(bool(torch.isfinite(us).all()) and bool(torch.isfinite(xs).all()),
+          "non-finite adaptive API solutions")
+    check(float(us.abs().max()) <= quadrotor.U_HOVER_BOUND + 1e-5,
+          "|u| beyond its bound")
+    qp, qc = q_solver.problem, q_solver.cache
+    tqa = build_condensed_taylor(qp, qc)
+    bulk_args = (tqa, qp.u_min, qp.u_max, qp.x_min, qp.x_max, x0_a, None)
+    bulk_kw = dict(plant=None, nx=12, nu=4, N=qN, max_iter=150,
+                   abs_pri_tol=1e-3, abs_dua_tol=1e-3, en_state_bound=False,
+                   en_input_bound=True, relaxation_alpha=1.0,
+                   adaptive_rho_clipping=True, check_termination=1,
+                   warm_start=False, carry_out=True, **quad_kw)
+    bulk_p = condensed_adaptive_reference(*bulk_args, **bulk_kw)
+    a_errs.append(adaptive_agreement(
+        "phase 11 API solve_batch(method='fused'), adaptive, 150 iterations "
+        "vs plain", (xs, us, it, ok, carry.data.rho[0], carry.data), bulk_p,
+        min_solved=0))
+    pipe_a = bulk_args[:6]
+    akw = dict(nx=12, nu=4, N=qN, straggler_slots=SLOTS_ADAPT)
+    res_a = two_phase_adaptive_solve(*pipe_a, **akw)
+    torch.cuda.synchronize()
+    a_launches = condensed_adaptive_cuda.launches
+    check(a_launches == 3, f"the adaptive main path launched K2 {a_launches} "
+          "times, not 3 (one API solve, two pipeline phases)")
+    res_ap = two_phase_adaptive_solve(*pipe_a,
+                                      fused=condensed_adaptive_reference,
+                                      **akw)
+    n_a, n_ap = int(res_a.solved.sum()), int(res_ap.solved.sum())
+    check(abs(n_a - n_ap) <= 0.01 * B_ADAPT,
+          f"adaptive pipeline converged {n_a} with the kernel, {n_ap} plain")
+    check(bool(torch.isfinite(res_a.us).all())
+          and bool(torch.isfinite(res_a.xs).all()),
+          "non-finite adaptive pipeline solutions")
+    a_errs.append(adaptive_agreement(
+        "phase 11 two-phase adaptive pipeline, merged per-lane results vs "
+        "plain", (res_a.xs, res_a.us, res_a.iters, res_a.solved, res_a.rho),
+        (res_ap.xs, res_ap.us, res_ap.iters, res_ap.solved, res_ap.rho),
+        min_solved=0))
+    t_ap, t_ap_p = paired_ms(
+        lambda: two_phase_adaptive_solve(*pipe_a, **akw),
+        lambda: two_phase_adaptive_solve(
+            *pipe_a, fused=condensed_adaptive_reference, **akw))
+    t_k2, t_k2_p = paired_ms(
+        lambda: condensed_adaptive_cuda(*bulk_args, **bulk_kw),
+        lambda: condensed_adaptive_reference(*bulk_args, **bulk_kw))
+    ord1, sw_q, in1_q = tqa.T1s.shape
+    su_q = tqa.T2s.shape[1]
+    k2_bound = bound(
+        2.0 * (ord1 * sw_q * in1_q + 4 * su_q * (sw_q + 1)) * int(it.sum()),
+        tensor_bytes(tqa.T1s, tqa.T2s[:, :, :sw_q], tqa.T2s[:, :, -1:],
+                     *bulk_args[1:6], xs, us, it, ok, tuple(carry.data)))
+    n_strag = int(res_a.unconv.sum())
+    print(f"phase 11 adaptive pipeline B={B_ADAPT}, {SLOTS_ADAPT} slots, "
+          f"fp32 150 + 2500: {int(ok.sum())} converged in the bulk pass, "
+          f"{n_strag} stragglers, slot overflow {int(res_a.overflow)}, "
+          f"{n_a} converged in all ({100.0 * n_a / B_ADAPT:.2f}%; plain "
+          f"{n_ap}), mean iterations {res_a.iters.float().mean().item():.1f} "
+          f"(largest {int(res_a.iters.max())}), rho span "
+          f"[{res_a.rho.min().item():.4g}, {res_a.rho.max().item():.4g}]; "
+          f"median of 5: pipeline kernel {t_ap:.3f} ms, plain {t_ap_p:.3f} "
+          f"ms -> {n_a / (t_ap * 1e-3):.0f} solves/s on {card}; one K2 "
+          f"launch (bulk pass, 150 iterations, carry out) {t_k2:.3f} ms, "
+          f"plain {t_k2_p:.3f} ms", flush=True)
+
+    # -- phase 12: the adaptive single-instance solve(), float64 -------------
+    x0_1 = np.array([0.1, -0.2, 0.3, 0.05, -0.05, 0.1, 0.2, -0.1, 0.15, 0.0,
+                     0.0, 0.0])
+    golden = Path(__file__).resolve().parent / "tests" / "golden"
+    oracle = np.load(golden / "quadrotor_adaptive.npz")
+    sens = np.load(golden / "quadrotor_sensitivities.npz")
+    singles = []
+    t0 = time.perf_counter()
+    for d in ("cuda", "cpu"):
+        sv = quadrotor.make_solver(dtype=torch.float64, device=d,
+                                   adaptive_rho=True, adaptive_rho_min=0.1,
+                                   adaptive_rho_max=10.0)
+        # the finite-difference sensitivities the reference binary used
+        sv.cache = sv.cache.replace(**{
+            f"d{k}_drho": torch.as_tensor(sens[f"d{k}"], dtype=torch.float64,
+                                          device=d)
+            for k in ("Kinf", "Pinf", "C1", "C2")})
+        sv.set_x0(x0_1)
+        sv.solve()
+        singles.append(sv)
+    s_card, s_cpu = singles
+    it12 = (int(s_card.solution.iter), int(s_cpu.solution.iter))
+    rho12 = (float(s_card.cache.rho), float(s_cpu.cache.rho))
+    du12 = float(np.abs(s_card.get_solution().controls
+                        - s_cpu.get_solution().controls).max())
+    it_ref = int(oracle["solve_iter"][0, 0])
+    rho_ref = float(oracle["final_rho"][0, 0])
+    du_ref = float(np.abs(s_card.get_solution().controls
+                          - oracle["solve_u"]).max())
+    print(f"phase 12 adaptive solve(), the golden quadrotor case in float64 "
+          f"on the card vs the CPU ({time.perf_counter() - t0:.1f} s): "
+          f"iterations (card, cpu, reference binary) {it12 + (it_ref,)}, "
+          f"final rho {rho12 + (rho_ref,)}, max |diff| of the controls card "
+          f"vs cpu {du12:.3e}, card vs reference binary {du_ref:.3e}",
+          flush=True)
+    check(s_card.state.x.is_cuda and s_card.cache.rho.is_cuda,
+          "the card's adaptive solver state is not on the card")
+    check(it12[0] == it12[1] == it_ref and it_ref > 5,
+          f"phase 12: iterations {it12}, reference binary {it_ref}")
+    check(abs(rho12[0] - rho_ref) <= RHO_ATOL64 and du_ref <= LOOP_ATOL,
+          f"phase 12: rho {rho12[0]} and controls ({du_ref:.3e}) against the "
+          f"reference binary's {rho_ref}")
+    check(rho12[0] != quadrotor.RHO, "phase 12: rho never moved")
+    check(abs(rho12[0] - rho12[1]) <= RHO_ATOL64,
+          f"phase 12: rho differs, {rho12}")
+    check(du12 <= LOOP_ATOL, f"phase 12: controls differ by {du12:.3e}")
+
+    no_library = None  # no single PyTorch call computes an ADMM solve
     print(json.dumps({"kernels": [{
         "name": "condensed_fused (K1), box path", "route": "cuda",
         "source": "tinympc_julia_tpu_torch/csrc/condensed_fused.cu",
         "replaces": "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:232",
         "launches": launches, "max_abs_err": max(errs), "ms": t_k1,
-        "plain_ms": t_k1_p}, {
+        "plain_ms": t_k1_p, "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+        "library_ms": no_library}, {
         "name": "condensed_fused projections (K1e), constrained path",
         "route": "cuda",
         "source": "tinympc_julia_tpu_torch/csrc/condensed_fused.cu",
         "replaces": "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:127",
         "launches": e_launches, "max_abs_err": max(e_errs), "ms": t_e,
-        "plain_ms": t_e_p}]}))
+        "plain_ms": t_e_p, "bound_ms": k1e_bound[0],
+        "bound_by": k1e_bound[1], "library_ms": no_library}, {
+        "name": "condensed_adaptive (K2), per-lane adaptive rho",
+        "route": "cuda",
+        "source": "tinympc_julia_tpu_torch/csrc/condensed_adaptive.cu",
+        "replaces": "tinympc_julia_tpu/ops/pallas/adaptive_kernel.py:106",
+        "launches": a_launches, "max_abs_err": max(a_errs), "ms": t_k2,
+        "plain_ms": t_k2_p, "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1], "library_ms": no_library}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
-"""Where the headline pipeline's time goes on one NVIDIA GPU.
+"""Where the port's pipelines spend their time on one NVIDIA GPU.
 
-    python3 profile_pipeline.py [--reps 3]
+    python3 profile_pipeline.py [--workload cartpole|rocket|adaptive|all]
+                                [--reps 3]
 
-Runs the port's three-phase pipeline (65,536 cartpole lanes, 8,192
-straggler slots, all fp32) under ``torch.profiler`` after one warm-up, and
-prints, one line each:
+Runs each chosen workload under ``torch.profiler`` after one warm-up:
+  * ``cartpole``: the three-phase pipeline (65,536 cartpole lanes, 8,192
+    straggler slots, all fp32), three launches of kernel K1;
+  * ``rocket``: the rocket chain through the API (65,536 lanes, box and
+    both cones, a 24-iteration cold ``solve_batch(method="fused")`` with its
+    carry, then 48 warm), two launches of K1 with its projections;
+  * ``adaptive``: the two-phase adaptive-rho pipeline (16,384 quadrotor
+    lanes, termination controller floored at rho0 with trust 2, 150
+    iterations, 2,048 straggler slots, up to 2,500 warm), two launches of
+    kernel K2.
+It prints, one line each:
   * the card's name and power limit;
-  * setup on the host clock: CUDA initialisation, the Riccati cache with its
-    sensitivities, and the condensed maps;
-  * the phases' iteration statistics (phase-1 mean count, stragglers,
-    phase-2 mean and max over valid slots);
-  * per phase, the median device time of its K1 launch;
-  * over the profiled reps: K1's device time, that of every other device
-    kernel (compaction, gathers, merges), the wall time, and the device's
-    idle share (1 - union of device-kernel intervals / wall).
+  * per workload, setup on the host clock (the Riccati cache with its
+    sensitivities, the condensed maps) and the iteration statistics;
+  * per launch of the pipeline, the median device time of its kernel;
+  * over the profiled reps: the kernel's device time, that of every other
+    device kernel (compaction, gathers, merges), the kernel's share of
+    device time, the wall time, and the device's idle share (1 - union of
+    device-kernel intervals / wall).
 The last line is the same numbers as one JSON object.
 """
 import argparse
@@ -26,13 +34,163 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
-B_MAIN = 65536
-SLOTS = 8192
-KERNEL = "condensed_fused_kernel"
+F32 = torch.float32
+
+
+def cartpole_workload(dev):
+    from tinympc_julia_tpu_torch import make_problem
+    from tinympc_julia_tpu_torch.models import cartpole
+    from tinympc_julia_tpu_torch.ops.condensed import build_condensed
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    from tinympc_julia_tpu_torch.parallel.pipeline import three_phase_solve
+
+    N = cartpole.HORIZON
+    t0 = time.perf_counter()
+    p = make_problem(cartpole.A, cartpole.B, np.diag(cartpole.Q_DIAG),
+                     np.diag(cartpole.R_DIAG), cartpole.RHO, N, u_min=-5.0,
+                     u_max=5.0, dtype=F32, device=dev)
+    c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    maps = build_condensed(p, c)
+    torch.cuda.synchronize()
+    setup = dict(cache=t1 - t0, maps=time.perf_counter() - t1)
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(
+        -0.5, 0.5, size=(65536, 4)), dtype=F32, device=dev)
+
+    def run():
+        return three_phase_solve(maps, float(c.rho), p.u_min, p.u_max,
+                                 p.x_min, p.x_max, x0, nx=4, nu=1, N=N,
+                                 straggler_slots=8192)
+
+    def stats(res):
+        it2 = res.iters2[res.valid].float()
+        return dict(phase1_mean_iters=res.iters1.float().mean().item(),
+                    stragglers=int(res.unconv.sum()),
+                    phase2_mean_iters=it2.mean().item() if it2.numel() else 0,
+                    phase2_max_iters=int(it2.max()) if it2.numel() else 0,
+                    converged=int(res.converged()))
+
+    return "condensed_fused_kernel", 3, setup, run, stats
+
+
+def rocket_workload(dev):
+    from tinympc_julia_tpu_torch.models import rocket
+
+    t0 = time.perf_counter()
+    solver = rocket.make_solver(dtype=F32, device="cuda")
+    Xref, Uref = rocket.reference_trajectory(0)
+    solver.set_x_ref(Xref)
+    solver.set_u_ref(Uref)
+    torch.cuda.synchronize()
+    setup = dict(cache=time.perf_counter() - t0, maps=None)
+    x0 = torch.as_tensor(
+        rocket.X_INIT[None, :]
+        * np.random.default_rng(2).uniform(0.9, 1.1, size=(65536, 1)),
+        dtype=F32, device=dev)
+
+    def run():
+        solver.update_settings(max_iter=24)
+        x0_, u0, it0, ok0, carry = solver.solve_batch(
+            x0, method="fused", return_carry=True)
+        solver.update_settings(max_iter=48)
+        x1, u1, it1, ok1 = solver.solve_batch(x0, method="fused", warm=carry)
+        done = ok0 == 1
+        return (torch.where(done[:, None, None], u0, u1),
+                torch.where(done, it0, 24 + it1), torch.maximum(ok0, ok1))
+
+    def stats(res):
+        return dict(mean_iters=res[1].float().mean().item(),
+                    max_iters=int(res[1].max()), converged=int(res[2].sum()))
+
+    return "condensed_fused_kernel", 2, setup, run, stats
+
+
+def adaptive_workload(dev):
+    from tinympc_julia_tpu_torch.models import quadrotor
+    from tinympc_julia_tpu_torch.ops.condensed import build_condensed_taylor
+    from tinympc_julia_tpu_torch.parallel.pipeline import (
+        two_phase_adaptive_solve)
+
+    t0 = time.perf_counter()
+    solver = quadrotor.make_solver(dtype=F32, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    p = solver.problem
+    tmaps = build_condensed_taylor(p, solver.cache)
+    torch.cuda.synchronize()
+    setup = dict(cache=t1 - t0, maps=time.perf_counter() - t1)
+    x0 = torch.as_tensor(np.random.default_rng(1).uniform(
+        -0.3, 0.3, size=(16384, 12)), dtype=F32, device=dev)
+
+    def run():
+        return two_phase_adaptive_solve(
+            tmaps, p.u_min, p.u_max, p.x_min, p.x_max, x0, nx=12, nu=4,
+            N=p.N, straggler_slots=2048)
+
+    def stats(res):
+        return dict(stragglers=int(res.unconv.sum()),
+                    overflow=int(res.overflow),
+                    mean_iters=res.iters.float().mean().item(),
+                    max_iters=int(res.iters.max()),
+                    converged=int(res.solved.sum()),
+                    rho_span=[res.rho.min().item(), res.rho.max().item()])
+
+    return "condensed_adaptive_kernel", 2, setup, run, stats
+
+
+WORKLOADS = dict(cartpole=cartpole_workload, rocket=rocket_workload,
+                 adaptive=adaptive_workload)
+
+
+def trace(name, kernel, per_run, run, reps):
+    """Profile ``reps`` runs; the kernel's device time per launch of the
+    pipeline, its share of device time, and the device's idle share."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - w0) * 1e3
+    dev_events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+    if not dev_events:
+        raise SystemExit("profile_pipeline: the profiler recorded no device "
+                         "kernels")
+    ours = [e for e in dev_events if kernel in e.name]
+    if len(ours) != per_run * reps:
+        raise SystemExit(f"profile_pipeline: {name}: {len(ours)} launches of "
+                         f"{kernel} traced, expected {per_run * reps}")
+    launch_ms = [float(np.median([ours[per_run * r + k].time_range.elapsed_us()
+                                  for r in range(reps)])) / 1e3
+                 for k in range(per_run)]
+    kernel_ms = sum(e.time_range.elapsed_us() for e in ours) / 1e3
+    other_ms = sum(e.time_range.elapsed_us() for e in dev_events
+                   if kernel not in e.name) / 1e3
+    busy_us, end = 0.0, -np.inf
+    for e in dev_events:  # union of the device intervals
+        s, f = e.time_range.start, e.time_range.end
+        if f > end:
+            busy_us += f - max(s, end)
+            end = f
+    idle = 1.0 - busy_us / 1e3 / wall_ms
+    print(f"{name}: {kernel} per launch (median device ms over {reps}): "
+          + ", ".join(f"{t:.3f}" for t in launch_ms), flush=True)
+    print(f"{name}: {reps} runs: kernel {kernel_ms:.3f} ms device, other "
+          f"kernels {other_ms:.3f} ms ({len(dev_events) - len(ours)} "
+          f"launches), kernel share {kernel_ms / (kernel_ms + other_ms):.4f}; "
+          f"wall {wall_ms:.3f} ms, device idle share {idle:.4f}", flush=True)
+    return dict(launch_ms=launch_ms, kernel_ms=kernel_ms, other_ms=other_ms,
+                wall_ms=wall_ms, idle_share=idle)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", choices=[*WORKLOADS, "all"], default="all")
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -44,94 +202,25 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card {card}", flush=True)
-
-    from tinympc_julia_tpu_torch import make_problem
-    from tinympc_julia_tpu_torch.models import cartpole
-    from tinympc_julia_tpu_torch.ops.condensed import build_condensed
-    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
-    from tinympc_julia_tpu_torch.parallel.pipeline import three_phase_solve
-
     dev = torch.device("cuda")
-    N = cartpole.HORIZON
     t0 = time.perf_counter()
     torch.zeros(1, device=dev)
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    p = make_problem(cartpole.A, cartpole.B, np.diag(cartpole.Q_DIAG),
-                     np.diag(cartpole.R_DIAG), cartpole.RHO, N, u_min=-5.0,
-                     u_max=5.0, dtype=torch.float32, device=dev)
-    c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    maps = build_condensed(p, c)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    print(f"setup (host clock): CUDA init {t1 - t0:.3f} s, make_problem + "
-          f"precompute_cache {t2 - t1:.3f} s, build_condensed "
-          f"{t3 - t2:.3f} s", flush=True)
+    print(f"CUDA init (host clock) {time.perf_counter() - t0:.3f} s",
+          flush=True)
 
-    x0 = torch.as_tensor(np.random.default_rng(0).uniform(
-        -0.5, 0.5, size=(B_MAIN, 4)), dtype=torch.float32, device=dev)
-    pipe = (maps, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max, x0)
-
-    def run():
-        return three_phase_solve(*pipe, nx=4, nu=1, N=N,
-                                 straggler_slots=SLOTS)
-
-    res = run()  # warm-up: builds and loads the kernel
-    torch.cuda.synchronize()
-    valid = res.valid
-    it2 = res.iters2[valid].float()
-    stats = dict(phase1_mean_iters=res.iters1.float().mean().item(),
-                 stragglers=int(res.unconv.sum()),
-                 phase2_mean_iters=it2.mean().item() if it2.numel() else 0.0,
-                 phase2_max_iters=int(it2.max()) if it2.numel() else 0,
-                 converged=int(res.converged()))
-    print(f"iterations: {stats}", flush=True)
-
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+    out = dict(card=card, reps=args.reps)
+    names = list(WORKLOADS) if args.workload == "all" else [args.workload]
+    for name in names:
+        kernel, per_run, setup, run, stats = WORKLOADS[name](dev)
+        print(f"{name}: setup (host clock, seconds) {setup}", flush=True)
+        res = run()  # warm-up: builds and loads the kernel
         torch.cuda.synchronize()
-        w0 = time.perf_counter()
-        for _ in range(args.reps):
-            run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - w0) * 1e3
-    dev_events = sorted((e for e in prof.events()
-                         if e.device_type == DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
-    if not dev_events:
-        raise SystemExit("profile_pipeline: the profiler recorded no device "
-                         "kernels")
-    k1 = [e for e in dev_events if KERNEL in e.name]
-    if len(k1) != 3 * args.reps:
-        raise SystemExit(f"profile_pipeline: {len(k1)} K1 launches traced, "
-                         f"expected {3 * args.reps}")
-    phase_ms = [float(np.median([k1[3 * r + ph].time_range.elapsed_us()
-                                 for r in range(args.reps)])) / 1e3
-                for ph in range(3)]
-    k1_ms = sum(e.time_range.elapsed_us() for e in k1) / 1e3
-    other_ms = sum(e.time_range.elapsed_us() for e in dev_events
-                   if KERNEL not in e.name) / 1e3
-    busy_us, end = 0.0, -np.inf
-    for e in dev_events:  # union of the device intervals
-        s, f = e.time_range.start, e.time_range.end
-        if f > end:
-            busy_us += f - max(s, end)
-            end = f
-    idle = 1.0 - busy_us / 1e3 / wall_ms
-    print(f"K1 per phase (median device ms over {args.reps}): phase 0 "
-          f"{phase_ms[0]:.3f}, phase 1 {phase_ms[1]:.3f}, phase 2 "
-          f"{phase_ms[2]:.3f}", flush=True)
-    print(f"{args.reps} pipelines: K1 {k1_ms:.3f} ms device, other kernels "
-          f"{other_ms:.3f} ms ({len(dev_events) - len(k1)} launches), K1 "
-          f"share {k1_ms / (k1_ms + other_ms):.4f}; wall {wall_ms:.3f} ms, "
-          f"device idle share {idle:.4f}", flush=True)
-    print(json.dumps(dict(card=card, setup_s=dict(
-        cuda_init=t1 - t0, cache=t2 - t1, maps=t3 - t2), **stats,
-        phase_ms=phase_ms, reps=args.reps, k1_ms=k1_ms, other_ms=other_ms,
-        wall_ms=wall_ms, idle_share=idle)))
+        st = stats(res)
+        print(f"{name}: iterations {st}", flush=True)
+        out[name] = dict(setup_s=setup, **st,
+                         **trace(name, kernel, per_run, run, args.reps))
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """The port's single-instance solve (ops/admm.py, TinyMPCSolver.solve) in
 float64 on the CPU: against the compiled-reference fixtures in
-tests/golden/*.npz at the tolerances of tests/test_parity_golden.py, and
-against the JAX package's admm.solve on the rocket lander with both cones,
+tests/golden/*.npz at the tolerances of tests/test_parity_golden.py
+(adaptive rho included), and against the JAX package's admm.solve on the
+rocket lander with both cones and on the quadrotor with adaptive rho,
 iterate by iterate."""
 import os
 
@@ -18,7 +19,7 @@ from tinympc_julia_tpu_torch import types as PT
 from tinympc_julia_tpu_torch.models import cartpole, quadrotor, rocket
 from tinympc_julia_tpu_torch.ops import admm
 
-from torch_port_common import CPU, jax_arrays, rocket_setup
+from torch_port_common import CPU, jax_arrays, port_copies, rocket_setup
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 F64 = torch.float64
@@ -131,6 +132,110 @@ def test_cartpole_tracking():
     np.testing.assert_allclose(sol.controls, g["solve_u"], atol=1e-8)
 
 
+QUAD_X0 = np.array([0.1, -0.2, 0.3, 0.05, -0.05, 0.1, 0.2, -0.1, 0.15, 0.0,
+                    0.0, 0.0])
+
+
+def test_quadrotor_adaptive_golden():
+    """Adaptive rho with the finite-difference sensitivities the reference
+    binary used: the same iteration count, final rho within 1e-9, the final
+    Kinf and the solution within 1e-6."""
+    g = load("quadrotor_adaptive")
+    sens = load("quadrotor_sensitivities")
+    s = P.TinyMPCSolver(dtype=F64, device=CPU)
+    s.setup(quadrotor.A, quadrotor.B, None, np.diag(quadrotor.Q_DIAG),
+            np.diag(quadrotor.R_DIAG), 5.0, 12, 4, 20, max_iter=500,
+            adaptive_rho=True, adaptive_rho_min=0.1, adaptive_rho_max=10.0)
+    s.set_bound_constraints(np.full((12, 20), -1e17), np.full((12, 20), 1e17),
+                            np.full((4, 19), -0.5), np.full((4, 19), 0.5))
+    s.update_settings(en_state_bound=False, adaptive_rho=True)
+    s.cache = s.cache.replace(
+        dKinf_drho=torch.as_tensor(sens["dKinf"], dtype=F64),
+        dPinf_drho=torch.as_tensor(sens["dPinf"], dtype=F64),
+        dC1_drho=torch.as_tensor(sens["dC1"], dtype=F64),
+        dC2_drho=torch.as_tensor(sens["dC2"], dtype=F64))
+    s.set_x0(QUAD_X0)
+    s.solve()
+    assert int(s.solution.iter) == int(g["solve_iter"][0, 0])
+    assert int(s.solution.iter) > 5  # rho was updated at least once
+    np.testing.assert_allclose(float(s.cache.rho), g["final_rho"][0, 0],
+                               atol=1e-9)
+    assert float(s.cache.rho) != 5.0
+    np.testing.assert_allclose(s.cache.Kinf.numpy(), g["final_Kinf"],
+                               atol=1e-6)
+    sol = s.get_solution()
+    np.testing.assert_allclose(sol.states, g["solve_x"], atol=1e-6)
+    np.testing.assert_allclose(sol.controls, g["solve_u"], atol=1e-6)
+
+
+def _quad_pair(x0, **settings):
+    """JAX and port (problem, cache, settings, state) for the quadrotor with
+    |u| <= 0.5 and adaptive rho."""
+    jp = J.make_problem(jnp.asarray(quadrotor.A), jnp.asarray(quadrotor.B),
+                        jnp.asarray(np.diag(quadrotor.Q_DIAG)),
+                        jnp.asarray(np.diag(quadrotor.R_DIAG)), 5.0, 20,
+                        u_min=-0.5, u_max=0.5)
+    jc = J.precompute_cache(jp.A, jp.B, jp.Q, jp.R,
+                            jnp.asarray(5.0, jnp.float64))
+    pp, pc = port_copies(jp, jc, jnp.float64)
+    kw = dict(en_state_bound=False, en_input_bound=True, adaptive_rho=True,
+              adaptive_rho_min=0.1, adaptive_rho_max=10.0)
+    kw.update(settings)
+    js = J.init_state(12, 4, 20, jnp.float64)
+    js = js.replace(x=js.x.at[0].set(jnp.asarray(x0)))
+    ps = PT.init_state(12, 4, 20, device=CPU)
+    x = ps.x.clone()
+    x[0] = torch.as_tensor(x0)
+    return ((jp, jc, J.Settings(**kw), js),
+            (pp, pc, PT.Settings(**kw), ps.replace(x=x)))
+
+
+# the termination controller moves rho only past its deadband: tolerances a
+# hundred apart make the primal check lag, so rho rises at the first update
+TERMINATION = dict(adaptive_rho_controller="termination", abs_pri_tol=1e-4,
+                   abs_dua_tol=1e-2)
+
+
+@pytest.mark.parametrize("settings", [
+    dict(), TERMINATION, dict(TERMINATION, adaptive_rho_taylor_trust=2.0)],
+    ids=["osqp", "termination", "termination-trust2"])
+@pytest.mark.parametrize("k", [5, 6, 11, 40, 500])
+def test_adaptive_iterates_match_jax(settings, k):
+    """Both controllers on the quadrotor: the workspace, the solution and
+    the Taylor-updated cache after k iterations (5: no update yet; 6: just
+    after the first; 500 runs to convergence, or with the OSQP-form
+    controller, which only lets rho decay here, to the budget's end) within
+    1e-9 of the JAX solve, with the same iteration count."""
+    (jp, jc, js, jst), (pp, pc, ps, pst) = _quad_pair(
+        QUAD_X0, max_iter=k, **settings)
+    jst, jca, jsol = jadmm.solve(jp, jc, js, jst)
+    pst, pca, psol = admm.solve(pp, pc, ps, pst)
+    assert int(psol.iter) == int(jsol.iter)
+    assert int(psol.solved) == int(jsol.solved)
+    np.testing.assert_allclose(float(pca.rho), float(jca.rho), atol=1e-9)
+    assert (float(pca.rho) != 5.0) == (k > 5)
+    for name in ("Kinf", "Pinf", "C1", "C2", "Quu_inv", "AmBKt"):
+        np.testing.assert_allclose(getattr(pca, name).numpy(),
+                                   np.asarray(getattr(jca, name)), atol=1e-9,
+                                   err_msg=name)
+    _assert_states_close(pst, jst, 1e-9)
+
+
+def test_adaptive_rebuild_matches_jax():
+    """``adaptive_rho_rebuild``: the exact Riccati rebuild at each update, on
+    a mis-set rho0; same iteration count and final rho as the JAX solve."""
+    (jp, jc, js, jst), (pp, pc, ps, pst) = _quad_pair(
+        QUAD_X0, max_iter=60, adaptive_rho_rebuild=True,
+        adaptive_rho_controller="termination", adaptive_rho_max=100.0)
+    jst, jca, jsol = jadmm.solve(jp, jc, js, jst)
+    pst, pca, psol = admm.solve(pp, pc, ps, pst)
+    assert int(psol.iter) == int(jsol.iter)
+    np.testing.assert_allclose(float(pca.rho), float(jca.rho), rtol=1e-9)
+    np.testing.assert_allclose(pca.Kinf.numpy(), np.asarray(jca.Kinf),
+                               atol=1e-7)
+    np.testing.assert_allclose(psol.u.numpy(), np.asarray(jsol.u), atol=1e-7)
+
+
 def _rocket_pair(**settings):
     """JAX and port (problem, cache, settings, state) for the rocket with its
     box and both cones, x0 = 1.1 X_INIT."""
@@ -204,8 +309,6 @@ def test_warm_start_persists_across_solves():
 
 def test_unported_options_raise():
     _, (pp, pc, ps, pst) = _rocket_pair()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        admm.solve(pp, pc, ps.replace(adaptive_rho=True), pst)
     with pytest.raises(NotImplementedError, match="item 12"):
         admm.solve(pp, pc, ps, pst, horizon_parallel=True)
     s = rocket.make_solver(dtype=F64, device=CPU)

@@ -1,4 +1,6 @@
 """The port's TinyMPCSolver vs the JAX package's, and its unported surface."""
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -13,13 +15,13 @@ from torch_port_common import CPU, x0_batch
 N = cartpole.HORIZON
 
 
-def _setup(solver, **settings):
+def _setup(solver, horizon=N, **settings):
     solver.setup(cartpole.A, cartpole.B, None, np.diag(cartpole.Q_DIAG),
-                 np.diag(cartpole.R_DIAG), cartpole.RHO, 4, 1, N)
-    solver.set_bound_constraints(np.full((4, N), -1e17),
-                                 np.full((4, N), 1e17),
-                                 np.full((1, N - 1), -5.0),
-                                 np.full((1, N - 1), 5.0))
+                 np.diag(cartpole.R_DIAG), cartpole.RHO, 4, 1, horizon)
+    solver.set_bound_constraints(np.full((4, horizon), -1e17),
+                                 np.full((4, horizon), 1e17),
+                                 np.full((1, horizon - 1), -5.0),
+                                 np.full((1, horizon - 1), 5.0))
     solver.update_settings(**settings)
     return solver
 
@@ -107,11 +109,124 @@ def test_set_cache_terms_and_refs_rebuild_the_maps():
     np.testing.assert_allclose(p[1].numpy(), j[1], atol=1e-9)
 
 
+ADAPTIVE = dict(adaptive_rho=True, adaptive_rho_min=0.5,
+                adaptive_rho_max=5.0, en_state_bound=False)
+
+
+@pytest.mark.parametrize("method,controller", [
+    ("condensed", "osqp"), ("auto", "osqp"), ("condensed", "termination")])
+def test_solve_batch_adaptive_condensed_matches_jax(method, controller):
+    """f64, per-lane adaptive rho on the Taylor-expanded maps: exact
+    per-lane iteration counts, solutions within 1e-9; then a warm
+    continuation from the carry, which holds the per-lane rho."""
+    kw = dict(ADAPTIVE, adaptive_rho_controller=controller, max_iter=60)
+    if controller == "termination":
+        kw.update(adaptive_rho_taylor_trust=2.0, abs_pri_tol=1e-4,
+                  abs_dua_tol=1e-2)
+    js, ps = _pair(jnp.float64, torch.float64, **kw)
+    x0 = x0_batch(24, 26)
+    j = js.solve_batch(x0, method=method, return_carry=True)
+    p = ps.solve_batch(x0, method=method, return_carry=True)
+    assert p[4].method == "condensed" and p[4].batch == 24
+    rho = p[4].data.rho.numpy()
+    np.testing.assert_allclose(rho, np.asarray(j[4].data.rho), atol=1e-9)
+    assert (rho != cartpole.RHO).any()
+    j2 = js.solve_batch(x0, method=method, warm=j[4])
+    p2 = ps.solve_batch(x0, method=method, warm=p[4])
+    assert 0 < int(p[3].sum()) < 24
+    for a, b in ((p, j), (p2, j2)):
+        np.testing.assert_array_equal(a[2].numpy(), b[2])
+        np.testing.assert_array_equal(a[3].numpy(), b[3])
+        np.testing.assert_allclose(a[1].numpy(), b[1], atol=1e-9)
+        np.testing.assert_allclose(a[0].numpy(), b[0], atol=1e-9)
+
+
+def test_solve_batch_adaptive_fused_matches_jax():
+    """f32, B = 24 (the JAX side pads to its tile): the port's fused path on
+    the CPU (kernel K2's plain version) against the JAX API's Pallas kernel,
+    cold with the carry and then warm from it.  Both solve with the JAX
+    side's f32 cache and sensitivities."""
+    js, ps = _pair(jnp.float32, torch.float32, max_iter=30, **ADAPTIVE)
+    ps.cache = ps.cache.replace(**{
+        f.name: torch.tensor(np.asarray(getattr(js.cache, f.name)))
+        for f in dataclasses.fields(ps.cache)})
+    x0 = x0_batch(24, 27).astype(np.float32)
+    j = js.solve_batch(x0, method="fused", return_carry=True)
+    p = ps.solve_batch(x0, method="fused", return_carry=True)
+    assert len(p) == 5 and p[4].method == "fused"
+    assert p[4].data.rho.shape == (1, 24)
+    np.testing.assert_array_equal(p[2].numpy(), j[2])
+    np.testing.assert_array_equal(p[3].numpy(), j[3])
+    np.testing.assert_allclose(p[4].data.rho.numpy()[0],
+                               np.asarray(j[4].data.rho)[0, :24], rtol=1e-4)
+    for s in (js, ps):
+        s.update_settings(max_iter=200)
+    j2 = js.solve_batch(x0, method="fused", warm=j[4])
+    p2 = ps.solve_batch(x0, method="fused", warm=p[4])
+    both = (p2[3].numpy() == 1) & (j2[3] == 1)
+    assert both.sum() >= 12
+    same = p2[2].numpy()[both] == j2[2][both]
+    assert same.mean() >= 0.95
+    np.testing.assert_allclose(p2[1].numpy()[both][same], j2[1][both][same],
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_adaptive_dispatch_follows_the_jax_package():
+    """Adaptive rho never takes the chunked recursions, and ``auto`` sizes
+    the Taylor-expanded maps: at N = 800 the fixed maps fit the budget, the
+    Taylor ones do not, so adaptive ``auto`` leaves the condensed path (for
+    the standard one, which is not ported) while ``solve`` runs the
+    sequential recursions."""
+    from tinympc_julia_tpu.ops import condensed as JC
+    from tinympc_julia_tpu_torch.ops import condensed as PC
+    for adaptive in (False, True):
+        assert (PC.auto_uses_condensed(4, 1, 800, adaptive=adaptive)
+                == JC.auto_uses_condensed(4, 1, 800, adaptive=adaptive)
+                == (not adaptive))
+    s = _setup(P.TinyMPCSolver(dtype=torch.float64, device=CPU), horizon=800,
+               adaptive_rho=True, max_iter=6)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        s.solve_batch(np.zeros((2, 4)), method="auto")
+    s.set_x0([2.0, 0.0, 0.3, 0.0])
+    assert s.solve() == 1 and int(s.solution.iter) == 6
+    assert float(s.cache.rho) != cartpole.RHO  # updated at iteration 5
+
+
+def test_adaptive_refusals_match_the_jax_package():
+    x0 = np.zeros((2, 4))
+    for settings, method in (
+            (dict(adaptive_rho_rebuild=True), "condensed"),
+            (dict(adaptive_rho_rebuild=True), "fused"),
+            (dict(bf16_head_iters=5, max_iter=100), "fused"),
+            (dict(max_iter=52), "fused"),
+            (dict(check_termination=2, max_iter=14), "fused")):
+        kw = dict(ADAPTIVE, max_iter=50)
+        kw.update(settings)
+        js, ps = _pair(jnp.float32, torch.float32, **kw)
+        for s in (js, ps):
+            with pytest.raises(ValueError):
+                s.solve_batch(x0.astype(np.float32), method=method)
+
+
+def test_references_rebuild_the_taylor_maps():
+    js, ps = _pair(jnp.float64, torch.float64, max_iter=40, **ADAPTIVE)
+    x0 = x0_batch(8, 28)
+    first = ps.solve_batch(x0, method="condensed")
+    x_ref = np.random.default_rng(29).normal(scale=0.2, size=(4, N))
+    for s in (js, ps):
+        s.set_x_ref(x_ref)
+    j = js.solve_batch(x0, method="condensed")
+    p = ps.solve_batch(x0, method="condensed")
+    assert not torch.allclose(p[1], first[1], atol=1e-3)
+    np.testing.assert_array_equal(p[2].numpy(), j[2])
+    np.testing.assert_allclose(p[1].numpy(), j[1], atol=1e-9)
+
+
 @pytest.mark.parametrize("call", [
     lambda s: s.solve_batch(np.zeros((2, 4)), method="standard"),
     lambda s: s.solve_batch(np.zeros((2, 4)), method="chunked"),
-    lambda s: (s.update_settings(adaptive_rho=True),
-               s.solve_batch(np.zeros((2, 4)), method="fused")),
+    lambda s: (_setup(s, horizon=800, adaptive_rho=True),
+               s.solve_batch(np.zeros((2, 4)), method="auto")),
     lambda s: (s.update_settings(bf16_head_iters=4, check_termination=4,
                                  max_iter=40),
                s.solve_batch(np.zeros((2, 4)), method="fused")),

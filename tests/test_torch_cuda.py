@@ -1,6 +1,7 @@
-"""Kernel K1 on the card, with and without its linear and cone projections
-(K1e): the CUDA kernel vs its plain PyTorch version, the port's main paths
-through it, and the single-instance solve() on the card.  Every test here
+"""Kernels K1 (with and without its linear and cone projections, K1e) and
+K2 (per-lane adaptive rho) on the card: each CUDA kernel vs its plain
+PyTorch version, the port's main paths through them, and the
+single-instance solve() on the card.  Every test here
 is marked ``cuda`` and skips where CUDA is not available.  The file imports
 no JAX, so it also runs on a machine that has only the port's dependencies:
 
@@ -12,10 +13,13 @@ import torch
 
 from tinympc_julia_tpu_torch import TinyMPCSolver, make_problem
 from tinympc_julia_tpu_torch.models import cartpole, quadrotor, rocket
-from tinympc_julia_tpu_torch.ops.condensed import build_condensed
+from tinympc_julia_tpu_torch.ops.condensed import (build_condensed,
+                                                   build_condensed_taylor)
+from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
 from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
 from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
-from tinympc_julia_tpu_torch.parallel import three_phase_solve
+from tinympc_julia_tpu_torch.parallel import (three_phase_solve,
+                                              two_phase_adaptive_solve)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -247,3 +251,139 @@ def test_single_instance_solve_on_the_card(dev):
         u_cpu = cpu.get_solution().controls[:, 0]
         np.testing.assert_allclose(u_card, u_cpu, atol=1e-9)
         x = rocket.simulate(x, u_cpu)
+
+
+# -- kernel K2: per-lane adaptive rho ---------------------------------------
+
+def _k2_kw(p, c, **kw):
+    base = dict(plant=K2.AdaptivePlant(p.A, p.B, p.Q, p.R, c.Pinf,
+                                       c.dPinf_drho),
+                nx=p.nx, nu=p.nu, N=p.N, max_iter=200, abs_pri_tol=1e-3,
+                abs_dua_tol=1e-3, en_state_bound=False, en_input_bound=True,
+                relaxation_alpha=1.0, adaptive_rho_min=0.5,
+                adaptive_rho_max=5.0, adaptive_rho_clipping=True,
+                check_termination=1, controller="osqp",
+                taylor_trust=float("inf"), warm_start=False, carry_out=True)
+    base.update(kw)
+    return base
+
+
+def _k2_agree(k, r):
+    """>= 99% equal per-lane counts; on those lanes x and u within 1e-4,
+    the carry within 1e-4 of the larger of 1 and the entry's magnitude (the
+    duals are not of order 1), and rho within rtol 1e-4."""
+    same = (k[2] == r[2]) & (k[3] == r[3])
+    assert same.float().mean().item() >= 0.99
+    for j in (0, 1):
+        assert (k[j] - r[j])[same].abs().max().item() <= 1e-4
+    assert ((k[4] - r[4]).abs() / r[4])[same].max().item() <= 1e-4
+    for a, b in zip(k[5][:5], r[5][:5]):
+        rel = (a - b).abs() / b.abs().clamp(min=1.0)
+        assert rel[:, same].max().item() <= 1e-4
+
+
+_QUAD_KW = dict(controller="termination", taylor_trust=2.0,
+                adaptive_rho_min=5.0, adaptive_rho_max=1e3)
+
+
+@pytest.mark.parametrize("case", ["cartpole-osqp", "cartpole-ct5-relaxed",
+                                  "cartpole-state-bounded",
+                                  "rocket-termination",
+                                  "quadrotor-termination"])
+def test_adaptive_kernel_matches_plain_version(dev, case):
+    """K2 vs plain on 1000 lanes (a ragged last tile): both controllers,
+    the generic state-dual path, the cones, and the quadrotor shape whose
+    maps stay in global memory."""
+    kw, cons = {}, None
+    if case.startswith("cartpole"):
+        bounded = case.endswith("bounded")
+        p, c, _ = _plant(cartpole, 5.0, dev, np.array(
+            [0.5, 1e17, 1e17, 1e17]) if bounded else None)
+        x0 = _x0(1000, 4, 0, 0.5, dev)
+        if bounded:
+            x0 = x0 * torch.tensor([0.9, 3.0, 0.8, 1.0], device=dev)
+            kw = dict(en_state_bound=True)
+        elif "ct5" in case:
+            kw = dict(check_termination=5, relaxation_alpha=1.5)
+    elif case.startswith("rocket"):
+        s = _rocket(dev)
+        p, c = s.problem, s.cache
+        cons = K.fused_constraints(**K.problem_constraint_kw(p, s.settings),
+                                   nx=6, nu=3, dtype=torch.float32,
+                                   device=dev)
+        x0 = _rocket_x0(1000, dev)
+        kw = dict(controller="termination", en_state_bound=True,
+                  abs_pri_tol=2e-3, adaptive_rho_min=1.0,
+                  adaptive_rho_max=100.0, max_iter=100, constraints=cons)
+    else:
+        p, c, _ = _plant(quadrotor, 0.5, dev)
+        x0 = _x0(1000, 12, 1, 0.3, dev)
+        kw = dict(max_iter=300, **_QUAD_KW)
+    args = (build_condensed_taylor(p, c), p.u_min, p.u_max, p.x_min,
+            p.x_max, x0, None)
+    before = K2.condensed_adaptive_cuda.launches
+    k = K2.condensed_adaptive_cuda(*args, **_k2_kw(p, c, **kw))
+    r = K2.condensed_adaptive_reference(*args, **_k2_kw(p, c, **kw))
+    torch.cuda.synchronize()
+    assert K2.condensed_adaptive_cuda.launches == before + 1
+    assert int(k[3].sum()) > 500
+    _k2_agree(k, r)
+    if case.endswith("bounded"):
+        assert float(k[5].g.abs().max()) > 0.0
+
+
+def test_adaptive_warm_chain_matches_plain_chain(dev):
+    """30 iterations with the carry, then 50 warm: each call against the
+    plain version's (the continuation restarts the rho-update counter, so
+    the chain is not the 80-iteration solve)."""
+    p, c, _ = _plant(cartpole, 5.0, dev)
+    args = (build_condensed_taylor(p, c), p.u_min, p.u_max, p.x_min,
+            p.x_max, _x0(2048, 4, 1, 0.5, dev))
+    k1 = K2.condensed_adaptive_cuda(*args, None, **_k2_kw(p, c, max_iter=30))
+    r1 = K2.condensed_adaptive_reference(*args, None,
+                                         **_k2_kw(p, c, max_iter=30))
+    _k2_agree(k1, r1)
+    kw = _k2_kw(p, c, max_iter=50, warm_start=True)
+    k2 = K2.condensed_adaptive_cuda(*args, k1[5], **kw)
+    r2 = K2.condensed_adaptive_reference(*args, r1[5], **kw)
+    _k2_agree(k2, r2)
+    assert 0 < int(k1[3].sum()) < int((k1[3] | k2[3]).sum())
+
+
+def test_adaptive_kernel_refuses_what_it_does_not_take(dev):
+    p, c, _ = _plant(cartpole, 5.0, dev)
+    x0 = _x0(64, 4, 2, 0.5, dev)
+    args = (build_condensed_taylor(p, c), p.u_min, p.u_max, p.x_min, p.x_max)
+    with pytest.raises(TypeError, match="float32"):
+        K2.condensed_adaptive_cuda(*args, x0.double(), None, **_k2_kw(p, c))
+    with pytest.raises(ValueError, match="contiguous"):
+        K2.condensed_adaptive_cuda(*args, x0.T.contiguous().T, None,
+                                   **_k2_kw(p, c))
+    with pytest.raises(ValueError, match="plant"):
+        K2.condensed_adaptive_cuda(*args, x0, None,
+                                   **_k2_kw(p, c, plant=None))
+
+
+def test_adaptive_api_and_pipeline_run_through_the_kernel(dev):
+    s = quadrotor.make_solver(dtype=torch.float32, device=dev)
+    s.update_settings(adaptive_rho=True, adaptive_rho_min=5.0,
+                      adaptive_rho_max=1e3, max_iter=150,
+                      adaptive_rho_controller="termination",
+                      adaptive_rho_taylor_trust=2.0)
+    x0 = _x0(3000, 12, 1, 0.3, dev)
+    before = K2.condensed_adaptive_cuda.launches
+    xs, us, it, ok, carry = s.solve_batch(x0, method="fused",
+                                          return_carry=True)
+    assert K2.condensed_adaptive_cuda.launches == before + 1
+    assert xs.is_cuda and us.shape == (3000, N - 1, 4)
+    assert int(ok.sum()) > 0.8 * 3000
+    rho = carry.data.rho
+    assert rho.shape == (1, 3000) and 5.0 <= float(rho.min())
+    assert float(rho.max()) <= 7.0
+    p = s.problem
+    res = two_phase_adaptive_solve(
+        build_condensed_taylor(p, s.cache), p.u_min, p.u_max, p.x_min,
+        p.x_max, x0, nx=12, nu=4, N=N, straggler_slots=512)
+    assert K2.condensed_adaptive_cuda.launches == before + 3
+    assert int(res.overflow) == 0
+    assert int(res.solved.sum()) >= 0.99 * 3000

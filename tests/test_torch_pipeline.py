@@ -1,21 +1,30 @@
-"""The port's straggler compaction and three-phase pipeline vs the JAX
-package (the pipeline as bench.py builds it from JAX K1 factories, run in
-interpret mode off the TPU, all phases at HIGHEST precision)."""
+"""The port's straggler compaction and its pipelines vs the JAX package: the
+three-phase pipeline as bench.py builds it from JAX K1 factories (all phases
+at HIGHEST precision) and the two-phase adaptive-rho pipeline as the grouped
+solver builds it from the JAX adaptive kernel, both in interpret mode off
+the TPU."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
+from tinympc_julia_tpu.models import cartpole
+from tinympc_julia_tpu.ops.pallas.adaptive_kernel import (
+    make_condensed_adaptive_fused_solver as jax_adaptive)
 from tinympc_julia_tpu.ops.pallas.condensed_kernel import (
     make_condensed_fused_solver as jax_fused)
 from tinympc_julia_tpu.parallel.rebuild import (
     compact_members as jax_compact)
 from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
     condensed_fused_reference)
-from tinympc_julia_tpu_torch.parallel import compact_members, \
-    three_phase_solve
+from tinympc_julia_tpu_torch.ops.cuda.adaptive_kernel import (
+    condensed_adaptive_reference)
+from tinympc_julia_tpu_torch.parallel import (compact_members,
+                                              three_phase_solve,
+                                              two_phase_adaptive_solve)
 
-from torch_port_common import INTERPRET, cartpole_setup, x0_batch
+from torch_port_common import (INTERPRET, cartpole_setup, taylor_setup,
+                               x0_batch)
 
 
 @pytest.mark.parametrize("G,M,slots,p", [
@@ -114,3 +123,94 @@ def test_three_phase_solve_with_the_plain_solver_is_the_same():
     for f in a._fields:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert int(a.total_iters(56)) > 56 * 96
+
+
+ADAPTIVE_BUDGETS = (30, 400)
+
+
+def _jax_adaptive_pipeline(jp, jc, jt, x0s, slots):
+    """The two-phase pipeline of the JAX grouped solver at one group, with
+    the bench row's controller settings: bulk pass with the carry,
+    compaction, warm continuation, merge."""
+    m1, m2 = ADAPTIVE_BUDGETS
+    plant = tuple(np.asarray(a) for a in (jp.A, jp.B, jp.Q, jp.R, jc.Pinf,
+                                          jc.dPinf_drho))
+    kw = dict(en_input_bound=True, en_state_bound=False,
+              controller="termination", taylor_trust=2.0,
+              adaptive_rho_min=float(jc.rho), adaptive_rho_max=1e3,
+              interpret=INTERPRET)
+    B = x0s.shape[0]
+    fn1 = jax_adaptive(*plant, 20, batch_tile=B, max_iter=m1, carry_out=True,
+                       **kw)
+    fn2 = jax_adaptive(*plant, 20, batch_tile=slots, max_iter=m2,
+                       warm_start=True, **kw)
+    bounds = (jp.u_min, jp.u_max, jp.x_min, jp.x_max)
+    xs1, us1, it1, ok1, rho1, carry = fn1(jt, *bounds, x0s)
+    unconv = ok1 == 0
+    idx = jnp.nonzero(unconv, size=slots, fill_value=0)[0]
+    warm = type(carry)(*(w[:, idx] for w in carry))
+    xs2, us2, it2, ok2, rho2 = fn2(jt, *bounds, x0s[idx], warm)
+    n = int(unconv.sum())
+    lanes = np.asarray(idx)[:min(n, slots)]
+    out = [np.array(a) for a in (xs1, us1, it1, ok1, rho1)]
+    for a, b in zip(out, (xs2, us2, m1 + it2, ok2, rho2)):
+        a[lanes] = np.asarray(b)[:lanes.size]
+    return out, np.asarray(unconv)
+
+
+@pytest.mark.parametrize("slots,overflow", [(64, 0), (16, None)],
+                         ids=["room", "overflow"])
+def test_two_phase_adaptive_solve_matches_jax_pipeline(slots, overflow):
+    """B = 128, f32, the bench row's controller (termination, trust 2, rho
+    floored at rho0) on the cartpole from a mis-set-low rho0 = 0.3: the same
+    stragglers, then on the merged lanes both solved equal counts on >= 95%,
+    controls within 1e-4 and rho within rtol 5e-4 (a prediction is rho times
+    the root of a ratio of residuals that are small near convergence, which
+    magnifies the fp32 reassociation between the two matmul orders; one lane
+    of 119 lands at 1.3e-4); stragglers beyond the slots keep their
+    bulk-pass result and are counted."""
+    B = 128
+    (jp, jc, jt), (pp, pc, pt) = taylor_setup(dtype=jnp.float32, model=cartpole,
+                                              rho=0.3, ub=5.0)
+    x0 = x0_batch(B, 9).astype(np.float32)
+    (jx, ju, jit, jok, jrho), unconv = _jax_adaptive_pipeline(
+        jp, jc, jt, jnp.asarray(x0), slots)
+    res = two_phase_adaptive_solve(
+        pt, pp.u_min, pp.u_max, pp.x_min, pp.x_max, torch.as_tensor(x0),
+        nx=4, nu=1, N=20, straggler_slots=slots, budgets=ADAPTIVE_BUDGETS)
+    n_strag = int(unconv.sum())
+    assert n_strag > 16
+    np.testing.assert_array_equal(res.unconv.numpy(), unconv)
+    assert int(res.overflow) == (max(n_strag - slots, 0) if overflow is None
+                                 else overflow)
+    assert (overflow is None) == (n_strag > slots)
+    both = (res.solved.numpy() == 1) & (jok == 1)
+    assert both.sum() > (0.9 * B if overflow == 0 else B - n_strag)
+    same = res.iters.numpy()[both] == jit[both]
+    assert same.mean() >= 0.95
+    sel = np.flatnonzero(both)[same]
+    np.testing.assert_allclose(res.rho.numpy()[sel], jrho[sel], rtol=5e-4)
+    np.testing.assert_allclose(res.us.numpy()[sel], ju[sel], atol=1e-4,
+                               rtol=1e-4)
+    assert (res.rho.numpy() != 0.3).any()
+    # a straggler's count includes the bulk pass
+    cont = unconv & (res.solved.numpy() == 1)
+    assert (res.iters.numpy()[cont] > ADAPTIVE_BUDGETS[0]).all()
+
+
+def test_two_phase_adaptive_solve_with_the_plain_solver_is_the_same():
+    """``fused=condensed_adaptive_reference`` (how measurements time the
+    plain pipeline) gives the dispatching pipeline's result on CPU tensors;
+    budgets off the rho-update grid are refused."""
+    (_, _, _), (pp, pc, pt) = taylor_setup(dtype=jnp.float32, model=cartpole,
+                                           rho=0.3, ub=5.0)
+    x0 = torch.as_tensor(x0_batch(48, 10), dtype=torch.float32)
+    args = (pt, pp.u_min, pp.u_max, pp.x_min, pp.x_max, x0)
+    kw = dict(nx=4, nu=1, N=20, straggler_slots=16, budgets=(20, 100))
+    a = two_phase_adaptive_solve(*args, **kw)
+    b = two_phase_adaptive_solve(*args, fused=condensed_adaptive_reference,
+                                 **kw)
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    with pytest.raises(ValueError, match="multiples of 5"):
+        two_phase_adaptive_solve(*args, **dict(kw, budgets=(22, 100)))

@@ -15,6 +15,7 @@ import torch
 import tinympc_julia_tpu as J
 from tinympc_julia_tpu.models import cartpole
 from tinympc_julia_tpu.ops.condensed import build_condensed as jax_build
+from tinympc_julia_tpu.ops.condensed import build_condensed_taylor
 from tinympc_julia_tpu_torch.utils import convert
 
 torch.set_num_threads(1)
@@ -64,6 +65,34 @@ def cartpole_setup(dtype, *, state_bound=False, rho=1.0):
     pc = convert.cache_from_numpy(jax_arrays(jc), dtype=tdt, device=CPU)
     pm = convert.maps_from_numpy(jax_arrays(jm), dtype=tdt, device=CPU)
     return (jp, jc, jm), (pp, pc, pm)
+
+
+def port_copies(jp, jc, dtype):
+    """The port's Problem and Cache of a JAX problem and cache."""
+    tdt = TORCH_DTYPE[dtype]
+    return (convert.problem_from_numpy(jax_arrays(jp), dtype=tdt, device=CPU),
+            convert.cache_from_numpy(jax_arrays(jc), dtype=tdt, device=CPU))
+
+
+def taylor_setup(model, dtype, *, rho, ub, N=20, state_bound=None, order=2):
+    """(JAX problem, cache, Taylor maps) and the port's copies, for a plant
+    module (cartpole, quadrotor) with |u| <= ub and, with ``state_bound``
+    (nx,), |x| <= state_bound at every stage."""
+    kw = {}
+    if state_bound is not None:
+        xb = np.tile(state_bound, (N, 1))
+        kw = dict(x_min=jnp.asarray(-xb, dtype), x_max=jnp.asarray(xb, dtype))
+    jp = J.make_problem(jnp.asarray(model.A, dtype),
+                        jnp.asarray(model.B, dtype),
+                        jnp.asarray(np.diag(model.Q_DIAG), dtype),
+                        jnp.asarray(np.diag(model.R_DIAG), dtype),
+                        rho, N, u_min=-ub, u_max=ub, **kw)
+    jc = J.precompute_cache(jp.A, jp.B, jp.Q, jp.R, jnp.asarray(rho, dtype))
+    jt = build_condensed_taylor(jp, jc, order=order)
+    pp, pc = port_copies(jp, jc, dtype)
+    pt = convert.taylor_maps_from_numpy(jax_arrays(jt),
+                                        dtype=TORCH_DTYPE[dtype], device=CPU)
+    return (jp, jc, jt), (pp, pc, pt)
 
 
 def x0_batch(B, seed, scale=0.5, nx=4):

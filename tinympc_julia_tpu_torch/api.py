@@ -4,10 +4,11 @@
 single-instance workspace on one device, chosen by the caller.  Ported so
 far: setup, the x0/reference setters, the bound, linear, cone and equality
 constraints, settings and cache injection, the single-instance ``solve``
-(ops/admm.py) with its persisted warm start, and ``solve_batch`` on the
-condensed and fused (kernel K1 with its projections) paths with exact warm
-continuation.  Every other method raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it.
+(ops/admm.py) with its persisted warm start and adaptive rho, and
+``solve_batch`` on the condensed and fused paths (kernel K1 with its
+projections; with ``adaptive_rho`` the Taylor-expanded maps and kernel K2)
+with exact warm continuation.  Every other method raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it.
 
 Matrix layout at this boundary follows the reference: states (nx, N),
 controls (nu, N-1); ``solve_batch`` returns tensors on the solver's device,
@@ -16,6 +17,7 @@ controls (nu, N-1); ``solve_batch`` returns tensors on the solver's device,
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -24,9 +26,12 @@ import torch
 from . import types as T
 from .ops import admm, not_ported, riccati
 from .ops.condensed import (auto_chunk_size, auto_uses_condensed,
-                            build_condensed, solve_condensed)
+                            build_condensed, build_condensed_taylor,
+                            solve_condensed, solve_condensed_adaptive)
+from .ops.cuda.adaptive_kernel import make_condensed_adaptive_fused_solver
 from .ops.cuda.condensed_kernel import (make_condensed_fused_solver,
                                         problem_constraint_kw)
+from .ops.rho import RHO_INTERVAL
 
 
 class MPCSolution(NamedTuple):
@@ -38,7 +43,9 @@ class MPCSolution(NamedTuple):
 class BatchWarmCarry:
     """Opaque warm-start carry of ``solve_batch(return_carry=True)``,
     accepted back as ``warm=``: two chained calls equal one long solve lane
-    for lane.  On the fused path it holds the kernel's FusedCarry."""
+    for lane (with adaptive rho: the continuation restarts the rho-update
+    counter, as the JAX package's does).  On the fused path it holds the
+    kernel's FusedCarry, with adaptive rho its AdaptiveFusedCarry."""
     method: str
     batch: int
     data: object
@@ -64,6 +71,7 @@ class TinyMPCSolver:
         self.solution: Optional[T.Solution] = None
         self.is_setup = False
         self._condensed_maps = None
+        self._condensed_taylor_maps = None
 
     # -- setup --------------------------------------------------------------
 
@@ -108,11 +116,17 @@ class TinyMPCSolver:
         self.state = T.init_state(nx, nu, N, dtype=self.dtype,
                                   device=self.device)
         self.solution = None
-        self._condensed_maps = None
+        self._drop_maps()
         self.is_setup = True
         if verbose:
             print(f"TinyMPC solver setup successful (nx={nx}, nu={nu}, N={N})")
         return 0
+
+    def _drop_maps(self):
+        """Forget the condensed maps, fixed and Taylor-expanded: they bake
+        the references and the cache terms."""
+        self._condensed_maps = None
+        self._condensed_taylor_maps = None
 
     def _require_setup(self):
         if not self.is_setup:
@@ -145,7 +159,7 @@ class TinyMPCSolver:
             raise ValueError(f"x_ref has shape {x_ref.shape}, expected "
                              f"({nx}, {N})")
         self.problem = self.problem.replace(Xref=self._tensor(x_ref.T))
-        self._condensed_maps = None
+        self._drop_maps()
         return 0
 
     def set_u_ref(self, u_ref, *, verbose=False):
@@ -157,7 +171,7 @@ class TinyMPCSolver:
             raise ValueError(f"u_ref has shape {u_ref.shape}, expected "
                              f"({nu}, {N - 1})")
         self.problem = self.problem.replace(Uref=self._tensor(u_ref.T))
-        self._condensed_maps = None
+        self._drop_maps()
         return 0
 
     # -- constraints --------------------------------------------------------
@@ -282,7 +296,7 @@ class TinyMPCSolver:
         self.cache = self.cache.replace(
             Kinf=self._tensor(Kinf), Pinf=self._tensor(Pinf),
             Quu_inv=self._tensor(Quu_inv), AmBKt=self._tensor(AmBKt))
-        self._condensed_maps = None
+        self._drop_maps()
         return 0
 
     # -- solve ---------------------------------------------------------------
@@ -325,14 +339,23 @@ class TinyMPCSolver:
             self._condensed_maps = build_condensed(self.problem, self.cache)
         return self._condensed_maps
 
+    def _taylor_maps(self):
+        if self._condensed_taylor_maps is None:
+            self._condensed_taylor_maps = build_condensed_taylor(
+                self.problem, self.cache)
+        return self._condensed_taylor_maps
+
     def solve_batch(self, x0s, *, method: str = "auto", warm=None,
                     return_carry: bool = False, verbose=False):
         """Batched fresh solves over per-instance initial states (B, nx).
 
         ``method``: "condensed" (the T1/T2 eager solve), "fused" (kernel K1;
         float32) or "auto" (condensed while the maps fit the memory budget).
-        Pass ``return_carry=True`` to also get a ``BatchWarmCarry`` and give
-        it back as ``warm=`` (same method, same batch) to continue exactly.
+        With ``adaptive_rho`` every lane adapts its own rho on the
+        Taylor-expanded maps: ``solve_condensed_adaptive``, or kernel K2 on
+        the fused path.  Pass ``return_carry=True`` to also get a
+        ``BatchWarmCarry`` and give it back as ``warm=`` (same method, same
+        batch) to continue exactly.
 
         Returns (xs (B, N, nx), us (B, N-1, nu), iters (B,), solved (B,)) as
         tensors on the solver's device, plus the carry on request."""
@@ -362,38 +385,72 @@ class TinyMPCSolver:
             if warm.batch != B:
                 raise ValueError(f"warm carry holds {warm.batch} lanes, "
                                  f"x0s has {B}")
-        if s.adaptive_rho:
-            raise not_ported("adaptive rho", "ROADMAP.md queue 1, item 10")
+        if s.adaptive_rho and s.adaptive_rho_rebuild:
+            raise ValueError(
+                "adaptive_rho_rebuild on the condensed/fused fast paths runs "
+                "as the bucketed rebuild pipeline "
+                "(solve_batch_rebuild_adaptive)")
         if method == "fused":
             out = self._solve_batch_fused(x0s, warm, return_carry)
         else:
-            out = solve_condensed(p, self.cache, s, x0s, self._maps(),
-                                  warm=None if warm is None else warm.data,
-                                  return_carry=True)
-            if not return_carry:
-                out = out[:4]
+            solve, maps = ((solve_condensed_adaptive, self._taylor_maps())
+                           if s.adaptive_rho
+                           else (solve_condensed, self._maps()))
+            out = solve(p, self.cache, s, x0s, maps,
+                        warm=None if warm is None else warm.data,
+                        return_carry=return_carry)
         if return_carry:
             return out[:4] + (BatchWarmCarry(method=method, batch=B,
                                              data=out[4]),)
         return out
 
     def _solve_batch_fused(self, x0s, warm, return_carry):
-        """Kernel K1 on the batch as given: the kernel masks its ragged last
-        tile and a lane's result does not depend on its tile, so no padding
-        is needed.  The solver is made anew for every call from the current
-        problem's constraint data, so a constraint setter between two calls
-        always reaches the kernel."""
+        """Kernel K1 (K2 with adaptive rho) on the batch as given: the
+        kernels mask their ragged last tile and a lane's result does not
+        depend on its tile, so no padding is needed.  The solver is made
+        anew for every call from the current problem's constraint data, so a
+        constraint setter between two calls always reaches the kernel."""
         p, s = self.problem, self.settings
         ct = s.check_termination
         if ct < 1 or s.max_iter % ct != 0:
             raise ValueError(
                 "the fused path needs check_termination >= 1 dividing "
                 f"max_iter (got {ct} / {s.max_iter})")
+        if s.adaptive_rho:
+            if s.bf16_head_iters:
+                raise ValueError("bf16_head_iters is fixed-rho only (the rho "
+                                 "prediction would read bf16-noise residuals)")
+            step = math.lcm(RHO_INTERVAL, ct)
+            if s.max_iter % step != 0:
+                raise ValueError(
+                    "fused adaptive-rho needs max_iter divisible by "
+                    f"lcm(check_termination, {RHO_INTERVAL}) = {step} (the "
+                    f"rho update interval; got max_iter={s.max_iter})")
         if s.bf16_head_iters:
             raise not_ported("bf16_head_iters", "ROADMAP.md queue 2, K1c")
         if self.dtype != torch.float32:
             raise TypeError("the fused path is float32: build the solver "
                             "with dtype=torch.float32")
+        if s.adaptive_rho:
+            fn = make_condensed_adaptive_fused_solver(
+                p.A, p.B, p.Q, p.R, self.cache.Pinf, self.cache.dPinf_drho,
+                p.N, max_iter=s.max_iter, abs_pri_tol=s.abs_pri_tol,
+                abs_dua_tol=s.abs_dua_tol, en_state_bound=s.en_state_bound,
+                en_input_bound=s.en_input_bound,
+                relaxation_alpha=s.relaxation_alpha,
+                adaptive_rho_min=s.adaptive_rho_min,
+                adaptive_rho_max=s.adaptive_rho_max,
+                adaptive_rho_clipping=s.adaptive_rho_enable_clipping,
+                check_termination=ct, controller=s.adaptive_rho_controller,
+                taylor_trust=s.adaptive_rho_taylor_trust,
+                warm_start=warm is not None, carry_out=return_carry,
+                **problem_constraint_kw(p, s))
+            args = (self._taylor_maps(), p.u_min, p.u_max, p.x_min, p.x_max,
+                    x0s)
+            if warm is not None:
+                args += (warm.data,)
+            out = fn(*args)
+            return out[:4] + out[5:]  # the per-lane rho rides in the carry
         fn = make_condensed_fused_solver(
             p.nx, p.nu, p.N, max_iter=s.max_iter,
             abs_pri_tol=s.abs_pri_tol, abs_dua_tol=s.abs_dua_tol,

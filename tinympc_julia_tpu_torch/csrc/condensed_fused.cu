@@ -36,20 +36,10 @@
 //  * The rest of the lane's state (uxc, y, g, the v/z slacks that double as
 //    the x/u outputs, the carry) is in the (dim, B) global layout the Python
 //    side uses, read and written once per row per iteration, coalesced.
-//  * Elementwise arithmetic uses explicit round-to-nearest intrinsics so the
-//    compiler does not contract it into FMAs: the kernel then computes the
-//    same operations, in the same order, as its plain PyTorch version.
-//  * The projections couple the rows of one stage (a halfspace all of them,
-//    a cone its own), so both passes over a side walk it stage by stage: a
-//    projected side loads the stage's slack into a per-thread buffer of
-//    kMaxStage floats, clips it to the box, applies each halfspace row in
-//    order and then each cone, and only then takes the residuals (first
-//    pass) or writes the updates (second pass, which recomputes the stage
-//    exactly as the first did: the latch is known only after all stages).
-//    The halfspace rows (a, a/||a||^2, b) and the cones' mu are small device
-//    arrays read through the cache by every thread alike; the cones'
-//    (start, dim) pairs ride in the kernel's parameters.  A side without
-//    projections keeps the row-by-row arithmetic of the box path.
+//  * The elementwise part of an iteration (relaxation, the box, halfspace
+//    and cone projections, residuals, dual ascent), in round-to-nearest
+//    arithmetic and the plain version's order of operations, is
+//    projections.cuh, shared with the adaptive kernel.
 //
 // Launch contract: one thread per lane, blockDim.x = the lane tile chosen by
 // the Python wrapper (fused_tile_plan), ragged last tile masked here.  The
@@ -58,22 +48,13 @@
 // stage widths); the entry point refuses one the kernel would overrun.
 #include <cuda_runtime.h>
 
+#include "projections.cuh"
+
 namespace {
 
-constexpr int kRowBlock = 8;
-constexpr int kMaxStage = 12;  // widest projected stage (every plant: nx <= 12)
-constexpr int kMaxCones = 8;   // cones per side
+using namespace tinympc;
 
-// One side (inputs or states) of the slack update.
-struct Side {
-  const float* wmin;  // (rows,) box
-  const float* wmax;
-  const float* lin;   // (n_lin, 2*dim + 1): a, a/||a||^2, b of each row
-  const float* mu;    // (n_soc,)
-  int cone_start[kMaxCones];
-  int cone_dim[kMaxCones];
-  int dim, n_stages, n_lin, n_soc, en_box;
-};
+constexpr int kRowBlock = 8;
 
 struct Params {
   const float* t12t;  // (sw, swp) T12w transposed, rows padded to swp
@@ -102,124 +83,6 @@ struct Params {
   int state_free, warm_start, carry_out, t12_resident;
   Side side_u, side_x;
 };
-
-__device__ __forceinline__ float relaxed(const Params& p, bool relax, float w,
-                                         float prev) {
-  return relax ? __fadd_rn(__fmul_rn(p.alpha, w), __fmul_rn(p.one_m_alpha,
-                                                            prev))
-               : w;
-}
-
-// The slack of row r before the linear and cone projections: w_hat + dual
-// (dual null: the state-free path, g == 0), clipped to the box.
-__device__ __forceinline__ float row_slack(const Side& s, int r, float wh,
-                                           const float* dual, int o) {
-  float v = dual ? __fadd_rn(wh, dual[o]) : wh;
-  if (s.en_box) v = fminf(s.wmax[r], fmaxf(s.wmin[r], v));
-  return v;
-}
-
-// The projected slack of stage k: the box, then each halfspace row in order
-// (w -= max(a.w - b, 0) a/||a||^2, the dot product summed in index order),
-// then each cone (projections._project_soc_scaled), in the plain version's
-// order of operations.
-__device__ __forceinline__ void stage_slack(
-    const Params& p, const Side& s, int k, bool relax, const float* ux,
-    const float* prev, const float* dual, int lane, int T, float* w) {
-  const int dim = s.dim;
-  for (int j = 0; j < dim; ++j) {
-    const int r = k * dim + j, o = r * p.B + lane;
-    w[j] = row_slack(s, r, relaxed(p, relax, ux[r * T], prev[o]), dual, o);
-  }
-  for (int h = 0; h < s.n_lin; ++h) {
-    const float* row = s.lin + h * (2 * dim + 1);
-    float dot = __fmul_rn(w[0], __ldg(row));
-    for (int d = 1; d < dim; ++d)
-      dot = __fadd_rn(dot, __fmul_rn(w[d], __ldg(row + d)));
-    const float viol = fmaxf(__fsub_rn(dot, __ldg(row + 2 * dim)), 0.0f);
-    for (int d = 0; d < dim; ++d)
-      w[d] = __fsub_rn(w[d], __fmul_rn(viol, __ldg(row + dim + d)));
-  }
-  for (int c = 0; c < s.n_soc; ++c) {
-    float* seg = w + s.cone_start[c];
-    const int last = s.cone_dim[c] - 1;
-    const float mu = __ldg(s.mu + c);
-    float sq = __fmul_rn(seg[0], seg[0]);
-    for (int d = 1; d < last; ++d)
-      sq = __fadd_rn(sq, __fmul_rn(seg[d], seg[d]));
-    const float a = __fsqrt_rn(sq);
-    const float u0 = __fmul_rn(seg[last], mu);
-    if (a <= -u0) {  // below the cone: the origin
-      for (int d = 0; d <= last; ++d) seg[d] = 0.0f;
-    } else if (!(a <= u0)) {  // outside: onto the boundary
-      const float factor = __fdiv_rn(__fadd_rn(a, u0),
-                                     __fmul_rn(2.0f, fmaxf(a, 1e-30f)));
-      for (int d = 0; d < last; ++d) seg[d] = __fmul_rn(factor, seg[d]);
-      seg[last] = __fmul_rn(factor, __fdiv_rn(a, mu));
-    }
-  }
-}
-
-// Calls row(r, vnew_r) for every row r of one side, in order, with the
-// row's new slack.  A projected side (kProj) goes stage by stage through
-// stage_slack; a side with the box alone keeps the flat row loop of the
-// box path, with no stage buffer.
-template <bool kProj, class Row>
-__device__ __forceinline__ void for_each_slack(
-    const Params& p, const Side& s, bool relax, const float* ux,
-    const float* prev, const float* dual, int lane, int T, Row row) {
-  if constexpr (kProj) {
-    for (int k = 0; k < s.n_stages; ++k) {
-      float w[kMaxStage];
-      stage_slack(p, s, k, relax, ux, prev, dual, lane, T, w);
-      for (int j = 0; j < s.dim; ++j) row(k * s.dim + j, w[j]);
-    }
-  } else {
-    const int rows = s.dim * s.n_stages;
-    for (int r = 0; r < rows; ++r) {
-      const int o = r * p.B + lane;
-      row(r, row_slack(s, r, relaxed(p, relax, ux[r * T], prev[o]), dual, o));
-    }
-  }
-}
-
-// First pass over one side: the max-abs primal and dual residuals of the
-// new slack against the iterate (pri) and the previous slack (dua).
-template <bool kProj>
-__device__ __forceinline__ void side_residuals(
-    const Params& p, const Side& s, bool relax, const float* ux,
-    const float* prev, const float* dual, int lane, int T, float& pri,
-    float& dua) {
-  for_each_slack<kProj>(p, s, relax, ux, prev, dual, lane, T,
-                        [&](int r, float vn) {
-    pri = fmaxf(pri, fabsf(__fsub_rn(ux[r * T], vn)));
-    dua = fmaxf(dua, fabsf(__fsub_rn(prev[r * p.B + lane], vn)));
-  });
-}
-
-// Second pass over one side: the new slack goes to the output (and the
-// carry), the dual ascends, and the row's next-w2 entry (slack - dual)
-// replaces its ux entry in place (a stage's entries are all read by
-// stage_slack before the first is replaced).
-template <bool kProj>
-__device__ __forceinline__ void side_update(
-    const Params& p, const Side& s, bool relax, float* ux, float* prev,
-    float* dual, float* co, bool carry, int lane, int T) {
-  for_each_slack<kProj>(p, s, relax, ux, prev, dual, lane, T,
-                        [&](int r, float vn) {
-    const int o = r * p.B + lane;
-    const float wh = relaxed(p, relax, ux[r * T], prev[o]);
-    float next = vn;  // state-free: g == 0, w2 = vnew
-    if (dual) {
-      const float dn = __fsub_rn(__fadd_rn(dual[o], wh), vn);
-      dual[o] = dn;
-      next = __fsub_rn(vn, dn);
-    }
-    prev[o] = vn;
-    if (carry) co[o] = vn;
-    ux[r * T] = next;
-  });
-}
 
 // kProjU/kProjX: whether the input/state side has halfspaces or cones.
 template <bool kProjU, bool kProjX>
@@ -400,33 +263,11 @@ extern "C" int tinympc_condensed_fused(
   if (B <= 0 || tile <= 0 || ct < 1 || swp < p.sw || swp % kRowBlock != 0 ||
       smem_bytes < 0 || static_cast<size_t>(smem_bytes) < need)
     return static_cast<int>(cudaErrorInvalidValue);
-  const struct {
-    Side* side; const float* wmin; const float* wmax; const float* lin;
-    int n_lin; const int* soc; const float* mu; int n_soc; int dim;
-    int n_stages; int en_box;
-  } sides[2] = {
-      {&p.side_u, umin, umax, lin_u, n_lin_u, soc_u, soc_mu_u, n_soc_u, nu,
-       N - 1, en_input_bound},
-      {&p.side_x, xmin, xmax, lin_x, n_lin_x, soc_x, soc_mu_x, n_soc_x, nx, N,
-       en_state_bound}};
-  for (const auto& d : sides) {
-    Side& s = *d.side;
-    s.wmin = d.wmin; s.wmax = d.wmax; s.lin = d.lin; s.mu = d.mu;
-    s.dim = d.dim; s.n_stages = d.n_stages; s.n_lin = d.n_lin;
-    s.n_soc = d.n_soc; s.en_box = d.en_box;
-    if (d.n_lin < 0 || d.n_soc < 0 || d.n_soc > kMaxCones ||
-        (d.n_lin > 0 && d.lin == nullptr) ||
-        (d.n_soc > 0 && (d.soc == nullptr || d.mu == nullptr)) ||
-        (d.n_lin + d.n_soc > 0 && d.dim > kMaxStage))
-      return static_cast<int>(cudaErrorInvalidValue);
-    for (int c = 0; c < kMaxCones; ++c) {
-      s.cone_start[c] = c < d.n_soc ? d.soc[2 * c] : 0;
-      s.cone_dim[c] = c < d.n_soc ? d.soc[2 * c + 1] : 0;
-      if (c < d.n_soc && (s.cone_start[c] < 0 || s.cone_dim[c] < 2 ||
-                          s.cone_start[c] + s.cone_dim[c] > d.dim))
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
+  if (!init_side(p.side_u, umin, umax, lin_u, n_lin_u, soc_u, soc_mu_u,
+                 n_soc_u, nu, N - 1, en_input_bound) ||
+      !init_side(p.side_x, xmin, xmax, lin_x, n_lin_x, soc_x, soc_mu_x,
+                 n_soc_x, nx, N, en_state_bound))
+    return static_cast<int>(cudaErrorInvalidValue);
 
   const bool proj_u = n_lin_u + n_soc_u > 0, proj_x = n_lin_x + n_soc_x > 0;
   void (*kernel)(Params) =

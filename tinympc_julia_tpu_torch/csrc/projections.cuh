@@ -1,0 +1,194 @@
+// The slack update of one side (inputs or states) of a condensed ADMM
+// iteration, shared by the fused kernels (condensed_fused.cu, kernel K1, and
+// condensed_adaptive.cu, kernel K2): over-relaxation, the dual shift, the
+// box, the per-stage cyclic halfspaces and the scaled second-order cones,
+// composed box -> linear -> SOC, and the two passes over a side that use
+// them (residuals, then updates).
+//
+// Replaces apply_lin and apply_soc of
+// tinympc_julia_tpu/ops/pallas/condensed_kernel.py (selector matmuls there;
+// here one thread owns one lane and walks its stages).
+//
+// Every function is a template on the kernel's parameter struct P, of which
+// it reads P::alpha, P::one_m_alpha (over-relaxation) and P::B (the batch
+// size: the lane's state lives in global memory as (dim, B) arrays, element
+// r of lane l at [r * B + l]).  The lane's iterate ux lives in shared
+// memory, element r at ux[r * T] for a tile of T lanes.
+//
+// Elementwise arithmetic uses explicit round-to-nearest intrinsics so the
+// compiler does not contract it into FMAs: a kernel then computes the same
+// operations, in the same order, as its plain PyTorch version.
+//
+// The projections couple the rows of one stage (a halfspace all of them, a
+// cone its own), so both passes over a projected side walk it stage by
+// stage: the stage's slack is loaded into a per-thread buffer of kMaxStage
+// floats, clipped to the box, put through each halfspace row in order and
+// then each cone, and only then the pass takes the residuals or writes the
+// updates.  The halfspace rows (a, a/||a||^2, b) and the cones' mu are small
+// device arrays read through the cache by every thread alike; the cones'
+// (start, dim) pairs ride in the kernel's parameters.  A side without
+// projections keeps the row-by-row arithmetic of the box path.
+#pragma once
+#include <cuda_runtime.h>
+
+namespace tinympc {
+
+constexpr int kMaxStage = 12;  // widest projected stage (every plant: nx <= 12)
+constexpr int kMaxCones = 8;   // cones per side
+
+// One side (inputs or states) of the slack update.
+struct Side {
+  const float* wmin;  // (rows,) box
+  const float* wmax;
+  const float* lin;   // (n_lin, 2*dim + 1): a, a/||a||^2, b of each row
+  const float* mu;    // (n_soc,)
+  int cone_start[kMaxCones];
+  int cone_dim[kMaxCones];
+  int dim, n_stages, n_lin, n_soc, en_box;
+};
+
+// Fills one Side from the entry point's arguments (``soc``: n_soc (start,
+// dim) pairs in host memory) and refuses a layout the kernels would overrun.
+inline bool init_side(Side& s, const float* wmin, const float* wmax,
+                      const float* lin, int n_lin, const int* soc,
+                      const float* mu, int n_soc, int dim, int n_stages,
+                      int en_box) {
+  s.wmin = wmin; s.wmax = wmax; s.lin = lin; s.mu = mu;
+  s.dim = dim; s.n_stages = n_stages; s.n_lin = n_lin; s.n_soc = n_soc;
+  s.en_box = en_box;
+  if (n_lin < 0 || n_soc < 0 || n_soc > kMaxCones ||
+      (n_lin > 0 && lin == nullptr) ||
+      (n_soc > 0 && (soc == nullptr || mu == nullptr)) ||
+      (n_lin + n_soc > 0 && dim > kMaxStage))
+    return false;
+  for (int c = 0; c < kMaxCones; ++c) {
+    s.cone_start[c] = c < n_soc ? soc[2 * c] : 0;
+    s.cone_dim[c] = c < n_soc ? soc[2 * c + 1] : 0;
+    if (c < n_soc && (s.cone_start[c] < 0 || s.cone_dim[c] < 2 ||
+                      s.cone_start[c] + s.cone_dim[c] > dim))
+      return false;
+  }
+  return true;
+}
+
+template <class P>
+__device__ __forceinline__ float relaxed(const P& p, bool relax, float w,
+                                         float prev) {
+  return relax ? __fadd_rn(__fmul_rn(p.alpha, w), __fmul_rn(p.one_m_alpha,
+                                                            prev))
+               : w;
+}
+
+// The slack of row r before the linear and cone projections: w_hat + dual
+// (dual null: the state-free path, g == 0), clipped to the box.
+__device__ __forceinline__ float row_slack(const Side& s, int r, float wh,
+                                           const float* dual, int o) {
+  float v = dual ? __fadd_rn(wh, dual[o]) : wh;
+  if (s.en_box) v = fminf(s.wmax[r], fmaxf(s.wmin[r], v));
+  return v;
+}
+
+// The projected slack of stage k: the box, then each halfspace row in order
+// (w -= max(a.w - b, 0) a/||a||^2, the dot product summed in index order),
+// then each cone (projections._project_soc_scaled), in the plain version's
+// order of operations.
+template <class P>
+__device__ __forceinline__ void stage_slack(
+    const P& p, const Side& s, int k, bool relax, const float* ux,
+    const float* prev, const float* dual, int lane, int T, float* w) {
+  const int dim = s.dim;
+  for (int j = 0; j < dim; ++j) {
+    const int r = k * dim + j, o = r * p.B + lane;
+    w[j] = row_slack(s, r, relaxed(p, relax, ux[r * T], prev[o]), dual, o);
+  }
+  for (int h = 0; h < s.n_lin; ++h) {
+    const float* row = s.lin + h * (2 * dim + 1);
+    float dot = __fmul_rn(w[0], __ldg(row));
+    for (int d = 1; d < dim; ++d)
+      dot = __fadd_rn(dot, __fmul_rn(w[d], __ldg(row + d)));
+    const float viol = fmaxf(__fsub_rn(dot, __ldg(row + 2 * dim)), 0.0f);
+    for (int d = 0; d < dim; ++d)
+      w[d] = __fsub_rn(w[d], __fmul_rn(viol, __ldg(row + dim + d)));
+  }
+  for (int c = 0; c < s.n_soc; ++c) {
+    float* seg = w + s.cone_start[c];
+    const int last = s.cone_dim[c] - 1;
+    const float mu = __ldg(s.mu + c);
+    float sq = __fmul_rn(seg[0], seg[0]);
+    for (int d = 1; d < last; ++d)
+      sq = __fadd_rn(sq, __fmul_rn(seg[d], seg[d]));
+    const float a = __fsqrt_rn(sq);
+    const float u0 = __fmul_rn(seg[last], mu);
+    if (a <= -u0) {  // below the cone: the origin
+      for (int d = 0; d <= last; ++d) seg[d] = 0.0f;
+    } else if (!(a <= u0)) {  // outside: onto the boundary
+      const float factor = __fdiv_rn(__fadd_rn(a, u0),
+                                     __fmul_rn(2.0f, fmaxf(a, 1e-30f)));
+      for (int d = 0; d < last; ++d) seg[d] = __fmul_rn(factor, seg[d]);
+      seg[last] = __fmul_rn(factor, __fdiv_rn(a, mu));
+    }
+  }
+}
+
+// Calls row(r, vnew_r) for every row r of one side, in order, with the
+// row's new slack.  A projected side (kProj) goes stage by stage through
+// stage_slack; a side with the box alone keeps the flat row loop of the
+// box path, with no stage buffer.
+template <bool kProj, class P, class Row>
+__device__ __forceinline__ void for_each_slack(
+    const P& p, const Side& s, bool relax, const float* ux,
+    const float* prev, const float* dual, int lane, int T, Row row) {
+  if constexpr (kProj) {
+    for (int k = 0; k < s.n_stages; ++k) {
+      float w[kMaxStage];
+      stage_slack(p, s, k, relax, ux, prev, dual, lane, T, w);
+      for (int j = 0; j < s.dim; ++j) row(k * s.dim + j, w[j]);
+    }
+  } else {
+    const int rows = s.dim * s.n_stages;
+    for (int r = 0; r < rows; ++r) {
+      const int o = r * p.B + lane;
+      row(r, row_slack(s, r, relaxed(p, relax, ux[r * T], prev[o]), dual, o));
+    }
+  }
+}
+
+// First pass over one side: the max-abs primal and dual residuals of the
+// new slack against the iterate (pri) and the previous slack (dua).
+template <bool kProj, class P>
+__device__ __forceinline__ void side_residuals(
+    const P& p, const Side& s, bool relax, const float* ux,
+    const float* prev, const float* dual, int lane, int T, float& pri,
+    float& dua) {
+  for_each_slack<kProj>(p, s, relax, ux, prev, dual, lane, T,
+                        [&](int r, float vn) {
+    pri = fmaxf(pri, fabsf(__fsub_rn(ux[r * T], vn)));
+    dua = fmaxf(dua, fabsf(__fsub_rn(prev[r * p.B + lane], vn)));
+  });
+}
+
+// Second pass over one side: the new slack goes to the output (and the
+// carry), the dual ascends, and the row's entry of the backward map's input
+// (slack - dual) replaces its ux entry in place (a stage's entries are all
+// read by stage_slack before the first is replaced).
+template <bool kProj, class P>
+__device__ __forceinline__ void side_update(
+    const P& p, const Side& s, bool relax, float* ux, float* prev,
+    float* dual, float* co, bool carry, int lane, int T) {
+  for_each_slack<kProj>(p, s, relax, ux, prev, dual, lane, T,
+                        [&](int r, float vn) {
+    const int o = r * p.B + lane;
+    const float wh = relaxed(p, relax, ux[r * T], prev[o]);
+    float next = vn;  // state-free: g == 0, the entry is vnew
+    if (dual) {
+      const float dn = __fsub_rn(__fadd_rn(dual[o], wh), vn);
+      dual[o] = dn;
+      next = __fsub_rn(vn, dn);
+    }
+    prev[o] = vn;
+    if (carry) co[o] = vn;
+    ux[r * T] = next;
+  });
+}
+
+}  // namespace tinympc

@@ -8,6 +8,8 @@ Update ordering reproduces the reference exactly, quirks included:
   * on the converging iteration v, z, p and d are not advanced (the
     reference returns before the slack copy and the backward pass);
   * residuals are stored only on check iterations;
+  * with adaptive rho, the cache is updated every 5th iteration (never on
+    iteration 0) before that iteration's residual check;
   * p_N uses Pinf.T @ Xref[-1].
 
 This is the single-instance oracle the batched paths are held against, not a
@@ -23,6 +25,7 @@ import torch
 
 from ..types import Cache, Problem, Settings, Solution, State
 from . import not_ported, projections
+from . import rho as rho_mod
 
 TINY_SOLVED = 1
 TINY_UNSOLVED = 11
@@ -141,9 +144,6 @@ def make_loop_fns(problem: Problem, settings: Settings, *,
     """(cond_fn, body_fn) of the ADMM loop over the carry
     ``(state, cache, z_prev, v_prev, converged, i)``; ``converged`` is a
     Python bool and ``i`` a Python int."""
-    if settings.adaptive_rho:
-        raise not_ported("adaptive rho in the single-instance solve",
-                         "ROADMAP.md queue 1, item 10")
     if horizon_parallel or chunk_maps is not None:
         raise not_ported("horizon_parallel and chunk_maps (ops/scans.py)",
                          "ROADMAP.md queue 1, item 12")
@@ -165,6 +165,13 @@ def make_loop_fns(problem: Problem, settings: Settings, *,
         st = update_dual(st, settings)
         st = update_linear_cost(st, problem, ca)
         st = st.replace(iter=st.iter + 1)
+        # the reference gates on the 0-based loop counter, and updates the
+        # cache before the residual check: the dual residuals below scale
+        # by the new rho
+        if settings.adaptive_rho and i > 0 and i % rho_mod.RHO_INTERVAL == 0:
+            adapt = (rho_mod.adapt_rho_rebuild if settings.adaptive_rho_rebuild
+                     else rho_mod.adapt_rho)
+            ca = adapt(st, ca, problem, settings)
         z_prev, v_prev = st.znew, st.vnew
 
         # termination check only on iterations where iter % ct == 0;

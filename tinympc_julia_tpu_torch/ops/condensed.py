@@ -1,5 +1,5 @@
-"""Condensed-iteration formulation, fixed-rho half (counterpart of
-tinympc_julia_tpu/ops/condensed.py).
+"""Condensed-iteration formulation (counterpart of
+tinympc_julia_tpu/ops/condensed.py), for one problem shared by the batch.
 
 With the Riccati gains frozen, both ADMM sweeps over the horizon are affine
 in the iterate, so they condense into two dense maps built once at setup:
@@ -13,6 +13,13 @@ T12 in float64 on the host (numpy), then casts them to the problem's dtype
 and device.  ``solve_condensed`` runs the T1/T2 two-matmul form in eager
 PyTorch: it is the oracle that kernel K1's plain version
 (ops/cuda/condensed_kernel.py) is held against.
+
+Per-lane adaptive rho rides Taylor-expanded maps (``build_condensed_taylor``):
+the reference's first-order cache update K(rho) = K0 + drho dK, P(rho) = P0 +
+drho dP makes T1 a polynomial in drho = rho - rho0 (kept to ``order``) and T2
+exactly bilinear in the pre- and post-update drho.  ``solve_condensed_adaptive``
+applies them in eager PyTorch and is the oracle of kernel K2's plain version
+(ops/cuda/adaptive_kernel.py).
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import numpy as np
 import torch
 
 from ..types import Cache, ConeSet, Problem, Settings
+from . import rho as rho_mod
 
 
 # method="auto" uses the condensed solve while its maps fit this memory
@@ -313,6 +321,46 @@ def _cones_stacked(w, cones: ConeSet, n_stages, dim):
     return w3.reshape(n_stages * dim, B)
 
 
+def _slack_update(problem: Problem, settings: Settings):
+    """``slacks(u, x, z, v, y, g) -> (u_hat, x_hat, znew, vnew)`` on the
+    stacked (dim, B) layout: over-relaxation against the previous slacks,
+    then the dual shift and the projections box -> linear -> SOC."""
+    s = settings
+    nx, nu, N = problem.nx, problem.nu, problem.N
+    su, sx = (N - 1) * nu, N * nx
+    umin, umax = problem.u_min.reshape(su, 1), problem.u_max.reshape(su, 1)
+    xmin, xmax = problem.x_min.reshape(sx, 1), problem.x_max.reshape(sx, 1)
+    alpha = s.relaxation_alpha
+    lin_u = halfspace_rows(problem.Alin_u, problem.blin_u) \
+        if s.en_input_linear else None
+    lin_x = halfspace_rows(problem.Alin_x, problem.blin_x) \
+        if s.en_state_linear else None
+
+    def slacks(u, x, z, v, y, g):
+        if alpha != 1.0:
+            u_hat = alpha * u + (1.0 - alpha) * z
+            x_hat = alpha * x + (1.0 - alpha) * v
+        else:
+            u_hat, x_hat = u, x
+        znew = u_hat + y
+        if s.en_input_bound:
+            znew = torch.clamp(znew, umin, umax)
+        vnew = x_hat + g
+        if s.en_state_bound:
+            vnew = torch.clamp(vnew, xmin, xmax)
+        if lin_u is not None:
+            znew = _halfspaces_stacked(znew, lin_u, N - 1, nu)
+        if lin_x is not None:
+            vnew = _halfspaces_stacked(vnew, lin_x, N, nx)
+        if s.en_input_soc:
+            znew = _cones_stacked(znew, problem.cones_u, N - 1, nu)
+        if s.en_state_soc:
+            vnew = _cones_stacked(vnew, problem.cones_x, N, nx)
+        return u_hat, x_hat, znew, vnew
+
+    return slacks
+
+
 class CondensedCarry(NamedTuple):
     """Warm-start carry of the condensed solver, stacked (dim, B) layout."""
     d: torch.Tensor  # (su, B)
@@ -332,13 +380,12 @@ def solve_condensed(problem: Problem, cache: Cache, settings: Settings, x0s,
     the carry when ``return_carry=True`` (pass it back as ``warm=``: the
     continuation equals one long solve lane for lane).  The solutions are
     the slack iterates, as in the reference.  Box, linear and cone
-    constraints, composed box -> linear -> SOC; fixed rho only (adaptive rho
-    is ROADMAP.md queue 1, item 10)."""
+    constraints, composed box -> linear -> SOC; fixed rho
+    (``solve_condensed_adaptive`` is the adaptive-rho solve)."""
     s = settings
     if s.adaptive_rho:
-        raise NotImplementedError(
-            "adaptive rho on the condensed path is not ported yet "
-            "(ROADMAP.md queue 1, item 10)")
+        raise ValueError("solve_condensed is the fixed-rho solve; adaptive "
+                         "rho runs through solve_condensed_adaptive")
     if maps is None:
         maps = build_condensed(problem, cache)
     nx, nu, N = problem.nx, problem.nu, problem.N
@@ -346,16 +393,10 @@ def solve_condensed(problem: Problem, cache: Cache, settings: Settings, x0s,
     B = x0s.shape[0]
     dtype, dev = x0s.dtype, x0s.device
     rho = cache.rho.to(dtype)
-    umin, umax = problem.u_min.reshape(su, 1), problem.u_max.reshape(su, 1)
-    xmin, xmax = problem.x_min.reshape(sx, 1), problem.x_max.reshape(sx, 1)
     pri_tol = torch.tensor(s.abs_pri_tol, dtype=dtype, device=dev)
     dua_tol = torch.tensor(s.abs_dua_tol, dtype=dtype, device=dev)
-    alpha = s.relaxation_alpha
     ct = s.check_termination
-    lin_u = halfspace_rows(problem.Alin_u, problem.blin_u) \
-        if s.en_input_linear else None
-    lin_x = halfspace_rows(problem.Alin_x, problem.blin_x) \
-        if s.en_state_linear else None
+    slacks = _slack_update(problem, s)
 
     T1, T2 = maps.T1, maps.T2
     # the duals enter T2 only through rho (y - znew) and rho (g - vnew), so
@@ -378,25 +419,7 @@ def solve_condensed(problem: Problem, cache: Cache, settings: Settings, x0s,
     for i in range(s.max_iter):
         ux = T1 @ torch.cat([d, x0T, ones], dim=0)
         u, x = ux[:su], ux[su:]
-        if alpha != 1.0:
-            u_hat = alpha * u + (1.0 - alpha) * z
-            x_hat = alpha * x + (1.0 - alpha) * v
-        else:
-            u_hat, x_hat = u, x
-        znew = u_hat + y
-        if s.en_input_bound:
-            znew = torch.clamp(znew, umin, umax)
-        vnew = x_hat + g
-        if s.en_state_bound:
-            vnew = torch.clamp(vnew, xmin, xmax)
-        if lin_u is not None:
-            znew = _halfspaces_stacked(znew, lin_u, N - 1, nu)
-        if lin_x is not None:
-            vnew = _halfspaces_stacked(vnew, lin_x, N, nx)
-        if s.en_input_soc:
-            znew = _cones_stacked(znew, problem.cones_u, N - 1, nu)
-        if s.en_state_soc:
-            vnew = _cones_stacked(vnew, problem.cones_x, N, nx)
+        u_hat, x_hat, znew, vnew = slacks(u, x, z, v, y, g)
 
         # lanes converged in an earlier iteration are frozen entirely
         y = torch.where(conv, y, y + u_hat - znew)
@@ -434,4 +457,308 @@ def solve_condensed(problem: Problem, cache: Cache, settings: Settings, x0s,
     out = (xs, us, out_it, out_solved)
     if return_carry:
         return out + (CondensedCarry(d=d, y=y, g=g, v=v, z=z),)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Per-lane adaptive rho: Taylor-expanded maps and their solve
+# ---------------------------------------------------------------------------
+
+def _t1_taylor_numpy(A, B, f, K0, dK, N, order):
+    """Taylor coefficients (in drho = rho - rho0) of T1 under the reference's
+    linearised cache K(rho) = K0 + drho * dK.
+
+    T1's entries are polynomials of degree <= N in drho (powers of the
+    closed-loop matrix M(rho) = A - B K(rho)); the coefficients up to
+    ``order`` are computed exactly, by carrying truncated coefficient lists
+    through the power recursion (no finite differencing).  Returns
+    (order+1, su+sx, in1), float64 numpy."""
+    nx, nu = B.shape[-2], B.shape[-1]
+    su, sx = (N - 1) * nu, N * nx
+    in1 = su + nx + 1
+    o = order
+
+    def pmul(Pa, Pb):
+        """Truncated product of matrix-coefficient lists."""
+        out = []
+        for k in range(o + 1):
+            acc = Pa[0] @ Pb[k]
+            for i in range(1, k + 1):
+                acc = acc + Pa[i] @ Pb[k - i]
+            out.append(acc)
+        return out
+
+    zM = np.zeros((nx, nx))
+    Mc = [A - B @ K0, -(B @ dK)] + [zM] * (o - 1)
+    Kc = [K0, dK] + [np.zeros_like(K0)] * (o - 1)
+    fcol = f[:, None]
+
+    # pw[i]: coefficient list of M(rho)^i; cs[i]: that of
+    # sum_{j<i} M^(i-1-j) f (the affine term)
+    pw = [[np.eye(nx)] + [zM] * o]
+    cs = [[np.zeros((nx, 1)) for _ in range(o + 1)]]
+    for _ in range(N - 1):
+        pw.append(pmul(Mc, pw[-1]))
+        nc = pmul(Mc, cs[-1])
+        nc[0] = nc[0] + fcol
+        cs.append(nc)
+
+    # per-stage x-row blocks as coefficient lists of (nx, in1)
+    Xrows = []
+    for i in range(N):
+        row = []
+        for k in range(o + 1):
+            Rk = np.zeros((nx, in1))
+            for j in range(i):
+                Rk[:, j * nu:(j + 1) * nu] = -(pw[i - 1 - j][k] @ B)
+            Rk[:, su:su + nx] = pw[i][k]
+            Rk[:, -1:] = cs[i][k]
+            row.append(Rk)
+        Xrows.append(row)
+
+    T1s = []
+    for k in range(o + 1):
+        T1k = np.zeros((su + sx, in1))
+        for i in range(N - 1):
+            Uk = -(Kc[0] @ Xrows[i][k])
+            for a in range(1, k + 1):
+                Uk = Uk - Kc[a] @ Xrows[i][k - a]
+            if k == 0:
+                Uk[:, i * nu:(i + 1) * nu] -= np.eye(nu)
+            T1k[i * nu:(i + 1) * nu, :] = Uk
+        for i in range(N):
+            T1k[su + i * nx:su + (i + 1) * nx, :] = Xrows[i][k]
+        T1s.append(T1k)
+    return np.stack(T1s, axis=0)
+
+
+class CondensedTaylorMaps(NamedTuple):
+    """Taylor-expanded condensed maps for per-lane adaptive rho.
+
+    T1s: (order+1, su+sx, in1), the Taylor coefficients of T1 in drho.
+    T2s: (4, su, in2).  T2 is exactly bilinear in (rho_rq, rho_K): the cost
+         fold's rho and Pinf enter r/q/p_N affinely, with the rho from
+         before a same-iteration update, while K enters the backward
+         recursion linearly with the rho after it; Quu/AmBKt stay constant
+         (the reference's dead-write quirk).  Stored as [T2_00, dT2/drho_rq,
+         dT2/drho_K, cross], identified exactly from 4 corner evaluations.
+    rho0: the expansion centre (the setup rho), 0-d.
+    """
+    T1s: torch.Tensor
+    T2s: torch.Tensor
+    rho0: torch.Tensor
+
+
+def build_condensed_taylor(problem: Problem, cache: Cache,
+                           order: int = 2) -> CondensedTaylorMaps:
+    """Build the Taylor-expanded maps in float64 on the host, then cast them
+    to the problem's dtype and device."""
+    if order < 1:
+        raise ValueError("order must be >= 1")
+    N = problem.N
+    A, B, f = _np64(problem.A), _np64(problem.B), _np64(problem.f)
+    K0, dK = _np64(cache.Kinf), _np64(cache.dKinf_drho)
+    P0, dP = _np64(cache.Pinf), _np64(cache.dPinf_drho)
+    Quu, Am, rho0 = (_np64(cache.Quu_inv), _np64(cache.AmBKt),
+                     _np64(cache.rho))
+    Qd, Rd = _np64(problem.Q), _np64(problem.R)
+    Xref, Uref = _np64(problem.Xref), _np64(problem.Uref)
+
+    T1s = _t1_taylor_numpy(A, B, f, K0, dK, N, order)
+
+    def t2(drq, drk):
+        return _t2_numpy(B, Qd, Rd, Xref, Uref, K0 + drk * dK, Quu, Am,
+                         P0 + drq * dP, rho0 + drq, N)
+
+    T00 = t2(0.0, 0.0)
+    Ta = t2(1.0, 0.0) - T00
+    Tb = t2(0.0, 1.0) - T00
+    Tab = t2(1.0, 1.0) - T00 - Ta - Tb
+    T2s = np.stack([T00, Ta, Tb, Tab], axis=0)
+
+    def cast(m):
+        return torch.as_tensor(m, dtype=problem.dtype, device=problem.device)
+
+    return CondensedTaylorMaps(T1s=cast(T1s), T2s=cast(T2s), rho0=cast(rho0))
+
+
+def _osqp_residuals_stacked(x, u, z, v, y, g, problem: Problem, cache: Cache,
+                            drho, N):
+    """Per-lane OSQP-form residuals on the stacked (dim, B) layout: the
+    values of ``rho.osqp_residuals`` for each lane, with the per-lane Taylor
+    terminal cost Pinf + drho * dPinf.  Returns four (B,) vectors."""
+    nx, nu = problem.nx, problem.nu
+    Bsz = x.shape[1]
+    x3, v3, g3 = (t.reshape(N, nx, Bsz) for t in (x, v, g))
+    u3, z3, y3 = (t.reshape(N - 1, nu, Bsz) for t in (u, z, y))
+    A, Bm = problem.A, problem.B
+    Qd, Rd = problem.Q[None, :, None], problem.R[None, :, None]
+
+    def amax(t):
+        return torch.amax(torch.abs(t), dim=(0, 1))
+
+    dyn = (torch.einsum("ij,njb->nib", A, x3[:-1])
+           + torch.einsum("ij,njb->nib", Bm, u3) - x3[1:])
+    ax_inf = torch.maximum(amax(u3), amax(dyn))
+    z_inf = torch.maximum(amax(z3), amax(v3[1:]))
+    pri_res = torch.maximum(amax(u3 - z3), amax(dyn - v3[1:]))
+    pri_norm = torch.maximum(ax_inf, z_inf)
+
+    xN = x3[-1]
+    PxN = cache.Pinf @ xN + drho[None, :] * (cache.dPinf_drho @ xN)
+    Px_states = torch.cat([x3[:-1] * Qd, PxN[None]], dim=0)
+    Px_inputs = u3 * Rd
+    q_states = x3 * Qd
+    q_inputs = u3 * Rd
+
+    aty_states = torch.zeros_like(x3)
+    aty_states[:-1] += torch.einsum("ji,njb->nib", A, g3[1:])
+    aty_states[1:] -= g3[1:]
+    aty_inputs = torch.einsum("ji,njb->nib", Bm, g3[1:]) + y3
+
+    r_ds = Px_states + q_states + aty_states
+    r_di = Px_inputs + q_inputs + aty_inputs
+    dual_res = torch.maximum(amax(r_ds), amax(r_di))
+    px_inf = torch.maximum(amax(Px_states), amax(Px_inputs))
+    aty_inf = torch.maximum(amax(aty_states), amax(aty_inputs))
+    q_inf = torch.maximum(amax(q_states), amax(q_inputs))
+    dual_norm = torch.maximum(torch.maximum(px_inf, aty_inf), q_inf)
+    return pri_res, dual_res, pri_norm, dual_norm
+
+
+class AdaptiveCondensedCarry(NamedTuple):
+    """Warm-start carry of the adaptive-rho condensed solve: the fixed-rho
+    carry and the rho each lane ended on."""
+    d: torch.Tensor    # (su, B)
+    y: torch.Tensor    # (su, B)
+    g: torch.Tensor    # (sx, B)
+    v: torch.Tensor    # (sx, B)
+    z: torch.Tensor    # (su, B)
+    rho: torch.Tensor  # (B,)
+
+
+def solve_condensed_adaptive(problem: Problem, cache: Cache,
+                             settings: Settings, x0s,
+                             maps: CondensedTaylorMaps | None = None, *,
+                             order: int = 2,
+                             warm: AdaptiveCondensedCarry | None = None,
+                             return_carry: bool = False):
+    """Batched condensed solve with per-lane adaptive rho.
+
+    The reference's Taylor cache updates become the Taylor-expanded maps,
+    applied as shared stacked matmuls and combined with per-lane powers of
+    drho: ux = sum_k drho^k (T1_k @ vec1) by Horner, and the exact bilinear
+    d' = (T2_00 + drq T2_rq + drK T2_K + drq drK T2_x) @ vec2.  The rho
+    prediction (every 5th iteration, never on the call's iteration 0: a
+    warm continuation restarts the counter) is exact per lane.  T2 is exact;
+    T1 is truncated at ``order``, the only approximation on this path.
+
+    Returns (xs, us, iters, solved), plus the carry with the per-lane final
+    rho when ``return_carry=True``."""
+    s = settings
+    if s.adaptive_rho_controller not in ("osqp", "termination"):
+        raise ValueError("adaptive_rho_controller must be 'osqp' or "
+                         f"'termination', got {s.adaptive_rho_controller!r}")
+    if maps is None:
+        maps = build_condensed_taylor(problem, cache, order=order)
+    nx, nu, N = problem.nx, problem.nu, problem.N
+    su, sx = (N - 1) * nu, N * nx
+    B = x0s.shape[0]
+    dtype, dev = x0s.dtype, x0s.device
+    order = maps.T1s.shape[0] - 1
+    T1stk = maps.T1s.reshape((order + 1) * (su + sx), -1)
+    # reduced backward blocks: the y/g columns are exact negations of the
+    # z/v ones in every Taylor coefficient block
+    T2stk = torch.cat([maps.T2s[:, :, :su + sx], maps.T2s[:, :, -1:]],
+                      dim=2).reshape(4 * su, -1)
+    rho0 = maps.rho0.to(dtype)
+    pri_tol = torch.tensor(s.abs_pri_tol, dtype=dtype, device=dev)
+    dua_tol = torch.tensor(s.abs_dua_tol, dtype=dtype, device=dev)
+    ct = s.check_termination
+    slacks = _slack_update(problem, s)
+    x0T = x0s.T
+    ones = torch.ones((1, B), dtype=dtype, device=dev)
+
+    if warm is None:
+        zu = torch.zeros((su, B), dtype=dtype, device=dev)
+        zx = torch.zeros((sx, B), dtype=dtype, device=dev)
+        warm = AdaptiveCondensedCarry(
+            d=zu, y=zu, g=zx, v=zx, z=zu,
+            rho=cache.rho.to(dtype).expand(B).clone())
+    d, y, g, v, z, rho_b = warm
+    out_x = torch.zeros((sx, B), dtype=dtype, device=dev)
+    out_u = torch.zeros((su, B), dtype=dtype, device=dev)
+    out_it = torch.full((B,), s.max_iter, dtype=torch.int32, device=dev)
+    out_solved = torch.zeros((B,), dtype=torch.int32, device=dev)
+    conv = torch.zeros((B,), dtype=torch.bool, device=dev)
+
+    for i in range(s.max_iter):
+        drho = rho_b - rho0
+        R1 = (T1stk @ torch.cat([d, x0T, ones], dim=0)).reshape(
+            order + 1, su + sx, B)
+        ux = R1[order]
+        for k in range(order - 1, -1, -1):  # Horner in drho
+            ux = ux * drho[None, :] + R1[k]
+        u, x = ux[:su], ux[su:]
+        u_hat, x_hat, znew, vnew = slacks(u, x, z, v, y, g)
+
+        y = torch.where(conv, y, y + u_hat - znew)
+        g = torch.where(conv, g, g + x_hat - vnew)
+
+        # rho adaptation; converged lanes keep their rho
+        rho_new = rho_b
+        if i > 0 and i % rho_mod.RHO_INTERVAL == 0:
+            if s.adaptive_rho_controller == "termination":
+                # v/z are the previous slacks, as the single-instance
+                # path's predict_rho_termination reads them
+                pri = torch.maximum(torch.amax(torch.abs(x - vnew), dim=0),
+                                    torch.amax(torch.abs(u - znew), dim=0))
+                dua = rho_b * torch.maximum(
+                    torch.amax(torch.abs(v - vnew), dim=0),
+                    torch.amax(torch.abs(z - znew), dim=0))
+                newr = rho_mod.termination_controller(pri, dua, rho_b, s,
+                                                      rho_center=rho0)
+            else:
+                newr = rho_mod.predict_rho(
+                    *_osqp_residuals_stacked(x, u, znew, vnew, y, g, problem,
+                                             cache, drho, N), rho_b, s)
+            rho_new = torch.where(conv, rho_b, newr)
+        drho_new = rho_new - rho0
+
+        # the cache is updated before the check: duals scale by the new rho
+        ps = torch.amax(torch.abs(x - vnew), dim=0)
+        pi = torch.amax(torch.abs(u - znew), dim=0)
+        ds = torch.amax(torch.abs(v - vnew), dim=0) * rho_new
+        di = torch.amax(torch.abs(z - znew), dim=0) * rho_new
+        ok = (ps < pri_tol) & (pi < pri_tol) & (ds < dua_tol) & (di < dua_tol)
+        if ct <= 0 or (i + 1) % ct != 0:
+            ok = torch.zeros_like(ok)
+        newly = ok & ~conv
+
+        out_x = torch.where(newly, vnew, out_x)
+        out_u = torch.where(newly, znew, out_u)
+        out_it = torch.where(newly, i + 1, out_it)
+        out_solved = torch.where(newly, 1, out_solved)
+        conv = conv | newly
+
+        v = torch.where(conv, v, vnew)
+        z = torch.where(conv, z, znew)
+        # backward map: r/q/p_N were folded with the pre-update rho (drho),
+        # the gain K carries the post-update rho (drho_new)
+        R2 = (T2stk @ torch.cat([znew - y, vnew - g, ones], dim=0)).reshape(
+            4, su, B)
+        d_new = (R2[0] + drho[None, :] * R2[1] + drho_new[None, :] * R2[2]
+                 + (drho * drho_new)[None, :] * R2[3])
+        d = torch.where(conv, d, d_new)
+        rho_b = rho_new
+        if bool(conv.all()):
+            break
+
+    out_x = torch.where(conv, out_x, v)
+    out_u = torch.where(conv, out_u, z)
+    out = (out_x.T.reshape(B, N, nx), out_u.T.reshape(B, N - 1, nu), out_it,
+           out_solved)
+    if return_carry:
+        return out + (AdaptiveCondensedCarry(d=d, y=y, g=g, v=v, z=z,
+                                             rho=rho_b),)
     return out

@@ -8,3 +8,9 @@ from .condensed_kernel import (  # noqa: F401
     condensed_fused_reference,
     make_condensed_fused_solver,
 )
+from .adaptive_kernel import (  # noqa: F401
+    AdaptiveFusedCarry,
+    condensed_adaptive_cuda,
+    condensed_adaptive_reference,
+    make_condensed_adaptive_fused_solver,
+)

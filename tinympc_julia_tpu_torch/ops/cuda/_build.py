@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles to ``build/torch_kernels/<name>-<digest>.so``
 at the root of the checkout (``build/`` is git-ignored), for ``sm_90a``, with a
 plain C interface: no PyTorch headers, so a build takes seconds.  The digest
-of the source names the library, so an edited source is rebuilt and an
-unchanged one is loaded as it is.
+of the source and of the headers beside it (``csrc/*.cuh``) names the
+library, so an edited source is rebuilt and an unchanged one is loaded as it
+is.  ``load_libraries`` builds several sources at once, one nvcc each.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
 
@@ -45,7 +47,8 @@ def _nvcc() -> str:
 def load_library(name: str) -> BuiltLibrary:
     """Build (if needed) and load ``csrc/<name>.cu``; raises on failure."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     seconds, log = 0.0, ""
@@ -61,3 +64,11 @@ def load_library(name: str) -> BuiltLibrary:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
         os.replace(tmp, out)
     return BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
+
+
+def load_libraries(names) -> list[BuiltLibrary]:
+    """``load_library`` of every name, the builds running side by side (the
+    threads only wait for their nvcc)."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(load_library, names))

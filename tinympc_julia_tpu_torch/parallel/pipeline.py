@@ -1,5 +1,6 @@
-"""The three-phase straggler pipeline of the headline workload (the
-``_pipeline`` that bench.py builds inline around the JAX fused kernel).
+"""The straggler pipelines: the three-phase one of the headline workload
+(the ``_pipeline`` that bench.py builds inline around the JAX fused kernel)
+and the two-phase one of the adaptive-rho workload.
 
   phase 0  cold pass over every lane, ``check_termination`` = its whole
            budget (one end check), carry out;
@@ -10,6 +11,10 @@
 
 All three phases run kernel K1 in full fp32.  Nothing in the pipeline waits
 for the host: the compaction is a cumsum and a scatter.
+
+``two_phase_adaptive_solve`` is the pipeline kernel K2's carry exists for: a
+bulk pass with per-lane adaptive rho, the same compaction, and a warm
+continuation of the stragglers on the same kernel, each from its own rho.
 """
 from __future__ import annotations
 
@@ -18,8 +23,10 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..ops.cuda.adaptive_kernel import AdaptiveFusedCarry, condensed_adaptive
 from ..ops.cuda.condensed_kernel import (FusedCarry,
                                          make_condensed_fused_solver)
+from ..ops.rho import RHO_INTERVAL
 from .rebuild import compact_members
 
 # The headline workload's settings (bench.py's _pipeline): box-bounded
@@ -104,3 +111,83 @@ def three_phase_solve(maps, rho, u_min, u_max, x_min, x_max, x0s, *, nx, nu,
     return PipelineResult(xs=merge(xs1, xs2), us=merge(us1, us2), iters1=it1,
                           solved1=ok1, idx=idx, iters2=it2, solved2=ok2,
                           unconv=unconv, valid=valid)
+
+
+# The adaptive-rho workload's settings (bench.py's quadrotor_adaptive row,
+# phase 1): box-bounded inputs, no state bound, tolerance 1e-3, the
+# termination-residual controller floored at the setup rho (a decay below it
+# re-enters the Taylor maps' plateau), capped at 1e3 and held within the
+# Taylor trust radius 2 of the setup rho.
+ADAPTIVE_BUDGETS = (150, 2500)
+ADAPTIVE_CONTROLLER = "termination"
+ADAPTIVE_TAYLOR_TRUST = 2.0
+ADAPTIVE_RHO_MAX = 1e3
+
+
+class AdaptivePipelineResult(NamedTuple):
+    xs: torch.Tensor        # (B, N, nx) bulk pass, the stragglers' merged
+    us: torch.Tensor        # (B, N-1, nu)
+    iters: torch.Tensor     # (B,) bulk count, plus the continuation's
+    solved: torch.Tensor    # (B,)
+    rho: torch.Tensor       # (B,) the rho each lane ended on
+    unconv: torch.Tensor    # (B,) lanes unconverged after the bulk pass
+    overflow: torch.Tensor  # 0-d int32, stragglers beyond the slots
+
+
+def two_phase_adaptive_solve(tmaps, u_min, u_max, x_min, x_max, x0s, *, nx,
+                             nu, N, straggler_slots: int,
+                             budgets=ADAPTIVE_BUDGETS,
+                             fused: Optional[Callable] = None
+                             ) -> AdaptivePipelineResult:
+    """Bulk pass of ``budgets[0]`` iterations with per-lane adaptive rho and
+    its carry; the unconverged lanes compacted into ``straggler_slots``
+    slots (index-0 fill, no host sync); up to ``budgets[1]`` more iterations
+    warm from each straggler's carry and rho; the results merged back.
+    ``tmaps`` is the problem's ``CondensedTaylorMaps``; ``x0s`` is (B, nx).
+    Stragglers that overflow the slots keep their bulk-pass result and are
+    counted in ``overflow``.
+
+    The continuation restarts the rho-update counter, so the pipeline is
+    not one long solve; it is held against the same two calls of the plain
+    version.  ``fused`` replaces ``condensed_adaptive`` (the kernel on CUDA
+    tensors) by a function of the same signature; measurements pass
+    ``condensed_adaptive_reference`` to time the pipeline without the
+    kernel."""
+    for m in budgets:
+        if m % RHO_INTERVAL != 0:
+            raise ValueError(f"the adaptive pipeline's budgets must be "
+                             f"multiples of {RHO_INTERVAL}; got {budgets}")
+    solve = fused or condensed_adaptive
+    kw = dict(plant=None, nx=nx, nu=nu, N=N, abs_pri_tol=TOL, abs_dua_tol=TOL,
+              en_input_bound=True, en_state_bound=False, relaxation_alpha=1.0,
+              adaptive_rho_min=float(tmaps.rho0),
+              adaptive_rho_max=ADAPTIVE_RHO_MAX, adaptive_rho_clipping=True,
+              check_termination=1, controller=ADAPTIVE_CONTROLLER,
+              taylor_trust=ADAPTIVE_TAYLOR_TRUST)
+    bounds = (u_min, u_max, x_min, x_max)
+    B = x0s.shape[0]
+    m1, m2 = budgets
+
+    xs1, us1, it1, ok1, rho1, carry = solve(
+        tmaps, *bounds, x0s, None, max_iter=m1, warm_start=False,
+        carry_out=True, **kw)
+    unconv = ok1 == 0
+    idx, _, valid, overflow = compact_members(unconv[None, :],
+                                              straggler_slots)
+    idx = idx[0]
+    warm = AdaptiveFusedCarry(*(w[:, idx].contiguous() for w in carry))
+    xs2, us2, it2, ok2, rho2 = solve(
+        tmaps, *bounds, x0s[idx].contiguous(), warm, max_iter=m2,
+        warm_start=True, carry_out=False, **kw)
+
+    # merge: valid slots overwrite their lane, invalid ones go to a dump row
+    dest = torch.where(valid, idx, B)
+
+    def merge(a1, a2):
+        ext = torch.cat([a1, a1[:1]], dim=0)
+        return ext.index_copy(0, dest, a2)[:B]
+
+    return AdaptivePipelineResult(
+        xs=merge(xs1, xs2), us=merge(us1, us2), iters=merge(it1, m1 + it2),
+        solved=merge(ok1, ok2), rho=merge(rho1, rho2), unconv=unconv,
+        overflow=overflow[0])

@@ -12,7 +12,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.condensed import CondensedCarry, CondensedMaps
+from ..ops.condensed import (AdaptiveCondensedCarry, CondensedCarry,
+                             CondensedMaps, CondensedTaylorMaps)
+from ..ops.cuda.adaptive_kernel import AdaptiveFusedCarry
 from ..ops.cuda.condensed_kernel import FusedCarry
 from ..types import Cache, ConeSet, Problem
 
@@ -56,10 +58,23 @@ def maps_from_numpy(d, *, dtype, device) -> CondensedMaps:
                            for k in CondensedMaps._fields))
 
 
+def taylor_maps_from_numpy(d, *, dtype, device) -> CondensedTaylorMaps:
+    return CondensedTaylorMaps(*(_t(d[k], dtype, device)
+                                 for k in CondensedTaylorMaps._fields))
+
+
 def carry_from_numpy(d, *, dtype, device):
     """A FusedCarry from (w2, y, g, v, z), a CondensedCarry from
-    (d, y, g, v, z)."""
-    cls = FusedCarry if "w2" in d else CondensedCarry
+    (d, y, g, v, z); with a per-lane ``rho`` the adaptive carries: an
+    AdaptiveFusedCarry where rho is a (1, B) row, an AdaptiveCondensedCarry
+    where it is a (B,) vector."""
+    if "w2" in d:
+        cls = FusedCarry
+    elif "rho" not in d:
+        cls = CondensedCarry
+    else:
+        cls = (AdaptiveFusedCarry if np.ndim(d["rho"]) == 2
+               else AdaptiveCondensedCarry)
     return cls(*(_t(d[k], dtype, device) for k in cls._fields))
 
 
