@@ -56,10 +56,48 @@ Phases (one line each; any failure exits non-zero):
      the reference binary's finite-difference sensitivities) against the
      same solve on the CPU and the reference binary's record (the same
      iteration count, rho within 1e-9, controls within 1e-6);
+ 13. K1's group grid (K1d) vs plain, G problems x L lanes with per-group
+     maps, rho and bounds: (a) cartpole G = 8 x L = 512, T12 staged per
+     block; (b) the same with per-group state bounds (the generic path);
+     (c) the rocket G = 4 x L = 1,000 (a ragged last tile in every group)
+     with per-group cone coefficients; (d) quadrotor G = 4 x L = 128, the
+     maps read through L2; (e) the kernel's 30 + 50 warm chain against its
+     80-iteration solve, bit for bit;
+ 14. K1's reduced-precision product and head (K1c) vs plain, cartpole G = 8
+     x L = 512: (a) a 16-iteration head inside a 96-iteration launch, and the
+     same launch against the kernel's own (16, ct = 16, "default") launch
+     chained into a warm fp32 launch, bit for bit; (b) precision="default"
+     on the whole launch; (c) the quadrotor shape (the rounded map through
+     L2); (d) the latch recheck: every lane
+     latched inside a reduced phase passes the tolerance when its latching
+     iteration is recomputed in fp32 by the plain version from its carry;
+ 15. K2's group grid vs plain: (a) cartpole G = 8 x L = 512, OSQP-form
+     controller, per-group plant data and rho0; (b) quadrotor G = 8 x L =
+     512 (full width), termination controller with trust 2 around each
+     group's rho0, 150 iterations with the carry, timed; then through
+     GroupedBatchSolver (adaptive solve_batch(method="fused") and its
+     two-phase pipeline with 256 slots a group and 500 more iterations);
+ 16. the randomised quadrotor sweep at full width through
+     GroupedBatchSolver.make_fused_pipeline, drawn as the JAX package's
+     bench row draws it (models/sweeps.py: G = 64 x L = 1,024, seed 4, 128
+     reduced + 32 fp32 iterations, 256 slots a group, 1,500 more with a
+     512-iteration reduced head): convergence (>= 99%), per-group overflow,
+     the merged results against the same pipeline on the plain versions,
+     paired times, solves/s; the unstaged pipeline (160 fp32 + 1,500 fp32)
+     against its plain version at the tight bar and timed once; one launch
+     of each bulk phase (K1d: 160 fp32 iterations; K1c: 128 reduced ones)
+     timed beside its plain version; the kernel-side layouts of the 64
+     maps, which every launch makes anew, timed on their own;
+ 17. the rocket sweep with per-group cone coefficients (G = 16 x L = 2,048,
+     seed 6, 24 "default" + 48 fp32 iterations, 256 slots, 400 more): the
+     same checks, and the cones within 5e-3 on every solved lane;
 then the kernels' JSON line, the card's name and power limit, and the
 result line.  K1's launches are counted over phases 5 and 6, K1e's (the
-launches that run projections) over phase 8, K2's over phase 11, each from
-0 just before the phase and on its first, untimed runs.  The agreement bar
+launches that run projections) over phase 8, K2's over phase 11, K1d's (the
+launches over more than one group) and K1c's (those with reduced iterations)
+over the first runs of the two sweeps in phases 16 and 17, the K2 grid's over
+the GroupedBatchSolver calls of phase 15, each from 0 just before the phase
+and on its first, untimed runs.  The agreement bar
 of every kernel-vs-plain comparison: identical per-lane iteration counts on
 >= 99% of lanes (fp32 sums in another order may move a lane that sits on the
 tolerance by one check interval) and 1e-4 on the controls and states of
@@ -68,11 +106,20 @@ one, of lanes with equal counts; for K2 the states, controls and carry of
 every lane with equal counts (a carry entry relative to the larger of 1 and
 its magnitude) and the lane's final rho within rtol 1e-4.
 
+A launch or a pipeline with reduced-precision iterations is held to the same
+bar: both sides round to bf16 exactly and sum in fp32, so a kernel whose
+reduced product were wrong (no rounding, a truncation, the fp32 map) would
+move the lanes' counts and fail it.
+
 Each kernel's ``bound_ms`` is the least time the card could take for the
 timed launch: the larger of its operations (the matvecs' multiply-adds on
 the iterations its lanes really ran) over the H100's 67 TFLOP/s fp32 rate
-and its bytes (each input read once, each output written once) over 3.35
-TB/s.  ``library_ms`` is null: no single PyTorch call computes an ADMM solve.
+(for the reduced-precision launch: the reduced products its lanes ran,
+counted from their iteration counts and the check interval, over the data
+sheet's 989 TFLOP/s dense bf16 tensor-core rate, and the fp32 products of
+their checking iterations over the fp32 rate) and its bytes (each input read once, each output written
+once) over 3.35 TB/s.  ``library_ms`` is null: no single PyTorch call
+computes an ADMM solve.
 """
 import functools
 import json
@@ -92,11 +139,14 @@ ATOL = 1e-4
 CONE_TOL = 5e-3
 LOOP_STEPS = 20
 LOOP_ATOL = 1e-6
+G_CHECK, L_CHECK = 8, 512  # the grouped kernel-vs-plain cases
+L_ROCKET, L_QUAD = 1000, 128
 B_ADAPT = 16384
 SLOTS_ADAPT = 2048
 RHO_RTOL = 1e-4
 RHO_ATOL64 = 1e-9
 PEAK_FP32 = 67e12    # H100 SXM, fp32 outside the tensor cores, FLOP/s
+PEAK_BF16 = 989e12   # H100 SXM, dense bf16 in the tensor cores, FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM3, bytes/s
 
 
@@ -229,10 +279,12 @@ def bound(flops, nbytes):
 
 def cone_violation(xs, us, mu_x, mu_u, solved):
     """Largest excess of ||w[0:2]|| over mu * w[2] at any stage of a solved
-    lane, over the state and the input cones."""
+    lane, over the state and the input cones; a coefficient is a float or
+    per-lane values (B, 1)."""
     ok = solved == 1
     ex = [(torch.linalg.vector_norm(w[ok][..., :2], dim=-1)
-           - mu * w[ok][..., 2]).max().item()
+           - (mu[ok] if torch.is_tensor(mu) else mu) * w[ok][..., 2])
+          .max().item()
           for w, mu in ((xs, mu_x), (us, mu_u)) if bool(ok.any())]
     return max(ex, default=0.0)
 
@@ -259,22 +311,13 @@ def pipeline_lanes(res):
     return res.xs, res.us, it, ok
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
-                         "this script needs an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = smi()
-    print(f"phase 1 env: torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}, {torch.cuda.device_count()} device(s), "
-          f"card {card}", flush=True)
-
+def earlier_phases(card):
+    """Phases 2-12: the cartpole, rocket and adaptive quadrotor paths; the
+    rows of K1, K1e and K2 for the kernels line."""
     from tinympc_julia_tpu_torch import TinyMPCSolver, make_problem
     from tinympc_julia_tpu_torch.models import cartpole, quadrotor, rocket
     from tinympc_julia_tpu_torch.ops.condensed import (
         build_condensed, build_condensed_taylor)
-    from tinympc_julia_tpu_torch.ops.cuda._build import load_libraries
     from tinympc_julia_tpu_torch.ops.cuda.adaptive_kernel import (
         AdaptivePlant, adaptive_tile_plan, condensed_adaptive_cuda,
         condensed_adaptive_reference)
@@ -284,19 +327,6 @@ def main():
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.parallel.pipeline import (
         three_phase_solve, two_phase_adaptive_solve)
-
-    t0 = time.perf_counter()
-    libs = load_libraries(["condensed_fused", "condensed_adaptive"])
-    print(f"phase 2 build: {len(libs)} kernels side by side in "
-          f"{time.perf_counter() - t0:.1f} s with loading", flush=True)
-    for built in libs:
-        regs = sorted({int(l.split("Used ")[1].split()[0])
-                       for l in built.log.splitlines() if "Used " in l})
-        spills = sum("spill" in l and "0 bytes spill stores" not in l
-                     for l in built.log.splitlines())
-        print(f"phase 2 build: {built.path.name} in {built.seconds:.1f} s "
-              f"of nvcc; registers per thread over its variants {regs}, "
-              f"variants that spill {spills}", flush=True)
 
     dev = torch.device("cuda")
     f32 = torch.float32
@@ -821,7 +851,7 @@ def main():
     check(du12 <= LOOP_ATOL, f"phase 12: controls differ by {du12:.3e}")
 
     no_library = None  # no single PyTorch call computes an ADMM solve
-    print(json.dumps({"kernels": [{
+    return [{
         "name": "condensed_fused (K1), box path", "route": "cuda",
         "source": "tinympc_julia_tpu_torch/csrc/condensed_fused.cu",
         "replaces": "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:232",
@@ -841,7 +871,510 @@ def main():
         "replaces": "tinympc_julia_tpu/ops/pallas/adaptive_kernel.py:106",
         "launches": a_launches, "max_abs_err": max(a_errs), "ms": t_k2,
         "plain_ms": t_k2_p, "bound_ms": k2_bound[0],
-        "bound_by": k2_bound[1], "library_ms": no_library}]}))
+        "bound_by": k2_bound[1], "library_ms": no_library}]
+
+
+def flat_lanes(out):
+    """(G, L, ...) pipeline outputs as flat lanes for ``agreement``."""
+    return tuple(t.reshape((-1,) + t.shape[2:]) for t in out[:4])
+
+
+def grouped_phases(card):
+    """Phases 13-17: the group grid of K1 and K2, K1's reduced-precision
+    head, and the two grouped sweeps; the rows of K1d, K1c and K2's grid for
+    the kernels line."""
+    from tinympc_julia_tpu_torch import Settings, make_problem
+    from tinympc_julia_tpu_torch.models import (cartpole, quadrotor, rocket,
+                                                sweeps)
+    from tinympc_julia_tpu_torch.ops.condensed import (
+        build_condensed, build_condensed_taylor)
+    from tinympc_julia_tpu_torch.ops.cuda.adaptive_kernel import (
+        AdaptivePlant, condensed_adaptive_cuda, condensed_adaptive_reference)
+    from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
+        condensed_fused_cuda, condensed_fused_reference, fused_constraints,
+        fused_tile_plan, map_layout, problem_constraint_kw)
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    from tinympc_julia_tpu_torch.parallel.grouped import GroupedBatchSolver
+    from tinympc_julia_tpu_torch.types import stack_instances
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    N = cartpole.HORIZON
+
+    def groups(mod, G, ub_range, seed, x_bound=None):
+        """G randomised plants (dynamics, input gain, costs, rho, bounds)."""
+        rng = np.random.default_rng(seed)
+        nx = mod.A.shape[0]
+        ps, cs = [], []
+        for _ in range(G):
+            kw = {}
+            if x_bound is not None:
+                xb = np.tile(x_bound * rng.uniform(0.8, 1.2), (N, 1))
+                kw = dict(x_min=-xb, x_max=xb)
+            ub = rng.uniform(*ub_range)
+            p = make_problem(
+                mod.A + rng.normal(scale=2e-3, size=(nx, nx)),
+                mod.B * rng.uniform(0.9, 1.1),
+                np.diag(mod.Q_DIAG * rng.uniform(0.8, 1.25, size=nx)),
+                np.diag(mod.R_DIAG), mod.RHO * rng.uniform(0.8, 1.2), N,
+                u_min=-ub, u_max=ub, dtype=f32, device=dev, **kw)
+            ps.append(p)
+            cs.append(precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup))
+        return stack_instances(ps), stack_instances(cs)
+
+    def gx0(G, L, nx, seed, scale):
+        return torch.as_tensor(np.random.default_rng(seed).uniform(
+            -scale, scale, size=(G, L, nx)), dtype=f32, device=dev)
+
+    def k1_kw(P, **kw):
+        full = dict(nx=P.nx, nu=P.nu, N=P.N, abs_pri_tol=1e-3,
+                    abs_dua_tol=1e-3, en_input_bound=True,
+                    en_state_bound=False, relaxation_alpha=1.7,
+                    check_termination=4, warm_start=False, carry_out=True,
+                    num_groups=P.A.shape[0])
+        full.update(kw)
+        return full
+
+    def k1_args(P, C, maps, x0s, warm=None):
+        return (maps, C.rho, P.u_min, P.u_max, P.x_min, P.x_max, x0s, warm)
+
+    def k1_both(P, C, maps, x0s, **kw):
+        args = k1_args(P, C, maps, x0s)
+        full = k1_kw(P, **kw)
+        return (condensed_fused_cuda(*args, **full),
+                condensed_fused_reference(*args, **full))
+
+    def product_counts(counts, ct):
+        """(reduced, fp32) T12 products of a cold precision="default" launch
+        whose lanes ran ``counts`` iterations: iteration 0 is the rollout
+        alone, and of the others those that check ((i + 1) % ct == 0) take
+        the fp32 product."""
+        n = counts.to(torch.int64)
+        n_hi = n // ct - (1 if ct == 1 else 0)
+        return int((n - 1 - n_hi).sum()), int(n_hi.sum())
+
+    def bit_equal(out_a, out_b):
+        """Lanes on which two results differ in any bit of x, u or count."""
+        xa, ua, ia = out_a[:3]
+        xb, ub, ib = out_b[:3]
+        differ = ((ia != ib) | (xa != xb).flatten(1).any(1)
+                  | (ua != ub).flatten(1).any(1))
+        return int(differ.sum())
+
+    # -- phase 13: K1d, the group grid, kernel vs plain ---------------------
+    d_errs = []
+    G, L = G_CHECK, L_CHECK
+    Pc, Cc = groups(cartpole, G, (3.0, 6.0), 3)
+    mc = build_condensed(Pc, Cc)
+    x0c = gx0(G, L, 4, 4, 0.5)
+    out_k, out_p = k1_both(Pc, Cc, mc, x0c, max_iter=400)
+    d_errs.append(agreement(
+        f"phase 13a cartpole G={G} x L={L}, per-group maps, rho and input "
+        f"bounds ({bit_equal(out_k, out_p)} lanes differ in a bit)", out_k,
+        out_p))
+    d_errs.append(carry_agreement("phase 13a", out_k[2] == out_p[2],
+                                  out_k[4], out_p[4]))
+    ub_g = Pc.u_max[:, 0, 0]
+    u_g = out_k[1].reshape(G, L, -1).abs().amax(dim=(1, 2))
+    check(bool((u_g <= ub_g + 1e-5).all()) and float(ub_g.max() - ub_g.min())
+          > 0.5, "phase 13a: a group's controls leave its own bound")
+    Pb, Cb = groups(cartpole, G, (3.0, 6.0), 5,
+                    x_bound=np.array([2.0, 1e17, 1e17, 1e17]))
+    mb = build_condensed(Pb, Cb)
+    out_k, out_p = k1_both(Pb, Cb, mb, x0c, max_iter=400, en_state_bound=True,
+                           relaxation_alpha=1.0, check_termination=1)
+    d_errs.append(agreement(
+        f"phase 13b cartpole G={G} x L={L}, per-group state bounds (generic "
+        f"path; {bit_equal(out_k, out_p)} lanes differ in a bit)", out_k,
+        out_p))
+    gs_r, x0_r, _, _ = sweeps.rocket_cone_sweep(device=dev, G=4, L=L_ROCKET)
+    Pr, Cr = gs_r.problems, gs_r.caches
+    cons_r = fused_constraints(**problem_constraint_kw(Pr, gs_r.settings),
+                               nx=6, nu=3, dtype=f32, device=dev,
+                               num_groups=4)
+    r_kw = dict(max_iter=72, abs_pri_tol=2e-3, abs_dua_tol=1e-3,
+                en_state_bound=True, relaxation_alpha=1.0,
+                check_termination=1, constraints=cons_r)
+    out_k, out_p = k1_both(Pr, Cr, gs_r.maps(), x0_r, **r_kw)
+    d_errs.append(agreement(
+        f"phase 13c rocket G=4 x L={L_ROCKET} (ragged tiles), per-group cone "
+        f"coefficients ({bit_equal(out_k, out_p)} lanes differ in a bit)",
+        out_k, out_p))
+    mu_x = Pr.cones_x.mus[:, 0].repeat_interleave(L_ROCKET)[:, None]
+    mu_u = Pr.cones_u.mus[:, 0].repeat_interleave(L_ROCKET)[:, None]
+    viol = cone_violation(out_k[0], out_k[1], mu_x, mu_u, out_k[3])
+    print(f"phase 13c rocket: largest cone excess on solved lanes, each "
+          f"against its group's coefficient {viol:.3e} (bar {CONE_TOL})",
+          flush=True)
+    check(viol <= CONE_TOL, f"phase 13c: cone excess {viol:.3e}")
+    Pq, Cq = groups(quadrotor, 4, (0.4, 0.6), 7)
+    mq = build_condensed(Pq, Cq)
+    x0q = gx0(4, L_QUAD, 12, 8, 0.25)
+    out_k, out_p = k1_both(Pq, Cq, mq, x0q, max_iter=600)
+    d_errs.append(agreement(
+        f"phase 13d quadrotor G=4 x L={L_QUAD} (maps through L2; "
+        f"{bit_equal(out_k, out_p)} lanes differ in a bit)", out_k, out_p))
+    args = k1_args(Pc, Cc, mc, x0c)
+    one = condensed_fused_cuda(*args, **k1_kw(Pc, max_iter=80,
+                                              check_termination=1))
+    a = condensed_fused_cuda(*args, **k1_kw(Pc, max_iter=30,
+                                            check_termination=1))
+    b = condensed_fused_cuda(*args[:7], a[4], **k1_kw(
+        Pc, max_iter=50, check_termination=1, warm_start=True))
+    done = a[3] == 1
+    exact = (torch.equal(torch.where(done, a[2], 30 + b[2]), one[2])
+             and torch.equal(torch.where(done[:, None, None], a[1], b[1]),
+                             one[1])
+             and all(torch.equal(x[:, ~done], y[:, ~done])
+                     for x, y in zip(b[4], one[4])))
+    print(f"phase 13e grouped warm chain 30+50 vs one-shot 80: bit-exact "
+          f"{exact} ({int(done.sum())} lanes done in the first 30)",
+          flush=True)
+    check(exact, "the kernel's grouped 30+50 chain differs from its "
+          "80-iteration solve")
+
+    # -- phase 14: K1c, the reduced-precision product and head --------------
+    c_errs = []
+    head_kw = dict(max_iter=96, bf16_head_iters=16)
+    out_k, out_p = k1_both(Pc, Cc, mc, x0c, **head_kw)
+    c_errs.append(agreement(
+        f"phase 14a cartpole G={G} x L={L}, 16-iteration bf16 head of 96 "
+        f"({bit_equal(out_k, out_p)} lanes differ in a bit)", out_k, out_p))
+    c_errs.append(carry_agreement("phase 14a", out_k[2] == out_p[2],
+                                  out_k[4], out_p[4]))
+    check(int(out_k[2].min()) >= 16, "phase 14a: a count below the head")
+    a = condensed_fused_cuda(*args, **k1_kw(
+        Pc, max_iter=16, check_termination=16, precision="default"))
+    b = condensed_fused_cuda(*args[:7], a[4], **k1_kw(
+        Pc, max_iter=80, warm_start=True))
+    done = a[3] == 1
+    exact = (torch.equal(torch.where(done, a[2], 16 + b[2]), out_k[2])
+             and torch.equal(torch.where(done[:, None, None], a[1], b[1]),
+                             out_k[1])
+             and all(torch.equal(x[:, ~done], y[:, ~done])
+                     for x, y in zip(b[4], out_k[4])))
+    print(f"phase 14a head in one launch vs the chained (16, ct=16, "
+          f"'default') + warm fp32 launches: bit-exact {exact}", flush=True)
+    check(exact, "the head differs from the chained launches")
+    lo_k, lo_p = k1_both(Pc, Cc, mc, x0c, max_iter=96, precision="default")
+    c_errs.append(agreement(
+        f"phase 14b precision='default' on all 96 iterations, ct=4 "
+        f"({bit_equal(lo_k, lo_p)} lanes differ in a bit)", lo_k, lo_p,
+        min_solved=0))
+    fp_k = condensed_fused_cuda(*args, **k1_kw(Pc, max_iter=96))
+    print(f"phase 14b: solved within 96 iterations: reduced "
+          f"{int(lo_k[3].sum())}, fp32 {int(fp_k[3].sum())} of {G * L}",
+          flush=True)
+    tile_lo, res_lo = fused_tile_plan(12, 4, N, reduced=True)
+    out_k, out_p = k1_both(Pq, Cq, mq, x0q, max_iter=600, bf16_head_iters=64)
+    print(f"phase 14c quadrotor shape (tile {tile_lo}, maps in shared memory "
+          f"{res_lo}), 64-iteration head of 600: "
+          f"{bit_equal(out_k, out_p)}/{4 * L_QUAD} lanes differ in a bit",
+          flush=True)
+    c_errs.append(agreement("phase 14c quadrotor head", out_k, out_p))
+    # (d) the latch recheck.  The carry froze just before the latching
+    # iteration: the plain version recomputes that iteration in fp32 from it
+    # and must latch at once.  Its sum runs in another order, which moves a
+    # residual by ~1e-6 of itself: the recheck's tolerance is 1.001 x.
+    x0e = gx0(G, L, 4, 9, 0.2)
+    argse = k1_args(Pc, Cc, mc, x0e)
+    for what, kw in (("'default' at ct=4", dict(max_iter=96,
+                                                 precision="default")),
+                     ("a 32-iteration reduced phase with its end check",
+                      dict(max_iter=32, check_termination=32,
+                           precision="default")),
+                     ("a 32-iteration head", dict(max_iter=64,
+                                                  check_termination=32,
+                                                  bf16_head_iters=32))):
+        k = condensed_fused_cuda(*argse, **k1_kw(Pc, **kw))
+        latched = k[3] == 1
+        if "head" in what:  # only the lanes latched at the head's end
+            latched &= k[2] == 32
+        again = condensed_fused_reference(*argse[:7], k[4], **k1_kw(
+            Pc, max_iter=1, check_termination=1, warm_start=True,
+            carry_out=False, abs_pri_tol=1.001e-3, abs_dua_tol=1.001e-3))
+        ok = again[3][latched] == 1
+        du = (again[1] - k[1])[latched].abs().max().item()
+        print(f"phase 14d latch recheck, {what}: {int(latched.sum())} lanes "
+              f"latched in the reduced phase, {int(ok.sum())} pass the fp32 "
+              f"recheck, controls within {du:.3e}", flush=True)
+        check(int(latched.sum()) > G * L // 50, f"phase 14d {what}: too few "
+              "lanes latched to test anything")
+        check(bool(ok.all()), f"phase 14d {what}: a lane latched on "
+              "residuals that fail in fp32")
+        check(du <= ATOL, f"phase 14d {what}: controls differ by {du:.3e}")
+
+    # -- phase 15: K2's group grid ------------------------------------------
+    g_errs = []
+
+    def k2_both(P, C, tmaps, x0s, **kw):
+        full = dict(plant=AdaptivePlant(P.A, P.B, P.Q, P.R, C.Pinf,
+                                        C.dPinf_drho),
+                    nx=P.nx, nu=P.nu, N=P.N, max_iter=200, abs_pri_tol=1e-3,
+                    abs_dua_tol=1e-3, en_state_bound=False,
+                    en_input_bound=True, relaxation_alpha=1.0,
+                    adaptive_rho_min=0.3, adaptive_rho_max=8.0,
+                    adaptive_rho_clipping=True, check_termination=1,
+                    controller="osqp", taylor_trust=float("inf"),
+                    warm_start=False, carry_out=True,
+                    num_groups=P.A.shape[0])
+        full.update(kw)
+        args = (tmaps, P.u_min, P.u_max, P.x_min, P.x_max, x0s, None)
+        return (lambda: condensed_adaptive_cuda(*args, **full),
+                lambda: condensed_adaptive_reference(*args, **full))
+
+    f_k, f_p = k2_both(Pc, Cc, build_condensed_taylor(Pc, Cc), x0c)
+    out_k = f_k()
+    g_errs.append(adaptive_agreement(
+        f"phase 15a K2 grid, cartpole G={G} x L={L}, OSQP-form controller, "
+        "per-group plant and rho0", out_k, f_p()))
+    rho0_l = Cc.rho.repeat_interleave(L)
+    check(bool((out_k[4] != rho0_l).any()), "phase 15a: no lane moved its "
+          "rho")
+    Pa, Ca = groups(quadrotor, G, (0.4, 0.6), 11)
+    ta = build_condensed_taylor(Pa, Ca)
+    x0a = gx0(G, L, 12, 12, 0.3)
+    quad_kw = dict(controller="termination", taylor_trust=2.0, plant=None,
+                   adaptive_rho_min=quadrotor.RHO * 0.8,
+                   adaptive_rho_max=1e3, max_iter=150)
+    f_k, f_p = k2_both(Pa, Ca, ta, x0a, **quad_kw)
+    out_k = f_k()
+    g_errs.append(adaptive_agreement(
+        f"phase 15b K2 grid, quadrotor G={G} x L={L}, termination "
+        "controller, trust 2 around each group's rho0", out_k, f_p(),
+        min_solved=0))
+    off = (out_k[4] - Ca.rho.repeat_interleave(L)).abs().max().item()
+    check(off <= 2.0 + 1e-5, f"phase 15b: a lane's rho is {off:.3f} from its "
+          "group's rho0, beyond the trust radius")
+    ord1, sw_q, in1_q = ta.T1s.shape[1:]
+    su_q = ta.T2s.shape[2]
+    k2g_bound = bound(
+        2.0 * (ord1 * sw_q * in1_q + 4 * su_q * (sw_q + 1))
+        * int(out_k[2].sum()),
+        tensor_bytes(ta.T1s, ta.T2s[..., :sw_q], ta.T2s[..., -1:], Pa.u_min,
+                     Pa.u_max, Pa.x_min, Pa.x_max, x0a, out_k[:5],
+                     tuple(out_k[5])))
+    t_k2g, t_k2g_p = paired_ms(f_k, f_p)
+    condensed_adaptive_cuda.launches = 0
+    condensed_adaptive_cuda.grouped_launches = 0
+    gs_a = GroupedBatchSolver(Pa, Ca, Settings(
+        max_iter=150, en_state_bound=False, adaptive_rho=True,
+        adaptive_rho_controller="termination", adaptive_rho_taylor_trust=2.0,
+        adaptive_rho_min=quadrotor.RHO * 0.8, adaptive_rho_max=1e3))
+    xs_a, us_a, it_a, ok_a = gs_a.solve_batch(x0a, method="fused")
+    pipe_a = gs_a.solve_batch(x0a, method="fused", pipeline=(150, 256, 500))
+    torch.cuda.synchronize()
+    k2g_launches = condensed_adaptive_cuda.grouped_launches
+    check(k2g_launches == 3 and condensed_adaptive_cuda.launches == 3,
+          f"the grouped adaptive path launched K2's grid {k2g_launches} "
+          "times, not 3 (one solve, two pipeline phases)")
+    check(torch.equal(it_a.reshape(-1), out_k[2])
+          and torch.equal(us_a.reshape(-1, N - 1, 4), out_k[1]),
+          "GroupedBatchSolver's adaptive fused solve differs from the "
+          "kernel's direct launch")
+    n_a = int(pipe_a[3].sum())
+    print(f"phase 15b GroupedBatchSolver adaptive, quadrotor G={G} x L={L}: "
+          f"fused solve {int(ok_a.sum())} converged in 150 iterations; "
+          f"two-phase pipeline (150, 256 slots, 500) {n_a} converged "
+          f"({100.0 * n_a / (G * L):.2f}%), overflow "
+          f"{gs_a.last_overflow.tolist()}; one K2 grid launch (150 "
+          f"iterations, carry out) median of 5: kernel {t_k2g:.3f} ms, plain "
+          f"{t_k2g_p:.3f} ms on {card}", flush=True)
+    check(n_a >= int(ok_a.sum()), "the adaptive pipeline lost lanes")
+
+    # -- phases 16 and 17: the two sweeps at full width ---------------------
+    d_launches = c_launches = 0
+    sweep_rows = {}
+
+    def run_sweep(phase, name, build, cones=False):
+        nonlocal d_launches, c_launches
+        gs, x0s, pkw, setup_s = build(device=dev)
+        G, L = x0s.shape[:2]
+        B = G * L
+        t0 = time.perf_counter()
+        gs.maps()
+        torch.cuda.synchronize()
+        maps_s = time.perf_counter() - t0
+        print(f"phase {phase} {name}: setup on the host clock: {G} "
+              f"precompute_cache calls {setup_s:.1f} s, the batched "
+              f"build_condensed {maps_s:.2f} s", flush=True)
+        staged = gs.make_fused_pipeline(lanes=L, **pkw)
+        staged_p = gs.make_fused_pipeline(
+            lanes=L, fused=condensed_fused_reference, **pkw)
+        ukw = sweeps.unstaged(pkw)
+        flat = gs.make_fused_pipeline(lanes=L, **ukw)
+        flat_p = gs.make_fused_pipeline(
+            lanes=L, fused=condensed_fused_reference, **ukw)
+        for attr in ("launches", "grouped_launches", "reduced_launches"):
+            setattr(condensed_fused_cuda, attr, 0)
+        out = staged(x0s)
+        torch.cuda.synchronize()
+        check(condensed_fused_cuda.launches == 3
+              and condensed_fused_cuda.grouped_launches == 3,
+              f"phase {phase}: the staged pipeline launched K1 "
+              f"{condensed_fused_cuda.launches} times "
+              f"({condensed_fused_cuda.grouped_launches} on the group grid), "
+              "not 3")
+        d_launches += condensed_fused_cuda.grouped_launches
+        c_launches += condensed_fused_cuda.reduced_launches
+        xs, us, iters, solved, overflow = out
+        n_conv = int(solved.sum())
+        check(tuple(us.shape) == (G, L, gs.N - 1, gs.nu), f"controls "
+              f"{tuple(us.shape)}")
+        check(n_conv >= 0.99 * B, f"phase {phase}: {n_conv}/{B} converged")
+        errs = [agreement(
+            f"phase {phase} {name}, staged pipeline vs its plain version",
+            flat_lanes(out), flat_lanes(staged_p(x0s)),
+            min_solved=int(0.99 * B))]
+        out_u = flat(x0s)
+        errs.append(agreement(
+            f"phase {phase} {name}, unstaged pipeline vs its plain version",
+            flat_lanes(out_u), flat_lanes(flat_p(x0s)),
+            min_solved=int(0.99 * B)))
+        n_conv_u = int(out_u[3].sum())
+        extra = ""
+        if cones:
+            P = gs.problems
+            viol = max(cone_violation(
+                o[0].reshape(B, gs.N, gs.nx),
+                o[1].reshape(B, gs.N - 1, gs.nu),
+                P.cones_x.mus[:, 0].repeat_interleave(L)[:, None],
+                P.cones_u.mus[:, 0].repeat_interleave(L)[:, None],
+                o[3].reshape(B)) for o in (out, out_u))
+            check(viol <= CONE_TOL, f"phase {phase}: cone excess {viol:.3e}")
+            extra = f", largest cone excess on solved lanes {viol:.3e}"
+        t_st, t_st_p = paired_ms(lambda: staged(x0s), lambda: staged_p(x0s))
+        t_fl, t_fl_p = paired_ms(lambda: flat(x0s), lambda: flat_p(x0s),
+                                 reps=1)
+        print(f"phase {phase} {name} G={G} x L={L}: staged {pkw}: {n_conv} "
+              f"converged ({100.0 * n_conv / B:.2f}%), per-group overflow "
+              f"max {int(overflow.max())} (sum {int(overflow.sum())}), mean "
+              f"iterations {iters.float().mean().item():.1f}, largest "
+              f"{int(iters.max())}{extra}; median of 5: kernel {t_st:.3f} "
+              f"ms, plain {t_st_p:.3f} ms -> {n_conv / (t_st * 1e-3):.0f} "
+              f"solves/s on {card}; unstaged {ukw}: {n_conv_u} converged, "
+              f"mean iterations {out_u[2].float().mean().item():.1f}, one "
+              f"timing after a warm-up: kernel {t_fl:.3f} ms, plain "
+              f"{t_fl_p:.3f} ms -> {n_conv_u / (t_fl * 1e-3):.0f} solves/s",
+              flush=True)
+        return gs, x0s, pkw, errs
+
+    gs_q, x0_q, pkw_q, q_errs = run_sweep(
+        16, "randomised quadrotor sweep", sweeps.randomized_quadrotor_sweep)
+    # one launch of each bulk phase at the sweep's shape, for the kernels line
+    Gq, Lq = x0_q.shape[:2]
+    Pq, Cq = gs_q.problems, gs_q.caches
+    argsq = k1_args(Pq, Cq, gs_q.maps(), x0_q)
+    bulk = dict(max_iter=pkw_q["phase0_bf16_iters"] + pkw_q["phase1_iters"])
+    lo = dict(max_iter=pkw_q["phase0_bf16_iters"], precision="default")
+    sw = gs_q.maps().T12.shape[1]
+    timed = {}
+    for key, kw in (("K1d", bulk), ("K1c", lo)):
+        full = k1_kw(Pq, **kw)
+        f_k = functools.partial(condensed_fused_cuda, *argsq, **full)
+        f_p = functools.partial(condensed_fused_reference, *argsq, **full)
+        out_k, out_p = f_k(), f_p()
+        if key == "K1d":
+            err = agreement(f"phase 16 {key} bulk launch G={Gq} x L={Lq}, "
+                            f"{kw['max_iter']} fp32 iterations vs plain",
+                            out_k, out_p, min_solved=0)
+            flops = (2.0 * sw * sw * (int(out_k[2].sum()) - Gq * Lq)
+                     + 2.0 * sw * 12 * Gq * Lq)
+            t_ops = flops / PEAK_FP32
+        else:
+            err = agreement(f"phase 16 {key} bulk launch G={Gq} x L={Lq}, "
+                            f"{kw['max_iter']} reduced iterations vs plain",
+                            out_k, out_p, min_solved=0)
+            n_lo, n_hi = product_counts(out_k[2], full["check_termination"])
+            t_ops = 2.0 * sw * sw * (n_lo / PEAK_BF16 + n_hi / PEAK_FP32)
+        t_bytes = tensor_bytes(gs_q.maps().T12, gs_q.maps().T1, Cq.rho,
+                               Pq.u_min, Pq.u_max, Pq.x_min, Pq.x_max, x0_q,
+                               out_k[:4], tuple(out_k[4])) / PEAK_BYTES
+        t_k, t_p = paired_ms(f_k, f_p, reps=3)
+        timed[key] = (err, t_k, t_p, 1e3 * max(t_ops, t_bytes),
+                      "operations" if t_ops >= t_bytes else "bytes")
+        print(f"phase 16 {key} bulk launch: median of 3: kernel {t_k:.3f} "
+              f"ms, plain {t_p:.3f} ms, bound {timed[key][3]:.3f} ms by "
+              f"{timed[key][4]}; mean iterations "
+              f"{out_k[2].float().mean().item():.1f}", flush=True)
+    # what making the layouts at every launch costs at this shape
+    su_q = sw - gs_q.N * gs_q.nx
+    t_lay = [float(np.median([event_ms(lambda: map_layout(
+        gs_q.maps(), gs_q.nx, su_q, sw, red)) for _ in range(5)]))
+        for red in (False, True)]
+    print(f"phase 16 kernel-side layouts of the {Gq} maps, made at every "
+          f"launch, median of 5: {t_lay[0]:.3f} ms, with the bf16-rounded "
+          f"copy {t_lay[1]:.3f} ms", flush=True)
+    _, _, _, r_errs = run_sweep(17, "rocket sweep with per-group cones",
+                                sweeps.rocket_cone_sweep, cones=True)
+    check(d_launches == 6 and c_launches == 3,
+          f"the sweeps launched K1's group grid {d_launches} times and "
+          f"{c_launches} launches with reduced iterations (expected 6 and "
+          "3: two of the quadrotor's, the rocket's phase 0)")
+
+    src = "tinympc_julia_tpu_torch/csrc/"
+    jax_k1 = "tinympc_julia_tpu/ops/pallas/condensed_kernel.py"
+    return [{
+        "name": "condensed_fused group grid (K1d), grouped sweeps",
+        "route": "cuda", "source": src + "condensed_fused.cu",
+        "replaces": jax_k1 + ":540", "launches": d_launches,
+        "max_abs_err": max(d_errs + [timed["K1d"][0], q_errs[1], r_errs[1]]),
+        "ms": timed["K1d"][1], "plain_ms": timed["K1d"][2],
+        "bound_ms": timed["K1d"][3], "bound_by": timed["K1d"][4],
+        "library_ms": None}, {
+        "name": "condensed_fused reduced-precision product and head (K1c; "
+                "bound against the dense bf16 tensor-core rate)",
+        "route": "cuda", "source": src + "condensed_fused.cu",
+        "replaces": jax_k1 + ":480", "launches": c_launches,
+        "max_abs_err": max(c_errs + [timed["K1c"][0], q_errs[0], r_errs[0]]),
+        "ms": timed["K1c"][1], "plain_ms": timed["K1c"][2],
+        "bound_ms": timed["K1c"][3], "bound_by": timed["K1c"][4],
+        "library_ms": None}, {
+        "name": "condensed_adaptive group grid (K2 grid), grouped adaptive "
+                "solves",
+        "route": "cuda", "source": src + "condensed_adaptive.cu",
+        "replaces": "tinympc_julia_tpu/ops/pallas/adaptive_kernel.py:475",
+        "launches": k2g_launches, "max_abs_err": max(g_errs), "ms": t_k2g,
+        "plain_ms": t_k2g_p, "bound_ms": k2g_bound[0],
+        "bound_by": k2g_bound[1], "library_ms": None}]
+
+
+def build_kernels():
+    """Phase 2: both kernels' sources, one nvcc each, side by side."""
+    from tinympc_julia_tpu_torch.ops.cuda._build import load_libraries
+    t0 = time.perf_counter()
+    libs = load_libraries(["condensed_fused", "condensed_adaptive"])
+    print(f"phase 2 build: {len(libs)} kernels side by side in "
+          f"{time.perf_counter() - t0:.1f} s with loading", flush=True)
+    for built in libs:
+        regs = sorted({int(l.split("Used ")[1].split()[0])
+                       for l in built.log.splitlines() if "Used " in l})
+        spills = sum("spill" in l and "0 bytes spill stores" not in l
+                     for l in built.log.splitlines())
+        print(f"phase 2 build: {built.path.name} in {built.seconds:.1f} s "
+              f"of nvcc; registers per thread over its variants {regs}, "
+              f"variants that spill {spills}", flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
+                         "this script needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = smi()
+    print(f"phase 1 env: torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, {torch.cuda.device_count()} device(s), "
+          f"card {card}", flush=True)
+    t_start = time.perf_counter()
+    build_kernels()
+    rows = earlier_phases(card)
+    print(f"phases 2-12 done {time.perf_counter() - t_start:.0f} s after "
+          "the start", flush=True)
+    rows += grouped_phases(card)
+    print(f"all phases done {time.perf_counter() - t_start:.0f} s after the "
+          "start", flush=True)
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the port's pipelines spend their time on one NVIDIA GPU.
 
-    python3 profile_pipeline.py [--workload cartpole|rocket|adaptive|all]
-                                [--reps 3]
+    python3 profile_pipeline.py [--workload cartpole|rocket|adaptive|
+                                 sweep_quadrotor|sweep_rocket|all] [--reps 3]
 
 Runs each chosen workload under ``torch.profiler`` after one warm-up:
   * ``cartpole``: the three-phase pipeline (65,536 cartpole lanes, 8,192
@@ -13,7 +13,17 @@ Runs each chosen workload under ``torch.profiler`` after one warm-up:
   * ``adaptive``: the two-phase adaptive-rho pipeline (16,384 quadrotor
     lanes, termination controller floored at rho0 with trust 2, 150
     iterations, 2,048 straggler slots, up to 2,500 warm), two launches of
-    kernel K2.
+    kernel K2;
+  * ``sweep_quadrotor``: the randomised quadrotor sweep through
+    ``GroupedBatchSolver.make_fused_pipeline`` (models/sweeps.py: 64 plants x
+    1,024 lanes, 128 reduced-precision + 32 fp32 iterations, 256 slots a
+    group, 1,500 more with a 512-iteration reduced head), three launches of
+    K1 on its group grid; its unstaged form (160 + 1,500 fp32, two launches)
+    is profiled beside it;
+  * ``sweep_rocket``: the rocket sweep with per-group cone coefficients (16
+    cone pairs x 2,048 lanes, 24 + 48 iterations, 256 slots, 400 more),
+    three launches of K1 with its projections on the group grid, and its
+    unstaged form (two launches).
 It prints, one line each:
   * the card's name and power limit;
   * per workload, setup on the host clock (the Riccati cache with its
@@ -139,8 +149,43 @@ def adaptive_workload(dev):
     return "condensed_adaptive_kernel", 2, setup, run, stats
 
 
-WORKLOADS = dict(cartpole=cartpole_workload, rocket=rocket_workload,
-                 adaptive=adaptive_workload)
+def sweep_workload(build, staged):
+    """One of the grouped sweeps of models/sweeps.py, with its
+    reduced-precision phases (``staged``) or without them at the same total
+    budget."""
+    def workload(dev):
+        from tinympc_julia_tpu_torch.models import sweeps
+        gs, x0s, pkw, cache_s = getattr(sweeps, build)(device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gs.maps()
+        torch.cuda.synchronize()
+        setup = dict(cache=cache_s, maps=time.perf_counter() - t0)
+        if not staged:
+            pkw = sweeps.unstaged(pkw)
+        pipe = gs.make_fused_pipeline(lanes=x0s.shape[1], **pkw)
+
+        def stats(res):
+            _, _, iters, solved, overflow = res
+            return dict(pipeline=pkw, mean_iters=iters.float().mean().item(),
+                        max_iters=int(iters.max()),
+                        converged=int(solved.sum()), lanes=solved.numel(),
+                        overflow=int(overflow.sum()))
+
+        return ("condensed_fused_kernel", 3 if "phase0_bf16_iters" in pkw
+                else 2, setup, lambda: pipe(x0s), stats)
+
+    return workload
+
+
+WORKLOADS = dict(
+    cartpole=cartpole_workload, rocket=rocket_workload,
+    adaptive=adaptive_workload,
+    sweep_quadrotor=sweep_workload("randomized_quadrotor_sweep", True),
+    sweep_quadrotor_unstaged=sweep_workload("randomized_quadrotor_sweep",
+                                            False),
+    sweep_rocket=sweep_workload("rocket_cone_sweep", True),
+    sweep_rocket_unstaged=sweep_workload("rocket_cone_sweep", False))
 
 
 def trace(name, kernel, per_run, run, reps):
@@ -190,7 +235,9 @@ def trace(name, kernel, per_run, run, reps):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=[*WORKLOADS, "all"], default="all")
+    ap.add_argument("--workload", default="all",
+                    choices=[n for n in WORKLOADS if "unstaged" not in n]
+                    + ["all"])
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -210,7 +257,8 @@ def main():
           flush=True)
 
     out = dict(card=card, reps=args.reps)
-    names = list(WORKLOADS) if args.workload == "all" else [args.workload]
+    names = list(WORKLOADS) if args.workload == "all" else [
+        n for n in WORKLOADS if n.startswith(args.workload)]
     for name in names:
         kernel, per_run, setup, run, stats = WORKLOADS[name](dev)
         print(f"{name}: setup (host clock, seconds) {setup}", flush=True)

@@ -23,6 +23,7 @@ from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
 from tinympc_julia_tpu_torch.utils import convert
 
 from torch_port_common import (CART_X_BOUND, CPU, INTERPRET, TORCH_DTYPE,
+                               grouped_cartpoles, grouped_rockets,
                                jax_arrays, rocket_setup, rocket_x0,
                                taylor_setup, x0_batch)
 
@@ -61,9 +62,9 @@ def _both(setup, x0, *, tile, horizon=N, warm=None, **kw):
     return j, p
 
 
-def _assert_lanes(p, j, min_both, *, exact_counts=True):
-    """On the lanes both sides solved: equal counts, rho within rtol 1e-4,
-    controls and states within 1e-4."""
+def _assert_lanes(p, j, min_both, *, exact_counts=True, rho_rtol=1e-4):
+    """On the lanes both sides solved: equal counts, rho within rtol 1e-4
+    (``rho_rtol``), controls and states within 1e-4."""
     jok, pok = np.asarray(j[3]) == 1, p[3].numpy() == 1
     both = jok & pok
     assert both.sum() >= min_both
@@ -74,7 +75,7 @@ def _assert_lanes(p, j, min_both, *, exact_counts=True):
         assert same.mean() >= 0.95
     sel = np.flatnonzero(both)[same]
     np.testing.assert_allclose(p[4].numpy()[sel], np.asarray(j[4])[sel],
-                               rtol=1e-4)
+                               rtol=rho_rtol)
     np.testing.assert_allclose(p[1].numpy()[sel], np.asarray(j[1])[sel],
                                atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(p[0].numpy()[sel], np.asarray(j[0])[sel],
@@ -297,13 +298,13 @@ def test_cpu_solver_runs_the_plain_version_and_builds_nothing():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(num_groups=2), NotImplementedError),
+    (dict(num_groups=0), ValueError),
     (dict(precision="default"), NotImplementedError),
     (dict(check_termination=4, max_iter=50), ValueError),
     (dict(max_iter=52), ValueError),
     (dict(check_termination=0), ValueError),
     (dict(controller="bogus"), ValueError),
-], ids=["groups", "precision", "lcm", "multiple-of-5", "ct0", "controller"])
+], ids=["no-groups", "precision", "lcm", "multiple-of-5", "ct0", "controller"])
 def test_unported_and_invalid_options_raise(kw, err):
     (_, _, _), (pp, pc, _) = taylor_setup(dtype=F32, **CART)
     with pytest.raises(err):
@@ -333,3 +334,124 @@ def test_tile_plan():
     assert K2.adaptive_tile_plan(12, 4, 20, 2, 16384, 132) == (64, False)
     assert K2.adaptive_tile_plan(12, 4, 20, 2, 2048, 132) == (32, False)
     assert K2.adaptive_tile_plan(4, 1, 20, 2, 4096, 132) == (32, True)
+
+
+# -- the group grid ----------------------------------------------------------
+
+NG = 8  # horizon of the grouped cases
+
+
+def _grouped_both(groups, x0, *, horizon, constraints=None, **kw):
+    """The Pallas kernel on its (G, tiles) grid and the port's factory on
+    the CPU, both from the G-stacked problems: maps, rho0, bounds and plant
+    data per group."""
+    (jps, jcs), (pps, pcs) = groups
+    G, L = x0.shape[:2]
+    jt = build_condensed_taylor(jps, jcs)
+    pt = convert.taylor_maps_from_numpy(jax_arrays(jt), dtype=torch.float32,
+                                        device=CPU)
+    jkw = dict(kw)
+    pkw = dict(kw)
+    if constraints is not None:
+        jkw.update(constraints[0])
+        pkw.update(constraints[1])
+    j = jax_adaptive(*_plant_args(jps, jcs), horizon, batch_tile=L,
+                     num_groups=G, interpret=INTERPRET, **jkw)(
+        jt, *_bounds(jps), jnp.asarray(x0, F32))
+    p = K2.make_condensed_adaptive_fused_solver(
+        pps.A, pps.B, pps.Q, pps.R, pcs.Pinf, pcs.dPinf_drho, horizon,
+        num_groups=G, **pkw)(pt, *_bounds(pps),
+                             torch.as_tensor(x0, dtype=torch.float32))
+    return j, p
+
+
+@pytest.mark.parametrize("controller,state_bound", [
+    ("osqp", False), ("osqp", True), ("termination", False)])
+def test_grouped_reference_matches_jax_kernel(controller, state_bound):
+    """G = 3 randomised cartpoles (own rho0, plant, costs and bounds each) x
+    L = 16 lanes, 100 iterations with the carry: lane for lane against the
+    Pallas kernel, per-lane rho included."""
+    G, L = 3, 16
+    groups = grouped_cartpoles(G, F32, N=NG, state_bound=state_bound)
+    x0 = np.random.default_rng(61).uniform(-0.5, 0.5, size=(G, L, 4))
+    kw = dict(max_iter=200, en_input_bound=True, en_state_bound=state_bound,
+              adaptive_rho_min=0.3, adaptive_rho_max=8.0,
+              controller=controller, carry_out=True)
+    if controller == "termination":
+        kw["taylor_trust"] = 0.5
+    j, p = _grouped_both(groups, x0.astype(np.float32), horizon=NG, **kw)
+    # the OSQP-form controller drives rho down on this plant and solves
+    # about a third of the lanes within the budget
+    _assert_lanes(p, j, G * L // 4, exact_counts=False)
+    np.testing.assert_array_equal(p[3].numpy(), np.asarray(j[3]))
+    assert p[4].shape == (G * L,) and p[5].rho.shape == (1, G * L)
+    rho0 = groups[1][1].rho.repeat_interleave(L)
+    assert bool((p[4] != rho0).any())  # some lane moved its rho
+    if controller == "termination":  # the clip is around each group's rho0
+        assert float((p[4] - rho0).abs().max()) <= 0.5 + 1e-6
+
+
+def test_grouped_rocket_per_group_cones_match_jax_kernel():
+    G, L = 2, 8
+    groups = grouped_rockets(G, F32)
+    (jps, _), (pps, _) = groups
+    x0 = rocket_x0(G * L, seed=6).reshape(G, L, 6).astype(np.float32)
+    jcons = dict(soc_u=((0, 3, np.asarray(jps.cones_u.mus)[:, 0]),),
+                 soc_x=((0, 3, np.asarray(jps.cones_x.mus)[:, 0]),))
+    pcons = K.problem_constraint_kw(
+        pps, PT.Settings(en_input_soc=True, en_state_soc=True))
+    j, p = _grouped_both(
+        groups, x0, horizon=10, constraints=(jcons, pcons), max_iter=100,
+        abs_pri_tol=2e-3, abs_dua_tol=1e-3, en_input_bound=True,
+        en_state_bound=True, adaptive_rho_min=1.0, adaptive_rho_max=100.0,
+        controller="termination")
+    # a lane that moved its rho to 5.1 carries 1.3e-4 of fp32 noise in it
+    _assert_lanes(p, j, G * L // 2, exact_counts=False, rho_rtol=1e-3)
+
+
+def test_grouped_reference_equals_per_group_solves():
+    """float64: each group of a grouped solve equals the shared-problem
+    solve of that group alone."""
+    G, L = 3, 6
+    _, (pps, pcs) = grouped_cartpoles(G, jnp.float64, N=NG)
+    pt = C.build_condensed_taylor(pps, pcs)
+    x0 = torch.as_tensor(np.random.default_rng(67).uniform(
+        -0.5, 0.5, size=(G, L, 4)))
+    kw = dict(nx=4, nu=1, N=NG, max_iter=60, abs_pri_tol=1e-3,
+              abs_dua_tol=1e-3, en_state_bound=False, en_input_bound=True,
+              relaxation_alpha=1.0, adaptive_rho_min=0.3,
+              adaptive_rho_max=8.0, adaptive_rho_clipping=True,
+              check_termination=1, controller="osqp",
+              taylor_trust=float("inf"), warm_start=False, carry_out=True)
+    plant = K2.AdaptivePlant(pps.A, pps.B, pps.Q, pps.R, pcs.Pinf,
+                             pcs.dPinf_drho)
+    joint = K2.condensed_adaptive_reference(pt, *_bounds(pps), x0, None,
+                                            plant=plant, num_groups=G, **kw)
+    for g in range(G):
+        one = K2.condensed_adaptive_reference(
+            C.CondensedTaylorMaps(*(m[g] for m in pt)),
+            *(b[g] for b in _bounds(pps)), x0[g], None,
+            plant=K2.AdaptivePlant(*(t[g] for t in plant)), **kw)
+        lanes = slice(g * L, (g + 1) * L)
+        assert torch.equal(joint[2][lanes], one[2])
+        torch.testing.assert_close(joint[4][lanes], one[4], atol=1e-12,
+                                   rtol=0)
+        torch.testing.assert_close(joint[1][lanes], one[1], atol=1e-12,
+                                   rtol=0)
+        torch.testing.assert_close(joint[5].d[:, lanes], one[5].d,
+                                   atol=1e-12, rtol=0)
+
+
+def test_grouped_inputs_are_checked():
+    _, (pps, pcs) = grouped_cartpoles(2, F32, N=NG)
+    pt = C.build_condensed_taylor(pps, pcs)
+    make = lambda G, **kw: K2.make_condensed_adaptive_fused_solver(
+        pps.A, pps.B, pps.Q, pps.R, pcs.Pinf, pcs.dPinf_drho, NG,
+        max_iter=5, num_groups=G, **kw)
+    with pytest.raises(ValueError, match="T1s"):
+        make(3)(pt, *_bounds(pps), torch.zeros((3, 4, 4)))
+    with pytest.raises(ValueError, match="grouped x0s"):
+        make(2)(pt, *_bounds(pps), torch.zeros((3, 4, 4)))
+    shared = C.CondensedTaylorMaps(*(m[0] for m in pt))
+    with pytest.raises(ValueError, match="plant"):
+        make(3)(shared, *(b[0] for b in _bounds(pps)), torch.zeros((3, 4, 4)))

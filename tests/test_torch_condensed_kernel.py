@@ -1,8 +1,10 @@
 """Kernel K1 of the port (ops/cuda/condensed_kernel.py): its plain PyTorch
 version vs the JAX Pallas kernel (interpret mode off the TPU), vs the port's
 condensed oracle, and the wrapper's dispatch on the CPU; with the box alone
-and with the linear and cone projections (K1e).  The CUDA kernel itself runs
-only on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+and with the linear and cone projections (K1e), the group grid (K1d:
+``num_groups``) and the reduced-precision product (K1c: ``precision``,
+``bf16_head_iters``).  The CUDA kernel itself runs only on the card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
 import functools
 
 import numpy as np
@@ -16,8 +18,11 @@ from tinympc_julia_tpu_torch.ops import condensed as C
 from tinympc_julia_tpu_torch.ops.cuda import _build
 from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
 
-from torch_port_common import (INTERPRET, cartpole_setup, rocket_setup,
-                               rocket_x0, x0_batch)
+from torch_port_common import (CPU, INTERPRET, cartpole_setup,
+                               grouped_cartpoles, grouped_rockets,
+                               jax_arrays, rocket_setup, rocket_x0, x0_batch)
+from tinympc_julia_tpu.ops.condensed import build_condensed as jax_build
+from tinympc_julia_tpu_torch.utils import convert
 
 N = 20
 CONFIGS = {
@@ -147,12 +152,14 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(bf16_head_iters=8, check_termination=4, max_iter=48),
-     NotImplementedError),
-    (dict(precision="default"), NotImplementedError),
-    (dict(num_groups=2), NotImplementedError),
     (dict(check_termination=3, max_iter=100), ValueError),
-], ids=["bf16-head", "precision", "groups", "ct"])
+    (dict(precision="bf16"), ValueError),
+    (dict(bf16_head_iters=6, check_termination=4, max_iter=48), ValueError),
+    (dict(bf16_head_iters=2, check_termination=4, max_iter=48), ValueError),
+    (dict(bf16_head_iters=48, check_termination=4, max_iter=48), ValueError),
+    (dict(num_groups=0), ValueError),
+], ids=["ct", "precision-name", "head-off-cadence", "head-below-ct",
+        "head-is-the-budget", "no-groups"])
 def test_unported_and_invalid_options_raise(kw, err):
     with pytest.raises(err):
         K.make_condensed_fused_solver(4, 1, N, **kw)
@@ -336,3 +343,363 @@ def test_constraint_options_are_checked():
                                dtype=torch.float32, device="cpu")
     with pytest.raises(ValueError, match="at most 12"):
         K._side_args(wide.lin_x, wide.cones_x, 16, "state")
+
+
+# -- K1d: the group grid -----------------------------------------------------
+
+NG = 8  # horizon of the grouped cases
+
+
+def _grouped_maps(jps, jcs):
+    jm = jax_build(jps, jcs)
+    return jm, convert.maps_from_numpy(jax_arrays(jm), dtype=torch.float32,
+                                       device=CPU)
+
+
+def _assert_lanes_match(j, p, atol=1e-5, ct=1):
+    """Equal counts on >= 95% of the lanes and within one check interval on
+    the rest (an fp32 sum in another order may move a lane that sits on the
+    tolerance); on the lanes with equal counts, equal verdicts, ``atol`` on
+    states and controls, and on the carry (whose duals are not of order 1)
+    ``atol`` with as much relative."""
+    ip, ij = p[2].numpy(), np.asarray(j[2])
+    same = ip == ij
+    assert same.mean() >= 0.95 and (np.abs(ip - ij) <= ct).all()
+    np.testing.assert_array_equal(p[3].numpy()[same], np.asarray(j[3])[same])
+    for a, b in zip(p[:2], j[:2]):
+        np.testing.assert_allclose(a.numpy()[same], np.asarray(b)[same],
+                                   atol=atol)
+    if len(p) > 4:
+        for k in K.FusedCarry._fields:
+            np.testing.assert_allclose(getattr(p[4], k).numpy()[:, same],
+                                       np.asarray(getattr(j[4], k))[:, same],
+                                       atol=atol, rtol=atol, err_msg=k)
+
+
+@pytest.mark.parametrize("name,cfg", [
+    ("ct1", dict(check_termination=1, relaxation_alpha=1.7,
+                 en_state_bound=False, max_iter=60)),
+    ("ct4", dict(check_termination=4, relaxation_alpha=1.7,
+                 en_state_bound=False, max_iter=60)),
+    ("state-bounds", dict(check_termination=2, relaxation_alpha=1.0,
+                          en_state_bound=True, max_iter=60)),
+])
+def test_grouped_reference_matches_jax_kernel(name, cfg):
+    """G = 3 randomised cartpoles x L = 16 lanes, per-group maps, rho and
+    bounds: the plain version against the Pallas kernel's (G, tiles) grid,
+    lane for lane, with the carry."""
+    G, L = 3, 16
+    (jps, jcs), (pps, pcs) = grouped_cartpoles(
+        G, jnp.float32, N=NG, state_bound=cfg["en_state_bound"])
+    jm, pm = _grouped_maps(jps, jcs)
+    x0 = np.random.default_rng(3).uniform(-0.5, 0.5, size=(G, L, 4)).astype(
+        np.float32)
+    j = jax_fused(4, 1, NG, batch_tile=L, num_groups=G, en_input_bound=True,
+                  carry_out=True, interpret=INTERPRET, **cfg)(
+        jm, jcs.rho, jps.u_min, jps.u_max, jps.x_min, jps.x_max,
+        jnp.asarray(x0))
+    p = K.make_condensed_fused_solver(4, 1, NG, num_groups=G, carry_out=True,
+                                      **cfg)(
+        pm, pcs.rho, *_bounds(pps), torch.as_tensor(x0))
+    _assert_lanes_match(j, p, ct=cfg["check_termination"])
+    assert p[0].shape == (G * L, NG, 4) and p[4].w2.shape[1] == G * L
+    assert int(p[3].sum()) > G * L // 2
+    flat = K.make_condensed_fused_solver(4, 1, NG, num_groups=G,
+                                         carry_out=True, **cfg)(
+        pm, pcs.rho, *_bounds(pps), torch.as_tensor(x0).reshape(G * L, 4))
+    for a, b in zip(p[:4], flat[:4]):
+        assert torch.equal(a, b)  # flat x0s, lane = g*L + l
+
+
+def test_grouped_reference_equals_per_group_solves():
+    """Every group of a grouped solve equals the shared-problem solve of
+    that group alone, bit for bit (float64), although the joint loop runs
+    until the slowest group is done."""
+    G, L = 3, 10
+    _, (pps, pcs) = grouped_cartpoles(G, jnp.float64, N=NG)
+    pm = C.build_condensed(pps, pcs)
+    x0 = torch.as_tensor(np.random.default_rng(5).uniform(
+        -0.5, 0.5, size=(G, L, 4)))
+    kw = dict(nx=4, nu=1, N=NG, max_iter=80, abs_pri_tol=1e-3,
+              abs_dua_tol=1e-3, en_state_bound=False, en_input_bound=True,
+              relaxation_alpha=1.7, check_termination=1, warm_start=False,
+              carry_out=True)
+    joint = K.condensed_fused_reference(pm, pcs.rho, *_bounds(pps), x0, None,
+                                        num_groups=G, **kw)
+    for g in range(G):
+        one = K.condensed_fused_reference(
+            C.CondensedMaps(*(m[g] for m in pm)), pcs.rho[g],
+            pps.u_min[g], pps.u_max[g], pps.x_min[g], pps.x_max[g], x0[g],
+            None, **kw)
+        lanes = slice(g * L, (g + 1) * L)
+        assert torch.equal(joint[2][lanes], one[2])
+        torch.testing.assert_close(joint[1][lanes], one[1], atol=1e-12,
+                                   rtol=0)
+        torch.testing.assert_close(joint[4].w2[:, lanes], one[4].w2,
+                                   atol=1e-12, rtol=0)
+
+
+def test_grouped_rocket_per_group_cones_match_jax_kernel():
+    """Per-group thrust and glide-slope cone coefficients (scalar bounds
+    broadcast) on the group grid: counts equal on the lanes both solved,
+    1e-4 on them (the rocket bar above)."""
+    G, L = 2, 16
+    (jps, jcs), (pps, pcs) = grouped_rockets(G, jnp.float32)
+    jm, pm = _grouped_maps(jps, jcs)
+    x0 = (rocket_x0(G * L, seed=6).reshape(G, L, 6)).astype(np.float32)
+    kw = dict(max_iter=100, abs_pri_tol=2e-3, abs_dua_tol=1e-3,
+              en_state_bound=True, en_input_bound=True, check_termination=1)
+    j = jax_fused(6, 3, 10, batch_tile=L, num_groups=G, interpret=INTERPRET,
+                  soc_u=((0, 3, np.asarray(jps.cones_u.mus)[:, 0]),),
+                  soc_x=((0, 3, np.asarray(jps.cones_x.mus)[:, 0]),), **kw)(
+        jm, jcs.rho, jps.u_min, jps.u_max, jps.x_min, jps.x_max,
+        jnp.asarray(x0))
+    s = C.Settings(en_input_soc=True, en_state_soc=True)
+    p = K.make_condensed_fused_solver(
+        6, 3, 10, num_groups=G, **kw, **K.problem_constraint_kw(pps, s))(
+        pm, pcs.rho, *_bounds(pps), torch.as_tensor(x0))
+    both = (np.asarray(j[3]) == 1) & (p[3].numpy() == 1)
+    assert both.sum() > G * L // 2
+    np.testing.assert_array_equal(p[2].numpy()[both], np.asarray(j[2])[both])
+    np.testing.assert_allclose(p[1].numpy()[both], np.asarray(j[1])[both],
+                               atol=1e-4, rtol=1e-4)
+    mus = pps.cones_u.mus[:, 0].numpy()
+    assert abs(mus[0] - mus[1]) > 1e-2
+    for g in range(G):
+        u = p[1].numpy()[g * L:(g + 1) * L][both[g * L:(g + 1) * L]]
+        assert (np.linalg.norm(u[..., :2], axis=-1)
+                <= mus[g] * u[..., 2] + 5e-3).all()
+
+
+def test_grouped_per_group_halfspaces_match_jax_kernel():
+    """Per-group halfspace rows (Alin (G, m, n), blin (G, m)) on the input
+    side: each group's own bound binds, lane for lane with the Pallas
+    kernel."""
+    G, L = 2, 16
+    (jps, jcs), (pps, pcs) = grouped_cartpoles(G, jnp.float32, N=NG)
+    jm, pm = _grouped_maps(jps, jcs)
+    Alin = np.ones((G, 1, 1))
+    blin = np.array([[1.0], [2.5]])
+    x0 = np.random.default_rng(7).uniform(-0.6, 0.6, size=(G, L, 4)).astype(
+        np.float32)
+    kw = dict(max_iter=80, en_input_bound=True, en_state_bound=False,
+              lin_u=(Alin, blin))
+    j = jax_fused(4, 1, NG, batch_tile=L, num_groups=G, interpret=INTERPRET,
+                  **kw)(jm, jcs.rho, jps.u_min, jps.u_max, jps.x_min,
+                        jps.x_max, jnp.asarray(x0))
+    p = K.make_condensed_fused_solver(4, 1, NG, num_groups=G, **kw)(
+        pm, pcs.rho, *_bounds(pps), torch.as_tensor(x0))
+    _assert_lanes_match(j, p, atol=1e-4)
+    u = p[1].numpy().reshape(G, L, -1)
+    assert u[0].max() <= 1.0 + 1e-4 and u[1].max() <= 2.5 + 1e-4
+    assert u[1].max() > 1.0 + 1e-2  # the looser group uses its room
+
+
+def test_grouped_constraint_data_is_checked():
+    with pytest.raises(ValueError, match="per-group"):
+        K.fused_constraints(soc_u=((0, 3, np.ones(3)),), nx=6, nu=3,
+                            dtype=torch.float32, device="cpu", num_groups=2)
+    with pytest.raises(ValueError, match="group axis"):
+        K.fused_constraints(lin_u=(np.ones((3, 1, 1)), np.ones((3, 1))),
+                            nx=4, nu=1, dtype=torch.float32, device="cpu",
+                            num_groups=2)
+    cons = K.fused_constraints(soc_u=((0, 3, 0.3), (0, 3, np.array([.2, .4]))),
+                               nx=6, nu=3, dtype=torch.float32, device="cpu",
+                               num_groups=2)
+    assert cons.cones_u.mus.shape == (2, 2)  # a scalar mu broadcasts
+    (_, _, _), (pp, pc, pm) = cartpole_setup(jnp.float32)
+    fn = K.make_condensed_fused_solver(4, 1, N, max_iter=8, num_groups=3)
+    with pytest.raises(ValueError, match="groups"):
+        fn(pm, pc.rho, *_bounds(pp), torch.zeros((8, 4)))
+    with pytest.raises(ValueError, match="grouped x0s"):
+        fn(pm, pc.rho, *_bounds(pp), torch.zeros((2, 4, 4)))
+
+
+# -- K1c: the reduced-precision product and the head -------------------------
+
+def _head_case(warm):
+    """The shared cartpole, fp32, B = 32 (the first 8 lanes start so near
+    the origin that they are done within 4 iterations), with a carry to
+    start warm from."""
+    (jp, jc, jm), (pp, pc, pm) = cartpole_setup(jnp.float32)
+    x0 = x0_batch(32, 11, scale=0.8).astype(np.float32)
+    x0[:8] *= 1e-4
+    jargs = (jm, jc.rho, jp.u_min, jp.u_max, jp.x_min, jp.x_max,
+             jnp.asarray(x0))
+    pargs = (pm, pc.rho, *_bounds(pp), torch.as_tensor(x0))
+    base = dict(relaxation_alpha=1.7, en_state_bound=False)
+    if not warm:
+        return jargs, pargs, base
+    jc0 = jax_fused(4, 1, N, batch_tile=32, max_iter=8, check_termination=4,
+                    carry_out=True, interpret=INTERPRET, **base)(*jargs)[4]
+    pc0 = K.make_condensed_fused_solver(4, 1, N, max_iter=8,
+                                        check_termination=4, carry_out=True,
+                                        **base)(*pargs)[4]
+    return jargs + (jc0,), pargs + (pc0,), base
+
+
+@pytest.mark.parametrize("name,warm,kw", [
+    ("cold-head8-ct4", False, dict(max_iter=48, check_termination=4,
+                                   bf16_head_iters=8)),
+    ("cold-head1-ct1", False, dict(max_iter=40, check_termination=1,
+                                   bf16_head_iters=1)),
+    ("warm-head8-ct4", True, dict(max_iter=40, check_termination=4,
+                                  bf16_head_iters=8)),
+])
+def test_head_control_flow_matches_jax_kernel(monkeypatch, name, warm, kw):
+    """With the rounding switched off (off the TPU the Pallas kernel's
+    DEFAULT precision is fp32 too), the head's control flow is the Pallas
+    kernel's lane for lane: no check inside the head but on its last
+    iteration (so no lane reports a count below k0 unless k0 - 1 is where
+    it latched), a cold iteration 0 that is the pure rollout, cumulative
+    counts, and the tail's ct cadence."""
+    monkeypatch.setattr(K, "bf16_round", lambda t: t)
+    jargs, pargs, base = _head_case(warm)
+    j = jax_fused(4, 1, N, batch_tile=32, warm_start=warm, carry_out=True,
+                  interpret=INTERPRET, **base, **kw)(*jargs)
+    p = K.make_condensed_fused_solver(4, 1, N, warm_start=warm,
+                                      carry_out=True, **base, **kw)(*pargs)
+    _assert_lanes_match(j, p, ct=kw["check_termination"])
+    k0 = kw["bf16_head_iters"]
+    assert int(p[3].sum()) > 16
+    nohead = K.make_condensed_fused_solver(
+        4, 1, N, warm_start=warm, **base,
+        **dict(kw, bf16_head_iters=0))(*pargs)
+    # the easy lanes latch at the first check: the end of the head, which
+    # without a head comes earlier
+    assert int(p[2].min()) >= k0
+    if k0 > kw["check_termination"]:
+        early = nohead[2] < k0
+        assert bool(early.any()) and bool((p[2][early] == k0).all())
+
+
+def test_head_equals_the_chained_solves_bit_for_bit():
+    """Rounding on: a head of k0 reduced iterations inside one solve equals
+    a (k0, check_termination=k0, "default", carry out) solve chained into a
+    warm full-precision solve, bit for bit, with cumulative counts; and the
+    reduced product really differs from the full one."""
+    (_, _, _), (pp, pc, pm) = cartpole_setup(jnp.float32)
+    x0 = torch.as_tensor(x0_batch(64, 13, scale=0.8), dtype=torch.float32)
+    args = (pm, pc.rho, *_bounds(pp), x0)
+    base = dict(relaxation_alpha=1.7, en_state_bound=False)
+    k0, total, ct = 12, 72, 4
+    head = K.make_condensed_fused_solver(
+        4, 1, N, max_iter=total, check_termination=ct, bf16_head_iters=k0,
+        carry_out=True, **base)(*args)
+    a = K.make_condensed_fused_solver(
+        4, 1, N, max_iter=k0, check_termination=k0, precision="default",
+        carry_out=True, **base)(*args)
+    b = K.make_condensed_fused_solver(
+        4, 1, N, max_iter=total - k0, check_termination=ct, warm_start=True,
+        carry_out=True, **base)(*args, a[4])
+    done = a[3] == 1
+    assert torch.equal(torch.where(done, a[2], k0 + b[2]), head[2])
+    assert torch.equal(torch.maximum(a[3], b[3]), head[3])
+    assert torch.equal(torch.where(done[:, None, None], a[1], b[1]), head[1])
+    for k in K.FusedCarry._fields:
+        assert torch.equal(getattr(b[4], k), getattr(head[4], k)), k
+    full = K.make_condensed_fused_solver(
+        4, 1, N, max_iter=total, check_termination=ct, **base)(*args)
+    assert not torch.equal(full[1], head[1])
+    assert int(head[3].sum()) >= int(full[3].sum()) - 2  # quality holds
+    both = (full[3] == 1) & (head[3] == 1)
+    assert float((full[1] - head[1])[both].abs().max()) < 2e-2
+
+
+def test_a_reduced_phase_latches_only_on_true_residuals():
+    """``precision="default"`` at ct = 1: every iteration runs the check, so
+    every product is computed in full precision and the solve equals the
+    full-precision one bit for bit; at ct = 4 the lanes it latches pass the
+    tolerance when the residuals are recomputed in full precision from the
+    latched carry."""
+    (_, _, _), (pp, pc, pm) = cartpole_setup(jnp.float32)
+    x0 = torch.as_tensor(x0_batch(64, 17, scale=0.3), dtype=torch.float32)
+    args = (pm, pc.rho, *_bounds(pp), x0)
+    base = dict(relaxation_alpha=1.0, en_state_bound=False)
+    lo1 = K.make_condensed_fused_solver(4, 1, N, max_iter=60,
+                                        precision="default", **base)(*args)
+    hi1 = K.make_condensed_fused_solver(4, 1, N, max_iter=60, **base)(*args)
+    for a, b in zip(lo1, hi1):
+        assert torch.equal(a, b)
+    lo4 = K.make_condensed_fused_solver(
+        4, 1, N, max_iter=120, check_termination=4, precision="default",
+        carry_out=True, **base)(*args)
+    latched = lo4[3] == 1
+    assert bool(latched.any())
+    # the carry froze before the latching iteration: one more full-precision
+    # iteration from it must latch at once
+    again = K.make_condensed_fused_solver(
+        4, 1, N, max_iter=1, check_termination=1, warm_start=True,
+        **base)(*args, lo4[4])
+    assert bool((again[3][latched] == 1).all())
+    assert torch.equal(again[1][latched], lo4[1][latched])
+
+
+def test_bf16_round_is_round_to_nearest_even():
+    t = torch.tensor([1.0, 1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8,
+                      1.0 + 2.0 ** -7, -0.1], dtype=torch.float32)
+    r = K.bf16_round(t)
+    assert r.dtype == torch.float32
+    # ties go to the even mantissa: 1 + 2^-8 -> 1, 1 + 3*2^-8 -> 1 + 2^-6
+    assert r[:4].tolist() == [1.0, 1.0, 1.0 + 2.0 ** -6, 1.0 + 2.0 ** -7]
+    assert torch.equal(K.bf16_round(r), r)
+
+
+def test_tile_plan_with_reduced_iterations():
+    # the bf16-rounded copy of T12 joins the fp32 one in shared memory
+    assert K.fused_tile_plan(4, 1, 20, reduced=True) == (128, True)
+    assert K.fused_tile_plan(6, 3, 10, reduced=True) == (128, True)
+    assert K.fused_tile_plan(12, 4, 20, reduced=True) == (64, False)
+
+
+# -- the kernel-side layouts, made at every launch ----------------------------
+
+def test_map_layout_follows_the_maps():
+    """A layout reads the maps it is given: a replaced T1 and an in-place
+    write to T12 both show in the next one, and the rounded copy is made
+    for launches with reduced iterations only."""
+    _, (pps, pcs) = grouped_cartpoles(2, jnp.float32, N=NG)
+    pm = C.build_condensed(pps, pcs)
+    su, sw = (NG - 1) * 1, (NG - 1) * 1 + NG * 4
+    t12t, t12lo, t12c, tx0, t1c = K.map_layout(pm, 4, su, sw, False)
+    assert t12lo is None
+    other = pm._replace(T1=pm.T1 + 1.0)
+    assert torch.equal(K.map_layout(other, 4, su, sw, False)[3], tx0 + 1.0)
+    pm.T12.mul_(1.5)
+    again = K.map_layout(pm, 4, su, sw, True)
+    assert torch.equal(again[0], 1.5 * t12t)
+    assert torch.equal(again[1], K.bf16_round(again[0]))
+    assert not torch.equal(again[1], again[0])
+
+
+def test_map_layouts_keep_the_group_axis():
+    """K1's and K2's kernel-side layouts of G-stacked maps: each group's
+    slice is the single-map layout (transposed, rows zero-padded to the row
+    block)."""
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    G = 3
+    _, (pps, pcs) = grouped_cartpoles(G, jnp.float32, N=NG)
+    pm = C.build_condensed(pps, pcs)
+    su, sw = (NG - 1) * 1, (NG - 1) * 1 + NG * 4
+    t12t, _, t12c, tx0, t1c = K.map_layout(pm, 4, su, sw, False)
+    swp = K._padded_rows(sw)
+    assert t12t.shape == (G, sw, swp) and swp % K.ROW_BLOCK == 0
+    for g in range(G):
+        one = C.CondensedMaps(*(m[g] for m in pm))
+        o12t, _, o12c, ox0, o1c = K.map_layout(one, 4, su, sw, False)
+        assert torch.equal(t12t[g], o12t) and torch.equal(t12c[g], o12c)
+        assert torch.equal(tx0[g], ox0) and torch.equal(t1c[g], o1c)
+        assert torch.equal(o12t[:, :sw], one.T12[:, :sw].T)
+        assert float(o12t[:, sw:].abs().max()) == 0.0
+    pt = C.build_condensed_taylor(pps, pcs)
+    t1t, t2t = K2.map_layout(pt, su, sw)
+    assert t1t.shape == (G, su + 4 + 1, 3, K2._padded(sw))
+    assert t2t.shape == (G, sw + 1, 4, K2._padded(su))
+    for g in range(G):
+        o1t, o2t = K2.map_layout(
+            C.CondensedTaylorMaps(*(m[g] for m in pt)), su, sw)
+        assert torch.equal(t1t[g], o1t) and torch.equal(t2t[g], o2t)
+        assert torch.equal(o1t[:, :, :sw], pt.T1s[g].permute(2, 0, 1))
+        assert torch.equal(o2t[:-1, :, :su],
+                           pt.T2s[g][:, :, :sw].permute(2, 0, 1))
+        assert torch.equal(o2t[-1, :, :su], pt.T2s[g][:, :, -1])

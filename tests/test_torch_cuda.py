@@ -1,6 +1,7 @@
-"""Kernels K1 (with and without its linear and cone projections, K1e) and
-K2 (per-lane adaptive rho) on the card: each CUDA kernel vs its plain
-PyTorch version, the port's main paths through them, and the
+"""Kernels K1 (with and without its linear and cone projections, K1e; on its
+group grid, K1d; with its reduced-precision product and head, K1c) and K2
+(per-lane adaptive rho; on its group grid) on the card: each CUDA kernel vs
+its plain PyTorch version, the port's main paths through them, and the
 single-instance solve() on the card.  Every test here
 is marked ``cuda`` and skips where CUDA is not available.  The file imports
 no JAX, so it also runs on a machine that has only the port's dependencies:
@@ -18,8 +19,10 @@ from tinympc_julia_tpu_torch.ops.condensed import (build_condensed,
 from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
 from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
 from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
-from tinympc_julia_tpu_torch.parallel import (three_phase_solve,
+from tinympc_julia_tpu_torch.parallel import (GroupedBatchSolver,
+                                              three_phase_solve,
                                               two_phase_adaptive_solve)
+from tinympc_julia_tpu_torch.types import ConeSet, stack_instances
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -387,3 +390,238 @@ def test_adaptive_api_and_pipeline_run_through_the_kernel(dev):
     assert K2.condensed_adaptive_cuda.launches == before + 3
     assert int(res.overflow) == 0
     assert int(res.solved.sum()) >= 0.99 * 3000
+
+
+# -- the group grid (K1d, K2) and the reduced-precision head (K1c) ------------
+
+def _groups(model, G, dev, *, ub_range, seed, x_bound=None, horizon=N):
+    """G randomised plants (perturbed dynamics, input gain, costs, rho and
+    input bounds) stacked along a leading group axis."""
+    rng = np.random.default_rng(seed)
+    nx = model.A.shape[0]
+    ps, cs = [], []
+    for _ in range(G):
+        kw = {}
+        if x_bound is not None:
+            xb = np.tile(x_bound * rng.uniform(0.8, 1.2), (horizon, 1))
+            kw = dict(x_min=-xb, x_max=xb)
+        ub = rng.uniform(*ub_range)
+        p = make_problem(
+            model.A + rng.normal(scale=2e-3, size=(nx, nx)),
+            model.B * rng.uniform(0.9, 1.1),
+            np.diag(model.Q_DIAG * rng.uniform(0.8, 1.25, size=nx)),
+            np.diag(model.R_DIAG), model.RHO * rng.uniform(0.8, 1.2),
+            horizon, u_min=-ub, u_max=ub, dtype=torch.float32, device=dev,
+            **kw)
+        ps.append(p)
+        cs.append(precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup))
+    return stack_instances(ps), stack_instances(cs)
+
+
+def _gx0(G, L, nx, seed, scale, dev):
+    return torch.as_tensor(np.random.default_rng(seed).uniform(
+        -scale, scale, size=(G, L, nx)), dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("model,nx,nu,ub,kw", [
+    (cartpole, 4, 1, (3.0, 6.0), {}),
+    (cartpole, 4, 1, (3.0, 6.0), dict(check_termination=4)),
+    (cartpole, 4, 1, (3.0, 6.0), dict(en_state_bound=True)),
+    (quadrotor, 12, 4, (0.4, 0.6), dict(check_termination=4, max_iter=600)),
+], ids=["ct1", "ct4", "per-group-state-bounds", "quadrotor"])
+def test_group_grid_matches_plain_version(dev, model, nx, nu, ub, kw):
+    """G = 5 groups x L = 300 lanes (a ragged last tile in every group),
+    per-group maps, rho and bounds."""
+    G, L = 5, 300
+    x_bound = np.array([2.0, 1e17, 1e17, 1e17]) \
+        if kw.get("en_state_bound") else None
+    P, C = _groups(model, G, dev, ub_range=ub, seed=3, x_bound=x_bound)
+    m = build_condensed(P, C)
+    x0 = _gx0(G, L, nx, 4, 0.5 if nx == 4 else 0.25, dev)
+    args = (m, C.rho, P.u_min, P.u_max, P.x_min, P.x_max, x0, None)
+    before = K.condensed_fused_cuda.grouped_launches
+    k = K.condensed_fused_cuda(*args, num_groups=G, **_kw(nx, nu, **kw))
+    r = K.condensed_fused_reference(*args, num_groups=G, **_kw(nx, nu, **kw))
+    torch.cuda.synchronize()
+    assert K.condensed_fused_cuda.grouped_launches == before + 1
+    _agree(k, r)
+    same = k[2] == r[2]
+    for a, b in zip(k[4], r[4]):
+        assert (a - b)[:, same].abs().max().item() <= 1e-3
+
+
+def test_group_grid_per_group_cones_and_warm_chain(dev):
+    """The rocket with per-group cone coefficients, G = 3 x L = 250: kernel
+    vs plain, and the kernel's 24 + 48 chain bit for bit its 72-iteration
+    solve."""
+    G, L = 3, 250
+    rng = np.random.default_rng(6)
+    xb = rocket.bounds()
+    Xref, Uref = rocket.reference_trajectory(0)
+    ps, cs = [], []
+    for _ in range(G):
+        cone = lambda lo, hi: ConeSet(mus=torch.tensor(
+            [rng.uniform(lo, hi)], dtype=torch.float32, device=dev),
+            starts=(0,), dims=(3,))
+        p = make_problem(rocket.A, rocket.B, np.diag(rocket.Q_DIAG),
+                         np.diag(rocket.R_DIAG), rocket.RHO, rocket.HORIZON,
+                         f=rocket.F, x_min=xb[0].T, x_max=xb[1].T,
+                         u_min=-10.0, u_max=105.0, Xref=Xref.T, Uref=Uref.T,
+                         cones_u=cone(0.15, 0.35), cones_x=cone(0.4, 0.6),
+                         dtype=torch.float32, device=dev)
+        ps.append(p)
+        cs.append(precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup))
+    P, C = stack_instances(ps), stack_instances(cs)
+    m = build_condensed(P, C)
+    cons = K.fused_constraints(soc_u=K.cone_spec(P.cones_u),
+                               soc_x=K.cone_spec(P.cones_x), nx=6, nu=3,
+                               dtype=torch.float32, device=dev, num_groups=G)
+    x0 = torch.as_tensor(rocket.X_INIT[None, None, :] * rng.uniform(
+        0.9, 1.1, size=(G, L, 1)), dtype=torch.float32, device=dev)
+    kw = dict(nx=6, nu=3, N=rocket.HORIZON, abs_pri_tol=2e-3,
+              abs_dua_tol=1e-3, en_input_bound=True, en_state_bound=True,
+              relaxation_alpha=1.0, check_termination=1, constraints=cons,
+              num_groups=G)
+    args = (m, C.rho, P.u_min, P.u_max, P.x_min, P.x_max, x0)
+    k = K.condensed_fused_cuda(*args, None, max_iter=72, warm_start=False,
+                               carry_out=True, **kw)
+    r = K.condensed_fused_reference(*args, None, max_iter=72,
+                                    warm_start=False, carry_out=True, **kw)
+    _agree(k, r)
+    a = K.condensed_fused_cuda(*args, None, max_iter=24, warm_start=False,
+                               carry_out=True, **kw)
+    b = K.condensed_fused_cuda(*args, a[4], max_iter=48, warm_start=True,
+                               carry_out=False, **kw)
+    done = a[3] == 1
+    assert torch.equal(torch.where(done, a[2], 24 + b[2]), k[2])
+    assert torch.equal(torch.where(done[:, None, None], a[1], b[1]), k[1])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(max_iter=96, check_termination=4, bf16_head_iters=16),
+    dict(max_iter=96, check_termination=4, precision="default"),
+    dict(max_iter=60, check_termination=1, bf16_head_iters=1),
+], ids=["head16-ct4", "default-ct4", "head1-ct1"])
+def test_reduced_precision_matches_plain_version(dev, kw):
+    """The bf16 rounding is exact on both sides and both sum in index order:
+    kernel and plain version agree as the fp32 solves do."""
+    G, L = 3, 300
+    P, C = _groups(cartpole, G, dev, ub_range=(3.0, 6.0), seed=7)
+    m = build_condensed(P, C)
+    x0 = _gx0(G, L, 4, 8, 0.5, dev)
+    args = (m, C.rho, P.u_min, P.u_max, P.x_min, P.x_max, x0, None)
+    before = K.condensed_fused_cuda.reduced_launches
+    k = K.condensed_fused_cuda(*args, num_groups=G, **_kw(4, 1, **kw))
+    r = K.condensed_fused_reference(*args, num_groups=G, **_kw(4, 1, **kw))
+    torch.cuda.synchronize()
+    assert K.condensed_fused_cuda.reduced_launches == before + 1
+    same = k[2] == r[2]
+    assert same.float().mean().item() >= 0.99
+    assert (k[1] - r[1]).abs()[same].max().item() <= 1e-4
+    for a, b in zip(k[4], r[4]):
+        assert ((a - b)[:, same].abs()
+                / b[:, same].abs().clamp(min=1.0)).max().item() <= 1e-3
+    if kw.get("bf16_head_iters"):
+        assert int(k[2].min()) >= kw["bf16_head_iters"]
+
+
+def test_head_equals_the_chained_launches(dev):
+    """One launch with a 16-iteration head is bit for bit the (16, ct = 16,
+    "default", carry out) launch chained into a warm fp32 launch."""
+    p, c, m = _plant(cartpole, 5.0, dev)
+    x0 = _x0(1000, 4, 9, 0.5, dev)
+    args = (m, c.rho, p.u_min, p.u_max, p.x_min, p.x_max, x0)
+    head = K.condensed_fused_cuda(*args, None, **_kw(
+        4, 1, max_iter=96, check_termination=4, bf16_head_iters=16))
+    a = K.condensed_fused_cuda(*args, None, **_kw(
+        4, 1, max_iter=16, check_termination=16, precision="default"))
+    b = K.condensed_fused_cuda(*args, a[4], **_kw(
+        4, 1, max_iter=80, check_termination=4, warm_start=True))
+    done = a[3] == 1
+    assert torch.equal(torch.where(done, a[2], 16 + b[2]), head[2])
+    assert torch.equal(torch.where(done[:, None, None], a[1], b[1]), head[1])
+    for x, y in zip(b[4], head[4]):
+        assert torch.equal(x, y)
+
+
+def test_reduced_phases_latch_on_true_residuals(dev):
+    """Every lane latched inside a reduced phase (a "default" launch at
+    ct = 4, and a head that ends on its only check) passes the tolerance
+    when its residuals are recomputed in fp32 by the plain version: one
+    more full-precision iteration from the carry, which froze just before
+    the latch, latches at once and returns the same controls."""
+    p, c, m = _plant(cartpole, 5.0, dev)
+    x0 = _x0(4096, 4, 10, 0.2, dev)
+    args = (m, c.rho, p.u_min, p.u_max, p.x_min, p.x_max, x0)
+    for kw in (dict(max_iter=96, check_termination=4, precision="default"),
+               dict(max_iter=32, check_termination=32, precision="default")):
+        k = K.condensed_fused_cuda(*args, None, **_kw(4, 1, **kw))
+        latched = k[3] == 1
+        assert int(latched.sum()) > 100
+        again = K.condensed_fused_reference(*args, k[4], **_kw(
+            4, 1, max_iter=1, check_termination=1, warm_start=True,
+            carry_out=False))
+        assert bool((again[3][latched] == 1).all())
+        assert (again[1] - k[1])[latched].abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("controller,state_bound", [
+    ("osqp", False), ("osqp", True), ("termination", False)])
+def test_adaptive_group_grid_matches_plain_version(dev, controller,
+                                                   state_bound):
+    G, L = 4, 300
+    x_bound = np.array([0.5, 1e17, 1e17, 1e17]) if state_bound else None
+    P, C = _groups(cartpole, G, dev, ub_range=(3.0, 6.0), seed=11,
+                   x_bound=x_bound)
+    t = build_condensed_taylor(P, C)
+    x0 = _gx0(G, L, 4, 12, 0.5, dev)
+    kw = dict(plant=K2.AdaptivePlant(P.A, P.B, P.Q, P.R, C.Pinf,
+                                     C.dPinf_drho),
+              nx=4, nu=1, N=N, max_iter=200, abs_pri_tol=1e-3,
+              abs_dua_tol=1e-3, en_state_bound=state_bound,
+              en_input_bound=True, relaxation_alpha=1.0,
+              adaptive_rho_min=0.3, adaptive_rho_max=8.0,
+              adaptive_rho_clipping=True, check_termination=1,
+              controller=controller,
+              taylor_trust=0.5 if controller == "termination"
+              else float("inf"), warm_start=False, carry_out=True,
+              num_groups=G)
+    args = (t, P.u_min, P.u_max, P.x_min, P.x_max, x0, None)
+    before = K2.condensed_adaptive_cuda.grouped_launches
+    k = K2.condensed_adaptive_cuda(*args, **kw)
+    r = K2.condensed_adaptive_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert K2.condensed_adaptive_cuda.grouped_launches == before + 1
+    same = (k[2] == r[2]) & (k[3] == r[3])
+    assert same.float().mean().item() >= 0.99
+    assert (k[1] - r[1])[same].abs().max().item() <= 1e-4
+    assert ((k[4] - r[4]).abs() / r[4])[same].max().item() <= 1e-4
+    rho0 = C.rho.repeat_interleave(L)
+    assert bool((k[4] != rho0).any())
+
+
+def test_grouped_solver_runs_through_the_kernels(dev):
+    """``GroupedBatchSolver`` on the card: the fused method and the staged
+    two-phase pipeline launch K1 on its group grid; the pipeline equals the
+    same pipeline on the plain version."""
+    from tinympc_julia_tpu_torch import Settings
+    G, L = 4, 500
+    P, C = _groups(cartpole, G, dev, ub_range=(3.0, 6.0), seed=13)
+    gs = GroupedBatchSolver(P, C, Settings(
+        max_iter=80, en_state_bound=False, relaxation_alpha=1.7,
+        check_termination=4))
+    x0 = _gx0(G, L, 4, 14, 0.6, dev)
+    before = K.condensed_fused_cuda.grouped_launches
+    xs, us, it, ok = gs.solve_batch(x0, method="fused")
+    assert K.condensed_fused_cuda.grouped_launches == before + 1
+    assert us.is_cuda and us.shape == (G, L, N - 1, 1)
+    c = gs.solve_batch(x0, method="condensed")
+    same = c[2] == it
+    assert same.float().mean().item() >= 0.99
+    assert (c[1] - us)[same].abs().max().item() <= 2e-4
+    out = gs.solve_batch(x0, method="fused", pipeline=dict(
+        phase0_bf16_iters=16, phase1_iters=32, straggler_slots=L,
+        phase2_iters=300, phase2_bf16_head=32))
+    assert K.condensed_fused_cuda.grouped_launches == before + 4
+    assert gs.last_overflow.tolist() == [0] * G
+    assert int(out[3].sum()) >= 0.99 * G * L

@@ -140,3 +140,78 @@ def rocket_x0(B, seed=2):
     from tinympc_julia_tpu.models import rocket
     return rocket.X_INIT[None, :] * np.random.default_rng(seed).uniform(
         0.9, 1.1, size=(B, 1))
+
+
+def jax_stack(trees):
+    """Stack JAX pytrees along a new leading group axis."""
+    return jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *trees)
+
+
+def grouped_cartpoles(G, dtype, *, N=8, seed=0, state_bound=False,
+                      randomize_rho=True):
+    """G randomised cartpoles (perturbed plant, costs, input bounds,
+    references and rho; with ``state_bound`` a per-group bound on the cart
+    position) as G-stacked JAX (problems, caches) and the port's copies."""
+    rng = np.random.default_rng(seed)
+    probs, caches = [], []
+    for _ in range(G):
+        A = np.asarray(cartpole.A) + rng.normal(scale=2e-3, size=(4, 4))
+        B = np.asarray(cartpole.B) * rng.uniform(0.9, 1.1)
+        Qd = np.asarray(cartpole.Q_DIAG) * rng.uniform(0.8, 1.25, size=4)
+        Rd = np.asarray(cartpole.R_DIAG) * rng.uniform(0.8, 1.25, size=1)
+        ub = rng.uniform(3.0, 6.0)
+        rho = float(rng.uniform(0.8, 1.5)) if randomize_rho else 1.0
+        kw = {}
+        if state_bound:
+            xb = np.tile(np.array([rng.uniform(0.3, 0.6), 1e17, 1e17, 1e17]),
+                         (N, 1))
+            kw = dict(x_min=jnp.asarray(-xb, dtype),
+                      x_max=jnp.asarray(xb, dtype))
+        p = J.make_problem(jnp.asarray(A, dtype), jnp.asarray(B, dtype),
+                           jnp.asarray(np.diag(Qd), dtype),
+                           jnp.asarray(np.diag(Rd), dtype), rho, N,
+                           u_min=-ub, u_max=ub,
+                           Xref=jnp.asarray(rng.normal(scale=0.02,
+                                                       size=(N, 4)), dtype),
+                           **kw)
+        probs.append(p)
+        caches.append(J.precompute_cache(p.A, p.B, p.Q, p.R,
+                                         jnp.asarray(rho, dtype)))
+    jps, jcs = jax_stack(probs), jax_stack(caches)
+    return (jps, jcs), port_copies(jps, jcs, dtype)
+
+
+def grouped_rockets(G, dtype, *, seed=6):
+    """G rocket landers with per-group cone coefficients (the JAX bench
+    row's draw: thrust mu ~ U(0.15, 0.35), glide-slope mu ~ U(0.4, 0.6)) as
+    G-stacked JAX (problems, caches) and the port's copies."""
+    from tinympc_julia_tpu.models import rocket
+    rng = np.random.default_rng(seed)
+    N = rocket.HORIZON
+    xb = rocket.bounds()
+    Xref, Uref = rocket.reference_trajectory(0)
+    probs, caches = [], []
+    for _ in range(G):
+        mu_u = float(rng.uniform(0.15, 0.35))
+        mu_x = float(rng.uniform(0.4, 0.6))
+        cone = lambda mu: J.ConeSet(mus=jnp.asarray([mu], dtype),
+                                    starts=(0,), dims=(3,))
+        p = J.make_problem(
+            jnp.asarray(rocket.A, dtype), jnp.asarray(rocket.B, dtype),
+            jnp.asarray(np.diag(rocket.Q_DIAG), dtype),
+            jnp.asarray(np.diag(rocket.R_DIAG), dtype), rocket.RHO, N,
+            f=jnp.asarray(rocket.F, dtype), x_min=jnp.asarray(xb[0].T, dtype),
+            x_max=jnp.asarray(xb[1].T, dtype), u_min=-10.0, u_max=105.0,
+            Xref=jnp.asarray(Xref.T, dtype), Uref=jnp.asarray(Uref.T, dtype),
+            cones_u=cone(mu_u), cones_x=cone(mu_x))
+        probs.append(p)
+        caches.append(J.precompute_cache(p.A, p.B, p.Q, p.R,
+                                         jnp.asarray(rocket.RHO, dtype)))
+    jps, jcs = jax_stack(probs), jax_stack(caches)
+    return (jps, jcs), port_copies(jps, jcs, dtype)
+
+
+def settings_pair(**kw):
+    """The same Settings for the JAX package and the port."""
+    import tinympc_julia_tpu_torch as P
+    return J.Settings(**kw), P.Settings(**kw)

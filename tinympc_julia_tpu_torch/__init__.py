@@ -12,7 +12,11 @@ fused paths; the three-phase straggler pipeline, all through kernel K1 in
 ops/cuda/condensed_kernel.py), and the constrained path: the
 reference-ordered single-instance ``solve`` (ops/admm.py), the projections
 (ops/projections.py), the linear, cone and equality setters, and K1's
-halfspace and cone projections, with the rocket lander (models/rocket.py).
+halfspace and cone projections, with the rocket lander (models/rocket.py);
+per-lane adaptive rho (ops/rho.py, the Taylor-expanded maps, kernel K2); and
+the grouped path: G distinct problems x L lanes (parallel/grouped.py,
+parallel/batch.py, the group grid of both kernels and K1's
+reduced-precision head).
 """
 
 from .types import (  # noqa: F401
@@ -24,8 +28,10 @@ from .types import (  # noqa: F401
     State,
     default_settings,
     init_state,
+    expand_lanes,
     make_problem,
     settings_bake_key,
+    stack_instances,
 )
 from .ops.riccati import precompute_cache  # noqa: F401
 from .api import BatchWarmCarry, TinyMPCSolver  # noqa: F401
@@ -34,6 +40,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "BatchWarmCarry", "Cache", "ConeSet", "Problem", "Settings", "Solution",
-    "State", "TinyMPCSolver", "default_settings", "init_state",
-    "make_problem", "precompute_cache", "settings_bake_key",
+    "State", "TinyMPCSolver", "default_settings", "expand_lanes",
+    "init_state", "make_problem", "precompute_cache", "settings_bake_key",
+    "stack_instances",
 ]

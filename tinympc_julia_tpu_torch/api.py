@@ -5,9 +5,10 @@ single-instance workspace on one device, chosen by the caller.  Ported so
 far: setup, the x0/reference setters, the bound, linear, cone and equality
 constraints, settings and cache injection, the single-instance ``solve``
 (ops/admm.py) with its persisted warm start and adaptive rho, and
-``solve_batch`` on the condensed and fused paths (kernel K1 with its
-projections; with ``adaptive_rho`` the Taylor-expanded maps and kernel K2)
-with exact warm continuation.  Every other method raises
+``solve_batch`` on the standard (parallel/batch.py), condensed and fused
+paths (kernel K1 with its projections and its reduced-precision head; with
+``adaptive_rho`` the Taylor-expanded maps and kernel K2) with warm
+continuation.  Every other method raises
 ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 
 Matrix layout at this boundary follows the reference: states (nx, N),
@@ -32,6 +33,7 @@ from .ops.cuda.adaptive_kernel import make_condensed_adaptive_fused_solver
 from .ops.cuda.condensed_kernel import (make_condensed_fused_solver,
                                         problem_constraint_kw)
 from .ops.rho import RHO_INTERVAL
+from .parallel import batch as batch_mod
 
 
 class MPCSolution(NamedTuple):
@@ -349,13 +351,18 @@ class TinyMPCSolver:
                     return_carry: bool = False, verbose=False):
         """Batched fresh solves over per-instance initial states (B, nx).
 
-        ``method``: "condensed" (the T1/T2 eager solve), "fused" (kernel K1;
-        float32) or "auto" (condensed while the maps fit the memory budget).
-        With ``adaptive_rho`` every lane adapts its own rho on the
-        Taylor-expanded maps: ``solve_condensed_adaptive``, or kernel K2 on
-        the fused path.  Pass ``return_carry=True`` to also get a
-        ``BatchWarmCarry`` and give it back as ``warm=`` (same method, same
-        batch) to continue exactly.
+        ``method``: "standard" (the masked reference-ordered loop of
+        parallel/batch.py), "condensed" (the T1/T2 eager solve), "fused"
+        (kernel K1; float32) or "auto" (condensed while the maps fit the
+        memory budget, else standard).  With ``adaptive_rho`` every lane
+        adapts its own rho: on the Taylor-expanded maps
+        (``solve_condensed_adaptive``, or kernel K2 on the fused path), or
+        with a per-instance cache on the standard path.  Pass
+        ``return_carry=True`` to also get a ``BatchWarmCarry`` and give it
+        back as ``warm=`` (same method, same batch) to continue: exactly on
+        the condensed and fused paths; on the standard path with the
+        reference's persisted-workspace semantics (the loop restarts from
+        the carried iterates).
 
         Returns (xs (B, N, nx), us (B, N-1, nu), iters (B,), solved (B,)) as
         tensors on the solver's device, plus the carry on request."""
@@ -364,16 +371,17 @@ class TinyMPCSolver:
         x0s = torch.as_tensor(x0s, dtype=self.dtype, device=self.device)
         B = int(x0s.shape[0])
         if method == "auto":
-            if not auto_uses_condensed(p.nx, p.nu, p.N,
-                                       adaptive=s.adaptive_rho):
-                raise not_ported("the chunked and standard paths of "
-                                 "method='auto'", "ROADMAP.md queue 1, "
-                                 "items 8 and 12")
-            method = "condensed"
-        if method in ("standard", "chunked"):
-            raise not_ported(f"method={method!r}",
-                             "ROADMAP.md queue 1, items 8 and 12")
-        if method not in ("condensed", "fused"):
+            if auto_uses_condensed(p.nx, p.nu, p.N, adaptive=s.adaptive_rho):
+                method = "condensed"
+            elif (not s.adaptive_rho
+                    and auto_chunk_size(p.nx, p.nu, p.N) is not None):
+                method = "chunked"
+            else:
+                method = "standard"
+        if method == "chunked":
+            raise not_ported("method='chunked' (ops/scans.py)",
+                             "ROADMAP.md queue 1, item 12")
+        if method not in ("standard", "condensed", "fused"):
             raise ValueError(f"unknown method: {method}")
         if warm is not None:
             if not isinstance(warm, BatchWarmCarry):
@@ -385,11 +393,25 @@ class TinyMPCSolver:
             if warm.batch != B:
                 raise ValueError(f"warm carry holds {warm.batch} lanes, "
                                  f"x0s has {B}")
+        if method == "standard":
+            if warm is not None:
+                st = batch_mod.set_x0_batch(warm.data, x0s)
+            else:
+                st = batch_mod.set_x0_batch(batch_mod.broadcast_state(
+                    T.init_state(p.nx, p.nu, p.N, dtype=self.dtype,
+                                 device=self.device), B), x0s)
+            st_out, _, sol = batch_mod.solve_batch(p, self.cache, s, st)
+            out = (sol.x, sol.u, sol.iter, sol.solved, st_out)
+            if not return_carry:
+                return out[:4]
+            return out[:4] + (BatchWarmCarry(method=method, batch=B,
+                                             data=st_out),)
         if s.adaptive_rho and s.adaptive_rho_rebuild:
             raise ValueError(
                 "adaptive_rho_rebuild on the condensed/fused fast paths runs "
                 "as the bucketed rebuild pipeline "
-                "(solve_batch_rebuild_adaptive)")
+                "(solve_batch_rebuild_adaptive), or per update with "
+                "method='standard'")
         if method == "fused":
             out = self._solve_batch_fused(x0s, warm, return_carry)
         else:
@@ -426,8 +448,6 @@ class TinyMPCSolver:
                     "fused adaptive-rho needs max_iter divisible by "
                     f"lcm(check_termination, {RHO_INTERVAL}) = {step} (the "
                     f"rho update interval; got max_iter={s.max_iter})")
-        if s.bf16_head_iters:
-            raise not_ported("bf16_head_iters", "ROADMAP.md queue 2, K1c")
         if self.dtype != torch.float32:
             raise TypeError("the fused path is float32: build the solver "
                             "with dtype=torch.float32")
@@ -451,14 +471,18 @@ class TinyMPCSolver:
                 args += (warm.data,)
             out = fn(*args)
             return out[:4] + out[5:]  # the per-lane rho rides in the carry
+        if s.bf16_head_iters:
+            from .parallel.grouped import _warn_short_highest_tail
+            _warn_short_highest_tail(s, s.max_iter - s.bf16_head_iters)
         fn = make_condensed_fused_solver(
             p.nx, p.nu, p.N, max_iter=s.max_iter,
             abs_pri_tol=s.abs_pri_tol, abs_dua_tol=s.abs_dua_tol,
             en_state_bound=s.en_state_bound, en_input_bound=s.en_input_bound,
             relaxation_alpha=s.relaxation_alpha, check_termination=ct,
             warm_start=warm is not None, carry_out=return_carry,
+            bf16_head_iters=s.bf16_head_iters,
             **problem_constraint_kw(p, s))
-        args = (self._maps(), float(self.cache.rho), p.u_min, p.u_max,
+        args = (self._maps(), self.cache.rho, p.u_min, p.u_max,
                 p.x_min, p.x_max, x0s)
         if warm is not None:
             args += (warm.data,)

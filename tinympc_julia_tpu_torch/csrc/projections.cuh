@@ -11,8 +11,9 @@
 //
 // Every function is a template on the kernel's parameter struct P, of which
 // it reads P::alpha, P::one_m_alpha (over-relaxation) and P::B (the batch
-// size: the lane's state lives in global memory as (dim, B) arrays, element
-// r of lane l at [r * B + l]).  The lane's iterate ux lives in shared
+// size over all groups: the lane's state lives in global memory as (dim, B)
+// arrays, element r of lane l at [r * B + l], lane = g * L + its index in
+// the group).  The lane's iterate ux lives in shared
 // memory, element r at ux[r * T] for a tile of T lanes.
 //
 // Elementwise arithmetic uses explicit round-to-nearest intrinsics so the
@@ -28,6 +29,13 @@
 // device arrays read through the cache by every thread alike; the cones'
 // (start, dim) pairs ride in the kernel's parameters.  A side without
 // projections keeps the row-by-row arithmetic of the box path.
+//
+// Group grid: a launch may solve G distinct problems, each block lanes of
+// one group g.  The constraint STRUCTURE (row counts, cone extents) is the
+// same for every group; the DATA (box bounds, halfspace rows, cone mu) is
+// either shared or stacked along a leading group axis, and every function
+// takes the block's group g and reads its group's slice through the
+// Side's strides (0 where the data is shared).
 #pragma once
 #include <cuda_runtime.h>
 
@@ -45,17 +53,24 @@ struct Side {
   int cone_start[kMaxCones];
   int cone_dim[kMaxCones];
   int dim, n_stages, n_lin, n_soc, en_box;
+  // floats between two groups' slices of wmin/wmax, lin and mu; 0: shared
+  int box_stride, lin_stride, mu_stride;
 };
 
 // Fills one Side from the entry point's arguments (``soc``: n_soc (start,
-// dim) pairs in host memory) and refuses a layout the kernels would overrun.
+// dim) pairs in host memory; ``grouped_*``: whether that array has a leading
+// group axis) and refuses a layout the kernels would overrun.
 inline bool init_side(Side& s, const float* wmin, const float* wmax,
                       const float* lin, int n_lin, const int* soc,
                       const float* mu, int n_soc, int dim, int n_stages,
-                      int en_box) {
+                      int en_box, int grouped_box, int grouped_lin,
+                      int grouped_mu) {
   s.wmin = wmin; s.wmax = wmax; s.lin = lin; s.mu = mu;
   s.dim = dim; s.n_stages = n_stages; s.n_lin = n_lin; s.n_soc = n_soc;
   s.en_box = en_box;
+  s.box_stride = grouped_box ? dim * n_stages : 0;
+  s.lin_stride = grouped_lin ? n_lin * (2 * dim + 1) : 0;
+  s.mu_stride = grouped_mu ? n_soc : 0;
   if (n_lin < 0 || n_soc < 0 || n_soc > kMaxCones ||
       (n_lin > 0 && lin == nullptr) ||
       (n_soc > 0 && (soc == nullptr || mu == nullptr)) ||
@@ -81,10 +96,14 @@ __device__ __forceinline__ float relaxed(const P& p, bool relax, float w,
 
 // The slack of row r before the linear and cone projections: w_hat + dual
 // (dual null: the state-free path, g == 0), clipped to the box.
-__device__ __forceinline__ float row_slack(const Side& s, int r, float wh,
-                                           const float* dual, int o) {
+__device__ __forceinline__ float row_slack(const Side& s, int g, int r,
+                                           float wh, const float* dual,
+                                           int o) {
   float v = dual ? __fadd_rn(wh, dual[o]) : wh;
-  if (s.en_box) v = fminf(s.wmax[r], fmaxf(s.wmin[r], v));
+  if (s.en_box) {
+    const int b = g * s.box_stride + r;
+    v = fminf(s.wmax[b], fmaxf(s.wmin[b], v));
+  }
   return v;
 }
 
@@ -94,15 +113,15 @@ __device__ __forceinline__ float row_slack(const Side& s, int r, float wh,
 // order of operations.
 template <class P>
 __device__ __forceinline__ void stage_slack(
-    const P& p, const Side& s, int k, bool relax, const float* ux,
+    const P& p, const Side& s, int g, int k, bool relax, const float* ux,
     const float* prev, const float* dual, int lane, int T, float* w) {
   const int dim = s.dim;
   for (int j = 0; j < dim; ++j) {
     const int r = k * dim + j, o = r * p.B + lane;
-    w[j] = row_slack(s, r, relaxed(p, relax, ux[r * T], prev[o]), dual, o);
+    w[j] = row_slack(s, g, r, relaxed(p, relax, ux[r * T], prev[o]), dual, o);
   }
   for (int h = 0; h < s.n_lin; ++h) {
-    const float* row = s.lin + h * (2 * dim + 1);
+    const float* row = s.lin + g * s.lin_stride + h * (2 * dim + 1);
     float dot = __fmul_rn(w[0], __ldg(row));
     for (int d = 1; d < dim; ++d)
       dot = __fadd_rn(dot, __fmul_rn(w[d], __ldg(row + d)));
@@ -113,7 +132,7 @@ __device__ __forceinline__ void stage_slack(
   for (int c = 0; c < s.n_soc; ++c) {
     float* seg = w + s.cone_start[c];
     const int last = s.cone_dim[c] - 1;
-    const float mu = __ldg(s.mu + c);
+    const float mu = __ldg(s.mu + g * s.mu_stride + c);
     float sq = __fmul_rn(seg[0], seg[0]);
     for (int d = 1; d < last; ++d)
       sq = __fadd_rn(sq, __fmul_rn(seg[d], seg[d]));
@@ -136,19 +155,20 @@ __device__ __forceinline__ void stage_slack(
 // box path, with no stage buffer.
 template <bool kProj, class P, class Row>
 __device__ __forceinline__ void for_each_slack(
-    const P& p, const Side& s, bool relax, const float* ux,
+    const P& p, const Side& s, int g, bool relax, const float* ux,
     const float* prev, const float* dual, int lane, int T, Row row) {
   if constexpr (kProj) {
     for (int k = 0; k < s.n_stages; ++k) {
       float w[kMaxStage];
-      stage_slack(p, s, k, relax, ux, prev, dual, lane, T, w);
+      stage_slack(p, s, g, k, relax, ux, prev, dual, lane, T, w);
       for (int j = 0; j < s.dim; ++j) row(k * s.dim + j, w[j]);
     }
   } else {
     const int rows = s.dim * s.n_stages;
     for (int r = 0; r < rows; ++r) {
       const int o = r * p.B + lane;
-      row(r, row_slack(s, r, relaxed(p, relax, ux[r * T], prev[o]), dual, o));
+      row(r, row_slack(s, g, r, relaxed(p, relax, ux[r * T], prev[o]), dual,
+                       o));
     }
   }
 }
@@ -157,10 +177,10 @@ __device__ __forceinline__ void for_each_slack(
 // new slack against the iterate (pri) and the previous slack (dua).
 template <bool kProj, class P>
 __device__ __forceinline__ void side_residuals(
-    const P& p, const Side& s, bool relax, const float* ux,
+    const P& p, const Side& s, int g, bool relax, const float* ux,
     const float* prev, const float* dual, int lane, int T, float& pri,
     float& dua) {
-  for_each_slack<kProj>(p, s, relax, ux, prev, dual, lane, T,
+  for_each_slack<kProj>(p, s, g, relax, ux, prev, dual, lane, T,
                         [&](int r, float vn) {
     pri = fmaxf(pri, fabsf(__fsub_rn(ux[r * T], vn)));
     dua = fmaxf(dua, fabsf(__fsub_rn(prev[r * p.B + lane], vn)));
@@ -173,9 +193,9 @@ __device__ __forceinline__ void side_residuals(
 // read by stage_slack before the first is replaced).
 template <bool kProj, class P>
 __device__ __forceinline__ void side_update(
-    const P& p, const Side& s, bool relax, float* ux, float* prev,
+    const P& p, const Side& s, int g, bool relax, float* ux, float* prev,
     float* dual, float* co, bool carry, int lane, int T) {
-  for_each_slack<kProj>(p, s, relax, ux, prev, dual, lane, T,
+  for_each_slack<kProj>(p, s, g, relax, ux, prev, dual, lane, T,
                         [&](int r, float vn) {
     const int o = r * p.B + lane;
     const float wh = relaxed(p, relax, ux[r * T], prev[o]);

@@ -16,6 +16,11 @@ This is the single-instance oracle the batched paths are held against, not a
 hot path: the outer loop and the horizon recursions are Python loops over
 small tensors, and the loop reads its convergence flag on the host once per
 iteration.
+
+Every stage update also runs with a leading batch axis on the state, and on
+the problem or the cache where they differ per instance (their tensors
+broadcast); ``batched_body`` is one masked iteration of a whole batch, the
+loop body of parallel/batch.py.
 """
 from __future__ import annotations
 
@@ -23,12 +28,25 @@ from typing import Tuple
 
 import torch
 
-from ..types import Cache, Problem, Settings, Solution, State
+from ..types import Cache, Problem, Settings, Solution, State, map_tensors
 from . import not_ported, projections
 from . import rho as rho_mod
 
 TINY_SOLVED = 1
 TINY_UNSOLVED = 11
+
+
+def _mv(M, v):
+    """M @ v on the trailing axes, any leading batch axes on either."""
+    if M.ndim == 2 and v.ndim == 1:
+        return M @ v
+    return (M @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def _ex(t, n):
+    """``t`` with n trailing axes of 1 (a 0-d tensor stays as it is), so a
+    per-instance scalar multiplies a per-instance array."""
+    return t.reshape(t.shape + (1,) * n) if t.ndim else t
 
 
 # ---------------------------------------------------------------------------
@@ -39,13 +57,14 @@ def forward_pass(state: State, problem: Problem, cache: Cache) -> State:
     """LQR-feedback rollout: u_i = -Kinf x_i - d_i;
     x_{i+1} = A x_i + B u_i + f."""
     A, B, f, K = problem.A, problem.B, problem.f, cache.Kinf
-    xs = [state.x[0]]
+    xs = [state.x[..., 0, :]]
     us = []
-    for i in range(state.d.shape[0]):
-        u_i = -(K @ xs[-1]) - state.d[i]
+    for i in range(state.d.shape[-2]):
+        u_i = -_mv(K, xs[-1]) - state.d[..., i, :]
         us.append(u_i)
-        xs.append(A @ xs[-1] + B @ u_i + f)
-    return state.replace(x=torch.stack(xs), u=torch.stack(us))
+        xs.append(_mv(A, xs[-1]) + _mv(B, u_i) + f)
+    return state.replace(x=torch.stack(xs, dim=-2),
+                         u=torch.stack(us, dim=-2))
 
 
 def _relaxed(settings: Settings, state: State):
@@ -94,11 +113,13 @@ def update_linear_cost(state: State, problem: Problem, cache: Cache) -> State:
     reference's row product Xref^T . Pinf, kept transposed for iterate
     parity (Pinf is symmetric only up to roundoff)."""
     rho = cache.rho
-    r = -(problem.Uref * problem.R) - rho * (state.znew - state.y)
-    q = -(problem.Xref * problem.Q) - rho * (state.vnew - state.g)
-    p_N = (-(cache.Pinf.T @ problem.Xref[-1])
-           - rho * (state.vnew[-1] - state.g[-1]))
-    p = torch.cat([state.p[:-1], p_N[None]])
+    r = (-(problem.Uref * problem.R[..., None, :])
+         - _ex(rho, 2) * (state.znew - state.y))
+    q = (-(problem.Xref * problem.Q[..., None, :])
+         - _ex(rho, 2) * (state.vnew - state.g))
+    p_N = (-_mv(cache.Pinf.transpose(-1, -2), problem.Xref[..., -1, :])
+           - _ex(rho, 1) * (state.vnew[..., -1, :] - state.g[..., -1, :]))
+    p = torch.cat([state.p[..., :-1, :], p_N[..., None, :]], dim=-2)
     return state.replace(r=r, q=q, p=p)
 
 
@@ -111,26 +132,30 @@ def backward_pass(state: State, problem: Problem, cache: Cache, *,
     if horizon_parallel:
         raise not_ported("horizon_parallel (the associative scans)",
                          "ROADMAP.md queue 1, item 12")
-    BT, Quu_inv, AmBKt, KT = (problem.B.T, cache.Quu_inv, cache.AmBKt,
-                              cache.Kinf.T)
-    n = state.r.shape[0]
-    p_next = state.p[-1]
+    BT, Quu_inv, AmBKt, KT = (problem.B.transpose(-1, -2), cache.Quu_inv,
+                              cache.AmBKt, cache.Kinf.transpose(-1, -2))
+    n = state.r.shape[-2]
+    p_last = state.p[..., -1, :]
+    p_next = p_last
     ds, ps = [None] * n, [None] * n
     for i in range(n - 1, -1, -1):
-        r_i = state.r[i]
-        ds[i] = Quu_inv @ (BT @ p_next + r_i)
-        p_next = state.q[i] + AmBKt @ p_next - KT @ r_i
+        r_i = state.r[..., i, :]
+        ds[i] = _mv(Quu_inv, _mv(BT, p_next) + r_i)
+        p_next = state.q[..., i, :] + _mv(AmBKt, p_next) - _mv(KT, r_i)
         ps[i] = p_next
-    return state.replace(d=torch.stack(ds),
-                         p=torch.stack(ps + [state.p[-1]]))
+    return state.replace(d=torch.stack(ds, dim=-2),
+                         p=torch.stack(ps + [p_last], dim=-2))
 
 
 def compute_residuals(state: State, cache: Cache):
     """The four infinity-norm residuals of the termination check."""
-    pri_state = (state.x - state.vnew).abs().max()
-    dua_state = (state.v - state.vnew).abs().max() * cache.rho
-    pri_input = (state.u - state.znew).abs().max()
-    dua_input = (state.z - state.znew).abs().max() * cache.rho
+    def amax(t):
+        return t.abs().amax(dim=(-2, -1))
+
+    pri_state = amax(state.x - state.vnew)
+    dua_state = amax(state.v - state.vnew) * cache.rho
+    pri_input = amax(state.u - state.znew)
+    dua_input = amax(state.z - state.znew) * cache.rho
     return pri_state, pri_input, dua_state, dua_input
 
 
@@ -194,6 +219,49 @@ def make_loop_fns(problem: Problem, settings: Settings, *,
         return (st, ca, z_prev, v_prev, converged, i + 1)
 
     return cond_fn, body_fn
+
+
+def batched_body(problem: Problem, settings: Settings, state: State,
+                 cache: Cache, i: int):
+    """One ADMM iteration of a whole batch: ``body_fn`` with a leading batch
+    axis on the state (and on the problem or cache where they differ per
+    instance), the branch on convergence replaced by a per-instance select.
+    Returns (state, cache, converged (B,) bool); the caller freezes the
+    instances that had converged before."""
+    dtype, dev = state.x.dtype, state.x.device
+    pri_tol = torch.tensor(settings.abs_pri_tol, dtype=dtype, device=dev)
+    dua_tol = torch.tensor(settings.abs_dua_tol, dtype=dtype, device=dev)
+    ct = settings.check_termination
+    batch = state.x.shape[0]
+    st = forward_pass(state, problem, cache)
+    st = update_slack(st, problem, settings)
+    st = update_dual(st, settings)
+    st = update_linear_cost(st, problem, cache)
+    st = st.replace(iter=st.iter + 1)
+    ca = cache
+    if settings.adaptive_rho and i > 0 and i % rho_mod.RHO_INTERVAL == 0:
+        adapt = (rho_mod.adapt_rho_rebuild_batched
+                 if settings.adaptive_rho_rebuild else rho_mod.adapt_rho)
+        ca = adapt(st, ca, problem, settings)
+    converged = torch.zeros((batch,), dtype=torch.bool, device=dev)
+    if ct > 0 and (i + 1) % ct == 0:
+        pri_s, pri_i, dua_s, dua_i = compute_residuals(st, ca)
+        st = st.replace(primal_residual_state=pri_s,
+                        primal_residual_input=pri_i,
+                        dual_residual_state=dua_s, dual_residual_input=dua_i)
+        converged = ((pri_s < pri_tol) & (pri_i < pri_tol)
+                     & (dua_s < dua_tol) & (dua_i < dua_tol))
+    st = st.replace(status=torch.where(
+        converged, torch.full_like(st.status, TINY_SOLVED), st.status))
+    st_next = backward_pass(st.replace(v=st.vnew, z=st.znew), problem, ca)
+    return select_instances(converged, st, st_next), ca, converged
+
+
+def select_instances(pred, on_true, on_false):
+    """Per-instance select between two batched dataclasses of tensors;
+    ``pred`` is (B,) bool."""
+    return map_tensors(lambda a, b: torch.where(_ex(pred, a.ndim - 1), a, b),
+                       on_true, on_false)
 
 
 def init_carry(state: State, cache: Cache):

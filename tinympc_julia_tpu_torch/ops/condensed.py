@@ -1,5 +1,7 @@
 """Condensed-iteration formulation (counterpart of
-tinympc_julia_tpu/ops/condensed.py), for one problem shared by the batch.
+tinympc_julia_tpu/ops/condensed.py), for one problem shared by the batch
+or, with a leading group axis on the problem, the cache and the maps, for G
+distinct problems with L lanes each.
 
 With the Riccati gains frozen, both ADMM sweeps over the horizon are affine
 in the iterate, so they condense into two dense maps built once at setup:
@@ -20,6 +22,14 @@ drho dP makes T1 a polynomial in drho = rho - rho0 (kept to ``order``) and T2
 exactly bilinear in the pre- and post-update drho.  ``solve_condensed_adaptive``
 applies them in eager PyTorch and is the oracle of kernel K2's plain version
 (ops/cuda/adaptive_kernel.py).
+
+The solve loops are written once for any leading axes: iterates are
+``(..., dim, L)``, per-lane vectors ``(..., L)``, and per-problem data
+(bounds, rho, cone coefficients, halfspace rows) ``(..., rows)``.  The
+grouped solves (``solve_condensed_grouped``,
+``solve_condensed_adaptive_grouped``) run them with one leading group axis
+(batched matmuls) until every lane of every group has latched; a latched
+lane is frozen, so a lane's result does not depend on the other groups.
 """
 from __future__ import annotations
 
@@ -226,7 +236,8 @@ def _np64(t) -> np.ndarray:
 
 def build_condensed(problem: Problem, cache: Cache) -> CondensedMaps:
     """Build T1/T2/T12 in float64 on the host, then cast them to the
-    problem's dtype and device."""
+    problem's dtype and device.  ``problem``/``cache`` may carry a leading
+    group axis (``types.stack_instances``); the maps then gain it too."""
     N = problem.N
     A, B, f = _np64(problem.A), _np64(problem.B), _np64(problem.f)
     K, Quu = _np64(cache.Kinf), _np64(cache.Quu_inv)
@@ -253,35 +264,41 @@ def halfspace_rows(Alin, blin) -> torch.Tensor:
     ``[a, a / max(||a||^2, 1e-30), b]``, computed in float64 and cast to
     ``Alin``'s dtype.  Both the condensed solve and kernel K1 (and its plain
     version) project with these rows, so kernel and plain start from the
-    same data."""
+    same data.  Leading group axes on both arguments are kept:
+    (G, m, dim), (G, m) -> (G, m, 2*dim + 1)."""
     A = torch.as_tensor(Alin).to(torch.float64)
     b = torch.as_tensor(blin, device=A.device).to(torch.float64)
-    if A.ndim != 2 or b.shape != (A.shape[0],):
-        raise ValueError(f"halfspaces need Alin (m, dim) and blin (m,); got "
-                         f"{tuple(A.shape)} and {tuple(b.shape)}")
+    if A.ndim < 2 or b.shape != A.shape[:-1]:
+        raise ValueError(f"halfspaces need Alin (..., m, dim) and blin "
+                         f"(..., m); got {tuple(A.shape)} and "
+                         f"{tuple(b.shape)}")
     inv_sq = 1.0 / torch.clamp_min((A * A).sum(-1), 1e-30)
-    rows = torch.cat([A, A * inv_sq[:, None], b[:, None]], dim=1)
+    rows = torch.cat([A, A * inv_sq[..., None], b[..., None]], dim=-1)
     return rows.to(torch.as_tensor(Alin).dtype)
 
 
 def _halfspaces_stacked(w, rows, n_stages, dim):
-    """Cyclic halfspace projections on a stacked (n_stages*dim, B) array:
-    per stage k and row j in order, w_k -= max(a_j.w_k - b_j, 0) a_j/||a_j||^2
-    (ops/projections.py semantics).  ``rows`` is ``halfspace_rows``'s
-    packing; the inner product is summed in index order, as kernel K1 sums
-    it."""
-    if rows.shape[0] == 0:
+    """Cyclic halfspace projections on a stacked (..., n_stages*dim, B)
+    array: per stage k and row j in order, w_k -= max(a_j.w_k - b_j, 0)
+    a_j/||a_j||^2 (ops/projections.py semantics).  ``rows`` is
+    ``halfspace_rows``'s packing, shared (m, 2*dim + 1) or with ``w``'s
+    leading axes; the inner product is summed in index order, as kernel K1
+    sums it."""
+    if rows.shape[-2] == 0:
         return w
-    B = w.shape[1]
-    w3 = w.reshape(n_stages, dim, B)
-    for row in rows:
-        a, a_scaled, b = row[:dim], row[dim:2 * dim], row[2 * dim]
-        dot = w3[:, 0] * a[0]
+    lead, B = w.shape[:-2], w.shape[-1]
+    w3 = w.reshape(lead + (n_stages, dim, B))
+    for j in range(rows.shape[-2]):
+        row = rows[..., j, :]
+        a = row[..., :dim, None, None]           # (..., dim, 1, 1)
+        a_scaled = row[..., None, dim:2 * dim, None]
+        b = row[..., 2 * dim, None, None]
+        dot = w3[..., 0, :] * a[..., 0, :, :]
         for d in range(1, dim):
-            dot = dot + w3[:, d] * a[d]
+            dot = dot + w3[..., d, :] * a[..., d, :, :]
         viol = torch.clamp_min(dot - b, 0.0)
-        w3 = w3 - viol[:, None, :] * a_scaled[None, :, None]
-    return w3.reshape(n_stages * dim, B)
+        w3 = w3 - viol[..., None, :] * a_scaled
+    return w3.reshape(lead + (n_stages * dim, B))
 
 
 def _sqrt_rn(x):
@@ -295,41 +312,47 @@ def _sqrt_rn(x):
 
 def _cones_stacked(w, cones: ConeSet, n_stages, dim):
     """Scaled-SOC projections (``projections._project_soc_scaled``) of every
-    stage of a stacked (n_stages*dim, B) array, cone by cone; the norm's
-    squares are summed in index order, as kernel K1 sums them."""
+    stage of a stacked (..., n_stages*dim, B) array, cone by cone; the
+    coefficients ``cones.mus`` are shared (C,) or carry ``w``'s leading
+    axes; the norm's squares are summed in index order, as kernel K1 sums
+    them."""
     if cones.num_cones == 0:
         return w
-    B = w.shape[1]
-    w3 = w.reshape(n_stages, dim, B).clone()
+    lead, B = w.shape[:-2], w.shape[-1]
+    w3 = w.reshape(lead + (n_stages, dim, B)).clone()
     for k, (start, cdim) in enumerate(zip(cones.starts, cones.dims)):
-        seg = w3[:, start:start + cdim, :]          # (n_stages, cdim, B)
-        vpart = seg[:, :-1, :]
-        s = seg[:, -1, :]
-        mu = cones.mus[k]
-        sq = vpart[:, 0] * vpart[:, 0]
+        seg = w3[..., start:start + cdim, :]        # (..., n_stages, cdim, B)
+        vpart = seg[..., :-1, :]
+        s = seg[..., -1, :]
+        mu = cones.mus[..., k, None, None]
+        sq = vpart[..., 0, :] * vpart[..., 0, :]
         for d in range(1, cdim - 1):
-            sq = sq + vpart[:, d] * vpart[:, d]
+            sq = sq + vpart[..., d, :] * vpart[..., d, :]
         a = _sqrt_rn(sq)
         u0 = s * mu
         factor = (a + u0) / (2.0 * torch.clamp_min(a, 1e-30))
-        proj = torch.cat([factor[:, None, :] * vpart,
-                          (factor * (a / mu))[:, None, :]], dim=1)
-        below = (a <= -u0)[:, None, :]
-        inside = (a <= u0)[:, None, :]
-        w3[:, start:start + cdim, :] = torch.where(
+        proj = torch.cat([factor[..., None, :] * vpart,
+                          (factor * (a / mu))[..., None, :]], dim=-2)
+        below = (a <= -u0)[..., None, :]
+        inside = (a <= u0)[..., None, :]
+        w3[..., start:start + cdim, :] = torch.where(
             below, torch.zeros_like(seg), torch.where(inside, seg, proj))
-    return w3.reshape(n_stages * dim, B)
+    return w3.reshape(lead + (n_stages * dim, B))
 
 
 def _slack_update(problem: Problem, settings: Settings):
     """``slacks(u, x, z, v, y, g) -> (u_hat, x_hat, znew, vnew)`` on the
-    stacked (dim, B) layout: over-relaxation against the previous slacks,
-    then the dual shift and the projections box -> linear -> SOC."""
+    stacked (..., dim, B) layout: over-relaxation against the previous
+    slacks, then the dual shift and the projections box -> linear -> SOC.
+    The leading axes are the problem's group axes."""
     s = settings
     nx, nu, N = problem.nx, problem.nu, problem.N
     su, sx = (N - 1) * nu, N * nx
-    umin, umax = problem.u_min.reshape(su, 1), problem.u_max.reshape(su, 1)
-    xmin, xmax = problem.x_min.reshape(sx, 1), problem.x_max.reshape(sx, 1)
+    lead = problem.A.shape[:-2]
+    umin, umax = (b.reshape(lead + (su, 1))
+                  for b in (problem.u_min, problem.u_max))
+    xmin, xmax = (b.reshape(lead + (sx, 1))
+                  for b in (problem.x_min, problem.x_max))
     alpha = s.relaxation_alpha
     lin_u = halfspace_rows(problem.Alin_u, problem.blin_u) \
         if s.en_input_linear else None
@@ -370,6 +393,105 @@ class CondensedCarry(NamedTuple):
     z: torch.Tensor  # (su, B)
 
 
+def _zero_carry(lead, su, sx, L, dtype, dev):
+    zu = torch.zeros(lead + (su, L), dtype=dtype, device=dev)
+    zx = torch.zeros(lead + (sx, L), dtype=dtype, device=dev)
+    return zu, zx
+
+
+def _solve_condensed_impl(problem, cache, settings, x0s, maps, warm):
+    """The fixed-rho condensed loop on x0s (..., L, nx), the leading axes
+    being those of the problem, the cache and the maps.  Returns (xs, us,
+    iters, solved, carry)."""
+    s = settings
+    nx, nu, N = problem.nx, problem.nu, problem.N
+    su, sx = (N - 1) * nu, N * nx
+    lead, L = x0s.shape[:-2], x0s.shape[-2]
+    dtype, dev = x0s.dtype, x0s.device
+    rho = cache.rho.to(dtype)[..., None]
+    pri_tol = torch.tensor(s.abs_pri_tol, dtype=dtype, device=dev)
+    dua_tol = torch.tensor(s.abs_dua_tol, dtype=dtype, device=dev)
+    ct = s.check_termination
+    slacks = _slack_update(problem, s)
+
+    T1, T2 = maps.T1, maps.T2
+    # the duals enter T2 only through rho (y - znew) and rho (g - vnew), so
+    # its y/g blocks are exact negations of the z/v blocks
+    T2r = torch.cat([T2[..., :su + sx], T2[..., -1:]], dim=-1)
+    x0T = x0s.transpose(-1, -2)
+    ones = torch.ones(lead + (1, L), dtype=dtype, device=dev)
+
+    if warm is None:
+        zu, zx = _zero_carry(lead, su, sx, L, dtype, dev)
+        warm = CondensedCarry(d=zu, y=zu, g=zx, v=zx, z=zu)
+    d, y, g, v, z = warm
+    out_x = torch.zeros(lead + (sx, L), dtype=dtype, device=dev)
+    out_u = torch.zeros(lead + (su, L), dtype=dtype, device=dev)
+    out_it = torch.full(lead + (L,), s.max_iter, dtype=torch.int32,
+                        device=dev)
+    out_solved = torch.zeros(lead + (L,), dtype=torch.int32, device=dev)
+    conv = torch.zeros(lead + (L,), dtype=torch.bool, device=dev)
+
+    def amax(t):
+        return torch.amax(torch.abs(t), dim=-2)
+
+    for i in range(s.max_iter):
+        ux = T1 @ torch.cat([d, x0T, ones], dim=-2)
+        u, x = ux[..., :su, :], ux[..., su:, :]
+        u_hat, x_hat, znew, vnew = slacks(u, x, z, v, y, g)
+
+        # lanes converged in an earlier iteration are frozen entirely
+        frozen = conv[..., None, :]
+        y = torch.where(frozen, y, y + u_hat - znew)
+        g = torch.where(frozen, g, g + x_hat - vnew)
+
+        ps, pi = amax(x - vnew), amax(u - znew)
+        ds, di = amax(v - vnew) * rho, amax(z - znew) * rho
+        ok = (ps < pri_tol) & (pi < pri_tol) & (ds < dua_tol) & (di < dua_tol)
+        if ct <= 0 or (i + 1) % ct != 0:
+            ok = torch.zeros_like(ok)
+        newly = ok & ~conv
+
+        out_x = torch.where(newly[..., None, :], vnew, out_x)
+        out_u = torch.where(newly[..., None, :], znew, out_u)
+        out_it = torch.where(newly, i + 1, out_it)
+        out_solved = torch.where(newly, 1, out_solved)
+        conv = conv | newly
+
+        # v/z/d do not advance on (or after) a lane's converging iteration:
+        # the reference returns before the slack copy and backward pass
+        frozen = conv[..., None, :]
+        v = torch.where(frozen, v, vnew)
+        z = torch.where(frozen, z, znew)
+        d_new = T2r @ torch.cat([znew - y, vnew - g, ones], dim=-2)
+        d = torch.where(frozen, d, d_new)
+        if bool(conv.all()):
+            break
+
+    # unconverged lanes report their last slack iterates
+    out_x = torch.where(conv[..., None, :], out_x, v)
+    out_u = torch.where(conv[..., None, :], out_u, z)
+    xs = out_x.transpose(-1, -2).reshape(lead + (L, N, nx))
+    us = out_u.transpose(-1, -2).reshape(lead + (L, N - 1, nu))
+    return xs, us, out_it, out_solved, CondensedCarry(d=d, y=y, g=g, v=v, z=z)
+
+
+def _check_shared(problem, x0s, what):
+    if problem.A.ndim != 2 or x0s.ndim != 2:
+        raise ValueError(f"{what} takes one shared problem and x0s (B, nx); "
+                         f"got A {tuple(problem.A.shape)}, x0s "
+                         f"{tuple(x0s.shape)} (the grouped solves take a "
+                         "leading group axis)")
+
+
+def _check_grouped(problems, x0s, what):
+    if problems.A.ndim != 3 or x0s.ndim != 3 \
+            or x0s.shape[0] != problems.A.shape[0]:
+        raise ValueError(f"{what} takes G-stacked problems and x0s (G, L, "
+                         f"nx); got A {tuple(problems.A.shape)}, x0s "
+                         f"{tuple(x0s.shape)}")
+
+
 def solve_condensed(problem: Problem, cache: Cache, settings: Settings, x0s,
                     maps: CondensedMaps | None = None, *,
                     warm: CondensedCarry | None = None,
@@ -382,82 +504,38 @@ def solve_condensed(problem: Problem, cache: Cache, settings: Settings, x0s,
     the slack iterates, as in the reference.  Box, linear and cone
     constraints, composed box -> linear -> SOC; fixed rho
     (``solve_condensed_adaptive`` is the adaptive-rho solve)."""
-    s = settings
-    if s.adaptive_rho:
+    if settings.adaptive_rho:
         raise ValueError("solve_condensed is the fixed-rho solve; adaptive "
                          "rho runs through solve_condensed_adaptive")
+    _check_shared(problem, x0s, "solve_condensed")
     if maps is None:
         maps = build_condensed(problem, cache)
-    nx, nu, N = problem.nx, problem.nu, problem.N
-    su, sx = (N - 1) * nu, N * nx
-    B = x0s.shape[0]
-    dtype, dev = x0s.dtype, x0s.device
-    rho = cache.rho.to(dtype)
-    pri_tol = torch.tensor(s.abs_pri_tol, dtype=dtype, device=dev)
-    dua_tol = torch.tensor(s.abs_dua_tol, dtype=dtype, device=dev)
-    ct = s.check_termination
-    slacks = _slack_update(problem, s)
+    out = _solve_condensed_impl(problem, cache, settings, x0s, maps, warm)
+    return out if return_carry else out[:4]
 
-    T1, T2 = maps.T1, maps.T2
-    # the duals enter T2 only through rho (y - znew) and rho (g - vnew), so
-    # its y/g blocks are exact negations of the z/v blocks
-    T2r = torch.cat([T2[:, :su + sx], T2[:, -1:]], dim=1)
-    x0T = x0s.T
-    ones = torch.ones((1, B), dtype=dtype, device=dev)
 
-    if warm is None:
-        zu = torch.zeros((su, B), dtype=dtype, device=dev)
-        zx = torch.zeros((sx, B), dtype=dtype, device=dev)
-        warm = CondensedCarry(d=zu, y=zu, g=zx, v=zx, z=zu)
-    d, y, g, v, z = warm
-    out_x = torch.zeros((sx, B), dtype=dtype, device=dev)
-    out_u = torch.zeros((su, B), dtype=dtype, device=dev)
-    out_it = torch.full((B,), s.max_iter, dtype=torch.int32, device=dev)
-    out_solved = torch.zeros((B,), dtype=torch.int32, device=dev)
-    conv = torch.zeros((B,), dtype=torch.bool, device=dev)
+def solve_condensed_grouped(problems: Problem, caches: Cache,
+                            settings: Settings, x0s,
+                            maps: CondensedMaps | None = None, *,
+                            warm: CondensedCarry | None = None,
+                            return_carry: bool = False):
+    """G distinct problems on the condensed path: ``problems``/``caches``
+    carry a leading group axis (``types.stack_instances``) and ``x0s`` is
+    (G, L, nx), L initial states per group.  Per-lane semantics are those of
+    solving each group alone.
 
-    for i in range(s.max_iter):
-        ux = T1 @ torch.cat([d, x0T, ones], dim=0)
-        u, x = ux[:su], ux[su:]
-        u_hat, x_hat, znew, vnew = slacks(u, x, z, v, y, g)
-
-        # lanes converged in an earlier iteration are frozen entirely
-        y = torch.where(conv, y, y + u_hat - znew)
-        g = torch.where(conv, g, g + x_hat - vnew)
-
-        ps = torch.amax(torch.abs(x - vnew), dim=0)
-        pi = torch.amax(torch.abs(u - znew), dim=0)
-        ds = torch.amax(torch.abs(v - vnew), dim=0) * rho
-        di = torch.amax(torch.abs(z - znew), dim=0) * rho
-        ok = (ps < pri_tol) & (pi < pri_tol) & (ds < dua_tol) & (di < dua_tol)
-        if ct <= 0 or (i + 1) % ct != 0:
-            ok = torch.zeros_like(ok)
-        newly = ok & ~conv
-
-        out_x = torch.where(newly, vnew, out_x)
-        out_u = torch.where(newly, znew, out_u)
-        out_it = torch.where(newly, i + 1, out_it)
-        out_solved = torch.where(newly, 1, out_solved)
-        conv = conv | newly
-
-        # v/z/d do not advance on (or after) a lane's converging iteration:
-        # the reference returns before the slack copy and backward pass
-        v = torch.where(conv, v, vnew)
-        z = torch.where(conv, z, znew)
-        d_new = T2r @ torch.cat([znew - y, vnew - g, ones], dim=0)
-        d = torch.where(conv, d, d_new)
-        if bool(conv.all()):
-            break
-
-    # unconverged lanes report their last slack iterates
-    out_x = torch.where(conv, out_x, v)
-    out_u = torch.where(conv, out_u, z)
-    xs = out_x.T.reshape(B, N, nx)
-    us = out_u.T.reshape(B, N - 1, nu)
-    out = (xs, us, out_it, out_solved)
-    if return_carry:
-        return out + (CondensedCarry(d=d, y=y, g=g, v=v, z=z),)
-    return out
+    Returns (xs (G, L, N, nx), us (G, L, N-1, nu), iters (G, L), solved
+    (G, L)), plus the carry of (G, dim, L) arrays when
+    ``return_carry=True``."""
+    if settings.adaptive_rho:
+        raise ValueError("solve_condensed_grouped is the fixed-rho solve; "
+                         "adaptive rho runs through "
+                         "solve_condensed_adaptive_grouped")
+    _check_grouped(problems, x0s, "solve_condensed_grouped")
+    if maps is None:
+        maps = build_condensed(problems, caches)
+    out = _solve_condensed_impl(problems, caches, settings, x0s, maps, warm)
+    return out if return_carry else out[:4]
 
 
 # ---------------------------------------------------------------------------
@@ -472,11 +550,13 @@ def _t1_taylor_numpy(A, B, f, K0, dK, N, order):
     closed-loop matrix M(rho) = A - B K(rho)); the coefficients up to
     ``order`` are computed exactly, by carrying truncated coefficient lists
     through the power recursion (no finite differencing).  Returns
-    (order+1, su+sx, in1), float64 numpy."""
+    (order+1, su+sx, in1), float64 numpy; leading batch axes on the
+    arguments come out ahead of the order axis."""
     nx, nu = B.shape[-2], B.shape[-1]
     su, sx = (N - 1) * nu, N * nx
     in1 = su + nx + 1
     o = order
+    bsh = B.shape[:-2]
 
     def pmul(Pa, Pb):
         """Truncated product of matrix-coefficient lists."""
@@ -488,48 +568,48 @@ def _t1_taylor_numpy(A, B, f, K0, dK, N, order):
             out.append(acc)
         return out
 
-    zM = np.zeros((nx, nx))
+    zM = np.zeros(bsh + (nx, nx))
     Mc = [A - B @ K0, -(B @ dK)] + [zM] * (o - 1)
     Kc = [K0, dK] + [np.zeros_like(K0)] * (o - 1)
-    fcol = f[:, None]
+    fcol = f[..., :, None]
 
     # pw[i]: coefficient list of M(rho)^i; cs[i]: that of
     # sum_{j<i} M^(i-1-j) f (the affine term)
-    pw = [[np.eye(nx)] + [zM] * o]
-    cs = [[np.zeros((nx, 1)) for _ in range(o + 1)]]
+    pw = [[np.broadcast_to(np.eye(nx), bsh + (nx, nx))] + [zM] * o]
+    cs = [[np.zeros(bsh + (nx, 1)) for _ in range(o + 1)]]
     for _ in range(N - 1):
         pw.append(pmul(Mc, pw[-1]))
         nc = pmul(Mc, cs[-1])
         nc[0] = nc[0] + fcol
         cs.append(nc)
 
-    # per-stage x-row blocks as coefficient lists of (nx, in1)
+    # per-stage x-row blocks as coefficient lists of (..., nx, in1)
     Xrows = []
     for i in range(N):
         row = []
         for k in range(o + 1):
-            Rk = np.zeros((nx, in1))
+            Rk = np.zeros(bsh + (nx, in1))
             for j in range(i):
-                Rk[:, j * nu:(j + 1) * nu] = -(pw[i - 1 - j][k] @ B)
-            Rk[:, su:su + nx] = pw[i][k]
-            Rk[:, -1:] = cs[i][k]
+                Rk[..., :, j * nu:(j + 1) * nu] = -(pw[i - 1 - j][k] @ B)
+            Rk[..., :, su:su + nx] = pw[i][k]
+            Rk[..., :, -1:] = cs[i][k]
             row.append(Rk)
         Xrows.append(row)
 
     T1s = []
     for k in range(o + 1):
-        T1k = np.zeros((su + sx, in1))
+        T1k = np.zeros(bsh + (su + sx, in1))
         for i in range(N - 1):
             Uk = -(Kc[0] @ Xrows[i][k])
             for a in range(1, k + 1):
                 Uk = Uk - Kc[a] @ Xrows[i][k - a]
             if k == 0:
-                Uk[:, i * nu:(i + 1) * nu] -= np.eye(nu)
-            T1k[i * nu:(i + 1) * nu, :] = Uk
+                Uk[..., :, i * nu:(i + 1) * nu] -= np.eye(nu)
+            T1k[..., i * nu:(i + 1) * nu, :] = Uk
         for i in range(N):
-            T1k[su + i * nx:su + (i + 1) * nx, :] = Xrows[i][k]
+            T1k[..., su + i * nx:su + (i + 1) * nx, :] = Xrows[i][k]
         T1s.append(T1k)
-    return np.stack(T1s, axis=0)
+    return np.stack(T1s, axis=-3)
 
 
 class CondensedTaylorMaps(NamedTuple):
@@ -543,6 +623,9 @@ class CondensedTaylorMaps(NamedTuple):
          (the reference's dead-write quirk).  Stored as [T2_00, dT2/drho_rq,
          dT2/drho_K, cross], identified exactly from 4 corner evaluations.
     rho0: the expansion centre (the setup rho), 0-d.
+
+    With a leading group axis (G-stacked problems): (G, order+1, ...),
+    (G, 4, ...), (G,).
     """
     T1s: torch.Tensor
     T2s: torch.Tensor
@@ -552,7 +635,8 @@ class CondensedTaylorMaps(NamedTuple):
 def build_condensed_taylor(problem: Problem, cache: Cache,
                            order: int = 2) -> CondensedTaylorMaps:
     """Build the Taylor-expanded maps in float64 on the host, then cast them
-    to the problem's dtype and device."""
+    to the problem's dtype and device.  Like ``build_condensed`` it keeps a
+    leading group axis of ``problem``/``cache``."""
     if order < 1:
         raise ValueError("order must be >= 1")
     N = problem.N
@@ -574,7 +658,7 @@ def build_condensed_taylor(problem: Problem, cache: Cache,
     Ta = t2(1.0, 0.0) - T00
     Tb = t2(0.0, 1.0) - T00
     Tab = t2(1.0, 1.0) - T00 - Ta - Tb
-    T2s = np.stack([T00, Ta, Tb, Tab], axis=0)
+    T2s = np.stack([T00, Ta, Tb, Tab], axis=-3)
 
     def cast(m):
         return torch.as_tensor(m, dtype=problem.dtype, device=problem.device)
@@ -584,37 +668,40 @@ def build_condensed_taylor(problem: Problem, cache: Cache,
 
 def _osqp_residuals_stacked(x, u, z, v, y, g, problem: Problem, cache: Cache,
                             drho, N):
-    """Per-lane OSQP-form residuals on the stacked (dim, B) layout: the
+    """Per-lane OSQP-form residuals on the stacked (..., dim, B) layout: the
     values of ``rho.osqp_residuals`` for each lane, with the per-lane Taylor
-    terminal cost Pinf + drho * dPinf.  Returns four (B,) vectors."""
+    terminal cost Pinf + drho * dPinf.  The leading axes are the problem's
+    group axes.  Returns four (..., B) vectors."""
     nx, nu = problem.nx, problem.nu
-    Bsz = x.shape[1]
-    x3, v3, g3 = (t.reshape(N, nx, Bsz) for t in (x, v, g))
-    u3, z3, y3 = (t.reshape(N - 1, nu, Bsz) for t in (u, z, y))
+    lead, Bsz = x.shape[:-2], x.shape[-1]
+    x3, v3, g3 = (t.reshape(lead + (N, nx, Bsz)) for t in (x, v, g))
+    u3, z3, y3 = (t.reshape(lead + (N - 1, nu, Bsz)) for t in (u, z, y))
     A, Bm = problem.A, problem.B
-    Qd, Rd = problem.Q[None, :, None], problem.R[None, :, None]
+    Qd, Rd = problem.Q[..., None, :, None], problem.R[..., None, :, None]
+    head = (Ellipsis, slice(None, -1), slice(None), slice(None))
+    tail = (Ellipsis, slice(1, None), slice(None), slice(None))
 
     def amax(t):
-        return torch.amax(torch.abs(t), dim=(0, 1))
+        return torch.amax(torch.abs(t), dim=(-3, -2))
 
-    dyn = (torch.einsum("ij,njb->nib", A, x3[:-1])
-           + torch.einsum("ij,njb->nib", Bm, u3) - x3[1:])
+    dyn = (torch.einsum("...ij,...njb->...nib", A, x3[head])
+           + torch.einsum("...ij,...njb->...nib", Bm, u3) - x3[tail])
     ax_inf = torch.maximum(amax(u3), amax(dyn))
-    z_inf = torch.maximum(amax(z3), amax(v3[1:]))
-    pri_res = torch.maximum(amax(u3 - z3), amax(dyn - v3[1:]))
+    z_inf = torch.maximum(amax(z3), amax(v3[tail]))
+    pri_res = torch.maximum(amax(u3 - z3), amax(dyn - v3[tail]))
     pri_norm = torch.maximum(ax_inf, z_inf)
 
-    xN = x3[-1]
-    PxN = cache.Pinf @ xN + drho[None, :] * (cache.dPinf_drho @ xN)
-    Px_states = torch.cat([x3[:-1] * Qd, PxN[None]], dim=0)
+    xN = x3[..., -1, :, :]
+    PxN = cache.Pinf @ xN + drho[..., None, :] * (cache.dPinf_drho @ xN)
+    Px_states = torch.cat([x3[head] * Qd, PxN[..., None, :, :]], dim=-3)
     Px_inputs = u3 * Rd
     q_states = x3 * Qd
     q_inputs = u3 * Rd
 
     aty_states = torch.zeros_like(x3)
-    aty_states[:-1] += torch.einsum("ji,njb->nib", A, g3[1:])
-    aty_states[1:] -= g3[1:]
-    aty_inputs = torch.einsum("ji,njb->nib", Bm, g3[1:]) + y3
+    aty_states[head] += torch.einsum("...ji,...njb->...nib", A, g3[tail])
+    aty_states[tail] -= g3[tail]
+    aty_inputs = torch.einsum("...ji,...njb->...nib", Bm, g3[tail]) + y3
 
     r_ds = Px_states + q_states + aty_states
     r_di = Px_inputs + q_inputs + aty_inputs
@@ -637,6 +724,116 @@ class AdaptiveCondensedCarry(NamedTuple):
     rho: torch.Tensor  # (B,)
 
 
+def _solve_condensed_adaptive_impl(problem, cache, settings, x0s, maps, warm):
+    """The adaptive-rho condensed loop on x0s (..., L, nx), the leading axes
+    being those of the problem, the cache and the Taylor maps.  Returns (xs,
+    us, iters, solved, carry)."""
+    s = settings
+    if s.adaptive_rho_controller not in ("osqp", "termination"):
+        raise ValueError("adaptive_rho_controller must be 'osqp' or "
+                         f"'termination', got {s.adaptive_rho_controller!r}")
+    nx, nu, N = problem.nx, problem.nu, problem.N
+    su, sx = (N - 1) * nu, N * nx
+    lead, L = x0s.shape[:-2], x0s.shape[-2]
+    dtype, dev = x0s.dtype, x0s.device
+    order = maps.T1s.shape[-3] - 1
+    T1stk = maps.T1s.reshape(lead + ((order + 1) * (su + sx), -1))
+    # reduced backward blocks: the y/g columns are exact negations of the
+    # z/v ones in every Taylor coefficient block
+    T2stk = torch.cat([maps.T2s[..., :su + sx], maps.T2s[..., -1:]],
+                      dim=-1).reshape(lead + (4 * su, -1))
+    rho0 = maps.rho0.to(dtype)[..., None]
+    pri_tol = torch.tensor(s.abs_pri_tol, dtype=dtype, device=dev)
+    dua_tol = torch.tensor(s.abs_dua_tol, dtype=dtype, device=dev)
+    ct = s.check_termination
+    slacks = _slack_update(problem, s)
+    x0T = x0s.transpose(-1, -2)
+    ones = torch.ones(lead + (1, L), dtype=dtype, device=dev)
+
+    if warm is None:
+        zu, zx = _zero_carry(lead, su, sx, L, dtype, dev)
+        warm = AdaptiveCondensedCarry(
+            d=zu, y=zu, g=zx, v=zx, z=zu,
+            rho=cache.rho.to(dtype)[..., None].expand(lead + (L,)).clone())
+    d, y, g, v, z, rho_b = warm
+    out_x = torch.zeros(lead + (sx, L), dtype=dtype, device=dev)
+    out_u = torch.zeros(lead + (su, L), dtype=dtype, device=dev)
+    out_it = torch.full(lead + (L,), s.max_iter, dtype=torch.int32,
+                        device=dev)
+    out_solved = torch.zeros(lead + (L,), dtype=torch.int32, device=dev)
+    conv = torch.zeros(lead + (L,), dtype=torch.bool, device=dev)
+
+    def amax(t):
+        return torch.amax(torch.abs(t), dim=-2)
+
+    for i in range(s.max_iter):
+        drho = rho_b - rho0
+        R1 = (T1stk @ torch.cat([d, x0T, ones], dim=-2)).reshape(
+            lead + (order + 1, su + sx, L))
+        ux = R1[..., order, :, :]
+        for k in range(order - 1, -1, -1):  # Horner in drho
+            ux = ux * drho[..., None, :] + R1[..., k, :, :]
+        u, x = ux[..., :su, :], ux[..., su:, :]
+        u_hat, x_hat, znew, vnew = slacks(u, x, z, v, y, g)
+
+        frozen = conv[..., None, :]
+        y = torch.where(frozen, y, y + u_hat - znew)
+        g = torch.where(frozen, g, g + x_hat - vnew)
+
+        # rho adaptation; converged lanes keep their rho
+        rho_new = rho_b
+        if i > 0 and i % rho_mod.RHO_INTERVAL == 0:
+            if s.adaptive_rho_controller == "termination":
+                # v/z are the previous slacks, as the single-instance
+                # path's predict_rho_termination reads them
+                pri = torch.maximum(amax(x - vnew), amax(u - znew))
+                dua = rho_b * torch.maximum(amax(v - vnew), amax(z - znew))
+                newr = rho_mod.termination_controller(pri, dua, rho_b, s,
+                                                      rho_center=rho0)
+            else:
+                newr = rho_mod.predict_rho(
+                    *_osqp_residuals_stacked(x, u, znew, vnew, y, g, problem,
+                                             cache, drho, N), rho_b, s)
+            rho_new = torch.where(conv, rho_b, newr)
+        drho_new = rho_new - rho0
+
+        # the cache is updated before the check: duals scale by the new rho
+        ps, pi = amax(x - vnew), amax(u - znew)
+        ds, di = amax(v - vnew) * rho_new, amax(z - znew) * rho_new
+        ok = (ps < pri_tol) & (pi < pri_tol) & (ds < dua_tol) & (di < dua_tol)
+        if ct <= 0 or (i + 1) % ct != 0:
+            ok = torch.zeros_like(ok)
+        newly = ok & ~conv
+
+        out_x = torch.where(newly[..., None, :], vnew, out_x)
+        out_u = torch.where(newly[..., None, :], znew, out_u)
+        out_it = torch.where(newly, i + 1, out_it)
+        out_solved = torch.where(newly, 1, out_solved)
+        conv = conv | newly
+
+        frozen = conv[..., None, :]
+        v = torch.where(frozen, v, vnew)
+        z = torch.where(frozen, z, znew)
+        # backward map: r/q/p_N were folded with the pre-update rho (drho),
+        # the gain K carries the post-update rho (drho_new)
+        R2 = (T2stk @ torch.cat([znew - y, vnew - g, ones], dim=-2)).reshape(
+            lead + (4, su, L))
+        d_new = (R2[..., 0, :, :] + drho[..., None, :] * R2[..., 1, :, :]
+                 + drho_new[..., None, :] * R2[..., 2, :, :]
+                 + (drho * drho_new)[..., None, :] * R2[..., 3, :, :])
+        d = torch.where(frozen, d, d_new)
+        rho_b = rho_new
+        if bool(conv.all()):
+            break
+
+    out_x = torch.where(conv[..., None, :], out_x, v)
+    out_u = torch.where(conv[..., None, :], out_u, z)
+    xs = out_x.transpose(-1, -2).reshape(lead + (L, N, nx))
+    us = out_u.transpose(-1, -2).reshape(lead + (L, N - 1, nu))
+    return xs, us, out_it, out_solved, AdaptiveCondensedCarry(
+        d=d, y=y, g=g, v=v, z=z, rho=rho_b)
+
+
 def solve_condensed_adaptive(problem: Problem, cache: Cache,
                              settings: Settings, x0s,
                              maps: CondensedTaylorMaps | None = None, *,
@@ -655,110 +852,26 @@ def solve_condensed_adaptive(problem: Problem, cache: Cache,
 
     Returns (xs, us, iters, solved), plus the carry with the per-lane final
     rho when ``return_carry=True``."""
-    s = settings
-    if s.adaptive_rho_controller not in ("osqp", "termination"):
-        raise ValueError("adaptive_rho_controller must be 'osqp' or "
-                         f"'termination', got {s.adaptive_rho_controller!r}")
+    _check_shared(problem, x0s, "solve_condensed_adaptive")
     if maps is None:
         maps = build_condensed_taylor(problem, cache, order=order)
-    nx, nu, N = problem.nx, problem.nu, problem.N
-    su, sx = (N - 1) * nu, N * nx
-    B = x0s.shape[0]
-    dtype, dev = x0s.dtype, x0s.device
-    order = maps.T1s.shape[0] - 1
-    T1stk = maps.T1s.reshape((order + 1) * (su + sx), -1)
-    # reduced backward blocks: the y/g columns are exact negations of the
-    # z/v ones in every Taylor coefficient block
-    T2stk = torch.cat([maps.T2s[:, :, :su + sx], maps.T2s[:, :, -1:]],
-                      dim=2).reshape(4 * su, -1)
-    rho0 = maps.rho0.to(dtype)
-    pri_tol = torch.tensor(s.abs_pri_tol, dtype=dtype, device=dev)
-    dua_tol = torch.tensor(s.abs_dua_tol, dtype=dtype, device=dev)
-    ct = s.check_termination
-    slacks = _slack_update(problem, s)
-    x0T = x0s.T
-    ones = torch.ones((1, B), dtype=dtype, device=dev)
+    out = _solve_condensed_adaptive_impl(problem, cache, settings, x0s, maps,
+                                         warm)
+    return out if return_carry else out[:4]
 
-    if warm is None:
-        zu = torch.zeros((su, B), dtype=dtype, device=dev)
-        zx = torch.zeros((sx, B), dtype=dtype, device=dev)
-        warm = AdaptiveCondensedCarry(
-            d=zu, y=zu, g=zx, v=zx, z=zu,
-            rho=cache.rho.to(dtype).expand(B).clone())
-    d, y, g, v, z, rho_b = warm
-    out_x = torch.zeros((sx, B), dtype=dtype, device=dev)
-    out_u = torch.zeros((su, B), dtype=dtype, device=dev)
-    out_it = torch.full((B,), s.max_iter, dtype=torch.int32, device=dev)
-    out_solved = torch.zeros((B,), dtype=torch.int32, device=dev)
-    conv = torch.zeros((B,), dtype=torch.bool, device=dev)
 
-    for i in range(s.max_iter):
-        drho = rho_b - rho0
-        R1 = (T1stk @ torch.cat([d, x0T, ones], dim=0)).reshape(
-            order + 1, su + sx, B)
-        ux = R1[order]
-        for k in range(order - 1, -1, -1):  # Horner in drho
-            ux = ux * drho[None, :] + R1[k]
-        u, x = ux[:su], ux[su:]
-        u_hat, x_hat, znew, vnew = slacks(u, x, z, v, y, g)
-
-        y = torch.where(conv, y, y + u_hat - znew)
-        g = torch.where(conv, g, g + x_hat - vnew)
-
-        # rho adaptation; converged lanes keep their rho
-        rho_new = rho_b
-        if i > 0 and i % rho_mod.RHO_INTERVAL == 0:
-            if s.adaptive_rho_controller == "termination":
-                # v/z are the previous slacks, as the single-instance
-                # path's predict_rho_termination reads them
-                pri = torch.maximum(torch.amax(torch.abs(x - vnew), dim=0),
-                                    torch.amax(torch.abs(u - znew), dim=0))
-                dua = rho_b * torch.maximum(
-                    torch.amax(torch.abs(v - vnew), dim=0),
-                    torch.amax(torch.abs(z - znew), dim=0))
-                newr = rho_mod.termination_controller(pri, dua, rho_b, s,
-                                                      rho_center=rho0)
-            else:
-                newr = rho_mod.predict_rho(
-                    *_osqp_residuals_stacked(x, u, znew, vnew, y, g, problem,
-                                             cache, drho, N), rho_b, s)
-            rho_new = torch.where(conv, rho_b, newr)
-        drho_new = rho_new - rho0
-
-        # the cache is updated before the check: duals scale by the new rho
-        ps = torch.amax(torch.abs(x - vnew), dim=0)
-        pi = torch.amax(torch.abs(u - znew), dim=0)
-        ds = torch.amax(torch.abs(v - vnew), dim=0) * rho_new
-        di = torch.amax(torch.abs(z - znew), dim=0) * rho_new
-        ok = (ps < pri_tol) & (pi < pri_tol) & (ds < dua_tol) & (di < dua_tol)
-        if ct <= 0 or (i + 1) % ct != 0:
-            ok = torch.zeros_like(ok)
-        newly = ok & ~conv
-
-        out_x = torch.where(newly, vnew, out_x)
-        out_u = torch.where(newly, znew, out_u)
-        out_it = torch.where(newly, i + 1, out_it)
-        out_solved = torch.where(newly, 1, out_solved)
-        conv = conv | newly
-
-        v = torch.where(conv, v, vnew)
-        z = torch.where(conv, z, znew)
-        # backward map: r/q/p_N were folded with the pre-update rho (drho),
-        # the gain K carries the post-update rho (drho_new)
-        R2 = (T2stk @ torch.cat([znew - y, vnew - g, ones], dim=0)).reshape(
-            4, su, B)
-        d_new = (R2[0] + drho[None, :] * R2[1] + drho_new[None, :] * R2[2]
-                 + (drho * drho_new)[None, :] * R2[3])
-        d = torch.where(conv, d, d_new)
-        rho_b = rho_new
-        if bool(conv.all()):
-            break
-
-    out_x = torch.where(conv, out_x, v)
-    out_u = torch.where(conv, out_u, z)
-    out = (out_x.T.reshape(B, N, nx), out_u.T.reshape(B, N - 1, nu), out_it,
-           out_solved)
-    if return_carry:
-        return out + (AdaptiveCondensedCarry(d=d, y=y, g=g, v=v, z=z,
-                                             rho=rho_b),)
-    return out
+def solve_condensed_adaptive_grouped(problems: Problem, caches: Cache,
+                                     settings: Settings, x0s,
+                                     maps: CondensedTaylorMaps | None = None,
+                                     *, order: int = 2,
+                                     warm: AdaptiveCondensedCarry | None = None,
+                                     return_carry: bool = False):
+    """G distinct problems with per-lane adaptive rho on the condensed path:
+    the grouped form of ``solve_condensed_adaptive`` (layout as
+    ``solve_condensed_grouped``; the carry's rho is (G, L))."""
+    _check_grouped(problems, x0s, "solve_condensed_adaptive_grouped")
+    if maps is None:
+        maps = build_condensed_taylor(problems, caches, order=order)
+    out = _solve_condensed_adaptive_impl(problems, caches, settings, x0s,
+                                         maps, warm)
+    return out if return_carry else out[:4]

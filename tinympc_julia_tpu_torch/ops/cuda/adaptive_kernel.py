@@ -27,7 +27,11 @@ Per-lane semantics are those of the Pallas kernel and of
   and freeze; the output latches the converging slacks while the carry's
   v/z and d freeze one iterate earlier;
 * projections box -> per-stage halfspaces (cyclic) -> per-stage scaled SOCs,
-  shared with kernel K1.
+  shared with kernel K1;
+* group grid (``num_groups=G``): G distinct problems of L lanes each in one
+  launch, the Taylor maps, rho0, the bounds, the plant data of the OSQP-form
+  controller and the constraint data carrying a leading group axis (or
+  staying shared), lanes in the flat order ``g*L + l``; rho stays per lane.
 """
 from __future__ import annotations
 
@@ -46,9 +50,12 @@ from ..condensed import (CondensedTaylorMaps, _cones_stacked,
 from ..rho import EPS, RHO_INTERVAL, TERM_DEADBAND, TERM_MAX_STEP
 from ._build import load_library
 from .condensed_kernel import (MAX_STAGE, MAX_TILE, SMEM_PER_BLOCK,
-                               FusedConstraints, _dims, _no_constraints,
-                               _ptr, _side_args, _state_free,
-                               _FLT, _INT, _PTR, _SIDE, fused_constraints)
+                               FusedConstraints, _check_constraints,
+                               _check_cuda_inputs, _check_grouped_shape,
+                               _dims, _flat_x0, _grouped_view,
+                               _no_constraints, _ptr, _side_args,
+                               _state_free, _FLT, _INT, _PTR, _SIDE,
+                               fused_constraints)
 
 MAX_ORDER = 3  # the kernel is built for T1 Taylor orders 1 to 3
 # output rows a thread accumulates at once (csrc/condensed_adaptive.cu
@@ -76,7 +83,7 @@ class AdaptivePlant(NamedTuple):
     """What the OSQP-form rho controller reads of the problem and its cache,
     on the solve's device and in its dtype (field names as in ``Problem``
     and ``Cache``, so ``condensed._osqp_residuals_stacked`` takes it for
-    both)."""
+    both).  Every field may carry a leading group axis."""
     A: torch.Tensor           # (nx, nx)
     B: torch.Tensor           # (nx, nu)
     Q: torch.Tensor           # (nx,) rho-folded cost diagonals
@@ -86,11 +93,11 @@ class AdaptivePlant(NamedTuple):
 
     @property
     def nx(self) -> int:
-        return self.B.shape[0]
+        return self.B.shape[-2]
 
     @property
     def nu(self) -> int:
-        return self.B.shape[1]
+        return self.B.shape[-1]
 
 
 def _lane_floats(nx, nu, N) -> int:
@@ -130,47 +137,57 @@ def adaptive_tile_plan(nx: int, nu: int, N: int, order: int, batch: int,
     return tile, resident
 
 
+_PLANT_SHAPES = lambda nx, nu: ((nx, nx), (nx, nu), (nx,), (nu,), (nx, nx),
+                                (nx, nx))
+
+
 def _validate(tmaps, bounds, x0s, warm, plant, nx, nu, N, warm_start, cons,
-              controller):
+              controller, G):
+    """Shape and device checks shared by kernel and plain version; returns
+    (flat x0s, lanes per group, every tensor the solve reads)."""
     su, sx, sw = _dims(nx, nu, N)
-    if x0s.ndim != 2 or x0s.shape[1] != nx:
-        raise ValueError(f"x0s must be (B, {nx}); got {tuple(x0s.shape)}")
-    B = x0s.shape[0]
+    if G < 1:
+        raise ValueError(f"num_groups must be >= 1 (got {G})")
+    x0, L = _flat_x0(x0s, G, nx)
+    B = G * L
     if controller not in ("osqp", "termination"):
         raise ValueError("controller must be 'osqp' or 'termination', got "
                          f"{controller!r}")
-    if tmaps.T1s.ndim != 3 or tuple(tmaps.T1s.shape[1:]) != (sw, su + nx + 1):
-        raise ValueError(f"T1s must be (order+1, {sw}, {su + nx + 1}); got "
+    grouped = tmaps.T1s.ndim == 4
+    if tmaps.T1s.ndim not in (3, 4) \
+            or tuple(tmaps.T1s.shape[-2:]) != (sw, su + nx + 1) \
+            or (grouped and tmaps.T1s.shape[0] != G):
+        raise ValueError(f"T1s must be (order+1, {sw}, {su + nx + 1}), or "
+                         f"that behind a leading group axis of {G}; got "
                          f"{tuple(tmaps.T1s.shape)}")
-    if tmaps.T1s.shape[0] < 2:
+    if tmaps.T1s.shape[-3] < 2:
         raise ValueError("T1s needs at least the order-1 Taylor block")
-    if tuple(tmaps.T2s.shape) != (4, su, 2 * sw + 1):
-        raise ValueError(f"T2s must be (4, {su}, {2 * sw + 1}); got "
+    lead = (G,) if grouped else ()
+    if tuple(tmaps.T2s.shape) != lead + (4, su, 2 * sw + 1):
+        raise ValueError(f"T2s must be {lead + (4, su, 2 * sw + 1)}; got "
                          f"{tuple(tmaps.T2s.shape)}")
+    if tuple(tmaps.rho0.shape) != lead:
+        raise ValueError(f"rho0 must be {lead}; got "
+                         f"{tuple(tmaps.rho0.shape)}")
     for b, n in zip(bounds, (su, su, sx, sx)):
-        if b.numel() != n:
-            raise ValueError(f"a bound has {b.numel()} entries, expected {n}")
+        if b.numel() not in (n, G * n):
+            raise ValueError(f"a bound has {b.numel()} entries, expected {n} "
+                             f"or {G} x {n}")
     if warm_start and warm is None:
         raise ValueError("warm_start solver needs the warm carry")
     if not warm_start and warm is not None:
         raise ValueError("pass warm only to a warm_start=True solver")
-    tensors = [tmaps.T1s, tmaps.T2s, tmaps.rho0, *bounds, x0s]
+    tensors = [tmaps.T1s, tmaps.T2s, tmaps.rho0, *bounds, x0]
     if controller == "osqp":
         if plant is None:
             raise ValueError("the OSQP-form controller needs the plant data")
-        shapes = ((nx, nx), (nx, nu), (nx,), (nu,), (nx, nx), (nx, nx))
-        for t, shape in zip(plant, shapes):
-            if tuple(t.shape) != shape:
-                raise ValueError(f"plant array {tuple(t.shape)}, expected "
-                                 f"{shape}")
+        flags = [_check_grouped_shape(t, shape, G, "a plant array")
+                 for t, shape in zip(plant, _PLANT_SHAPES(nx, nu))]
+        if len(set(flags)) != 1:
+            raise ValueError("the plant arrays must all be shared or all "
+                             "carry the group axis")
         tensors += list(plant)
-    for rows, n in ((cons.lin_u, nu), (cons.lin_x, nx)):
-        if rows is not None:
-            if rows.ndim != 2 or rows.shape[1] != 2 * n + 1:
-                raise ValueError(f"halfspace rows must be (m, {2 * n + 1}); "
-                                 f"got {tuple(rows.shape)}")
-            tensors.append(rows)
-    tensors += [cons.cones_u.mus, cons.cones_x.mus]
+    tensors += _check_constraints(cons, G, nx, nu)
     if warm is not None:
         for w, n in zip(warm, (su, su, sx, sx, su, 1)):
             if tuple(w.shape) != (n, B):
@@ -181,7 +198,7 @@ def _validate(tmaps, bounds, x0s, warm, plant, nx, nu, N, warm_start, cons,
         if t.device != x0s.device:
             raise ValueError(f"all inputs must be on {x0s.device}; got one "
                              f"on {t.device}")
-    return tensors
+    return x0, L, tensors
 
 
 def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
@@ -193,67 +210,91 @@ def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
                                  adaptive_rho_max, adaptive_rho_clipping,
                                  check_termination, controller, taylor_trust,
                                  warm_start, carry_out,
-                                 constraints: FusedConstraints | None = None):
+                                 constraints: FusedConstraints | None = None,
+                                 num_groups: int = 1):
     """Plain PyTorch version of kernel K2: the same computation in the same
     order, on the whole batch at once (a lane's result does not depend on
     which lanes share its tile).  Any float dtype and device; ``plant``
     (needed by the OSQP-form controller only) and ``constraints`` in the
     same dtype.  Returns (x (B, N, nx), u (B, N-1, nu), iters (B,), solved
-    (B,), rho (B,)[, AdaptiveFusedCarry])."""
+    (B,), rho (B,)[, AdaptiveFusedCarry]).
+
+    With ``num_groups=G`` the Taylor maps (and their rho0), the bounds, the
+    plant and the constraint data may carry a leading group axis, ``x0s``
+    is (G, L, nx) or flat, and the iterates run as (G, dim, L) with batched
+    matmuls; results and carries keep the flat lane order g*L + l."""
     cons = constraints or _no_constraints(x0s)
-    _validate(tmaps, (u_min, u_max, x_min, x_max), x0s, warm, plant, nx, nu,
-              N, warm_start, cons, controller)
+    G = num_groups
+    x0, L, _ = _validate(tmaps, (u_min, u_max, x_min, x_max), x0s, warm,
+                         plant, nx, nu, N, warm_start, cons, controller, G)
     su, sx, sw = _dims(nx, nu, N)
     ct = check_termination
     dt, dev = x0s.dtype, x0s.device
-    B = x0s.shape[0]
-    ord1 = tmaps.T1s.shape[0]
-    T1stk = tmaps.T1s.reshape(ord1 * sw, su + nx + 1)
-    T2stk = torch.cat([tmaps.T2s[:, :, :sw], tmaps.T2s[:, :, -1:]],
-                      dim=2).reshape(4 * su, sw + 1)
+    B = G * L
+    osqp = controller == "osqp"
+    # one shared problem runs on (dim, B) arrays; anything grouped on
+    # (G, dim, L) arrays with the shared data broadcasting
+    flat = (G == 1 and tmaps.T1s.ndim == 3
+            and all(r is None or r.ndim == 2
+                    for r in (cons.lin_u, cons.lin_x))
+            and cons.cones_u.mus.ndim == 1 and cons.cones_x.mus.ndim == 1
+            and (not osqp or plant.A.ndim == 2))
+    lead = () if flat else (G,)
+    if not flat:
+        x0 = x0.reshape(G, L, nx)
+        if warm is not None:
+            warm = AdaptiveFusedCarry(
+                *(w.reshape(-1, G, L).permute(1, 0, 2) for w in warm))
+    ord1 = tmaps.T1s.shape[-3]
+    T1stk = tmaps.T1s.reshape(tmaps.T1s.shape[:-3] + (ord1 * sw, su + nx + 1))
+    T2stk = torch.cat([tmaps.T2s[..., :sw], tmaps.T2s[..., -1:]], dim=-1)
+    T2stk = T2stk.reshape(T2stk.shape[:-3] + (4 * su, sw + 1))
     rho0 = tmaps.rho0.to(dt)
-    umin, umax = u_min.reshape(su, 1), u_max.reshape(su, 1)
-    xmin, xmax = x_min.reshape(sx, 1), x_max.reshape(sx, 1)
+    if rho0.ndim:
+        rho0 = rho0[:, None]  # against the per-lane (G, L) vectors
+    Gb = 1 if flat else G
+    umin, umax = _grouped_view(u_min, Gb, su), _grouped_view(u_max, Gb, su)
+    xmin, xmax = _grouped_view(x_min, Gb, sx), _grouped_view(x_max, Gb, sx)
     pri_tol = torch.tensor(abs_pri_tol, dtype=dt, device=dev)
     dua_tol = torch.tensor(abs_dua_tol, dtype=dt, device=dev)
     alpha = relaxation_alpha
     state_free = _state_free(en_state_bound, cons)
-    osqp = controller == "osqp"
-    x0T = x0s.T
-    ones = torch.ones((1, B), dtype=dt, device=dev)
+    x0T = x0.transpose(-1, -2)
+    ones = torch.ones(lead + (1, L), dtype=dt, device=dev)
 
     def project(w, rows, cones, n_stages, dim):
         if rows is not None:
             w = _halfspaces_stacked(w, rows, n_stages, dim)
         return _cones_stacked(w, cones, n_stages, dim)
 
+    def zeros(rows):
+        return torch.zeros(lead + (rows, L), dtype=dt, device=dev)
+
     def amax(t):
-        return torch.amax(torch.abs(t), dim=0)
+        return torch.amax(torch.abs(t), dim=-2)
 
     if warm_start:
         d, y, g, v, z = (w.clone() for w in warm[:5])
-        rho_b = warm.rho.reshape(B).clone()
+        rho_b = warm.rho.reshape(lead + (L,)).clone()
     else:
-        d = torch.zeros((su, B), dtype=dt, device=dev)
-        y, z = d.clone(), d.clone()
-        g = torch.zeros((sx, B), dtype=dt, device=dev)
-        v = g.clone()
-        rho_b = rho0.expand(B).clone()
+        d, y, z, g, v = zeros(su), zeros(su), zeros(su), zeros(sx), zeros(sx)
+        rho_b = rho0.expand(lead + (L,)).clone()
     if state_free:
-        g = torch.zeros((sx, B), dtype=dt, device=dev)
+        g = zeros(sx)
     vco, zco = v.clone(), z.clone()
-    conv = torch.zeros((B,), dtype=torch.bool, device=dev)
-    iters = torch.full((B,), max_iter, dtype=torch.int32, device=dev)
-    solved = torch.zeros((B,), dtype=torch.int32, device=dev)
+    conv = torch.zeros(lead + (L,), dtype=torch.bool, device=dev)
+    iters = torch.full(lead + (L,), max_iter, dtype=torch.int32, device=dev)
+    solved = torch.zeros(lead + (L,), dtype=torch.int32, device=dev)
 
     for i in range(max_iter):
         check = (i + 1) % ct == 0
         drho = rho_b - rho0
-        R1 = (T1stk @ torch.cat([d, x0T, ones], dim=0)).reshape(ord1, sw, B)
-        ux = R1[ord1 - 1]
+        R1 = (T1stk @ torch.cat([d, x0T, ones], dim=-2)).reshape(
+            lead + (ord1, sw, L))
+        ux = R1[..., ord1 - 1, :, :]
         for k in range(ord1 - 2, -1, -1):  # Horner in drho
-            ux = ux * drho + R1[k]
-        u, x = ux[:su], ux[su:]
+            ux = ux * drho[..., None, :] + R1[..., k, :, :]
+        u, x = ux[..., :su, :], ux[..., su:, :]
         if alpha != 1.0:
             u_hat = alpha * u + (1.0 - alpha) * z
             x_hat = alpha * x + (1.0 - alpha) * v
@@ -271,9 +312,10 @@ def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
                 vnew = torch.minimum(xmax, torch.maximum(xmin, vnew))
             vnew = project(vnew, cons.lin_x, cons.cones_x, N, nx)
         prev = conv
-        y = torch.where(prev, y, y + u_hat - znew)
+        pm = prev[..., None, :]
+        y = torch.where(pm, y, y + u_hat - znew)
         if not state_free:
-            g = torch.where(prev, g, g + x_hat - vnew)
+            g = torch.where(pm, g, g + x_hat - vnew)
 
         ps, pi = amax(x - vnew), amax(u - znew)
         ds, di = amax(v - vnew), amax(z - znew)  # before their rho scaling
@@ -312,29 +354,39 @@ def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
             conv_all = prev | newly
         # outputs take vnew/znew on the converging iteration, then freeze;
         # the carry's v/z and d freeze before it
-        v, z = torch.where(prev, v, vnew), torch.where(prev, z, znew)
+        v, z = torch.where(pm, v, vnew), torch.where(pm, z, znew)
+        cm = conv_all[..., None, :]
         if carry_out:
-            vco = torch.where(conv_all, vco, vnew)
-            zco = torch.where(conv_all, zco, znew)
-        vec2 = torch.cat([znew - y, vnew if state_free else vnew - g, ones])
-        R2 = (T2stk @ vec2).reshape(4, su, B)
-        d_new = (R2[0] + drho * R2[1] + drho_new * R2[2]
-                 + (drho * drho_new) * R2[3])
-        d = torch.where(conv_all, d, d_new)
+            vco = torch.where(cm, vco, vnew)
+            zco = torch.where(cm, zco, znew)
+        vec2 = torch.cat([znew - y, vnew if state_free else vnew - g, ones],
+                         dim=-2)
+        R2 = (T2stk @ vec2).reshape(lead + (4, su, L))
+        d_new = (R2[..., 0, :, :] + drho[..., None, :] * R2[..., 1, :, :]
+                 + drho_new[..., None, :] * R2[..., 2, :, :]
+                 + (drho * drho_new)[..., None, :] * R2[..., 3, :, :])
+        d = torch.where(cm, d, d_new)
         rho_b = rho_new
         conv = conv_all
         if check and bool(conv.all()):
             break
 
-    out = (v.T.reshape(B, N, nx), z.T.reshape(B, N - 1, nu), iters, solved,
-           rho_b)
+    def lanes(t):
+        """(G, dim, L) -> (dim, G*L), the flat lane order."""
+        return t if flat else t.permute(1, 0, 2).reshape(-1, B)
+
+    rho_out = rho_b.reshape(B)
+    out = (v.transpose(-1, -2).reshape(B, N, nx),
+           z.transpose(-1, -2).reshape(B, N - 1, nu), iters.reshape(B),
+           solved.reshape(B), rho_out)
     if carry_out:
-        return out + (AdaptiveFusedCarry(d, y, g, vco, zco,
-                                         rho_b.reshape(1, B)),)
+        return out + (AdaptiveFusedCarry(
+            *(lanes(t) for t in (d, y, g, vco, zco)),
+            rho_out.reshape(1, B)),)
     return out
 
 
-_ARGTYPES = ([_PTR] * 29 + [_INT] * 7 + [_FLT] * 9 + [_INT] * 12
+_ARGTYPES = ([_PTR] * 32 + [_INT] * 8 + [_FLT] * 9 + [_INT] * 16
              + _SIDE + _SIDE + [_PTR])
 
 
@@ -346,6 +398,22 @@ def _kernel_fn():
     return fn
 
 
+def map_layout(tmaps: CondensedTaylorMaps, su, sw):
+    """Kernel-side layouts of the Taylor maps, made at every launch:
+    transposed, rows padded to a multiple of K2_ROW_BLOCK, the blocks of one
+    input column side by side; a leading group axis is kept."""
+    swp, sup = _padded(sw), _padded(su)
+    T1s, T2s = tmaps.T1s, tmaps.T2s
+    lead = T1s.shape[:-3]
+    f32 = dict(dtype=torch.float32, device=T1s.device)
+    t1t = torch.zeros(lead + (T1s.shape[-1], T1s.shape[-3], swp), **f32)
+    t1t[..., :sw] = T1s.movedim(-1, -3)
+    t2r = torch.cat([T2s[..., :sw], T2s[..., -1:]], dim=-1)
+    t2t = torch.zeros(lead + (sw + 1, 4, sup), **f32)
+    t2t[..., :su] = t2r.movedim(-1, -3)
+    return t1t, t2t
+
+
 def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
                             x_max, x0s, warm=None, *,
                             plant: AdaptivePlant | None, nx, nu, N, max_iter,
@@ -354,33 +422,27 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
                             adaptive_rho_min, adaptive_rho_max,
                             adaptive_rho_clipping, check_termination,
                             controller, taylor_trust, warm_start, carry_out,
-                            constraints: FusedConstraints | None = None):
+                            constraints: FusedConstraints | None = None,
+                            num_groups: int = 1):
     """Launch kernel K2 (csrc/condensed_adaptive.cu) on CUDA tensors; the
     arguments and results are those of ``condensed_adaptive_reference``.
     Raises on CPU tensors, on any dtype but float32, on non-contiguous
     inputs, on a Taylor order above MAX_ORDER, on stages wider than
     MAX_STAGE where the kernel holds one per thread (a projected side; both
     sides under the OSQP-form controller), and when the build or the launch
-    fails.  Counts every launch in ``.launches``."""
+    fails.  Counts every launch in ``.launches`` and those over more than
+    one group in ``.grouped_launches``."""
     cons = constraints or _no_constraints(x0s)
-    tensors = _validate(tmaps, (u_min, u_max, x_min, x_max), x0s, warm, plant,
-                        nx, nu, N, warm_start, cons, controller)
-    for t in tensors:
-        if not t.is_cuda:
-            raise ValueError("condensed_adaptive_cuda takes CUDA tensors "
-                             "only")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the adaptive fused kernel is float32; got "
-                            f"{t.dtype}")
-    for t in tensors[3:]:
-        if not t.is_contiguous():
-            raise ValueError("bounds, x0s, the plant data and the warm carry "
-                             "must be contiguous")
+    G = num_groups
+    x0, L, tensors = _validate(tmaps, (u_min, u_max, x_min, x_max), x0s, warm,
+                               plant, nx, nu, N, warm_start, cons, controller,
+                               G)
+    _check_cuda_inputs(tensors, 2, "the adaptive fused kernel")
     su, sx, sw = _dims(nx, nu, N)
-    B = x0s.shape[0]
+    B = G * L
     if B == 0:
         raise ValueError("empty batch")
-    order = tmaps.T1s.shape[0] - 1
+    order = tmaps.T1s.shape[-3] - 1
     if order > MAX_ORDER:
         raise ValueError(f"the adaptive fused kernel takes Taylor orders up "
                          f"to {MAX_ORDER}; got {order}")
@@ -400,18 +462,22 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
     side_x = _side_args(cons.lin_x, cons.cones_x, nx, "state")
 
     f32 = dict(dtype=torch.float32, device=dev)
-    # kernel-side layouts of the maps: transposed, rows padded, the blocks
-    # of one input column side by side
-    t1t = torch.zeros((su + nx + 1, order + 1, swp), **f32)
-    t1t[:, :, :sw] = tmaps.T1s.permute(2, 0, 1)
-    t2r = torch.cat([tmaps.T2s[:, :, :sw], tmaps.T2s[:, :, -1:]], dim=2)
-    t2t = torch.zeros((sw + 1, 4, sup), **f32)
-    t2t[:, :, :su] = t2r.permute(2, 0, 1)
-    rho0 = float(tmaps.rho0)
-    # the clip bounds as the plain version's float32 arithmetic gives them
+    t1t, t2t = map_layout(tmaps, su, sw)
+    # the expansion centre and the trust clip's bounds in the plain
+    # version's float32 arithmetic: one per group on the device, or for a
+    # single group by value (read on the host; its kernel variant keeps them
+    # out of its registers)
     trust = math.isfinite(taylor_trust)
-    tr = np.float32(taylor_trust if trust else 0.0)
-    trust_lo, trust_hi = np.float32(rho0) - tr, np.float32(rho0) + tr
+    tr = float(taylor_trust) if trust else 0.0
+    rho0 = trust_lo = trust_hi = None
+    one = (0.0, 0.0, 0.0)
+    if G > 1:
+        rho0 = tmaps.rho0.reshape(-1).expand(G).contiguous()
+        trust_lo, trust_hi = rho0 - tr, rho0 + tr
+    else:
+        r0 = np.float32(float(tmaps.rho0))
+        one = (float(r0), float(r0 - np.float32(tr)),
+               float(r0 + np.float32(tr)))
     xout = torch.empty((sx, B), **f32)
     uout = torch.empty((su, B), **f32)
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -431,26 +497,32 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
     fn = _kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_ptr(t1t), _ptr(t2t), _ptr(u_min), _ptr(u_max), _ptr(x_min),
-                 _ptr(x_max), _ptr(x0s), _ptr(w.d), _ptr(w.y),
+        err = fn(_ptr(t1t), _ptr(t2t), _ptr(rho0), _ptr(trust_lo),
+                 _ptr(trust_hi), _ptr(u_min), _ptr(u_max), _ptr(x_min),
+                 _ptr(x_max), _ptr(x0), _ptr(w.d), _ptr(w.y),
                  None if state_free else _ptr(w.g), _ptr(w.v), _ptr(w.z),
                  _ptr(w.rho), _ptr(xout), _ptr(uout), _ptr(iters),
                  _ptr(solved), _ptr(rho), _ptr(y),
                  None if state_free else _ptr(g), _ptr(d_out), _ptr(vco),
                  _ptr(zco), _ptr(pl.A), _ptr(pl.B), _ptr(pl.Q), _ptr(pl.R),
                  _ptr(pl.Pinf), _ptr(pl.dPinf_drho),
-                 nx, nu, N, B, order, max_iter, check_termination,
-                 rho0, relaxation_alpha, 1.0 - relaxation_alpha, abs_pri_tol,
-                 abs_dua_tol, adaptive_rho_min, adaptive_rho_max,
-                 float(trust_lo), float(trust_hi),
+                 nx, nu, N, G, L, order, max_iter, check_termination,
+                 relaxation_alpha, 1.0 - relaxation_alpha, abs_pri_tol,
+                 abs_dua_tol, adaptive_rho_min, adaptive_rho_max, *one,
                  int(osqp), int(adaptive_rho_clipping), int(trust),
                  int(en_input_bound), int(en_state_bound), int(warm_start),
                  int(carry_out), tile, int(resident), swp, sup, smem,
+                 int(tmaps.T1s.ndim == 4),
+                 int(osqp and pl.A.ndim == 3),
+                 int(G > 1 and u_min.numel() == G * su),
+                 int(G > 1 and x_min.numel() == G * sx),
                  *side_u, *side_x, stream)
     if err != 0:
         raise RuntimeError(f"condensed_adaptive kernel launch failed: CUDA "
                            f"error {err}")
     condensed_adaptive_cuda.launches += 1
+    if G > 1:
+        condensed_adaptive_cuda.grouped_launches += 1
     out = (xout.T.reshape(B, N, nx), uout.T.reshape(B, N - 1, nu), iters,
            solved, rho)
     if carry_out:
@@ -460,6 +532,7 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
 
 
 condensed_adaptive_cuda.launches = 0
+condensed_adaptive_cuda.grouped_launches = 0
 
 
 def condensed_adaptive(tmaps, u_min, u_max, x_min, x_max, x0s, warm=None,
@@ -499,6 +572,13 @@ def make_condensed_adaptive_fused_solver(
     options (those of ``make_condensed_fused_solver``).  ``tmaps`` is a
     ``CondensedTaylorMaps``; bounds are stacked or horizon-major.
 
+    With ``num_groups=G`` the launch solves G distinct problems: the plant
+    data, ``tmaps`` (``build_condensed_taylor`` on G-stacked problems), the
+    bounds and the constraint data may carry a leading group axis, and
+    ``x0s`` is (G, L, nx) (or flat, lane = g*L + l).  The trust clip is
+    around each group's own rho0; results and carries keep the flat lane
+    order.
+
     ``controller`` is "osqp" (the reference's OSQP-form residual controller)
     or "termination" (``ops.rho.termination_controller``), which
     ``taylor_trust`` also clips to rho0 +- trust.  ``check_termination=k``
@@ -508,8 +588,9 @@ def make_condensed_adaptive_fused_solver(
     ``carry_out=True`` solve; the continuation restarts the iteration
     counter, so its first iteration never updates rho.
 
-    The group grid (``num_groups > 1``) and reduced-precision matmuls are
-    not ported yet and raise ``NotImplementedError``."""
+    Reduced-precision matmuls (``precision``) are not ported (no caller
+    uses them: the rho prediction would read the residuals of an
+    approximate rollout) and raise ``NotImplementedError``."""
     ct = check_termination
     if ct < 1:
         raise ValueError("check_termination must be >= 1 on the fused "
@@ -524,11 +605,11 @@ def make_condensed_adaptive_fused_solver(
             f"{RHO_INTERVAL}) = {step} (got {max_iter})")
     if precision != "highest":
         raise not_ported("reduced-precision matmuls in the adaptive fused "
-                         "kernel", "ROADMAP.md queue 2, K1c")
-    if num_groups != 1:
-        raise not_ported("num_groups > 1 in the adaptive fused kernel",
-                         "ROADMAP.md queue 2, K2's group grid with K1d")
-    nx, nu = np.shape(B)
+                         "kernel", "ROADMAP.md queue 2, K2's precision "
+                         "argument")
+    if num_groups < 1:
+        raise ValueError(f"num_groups must be >= 1 (got {num_groups})")
+    nx, nu = np.shape(B)[-2:]
     kw = dict(nx=nx, nu=nu, N=N, max_iter=max_iter, abs_pri_tol=abs_pri_tol,
               abs_dua_tol=abs_dua_tol, en_state_bound=en_state_bound,
               en_input_bound=en_input_bound,
@@ -538,7 +619,7 @@ def make_condensed_adaptive_fused_solver(
               adaptive_rho_clipping=adaptive_rho_clipping,
               check_termination=ct, controller=controller,
               taylor_trust=taylor_trust, warm_start=warm_start,
-              carry_out=carry_out)
+              carry_out=carry_out, num_groups=num_groups)
 
     on_device = {}  # (device, dtype) -> (AdaptivePlant, FusedConstraints)
 
@@ -551,7 +632,7 @@ def make_condensed_adaptive_fused_solver(
                 for a in (A, B, Qdiag, Rdiag, Pinf, dPinf)))
             on_device[key] = (plant, fused_constraints(
                 soc_u, soc_x, lin_u, lin_x, nx=nx, nu=nu, dtype=x0s.dtype,
-                device=x0s.device))
+                device=x0s.device, num_groups=num_groups))
         plant, constraints = on_device[key]
         return condensed_adaptive(tmaps, u_min, u_max, x_min, x_max, x0s,
                                   warm, plant=plant, constraints=constraints,

@@ -16,6 +16,20 @@ scaled SOCs; residual checks on the last iteration of each
 carry ``FusedCarry(w2, y, g, v, z)`` makes a chained solve equal one long
 solve.  Tolerances, rho, alpha and the constraint data are run-time
 arguments of the kernel.
+
+Group grid (``num_groups=G``): G distinct problems of L lanes each in one
+launch.  Maps, rho, bounds, cone coefficients and halfspace rows may carry a
+leading group axis (or stay shared); the constraint structure is the same
+for every group; lanes keep the flat order ``g*L + l``.
+
+Reduced precision (``precision="default"``, ``bf16_head_iters=k0``): the
+product ``T12w @ w2`` of a reduced iteration is one bf16 pass, both operands
+rounded to bf16 (round to nearest even) and the products summed in fp32;
+everything else stays fp32.  The first k0 iterations are reduced and check
+only on iteration k0 - 1; with ``precision="default"`` every iteration is
+reduced.  An iteration that runs the residual check always computes its
+product in full precision, so a lane never latches on the residuals of an
+approximate rollout.
 """
 from __future__ import annotations
 
@@ -46,9 +60,10 @@ class FusedConstraints(NamedTuple):
     """The linear and cone constraint data of one fused solve, on the solve's
     device and in its dtype: halfspace rows packed by
     ``condensed.halfspace_rows`` (None where the family is off) and a cone
-    set per side.  Kernel and plain version read the same tensors."""
-    lin_u: torch.Tensor | None  # (m_u, 2*nu + 1)
-    lin_x: torch.Tensor | None  # (m_x, 2*nx + 1)
+    set per side (``mus`` (C,), or (G, C) per group).  Kernel and plain
+    version read the same tensors."""
+    lin_u: torch.Tensor | None  # (m_u, 2*nu + 1), or (G, m_u, 2*nu + 1)
+    lin_x: torch.Tensor | None  # (m_x, 2*nx + 1), or (G, m_x, 2*nx + 1)
     cones_u: ConeSet
     cones_x: ConeSet
 
@@ -67,16 +82,25 @@ MAX_STAGE = 12
 MAX_CONES = 8
 
 
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (round to nearest even) and back: the
+    operand rounding of a reduced-precision product, as the kernel's
+    ``__float2bfloat16_rn``."""
+    return t.bfloat16().to(t.dtype)
+
+
 def cone_spec(cones: ConeSet) -> tuple:
     """ConeSet -> the factory's ``(start, dim, mu)`` tuples; ``mu`` stays a
-    0-d tensor on the problem's device (no host round trip)."""
-    return tuple((int(st), int(dm), cones.mus[k])
+    tensor on the problem's device (no host round trip): 0-d, or (G,) for a
+    G-stacked cone set."""
+    return tuple((int(st), int(dm), cones.mus[..., k])
                  for k, (st, dm) in enumerate(zip(cones.starts, cones.dims)))
 
 
 def problem_constraint_kw(problem, settings) -> dict:
     """The constraint kwargs of ``make_condensed_fused_solver`` from a
-    Problem and Settings (``()``/None for the families that are off)."""
+    Problem (one, or G stacked) and Settings (``()``/None for the families
+    that are off)."""
     p, s = problem, settings
     return dict(
         soc_u=cone_spec(p.cones_u) if s.en_input_soc else (),
@@ -86,10 +110,16 @@ def problem_constraint_kw(problem, settings) -> dict:
 
 
 def fused_constraints(soc_u=(), soc_x=(), lin_u=None, lin_x=None, *, nx,
-                      nu, dtype, device) -> FusedConstraints:
+                      nu, dtype, device, num_groups: int = 1
+                      ) -> FusedConstraints:
     """The factory's constraint options as tensors on ``device``: the
     halfspace rows packed in float64 then cast to ``dtype``, the cone
-    coefficients stacked.  A family given with no rows is left out."""
+    coefficients stacked.  A family given with no rows is left out.  The
+    structure is shared by the groups; a cone's ``mu`` may be a scalar or
+    (G,) values and a halfspace family's ``Alin``/``blin`` may carry a
+    leading group axis: the data then comes out per group."""
+    G = num_groups
+
     def cones(spec, n):
         spec = tuple(spec)
         for st, dm, _ in spec:
@@ -98,10 +128,18 @@ def fused_constraints(soc_u=(), soc_x=(), lin_u=None, lin_x=None, *, nx,
                                  f"stage vector of {n}")
         if not spec:
             return ConeSet.empty(dtype, device)
-        mus = torch.stack([torch.as_tensor(mu).to(device, torch.float64)
-                           .reshape(()) for _, _, mu in spec])
-        return ConeSet(mus=mus.to(dtype), starts=tuple(int(c[0]) for c in
-                                                       spec),
+        mus = [torch.as_tensor(mu).to(device, torch.float64).reshape(-1)
+               for _, _, mu in spec]
+        for m in mus:
+            if m.numel() not in (1, G):
+                raise ValueError(f"soc mu: expected a scalar or ({G},) "
+                                 f"per-group values, got {m.numel()}")
+        if all(m.numel() == 1 for m in mus):
+            stacked = torch.cat(mus)
+        else:
+            stacked = torch.stack([m.expand(G) for m in mus], dim=1)
+        return ConeSet(mus=stacked.to(dtype),
+                       starts=tuple(int(c[0]) for c in spec),
                        dims=tuple(int(c[1]) for c in spec))
 
     def rows(lin, n):
@@ -109,11 +147,20 @@ def fused_constraints(soc_u=(), soc_x=(), lin_u=None, lin_x=None, *, nx,
             return None
         A = torch.as_tensor(lin[0]).to(device, torch.float64)
         b = torch.as_tensor(lin[1]).to(device, torch.float64)
-        if A.ndim != 2 or A.shape[1] != n:
-            raise ValueError(f"Alin must be (m, {n}); got {tuple(A.shape)}")
-        if A.shape[0] == 0:
+        if A.ndim not in (2, 3) or A.shape[-1] != n:
+            raise ValueError(f"Alin must be (m, {n}) or ({G}, m, {n}); got "
+                             f"{tuple(A.shape)}")
+        if A.shape[-2] == 0:
             return None
-        return halfspace_rows(A, b).to(dtype)
+        if A.ndim == 3 or b.ndim == 2:
+            m = A.shape[-2]
+            A = A.expand(G, m, n) if A.ndim == 2 else A
+            b = b.expand(G, m) if b.ndim == 1 else b
+            if A.shape[0] != G or tuple(b.shape) != (G, m):
+                raise ValueError(f"Alin/blin: the leading group axis must "
+                                 f"be {G}; got {tuple(A.shape)} and "
+                                 f"{tuple(b.shape)}")
+        return halfspace_rows(A, b).to(dtype).contiguous()
 
     return FusedConstraints(lin_u=rows(lin_u, nu), lin_x=rows(lin_x, nx),
                             cones_u=cones(soc_u, nu), cones_x=cones(soc_x, nx))
@@ -121,9 +168,10 @@ def fused_constraints(soc_u=(), soc_x=(), lin_u=None, lin_x=None, *, nx,
 
 def _state_free(en_state_bound, cons: FusedConstraints) -> bool:
     """No state-side constraint at all: the state dual stays 0, vnew =
-    x_hat (the Pallas kernel's rule)."""
+    x_hat (the Pallas kernel's rule).  Decided from the structure, so once
+    for all groups."""
     return (not en_state_bound
-            and (cons.lin_x is None or cons.lin_x.shape[0] == 0)
+            and (cons.lin_x is None or cons.lin_x.shape[-2] == 0)
             and cons.cones_x.num_cones == 0)
 
 
@@ -131,21 +179,26 @@ def _padded_rows(sw: int) -> int:
     return -(-sw // ROW_BLOCK) * ROW_BLOCK
 
 
-def _smem_bytes(sw: int, tile: int, resident: bool) -> int:
+def _smem_bytes(sw: int, tile: int, resident: bool,
+                reduced: bool = False) -> int:
     """Dynamic shared memory of one block: two w2 buffers of sw floats per
-    lane, and the padded T12 where it is resident."""
-    return 4 * (2 * sw * tile + (sw * _padded_rows(sw) if resident else 0))
+    lane, and the padded T12 where it is resident (twice with reduced
+    iterations: the fp32 map and its bf16-rounded copy)."""
+    maps = sw * _padded_rows(sw) * (2 if reduced else 1) if resident else 0
+    return 4 * (2 * sw * tile + maps)
 
 
-def fused_tile_plan(nx: int, nu: int, N: int) -> tuple[int, bool]:
+def fused_tile_plan(nx: int, nu: int, N: int,
+                    reduced: bool = False) -> tuple[int, bool]:
     """(lanes per block, whether T12 is staged in shared memory).
 
-    T12 joins the lanes' w2 buffers in shared memory where a warp's worth of
-    lanes still fits beside it, and is read from global memory (L2)
-    otherwise."""
+    T12 (with ``reduced`` also its bf16-rounded copy) joins the lanes' w2
+    buffers in shared memory where a warp's worth of lanes still fits beside
+    it, and is read from global memory (L2) otherwise."""
     sw = (N - 1) * nu + N * nx
-    resident = _smem_bytes(sw, 32, True) <= SMEM_PER_BLOCK
-    avail = SMEM_PER_BLOCK - (_smem_bytes(sw, 0, True) if resident else 0)
+    resident = _smem_bytes(sw, 32, True, reduced) <= SMEM_PER_BLOCK
+    avail = SMEM_PER_BLOCK - (_smem_bytes(sw, 0, True, reduced)
+                              if resident else 0)
     tile = min(MAX_TILE, avail // _smem_bytes(sw, 1, False) // 32 * 32)
     if tile < 32:
         raise ValueError(f"fused kernel: a map of width {sw} leaves no room "
@@ -158,32 +211,78 @@ def _dims(nx, nu, N):
     return su, sx, su + sx
 
 
-def _validate(maps, bounds, x0s, warm, nx, nu, N, warm_start, cons):
-    su, sx, sw = _dims(nx, nu, N)
+def _flat_x0(x0s, G, nx):
+    """x0s (G, L, nx) or flat (G*L, nx) -> ((G*L, nx), L)."""
+    if x0s.ndim == 3:
+        if x0s.shape[0] != G or x0s.shape[2] != nx:
+            raise ValueError(f"grouped x0s must be ({G}, L, {nx}); got "
+                             f"{tuple(x0s.shape)}")
+        return x0s.reshape(G * x0s.shape[1], nx), x0s.shape[1]
     if x0s.ndim != 2 or x0s.shape[1] != nx:
         raise ValueError(f"x0s must be (B, {nx}); got {tuple(x0s.shape)}")
-    B = x0s.shape[0]
-    if tuple(maps.T12.shape) != (sw, sw + 1):
-        raise ValueError(f"T12 must be ({sw}, {sw + 1}); got "
-                         f"{tuple(maps.T12.shape)}")
-    if tuple(maps.T1.shape) != (sw, su + nx + 1):
-        raise ValueError(f"T1 must be ({sw}, {su + nx + 1}); got "
-                         f"{tuple(maps.T1.shape)}")
+    if x0s.shape[0] % G != 0:
+        raise ValueError(f"a flat batch of {x0s.shape[0]} lanes does not "
+                         f"divide into {G} groups")
+    return x0s, x0s.shape[0] // G
+
+
+def _check_grouped_shape(t, shape, G, what):
+    """``t`` is ``shape`` (shared) or ``(G,) + shape``; returns whether it
+    carries the group axis."""
+    if tuple(t.shape) == shape:
+        return False
+    if tuple(t.shape) == (G,) + shape:
+        return True
+    raise ValueError(f"{what} must be {shape} or {(G,) + shape}; got "
+                     f"{tuple(t.shape)}")
+
+
+def _check_constraints(cons, G, nx, nu):
+    """The constraint tensors, checked against the group count."""
+    tensors = []
+    for rows, n in ((cons.lin_u, nu), (cons.lin_x, nx)):
+        if rows is not None:
+            if rows.ndim not in (2, 3) or rows.shape[-1] != 2 * n + 1 \
+                    or (rows.ndim == 3 and rows.shape[0] != G):
+                raise ValueError(f"halfspace rows must be (m, {2 * n + 1}) "
+                                 f"or ({G}, m, {2 * n + 1}); got "
+                                 f"{tuple(rows.shape)}")
+            tensors.append(rows)
+    for c in (cons.cones_u, cons.cones_x):
+        if c.mus.ndim == 2 and c.mus.shape[0] != G:
+            raise ValueError(f"cone coefficients must be (C,) or ({G}, C); "
+                             f"got {tuple(c.mus.shape)}")
+        tensors.append(c.mus)
+    return tensors
+
+
+def _validate(maps, rho, bounds, x0s, warm, nx, nu, N, warm_start, cons, G):
+    """Shape and device checks shared by kernel and plain version; returns
+    (flat x0s, lanes per group, every tensor the solve reads)."""
+    su, sx, sw = _dims(nx, nu, N)
+    if G < 1:
+        raise ValueError(f"num_groups must be >= 1 (got {G})")
+    x0, L = _flat_x0(x0s, G, nx)
+    B = G * L
+    _check_grouped_shape(maps.T12, (sw, sw + 1), G, "T12")
+    _check_grouped_shape(maps.T1, (sw, su + nx + 1), G, "T1")
+    if maps.T12.ndim != maps.T1.ndim:
+        raise ValueError("T12 and T1 must both be shared or both grouped")
     for b, n in zip(bounds, (su, su, sx, sx)):
-        if b.numel() != n:
-            raise ValueError(f"a bound has {b.numel()} entries, expected {n}")
+        if b.numel() not in (n, G * n):
+            raise ValueError(f"a bound has {b.numel()} entries, expected {n} "
+                             f"or {G} x {n}")
+    if isinstance(rho, torch.Tensor) and rho.numel() not in (1, G):
+        raise ValueError(f"rho must be a scalar or ({G},); got "
+                         f"{tuple(rho.shape)}")
     if warm_start and warm is None:
         raise ValueError("warm_start solver needs the warm carry")
     if not warm_start and warm is not None:
         raise ValueError("pass warm only to a warm_start=True solver")
-    tensors = [maps.T12, maps.T1, *bounds, x0s]
-    for rows, n in ((cons.lin_u, nu), (cons.lin_x, nx)):
-        if rows is not None:
-            if rows.ndim != 2 or rows.shape[1] != 2 * n + 1:
-                raise ValueError(f"halfspace rows must be (m, {2 * n + 1}); "
-                                 f"got {tuple(rows.shape)}")
-            tensors.append(rows)
-    tensors += [cons.cones_u.mus, cons.cones_x.mus]
+    tensors = [maps.T12, maps.T1, *bounds, x0]
+    if isinstance(rho, torch.Tensor):
+        tensors.append(rho)
+    tensors += _check_constraints(cons, G, nx, nu)
     if warm is not None:
         for w, n in zip(warm, (sw, su, sx, sx, su)):
             if tuple(w.shape) != (n, B):
@@ -194,7 +293,7 @@ def _validate(maps, bounds, x0s, warm, nx, nu, N, warm_start, cons):
         if t.device != x0s.device:
             raise ValueError(f"all inputs must be on {x0s.device}; got one "
                              f"on {t.device}")
-    return tensors
+    return x0, L, tensors
 
 
 def _no_constraints(x0s) -> FusedConstraints:
@@ -202,57 +301,104 @@ def _no_constraints(x0s) -> FusedConstraints:
     return FusedConstraints(None, None, empty, empty)
 
 
+def _check_precision(precision, bf16_head_iters, max_iter, ct):
+    if precision not in ("highest", "default"):
+        raise ValueError("precision must be 'highest' or 'default' (one "
+                         f"bf16 pass), got {precision!r}")
+    k0 = int(bf16_head_iters)
+    if k0 and (k0 < ct or k0 % ct != 0 or k0 >= max_iter):
+        raise ValueError(
+            f"bf16_head_iters={k0} must be a nonzero multiple of "
+            f"check_termination={ct} below max_iter={max_iter}")
+    return k0
+
+
+def _grouped_view(t, G, rows):
+    """A bound of ``rows`` entries, shared or per group, as (rows, 1) or
+    (G, rows, 1)."""
+    return t.reshape(G, rows, 1) if t.numel() == G * rows and G > 1 \
+        else t.reshape(rows, 1)
+
+
 def condensed_fused_reference(maps: CondensedMaps, rho, u_min, u_max, x_min,
                               x_max, x0s, warm=None, *, nx, nu, N, max_iter,
                               abs_pri_tol, abs_dua_tol, en_state_bound,
                               en_input_bound, relaxation_alpha,
                               check_termination, warm_start, carry_out,
-                              constraints: FusedConstraints | None = None):
+                              constraints: FusedConstraints | None = None,
+                              num_groups: int = 1, precision: str = "highest",
+                              bf16_head_iters: int = 0):
     """Plain PyTorch version of kernel K1: the same computation in the same
     order, on the whole batch at once (a lane's result does not depend on
     which lanes share its tile).  Any float dtype and device;
-    ``constraints`` (``fused_constraints``) in the same dtype."""
+    ``constraints`` (``fused_constraints``) in the same dtype.
+
+    With ``num_groups=G`` the maps, ``rho``, the bounds and the constraint
+    data may carry a leading group axis, ``x0s`` is (G, L, nx) or flat, and
+    the iterates run as (G, dim, L) with batched matmuls; results and
+    carries keep the flat lane order g*L + l.  The reduced product of
+    ``precision``/``bf16_head_iters`` is ``bf16_round(T12w) @
+    bf16_round(w2)`` in the working dtype."""
     cons = constraints or _no_constraints(x0s)
-    _validate(maps, (u_min, u_max, x_min, x_max), x0s, warm, nx, nu, N,
-              warm_start, cons)
-    su, sx, sw = _dims(nx, nu, N)
+    G = num_groups
     ct = check_termination
+    k0 = _check_precision(precision, bf16_head_iters, max_iter, ct)
+    lo_all = precision == "default"
+    x0, L, _ = _validate(maps, rho, (u_min, u_max, x_min, x_max), x0s, warm,
+                         nx, nu, N, warm_start, cons, G)
+    su, sx, sw = _dims(nx, nu, N)
     dt, dev = x0s.dtype, x0s.device
-    B = x0s.shape[0]
-    T12w, T12c = maps.T12[:, :sw], maps.T12[:, sw:]
-    Tx0, T1c = maps.T1[:, su:su + nx], maps.T1[:, -1:]
-    umin, umax = u_min.reshape(su, 1), u_max.reshape(su, 1)
-    xmin, xmax = x_min.reshape(sx, 1), x_max.reshape(sx, 1)
+    B = G * L
     rho = torch.as_tensor(rho, dtype=dt, device=dev)
+    # one shared problem runs on (dim, B) arrays; anything grouped on
+    # (G, dim, L) arrays with the shared data broadcasting
+    flat = (G == 1 and maps.T12.ndim == 2 and rho.ndim == 0
+            and all(r is None or r.ndim == 2
+                    for r in (cons.lin_u, cons.lin_x))
+            and cons.cones_u.mus.ndim == 1 and cons.cones_x.mus.ndim == 1)
+    lead = () if flat else (G,)
+    if not flat:
+        x0 = x0.reshape(G, L, nx)
+        rho = rho.reshape(-1, 1) if rho.numel() > 1 else rho.reshape(())
+        if warm is not None:
+            warm = [w.reshape(-1, G, L).permute(1, 0, 2) for w in warm]
+    T12w, T12c = maps.T12[..., :sw], maps.T12[..., sw:]
+    Tx0, T1c = maps.T1[..., su:su + nx], maps.T1[..., -1:]
+    Gb = 1 if flat else G
+    umin, umax = _grouped_view(u_min, Gb, su), _grouped_view(u_max, Gb, su)
+    xmin, xmax = _grouped_view(x_min, Gb, sx), _grouped_view(x_max, Gb, sx)
     pri_tol = torch.tensor(abs_pri_tol, dtype=dt, device=dev)
     dua_tol = torch.tensor(abs_dua_tol, dtype=dt, device=dev)
     alpha = relaxation_alpha
     state_free = _state_free(en_state_bound, cons)
+    T12w_lo = bf16_round(T12w) if (k0 or lo_all) else None
 
     def project(w, rows, cones, n_stages, dim):
         if rows is not None:
             w = _halfspaces_stacked(w, rows, n_stages, dim)
         return _cones_stacked(w, cones, n_stages, dim)
 
-    uxc = Tx0 @ x0s.T + T1c
+    def zeros(rows):
+        return torch.zeros(lead + (rows, L), dtype=dt, device=dev)
+
+    def amax(t):
+        return torch.amax(torch.abs(t), dim=-2)
+
+    uxc = Tx0 @ x0.transpose(-1, -2) + T1c
     if warm_start:
         w2, y, g, v, z = (w.clone() for w in warm)
     else:
-        w2 = torch.zeros((sw, B), dtype=dt, device=dev)
-        y = torch.zeros((su, B), dtype=dt, device=dev)
-        g = torch.zeros((sx, B), dtype=dt, device=dev)
-        v = torch.zeros((sx, B), dtype=dt, device=dev)
-        z = torch.zeros((su, B), dtype=dt, device=dev)
+        w2, y, g, v, z = zeros(sw), zeros(su), zeros(sx), zeros(sx), zeros(su)
     if state_free:
-        g = torch.zeros((sx, B), dtype=dt, device=dev)
+        g = zeros(sx)
     vco, zco = v.clone(), z.clone()
-    conv = torch.zeros((B,), dtype=torch.bool, device=dev)
-    iters = torch.full((B,), max_iter, dtype=torch.int32, device=dev)
-    solved = torch.zeros((B,), dtype=torch.int32, device=dev)
+    conv = torch.zeros(lead + (L,), dtype=torch.bool, device=dev)
+    iters = torch.full(lead + (L,), max_iter, dtype=torch.int32, device=dev)
+    solved = torch.zeros(lead + (L,), dtype=torch.int32, device=dev)
 
     def one_iter(i, ux, check):
         nonlocal w2, y, g, v, z, vco, zco, conv, iters, solved
-        u, x = ux[:su], ux[su:]
+        u, x = ux[..., :su, :], ux[..., su:, :]
         if alpha != 1.0:
             u_hat = alpha * u + (1.0 - alpha) * z
             x_hat = alpha * x + (1.0 - alpha) * v
@@ -270,15 +416,14 @@ def condensed_fused_reference(maps: CondensedMaps, rho, u_min, u_max, x_min,
                 vnew = torch.minimum(xmax, torch.maximum(xmin, vnew))
             vnew = project(vnew, cons.lin_x, cons.cones_x, N, nx)
         prev = conv
-        y = torch.where(prev, y, y + u_hat - znew)
+        pm = prev[..., None, :]
+        y = torch.where(pm, y, y + u_hat - znew)
         if not state_free:
-            g = torch.where(prev, g, g + x_hat - vnew)
+            g = torch.where(pm, g, g + x_hat - vnew)
         conv_all = prev
         if check:
-            ps = torch.amax(torch.abs(x - vnew), dim=0)
-            pi = torch.amax(torch.abs(u - znew), dim=0)
-            ds = torch.amax(torch.abs(v - vnew), dim=0) * rho
-            di = torch.amax(torch.abs(z - znew), dim=0) * rho
+            ps, pi = amax(x - vnew), amax(u - znew)
+            ds, di = amax(v - vnew) * rho, amax(z - znew) * rho
             ok = ((ps < pri_tol) & (pi < pri_tol) & (ds < dua_tol)
                   & (di < dua_tol))
             newly = ok & ~prev
@@ -287,30 +432,49 @@ def condensed_fused_reference(maps: CondensedMaps, rho, u_min, u_max, x_min,
             conv_all = prev | newly
         # outputs take vnew/znew on the converging iteration, then freeze;
         # the carry's v/z and w2 freeze before it
-        v, z = torch.where(prev, v, vnew), torch.where(prev, z, znew)
+        v, z = torch.where(pm, v, vnew), torch.where(pm, z, znew)
+        cm = conv_all[..., None, :]
         if carry_out:
-            vco = torch.where(conv_all, vco, vnew)
-            zco = torch.where(conv_all, zco, znew)
-        w2_new = torch.cat([znew - y, vnew if state_free else vnew - g])
-        w2 = torch.where(conv_all, w2, w2_new)
+            vco = torch.where(cm, vco, vnew)
+            zco = torch.where(cm, zco, znew)
+        w2_new = torch.cat([znew - y, vnew if state_free else vnew - g],
+                           dim=-2)
+        w2 = torch.where(cm, w2, w2_new)
         conv = conv_all
         return check and bool(conv.all())
 
+    def checks(i):
+        """The head checks on its last iteration only, the rest on the last
+        iteration of each ct group."""
+        return i == k0 - 1 if i < k0 else (i + 1) % ct == 0
+
     i = 0
     if not warm_start:
-        done = one_iter(0, uxc, ct == 1)
+        done = one_iter(0, uxc, checks(0))
         uxc = uxc + T12c
         i = 1
     else:
         uxc = uxc + T12c
         done = False
     while i < max_iter and not done:
-        done = one_iter(i, T12w @ w2 + uxc, (i + 1) % ct == 0)
+        check = checks(i)
+        # a checking iteration's product is never reduced
+        if (i < k0 or lo_all) and not check:
+            ux = T12w_lo @ bf16_round(w2) + uxc
+        else:
+            ux = T12w @ w2 + uxc
+        done = one_iter(i, ux, check)
         i += 1
 
-    out = (v.T.reshape(B, N, nx), z.T.reshape(B, N - 1, nu), iters, solved)
+    def lanes(t):
+        """(G, dim, L) -> (dim, G*L), the flat lane order."""
+        return t if flat else t.permute(1, 0, 2).reshape(-1, B)
+
+    out = (v.transpose(-1, -2).reshape(B, N, nx),
+           z.transpose(-1, -2).reshape(B, N - 1, nu), iters.reshape(B),
+           solved.reshape(B))
     if carry_out:
-        return out + (FusedCarry(w2, y, g, vco, zco),)
+        return out + (FusedCarry(*(lanes(t) for t in (w2, y, g, vco, zco))),)
     return out
 
 
@@ -319,9 +483,10 @@ _INT = ctypes.c_int
 _FLT = ctypes.c_float
 _IPTR = ctypes.POINTER(ctypes.c_int)
 # one side's constraints: halfspace rows (device), their count, the cones'
-# (start, dim) pairs (host), the cones' mu (device), the cone count
-_SIDE = [_PTR, _INT, _IPTR, _PTR, _INT]
-_ARGTYPES = ([_PTR] * 24 + [_INT] * 6 + [_FLT] * 5 + [_INT] * 8
+# (start, dim) pairs (host), the cones' mu (device), the cone count, and
+# whether the rows and the mus carry a leading group axis
+_SIDE = [_PTR, _INT, _IPTR, _PTR, _INT, _INT, _INT]
+_ARGTYPES = ([_PTR] * 26 + [_INT] * 9 + [_FLT] * 4 + [_INT] * 12
              + _SIDE + _SIDE + [_PTR])
 
 
@@ -337,9 +502,26 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def map_layout(maps: CondensedMaps, nx, su, sw, reduced: bool):
+    """Kernel-side layouts of the maps, made at every launch: T12w
+    transposed with its rows padded to a multiple of ROW_BLOCK, its
+    bf16-rounded copy where the launch has reduced iterations (else None),
+    the rollout and constant columns as contiguous vectors; a leading group
+    axis is kept."""
+    swp = _padded_rows(sw)
+    lead = maps.T12.shape[:-2]
+    t12t = torch.zeros(lead + (sw, swp), dtype=torch.float32,
+                       device=maps.T12.device)
+    t12t[..., :sw] = maps.T12[..., :sw].transpose(-1, -2)
+    return (t12t, bf16_round(t12t) if reduced else None,
+            maps.T12[..., sw].contiguous(),
+            maps.T1[..., su:su + nx].contiguous(),
+            maps.T1[..., -1].contiguous())
+
+
 def _side_args(rows, cones: ConeSet, dim: int, side: str) -> list:
-    """The five C arguments of one side's constraints (``_SIDE``)."""
-    n_lin = 0 if rows is None else int(rows.shape[0])
+    """The seven C arguments of one side's constraints (``_SIDE``)."""
+    n_lin = 0 if rows is None else int(rows.shape[-2])
     n_soc = cones.num_cones
     if (n_lin or n_soc) and dim > MAX_STAGE:
         raise ValueError(f"the fused kernel projects stages of at most "
@@ -351,7 +533,20 @@ def _side_args(rows, cones: ConeSet, dim: int, side: str) -> list:
     spec = (ctypes.c_int * max(2 * n_soc, 1))(
         *(v for c in zip(cones.starts, cones.dims) for v in c))
     return [_ptr(rows), n_lin, spec, _ptr(cones.mus) if n_soc else None,
-            n_soc]
+            n_soc, int(rows is not None and rows.ndim == 3),
+            int(cones.mus.ndim == 2)]
+
+
+def _check_cuda_inputs(tensors, first_contiguous, what):
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{what} takes CUDA tensors only")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what} is float32; got {t.dtype}")
+    for t in tensors[first_contiguous:]:
+        if not t.is_contiguous():
+            raise ValueError("bounds, x0s, rho, the constraint data and the "
+                             "warm carry must be contiguous")
 
 
 def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
@@ -359,45 +554,44 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
                          abs_pri_tol, abs_dua_tol, en_state_bound,
                          en_input_bound, relaxation_alpha, check_termination,
                          warm_start, carry_out,
-                         constraints: FusedConstraints | None = None):
+                         constraints: FusedConstraints | None = None,
+                         num_groups: int = 1, precision: str = "highest",
+                         bf16_head_iters: int = 0):
     """Launch kernel K1 (csrc/condensed_fused.cu) on CUDA tensors; the
     arguments and results are those of ``condensed_fused_reference``.
     Raises on CPU tensors, on any dtype but float32, on non-contiguous
     inputs, on a projected stage wider than MAX_STAGE, and when the build
-    or the launch fails.  Counts every launch in ``.launches`` and those
-    that run linear or cone projections (K1e) also in
-    ``.projected_launches``."""
+    or the launch fails.
+
+    The maps' kernel-side layouts (and, for reduced iterations, the
+    bf16-rounded T12) are made at every launch.
+    Counts every launch in ``.launches``; those that run linear or cone
+    projections (K1e) also in ``.projected_launches``, those over more than
+    one group (K1d) in ``.grouped_launches`` and those with reduced
+    iterations (K1c) in ``.reduced_launches``."""
     cons = constraints or _no_constraints(x0s)
-    tensors = _validate(maps, (u_min, u_max, x_min, x_max), x0s, warm, nx,
-                        nu, N, warm_start, cons)
-    for t in tensors:
-        if not t.is_cuda:
-            raise ValueError("condensed_fused_cuda takes CUDA tensors only")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the fused kernel is float32; got {t.dtype}")
-    for t in tensors[2:]:
-        if not t.is_contiguous():
-            raise ValueError("bounds, x0s and the warm carry must be "
-                             "contiguous")
+    G = num_groups
+    ct = check_termination
+    k0 = _check_precision(precision, bf16_head_iters, max_iter, ct)
+    lo_all = precision == "default"
+    x0, L, tensors = _validate(maps, rho, (u_min, u_max, x_min, x_max), x0s,
+                               warm, nx, nu, N, warm_start, cons, G)
+    _check_cuda_inputs(tensors, 2, "the fused kernel")
     su, sx, sw = _dims(nx, nu, N)
-    B = x0s.shape[0]
+    B = G * L
     if B == 0:
         raise ValueError("empty batch")
     dev = x0s.device
-    tile, resident = fused_tile_plan(nx, nu, N)
+    reduced = bool(k0 or lo_all)
+    tile, resident = fused_tile_plan(nx, nu, N, reduced)
     swp = _padded_rows(sw)
     state_free = _state_free(en_state_bound, cons)
     side_u = _side_args(cons.lin_u, cons.cones_u, nu, "input")
     side_x = _side_args(cons.lin_x, cons.cones_x, nx, "state")
 
     f32 = dict(dtype=torch.float32, device=dev)
-    # kernel-side layouts of the maps: T12w transposed with its rows padded,
-    # and the rollout/constant columns as contiguous vectors
-    t12t = torch.zeros((sw, swp), **f32)
-    t12t[:, :sw] = maps.T12[:, :sw].T
-    t12c = maps.T12[:, sw].contiguous()
-    tx0 = maps.T1[:, su:su + nx].contiguous()
-    t1c = maps.T1[:, -1].contiguous()
+    t12t, t12lo, t12c, tx0, t1c = map_layout(maps, nx, su, sw, reduced)
+    rho_t = torch.as_tensor(rho, **f32).reshape(-1).contiguous()
     xout = torch.empty((sx, B), **f32)
     uout = torch.empty((su, B), **f32)
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -416,25 +610,33 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
     fn = _kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_ptr(t12t), _ptr(t12c), _ptr(tx0), _ptr(t1c),
-                 _ptr(u_min), _ptr(u_max), _ptr(x_min), _ptr(x_max),
-                 _ptr(x0s), _ptr(w.w2), _ptr(w.y),
+        err = fn(_ptr(t12t), _ptr(t12lo), _ptr(t12c), _ptr(tx0), _ptr(t1c),
+                 _ptr(rho_t), _ptr(u_min), _ptr(u_max), _ptr(x_min),
+                 _ptr(x_max), _ptr(x0), _ptr(w.w2), _ptr(w.y),
                  None if state_free else _ptr(w.g), _ptr(w.v), _ptr(w.z),
                  _ptr(xout), _ptr(uout), _ptr(iters), _ptr(solved),
                  _ptr(y), None if state_free else _ptr(g), _ptr(uxc),
                  _ptr(w2o), _ptr(vco), _ptr(zco),
-                 nx, nu, N, B, max_iter, check_termination,
-                 float(rho), relaxation_alpha, 1.0 - relaxation_alpha,
+                 nx, nu, N, G, L, max_iter, ct, k0, int(lo_all),
+                 relaxation_alpha, 1.0 - relaxation_alpha,
                  abs_pri_tol, abs_dua_tol, int(en_input_bound),
                  int(en_state_bound), int(warm_start), int(carry_out),
                  tile, int(resident), swp,
-                 _smem_bytes(sw, tile, resident), *side_u, *side_x, stream)
+                 _smem_bytes(sw, tile, resident, reduced),
+                 int(maps.T12.ndim == 3), int(rho_t.numel() > 1),
+                 int(G > 1 and u_min.numel() == G * su),
+                 int(G > 1 and x_min.numel() == G * sx),
+                 *side_u, *side_x, stream)
     if err != 0:
         raise RuntimeError(f"condensed_fused kernel launch failed: CUDA "
                            f"error {err}")
     condensed_fused_cuda.launches += 1
     if side_u[1] or side_u[4] or side_x[1] or side_x[4]:
         condensed_fused_cuda.projected_launches += 1
+    if G > 1:
+        condensed_fused_cuda.grouped_launches += 1
+    if reduced:
+        condensed_fused_cuda.reduced_launches += 1
     out = (xout.T.reshape(B, N, nx), uout.T.reshape(B, N - 1, nu), iters,
            solved)
     if carry_out:
@@ -444,6 +646,8 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
 
 condensed_fused_cuda.launches = 0
 condensed_fused_cuda.projected_launches = 0
+condensed_fused_cuda.grouped_launches = 0
+condensed_fused_cuda.reduced_launches = 0
 
 
 def make_condensed_fused_solver(nx: int, nu: int, N: int, *,
@@ -471,30 +675,42 @@ def make_condensed_fused_solver(nx: int, nu: int, N: int, *,
     evaluates residuals only on every k-th iteration and must divide
     ``max_iter``.
 
+    With ``num_groups=G`` the launch solves G distinct problems: ``maps``
+    carry a leading group axis (``build_condensed`` on G-stacked problems),
+    ``rho`` is (G,), the bounds may gain a leading G axis and ``x0s`` is
+    (G, L, nx) (or flat, lane = g*L + l).  Results and carries keep the
+    flat lane order, B = G*L.
+
     Constraints beyond the box, in the JAX factory's form, composed box ->
     linear -> SOC on every stage: ``soc_u``/``soc_x`` tuples of ``(start,
-    dim, mu)`` scaled SOCs (``mu`` a float or 0-d tensor), ``lin_u``/
-    ``lin_x`` ``(Alin (m, dim), blin (m,))`` cyclic halfspaces.  They are
-    moved to the solve's device at its first call on that device.  The
-    reduced-precision head and the group grid are not ported yet and raise
-    ``NotImplementedError`` (ROADMAP.md queue 2, K1c, K1d)."""
+    dim, mu)`` scaled SOCs (``mu`` a float, a 0-d tensor, or (G,) per-group
+    values), ``lin_u``/``lin_x`` ``(Alin (m, dim), blin (m,))`` cyclic
+    halfspaces (either with a leading G axis for per-group rows).  They are
+    moved to the solve's device at its first call on that device.
+
+    ``precision="default"`` computes ``T12w @ w2`` as one bf16 pass (both
+    operands rounded to bf16, products summed in fp32) on every iteration;
+    ``bf16_head_iters=k0`` does so on iterations 0..k0-1 only, which skip
+    the residual check except on iteration k0-1, and continues at
+    ``precision`` with the ``check_termination`` cadence and cumulative
+    iteration counts: a (k0, check_termination=k0, "default", carry out)
+    solve chained into a warm one.  In either mode an iteration that runs
+    the check computes its product in full precision."""
     ct = check_termination
     if ct < 1 or max_iter % ct != 0:
         raise ValueError(
             "check_termination must be >= 1 and divide max_iter on the fused "
             f"kernel (got check_termination={ct}, max_iter={max_iter})")
-    if precision != "highest" or bf16_head_iters:
-        raise NotImplementedError(
-            "reduced-precision matmuls and bf16_head_iters are not ported "
-            "yet (ROADMAP.md queue 2, K1c)")
-    if num_groups != 1:
-        raise NotImplementedError(
-            "num_groups > 1 is not ported yet (ROADMAP.md queue 2, K1d)")
+    k0 = _check_precision(precision, bf16_head_iters, max_iter, ct)
+    if num_groups < 1:
+        raise ValueError(f"num_groups must be >= 1 (got {num_groups})")
     kw = dict(nx=nx, nu=nu, N=N, max_iter=max_iter, abs_pri_tol=abs_pri_tol,
               abs_dua_tol=abs_dua_tol, en_state_bound=en_state_bound,
               en_input_bound=en_input_bound,
               relaxation_alpha=relaxation_alpha, check_termination=ct,
-              warm_start=warm_start, carry_out=carry_out)
+              warm_start=warm_start, carry_out=carry_out,
+              num_groups=num_groups, precision=precision,
+              bf16_head_iters=k0)
 
     constraints = {}  # (device, dtype) -> FusedConstraints
 
@@ -509,7 +725,7 @@ def make_condensed_fused_solver(nx: int, nu: int, N: int, *,
         if key not in constraints:
             constraints[key] = fused_constraints(
                 soc_u, soc_x, lin_u, lin_x, nx=nx, nu=nu, dtype=x0s.dtype,
-                device=x0s.device)
+                device=x0s.device, num_groups=num_groups)
         return fn(maps, rho, u_min, u_max, x_min, x_max, x0s, warm,
                   constraints=constraints[key], **kw)
 

@@ -28,11 +28,18 @@ def project_halfspaces(w, Alin, blin):
     """Cyclic projection of a stage vector onto each halfspace a_j . w <= b_j,
     rows in order, each seeing the previous row's result:
     w <- w - max(a.w - b, 0) * a / ||a||^2.  ``w`` is (..., n), Alin (m, n),
-    blin (m,)."""
-    if Alin.shape[0] == 0:
+    blin (m,); or per-instance rows Alin (B, m, n), blin (B, m) on a batch
+    of trajectories ``w`` (B, N, n)."""
+    if Alin.shape[-2] == 0:
         return w
     tiny = torch.tensor(1e-30, dtype=w.dtype, device=w.device)
     inv_sq = 1.0 / torch.maximum((Alin * Alin).sum(-1), tiny)
+    if Alin.ndim == 3:
+        for j in range(Alin.shape[1]):
+            a = Alin[:, None, j, :]
+            viol = torch.clamp_min((w * a).sum(-1) - blin[:, None, j], 0.0)
+            w = w - viol[..., None] * (a * inv_sq[:, None, j, None])
+        return w
     for a, b, s in zip(Alin, blin, inv_sq):
         viol = torch.clamp_min((w * a).sum(-1) - b, 0.0)
         w = w - viol[..., None] * (a * s)
@@ -80,12 +87,15 @@ def project_soc_exact(seg, mu):
 
 def project_cones(w, cones: ConeSet, *, exact: bool = False):
     """Apply every cone of ``cones``, in order, to the trailing axis of
-    ``w`` (shape (..., n))."""
+    ``w`` (shape (..., n)); per-instance coefficients ``cones.mus`` (B, C)
+    go with a batch of trajectories ``w`` (B, N, n)."""
     if cones.num_cones == 0:
         return w
     proj_fn = project_soc_exact if exact else _project_soc_scaled
     w = w.clone()
     for k, (start, dim) in enumerate(zip(cones.starts, cones.dims)):
-        w[..., start:start + dim] = proj_fn(w[..., start:start + dim],
-                                            cones.mus[k])
+        mu = cones.mus[..., k]
+        if mu.ndim:
+            mu = mu[:, None]
+        w[..., start:start + dim] = proj_fn(w[..., start:start + dim], mu)
     return w

@@ -34,40 +34,48 @@ TERM_MAX_STEP = 10.0
 def osqp_residuals(state: State, cache: Cache, problem: Problem):
     """(pri_res, dual_res, pri_norm, dual_norm): the infinity norms of the
     reference's compute_residuals, from the current iterates (x, u, vnew,
-    znew, g, y) as the solve loop holds them."""
-    x, u = state.x, state.u           # (N, nx), (N-1, nu)
+    znew, g, y) as the solve loop holds them.  A leading batch axis on the
+    state (and on the problem or cache) gives one value per instance."""
+    x, u = state.x, state.u           # (..., N, nx), (..., N-1, nu)
     v, z = state.vnew, state.znew
     g, y = state.g, state.y
     A, B = problem.A, problem.B
+    Qd, Rd = problem.Q[..., None, :], problem.R[..., None, :]
+    head, tail = (Ellipsis, slice(None, -1), slice(None)), \
+        (Ellipsis, slice(1, None), slice(None))
+
+    def amax(t):
+        return t.abs().amax(dim=(-2, -1))
 
     # primal: A x against z.  Input rows u_i; dynamics rows
     # A x_i + B u_i - x_{i+1}
-    dyn = x[:-1] @ A.T + u @ B.T - x[1:]
-    ax_inf = torch.maximum(u.abs().max(), dyn.abs().max())
-    z_inf = torch.maximum(z.abs().max(), v[1:].abs().max())
-    pri_res = torch.maximum((u - z).abs().max(), (dyn - v[1:]).abs().max())
+    dyn = (x[head] @ A.transpose(-1, -2) + u @ B.transpose(-1, -2)
+           - x[tail])
+    ax_inf = torch.maximum(amax(u), amax(dyn))
+    z_inf = torch.maximum(amax(z), amax(v[tail]))
+    pri_res = torch.maximum(amax(u - z), amax(dyn - v[tail]))
     pri_norm = torch.maximum(ax_inf, z_inf)
 
     # dual: P x + q + A^T y
-    Px_states = torch.cat([x[:-1] * problem.Q, (cache.Pinf @ x[-1])[None]])
-    Px_inputs = u * problem.R
-    q_states = x * problem.Q
-    q_inputs = u * problem.R
+    PxN = (cache.Pinf @ x[..., -1, :, None]).squeeze(-1)
+    Px_states = torch.cat([x[head] * Qd, PxN[..., None, :]], dim=-2)
+    Px_inputs = u * Rd
+    q_states = x * Qd
+    q_inputs = u * Rd
     # A^T y: state x_j gets A^T g_{j+1} [j <= N-2] - g_j [j >= 1];
     #        input u_j gets B^T g_{j+1} + y_j
     aty_states = torch.zeros_like(x)
-    aty_states[:-1] += g[1:] @ A
-    aty_states[1:] -= g[1:]
-    aty_inputs = g[1:] @ B + y
+    aty_states[head] += g[tail] @ A
+    aty_states[tail] -= g[tail]
+    aty_inputs = g[tail] @ B + y
 
     r_dual_states = Px_states + q_states + aty_states
     # R*u enters twice (P x and q), as in the reference
     r_dual_inputs = Px_inputs + q_inputs + aty_inputs
-    dual_res = torch.maximum(r_dual_states.abs().max(),
-                             r_dual_inputs.abs().max())
-    px_inf = torch.maximum(Px_states.abs().max(), Px_inputs.abs().max())
-    aty_inf = torch.maximum(aty_states.abs().max(), aty_inputs.abs().max())
-    q_inf = torch.maximum(q_states.abs().max(), q_inputs.abs().max())
+    dual_res = torch.maximum(amax(r_dual_states), amax(r_dual_inputs))
+    px_inf = torch.maximum(amax(Px_states), amax(Px_inputs))
+    aty_inf = torch.maximum(amax(aty_states), amax(aty_inputs))
+    q_inf = torch.maximum(amax(q_states), amax(q_inputs))
     dual_norm = torch.maximum(torch.maximum(px_inf, aty_inf), q_inf)
     return pri_res, dual_res, pri_norm, dual_norm
 
@@ -90,6 +98,8 @@ def taylor_update(cache: Cache, new_rho) -> Cache:
     """First-order cache update in rho.  Parity quirk: it updates
     Kinf/Pinf/C1/C2 but not Quu_inv/AmBKt, exactly like the reference."""
     delta = new_rho - cache.rho
+    if delta.ndim:  # per-instance caches
+        delta = delta[..., None, None]
     return cache.replace(
         rho=new_rho,
         Kinf=cache.Kinf + delta * cache.dKinf_drho,
@@ -130,10 +140,14 @@ def predict_rho_termination(state: State, cache: Cache, settings: Settings,
                             rho_center=None):
     """``termination_controller`` on the single-instance workspace."""
     rho = cache.rho
-    pri = torch.maximum((state.x - state.vnew).abs().max(),
-                        (state.u - state.znew).abs().max())
-    dual = rho * torch.maximum((state.v - state.vnew).abs().max(),
-                               (state.z - state.znew).abs().max())
+
+    def amax(t):
+        return t.abs().amax(dim=(-2, -1))
+
+    pri = torch.maximum(amax(state.x - state.vnew),
+                        amax(state.u - state.znew))
+    dual = rho * torch.maximum(amax(state.v - state.vnew),
+                               amax(state.z - state.znew))
     return termination_controller(pri, dual, rho, settings,
                                   rho_center=rho_center)
 
@@ -196,3 +210,22 @@ def adapt_rho_rebuild(state: State, cache: Cache, problem: Problem,
     if bool(new_rho != cache.rho):
         return rebuild_update(cache, problem, new_rho)
     return cache
+
+
+def adapt_rho_rebuild_batched(state: State, cache: Cache, problem: Problem,
+                              settings: Settings) -> Cache:
+    """``adapt_rho_rebuild`` on a batch of instances with per-instance
+    caches: the fixed point's trip count depends on the data, so each
+    instance whose prediction moved runs its own."""
+    from ..types import index_instance, stack_instances
+    new_rho = _predicted_rho(state, cache, problem, settings)
+    moved = (new_rho != cache.rho).tolist()
+    shared_problem = problem.A.ndim == 2
+    out = []
+    for b, m in enumerate(moved):
+        ca_b = index_instance(cache, b)
+        if m:
+            pr_b = problem if shared_problem else index_instance(problem, b)
+            ca_b = rebuild_update(ca_b, pr_b, new_rho[b])
+        out.append(ca_b)
+    return stack_instances(out)

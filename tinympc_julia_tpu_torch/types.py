@@ -96,10 +96,8 @@ class Problem:
 class Settings:
     """Solver settings; field names and defaults as in the JAX Settings.
 
-    The port runs fixed-rho solves with box, linear and cone constraints;
-    the adaptive-rho and bf16-head fields are kept so the two packages share
-    one settings surface, and the solve paths raise ``NotImplementedError``
-    when one of them is switched on."""
+    Both packages share one settings surface; a solve path that does not
+    take a field (``bf16_head_iters`` with adaptive rho, say) raises."""
     abs_pri_tol: float = 1e-3
     abs_dua_tol: float = 1e-3
     adaptive_rho_min: float = 1.0
@@ -152,6 +150,50 @@ class Cache:
 
     def replace(self, **kw) -> "Cache":
         return dataclasses.replace(self, **kw)
+
+
+def map_tensors(fn, *trees):
+    """A dataclass like ``trees[0]`` (a Problem, Cache, State or Solution)
+    whose every tensor field is ``fn`` of the trees' fields.  A cone set maps
+    its ``mus``; its structure (``starts``, ``dims``) is static and must be
+    the same in every tree."""
+    first = trees[0]
+    out = {}
+    for f in dataclasses.fields(first):
+        vals = [getattr(t, f.name) for t in trees]
+        if isinstance(vals[0], ConeSet):
+            for c in vals[1:]:
+                if c.starts != vals[0].starts or c.dims != vals[0].dims:
+                    raise ValueError(
+                        "the cone structure (starts, dims) must be the same "
+                        f"in every item; got {vals[0].starts}/{vals[0].dims} "
+                        f"and {c.starts}/{c.dims}")
+            out[f.name] = ConeSet(mus=fn(*(c.mus for c in vals)),
+                                  starts=vals[0].starts, dims=vals[0].dims)
+        else:
+            out[f.name] = fn(*vals)
+    return type(first)(**out)
+
+
+def stack_instances(items):
+    """Stack identically shaped Problems (or Caches, States, Solutions) into
+    one with a leading group axis on every tensor; the cone coefficients
+    stack to (G, C)."""
+    items = list(items)
+    if not items:
+        raise ValueError("stack_instances needs at least one item")
+    return map_tensors(lambda *ts: torch.stack(ts), *items)
+
+
+def index_instance(tree, b: int):
+    """Item ``b`` of a stacked Problem, Cache, State or Solution."""
+    return map_tensors(lambda t: t[b], tree)
+
+
+def expand_lanes(tree, L: int):
+    """A (G, ...) Problem or Cache -> its (G*L, ...) per-lane copy, lane =
+    g*L + l."""
+    return map_tensors(lambda t: t.repeat_interleave(L, dim=0), tree)
 
 
 def make_problem(A, B, Q, R, rho, N, *, device, f=None, x_min=None,

@@ -4,6 +4,10 @@ Each ``*_from_numpy`` takes a dict of numpy arrays (the JAX pytree's fields
 after ``np.asarray``) and returns the port's object with every tensor on the
 given device in the given dtype; ``to_numpy`` goes the other way.  A cone set
 travels as a dict ``{"mus": array, "starts": ints, "dims": ints}``.
+
+Arrays keep their shapes, so a G-stacked JAX pytree (a leading group axis
+on every leaf: problems, caches, condensed and Taylor maps, the grouped
+solves' carries) comes out as the port's G-stacked object.
 """
 from __future__ import annotations
 
@@ -28,13 +32,15 @@ def _t(a, dtype, device) -> torch.Tensor:
 
 
 def cones_from_numpy(d, *, dtype, device) -> ConeSet:
-    """A ConeSet from ``{"mus", "starts", "dims"}`` (numpy and ints)."""
+    """A ConeSet from ``{"mus", "starts", "dims"}`` (numpy and ints);
+    ``mus`` is (C,), or (G, C) for a G-stacked cone set."""
     starts = tuple(int(i) for i in d["starts"])
     dims = tuple(int(i) for i in d["dims"])
-    mus = _t(np.asarray(d["mus"], float).reshape(-1), dtype, device)
-    if not len(starts) == len(dims) == mus.shape[0]:
+    mus = np.asarray(d["mus"], float)
+    mus = _t(mus if mus.ndim == 2 else mus.reshape(-1), dtype, device)
+    if not len(starts) == len(dims) == mus.shape[-1]:
         raise ValueError(f"a cone set needs one start, dim and mu per cone; "
-                         f"got {len(starts)}, {len(dims)}, {mus.shape[0]}")
+                         f"got {len(starts)}, {len(dims)}, {mus.shape[-1]}")
     return ConeSet(mus=mus, starts=starts, dims=dims)
 
 
@@ -66,14 +72,16 @@ def taylor_maps_from_numpy(d, *, dtype, device) -> CondensedTaylorMaps:
 def carry_from_numpy(d, *, dtype, device):
     """A FusedCarry from (w2, y, g, v, z), a CondensedCarry from
     (d, y, g, v, z); with a per-lane ``rho`` the adaptive carries: an
-    AdaptiveFusedCarry where rho is a (1, B) row, an AdaptiveCondensedCarry
-    where it is a (B,) vector."""
+    AdaptiveFusedCarry where rho is a (1, B) row beside (dim, B) arrays, an
+    AdaptiveCondensedCarry where it is a (B,) vector, or (G, L) beside the
+    grouped solve's (G, dim, L) arrays."""
     if "w2" in d:
         cls = FusedCarry
     elif "rho" not in d:
         cls = CondensedCarry
     else:
-        cls = (AdaptiveFusedCarry if np.ndim(d["rho"]) == 2
+        cls = (AdaptiveFusedCarry
+               if np.ndim(d["rho"]) == 2 and np.ndim(d["d"]) == 2
                else AdaptiveCondensedCarry)
     return cls(*(_t(d[k], dtype, device) for k in cls._fields))
 
