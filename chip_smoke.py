@@ -6,8 +6,9 @@
 Phases (one line each; any failure exits non-zero):
   1. environment: torch and CUDA versions, the card's name and power limit;
      TF32 off, so every fp32 matmul of the plain versions is full fp32;
-  2. build: nvcc compiles kernels K1 (csrc/condensed_fused.cu) and K2
-     (csrc/condensed_adaptive.cu), side by side, into build/torch_kernels/;
+  2. build: nvcc compiles kernels K1 (csrc/condensed_fused.cu), K2
+     (csrc/condensed_adaptive.cu) and K3 (csrc/fused_stage.cu), side by
+     side, into build/torch_kernels/;
   3. kernel vs plain at the cartpole shape (B = 4096): (a) cold, ct=1,
      alpha=1.7, no state bound; (b) ct=4; (c) the generic path with the
      constrained cartpole's state bound |x0| <= 2; (d) a 30 + 50 warm chain
@@ -50,7 +51,8 @@ Phases (one line each; any failure exits non-zero):
      with its carry, then parallel.two_phase_adaptive_solve with 2,048
      straggler slots and a 2,500-iteration warm continuation; convergence,
      stragglers, slot overflow and the rho span, each against the plain
-     pipeline; kernel vs plain times of the bulk launch and the pipeline;
+     pipeline; kernel vs plain times of the bulk launch (median of 5) and
+     the pipeline (median of 3);
  12. the adaptive single-instance solve() on the card: the quadrotor case of
      tests/golden/quadrotor_adaptive.npz in float64 (OSQP-form controller,
      the reference binary's finite-difference sensitivities) against the
@@ -83,7 +85,7 @@ Phases (one line each; any failure exits non-zero):
      reduced + 32 fp32 iterations, 256 slots a group, 1,500 more with a
      512-iteration reduced head): convergence (>= 99%), per-group overflow,
      the merged results against the same pipeline on the plain versions,
-     paired times, solves/s; the unstaged pipeline (160 fp32 + 1,500 fp32)
+     paired times (median of 3), solves/s; the unstaged pipeline (160 fp32 + 1,500 fp32)
      against its plain version at the tight bar and timed once; one launch
      of each bulk phase (K1d: 160 fp32 iterations; K1c: 128 reduced ones)
      timed beside its plain version; the kernel-side layouts of the 64
@@ -91,12 +93,41 @@ Phases (one line each; any failure exits non-zero):
  17. the rocket sweep with per-group cone coefficients (G = 16 x L = 2,048,
      seed 6, 24 "default" + 48 fp32 iterations, 256 slots, 400 more): the
      same checks, and the cones within 5e-3 on every solved lane;
+ 18. kernel K3 (the per-stage fused ADMM) vs plain: the cartpole shape
+     (4,093 of the 4,096 lanes of phase 3, a ragged last tile; |u| <= 5, 100
+     iterations) at (a) ct = 1, (b) ct = 4, (c) with the cart position held
+     to |x_0| <= 0.3 and initial velocities doubled, so that the state box
+     binds; (d) the quadrotor shape (B = 512, |u| <= 0.5, rho 5, 500
+     iterations);
+ 19. K3's path at full width through make_fused_solver: the cartpole
+     headline batch (the 65,536 lanes of phase 6, tol 1e-3, 100 iterations)
+     and the quadrotor (the 16,384 lanes of phase 11, fixed rho 5, 500
+     iterations): convergence, the results against the plain version, paired
+     times; beside each, K1 on the same problem with alpha 1, ct 1 and the
+     same budget: the share of lanes on which the two kernels' iteration
+     counts agree (both are the same ADMM; >= 99%) and their paired times;
+ 20. the fused MPC loop at full width through make_fused_mpc_loop: the
+     cartpole plant, |u| <= 5, alpha 1.7, 100 iterations a step, 8,192
+     plants drawn U(-0.5, 0.5) from seed 3, 100 control steps, every solve a
+     K1 launch chained through its carry (100 launches counted): share of
+     (plant, step) solved >= 99%; per-(plant, step) iteration counts and
+     applied controls against the same loop on K1's plain version; paired
+     times, closed-loop steps/s, the host's enqueue time of a loop; one warm
+     launch at the loop's shape timed beside its plain version, and the
+     per-launch map layouts on their own;
+ 21. the two other loops on the card in float64: run_mpc_loop (2 cartpole
+     plants x 25 steps; the adaptive-rho case, 10 steps) against the same
+     loop on the CPU (equal iteration counts, controls within 1e-6, equal
+     final rhos), and run_mpc_loop_condensed with the rocket's moving
+     references (15 steps) against run_mpc_loop (equal counts, 1e-9);
 then the kernels' JSON line, the card's name and power limit, and the
 result line.  K1's launches are counted over phases 5 and 6, K1e's (the
 launches that run projections) over phase 8, K2's over phase 11, K1d's (the
 launches over more than one group) and K1c's (those with reduced iterations)
 over the first runs of the two sweeps in phases 16 and 17, the K2 grid's over
-the GroupedBatchSolver calls of phase 15, each from 0 just before the phase
+the GroupedBatchSolver calls of phase 15, K3's over the two full-width
+solves of phase 19, the carry chain's (K1 launched warm from a carry) over
+the MPC loop of phase 20, each from 0 just before the phase
 and on its first, untimed runs.  The agreement bar
 of every kernel-vs-plain comparison: identical per-lane iteration counts on
 >= 99% of lanes (fp32 sums in another order may move a lane that sits on the
@@ -118,8 +149,9 @@ the iterations its lanes really ran) over the H100's 67 TFLOP/s fp32 rate
 counted from their iteration counts and the check interval, over the data
 sheet's 989 TFLOP/s dense bf16 tensor-core rate, and the fp32 products of
 their checking iterations over the fp32 rate) and its bytes (each input read once, each output written
-once) over 3.35 TB/s.  ``library_ms`` is null: no single PyTorch call
-computes an ADMM solve.
+once) over 3.35 TB/s; for K3 the operations are the per-stage products,
+(N-1)(4 nx^2 + 8 nx nu + 2 nu^2) a lane-iteration.  ``library_ms`` is null: no
+single PyTorch call computes an ADMM solve.
 """
 import functools
 import json
@@ -145,6 +177,7 @@ B_ADAPT = 16384
 SLOTS_ADAPT = 2048
 RHO_RTOL = 1e-4
 RHO_ATOL64 = 1e-9
+DEEP_REPS = 3  # timed turns of the pipelines that take seconds a run
 PEAK_FP32 = 67e12    # H100 SXM, fp32 outside the tensor cores, FLOP/s
 PEAK_BF16 = 989e12   # H100 SXM, dense bf16 in the tensor cores, FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM3, bytes/s
@@ -780,7 +813,8 @@ def earlier_phases(card):
     t_ap, t_ap_p = paired_ms(
         lambda: two_phase_adaptive_solve(*pipe_a, **akw),
         lambda: two_phase_adaptive_solve(
-            *pipe_a, fused=condensed_adaptive_reference, **akw))
+            *pipe_a, fused=condensed_adaptive_reference, **akw),
+        reps=DEEP_REPS)
     t_k2, t_k2_p = paired_ms(
         lambda: condensed_adaptive_cuda(*bulk_args, **bulk_kw),
         lambda: condensed_adaptive_reference(*bulk_args, **bulk_kw))
@@ -798,10 +832,10 @@ def earlier_phases(card):
           f"{n_ap}), mean iterations {res_a.iters.float().mean().item():.1f} "
           f"(largest {int(res_a.iters.max())}), rho span "
           f"[{res_a.rho.min().item():.4g}, {res_a.rho.max().item():.4g}]; "
-          f"median of 5: pipeline kernel {t_ap:.3f} ms, plain {t_ap_p:.3f} "
-          f"ms -> {n_a / (t_ap * 1e-3):.0f} solves/s on {card}; one K2 "
-          f"launch (bulk pass, 150 iterations, carry out) {t_k2:.3f} ms, "
-          f"plain {t_k2_p:.3f} ms", flush=True)
+          f"median of {DEEP_REPS}: pipeline kernel {t_ap:.3f} ms, plain "
+          f"{t_ap_p:.3f} ms -> {n_a / (t_ap * 1e-3):.0f} solves/s on {card}; "
+          f"one K2 launch (bulk pass, 150 iterations, carry out), median of "
+          f"5: {t_k2:.3f} ms, plain {t_k2_p:.3f} ms", flush=True)
 
     # -- phase 12: the adaptive single-instance solve(), float64 -------------
     x0_1 = np.array([0.1, -0.2, 0.3, 0.05, -0.05, 0.1, 0.2, -0.1, 0.15, 0.0,
@@ -1243,15 +1277,17 @@ def grouped_phases(card):
                 o[3].reshape(B)) for o in (out, out_u))
             check(viol <= CONE_TOL, f"phase {phase}: cone excess {viol:.3e}")
             extra = f", largest cone excess on solved lanes {viol:.3e}"
-        t_st, t_st_p = paired_ms(lambda: staged(x0s), lambda: staged_p(x0s))
+        t_st, t_st_p = paired_ms(lambda: staged(x0s), lambda: staged_p(x0s),
+                                 reps=DEEP_REPS)
         t_fl, t_fl_p = paired_ms(lambda: flat(x0s), lambda: flat_p(x0s),
                                  reps=1)
         print(f"phase {phase} {name} G={G} x L={L}: staged {pkw}: {n_conv} "
               f"converged ({100.0 * n_conv / B:.2f}%), per-group overflow "
               f"max {int(overflow.max())} (sum {int(overflow.sum())}), mean "
               f"iterations {iters.float().mean().item():.1f}, largest "
-              f"{int(iters.max())}{extra}; median of 5: kernel {t_st:.3f} "
-              f"ms, plain {t_st_p:.3f} ms -> {n_conv / (t_st * 1e-3):.0f} "
+              f"{int(iters.max())}{extra}; median of {DEEP_REPS}: kernel "
+              f"{t_st:.3f} ms, plain {t_st_p:.3f} ms -> "
+              f"{n_conv / (t_st * 1e-3):.0f} "
               f"solves/s on {card}; unstaged {ukw}: {n_conv_u} converged, "
               f"mean iterations {out_u[2].float().mean().item():.1f}, one "
               f"timing after a warm-up: kernel {t_fl:.3f} ms, plain "
@@ -1339,11 +1375,331 @@ def grouped_phases(card):
         "bound_by": k2g_bound[1], "library_ms": None}]
 
 
+def stage_and_loop_phases(card):
+    """Phases 18-21: kernel K3 (the per-stage fused ADMM) against its plain
+    version and beside K1, the fused MPC loop chained through K1's carry,
+    and the two other MPC loops; the rows of K3 and of K1's carry chain for
+    the kernels line."""
+    from tinympc_julia_tpu_torch import Settings, make_problem
+    from tinympc_julia_tpu_torch.models import cartpole, quadrotor, rocket
+    from tinympc_julia_tpu_torch.ops.condensed import build_condensed
+    from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
+        condensed_fused_cuda, condensed_fused_reference, map_layout)
+    from tinympc_julia_tpu_torch.ops.cuda.fused import (
+        fused_cuda, fused_reference, fused_stage_plan, make_fused_solver)
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    from tinympc_julia_tpu_torch.parallel import mpc
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    N = cartpole.HORIZON
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def plant(mod, ub, rho, x_bound=None, dtype=f32, device=dev, horizon=N,
+              **kw):
+        if x_bound is not None:
+            xb = np.tile(x_bound, (horizon, 1))
+            kw.update(x_min=-xb, x_max=xb)
+        p = make_problem(mod.A, mod.B, np.diag(mod.Q_DIAG),
+                         np.diag(mod.R_DIAG), rho, horizon, u_min=-ub[0],
+                         u_max=ub[1], dtype=dtype, device=device, **kw)
+        return p, precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+
+    def k3_args(p, c, x0s):
+        return (p.A, p.B, p.f, p.Q, p.R, c.rho, c.Kinf, c.Quu_inv, c.AmBKt,
+                c.Pinf, p.x_min, p.x_max, p.u_min, p.u_max, p.Xref, p.Uref,
+                x0s)
+
+    def k3_kw(p, **kw):
+        full = dict(nx=p.nx, nu=p.nu, N=p.N, max_iter=100, abs_pri_tol=1e-3,
+                    abs_dua_tol=1e-3, en_state_bound=False,
+                    en_input_bound=True, check_termination=1)
+        full.update(kw)
+        return full
+
+    def bit_equal(out_a, out_b):
+        return int(sum(torch.equal(a, b) for a, b in zip(out_a, out_b)))
+
+    def draw(B, nx, seed, scale):
+        return torch.as_tensor(np.random.default_rng(seed).uniform(
+            -scale, scale, size=(B, nx)), dtype=f32, device=dev)
+
+    # -- phase 18: K3 vs plain ------------------------------------------------
+    errs = []
+    x0_check = draw(B_CHECK, 4, 0, 0.5)[:B_CHECK - 3].contiguous()
+    p, c = plant(cartpole, (5.0, 5.0), cartpole.RHO)
+    p_b, c_b = plant(cartpole, (5.0, 5.0), cartpole.RHO,
+                     x_bound=np.array([0.3, 1e17, 1e17, 1e17]))
+    x0_fast = x0_check * torch.tensor([0.5, 2.0, 1.0, 1.0], device=dev)
+    pq, cq = plant(quadrotor, (quadrotor.U_HOVER_BOUND,) * 2, quadrotor.RHO)
+    x0_q = draw(B_QUAD, 12, 1, 0.3)
+    cases = (("a cartpole ct=1", p, c, x0_check, {}),
+             ("b cartpole ct=4", p, c, x0_check, dict(check_termination=4)),
+             ("c cartpole |x_0| <= 0.3 (state dual live)", p_b, c_b, x0_fast,
+              dict(en_state_bound=True)),
+             ("d quadrotor, rho 5, 500 iterations", pq, cq, x0_q,
+              dict(max_iter=500)))
+    for name, pp, cc, x0s, kw in cases:
+        args, full = k3_args(pp, cc, x0s), k3_kw(pp, **kw)
+        tile, smem = fused_stage_plan(pp.nx, pp.nu, pp.N,
+                                      full["en_state_bound"], x0s.shape[0],
+                                      sms)
+        out_k = fused_cuda(*args, **full)
+        out_p = fused_reference(*args, **full)
+        torch.cuda.synchronize()
+        errs.append(agreement(
+            f"phase 18{name}, B={x0s.shape[0]} (tile {tile}, {smem} bytes "
+            f"of shared memory; {bit_equal(out_k, out_p)} of 4 outputs "
+            f"bit-equal)", out_k, out_p))
+        if full["en_state_bound"]:
+            at_bound = (out_k[0][..., 0].abs().amax(dim=1) == 0.3)
+            print(f"phase 18c: the bound binds on {int(at_bound.sum())} "
+                  f"lanes; largest |x_0| {out_k[0][..., 0].abs().max():.6f}",
+                  flush=True)
+            check(int(at_bound.sum()) > 0, "phase 18c: the state box never "
+                  "binds")
+            check(float(out_k[0][..., 0].abs().max()) <= 0.3 + 1e-6,
+                  "phase 18c: a state slack outside its box")
+
+    # -- phase 19: K3's path at full width, beside K1 -------------------------
+    def stage_flops(pp, iters):
+        nx, nu = pp.nx, pp.nu
+        return ((pp.N - 1) * (4 * nx * nx + 8 * nx * nu + 2 * nu * nu)
+                * float(iters.sum()))
+
+    fused_cuda.launches = 0
+    rows = []
+    wide = (("cartpole", p, c, draw(B_MAIN, 4, 0, 0.5), 100),
+            ("quadrotor", pq, cq, draw(B_ADAPT, 12, 1, 0.3), 500))
+    for name, pp, cc, x0s, budget in wide:
+        B = x0s.shape[0]
+        solve = make_fused_solver(pp.nx, pp.nu, pp.N, max_iter=budget,
+                                  en_state_bound=False)
+        args = k3_args(pp, cc, x0s)
+        before = fused_cuda.launches
+        out = solve(*args)
+        torch.cuda.synchronize()
+        n_launch = fused_cuda.launches - before
+        check(n_launch == 1, f"phase 19 {name}: make_fused_solver launched "
+              f"K3 {n_launch} times, not once")
+        xs, us, it, ok = out
+        check(tuple(us.shape) == (B, pp.N - 1, pp.nu)
+              and tuple(xs.shape) == (B, pp.N, pp.nx), f"shapes {us.shape}")
+        check(bool(torch.isfinite(us).all())
+              and bool(torch.isfinite(xs).all()),
+              f"phase 19 {name}: non-finite solutions")
+        check(float(us.abs().max()) <= float(pp.u_max.max()) + 1e-5,
+              f"phase 19 {name}: |u| beyond its bound")
+        full = k3_kw(pp, max_iter=budget)
+        out_p = fused_reference(*args, **full)
+        err = agreement(f"phase 19 {name} B={B}, K3 through "
+                        f"make_fused_solver vs plain", out, out_p)
+        # K1 on the same problem: alpha 1, ct 1, the same budget
+        maps = build_condensed(pp, cc)
+        k1_args = (maps, cc.rho, pp.u_min, pp.u_max, pp.x_min, pp.x_max, x0s,
+                   None)
+        k1_kw = dict(nx=pp.nx, nu=pp.nu, N=pp.N, max_iter=budget,
+                     abs_pri_tol=1e-3, abs_dua_tol=1e-3, en_state_bound=False,
+                     en_input_bound=True, relaxation_alpha=1.0,
+                     check_termination=1, warm_start=False, carry_out=False)
+        out_1 = condensed_fused_cuda(*k1_args, **k1_kw)
+        same = (it == out_1[2])
+        frac = same.float().mean().item()
+        both = same & (ok == 1) & (out_1[3] == 1)
+        du = (us - out_1[1]).abs()[both].max().item()
+        n3, n1 = int(ok.sum()), int(out_1[3].sum())
+        check(frac >= ITERS_AGREE, f"phase 19 {name}: K3 and K1 count alike "
+              f"on {frac:.4f} of lanes only")
+        check(du <= ATOL, f"phase 19 {name}: K3 and K1 controls differ by "
+              f"{du:.3e}")
+        check(abs(n3 - n1) <= 0.01 * B, f"phase 19 {name}: K3 solved {n3}, "
+              f"K1 {n1}")
+        t_k3, t_p = paired_ms(lambda: solve(*args),
+                              lambda: fused_reference(*args, **full))
+        t_k3b, t_k1 = paired_ms(
+            lambda: solve(*args),
+            lambda: condensed_fused_cuda(*k1_args, **k1_kw))
+        b3 = bound(stage_flops(pp, it), tensor_bytes(*args, out))
+        print(f"phase 19 {name} B={B}, tol 1e-3, max_iter {budget}, no "
+              f"over-relaxation: K3 solved {n3} ({100.0 * n3 / B:.2f}%), K1 "
+              f"(alpha 1, ct 1) {n1}; mean iterations "
+              f"{it.float().mean().item():.1f}, largest {int(it.max())}; "
+              f"iteration counts K3 vs K1 equal on {frac:.4f} of lanes, "
+              f"controls within {du:.3e} on equal solved lanes; median of 5: "
+              f"K3 {t_k3:.3f} ms, its plain version {t_p:.3f} ms; K3 "
+              f"{t_k3b:.3f} ms beside K1 {t_k1:.3f} ms "
+              f"({t_k1 / t_k3b:.1f}x); K3's bound {b3[0]:.4f} ms by {b3[1]} "
+              f"-> {n3 / (t_k3 * 1e-3):.0f} solves/s on {card}", flush=True)
+        rows.append({
+            "name": f"fused_stage (K3), {name} B={B}, max_iter {budget}",
+            "route": "cuda",
+            "source": "tinympc_julia_tpu_torch/csrc/fused_stage.cu",
+            "replaces": "tinympc_julia_tpu/ops/pallas/fused.py:44",
+            "launches": n_launch, "max_abs_err": max(errs + [err]),
+            "ms": t_k3,
+            "plain_ms": t_p, "bound_ms": b3[0], "bound_by": b3[1],
+            "library_ms": None})
+    check(fused_cuda.launches >= 2, "K3 was not launched on its path")
+
+    # -- phase 20: the fused MPC loop at full width ---------------------------
+    B_LOOP, STEPS = 8192, 100
+    s = Settings(max_iter=100, en_state_bound=False, relaxation_alpha=1.7)
+    x0_l = draw(B_LOOP, 4, 3, 0.5)
+    loop = mpc.make_fused_mpc_loop(p, c, s, STEPS)
+    loop_p = mpc.make_fused_mpc_loop(p, c, s, STEPS,
+                                     fused=condensed_fused_reference)
+    condensed_fused_cuda.launches = 0
+    res = loop(x0_l)
+    torch.cuda.synchronize()
+    loop_launches = condensed_fused_cuda.launches
+    check(loop_launches == STEPS, f"the fused MPC loop launched K1 "
+          f"{loop_launches} times, not {STEPS}")
+    res_p = loop_p(x0_l)
+    check(tuple(res.us.shape) == (B_LOOP, STEPS, 1)
+          and tuple(res.xs.shape) == (B_LOOP, STEPS, 4), "loop shapes")
+    check(bool(torch.isfinite(res.us).all())
+          and bool(torch.isfinite(res.xs).all()), "non-finite loop results")
+    share = res.solved.float().mean().item()
+    same = (res.iters == res_p.iters)
+    frac = same.float().mean().item()
+    du = (res.us - res_p.us).abs().max().item()
+    dx = (res.xs - res_p.xs).abs().max().item()
+    check(share >= 0.99, f"phase 20: {share:.4f} of (plant, step) solved")
+    check(frac >= ITERS_AGREE, f"phase 20: counts agree on {frac:.4f}")
+    check(du <= ATOL and dx <= ATOL, f"phase 20: controls differ by "
+          f"{du:.3e}, states by {dx:.3e}")
+    check(float(res.us.abs().max()) <= 5.0 + 1e-5, "phase 20: |u| beyond 5")
+    t0 = time.perf_counter()
+    loop(x0_l)
+    t_enq = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_loop, t_loop_p = paired_ms(lambda: loop(x0_l), lambda: loop_p(x0_l))
+    it_step = res.iters.float().mean(dim=0)
+    print(f"phase 20 fused MPC loop, {B_LOOP} cartpole plants x {STEPS} "
+          f"steps, alpha 1.7, max_iter 100: {loop_launches} K1 launches; "
+          f"{100.0 * share:.2f}% of (plant, step) solved (plain "
+          f"{100.0 * res_p.solved.float().mean().item():.2f}%); iteration "
+          f"counts equal on {frac:.4f}, controls within {du:.3e}, states "
+          f"within {dx:.3e} of the plain loop; mean iterations step 0 "
+          f"{it_step[0].item():.1f}, step 1 {it_step[1].item():.1f}, last "
+          f"{it_step[-1].item():.1f}, all "
+          f"{res.iters.float().mean().item():.2f}; final |pole angle| mean {res.xs[:, -1, 2].abs().mean():.2e}; "
+          f"median of 5: kernel loop {t_loop:.3f} ms, plain loop "
+          f"{t_loop_p:.3f} ms -> {B_LOOP * STEPS / (t_loop * 1e-3):.0f} "
+          f"closed-loop steps/s on {card}; the host enqueues a loop in "
+          f"{1e3 * t_enq:.1f} ms", flush=True)
+    # one warm launch at the loop's shape: step 1, from step 0's carry
+    maps = build_condensed(p, c)
+    l_args = (maps, c.rho, p.u_min, p.u_max, p.x_min, p.x_max)
+    l_kw = dict(nx=4, nu=1, N=N, max_iter=100, abs_pri_tol=1e-3,
+                abs_dua_tol=1e-3, en_state_bound=False, en_input_bound=True,
+                relaxation_alpha=1.7, check_termination=1, carry_out=True)
+    cold = condensed_fused_cuda(*l_args, x0_l, None, warm_start=False, **l_kw)
+    x1 = res.xs[:, 1].contiguous()
+    w_k = condensed_fused_cuda(*l_args, x1, cold[4], warm_start=True, **l_kw)
+    w_p = condensed_fused_reference(*l_args, x1, cold[4], warm_start=True,
+                                    **l_kw)
+    b_errs = [agreement("phase 20 one warm K1 launch (step 1 from step 0's "
+                        "carry) vs plain", w_k, w_p),
+              carry_agreement("phase 20 warm launch", w_k[2] == w_p[2],
+                              w_k[4], w_p[4]), du, dx]
+    check(torch.equal(w_k[2], res.iters[:, 1]), "phase 20: the warm launch "
+          "does not reproduce the loop's step 1")
+    sw = maps.T12.shape[0]
+    b_bound = bound(2.0 * sw * sw * float(w_k[2].sum())
+                    + 2.0 * sw * 4 * B_LOOP,
+                    tensor_bytes(maps.T12, maps.T1, *l_args[2:], x1,
+                                 tuple(cold[4]), w_k[:4], tuple(w_k[4])))
+    t_w, t_w_p = paired_ms(
+        lambda: condensed_fused_cuda(*l_args, x1, cold[4], warm_start=True,
+                                     **l_kw),
+        lambda: condensed_fused_reference(*l_args, x1, cold[4],
+                                          warm_start=True, **l_kw))
+    t_lay = float(np.median([event_ms(lambda: map_layout(
+        maps, 4, (N - 1) * 1, sw, False)) for _ in range(5)]))
+    print(f"phase 20 one warm launch, B={B_LOOP}, mean iterations "
+          f"{w_k[2].float().mean().item():.1f}: median of 5: kernel "
+          f"{t_w:.3f} ms, plain {t_w_p:.3f} ms, bound {b_bound[0]:.4f} ms by "
+          f"{b_bound[1]}; the map layouts every launch makes: {t_lay:.3f} ms",
+          flush=True)
+    rows.append({
+        "name": "condensed_fused carry chain (K1b), fused MPC loop: one "
+                "warm launch at B=8192",
+        "route": "cuda",
+        "source": "tinympc_julia_tpu_torch/csrc/condensed_fused.cu",
+        "replaces": "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:243",
+        "launches": loop_launches, "max_abs_err": max(b_errs), "ms": t_w,
+        "plain_ms": t_w_p, "bound_ms": b_bound[0], "bound_by": b_bound[1],
+        "library_ms": None})
+
+    # -- phase 21: the two other loops, float64 -------------------------------
+    f64 = torch.float64
+    t0 = time.perf_counter()
+
+    def both_devices(ub, settings, x0, steps):
+        out = []
+        for d in (dev, torch.device("cpu")):
+            pp, cc = plant(cartpole, (ub, ub), 1.0, dtype=f64, device=d)
+            out.append(mpc.run_mpc_loop(
+                pp, cc, settings, torch.as_tensor(x0, dtype=f64, device=d),
+                steps))
+        return out
+
+    r_card, r_cpu = both_devices(
+        5.0, Settings(max_iter=100, en_state_bound=False),
+        [[0.0, 0.0, 0.1, 0.0], [0.5, 0.0, -0.05, 0.0]], 25)
+    a_card, a_cpu = both_devices(
+        1.0, Settings(max_iter=100, en_state_bound=False, adaptive_rho=True,
+                      adaptive_rho_min=0.5, adaptive_rho_max=5.0),
+        [[1.0, 0.0, 0.2, 0.0], [-0.5, 0.3, 0.0, 0.0]], 10)
+    for what, rc, rh in (("2 cartpole plants x 25 steps", r_card, r_cpu),
+                         ("adaptive rho, 10 steps", a_card, a_cpu)):
+        eq = torch.equal(rc.iters.cpu(), rh.iters)
+        dl = (rc.us.cpu() - rh.us).abs().max().item()
+        print(f"phase 21 run_mpc_loop in float64, {what}, card vs CPU: "
+              f"iteration counts equal {eq} (total "
+              f"{int(rc.iters.sum())}), max |diff| of the controls "
+              f"{dl:.3e}", flush=True)
+        check(rc.us.is_cuda and rc.state.x.is_cuda, "phase 21: the card's "
+              "loop is not on the card")
+        check(eq, f"phase 21 {what}: iteration counts differ")
+        check(dl <= LOOP_ATOL, f"phase 21 {what}: controls differ by "
+              f"{dl:.3e}")
+    rho_c, rho_h = a_card.cache.rho.cpu(), a_cpu.cache.rho
+    print(f"phase 21 adaptive loop: final rhos card {rho_c.tolist()}, cpu "
+          f"{rho_h.tolist()}", flush=True)
+    check(tuple(rho_c.shape) == (2,) and bool((rho_c != 1.0).any()),
+          "phase 21: the adaptive loop's rho never moved")
+    check(float((rho_c - rho_h).abs().max()) <= RHO_ATOL64,
+          "phase 21: final rhos differ")
+    pr, cr = plant(rocket, (10.0, 105.0), 1.0, dtype=f64, horizon=10,
+                   f=rocket.F)
+    sr = Settings(max_iter=100, abs_pri_tol=2e-3, en_state_bound=False)
+    Xrefs = np.stack([rocket.reference_trajectory(k)[0].T for k in range(15)])
+    Urefs = np.stack([rocket.reference_trajectory(k)[1].T for k in range(15)])
+    x0_r = torch.as_tensor(rocket.X_INIT[None, :], dtype=f64, device=dev)
+    std = mpc.run_mpc_loop(pr, cr, sr, x0_r, 15, Xrefs=Xrefs, Urefs=Urefs)
+    cnd = mpc.run_mpc_loop_condensed(pr, cr, sr, x0_r, 15, Xrefs=Xrefs,
+                                     Urefs=Urefs)
+    eq = torch.equal(std.iters, cnd.iters)
+    dl = (std.us - cnd.us).abs().max().item()
+    print(f"phase 21 run_mpc_loop_condensed, the rocket's moving references, "
+          f"15 steps in float64 on the card vs run_mpc_loop: iteration "
+          f"counts equal {eq} ({cnd.iters[0].tolist()}), max |diff| of the "
+          f"controls {dl:.3e} ({time.perf_counter() - t0:.1f} s for the "
+          f"phase)", flush=True)
+    check(cnd.us.is_cuda and eq and dl <= 1e-9 and bool(cnd.solved.all()),
+          f"phase 21: the condensed loop differs from run_mpc_loop "
+          f"(counts equal {eq}, controls {dl:.3e})")
+    return rows
+
+
 def build_kernels():
-    """Phase 2: both kernels' sources, one nvcc each, side by side."""
+    """Phase 2: the three kernels' sources, one nvcc each, side by side."""
     from tinympc_julia_tpu_torch.ops.cuda._build import load_libraries
     t0 = time.perf_counter()
-    libs = load_libraries(["condensed_fused", "condensed_adaptive"])
+    libs = load_libraries(["condensed_fused", "condensed_adaptive",
+                           "fused_stage"])
     print(f"phase 2 build: {len(libs)} kernels side by side in "
           f"{time.perf_counter() - t0:.1f} s with loading", flush=True)
     for built in libs:
@@ -1372,6 +1728,9 @@ def main():
     print(f"phases 2-12 done {time.perf_counter() - t_start:.0f} s after "
           "the start", flush=True)
     rows += grouped_phases(card)
+    print(f"phases 13-17 done {time.perf_counter() - t_start:.0f} s after "
+          "the start", flush=True)
+    rows += stage_and_loop_phases(card)
     print(f"all phases done {time.perf_counter() - t_start:.0f} s after the "
           "start", flush=True)
     print(json.dumps({"kernels": rows}))

@@ -2,7 +2,8 @@
 """Where the port's pipelines spend their time on one NVIDIA GPU.
 
     python3 profile_pipeline.py [--workload cartpole|rocket|adaptive|
-                                 sweep_quadrotor|sweep_rocket|all] [--reps 3]
+                                 sweep_quadrotor|sweep_rocket|mpc_loop|
+                                 fused_stage|all] [--reps 3]
 
 Runs each chosen workload under ``torch.profiler`` after one warm-up:
   * ``cartpole``: the three-phase pipeline (65,536 cartpole lanes, 8,192
@@ -23,7 +24,15 @@ Runs each chosen workload under ``torch.profiler`` after one warm-up:
   * ``sweep_rocket``: the rocket sweep with per-group cone coefficients (16
     cone pairs x 2,048 lanes, 24 + 48 iterations, 256 slots, 400 more),
     three launches of K1 with its projections on the group grid, and its
-    unstaged form (two launches).
+    unstaged form (two launches);
+  * ``mpc_loop``: the fused closed-loop MPC of parallel/mpc.py (8,192
+    cartpole plants x 100 control steps, alpha 1.7, 100 iterations a step),
+    100 launches of K1 chained through its carry, the plant step and the
+    per-launch map layouts between them;
+  * ``fused_stage``: kernel K3's two full-width solves through
+    ``make_fused_solver`` (65,536 cartpole lanes, 100 iterations; 16,384
+    quadrotor lanes, rho 5, 500 iterations), two launches, with the packing
+    of the kernel's constants before each.
 It prints, one line each:
   * the card's name and power limit;
   * per workload, setup on the host clock (the Riccati cache with its
@@ -178,6 +187,73 @@ def sweep_workload(build, staged):
     return workload
 
 
+def _plant(mod, ub, dev):
+    from tinympc_julia_tpu_torch import make_problem
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    p = make_problem(mod.A, mod.B, np.diag(mod.Q_DIAG), np.diag(mod.R_DIAG),
+                     mod.RHO, mod.HORIZON, u_min=-ub, u_max=ub, dtype=F32,
+                     device=dev)
+    return p, precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+
+
+def mpc_loop_workload(dev):
+    from tinympc_julia_tpu_torch import Settings
+    from tinympc_julia_tpu_torch.models import cartpole
+    from tinympc_julia_tpu_torch.parallel.mpc import make_fused_mpc_loop
+
+    steps = 100
+    t0 = time.perf_counter()
+    p, c = _plant(cartpole, 5.0, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loop = make_fused_mpc_loop(
+        p, c, Settings(max_iter=100, en_state_bound=False,
+                       relaxation_alpha=1.7), steps)
+    torch.cuda.synchronize()
+    setup = dict(cache=t1 - t0, maps=time.perf_counter() - t1)
+    x0 = torch.as_tensor(np.random.default_rng(3).uniform(
+        -0.5, 0.5, size=(8192, 4)), dtype=F32, device=dev)
+
+    def stats(res):
+        it = res.iters.float()
+        return dict(steps=res.iters.numel(),
+                    solved_share=res.solved.float().mean().item(),
+                    mean_iters=it.mean().item(),
+                    mean_iters_step0=it[:, 0].mean().item(),
+                    mean_iters_last_step=it[:, -1].mean().item(),
+                    max_iters_after_step0=int(res.iters[:, 1:].max()))
+
+    return "condensed_fused_kernel", steps, setup, lambda: loop(x0), stats
+
+
+def fused_stage_workload(dev):
+    from tinympc_julia_tpu_torch.models import cartpole, quadrotor
+    from tinympc_julia_tpu_torch.ops.cuda.fused import make_fused_solver
+
+    t0 = time.perf_counter()
+    cases = []
+    for mod, ub, B, seed, scale, budget in (
+            (cartpole, 5.0, 65536, 0, 0.5, 100),
+            (quadrotor, quadrotor.U_HOVER_BOUND, 16384, 1, 0.3, 500)):
+        p, c = _plant(mod, ub, dev)
+        x0 = torch.as_tensor(np.random.default_rng(seed).uniform(
+            -scale, scale, size=(B, p.nx)), dtype=F32, device=dev)
+        cases.append((make_fused_solver(p.nx, p.nu, p.N, max_iter=budget), (
+            p.A, p.B, p.f, p.Q, p.R, c.rho, c.Kinf, c.Quu_inv, c.AmBKt,
+            c.Pinf, p.x_min, p.x_max, p.u_min, p.u_max, p.Xref, p.Uref, x0)))
+    torch.cuda.synchronize()
+    setup = dict(cache=time.perf_counter() - t0, maps=None)
+
+    def stats(res):
+        return dict(mean_iters=[r[2].float().mean().item() for r in res],
+                    max_iters=[int(r[2].max()) for r in res],
+                    converged=[int(r[3].sum()) for r in res],
+                    lanes=[r[3].numel() for r in res])
+
+    return ("fused_stage_kernel", 2, setup,
+            lambda: [fn(*args) for fn, args in cases], stats)
+
+
 WORKLOADS = dict(
     cartpole=cartpole_workload, rocket=rocket_workload,
     adaptive=adaptive_workload,
@@ -185,7 +261,8 @@ WORKLOADS = dict(
     sweep_quadrotor_unstaged=sweep_workload("randomized_quadrotor_sweep",
                                             False),
     sweep_rocket=sweep_workload("rocket_cone_sweep", True),
-    sweep_rocket_unstaged=sweep_workload("rocket_cone_sweep", False))
+    sweep_rocket_unstaged=sweep_workload("rocket_cone_sweep", False),
+    mpc_loop=mpc_loop_workload, fused_stage=fused_stage_workload)
 
 
 def trace(name, kernel, per_run, run, reps):

@@ -399,10 +399,13 @@ def _zero_carry(lead, su, sx, L, dtype, dev):
     return zu, zx
 
 
-def _solve_condensed_impl(problem, cache, settings, x0s, maps, warm):
+def _solve_condensed_impl(problem, cache, settings, x0s, maps, warm,
+                          d_ref=None):
     """The fixed-rho condensed loop on x0s (..., L, nx), the leading axes
-    being those of the problem, the cache and the maps.  Returns (xs, us,
-    iters, solved, carry)."""
+    being those of the problem, the cache and the maps.  ``d_ref``
+    (``ref_backward_const``, (..., su)) is added to the backward product:
+    maps built with zero references then solve for moving ones.  Returns
+    (xs, us, iters, solved, carry)."""
     s = settings
     nx, nu, N = problem.nx, problem.nu, problem.N
     su, sx = (N - 1) * nu, N * nx
@@ -464,6 +467,8 @@ def _solve_condensed_impl(problem, cache, settings, x0s, maps, warm):
         v = torch.where(frozen, v, vnew)
         z = torch.where(frozen, z, znew)
         d_new = T2r @ torch.cat([znew - y, vnew - g, ones], dim=-2)
+        if d_ref is not None:
+            d_new = d_new + d_ref[..., None]
         d = torch.where(frozen, d, d_new)
         if bool(conv.all()):
             break
@@ -474,6 +479,28 @@ def _solve_condensed_impl(problem, cache, settings, x0s, maps, warm):
     xs = out_x.transpose(-1, -2).reshape(lead + (L, N, nx))
     us = out_u.transpose(-1, -2).reshape(lead + (L, N - 1, nu))
     return xs, us, out_it, out_solved, CondensedCarry(d=d, y=y, g=g, v=v, z=z)
+
+
+def ref_backward_const(problem: Problem, cache: Cache, Xref=None, Uref=None):
+    """The reference trajectories' contribution to the condensed backward
+    map: d_ref (su,), the backward recursion of (qref, rref, pNref) alone.
+
+    The references enter the condensed iteration only through this constant
+    (they are linear in q, r and p_N), so references that move from step to
+    step (the rocket's) need this small recursion and no rebuild of the
+    maps: build the maps with zero references and add d_ref to the T2
+    product (``_solve_condensed_impl``'s ``d_ref``)."""
+    Xref = problem.Xref if Xref is None else Xref
+    Uref = problem.Uref if Uref is None else Uref
+    rref = -(Uref * problem.R)
+    qref = -(Xref * problem.Q)
+    p_next = -(cache.Pinf.T @ Xref[-1])
+    BT, Quu, Am, KT = problem.B.T, cache.Quu_inv, cache.AmBKt, cache.Kinf.T
+    ds = [None] * (problem.N - 1)
+    for i in range(problem.N - 2, -1, -1):
+        ds[i] = Quu @ (BT @ p_next + rref[i])
+        p_next = qref[i] + Am @ p_next - KT @ rref[i]
+    return torch.stack(ds).reshape(-1)
 
 
 def _check_shared(problem, x0s, what):

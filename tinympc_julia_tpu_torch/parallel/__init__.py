@@ -1,11 +1,12 @@
 """Batch-level layers of the port: the masked batched ADMM loop, straggler
-compaction, the three-phase fused solve, the two-phase adaptive-rho solve
-and the grouped (G problems x L lanes) solver."""
-from . import batch, grouped, pipeline, rebuild  # noqa: F401
+compaction, the three-phase fused solve, the two-phase adaptive-rho solve,
+the grouped (G problems x L lanes) solver and the closed-loop MPC loops."""
+from . import batch, grouped, mpc, pipeline, rebuild  # noqa: F401
 from .batch import (broadcast_state, set_x0_batch,  # noqa: F401
                     solve_batch, solve_vmap)
 from .grouped import (GroupedBatchSolver, expand_lanes,  # noqa: F401
                       stack_instances)
+from .mpc import run_mpc_loop  # noqa: F401
 from .pipeline import (three_phase_solve,  # noqa: F401
                        two_phase_adaptive_solve)
 from .rebuild import compact_members  # noqa: F401
