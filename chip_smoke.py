@@ -5,7 +5,9 @@
 
 Phases (one line each; any failure exits non-zero):
   1. environment: torch and CUDA versions, the card's name and power limit;
-     TF32 off, so every fp32 matmul of the plain versions is full fp32;
+     TF32 allowed process-wide, as a caller may set it: the port pins full
+     fp32 in every fp32 path (the plain versions included), so every
+     comparison below also shows that the pin holds;
   2. build: nvcc compiles kernels K1 (csrc/condensed_fused.cu), K2
      (csrc/condensed_adaptive.cu) and K3 (csrc/fused_stage.cu), side by
      side, into build/torch_kernels/;
@@ -20,7 +22,11 @@ Phases (one line each; any failure exits non-zero):
   6. the headline three-phase pipeline at B = 65,536 with 8,192 straggler
      slots, all fp32: convergence; the merged per-lane results (phase-2
      slots folded back into their lanes) and one phase-0 launch with its
-     carry, each against the plain version; kernel vs plain times;
+     carry, each against the plain version; kernel vs plain times; then the
+     staged headline (parallel.pipeline.STAGED, bench.py's staging: phase 0
+     at "default" with its one end check in fp32, a 96-iteration reduced
+     head in phase 2): convergence (>= 99%), the merged results against its
+     plain version, kernel vs plain times and staged vs fp32 times;
   7. K1's linear and cone projections (K1e) vs plain at B = 4096: (a) the
      rocket (box on u and x, thrust and glide-slope cones), cold, 72
      iterations with its carry; (b) the kernel's rocket 24 + 48 warm chain,
@@ -63,14 +69,14 @@ Phases (one line each; any failure exits non-zero):
      block; (b) the same with per-group state bounds (the generic path);
      (c) the rocket G = 4 x L = 1,000 (a ragged last tile in every group)
      with per-group cone coefficients; (d) quadrotor G = 4 x L = 128, the
-     maps read through L2; (e) the kernel's 30 + 50 warm chain against its
-     80-iteration solve, bit for bit;
+     maps streamed through shared memory in slabs; (e) the kernel's 30 + 50
+     warm chain against its 80-iteration solve, bit for bit;
  14. K1's reduced-precision product and head (K1c) vs plain, cartpole G = 8
      x L = 512: (a) a 16-iteration head inside a 96-iteration launch, and the
      same launch against the kernel's own (16, ct = 16, "default") launch
      chained into a warm fp32 launch, bit for bit; (b) precision="default"
-     on the whole launch; (c) the quadrotor shape (the rounded map through
-     L2); (d) the latch recheck: every lane
+     on the whole launch; (c) the quadrotor shape (the bf16 map streamed,
+     the product on the tensor cores); (d) the latch recheck: every lane
      latched inside a reduced phase passes the tolerance when its latching
      iteration is recomputed in fp32 by the plain version from its carry;
  15. K2's group grid vs plain: (a) cartpole G = 8 x L = 512, OSQP-form
@@ -88,7 +94,9 @@ Phases (one line each; any failure exits non-zero):
      paired times (median of 3), solves/s; the unstaged pipeline (160 fp32 + 1,500 fp32)
      against its plain version at the tight bar and timed once; one launch
      of each bulk phase (K1d: 160 fp32 iterations; K1c: 128 reduced ones)
-     timed beside its plain version; the kernel-side layouts of the 64
+     timed beside its plain version; as a yardstick only (not the same
+     function), the same products alone: 160 cuBLAS torch.bmm of the 64
+     maps by (316 x 1,024) iterates; the kernel-side layouts of the 64
      maps, which every launch makes anew, timed on their own;
  17. the rocket sweep with per-group cone coefficients (G = 16 x L = 2,048,
      seed 6, 24 "default" + 48 fp32 iterations, 256 slots, 400 more): the
@@ -137,10 +145,17 @@ one, of lanes with equal counts; for K2 the states, controls and carry of
 every lane with equal counts (a carry entry relative to the larger of 1 and
 its magnitude) and the lane's final rho within rtol 1e-4.
 
-A launch or a pipeline with reduced-precision iterations is held to the same
-bar: both sides round to bf16 exactly and sum in fp32, so a kernel whose
-reduced product were wrong (no rounding, a truncation, the fp32 map) would
-move the lanes' counts and fail it.
+A launch or a pipeline with reduced-precision iterations (phases 6 staged,
+14a-c, 16 and 17 staged, 16 K1c) is held to the same count bar.  Both sides
+round to bf16 exactly and sum the exact products in fp32, the kernel on the
+tensor cores in another order than cuBLAS, and each reduced iteration
+rounds w2 to bf16 again: a last-bit difference becomes a 2^-8 step where w2
+sits near a rounding boundary, so two correct implementations part by more
+than 1e-4 over tens of reduced iterations.  The value bar of such a
+comparison is the larger of 1e-4 and REDUCED_SPREAD (4) times the plain
+version's own distance from the same plain version run in float64 on the
+same inputs (``in_float64``).  A kernel whose reduced product were wrong (no
+rounding, a truncation, the fp32 map) moves far more lanes' counts than 1%.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 timed launch: the larger of its operations (the matvecs' multiply-adds on
@@ -153,6 +168,7 @@ once) over 3.35 TB/s; for K3 the operations are the per-stage products,
 (N-1)(4 nx^2 + 8 nx nu + 2 nu^2) a lane-iteration.  ``library_ms`` is null: no
 single PyTorch call computes an ADMM solve.
 """
+import dataclasses
 import functools
 import json
 import subprocess
@@ -168,6 +184,14 @@ B_CHECK = 4096
 B_QUAD = 512
 ITERS_AGREE = 0.99
 ATOL = 1e-4
+# Reduced-precision iterations on the tensor cores sum the exact bf16
+# products in another order than cuBLAS's fp32 product in the plain version,
+# and every reduced iteration rounds w2 to bf16 again, which turns a
+# last-bit difference into a 2^-8 step whenever w2 lies near a rounding
+# boundary: over tens of reduced iterations two correct implementations
+# part by far more than ATOL.  Such a comparison is held to the plain
+# version's own distance from its float64 run, times REDUCED_SPREAD.
+REDUCED_SPREAD = 4.0
 CONE_TOL = 5e-3
 LOOP_STEPS = 20
 LOOP_ATOL = 1e-6
@@ -221,40 +245,96 @@ def paired_ms(f_kernel, f_plain, reps=5):
     return float(np.median(tk)), float(np.median(tp))
 
 
-def agreement(name, out_k, out_p, min_solved=None):
-    """Per-lane agreement of kernel and plain results; returns max |diff|.
-    At least ``min_solved`` lanes (default half the batch) must solve."""
-    xk, uk, ik, sk = out_k[:4]
-    xp, up, ip, sp = out_p[:4]
-    B = ik.numel()
-    min_solved = B // 2 if min_solved is None else min_solved
-    same = ik == ip
-    frac = same.float().mean().item()
-    both = same & (sk == 1) & (sp == 1)
+def max_diff(out_a, out_b):
+    """Max |diff| of x and u on the lanes with equal counts that both
+    solved, and the share of lanes with equal counts."""
+    xa, ua, ia, sa = out_a[:4]
+    xb, ub, ib, sb = out_b[:4]
+    same = ia == ib
+    both = same & (sa == 1) & (sb == 1)
     err = 0.0
     if bool(both.any()):
-        err = max((uk - up).abs()[both].max().item(),
-                  (xk - xp).abs()[both].max().item())
-    nk, npl = int(sk.sum()), int(sp.sum())
-    print(f"{name}: iteration counts equal on {int(same.sum())}/{B} lanes "
-          f"({frac:.4f}); solved kernel {nk}, plain {npl}; max |diff| on "
-          f"equal solved lanes {err:.3e}", flush=True)
+        err = max((ua - ub).abs()[both].max().item(),
+                  (xa - xb).abs()[both].max().item())
+    return err, same.float().mean().item()
+
+
+def in_float64(fused):
+    """``fused`` (a plain version) on float64 copies of its inputs, its
+    results back in float32: the plain version's own sensitivity to its
+    arithmetic, the yardstick of a comparison whose launches run
+    reduced-precision iterations (``agreement``'s ``out_p64``)."""
+    def up(v):
+        if isinstance(v, torch.Tensor):
+            return v.double() if v.is_floating_point() else v
+        if dataclasses.is_dataclass(v) and not isinstance(v, type):
+            return dataclasses.replace(v, mus=up(v.mus))  # a ConeSet
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            return type(v)(*(up(x) for x in v))
+        return v
+
+    def down(v):
+        if isinstance(v, torch.Tensor):
+            return v.float() if v.is_floating_point() else v
+        if isinstance(v, tuple):
+            items = [down(x) for x in v]
+            return type(v)(*items) if hasattr(v, "_fields") else tuple(items)
+        return v
+
+    def run(*args, **kw):
+        return down(fused(*(up(a) for a in args),
+                          **{k: up(v) for k, v in kw.items()}))
+    return run
+
+
+def agreement(name, out_k, out_p, min_solved=None, out_p64=None):
+    """Per-lane agreement of kernel and plain results; returns max |diff|.
+    At least ``min_solved`` lanes (default half the batch) must solve.
+
+    With ``out_p64`` (the plain version in float64, ``in_float64``), for
+    launches with reduced-precision iterations on the tensor cores: the
+    value bar is the larger of ATOL and REDUCED_SPREAD times the plain
+    version's own distance from its float64 run on the same lanes."""
+    ik, sk = out_k[2], out_k[3]
+    B = ik.numel()
+    min_solved = B // 2 if min_solved is None else min_solved
+    err, frac = max_diff(out_k, out_p)
+    bar, extra = ATOL, ""
+    if out_p64 is not None:
+        spread, frac64 = max_diff(out_p, out_p64)
+        bar = max(ATOL, REDUCED_SPREAD * spread)
+        extra = (f"; the plain version against itself in float64: counts "
+                 f"equal on {frac64:.4f}, max |diff| {spread:.3e} -> bar "
+                 f"{bar:.3e}")
+    nk, npl = int(sk.sum()), int(out_p[3].sum())
+    print(f"{name}: iteration counts equal on {int((ik == out_p[2]).sum())}/"
+          f"{B} lanes ({frac:.4f}); solved kernel {nk}, plain {npl}; max "
+          f"|diff| on equal solved lanes {err:.3e}{extra}", flush=True)
     check(frac >= ITERS_AGREE, f"{name}: counts agree on {frac:.4f} < "
           f"{ITERS_AGREE}")
-    check(err <= ATOL, f"{name}: max |diff| {err:.3e} > {ATOL}")
+    check(err <= bar, f"{name}: max |diff| {err:.3e} > {bar:.3e}")
     check(nk >= min_solved, f"{name}: only {nk}/{B} lanes solved")
-    check(bool(torch.isfinite(uk).all()) and bool(torch.isfinite(xk).all()),
+    check(bool(torch.isfinite(out_k[1]).all())
+          and bool(torch.isfinite(out_k[0]).all()),
           f"{name}: non-finite kernel output")
     return err
 
 
-def carry_agreement(name, same, carry_k, carry_p):
-    """Max |diff| of the carries' fields on lanes with equal counts."""
-    err = max((a - b)[:, same].abs().max().item()
-              for a, b in zip(carry_k, carry_p))
+def carry_agreement(name, same, carry_k, carry_p, carry_p64=None):
+    """Max |diff| of the carries' fields on lanes with equal counts; with
+    ``carry_p64`` (the plain version's carry in float64) the bar of a
+    reduced-precision launch, as in ``agreement``."""
+    def diff(ca, cb):
+        return max((a - b)[:, same].abs().max().item()
+                   for a, b in zip(ca, cb))
+    err, bar, extra = diff(carry_k, carry_p), ATOL, ""
+    if carry_p64 is not None:
+        spread = diff(carry_p, carry_p64)
+        bar = max(ATOL, REDUCED_SPREAD * spread)
+        extra = f" (plain vs float64 {spread:.3e} -> bar {bar:.3e})"
     print(f"{name}: carry max |diff| on {int(same.sum())} lanes with equal "
-          f"counts {err:.3e}", flush=True)
-    check(err <= ATOL, f"{name}: carry max |diff| {err:.3e} > {ATOL}")
+          f"counts {err:.3e}{extra}", flush=True)
+    check(err <= bar, f"{name}: carry max |diff| {err:.3e} > {bar:.3e}")
     return err
 
 
@@ -359,7 +439,7 @@ def earlier_phases(card):
         fused_tile_plan, problem_constraint_kw)
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.parallel.pipeline import (
-        three_phase_solve, two_phase_adaptive_solve)
+        STAGED, three_phase_solve, two_phase_adaptive_solve)
 
     dev = torch.device("cuda")
     f32 = torch.float32
@@ -429,14 +509,14 @@ def earlier_phases(card):
     qN = quadrotor.HORIZON
     assert qN == N
     pq, cq, mq = plant(quadrotor, quadrotor.U_HOVER_BOUND, quadrotor.RHO)
-    tile_q, resident_q = fused_tile_plan(12, 4, qN)
+    plan_q = fused_tile_plan(12, 4, qN)
     x0_q = torch.as_tensor(np.random.default_rng(1).uniform(
         -0.3, 0.3, size=(B_QUAD, 12)), dtype=f32, device=dev)
     out_k, out_p = run_both(pq, cq, mq, x0_q, max_iter=1000,
                             check_termination=4, en_state_bound=False)
     errs.append(agreement(
-        f"phase 4 quadrotor (sw=316, tile {tile_q}, T12 in shared "
-        f"memory: {resident_q})", out_k, out_p))
+        f"phase 4 quadrotor (sw=316, tile {plan_q.tile}, T12 in shared "
+        f"memory: {plan_q.resident})", out_k, out_p))
 
     # -- phase 5: the main path through the API -----------------------------
     condensed_fused_cuda.launches = 0
@@ -528,6 +608,37 @@ def earlier_phases(card):
           f"median of 5: kernel {t_pipe:.3f} ms, plain {t_pipe_p:.3f} ms -> "
           f"{n_conv / (t_pipe * 1e-3):.0f} solves/s on {card}; one K1 "
           f"launch (phase-0 shape) {t_k1:.3f} ms, plain {t_k1_p:.3f} ms",
+          flush=True)
+    # the staged headline (bench.py's _pipeline): phase 0 at "default" with
+    # its one end check in fp32, a 96-iteration reduced head in phase 2
+    res_s = three_phase_solve(*pipe_args, **pkw, **STAGED)
+    torch.cuda.synchronize()
+    res_sp = three_phase_solve(*pipe_args, fused=condensed_fused_reference,
+                               **pkw, **STAGED)
+    n_st, n_st_p = int(res_s.converged()), int(res_sp.converged())
+    check(n_st >= 0.99 * B_MAIN, f"staged pipeline converged {n_st}/{B_MAIN}")
+    check(abs(n_st - n_st_p) <= 0.01 * B_MAIN,
+          f"staged pipeline converged {n_st} with the kernel, {n_st_p} plain")
+    res_s64 = three_phase_solve(
+        *pipe_args, fused=in_float64(condensed_fused_reference), **pkw,
+        **STAGED)
+    errs.append(agreement("phase 6 staged pipeline, merged per-lane results "
+                          "vs plain", pipeline_lanes(res_s),
+                          pipeline_lanes(res_sp),
+                          out_p64=pipeline_lanes(res_s64)))
+    t_st, t_st_p = paired_ms(
+        lambda: three_phase_solve(*pipe_args, **pkw, **STAGED),
+        lambda: three_phase_solve(*pipe_args, fused=condensed_fused_reference,
+                                  **pkw, **STAGED))
+    t_st2, t_fp2 = paired_ms(
+        lambda: three_phase_solve(*pipe_args, **pkw, **STAGED),
+        lambda: three_phase_solve(*pipe_args, **pkw))
+    print(f"phase 6 staged pipeline {STAGED}: {n_st} converged "
+          f"({100.0 * n_st / B_MAIN:.2f}%; plain {n_st_p}), "
+          f"{int(res_s.unconv.sum())} stragglers; median of 5: kernel "
+          f"{t_st:.3f} ms, plain {t_st_p:.3f} ms -> "
+          f"{n_st / (t_st * 1e-3):.0f} solves/s; paired with the fp32 "
+          f"pipeline: staged {t_st2:.3f} ms, fp32 {t_fp2:.3f} ms on {card}",
           flush=True)
 
     # -- phase 7: K1e, the projections, kernel vs plain ---------------------
@@ -930,6 +1041,7 @@ def grouped_phases(card):
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.parallel.grouped import GroupedBatchSolver
     from tinympc_julia_tpu_torch.types import stack_instances
+    from tinympc_julia_tpu_torch.utils.precision import full_fp32_matmul
 
     dev = torch.device("cuda")
     f32 = torch.float32
@@ -977,6 +1089,12 @@ def grouped_phases(card):
         full = k1_kw(P, **kw)
         return (condensed_fused_cuda(*args, **full),
                 condensed_fused_reference(*args, **full))
+
+    def k1_plain64(P, C, maps, x0s, **kw):
+        """The plain version in float64 (the yardstick of a comparison
+        with reduced-precision iterations)."""
+        return in_float64(condensed_fused_reference)(
+            *k1_args(P, C, maps, x0s), **k1_kw(P, **kw))
 
     def product_counts(counts, ct):
         """(reduced, fp32) T12 products of a cold precision="default" launch
@@ -1071,11 +1189,14 @@ def grouped_phases(card):
     c_errs = []
     head_kw = dict(max_iter=96, bf16_head_iters=16)
     out_k, out_p = k1_both(Pc, Cc, mc, x0c, **head_kw)
+    out_64 = k1_plain64(Pc, Cc, mc, x0c, **head_kw)
     c_errs.append(agreement(
         f"phase 14a cartpole G={G} x L={L}, 16-iteration bf16 head of 96 "
-        f"({bit_equal(out_k, out_p)} lanes differ in a bit)", out_k, out_p))
-    c_errs.append(carry_agreement("phase 14a", out_k[2] == out_p[2],
-                                  out_k[4], out_p[4]))
+        f"({bit_equal(out_k, out_p)} lanes differ in a bit)", out_k, out_p,
+        out_p64=out_64))
+    same = (out_k[2] == out_p[2]) & (out_p[2] == out_64[2])
+    c_errs.append(carry_agreement("phase 14a", same, out_k[4], out_p[4],
+                                  out_64[4]))
     check(int(out_k[2].min()) >= 16, "phase 14a: a count below the head")
     a = condensed_fused_cuda(*args, **k1_kw(
         Pc, max_iter=16, check_termination=16, precision="default"))
@@ -1094,18 +1215,22 @@ def grouped_phases(card):
     c_errs.append(agreement(
         f"phase 14b precision='default' on all 96 iterations, ct=4 "
         f"({bit_equal(lo_k, lo_p)} lanes differ in a bit)", lo_k, lo_p,
-        min_solved=0))
+        min_solved=0, out_p64=k1_plain64(Pc, Cc, mc, x0c, max_iter=96,
+                                         precision="default")))
     fp_k = condensed_fused_cuda(*args, **k1_kw(Pc, max_iter=96))
     print(f"phase 14b: solved within 96 iterations: reduced "
           f"{int(lo_k[3].sum())}, fp32 {int(fp_k[3].sum())} of {G * L}",
           flush=True)
-    tile_lo, res_lo = fused_tile_plan(12, 4, N, reduced=True)
+    plan_lo = fused_tile_plan(12, 4, N, reduced=True)
     out_k, out_p = k1_both(Pq, Cq, mq, x0q, max_iter=600, bf16_head_iters=64)
-    print(f"phase 14c quadrotor shape (tile {tile_lo}, maps in shared memory "
-          f"{res_lo}), 64-iteration head of 600: "
+    print(f"phase 14c quadrotor shape (tile {plan_lo.tile}, maps in shared "
+          f"memory {plan_lo.resident}), 64-iteration head of 600: "
           f"{bit_equal(out_k, out_p)}/{4 * L_QUAD} lanes differ in a bit",
           flush=True)
-    c_errs.append(agreement("phase 14c quadrotor head", out_k, out_p))
+    c_errs.append(agreement(
+        "phase 14c quadrotor head", out_k, out_p,
+        out_p64=k1_plain64(Pq, Cq, mq, x0q, max_iter=600,
+                           bf16_head_iters=64)))
     # (d) the latch recheck.  The carry froze just before the latching
     # iteration: the plain version recomputes that iteration in fp32 from it
     # and must latch at once.  Its sum runs in another order, which moves a
@@ -1256,10 +1381,12 @@ def grouped_phases(card):
         check(tuple(us.shape) == (G, L, gs.N - 1, gs.nu), f"controls "
               f"{tuple(us.shape)}")
         check(n_conv >= 0.99 * B, f"phase {phase}: {n_conv}/{B} converged")
+        staged_64 = gs.make_fused_pipeline(
+            lanes=L, fused=in_float64(condensed_fused_reference), **pkw)
         errs = [agreement(
             f"phase {phase} {name}, staged pipeline vs its plain version",
             flat_lanes(out), flat_lanes(staged_p(x0s)),
-            min_solved=int(0.99 * B))]
+            min_solved=int(0.99 * B), out_p64=flat_lanes(staged_64(x0s)))]
         out_u = flat(x0s)
         errs.append(agreement(
             f"phase {phase} {name}, unstaged pipeline vs its plain version",
@@ -1320,7 +1447,9 @@ def grouped_phases(card):
         else:
             err = agreement(f"phase 16 {key} bulk launch G={Gq} x L={Lq}, "
                             f"{kw['max_iter']} reduced iterations vs plain",
-                            out_k, out_p, min_solved=0)
+                            out_k, out_p, min_solved=0,
+                            out_p64=in_float64(condensed_fused_reference)(
+                                *argsq, **full))
             n_lo, n_hi = product_counts(out_k[2], full["check_termination"])
             t_ops = 2.0 * sw * sw * (n_lo / PEAK_BF16 + n_hi / PEAK_FP32)
         t_bytes = tensor_bytes(gs_q.maps().T12, gs_q.maps().T1, Cq.rho,
@@ -1333,14 +1462,28 @@ def grouped_phases(card):
               f"ms, plain {t_p:.3f} ms, bound {timed[key][3]:.3f} ms by "
               f"{timed[key][4]}; mean iterations "
               f"{out_k[2].float().mean().item():.1f}", flush=True)
+    # a yardstick only, not the same function (library_ms stays null): the
+    # products alone, 160 cuBLAS batched fp32 products of the 64 maps by
+    # (316 x 1,024) iterates
+    T12w = gs_q.maps().T12[..., :sw].contiguous()
+    W = torch.randn(Gq, sw, Lq, device=dev)
+    with full_fp32_matmul():
+        t_bmm = float(np.median([event_ms(
+            lambda: [torch.bmm(T12w, W) for _ in range(160)])
+            for _ in range(3)]))
+    print(f"phase 16 yardstick: the K1d launch's products alone, 160 "
+          f"torch.bmm of the {Gq} maps by ({sw} x {Lq}) iterates in fp32, "
+          f"median of 3: {t_bmm:.3f} ms ({t_bmm / 160:.3f} ms a product)",
+          flush=True)
     # what making the layouts at every launch costs at this shape
     su_q = sw - gs_q.N * gs_q.nx
     t_lay = [float(np.median([event_ms(lambda: map_layout(
-        gs_q.maps(), gs_q.nx, su_q, sw, red)) for _ in range(5)]))
-        for red in (False, True)]
+        gs_q.maps(), gs_q.nx, su_q, sw, red,
+        fused_tile_plan(gs_q.nx, gs_q.nu, gs_q.N, red)))
+        for _ in range(5)])) for red in (False, True)]
     print(f"phase 16 kernel-side layouts of the {Gq} maps, made at every "
-          f"launch, median of 5: {t_lay[0]:.3f} ms, with the bf16-rounded "
-          f"copy {t_lay[1]:.3f} ms", flush=True)
+          f"launch, median of 5: {t_lay[0]:.3f} ms, with the bf16 map "
+          f"{t_lay[1]:.3f} ms", flush=True)
     _, _, _, r_errs = run_sweep(17, "rocket sweep with per-group cones",
                                 sweeps.rocket_cone_sweep, cones=True)
     check(d_launches == 6 and c_launches == 3,
@@ -1384,7 +1527,8 @@ def stage_and_loop_phases(card):
     from tinympc_julia_tpu_torch.models import cartpole, quadrotor, rocket
     from tinympc_julia_tpu_torch.ops.condensed import build_condensed
     from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
-        condensed_fused_cuda, condensed_fused_reference, map_layout)
+        condensed_fused_cuda, condensed_fused_reference, fused_tile_plan,
+        map_layout)
     from tinympc_julia_tpu_torch.ops.cuda.fused import (
         fused_cuda, fused_reference, fused_stage_plan, make_fused_solver)
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
@@ -1616,7 +1760,8 @@ def stage_and_loop_phases(card):
         lambda: condensed_fused_reference(*l_args, x1, cold[4],
                                           warm_start=True, **l_kw))
     t_lay = float(np.median([event_ms(lambda: map_layout(
-        maps, 4, (N - 1) * 1, sw, False)) for _ in range(5)]))
+        maps, 4, (N - 1) * 1, sw, False, fused_tile_plan(4, 1, N)))
+        for _ in range(5)]))
     print(f"phase 20 one warm launch, B={B_LOOP}, mean iterations "
           f"{w_k[2].float().mean().item():.1f}: median of 5: kernel "
           f"{t_w:.3f} ms, plain {t_w_p:.3f} ms, bound {b_bound[0]:.4f} ms by "
@@ -1716,8 +1861,9 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # a caller's setting that the port must not follow: every fp32 path
+    # pins full fp32 matmuls itself (utils/precision.py)
+    torch.backends.cuda.matmul.allow_tf32 = True
     card = smi()
     print(f"phase 1 env: torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s), "

@@ -320,7 +320,6 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_pipeline: torch.cuda.is_available() is "
                          "false; this script needs an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -176,8 +176,27 @@ def test_wrong_inputs_raise():
 
 
 def test_tile_plan():
-    assert K.fused_tile_plan(4, 1, 20) == (128, True)     # cartpole, sw=99
-    assert K.fused_tile_plan(12, 4, 20) == (64, False)    # quadrotor, sw=316
+    # tiles of 32 lanes on 256 threads.  Cartpole, sw = 99: 8 rows a thread
+    # (128 padded rows); w2 99 x 32 floats + flags + residual partials + the
+    # lanes' state (uxc 99, y and z 19 each, v 80: 217 floats a lane) + the
+    # resident map 99 x 128
+    assert K.fused_tile_plan(4, 1, 20) == K.TilePlan(
+        32, 256, True, True, 128, 128, 12672 + 144 + 4096 + 27776 + 50688)
+    # quadrotor, sw = 316: 20 rows a thread (320 padded rows), the state
+    # (708 floats a lane) resident, T12 streamed in 8-row slabs (a ring of
+    # six 8 x 320 fp32 slabs)
+    plan = K.fused_tile_plan(12, 4, 20)
+    assert plan == K.TilePlan(32, 256, False, True, 320, 320,
+                              40448 + 144 + 4096 + 90624 + 6 * 8 * 320 * 4)
+    assert plan.smem <= K.SMEM_PER_BLOCK == 232448
+    assert plan.tile % (2 * K.MMA_N) == 0
+    # a state dual adds sx floats a lane
+    assert K.state_floats(12, 4, 20, False) == 708 + 240
+    # sw = 508 with a state dual: the state stays in global memory
+    wide = K.fused_tile_plan(12, 4, 32, state_free=False)
+    assert not wide.state_shared and not wide.resident and wide.rows == 512
+    with pytest.raises(ValueError, match="rows"):
+        K.fused_tile_plan(30, 10, 20)  # sw = 790 > 512
 
 
 # -- K1e: the linear and cone projections ------------------------------------
@@ -646,47 +665,70 @@ def test_bf16_round_is_round_to_nearest_even():
 
 
 def test_tile_plan_with_reduced_iterations():
-    # the bf16-rounded copy of T12 joins the fp32 one in shared memory
-    assert K.fused_tile_plan(4, 1, 20, reduced=True) == (128, True)
-    assert K.fused_tile_plan(6, 3, 10, reduced=True) == (128, True)
-    assert K.fused_tile_plan(12, 4, 20, reduced=True) == (64, False)
+    # resident maps: the bf16 map (rows x (kp + 8)) and the rounded w2
+    # (32 x (kp + 8)) join them
+    assert K.fused_tile_plan(4, 1, 20, reduced=True) == K.TilePlan(
+        32, 256, True, True, 128, 128,
+        12672 + 144 + 4096 + 27776 + 50688 + 2 * 128 * 136 + 2 * 32 * 136)
+    assert K.fused_tile_plan(6, 3, 10, reduced=True) == K.TilePlan(
+        32, 256, True, True, 128, 96,
+        11136 + 144 + 4096 + 25728 + 44544 + 2 * 128 * 104 + 2 * 32 * 104)
+    # quadrotor: the ring holds six fp32 slabs or four bf16 slabs of 16
+    # map columns (rows padded by 8), the larger of the two; the rounded w2
+    # is 32 x (320 + 8) bf16; within one block's shared memory, a tile
+    # width that is a multiple of the mma's N
+    plan = K.fused_tile_plan(12, 4, 20, reduced=True)
+    ring = max(6 * 8 * 320 * 4, 4 * 320 * (16 + 8) * 2)
+    assert plan == K.TilePlan(32, 256, False, True, 320, 320,
+                              40448 + 144 + 4096 + 90624 + ring
+                              + 2 * 32 * 328)
+    assert plan.smem <= 232448 and plan.tile % K.MMA_N == 0
 
 
 # -- the kernel-side layouts, made at every launch ----------------------------
 
 def test_map_layout_follows_the_maps():
     """A layout reads the maps it is given: a replaced T1 and an in-place
-    write to T12 both show in the next one, and the rounded copy is made
-    for launches with reduced iterations only."""
+    write to T12 both show in the next one, and the bf16 map is made for
+    launches with reduced iterations only: T12w itself rounded to bf16,
+    row-major, zero-padded to the plan's (rows, kp)."""
     _, (pps, pcs) = grouped_cartpoles(2, jnp.float32, N=NG)
     pm = C.build_condensed(pps, pcs)
     su, sw = (NG - 1) * 1, (NG - 1) * 1 + NG * 4
-    t12t, t12lo, t12c, tx0, t1c = K.map_layout(pm, 4, su, sw, False)
-    assert t12lo is None
+    plan = K.fused_tile_plan(4, 1, NG, reduced=True)
+    t12t, a, t12c, tx0, t1c = K.map_layout(pm, 4, su, sw, False, plan)
+    assert a is None
     other = pm._replace(T1=pm.T1 + 1.0)
-    assert torch.equal(K.map_layout(other, 4, su, sw, False)[3], tx0 + 1.0)
+    assert torch.equal(K.map_layout(other, 4, su, sw, False, plan)[3],
+                       tx0 + 1.0)
     pm.T12.mul_(1.5)
-    again = K.map_layout(pm, 4, su, sw, True)
+    again = K.map_layout(pm, 4, su, sw, True, plan)
     assert torch.equal(again[0], 1.5 * t12t)
-    assert torch.equal(again[1], K.bf16_round(again[0]))
-    assert not torch.equal(again[1], again[0])
+    lo = again[1]
+    assert lo.dtype == torch.bfloat16 and lo.shape == (2, plan.rows, plan.kp)
+    assert torch.equal(lo[:, :sw, :sw].float(),
+                       K.bf16_round(pm.T12[..., :sw]))
+    assert not torch.equal(lo[:, :sw, :sw].float(), pm.T12[..., :sw])
+    assert float(lo[:, sw:].float().abs().max()) == 0.0
+    assert float(lo[:, :, sw:].float().abs().max()) == 0.0
 
 
 def test_map_layouts_keep_the_group_axis():
     """K1's and K2's kernel-side layouts of G-stacked maps: each group's
-    slice is the single-map layout (transposed, rows zero-padded to the row
-    block)."""
+    slice is the single-map layout (transposed, rows zero-padded to the
+    plan's rows, or K2's row block)."""
     from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
     G = 3
     _, (pps, pcs) = grouped_cartpoles(G, jnp.float32, N=NG)
     pm = C.build_condensed(pps, pcs)
     su, sw = (NG - 1) * 1, (NG - 1) * 1 + NG * 4
-    t12t, _, t12c, tx0, t1c = K.map_layout(pm, 4, su, sw, False)
-    swp = K._padded_rows(sw)
-    assert t12t.shape == (G, sw, swp) and swp % K.ROW_BLOCK == 0
+    plan = K.fused_tile_plan(4, 1, NG)
+    t12t, _, t12c, tx0, t1c = K.map_layout(pm, 4, su, sw, False, plan)
+    swp = plan.rows
+    assert t12t.shape == (G, sw, swp) and swp % (4 * K.TILE_ROW_GROUPS) == 0
     for g in range(G):
         one = C.CondensedMaps(*(m[g] for m in pm))
-        o12t, _, o12c, ox0, o1c = K.map_layout(one, 4, su, sw, False)
+        o12t, _, o12c, ox0, o1c = K.map_layout(one, 4, su, sw, False, plan)
         assert torch.equal(t12t[g], o12t) and torch.equal(t12c[g], o12c)
         assert torch.equal(tx0[g], ox0) and torch.equal(t1c[g], o1c)
         assert torch.equal(o12t[:, :sw], one.T12[:, :sw].T)

@@ -4,6 +4,7 @@ at HIGHEST precision) and the two-phase adaptive-rho pipeline as the grouped
 solver builds it from the JAX adaptive kernel, both in interpret mode off
 the TPU."""
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -15,10 +16,12 @@ from tinympc_julia_tpu.ops.pallas.condensed_kernel import (
     make_condensed_fused_solver as jax_fused)
 from tinympc_julia_tpu.parallel.rebuild import (
     compact_members as jax_compact)
+from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
 from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
     condensed_fused_reference)
 from tinympc_julia_tpu_torch.ops.cuda.adaptive_kernel import (
     condensed_adaptive_reference)
+from tinympc_julia_tpu_torch.parallel.pipeline import STAGED
 from tinympc_julia_tpu_torch.parallel import (compact_members,
                                               three_phase_solve,
                                               two_phase_adaptive_solve)
@@ -54,21 +57,24 @@ def test_compact_members_matches_jax(G, M, slots, p):
 BUDGETS = (24, 36, 324)
 
 
-def _jax_pipeline(jp, jc, jm, x0s, slots):
+def _jax_pipeline(jp, jc, jm, x0s, slots, staged=False, head=0):
     """bench.py's _pipeline with every phase at HIGHEST (the port's
-    all-fp32 form).  Each phase runs as one tile: a lane's result does not
-    depend on its tile."""
+    all-fp32 form), or with ``staged`` its phase 0 at Precision.DEFAULT and
+    a ``head``-iteration bf16 head in phase 2 (bench.py's staging).  Each
+    phase runs as one tile: a lane's result does not depend on its tile."""
     m0, m1, m2 = BUDGETS
     kw = dict(en_input_bound=True, en_state_bound=False,
               relaxation_alpha=1.7, check_termination=4,
               interpret=INTERPRET)
     B = x0s.shape[0]
     fn0 = jax_fused(4, 1, 20, max_iter=m0, carry_out=True, batch_tile=B,
-                    **dict(kw, check_termination=m0))
+                    **dict(kw, check_termination=m0),
+                    **(dict(precision=jax.lax.Precision.DEFAULT)
+                       if staged else {}))
     fn1 = jax_fused(4, 1, 20, max_iter=m1, warm_start=True, carry_out=True,
                     batch_tile=B, **kw)
     fn2 = jax_fused(4, 1, 20, max_iter=m2, warm_start=True,
-                    batch_tile=slots, **kw)
+                    batch_tile=slots, bf16_head_iters=head, **kw)
     bounds = (jp.u_min, jp.u_max, jp.x_min, jp.x_max)
     _, _, _, ok0, carry0 = fn0(jm, jc.rho, *bounds, x0s)
     _, _, it1, ok1p, carry = fn1(jm, jc.rho, *bounds, x0s, carry0)
@@ -109,6 +115,75 @@ def test_three_phase_solve_matches_jax_pipeline():
     assert torch.isfinite(res.us).all()
     assert float(res.us.abs().max()) <= 5.0 + 1e-5
     assert lanes.numel() == n_strag
+
+
+# The staged pipeline's phase-2 head in the tests: a multiple of the check
+# interval, kept short for the same compile-time reason as phase 0.
+HEAD = 16
+
+
+def test_staged_three_phase_control_flow_matches_jax(monkeypatch):
+    """Rounding off (the JAX side is off the TPU, where DEFAULT precision
+    computes in fp32): the staged pipeline (phase 0 at "default" with its
+    one end check, a reduced head in phase 2) follows bench.py's staged
+    ``_pipeline`` lane for lane in every phase."""
+    monkeypatch.setattr(K, "bf16_round", lambda t: t)
+    B, slots = 256, 128
+    (jp, jc, jm), (pp, pc, pm) = cartpole_setup(jnp.float32)
+    x0 = x0_batch(B, 3).astype(np.float32)
+    it1, ok1, idx, it2, ok2, unconv = _jax_pipeline(
+        jp, jc, jm, jnp.asarray(x0), slots, staged=True, head=HEAD)
+    res = three_phase_solve(pm, float(pc.rho), pp.u_min, pp.u_max, pp.x_min,
+                            pp.x_max, torch.as_tensor(x0), nx=4, nu=1, N=20,
+                            straggler_slots=slots, budgets=BUDGETS,
+                            phase0_bf16=True, phase2_bf16_head=HEAD)
+    n_strag = int(np.asarray(unconv).sum())
+    assert 0 < n_strag <= slots
+    np.testing.assert_array_equal(res.unconv.numpy(), np.asarray(unconv))
+    np.testing.assert_array_equal(res.iters1.numpy(), np.asarray(it1))
+    np.testing.assert_array_equal(res.solved1.numpy(), np.asarray(ok1))
+    np.testing.assert_array_equal(res.idx.numpy(), np.asarray(idx))
+    # phase 2: off the TPU the Pallas kernel's DEFAULT dot sums in another
+    # order than its HIGHEST one, which may move a lane that sits on the
+    # tolerance by one check interval (as in the head's kernel test)
+    mask = np.arange(slots) < n_strag
+    ip, ij = res.iters2.numpy()[mask], np.asarray(it2)[mask]
+    same = ip == ij
+    assert same.mean() >= 0.95 and (np.abs(ip - ij) <= 4).all()
+    np.testing.assert_array_equal(res.solved2.numpy()[mask][same],
+                                  np.asarray(ok2)[mask][same])
+    assert int(res.iters2[res.valid].min()) >= HEAD  # the head ran
+
+
+def test_staged_three_phase_keeps_quality():
+    """Rounding on: against the fp32 pipeline on the same budgets the staged
+    one (``STAGED``'s phase 0, a short head) converges as many lanes
+    (within 1) and lands within 2e-2 on the lanes both solved; it is not the
+    fp32 pipeline."""
+    (_, _, _), (pp, pc, pm) = cartpole_setup(jnp.float32)
+    x0 = torch.as_tensor(x0_batch(256, 3), dtype=torch.float32)
+    args = (pm, float(pc.rho), pp.u_min, pp.u_max, pp.x_min, pp.x_max, x0)
+    kw = dict(nx=4, nu=1, N=20, straggler_slots=128, budgets=BUDGETS)
+    assert STAGED["phase0_bf16"] and STAGED["phase2_bf16_head"] == 96
+    staged = three_phase_solve(*args, phase0_bf16=True,
+                               phase2_bf16_head=HEAD, **kw)
+    plain = three_phase_solve(*args, **kw)
+    assert int(staged.converged()) >= int(plain.converged()) - 1
+    xs, us, _, ok = _merged(staged)
+    xp, up, _, okp = _merged(plain)
+    both = (ok == 1) & (okp == 1)
+    assert int(both.sum()) > 200
+    assert float((us - up)[both].abs().max()) < 2e-2
+    assert not torch.equal(us, up)
+
+
+def _merged(res):
+    """(xs, us, final count, solved) per lane, phase-2 slots merged."""
+    it, ok = res.iters1.clone(), res.solved1.clone()
+    lanes = res.idx[res.valid]
+    it[lanes] += res.iters2[res.valid]
+    ok[lanes] = res.solved2[res.valid]
+    return res.xs, res.us, it, ok
 
 
 def test_three_phase_solve_with_the_plain_solver_is_the_same():

@@ -6,17 +6,23 @@ nvcc at first use) where the JAX package has Pallas kernels.  It imports
 neither jax nor flax; its tests hold it against the JAX package, which stays
 beside it as the reference.
 
-Ported so far: the main path of a batched user (setup: problem, Riccati
-cache, condensed maps; ``TinyMPCSolver.solve_batch`` on the condensed and
-fused paths; the three-phase straggler pipeline, all through kernel K1 in
-ops/cuda/condensed_kernel.py), and the constrained path: the
+Ported so far, by slice: the main path of a batched user (setup: problem,
+Riccati cache, condensed maps; ``TinyMPCSolver.solve_batch`` on the
+condensed and fused paths; the three-phase straggler pipeline, fp32 or
+staged with reduced-precision phases as the JAX headline runs it, through
+kernel K1 in ops/cuda/condensed_kernel.py); the constrained path: the
 reference-ordered single-instance ``solve`` (ops/admm.py), the projections
 (ops/projections.py), the linear, cone and equality setters, and K1's
 halfspace and cone projections, with the rocket lander (models/rocket.py);
-per-lane adaptive rho (ops/rho.py, the Taylor-expanded maps, kernel K2); and
+per-lane adaptive rho (ops/rho.py, the Taylor-expanded maps, kernel K2);
 the grouped path: G distinct problems x L lanes (parallel/grouped.py,
 parallel/batch.py, the group grid of both kernels and K1's
-reduced-precision head).
+reduced-precision head); closed-loop serving: the three MPC loops
+(parallel/mpc.py, the fused one chained through K1's carry) and the
+per-stage fused solve, kernel K3 (ops/cuda/fused.py).  K1 runs its product
+as a lane-tile GEMM on the H100 (fp32 FMA in index order, bf16 tensor cores
+for reduced iterations), and every fp32 path runs its matmuls in full fp32
+(utils/precision.py), whatever the process-wide TF32 setting.
 """
 
 from .types import (  # noqa: F401
@@ -33,6 +39,9 @@ from .types import (  # noqa: F401
     settings_bake_key,
     stack_instances,
 )
+from .ops import admm, projections, riccati  # noqa: F401
+from .ops import rho as rho_adaptation  # noqa: F401
+from .ops.admm import solve  # noqa: F401
 from .ops.riccati import precompute_cache  # noqa: F401
 from .api import BatchWarmCarry, TinyMPCSolver  # noqa: F401
 
@@ -42,5 +51,5 @@ __all__ = [
     "BatchWarmCarry", "Cache", "ConeSet", "Problem", "Settings", "Solution",
     "State", "TinyMPCSolver", "default_settings", "expand_lanes",
     "init_state", "make_problem", "precompute_cache", "settings_bake_key",
-    "stack_instances",
+    "solve", "stack_instances",
 ]

@@ -29,6 +29,7 @@ from typing import Tuple
 import torch
 
 from ..types import Cache, Problem, Settings, Solution, State, map_tensors
+from ..utils.precision import full_fp32_matmul
 from . import not_ported, projections
 from . import rho as rho_mod
 
@@ -294,6 +295,7 @@ def solve_impl(problem: Problem, cache: Cache, settings: Settings,
     return finalize(carry)
 
 
+@full_fp32_matmul()
 def solve(problem: Problem, cache: Cache, settings: Settings, state: State,
           *, horizon_parallel: bool = False, chunk_maps=None
           ) -> Tuple[State, Cache, Solution]:

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..types import Cache, ConeSet, Problem, Settings
+from ..utils.precision import full_fp32_matmul
 from . import rho as rho_mod
 
 
@@ -399,6 +400,7 @@ def _zero_carry(lead, su, sx, L, dtype, dev):
     return zu, zx
 
 
+@full_fp32_matmul()
 def _solve_condensed_impl(problem, cache, settings, x0s, maps, warm,
                           d_ref=None):
     """The fixed-rho condensed loop on x0s (..., L, nx), the leading axes
@@ -481,6 +483,7 @@ def _solve_condensed_impl(problem, cache, settings, x0s, maps, warm,
     return xs, us, out_it, out_solved, CondensedCarry(d=d, y=y, g=g, v=v, z=z)
 
 
+@full_fp32_matmul()
 def ref_backward_const(problem: Problem, cache: Cache, Xref=None, Uref=None):
     """The reference trajectories' contribution to the condensed backward
     map: d_ref (su,), the backward recursion of (qref, rref, pNref) alone.
@@ -751,6 +754,7 @@ class AdaptiveCondensedCarry(NamedTuple):
     rho: torch.Tensor  # (B,)
 
 
+@full_fp32_matmul()
 def _solve_condensed_adaptive_impl(problem, cache, settings, x0s, maps, warm):
     """The adaptive-rho condensed loop on x0s (..., L, nx), the leading axes
     being those of the problem, the cache and the Taylor maps.  Returns (xs,

@@ -48,6 +48,7 @@ from ..condensed import (CondensedTaylorMaps, _cones_stacked,
                          _halfspaces_stacked, _osqp_residuals_stacked,
                          _sqrt_rn)
 from ..rho import EPS, RHO_INTERVAL, TERM_DEADBAND, TERM_MAX_STEP
+from ...utils.precision import full_fp32_matmul
 from ._build import load_library
 from .condensed_kernel import (MAX_STAGE, MAX_TILE, SMEM_PER_BLOCK,
                                FusedConstraints, _check_constraints,
@@ -201,6 +202,7 @@ def _validate(tmaps, bounds, x0s, warm, plant, nx, nu, N, warm_start, cons,
     return x0, L, tensors
 
 
+@full_fp32_matmul()
 def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
                                  x_min, x_max, x0s, warm=None, *,
                                  plant: AdaptivePlant | None, nx, nu, N,

@@ -24,10 +24,11 @@ for every group; lanes keep the flat order ``g*L + l``.
 
 Reduced precision (``precision="default"``, ``bf16_head_iters=k0``): the
 product ``T12w @ w2`` of a reduced iteration is one bf16 pass, both operands
-rounded to bf16 (round to nearest even) and the products summed in fp32;
-everything else stays fp32.  The first k0 iterations are reduced and check
-only on iteration k0 - 1; with ``precision="default"`` every iteration is
-reduced.  An iteration that runs the residual check always computes its
+rounded to bf16 (round to nearest even) and the products summed in fp32 (on
+the tensor cores in the kernel, so in another order than the plain
+version's); everything else stays fp32.  The first k0 iterations are
+reduced and check only on iteration k0 - 1; with ``precision="default"``
+every iteration is reduced.  An iteration that runs the residual check always computes its
 product in full precision, so a lane never latches on the residuals of an
 approximate rollout.
 """
@@ -40,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from ...types import ConeSet
+from ...utils.precision import full_fp32_matmul
 from ..condensed import (CondensedMaps, _cones_stacked, _halfspaces_stacked,
                          halfspace_rows)
 from ._build import load_library
@@ -69,17 +71,41 @@ class FusedConstraints(NamedTuple):
 
 
 # The launch layout is decided here and passed to the kernel, which checks
-# it: shared memory one block may use on sm_90 (opt-in maximum, bytes), the
-# row padding of the transposed T12 (a multiple of the kernel's output-row
-# register block, csrc/condensed_fused.cu kRowBlock) and the largest tile.
-# The projections hold one stage of a side in a per-thread buffer of
-# MAX_STAGE floats (kMaxStage) and take at most MAX_CONES cones a side
-# (kMaxCones).
+# it (csrc/condensed_fused.cu): shared memory one block may use on sm_90
+# (opt-in maximum, bytes); tiles of 32 lanes (kTile) on 256 threads
+# (kThreads, eight a lane); 16 thread rows (kRowGroups) of a multiple of 4
+# rows each, at most 32 (the kernel's instances); a ring of 6 fp32 slabs of
+# 8 map rows (kStages, kSlabK) or 4 bf16 slabs of 16 map columns
+# (kStagesLo, kSlabKLo) whose rows are padded by 8 (kPadLo); the bf16 map's
+# k padded to a multiple of 32.  MAX_TILE is the adaptive kernel's largest tile.  The
+# projections hold one stage of a side in a per-thread buffer of MAX_STAGE
+# floats (kMaxStage) and take at most MAX_CONES cones a side (kMaxCones).
 SMEM_PER_BLOCK = 232448
-ROW_BLOCK = 8
 MAX_TILE = 128
+TILE = 32
+THREADS = 256
+TILE_ROW_GROUPS = 16
+MAX_TILE_RPT = 32
+SLAB_K = 8
+STAGES = 6
+SLAB_K_LO = 16
+STAGES_LO = 4
+KP_ALIGN = 32
+PAD_LO = 8
+MMA_N = 8
 MAX_STAGE = 12
 MAX_CONES = 8
+
+
+class TilePlan(NamedTuple):
+    """The launch layout of one K1 launch."""
+    tile: int           # lanes per block
+    threads: int        # threads per block
+    resident: bool      # T12 staged whole in shared memory (else streamed)
+    state_shared: bool  # the lanes' solver state in shared memory
+    rows: int           # padded rows of the transposed map (swp)
+    kp: int             # padded k of the bf16 map of reduced iterations
+    smem: int           # dynamic shared memory of one block, bytes
 
 
 def bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -175,35 +201,66 @@ def _state_free(en_state_bound, cons: FusedConstraints) -> bool:
             and cons.cones_x.num_cones == 0)
 
 
-def _padded_rows(sw: int) -> int:
-    return -(-sw // ROW_BLOCK) * ROW_BLOCK
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
 
 
-def _smem_bytes(sw: int, tile: int, resident: bool,
-                reduced: bool = False) -> int:
-    """Dynamic shared memory of one block: two w2 buffers of sw floats per
-    lane, and the padded T12 where it is resident (twice with reduced
-    iterations: the fp32 map and its bf16-rounded copy)."""
-    maps = sw * _padded_rows(sw) * (2 if reduced else 1) if resident else 0
-    return 4 * (2 * sw * tile + maps)
+def state_floats(nx: int, nu: int, N: int, state_free: bool) -> int:
+    """Floats of one lane's solver state: uxc (sw), y and z (su each), v
+    (sx) and, with a state constraint, g (sx)."""
+    su, sx = (N - 1) * nu, N * nx
+    return su + sx + 2 * su + (1 if state_free else 2) * sx
 
 
-def fused_tile_plan(nx: int, nu: int, N: int,
-                    reduced: bool = False) -> tuple[int, bool]:
-    """(lanes per block, whether T12 is staged in shared memory).
+def tile_smem(sw: int, rows: int, kp: int, state: int, resident: bool,
+              reduced: bool) -> int:
+    """One block's shared memory (csrc/condensed_fused.cu tile_layout): the
+    tile's w2 (sw x 32 floats), the latch flags, the residual partials of
+    the lanes' threads, the lanes' solver state (``state`` floats a lane,
+    0 where it stays in global memory), the map (resident: fp32, and bf16
+    with reduced iterations; streamed: a ring of STAGES fp32 or STAGES_LO
+    bf16 slabs, whichever is larger),
+    the bf16 w2 of reduced iterations ([lane][k], rows padded)."""
+    n = (_up16(4 * sw * TILE) + _up16(4 * (TILE + 1)) + _up16(16 * THREADS)
+         + _up16(4 * state * TILE))
+    if resident:
+        n += _up16(4 * sw * rows)
+        if reduced:
+            n += _up16(2 * rows * (kp + PAD_LO))
+    else:
+        ring = 4 * STAGES * SLAB_K * rows
+        if reduced:
+            ring = max(ring, 2 * STAGES_LO * rows * (SLAB_K_LO + PAD_LO))
+        n += _up16(ring)
+    if reduced:
+        n += _up16(2 * TILE * (kp + PAD_LO))
+    return n
 
-    T12 (with ``reduced`` also its bf16-rounded copy) joins the lanes' w2
-    buffers in shared memory where a warp's worth of lanes still fits beside
-    it, and is read from global memory (L2) otherwise."""
+
+def fused_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
+                    state_free: bool = True) -> TilePlan:
+    """The layout of a launch at this shape (``reduced``: with
+    reduced-precision iterations; ``state_free``: no state-side
+    constraint, so no state dual): the lanes' solver state in shared memory
+    where it fits, then T12 resident where it fits beside it and streamed
+    in slabs otherwise."""
     sw = (N - 1) * nu + N * nx
-    resident = _smem_bytes(sw, 32, True, reduced) <= SMEM_PER_BLOCK
-    avail = SMEM_PER_BLOCK - (_smem_bytes(sw, 0, True, reduced)
-                              if resident else 0)
-    tile = min(MAX_TILE, avail // _smem_bytes(sw, 1, False) // 32 * 32)
-    if tile < 32:
-        raise ValueError(f"fused kernel: a map of width {sw} leaves no room "
-                         "for a warp of lanes in shared memory")
-    return tile, resident
+    rpt = 4 * -(-sw // (4 * TILE_ROW_GROUPS))
+    if rpt > MAX_TILE_RPT:
+        raise ValueError(f"fused kernel: a map of width {sw} exceeds the "
+                         f"kernel's {TILE_ROW_GROUPS * MAX_TILE_RPT} rows")
+    rows = TILE_ROW_GROUPS * rpt
+    kp = -(-sw // KP_ALIGN) * KP_ALIGN
+    state = state_floats(nx, nu, N, state_free)
+    for shared in (True, False):
+        for resident in (True, False):
+            smem = tile_smem(sw, rows, kp, state if shared else 0, resident,
+                             reduced)
+            if smem <= SMEM_PER_BLOCK:
+                return TilePlan(TILE, THREADS, resident, shared, rows, kp,
+                                smem)
+    raise ValueError(f"fused kernel: a map of width {sw} leaves no room for "
+                     "a tile of lanes in shared memory")
 
 
 def _dims(nx, nu, N):
@@ -320,6 +377,7 @@ def _grouped_view(t, G, rows):
         else t.reshape(rows, 1)
 
 
+@full_fp32_matmul()
 def condensed_fused_reference(maps: CondensedMaps, rho, u_min, u_max, x_min,
                               x_max, x0s, warm=None, *, nx, nu, N, max_iter,
                               abs_pri_tol, abs_dua_tol, en_state_bound,
@@ -486,7 +544,7 @@ _IPTR = ctypes.POINTER(ctypes.c_int)
 # (start, dim) pairs (host), the cones' mu (device), the cone count, and
 # whether the rows and the mus carry a leading group axis
 _SIDE = [_PTR, _INT, _IPTR, _PTR, _INT, _INT, _INT]
-_ARGTYPES = ([_PTR] * 26 + [_INT] * 9 + [_FLT] * 4 + [_INT] * 12
+_ARGTYPES = ([_PTR] * 26 + [_INT] * 9 + [_FLT] * 4 + [_INT] * 13
              + _SIDE + _SIDE + [_PTR])
 
 
@@ -502,19 +560,25 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def map_layout(maps: CondensedMaps, nx, su, sw, reduced: bool):
+def map_layout(maps: CondensedMaps, nx, su, sw, reduced: bool,
+               plan: TilePlan):
     """Kernel-side layouts of the maps, made at every launch: T12w
-    transposed with its rows padded to a multiple of ROW_BLOCK, its
-    bf16-rounded copy where the launch has reduced iterations (else None),
-    the rollout and constant columns as contiguous vectors; a leading group
-    axis is kept."""
-    swp = _padded_rows(sw)
+    transposed with its rows zero-padded to ``plan.rows``, T12w itself in
+    real bf16 (round to nearest even), row-major and zero-padded to
+    (``plan.rows``, ``plan.kp``), where the launch has reduced iterations
+    (else None), the rollout and constant columns as contiguous vectors; a
+    leading group axis is kept."""
     lead = maps.T12.shape[:-2]
-    t12t = torch.zeros(lead + (sw, swp), dtype=torch.float32,
-                       device=maps.T12.device)
+    dev = maps.T12.device
+    t12t = torch.zeros(lead + (sw, plan.rows), dtype=torch.float32,
+                       device=dev)
     t12t[..., :sw] = maps.T12[..., :sw].transpose(-1, -2)
-    return (t12t, bf16_round(t12t) if reduced else None,
-            maps.T12[..., sw].contiguous(),
+    lo = None
+    if reduced:
+        lo = torch.zeros(lead + (plan.rows, plan.kp), dtype=torch.bfloat16,
+                         device=dev)
+        lo[..., :sw, :sw] = maps.T12[..., :sw]
+    return (t12t, lo, maps.T12[..., sw].contiguous(),
             maps.T1[..., su:su + nx].contiguous(),
             maps.T1[..., -1].contiguous())
 
@@ -563,8 +627,8 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
     inputs, on a projected stage wider than MAX_STAGE, and when the build
     or the launch fails.
 
-    The maps' kernel-side layouts (and, for reduced iterations, the
-    bf16-rounded T12) are made at every launch.
+    The maps' kernel-side layouts (and, for reduced iterations, the bf16
+    T12) are made at every launch.
     Counts every launch in ``.launches``; those that run linear or cone
     projections (K1e) also in ``.projected_launches``, those over more than
     one group (K1d) in ``.grouped_launches`` and those with reduced
@@ -583,14 +647,14 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
         raise ValueError("empty batch")
     dev = x0s.device
     reduced = bool(k0 or lo_all)
-    tile, resident = fused_tile_plan(nx, nu, N, reduced)
-    swp = _padded_rows(sw)
     state_free = _state_free(en_state_bound, cons)
+    plan = fused_tile_plan(nx, nu, N, reduced, state_free)
     side_u = _side_args(cons.lin_u, cons.cones_u, nu, "input")
     side_x = _side_args(cons.lin_x, cons.cones_x, nx, "state")
 
     f32 = dict(dtype=torch.float32, device=dev)
-    t12t, t12lo, t12c, tx0, t1c = map_layout(maps, nx, su, sw, reduced)
+    t12t, t12lo, t12c, tx0, t1c = map_layout(maps, nx, su, sw, reduced,
+                                             plan)
     rho_t = torch.as_tensor(rho, **f32).reshape(-1).contiguous()
     xout = torch.empty((sx, B), **f32)
     uout = torch.empty((su, B), **f32)
@@ -601,7 +665,8 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
         g = torch.zeros((sx, B), **f32) if carry_out else None
     else:
         g = torch.empty((sx, B), **f32)
-    uxc = torch.empty((sw, B), **f32)
+    # the rollout constant's scratch, where the state is not in shared memory
+    uxc = None if plan.state_shared else torch.empty((sw, B), **f32)
     w2o = torch.empty((sw, B), **f32) if carry_out else None
     vco = torch.empty((sx, B), **f32) if carry_out else None
     zco = torch.empty((su, B), **f32) if carry_out else None
@@ -621,8 +686,8 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
                  relaxation_alpha, 1.0 - relaxation_alpha,
                  abs_pri_tol, abs_dua_tol, int(en_input_bound),
                  int(en_state_bound), int(warm_start), int(carry_out),
-                 tile, int(resident), swp,
-                 _smem_bytes(sw, tile, resident, reduced),
+                 int(plan.state_shared), int(plan.resident), plan.rows,
+                 plan.kp, plan.smem,
                  int(maps.T12.ndim == 3), int(rho_t.numel() > 1),
                  int(G > 1 and u_min.numel() == G * su),
                  int(G > 1 and x_min.numel() == G * sx),

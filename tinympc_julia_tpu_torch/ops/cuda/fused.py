@@ -31,6 +31,7 @@ import functools
 
 import torch
 
+from ...utils.precision import full_fp32_matmul
 from ._build import load_library
 
 # The launch layout is decided here and passed to the kernel, which checks
@@ -60,6 +61,7 @@ def reference_terms(Qd, Rd, Pinf, Xref, Uref):
     return -(Xref * Qd), -(Uref * Rd), -(Pinf.T @ Xref[-1])
 
 
+@full_fp32_matmul()
 def pack_consts(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min,
                 x_max, u_min, u_max, Xref, Uref, *,
                 en_state_bound: bool) -> torch.Tensor:
@@ -155,6 +157,7 @@ def _validate(args, nx, nu, N):
     return tensors
 
 
+@full_fp32_matmul()
 def fused_reference(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min,
                     x_max, u_min, u_max, Xref, Uref, x0s, *, nx, nu, N,
                     max_iter, abs_pri_tol, abs_dua_tol, en_state_bound,

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..types import Cache, Problem, Settings, State
+from ..utils.precision import full_fp32_matmul
 from . import riccati
 
 EPS = 1e-10
@@ -172,6 +173,7 @@ def adapt_rho(state: State, cache: Cache, problem: Problem,
                                                settings))
 
 
+@full_fp32_matmul()
 def rebuild_update(cache: Cache, problem: Problem, new_rho, *,
                    max_iter: int = 1000, tol: float = 1e-5,
                    warm: bool = True) -> Cache:

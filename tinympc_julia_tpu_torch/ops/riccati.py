@@ -14,6 +14,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from ..types import Cache
+from ..utils.precision import full_fp32_matmul
 
 
 def riccati_fixed_point(A, B, Q1_diag, R1_diag, rho, *, max_iter: int = 1000,
@@ -53,6 +54,7 @@ def _cache_terms(A, B, Q_work_diag, R_work_diag, rho, *, max_iter=1000,
     return Kinf, Pinf, Quu_inv, AmBKt
 
 
+@full_fp32_matmul()
 def precompute_cache(A, B, Q_work_diag, R_work_diag, rho, *,
                      max_iter: int = 1000, tol: float = 1e-5,
                      compute_sensitivity: bool = True) -> Cache:

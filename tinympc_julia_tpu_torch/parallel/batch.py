@@ -24,6 +24,7 @@ import torch
 from ..ops import admm, not_ported
 from ..types import (Cache, Problem, Settings, Solution, State,
                      index_instance, map_tensors, stack_instances)
+from ..utils.precision import full_fp32_matmul
 
 
 def broadcast_state(tree, batch: int):
@@ -47,6 +48,7 @@ def _check_batched(tree, batched: bool, probe, ndim: int, what: str):
                          f"({tuple(probe.shape)})")
 
 
+@full_fp32_matmul()
 def solve_batch(problem: Problem, cache: Cache, settings: Settings,
                 state: State, *, horizon_parallel: bool = False,
                 problem_batched: bool = False, cache_batched: bool = False,

@@ -25,7 +25,6 @@ off) and puts the flag back when it ends.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Callable, NamedTuple, Optional
 
@@ -35,6 +34,7 @@ from ..ops import condensed as cond
 from ..ops import not_ported
 from ..ops.cuda.condensed_kernel import make_condensed_fused_solver
 from ..types import Cache, Problem, Settings, State, init_state
+from ..utils.precision import full_fp32_matmul
 from . import batch as batch_mod
 
 
@@ -52,18 +52,6 @@ class CondensedMPCLoopResult(NamedTuple):
     us: torch.Tensor      # (B, n_steps, nu)
     iters: torch.Tensor   # (B, n_steps)
     solved: torch.Tensor  # (B, n_steps)
-
-
-@contextlib.contextmanager
-def _full_fp32_matmul():
-    """TF32 off for the fp32 matmuls inside (the plant update and the plain
-    versions' products), whatever the caller's setting."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _plant_step(problem: Problem, x, u0):
@@ -118,7 +106,7 @@ def run_mpc_loop(problem: Problem, cache: Cache, settings: Settings, x0s,
     xs, us, iters, solved = _outputs(B, n_steps, nx, nu, dtype, dev)
 
     x = x0s
-    with _full_fp32_matmul():
+    with full_fp32_matmul():
         for t in range(n_steps):
             prob = problem
             if Xrefs is not None:
@@ -163,7 +151,7 @@ def run_mpc_loop_condensed(problem: Problem, cache: Cache, settings: Settings,
     d_ref = cond.ref_backward_const(problem, cache)
 
     x = x0s
-    with _full_fp32_matmul():
+    with full_fp32_matmul():
         for t in range(n_steps):
             if Xrefs is not None:
                 d_ref = cond.ref_backward_const(problem, cache, Xrefs[t],
@@ -231,7 +219,7 @@ def make_fused_mpc_loop(problem: Problem, cache: Cache, settings: Settings,
         B = x.shape[0]
         xs, us, iters, solved = _outputs(B, n_steps, nx, nu, dtype, dev)
         warm = None
-        with _full_fp32_matmul():
+        with full_fp32_matmul():
             for t in range(n_steps):
                 fn = fn_cold if t == 0 else fn_warm
                 _, us_plan, it, ok, warm = fn(*args, x, warm)

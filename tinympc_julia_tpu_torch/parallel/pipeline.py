@@ -9,8 +9,12 @@ and the two-phase one of the adaptive-rho workload.
            straggler slots (index-0 fill) and continue warm from their
            carry (exact continuation, ct = 4).
 
-All three phases run kernel K1 in full fp32.  Nothing in the pipeline waits
-for the host: the compaction is a cumsum and a scatter.
+All three phases run kernel K1 in full fp32 by default.  The JAX headline's
+staging (bench.py's ``_pipeline``) is an option, ``STAGED``: phase 0 at
+``precision="default"`` (reduced-precision products, its one end check in
+fp32) and a 96-iteration reduced head in phase 2.  A lane only ever latches
+on a full-precision rollout and residual.  Nothing in the pipeline waits for
+the host: the compaction is a cumsum and a scatter.
 
 ``two_phase_adaptive_solve`` is the pipeline kernel K2's carry exists for: a
 bulk pass with per-lane adaptive rho, the same compaction, and a warm
@@ -36,6 +40,9 @@ BUDGETS = (56, 36, 324)
 CHECK_TERMINATION = 4
 RELAXATION_ALPHA = 1.7
 TOL = 1e-3
+# bench.py's staging of the headline: a reduced phase 0, a 96-iteration
+# reduced head in phase 2
+STAGED = dict(phase0_bf16=True, phase2_bf16_head=96)
 
 
 class PipelineResult(NamedTuple):
@@ -62,6 +69,7 @@ class PipelineResult(NamedTuple):
 
 def three_phase_solve(maps, rho, u_min, u_max, x_min, x_max, x0s, *, nx, nu,
                       N, straggler_slots: int, budgets=BUDGETS,
+                      phase0_bf16: bool = False, phase2_bf16_head: int = 0,
                       fused: Optional[Callable] = None) -> PipelineResult:
     """Run the pipeline on ``x0s`` (B, nx); arguments as for the fused
     solver (``rho`` a float).  Lanes that overflow ``straggler_slots`` keep
@@ -69,9 +77,13 @@ def three_phase_solve(maps, rho, u_min, u_max, x_min, x_max, x0s, *, nx, nu,
 
     ``budgets`` are the phases' iteration budgets; only the CPU test against
     the JAX pipeline shortens phase 0, to bound the Pallas kernel's
-    interpret-mode compile.  ``fused`` replaces the solver of each phase by
-    a function with ``condensed_fused_reference``'s signature; measurements
-    pass the plain version to time the same pipeline without the kernel."""
+    interpret-mode compile.  ``phase0_bf16`` runs phase 0 at
+    ``precision="default"`` and ``phase2_bf16_head`` gives phase 2 a head of
+    that many reduced iterations (``STAGED`` holds the JAX headline's
+    values); the checking iterations stay fp32.  ``fused`` replaces the
+    solver of each phase by a function with ``condensed_fused_reference``'s
+    signature; measurements pass the plain version to time the same
+    pipeline without the kernel."""
     kw = dict(nx=nx, nu=nu, N=N, abs_pri_tol=TOL, abs_dua_tol=TOL,
               en_input_bound=True, en_state_bound=False,
               relaxation_alpha=RELAXATION_ALPHA)
@@ -84,11 +96,12 @@ def three_phase_solve(maps, rho, u_min, u_max, x_min, x_max, x0s, *, nx, nu,
     m0, m1, m2 = budgets
     ct = CHECK_TERMINATION
     fn0 = phase(max_iter=m0, check_termination=m0, warm_start=False,
-                carry_out=True)
+                carry_out=True,
+                precision="default" if phase0_bf16 else "highest")
     fn1 = phase(max_iter=m1, check_termination=ct, warm_start=True,
                 carry_out=True)
     fn2 = phase(max_iter=m2, check_termination=ct, warm_start=True,
-                carry_out=False)
+                carry_out=False, bf16_head_iters=phase2_bf16_head)
     bounds = (u_min, u_max, x_min, x_max)
     B = x0s.shape[0]
 
