@@ -91,10 +91,12 @@ Phases (one line each; any failure exits non-zero):
      reduced + 32 fp32 iterations, 256 slots a group, 1,500 more with a
      512-iteration reduced head): convergence (>= 99%), per-group overflow,
      the merged results against the same pipeline on the plain versions,
-     paired times (median of 3), solves/s; the unstaged pipeline (160 fp32 + 1,500 fp32)
-     against its plain version at the tight bar and timed once; one launch
-     of each bulk phase (K1d: 160 fp32 iterations; K1c: 128 reduced ones)
-     timed beside its plain version; as a yardstick only (not the same
+     the kernel's time (median of 3) beside the plain version's (one
+     timing: its reduced phases take tens of seconds), solves/s; the
+     unstaged pipeline (160 fp32 + 1,500 fp32) against its plain version
+     at the tight bar and timed once; one launch of each bulk phase (K1d:
+     160 fp32 iterations; K1c: 128 reduced ones) timed beside its plain
+     version, with the tile iterations it ran; as a yardstick only (not the same
      function), the same products alone: 160 cuBLAS torch.bmm of the 64
      maps by (316 x 1,024) iterates; the kernel-side layouts of the 64
      maps, which every launch makes anew, timed on their own;
@@ -146,16 +148,11 @@ every lane with equal counts (a carry entry relative to the larger of 1 and
 its magnitude) and the lane's final rho within rtol 1e-4.
 
 A launch or a pipeline with reduced-precision iterations (phases 6 staged,
-14a-c, 16 and 17 staged, 16 K1c) is held to the same count bar.  Both sides
-round to bf16 exactly and sum the exact products in fp32, the kernel on the
-tensor cores in another order than cuBLAS, and each reduced iteration
-rounds w2 to bf16 again: a last-bit difference becomes a 2^-8 step where w2
-sits near a rounding boundary, so two correct implementations part by more
-than 1e-4 over tens of reduced iterations.  The value bar of such a
-comparison is the larger of 1e-4 and REDUCED_SPREAD (4) times the plain
-version's own distance from the same plain version run in float64 on the
-same inputs (``in_float64``).  A kernel whose reduced product were wrong (no
-rounding, a truncation, the fp32 map) moves far more lanes' counts than 1%.
+14a-c, 16 and 17 staged, 16 K1c) is held to the same bar: both sides round
+to bf16 exactly and the plain version sums the products as the tensor cores
+do (``mma_product``), so a kernel whose reduced product were wrong (no
+rounding, a truncation, the fp32 map) would move the lanes' counts and fail
+it.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 timed launch: the larger of its operations (the matvecs' multiply-adds on
@@ -168,7 +165,6 @@ once) over 3.35 TB/s; for K3 the operations are the per-stage products,
 (N-1)(4 nx^2 + 8 nx nu + 2 nu^2) a lane-iteration.  ``library_ms`` is null: no
 single PyTorch call computes an ADMM solve.
 """
-import dataclasses
 import functools
 import json
 import subprocess
@@ -184,14 +180,6 @@ B_CHECK = 4096
 B_QUAD = 512
 ITERS_AGREE = 0.99
 ATOL = 1e-4
-# Reduced-precision iterations on the tensor cores sum the exact bf16
-# products in another order than cuBLAS's fp32 product in the plain version,
-# and every reduced iteration rounds w2 to bf16 again, which turns a
-# last-bit difference into a 2^-8 step whenever w2 lies near a rounding
-# boundary: over tens of reduced iterations two correct implementations
-# part by far more than ATOL.  Such a comparison is held to the plain
-# version's own distance from its float64 run, times REDUCED_SPREAD.
-REDUCED_SPREAD = 4.0
 CONE_TOL = 5e-3
 LOOP_STEPS = 20
 LOOP_ATOL = 1e-6
@@ -229,112 +217,60 @@ def event_ms(fn):
     return a.elapsed_time(b)
 
 
-def paired_ms(f_kernel, f_plain, reps=5):
+def paired_ms(f_kernel, f_plain, reps=5, plain_reps=None):
     """Median ms of each over ``reps`` turns after one warm-up each, the
-    order alternating (plain, kernel, kernel, plain, ...)."""
-    f_plain()
+    order alternating (plain, kernel, kernel, plain, ...).  With
+    ``plain_reps`` (a plain version that takes seconds, run by the caller
+    just before) the plain version gets no warm-up and only the first
+    ``plain_reps`` turns."""
+    n_plain = reps if plain_reps is None else plain_reps
+    if plain_reps is None:
+        f_plain()
     f_kernel()
     tk, tp = [], []
     for r in range(reps):
-        if r % 2 == 0:
+        if r % 2 == 0 and r < n_plain:
             tp.append(event_ms(f_plain))
-            tk.append(event_ms(f_kernel))
-        else:
-            tk.append(event_ms(f_kernel))
+        tk.append(event_ms(f_kernel))
+        if r % 2 == 1 and r < n_plain:
             tp.append(event_ms(f_plain))
     return float(np.median(tk)), float(np.median(tp))
 
 
-def max_diff(out_a, out_b):
-    """Max |diff| of x and u on the lanes with equal counts that both
-    solved, and the share of lanes with equal counts."""
-    xa, ua, ia, sa = out_a[:4]
-    xb, ub, ib, sb = out_b[:4]
-    same = ia == ib
-    both = same & (sa == 1) & (sb == 1)
-    err = 0.0
-    if bool(both.any()):
-        err = max((ua - ub).abs()[both].max().item(),
-                  (xa - xb).abs()[both].max().item())
-    return err, same.float().mean().item()
-
-
-def in_float64(fused):
-    """``fused`` (a plain version) on float64 copies of its inputs, its
-    results back in float32: the plain version's own sensitivity to its
-    arithmetic, the yardstick of a comparison whose launches run
-    reduced-precision iterations (``agreement``'s ``out_p64``)."""
-    def up(v):
-        if isinstance(v, torch.Tensor):
-            return v.double() if v.is_floating_point() else v
-        if dataclasses.is_dataclass(v) and not isinstance(v, type):
-            return dataclasses.replace(v, mus=up(v.mus))  # a ConeSet
-        if isinstance(v, tuple) and hasattr(v, "_fields"):
-            return type(v)(*(up(x) for x in v))
-        return v
-
-    def down(v):
-        if isinstance(v, torch.Tensor):
-            return v.float() if v.is_floating_point() else v
-        if isinstance(v, tuple):
-            items = [down(x) for x in v]
-            return type(v)(*items) if hasattr(v, "_fields") else tuple(items)
-        return v
-
-    def run(*args, **kw):
-        return down(fused(*(up(a) for a in args),
-                          **{k: up(v) for k, v in kw.items()}))
-    return run
-
-
-def agreement(name, out_k, out_p, min_solved=None, out_p64=None):
+def agreement(name, out_k, out_p, min_solved=None):
     """Per-lane agreement of kernel and plain results; returns max |diff|.
-    At least ``min_solved`` lanes (default half the batch) must solve.
-
-    With ``out_p64`` (the plain version in float64, ``in_float64``), for
-    launches with reduced-precision iterations on the tensor cores: the
-    value bar is the larger of ATOL and REDUCED_SPREAD times the plain
-    version's own distance from its float64 run on the same lanes."""
-    ik, sk = out_k[2], out_k[3]
+    At least ``min_solved`` lanes (default half the batch) must solve."""
+    xk, uk, ik, sk = out_k[:4]
+    xp, up, ip, sp = out_p[:4]
     B = ik.numel()
     min_solved = B // 2 if min_solved is None else min_solved
-    err, frac = max_diff(out_k, out_p)
-    bar, extra = ATOL, ""
-    if out_p64 is not None:
-        spread, frac64 = max_diff(out_p, out_p64)
-        bar = max(ATOL, REDUCED_SPREAD * spread)
-        extra = (f"; the plain version against itself in float64: counts "
-                 f"equal on {frac64:.4f}, max |diff| {spread:.3e} -> bar "
-                 f"{bar:.3e}")
-    nk, npl = int(sk.sum()), int(out_p[3].sum())
-    print(f"{name}: iteration counts equal on {int((ik == out_p[2]).sum())}/"
-          f"{B} lanes ({frac:.4f}); solved kernel {nk}, plain {npl}; max "
-          f"|diff| on equal solved lanes {err:.3e}{extra}", flush=True)
+    same = ik == ip
+    frac = same.float().mean().item()
+    both = same & (sk == 1) & (sp == 1)
+    err = 0.0
+    if bool(both.any()):
+        err = max((uk - up).abs()[both].max().item(),
+                  (xk - xp).abs()[both].max().item())
+    nk, npl = int(sk.sum()), int(sp.sum())
+    print(f"{name}: iteration counts equal on {int(same.sum())}/{B} lanes "
+          f"({frac:.4f}); solved kernel {nk}, plain {npl}; max |diff| on "
+          f"equal solved lanes {err:.3e}", flush=True)
     check(frac >= ITERS_AGREE, f"{name}: counts agree on {frac:.4f} < "
           f"{ITERS_AGREE}")
-    check(err <= bar, f"{name}: max |diff| {err:.3e} > {bar:.3e}")
+    check(err <= ATOL, f"{name}: max |diff| {err:.3e} > {ATOL}")
     check(nk >= min_solved, f"{name}: only {nk}/{B} lanes solved")
-    check(bool(torch.isfinite(out_k[1]).all())
-          and bool(torch.isfinite(out_k[0]).all()),
+    check(bool(torch.isfinite(uk).all()) and bool(torch.isfinite(xk).all()),
           f"{name}: non-finite kernel output")
     return err
 
 
-def carry_agreement(name, same, carry_k, carry_p, carry_p64=None):
-    """Max |diff| of the carries' fields on lanes with equal counts; with
-    ``carry_p64`` (the plain version's carry in float64) the bar of a
-    reduced-precision launch, as in ``agreement``."""
-    def diff(ca, cb):
-        return max((a - b)[:, same].abs().max().item()
-                   for a, b in zip(ca, cb))
-    err, bar, extra = diff(carry_k, carry_p), ATOL, ""
-    if carry_p64 is not None:
-        spread = diff(carry_p, carry_p64)
-        bar = max(ATOL, REDUCED_SPREAD * spread)
-        extra = f" (plain vs float64 {spread:.3e} -> bar {bar:.3e})"
+def carry_agreement(name, same, carry_k, carry_p):
+    """Max |diff| of the carries' fields on lanes with equal counts."""
+    err = max((a - b)[:, same].abs().max().item()
+              for a, b in zip(carry_k, carry_p))
     print(f"{name}: carry max |diff| on {int(same.sum())} lanes with equal "
-          f"counts {err:.3e}{extra}", flush=True)
-    check(err <= bar, f"{name}: carry max |diff| {err:.3e} > {bar:.3e}")
+          f"counts {err:.3e}", flush=True)
+    check(err <= ATOL, f"{name}: carry max |diff| {err:.3e} > {ATOL}")
     return err
 
 
@@ -619,13 +555,9 @@ def earlier_phases(card):
     check(n_st >= 0.99 * B_MAIN, f"staged pipeline converged {n_st}/{B_MAIN}")
     check(abs(n_st - n_st_p) <= 0.01 * B_MAIN,
           f"staged pipeline converged {n_st} with the kernel, {n_st_p} plain")
-    res_s64 = three_phase_solve(
-        *pipe_args, fused=in_float64(condensed_fused_reference), **pkw,
-        **STAGED)
     errs.append(agreement("phase 6 staged pipeline, merged per-lane results "
                           "vs plain", pipeline_lanes(res_s),
-                          pipeline_lanes(res_sp),
-                          out_p64=pipeline_lanes(res_s64)))
+                          pipeline_lanes(res_sp)))
     t_st, t_st_p = paired_ms(
         lambda: three_phase_solve(*pipe_args, **pkw, **STAGED),
         lambda: three_phase_solve(*pipe_args, fused=condensed_fused_reference,
@@ -1090,11 +1022,12 @@ def grouped_phases(card):
         return (condensed_fused_cuda(*args, **full),
                 condensed_fused_reference(*args, **full))
 
-    def k1_plain64(P, C, maps, x0s, **kw):
-        """The plain version in float64 (the yardstick of a comparison
-        with reduced-precision iterations)."""
-        return in_float64(condensed_fused_reference)(
-            *k1_args(P, C, maps, x0s), **k1_kw(P, **kw))
+    def tile_iterations(counts, groups):
+        """Iterations summed over K1's tiles (32 lanes of one group, a block
+        each): a tile runs until its last lane latches."""
+        per = counts.reshape(groups, -1)
+        per = torch.nn.functional.pad(per, (0, -per.shape[1] % 32))
+        return int(per.reshape(groups, -1, 32).amax(dim=2).sum())
 
     def product_counts(counts, ct):
         """(reduced, fp32) T12 products of a cold precision="default" launch
@@ -1189,14 +1122,11 @@ def grouped_phases(card):
     c_errs = []
     head_kw = dict(max_iter=96, bf16_head_iters=16)
     out_k, out_p = k1_both(Pc, Cc, mc, x0c, **head_kw)
-    out_64 = k1_plain64(Pc, Cc, mc, x0c, **head_kw)
     c_errs.append(agreement(
         f"phase 14a cartpole G={G} x L={L}, 16-iteration bf16 head of 96 "
-        f"({bit_equal(out_k, out_p)} lanes differ in a bit)", out_k, out_p,
-        out_p64=out_64))
-    same = (out_k[2] == out_p[2]) & (out_p[2] == out_64[2])
-    c_errs.append(carry_agreement("phase 14a", same, out_k[4], out_p[4],
-                                  out_64[4]))
+        f"({bit_equal(out_k, out_p)} lanes differ in a bit)", out_k, out_p))
+    c_errs.append(carry_agreement("phase 14a", out_k[2] == out_p[2],
+                                  out_k[4], out_p[4]))
     check(int(out_k[2].min()) >= 16, "phase 14a: a count below the head")
     a = condensed_fused_cuda(*args, **k1_kw(
         Pc, max_iter=16, check_termination=16, precision="default"))
@@ -1215,8 +1145,7 @@ def grouped_phases(card):
     c_errs.append(agreement(
         f"phase 14b precision='default' on all 96 iterations, ct=4 "
         f"({bit_equal(lo_k, lo_p)} lanes differ in a bit)", lo_k, lo_p,
-        min_solved=0, out_p64=k1_plain64(Pc, Cc, mc, x0c, max_iter=96,
-                                         precision="default")))
+        min_solved=0))
     fp_k = condensed_fused_cuda(*args, **k1_kw(Pc, max_iter=96))
     print(f"phase 14b: solved within 96 iterations: reduced "
           f"{int(lo_k[3].sum())}, fp32 {int(fp_k[3].sum())} of {G * L}",
@@ -1227,10 +1156,7 @@ def grouped_phases(card):
           f"memory {plan_lo.resident}), 64-iteration head of 600: "
           f"{bit_equal(out_k, out_p)}/{4 * L_QUAD} lanes differ in a bit",
           flush=True)
-    c_errs.append(agreement(
-        "phase 14c quadrotor head", out_k, out_p,
-        out_p64=k1_plain64(Pq, Cq, mq, x0q, max_iter=600,
-                           bf16_head_iters=64)))
+    c_errs.append(agreement("phase 14c quadrotor head", out_k, out_p))
     # (d) the latch recheck.  The carry froze just before the latching
     # iteration: the plain version recomputes that iteration in fp32 from it
     # and must latch at once.  Its sum runs in another order, which moves a
@@ -1381,12 +1307,10 @@ def grouped_phases(card):
         check(tuple(us.shape) == (G, L, gs.N - 1, gs.nu), f"controls "
               f"{tuple(us.shape)}")
         check(n_conv >= 0.99 * B, f"phase {phase}: {n_conv}/{B} converged")
-        staged_64 = gs.make_fused_pipeline(
-            lanes=L, fused=in_float64(condensed_fused_reference), **pkw)
         errs = [agreement(
             f"phase {phase} {name}, staged pipeline vs its plain version",
             flat_lanes(out), flat_lanes(staged_p(x0s)),
-            min_solved=int(0.99 * B), out_p64=flat_lanes(staged_64(x0s)))]
+            min_solved=int(0.99 * B))]
         out_u = flat(x0s)
         errs.append(agreement(
             f"phase {phase} {name}, unstaged pipeline vs its plain version",
@@ -1405,15 +1329,15 @@ def grouped_phases(card):
             check(viol <= CONE_TOL, f"phase {phase}: cone excess {viol:.3e}")
             extra = f", largest cone excess on solved lanes {viol:.3e}"
         t_st, t_st_p = paired_ms(lambda: staged(x0s), lambda: staged_p(x0s),
-                                 reps=DEEP_REPS)
+                                 reps=DEEP_REPS, plain_reps=1)
         t_fl, t_fl_p = paired_ms(lambda: flat(x0s), lambda: flat_p(x0s),
                                  reps=1)
         print(f"phase {phase} {name} G={G} x L={L}: staged {pkw}: {n_conv} "
               f"converged ({100.0 * n_conv / B:.2f}%), per-group overflow "
               f"max {int(overflow.max())} (sum {int(overflow.sum())}), mean "
               f"iterations {iters.float().mean().item():.1f}, largest "
-              f"{int(iters.max())}{extra}; median of {DEEP_REPS}: kernel "
-              f"{t_st:.3f} ms, plain {t_st_p:.3f} ms -> "
+              f"{int(iters.max())}{extra}; kernel {t_st:.3f} ms (median "
+              f"of {DEEP_REPS}), plain {t_st_p:.3f} ms (one timing) -> "
               f"{n_conv / (t_st * 1e-3):.0f} "
               f"solves/s on {card}; unstaged {ukw}: {n_conv_u} converged, "
               f"mean iterations {out_u[2].float().mean().item():.1f}, one "
@@ -1447,21 +1371,27 @@ def grouped_phases(card):
         else:
             err = agreement(f"phase 16 {key} bulk launch G={Gq} x L={Lq}, "
                             f"{kw['max_iter']} reduced iterations vs plain",
-                            out_k, out_p, min_solved=0,
-                            out_p64=in_float64(condensed_fused_reference)(
-                                *argsq, **full))
+                            out_k, out_p, min_solved=0)
             n_lo, n_hi = product_counts(out_k[2], full["check_termination"])
             t_ops = 2.0 * sw * sw * (n_lo / PEAK_BF16 + n_hi / PEAK_FP32)
         t_bytes = tensor_bytes(gs_q.maps().T12, gs_q.maps().T1, Cq.rho,
                                Pq.u_min, Pq.u_max, Pq.x_min, Pq.x_max, x0_q,
                                out_k[:4], tuple(out_k[4])) / PEAK_BYTES
-        t_k, t_p = paired_ms(f_k, f_p, reps=3)
+        t_k, t_p = paired_ms(f_k, f_p, reps=3,
+                             plain_reps=1 if key == "K1c" else None)
         timed[key] = (err, t_k, t_p, 1e3 * max(t_ops, t_bytes),
                       "operations" if t_ops >= t_bytes else "bytes")
-        print(f"phase 16 {key} bulk launch: median of 3: kernel {t_k:.3f} "
-              f"ms, plain {t_p:.3f} ms, bound {timed[key][3]:.3f} ms by "
+        n_tile = tile_iterations(out_k[2], Gq)
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        print(f"phase 16 {key} bulk launch: kernel {t_k:.3f} ms (median of "
+              f"3), plain {t_p:.3f} ms "
+              f"({'one timing' if key == 'K1c' else 'median of 3'}), bound "
+              f"{timed[key][3]:.3f} ms by "
               f"{timed[key][4]}; mean iterations "
-              f"{out_k[2].float().mean().item():.1f}", flush=True)
+              f"{out_k[2].float().mean().item():.1f}; {n_tile} tile "
+              f"iterations, {32 * n_tile / int(out_k[2].sum()):.3f} x the "
+              f"lanes' own, {1e3 * t_k * n_sm / n_tile:.3f} SM-us each",
+              flush=True)
     # a yardstick only, not the same function (library_ms stays null): the
     # products alone, 160 cuBLAS batched fp32 products of the 64 maps by
     # (316 x 1,024) iterates
@@ -1850,11 +1780,15 @@ def build_kernels():
     for built in libs:
         regs = sorted({int(l.split("Used ")[1].split()[0])
                        for l in built.log.splitlines() if "Used " in l})
-        spills = sum("spill" in l and "0 bytes spill stores" not in l
-                     for l in built.log.splitlines())
+        spills, fn = [], ""
+        for l in built.log.splitlines():
+            if "Function properties for " in l:
+                fn = l.split("Function properties for ")[1].strip()
+            elif "spill" in l and "0 bytes spill stores" not in l:
+                spills.append(fn)
         print(f"phase 2 build: {built.path.name} in {built.seconds:.1f} s "
               f"of nvcc; registers per thread over its variants {regs}, "
-              f"variants that spill {spills}", flush=True)
+              f"variants that spill {len(spills)} {spills}", flush=True)
 
 
 def main():

@@ -664,6 +664,42 @@ def test_bf16_round_is_round_to_nearest_even():
     assert torch.equal(K.bf16_round(r), r)
 
 
+def _mma(a, w):
+    """One output of ``mma_product``: a (K,) row by a (K,) column."""
+    return K.mma_product(torch.tensor([a], dtype=torch.float32),
+                         torch.tensor(w, dtype=torch.float32)[:, None]).item()
+
+
+def test_mma_product_sums_as_the_tensor_cores():
+    """A k16 step's terms are cut to 25 bits below the largest unnormalised
+    exponent and the sum is truncated to fp32; the steps add in fp32 with
+    round to nearest even."""
+    t = 1.5 * 2.0 ** -25  # a term 25 bits below 1: its half bit is cut
+    # exact: 1 + 12 * 2^-25 = 1 + 3 * 2^-23; the tensor cores: 1 + 2^-22
+    assert _mma([1.0] * 9, [1.0] + [t] * 8) == 1.0 + 2.0 ** -22
+    assert _mma([1.0] * 9, [-1.0] + [-t] * 8) == -(1.0 + 2.0 ** -22)
+    # 1.5 * 1.5 = 2.25 aligns by its exponent before normalising (0), so the
+    # small terms keep their 2^-25 bit
+    assert _mma([1.5] + [1.0] * 8, [1.5] + [t] * 8) == 2.25 + 2.0 ** -22
+    # the sum is truncated: 1 + 0.75 ulp -> 1, not 1 + 1 ulp
+    assert _mma([1.0, 1.0], [1.0, 3.0 * 2.0 ** -25]) == 1.0
+    # ... but two k16 steps add to nearest: 1 + 0.75 ulp -> 1 + 1 ulp
+    a = [1.0] + [0.0] * 15 + [1.0]
+    assert _mma(a, [1.0] + [0.0] * 15 + [3.0 * 2.0 ** -25]) == 1.0 + 2.0 ** -23
+    # shapes: grouped and shared operands, K not a multiple of 16; within
+    # fp32 rounding of the float64 product
+    rng = np.random.default_rng(0)
+    A = K.bf16_round(torch.as_tensor(rng.normal(size=(3, 7, 37)),
+                                     dtype=torch.float32))
+    W = K.bf16_round(torch.as_tensor(rng.normal(size=(3, 37, 5)),
+                                     dtype=torch.float32))
+    for a, w in ((A, W), (A[0], W), (A, W[0])):
+        got = K.mma_product(a, w)
+        ref = a.double() @ w.double()
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        assert float((got.double() - ref).abs().max()) < 1e-5
+
+
 def test_tile_plan_with_reduced_iterations():
     # resident maps: the bf16 map (rows x (kp + 8)) and the rounded w2
     # (32 x (kp + 8)) join them

@@ -62,8 +62,9 @@
 //    summed from zero in the tensor core and added to an fp32 running sum.
 //    Rows of both buffers are padded by 8 bf16 so ldmatrix reads them
 //    without bank conflicts.  The sums are in the tensor cores' order, the
-//    same for every lane and tile: deterministic and lane-independent, but
-//    no longer the plain version's to the bit.
+//    same for every lane and tile: deterministic and lane-independent.  The
+//    plain version sums as the tensor cores do (mma_product), so the two
+//    agree to the bit.
 //  * The elementwise arithmetic (relaxation, the box, halfspace and cone
 //    projections, residuals, dual ascent), in round-to-nearest and the plain
 //    version's order of operations, is projections.cuh's, shared with the
@@ -880,7 +881,8 @@ extern "C" int tinympc_condensed_fused(
   // leading group axis.  lin_*: (n_lin, 2*dim + 1) device rows; soc_*: n_soc
   // (start, dim) pairs in host memory; soc_mu_*: (n_soc,) on the device.
   // t12a: the (swp, kp) bf16 map of reduced iterations; swp = 16 x the rows
-  // a thread, kp a multiple of kSlabKLo; state_shared: the lanes' solver
+  // a thread (8, 20 or 32: the instances), kp a multiple of kSlabKLo;
+  // state_shared: the lanes' solver
   // state lives in shared memory (else in the (dim, B) arrays, uxc
   // included).
   Params p;
@@ -910,7 +912,7 @@ extern "C" int tinympc_condensed_fused(
                   t12_resident, reduced)
           .total;
   if (G <= 0 || L <= 0 || G > 65535 || ct < 1 || k0 < 0 || k0 > max_iter ||
-      swp < p.sw || swp % (4 * kRowGroups) != 0 || rpt > 32 ||
+      swp < p.sw || swp != kRowGroups * rpt ||
       kp % kSlabKLo != 0 || kp < p.sw || smem_bytes < 0 ||
       static_cast<size_t>(smem_bytes) < need || !rho || (reduced && !t12a))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -924,15 +926,11 @@ extern "C" int tinympc_condensed_fused(
 
   const bool proj_u = n_lin_u + n_soc_u > 0, proj_x = n_lin_x + n_soc_x > 0;
   void (*kernel)(Params);
-  switch (rpt) {
-    case 4: kernel = tile_kernel<4>(proj_u, proj_x); break;
+  switch (rpt) {  // the instances fused_tile_plan picks from
     case 8: kernel = tile_kernel<8>(proj_u, proj_x); break;
-    case 12: kernel = tile_kernel<12>(proj_u, proj_x); break;
-    case 16: kernel = tile_kernel<16>(proj_u, proj_x); break;
     case 20: kernel = tile_kernel<20>(proj_u, proj_x); break;
-    case 24: kernel = tile_kernel<24>(proj_u, proj_x); break;
-    case 28: kernel = tile_kernel<28>(proj_u, proj_x); break;
-    default: kernel = tile_kernel<32>(proj_u, proj_x); break;
+    case 32: kernel = tile_kernel<32>(proj_u, proj_x); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = static_cast<size_t>(smem_bytes);
   cudaError_t err = cudaFuncSetAttribute(

@@ -24,9 +24,10 @@ for every group; lanes keep the flat order ``g*L + l``.
 
 Reduced precision (``precision="default"``, ``bf16_head_iters=k0``): the
 product ``T12w @ w2`` of a reduced iteration is one bf16 pass, both operands
-rounded to bf16 (round to nearest even) and the products summed in fp32 (on
-the tensor cores in the kernel, so in another order than the plain
-version's); everything else stays fp32.  The first k0 iterations are
+rounded to bf16 (round to nearest even) and the products summed on the
+tensor cores in k16 steps (``mma_product``: the plain version follows the
+tensor cores' arithmetic, so kernel and plain version agree to the bit);
+everything else stays fp32.  The first k0 iterations are
 reduced and check only on iteration k0 - 1; with ``precision="default"``
 every iteration is reduced.  An iteration that runs the residual check always computes its
 product in full precision, so a lane never latches on the residuals of an
@@ -73,9 +74,10 @@ class FusedConstraints(NamedTuple):
 # The launch layout is decided here and passed to the kernel, which checks
 # it (csrc/condensed_fused.cu): shared memory one block may use on sm_90
 # (opt-in maximum, bytes); tiles of 32 lanes (kTile) on 256 threads
-# (kThreads, eight a lane); 16 thread rows (kRowGroups) of a multiple of 4
-# rows each, at most 32 (the kernel's instances); a ring of 6 fp32 slabs of
-# 8 map rows (kStages, kSlabK) or 4 bf16 slabs of 16 map columns
+# (kThreads, eight a lane); 16 thread rows (kRowGroups) of 8, 20 or 32 rows
+# each (the kernel's instances: the cartpole's and the rocket's maps take
+# 8, the quadrotor's 20; a map wider than 512 rows is refused); a ring of 6
+# fp32 slabs of 8 map rows (kStages, kSlabK) or 4 bf16 slabs of 16 map columns
 # (kStagesLo, kSlabKLo) whose rows are padded by 8 (kPadLo); the bf16 map's
 # k padded to a multiple of 32.  MAX_TILE is the adaptive kernel's largest tile.  The
 # projections hold one stage of a side in a per-thread buffer of MAX_STAGE
@@ -85,7 +87,7 @@ MAX_TILE = 128
 TILE = 32
 THREADS = 256
 TILE_ROW_GROUPS = 16
-MAX_TILE_RPT = 32
+TILE_RPTS = (8, 20, 32)
 SLAB_K = 8
 STAGES = 6
 SLAB_K_LO = 16
@@ -113,6 +115,64 @@ def bf16_round(t: torch.Tensor) -> torch.Tensor:
     operand rounding of a reduced-precision product, as the kernel's
     ``__float2bfloat16_rn``."""
     return t.bfloat16().to(t.dtype)
+
+
+# The H100 tensor cores' sum of one k16 step of mma.sync.m16n8k16 (bf16 in,
+# fp32 out, from zero): the 16 exact products are aligned to the largest of
+# their unnormalised exponents ea + ew (ea = floor(log2 |a|)), each is
+# truncated toward zero to MMA_FRAC_BITS bits below that exponent, the
+# truncated terms are summed exactly, and the sum is truncated to fp32.
+MMA_K = 16
+MMA_FRAC_BITS = 25
+MMA_CHUNK = 1 << 25  # broadcast terms one step of mma_product holds at once
+
+
+def _exponent(t: torch.Tensor) -> torch.Tensor:
+    """floor(log2 |t|) of a float64 tensor as int32; -2^20 where t is 0 (a
+    zero never sets a step's alignment)."""
+    _, e = torch.frexp(t)
+    return torch.where(t != 0, e - 1, -(1 << 20))
+
+
+def _pow2(n: torch.Tensor) -> torch.Tensor:
+    """2^n exactly, float64, for integers -1022 <= n <= 1023."""
+    return ((n.long() + 1023) << 52).view(torch.float64)
+
+
+def _float32_toward_zero(s: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32, rounded toward zero."""
+    f = s.float()
+    over = f.double().abs() > s.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def mma_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` (``a`` (..., M, K), ``w`` (..., K, L), bf16 values) as
+    kernel K1's reduced iterations compute it on the tensor cores: k in
+    steps of MMA_K, each step's sum as one mma.sync computes it (above), the
+    steps added in k order in IEEE fp32 from 0.  Float32 result; the
+    broadcast terms are made MMA_CHUNK at a time, in slices of L."""
+    K = a.shape[-1]
+    pad = -K % MMA_K
+    a = torch.nn.functional.pad(a, (0, pad)).double()
+    w = torch.nn.functional.pad(w, (0, 0, 0, pad)).double()
+    ea, ew = _exponent(a), _exponent(w)
+    lead = torch.broadcast_shapes(a.shape[:-2], w.shape[:-2])
+    M, L = a.shape[-2], w.shape[-1]
+    out = torch.zeros(lead + (M, L), dtype=torch.float32, device=a.device)
+    step = max(1, MMA_CHUNK // (M * MMA_K * lead.numel()))
+    for l0 in range(0, L, step):
+        c = slice(l0, l0 + step)
+        for k0 in range(0, K + pad, MMA_K):
+            k = slice(k0, k0 + MMA_K)
+            # the step's alignment; an all-zero step sums to 0
+            ulp = _pow2((ea[..., :, k, None] + ew[..., None, k, c]).amax(
+                dim=-2, keepdim=True).clamp_(min=-900) - MMA_FRAC_BITS)
+            terms = torch.div(a[..., :, k, None] * w[..., None, k, c], ulp,
+                              rounding_mode="trunc")
+            s = terms.sum(dim=-2) * ulp.squeeze(-2)
+            out[..., c] += _float32_toward_zero(s)
+    return out
 
 
 def cone_spec(cones: ConeSet) -> tuple:
@@ -245,10 +305,11 @@ def fused_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
     where it fits, then T12 resident where it fits beside it and streamed
     in slabs otherwise."""
     sw = (N - 1) * nu + N * nx
-    rpt = 4 * -(-sw // (4 * TILE_ROW_GROUPS))
-    if rpt > MAX_TILE_RPT:
+    rpt = next((r for r in TILE_RPTS if TILE_ROW_GROUPS * r >= sw), None)
+    if rpt is None:
         raise ValueError(f"fused kernel: a map of width {sw} exceeds the "
-                         f"kernel's {TILE_ROW_GROUPS * MAX_TILE_RPT} rows")
+                         f"kernel's {TILE_ROW_GROUPS * TILE_RPTS[-1]} rows "
+                         "(ROADMAP.md queue 2, K1 map width)")
     rows = TILE_ROW_GROUPS * rpt
     kp = -(-sw // KP_ALIGN) * KP_ALIGN
     state = state_floats(nx, nu, N, state_free)
@@ -395,8 +456,8 @@ def condensed_fused_reference(maps: CondensedMaps, rho, u_min, u_max, x_min,
     data may carry a leading group axis, ``x0s`` is (G, L, nx) or flat, and
     the iterates run as (G, dim, L) with batched matmuls; results and
     carries keep the flat lane order g*L + l.  The reduced product of
-    ``precision``/``bf16_head_iters`` is ``bf16_round(T12w) @
-    bf16_round(w2)`` in the working dtype."""
+    ``precision``/``bf16_head_iters`` is ``mma_product(bf16_round(T12w),
+    bf16_round(w2))``, fp32 sums in any working dtype."""
     cons = constraints or _no_constraints(x0s)
     G = num_groups
     ct = check_termination
@@ -518,7 +579,7 @@ def condensed_fused_reference(maps: CondensedMaps, rho, u_min, u_max, x_min,
         check = checks(i)
         # a checking iteration's product is never reduced
         if (i < k0 or lo_all) and not check:
-            ux = T12w_lo @ bf16_round(w2) + uxc
+            ux = mma_product(T12w_lo, bf16_round(w2)).to(dt) + uxc
         else:
             ux = T12w @ w2 + uxc
         done = one_iter(i, ux, check)
