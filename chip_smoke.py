@@ -16,7 +16,12 @@ Phases (one line each; any failure exits non-zero):
      constrained cartpole's state bound |x0| <= 2; (d) a 30 + 50 warm chain
      that must equal the kernel's own 80-iteration solve bit for bit;
   4. kernel vs plain at the quadrotor shape (B = 512), where T12 does not
-     fit in shared memory;
+     fit in shared memory; (b) K1's wide maps, the quadrotor at N = 40 and
+     57 (sw 636 and 908, wider than the 16 RPT rows the product's threads
+     cover at once: the product in passes), B = 2,048, fp32 (400
+     iterations, timed beside its plain version with its tile iterations)
+     and precision="default" (24 iterations), each with its plan (passes,
+     rows a thread, residency, shared-memory bytes);
   5. the main path through the API: TinyMPCSolver on "cuda",
      solve_batch(method="fused") at B = 65,536 and a return_carry/warm chain;
   6. the headline three-phase pipeline at B = 65,536 with 8,192 straggler
@@ -48,8 +53,12 @@ Phases (one line each; any failure exits non-zero):
      version's chain (the continuation restarts the rho-update counter, so
      the chain is not an 80-iteration solve); (d) the rocket with its box and
      both cones, termination controller; (e) the quadrotor shape (B = 512),
-     where the Taylor maps are read from global memory, termination
-     controller with trust 2;
+     where the Taylor maps are streamed through shared memory, termination
+     controller with trust 2, with its plan; (f) Taylor order 4 (the
+     cartpole); (g) precision="default" at ct = 5 (the cartpole: the
+     products of the iterations that neither check nor predict rho on the
+     tensor cores, against the plain version's emulation of them), and at
+     ct = 1 equal to "highest" bit for bit;
  11. the adaptive main path through the API at the quadrotor's full width:
      quadrotor.make_solver on "cuda" in fp32, B = 16,384, x0 ~ U(-0.3, 0.3)
      from seed 1, |u| <= 0.5, the termination controller floored at rho0 = 5,
@@ -58,7 +67,12 @@ Phases (one line each; any failure exits non-zero):
      straggler slots and a 2,500-iteration warm continuation; convergence,
      stragglers, slot overflow and the rho span, each against the plain
      pipeline; kernel vs plain times of the bulk launch (median of 5) and
-     the pipeline (median of 3);
+     the pipeline (median of 3); the continuation launch alone (the bulk
+     pass's stragglers compacted into the 2,048 slots, warm from the
+     kernel's carry, up to 2,500 iterations) against its plain version on
+     the same inputs, timed (median of 3; the plain version once); for the
+     bulk and the continuation launch the tile size, K2's tile iterations
+     against the lanes' own and the bound;
  12. the adaptive single-instance solve() on the card: the quadrotor case of
      tests/golden/quadrotor_adaptive.npz in float64 (OSQP-form controller,
      the reference binary's finite-difference sensitivities) against the
@@ -82,7 +96,8 @@ Phases (one line each; any failure exits non-zero):
  15. K2's group grid vs plain: (a) cartpole G = 8 x L = 512, OSQP-form
      controller, per-group plant data and rho0; (b) quadrotor G = 8 x L =
      512 (full width), termination controller with trust 2 around each
-     group's rho0, 150 iterations with the carry, timed; then through
+     group's rho0, 150 iterations with the carry, timed, with its tile
+     iterations; then through
      GroupedBatchSolver (adaptive solve_batch(method="fused") and its
      two-phase pipeline with 256 slots a group and 500 more iterations);
  16. the randomised quadrotor sweep at full width through
@@ -132,7 +147,8 @@ Phases (one line each; any failure exits non-zero):
      references (15 steps) against run_mpc_loop (equal counts, 1e-9);
 then the kernels' JSON line, the card's name and power limit, and the
 result line.  K1's launches are counted over phases 5 and 6, K1e's (the
-launches that run projections) over phase 8, K2's over phase 11, K1d's (the
+launches that run projections) over phase 8, K2's over phase 11 (its warm
+continuation's, K2's warm launches, over the same phase), K1d's (the
 launches over more than one group) and K1c's (those with reduced iterations)
 over the first runs of the two sweeps in phases 16 and 17, the K2 grid's over
 the GroupedBatchSolver calls of phase 15, K3's over the two full-width
@@ -145,10 +161,12 @@ tolerance by one check interval) and 1e-4 on the controls and states of
 lanes with equal counts that both solved, and on the carry, where there is
 one, of lanes with equal counts; for K2 the states, controls and carry of
 every lane with equal counts (a carry entry relative to the larger of 1 and
-its magnitude) and the lane's final rho within rtol 1e-4.
+its magnitude) and the lane's final rho within rtol 1e-4.  Every comparison
+also prints how many lanes differ at all (count, flag, a state, a control
+or rho not the same bits).
 
-A launch or a pipeline with reduced-precision iterations (phases 6 staged,
-14a-c, 16 and 17 staged, 16 K1c) is held to the same bar: both sides round
+A launch or a pipeline with reduced-precision iterations (phases 4b, 6
+staged, 10g, 14a-c, 16 and 17 staged, 16 K1c) is held to the same bar: both sides round
 to bf16 exactly and the plain version sums the products as the tensor cores
 do (``mma_product``), so a kernel whose reduced product were wrong (no
 rounding, a truncation, the fp32 map) would move the lanes' counts and fail
@@ -187,6 +205,7 @@ G_CHECK, L_CHECK = 8, 512  # the grouped kernel-vs-plain cases
 L_ROCKET, L_QUAD = 1000, 128
 B_ADAPT = 16384
 SLOTS_ADAPT = 2048
+B_WIDE = 2048  # lanes of K1's wide-map checks (the quadrotor at N = 40, 57)
 RHO_RTOL = 1e-4
 RHO_ATOL64 = 1e-9
 DEEP_REPS = 3  # timed turns of the pipelines that take seconds a run
@@ -237,6 +256,18 @@ def paired_ms(f_kernel, f_plain, reps=5, plain_reps=None):
     return float(np.median(tk)), float(np.median(tp))
 
 
+def lanes_differ(out_k, out_p):
+    """Lanes whose count, flag, states or controls (and rho, for K2) are not
+    the same bits on both sides."""
+    B = out_k[2].numel()
+    d = (out_k[2] != out_p[2]) | (out_k[3] != out_p[3])
+    for j in (0, 1):
+        d |= (out_k[j] != out_p[j]).reshape(B, -1).any(dim=1)
+    if len(out_k) > 4 and torch.is_tensor(out_k[4]):
+        d |= out_k[4] != out_p[4]
+    return int(d.sum())
+
+
 def agreement(name, out_k, out_p, min_solved=None):
     """Per-lane agreement of kernel and plain results; returns max |diff|.
     At least ``min_solved`` lanes (default half the batch) must solve."""
@@ -254,7 +285,8 @@ def agreement(name, out_k, out_p, min_solved=None):
     nk, npl = int(sk.sum()), int(sp.sum())
     print(f"{name}: iteration counts equal on {int(same.sum())}/{B} lanes "
           f"({frac:.4f}); solved kernel {nk}, plain {npl}; max |diff| on "
-          f"equal solved lanes {err:.3e}", flush=True)
+          f"equal solved lanes {err:.3e}; lanes that differ at all "
+          f"{lanes_differ(out_k, out_p)}", flush=True)
     check(frac >= ITERS_AGREE, f"{name}: counts agree on {frac:.4f} < "
           f"{ITERS_AGREE}")
     check(err <= ATOL, f"{name}: max |diff| {err:.3e} > {ATOL}")
@@ -296,8 +328,8 @@ def adaptive_agreement(name, out_k, out_p, min_solved=None):
     print(f"{name}: iteration counts equal on {int(same.sum())}/{B} lanes "
           f"({frac:.4f}); solved kernel {nk}, plain {npl}; on lanes with "
           f"equal counts max |diff| {err:.3e}, rho rel. diff {rho_err:.3e}; "
-          f"rho span [{rk.min().item():.4g}, {rk.max().item():.4g}]",
-          flush=True)
+          f"rho span [{rk.min().item():.4g}, {rk.max().item():.4g}]; lanes "
+          f"that differ at all {lanes_differ(out_k, out_p)}", flush=True)
     check(frac >= ITERS_AGREE, f"{name}: counts agree on {frac:.4f} < "
           f"{ITERS_AGREE}")
     check(err <= ATOL, f"{name}: max |diff| {err:.3e} > {ATOL}")
@@ -368,14 +400,15 @@ def earlier_phases(card):
     from tinympc_julia_tpu_torch.ops.condensed import (
         build_condensed, build_condensed_taylor)
     from tinympc_julia_tpu_torch.ops.cuda.adaptive_kernel import (
-        AdaptivePlant, adaptive_tile_plan, condensed_adaptive_cuda,
-        condensed_adaptive_reference)
+        AdaptiveFusedCarry, AdaptivePlant, adaptive_tile_plan,
+        condensed_adaptive_cuda, condensed_adaptive_reference)
     from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
         condensed_fused_cuda, condensed_fused_reference, fused_constraints,
-        fused_tile_plan, problem_constraint_kw)
+        fused_tile_plan, problem_constraint_kw, tile_iterations)
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.parallel.pipeline import (
-        STAGED, three_phase_solve, two_phase_adaptive_solve)
+        ADAPTIVE_BUDGETS, STAGED, three_phase_solve, two_phase_adaptive_solve)
+    from tinympc_julia_tpu_torch.parallel.rebuild import compact_members
 
     dev = torch.device("cuda")
     f32 = torch.float32
@@ -453,6 +486,60 @@ def earlier_phases(card):
     errs.append(agreement(
         f"phase 4 quadrotor (sw=316, tile {plan_q.tile}, T12 in shared "
         f"memory: {plan_q.resident})", out_k, out_p))
+
+    # -- phase 4b: K1's wide maps, the product in passes ---------------------
+    for Nw in (40, 57):
+        pw = make_problem(quadrotor.A, quadrotor.B,
+                          np.diag(quadrotor.Q_DIAG), np.diag(quadrotor.R_DIAG),
+                          quadrotor.RHO, Nw, u_min=-quadrotor.U_HOVER_BOUND,
+                          u_max=quadrotor.U_HOVER_BOUND, dtype=f32,
+                          device=dev)
+        cw = precompute_cache(pw.A, pw.B, pw.Q, pw.R, pw.rho_setup)
+        mw = build_condensed(pw, cw)
+        sw_w = mw.T12.shape[0]
+        x0_w = torch.as_tensor(np.random.default_rng(2).uniform(
+            -0.3, 0.3, size=(B_WIDE, 12)), dtype=f32, device=dev)
+        args_w = (mw, float(cw.rho), pw.u_min, pw.u_max, pw.x_min, pw.x_max,
+                  x0_w, None)
+        for mode, kw in (("fp32", dict(max_iter=400)),
+                         ("precision='default'",
+                          dict(max_iter=24, precision="default"))):
+            full = dict(nx=12, nu=4, N=Nw, abs_pri_tol=1e-3,
+                        abs_dua_tol=1e-3, en_input_bound=True,
+                        relaxation_alpha=1.7, warm_start=False,
+                        carry_out=False, check_termination=4,
+                        en_state_bound=False, **kw)
+            reduced = "precision" in kw
+            plan_w = fused_tile_plan(12, 4, Nw, reduced)
+            f_k = functools.partial(condensed_fused_cuda, *args_w, **full)
+            f_p = functools.partial(condensed_fused_reference, *args_w,
+                                    **full)
+            out_k, out_p = f_k(), f_p()
+            errs.append(agreement(
+                f"phase 4b K1 wide map, quadrotor N={Nw} (sw={sw_w}), {mode}, "
+                f"{kw['max_iter']} iterations, B={B_WIDE}: {plan_w.passes} "
+                f"passes of {plan_w.rows // plan_w.passes} rows ({plan_w.rpt} "
+                f"a thread), T12 "
+                f"{'resident' if plan_w.resident else 'streamed'}, state in "
+                f"{'shared' if plan_w.state_shared else 'global'} memory, "
+                f"{plan_w.smem} bytes of shared memory", out_k, out_p,
+                min_solved=0 if reduced else None))
+            if reduced:
+                continue
+            t_w, t_w_p = paired_ms(f_k, f_p, reps=3)
+            n_it = int(out_k[2].sum())
+            b_w = bound(2.0 * sw_w * sw_w * (n_it - B_WIDE)
+                        + 2.0 * sw_w * 12 * B_WIDE,
+                        tensor_bytes(mw.T12, mw.T1, *args_w[2:7], out_k))
+            n_tile = tile_iterations(out_k[2], 32)
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            busy = min(n_sm, -(-B_WIDE // 32))  # one SM a tile
+            print(f"phase 4b K1 wide map sw={sw_w}, fp32 launch: kernel "
+                  f"{t_w:.3f} ms, plain {t_w_p:.3f} ms (median of 3), bound "
+                  f"{b_w[0]:.4f} ms by {b_w[1]}; {n_tile} tile iterations, "
+                  f"{32 * n_tile / n_it:.3f} x the lanes' own, "
+                  f"{1e3 * t_w * busy / n_tile:.3f} SM-us each on the "
+                  f"{busy} busy SMs", flush=True)
 
     # -- phase 5: the main path through the API -----------------------------
     condensed_fused_cuda.launches = 0
@@ -737,9 +824,7 @@ def earlier_phases(card):
     check(du <= LOOP_ATOL, f"phase 9: controls differ by {du:.3e}")
 
     # -- phase 10: K2, per-lane adaptive rho, kernel vs plain ---------------
-    def k2_both(pp, cc, tmaps, x0s, warm=(None, None), **kw):
-        """K2 and its plain version on the same inputs; ``warm`` is the pair
-        of carries (kernel's, plain's) of an earlier call."""
+    def k2_kw(pp, cc, **kw):
         full = dict(plant=AdaptivePlant(pp.A, pp.B, pp.Q, pp.R, cc.Pinf,
                                         cc.dPinf_drho),
                     nx=pp.nx, nu=pp.nu, N=pp.N, max_iter=200,
@@ -748,8 +833,14 @@ def earlier_phases(card):
                     adaptive_rho_min=0.5, adaptive_rho_max=5.0,
                     adaptive_rho_clipping=True, check_termination=1,
                     controller="osqp", taylor_trust=float("inf"),
-                    warm_start=warm[0] is not None, carry_out=True)
+                    warm_start=False, carry_out=True)
         full.update(kw)
+        return full
+
+    def k2_both(pp, cc, tmaps, x0s, warm=(None, None), **kw):
+        """K2 and its plain version on the same inputs; ``warm`` is the pair
+        of carries (kernel's, plain's) of an earlier call."""
+        full = k2_kw(pp, cc, warm_start=warm[0] is not None, **kw)
         args = (tmaps, pp.u_min, pp.u_max, pp.x_min, pp.x_max, x0s)
         return (condensed_adaptive_cuda(*args, warm[0], **full),
                 condensed_adaptive_reference(*args, warm[1], **full))
@@ -793,14 +884,39 @@ def earlier_phases(card):
     quad_kw = dict(controller="termination", taylor_trust=2.0,
                    adaptive_rho_min=quadrotor.RHO, adaptive_rho_max=1e3)
     tq = build_condensed_taylor(pq, cq)
-    tile_a, resident_a = adaptive_tile_plan(
-        12, 4, qN, 2, B_QUAD,
-        torch.cuda.get_device_properties(dev).multi_processor_count)
     out_k, out_p = k2_both(pq, cq, tq, x0_q, max_iter=300, **quad_kw)
+    plan_a = adaptive_tile_plan(12, 4, qN, 2)
     a_errs.append(adaptive_agreement(
-        f"phase 10e quadrotor (sw=316, tile {tile_a}, maps in shared "
-        f"memory: {resident_a}), termination controller, trust 2", out_k,
-        out_p))
+        f"phase 10e quadrotor (sw=316, tiles of {plan_a.tile} lanes, "
+        f"{plan_a.rpt} rows a thread in {plan_a.passes1} + {plan_a.passes2} "
+        f"passes, maps {'resident' if plan_a.resident else 'streamed'}, "
+        f"{plan_a.smem} bytes of shared memory), termination controller, "
+        "trust 2", out_k, out_p))
+    # any Taylor order; the reduced-precision products
+    t4 = build_condensed_taylor(pa, ca, order=4)
+    out_k, out_p = k2_both(pa, ca, t4, x0_check)
+    a_errs.append(adaptive_agreement(
+        "phase 10f cartpole, Taylor order 4 (five T1 blocks in turn), "
+        "OSQP-form controller", out_k, out_p))
+    n_red = condensed_adaptive_cuda.reduced_launches
+    out_k, out_p = k2_both(pa, ca, ta, x0_check, check_termination=5,
+                           precision="default")
+    check(condensed_adaptive_cuda.reduced_launches == n_red + 1,
+          "phase 10g: the launch ran no reduced iterations")
+    a_errs.append(adaptive_agreement(
+        "phase 10g cartpole, precision='default' at ct=5 (the products of "
+        "the iterations that neither check nor predict rho on the tensor "
+        "cores, 121 of 200)", out_k, out_p, min_solved=0))
+    hi_k, _ = k2_both(pa, ca, ta, x0_check)
+    lo_k = condensed_adaptive_cuda(ta, pa.u_min, pa.u_max, pa.x_min,
+                                   pa.x_max, x0_check, None, **dict(
+                                       k2_kw(pa, ca), precision="default"))
+    same_ct1 = all(torch.equal(a, b) for a, b in zip(
+        hi_k[:5] + tuple(hi_k[5]), lo_k[:5] + tuple(lo_k[5])))
+    print(f"phase 10g precision='default' at ct=1 equals 'highest' bit for "
+          f"bit: {same_ct1}", flush=True)
+    check(same_ct1, "phase 10g: precision='default' at ct=1 differs from "
+          "'highest'")
 
     # -- phase 11: the adaptive main path at the quadrotor's full width ------
     x0_a = torch.as_tensor(np.random.default_rng(1).uniform(
@@ -811,6 +927,7 @@ def earlier_phases(card):
         adaptive_rho_taylor_trust=2.0, adaptive_rho_min=quadrotor.RHO,
         adaptive_rho_max=1e3, max_iter=150)
     condensed_adaptive_cuda.launches = 0
+    condensed_adaptive_cuda.warm_launches = 0
     xs, us, it, ok, carry = q_solver.solve_batch(x0_a, method="fused",
                                                  return_carry=True)
     torch.cuda.synchronize()
@@ -837,8 +954,11 @@ def earlier_phases(card):
     res_a = two_phase_adaptive_solve(*pipe_a, **akw)
     torch.cuda.synchronize()
     a_launches = condensed_adaptive_cuda.launches
-    check(a_launches == 3, f"the adaptive main path launched K2 {a_launches} "
-          "times, not 3 (one API solve, two pipeline phases)")
+    c_launches = condensed_adaptive_cuda.warm_launches
+    check(a_launches == 3 and c_launches == 1,
+          f"the adaptive main path launched K2 {a_launches} times, not 3 (one "
+          f"API solve, two pipeline phases), {c_launches} of them warm, not "
+          "1 (the continuation)")
     res_ap = two_phase_adaptive_solve(*pipe_a,
                                       fused=condensed_adaptive_reference,
                                       **akw)
@@ -863,10 +983,54 @@ def earlier_phases(card):
         lambda: condensed_adaptive_reference(*bulk_args, **bulk_kw))
     ord1, sw_q, in1_q = tqa.T1s.shape
     su_q = tqa.T2s.shape[1]
+    k2_flops = 2.0 * (ord1 * sw_q * in1_q + 4 * su_q * (sw_q + 1))
     k2_bound = bound(
-        2.0 * (ord1 * sw_q * in1_q + 4 * su_q * (sw_q + 1)) * int(it.sum()),
+        k2_flops * int(it.sum()),
         tensor_bytes(tqa.T1s, tqa.T2s[:, :, :sw_q], tqa.T2s[:, :, -1:],
                      *bulk_args[1:6], xs, us, it, ok, tuple(carry.data)))
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_tile_b = tile_iterations(it, plan_a.tile)
+    # the continuation launch alone: the bulk pass's stragglers compacted
+    # into the slots as the pipeline does, warm from the kernel's carry,
+    # both sides on the same inputs
+    idx, _, _, _ = compact_members((ok == 0)[None, :], SLOTS_ADAPT)
+    idx = idx[0]
+    cont_args = (tqa, qp.u_min, qp.u_max, qp.x_min, qp.x_max,
+                 x0_a[idx].contiguous(), AdaptiveFusedCarry(
+                     *(w[:, idx].contiguous() for w in carry.data)))
+    cont_kw = dict(bulk_kw, max_iter=ADAPTIVE_BUDGETS[1], warm_start=True,
+                   carry_out=False)
+    f_ck = functools.partial(condensed_adaptive_cuda, *cont_args, **cont_kw)
+    f_cp = functools.partial(condensed_adaptive_reference, *cont_args,
+                             **cont_kw)
+    cont_k = f_ck()
+    cont_p = f_cp()
+    a_errs.append(adaptive_agreement(
+        f"phase 11 continuation launch ({SLOTS_ADAPT} slots warm from the "
+        f"bulk pass's carry, up to {ADAPTIVE_BUDGETS[1]} iterations) vs "
+        "plain", cont_k, cont_p, min_solved=0))
+    t_c, t_c_p = paired_ms(f_ck, f_cp, reps=3, plain_reps=1)
+    n_tile_c = tile_iterations(cont_k[2], plan_a.tile)
+    k2c_bound = bound(
+        k2_flops * int(cont_k[2].sum()),
+        tensor_bytes(tqa.T1s, tqa.T2s[:, :, :sw_q], tqa.T2s[:, :, -1:],
+                     *cont_args[1:], cont_k))
+    print(f"phase 11 K2 bulk launch: tiles of {plan_a.tile} lanes, "
+          f"{plan_a.rpt} rows a thread, {n_tile_b} tile iterations, "
+          f"{plan_a.tile * n_tile_b / int(it.sum()):.3f} x the lanes' own, "
+          f"{1e3 * t_k2 * n_sm / n_tile_b:.3f} SM-us each; bound "
+          f"{k2_bound[0]:.4f} ms by {k2_bound[1]}", flush=True)
+    print(f"phase 11 K2 continuation launch: tiles of {plan_a.tile} lanes, "
+          f"{plan_a.rpt} rows a thread in {plan_a.passes1} + "
+          f"{plan_a.passes2} passes; mean iterations "
+          f"{cont_k[2].float().mean().item():.1f}, largest "
+          f"{int(cont_k[2].max())}; {n_tile_c} tile iterations "
+          f"({-(-SLOTS_ADAPT // plan_a.tile)} tiles), "
+          f"{plan_a.tile * n_tile_c / max(1, int(cont_k[2].sum())):.3f} x "
+          f"the lanes' own, {1e3 * t_c / int(cont_k[2].max()):.3f} us an "
+          f"iteration of the slowest tile; kernel {t_c:.3f} ms (median of "
+          f"3), plain {t_c_p:.3f} ms (one timing), bound "
+          f"{k2c_bound[0]:.4f} ms by {k2c_bound[1]}", flush=True)
     n_strag = int(res_a.unconv.sum())
     print(f"phase 11 adaptive pipeline B={B_ADAPT}, {SLOTS_ADAPT} slots, "
           f"fp32 150 + 2500: {int(ok.sum())} converged in the bulk pass, "
@@ -948,7 +1112,15 @@ def earlier_phases(card):
         "replaces": "tinympc_julia_tpu/ops/pallas/adaptive_kernel.py:106",
         "launches": a_launches, "max_abs_err": max(a_errs), "ms": t_k2,
         "plain_ms": t_k2_p, "bound_ms": k2_bound[0],
-        "bound_by": k2_bound[1], "library_ms": no_library}]
+        "bound_by": k2_bound[1], "library_ms": no_library}, {
+        "name": "condensed_adaptive (K2), the adaptive pipeline's warm "
+                "continuation (2,048 slots, up to 2,500 iterations)",
+        "route": "cuda",
+        "source": "tinympc_julia_tpu_torch/csrc/condensed_adaptive.cu",
+        "replaces": "tinympc_julia_tpu/ops/pallas/adaptive_kernel.py:106",
+        "launches": c_launches, "max_abs_err": max(a_errs), "ms": t_c,
+        "plain_ms": t_c_p, "bound_ms": k2c_bound[0],
+        "bound_by": k2c_bound[1], "library_ms": no_library}]
 
 
 def flat_lanes(out):
@@ -966,10 +1138,11 @@ def grouped_phases(card):
     from tinympc_julia_tpu_torch.ops.condensed import (
         build_condensed, build_condensed_taylor)
     from tinympc_julia_tpu_torch.ops.cuda.adaptive_kernel import (
-        AdaptivePlant, condensed_adaptive_cuda, condensed_adaptive_reference)
+        AdaptivePlant, adaptive_tile_plan, condensed_adaptive_cuda,
+        condensed_adaptive_reference)
     from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
         condensed_fused_cuda, condensed_fused_reference, fused_constraints,
-        fused_tile_plan, map_layout, problem_constraint_kw)
+        fused_tile_plan, map_layout, problem_constraint_kw, tile_iterations)
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.parallel.grouped import GroupedBatchSolver
     from tinympc_julia_tpu_torch.types import stack_instances
@@ -1021,13 +1194,6 @@ def grouped_phases(card):
         full = k1_kw(P, **kw)
         return (condensed_fused_cuda(*args, **full),
                 condensed_fused_reference(*args, **full))
-
-    def tile_iterations(counts, groups):
-        """Iterations summed over K1's tiles (32 lanes of one group, a block
-        each): a tile runs until its last lane latches."""
-        per = counts.reshape(groups, -1)
-        per = torch.nn.functional.pad(per, (0, -per.shape[1] % 32))
-        return int(per.reshape(groups, -1, 32).amax(dim=2).sum())
 
     def product_counts(counts, ct):
         """(reduced, fp32) T12 products of a cold precision="default" launch
@@ -1240,6 +1406,16 @@ def grouped_phases(card):
                      Pa.u_max, Pa.x_min, Pa.x_max, x0a, out_k[:5],
                      tuple(out_k[5])))
     t_k2g, t_k2g_p = paired_ms(f_k, f_p)
+    plan_g = adaptive_tile_plan(12, 4, N, 2)
+    n_tile_g = tile_iterations(out_k[2], plan_g.tile, G)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_tiles = G * -(-L // plan_g.tile)
+    print(f"phase 15b K2 grid launch: tiles of {plan_g.tile} lanes "
+          f"({n_tiles} tiles on {n_sm} SMs), {plan_g.rpt} rows a thread, "
+          f"{n_tile_g} tile iterations, "
+          f"{plan_g.tile * n_tile_g / int(out_k[2].sum()):.3f} x the lanes' "
+          f"own, {1e3 * t_k2g * min(n_sm, n_tiles) / n_tile_g:.3f} SM-us "
+          "each on the busy SMs", flush=True)
     condensed_adaptive_cuda.launches = 0
     condensed_adaptive_cuda.grouped_launches = 0
     gs_a = GroupedBatchSolver(Pa, Ca, Settings(
@@ -1381,7 +1557,7 @@ def grouped_phases(card):
                              plain_reps=1 if key == "K1c" else None)
         timed[key] = (err, t_k, t_p, 1e3 * max(t_ops, t_bytes),
                       "operations" if t_ops >= t_bytes else "bytes")
-        n_tile = tile_iterations(out_k[2], Gq)
+        n_tile = tile_iterations(out_k[2], 32, Gq)
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         print(f"phase 16 {key} bulk launch: kernel {t_k:.3f} ms (median of "
               f"3), plain {t_p:.3f} ms "

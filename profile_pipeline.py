@@ -14,7 +14,11 @@ Runs each chosen workload under ``torch.profiler`` after one warm-up:
   * ``adaptive``: the two-phase adaptive-rho pipeline (16,384 quadrotor
     lanes, termination controller floored at rho0 with trust 2, 150
     iterations, 2,048 straggler slots, up to 2,500 warm), two launches of
-    kernel K2;
+    kernel K2 (the bulk launch and the warm continuation), with the tiles
+    each launch runs and K2's tile iterations against the lanes' own; and
+    its group grid beside it (``adaptive_grid``: 8 randomised quadrotors x
+    512 lanes through ``GroupedBatchSolver.solve_batch(method="fused")``,
+    150 iterations, one launch);
   * ``sweep_quadrotor``: the randomised quadrotor sweep through
     ``GroupedBatchSolver.make_fused_pipeline`` (models/sweeps.py: 64 plants x
     1,024 lanes, 128 reduced-precision + 32 fp32 iterations, 256 slots a
@@ -128,8 +132,12 @@ def rocket_workload(dev):
 def adaptive_workload(dev):
     from tinympc_julia_tpu_torch.models import quadrotor
     from tinympc_julia_tpu_torch.ops.condensed import build_condensed_taylor
+    from tinympc_julia_tpu_torch.ops.cuda.adaptive_kernel import (
+        adaptive_tile_plan)
+    from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
+        tile_iterations)
     from tinympc_julia_tpu_torch.parallel.pipeline import (
-        two_phase_adaptive_solve)
+        ADAPTIVE_BUDGETS, two_phase_adaptive_solve)
 
     t0 = time.perf_counter()
     solver = quadrotor.make_solver(dtype=F32, device="cuda")
@@ -147,15 +155,75 @@ def adaptive_workload(dev):
             tmaps, p.u_min, p.u_max, p.x_min, p.x_max, x0, nx=12, nu=4,
             N=p.N, straggler_slots=2048)
 
+    m1 = ADAPTIVE_BUDGETS[0]
+    tile = adaptive_tile_plan(12, 4, p.N, 2).tile
+
     def stats(res):
+        # the bulk launch's lanes ran min(count, m1); the continuation's
+        # slots hold the stragglers in lane order (its fill slots, which
+        # repeat lane 0, are left out of its tile iterations)
+        bulk = res.iters.clamp(max=m1)
+        cont = res.iters[res.unconv] - m1
+        n_bulk = tile_iterations(bulk, tile)
+        n_cont = tile_iterations(cont, tile)
         return dict(stragglers=int(res.unconv.sum()),
                     overflow=int(res.overflow),
                     mean_iters=res.iters.float().mean().item(),
                     max_iters=int(res.iters.max()),
                     converged=int(res.solved.sum()),
-                    rho_span=[res.rho.min().item(), res.rho.max().item()])
+                    rho_span=[res.rho.min().item(), res.rho.max().item()],
+                    tile=tile, tile_iterations=dict(bulk=n_bulk,
+                                                    continuation=n_cont),
+                    tile_over_lane_iterations=dict(
+                        bulk=tile * n_bulk / int(bulk.sum()),
+                        continuation=tile * n_cont
+                        / max(1, int(cont.sum()))))
 
     return "condensed_adaptive_kernel", 2, setup, run, stats
+
+
+def adaptive_grid_workload(dev):
+    from tinympc_julia_tpu_torch import Settings, make_problem
+    from tinympc_julia_tpu_torch.models import quadrotor
+    from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
+        TILE, tile_iterations)
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    from tinympc_julia_tpu_torch.parallel.grouped import GroupedBatchSolver
+    from tinympc_julia_tpu_torch.types import stack_instances
+
+    G, L = 8, 512
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    ps, cs = [], []
+    for _ in range(G):
+        ub = rng.uniform(0.4, 0.6)
+        pg = make_problem(
+            quadrotor.A + rng.normal(scale=2e-3, size=(12, 12)),
+            quadrotor.B * rng.uniform(0.9, 1.1),
+            np.diag(quadrotor.Q_DIAG * rng.uniform(0.8, 1.25, size=12)),
+            np.diag(quadrotor.R_DIAG), quadrotor.RHO * rng.uniform(0.8, 1.2),
+            quadrotor.HORIZON, u_min=-ub, u_max=ub, dtype=F32, device=dev)
+        ps.append(pg)
+        cs.append(precompute_cache(pg.A, pg.B, pg.Q, pg.R, pg.rho_setup))
+    gs = GroupedBatchSolver(stack_instances(ps), stack_instances(cs), Settings(
+        max_iter=150, en_state_bound=False, adaptive_rho=True,
+        adaptive_rho_controller="termination", adaptive_rho_taylor_trust=2.0,
+        adaptive_rho_min=quadrotor.RHO * 0.8, adaptive_rho_max=1e3))
+    torch.cuda.synchronize()
+    setup = dict(cache=time.perf_counter() - t0, maps=None)
+    x0 = torch.as_tensor(np.random.default_rng(12).uniform(
+        -0.3, 0.3, size=(G, L, 12)), dtype=F32, device=dev)
+
+    def stats(res):
+        it = res[2].reshape(-1)
+        n_tile = tile_iterations(it, TILE, G)
+        return dict(mean_iters=it.float().mean().item(),
+                    max_iters=int(it.max()), converged=int(res[3].sum()),
+                    tile=TILE, tile_iterations=n_tile,
+                    tile_over_lane_iterations=TILE * n_tile / int(it.sum()))
+
+    return ("condensed_adaptive_kernel", 1, setup,
+            lambda: gs.solve_batch(x0, method="fused"), stats)
 
 
 def sweep_workload(build, staged):
@@ -256,7 +324,7 @@ def fused_stage_workload(dev):
 
 WORKLOADS = dict(
     cartpole=cartpole_workload, rocket=rocket_workload,
-    adaptive=adaptive_workload,
+    adaptive=adaptive_workload, adaptive_grid=adaptive_grid_workload,
     sweep_quadrotor=sweep_workload("randomized_quadrotor_sweep", True),
     sweep_quadrotor_unstaged=sweep_workload("randomized_quadrotor_sweep",
                                             False),
@@ -313,8 +381,8 @@ def trace(name, kernel, per_run, run, reps):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", default="all",
-                    choices=[n for n in WORKLOADS if "unstaged" not in n]
-                    + ["all"])
+                    choices=[n for n in WORKLOADS if "unstaged" not in n
+                             and n != "adaptive_grid"] + ["all"])
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -147,6 +147,56 @@ def test_check_termination_5_matches_jax_kernel():
     _assert_lanes(p, j, 54)
 
 
+def test_taylor_order_4_matches_jax_kernel():
+    """Taylor order 4 (five T1 blocks, Horner over four powers of drho):
+    the plain version, which the kernel follows block by block from the
+    highest order down, against the Pallas kernel's any-order body."""
+    x0 = x0_batch(64, 7).astype(np.float32)
+    setup = taylor_setup(dtype=F32, order=4, **CART)
+    assert setup[1][2].T1s.shape[0] == 5
+    j, p = _both(setup, x0, tile=64, max_iter=200, carry_out=True,
+                 **CART_KW)
+    _assert_lanes(p, j, 48)
+    assert (p[4].numpy() != 1.0).any()
+
+
+def test_reduced_precision_control_flow_matches_jax_kernel(monkeypatch):
+    """``precision="default"`` at ct = 5 with the operand rounding switched
+    off (off the TPU the Pallas kernel's DEFAULT precision is fp32 too): the
+    reduced iterations' products are the tensor cores' k16 sums of the fp32
+    operands, every iteration that checks ((i + 1) % 5 == 0) or predicts
+    rho (i % 5 == 0) is fp32, and the lanes follow the Pallas kernel's."""
+    monkeypatch.setattr(K2, "bf16_round", lambda t: t)
+    x0 = x0_batch(64, 6).astype(np.float32)
+    j, p = _both(taylor_setup(dtype=F32, **CART), x0, tile=64, max_iter=200,
+                 check_termination=5, precision="default", **CART_KW)
+    assert (p[2].numpy()[p[3].numpy() == 1] % 5 == 0).all()
+    _assert_lanes(p, j, 48, exact_counts=False)
+
+
+def test_reduced_precision_at_ct1_equals_full_precision():
+    """At ct = 1 every iteration checks, so ``"default"`` runs every product
+    in fp32 and equals ``"highest"`` bit for bit; at ct = 5 the rounding is
+    real: the bf16 products move the iterates, and the plain version
+    really rounds the maps and the operands to bf16."""
+    (_, _, _), (pp, pc, pt) = taylor_setup(dtype=F32, **CART)
+    x0 = torch.as_tensor(x0_batch(32, 9), dtype=torch.float32)
+
+    def run(**kw):
+        return K2.make_condensed_adaptive_fused_solver(
+            *_plant_args(pp, pc), N, max_iter=60, carry_out=True,
+            **dict(CART_KW, **kw))(pt, *_bounds(pp), x0)
+
+    full = run()
+    same = run(precision="default")
+    for a, b in zip(full[:5] + tuple(full[5]), same[:5] + tuple(same[5])):
+        assert torch.equal(a, b)
+    lo = run(check_termination=5, precision="default")
+    hi = run(check_termination=5)
+    assert not torch.equal(lo[1], hi[1])
+    assert float((lo[1] - hi[1]).abs().max()) < 0.5
+
+
 def test_termination_controller_with_trust_matches_jax_kernel():
     """The termination controller on a mis-set-low rho0 = 0.5 with the
     cart-position bound, trust 2: rho moves up to the trust clip and down
@@ -299,7 +349,7 @@ def test_cpu_solver_runs_the_plain_version_and_builds_nothing():
 
 @pytest.mark.parametrize("kw,err", [
     (dict(num_groups=0), ValueError),
-    (dict(precision="default"), NotImplementedError),
+    (dict(precision="bf16"), ValueError),
     (dict(check_termination=4, max_iter=50), ValueError),
     (dict(max_iter=52), ValueError),
     (dict(check_termination=0), ValueError),
@@ -327,13 +377,49 @@ def test_wrong_inputs_raise():
 
 
 def test_tile_plan():
-    """The cartpole's maps sit in shared memory beside 128 lanes; the
-    quadrotor's (337 KB + 385 KB) stay in global memory.  A batch too small
-    for a block on each of 132 multiprocessors gets smaller blocks."""
-    assert K2.adaptive_tile_plan(4, 1, 20, 2, 65536, 132) == (128, True)
-    assert K2.adaptive_tile_plan(12, 4, 20, 2, 16384, 132) == (64, False)
-    assert K2.adaptive_tile_plan(12, 4, 20, 2, 2048, 132) == (32, False)
-    assert K2.adaptive_tile_plan(4, 1, 20, 2, 4096, 132) == (32, True)
+    """K1's tiles of 32 lanes on 256 threads, whatever the batch.  The
+    cartpole's maps (T1 3 x 24 x 128, the interleaved T2 stack 100 x 128,
+    fp32) sit in shared memory beside the lanes' state; the quadrotor's
+    (337 KB + 385 KB) stream through the slab ring, 20 rows a thread
+    covering its 316 forward and 304 stacked backward rows in one pass."""
+    cart = K2.adaptive_tile_plan(4, 1, 20, 2)
+    # vec1 24 + ux 100 rows, flags, rho, partials, y/z/v 118 rows, maps
+    assert cart == K2.AdaptivePlan(
+        32, 256, 8, 1, 1, True, True, 32, 128,
+        3072 + 12800 + 144 + 256 + 12288 + 15104 + 36864 + 51200)
+    quad = K2.adaptive_tile_plan(12, 4, 20, 2)
+    assert quad == K2.AdaptivePlan(
+        32, 256, 20, 1, 1, False, True, 96, 320,
+        11392 + 40576 + 144 + 256 + 12288 + 50176 + 6 * 8 * 320 * 4)
+    assert quad.width == 320 and quad.ld1 >= 316 and quad.ld2 >= 4 * 76
+    # reduced iterations add the bf16 maps (rows padded by 8) and the
+    # rounded operand; every plan fits a block's shared memory
+    lo = K2.adaptive_tile_plan(4, 1, 20, 2, reduced=True)
+    assert lo.smem == cart.smem + 2 * 3 * 128 * 40 + 2 * 128 * 136 \
+        + 2 * 32 * 136
+    for shape in ((12, 4, 20), (12, 4, 40), (12, 4, 54), (6, 3, 10)):
+        for reduced in (False, True):
+            for state_free in (True, False):
+                for order in (2, 4):
+                    p = K2.adaptive_tile_plan(*shape, order, reduced,
+                                              state_free)
+                    assert p.smem <= K.SMEM_PER_BLOCK
+    # the quadrotor at N = 40 and 57 (sw = 636, 908): the products in
+    # passes of 320 rows
+    for N_, sw, su in ((40, 636, 156), (57, 908, 224)):
+        wide = K2.adaptive_tile_plan(12, 4, N_, 2)
+        assert wide.passes1 * wide.width >= sw \
+            > (wide.passes1 - 1) * wide.width
+        assert wide.passes2 * wide.width >= 4 * su
+        assert wide.passes1 > 1
+    # the widths a tile of 32 lanes' iterates leave room for: sw 1,196 in
+    # fp32 (N = 75), 860 with the bf16 maps and operand (N = 54)
+    K2.adaptive_tile_plan(12, 4, 75, 2)
+    K2.adaptive_tile_plan(12, 4, 54, 2, reduced=True)
+    with pytest.raises(ValueError, match="no room"):
+        K2.adaptive_tile_plan(12, 4, 76, 2)
+    with pytest.raises(ValueError, match="no room"):
+        K2.adaptive_tile_plan(12, 4, 55, 2, reduced=True)
 
 
 # -- the group grid ----------------------------------------------------------
@@ -440,6 +526,34 @@ def test_grouped_reference_equals_per_group_solves():
                                    rtol=0)
         torch.testing.assert_close(joint[5].d[:, lanes], one[5].d,
                                    atol=1e-12, rtol=0)
+
+
+def test_grouped_reduced_precision_equals_per_group_solves():
+    """float32, ``precision="default"`` at ct = 5: the reduced products of a
+    grouped solve (the tensor cores' k16 sums over G-stacked maps) give each
+    group the bits of that group's solve alone."""
+    G, L = 2, 8
+    _, (pps, pcs) = grouped_cartpoles(G, jnp.float32, N=NG)
+    pt = C.build_condensed_taylor(pps, pcs)
+    x0 = torch.as_tensor(np.random.default_rng(68).uniform(
+        -0.5, 0.5, size=(G, L, 4)), dtype=torch.float32)
+    kw = dict(nx=4, nu=1, N=NG, max_iter=40, abs_pri_tol=1e-3,
+              abs_dua_tol=1e-3, en_state_bound=False, en_input_bound=True,
+              relaxation_alpha=1.0, adaptive_rho_min=0.3,
+              adaptive_rho_max=8.0, adaptive_rho_clipping=True,
+              check_termination=5, controller="termination",
+              taylor_trust=2.0, warm_start=False, carry_out=True,
+              precision="default")
+    joint = K2.condensed_adaptive_reference(pt, *_bounds(pps), x0, None,
+                                            plant=None, num_groups=G, **kw)
+    for g in range(G):
+        one = K2.condensed_adaptive_reference(
+            C.CondensedTaylorMaps(*(m[g] for m in pt)),
+            *(b[g] for b in _bounds(pps)), x0[g], None, plant=None, **kw)
+        lanes = slice(g * L, (g + 1) * L)
+        for a, b in ((joint[1][lanes], one[1]), (joint[4][lanes], one[4]),
+                     (joint[5].d[:, lanes], one[5].d)):
+            assert torch.equal(a, b)
 
 
 def test_grouped_inputs_are_checked():

@@ -195,8 +195,46 @@ def test_tile_plan():
     # sw = 508 with a state dual: the state stays in global memory
     wide = K.fused_tile_plan(12, 4, 32, state_free=False)
     assert not wide.state_shared and not wide.resident and wide.rows == 512
-    with pytest.raises(ValueError, match="rows"):
-        K.fused_tile_plan(30, 10, 20)  # sw = 790 > 512
+    # sw = 790: two passes of 16 x 32 rows, the first pass's sums parked
+    wider = K.fused_tile_plan(30, 10, 20)
+    assert (wider.passes, wider.rpt, wider.rows) == (2, 32, 1024)
+    assert wider.smem <= K.SMEM_PER_BLOCK
+
+
+def test_tile_plan_for_wide_maps():
+    """The quadrotor at N = 40 and 57 (sw 636, 908), widths a one-pass plan
+    refused: the product in passes of 16 RPT rows, every layout within one
+    block's shared memory, the state in global memory beside w2; reduced
+    iterations at 908 take 8 passes of 128 rows (the bf16 ring and the
+    rounded w2 then fit); the widest maps a tile leaves room for."""
+    for N_, sw in ((40, 636), (57, 908)):
+        for reduced in (False, True):
+            for state_free in (True, False):
+                plan = K.fused_tile_plan(12, 4, N_, reduced, state_free)
+                assert plan.passes > 1 and not plan.state_shared
+                assert plan.rows == plan.passes * K.TILE_ROW_GROUPS \
+                    * plan.rpt
+                assert plan.rows >= sw > plan.rows - plan.rows // plan.passes
+                assert plan.smem <= K.SMEM_PER_BLOCK
+                assert plan.kp >= sw and plan.kp % K.KP_ALIGN == 0
+    assert K.fused_tile_plan(12, 4, 40).rpt == 20
+    lo = K.fused_tile_plan(12, 4, 57, reduced=True)
+    assert (lo.passes, lo.rpt) == (8, 8)
+    K.fused_tile_plan(12, 4, 99)
+    K.fused_tile_plan(12, 4, 66, reduced=True)
+    with pytest.raises(ValueError, match="no room"):
+        K.fused_tile_plan(12, 4, 100)
+    with pytest.raises(ValueError, match="no room"):
+        K.fused_tile_plan(12, 4, 67, reduced=True)
+
+
+def test_tile_iterations_count_each_tile_to_its_slowest_lane():
+    counts = torch.tensor([3, 9, 1, 1, 7, 2, 2])
+    assert K.tile_iterations(counts, 2) == 9 + 1 + 7 + 2
+    assert K.tile_iterations(counts, 4) == 9 + 7
+    # per group: a group's last tile is ragged, tiles never span groups
+    assert K.tile_iterations(counts[:6], 2, groups=2) == 9 + 1 + 7 + 2
+    assert K.tile_iterations(counts[:6], 4, groups=2) == 9 + 7
 
 
 # -- K1e: the linear and cone projections ------------------------------------
@@ -770,14 +808,28 @@ def test_map_layouts_keep_the_group_axis():
         assert torch.equal(o12t[:, :sw], one.T12[:, :sw].T)
         assert float(o12t[:, sw:].abs().max()) == 0.0
     pt = C.build_condensed_taylor(pps, pcs)
-    t1t, t2t = K2.map_layout(pt, su, sw)
-    assert t1t.shape == (G, su + 4 + 1, 3, K2._padded(sw))
-    assert t2t.shape == (G, sw + 1, 4, K2._padded(su))
+    kplan = K2.adaptive_tile_plan(4, 1, NG, 2, reduced=True)
+    t1t, t2t, t1a, t2a = K2.map_layout(pt, su, sw, kplan, True)
+    assert t1t.shape == (G, 3, su + 4 + 1, kplan.ld1)
+    assert t2t.shape == (G, sw + 1, kplan.ld2)
+    assert t1a.shape == (G, 3, kplan.ld1, kplan.kp1)
+    assert t2a.shape == (G, kplan.ld2, kplan.kp2)
     for g in range(G):
-        o1t, o2t = K2.map_layout(
-            C.CondensedTaylorMaps(*(m[g] for m in pt)), su, sw)
+        o1t, o2t, o1a, o2a = K2.map_layout(
+            C.CondensedTaylorMaps(*(m[g] for m in pt)), su, sw, kplan, True)
         assert torch.equal(t1t[g], o1t) and torch.equal(t2t[g], o2t)
-        assert torch.equal(o1t[:, :, :sw], pt.T1s[g].permute(2, 0, 1))
-        assert torch.equal(o2t[:-1, :, :su],
-                           pt.T2s[g][:, :, :sw].permute(2, 0, 1))
-        assert torch.equal(o2t[-1, :, :su], pt.T2s[g][:, :, -1])
+        assert torch.equal(t1a[g], o1a) and torch.equal(t2a[g], o2a)
+        assert torch.equal(o1t[:, :, :sw], pt.T1s[g].transpose(-1, -2))
+        assert float(o1t[:, :, sw:].abs().max()) == 0.0
+        # row 4 r + c of the transposed stack is row r of T2 block c
+        for c in range(4):
+            assert torch.equal(o2t[:-1, c:4 * su:4],
+                               pt.T2s[g][c, :, :sw].T)
+            assert torch.equal(o2t[-1, c:4 * su:4], pt.T2s[g][c, :, -1])
+            assert torch.equal(o2a[c:4 * su:4, :sw].float(),
+                               K.bf16_round(pt.T2s[g][c, :, :sw]))
+        assert float(o2t[:, 4 * su:].abs().max()) == 0.0
+        assert torch.equal(o1a[:, :sw, :su + 5].float(),
+                           K.bf16_round(pt.T1s[g]))
+        assert float(o1a[:, :, su + 5:].float().abs().max()) == 0.0
+    assert K2.map_layout(pt, su, sw, kplan, False)[2:] == (None, None)

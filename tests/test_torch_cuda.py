@@ -393,6 +393,121 @@ def test_adaptive_api_and_pipeline_run_through_the_kernel(dev):
     assert int(res.solved.sum()) >= 0.99 * 3000
 
 
+def _counts_and_values_agree(k, r):
+    """>= 99% equal per-lane counts; on those lanes (solved or not) the
+    controls and states within 1e-4."""
+    same = (k[2] == r[2]) & (k[3] == r[3])
+    assert same.float().mean().item() >= 0.99
+    for j in (0, 1):
+        assert (k[j] - r[j])[same].abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("horizon,kw", [
+    (40, dict(max_iter=400)),
+    (40, dict(max_iter=24, precision="default")),
+    (57, dict(max_iter=400)),
+    (57, dict(max_iter=200, bf16_head_iters=16)),
+], ids=["sw636", "sw636-default", "sw908", "sw908-head16"])
+def test_wide_map_matches_plain_version(dev, horizon, kw):
+    """K1 at the quadrotor's horizons 40 and 57 (maps of 636 and 908 rows,
+    wider than the product's 16 thread rows cover at once): the product in
+    passes, the first passes' sums parked; fp32 and reduced (every
+    iteration but the checks, or a 16-iteration head: at 908 rows the
+    plain version's cuBLAS product of the checking iterations need not sum
+    in index order, so the unsolved lanes of a short all-reduced launch are
+    no yardstick there)."""
+    p = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
+                     np.diag(quadrotor.R_DIAG), quadrotor.RHO, horizon,
+                     u_min=-0.5, u_max=0.5, dtype=torch.float32, device=dev)
+    c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+    maps = build_condensed(p, c)
+    reduced = "precision" in kw or "bf16_head_iters" in kw
+    plan = K.fused_tile_plan(12, 4, horizon, reduced)
+    assert plan.passes > 1
+    x0 = _x0(256 if "precision" in kw else 1024, 12, 3, 0.3, dev)
+    args = (maps, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max, x0)
+    full = _kw(12, 4, N=horizon, check_termination=4, **kw)
+    before = K.condensed_fused_cuda.reduced_launches
+    k = K.condensed_fused_cuda(*args, **full)
+    r = K.condensed_fused_reference(*args, **full)
+    torch.cuda.synchronize()
+    assert K.condensed_fused_cuda.reduced_launches == before + reduced
+    if "precision" in kw:
+        _counts_and_values_agree(k, r)
+    else:
+        _agree(k, r)
+
+
+def test_adaptive_kernel_taylor_order_4(dev):
+    """Taylor order 4 (five T1 blocks in turn, Horner in registers) on the
+    card against the plain version."""
+    p, c, _ = _plant(cartpole, 5.0, dev)
+    args = (build_condensed_taylor(p, c, order=4), p.u_min, p.u_max,
+            p.x_min, p.x_max, _x0(1000, 4, 0, 0.5, dev), None)
+    k = K2.condensed_adaptive_cuda(*args, **_k2_kw(p, c))
+    r = K2.condensed_adaptive_reference(*args, **_k2_kw(p, c))
+    assert int(k[3].sum()) > 500
+    _k2_agree(k, r)
+
+
+def test_adaptive_reduced_precision_matches_plain_version(dev):
+    """``precision="default"`` at ct = 5: the products of the iterations
+    that neither check nor predict rho on the tensor cores, against the
+    plain version's emulation of them; at ct = 1 every iteration checks,
+    so the launch equals the full-precision one bit for bit."""
+    p, c, _ = _plant(cartpole, 5.0, dev)
+    args = (build_condensed_taylor(p, c), p.u_min, p.u_max, p.x_min,
+            p.x_max, _x0(1000, 4, 4, 0.5, dev), None)
+    kw = _k2_kw(p, c, check_termination=5, precision="default")
+    before = K2.condensed_adaptive_cuda.reduced_launches
+    k = K2.condensed_adaptive_cuda(*args, **kw)
+    r = K2.condensed_adaptive_reference(*args, **kw)
+    assert K2.condensed_adaptive_cuda.reduced_launches == before + 1
+    _counts_and_values_agree(k, r)
+    _k2_agree(k, r)
+    full = K2.condensed_adaptive_cuda(*args, **_k2_kw(p, c))
+    ct1 = K2.condensed_adaptive_cuda(*args,
+                                     **_k2_kw(p, c, precision="default"))
+    for a, b in zip(full[:5] + tuple(full[5]), ct1[:5] + tuple(ct1[5])):
+        assert torch.equal(a, b)
+
+
+def test_adaptive_continuation_matches_plain_version(dev):
+    """A continuation-sized launch (2,048 quadrotor slots: 64 tiles of 32
+    on the card), warm from a bulk pass's carry, against the plain version
+    on the same inputs; and the quadrotor at N = 40, each product in two
+    passes of 320 rows."""
+    p, c, _ = _plant(quadrotor, 0.5, dev)
+    tm = build_condensed_taylor(p, c)
+    bounds = (p.u_min, p.u_max, p.x_min, p.x_max)
+    x0 = _x0(2048, 12, 5, 0.3, dev)
+    kw = _k2_kw(p, c, max_iter=30, **_QUAD_KW)
+    bulk = K2.condensed_adaptive_cuda(tm, *bounds, x0, None, **kw)
+    kw = dict(kw, max_iter=300, warm_start=True)
+    before = K2.condensed_adaptive_cuda.warm_launches
+    k = K2.condensed_adaptive_cuda(tm, *bounds, x0, bulk[5], **kw)
+    assert K2.condensed_adaptive_cuda.warm_launches == before + 1
+    r = K2.condensed_adaptive_reference(tm, *bounds, x0, bulk[5], **kw)
+    assert int(k[3].sum()) > 1024
+    _k2_agree(k, r)
+    pw = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
+                      np.diag(quadrotor.R_DIAG), quadrotor.RHO, 40,
+                      u_min=-0.5, u_max=0.5, dtype=torch.float32,
+                      device=dev)
+    cw = precompute_cache(pw.A, pw.B, pw.Q, pw.R, pw.rho_setup)
+    args = (build_condensed_taylor(pw, cw), pw.u_min, pw.u_max, pw.x_min,
+            pw.x_max, x0[:1024], None)
+    kw = dict(_k2_kw(pw, cw, max_iter=300, **_QUAD_KW), N=40)
+    k = K2.condensed_adaptive_cuda(*args, **kw)
+    assert K2.adaptive_tile_plan(12, 4, 40, 2).passes1 == 2
+    r = K2.condensed_adaptive_reference(*args, **kw)
+    # at 637 columns cuBLAS need not sum the plain version's products in
+    # index order: K1's bar (the lanes both solved)
+    _agree(k, r)
+    both = (k[2] == r[2]) & (k[3] == 1) & (r[3] == 1)
+    assert ((k[4] - r[4]).abs() / r[4])[both].max().item() <= 1e-4
+
+
 # -- the group grid (K1d, K2) and the reduced-precision head (K1c) ------------
 
 def _groups(model, G, dev, *, ub_range, seed, x_bound=None, horizon=N):

@@ -22,19 +22,25 @@
 // shared memory.  The design is the Pallas kernel's tile-level matmul, for
 // Hopper:
 //  * A block of 256 threads owns a tile of 32 lanes and computes the
-//    tile's product T12w @ w2 as a GEMM.  Each thread keeps a register tile
-//    of RPT rows x 2 lanes (40 outputs at the quadrotor shape), so one k
-//    step is RPT/4 16-byte and one 8-byte shared loads for 2 RPT FMAs.
+//    tile's product T12w @ w2 as a GEMM (tile_gemm.cuh, shared with kernel
+//    K2).  Each thread keeps a register tile of RPT rows x 2 lanes (40
+//    outputs at the quadrotor shape), so one k step is RPT/4 16-byte and
+//    one 8-byte shared loads for 2 RPT FMAs.  The 16 thread rows cover 16
+//    RPT rows of the map at once; a wider map (the quadrotor at a horizon
+//    above 32) runs in passes of 16 RPT rows, the sums of all but the last
+//    pass parked in a global scratch of the tile's lanes until every
+//    thread is done reading w2.
 //  * Each output is summed over k in index order by one thread with fmaf,
 //    so a lane's fp32 result does not depend on its tile-mates or the tile
 //    size (and equals the plain version's wherever cuBLAS sums in index
 //    order).  No TF32: the fp32 product never touches the tensor cores.
-//  * T12 (transposed, rows padded to 16 RPT) is resident in shared memory
-//    where it fits beside the tile and otherwise streamed from L2 in slabs
-//    of kSlabK k-rows through a ring of kStages slots filled by cp.async:
-//    kStages - 1 slabs are in flight while the block multiplies one.  (A
-//    two-slot ring times the same at the quadrotor shape: the slabs'
-//    latency is not what bounds the streamed product; PERF.md section 6.)
+//  * T12 (transposed, rows padded to the passes' 16 RPT each) is resident
+//    in shared memory where it fits beside the tile and otherwise streamed
+//    from L2 in slabs of kSlabK k-rows of one pass through a ring of
+//    kStages slots filled by cp.async: kStages - 1 slabs are in flight
+//    while the block multiplies one.  (A two-slot ring times the same at
+//    the quadrotor shape: the slabs' latency is not what bounds the
+//    streamed product; PERF.md section 6.)
 //  * The tile's w2 lives in shared memory as [row][lane], a single buffer:
 //    after a barrier the product overwrites it (latched lanes keep theirs),
 //    and the elementwise step adds uxc and turns ux into the next w2 in
@@ -58,7 +64,7 @@
 //    slabs of kSlabKLo k-columns through the same ring, kStagesLo slots),
 //    w2 is rounded to bf16 (round to nearest even) into a [lane][k] buffer
 //    as it is staged, and mma.sync.m16n8k16 multiplies them; warps split
-//    the rows in four and the lanes in two groups of 16.  Each k16 step's 16 exact products are
+//    the rows of a pass in four and the lanes in two groups of 16.  Each k16 step's 16 exact products are
 //    summed from zero in the tensor core and added to an fp32 running sum.
 //    Rows of both buffers are padded by 8 bf16 so ldmatrix reads them
 //    without bank conflicts.  The sums are in the tensor cores' order, the
@@ -80,8 +86,9 @@
 //    of its iterate and a true residual.  The head checks only on its last
 //    iteration.
 //
-// Launch contract: the Python wrapper (fused_tile_plan) picks the padded
-// layouts (swp rows of the transposed map; kp columns of the bf16 map),
+// Launch contract: the Python wrapper (fused_tile_plan) picks the rows a
+// thread (8, 20 or 32: the instances), the passes, the padded layouts (swp
+// = passes x 16 RPT rows of the transposed map; kp columns of the bf16 map),
 // whether the map and the state are resident and the dynamic shared-memory
 // size; the entry point refuses a layout the kernel would overrun, and the
 // constraint layout (counts, cone extents, stage widths) likewise.
@@ -89,23 +96,11 @@
 #include <cuda_runtime.h>
 
 #include "projections.cuh"
+#include "tile_gemm.cuh"
 
 namespace {
 
 using namespace tinympc;
-
-constexpr int kTile = 32;         // lanes a block
-constexpr int kThreads = 256;     // threads a block
-constexpr int kLaneThreads = kThreads / kTile;  // threads a lane: 8
-constexpr int kRowGroups = 16;    // thread rows of the fp32 product
-constexpr int kLaneGroups = kThreads / kRowGroups;  // thread lanes: 16
-constexpr int kLpt = kTile / kLaneGroups;  // lanes a product thread: 2
-constexpr int kSlabK = 8;         // fp32 map k-rows per slab
-constexpr int kStages = 6;        // fp32 slabs in the ring
-constexpr int kSlabKLo = 16;      // bf16 map k-columns per slab
-constexpr int kStagesLo = 4;      // bf16 slabs in the ring
-constexpr int kPadLo = 8;         // bf16 row padding (conflict-free ldmatrix)
-constexpr int kRowBatch = 4;      // rows an elementwise pass loads at once
 
 struct Params {
   // the maps, with a leading group axis where map_grouped
@@ -133,7 +128,10 @@ struct Params {
   float* w2_out;      // (sw, B) carry outputs; null without carry_out
   float* vco;         // (sx, B)
   float* zco;         // (su, B)
+  float* park;        // (sw, B) the sums of all but the last pass; null
+                      // with one pass
   int nx, su, sx, sw, swp, kp, B, L;  // B = G * L lanes, L in each group
+  int passes;         // passes of 16 RPT map rows
   int max_iter, ct, k0, lo_all;
   float alpha, one_m_alpha, pri_tol, dua_tol;
   int state_free, warm_start, carry_out, t12_resident, state_shared;
@@ -165,14 +163,14 @@ __host__ __device__ inline int state_rows(int su, int sx, int sw,
 // floats), the latch flags (kTile + 1 ints), the residual partials of the
 // lanes' threads (kThreads float4), the lanes' solver state where it is
 // resident ([row][lane]), the map region (resident: the fp32 map, then the
-// bf16 one with reduced iterations; streamed: the slab ring, fp32 or bf16
-// slabs in turn), the bf16 w2 ([lane][k], reduced only).
+// bf16 one with reduced iterations; streamed: the slab ring of a pass of W
+// rows, fp32 or bf16 slabs in turn), the bf16 w2 ([lane][k], reduced only).
 struct TileLayout {
   size_t flags, red, state, map, maplo, w2h, total;
 };
 
-__host__ __device__ inline TileLayout tile_layout(int sw, int swp, int kp,
-                                                  int state_floats,
+__host__ __device__ inline TileLayout tile_layout(int sw, int swp, int W,
+                                                  int kp, int state_floats,
                                                   bool resident,
                                                   bool reduced) {
   TileLayout t;
@@ -189,10 +187,8 @@ __host__ __device__ inline TileLayout tile_layout(int sw, int swp, int kp,
     t.maplo = off;
     if (reduced) off += up16(2 * static_cast<size_t>(swp) * (kp + kPadLo));
   } else {
-    size_t ring = sizeof(float) * kStages * static_cast<size_t>(kSlabK) * swp;
-    const size_t lo =
-        2 * kStagesLo * static_cast<size_t>(swp) * (kSlabKLo + kPadLo);
-    if (reduced && lo > ring) ring = lo;
+    size_t ring = ring_bytes(W, false);
+    if (reduced && ring_bytes(W, true) > ring) ring = ring_bytes(W, true);
     off += up16(ring);
     t.maplo = t.map;
   }
@@ -200,41 +196,6 @@ __host__ __device__ inline TileLayout tile_layout(int sw, int swp, int kp,
   if (reduced) off += up16(2 * static_cast<size_t>(kTile) * (kp + kPadLo));
   t.total = off;
   return t;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
-                                            const __nv_bfloat16* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(src));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s)
-      : "memory");
-}
-
-// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // One lane's solver state for the elementwise step: element r of an array
@@ -328,342 +289,69 @@ __device__ __forceinline__ void tile_store(const Params& p, const Tile& t,
   if (r < p.sw && l < t.nvalid && !t.done[l]) t.buf[r * kTile + l] = acc;
 }
 
-// The fp32 product: thread (tr, tl) owns rows tr*RPT .. +RPT-1 of lanes
-// 2 tl, 2 tl + 1 and sums each over k in index order with fmaf.
+// The epilogue of pass j of either product: all but the last pass park
+// their sums in the global scratch; the last waits until every thread is
+// done reading w2, then stores its own sums and brings its parked ones
+// back (each thread reads only what it parked itself).
+template <class Frag, int kN>
+__device__ __forceinline__ void tile_epilogue(const Params& p, const Tile& t,
+                                              int W, int j,
+                                              const float (&acc)[kN],
+                                              const Frag& fr) {
+  if (j + 1 < p.passes) {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      const int r = j * W + fr.row(e), l = fr.lane(e);
+      if (r < p.sw && l < t.nvalid)
+        p.park[static_cast<size_t>(r) * p.B + t.lane0 + l] = acc[e];
+    }
+    return;
+  }
+  __syncthreads();  // every thread is done reading w2
+#pragma unroll
+  for (int e = 0; e < kN; ++e)
+    tile_store(p, t, j * W + fr.row(e), fr.lane(e), acc[e]);
+  for (int jp = 0; jp < j; ++jp)
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      const int r = jp * W + fr.row(e), l = fr.lane(e);
+      if (r < p.sw && l < t.nvalid)
+        tile_store(p, t, r, l,
+                   p.park[static_cast<size_t>(r) * p.B + t.lane0 + l]);
+    }
+}
+
+// The fp32 product, pass by pass: thread (tr, tl) owns rows tr*RPT ..
+// +RPT-1 of the pass, lanes 2 tl, 2 tl + 1, and sums each over k in index
+// order with fmaf.
 template <int RPT>
 __device__ __forceinline__ void tile_product_fp32(const Params& p,
                                                   const Tile& t) {
-  const int sw = p.sw, swp = p.swp;
-  const int tl = t.tid % kLaneGroups, tr = t.tid / kLaneGroups;
-  const int r0 = tr * RPT;
-  float acc[RPT][kLpt];
-#pragma unroll
-  for (int j = 0; j < RPT; ++j)
-#pragma unroll
-    for (int q = 0; q < kLpt; ++q) acc[j][q] = 0.0f;
-  const float* wcol = t.buf + kLpt * tl;
-  auto step = [&](const float* mrow, int k) {
-    const float2 w = *reinterpret_cast<const float2*>(wcol + k * kTile);
-#pragma unroll
-    for (int j4 = 0; j4 < RPT / 4; ++j4) {
-      const float4 m = *reinterpret_cast<const float4*>(mrow + r0 + 4 * j4);
-      const float mv[4] = {m.x, m.y, m.z, m.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[4 * j4 + j][0] = fmaf(mv[j], w.x, acc[4 * j4 + j][0]);
-        acc[4 * j4 + j][1] = fmaf(mv[j], w.y, acc[4 * j4 + j][1]);
-      }
-    }
-  };
-  if (!t.ring) {
-    for (int k = 0; k < sw; ++k) step(t.map + k * swp, k);
-  } else {
-    // slab s: map rows [s*kSlabK, ...), contiguous in global memory, in
-    // ring slot s % kStages; kStages - 1 slabs are in flight
-    const int nslab = (sw + kSlabK - 1) / kSlabK;
-    auto issue = [&](int s) {
-      const int k0 = s * kSlabK;
-      const int rows = min(kSlabK, sw - k0);
-      float* dst = t.ring + (s % kStages) * kSlabK * swp;
-      const float* src = t.map + static_cast<size_t>(k0) * swp;
-      for (int e = t.tid; e < rows * swp / 4; e += kThreads)
-        cp_async16(dst + 4 * e, src + 4 * e);
-      cp_async_commit();  // always, so the group count stays in step
-    };
-    for (int s = 0; s < kStages - 1; ++s) issue(s);
-    for (int s = 0; s < nslab; ++s) {
-      cp_async_wait<kStages - 2>();  // slab s has landed
-      __syncthreads();  // ... for every thread; slab s - 1 is consumed
-      issue(s + kStages - 1);  // into slab s - 1's slot
-      const float* slab = t.ring + (s % kStages) * kSlabK * swp;
-      const int k0 = s * kSlabK, k1 = min(sw, k0 + kSlabK);
-      for (int k = k0; k < k1; ++k) step(slab + (k - k0) * swp, k);
-    }
-  }
-  __syncthreads();  // every thread is done reading w2
-#pragma unroll
-  for (int j = 0; j < RPT; ++j)
-#pragma unroll
-    for (int q = 0; q < kLpt; ++q)
-      tile_store(p, t, r0 + j, kLpt * tl + q, acc[j][q]);
+  const int W = kRowGroups * RPT;
+  const GemmF32 a{t.buf, t.ring, p.sw, W, p.swp, p.passes, t.tid};
+  gemm_fp32<RPT>(
+      a, [&](int j) { return t.map + j * W; },
+      [&](int j, const float(&acc)[2 * RPT], const FragF32<RPT>& fr) {
+        tile_epilogue(p, t, W, j, acc, fr);
+      });
 }
 
-// The reduced product on the tensor cores: w2 rounded to bf16 into
-// w2h[lane][k], then per warp (wm, wn) the rows wm*4*RPT .. +4*RPT-1 (RPT/4
-// tiles of 16) of lanes wn*16 .. +15 (two tiles of 8), k in steps of 16.
+// The reduced product on the tensor cores, pass by pass: w2 rounded to
+// bf16 into w2h[lane][k], then per warp (wm, wn) the rows wm*4*RPT ..
+// +4*RPT-1 of the pass (RPT/4 tiles of 16) of lanes wn*16 .. +15 (two tiles
+// of 8), k in steps of 16.
 template <int RPT>
 __device__ __forceinline__ void tile_product_lo(const Params& p,
                                                 const Tile& t) {
-  constexpr int kMt = RPT / 4;  // 16-row tiles per warp
-  const int sw = p.sw, kp = p.kp, swp = p.swp;
-  const int ldw = kp + kPadLo;
-  for (int e = t.tid; e < sw * kTile; e += kThreads) {
-    const int k = e / kTile, n = e - k * kTile;
-    t.w2h[n * ldw + k] = __float2bfloat16_rn(t.buf[e]);
-  }
-  const int warp = t.tid >> 5, ln = t.tid & 31;
-  const int wm = warp & 3, wn = warp >> 2;
-  float acc[kMt][2][4];
-#pragma unroll
-  for (int m = 0; m < kMt; ++m)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.0f;
-  // this thread's ldmatrix rows: lanes (B) and map rows (A)
-  const __nv_bfloat16* brow =
-      t.w2h + (wn * 16 + (ln & 7) + ((ln >> 4) << 3)) * ldw +
-      ((ln >> 3) & 1) * 8;
-  const int arow = wm * kMt * 16 + (ln & 15), acol = (ln >> 4) * 8;
-  // k16 steps over a block of columns of A (row stride lda) whose column 0
-  // is column kb of the map
-  auto ksteps = [&](const __nv_bfloat16* a, int lda, int kb, int n16) {
-    for (int kk = 0; kk < n16; ++kk) {
-      unsigned b[4];
-      ldmatrix_x4(b, brow + kb + kk * 16);
-#pragma unroll
-      for (int m = 0; m < kMt; ++m) {
-        unsigned af[4];
-        ldmatrix_x4(af, a + (arow + m * 16) * lda + kk * 16 + acol);
-        // each k16 step's 16 products summed from zero in the tensor core,
-        // then added to the running sum in IEEE fp32: the tensor core's own
-        // accumulation is not round-to-nearest
-        float c0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, c1[4] = {0.0f, 0.0f, 0.0f,
-                                                         0.0f};
-        mma_bf16(c0, af, b[0], b[1]);
-        mma_bf16(c1, af, b[2], b[3]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[m][0][e] = __fadd_rn(acc[m][0][e], c0[e]);
-          acc[m][1][e] = __fadd_rn(acc[m][1][e], c1[e]);
-        }
-      }
-    }
-  };
-  if (!t.ring) {
-    __syncthreads();  // w2h staged
-    ksteps(t.amap, ldw, 0, kp / 16);
-  } else {
-    // slab s: map columns [s*kSlabKLo, ...) of every row, in ring slot
-    // s % kStagesLo; kStagesLo - 1 slabs are in flight
-    const int nslab = kp / kSlabKLo;
-    constexpr int lds = kSlabKLo + kPadLo;
-    auto issue = [&](int s) {
-      if (s < nslab) {
-        __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(t.ring) +
-                             (s % kStagesLo) * swp * lds;
-        for (int e = t.tid; e < swp * (kSlabKLo / 8); e += kThreads) {
-          const int r = e / (kSlabKLo / 8), j = e % (kSlabKLo / 8);
-          cp_async16(dst + r * lds + 8 * j,
-                     t.amap + static_cast<size_t>(r) * kp + s * kSlabKLo +
-                         8 * j);
-        }
-      }
-      cp_async_commit();
-    };
-    for (int s = 0; s < kStagesLo - 1; ++s) issue(s);
-    for (int s = 0; s < nslab; ++s) {
-      cp_async_wait<kStagesLo - 2>();  // slab s has landed
-      __syncthreads();  // ... for every thread (and on s = 0 w2h is staged);
-                        // slab s - 1 is consumed
-      issue(s + kStagesLo - 1);
-      ksteps(reinterpret_cast<const __nv_bfloat16*>(t.ring) +
-                 (s % kStagesLo) * swp * lds,
-             lds, s * kSlabKLo, kSlabKLo / 16);
-    }
-  }
-  __syncthreads();  // every thread is done reading w2
-  const int gq = ln >> 2, tq = ln & 3;
-#pragma unroll
-  for (int m = 0; m < kMt; ++m) {
-    const int r = (wm * kMt + m) * 16 + gq;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int l = wn * 16 + j * 8 + 2 * tq;
-      tile_store(p, t, r, l, acc[m][j][0]);
-      tile_store(p, t, r, l + 1, acc[m][j][1]);
-      tile_store(p, t, r + 8, l, acc[m][j][2]);
-      tile_store(p, t, r + 8, l + 1, acc[m][j][3]);
-    }
-  }
-}
-
-// The elementwise part: the kLaneThreads threads of a lane split each side,
-// the rows of a box-only side (thread q takes rows q, q + 8, ...) or the
-// stages of a projected one (stages q, q + 8, ...: the projections couple
-// only the rows of a stage).  A box pass loads kRowBatch rows' slack, dual,
-// bounds and rollout constant before it computes and stores.  The product
-// left T12w @ w2 in the tile's buffer; the first pass of an iteration adds
-// the rollout constant uxc there (add: every iteration but the cold
-// rollout, whose buffer holds the rollout itself).  The arithmetic is
-// projections.cuh's (relaxed, the box clip, stage_slack, the dual step) in
-// the same order, so the results are those of a lane's step run by one
-// thread.
-struct BoxRows {
-  float prev[kRowBatch], dual[kRowBatch], lo[kRowBatch], hi[kRowBatch],
-      uxc[kRowBatch];
-};
-
-// One side of a lane: its slack, dual and rollout constant (element r at
-// [r * stride]), its column of the tile buffer and its carry slack (global,
-// element r at [r * B]).
-struct SidePass {
-  const Side* s;
-  float* ux;
-  float* prev;        // slack / output
-  float* dual;        // null: the state-free path
-  const float* uxc;
-  float* co;          // carry slack
-  int stride;
-};
-
-// What stage_slack (projections.cuh) reads of the kernel's parameters,
-// with the state's row stride in place of the batch size.
-struct StageParams {
-  float alpha, one_m_alpha;
-  int B;
-};
-
-__device__ __forceinline__ void load_box_rows(const SidePass& sp, int g,
-                                              int r0, int rows, bool add,
-                                              BoxRows& b) {
-  const Side& s = *sp.s;
-#pragma unroll
-  for (int j = 0; j < kRowBatch; ++j) {
-    const int r = r0 + kLaneThreads * j;
-    if (r < rows) {
-      const int o = r * sp.stride;
-      b.prev[j] = sp.prev[o];
-      b.dual[j] = sp.dual ? sp.dual[o] : 0.0f;
-      b.uxc[j] = add ? sp.uxc[o] : 0.0f;
-      if (s.en_box) {
-        b.lo[j] = __ldg(s.wmin + g * s.box_stride + r);
-        b.hi[j] = __ldg(s.wmax + g * s.box_stride + r);
-      }
-    }
-  }
-}
-
-// row_slack of projections.cuh on loaded values
-__device__ __forceinline__ float box_slack(const Side& s, float wh,
-                                          bool has_dual, float dual, float lo,
-                                          float hi) {
-  float v = has_dual ? __fadd_rn(wh, dual) : wh;
-  if (s.en_box) v = fminf(hi, fmaxf(lo, v));
-  return v;
-}
-
-// Adds uxc to the rows of stage k of a projected side, then its slack.
-__device__ __forceinline__ void projected_stage(const Params& p,
-                                                const SidePass& sp, int g,
-                                                int k, bool relax, bool add,
-                                                float* w) {
-  const Side& s = *sp.s;
-  if (add)
-    for (int j = 0; j < s.dim; ++j) {
-      const int r = k * s.dim + j;
-      sp.ux[r * kTile] = __fadd_rn(sp.ux[r * kTile], sp.uxc[r * sp.stride]);
-    }
-  const StageParams sp_p{p.alpha, p.one_m_alpha, sp.stride};
-  stage_slack(sp_p, s, g, k, relax, sp.ux, sp.prev, sp.dual, 0, kTile, w);
-}
-
-// The residual pass (the first pass of a checking iteration: it completes
-// ux in the buffer).
-template <bool kProj>
-__device__ __forceinline__ void side_residuals_q(const Params& p,
-                                                 const SidePass& sp, int g,
-                                                 bool relax, int q, bool add,
-                                                 float& pri, float& dua) {
-  const Side& s = *sp.s;
-  float* ux = sp.ux;
-  if constexpr (kProj) {
-    for (int k = q; k < s.n_stages; k += kLaneThreads) {
-      float w[kMaxStage];
-      projected_stage(p, sp, g, k, relax, add, w);
-      for (int j = 0; j < s.dim; ++j) {
-        const int r = k * s.dim + j;
-        pri = fmaxf(pri, fabsf(__fsub_rn(ux[r * kTile], w[j])));
-        dua = fmaxf(dua, fabsf(__fsub_rn(sp.prev[r * sp.stride], w[j])));
-      }
-    }
-  } else {
-    const int rows = s.dim * s.n_stages;
-    for (int r0 = q; r0 < rows; r0 += kLaneThreads * kRowBatch) {
-      BoxRows b;
-      load_box_rows(sp, g, r0, rows, add, b);
-#pragma unroll
-      for (int j = 0; j < kRowBatch; ++j) {
-        const int r = r0 + kLaneThreads * j;
-        if (r < rows) {
-          float u = ux[r * kTile];
-          if (add) {
-            u = __fadd_rn(u, b.uxc[j]);
-            ux[r * kTile] = u;
-          }
-          const float vn = box_slack(s, relaxed(p, relax, u, b.prev[j]),
-                                     sp.dual != nullptr, b.dual[j], b.lo[j],
-                                     b.hi[j]);
-          pri = fmaxf(pri, fabsf(__fsub_rn(u, vn)));
-          dua = fmaxf(dua, fabsf(__fsub_rn(b.prev[j], vn)));
-        }
-      }
-    }
-  }
-}
-
-// The update pass: the new slack, the dual ascent, and the next w2 entry
-// (slack - dual) into the buffer.  The carry's slack freezes before the
-// converging iteration: a lane that latches now (latch) writes the slack it
-// had; the other lanes' carry is written once, at the end.
-template <bool kProj>
-__device__ __forceinline__ void side_update_q(const Params& p,
-                                              const SidePass& sp, int g,
-                                              bool relax, int q, bool add,
-                                              bool latch) {
-  const Side& s = *sp.s;
-  float* ux = sp.ux;
-  auto row = [&](int r, float u, float prev, float dual, float vn) {
-    const int o = r * sp.stride;
-    const float wh = relaxed(p, relax, u, prev);
-    float next = vn;  // state-free: g == 0, the entry is vnew
-    if (sp.dual) {
-      const float dn = __fsub_rn(__fadd_rn(dual, wh), vn);
-      sp.dual[o] = dn;
-      next = __fsub_rn(vn, dn);
-    }
-    sp.prev[o] = vn;
-    if (latch) sp.co[r * p.B] = prev;
-    ux[r * kTile] = next;
-  };
-  if constexpr (kProj) {
-    for (int k = q; k < s.n_stages; k += kLaneThreads) {
-      float w[kMaxStage];
-      projected_stage(p, sp, g, k, relax, add, w);
-      for (int j = 0; j < s.dim; ++j) {
-        const int r = k * s.dim + j, o = r * sp.stride;
-        row(r, ux[r * kTile], sp.prev[o], sp.dual ? sp.dual[o] : 0.0f, w[j]);
-      }
-    }
-  } else {
-    const int rows = s.dim * s.n_stages;
-    for (int r0 = q; r0 < rows; r0 += kLaneThreads * kRowBatch) {
-      BoxRows b;
-      load_box_rows(sp, g, r0, rows, add, b);
-#pragma unroll
-      for (int j = 0; j < kRowBatch; ++j) {
-        const int r = r0 + kLaneThreads * j;
-        if (r < rows) {
-          float u = ux[r * kTile];
-          if (add) u = __fadd_rn(u, b.uxc[j]);
-          const float vn = box_slack(s, relaxed(p, relax, u, b.prev[j]),
-                                     sp.dual != nullptr, b.dual[j], b.lo[j],
-                                     b.hi[j]);
-          row(r, u, b.prev[j], b.dual[j], vn);
-        }
-      }
-    }
-  }
+  const int W = kRowGroups * RPT;
+  const int lda = t.ring ? p.kp : p.kp + kPadLo;
+  const GemmLo a{t.buf, t.w2h, reinterpret_cast<__nv_bfloat16*>(t.ring),
+                 p.sw, p.kp, W, p.passes, t.tid, lda};
+  gemm_lo<RPT>(
+      a, [&](int j) { return t.amap + static_cast<size_t>(j) * W * lda; },
+      [&](int j, const float(&acc)[2 * RPT], const FragLo<RPT>& fr) {
+        tile_epilogue(p, t, W, j, acc, fr);
+      });
 }
 
 // The elementwise part of iteration i for the whole tile: thread q of lane l
@@ -730,7 +418,7 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
   const int sw = p.sw, swp = p.swp, kp = p.kp;
   const bool reduced = p.t12a != nullptr;
   const TileLayout lay = tile_layout(
-      sw, swp, kp,
+      sw, swp, kRowGroups * RPT, kp,
       p.state_shared ? state_rows(p.su, p.sx, sw, p.state_free) : 0,
       p.t12_resident, reduced);
 
@@ -771,11 +459,6 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
     t.amap = t12a;
     t.ring = reinterpret_cast<float*>(sm + lay.map);
   }
-  if (reduced)  // the k padding of the rounded w2 meets zeros of the map
-    for (int e = tid; e < kTile * (kp - sw); e += kThreads) {
-      const int n = e / (kp - sw), k = sw + e % (kp - sw);
-      t.w2h[n * (kp + kPadLo) + k] = __float2bfloat16_rn(0.0f);
-    }
   {
     const int l = tid % kTile, q = tid / kTile;
     if (q == 0) done[l] = l < t.nvalid ? 0 : 1;
@@ -868,10 +551,12 @@ extern "C" int tinympc_condensed_fused(
     const float* w2_in, const float* y_in, const float* g_in,
     const float* v_in, const float* z_in, float* xout, float* uout,
     int* iters, int* solved, float* y, float* g, float* uxc, float* w2_out,
-    float* vco, float* zco, int nx, int nu, int N, int G, int L, int max_iter,
+    float* vco, float* zco, float* park, int nx, int nu, int N, int G, int L,
+    int max_iter,
     int ct, int k0, int lo_all, float alpha, float one_m_alpha, float pri_tol,
     float dua_tol, int en_input_bound, int en_state_bound, int warm_start,
-    int carry_out, int state_shared, int t12_resident, int swp, int kp,
+    int carry_out, int state_shared, int t12_resident, int rpt, int swp,
+    int kp,
     int smem_bytes, int map_grouped, int rho_grouped, int box_u_grouped,
     int box_x_grouped, const float* lin_u, int n_lin_u, const int* soc_u,
     const float* soc_mu_u, int n_soc_u, int lin_u_grouped, int mu_u_grouped,
@@ -880,8 +565,9 @@ extern "C" int tinympc_condensed_fused(
   // G groups of L lanes; the *_grouped flags say which arrays carry a
   // leading group axis.  lin_*: (n_lin, 2*dim + 1) device rows; soc_*: n_soc
   // (start, dim) pairs in host memory; soc_mu_*: (n_soc,) on the device.
-  // t12a: the (swp, kp) bf16 map of reduced iterations; swp = 16 x the rows
-  // a thread (8, 20 or 32: the instances), kp a multiple of kSlabKLo;
+  // t12a: the (swp, kp) bf16 map of reduced iterations; swp = the passes x
+  // 16 x rpt, the rows a thread (8, 20 or 32: the instances), kp a multiple
+  // of kSlabKLo; park: the (sw, B) scratch of a launch of several passes;
   // state_shared: the lanes' solver
   // state lives in shared memory (else in the (dim, B) arrays, uxc
   // included).
@@ -893,6 +579,7 @@ extern "C" int tinympc_condensed_fused(
   p.w2_in = w2_in; p.y_in = y_in; p.g_in = g_in; p.v_in = v_in; p.z_in = z_in;
   p.xout = xout; p.uout = uout; p.iters = iters; p.solved = solved;
   p.y = y; p.g = g; p.uxc = uxc; p.w2_out = w2_out; p.vco = vco; p.zco = zco;
+  p.park = park;
   p.nx = nx; p.su = (N - 1) * nu; p.sx = N * nx; p.sw = p.su + p.sx;
   p.swp = swp; p.kp = kp; p.B = G * L; p.L = L;
   p.max_iter = max_iter; p.ct = ct; p.k0 = k0; p.lo_all = lo_all;
@@ -904,15 +591,17 @@ extern "C" int tinympc_condensed_fused(
   // no state-side constraint at all: g == 0 and vnew = x_hat
   p.state_free = !en_state_bound && n_lin_x == 0 && n_soc_x == 0;
   // the caller owns the layout; refuse one the kernel would overrun
-  const int rpt = swp / kRowGroups;
+  const int W = kRowGroups * rpt;
+  p.passes = rpt > 0 ? swp / W : 0;
   const size_t need =
-      tile_layout(p.sw, swp, kp,
+      tile_layout(p.sw, swp, W, kp,
                   state_shared ? state_rows(p.su, p.sx, p.sw, p.state_free)
                                : 0,
                   t12_resident, reduced)
           .total;
   if (G <= 0 || L <= 0 || G > 65535 || ct < 1 || k0 < 0 || k0 > max_iter ||
-      swp < p.sw || swp != kRowGroups * rpt ||
+      rpt <= 0 || swp < p.sw || swp != p.passes * W ||
+      (p.passes > 1 && !park) ||
       kp % kSlabKLo != 0 || kp < p.sw || smem_bytes < 0 ||
       static_cast<size_t>(smem_bytes) < need || !rho || (reduced && !t12a))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -1,34 +1,33 @@
 // The slack update of one side (inputs or states) of a condensed ADMM
 // iteration, shared by the fused kernels (condensed_fused.cu, kernel K1, and
-// condensed_adaptive.cu, kernel K2): over-relaxation, the dual shift, the
-// box, the per-stage cyclic halfspaces and the scaled second-order cones,
-// composed box -> linear -> SOC, and the two passes over a side that use
-// them (residuals, then updates).
+// condensed_adaptive.cu, kernel K2, through tile_gemm.cuh's elementwise
+// passes): over-relaxation, the dual shift, the box, the per-stage cyclic
+// halfspaces and the scaled second-order cones, composed box -> linear ->
+// SOC.
 //
 // Replaces apply_lin and apply_soc of
 // tinympc_julia_tpu/ops/pallas/condensed_kernel.py (selector matmuls there;
-// here one thread owns one lane and walks its stages).
+// here one thread walks a stage of one lane).
 //
 // Every function is a template on the kernel's parameter struct P, of which
-// it reads P::alpha, P::one_m_alpha (over-relaxation) and P::B (the batch
-// size over all groups: the lane's state lives in global memory as (dim, B)
-// arrays, element r of lane l at [r * B + l], lane = g * L + its index in
-// the group).  The lane's iterate ux lives in shared
-// memory, element r at ux[r * T] for a tile of T lanes.
+// it reads P::alpha, P::one_m_alpha (over-relaxation) and P::B (the row
+// stride of the lane's slack and dual: element r of the lane at [r * B +
+// lane]).  The lane's iterate ux lives in shared memory, element r at
+// ux[r * T] for a tile of T lanes.
 //
 // Elementwise arithmetic uses explicit round-to-nearest intrinsics so the
 // compiler does not contract it into FMAs: a kernel then computes the same
 // operations, in the same order, as its plain PyTorch version.
 //
 // The projections couple the rows of one stage (a halfspace all of them, a
-// cone its own), so both passes over a projected side walk it stage by
-// stage: the stage's slack is loaded into a per-thread buffer of kMaxStage
-// floats, clipped to the box, put through each halfspace row in order and
-// then each cone, and only then the pass takes the residuals or writes the
-// updates.  The halfspace rows (a, a/||a||^2, b) and the cones' mu are small
-// device arrays read through the cache by every thread alike; the cones'
-// (start, dim) pairs ride in the kernel's parameters.  A side without
-// projections keeps the row-by-row arithmetic of the box path.
+// cone its own), so a projected side is walked stage by stage: the stage's
+// slack is loaded into a per-thread buffer of kMaxStage floats, clipped to
+// the box, put through each halfspace row in order and then each cone, and
+// only then the pass takes the residuals or writes the updates.  The
+// halfspace rows (a, a/||a||^2, b) and the cones' mu are small device arrays
+// read through the cache by every thread alike; the cones' (start, dim)
+// pairs ride in the kernel's parameters.  A side without projections keeps
+// the row-by-row arithmetic of the box path.
 //
 // Group grid: a launch may solve G distinct problems, each block lanes of
 // one group g.  The constraint STRUCTURE (row counts, cone extents) is the
@@ -147,68 +146,6 @@ __device__ __forceinline__ void stage_slack(
       seg[last] = __fmul_rn(factor, __fdiv_rn(a, mu));
     }
   }
-}
-
-// Calls row(r, vnew_r) for every row r of one side, in order, with the
-// row's new slack.  A projected side (kProj) goes stage by stage through
-// stage_slack; a side with the box alone keeps the flat row loop of the
-// box path, with no stage buffer.
-template <bool kProj, class P, class Row>
-__device__ __forceinline__ void for_each_slack(
-    const P& p, const Side& s, int g, bool relax, const float* ux,
-    const float* prev, const float* dual, int lane, int T, Row row) {
-  if constexpr (kProj) {
-    for (int k = 0; k < s.n_stages; ++k) {
-      float w[kMaxStage];
-      stage_slack(p, s, g, k, relax, ux, prev, dual, lane, T, w);
-      for (int j = 0; j < s.dim; ++j) row(k * s.dim + j, w[j]);
-    }
-  } else {
-    const int rows = s.dim * s.n_stages;
-    for (int r = 0; r < rows; ++r) {
-      const int o = r * p.B + lane;
-      row(r, row_slack(s, g, r, relaxed(p, relax, ux[r * T], prev[o]), dual,
-                       o));
-    }
-  }
-}
-
-// First pass over one side: the max-abs primal and dual residuals of the
-// new slack against the iterate (pri) and the previous slack (dua).
-template <bool kProj, class P>
-__device__ __forceinline__ void side_residuals(
-    const P& p, const Side& s, int g, bool relax, const float* ux,
-    const float* prev, const float* dual, int lane, int T, float& pri,
-    float& dua) {
-  for_each_slack<kProj>(p, s, g, relax, ux, prev, dual, lane, T,
-                        [&](int r, float vn) {
-    pri = fmaxf(pri, fabsf(__fsub_rn(ux[r * T], vn)));
-    dua = fmaxf(dua, fabsf(__fsub_rn(prev[r * p.B + lane], vn)));
-  });
-}
-
-// Second pass over one side: the new slack goes to the output (and the
-// carry), the dual ascends, and the row's entry of the backward map's input
-// (slack - dual) replaces its ux entry in place (a stage's entries are all
-// read by stage_slack before the first is replaced).
-template <bool kProj, class P>
-__device__ __forceinline__ void side_update(
-    const P& p, const Side& s, int g, bool relax, float* ux, float* prev,
-    float* dual, float* co, bool carry, int lane, int T) {
-  for_each_slack<kProj>(p, s, g, relax, ux, prev, dual, lane, T,
-                        [&](int r, float vn) {
-    const int o = r * p.B + lane;
-    const float wh = relaxed(p, relax, ux[r * T], prev[o]);
-    float next = vn;  // state-free: g == 0, the entry is vnew
-    if (dual) {
-      const float dn = __fsub_rn(__fadd_rn(dual[o], wh), vn);
-      dual[o] = dn;
-      next = __fsub_rn(vn, dn);
-    }
-    prev[o] = vn;
-    if (carry) co[o] = vn;
-    ux[r * T] = next;
-  });
 }
 
 }  // namespace tinympc

@@ -31,7 +31,14 @@ Per-lane semantics are those of the Pallas kernel and of
 * group grid (``num_groups=G``): G distinct problems of L lanes each in one
   launch, the Taylor maps, rho0, the bounds, the plant data of the OSQP-form
   controller and the constraint data carrying a leading group axis (or
-  staying shared), lanes in the flat order ``g*L + l``; rho stays per lane.
+  staying shared), lanes in the flat order ``g*L + l``; rho stays per lane;
+* reduced precision (``precision="default"``): an iteration that neither
+  checks nor predicts rho computes both products in one bf16 pass, both
+  operands rounded to bf16 and the products summed on the tensor cores in
+  k16 steps (``mma_product``, so kernel and plain version agree to the
+  bit); an iteration that checks or predicts rho computes in full
+  precision, so no lane latches on, and no rho is predicted from, the
+  residuals of an approximate rollout.
 """
 from __future__ import annotations
 
@@ -43,29 +50,28 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import not_ported
 from ..condensed import (CondensedTaylorMaps, _cones_stacked,
                          _halfspaces_stacked, _osqp_residuals_stacked,
                          _sqrt_rn)
 from ..rho import EPS, RHO_INTERVAL, TERM_DEADBAND, TERM_MAX_STEP
 from ...utils.precision import full_fp32_matmul
 from ._build import load_library
-from .condensed_kernel import (MAX_STAGE, MAX_TILE, SMEM_PER_BLOCK,
-                               FusedConstraints, _check_constraints,
+from .condensed_kernel import (KP_ALIGN, MAX_STAGE, SMEM_PER_BLOCK, THREADS,
+                               TILE, TILE_ROW_GROUPS, FusedConstraints,
+                               _check_constraints,
                                _check_cuda_inputs, _check_grouped_shape,
                                _dims, _flat_x0, _grouped_view,
                                _no_constraints, _ptr, _side_args,
-                               _state_free, _FLT, _INT, _PTR, _SIDE,
-                               fused_constraints)
+                               _state_free, _up16, _FLT, _INT, _PTR, _SIDE,
+                               bf16_round, fused_constraints, mma_product,
+                               ring_bytes)
+from .condensed_kernel import _check_precision as _check_k1_precision
 
-MAX_ORDER = 3  # the kernel is built for T1 Taylor orders 1 to 3
-# output rows a thread accumulates at once (csrc/condensed_adaptive.cu
-# kRowBlock); the transposed maps' rows are padded to a multiple of it
-K2_ROW_BLOCK = 32
-
-
-def _padded(rows: int) -> int:
-    return -(-rows // K2_ROW_BLOCK) * K2_ROW_BLOCK
+# The launch layout is decided here and passed to the kernel, which checks
+# it (csrc/condensed_adaptive.cu): K1's tiles of 32 lanes on 256 threads
+# (TILE, THREADS); the products' 16 thread rows cover W = 16 RPT rows at
+# once, RPT one of the kernel's instances; a wider product runs in passes.
+K2_RPTS = (8, 20)
 
 
 class AdaptiveFusedCarry(NamedTuple):
@@ -101,41 +107,102 @@ class AdaptivePlant(NamedTuple):
         return self.B.shape[-1]
 
 
-def _lane_floats(nx, nu, N) -> int:
-    """Shared-memory floats of one lane: vec1 = [d; x0; 1] and the iterate
-    with the constant 1 behind it."""
-    su, _, sw = _dims(nx, nu, N)
-    return (su + nx + 1) + (sw + 1)
+class AdaptivePlan(NamedTuple):
+    """The launch layout of one K2 launch."""
+    tile: int           # lanes per block
+    threads: int        # threads per block
+    rpt: int            # rows a thread of the products (the instance)
+    passes1: int        # passes of the forward product (each T1 block)
+    passes2: int        # passes of the backward product (the T2 stack)
+    resident: bool      # the maps staged whole in shared memory
+    state_shared: bool  # the lanes' duals and slacks in shared memory
+    kp1: int            # padded k of the bf16 T1 blocks (reduced only)
+    kp2: int            # padded k of the bf16 T2 stack
+    smem: int           # dynamic shared memory of one block, bytes
+
+    @property
+    def width(self) -> int:
+        """Rows the products cover at once."""
+        return self.rpt * TILE_ROW_GROUPS
+
+    @property
+    def ld1(self) -> int:
+        """Padded rows of each transposed T1 block."""
+        return self.passes1 * self.width
+
+    @property
+    def ld2(self) -> int:
+        """Padded rows of the transposed, interleaved T2 stack."""
+        return self.passes2 * self.width
 
 
-def _map_floats(nx, nu, N, order) -> int:
-    """Floats of both transposed, row-padded Taylor maps."""
-    su, _, sw = _dims(nx, nu, N)
-    return ((su + nx + 1) * (order + 1) * _padded(sw)
-            + (sw + 1) * 4 * _padded(su))
+def adaptive_smem(nx: int, nu: int, N: int, order: int, rpt: int,
+                  passes1: int, passes2: int, resident: bool,
+                  state_shared: bool, reduced: bool,
+                  state_free: bool) -> int:
+    """One block's shared memory (csrc/condensed_adaptive.cu k2_layout):
+    vec1 and ux/vec2 of the tile's lanes, the latch flags, the lanes' rho
+    twice, the elementwise partials (12 floats a thread), the duals and
+    slacks where resident, the maps (resident: fp32 and, with reduced
+    iterations, bf16 with rows padded by 8; streamed: the slab ring), the
+    bf16 product input of reduced iterations."""
+    su, sx, sw = _dims(nx, nu, N)
+    in1, ord1 = su + nx + 1, order + 1
+    tile, W = TILE, rpt * TILE_ROW_GROUPS
+    ld1, ld2 = passes1 * W, passes2 * W
+    kp1, kp2 = _kp(in1), _kp(sw + 1)
+    state = (2 * su + (1 if state_free else 2) * sx) if state_shared else 0
+    n = (_up16(4 * in1 * tile) + _up16(4 * (sw + 1) * tile)
+         + _up16(4 * (tile + 1)) + _up16(8 * tile) + _up16(48 * THREADS)
+         + _up16(4 * state * tile))
+    if resident:
+        n += _up16(4 * ord1 * in1 * ld1) + _up16(4 * (sw + 1) * ld2)
+        if reduced:
+            n += (_up16(2 * ord1 * ld1 * (kp1 + 8))
+                  + _up16(2 * ld2 * (kp2 + 8)))
+    else:
+        n += _up16(ring_bytes(W, reduced))
+    if reduced:
+        n += _up16(2 * tile * (max(kp1, kp2) + 8))
+    return n
 
 
-def adaptive_tile_plan(nx: int, nu: int, N: int, order: int, batch: int,
-                       n_sm: int) -> tuple[int, bool]:
-    """(lanes per block, whether the Taylor maps are staged in shared
-    memory).
+def _kp(k: int) -> int:
+    return -(-k // KP_ALIGN) * KP_ALIGN
 
-    The maps join the lanes' vectors in shared memory where a warp's worth
-    of lanes still fits beside them, and are read from global memory (L2)
-    otherwise.  A batch too small to give every one of the ``n_sm``
-    multiprocessors a full block gets smaller blocks, down to one warp."""
-    lane = 4 * _lane_floats(nx, nu, N)
-    maps = 4 * _map_floats(nx, nu, N, order)
-    resident = maps + 32 * lane <= SMEM_PER_BLOCK
-    avail = SMEM_PER_BLOCK - (maps if resident else 0)
-    tile = min(MAX_TILE, avail // lane // 32 * 32)
-    if tile < 32:
-        raise ValueError(f"adaptive fused kernel: a problem of width "
-                         f"{_dims(nx, nu, N)[2]} leaves no room for a warp "
-                         "of lanes in shared memory")
-    while tile > 32 and -(-batch // tile) < n_sm:
-        tile //= 2
-    return tile, resident
+
+def adaptive_tile_plan(nx: int, nu: int, N: int, order: int,
+                       reduced: bool = False,
+                       state_free: bool = True) -> AdaptivePlan:
+    """The layout of a launch at this shape (``reduced``: with
+    reduced-precision iterations; ``state_free``: no state dual).
+
+    Tiles of 32 lanes, whatever the batch: a tile's iteration is bound by
+    its map stream, not by its lanes, so smaller tiles for few lanes (a
+    continuation's slots) only cost (PERF.md section 6).  The rows a
+    thread: the instance that pads the two products least, in the fewest
+    passes.  Within it the lanes' duals and slacks in shared memory where
+    they fit, then the maps resident where they fit beside them and
+    streamed through the slab ring otherwise."""
+    su, sx, sw = _dims(nx, nu, N)
+    in1, ord1 = su + nx + 1, order + 1
+
+    def cost(rpt):
+        W = rpt * TILE_ROW_GROUPS
+        p1, p2 = -(-sw // W), -(-4 * su // W)
+        return (ord1 * in1 * p1 * W + (sw + 1) * p2 * W, p1 + p2, p1, p2)
+
+    for rpt in sorted(K2_RPTS, key=cost):
+        _, _, p1, p2 = cost(rpt)
+        for shared in (True, False):
+            for resident in (True, False):
+                smem = adaptive_smem(nx, nu, N, order, rpt, p1, p2, resident,
+                                     shared, reduced, state_free)
+                if smem <= SMEM_PER_BLOCK:
+                    return AdaptivePlan(TILE, THREADS, rpt, p1, p2, resident,
+                                        shared, _kp(in1), _kp(sw + 1), smem)
+    raise ValueError(f"adaptive fused kernel: a problem of width {sw} leaves "
+                     "no room for a tile of lanes in shared memory")
 
 
 _PLANT_SHAPES = lambda nx, nu: ((nx, nx), (nx, nu), (nx,), (nu,), (nx, nx),
@@ -202,6 +269,12 @@ def _validate(tmaps, bounds, x0s, warm, plant, nx, nu, N, warm_start, cons,
     return x0, L, tensors
 
 
+def _check_precision(precision) -> bool:
+    """Whether ``precision`` asks for reduced-precision products."""
+    _check_k1_precision(precision, 0, 1, 1)
+    return precision == "default"
+
+
 @full_fp32_matmul()
 def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
                                  x_min, x_max, x0s, warm=None, *,
@@ -213,7 +286,8 @@ def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
                                  check_termination, controller, taylor_trust,
                                  warm_start, carry_out,
                                  constraints: FusedConstraints | None = None,
-                                 num_groups: int = 1):
+                                 num_groups: int = 1,
+                                 precision: str = "highest"):
     """Plain PyTorch version of kernel K2: the same computation in the same
     order, on the whole batch at once (a lane's result does not depend on
     which lanes share its tile).  Any float dtype and device; ``plant``
@@ -224,9 +298,13 @@ def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
     With ``num_groups=G`` the Taylor maps (and their rho0), the bounds, the
     plant and the constraint data may carry a leading group axis, ``x0s``
     is (G, L, nx) or flat, and the iterates run as (G, dim, L) with batched
-    matmuls; results and carries keep the flat lane order g*L + l."""
+    matmuls; results and carries keep the flat lane order g*L + l.  The
+    reduced products of ``precision="default"`` are ``mma_product`` of the
+    bf16-rounded stacked maps and operands, fp32 sums in any working
+    dtype."""
     cons = constraints or _no_constraints(x0s)
     G = num_groups
+    lo_all = _check_precision(precision)
     x0, L, _ = _validate(tmaps, (u_min, u_max, x_min, x_max), x0s, warm,
                          plant, nx, nu, N, warm_start, cons, controller, G)
     su, sx, sw = _dims(nx, nu, N)
@@ -251,6 +329,13 @@ def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
     T1stk = tmaps.T1s.reshape(tmaps.T1s.shape[:-3] + (ord1 * sw, su + nx + 1))
     T2stk = torch.cat([tmaps.T2s[..., :sw], tmaps.T2s[..., -1:]], dim=-1)
     T2stk = T2stk.reshape(T2stk.shape[:-3] + (4 * su, sw + 1))
+    if lo_all:
+        T1lo, T2lo = bf16_round(T1stk), bf16_round(T2stk)
+
+    def product(maps, maps_lo, vec, lo):
+        return (mma_product(maps_lo, bf16_round(vec)).to(dt) if lo
+                else maps @ vec)
+
     rho0 = tmaps.rho0.to(dt)
     if rho0.ndim:
         rho0 = rho0[:, None]  # against the per-lane (G, L) vectors
@@ -290,8 +375,12 @@ def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
 
     for i in range(max_iter):
         check = (i + 1) % ct == 0
+        update = i > 0 and i % RHO_INTERVAL == 0
+        # an iteration that checks or predicts rho computes in fp32
+        lo = lo_all and not check and not update
         drho = rho_b - rho0
-        R1 = (T1stk @ torch.cat([d, x0T, ones], dim=-2)).reshape(
+        R1 = product(T1stk, T1lo if lo else None,
+                     torch.cat([d, x0T, ones], dim=-2), lo).reshape(
             lead + (ord1, sw, L))
         ux = R1[..., ord1 - 1, :, :]
         for k in range(ord1 - 2, -1, -1):  # Horner in drho
@@ -323,7 +412,7 @@ def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
         ds, di = amax(v - vnew), amax(z - znew)  # before their rho scaling
 
         rho_new = rho_b
-        if i > 0 and i % RHO_INTERVAL == 0:
+        if update:
             if osqp:
                 pri_r, dua_r, pri_n, dua_n = _osqp_residuals_stacked(
                     x, u, znew, vnew, y, g, plant, plant, drho, N)
@@ -363,7 +452,8 @@ def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
             zco = torch.where(cm, zco, znew)
         vec2 = torch.cat([znew - y, vnew if state_free else vnew - g, ones],
                          dim=-2)
-        R2 = (T2stk @ vec2).reshape(lead + (4, su, L))
+        R2 = product(T2stk, T2lo if lo else None, vec2, lo).reshape(
+            lead + (4, su, L))
         d_new = (R2[..., 0, :, :] + drho[..., None, :] * R2[..., 1, :, :]
                  + drho_new[..., None, :] * R2[..., 2, :, :]
                  + (drho * drho_new)[..., None, :] * R2[..., 3, :, :])
@@ -388,7 +478,7 @@ def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
     return out
 
 
-_ARGTYPES = ([_PTR] * 32 + [_INT] * 8 + [_FLT] * 9 + [_INT] * 16
+_ARGTYPES = ([_PTR] * 34 + [_INT] * 9 + [_FLT] * 9 + [_INT] * 19
              + _SIDE + _SIDE + [_PTR])
 
 
@@ -400,20 +490,35 @@ def _kernel_fn():
     return fn
 
 
-def map_layout(tmaps: CondensedTaylorMaps, su, sw):
-    """Kernel-side layouts of the Taylor maps, made at every launch:
-    transposed, rows padded to a multiple of K2_ROW_BLOCK, the blocks of one
-    input column side by side; a leading group axis is kept."""
-    swp, sup = _padded(sw), _padded(su)
+def map_layout(tmaps: CondensedTaylorMaps, su, sw, plan: AdaptivePlan,
+               reduced: bool):
+    """Kernel-side layouts of the Taylor maps, made at every launch, a
+    leading group axis kept: each T1 block transposed, (o+1, in1,
+    ``plan.ld1``); the four T2 blocks (their sw + 1 read columns)
+    transposed and stacked with rows interleaved, row 4 r + c of the stack
+    being row r of block c, (sw + 1, ``plan.ld2``); rows zero-padded.  With
+    reduced iterations also both in real bf16 (round to nearest even),
+    row-major and zero-padded to (o+1, ld1, kp1) and (ld2, kp2), else
+    None."""
     T1s, T2s = tmaps.T1s, tmaps.T2s
     lead = T1s.shape[:-3]
+    ord1, in1 = T1s.shape[-3], T1s.shape[-1]
     f32 = dict(dtype=torch.float32, device=T1s.device)
-    t1t = torch.zeros(lead + (T1s.shape[-1], T1s.shape[-3], swp), **f32)
-    t1t[..., :sw] = T1s.movedim(-1, -3)
-    t2r = torch.cat([T2s[..., :sw], T2s[..., -1:]], dim=-1)
-    t2t = torch.zeros(lead + (sw + 1, 4, sup), **f32)
-    t2t[..., :su] = t2r.movedim(-1, -3)
-    return t1t, t2t
+    t1t = torch.zeros(lead + (ord1, in1, plan.ld1), **f32)
+    t1t[..., :sw] = T1s.transpose(-1, -2)
+    # (..., 4, su, sw + 1) -> rows 4 r + c
+    t2s = torch.cat([T2s[..., :sw], T2s[..., -1:]], dim=-1).transpose(-3, -2)
+    t2s = t2s.reshape(lead + (4 * su, sw + 1))
+    t2t = torch.zeros(lead + (sw + 1, plan.ld2), **f32)
+    t2t[..., :4 * su] = t2s.transpose(-1, -2)
+    if not reduced:
+        return t1t, t2t, None, None
+    bf = dict(dtype=torch.bfloat16, device=T1s.device)
+    t1a = torch.zeros(lead + (ord1, plan.ld1, plan.kp1), **bf)
+    t1a[..., :sw, :in1] = T1s
+    t2a = torch.zeros(lead + (plan.ld2, plan.kp2), **bf)
+    t2a[..., :4 * su, :sw + 1] = t2s
+    return t1t, t2t, t1a, t2a
 
 
 def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
@@ -425,17 +530,19 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
                             adaptive_rho_clipping, check_termination,
                             controller, taylor_trust, warm_start, carry_out,
                             constraints: FusedConstraints | None = None,
-                            num_groups: int = 1):
+                            num_groups: int = 1, precision: str = "highest"):
     """Launch kernel K2 (csrc/condensed_adaptive.cu) on CUDA tensors; the
     arguments and results are those of ``condensed_adaptive_reference``.
     Raises on CPU tensors, on any dtype but float32, on non-contiguous
-    inputs, on a Taylor order above MAX_ORDER, on stages wider than
-    MAX_STAGE where the kernel holds one per thread (a projected side; both
-    sides under the OSQP-form controller), and when the build or the launch
-    fails.  Counts every launch in ``.launches`` and those over more than
-    one group in ``.grouped_launches``."""
+    inputs, on stages wider than MAX_STAGE where the kernel holds one per
+    thread (a projected side; both sides under the OSQP-form controller),
+    and when the build or the launch fails.  Counts every launch in
+    ``.launches``, those over more than one group in ``.grouped_launches``,
+    those with reduced-precision iterations in ``.reduced_launches`` and
+    warm ones (continuations) in ``.warm_launches``."""
     cons = constraints or _no_constraints(x0s)
     G = num_groups
+    lo_all = _check_precision(precision)
     x0, L, tensors = _validate(tmaps, (u_min, u_max, x_min, x_max), x0s, warm,
                                plant, nx, nu, N, warm_start, cons, controller,
                                G)
@@ -445,30 +552,22 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
     if B == 0:
         raise ValueError("empty batch")
     order = tmaps.T1s.shape[-3] - 1
-    if order > MAX_ORDER:
-        raise ValueError(f"the adaptive fused kernel takes Taylor orders up "
-                         f"to {MAX_ORDER}; got {order}")
     osqp = controller == "osqp"
     if osqp and max(nx, nu) > MAX_STAGE:
         raise ValueError(f"the OSQP-form controller of the adaptive fused "
                          f"kernel takes stages of at most {MAX_STAGE} "
                          f"entries; got nx={nx}, nu={nu}")
     dev = x0s.device
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    tile, resident = adaptive_tile_plan(nx, nu, N, order, B, n_sm)
-    swp, sup = _padded(sw), _padded(su)
-    smem = 4 * (tile * _lane_floats(nx, nu, N)
-                + (_map_floats(nx, nu, N, order) if resident else 0))
     state_free = _state_free(en_state_bound, cons)
+    plan = adaptive_tile_plan(nx, nu, N, order, lo_all, state_free)
     side_u = _side_args(cons.lin_u, cons.cones_u, nu, "input")
     side_x = _side_args(cons.lin_x, cons.cones_x, nx, "state")
 
     f32 = dict(dtype=torch.float32, device=dev)
-    t1t, t2t = map_layout(tmaps, su, sw)
+    t1t, t2t, t1a, t2a = map_layout(tmaps, su, sw, plan, lo_all)
     # the expansion centre and the trust clip's bounds in the plain
     # version's float32 arithmetic: one per group on the device, or for a
-    # single group by value (read on the host; its kernel variant keeps them
-    # out of its registers)
+    # single group by value (read on the host)
     trust = math.isfinite(taylor_trust)
     tr = float(taylor_trust) if trust else 0.0
     rho0 = trust_lo = trust_hi = None
@@ -499,9 +598,9 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
     fn = _kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_ptr(t1t), _ptr(t2t), _ptr(rho0), _ptr(trust_lo),
-                 _ptr(trust_hi), _ptr(u_min), _ptr(u_max), _ptr(x_min),
-                 _ptr(x_max), _ptr(x0), _ptr(w.d), _ptr(w.y),
+        err = fn(_ptr(t1t), _ptr(t2t), _ptr(t1a), _ptr(t2a), _ptr(rho0),
+                 _ptr(trust_lo), _ptr(trust_hi), _ptr(u_min), _ptr(u_max),
+                 _ptr(x_min), _ptr(x_max), _ptr(x0), _ptr(w.d), _ptr(w.y),
                  None if state_free else _ptr(w.g), _ptr(w.v), _ptr(w.z),
                  _ptr(w.rho), _ptr(xout), _ptr(uout), _ptr(iters),
                  _ptr(solved), _ptr(rho), _ptr(y),
@@ -509,11 +608,14 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
                  _ptr(zco), _ptr(pl.A), _ptr(pl.B), _ptr(pl.Q), _ptr(pl.R),
                  _ptr(pl.Pinf), _ptr(pl.dPinf_drho),
                  nx, nu, N, G, L, order, max_iter, check_termination,
-                 relaxation_alpha, 1.0 - relaxation_alpha, abs_pri_tol,
-                 abs_dua_tol, adaptive_rho_min, adaptive_rho_max, *one,
-                 int(osqp), int(adaptive_rho_clipping), int(trust),
+                 int(lo_all), relaxation_alpha, 1.0 - relaxation_alpha,
+                 abs_pri_tol, abs_dua_tol, adaptive_rho_min,
+                 adaptive_rho_max, *one, int(osqp),
+                 int(adaptive_rho_clipping), int(trust),
                  int(en_input_bound), int(en_state_bound), int(warm_start),
-                 int(carry_out), tile, int(resident), swp, sup, smem,
+                 int(carry_out), plan.rpt, plan.passes1,
+                 plan.passes2, plan.kp1, plan.kp2, int(plan.resident),
+                 int(plan.state_shared), plan.smem,
                  int(tmaps.T1s.ndim == 4),
                  int(osqp and pl.A.ndim == 3),
                  int(G > 1 and u_min.numel() == G * su),
@@ -525,6 +627,10 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
     condensed_adaptive_cuda.launches += 1
     if G > 1:
         condensed_adaptive_cuda.grouped_launches += 1
+    if lo_all:
+        condensed_adaptive_cuda.reduced_launches += 1
+    if warm_start:
+        condensed_adaptive_cuda.warm_launches += 1
     out = (xout.T.reshape(B, N, nx), uout.T.reshape(B, N - 1, nu), iters,
            solved, rho)
     if carry_out:
@@ -535,6 +641,8 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
 
 condensed_adaptive_cuda.launches = 0
 condensed_adaptive_cuda.grouped_launches = 0
+condensed_adaptive_cuda.reduced_launches = 0
+condensed_adaptive_cuda.warm_launches = 0
 
 
 def condensed_adaptive(tmaps, u_min, u_max, x_min, x_max, x0s, warm=None,
@@ -590,9 +698,12 @@ def make_condensed_adaptive_fused_solver(
     ``carry_out=True`` solve; the continuation restarts the iteration
     counter, so its first iteration never updates rho.
 
-    Reduced-precision matmuls (``precision``) are not ported (no caller
-    uses them: the rho prediction would read the residuals of an
-    approximate rollout) and raise ``NotImplementedError``."""
+    ``precision="default"`` computes both products of an iteration that
+    neither checks nor predicts rho as one bf16 pass (both operands rounded
+    to bf16, the products summed on the tensor cores); an iteration that
+    checks or predicts rho computes in full precision, so with
+    ``check_termination=1`` it equals ``"highest"``.  Any other name
+    raises ``ValueError``."""
     ct = check_termination
     if ct < 1:
         raise ValueError("check_termination must be >= 1 on the fused "
@@ -605,10 +716,7 @@ def make_condensed_adaptive_fused_solver(
         raise ValueError(
             f"max_iter must be a multiple of lcm(check_termination, "
             f"{RHO_INTERVAL}) = {step} (got {max_iter})")
-    if precision != "highest":
-        raise not_ported("reduced-precision matmuls in the adaptive fused "
-                         "kernel", "ROADMAP.md queue 2, K2's precision "
-                         "argument")
+    _check_precision(precision)
     if num_groups < 1:
         raise ValueError(f"num_groups must be >= 1 (got {num_groups})")
     nx, nu = np.shape(B)[-2:]
@@ -621,7 +729,8 @@ def make_condensed_adaptive_fused_solver(
               adaptive_rho_clipping=adaptive_rho_clipping,
               check_termination=ct, controller=controller,
               taylor_trust=taylor_trust, warm_start=warm_start,
-              carry_out=carry_out, num_groups=num_groups)
+              carry_out=carry_out, num_groups=num_groups,
+              precision=precision)
 
     on_device = {}  # (device, dtype) -> (AdaptivePlant, FusedConstraints)
 

@@ -76,10 +76,10 @@ class FusedConstraints(NamedTuple):
 # (opt-in maximum, bytes); tiles of 32 lanes (kTile) on 256 threads
 # (kThreads, eight a lane); 16 thread rows (kRowGroups) of 8, 20 or 32 rows
 # each (the kernel's instances: the cartpole's and the rocket's maps take
-# 8, the quadrotor's 20; a map wider than 512 rows is refused); a ring of 6
-# fp32 slabs of 8 map rows (kStages, kSlabK) or 4 bf16 slabs of 16 map columns
-# (kStagesLo, kSlabKLo) whose rows are padded by 8 (kPadLo); the bf16 map's
-# k padded to a multiple of 32.  MAX_TILE is the adaptive kernel's largest tile.  The
+# 8, the quadrotor's 20), a wider map in passes of 16 RPT rows; a ring of 6
+# fp32 slabs of 8 map rows of a pass (kStages, kSlabK) or 4 bf16 slabs of 16
+# map columns (kStagesLo, kSlabKLo) whose rows are padded by 8 (kPadLo); the
+# bf16 map's k padded to a multiple of 32.  MAX_TILE is the adaptive kernel's largest tile.  The
 # projections hold one stage of a side in a per-thread buffer of MAX_STAGE
 # floats (kMaxStage) and take at most MAX_CONES cones a side (kMaxCones).
 SMEM_PER_BLOCK = 232448
@@ -108,6 +108,13 @@ class TilePlan(NamedTuple):
     rows: int           # padded rows of the transposed map (swp)
     kp: int             # padded k of the bf16 map of reduced iterations
     smem: int           # dynamic shared memory of one block, bytes
+    passes: int = 1     # passes of rows / passes map rows (the product's
+                        # 16 thread rows x the rows a thread)
+
+    @property
+    def rpt(self) -> int:
+        """Rows a thread of the product (the kernel's instance)."""
+        return self.rows // (self.passes * TILE_ROW_GROUPS)
 
 
 def bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -272,15 +279,26 @@ def state_floats(nx: int, nu: int, N: int, state_free: bool) -> int:
     return su + sx + 2 * su + (1 if state_free else 2) * sx
 
 
+def ring_bytes(width: int, reduced: bool) -> int:
+    """The slab ring of a streamed product of ``width`` rows at once
+    (csrc/tile_gemm.cuh): STAGES fp32 slabs of SLAB_K k-rows, or with
+    reduced iterations the larger of that and STAGES_LO bf16 slabs of
+    SLAB_K_LO columns (rows padded by PAD_LO)."""
+    ring = 4 * STAGES * SLAB_K * width
+    if reduced:
+        ring = max(ring, 2 * STAGES_LO * width * (SLAB_K_LO + PAD_LO))
+    return ring
+
+
 def tile_smem(sw: int, rows: int, kp: int, state: int, resident: bool,
-              reduced: bool) -> int:
+              reduced: bool, passes: int = 1) -> int:
     """One block's shared memory (csrc/condensed_fused.cu tile_layout): the
     tile's w2 (sw x 32 floats), the latch flags, the residual partials of
     the lanes' threads, the lanes' solver state (``state`` floats a lane,
     0 where it stays in global memory), the map (resident: fp32, and bf16
-    with reduced iterations; streamed: a ring of STAGES fp32 or STAGES_LO
-    bf16 slabs, whichever is larger),
-    the bf16 w2 of reduced iterations ([lane][k], rows padded)."""
+    with reduced iterations; streamed: the slab ring of one pass of
+    rows / passes rows), the bf16 w2 of reduced iterations ([lane][k], rows
+    padded)."""
     n = (_up16(4 * sw * TILE) + _up16(4 * (TILE + 1)) + _up16(16 * THREADS)
          + _up16(4 * state * TILE))
     if resident:
@@ -288,10 +306,7 @@ def tile_smem(sw: int, rows: int, kp: int, state: int, resident: bool,
         if reduced:
             n += _up16(2 * rows * (kp + PAD_LO))
     else:
-        ring = 4 * STAGES * SLAB_K * rows
-        if reduced:
-            ring = max(ring, 2 * STAGES_LO * rows * (SLAB_K_LO + PAD_LO))
-        n += _up16(ring)
+        n += _up16(ring_bytes(rows // passes, reduced))
     if reduced:
         n += _up16(2 * TILE * (kp + PAD_LO))
     return n
@@ -301,27 +316,39 @@ def fused_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
                     state_free: bool = True) -> TilePlan:
     """The layout of a launch at this shape (``reduced``: with
     reduced-precision iterations; ``state_free``: no state-side
-    constraint, so no state dual): the lanes' solver state in shared memory
-    where it fits, then T12 resident where it fits beside it and streamed
-    in slabs otherwise."""
+    constraint, so no state dual).  The rows a thread: the instance that
+    covers the map in the fewest passes of 16 RPT rows, padding it the
+    least; where no layout of it fits, the next.  Within one: the lanes'
+    solver state in
+    shared memory where it fits, then T12 resident where it fits beside it
+    and streamed in slabs otherwise."""
     sw = (N - 1) * nu + N * nx
-    rpt = next((r for r in TILE_RPTS if TILE_ROW_GROUPS * r >= sw), None)
-    if rpt is None:
-        raise ValueError(f"fused kernel: a map of width {sw} exceeds the "
-                         f"kernel's {TILE_ROW_GROUPS * TILE_RPTS[-1]} rows "
-                         "(ROADMAP.md queue 2, K1 map width)")
-    rows = TILE_ROW_GROUPS * rpt
     kp = -(-sw // KP_ALIGN) * KP_ALIGN
     state = state_floats(nx, nu, N, state_free)
-    for shared in (True, False):
-        for resident in (True, False):
-            smem = tile_smem(sw, rows, kp, state if shared else 0, resident,
-                             reduced)
-            if smem <= SMEM_PER_BLOCK:
-                return TilePlan(TILE, THREADS, resident, shared, rows, kp,
-                                smem)
+
+    def passes(rpt):
+        return -(-sw // (TILE_ROW_GROUPS * rpt))
+
+    for rpt in sorted(TILE_RPTS, key=lambda r: (passes(r), passes(r) * r)):
+        rows = passes(rpt) * TILE_ROW_GROUPS * rpt
+        for shared in (True, False):
+            for resident in (True, False):
+                smem = tile_smem(sw, rows, kp, state if shared else 0,
+                                 resident, reduced, passes(rpt))
+                if smem <= SMEM_PER_BLOCK:
+                    return TilePlan(TILE, THREADS, resident, shared, rows,
+                                    kp, smem, passes(rpt))
     raise ValueError(f"fused kernel: a map of width {sw} leaves no room for "
                      "a tile of lanes in shared memory")
+
+
+def tile_iterations(counts: torch.Tensor, tile: int, groups: int = 1) -> int:
+    """Iterations summed over a launch's tiles (``tile`` lanes of one group,
+    a block each) from the lanes' iteration counts: a tile runs until its
+    last lane latches."""
+    per = counts.reshape(groups, -1)
+    per = torch.nn.functional.pad(per, (0, -per.shape[1] % tile))
+    return int(per.reshape(groups, -1, tile).amax(dim=2).sum())
 
 
 def _dims(nx, nu, N):
@@ -605,7 +632,7 @@ _IPTR = ctypes.POINTER(ctypes.c_int)
 # (start, dim) pairs (host), the cones' mu (device), the cone count, and
 # whether the rows and the mus carry a leading group axis
 _SIDE = [_PTR, _INT, _IPTR, _PTR, _INT, _INT, _INT]
-_ARGTYPES = ([_PTR] * 26 + [_INT] * 9 + [_FLT] * 4 + [_INT] * 13
+_ARGTYPES = ([_PTR] * 27 + [_INT] * 9 + [_FLT] * 4 + [_INT] * 14
              + _SIDE + _SIDE + [_PTR])
 
 
@@ -729,6 +756,8 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
     # the rollout constant's scratch, where the state is not in shared memory
     uxc = None if plan.state_shared else torch.empty((sw, B), **f32)
     w2o = torch.empty((sw, B), **f32) if carry_out else None
+    # the sums of all but the last pass of a wide map's product
+    park = torch.empty((sw, B), **f32) if plan.passes > 1 else None
     vco = torch.empty((sx, B), **f32) if carry_out else None
     zco = torch.empty((su, B), **f32) if carry_out else None
     w = warm if warm is not None else FusedCarry(None, None, None, None, None)
@@ -742,13 +771,13 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
                  None if state_free else _ptr(w.g), _ptr(w.v), _ptr(w.z),
                  _ptr(xout), _ptr(uout), _ptr(iters), _ptr(solved),
                  _ptr(y), None if state_free else _ptr(g), _ptr(uxc),
-                 _ptr(w2o), _ptr(vco), _ptr(zco),
+                 _ptr(w2o), _ptr(vco), _ptr(zco), _ptr(park),
                  nx, nu, N, G, L, max_iter, ct, k0, int(lo_all),
                  relaxation_alpha, 1.0 - relaxation_alpha,
                  abs_pri_tol, abs_dua_tol, int(en_input_bound),
                  int(en_state_bound), int(warm_start), int(carry_out),
-                 int(plan.state_shared), int(plan.resident), plan.rows,
-                 plan.kp, plan.smem,
+                 int(plan.state_shared), int(plan.resident), plan.rpt,
+                 plan.rows, plan.kp, plan.smem,
                  int(maps.T12.ndim == 3), int(rho_t.numel() > 1),
                  int(G > 1 and u_min.numel() == G * su),
                  int(G > 1 and x_min.numel() == G * sx),
