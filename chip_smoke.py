@@ -58,7 +58,10 @@ Phases (one line each; any failure exits non-zero):
      cartpole); (g) precision="default" at ct = 5 (the cartpole: the
      products of the iterations that neither check nor predict rho on the
      tensor cores, against the plain version's emulation of them), and at
-     ct = 1 equal to "highest" bit for bit;
+     ct = 1 equal to "highest" bit for bit; (h) the quadrotor at N = 80
+     (sw 1,276: tiles of 16 lanes, the products in passes), held to K1's
+     bar, the lanes both solved (cuBLAS need not sum in index order at
+     1,277 columns);
  11. the adaptive main path through the API at the quadrotor's full width:
      quadrotor.make_solver on "cuda" in fp32, B = 16,384, x0 ~ U(-0.3, 0.3)
      from seed 1, |u| <= 0.5, the termination controller floored at rho0 = 5,
@@ -907,6 +910,21 @@ def earlier_phases(card):
         "phase 10g cartpole, precision='default' at ct=5 (the products of "
         "the iterations that neither check nor predict rho on the tensor "
         "cores, 121 of 200)", out_k, out_p, min_solved=0))
+    # the quadrotor at N = 80: the iterates of 32 lanes leave no room beside
+    # the slab ring, so tiles of 16 lanes
+    pw = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
+                      np.diag(quadrotor.R_DIAG), quadrotor.RHO, 80,
+                      u_min=-quadrotor.U_HOVER_BOUND,
+                      u_max=quadrotor.U_HOVER_BOUND, dtype=f32, device=dev)
+    cw = precompute_cache(pw.A, pw.B, pw.Q, pw.R, pw.rho_setup)
+    plan_w = adaptive_tile_plan(12, 4, 80, 2)
+    out_k, out_p = k2_both(pw, cw, build_condensed_taylor(pw, cw), x0_q,
+                           max_iter=300, **quad_kw)
+    a_errs.append(agreement(
+        f"phase 10h quadrotor N=80 (sw=1276, tiles of {plan_w.tile} lanes, "
+        f"{plan_w.rpt} rows a thread in {plan_w.passes1} + "
+        f"{plan_w.passes2} passes, {plan_w.smem} bytes of shared memory), "
+        "termination controller, trust 2", out_k, out_p))
     hi_k, _ = k2_both(pa, ca, ta, x0_check)
     lo_k = condensed_adaptive_cuda(ta, pa.u_min, pa.u_max, pa.x_min,
                                    pa.x_max, x0_check, None, **dict(

@@ -412,14 +412,21 @@ def test_tile_plan():
             > (wide.passes1 - 1) * wide.width
         assert wide.passes2 * wide.width >= 4 * su
         assert wide.passes1 > 1
-    # the widths a tile of 32 lanes' iterates leave room for: sw 1,196 in
-    # fp32 (N = 75), 860 with the bf16 maps and operand (N = 54)
-    K2.adaptive_tile_plan(12, 4, 75, 2)
-    K2.adaptive_tile_plan(12, 4, 54, 2, reduced=True)
+    # tiles of 32 lanes while their iterates fit beside the slab ring (sw
+    # 1,196 in fp32, N = 75; 860 with the bf16 maps and operand, N = 54),
+    # then tiles of 16 (every width the one-thread-a-lane kernel took, sw
+    # 1,436 at N = 90, and more), then no room
+    assert K2.adaptive_tile_plan(12, 4, 75, 2).tile == 32
+    assert K2.adaptive_tile_plan(12, 4, 54, 2, reduced=True).tile == 32
+    for N_, reduced in ((76, False), (90, False), (133, False), (55, True),
+                        (94, True)):
+        p = K2.adaptive_tile_plan(12, 4, N_, 2, reduced)
+        assert (p.tile, p.rpt, p.width) == (16, 8, 256)
+        assert p.passes1 * p.width >= 16 * N_ - 4
     with pytest.raises(ValueError, match="no room"):
-        K2.adaptive_tile_plan(12, 4, 76, 2)
+        K2.adaptive_tile_plan(12, 4, 134, 2)
     with pytest.raises(ValueError, match="no room"):
-        K2.adaptive_tile_plan(12, 4, 55, 2, reduced=True)
+        K2.adaptive_tile_plan(12, 4, 95, 2, reduced=True)
 
 
 # -- the group grid ----------------------------------------------------------

@@ -23,9 +23,10 @@
 // tile, so what bounds the kernel is how fast an SM can feed the maps and
 // the iterates to its FMA units, not device memory.  The design is kernel
 // K1's lane tile (tile_gemm.cuh):
-//  * A block of 256 threads owns a tile of 32 lanes and runs both products
-//    over the tile as GEMMs, each thread a register tile of RPT rows x 2
-//    lanes, each
+//  * A block of 256 threads owns a tile of 32 lanes (16 where the iterates
+//    of 32 would not fit beside a wide map's slab ring) and runs both
+//    products over the tile as GEMMs, each thread a register tile of RPT
+//    rows x 2 lanes, each
 //    output summed over k in index order with fmaf (no TF32), so a lane's
 //    fp32 result does not depend on its tile-mates and equals the plain
 //    version's product.
@@ -47,7 +48,7 @@
 //    vnew - g; 1] live in shared memory as [row][lane]; so do the duals and
 //    slacks (y, z, v, g) where they fit, else they stay in the (dim, B)
 //    outputs.
-//  * The elementwise step runs on all threads, eight a lane: relaxation,
+//  * The elementwise step runs on all threads, 256 / T a lane: relaxation,
 //    projections, residuals and dual ascent (tile_gemm.cuh,
 //    projections.cuh), and the OSQP-form prediction stage by stage; the
 //    partial maxima meet in shared memory (a max is exact in any order) and
@@ -69,8 +70,9 @@
 //    every group is ragged and masked; lanes keep the flat order
 //    lane = g * L + l, and rho stays per lane.
 //
-// Launch contract: the Python wrapper (adaptive_tile_plan) picks the rows a
-// thread (8 or 20: the instances), the passes, the padded layouts, the
+// Launch contract: the Python wrapper (adaptive_tile_plan) picks the tile
+// and the rows a thread (32 lanes with 8 or 20 rows, 16 lanes with 8: the
+// instances), the passes, the padded layouts, the
 // residency of maps and state and the dynamic shared-memory size; the entry
 // point refuses a layout the kernel would overrun.
 #include <cuda_bf16.h>
@@ -143,9 +145,10 @@ __host__ __device__ inline int state_rows(int su, int sx, bool state_free) {
   return 2 * su + (state_free ? 1 : 2) * sx;
 }
 
-// Byte offsets of the block's shared memory: vec1 (in1 x kTile floats), ux
-// / vec2 (sw + 1 rows), the latch flags (kTile + 1 ints), the lanes' rho
-// before and after the update (2 x kTile), the elementwise partials (3 float4 a
+// Byte offsets of the block's shared memory for a tile of T lanes: vec1
+// (in1 x T floats), ux / vec2 (sw + 1 rows), the latch flags (T + 1 ints),
+// the lanes' rho before and after the update (2 x T), the elementwise
+// partials (3 float4 a
 // thread), the lanes' duals and slacks where resident, the map region
 // (resident: both fp32 maps, then both bf16 ones with reduced iterations;
 // streamed: the slab ring), the bf16 product input ([lane][k], reduced
@@ -155,9 +158,8 @@ struct K2Layout {
 };
 
 __host__ __device__ inline K2Layout k2_layout(
-    int W, int in1, int sw, int ord1, int ld1, int ld2, int kp1, int kp2,
-    int state_floats, bool resident, bool reduced) {
-  constexpr int T = kTile;
+    int T, int W, int in1, int sw, int ord1, int ld1, int ld2, int kp1,
+    int kp2, int state_floats, bool resident, bool reduced) {
   K2Layout t;
   size_t off = up16(sizeof(float) * static_cast<size_t>(in1) * T);
   t.ux = off;
@@ -195,9 +197,9 @@ __host__ __device__ inline K2Layout k2_layout(
 
 // What one block works on.
 struct Tile {
-  float* vec1;                 // (in1, kTile)
-  float* ux;                   // (sw + 1, kTile)
-  const int* done;             // (kTile,) latched (or absent) lanes
+  float* vec1;                 // (in1, T)
+  float* ux;                   // (sw + 1, T)
+  const int* done;             // (T,) latched (or absent) lanes
   float* state;                // resident duals and slacks, or null
   float* ring;                 // streamed slabs; null where resident
   const float* t1;             // the group's maps: in shared memory where
@@ -210,8 +212,8 @@ struct Tile {
 };
 
 // One lane's duals and slacks: element r of an array at [r * stride] from
-// the lane's own base (its column of a [row][lane] shared array, stride
-// kTile, or of a (dim, B) global one, stride B).
+// the lane's own base (its column of a [row][lane] shared array, stride T,
+// or of a (dim, B) global one, stride B).
 struct LaneState {
   float* y;     // (su) input dual
   float* z;     // (su) input slack (the output u)
@@ -220,16 +222,17 @@ struct LaneState {
   int stride;
 };
 
+template <int T>
 __device__ __forceinline__ LaneState lane_state(const Params& p,
                                                 const Tile& t, int l) {
   LaneState s;
   if (t.state) {
     float* b = t.state + l;
     s.y = b;
-    s.z = s.y + p.su * kTile;
-    s.v = s.z + p.su * kTile;
-    s.g = p.state_free ? nullptr : s.v + p.sx * kTile;
-    s.stride = kTile;
+    s.z = s.y + p.su * T;
+    s.v = s.z + p.su * T;
+    s.g = p.state_free ? nullptr : s.v + p.sx * T;
+    s.stride = T;
   } else {
     const int lane = t.lane0 + l;
     s.y = p.y + lane;
@@ -251,17 +254,17 @@ __device__ __forceinline__ bool takes(const Tile& t, int r, int rows, int l) {
 // of W rows at a time.  The Horner value v = v drho + acc of each output
 // the thread sums lives in its entry of ux, which no other thread touches
 // until the product is done (the registers hold the product's tile only).
-template <int RPT>
+template <int RPT, int T>
 __device__ __forceinline__ void forward(const Params& p, const Tile& t,
                                         bool lo, const float* rho_b) {
-  const int W = kRowGroups * RPT, ord1 = p.ord1;
+  const int W = Lanes<T>::kRowGroups * RPT, ord1 = p.ord1;
   auto epi = [&](int j, const auto& acc, const auto& fr) {
     const int c = ord1 - 1 - j % ord1, r0 = (j / ord1) * W;
 #pragma unroll
     for (int e = 0; e < 2 * RPT; ++e) {
       const int r = r0 + fr.row(e), l = fr.lane(e);
       if (r < p.sw) {
-        float* v = t.ux + r * kTile + l;
+        float* v = t.ux + r * T + l;
         *v = c == ord1 - 1
                  ? acc[e]
                  : __fadd_rn(__fmul_rn(*v, __fsub_rn(rho_b[l], t.rho0)),
@@ -274,13 +277,13 @@ __device__ __forceinline__ void forward(const Params& p, const Tile& t,
     const int lda = t.ring ? p.kp1 : p.kp1 + kPadLo;
     const GemmLo a{t.vec1, t.w2h, reinterpret_cast<__nv_bfloat16*>(t.ring),
                    p.in1, p.kp1, W, nseg, t.tid, lda};
-    gemm_lo<RPT>(a, [&](int j) {
+    gemm_lo<RPT, T>(a, [&](int j) {
       const int c = ord1 - 1 - j % ord1, pass = j / ord1;
       return t.t1a + (static_cast<size_t>(c) * p.ld1 + pass * W) * lda;
     }, epi);
   } else {
     const GemmF32 a{t.vec1, t.ring, p.in1, W, p.ld1, nseg, t.tid};
-    gemm_fp32<RPT>(a, [&](int j) {
+    gemm_fp32<RPT, T>(a, [&](int j) {
       const int c = ord1 - 1 - j % ord1, pass = j / ord1;
       return t.t1 + static_cast<size_t>(c) * p.in1 * p.ld1 + pass * W;
     }, epi);
@@ -299,14 +302,14 @@ __device__ __forceinline__ float bilinear(float a0, float a1, float a2,
 
 // The backward product into vec1's d rows: the interleaved T2 stack, a
 // pass of W stacked rows (W / 4 outputs) at a time.
-template <int RPT>
+template <int RPT, int T>
 __device__ __forceinline__ void backward(const Params& p, const Tile& t,
                                          bool lo, const float* rho_b,
                                          const float* rho_n) {
-  const int W = kRowGroups * RPT;
+  const int W = Lanes<T>::kRowGroups * RPT;
   auto store = [&](int r, int l, float a0, float a1, float a2, float a3) {
     if (takes(t, r, p.su, l))
-      t.vec1[r * kTile + l] = bilinear(
+      t.vec1[r * T + l] = bilinear(
           a0, a1, a2, a3, __fsub_rn(rho_b[l], t.rho0),
           __fsub_rn(rho_n[l], t.rho0));
   };
@@ -339,27 +342,28 @@ __device__ __forceinline__ void backward(const Params& p, const Tile& t,
     const int lda = t.ring ? p.kp2 : p.kp2 + kPadLo;
     const GemmLo a{t.ux, t.w2h, reinterpret_cast<__nv_bfloat16*>(t.ring),
                    p.sw + 1, p.kp2, W, p.passes2, t.tid, lda};
-    gemm_lo<RPT>(a, [&](int j) {
+    gemm_lo<RPT, T>(a, [&](int j) {
       return t.t2a + static_cast<size_t>(j) * W * lda;
     }, epi);
   } else {
     const GemmF32 a{t.ux, t.ring, p.sw + 1, W, p.ld2, p.passes2, t.tid};
-    gemm_fp32<RPT>(a, [&](int j) { return t.t2 + j * W; }, epi);
+    gemm_fp32<RPT, T>(a, [&](int j) { return t.t2 + j * W; }, epi);
   }
 }
 
 // The new slack and the ascended dual of stage k of one side, as the update
 // pass will compute them (the same functions, so the same bits).
+template <int T>
 __device__ __forceinline__ void stage_new(const Params& p, const Side& s,
                                           int g, int k, bool relax,
                                           const float* ux, const float* prev,
                                           const float* dual, int stride,
                                           float* w, float* dn) {
   const StageParams sp{p.alpha, p.one_m_alpha, stride};
-  stage_slack(sp, s, g, k, relax, ux, prev, dual, 0, kTile, w);
+  stage_slack(sp, s, g, k, relax, ux, prev, dual, 0, T, w);
   for (int j = 0; j < s.dim; ++j) {
     const int r = k * s.dim + j, o = r * stride;
-    dn[j] = dual ? __fsub_rn(__fadd_rn(dual[o], relaxed(p, relax, ux[r * kTile],
+    dn[j] = dual ? __fsub_rn(__fadd_rn(dual[o], relaxed(p, relax, ux[r * T],
                                                          prev[o])), w[j])
                  : 0.0f;
   }
@@ -367,14 +371,14 @@ __device__ __forceinline__ void stage_new(const Params& p, const Side& s,
 
 // The partial maxima of the OSQP-form residuals (ops/rho.py
 // osqp_residuals, with the per-lane terminal cost P0 + drho dP) over the
-// stages q, q + 8, ... of one lane, before this iteration's update pass:
+// stages q, q + 256 / T, ... of one lane, before this iteration's update pass:
 // ux holds [u; x] (the lane's column), the state y/g the duals before their
 // ascent and z/v the previous slacks.  m: pri_res, pri_norm, dual_res,
 // px_inf, aty_inf, q_inf.
+template <int T>
 __device__ void osqp_partials(const Params& p, int g, int gp, bool relax,
                               const float* ux, const LaneState& st,
                               float drho, int q, float (&m)[6]) {
-  constexpr int T = kTile;
   const int nx = p.nx, nu = p.nu, N = p.N, S = st.stride;
   const float* A = p.A + gp * nx * nx;
   const float* Bm = p.Bm + gp * nx * nu;
@@ -385,15 +389,15 @@ __device__ void osqp_partials(const Params& p, int g, int gp, bool relax,
   const float* xs = ux + p.su * T;
   float vn[kMaxStage], g_c[kMaxStage], vn_n[kMaxStage], g_n[kMaxStage];
   float zn[kMaxStage], yn[kMaxStage];
-  for (int j = q; j < N; j += kLaneThreads) {
+  for (int j = q; j < N; j += Lanes<T>::kLaneThreads) {
     const float* xj = xs + j * nx * T;
     const bool inner = j < N - 1;
     if (j >= 1)
-      stage_new(p, p.side_x, g, j, relax, xs, st.v, st.g, S, vn, g_c);
+      stage_new<T>(p, p.side_x, g, j, relax, xs, st.v, st.g, S, vn, g_c);
     if (inner) {
       const float* uj = ux + j * nu * T;
-      stage_new(p, p.side_x, g, j + 1, relax, xs, st.v, st.g, S, vn_n, g_n);
-      stage_new(p, p.side_u, g, j, relax, ux, st.z, st.y, S, zn, yn);
+      stage_new<T>(p, p.side_x, g, j + 1, relax, xs, st.v, st.g, S, vn_n, g_n);
+      stage_new<T>(p, p.side_u, g, j, relax, ux, st.z, st.y, S, zn, yn);
       // primal: input rows u_j against znew_j
       for (int a = 0; a < nu; ++a) {
         const float u = uj[a * T];
@@ -486,21 +490,22 @@ __device__ __forceinline__ float termination_predict(const Params& p, int gm,
   return pred;
 }
 
-// RPT: rows a thread of the products; kProjU/kProjX: whether the input /
-// state side has halfspaces or cones.
-template <int RPT, bool kProjU, bool kProjX>
+// RPT: rows a thread of the products; T: lanes a tile; kProjU/kProjX:
+// whether the input / state side has halfspaces or cones.
+template <int RPT, int T, bool kProjU, bool kProjX>
 __global__ void __launch_bounds__(kThreads, 1)
     condensed_adaptive_kernel(Params p) {
   extern __shared__ float4 smem4[];
   char* sm = reinterpret_cast<char*>(smem4);
-  constexpr int T = kTile, tpl = kLaneThreads;
+  constexpr int tpl = Lanes<T>::kLaneThreads;
   const int tid = threadIdx.x;
   const int g = blockIdx.y;
   const int l0 = blockIdx.x * T;  // the tile's first index in the group
   const int sw = p.sw, su = p.su, sx = p.sx, in1 = p.in1, B = p.B;
   const bool reduced = p.t1a != nullptr;
   const K2Layout lay = k2_layout(
-      kRowGroups * RPT, in1, sw, p.ord1, p.ld1, p.ld2, p.kp1, p.kp2,
+      T, Lanes<T>::kRowGroups * RPT, in1, sw, p.ord1, p.ld1, p.ld2, p.kp1,
+      p.kp2,
       p.state_shared ? state_rows(su, sx, p.state_free) : 0, p.resident,
       reduced);
 
@@ -565,7 +570,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int l = tid % T, q = tid / T, lane = t.lane0 + l;
   const bool valid = l < t.nvalid;
   {
-    const LaneState st = lane_state(p, t, l);
+    const LaneState st = lane_state<T>(p, t, l);
     const int S = st.stride;
     const bool warm = p.warm_start && valid;
     for (int r = q; r < in1; r += tpl) {
@@ -614,12 +619,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float* rho_b = rho_s + cur * T;
     float* rho_n = rho_s + (cur ^ 1) * T;
 
-    forward<RPT>(p, t, lo, rho_b);
+    forward<RPT, T>(p, t, lo, rho_b);
     __syncthreads();
 
     // the elementwise step of lane l, thread q of its eight
     const bool active = !done[l];
-    const LaneState st = lane_state(p, t, l);
+    const LaneState st = lane_state<T>(p, t, l);
     const SidePass su_p{&p.side_u, t.ux + l, st.z, st.y, nullptr,
                         p.zco + lane, st.stride};
     const SidePass sx_p{&p.side_x, t.ux + l + su * T, st.v, st.g, nullptr,
@@ -633,11 +638,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       const bool term = check || (update && !p.osqp);
       if (active) {
         if (term) {
-          side_residuals_q<kProjU>(p, su_p, g, relax, q, false, pi, di);
-          side_residuals_q<kProjX>(p, sx_p, g, relax, q, false, ps, ds);
+          side_residuals_q<kProjU, T>(p, su_p, g, relax, q, false, pi, di);
+          side_residuals_q<kProjX, T>(p, sx_p, g, relax, q, false, ps, ds);
         }
         if (update && p.osqp)
-          osqp_partials(p, g, gp, relax, t.ux + l, st,
+          osqp_partials<T>(p, g, gp, relax, t.ux + l, st,
                         __fsub_rn(rb, t.rho0), q, m);
       }
       red[tid] = make_float4(pi, di, ps, ds);
@@ -673,8 +678,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // slack, dual, output and carry updates; ux becomes vec2
     if (active) {
       const bool latch = p.carry_out && newly;
-      side_update_q<kProjU>(p, su_p, g, relax, q, false, latch);
-      side_update_q<kProjX>(p, sx_p, g, relax, q, false, latch);
+      side_update_q<kProjU, T>(p, su_p, g, relax, q, false, latch);
+      side_update_q<kProjX, T>(p, sx_p, g, relax, q, false, latch);
     }
     if (q == 0) {
       rho_n[l] = rho_new;
@@ -690,14 +695,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (*n_done == t.nvalid) break;  // every lane of the tile has latched
 
     // backward: cost fold at the pre-update drho, gain at the post-update
-    backward<RPT>(p, t, lo, rho_b, rho_n);
+    backward<RPT, T>(p, t, lo, rho_b, rho_n);
     __syncthreads();
   }
 
   // the outputs from the resident state, the rho, d and the carry of the
   // lanes that never latched: their last state
   if (valid) {
-    const LaneState st = lane_state(p, t, l);
+    const LaneState st = lane_state<T>(p, t, l);
     const int S = st.stride;
     const bool carry = p.carry_out && !done[l];
     if (q == 0) p.rho_out[lane] = rho_s[cur * T + l];
@@ -721,13 +726,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The kernel for RPT rows a thread, with the projections the sides need.
-template <int RPT>
+// The kernel for RPT rows a thread and tiles of T lanes, with the
+// projections the sides need.
+template <int RPT, int T>
 void (*tile_kernel(bool proj_u, bool proj_x))(Params) {
-  return proj_u ? (proj_x ? condensed_adaptive_kernel<RPT, true, true>
-                          : condensed_adaptive_kernel<RPT, true, false>)
-                : (proj_x ? condensed_adaptive_kernel<RPT, false, true>
-                          : condensed_adaptive_kernel<RPT, false, false>);
+  return proj_u ? (proj_x ? condensed_adaptive_kernel<RPT, T, true, true>
+                          : condensed_adaptive_kernel<RPT, T, true, false>)
+                : (proj_x ? condensed_adaptive_kernel<RPT, T, false, true>
+                          : condensed_adaptive_kernel<RPT, T, false, false>);
 }
 
 }  // namespace
@@ -746,7 +752,7 @@ extern "C" int tinympc_condensed_adaptive(
     float one_m_alpha, float pri_tol, float dua_tol, float rho_min,
     float rho_max, float rho0_one, float trust_lo_one, float trust_hi_one,
     int osqp, int clipping, int trust, int en_input_bound,
-    int en_state_bound, int warm_start, int carry_out, int rpt,
+    int en_state_bound, int warm_start, int carry_out, int tile, int rpt,
     int passes1, int passes2, int kp1, int kp2, int resident,
     int state_shared, int smem_bytes, int map_grouped, int plant_grouped,
     int box_u_grouped, int box_x_grouped, const float* lin_u, int n_lin_u,
@@ -758,7 +764,7 @@ extern "C" int tinympc_condensed_adaptive(
   // leading group axis (rho0 and the trust bounds go with the maps; a
   // single group passes them by value as rho0_one, trust_*_one and null
   // arrays).  The maps' layouts: ld1 = passes1 x W, ld2 = passes2 x W rows
-  // (W = 16 rpt, the product's rows at once); t1a/t2a: the
+  // (W = 512 rpt / tile, the product's rows at once); t1a/t2a: the
   // bf16 maps of reduced iterations (lo_all), k padded to kp1/kp2.
   // lin_*: (n_lin, 2*dim + 1) device rows; soc_*: n_soc (start, dim) pairs
   // in host memory; soc_mu_*: (n_soc,) on the device.
@@ -777,7 +783,7 @@ extern "C" int tinympc_condensed_adaptive(
   p.su = (N - 1) * nu; p.sx = N * nx; p.sw = p.su + p.sx;
   p.in1 = p.su + nx + 1; p.B = G * L; p.L = L;
   p.ord1 = order + 1;
-  const int W = kRowGroups * rpt;
+  const int W = tile > 0 ? rpt * (2 * kThreads / tile) : 0;
   p.passes1 = passes1; p.passes2 = passes2;
   p.ld1 = passes1 * W; p.ld2 = passes2 * W; p.kp1 = kp1; p.kp2 = kp2;
   p.max_iter = max_iter; p.ct = ct; p.lo_all = lo_all;
@@ -794,11 +800,12 @@ extern "C" int tinympc_condensed_adaptive(
   p.state_free = !en_state_bound && n_lin_x == 0 && n_soc_x == 0;
   // the caller owns the layout; refuse one the kernel would overrun
   const size_t need =
-      k2_layout(W, p.in1, p.sw, p.ord1, p.ld1, p.ld2, kp1, kp2,
+      k2_layout(tile, W, p.in1, p.sw, p.ord1, p.ld1, p.ld2, kp1, kp2,
                 state_shared ? state_rows(p.su, p.sx, p.state_free) : 0,
                 resident, lo_all)
           .total;
-  if (G <= 0 || L <= 0 || G > 65535 || ct < 1 || order < 1 ||
+  if (G <= 0 || L <= 0 || G > 65535 || (tile != 32 && tile != 16) ||
+      ct < 1 || order < 1 ||
       p.ld1 < p.sw || p.ld2 < 4 * p.su ||
       smem_bytes < 0 || static_cast<size_t>(smem_bytes) < need ||
       (G > 1 && (!rho0 || !trust_lo || !trust_hi)))
@@ -825,16 +832,20 @@ extern "C" int tinympc_condensed_adaptive(
 
   const bool proj_u = n_lin_u + n_soc_u > 0, proj_x = n_lin_x + n_soc_x > 0;
   void (*kernel)(Params);
-  switch (rpt) {  // the instances adaptive_tile_plan picks from
-    case 8: kernel = tile_kernel<8>(proj_u, proj_x); break;
-    case 20: kernel = tile_kernel<20>(proj_u, proj_x); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // the instances adaptive_tile_plan picks from
+  if (tile == 32 && rpt == 8)
+    kernel = tile_kernel<8, 32>(proj_u, proj_x);
+  else if (tile == 32 && rpt == 20)
+    kernel = tile_kernel<20, 32>(proj_u, proj_x);
+  else if (tile == 16 && rpt == 8)
+    kernel = tile_kernel<8, 16>(proj_u, proj_x);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(smem_bytes);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + kTile - 1) / kTile, G);
+  const dim3 grid((L + tile - 1) / tile, G);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

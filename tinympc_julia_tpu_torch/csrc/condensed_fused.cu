@@ -102,6 +102,9 @@ namespace {
 
 using namespace tinympc;
 
+constexpr int kLaneThreads = Lanes<kTile>::kLaneThreads;  // threads a lane: 8
+constexpr int kRowGroups = Lanes<kTile>::kRowGroups;  // product rows: 16
+
 struct Params {
   // the maps, with a leading group axis where map_grouped
   const float* t12t;  // (sw, swp) T12w transposed, rows padded to swp

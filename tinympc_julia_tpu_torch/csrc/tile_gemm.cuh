@@ -1,22 +1,25 @@
 // The lane-tile layout shared by the condensed kernels K1
 // (condensed_fused.cu) and K2 (condensed_adaptive.cu): a block of 256
-// threads owns a tile of 32 lanes, runs the tile's matrix products as
-// GEMMs and the elementwise step of an ADMM iteration with 8 threads a lane.
+// threads owns a tile of T lanes (32; K2 takes 16 where the iterates of 32
+// lanes would not fit beside a wide map), runs the tile's matrix products
+// as GEMMs and the elementwise step of an ADMM iteration with 256 / T
+// threads a lane.  The tile is a template parameter (Lanes<T>), 32 by
+// default.
 //
 // The products.  out(row, lane) = sum_k M(k, row) w(k, lane) over the
-// tile, w in shared memory as [k][lane] (row stride 32), M a transposed map
+// tile, w in shared memory as [k][lane] (row stride T), M a transposed map
 // ([k][row], row stride ld) in fp32 or a row-major bf16 map ([row][k]).
 //  * fp32 (gemm_fp32): each thread keeps a register tile of RPT rows x 2
 //    lanes and sums every output over k in index order with fmaf, so a
 //    lane's result does not depend on its tile-mates (and equals a
 //    product that sums in index order: cuBLAS's at these shapes).  No
-//    TF32.  The 16 lane groups x 16 row groups cover W = 16 RPT rows at
-//    once.
+//    TF32.  The T / 2 lane groups x 512 / T row groups cover W = 512 RPT /
+//    T rows at once.
 //  * bf16 (gemm_lo): the input is rounded to bf16 (round to nearest even)
 //    into a [lane][k] buffer and mma.sync.m16n8k16 multiplies it by a
-//    real-bf16 map, warps split over rows (4) and lanes (2 groups of 16);
-//    each k16 step's products are summed from zero in the tensor core and
-//    added to an fp32 running sum (mma_product of
+//    real-bf16 map, warps split over rows (128 / T of them) and lanes
+//    (groups of 16); each k16 step's products are summed from zero in the
+//    tensor core and added to an fp32 running sum (mma_product of
 //    ops/cuda/condensed_kernel.py is the same arithmetic).  The same W rows
 //    at once.
 //  * A map wider than W rows, or several maps in turn (K2's Taylor
@@ -28,8 +31,8 @@
 //    segments one after another in one stream.
 //
 // The elementwise step: the threads of a lane split each side of it, the
-// rows of a box-only side (thread q takes rows q, q + 8, ...) or the
-// stages of a projected one (stages q, q + 8, ...: the projections couple
+// rows of a box-only side (thread q of its 256 / T takes rows q, q + 256 /
+// T, ...) or the stages of a projected one (stages q, ...: the projections couple
 // only the rows of a stage), in projections.cuh's arithmetic and the plain
 // version's order of operations.
 #pragma once
@@ -42,10 +45,7 @@
 namespace tinympc {
 
 constexpr int kThreads = 256;  // threads a block
-constexpr int kTile = 32;      // lanes a block
-constexpr int kLaneThreads = kThreads / kTile;  // threads a lane: 8
-constexpr int kRowGroups = 16;  // thread rows of a product
-constexpr int kLaneGroups = kThreads / kRowGroups;  // thread lanes: 16
+constexpr int kTile = 32;      // lanes a block, unless a kernel asks for 16
 constexpr int kSlabK = 8;      // fp32 map k-rows per slab
 constexpr int kStages = 6;     // fp32 slabs in the ring
 constexpr int kSlabKLo = 16;   // bf16 map k-columns per slab
@@ -54,6 +54,16 @@ constexpr int kPadLo = 8;      // bf16 row padding (conflict-free ldmatrix)
 constexpr int kRowBatch = 4;   // rows an elementwise pass loads at once
 
 __host__ __device__ inline size_t up16(size_t n) { return (n + 15) / 16 * 16; }
+
+// The thread layout of a tile of T lanes.
+template <int T>
+struct Lanes {
+  static_assert(T == 32 || T == 16, "tiles of 32 or 16 lanes");
+  static constexpr int kLaneThreads = kThreads / T;  // threads a lane
+  static constexpr int kLaneGroups = T / 2;          // product lanes: 2 each
+  static constexpr int kRowGroups = kThreads / kLaneGroups;  // product rows
+  static constexpr int kRowWarps = 128 / T;  // warps over a bf16 product's rows
+};
 
 // Bytes of the slab ring of a streamed product of width W (fp32 slabs, or
 // bf16 slabs where ``lo``).
@@ -73,7 +83,8 @@ struct FragF32 {
 };
 
 // ... and of a bf16 product thread (mma.sync's m16n8 accumulator layout):
-// entry e = (m * 2 + jn) * 4 + ee of 16-row tile m and 8-lane tile jn.
+// entry e = (m * 2 + jn) * 4 + ee of 16-row tile m and 8-lane tile jn of
+// warp (wm, wn).
 template <int RPT>
 struct FragLo {
   static constexpr bool kLo = true;
@@ -91,16 +102,17 @@ struct GemmF32 {
   const float* w;  // [k][lane], row stride T (shared memory)
   float* ring;     // the slab ring where the segments are streamed; null:
                    // seg(j) points into shared memory
-  int K, W, ld, nseg, tid;  // W = kRowGroups * RPT
+  int K, W, ld, nseg, tid;  // W = Lanes<T>::kRowGroups * RPT
 };
 
 // seg(j): segment j's map, [k][row] with row stride ld (W rows of it);
 // epi(j, acc, frag) after segment j, on every thread.  Every thread must be
 // past its last use of the ring and of w before the call.
-template <int RPT, class Seg, class Epi>
+template <int RPT, int T = kTile, class Seg, class Epi>
 __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
                                           Epi epi) {
   static_assert(RPT % 4 == 0, "rows a thread: a multiple of 4");
+  constexpr int kLaneGroups = Lanes<T>::kLaneGroups;
   const FragF32<RPT> fr{a.tid / kLaneGroups, a.tid % kLaneGroups};
   const int r0 = fr.tr * RPT;
   float acc[2 * RPT];
@@ -110,7 +122,7 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
   };
   const float* wcol = a.w + 2 * fr.tl;
   auto step = [&](const float* mrow, int k) {
-    const float2 w = *reinterpret_cast<const float2*>(wcol + k * kTile);
+    const float2 w = *reinterpret_cast<const float2*>(wcol + k * T);
 #pragma unroll
     for (int j4 = 0; j4 < RPT / 4; ++j4) {
       const float4 m = *reinterpret_cast<const float4*>(mrow + r0 + 4 * j4);
@@ -184,8 +196,8 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
 }
 
 struct GemmLo {
-  const float* w;        // fp32 [k][lane], row stride kTile (shared memory)
-  __nv_bfloat16* w2h;    // (kTile, kp + kPadLo): w rounded to bf16
+  const float* w;        // fp32 [k][lane], row stride T (shared memory)
+  __nv_bfloat16* w2h;    // (T, kp + kPadLo): w rounded to bf16
   __nv_bfloat16* ring;   // the slab ring where streamed; null: resident
   int K, kp, W, nseg, tid;
   int lda;  // row stride of a resident segment (kp + kPadLo)
@@ -194,16 +206,17 @@ struct GemmLo {
 // seg(j): segment j's bf16 map, W rows of kp columns (row stride kp in
 // global memory where streamed, lda where resident); epi as gemm_fp32's.
 // The map's columns K..kp-1 are zero, and so are w2h's.
-template <int RPT, class Seg, class Epi>
+template <int RPT, int T = kTile, class Seg, class Epi>
 __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
   constexpr int kMt = RPT / 4;
+  constexpr int kRowWarps = Lanes<T>::kRowWarps;
   const int ldw = a.kp + kPadLo;
-  for (int e = a.tid; e < a.kp * kTile; e += kThreads) {
-    const int k = e / kTile, n = e - k * kTile;
+  for (int e = a.tid; e < a.kp * T; e += kThreads) {
+    const int k = e / T, n = e - k * T;
     a.w2h[n * ldw + k] = __float2bfloat16_rn(k < a.K ? a.w[e] : 0.0f);
   }
   const int warp = a.tid >> 5, ln = a.tid & 31;
-  const FragLo<RPT> fr{warp & 3, warp >> 2, ln >> 2, ln & 3};
+  const FragLo<RPT> fr{warp % kRowWarps, warp / kRowWarps, ln >> 2, ln & 3};
   float acc[8 * kMt];
   auto zero = [&] {
 #pragma unroll
@@ -291,7 +304,7 @@ __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
 // -- the elementwise step ---------------------------------------------------
 
 // One side of a lane: its column of the tile buffer (element r at
-// ux[r * kTile]), its slack, dual and rollout constant (element r at
+// ux[r * T]), its slack, dual and rollout constant (element r at
 // [r * stride]: a [row][lane] shared array or a (dim, B) global one) and its
 // carry slack (global, element r at [r * B]).
 struct SidePass {
@@ -316,9 +329,11 @@ struct BoxRows {
       uxc[kRowBatch];
 };
 
+template <int T>
 __device__ __forceinline__ void load_box_rows(const SidePass& sp, int g,
                                               int r0, int rows, bool add,
                                               BoxRows& b) {
+  constexpr int kLaneThreads = Lanes<T>::kLaneThreads;
   const Side& s = *sp.s;
 #pragma unroll
   for (int j = 0; j < kRowBatch; ++j) {
@@ -347,7 +362,7 @@ __device__ __forceinline__ float box_slack(const Side& s, float wh,
 
 // Adds uxc to the rows of stage k of a projected side (add), then its
 // slack into w.
-template <class P>
+template <int T, class P>
 __device__ __forceinline__ void projected_stage(const P& p, const SidePass& sp,
                                                 int g, int k, bool relax,
                                                 bool add, float* w) {
@@ -355,29 +370,30 @@ __device__ __forceinline__ void projected_stage(const P& p, const SidePass& sp,
   if (add)
     for (int j = 0; j < s.dim; ++j) {
       const int r = k * s.dim + j;
-      sp.ux[r * kTile] = __fadd_rn(sp.ux[r * kTile], sp.uxc[r * sp.stride]);
+      sp.ux[r * T] = __fadd_rn(sp.ux[r * T], sp.uxc[r * sp.stride]);
     }
   const StageParams sp_p{p.alpha, p.one_m_alpha, sp.stride};
-  stage_slack(sp_p, s, g, k, relax, sp.ux, sp.prev, sp.dual, 0, kTile, w);
+  stage_slack(sp_p, s, g, k, relax, sp.ux, sp.prev, sp.dual, 0, T, w);
 }
 
 // The residual pass of thread q of a lane: the max-abs primal (pri) and
 // dual (dua, before its rho scaling) residuals of its share of one side;
 // with add it also completes ux = product + uxc in the buffer.
-template <bool kProj, class P>
+template <bool kProj, int T = kTile, class P>
 __device__ __forceinline__ void side_residuals_q(const P& p,
                                                  const SidePass& sp, int g,
                                                  bool relax, int q, bool add,
                                                  float& pri, float& dua) {
+  constexpr int kLaneThreads = Lanes<T>::kLaneThreads;
   const Side& s = *sp.s;
   float* ux = sp.ux;
   if constexpr (kProj) {
     for (int k = q; k < s.n_stages; k += kLaneThreads) {
       float w[kMaxStage];
-      projected_stage(p, sp, g, k, relax, add, w);
+      projected_stage<T>(p, sp, g, k, relax, add, w);
       for (int j = 0; j < s.dim; ++j) {
         const int r = k * s.dim + j;
-        pri = fmaxf(pri, fabsf(__fsub_rn(ux[r * kTile], w[j])));
+        pri = fmaxf(pri, fabsf(__fsub_rn(ux[r * T], w[j])));
         dua = fmaxf(dua, fabsf(__fsub_rn(sp.prev[r * sp.stride], w[j])));
       }
     }
@@ -385,15 +401,15 @@ __device__ __forceinline__ void side_residuals_q(const P& p,
     const int rows = s.dim * s.n_stages;
     for (int r0 = q; r0 < rows; r0 += kLaneThreads * kRowBatch) {
       BoxRows b;
-      load_box_rows(sp, g, r0, rows, add, b);
+      load_box_rows<T>(sp, g, r0, rows, add, b);
 #pragma unroll
       for (int j = 0; j < kRowBatch; ++j) {
         const int r = r0 + kLaneThreads * j;
         if (r < rows) {
-          float u = ux[r * kTile];
+          float u = ux[r * T];
           if (add) {
             u = __fadd_rn(u, b.uxc[j]);
-            ux[r * kTile] = u;
+            ux[r * T] = u;
           }
           const float vn = box_slack(s, relaxed(p, relax, u, b.prev[j]),
                                      sp.dual != nullptr, b.dual[j], b.lo[j],
@@ -411,10 +427,11 @@ __device__ __forceinline__ void side_residuals_q(const P& p,
 // slack freezes before the converging iteration: a lane that latches now
 // (latch) writes the slack it had; the other lanes' carry is written once,
 // at the end.
-template <bool kProj, class P>
+template <bool kProj, int T = kTile, class P>
 __device__ __forceinline__ void side_update_q(const P& p, const SidePass& sp,
                                               int g, bool relax, int q,
                                               bool add, bool latch) {
+  constexpr int kLaneThreads = Lanes<T>::kLaneThreads;
   const Side& s = *sp.s;
   float* ux = sp.ux;
   auto row = [&](int r, float u, float prev, float dual, float vn) {
@@ -428,27 +445,27 @@ __device__ __forceinline__ void side_update_q(const P& p, const SidePass& sp,
     }
     sp.prev[o] = vn;
     if (latch) sp.co[r * p.B] = prev;
-    ux[r * kTile] = next;
+    ux[r * T] = next;
   };
   if constexpr (kProj) {
     for (int k = q; k < s.n_stages; k += kLaneThreads) {
       float w[kMaxStage];
-      projected_stage(p, sp, g, k, relax, add, w);
+      projected_stage<T>(p, sp, g, k, relax, add, w);
       for (int j = 0; j < s.dim; ++j) {
         const int r = k * s.dim + j, o = r * sp.stride;
-        row(r, ux[r * kTile], sp.prev[o], sp.dual ? sp.dual[o] : 0.0f, w[j]);
+        row(r, ux[r * T], sp.prev[o], sp.dual ? sp.dual[o] : 0.0f, w[j]);
       }
     }
   } else {
     const int rows = s.dim * s.n_stages;
     for (int r0 = q; r0 < rows; r0 += kLaneThreads * kRowBatch) {
       BoxRows b;
-      load_box_rows(sp, g, r0, rows, add, b);
+      load_box_rows<T>(sp, g, r0, rows, add, b);
 #pragma unroll
       for (int j = 0; j < kRowBatch; ++j) {
         const int r = r0 + kLaneThreads * j;
         if (r < rows) {
-          float u = ux[r * kTile];
+          float u = ux[r * T];
           if (add) u = __fadd_rn(u, b.uxc[j]);
           const float vn = box_slack(s, relaxed(p, relax, u, b.prev[j]),
                                      sp.dual != nullptr, b.dual[j], b.lo[j],

@@ -57,7 +57,7 @@ from ..rho import EPS, RHO_INTERVAL, TERM_DEADBAND, TERM_MAX_STEP
 from ...utils.precision import full_fp32_matmul
 from ._build import load_library
 from .condensed_kernel import (KP_ALIGN, MAX_STAGE, SMEM_PER_BLOCK, THREADS,
-                               TILE, TILE_ROW_GROUPS, FusedConstraints,
+                               TILE, FusedConstraints,
                                _check_constraints,
                                _check_cuda_inputs, _check_grouped_shape,
                                _dims, _flat_x0, _grouped_view,
@@ -69,9 +69,11 @@ from .condensed_kernel import _check_precision as _check_k1_precision
 
 # The launch layout is decided here and passed to the kernel, which checks
 # it (csrc/condensed_adaptive.cu): K1's tiles of 32 lanes on 256 threads
-# (TILE, THREADS); the products' 16 thread rows cover W = 16 RPT rows at
-# once, RPT one of the kernel's instances; a wider product runs in passes.
-K2_RPTS = (8, 20)
+# (TILE, THREADS), or 16 lanes where the iterates of 32 leave no room beside
+# a wide map's slab ring; the products' 512 / tile thread rows cover W =
+# 512 RPT / tile rows at once, RPT one of the kernel's instances for that
+# tile; a wider product runs in passes.
+K2_RPTS = {32: (8, 20), 16: (8,)}
 
 
 class AdaptiveFusedCarry(NamedTuple):
@@ -123,7 +125,7 @@ class AdaptivePlan(NamedTuple):
     @property
     def width(self) -> int:
         """Rows the products cover at once."""
-        return self.rpt * TILE_ROW_GROUPS
+        return self.rpt * 2 * self.threads // self.tile
 
     @property
     def ld1(self) -> int:
@@ -136,7 +138,7 @@ class AdaptivePlan(NamedTuple):
         return self.passes2 * self.width
 
 
-def adaptive_smem(nx: int, nu: int, N: int, order: int, rpt: int,
+def adaptive_smem(nx: int, nu: int, N: int, order: int, tile: int, rpt: int,
                   passes1: int, passes2: int, resident: bool,
                   state_shared: bool, reduced: bool,
                   state_free: bool) -> int:
@@ -148,7 +150,7 @@ def adaptive_smem(nx: int, nu: int, N: int, order: int, rpt: int,
     bf16 product input of reduced iterations."""
     su, sx, sw = _dims(nx, nu, N)
     in1, ord1 = su + nx + 1, order + 1
-    tile, W = TILE, rpt * TILE_ROW_GROUPS
+    W = rpt * 2 * THREADS // tile
     ld1, ld2 = passes1 * W, passes2 * W
     kp1, kp2 = _kp(in1), _kp(sw + 1)
     state = (2 * su + (1 if state_free else 2) * sx) if state_shared else 0
@@ -177,30 +179,35 @@ def adaptive_tile_plan(nx: int, nu: int, N: int, order: int,
     """The layout of a launch at this shape (``reduced``: with
     reduced-precision iterations; ``state_free``: no state dual).
 
-    Tiles of 32 lanes, whatever the batch: a tile's iteration is bound by
-    its map stream, not by its lanes, so smaller tiles for few lanes (a
-    continuation's slots) only cost (PERF.md section 6).  The rows a
-    thread: the instance that pads the two products least, in the fewest
-    passes.  Within it the lanes' duals and slacks in shared memory where
-    they fit, then the maps resident where they fit beside them and
-    streamed through the slab ring otherwise."""
+    Tiles of 32 lanes whatever the batch (a tile's iteration is bound by its
+    map stream, not by its lanes, so smaller tiles for few lanes, a
+    continuation's slots, only cost: PERF.md section 6); tiles of 16 where
+    the iterates of 32 lanes leave no room beside a wide map's slab ring.
+    The rows a thread: the instance that covers the two products in the
+    fewest passes (each costs a slab stream), padding them the least.
+    Within it the lanes' duals and slacks in shared
+    memory where they fit, then the maps resident where they fit beside
+    them and streamed through the slab ring otherwise."""
     su, sx, sw = _dims(nx, nu, N)
     in1, ord1 = su + nx + 1, order + 1
 
-    def cost(rpt):
-        W = rpt * TILE_ROW_GROUPS
-        p1, p2 = -(-sw // W), -(-4 * su // W)
-        return (ord1 * in1 * p1 * W + (sw + 1) * p2 * W, p1 + p2, p1, p2)
+    for tile in (TILE, TILE // 2):
+        def cost(rpt):
+            W = rpt * 2 * THREADS // tile
+            p1, p2 = -(-sw // W), -(-4 * su // W)
+            return (p1 + p2, ord1 * in1 * p1 * W + (sw + 1) * p2 * W, p1, p2)
 
-    for rpt in sorted(K2_RPTS, key=cost):
-        _, _, p1, p2 = cost(rpt)
-        for shared in (True, False):
-            for resident in (True, False):
-                smem = adaptive_smem(nx, nu, N, order, rpt, p1, p2, resident,
-                                     shared, reduced, state_free)
-                if smem <= SMEM_PER_BLOCK:
-                    return AdaptivePlan(TILE, THREADS, rpt, p1, p2, resident,
-                                        shared, _kp(in1), _kp(sw + 1), smem)
+        for rpt in sorted(K2_RPTS[tile], key=cost):
+            _, _, p1, p2 = cost(rpt)
+            for shared in (True, False):
+                for resident in (True, False):
+                    smem = adaptive_smem(nx, nu, N, order, tile, rpt, p1, p2,
+                                         resident, shared, reduced,
+                                         state_free)
+                    if smem <= SMEM_PER_BLOCK:
+                        return AdaptivePlan(tile, THREADS, rpt, p1, p2,
+                                            resident, shared, _kp(in1),
+                                            _kp(sw + 1), smem)
     raise ValueError(f"adaptive fused kernel: a problem of width {sw} leaves "
                      "no room for a tile of lanes in shared memory")
 
@@ -478,7 +485,7 @@ def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
     return out
 
 
-_ARGTYPES = ([_PTR] * 34 + [_INT] * 9 + [_FLT] * 9 + [_INT] * 19
+_ARGTYPES = ([_PTR] * 34 + [_INT] * 9 + [_FLT] * 9 + [_INT] * 20
              + _SIDE + _SIDE + [_PTR])
 
 
@@ -613,7 +620,7 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
                  adaptive_rho_max, *one, int(osqp),
                  int(adaptive_rho_clipping), int(trust),
                  int(en_input_bound), int(en_state_bound), int(warm_start),
-                 int(carry_out), plan.rpt, plan.passes1,
+                 int(carry_out), plan.tile, plan.rpt, plan.passes1,
                  plan.passes2, plan.kp1, plan.kp2, int(plan.resident),
                  int(plan.state_shared), plan.smem,
                  int(tmaps.T1s.ndim == 4),
