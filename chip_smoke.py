@@ -10,7 +10,8 @@ Phases (one line each; any failure exits non-zero):
      comparison below also shows that the pin holds;
   2. build: nvcc compiles kernels K1 (csrc/condensed_fused.cu), K2
      (csrc/condensed_adaptive.cu) and K3 (csrc/fused_stage.cu), side by
-     side, into build/torch_kernels/;
+     side, into build/torch_kernels/, with each file's registers and the
+     variants that spill, and each K3 variant's registers and spill bytes;
   3. kernel vs plain at the cartpole shape (B = 4096): (a) cold, ct=1,
      alpha=1.7, no state bound; (b) ct=4; (c) the generic path with the
      constrained cartpole's state bound |x0| <= 2; (d) a 30 + 50 warm chain
@@ -126,14 +127,22 @@ Phases (one line each; any failure exits non-zero):
      iterations) at (a) ct = 1, (b) ct = 4, (c) with the cart position held
      to |x_0| <= 0.3 and initial velocities doubled, so that the state box
      binds; (d) the quadrotor shape (B = 512, |u| <= 0.5, rho 5, 500
-     iterations);
+     iterations); (e) rho as a float and no input bound (|u| <= 0.5 then
+     left), 30 iterations; (f) the quadrotor at ct = 4, 302 iterations;
+     each with its lane group, tile and the warps an SM holds;
  19. K3's path at full width through make_fused_solver: the cartpole
      headline batch (the 65,536 lanes of phase 6, tol 1e-3, 100 iterations)
      and the quadrotor (the 16,384 lanes of phase 11, fixed rho 5, 500
-     iterations): convergence, the results against the plain version, paired
-     times; beside each, K1 on the same problem with alpha 1, ct 1 and the
-     same budget: the share of lanes on which the two kernels' iteration
-     counts agree (both are the same ADMM; >= 99%) and their paired times;
+     iterations): one launch each, convergence, the results against the
+     plain version, paired times; beside each, K1 on the same problem with
+     alpha 1, ct 1 and the same budget: the share of lanes on which the two
+     kernels' iteration counts agree (both are the same ADMM; >= 99%) and
+     their paired times; beside K3's bound, an estimate of its
+     dependent-chain floor: the slowest lane's iterations x (N - 1) stages
+     x the fmaf chain of a stage, nx + nu deep forward (K x_k, then B u_k)
+     and nx deep backward (AmBKt p_{k+1}; r_k, K' r_k and d_k are off the
+     chain), at an assumed 4 cycles an fmaf and the card's largest SM clock
+     (adds, shuffles and loads left out, so the true chain is longer);
  20. the fused MPC loop at full width through make_fused_mpc_loop: the
      cartpole plant, |u| <= 5, alpha 1.7, 100 iterations a step, 8,192
      plants drawn U(-0.5, 0.5) from seed 3, 100 control steps, every solve a
@@ -1654,7 +1663,8 @@ def stage_and_loop_phases(card):
         condensed_fused_cuda, condensed_fused_reference, fused_tile_plan,
         map_layout)
     from tinympc_julia_tpu_torch.ops.cuda.fused import (
-        fused_cuda, fused_reference, fused_stage_plan, make_fused_solver)
+        fused_cuda, fused_reference, fused_stage_plan, make_fused_solver,
+        stage_occupancy)
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.parallel import mpc
 
@@ -1701,24 +1711,44 @@ def stage_and_loop_phases(card):
     x0_fast = x0_check * torch.tensor([0.5, 2.0, 1.0, 1.0], device=dev)
     pq, cq = plant(quadrotor, (quadrotor.U_HOVER_BOUND,) * 2, quadrotor.RHO)
     x0_q = draw(B_QUAD, 12, 1, 0.3)
+    p_u, c_u = plant(cartpole, (0.5, 0.5), cartpole.RHO)
     cases = (("a cartpole ct=1", p, c, x0_check, {}),
              ("b cartpole ct=4", p, c, x0_check, dict(check_termination=4)),
              ("c cartpole |x_0| <= 0.3 (state dual live)", p_b, c_b, x0_fast,
               dict(en_state_bound=True)),
              ("d quadrotor, rho 5, 500 iterations", pq, cq, x0_q,
-              dict(max_iter=500)))
+              dict(max_iter=500)),
+             ("e cartpole, rho as a float, no input bound", p_u, c_u,
+              x0_check, dict(max_iter=30, en_input_bound=False,
+                             rho=float(c_u.rho))),
+             ("f quadrotor, ct=4, 302 iterations", pq, cq, x0_q,
+              dict(max_iter=302, check_termination=4)))
     for name, pp, cc, x0s, kw in cases:
-        args, full = k3_args(pp, cc, x0s), k3_kw(pp, **kw)
-        tile, smem = fused_stage_plan(pp.nx, pp.nu, pp.N,
-                                      full["en_state_bound"], x0s.shape[0],
-                                      sms)
+        kw = dict(kw)
+        args = k3_args(pp, cc, x0s)
+        if "rho" in kw:
+            args = args[:5] + (kw.pop("rho"),) + args[6:]
+        full = k3_kw(pp, **kw)
+        plan = fused_stage_plan(pp.nx, pp.nu, pp.N, full["en_state_bound"],
+                                x0s.shape[0], sms)
+        occ = stage_occupancy(plan, pp.nx, pp.nu, full["en_state_bound"])
         out_k = fused_cuda(*args, **full)
         out_p = fused_reference(*args, **full)
         torch.cuda.synchronize()
         errs.append(agreement(
-            f"phase 18{name}, B={x0s.shape[0]} (tile {tile}, {smem} bytes "
-            f"of shared memory; {bit_equal(out_k, out_p)} of 4 outputs "
-            f"bit-equal)", out_k, out_p))
+            f"phase 18{name}, B={x0s.shape[0]} (lane group {plan.group}, "
+            f"tile {plan.tile} lanes = {plan.threads} threads, "
+            f"{plan.smem} bytes of shared memory, matrices in "
+            f"{'registers' if plan.registers else 'shared memory'}; "
+            f"{occ['warps_per_sm']} warps an SM, {occ['registers']} "
+            f"registers, {occ['local_bytes']} bytes local; "
+            f"{bit_equal(out_k, out_p)} of 4 outputs bit-equal)", out_k,
+            out_p))
+        check(all(t.is_contiguous() for t in out_k[:2]), f"phase 18{name}: "
+              "results not in the returned layout")
+        if not full["en_input_bound"]:
+            check(float(out_k[1].abs().max()) > 0.5, "phase 18e: |u| never "
+                  "leaves the bound it does not hold")
         if full["en_state_bound"]:
             at_bound = (out_k[0][..., 0].abs().amax(dim=1) == 0.3)
             print(f"phase 18c: the bound binds on {int(at_bound.sum())} "
@@ -1735,6 +1765,10 @@ def stage_and_loop_phases(card):
         return ((pp.N - 1) * (4 * nx * nx + 8 * nx * nu + 2 * nu * nu)
                 * float(iters.sum()))
 
+    sm_clock_mhz = int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
     fused_cuda.launches = 0
     rows = []
     wide = (("cartpole", p, c, draw(B_MAIN, 4, 0, 0.5), 100),
@@ -1788,6 +1822,8 @@ def stage_and_loop_phases(card):
             lambda: solve(*args),
             lambda: condensed_fused_cuda(*k1_args, **k1_kw))
         b3 = bound(stage_flops(pp, it), tensor_bytes(*args, out))
+        floor = (int(it.max()) * (pp.N - 1) * (2 * pp.nx + pp.nu) * 4
+                 / (sm_clock_mhz * 1e6) * 1e3)
         print(f"phase 19 {name} B={B}, tol 1e-3, max_iter {budget}, no "
               f"over-relaxation: K3 solved {n3} ({100.0 * n3 / B:.2f}%), K1 "
               f"(alpha 1, ct 1) {n1}; mean iterations "
@@ -1796,7 +1832,11 @@ def stage_and_loop_phases(card):
               f"controls within {du:.3e} on equal solved lanes; median of 5: "
               f"K3 {t_k3:.3f} ms, its plain version {t_p:.3f} ms; K3 "
               f"{t_k3b:.3f} ms beside K1 {t_k1:.3f} ms "
-              f"({t_k1 / t_k3b:.1f}x); K3's bound {b3[0]:.4f} ms by {b3[1]} "
+              f"({t_k1 / t_k3b:.1f}x); K3's bound {b3[0]:.4f} ms by {b3[1]}, "
+              f"its dependent-chain floor about {floor:.4f} ms (estimate: "
+              f"{int(it.max())} iterations of the slowest lane, "
+              f"{2 * pp.nx + pp.nu} fmaf a stage at 4 cycles, "
+              f"{sm_clock_mhz} MHz) "
               f"-> {n3 / (t_k3 * 1e-3):.0f} solves/s on {card}", flush=True)
         rows.append({
             "name": f"fused_stage (K3), {name} B={B}, max_iter {budget}",
@@ -1965,24 +2005,28 @@ def stage_and_loop_phases(card):
 
 def build_kernels():
     """Phase 2: the three kernels' sources, one nvcc each, side by side."""
-    from tinympc_julia_tpu_torch.ops.cuda._build import load_libraries
+    from tinympc_julia_tpu_torch.ops.cuda._build import (load_libraries,
+                                                         ptxas_usage)
+    from tinympc_julia_tpu_torch.ops.cuda.fused import variant_label
     t0 = time.perf_counter()
     libs = load_libraries(["condensed_fused", "condensed_adaptive",
                            "fused_stage"])
     print(f"phase 2 build: {len(libs)} kernels side by side in "
           f"{time.perf_counter() - t0:.1f} s with loading", flush=True)
     for built in libs:
-        regs = sorted({int(l.split("Used ")[1].split()[0])
-                       for l in built.log.splitlines() if "Used " in l})
-        spills, fn = [], ""
-        for l in built.log.splitlines():
-            if "Function properties for " in l:
-                fn = l.split("Function properties for ")[1].strip()
-            elif "spill" in l and "0 bytes spill stores" not in l:
-                spills.append(fn)
+        usage = ptxas_usage(built.log)
+        regs = sorted({use.registers for use in usage.values()})
+        spills = [fn for fn, use in usage.items()
+                  if use.spill_stores or use.spill_loads]
         print(f"phase 2 build: {built.path.name} in {built.seconds:.1f} s "
               f"of nvcc; registers per thread over its variants {regs}, "
               f"variants that spill {len(spills)} {spills}", flush=True)
+        if built.path.name.startswith("fused_stage"):
+            for mangled, use in usage.items():
+                print(f"phase 2 build: K3 variant {variant_label(mangled)}: "
+                      f"{use.registers} registers, {use.spill_stores} / "
+                      f"{use.spill_loads} bytes spill stores / loads, "
+                      f"{use.stack_bytes} bytes stack", flush=True)
 
 
 def main():

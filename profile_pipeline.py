@@ -34,18 +34,20 @@ Runs each chosen workload under ``torch.profiler`` after one warm-up:
     100 launches of K1 chained through its carry, the plant step and the
     per-launch map layouts between them;
   * ``fused_stage``: kernel K3's two full-width solves through
-    ``make_fused_solver`` (65,536 cartpole lanes, 100 iterations; 16,384
-    quadrotor lanes, rho 5, 500 iterations), two launches, with the packing
-    of the kernel's constants before each.
+    ``make_fused_solver``, each its own workload: ``fused_stage_cartpole``
+    (65,536 lanes, 100 iterations) and ``fused_stage_quadrotor`` (16,384
+    lanes, rho 5, 500 iterations), one launch a solve.
 It prints, one line each:
   * the card's name and power limit;
   * per workload, setup on the host clock (the Riccati cache with its
     sensitivities, the condensed maps) and the iteration statistics;
+  * the host's enqueue time of a run (host clock from the call to its
+    return, no synchronisation inside; median of 3);
   * per launch of the pipeline, the median device time of its kernel;
   * over the profiled reps: the kernel's device time, that of every other
-    device kernel (compaction, gathers, merges), the kernel's share of
-    device time, the wall time, and the device's idle share (1 - union of
-    device-kernel intervals / wall).
+    device kernel (compaction, gathers, merges), the device launches a run,
+    the kernel's share of device time, the wall time, and the device's idle
+    share (1 - union of device-kernel intervals / wall).
 The last line is the same numbers as one JSON object.
 """
 import argparse
@@ -294,32 +296,35 @@ def mpc_loop_workload(dev):
     return "condensed_fused_kernel", steps, setup, lambda: loop(x0), stats
 
 
-def fused_stage_workload(dev):
-    from tinympc_julia_tpu_torch.models import cartpole, quadrotor
-    from tinympc_julia_tpu_torch.ops.cuda.fused import make_fused_solver
-
-    t0 = time.perf_counter()
-    cases = []
-    for mod, ub, B, seed, scale, budget in (
-            (cartpole, 5.0, 65536, 0, 0.5, 100),
-            (quadrotor, quadrotor.U_HOVER_BOUND, 16384, 1, 0.3, 500)):
+def fused_stage_workload(name):
+    """K3's full-width solve ``name`` (cartpole or quadrotor), one launch a
+    run."""
+    def workload(dev):
+        from tinympc_julia_tpu_torch.models import cartpole, quadrotor
+        from tinympc_julia_tpu_torch.ops.cuda.fused import make_fused_solver
+        mod, ub, B, seed, scale, budget = dict(
+            cartpole=(cartpole, 5.0, 65536, 0, 0.5, 100),
+            quadrotor=(quadrotor, quadrotor.U_HOVER_BOUND, 16384, 1, 0.3,
+                       500))[name]
+        t0 = time.perf_counter()
         p, c = _plant(mod, ub, dev)
         x0 = torch.as_tensor(np.random.default_rng(seed).uniform(
             -scale, scale, size=(B, p.nx)), dtype=F32, device=dev)
-        cases.append((make_fused_solver(p.nx, p.nu, p.N, max_iter=budget), (
-            p.A, p.B, p.f, p.Q, p.R, c.rho, c.Kinf, c.Quu_inv, c.AmBKt,
-            c.Pinf, p.x_min, p.x_max, p.u_min, p.u_max, p.Xref, p.Uref, x0)))
-    torch.cuda.synchronize()
-    setup = dict(cache=time.perf_counter() - t0, maps=None)
+        args = (p.A, p.B, p.f, p.Q, p.R, c.rho, c.Kinf, c.Quu_inv, c.AmBKt,
+                c.Pinf, p.x_min, p.x_max, p.u_min, p.u_max, p.Xref, p.Uref,
+                x0)
+        solve = make_fused_solver(p.nx, p.nu, p.N, max_iter=budget)
+        torch.cuda.synchronize()
+        setup = dict(cache=time.perf_counter() - t0, maps=None)
 
-    def stats(res):
-        return dict(mean_iters=[r[2].float().mean().item() for r in res],
-                    max_iters=[int(r[2].max()) for r in res],
-                    converged=[int(r[3].sum()) for r in res],
-                    lanes=[r[3].numel() for r in res])
+        def stats(res):
+            return dict(mean_iters=res[2].float().mean().item(),
+                        max_iters=int(res[2].max()),
+                        converged=int(res[3].sum()), lanes=res[3].numel())
 
-    return ("fused_stage_kernel", 2, setup,
-            lambda: [fn(*args) for fn, args in cases], stats)
+        return "fused_stage_kernel", 1, setup, lambda: solve(*args), stats
+
+    return workload
 
 
 WORKLOADS = dict(
@@ -330,7 +335,9 @@ WORKLOADS = dict(
                                             False),
     sweep_rocket=sweep_workload("rocket_cone_sweep", True),
     sweep_rocket_unstaged=sweep_workload("rocket_cone_sweep", False),
-    mpc_loop=mpc_loop_workload, fused_stage=fused_stage_workload)
+    mpc_loop=mpc_loop_workload,
+    fused_stage_cartpole=fused_stage_workload("cartpole"),
+    fused_stage_quadrotor=fused_stage_workload("quadrotor"))
 
 
 def trace(name, kernel, per_run, run, reps):
@@ -372,17 +379,20 @@ def trace(name, kernel, per_run, run, reps):
           + ", ".join(f"{t:.3f}" for t in launch_ms), flush=True)
     print(f"{name}: {reps} runs: kernel {kernel_ms:.3f} ms device, other "
           f"kernels {other_ms:.3f} ms ({len(dev_events) - len(ours)} "
-          f"launches), kernel share {kernel_ms / (kernel_ms + other_ms):.4f}; "
+          f"launches), {len(dev_events) / reps:g} device launches a run, "
+          f"kernel share {kernel_ms / (kernel_ms + other_ms):.4f}; "
           f"wall {wall_ms:.3f} ms, device idle share {idle:.4f}", flush=True)
     return dict(launch_ms=launch_ms, kernel_ms=kernel_ms, other_ms=other_ms,
-                wall_ms=wall_ms, idle_share=idle)
+                launches_per_run=len(dev_events) / reps, wall_ms=wall_ms,
+                idle_share=idle)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", default="all",
-                    choices=[n for n in WORKLOADS if "unstaged" not in n
-                             and n != "adaptive_grid"] + ["all"])
+                    choices=["cartpole", "rocket", "adaptive",
+                             "sweep_quadrotor", "sweep_rocket", "mpc_loop",
+                             "fused_stage", "all"])
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -410,7 +420,17 @@ def main():
         torch.cuda.synchronize()
         st = stats(res)
         print(f"{name}: iterations {st}", flush=True)
-        out[name] = dict(setup_s=setup, **st,
+        enqueue = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            enqueue.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+        enq_ms = float(np.median(enqueue))
+        print(f"{name}: the host enqueues a run in {enq_ms:.3f} ms (median "
+              f"of 3)", flush=True)
+        out[name] = dict(setup_s=setup, **st, enqueue_ms=enq_ms,
                          **trace(name, kernel, per_run, run, args.reps))
     print(json.dumps(out))
 

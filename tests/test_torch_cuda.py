@@ -887,31 +887,84 @@ def _k3_args(p, c, x0):
     (cartpole, 4, 1, 5.0, {}),
     (cartpole, 4, 1, 5.0, dict(check_termination=4)),
     (cartpole, 4, 1, 5.0, dict(en_state_bound=True)),
+    (cartpole, 4, 1, 5.0, dict(en_state_bound=True, check_termination=4,
+                               max_iter=102)),
+    (cartpole, 4, 1, 0.5, dict(en_input_bound=False, max_iter=30)),
+    (cartpole, 4, 1, 5.0, dict(rho="float")),
     (quadrotor, 12, 4, 0.5, dict(max_iter=500)),
-], ids=["ct1", "ct4", "state-bounded", "quadrotor"])
+    (quadrotor, 12, 4, 0.5, dict(check_termination=4, max_iter=302,
+                                 rho="float")),
+], ids=["ct1", "ct4", "state-bounded", "state-bounded-ct4",
+        "no-input-bound", "rho-float", "quadrotor", "quadrotor-ct4"])
 def test_stage_kernel_matches_plain_version(dev, model, nx, nu, ub, kw):
-    """K3 vs plain on 1000 lanes (a ragged last tile); under the state
-    bound the cart position binds at 0.3."""
+    """K3 vs plain on 1,001 lanes (a ragged last tile for every lane group
+    up to 8) at the lane group the plan takes for the shape; under the
+    state bound the cart position binds at 0.3.  One launch, results in
+    the returned layout; rho as the cache's 0-d CUDA tensor or as a float
+    (the same results); a max_iter that is no multiple of the check
+    interval; without the input bound |u| leaves it."""
+    kw = dict(kw)
+    rho_kind = kw.pop("rho", "tensor")
     bounded = kw.get("en_state_bound", False)
     p, c, _ = _plant(model, ub, dev, np.array([0.3, 1e17, 1e17, 1e17])
                      if bounded else None)
-    x0 = _x0(1000, nx, 0, 0.5 if nx == 4 else 0.3, dev)
+    x0 = _x0(1001, nx, 0, 0.5 if nx == 4 else 0.3, dev)
     if bounded:
         x0 = x0 * torch.tensor([0.5, 2.0, 1.0, 1.0], device=dev)
     full = dict(nx=nx, nu=nu, N=N, max_iter=100, abs_pri_tol=1e-3,
                 abs_dua_tol=1e-3, en_state_bound=False, en_input_bound=True,
                 check_termination=1)
     full.update(kw)
+    plan = K3.fused_stage_plan(nx, nu, N, full["en_state_bound"], 1001,
+                               torch.cuda.get_device_properties(dev)
+                               .multi_processor_count)
+    assert plan.group == {4: 1, 12: 4}[nx] and plan.registers
+    args = _k3_args(p, c, x0)
+    if rho_kind == "float":
+        args = args[:5] + (float(c.rho),) + args[6:]
     before = K3.fused_cuda.launches
-    k = K3.fused_cuda(*_k3_args(p, c, x0), **full)
-    r = K3.fused_reference(*_k3_args(p, c, x0), **full)
+    k = K3.fused_cuda(*args, **full)
     torch.cuda.synchronize()
     assert K3.fused_cuda.launches == before + 1
+    r = K3.fused_reference(*args, **full)
+    assert k[0].shape == (1001, N, nx) and k[1].shape == (1001, N - 1, nu)
+    assert k[0].is_contiguous() and k[1].is_contiguous()
     _agree(k, r)
+    if rho_kind == "float":  # the same solve as with rho on the card
+        t = K3.fused_cuda(*_k3_args(p, c, x0), **full)
+        assert all(torch.equal(a, b) for a, b in zip(k, t))
     if bounded:
         assert float(k[0][..., 0].abs().max()) == pytest.approx(0.3, abs=1e-7)
+    if not full["en_input_bound"]:
+        assert float(k[1].abs().max()) > ub
+    ct = full["check_termination"]
     lost = k[3] == 0
     assert bool((k[2][lost] == full["max_iter"]).all())
+    assert bool((k[2][~lost] % ct == 0).all())
+
+
+def test_stage_kernel_takes_lanes_from_its_queue(dev):
+    """More quadrotor lanes than the card holds at once (64 an SM at G = 4):
+    the groups whose lanes are done take the rest from the launch's queue.
+    The same results as the plain version, and launch after launch (each
+    launch leaves its queue at zero; more launches than queue slots)."""
+    p, c, _ = _plant(quadrotor, 0.5, dev)
+    x0 = _x0(12001, 12, 5, 0.3, dev)
+    full = dict(nx=12, nu=4, N=N, max_iter=150, abs_pri_tol=1e-3,
+                abs_dua_tol=1e-3, en_state_bound=False, en_input_bound=True,
+                check_termination=1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = K3.fused_stage_plan(12, 4, N, False, 12001, sms)
+    occ = K3.stage_occupancy(plan, 12, 4, False)
+    assert occ["blocks_per_sm"] * plan.tile * sms < 12001
+    k = K3.fused_cuda(*_k3_args(p, c, x0), **full)
+    _agree(k, K3.fused_reference(*_k3_args(p, c, x0), **full))
+    small = x0[:300].contiguous()
+    first = K3.fused_cuda(*_k3_args(p, c, small), **full)
+    for _ in range(70):
+        again = K3.fused_cuda(*_k3_args(p, c, small), **full)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(torch.equal(a[:300], b) for a, b in zip(k, first))
 
 
 @pytest.mark.parametrize("case", ["rocket-6x3", "generic-5x2",
@@ -980,6 +1033,15 @@ def test_stage_kernel_refuses_what_it_does_not_take(dev):
         fn(*_k3_args(p, c, x0.double()))
     with pytest.raises(ValueError, match="contiguous"):
         fn(*_k3_args(p, c, x0.T.contiguous().T))
+    # every input is read as it lies: a strided matrix is refused, not copied
+    args = list(_k3_args(p, c, x0))
+    args[8] = c.AmBKt.T.contiguous().T
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(*args)
+    args = list(_k3_args(p, c, x0))
+    args[5] = c.rho.double()
+    with pytest.raises(TypeError, match="float32"):
+        fn(*args)
 
 
 def test_fused_mpc_loop_runs_through_the_kernel(dev):

@@ -3,8 +3,8 @@ JAX ``make_fused_solver`` run in Pallas interpret mode, in float32: equal
 per-lane iteration counts and ``solved`` flags, states and controls within
 1e-5 on lanes both solve (fp32 sums taken in another order; nothing else
 differs).  Also against the port's own reference-ordered ``solve_batch``,
-and the Python side of the kernel's launch: the packed constants and the
-tile plan."""
+and the Python side of the kernel's launch: the plan (lane group, tile,
+shared memory) and the names of the kernel's variants."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -193,59 +193,96 @@ def test_input_bound_can_be_switched_off():
 @pytest.mark.parametrize("nx,nu,N,state_bound", [
     (4, 1, 20, False), (4, 1, 20, True), (6, 3, 10, False),
     (12, 4, 20, False), (5, 2, 7, True)])
-def test_packed_constants_follow_the_kernels_layout(nx, nu, N, state_bound):
-    """Every section starts on a multiple of 4 floats, a matrix is stored
-    transposed with its rows padded to 4 (where it has at least 4), and the
-    buffer's size is ``consts_size``'s."""
-    rng = np.random.default_rng(0)
-    t = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
-    A, B, f, Qd, Rd = t(nx, nx), t(nx, nu), t(nx), t(nx), t(nu)
-    K, Quu, Am, Pinf = t(nu, nx), t(nu, nu), t(nx, nx), t(nx, nx)
-    xmin, xmax, umin, umax = t(N, nx), t(N, nx), t(N - 1, nu), t(N - 1, nu)
-    Xref, Uref = t(N, nx), t(N - 1, nu)
-    buf = K3.pack_consts(A, B, f, Qd, Rd, 2.5, K, Quu, Am, Pinf, xmin, xmax,
-                         umin, umax, Xref, Uref, en_state_bound=state_bound)
-    assert buf.numel() == K3.consts_size(nx, nu, N, state_bound)
-    assert buf.numel() % 4 == 0 and buf[0] == 2.5
-    pad = K3._pad4
-
-    def take(off, M):  # M (m, n) from its kernel layout at ``off``
-        m, n = M.shape
-        blk = buf[off:off + n * pad(m)].reshape(n, pad(m))
-        assert torch.equal(blk[:, :m].T, M)
-        assert not blk[:, m:].any()
-        return off + -(-n * pad(m) // 4) * 4
-
-    off = 4
-    for M in (K, A, B, B.T, Quu, Am, K.T):
-        off = take(off, M)
-    vectors = [f, -(Pinf.T @ Xref[-1]), -(Xref * Qd), -(Uref * Rd), umin,
-               umax] + ([xmin, xmax] if state_bound else [])
-    for vec in vectors:
-        flat = vec.reshape(-1)
-        assert torch.equal(buf[off:off + flat.numel()], flat)
-        off += -(-flat.numel() // 4) * 4
-    assert off == buf.numel()
+def test_stage_plan_follows_the_kernels_layout(nx, nu, N, state_bound):
+    """The launch layout at each shape: the lane group and the matrices'
+    place of the variant the build holds (the generic one for 5 x 2), whole
+    warps of threads, the shared memory the kernel's layout needs (per-stage
+    terms, the generic variant's matrices with rows padded to an odd
+    stride, each lane's workspace at a stride that puts a warp's threads on
+    32 banks), two blocks an SM where a warp of lanes allows it."""
+    for batch in (1, 37, 4096, 65536):
+        plan = K3.fused_stage_plan(nx, nu, N, state_bound, batch, 132)
+        G, regs = K3.VARIANTS.get((nx, nu), K3.GENERIC)
+        assert (plan.group, plan.registers) == (G, regs)
+        assert plan.threads == plan.tile * G and plan.threads % 32 == 0
+        assert 32 <= plan.threads <= K3.MAX_THREADS
+        ls = K3.lane_stride(plan.tile, G)
+        assert ls >= plan.tile and ls % 32 == (32 // G) % 32
+        # a warp's G threads a lane, each on its own row: 32 banks
+        banks = {(t * ls + lane) % 32 for t in range(G)
+                 for lane in range(32 // G)}
+        assert len(banks) == 32
+        sx, su = N * nx, (N - 1) * nu
+        stage = sx + 3 * su + (2 * sx if state_bound else 0)
+        lx, lu = nx | 1, nu | 1
+        mats = 0 if regs else nx * (2 * lx + 2 * lu) + nu * (2 * lx + lu)
+        per_lane = (2 if state_bound else 1) * sx + 3 * su
+        assert plan.smem == 4 * (stage + mats + per_lane * ls)
+        if plan.threads > 32:
+            assert 2 * plan.smem <= K3.SMEM_PER_BLOCK
+            assert -(-batch // plan.tile) >= 132
 
 
 def test_tile_plan():
-    """Two blocks an SM where a 32-lane tile allows it, tiles of whole warps,
-    halved until the grid covers the SMs; the shared memory is the constants
-    plus each lane's v, z, y, d (and g under a state bound)."""
-    tile, smem = K3.fused_stage_plan(4, 1, 20, False, 65536, 132)
-    assert tile == 128
-    assert smem == 4 * (K3.consts_size(4, 1, 20, False) + 137 * 128)
+    """The lane group of each plant shape, a block of MAX_THREADS threads
+    halved until the grid covers the SMs (never below one warp), and the two
+    refusals."""
+    plan = K3.fused_stage_plan(4, 1, 20, False, 65536, 132)
+    assert plan == K3.StagePlan(1, 128, 128, 4 * (137 + 137 * 128), True)
     assert K3.lane_floats(4, 1, 20, True) == 217
     assert K3.lane_floats(12, 4, 20, False) == 468
     assert K3.lane_floats(12, 4, 20, True) == 708
-    tile_q, smem_q = K3.fused_stage_plan(12, 4, 20, False, 16384, 132)
-    assert tile_q == 32 and 2 * smem_q <= K3.SMEM_PER_BLOCK
-    assert K3.fused_stage_plan(4, 1, 20, False, 512, 132)[0] == 32
-    assert K3.fused_stage_plan(4, 1, 20, False, 132 * 64, 132)[0] == 64
+    q = K3.fused_stage_plan(12, 4, 20, False, 16384, 132)
+    assert (q.group, q.tile, q.threads) == (4, 32, 128) and q.registers
+    assert q.smem == 4 * (240 + 3 * 76 + 468 * 40)
+    assert K3.fused_stage_plan(4, 1, 20, False, 512, 132).tile == 32
+    assert K3.fused_stage_plan(4, 1, 20, False, 132 * 64, 132).tile == 64
+    assert K3.fused_stage_plan(12, 4, 20, False, 1000, 132).tile == 8
+    # the generic variant: G = 4, the matrices in shared memory beside the
+    # per-stage terms
+    gen = K3.fused_stage_plan(5, 2, 20, False, 16384, 132)
+    assert (gen.group, gen.tile, gen.threads, gen.registers) == (
+        4, 32, 128, False)
+    assert gen.smem == 4 * (K3.stage_floats(5, 2, 20, False)
+                            + K3.matrix_floats(5, 2)
+                            + K3.lane_floats(5, 2, 20, False) * 40)
     with pytest.raises(ValueError, match="nx, nu <="):
         K3.fused_stage_plan(17, 1, 20, False, 64, 132)
     with pytest.raises(ValueError, match="no room"):
         K3.fused_stage_plan(16, 16, 200, True, 64, 132)
+
+
+@pytest.mark.parametrize("model", [cartpole, quadrotor, rocket])
+def test_cache_is_row_major(model):
+    """The kernel reads the cache's matrices as they are and refuses a
+    strided one, so ``precompute_cache`` returns them contiguous (LAPACK's
+    solve and inverse give column-major results)."""
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    f32 = dict(dtype=torch.float32)
+    A, B = torch.as_tensor(model.A, **f32), torch.as_tensor(model.B, **f32)
+    c = precompute_cache(A, B, torch.as_tensor(model.Q_DIAG + 1.0, **f32),
+                         torch.as_tensor(model.R_DIAG + 1.0, **f32), 1.0)
+    for t in (c.Kinf, c.Pinf, c.Quu_inv, c.AmBKt):
+        assert t.is_contiguous()
+    torch.testing.assert_close(c.AmBKt, (A - B @ c.Kinf).T, rtol=0, atol=0)
+
+
+def test_variant_labels_and_ptxas_usage():
+    """The names chip_smoke.py prints for each K3 instance, and the
+    registers and spills read from ``-Xptxas -v``."""
+    from tinympc_julia_tpu_torch.ops.cuda._build import ptxas_usage
+    name = ("_ZN12_GLOBAL__N_118fused_stage_kernelILi12ELi4ELi4ELb1ELb1EEEv"
+            "NS_6ParamsE")
+    log = (f"ptxas info    : Compiling entry function '{name}' for "
+           f"'sm_90a'\nptxas info    : Function properties for {name}\n"
+           "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill "
+           "loads\nptxas info    : Used 168 registers, used 0 barriers\n")
+    assert ptxas_usage(log) == {name: (168, 8, 4, 4)}
+    assert K3.variant_label(name) == "12x4, G=4, registers, free"
+    assert K3.variant_label(name.replace("ILi12ELi4ELi4ELb1ELb1E",
+                                         "ILi0ELi0ELi4ELb0ELb0E")) == (
+        "generic, G=4, shared, box")
+    assert K3.variant_label("_Z3foov") is None
 
 
 def test_factory_and_wrappers_refuse_what_they_do_not_take():

@@ -13,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -72,3 +73,33 @@ def load_libraries(names) -> list[BuiltLibrary]:
     names = list(names)
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         return list(pool.map(load_library, names))
+
+
+class KernelUsage(NamedTuple):
+    registers: int
+    stack_bytes: int
+    spill_stores: int
+    spill_loads: int
+
+
+def ptxas_usage(log: str) -> dict:
+    """Each kernel's registers, stack frame and spill bytes, by mangled name,
+    from ``-Xptxas -v`` output (``BuiltLibrary.log``; empty when the library
+    was loaded as built)."""
+    out, name, frame = {}, None, (0, 0, 0)
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name] = KernelUsage(int(m.group(1)), *frame)
+            frame = (0, 0, 0)
+    return out

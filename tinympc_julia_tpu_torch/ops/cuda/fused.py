@@ -28,6 +28,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
+from typing import NamedTuple
 
 import torch
 
@@ -37,22 +39,24 @@ from ._build import load_library
 # The launch layout is decided here and passed to the kernel, which checks
 # it: shared memory one block may use on sm_90 (opt-in maximum, bytes), the
 # widest nx, nu of the kernel's generic variant (csrc/fused_stage.cu kMaxDim)
-# and the largest tile.
+# and the threads of a block the plan starts from.
 SMEM_PER_BLOCK = 232448
 MAX_DIM = 16
-MAX_TILE = 128
+MAX_THREADS = 128
+
+# The variants csrc/fused_stage.cu builds (its K3_VARIANTS): (nx, nu) ->
+# (lane group, the matrices' rows in registers); any other shape up to
+# MAX_DIM runs the generic variant, GENERIC.
+VARIANTS = {(4, 1): (1, True), (6, 3): (2, True), (12, 4): (4, True)}
+GENERIC = (4, False)
 
 
-def _pad4(m: int) -> int:
-    """Padded row count of a kernel-layout matrix with m output rows."""
-    return -(-m // 4) * 4 if m >= 4 else m
-
-
-def _kernel_matrix(M: torch.Tensor) -> torch.Tensor:
-    """M (m, n) in the kernel layout: transposed, each of the n rows padded
-    with zeros to ``_pad4(m)`` floats, flattened."""
-    m = M.shape[0]
-    return torch.nn.functional.pad(M.T, (0, _pad4(m) - m)).reshape(-1)
+class StagePlan(NamedTuple):
+    group: int       # threads a lane
+    tile: int        # lanes a block
+    threads: int     # tile * group
+    smem: int        # dynamic shared memory a block, bytes
+    registers: bool  # the matrices' rows in registers (else shared memory)
 
 
 def reference_terms(Qd, Rd, Pinf, Xref, Uref):
@@ -61,70 +65,63 @@ def reference_terms(Qd, Rd, Pinf, Xref, Uref):
     return -(Xref * Qd), -(Uref * Rd), -(Pinf.T @ Xref[-1])
 
 
-@full_fp32_matmul()
-def pack_consts(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min,
-                x_max, u_min, u_max, Xref, Uref, *,
-                en_state_bound: bool) -> torch.Tensor:
-    """The kernel's packed constants (csrc/fused_stage.cu consts_layout):
-    rho; K, A, B, B', Quu, AmBKt, K' in the kernel layout; f, pNref, qref,
-    rref, u_min, u_max and, with a state bound, x_min, x_max; every section
-    starting on a multiple of 4 floats.  Made on the tensors' device."""
-    qref, rref, pNref = reference_terms(Qd, Rd, Pinf, Xref, Uref)
-    sections = [torch.as_tensor(rho, dtype=A.dtype, device=A.device)
-                .reshape(1), _kernel_matrix(Kinf),
-                _kernel_matrix(A), _kernel_matrix(B), _kernel_matrix(B.T),
-                _kernel_matrix(Quu_inv), _kernel_matrix(AmBKt),
-                _kernel_matrix(Kinf.T), f, pNref, qref, rref, u_min, u_max]
-    if en_state_bound:
-        sections += [x_min, x_max]
-    pad = A.new_zeros(3)
-    parts = []
-    for s in sections:
-        parts += [s.reshape(-1), pad[:-s.numel() % 4]]
-    return torch.cat(parts)
-
-
-def consts_size(nx: int, nu: int, N: int, en_state_bound: bool) -> int:
-    """Floats in ``pack_consts``'s buffer."""
-    sx, su = N * nx, (N - 1) * nu
-    sizes = [1, nx * _pad4(nu), nx * _pad4(nx), nu * _pad4(nx),
-             nx * _pad4(nu), nu * _pad4(nu), nx * _pad4(nx), nu * _pad4(nx),
-             nx, nx, sx, su, su, su] + ([sx, sx] if en_state_bound else [])
-    return sum(-(-s // 4) * 4 for s in sizes)
-
-
 def lane_floats(nx: int, nu: int, N: int, en_state_bound: bool) -> int:
     """What a lane keeps across iterations: the slacks v, z, the duals y
     (and g under a state bound) and the feedforward d."""
     return (2 if en_state_bound else 1) * N * nx + 3 * (N - 1) * nu
 
 
-def fused_stage_plan(nx: int, nu: int, N: int, en_state_bound: bool,
-                     batch: int, sm_count: int) -> tuple[int, int]:
-    """(lanes per block, dynamic shared memory in bytes).
+def stage_floats(nx: int, nu: int, N: int, en_state_bound: bool) -> int:
+    """A block's per-stage terms: qref, rref, u_min, u_max (and x_min,
+    x_max under a state bound)."""
+    sx, su = N * nx, (N - 1) * nu
+    return sx + 3 * su + (2 * sx if en_state_bound else 0)
 
-    The largest tile of 128, 64 or 32 lanes of which two blocks fit an SM
-    (one, where two do not), halved while the grid would leave SMs without a
-    block."""
+
+def matrix_floats(nx: int, nu: int) -> int:
+    """The generic variant's matrices in shared memory: A, AmBKt, B, K'
+    (nx rows), K, B', Quu (nu rows), each row padded to an odd stride."""
+    lx, lu = nx | 1, nu | 1
+    return nx * (2 * lx + 2 * lu) + nu * (2 * lx + lu)
+
+
+def lane_stride(tile: int, group: int) -> int:
+    """The workspace's lane stride: ``tile`` rounded up to be = 32 / group
+    (mod 32), so that a warp's threads, each on its own row, fall on 32
+    different banks."""
+    return tile + (32 // group - tile) % 32
+
+
+def fused_stage_plan(nx: int, nu: int, N: int, en_state_bound: bool,
+                     batch: int, sm_count: int) -> StagePlan:
+    """The launch layout of kernel K3.
+
+    The lane group and where the matrices live come from ``VARIANTS``.  The
+    tile is ``MAX_THREADS / group`` lanes, halved while two blocks do not
+    fit an SM's shared memory and while the grid would leave SMs without a
+    block, but never below one warp of threads."""
     if nx > MAX_DIM or nu > MAX_DIM:
         raise ValueError(f"the fused per-stage kernel takes nx, nu <= "
                          f"{MAX_DIM}; got nx={nx}, nu={nu}")
-    consts = consts_size(nx, nu, N, en_state_bound)
+    group, registers = VARIANTS.get((nx, nu), GENERIC)
+    fixed = stage_floats(nx, nu, N, en_state_bound) + (
+        0 if registers else matrix_floats(nx, nu))
     per_lane = lane_floats(nx, nu, N, en_state_bound)
 
     def smem(tile):
-        return 4 * (consts + per_lane * tile)
+        return 4 * (fixed + per_lane * lane_stride(tile, group))
 
-    tile = MAX_TILE
-    while tile > 32 and 2 * smem(tile) > SMEM_PER_BLOCK:
+    warp = 32 // group
+    tile = max(MAX_THREADS // group, warp)
+    while tile > warp and 2 * smem(tile) > SMEM_PER_BLOCK:
         tile //= 2
     if smem(tile) > SMEM_PER_BLOCK:
         raise ValueError(f"fused per-stage kernel: a horizon of {N} stages "
                          f"of nx={nx}, nu={nu} leaves no room for a warp of "
                          "lanes in shared memory")
-    while tile > 32 and -(-batch // tile) < sm_count:
+    while tile > warp and -(-batch // tile) < sm_count:
         tile //= 2
-    return tile, smem(tile)
+    return StagePlan(group, tile, tile * group, smem(tile), registers)
 
 
 def _validate(args, nx, nu, N):
@@ -250,16 +247,21 @@ def fused_reference(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min,
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLT = ctypes.c_float
-_ARGTYPES = ([_PTR, _INT] + [_PTR] * 5 + [_INT] * 6 + [_FLT] * 2
-             + [_INT] * 4 + [_PTR])
+# A, B, f, Qd, Rd, rho (pointer, value), Kinf, Quu, AmBKt, Pinf, the bounds,
+# the references, x0, the four outputs, then the sizes, settings and layout
+_ARGTYPES = ([_PTR] * 6 + [_FLT] + [_PTR] * 15 + [_INT] * 6 + [_FLT] * 2
+             + [_INT] * 6 + [_PTR])
+_OCC_ARGTYPES = [_INT] * 7 + [ctypes.POINTER(_INT)] * 3
 
 
 @functools.cache
-def _kernel_fn():
-    fn = load_library("fused_stage").lib.tinympc_fused_stage
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+def _library():
+    lib = load_library("fused_stage").lib
+    lib.tinympc_fused_stage.argtypes = _ARGTYPES
+    lib.tinympc_fused_stage.restype = ctypes.c_int
+    lib.tinympc_fused_stage_occupancy.argtypes = _OCC_ARGTYPES
+    lib.tinympc_fused_stage_occupancy.restype = ctypes.c_int
+    return lib
 
 
 @functools.cache
@@ -267,7 +269,7 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _check_cuda_inputs(tensors, x0s):
+def _check_cuda_inputs(tensors):
     for t in tensors:
         if not t.is_cuda:
             raise ValueError("the fused per-stage kernel takes CUDA tensors "
@@ -275,8 +277,42 @@ def _check_cuda_inputs(tensors, x0s):
         if t.dtype != torch.float32:
             raise TypeError(f"the fused per-stage kernel is float32; got "
                             f"{t.dtype}")
-    if not x0s.is_contiguous():
-        raise ValueError("x0s must be contiguous")
+        if not t.is_contiguous():
+            raise ValueError(f"the fused per-stage kernel takes contiguous "
+                             f"tensors; got strides {t.stride()} for shape "
+                             f"{tuple(t.shape)}")
+
+
+def variant_label(mangled: str) -> str | None:
+    """``nx x nu, G, registers|shared, free|box`` of a K3 instance from its
+    mangled name (``fused_stage_kernel<nx, nu, G, regs, state_free>``; nx 0
+    is the generic variant), None for another symbol."""
+    m = re.search(r"fused_stage_kernelI((?:L[ib]\d+E){5})E", mangled)
+    if m is None:
+        return None
+    nx, nu, g, regs, free = (int(v) for v in re.findall(r"L[ib](\d+)E",
+                                                          m.group(1)))
+    shape = f"{nx}x{nu}" if nx else "generic"
+    return (f"{shape}, G={g}, {'registers' if regs else 'shared'}, "
+            f"{'free' if free else 'box'}")
+
+
+def stage_occupancy(plan: StagePlan, nx: int, nu: int,
+                    en_state_bound: bool) -> dict:
+    """What the CUDA runtime says of the variant ``plan`` launches: resident
+    blocks and warps an SM, registers a thread, local (spill) bytes a
+    thread."""
+    blocks, regs, local = _INT(), _INT(), _INT()
+    err = _library().tinympc_fused_stage_occupancy(
+        nx, nu, plan.group, int(plan.registers), int(en_state_bound),
+        plan.tile, plan.smem, ctypes.byref(blocks), ctypes.byref(regs),
+        ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError(f"fused_stage occupancy query failed: CUDA error "
+                           f"{err}")
+    return dict(blocks_per_sm=blocks.value,
+                warps_per_sm=blocks.value * plan.threads // 32,
+                registers=regs.value, local_bytes=local.value)
 
 
 def fused_cuda(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min,
@@ -284,14 +320,14 @@ def fused_cuda(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min,
                abs_pri_tol, abs_dua_tol, en_state_bound, en_input_bound,
                check_termination):
     """Launch kernel K3 (csrc/fused_stage.cu) on CUDA tensors; the arguments
-    and results are those of ``fused_reference``.  Raises on CPU tensors, on
-    any dtype but float32, on a non-contiguous ``x0s``, on nx or nu beyond
-    MAX_DIM, and when the build or the launch fails.  The packed constants
-    are made at every launch.  Counts every launch in ``.launches``."""
-    tensors = _validate((A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf,
-                         x_min, x_max, u_min, u_max, Xref, Uref, x0s), nx, nu,
-                        N)
-    _check_cuda_inputs(tensors, x0s)
+    and results are those of ``fused_reference``.  One launch: the kernel
+    reads the caller's tensors and ``rho`` (a float, or a 0-d tensor read on
+    the card) itself.  Raises on CPU tensors, on any dtype but float32, on a
+    non-contiguous tensor, on nx or nu beyond MAX_DIM, and when the build or
+    the launch fails.  Counts every launch in ``.launches``."""
+    args = (A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min, x_max,
+            u_min, u_max, Xref, Uref, x0s)
+    _check_cuda_inputs(_validate(args, nx, nu, N))
     if check_termination < 1:
         raise ValueError(f"check_termination must be >= 1 (got "
                          f"{check_termination})")
@@ -299,31 +335,31 @@ def fused_cuda(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min,
     if Bsz == 0:
         raise ValueError("empty batch")
     dev = x0s.device
-    tile, smem = fused_stage_plan(nx, nu, N, en_state_bound, Bsz,
-                                  _sm_count(dev))
-    consts = pack_consts(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf,
-                         x_min, x_max, u_min, u_max, Xref, Uref,
-                         en_state_bound=en_state_bound)
-    f32 = dict(dtype=torch.float32, device=dev)
-    xout = torch.empty((N * nx, Bsz), **f32)
-    uout = torch.empty(((N - 1) * nu, Bsz), **f32)
+    plan = fused_stage_plan(nx, nu, N, en_state_bound, Bsz, _sm_count(dev))
+    xs = torch.empty((Bsz, N, nx), dtype=torch.float32, device=dev)
+    us = torch.empty((Bsz, N - 1, nu), dtype=torch.float32, device=dev)
     iters = torch.empty((Bsz,), dtype=torch.int32, device=dev)
     solved = torch.empty((Bsz,), dtype=torch.int32, device=dev)
-
-    fn = _kernel_fn()
+    if isinstance(rho, torch.Tensor):  # read on the card: no host sync
+        rho_ptr, rho_val = rho.data_ptr(), 0.0
+    else:
+        rho_ptr, rho_val = None, float(rho)
+    head = [t.data_ptr() for t in (A, B, f, Qd, Rd)]
+    tail = [t.data_ptr() for t in (Kinf, Quu_inv, AmBKt, Pinf, x_min, x_max,
+                                   u_min, u_max, Xref, Uref, x0s, xs, us,
+                                   iters, solved)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(consts.data_ptr(), consts.numel(), x0s.data_ptr(),
-                 xout.data_ptr(), uout.data_ptr(), iters.data_ptr(),
-                 solved.data_ptr(), nx, nu, N, Bsz, max_iter,
-                 check_termination, abs_pri_tol, abs_dua_tol,
-                 int(en_input_bound), int(en_state_bound), tile, smem, stream)
+        err = _library().tinympc_fused_stage(
+            *head, rho_ptr, rho_val, *tail, nx, nu, N, Bsz, max_iter,
+            check_termination, abs_pri_tol, abs_dua_tol, int(en_input_bound),
+            int(en_state_bound), plan.group, int(plan.registers), plan.tile,
+            plan.smem, stream)
     if err != 0:
         raise RuntimeError(f"fused_stage kernel launch failed: CUDA error "
                            f"{err}")
     fused_cuda.launches += 1
-    return (xout.T.reshape(Bsz, N, nx), uout.T.reshape(Bsz, N - 1, nu),
-            iters, solved)
+    return xs, us, iters, solved
 
 
 fused_cuda.launches = 0

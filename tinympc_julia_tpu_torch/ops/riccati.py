@@ -51,7 +51,9 @@ def _cache_terms(A, B, Q_work_diag, R_work_diag, rho, *, max_iter=1000,
                                      tol=tol)
     Quu_inv = torch.linalg.inv(torch.diag(R1d) + B.T @ Pinf @ B)
     AmBKt = (A - B @ Kinf).T
-    return Kinf, Pinf, Quu_inv, AmBKt
+    # row-major, so that a consumer reads them as they lie (LAPACK returns
+    # Kinf and Quu_inv column-major, and AmBKt is a transposed view)
+    return tuple(t.contiguous() for t in (Kinf, Pinf, Quu_inv, AmBKt))
 
 
 @full_fp32_matmul()
