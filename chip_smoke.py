@@ -157,6 +157,35 @@ Phases (one line each; any failure exits non-zero):
      loop on the CPU (equal iteration counts, controls within 1e-6, equal
      final rhos), and run_mpc_loop_condensed with the rocket's moving
      references (15 steps) against run_mpc_loop (equal counts, 1e-9);
+ 22. the bucketed exact-rebuild pipeline (parallel.rebuild) on the mis-set
+     cartpole of the JAX bench row misset_rho_adaptive: B = 4,096, rho0 =
+     0.01, |u| <= 5, |x_0| <= 2, x0 from seed 5, buckets over [1e-4, 1e4]
+     (5), 50 fixed-rho0 iterations on K1, the rho prediction, 450 more on
+     K1d over 5 x 4,096 slots (pad slots zero-filled): convergence (>= 95%
+     and more than the control), mean iterations, rho span and overflow; the
+     merged per-lane results against the same pipeline on the plain version;
+     pipeline kernel vs plain (median of 3) beside the fixed-rho0 control
+     (K1, 500 iterations); the phase-2 launch alone vs plain, with its tile
+     iterations and its tiles of pad slots only; the standard per-update
+     rebuild (adaptive_rho_rebuild on the standard path, a Riccati fixed
+     point per lane update) on 16 lanes as a quality reference;
+ 23. the same on the mis-set quadrotor (misset_rho_quadrotor): rho0 =
+     0.05, |u| <= 0.5, seed 1, buckets over [1e-3, 1e3] (4), phase 2 on K1d
+     over 4 x 4,096 slots with the map streamed; no standard reference;
+ 24. the requantized adaptive continuation (the JAX quadrotor_adaptive
+     row's phase 2, parallel.pipeline.requantized_adaptive_solve) on phase
+     11's 16,384 lanes: K2's bulk pass, each straggler's rho snapped onto
+     exact caches at rho0 + {0, 1, 2}, 2,048 slots a bucket, K1d with a
+     256-iteration reduced head (K1c) for up to 2,500 iterations: >= 99%
+     converged, the merged results against the plain pipeline, times
+     (median of 3) beside phase 11's two-phase pipeline and the same
+     pipeline without the head; the continuations alone from one bulk carry:
+     K2's and the requantized launch with and without its head;
+ 25. the long horizon in float64: the cartpole at N = 1,537, whose condensed
+     maps exceed the 256 MiB budget, so solve() and solve_batch("auto")
+     take the chunked recursions (chunks of 128 stages): card against CPU
+     (equal counts, controls within 1e-9), and on the card the associative
+     scans and the chunked path against the sequential recursions;
 then the kernels' JSON line, the card's name and power limit, and the
 result line.  K1's launches are counted over phases 5 and 6, K1e's (the
 launches that run projections) over phase 8, K2's over phase 11 (its warm
@@ -165,7 +194,9 @@ launches over more than one group) and K1c's (those with reduced iterations)
 over the first runs of the two sweeps in phases 16 and 17, the K2 grid's over
 the GroupedBatchSolver calls of phase 15, K3's over the two full-width
 solves of phase 19, the carry chain's (K1 launched warm from a carry) over
-the MPC loop of phase 20, each from 0 just before the phase
+the MPC loop of phase 20, the rebuild's K1d rows over the first pipeline
+run of phases 22 and 23 and the requantized continuation's over the first
+run of phase 24, each from 0 just before the phase
 and on its first, untimed runs.  The agreement bar
 of every kernel-vs-plain comparison: identical per-lane iteration counts on
 >= 99% of lanes (fp32 sums in another order may move a lane that sits on the
@@ -2003,6 +2034,444 @@ def stage_and_loop_phases(card):
     return rows
 
 
+def rebuild_and_horizon_phases(card):
+    """Phases 22-25: the bucketed exact-rebuild pipeline on the mis-set
+    cartpole and quadrotor, the requantized adaptive continuation, and the
+    long-horizon recursions in float64; the rows of the rebuild's and the
+    requantized continuation's K1d launches for the kernels line."""
+    from tinympc_julia_tpu_torch import Settings, TinyMPCSolver, make_problem
+    from tinympc_julia_tpu_torch.models import cartpole, quadrotor
+    from tinympc_julia_tpu_torch.ops.condensed import (
+        AUTO_CONDENSED_BUDGET_BYTES, auto_chunk_size, auto_uses_condensed,
+        build_condensed, build_condensed_taylor)
+    from tinympc_julia_tpu_torch.ops.cuda.adaptive_kernel import (
+        AdaptiveFusedCarry, condensed_adaptive_cuda,
+        condensed_adaptive_reference)
+    from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
+        FusedCarry, condensed_fused_cuda, condensed_fused_reference,
+        make_condensed_fused_solver, tile_iterations)
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    from tinympc_julia_tpu_torch.parallel import batch as batch_mod
+    from tinympc_julia_tpu_torch.parallel.pipeline import (
+        ADAPTIVE_BUDGETS, REQUANT_HEAD, requantized_adaptive_solve,
+        requantized_buckets, two_phase_adaptive_solve)
+    from tinympc_julia_tpu_torch.parallel.rebuild import (
+        bucket_maps, compact_members, default_bucket_rhos,
+        make_bucketed_rebuild, predict_rho_bucketed)
+    from tinympc_julia_tpu_torch.types import init_state
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    src = "tinympc_julia_tpu_torch/csrc/condensed_fused.cu"
+    jax_k1 = "tinympc_julia_tpu/ops/pallas/condensed_kernel.py"
+    rows = []
+
+    def zero_counts():
+        for fn in (condensed_fused_cuda, condensed_adaptive_cuda):
+            for name in ("launches", "grouped_launches", "reduced_launches"):
+                setattr(fn, name, 0)
+
+    def median_ms(fn, reps=DEEP_REPS):
+        fn()
+        return float(np.median([event_ms(fn) for _ in range(reps)]))
+
+    def launch_bound(sw, nx, counts, head, lanes, *tensors):
+        """(ms, by) of a warm K1 launch whose lanes ran ``counts``
+        iterations: one T12 product an iteration (the first ``head - 1``
+        reduced, at the bf16 rate) and the rollout constant once a lane."""
+        n = counts.to(torch.int64)
+        n_lo = int(torch.clamp(n, max=max(head - 1, 0)).sum()) if head else 0
+        n_hi = int(n.sum()) - n_lo
+        t_ops = (2.0 * sw * sw * (n_lo / PEAK_BF16 + n_hi / PEAK_FP32)
+                 + 2.0 * sw * nx * lanes / PEAK_FP32)
+        t_bytes = tensor_bytes(*tensors) / PEAK_BYTES
+        return (1e3 * max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    def rebuild_phase(phase, name, mod, rho0, ub, x_bound, seed, scale, span,
+                      ref_lanes):
+        N = mod.HORIZON
+        kw = {}
+        if x_bound is not None:
+            xb = np.tile(x_bound, (N, 1))
+            kw = dict(x_min=-xb, x_max=xb)
+        p = make_problem(mod.A, mod.B, np.diag(mod.Q_DIAG),
+                         np.diag(mod.R_DIAG), rho0, N, u_min=-ub, u_max=ub,
+                         dtype=f32, device=dev, **kw)
+        c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+        s = Settings(max_iter=500, en_state_bound=x_bound is not None,
+                     en_input_bound=True, adaptive_rho_min=span[0],
+                     adaptive_rho_max=span[1])
+        B = B_CHECK
+        x0 = torch.as_tensor(np.random.default_rng(seed).uniform(
+            -1, 1, size=(B, p.nx)) * scale, dtype=f32, device=dev)
+        t0 = time.perf_counter()
+        maps = build_condensed(p, c)
+        rhos = default_bucket_rhos(*span)
+        G = len(rhos)
+        bmaps = bucket_maps(p, c, rhos)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        pkw = dict(phase1_iters=50, straggler_slots=B, phase2_iters=450,
+                   maps=maps, bmaps=bmaps)
+        pipe = make_bucketed_rebuild(p, c, s, **pkw)
+        pipe_p = make_bucketed_rebuild(
+            p, c, s, fused=condensed_fused_reference, **pkw)
+        zero_counts()
+        out = pipe.solve(x0)
+        torch.cuda.synchronize()
+        n_launch = condensed_fused_cuda.launches
+        n_grouped = condensed_fused_cuda.grouped_launches
+        check(n_launch == 2 and n_grouped == 1,
+              f"phase {phase}: the pipeline launched K1 {n_launch} times, "
+              f"{n_grouped} over the buckets (expected 2 and 1)")
+        out_p = pipe_p.solve(x0)
+        xs, us, it, ok, rho, overflow = out
+        n_bkt = int(ok.sum())
+        err = agreement(f"phase {phase} {name}: bucketed rebuild, merged "
+                        "per-lane results vs the plain pipeline", out[:4],
+                        out_p[:4], min_solved=int(0.95 * B))
+        same = it == out_p[2]
+        rho_same = float((rho == out_p[4])[same].float().mean())
+        check(rho_same >= ITERS_AGREE, f"phase {phase}: lane rho equal on "
+              f"{rho_same:.4f} of lanes with equal counts")
+        check(not bool(overflow.any()) and torch.equal(overflow, out_p[5]),
+              f"phase {phase}: overflow {overflow.tolist()}")
+        check(bool(torch.isfinite(us).all()) and bool(torch.isfinite(xs).all())
+              and float(us.abs().max()) <= ub + 1e-5,
+              f"phase {phase}: non-finite controls or |u| beyond {ub}")
+        # the fixed-rho0 control: K1, 500 iterations
+        fix = make_condensed_fused_solver(
+            p.nx, p.nu, N, max_iter=500, en_state_bound=s.en_state_bound,
+            en_input_bound=True)
+        fargs = (maps, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max, x0)
+        out_f = fix(*fargs)
+        n_fix = int(out_f[3].sum())
+        check(n_bkt > n_fix and n_bkt >= 0.95 * B,
+              f"phase {phase}: the pipeline converged {n_bkt} of {B}, the "
+              f"fixed-rho0 control {n_fix}")
+        t_pipe, t_pipe_p = paired_ms(lambda: pipe.solve(x0),
+                                     lambda: pipe_p.solve(x0),
+                                     reps=DEEP_REPS)
+        t_fix = median_ms(lambda: fix(*fargs), reps=5)
+
+        # phase 2's launch alone: K1d over the G buckets' slots, warm from
+        # the kernel's phase-1 carry, compacted as the pipeline does
+        fn1 = make_condensed_fused_solver(
+            p.nx, p.nu, N, max_iter=50, carry_out=True,
+            en_state_bound=s.en_state_bound, en_input_bound=True)
+        _, _, _, ok1, carry = fn1(*fargs)
+        bucket, rho_pred = predict_rho_bucketed(p, s, maps, carry, x0,
+                                                float(c.rho), rhos)
+        m = (ok1 == 0)[None, :] & (bucket[None, :] == torch.arange(
+            G, device=dev)[:, None])
+        idx, counts, valid, _ = compact_members(m, B)
+        gidx = idx.reshape(-1)
+        warm = FusedCarry(*(torch.where(valid[None, :], w[:, gidx], 0.0)
+                            .contiguous() for w in carry))
+        x0s2 = torch.where(valid[:, None], x0[gidx], 0.0).contiguous()
+        brho = torch.tensor(rhos, dtype=f32, device=dev)
+        args2 = (bmaps, brho, p.u_min, p.u_max, p.x_min, p.x_max, x0s2, warm)
+        kw2 = dict(nx=p.nx, nu=p.nu, N=N, max_iter=450, abs_pri_tol=1e-3,
+                   abs_dua_tol=1e-3, en_state_bound=s.en_state_bound,
+                   en_input_bound=True, relaxation_alpha=1.0,
+                   check_termination=1, warm_start=True, carry_out=False,
+                   num_groups=G)
+        f_k = functools.partial(condensed_fused_cuda, *args2, **kw2)
+        f_p = functools.partial(condensed_fused_reference, *args2, **kw2)
+        o_k, o_p = f_k(), f_p()
+        err2 = agreement(f"phase {phase} phase-2 launch (K1d, {G} buckets x "
+                         f"{B} slots, {int(valid.sum())} of them stragglers) "
+                         "vs plain", o_k, o_p, min_solved=0)
+        t_k, t_p = paired_ms(f_k, f_p)
+        sw = bmaps.T12.shape[-2]
+        b2 = launch_bound(sw, p.nx, o_k[2], 0, G * B, bmaps.T12, bmaps.T1,
+                          brho, p.u_min, p.u_max, p.x_min, p.x_max, x0s2,
+                          tuple(warm), o_k)
+        n_tile = tile_iterations(o_k[2], 32, G)
+        pad_tiles = int((valid.reshape(G, -1, 32).sum(dim=2) == 0).sum())
+        print(f"phase {phase} {name}, B={B}, rho0 {rho0}, buckets "
+              f"{[float(f'{r:.6g}') for r in rhos]}: phase-1 stragglers "
+              f"{int((ok1 == 0).sum())} over the buckets "
+              f"{counts.tolist()}, predicted rho span "
+              f"[{rho_pred.min().item():.4g}, {rho_pred.max().item():.4g}]; "
+              f"converged {n_bkt} ({100.0 * n_bkt / B:.2f}%; plain "
+              f"{int(out_p[3].sum())}), fixed-rho0 control (K1, 500 "
+              f"iterations) {n_fix} ({100.0 * n_fix / B:.2f}%), mean "
+              f"iterations {it.float().mean().item():.1f} (control "
+              f"{out_f[2].float().mean().item():.1f}), lane rho span "
+              f"[{rho.min().item():.4g}, {rho.max().item():.4g}], overflow "
+              f"{overflow.tolist()}; set-up (bucket caches and maps) "
+              f"{t_setup:.2f} s; median of {DEEP_REPS}: pipeline kernel "
+              f"{t_pipe:.3f} ms, plain {t_pipe_p:.3f} ms -> "
+              f"{n_bkt / (t_pipe * 1e-3):.0f} solves/s; the control "
+              f"{t_fix:.3f} ms (median of 5) -> {n_fix / (t_fix * 1e-3):.0f} "
+              f"solves/s on {card}", flush=True)
+        print(f"phase {phase} phase-2 launch: kernel {t_k:.3f} ms, plain "
+              f"{t_p:.3f} ms (median of 5), bound {b2[0]:.4f} ms by {b2[1]}; "
+              f"{n_tile} tile iterations ({G * B // 32} tiles, {pad_tiles} of "
+              f"them all pad slots), {32 * n_tile / int(o_k[2].sum()):.3f} x "
+              f"the slots' own, {1e3 * t_k * n_sm / n_tile:.3f} SM-us each; "
+              f"largest count {int(o_k[2].max())}", flush=True)
+        if ref_lanes:
+            # the standard per-update rebuild, a Riccati fixed point per
+            # lane update on the host: a quality reference on a few lanes
+            sa = Settings(max_iter=500, en_state_bound=s.en_state_bound,
+                          en_input_bound=True, adaptive_rho=True,
+                          adaptive_rho_controller="termination",
+                          adaptive_rho_rebuild=True,
+                          adaptive_rho_min=span[0], adaptive_rho_max=span[1])
+            st = batch_mod.set_x0_batch(batch_mod.broadcast_state(
+                init_state(p.nx, p.nu, N, dtype=f32, device=dev), ref_lanes),
+                x0[:ref_lanes])
+            t0 = time.perf_counter()
+            _, ca, sol = batch_mod.solve_batch(p, c, sa, st)
+            t_std = time.perf_counter() - t0
+            both = (sol.solved == 1) & (ok[:ref_lanes] == 1)
+            du = ((sol.u - us[:ref_lanes]).abs().amax(dim=(1, 2))[both]
+                  .max().item() if bool(both.any()) else float("nan"))
+            print(f"phase {phase} quality reference, the standard "
+                  f"per-update rebuild on the first {ref_lanes} lanes: "
+                  f"converged {int(sol.solved.sum())} (the pipeline "
+                  f"{int(ok[:ref_lanes].sum())}), mean iterations "
+                  f"{sol.iter.float().mean().item():.1f} (the pipeline "
+                  f"{it[:ref_lanes].float().mean().item():.1f}), final rho "
+                  f"span [{ca.rho.min().item():.4g}, "
+                  f"{ca.rho.max().item():.4g}], largest |u| difference from "
+                  f"the pipeline on lanes both solved {du:.3e}; "
+                  f"{t_std:.1f} s on the host's clock", flush=True)
+            check(int(sol.solved.sum()) >= 1, f"phase {phase}: the standard "
+                  "rebuild solved no lane")
+        rows.append({
+            "name": f"condensed_fused group grid (K1d), bucketed rebuild "
+                    f"phase 2, {name} {G} buckets x {B} slots",
+            "route": "cuda", "source": src, "replaces": jax_k1 + ":540",
+            "launches": n_grouped, "max_abs_err": max(err, err2),
+            "ms": t_k, "plain_ms": t_p, "bound_ms": b2[0],
+            "bound_by": b2[1], "library_ms": None})
+
+    # -- phase 22: the mis-set cartpole (bench.py's misset_rho_adaptive) ------
+    rebuild_phase(22, "mis-set cartpole", cartpole, 0.01, 5.0,
+                  np.array([2.0, 1e17, 1e17, 1e17]), 5,
+                  np.array([1.8, 1.0, 0.4, 0.5]), (1e-4, 1e4), 16)
+    # -- phase 23: the mis-set quadrotor (bench.py's misset_rho_quadrotor) ----
+    rebuild_phase(23, "mis-set quadrotor", quadrotor, 0.05,
+                  quadrotor.U_HOVER_BOUND, None, 1, 0.3, (1e-3, 1e3), 0)
+
+    # -- phase 24: the requantized adaptive quadrotor ------------------------
+    qN = quadrotor.HORIZON
+    qp = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
+                      np.diag(quadrotor.R_DIAG), quadrotor.RHO, qN,
+                      u_min=-quadrotor.U_HOVER_BOUND,
+                      u_max=quadrotor.U_HOVER_BOUND, dtype=f32, device=dev)
+    qc = precompute_cache(qp.A, qp.B, qp.Q, qp.R, qp.rho_setup)
+    tqa = build_condensed_taylor(qp, qc)
+    x0_a = torch.as_tensor(np.random.default_rng(1).uniform(
+        -0.3, 0.3, size=(B_ADAPT, 12)), dtype=f32, device=dev)
+    rhos, bmaps = requantized_buckets(qp, qc)
+    G = len(rhos)
+    bounds = (qp.u_min, qp.u_max, qp.x_min, qp.x_max)
+    rargs = (tqa, bmaps, rhos, *bounds, x0_a)
+    rkw = dict(nx=12, nu=4, N=qN, straggler_slots=SLOTS_ADAPT)
+    plain = dict(fused_adaptive=condensed_adaptive_reference,
+                 fused=condensed_fused_reference)
+    zero_counts()
+    res = requantized_adaptive_solve(*rargs, **rkw)
+    torch.cuda.synchronize()
+    k2_n = condensed_adaptive_cuda.launches
+    k1_n = condensed_fused_cuda.launches
+    k1d_n = condensed_fused_cuda.grouped_launches
+    k1c_n = condensed_fused_cuda.reduced_launches
+    check(k2_n == 1 and k1_n == 1 and k1d_n == 1 and k1c_n == 1,
+          f"phase 24: the requantized pipeline launched K2 {k2_n} times and "
+          f"K1 {k1_n} ({k1d_n} over buckets, {k1c_n} with a reduced head); "
+          "expected 1 each")
+    res_p = requantized_adaptive_solve(*rargs, **plain, **rkw)
+    out_r = (res.xs, res.us, res.iters, res.solved, res.rho)
+    err24 = adaptive_agreement(
+        "phase 24 requantized adaptive pipeline, merged per-lane results vs "
+        "plain", out_r, (res_p.xs, res_p.us, res_p.iters, res_p.solved,
+                         res_p.rho), min_solved=int(0.99 * B_ADAPT))
+    n_r = int(res.solved.sum())
+    check(n_r >= 0.99 * B_ADAPT and torch.equal(res.overflow, res_p.overflow),
+          f"phase 24: {n_r} of {B_ADAPT} converged, overflow "
+          f"{res.overflow.tolist()} (plain {res_p.overflow.tolist()})")
+    t_r, t_r_p = paired_ms(lambda: requantized_adaptive_solve(*rargs, **rkw),
+                           lambda: requantized_adaptive_solve(*rargs, **plain,
+                                                              **rkw),
+                           reps=DEEP_REPS, plain_reps=1)
+    res0 = requantized_adaptive_solve(*rargs, bf16_head_iters=0, **rkw)
+    t_r0 = median_ms(lambda: requantized_adaptive_solve(
+        *rargs, bf16_head_iters=0, **rkw))
+    akw = dict(nx=12, nu=4, N=qN, straggler_slots=SLOTS_ADAPT)
+    res2 = two_phase_adaptive_solve(tqa, *bounds, x0_a, **akw)
+    t_2 = median_ms(lambda: two_phase_adaptive_solve(tqa, *bounds, x0_a,
+                                                     **akw))
+    # the continuations alone, from the same bulk carry: K2's (2,048 slots,
+    # warm, up to 2,500 iterations) and the requantized K1d launch (3 x
+    # 2,048 slots) with and without its reduced head
+    bulk_kw = dict(plant=None, nx=12, nu=4, N=qN, max_iter=ADAPTIVE_BUDGETS[0],
+                   abs_pri_tol=1e-3, abs_dua_tol=1e-3, en_state_bound=False,
+                   en_input_bound=True, relaxation_alpha=1.0,
+                   adaptive_rho_min=quadrotor.RHO, adaptive_rho_max=1e3,
+                   adaptive_rho_clipping=True, check_termination=1,
+                   controller="termination", taylor_trust=2.0,
+                   warm_start=False, carry_out=True)
+    _, _, _, ok_b, _, carry = condensed_adaptive_cuda(tqa, *bounds, x0_a,
+                                                      None, **bulk_kw)
+    unconv = ok_b == 0
+    idx_c, _, _, _ = compact_members(unconv[None, :], SLOTS_ADAPT)
+    idx_c = idx_c[0]
+    c_args = (tqa, *bounds, x0_a[idx_c].contiguous(), AdaptiveFusedCarry(
+        *(w[:, idx_c].contiguous() for w in carry)))
+    c_kw = dict(bulk_kw, max_iter=ADAPTIVE_BUDGETS[1], warm_start=True,
+                carry_out=False)
+    t_k2c = median_ms(functools.partial(condensed_adaptive_cuda, *c_args,
+                                        **c_kw))
+    brho = torch.tensor(rhos, dtype=f32, device=dev)
+    snap = torch.argmin(torch.abs(carry.rho[0][:, None] - brho[None, :]),
+                        dim=1)
+    m = unconv[None, :] & (snap[None, :] == torch.arange(G, device=dev)[
+        :, None])
+    idx, counts, valid, _ = compact_members(m, SLOTS_ADAPT)
+    gidx = idx.reshape(-1)
+
+    def gather(a):
+        return torch.where(valid[None, :], a[:, gidx], 0.0).contiguous()
+
+    w2 = torch.cat([carry.z - carry.y, carry.v - carry.g], dim=0)
+    warm = FusedCarry(gather(w2), gather(carry.y), gather(carry.g),
+                      gather(carry.v), gather(carry.z))
+    x0s2 = torch.where(valid[:, None], x0_a[gidx], 0.0).contiguous()
+    args2 = (bmaps, brho, *bounds, x0s2, warm)
+    kw2 = dict(nx=12, nu=4, N=qN, max_iter=ADAPTIVE_BUDGETS[1],
+               abs_pri_tol=1e-3, abs_dua_tol=1e-3, en_state_bound=False,
+               en_input_bound=True, relaxation_alpha=1.0, check_termination=1,
+               warm_start=True, carry_out=False, num_groups=G,
+               bf16_head_iters=REQUANT_HEAD)
+    f_k = functools.partial(condensed_fused_cuda, *args2, **kw2)
+    f_p = functools.partial(condensed_fused_reference, *args2, **kw2)
+    o_k, o_p = f_k(), f_p()
+    err24b = agreement(f"phase 24 requantized continuation launch (K1d + "
+                       f"K1c head, {G} buckets x {SLOTS_ADAPT} slots, "
+                       f"{REQUANT_HEAD} reduced iterations) vs plain", o_k,
+                       o_p, min_solved=0)
+    t_k, t_p = paired_ms(f_k, f_p, reps=3, plain_reps=1)
+    f_k0 = functools.partial(condensed_fused_cuda, *args2,
+                             **dict(kw2, bf16_head_iters=0))
+    o_k0 = f_k0()
+    t_k0 = median_ms(f_k0)
+    sw = bmaps.T12.shape[-2]
+    b24 = launch_bound(sw, 12, o_k[2], REQUANT_HEAD, G * SLOTS_ADAPT,
+                       bmaps.T12, bmaps.T1, brho, *bounds, x0s2, tuple(warm),
+                       o_k)
+    n_tile = tile_iterations(o_k[2], 32, G)
+    n_tile0 = tile_iterations(o_k0[2], 32, G)
+    sv = valid.reshape(G, -1)
+    slow = [int(o_k[2].reshape(G, -1)[g][sv[g]].max()) if bool(sv[g].any())
+            else 0 for g in range(G)]
+    rho_all = torch.cat([res.rho[~res.unconv], brho.repeat_interleave(
+        SLOTS_ADAPT)[valid]])
+    print(f"phase 24 requantized adaptive quadrotor B={B_ADAPT}, "
+          f"{SLOTS_ADAPT} slots a bucket, buckets {list(rhos)}: "
+          f"{int(res.unconv.sum())} stragglers over the buckets "
+          f"{counts.tolist()}, overflow {res.overflow.tolist()}; converged "
+          f"{n_r} ({100.0 * n_r / B_ADAPT:.2f}%; plain "
+          f"{int(res_p.solved.sum())}; without the head "
+          f"{int(res0.solved.sum())}; two-phase K2 pipeline "
+          f"{int(res2.solved.sum())}), mean iterations "
+          f"{res.iters.float().mean().item():.1f} (without the head "
+          f"{res0.iters.float().mean().item():.1f}; two-phase "
+          f"{res2.iters.float().mean().item():.1f}), rho span "
+          f"[{rho_all.min().item():.4g}, {rho_all.max().item():.4g}]; "
+          f"pipeline kernel {t_r:.3f} ms (median of {DEEP_REPS}), plain "
+          f"{t_r_p:.3f} ms (one timing) -> {n_r / (t_r * 1e-3):.0f} "
+          f"solves/s; without the head {t_r0:.3f} ms; the two-phase K2 "
+          f"pipeline (phase 11's) {t_2:.3f} ms (median of {DEEP_REPS}) on "
+          f"{card}", flush=True)
+    print(f"phase 24 continuations alone, from the same bulk carry (median "
+          f"of {DEEP_REPS}): K2's {t_k2c:.3f} ms; the requantized K1d launch "
+          f"with its {REQUANT_HEAD}-iteration head {t_k:.3f} ms (plain "
+          f"{t_p:.3f} ms, one timing; bound {b24[0]:.4f} ms by {b24[1]}; "
+          f"{n_tile} tile iterations, {1e3 * t_k * n_sm / n_tile:.3f} SM-us "
+          f"each; the slowest slot per bucket {slow}), without the head "
+          f"{t_k0:.3f} ms ({n_tile0} tile iterations, "
+          f"{1e3 * t_k0 * n_sm / n_tile0:.3f} SM-us each)", flush=True)
+    rows.append({
+        "name": f"condensed_fused group grid with a reduced head (K1d + "
+                f"K1c), requantized adaptive continuation {G} buckets x "
+                f"{SLOTS_ADAPT} slots (bound: head at the bf16 rate)",
+        "route": "cuda", "source": src, "replaces": jax_k1 + ":540",
+        "launches": k1d_n, "max_abs_err": max(err24, err24b), "ms": t_k,
+        "plain_ms": t_p, "bound_ms": b24[0], "bound_by": b24[1],
+        "library_ms": None})
+
+    # -- phase 25: the long horizon, float64, card against CPU ---------------
+    N_LONG = 1537
+    check(not auto_uses_condensed(4, 1, N_LONG)
+          and auto_chunk_size(4, 1, N_LONG) is not None,
+          "phase 25: N = 1537 does not select the chunked path")
+    t0 = time.perf_counter()
+    x0s = np.random.default_rng(8).uniform(-0.5, 0.5, size=(4, 4))
+
+    def long_solver(d):
+        sv = TinyMPCSolver(dtype=torch.float64, device=d)
+        sv.setup(cartpole.A, cartpole.B, None, np.diag(cartpole.Q_DIAG),
+                 np.diag(cartpole.R_DIAG), 1.0, 4, 1, N_LONG, max_iter=100)
+        sv.set_bound_constraints(np.full((4, N_LONG), -1e17),
+                                 np.full((4, N_LONG), 1e17),
+                                 np.full((1, N_LONG - 1), -5.0),
+                                 np.full((1, N_LONG - 1), 5.0))
+        sv.set_x0([1.0, 0.0, 0.2, 0.0])
+        return sv
+
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        sv = long_solver(d)
+        sv.solve()
+        check(sv._chunk_maps is not None, "phase 25: solve() did not take "
+              "the chunked path")
+        batch = sv.solve_batch(x0s, method="auto")
+        check(sv._condensed_maps is None, "phase 25: auto built the "
+              "condensed maps")
+        outs.append((int(sv.solution.iter), sv.get_solution().controls,
+                     batch[2].cpu(), batch[1].cpu()))
+    (i_c, u_c, bi_c, bu_c), (i_h, u_h, bi_h, bu_h) = outs
+    du = float(np.abs(u_c - u_h).max())
+    dbu = float((bu_c - bu_h).abs().max())
+    check(i_c == i_h and torch.equal(bi_c, bi_h) and du <= RHO_ATOL64
+          and dbu <= RHO_ATOL64,
+          f"phase 25: card and CPU differ (counts {i_c}/{i_h}, "
+          f"{bi_c.tolist()}/{bi_h.tolist()}; controls {du:.3e}, {dbu:.3e})")
+    assoc = long_solver(dev)
+    assoc.horizon_parallel = True
+    assoc.solve()
+    seq = long_solver(dev)
+    seq.solve(chunked=False)
+    da = float(np.abs(assoc.get_solution().controls
+                      - seq.get_solution().controls).max())
+    dc = float(np.abs(u_c - seq.get_solution().controls).max())
+    i_a, i_s = int(assoc.solution.iter), int(seq.solution.iter)
+    check(assoc._chunk_maps is None and i_a == i_s == i_c
+          and da <= RHO_ATOL64 and dc <= RHO_ATOL64,
+          f"phase 25: associative {i_a}, sequential {i_s}, chunked {i_c} "
+          f"iterations; controls differ by {da:.3e} (associative) and "
+          f"{dc:.3e} (chunked)")
+    print(f"phase 25 long horizon, cartpole N={N_LONG} in float64 (condensed "
+          f"maps over the {AUTO_CONDENSED_BUDGET_BYTES >> 20} MiB budget: "
+          f"chunks of "
+          f"{auto_chunk_size(4, 1, N_LONG)} stages): solve() chunked, card "
+          f"vs CPU: {i_c} / {i_h} iterations, controls within {du:.3e}; "
+          f"solve_batch(method='auto') on 4 lanes: counts {bi_c.tolist()} / "
+          f"{bi_h.tolist()}, controls within {dbu:.3e}; on the card the "
+          f"associative scans {i_a} and the sequential recursions {i_s} "
+          f"iterations, controls within {da:.3e} (chunked within {dc:.3e} "
+          f"of the sequential); {time.perf_counter() - t0:.1f} s for the "
+          f"phase", flush=True)
+    return rows
+
+
 def build_kernels():
     """Phase 2: the three kernels' sources, one nvcc each, side by side."""
     from tinympc_julia_tpu_torch.ops.cuda._build import (load_libraries,
@@ -2049,6 +2518,9 @@ def main():
     print(f"phases 13-17 done {time.perf_counter() - t_start:.0f} s after "
           "the start", flush=True)
     rows += stage_and_loop_phases(card)
+    print(f"phases 18-21 done {time.perf_counter() - t_start:.0f} s after "
+          "the start", flush=True)
+    rows += rebuild_and_horizon_phases(card)
     print(f"all phases done {time.perf_counter() - t_start:.0f} s after the "
           "start", flush=True)
     print(json.dumps({"kernels": rows}))

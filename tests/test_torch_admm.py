@@ -305,17 +305,3 @@ def test_warm_start_persists_across_solves():
         assert int(psv.solution.iter) == int(jsv.solution.iter)
         _assert_states_close(psv.state, jsv.state, 1e-9)
         x = rocket.simulate(x, jsv.get_solution().controls[:, 0])
-
-
-def test_unported_options_raise():
-    _, (pp, pc, ps, pst) = _rocket_pair()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        admm.solve(pp, pc, ps, pst, horizon_parallel=True)
-    s = rocket.make_solver(dtype=F64, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        s.solve(chunked=True)
-    long = P.TinyMPCSolver(dtype=F64, device=CPU)
-    long.setup(quadrotor.A, quadrotor.B, None, np.diag(quadrotor.Q_DIAG),
-               np.diag(quadrotor.R_DIAG), 5.0, 12, 4, 501)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        long.solve()  # where the JAX package would pick the chunked path

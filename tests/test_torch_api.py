@@ -223,12 +223,10 @@ def test_references_rebuild_the_taylor_maps():
 
 
 @pytest.mark.parametrize("call", [
-    lambda s: s.solve_batch(np.zeros((2, 4)), method="chunked"),
-    lambda s: s.solve_batch_rebuild_adaptive(np.zeros((2, 4))),
     lambda s: s.compute_sensitivity_autograd(),
     lambda s: s.codegen("out"),
     lambda s: s.save("x"),
-], ids=["chunked", "rebuild", "sensitivity", "codegen", "save"])
+], ids=["sensitivity", "codegen", "save"])
 def test_unported_surface_raises(call):
     s = _setup(P.TinyMPCSolver(dtype=torch.float32, device=CPU))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

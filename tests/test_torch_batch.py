@@ -10,6 +10,7 @@ import tinympc_julia_tpu as J
 import tinympc_julia_tpu_torch as P
 from tinympc_julia_tpu.models import cartpole
 from tinympc_julia_tpu.parallel import batch as JB
+from tinympc_julia_tpu_torch.ops.scans import build_chunk_maps
 from tinympc_julia_tpu_torch.parallel import batch as PB
 
 from torch_port_common import (CPU, cartpole_setup, grouped_cartpoles,
@@ -168,10 +169,13 @@ def test_unconverged_count_hook_and_flag_checks():
     assert seen[0] == 4 and seen == sorted(seen, reverse=True)
     with pytest.raises(ValueError, match="problem_batched"):
         PB.solve_batch(pp, pc, ps, st, problem_batched=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PB.solve_batch(pp, pc, ps, st, horizon_parallel=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PB.solve_batch(pp, pc, ps, st, chunk_maps=object())
+    # the long-horizon forms of the recursions (ops/scans.py): the same
+    # counts; chunk maps with adaptive rho are refused
+    hp = PB.solve_batch(pp, pc, ps, st, horizon_parallel=True)
+    assert torch.equal(hp[2].iter, ref[2].iter)
+    with pytest.raises(ValueError, match="adaptive_rho"):
+        PB.solve_batch(pp, pc, ps.replace(adaptive_rho=True), st,
+                       chunk_maps=build_chunk_maps(pp, pc, 19))
 
 
 def _api_pair(**settings):

@@ -2,8 +2,10 @@
 group grid, K1d; with its reduced-precision product and head, K1c), K2
 (per-lane adaptive rho; on its group grid) and K3 (the per-stage fused ADMM)
 on the card: each CUDA kernel vs its plain PyTorch version, the port's main
-paths through them (the fused MPC loop chained through K1's carry among
-them), and the single-instance solve() on the card.  Every test here
+paths through them (the fused MPC loop chained through K1's carry, the
+bucketed rebuild and the requantized adaptive continuation among them),
+and the single-instance and chunked float64 solves on the card.  Every
+test here
 is marked ``cuda`` and skips where CUDA is not available.  The file imports
 no JAX, so it also runs on a machine that has only the port's dependencies:
 
@@ -1065,3 +1067,110 @@ def test_fused_mpc_loop_runs_through_the_kernel(dev):
     # on an H100, 99.7% over the bench row's 100
     assert res.solved.float().mean().item() >= 0.97
     assert float(res.us.abs().max()) <= 5.0 + 1e-5
+
+
+@pytest.mark.parametrize("model,ub,x_bound,scale,rho0,span,slots", [
+    (cartpole, 5.0, np.array([2.0, 1e17, 1e17, 1e17]),
+     np.array([1.8, 1.0, 0.4, 0.5]), 0.01, (1e-4, 1e4), 512),
+    (cartpole, 5.0, np.array([2.0, 1e17, 1e17, 1e17]),
+     np.array([1.8, 1.0, 0.4, 0.5]), 0.01, (1e-4, 1e4), 32),
+    (quadrotor, quadrotor.U_HOVER_BOUND, None, 0.3, 0.05, (1e-3, 1e3), 512),
+], ids=["cartpole", "cartpole-overflow", "quadrotor"])
+def test_rebuild_pipeline_matches_plain_version(dev, model, ub, x_bound,
+                                                scale, rho0, span, slots):
+    """The bucketed rebuild on the mis-set cartpole and quadrotor (B = 512):
+    K1 for phase 1, K1d over the buckets for phase 2 (buckets with no
+    straggler are tiles of pad slots only), against the same pipeline on
+    the plain version; with 32 slots a bucket, an overflowing bucket."""
+    from tinympc_julia_tpu_torch import Settings
+    from tinympc_julia_tpu_torch.parallel.rebuild import make_bucketed_rebuild
+    kw = {}
+    if x_bound is not None:
+        xb = np.tile(x_bound, (N, 1))
+        kw = dict(x_min=-xb, x_max=xb)
+    p = make_problem(model.A, model.B, np.diag(model.Q_DIAG),
+                     np.diag(model.R_DIAG), rho0, N, u_min=-ub, u_max=ub,
+                     dtype=torch.float32, device=dev, **kw)
+    c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+    s = Settings(max_iter=500, en_state_bound=x_bound is not None,
+                 en_input_bound=True, adaptive_rho_min=span[0],
+                 adaptive_rho_max=span[1])
+    x0 = torch.as_tensor(np.random.default_rng(5).uniform(
+        -1, 1, size=(512, p.nx)) * scale, dtype=torch.float32,
+        device=dev)
+    kw = dict(phase1_iters=50, straggler_slots=slots, phase2_iters=450)
+    before = K.condensed_fused_cuda.grouped_launches
+    out = make_bucketed_rebuild(p, c, s, **kw).solve(x0)
+    torch.cuda.synchronize()
+    assert K.condensed_fused_cuda.grouped_launches == before + 1
+    ref = make_bucketed_rebuild(p, c, s, fused=K.condensed_fused_reference,
+                                **kw).solve(x0)
+    _agree(out, ref)
+    same = out[2] == ref[2]
+    assert torch.equal(out[4][same], ref[4][same])
+    assert torch.equal(out[5], ref[5])
+    assert (int(out[5].sum()) > 0) == (slots == 32)
+    assert (out[5] == 0).any()  # a bucket of pad slots only
+    if slots == 512:
+        assert int(out[3].sum()) >= 0.95 * 512
+
+
+def test_requantized_pipeline_matches_plain_version(dev):
+    """The requantized adaptive continuation on the quadrotor (B = 2,048,
+    256 slots a bucket): K2's bulk pass, then K1d with its 256-iteration
+    reduced head over the three exact buckets, against the same pipeline on
+    the plain versions."""
+    from tinympc_julia_tpu_torch.ops.cuda.adaptive_kernel import (
+        condensed_adaptive_reference)
+    from tinympc_julia_tpu_torch.parallel.pipeline import (
+        requantized_adaptive_solve, requantized_buckets)
+    p, c, _ = _plant(quadrotor, quadrotor.U_HOVER_BOUND, dev)
+    tmaps = build_condensed_taylor(p, c)
+    rhos, bmaps = requantized_buckets(p, c)
+    x0 = _x0(2048, 12, 1, 0.3, dev)
+    args = (tmaps, bmaps, rhos, p.u_min, p.u_max, p.x_min, p.x_max, x0)
+    kw = dict(nx=12, nu=4, N=N, straggler_slots=256)
+    before = K.condensed_fused_cuda.reduced_launches
+    res = requantized_adaptive_solve(*args, **kw)
+    torch.cuda.synchronize()
+    assert K.condensed_fused_cuda.reduced_launches == before + 1
+    ref = requantized_adaptive_solve(
+        *args, fused_adaptive=condensed_adaptive_reference,
+        fused=K.condensed_fused_reference, **kw)
+    _agree((res.xs, res.us, res.iters, res.solved),
+           (ref.xs, ref.us, ref.iters, ref.solved))
+    same = res.iters == ref.iters
+    torch.testing.assert_close(res.rho[same], ref.rho[same], rtol=1e-4,
+                               atol=0)
+    assert torch.equal(res.overflow, ref.overflow)
+    assert int(res.unconv.sum()) > 0
+    assert res.solved.float().mean().item() >= 0.99
+
+
+def test_chunked_float64_solve_card_vs_cpu(dev):
+    """A float64 cartpole at N = 257 on the chunked recursions (chunks of
+    128 stages) and on the associative scans: the card's solve and batch
+    solve equal the CPU's (counts, controls within 1e-9)."""
+    out = []
+    for d in (dev, torch.device("cpu")):
+        s = TinyMPCSolver(dtype=torch.float64, device=d)
+        s.setup(cartpole.A, cartpole.B, None, np.diag(cartpole.Q_DIAG),
+                np.diag(cartpole.R_DIAG), 1.0, 4, 1, 257, max_iter=100)
+        s.set_bound_constraints(np.full((4, 257), -1e17),
+                                np.full((4, 257), 1e17),
+                                np.full((1, 256), -5.0), np.full((1, 256), 5.0))
+        s.set_x0([1.0, 0.0, 0.2, 0.0])
+        s.solve(chunked=True)
+        chunked = (int(s.solution.iter), s.get_solution().controls)
+        s.horizon_parallel = True
+        s.set_x0([1.0, 0.0, 0.2, 0.0])
+        s.solve()
+        assoc = (int(s.solution.iter), s.get_solution().controls)
+        b = s.solve_batch(np.random.default_rng(8).uniform(
+            -0.5, 0.5, size=(8, 4)), method="chunked")
+        out.append((chunked, assoc, b[2].cpu(), b[1].cpu()))
+    (ck, ak, bik, buk), (ch, ah, bih, buh) = out
+    assert ck[0] == ch[0] and ak[0] == ah[0] and torch.equal(bik, bih)
+    np.testing.assert_allclose(ck[1], ch[1], atol=1e-9)
+    np.testing.assert_allclose(ak[1], ah[1], atol=1e-9)
+    torch.testing.assert_close(buk, buh, atol=1e-9, rtol=0)

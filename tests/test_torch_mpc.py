@@ -214,13 +214,6 @@ def test_run_mpc_loop_tracks_the_compiled_reference():
                                g["mpc_final_znew"].T, atol=1e-6)
 
 
-def test_run_mpc_loop_horizon_parallel_is_not_ported():
-    _, (pp, pc) = _cartpole()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run_mpc_loop(pp, pc, P.Settings(), torch.as_tensor(CART_X0), 2,
-                     horizon_parallel=True)
-
-
 # -- run_mpc_loop_condensed --------------------------------------------------
 
 CART_X0_C = np.array([[0.0, 0.0, 0.1, 0.0], [0.4, -0.1, -0.05, 0.0]])

@@ -19,7 +19,13 @@ the grouped path: G distinct problems x L lanes (parallel/grouped.py,
 parallel/batch.py, the group grid of both kernels and K1's
 reduced-precision head); closed-loop serving: the three MPC loops
 (parallel/mpc.py, the fused one chained through K1's carry) and the
-per-stage fused solve, kernel K3 (ops/cuda/fused.py).  K1 runs its product
+per-stage fused solve, kernel K3 (ops/cuda/fused.py); the bucketed
+exact-rebuild adaptive-rho pipeline (parallel/rebuild.py,
+``TinyMPCSolver.solve_batch_rebuild_adaptive``) and the requantized adaptive
+continuation (parallel/pipeline.py), both on K1's group grid; the
+long-horizon recursions (ops/scans.py: chunked condensation and associative
+scans, ``solve(chunked=...)``, ``method="chunked"``, ``horizon_parallel``).
+K1 runs its product
 as a lane-tile GEMM on the H100 (fp32 FMA in index order, bf16 tensor cores
 for reduced iterations), and every fp32 path runs its matmuls in full fp32
 (utils/precision.py), whatever the process-wide TF32 setting.

@@ -4,12 +4,15 @@
 single-instance workspace on one device, chosen by the caller.  Ported so
 far: setup, the x0/reference setters, the bound, linear, cone and equality
 constraints, settings and cache injection, the single-instance ``solve``
-(ops/admm.py) with its persisted warm start and adaptive rho, and
-``solve_batch`` on the standard (parallel/batch.py), condensed and fused
-paths (kernel K1 with its projections and its reduced-precision head; with
-``adaptive_rho`` the Taylor-expanded maps and kernel K2) with warm
-continuation.  Every other method raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+(ops/admm.py) with its persisted warm start and adaptive rho, the
+long-horizon recursions (chunked, or associative scans with
+``horizon_parallel``; ops/scans.py), ``solve_batch`` on the standard
+(parallel/batch.py), chunked, condensed and fused paths (kernel K1 with its
+projections and its reduced-precision head; with ``adaptive_rho`` the
+Taylor-expanded maps and kernel K2) with warm continuation, and
+``solve_batch_rebuild_adaptive`` (the bucketed exact-rebuild pipeline,
+parallel/rebuild.py).  Every other method raises ``NotImplementedError``
+naming the ROADMAP.md item that ports it.
 
 Matrix layout at this boundary follows the reference: states (nx, N),
 controls (nu, N-1); ``solve_batch`` returns tensors on the solver's device,
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -33,7 +37,10 @@ from .ops.cuda.adaptive_kernel import make_condensed_adaptive_fused_solver
 from .ops.cuda.condensed_kernel import (make_condensed_fused_solver,
                                         problem_constraint_kw)
 from .ops.rho import RHO_INTERVAL
+from .ops.scans import build_chunk_maps
 from .parallel import batch as batch_mod
+from .parallel.rebuild import (bucket_maps, default_bucket_rhos,
+                               make_bucketed_rebuild)
 
 
 class MPCSolution(NamedTuple):
@@ -72,8 +79,12 @@ class TinyMPCSolver:
         self.state: Optional[T.State] = None
         self.solution: Optional[T.Solution] = None
         self.is_setup = False
-        self._condensed_maps = None
-        self._condensed_taylor_maps = None
+        # the associative-scan horizon recursions in solve() (ops/scans.py)
+        self.horizon_parallel = False
+        self._drop_maps()
+        # per-bucket straggler-slot overflow of the last bucketed-rebuild
+        # solve (None before any)
+        self.last_overflow = None
 
     # -- setup --------------------------------------------------------------
 
@@ -125,10 +136,13 @@ class TinyMPCSolver:
         return 0
 
     def _drop_maps(self):
-        """Forget the condensed maps, fixed and Taylor-expanded: they bake
-        the references and the cache terms."""
+        """Forget the condensed maps (fixed, Taylor-expanded, the rebuild
+        pipeline's bucket maps keyed on their rhos) and the chunk maps: they
+        bake the references and the cache terms."""
         self._condensed_maps = None
         self._condensed_taylor_maps = None
+        self._bucket_maps = {}
+        self._chunk_maps = None
 
     def _require_setup(self):
         if not self.is_setup:
@@ -308,21 +322,27 @@ class TinyMPCSolver:
         reference's warm start) and persist the new workspace and cache.
         Returns 0 on convergence, 1 when max_iter runs out.
 
-        ``chunked=None`` takes the exact sequential recursions wherever the
-        JAX package would; where it would pick the chunked horizon
-        recursions (long horizons beyond the condensed-maps budget), and for
-        ``chunked=True``, this raises: ops/scans.py is not ported yet."""
+        ``chunked=None`` picks the chunked horizon recursions
+        (ops/scans.py) for long horizons, where the condensed maps would
+        outgrow their memory budget and a chunk size fits (not with
+        ``horizon_parallel`` or adaptive rho); they give the same iterates
+        up to float reassociation.  ``False`` forces the exact sequential
+        recursions, ``True`` the chunked ones (raising where no chunk size
+        fits, or with adaptive rho).  ``self.horizon_parallel = True`` runs
+        the recursions as associative scans."""
         self._require_setup()
         p = self.problem
+        cm = None
         if chunked is None:
-            chunked = (not self.settings.adaptive_rho
+            chunked = (not self.horizon_parallel
+                       and not self.settings.adaptive_rho
                        and not auto_uses_condensed(p.nx, p.nu, p.N)
                        and auto_chunk_size(p.nx, p.nu, p.N) is not None)
-        if chunked:
-            raise not_ported("chunked horizon recursions (ops/scans.py)",
-                             "ROADMAP.md queue 1, item 12")
+        if chunked:  # admm.solve refuses chunk maps under adaptive rho
+            cm = self._get_chunk_maps()
         self.state, self.cache, self.solution = admm.solve(
-            p, self.cache, self.settings, self.state)
+            p, self.cache, self.settings, self.state,
+            horizon_parallel=self.horizon_parallel, chunk_maps=cm)
         status = 1 - int(self.solution.solved)
         if verbose:
             print(f"Solve completed with status: {status}")
@@ -347,19 +367,36 @@ class TinyMPCSolver:
                 self.problem, self.cache)
         return self._condensed_taylor_maps
 
+    def _get_chunk_maps(self):
+        """The chunk maps (ops/scans.build_chunk_maps) at the auto-selected
+        chunk size, built once and kept until the problem or cache
+        changes."""
+        if self._chunk_maps is None:
+            p = self.problem
+            C = auto_chunk_size(p.nx, p.nu, p.N)
+            if C is None:
+                raise ValueError(
+                    f"no chunk size >= 2 divides N-1 = {p.N - 1} within the "
+                    "chunk-map budget; use method='standard'")
+            self._chunk_maps = build_chunk_maps(p, self.cache, C)
+        return self._chunk_maps
+
     def solve_batch(self, x0s, *, method: str = "auto", warm=None,
                     return_carry: bool = False, verbose=False):
         """Batched fresh solves over per-instance initial states (B, nx).
 
         ``method``: "standard" (the masked reference-ordered loop of
-        parallel/batch.py), "condensed" (the T1/T2 eager solve), "fused"
-        (kernel K1; float32) or "auto" (condensed while the maps fit the
-        memory budget, else standard).  With ``adaptive_rho`` every lane
-        adapts its own rho: on the Taylor-expanded maps
-        (``solve_condensed_adaptive``, or kernel K2 on the fused path), or
-        with a per-instance cache on the standard path.  Pass
-        ``return_carry=True`` to also get a ``BatchWarmCarry`` and give it
-        back as ``warm=`` (same method, same batch) to continue: exactly on
+        parallel/batch.py), "chunked" (the same loop with the chunked
+        horizon recursions of ops/scans.py: the long-horizon path, same
+        iterates up to float reassociation, fixed rho only), "condensed"
+        (the T1/T2 eager solve), "fused" (kernel K1; float32) or "auto"
+        (condensed while the maps fit the memory budget; beyond it chunked
+        with fixed rho where a chunk size fits, else standard).  With
+        ``adaptive_rho`` every lane adapts its own rho: on the
+        Taylor-expanded maps (``solve_condensed_adaptive``, or kernel K2 on
+        the fused path), or with a per-instance cache on the standard path.
+        Pass ``return_carry=True`` to also get a ``BatchWarmCarry`` and give
+        it back as ``warm=`` (same method, same batch) to continue: exactly on
         the condensed and fused paths; on the standard path with the
         reference's persisted-workspace semantics (the loop restarts from
         the carried iterates).
@@ -378,10 +415,7 @@ class TinyMPCSolver:
                 method = "chunked"
             else:
                 method = "standard"
-        if method == "chunked":
-            raise not_ported("method='chunked' (ops/scans.py)",
-                             "ROADMAP.md queue 1, item 12")
-        if method not in ("standard", "condensed", "fused"):
+        if method not in ("standard", "chunked", "condensed", "fused"):
             raise ValueError(f"unknown method: {method}")
         if warm is not None:
             if not isinstance(warm, BatchWarmCarry):
@@ -393,14 +427,16 @@ class TinyMPCSolver:
             if warm.batch != B:
                 raise ValueError(f"warm carry holds {warm.batch} lanes, "
                                  f"x0s has {B}")
-        if method == "standard":
+        if method in ("standard", "chunked"):
+            cm = self._get_chunk_maps() if method == "chunked" else None
             if warm is not None:
                 st = batch_mod.set_x0_batch(warm.data, x0s)
             else:
                 st = batch_mod.set_x0_batch(batch_mod.broadcast_state(
                     T.init_state(p.nx, p.nu, p.N, dtype=self.dtype,
                                  device=self.device), B), x0s)
-            st_out, _, sol = batch_mod.solve_batch(p, self.cache, s, st)
+            st_out, _, sol = batch_mod.solve_batch(p, self.cache, s, st,
+                                                   chunk_maps=cm)
             out = (sol.x, sol.u, sol.iter, sol.solved, st_out)
             if not return_carry:
                 return out[:4]
@@ -488,11 +524,60 @@ class TinyMPCSolver:
             args += (warm.data,)
         return fn(*args)
 
-    # -- not ported yet ------------------------------------------------------
+    def solve_batch_rebuild_adaptive(self, x0s, *, bucket_rhos=None,
+                                     phase1_iters=50, straggler_slots=None,
+                                     phase2_iters=500, verbose=False):
+        """Batched solves with exact adaptive rho on the fused path: the
+        bucketed rebuild pipeline (parallel/rebuild.py), which rescues a
+        setup rho that is off by orders of magnitude at the fused kernels'
+        rates.  Float32, as the fused path.
 
-    def solve_batch_rebuild_adaptive(self, *args, **kwargs):
-        raise not_ported("solve_batch_rebuild_adaptive",
-                         "ROADMAP.md queue 1, item 11")
+        The solver's Settings give the tolerances, constraint flags and
+        ``check_termination``, and [adaptive_rho_min, adaptive_rho_max] the
+        bucket span (``bucket_rhos`` overrides the log-spaced default).
+        ``straggler_slots`` (a bucket; default B) bounds phase 2: lanes
+        beyond it keep their unconverged phase-1 result and are counted per
+        bucket in ``self.last_overflow``, with a warning.  The bucket caches
+        and maps are kept on the solver, keyed on the bucket rhos, until the
+        problem or the cache changes; bounds and constraint data reach the
+        kernels at every call.
+
+        Returns (xs (B, N, nx), us (B, N-1, nu), iters (B,), solved (B,),
+        rho (B,)) as tensors on the solver's device."""
+        self._require_setup()
+        if self.dtype != torch.float32:
+            raise TypeError("the rebuild pipeline is float32: build the "
+                            "solver with dtype=torch.float32")
+        s = self.settings
+        x0s = torch.as_tensor(x0s, dtype=torch.float32, device=self.device)
+        B = int(x0s.shape[0])
+        if bucket_rhos is None:
+            bucket_rhos = default_bucket_rhos(s.adaptive_rho_min,
+                                              s.adaptive_rho_max)
+        bucket_rhos = tuple(float(r) for r in bucket_rhos)
+        if bucket_rhos not in self._bucket_maps:
+            self._bucket_maps[bucket_rhos] = bucket_maps(
+                self.problem, self.cache, bucket_rhos)
+        pipe = make_bucketed_rebuild(
+            self.problem, self.cache, s, bucket_rhos=bucket_rhos,
+            phase1_iters=phase1_iters,
+            straggler_slots=B if straggler_slots is None
+            else int(straggler_slots),
+            phase2_iters=phase2_iters, maps=self._maps(),
+            bmaps=self._bucket_maps[bucket_rhos])
+        xs, us, iters, solved, rho, overflow = pipe.solve(x0s)
+        self.last_overflow = overflow
+        if verbose or bool(overflow.any()):
+            msg = (f"bucketed rebuild: buckets {pipe.bucket_rhos}, overflow "
+                   f"{overflow.tolist()}")
+            if bool(overflow.any()):
+                warnings.warn("straggler_slots too small: " + msg,
+                              stacklevel=2)
+            else:
+                print(msg)
+        return xs, us, iters, solved, rho
+
+    # -- not ported yet ------------------------------------------------------
 
     def compute_sensitivity_autograd(self):
         raise not_ported("compute_sensitivity_autograd",

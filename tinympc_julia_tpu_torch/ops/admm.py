@@ -15,7 +15,8 @@ Update ordering reproduces the reference exactly, quirks included:
 This is the single-instance oracle the batched paths are held against, not a
 hot path: the outer loop and the horizon recursions are Python loops over
 small tensors, and the loop reads its convergence flag on the host once per
-iteration.
+iteration.  For long horizons the recursions run chunked or as associative
+scans (ops/scans.py).
 
 Every stage update also runs with a leading batch axis on the state, and on
 the problem or the cache where they differ per instance (their tensors
@@ -30,7 +31,7 @@ import torch
 
 from ..types import Cache, Problem, Settings, Solution, State, map_tensors
 from ..utils.precision import full_fp32_matmul
-from . import not_ported, projections
+from . import projections, scans
 from . import rho as rho_mod
 
 TINY_SOLVED = 1
@@ -129,10 +130,10 @@ def backward_pass(state: State, problem: Problem, cache: Cache, *,
     """Linear-term Riccati backward recursion:
         d_i = Quu_inv (B^T p_{i+1} + r_i)
         p_i = q_i + AmBKt p_{i+1} - Kinf^T r_i
+    ``horizon_parallel`` runs it as an associative scan (ops/scans.py).
     """
     if horizon_parallel:
-        raise not_ported("horizon_parallel (the associative scans)",
-                         "ROADMAP.md queue 1, item 12")
+        return scans.backward_pass_assoc(state, problem, cache)
     BT, Quu_inv, AmBKt, KT = (problem.B.transpose(-1, -2), cache.Quu_inv,
                               cache.AmBKt, cache.Kinf.transpose(-1, -2))
     n = state.r.shape[-2]
@@ -164,15 +165,42 @@ def compute_residuals(state: State, cache: Cache):
 # The solve loop
 # ---------------------------------------------------------------------------
 
+def check_chunk_maps(settings: Settings, chunk_maps) -> None:
+    """The chunk maps bake the setup-time gains (Kinf, Quu_inv, AmBKt);
+    adaptive rho moves them every few iterations, so the chunked recursions
+    would run a stale gain: refused."""
+    if chunk_maps is not None and settings.adaptive_rho:
+        raise ValueError("chunk_maps are incompatible with adaptive_rho "
+                         "(the maps bake the setup-time gains); use the "
+                         "standard path")
+
+
+def _passes(problem: Problem, horizon_parallel: bool, chunk_maps):
+    """(forward, backward) pass functions of ``(state, cache)``: chunked
+    with ``chunk_maps``, else associative scans with ``horizon_parallel``,
+    else the sequential recursions."""
+    if chunk_maps is not None:
+        return (lambda st, ca: scans.forward_pass_chunked(st, problem, ca,
+                                                          chunk_maps),
+                lambda st, ca: scans.backward_pass_chunked(st, problem, ca,
+                                                           chunk_maps))
+    fwd = scans.forward_pass_assoc if horizon_parallel else forward_pass
+    return (lambda st, ca: fwd(st, problem, ca),
+            lambda st, ca: backward_pass(st, problem, ca,
+                                         horizon_parallel=horizon_parallel))
+
+
 def make_loop_fns(problem: Problem, settings: Settings, *,
                   horizon_parallel: bool = False, dtype=None,
                   chunk_maps=None):
     """(cond_fn, body_fn) of the ADMM loop over the carry
     ``(state, cache, z_prev, v_prev, converged, i)``; ``converged`` is a
-    Python bool and ``i`` a Python int."""
-    if horizon_parallel or chunk_maps is not None:
-        raise not_ported("horizon_parallel and chunk_maps (ops/scans.py)",
-                         "ROADMAP.md queue 1, item 12")
+    Python bool and ``i`` a Python int.  ``chunk_maps``
+    (``scans.ChunkMaps``) runs the horizon recursions chunked, the
+    long-horizon path; ``horizon_parallel`` runs them as associative scans
+    (same values up to float reassociation)."""
+    check_chunk_maps(settings, chunk_maps)
+    forward, backward = _passes(problem, horizon_parallel, chunk_maps)
     dtype = dtype or problem.dtype
     pri_tol = torch.tensor(settings.abs_pri_tol, dtype=dtype,
                            device=problem.device)
@@ -186,7 +214,7 @@ def make_loop_fns(problem: Problem, settings: Settings, *,
 
     def body_fn(carry):
         st, ca, z_prev, v_prev, _, i = carry
-        st = forward_pass(st, problem, ca)
+        st = forward(st, ca)
         st = update_slack(st, problem, settings)
         st = update_dual(st, settings)
         st = update_linear_cost(st, problem, ca)
@@ -216,25 +244,27 @@ def make_loop_fns(problem: Problem, settings: Settings, *,
             # pass: v/z/p/d stay as they were
             st = st.replace(status=torch.full_like(st.status, TINY_SOLVED))
         else:
-            st = backward_pass(st.replace(v=st.vnew, z=st.znew), problem, ca)
+            st = backward(st.replace(v=st.vnew, z=st.znew), ca)
         return (st, ca, z_prev, v_prev, converged, i + 1)
 
     return cond_fn, body_fn
 
 
 def batched_body(problem: Problem, settings: Settings, state: State,
-                 cache: Cache, i: int):
+                 cache: Cache, i: int, *, horizon_parallel: bool = False,
+                 chunk_maps=None):
     """One ADMM iteration of a whole batch: ``body_fn`` with a leading batch
     axis on the state (and on the problem or cache where they differ per
     instance), the branch on convergence replaced by a per-instance select.
     Returns (state, cache, converged (B,) bool); the caller freezes the
     instances that had converged before."""
+    forward, backward = _passes(problem, horizon_parallel, chunk_maps)
     dtype, dev = state.x.dtype, state.x.device
     pri_tol = torch.tensor(settings.abs_pri_tol, dtype=dtype, device=dev)
     dua_tol = torch.tensor(settings.abs_dua_tol, dtype=dtype, device=dev)
     ct = settings.check_termination
     batch = state.x.shape[0]
-    st = forward_pass(state, problem, cache)
+    st = forward(state, cache)
     st = update_slack(st, problem, settings)
     st = update_dual(st, settings)
     st = update_linear_cost(st, problem, cache)
@@ -254,7 +284,7 @@ def batched_body(problem: Problem, settings: Settings, state: State,
                      & (dua_s < dua_tol) & (dua_i < dua_tol))
     st = st.replace(status=torch.where(
         converged, torch.full_like(st.status, TINY_SOLVED), st.status))
-    st_next = backward_pass(st.replace(v=st.vnew, z=st.znew), problem, ca)
+    st_next = backward(st.replace(v=st.vnew, z=st.znew), ca)
     return select_instances(converged, st, st_next), ca, converged
 
 

@@ -68,9 +68,8 @@ def auto_uses_condensed(nx, nu, N, *, adaptive=False) -> bool:
             <= AUTO_CONDENSED_BUDGET_BYTES)
 
 
-# Beyond the full-condensation budget the JAX package drops to a chunked
-# horizon path (one reusable C-stage chunk map); its budget helpers are kept
-# here for the "auto" dispatch, the chunked solve itself is not ported yet.
+# Beyond the full-condensation budget "auto" drops to the chunked horizon
+# path (ops/scans.py: one reusable C-stage chunk map), sized here.
 CHUNK_BUDGET_BYTES = 32 * 2**20
 CHUNK_TARGET = 128  # preferred chunk size
 

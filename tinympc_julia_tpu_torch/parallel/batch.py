@@ -21,7 +21,7 @@ from typing import Tuple
 
 import torch
 
-from ..ops import admm, not_ported
+from ..ops import admm
 from ..types import (Cache, Problem, Settings, Solution, State,
                      index_instance, map_tensors, stack_instances)
 from ..utils.precision import full_fp32_matmul
@@ -62,10 +62,10 @@ def solve_batch(problem: Problem, cache: Cache, settings: Settings,
     batch over several devices puts its sum across them here.
 
     With adaptive rho the instances' rhos diverge, so a shared cache is
-    promoted to per-instance; the returned cache is then batched."""
-    if horizon_parallel or chunk_maps is not None:
-        raise not_ported("horizon_parallel and chunk_maps (ops/scans.py)",
-                         "ROADMAP.md queue 1, item 12")
+    promoted to per-instance; the returned cache is then batched.
+    ``chunk_maps`` and ``horizon_parallel`` select the long-horizon forms of
+    the horizon recursions (ops/scans.py)."""
+    admm.check_chunk_maps(settings, chunk_maps)
     _check_batched(problem, problem_batched, problem.A, 2, "problem")
     _check_batched(cache, cache_batched, cache.Kinf, 2, "cache")
     batch = state.x.shape[0]
@@ -82,8 +82,9 @@ def solve_batch(problem: Problem, cache: Cache, settings: Settings,
     count = unconverged_count_fn or torch.sum
     i = 0
     while i < settings.max_iter and int(count(~converged)) > 0:
-        new_st, new_ca, new_conv = admm.batched_body(problem, settings, state,
-                                                     cache, i)
+        new_st, new_ca, new_conv = admm.batched_body(
+            problem, settings, state, cache, i,
+            horizon_parallel=horizon_parallel, chunk_maps=chunk_maps)
         # freeze the instances that had converged before this iteration
         if cache_batched:
             cache = admm.select_instances(converged, cache, new_ca)

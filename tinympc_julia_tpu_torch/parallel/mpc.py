@@ -31,7 +31,6 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..ops import condensed as cond
-from ..ops import not_ported
 from ..ops.cuda.condensed_kernel import make_condensed_fused_solver
 from ..types import Cache, Problem, Settings, State, init_state
 from ..utils.precision import full_fp32_matmul
@@ -90,10 +89,9 @@ def run_mpc_loop(problem: Problem, cache: Cache, settings: Settings, x0s,
     give a per-step reference schedule ((n_steps, N, nx)/(n_steps, N-1, nu),
     shared by the batch: the rocket's moving reference).  The solver
     workspace persists across steps (the reference's warm start); under
-    adaptive rho a shared cache becomes per-instance and is carried too."""
-    if horizon_parallel:
-        raise not_ported("horizon_parallel (the associative scans)",
-                         "ROADMAP.md queue 1, item 12")
+    adaptive rho a shared cache becomes per-instance and is carried too.
+    ``horizon_parallel`` runs the horizon recursions as associative scans
+    (ops/scans.py)."""
     B = x0s.shape[0]
     nx, nu, N = problem.nx, problem.nu, problem.N
     dtype, dev = x0s.dtype, x0s.device
@@ -113,7 +111,8 @@ def run_mpc_loop(problem: Problem, cache: Cache, settings: Settings, x0s,
                 prob = problem.replace(Xref=Xrefs[t], Uref=Urefs[t])
             state = batch_mod.set_x0_batch(state, x)
             state, cache, sol = batch_mod.solve_batch(
-                prob, cache, settings, state, cache_batched=cache_batched)
+                prob, cache, settings, state, cache_batched=cache_batched,
+                horizon_parallel=horizon_parallel)
             u0 = sol.u[:, 0, :]
             xs[:, t], us[:, t] = x, u0
             iters[:, t], solved[:, t] = sol.iter, sol.solved

@@ -19,6 +19,10 @@ the host: the compaction is a cumsum and a scatter.
 ``two_phase_adaptive_solve`` is the pipeline kernel K2's carry exists for: a
 bulk pass with per-lane adaptive rho, the same compaction, and a warm
 continuation of the stragglers on the same kernel, each from its own rho.
+``requantized_adaptive_solve`` is the JAX adaptive headline row's form of it
+(the ``pipeline`` that bench.py's ``quadrotor_adaptive`` row builds inline):
+the same bulk pass, then each straggler's settled rho snapped onto exact
+bucket caches and the stragglers continued at fixed rho on K1's group grid.
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ from ..ops.cuda.adaptive_kernel import AdaptiveFusedCarry, condensed_adaptive
 from ..ops.cuda.condensed_kernel import (FusedCarry,
                                          make_condensed_fused_solver)
 from ..ops.rho import RHO_INTERVAL
-from .rebuild import compact_members
+from .rebuild import bucket_maps, compact_members
+from .rebuild import merge_lanes as _merge
 
 # The headline workload's settings (bench.py's _pipeline): box-bounded
 # inputs, no state bound, tolerance 1e-3, over-relaxation 1.7, residual
@@ -116,11 +121,7 @@ def three_phase_solve(maps, rho, u_min, u_max, x_min, x_max, x0s, *, nx, nu,
 
     # merge: valid slots overwrite their lane, invalid ones go to a dump row
     dest = torch.where(valid, idx, B)
-
-    def merge(a1, a2):
-        ext = torch.cat([a1, a1[:1]], dim=0)
-        return ext.index_copy(0, dest, a2)[:B]
-
+    merge = functools.partial(_merge, dest=dest)
     return PipelineResult(xs=merge(xs1, xs2), us=merge(us1, us2), iters1=it1,
                           solved1=ok1, idx=idx, iters2=it2, solved2=ok2,
                           unconv=unconv, valid=valid)
@@ -144,7 +145,18 @@ class AdaptivePipelineResult(NamedTuple):
     solved: torch.Tensor    # (B,)
     rho: torch.Tensor       # (B,) the rho each lane ended on
     unconv: torch.Tensor    # (B,) lanes unconverged after the bulk pass
-    overflow: torch.Tensor  # 0-d int32, stragglers beyond the slots
+    overflow: torch.Tensor  # int32 stragglers beyond the slots: 0-d, or
+    #                         (G,) a bucket for the requantized pipeline
+
+
+def _adaptive_kw(tmaps, nx, nu, N) -> dict:
+    """The adaptive row's K2 settings (the constants above)."""
+    return dict(plant=None, nx=nx, nu=nu, N=N, abs_pri_tol=TOL,
+                abs_dua_tol=TOL, en_input_bound=True, en_state_bound=False,
+                relaxation_alpha=1.0, adaptive_rho_min=float(tmaps.rho0),
+                adaptive_rho_max=ADAPTIVE_RHO_MAX, adaptive_rho_clipping=True,
+                check_termination=1, controller=ADAPTIVE_CONTROLLER,
+                taylor_trust=ADAPTIVE_TAYLOR_TRUST)
 
 
 def two_phase_adaptive_solve(tmaps, u_min, u_max, x_min, x_max, x0s, *, nx,
@@ -171,12 +183,7 @@ def two_phase_adaptive_solve(tmaps, u_min, u_max, x_min, x_max, x0s, *, nx,
             raise ValueError(f"the adaptive pipeline's budgets must be "
                              f"multiples of {RHO_INTERVAL}; got {budgets}")
     solve = fused or condensed_adaptive
-    kw = dict(plant=None, nx=nx, nu=nu, N=N, abs_pri_tol=TOL, abs_dua_tol=TOL,
-              en_input_bound=True, en_state_bound=False, relaxation_alpha=1.0,
-              adaptive_rho_min=float(tmaps.rho0),
-              adaptive_rho_max=ADAPTIVE_RHO_MAX, adaptive_rho_clipping=True,
-              check_termination=1, controller=ADAPTIVE_CONTROLLER,
-              taylor_trust=ADAPTIVE_TAYLOR_TRUST)
+    kw = _adaptive_kw(tmaps, nx, nu, N)
     bounds = (u_min, u_max, x_min, x_max)
     B = x0s.shape[0]
     m1, m2 = budgets
@@ -195,12 +202,98 @@ def two_phase_adaptive_solve(tmaps, u_min, u_max, x_min, x_max, x0s, *, nx,
 
     # merge: valid slots overwrite their lane, invalid ones go to a dump row
     dest = torch.where(valid, idx, B)
-
-    def merge(a1, a2):
-        ext = torch.cat([a1, a1[:1]], dim=0)
-        return ext.index_copy(0, dest, a2)[:B]
-
+    merge = functools.partial(_merge, dest=dest)
     return AdaptivePipelineResult(
         xs=merge(xs1, xs2), us=merge(us1, us2), iters=merge(it1, m1 + it2),
         solved=merge(ok1, ok2), rho=merge(rho1, rho2), unconv=unconv,
         overflow=overflow[0])
+
+
+# The requantized continuation of the adaptive row (bench.py's
+# quadrotor_adaptive): exact bucket caches at rho0 + {0, 1, 2}, the trust
+# window of the bulk pass's controller, and a 256-iteration reduced head.
+REQUANT_OFFSETS = (0.0, 1.0, 2.0)
+REQUANT_HEAD = 256
+
+
+def requantized_buckets(problem, cache, offsets=REQUANT_OFFSETS):
+    """(bucket rhos, their grouped condensed maps) for
+    ``requantized_adaptive_solve``: exact caches at rho0 + each offset,
+    built once per problem."""
+    rhos = tuple(float(cache.rho) + d for d in offsets)
+    return rhos, bucket_maps(problem, cache, rhos)
+
+
+def requantized_adaptive_solve(tmaps, bmaps, bucket_rhos, u_min, u_max,
+                               x_min, x_max, x0s, *, nx, nu, N,
+                               straggler_slots: int,
+                               budgets=ADAPTIVE_BUDGETS,
+                               bf16_head_iters: int = REQUANT_HEAD,
+                               fused_adaptive: Optional[Callable] = None,
+                               fused: Optional[Callable] = None
+                               ) -> AdaptivePipelineResult:
+    """The adaptive pipeline with a fixed-rho continuation.
+
+    The bulk pass is ``two_phase_adaptive_solve``'s (kernel K2, ``budgets[0]``
+    iterations, carry out).  Each straggler's carried rho is snapped onto
+    the nearest of ``bucket_rhos`` in linear distance; the stragglers are
+    compacted per bucket into ``straggler_slots`` slots (a pad slot gets a
+    zero carry and a zero x0, so a tile of pads exits at its first check);
+    the adaptive carry becomes K1's (``w2 = [z - y; v - g]``, then y, g, v,
+    z); and they continue warm for up to ``budgets[1]`` iterations on K1's
+    group grid (K1d), bucket g on ``bmaps[g]`` at its exact rho, the first
+    ``bf16_head_iters`` of them reduced (K1c's head: it checks only on its
+    last iteration, in fp32).  ``tmaps`` is the problem's
+    ``CondensedTaylorMaps``; ``bucket_rhos`` and ``bmaps`` come from
+    ``requantized_buckets``.  Lanes beyond a bucket's slots keep their bulk
+    result and are counted in ``overflow`` (G,).
+
+    ``fused_adaptive`` replaces ``condensed_adaptive`` and ``fused`` K1's
+    entry point by functions of the same signatures; measurements pass the
+    plain versions to time the pipeline without the kernels."""
+    for m in budgets:
+        if m % RHO_INTERVAL != 0:
+            raise ValueError(f"the adaptive pipeline's budgets must be "
+                             f"multiples of {RHO_INTERVAL}; got {budgets}")
+    solve = fused_adaptive or condensed_adaptive
+    m1, m2 = budgets
+    G = len(bucket_rhos)
+    L2 = int(straggler_slots)
+    kw2 = dict(nx=nx, nu=nu, N=N, max_iter=m2, abs_pri_tol=TOL,
+               abs_dua_tol=TOL, en_input_bound=True, en_state_bound=False,
+               relaxation_alpha=1.0, check_termination=1, warm_start=True,
+               carry_out=False, num_groups=G, bf16_head_iters=bf16_head_iters)
+    fn2 = (make_condensed_fused_solver(**kw2) if fused is None
+           else functools.partial(fused, **kw2))
+    bounds = (u_min, u_max, x_min, x_max)
+    B = x0s.shape[0]
+    dev = x0s.device
+
+    xs1, us1, it1, ok1, rho1, carry = solve(
+        tmaps, *bounds, x0s, None, max_iter=m1, warm_start=False,
+        carry_out=True, **_adaptive_kw(tmaps, nx, nu, N))
+    unconv = ok1 == 0
+    brho = torch.tensor(bucket_rhos, dtype=torch.float32, device=dev)
+    bucket = torch.argmin(torch.abs(carry.rho[0][:, None] - brho[None, :]),
+                          dim=1)
+    m = unconv[None, :] & (bucket[None, :]
+                           == torch.arange(G, device=dev)[:, None])
+    idx, _, valid, overflow = compact_members(m, L2)
+    gidx = idx.reshape(-1)
+
+    def gather(a):
+        return torch.where(valid[None, :], a[:, gidx], 0.0).contiguous()
+
+    w2 = torch.cat([carry.z - carry.y, carry.v - carry.g], dim=0)
+    warm = FusedCarry(gather(w2), gather(carry.y), gather(carry.g),
+                      gather(carry.v), gather(carry.z))
+    x0s2 = torch.where(valid[:, None], x0s[gidx], 0.0).contiguous()
+    xs2, us2, it2, ok2 = fn2(bmaps, brho, *bounds, x0s2, warm)
+
+    dest = torch.where(valid, gidx, B)
+    merge = functools.partial(_merge, dest=dest)
+    return AdaptivePipelineResult(
+        xs=merge(xs1, xs2), us=merge(us1, us2), iters=merge(it1, m1 + it2),
+        solved=merge(ok1, ok2),
+        rho=merge(rho1, brho.repeat_interleave(L2).to(rho1.dtype)),
+        unconv=unconv, overflow=overflow)
