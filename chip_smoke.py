@@ -186,6 +186,29 @@ Phases (one line each; any failure exits non-zero):
      take the chunked recursions (chunks of 128 stages): card against CPU
      (equal counts, controls within 1e-9), and on the card the associative
      scans and the chunked path against the sequential recursions;
+ 26. checkpoint: float64 constrained cartpoles on the card (defaults, and
+     relaxation_alpha=1.7) run 10 closed-loop solve() steps, are saved and
+     loaded onto the card, and both run 10 more: equal counts and controls
+     bit for bit; phase 5's float32 cartpole the same, then
+     solve_batch(method="fused") at B = 65,536 on the saved and the loaded
+     solver (K1 from maps built after the load): equal outputs bit for bit,
+     both timed (median of 3); file size, save and load seconds;
+ 27. export: utils.export of the single solve (cartpole, float64) and of
+     the batched solve (cartpole, B = 4,096, float32), made, loaded and
+     called on the card, against the eager admm.solve / batch.solve_batch:
+     equal per-lane counts, controls within 1e-12 and 1e-5; the loaded
+     program's time beside the eager call's (median of 5, CUDA events);
+ 28. the LQR sensitivities (compute_sensitivity_autograd and _fd) of the
+     cartpole and the quadrotor in float64, card against CPU: within 1e-9
+     and 1e-6 of the largest entry;
+ 29. utils.profiling.trace around one fused solve_batch (B = 65,536): the
+     Chrome trace must hold K1's kernel among its device events (one, the
+     launch counter's one); solve_stats of the result;
+ 30. codegen of phase 26's float64 solver (resident on the card), compiled
+     with g++ and run: its count and controls (1e-9) against the port's
+     solve(); native.NativeSolver (native/tinympc_native.cpp built with
+     g++) on the port's cartpole cache: status and controls (1e-9) against
+     the port's; a missing g++ fails the phase;
 then the kernels' JSON line, the card's name and power limit, and the
 result line.  K1's launches are counted over phases 5 and 6, K1e's (the
 launches that run projections) over phase 8, K2's over phase 11 (its warm
@@ -2472,6 +2495,262 @@ def rebuild_and_horizon_phases(card):
     return rows
 
 
+def persistence_phases(card):
+    """Phases 26-30: checkpoint, export, sensitivities, profiling, codegen
+    and the native runtime on the card."""
+    import shutil
+    import tempfile
+
+    from tinympc_julia_tpu_torch import (TinyMPCSolver, compute_sensitivity_fd,
+                                         compute_sensitivity_autograd)
+    from tinympc_julia_tpu_torch import native
+    from tinympc_julia_tpu_torch.models import cartpole, quadrotor
+    from tinympc_julia_tpu_torch.ops import admm
+    from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
+        condensed_fused_cuda)
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    from tinympc_julia_tpu_torch.parallel import batch as batch_mod
+    from tinympc_julia_tpu_torch.types import Settings, init_state, map_tensors
+    from tinympc_julia_tpu_torch.utils import export, profiling
+
+    dev = torch.device("cuda")
+    N = cartpole.HORIZON
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+
+    def loop(solvers, x, n):
+        """n closed-loop solve() steps of every solver from x, the plant
+        driven by the first; (last x, controls, counts) per solver."""
+        us, its = [[] for _ in solvers], [[] for _ in solvers]
+        for _ in range(n):
+            for k, sv in enumerate(solvers):
+                sv.set_x0(x)
+                sv.solve()
+                us[k].append(sv.get_solution().controls)
+                its[k].append(int(sv.solution.iter))
+            x = cartpole.simulate(x, us[0][-1][:, 0])
+        return x, us, its
+
+    def round_trip(sv, name):
+        """10 steps, save, load onto the card, 10 more steps of both: the
+        loaded solver and its file's size and save and load seconds."""
+        x, _, _ = loop([sv], np.array([0.0, 0.0, 0.1, 0.0]), 10)
+        path = tmp / f"{name}.npz"
+        t0 = time.perf_counter()
+        sv.save(path)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sv2 = TinyMPCSolver.load(path, device="cuda")
+        t_load = time.perf_counter() - t0
+        check(sv2.problem.A.is_cuda and sv2.state.x.is_cuda
+              and sv2.settings == sv.settings,
+              f"phase 26 {name}: the loaded solver is not the saved one")
+        _, us, its = loop([sv, sv2], x, 10)
+        same = its[1] == its[0] and all(np.array_equal(a, b)
+                                        for a, b in zip(*us))
+        print(f"phase 26 checkpoint {name}: 10 + 10 closed-loop solve() "
+              f"steps, the loaded solver's counts {its[1]} (saved "
+              f"{its[0]}), controls equal bit for bit: {same}; file "
+              f"{path.stat().st_size} bytes, save {t_save:.4f} s, load "
+              f"{t_load:.4f} s (host clock) on {card}", flush=True)
+        check(same, f"phase 26 {name}: the resumed solver differs")
+        return sv2
+
+    # -- phase 26: checkpoint ------------------------------------------------
+    t0 = time.perf_counter()
+    cp64 = cartpole.make_solver(device="cuda", dtype=torch.float64,
+                                max_iter=100, constrained=True)
+    round_trip(cp64, "cartpole float64")
+    cp17 = cartpole.make_solver(device="cuda", dtype=torch.float64,
+                                max_iter=100, constrained=True)
+    cp17.update_settings(relaxation_alpha=1.7)
+    round_trip(cp17, "cartpole float64, relaxation_alpha=1.7")
+    # the fused path is float32: phase 5's cartpole (|u| <= 5, alpha 1.7,
+    # ct 4, 400 iterations), saved after its 10 solve() steps; the loaded
+    # solver's K1 launch reads maps built after the load
+    f32 = cartpole.make_solver(device="cuda", dtype=torch.float32,
+                               max_iter=400)
+    f32.set_bound_constraints(np.full((4, N), -1e17), np.full((4, N), 1e17),
+                              np.full((1, N - 1), -5.0),
+                              np.full((1, N - 1), 5.0))
+    f32.update_settings(relaxation_alpha=1.7, check_termination=4)
+    f32b = round_trip(f32, "cartpole float32 (phase 5's settings)")
+    check(f32b._condensed_maps is None, "phase 26: the load kept maps")
+    x0_main = torch.as_tensor(
+        np.random.default_rng(0).uniform(-0.5, 0.5, size=(B_MAIN, 4)),
+        dtype=torch.float32, device=dev)
+    condensed_fused_cuda.launches = 0
+    out_a = f32.solve_batch(x0_main, method="fused")
+    out_b = f32b.solve_batch(x0_main, method="fused")
+    torch.cuda.synchronize()
+    n26 = condensed_fused_cuda.launches
+    check(n26 == 2, f"phase 26: two fused solves launched K1 {n26} times")
+    same26 = all(torch.equal(a, b) for a, b in zip(out_a, out_b))
+    t_a, t_b = paired_ms(lambda: f32.solve_batch(x0_main, method="fused"),
+                         lambda: f32b.solve_batch(x0_main, method="fused"),
+                         reps=3)
+    print(f"phase 26 solve_batch(method='fused') B={B_MAIN} on the saved and "
+          f"the loaded float32 solver: {int(out_b[3].sum())} converged, "
+          f"outputs equal bit for bit: {same26}; K1 launches {n26}; "
+          f"{t_a:.3f} ms saved, {t_b:.3f} ms loaded (median of 3, CUDA "
+          f"events) on {card}; {time.perf_counter() - t0:.1f} s for the "
+          "phase", flush=True)
+    check(same26, "phase 26: the loaded solver's fused batch differs")
+
+    # -- phase 27: export ----------------------------------------------------
+    t0 = time.perf_counter()
+    sv = cartpole.make_solver(device="cuda", dtype=torch.float64,
+                              max_iter=100, constrained=True)
+    sv.set_x0([0.5, 0.0, 0.1, 0.0])
+    p64, c64, s64, st64 = sv.problem, sv.cache, sv.settings, sv.state
+    t1 = time.perf_counter()
+    fn1 = export.load_solve(export.export_solve(p64, c64, s64, st64))
+    t_exp1 = time.perf_counter() - t1
+    sol_x = fn1(p64, c64, st64)[2]
+    sol_e = admm.solve(p64, c64, s64, st64)[2]
+    du1 = (sol_x.u - sol_e.u).abs().max().item()
+    check(sol_x.u.is_cuda and int(sol_x.iter) == int(sol_e.iter)
+          and du1 <= 1e-12, f"phase 27 single: counts {int(sol_x.iter)} / "
+          f"{int(sol_e.iter)}, controls {du1:.3e}")
+    tx1, te1 = paired_ms(lambda: fn1(p64, c64, st64),
+                         lambda: admm.solve(p64, c64, s64, st64))
+    B27 = 4096
+    p32 = map_tensors(lambda t: t.to(torch.float32), p64)
+    c32 = precompute_cache(p32.A, p32.B, p32.Q, p32.R, p32.rho_setup)
+    s32 = Settings(max_iter=100, en_state_bound=False, relaxation_alpha=1.6)
+    st32 = batch_mod.set_x0_batch(batch_mod.broadcast_state(
+        init_state(4, 1, N, dtype=torch.float32, device=dev), B27),
+        torch.as_tensor(np.random.default_rng(27).uniform(
+            -0.8, 0.8, size=(B27, 4)), dtype=torch.float32, device=dev))
+    t1 = time.perf_counter()
+    fnb = export.load_solve(export.export_solve(p32, c32, s32, st32,
+                                                batched=True))
+    t_expb = time.perf_counter() - t1
+    sb_x = fnb(p32, c32, st32)[2]
+    sb_e = batch_mod.solve_batch(p32, c32, s32, st32)[2]
+    dub = (sb_x.u - sb_e.u).abs().max().item()
+    same_it = torch.equal(sb_x.iter, sb_e.iter)
+    check(sb_x.u.is_cuda and same_it and dub <= 1e-5,
+          f"phase 27 batched: counts equal {same_it}, controls {dub:.3e}")
+    txb, teb = paired_ms(lambda: fnb(p32, c32, st32),
+                         lambda: batch_mod.solve_batch(p32, c32, s32, st32))
+    print(f"phase 27 export made and called on the card: single cartpole "
+          f"float64 {int(sol_x.iter)} iterations (eager "
+          f"{int(sol_e.iter)}), controls within {du1:.3e}; loaded program "
+          f"{tx1:.3f} ms, eager admm.solve {te1:.3f} ms; batched B={B27} "
+          f"float32 counts equal on every lane: {same_it} (mean "
+          f"{sb_x.iter.float().mean().item():.1f}, {int(sb_x.solved.sum())} "
+          f"converged), controls within {dub:.3e}; loaded program "
+          f"{txb:.3f} ms, eager solve_batch {teb:.3f} ms (median of 5, CUDA "
+          f"events); export and load {t_exp1:.1f} s and {t_expb:.1f} s "
+          f"(host) on {card}; {time.perf_counter() - t0:.1f} s for the "
+          "phase", flush=True)
+
+    # -- phase 28: sensitivities ---------------------------------------------
+    t0 = time.perf_counter()
+    errs28 = []
+    for mod in (cartpole, quadrotor):
+        args = (mod.A, mod.B, np.diag(mod.Q_DIAG), np.diag(mod.R_DIAG))
+        res = []  # (autograd, fd) on the card, then on the CPU
+        for d in (dev, torch.device("cpu")):
+            t = [torch.as_tensor(a, dtype=torch.float64, device=d)
+                 for a in args]
+            res.append((compute_sensitivity_autograd(*t, mod.RHO),
+                        compute_sensitivity_fd(*t, mod.RHO)))
+        for k, (what, tol) in enumerate((("autograd", 1e-9), ("fd", 1e-6))):
+            for a, b in zip(res[0][k], res[1][k]):
+                check(a.is_cuda, "phase 28: a sensitivity left the card")
+                scale = max(1.0, b.abs().max().item())
+                err = (a.cpu() - b).abs().max().item() / scale
+                errs28.append((mod.__name__.rsplit(".")[-1], what, err))
+                check(err <= tol, f"phase 28 {mod.__name__} {what}: card vs "
+                      f"CPU {err:.3e} > {tol} (relative to the largest entry)")
+    worst = {}
+    for m, what, e in errs28:
+        worst[(m, what)] = max(worst.get((m, what), 0.0), e)
+    print("phase 28 LQR sensitivities in float64, card vs CPU (largest "
+          "difference relative to the largest entry): " + ", ".join(
+              f"{m} {w} {e:.3e}" for (m, w), e in worst.items())
+          + f"; {time.perf_counter() - t0:.1f} s for the phase", flush=True)
+
+    # -- phase 29: profiling -------------------------------------------------
+    log_dir = tmp / "trace"
+    condensed_fused_cuda.launches = 0
+    with profiling.trace(str(log_dir)):
+        out29 = f32b.solve_batch(x0_main, method="fused")
+    n29 = condensed_fused_cuda.launches
+    with open(log_dir / "trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    k1_events = [e for e in events if e.get("cat") == "kernel"
+                 and "condensed_fused_kernel" in e.get("name", "")]
+    n_dev = sum(1 for e in events if e.get("cat") == "kernel")
+    stats = profiling.solve_stats(
+        type("Sol", (), dict(iter=out29[2], solved=out29[3]))())
+    k1_us = sum(float(e.get("dur", 0.0)) for e in k1_events)
+    print(f"phase 29 profiling.trace around solve_batch(method='fused') "
+          f"B={B_MAIN}: {len(k1_events)} K1 launches among {n_dev} device "
+          f"kernel events in the trace ({k1_us:.1f} us of K1 device time; "
+          f"'{k1_events[0]['name'] if k1_events else None}'), the launch "
+          f"count {n29}; solve_stats {stats} on {card}", flush=True)
+    check(k1_events, "phase 29: no K1 device event in the trace")
+    check(n29 == 1 and len(k1_events) == 1, "phase 29: K1 launches "
+          f"{n29} counted, {len(k1_events)} traced, not 1")
+    check(stats["n"] == B_MAIN and stats["converged"] > B_MAIN // 2,
+          f"phase 29: solve_stats {stats}")
+
+    # -- phase 30: codegen and the native runtime ------------------------------
+    t0 = time.perf_counter()
+    gxx = shutil.which("g++")
+    check(gxx is not None, "phase 30: no g++")
+    out_dir = tmp / "codegen"
+    cp64.set_x0([0.5, 0.0, 0.1, 0.0])
+    check(cp64.codegen(str(out_dir)) == 0 and cp64.state.x.is_cuda,
+          "phase 30: codegen failed")
+    exe = out_dir / "build" / "tiny_mpc_example"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-I", str(out_dir / "tinympc"),
+                    str(out_dir / "src" / "tiny_data.cpp"),
+                    str(out_dir / "src" / "tiny_main.cpp"), "-o", str(exe)],
+                   check=True, capture_output=True)
+    lines = subprocess.run([str(exe)], check=True, capture_output=True,
+                           text=True).stdout.strip().splitlines()
+    it_c = int(lines[0].split()[3])
+    u_c = np.array([[float(v) for v in ln.split()] for ln in lines[1:]])
+    cp64.solve()
+    u_p = cp64.get_solution().controls.T
+    du_c = float(np.abs(u_c - u_p).max())
+    check(it_c == int(cp64.solution.iter) and du_c <= 1e-9,
+          f"phase 30: the compiled project's {it_c} iterations / controls "
+          f"{du_c:.3e} against the port's {int(cp64.solution.iter)}")
+    ns = native.NativeSolver()
+    ref = cartpole.make_solver(device="cuda", dtype=torch.float64,
+                               max_iter=50, constrained=True)
+    ref.set_x0([0.5, 0.0, 0.0, 0.0])
+    pr, ca = ref.problem, ref.cache
+    ns.setup(cartpole.A, cartpole.B, None, np.diag(cartpole.Q_DIAG),
+             np.diag(cartpole.R_DIAG), 1.0, 4, 1, N, max_iter=50)
+    ns.set_bound_constraints(*(np.clip(t.cpu().numpy().T, -1e30, 1e30)
+                               for t in (pr.x_min, pr.x_max, pr.u_min,
+                                         pr.u_max)))
+    ns.update_settings(max_iter=50, en_state_bound=True, en_input_bound=True)
+    ns.set_cache_terms(*(t.cpu().numpy() for t in (ca.Kinf, ca.Pinf,
+                                                   ca.Quu_inv, ca.AmBKt)))
+    ns.set_x0([0.5, 0.0, 0.0, 0.0])
+    st_n = ns.solve()
+    _, u_n = ns.get_solution()
+    ns.cleanup()
+    st_p = ref.solve()
+    du_n = float(np.abs(u_n - ref.get_solution().controls).max())
+    print(f"phase 30 codegen of the phase-26 float64 solver (resident on the "
+          f"card), compiled with g++ and run: {it_c} iterations, controls "
+          f"within {du_c:.3e} of the port's solve(); native.NativeSolver "
+          f"({native.build_library().name}) status {st_n}, port status "
+          f"{st_p}, controls within {du_n:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s for the phase (host) on {card}",
+          flush=True)
+    check(st_n == st_p and du_n <= 1e-9, f"phase 30: native status "
+          f"{st_n} / {st_p}, controls {du_n:.3e}")
+    shutil.rmtree(tmp)
+
+
 def build_kernels():
     """Phase 2: the three kernels' sources, one nvcc each, side by side."""
     from tinympc_julia_tpu_torch.ops.cuda._build import (load_libraries,
@@ -2521,6 +2800,9 @@ def main():
     print(f"phases 18-21 done {time.perf_counter() - t_start:.0f} s after "
           "the start", flush=True)
     rows += rebuild_and_horizon_phases(card)
+    print(f"phases 22-25 done {time.perf_counter() - t_start:.0f} s after "
+          "the start", flush=True)
+    persistence_phases(card)
     print(f"all phases done {time.perf_counter() - t_start:.0f} s after the "
           "start", flush=True)
     print(json.dumps({"kernels": rows}))

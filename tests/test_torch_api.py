@@ -1,4 +1,4 @@
-"""The port's TinyMPCSolver vs the JAX package's, and its unported surface."""
+"""The port's TinyMPCSolver vs the JAX package's."""
 import dataclasses
 
 import numpy as np
@@ -222,15 +222,39 @@ def test_references_rebuild_the_taylor_maps():
     np.testing.assert_allclose(p[1].numpy(), j[1], atol=1e-9)
 
 
-@pytest.mark.parametrize("call", [
-    lambda s: s.compute_sensitivity_autograd(),
-    lambda s: s.codegen("out"),
-    lambda s: s.save("x"),
-], ids=["sensitivity", "codegen", "save"])
-def test_unported_surface_raises(call):
-    s = _setup(P.TinyMPCSolver(dtype=torch.float32, device=CPU))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        call(s)
+def test_compute_sensitivity_autograd_matches_jax():
+    """The solver's LQR sensitivities from its setup data: numpy arrays
+    within 1e-9 (relative to the largest entry) of the JAX solver's."""
+    js = _setup(J.TinyMPCSolver(dtype=jnp.float64))
+    ps = _setup(P.TinyMPCSolver(dtype=torch.float64, device=CPU))
+    for a, b in zip(ps.compute_sensitivity_autograd(),
+                    js.compute_sensitivity_autograd()):
+        assert isinstance(a, np.ndarray) and a.shape == b.shape
+        assert np.abs(a - b).max() <= 1e-9 * max(1.0, np.abs(b).max())
+
+
+@pytest.mark.parametrize("verbose", [False, True], ids=["short", "verbose"])
+def test_print_problem_data_matches_jax(capsys, verbose):
+    """The same lines as the JAX solver's, before and after a solve."""
+    js = _setup(J.TinyMPCSolver(dtype=jnp.float64))
+    ps = _setup(P.TinyMPCSolver(dtype=torch.float64, device=CPU))
+    texts = []
+    for s in (js, ps):
+        s.print_problem_data(verbose=verbose)
+        s.set_x0([0.5, 0.0, 0.1, 0.0])
+        s.solve()
+        s.print_problem_data(verbose=verbose)
+        texts.append(capsys.readouterr().out)
+    assert texts[1] == texts[0]
+    assert ("Cache Kinf" in texts[1]) == verbose
+
+
+def test_top_level_names_cover_the_jax_package():
+    """Every public name of the JAX package is public in the port."""
+    missing = sorted(set(J.__all__) - set(P.__all__))
+    assert not missing, missing
+    assert all(hasattr(P, name) for name in P.__all__)
+    assert P.scans.__name__.endswith("ops.scans")
 
 
 def test_solver_checks_its_inputs():

@@ -4,8 +4,10 @@ group grid, K1d; with its reduced-precision product and head, K1c), K2
 on the card: each CUDA kernel vs its plain PyTorch version, the port's main
 paths through them (the fused MPC loop chained through K1's carry, the
 bucketed rebuild and the requantized adaptive continuation among them),
-and the single-instance and chunked float64 solves on the card.  Every
-test here
+and the single-instance and chunked float64 solves on the card; a
+checkpoint round trip on the card and across to the CPU, an exported solve
+made and called on the card, and a profiler trace with the card's kernel
+events.  Every test here
 is marked ``cuda`` and skips where CUDA is not available.  The file imports
 no JAX, so it also runs on a machine that has only the port's dependencies:
 
@@ -1174,3 +1176,107 @@ def test_chunked_float64_solve_card_vs_cpu(dev):
     np.testing.assert_allclose(ck[1], ch[1], atol=1e-9)
     np.testing.assert_allclose(ak[1], ah[1], atol=1e-9)
     torch.testing.assert_close(buk, buh, atol=1e-9, rtol=0)
+
+
+def _cartpole_loop(solvers, x, n):
+    """``n`` closed-loop steps of every solver from ``x`` (the plant driven
+    by the first one); returns the last x, the controls and the counts."""
+    us, its = [[] for _ in solvers], [[] for _ in solvers]
+    for _ in range(n):
+        for k, s in enumerate(solvers):
+            s.set_x0(x)
+            s.solve()
+            us[k].append(s.get_solution().controls)
+            its[k].append(int(s.solution.iter))
+        x = cartpole.simulate(x, us[0][-1][:, 0])
+    return x, us, its
+
+
+def test_checkpoint_on_the_card_and_across_to_the_cpu(dev, tmp_path):
+    """A float64 cartpole saved on the card mid closed loop: loaded on the
+    card it resumes bit for bit; loaded on the CPU it agrees (equal counts,
+    controls within 1e-12)."""
+    s = cartpole.make_solver(device=dev, dtype=torch.float64,
+                             max_iter=100, constrained=True)
+    s.update_settings(relaxation_alpha=1.7)
+    x, _, _ = _cartpole_loop([s], np.array([0.0, 0.0, 0.1, 0.0]), 10)
+    path = str(tmp_path / "card.npz")
+    s.save(path)
+    on_card = TinyMPCSolver.load(path, device=dev)
+    on_cpu = TinyMPCSolver.load(path, device="cpu")
+    assert on_card.problem.A.is_cuda and on_card.state.x.is_cuda
+    assert on_card.settings == s.settings == on_cpu.settings
+    _, us, its = _cartpole_loop([s, on_card, on_cpu], x, 10)
+    assert its[1] == its[0] and its[2] == its[0]
+    for a, b, c in zip(*us):
+        np.testing.assert_array_equal(b, a)
+        np.testing.assert_allclose(c, a, atol=1e-12, rtol=0)
+
+
+def test_export_made_and_called_on_the_card(dev):
+    """The exported batched solve, made on the card, runs on the card and
+    gives the eager solve's counts and controls (1e-12, float64)."""
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    from tinympc_julia_tpu_torch.parallel import batch
+    from tinympc_julia_tpu_torch.types import Settings, init_state
+    from tinympc_julia_tpu_torch.utils import export
+
+    p = make_problem(cartpole.A, cartpole.B, np.diag(cartpole.Q_DIAG),
+                     np.diag(cartpole.R_DIAG), 1.0, N, u_min=-5.0,
+                     u_max=5.0, dtype=torch.float64, device=dev)
+    c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+    st = batch.set_x0_batch(batch.broadcast_state(
+        init_state(4, 1, N, dtype=torch.float64, device=dev), 64),
+        _x0(64, 4, 6, 0.8, dev).double())
+    s = Settings(max_iter=100, en_state_bound=False, relaxation_alpha=1.6)
+    fn = export.load_solve(export.export_solve(p, c, s, st, batched=True))
+    _, _, sol = fn(p, c, st)
+    _, _, ref = batch.solve_batch(p, c, s, st)
+    assert sol.u.is_cuda
+    assert torch.equal(sol.iter, ref.iter)
+    assert torch.equal(sol.solved, ref.solved)
+    torch.testing.assert_close(sol.u, ref.u, atol=1e-12, rtol=0)
+
+
+def test_export_of_the_exact_rebuild_on_the_card(dev):
+    """adaptive_rho_rebuild exports as a fixed-point loop inside the solve's
+    loop; made and called on the card it gives the eager solve's count and
+    controls (1e-12, float64) with a moved rho."""
+    from tinympc_julia_tpu_torch.ops import admm
+    from tinympc_julia_tpu_torch.utils import export
+
+    s = cartpole.make_solver(device=dev, dtype=torch.float64, max_iter=60,
+                             adaptive_rho=True, adaptive_rho_min=0.5,
+                             adaptive_rho_max=5.0, constrained=True)
+    s.update_settings(adaptive_rho_controller="termination",
+                      adaptive_rho_rebuild=True)
+    s.set_x0([1.2, -0.3, 0.2, 0.1])
+    args = (s.problem, s.cache, s.state)
+    fn = export.load_solve(export.export_solve(s.problem, s.cache,
+                                               s.settings, s.state))
+    _, ca, sol = fn(*args)
+    _, ca_ref, ref = admm.solve(s.problem, s.cache, s.settings, s.state)
+    assert sol.u.is_cuda and int(sol.iter) == int(ref.iter)
+    assert float(ca.rho) == float(ca_ref.rho) != float(s.cache.rho)
+    torch.testing.assert_close(sol.u, ref.u, atol=1e-12, rtol=0)
+
+
+def test_profiler_trace_holds_the_kernel(dev, tmp_path):
+    """utils.profiling.trace around a fused batch solve: the trace names K1's
+    CUDA symbol among its device events."""
+    import json
+    from tinympc_julia_tpu_torch.utils import profiling
+
+    s = cartpole.make_solver(device=dev, dtype=torch.float32,
+                             constrained=True)
+    x0s = _x0(1024, 4, 7, 0.5, dev)
+    s.solve_batch(x0s, method="fused")  # build and load before tracing
+    with profiling.trace(str(tmp_path)):
+        out = s.solve_batch(x0s, method="fused")
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "condensed_fused" in e.get("name", "")]
+    assert kernels, "no K1 device event in the trace"
+    assert profiling.solve_stats(
+        type("S", (), dict(iter=out[2], solved=out[3]))())["n"] == 1024

@@ -24,8 +24,15 @@ exact-rebuild adaptive-rho pipeline (parallel/rebuild.py,
 ``TinyMPCSolver.solve_batch_rebuild_adaptive``) and the requantized adaptive
 continuation (parallel/pipeline.py), both on K1's group grid; the
 long-horizon recursions (ops/scans.py: chunked condensation and associative
-scans, ``solve(chunked=...)``, ``method="chunked"``, ``horizon_parallel``).
-K1 runs its product
+scans, ``solve(chunked=...)``, ``method="chunked"``, ``horizon_parallel``);
+the rest of the user surface: the Julia-style LQR and its rho sensitivities
+(``solve_lqr``, ``compute_sensitivity_autograd``, ``compute_sensitivity_fd``
+in ops/riccati.py), checkpoints in the JAX package's file format
+(utils/checkpoint.py, ``TinyMPCSolver.save``/``load``), ``torch.export`` of
+the single and batched solves (utils/export.py), ``torch.profiler`` traces
+and solve statistics (utils/profiling.py), the embedded C++ emitter
+(codegen/, ``TinyMPCSolver.codegen``) and the ctypes binding of the native
+runtime (native.py).  K1 runs its product
 as a lane-tile GEMM on the H100 (fp32 FMA in index order, bf16 tensor cores
 for reduced iterations), and every fp32 path runs its matmuls in full fp32
 (utils/precision.py), whatever the process-wide TF32 setting.
@@ -45,17 +52,23 @@ from .types import (  # noqa: F401
     settings_bake_key,
     stack_instances,
 )
-from .ops import admm, projections, riccati  # noqa: F401
+from .ops import admm, projections, riccati, scans  # noqa: F401
 from .ops import rho as rho_adaptation  # noqa: F401
 from .ops.admm import solve  # noqa: F401
-from .ops.riccati import precompute_cache  # noqa: F401
+from .ops.riccati import (  # noqa: F401
+    compute_sensitivity_autograd,
+    compute_sensitivity_fd,
+    precompute_cache,
+    solve_lqr,
+)
 from .api import BatchWarmCarry, TinyMPCSolver  # noqa: F401
 
 __version__ = "0.1.0"
 
 __all__ = [
     "BatchWarmCarry", "Cache", "ConeSet", "Problem", "Settings", "Solution",
-    "State", "TinyMPCSolver", "default_settings", "expand_lanes",
+    "State", "TinyMPCSolver", "compute_sensitivity_autograd",
+    "compute_sensitivity_fd", "default_settings", "expand_lanes",
     "init_state", "make_problem", "precompute_cache", "settings_bake_key",
-    "solve", "stack_instances",
+    "solve", "solve_lqr", "stack_instances",
 ]

@@ -11,8 +11,11 @@ long-horizon recursions (chunked, or associative scans with
 projections and its reduced-precision head; with ``adaptive_rho`` the
 Taylor-expanded maps and kernel K2) with warm continuation, and
 ``solve_batch_rebuild_adaptive`` (the bucketed exact-rebuild pipeline,
-parallel/rebuild.py).  Every other method raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it.
+parallel/rebuild.py), the rho sensitivities of the Julia-style LQR
+(``compute_sensitivity_autograd``), ``print_problem_data``, the embedded C++
+emitter (``codegen``, ``codegen_with_sensitivity``; codegen/emitter.py) and
+checkpoints in the JAX package's file format (``save``, ``load``;
+utils/checkpoint.py).
 
 Matrix layout at this boundary follows the reference: states (nx, N),
 controls (nu, N-1); ``solve_batch`` returns tensors on the solver's device,
@@ -29,7 +32,8 @@ import numpy as np
 import torch
 
 from . import types as T
-from .ops import admm, not_ported, riccati
+from .codegen import emitter
+from .ops import admm, riccati
 from .ops.condensed import (auto_chunk_size, auto_uses_condensed,
                             build_condensed, build_condensed_taylor,
                             solve_condensed, solve_condensed_adaptive)
@@ -41,6 +45,7 @@ from .ops.scans import build_chunk_maps
 from .parallel import batch as batch_mod
 from .parallel.rebuild import (bucket_maps, default_bucket_rhos,
                                make_bucketed_rebuild)
+from .utils import checkpoint
 
 
 class MPCSolution(NamedTuple):
@@ -81,6 +86,9 @@ class TinyMPCSolver:
         self.is_setup = False
         # the associative-scan horizon recursions in solve() (ops/scans.py)
         self.horizon_parallel = False
+        # the user's data as setup took it, for the sensitivities and the
+        # checkpoint's metadata
+        self._user = {}
         self._drop_maps()
         # per-bucket straggler-slot overflow of the last bucketed-rebuild
         # solve (None before any)
@@ -114,6 +122,9 @@ class TinyMPCSolver:
             raise ValueError(f"R has shape {Rm.shape}, expected ({nu}, {nu})")
         f = np.zeros(nx) if f is None else np.asarray(f, float).reshape(nx)
 
+        self._user = dict(A=A, B=B, Q=Qm if Qm.ndim == 2 else np.diag(Qm),
+                          R=Rm if Rm.ndim == 2 else np.diag(Rm),
+                          f=f, rho=float(rho), nx=nx, nu=nu, N=N)
         self.problem = T.make_problem(A, B, Qm, Rm, rho, N, f=f,
                                       dtype=self.dtype, device=self.device)
         p = self.problem
@@ -577,25 +588,71 @@ class TinyMPCSolver:
                 print(msg)
         return xs, us, iters, solved, rho
 
-    # -- not ported yet ------------------------------------------------------
+    # -- sensitivity and diagnostics ----------------------------------------
 
     def compute_sensitivity_autograd(self):
-        raise not_ported("compute_sensitivity_autograd",
-                         "ROADMAP.md queue 1, item 14")
+        """Exact d/drho of the Julia-style LQR terms of the setup data
+        (``riccati.compute_sensitivity_autograd``, forward-mode AD).
+        Returns (dK, dP, dC1, dC2) as numpy arrays."""
+        self._require_setup()
+        u = self._user
+        out = riccati.compute_sensitivity_autograd(
+            *(self._tensor(u[k]) for k in ("A", "B", "Q", "R")), u["rho"])
+        return tuple(m.cpu().numpy() for m in out)
 
     def print_problem_data(self, *, verbose=False):
-        raise not_ported("print_problem_data", "ROADMAP.md queue 1, item 14")
+        """Print the solution's status, rho, the main settings and the
+        dimensions (and with ``verbose`` the last solution and Kinf/Pinf),
+        in the JAX package's lines."""
+        self._require_setup()
+        sol = self.solution
+        print("=== TinyMPC Problem Data ===")
+        print(f"Solution: iter={0 if sol is None else int(sol.iter)}, "
+              f"solved={0 if sol is None else int(sol.solved)}")
+        print(f"Cache: rho={float(self.cache.rho)}")
+        print(f"Settings: max_iter={self.settings.max_iter}, "
+              f"abs_pri_tol={self.settings.abs_pri_tol}, "
+              f"abs_dua_tol={self.settings.abs_dua_tol}")
+        print(f"Problem: nx={self.problem.nx}, nu={self.problem.nu}")
+        if verbose and sol is not None:
+            print(f"States x:\n{sol.x.cpu().numpy().T}")
+            print(f"Controls u:\n{sol.u.cpu().numpy().T}")
+            print(f"Cache Kinf:\n{self.cache.Kinf.cpu().numpy()}")
+            print(f"Cache Pinf:\n{self.cache.Pinf.cpu().numpy()}")
+        return 0
 
-    def codegen(self, *args, **kwargs):
-        raise not_ported("codegen", "ROADMAP.md queue 1, item 14")
+    # -- codegen and persistence ---------------------------------------------
 
-    def codegen_with_sensitivity(self, *args, **kwargs):
-        raise not_ported("codegen_with_sensitivity",
-                         "ROADMAP.md queue 1, item 14")
+    def codegen(self, output_dir, *, verbose=False):
+        """Emit a standalone, dependency-free C++ project with the solver's
+        problem, cache, settings and workspace baked in
+        (codegen/emitter.py)."""
+        self._require_setup()
+        emitter.codegen(self, output_dir, verbose=verbose)
+        return 0
+
+    def codegen_with_sensitivity(self, output_dir, dK, dP, dC1, dC2, *,
+                                 verbose=False):
+        """``codegen`` with the given sensitivity matrices: with adaptive
+        rho they replace the cache's (and the Taylor maps, which bake them,
+        are dropped) and the project carries them; without, they are
+        ignored."""
+        self._require_setup()
+        if self.settings.adaptive_rho:
+            self.cache = self.cache.replace(
+                dKinf_drho=self._tensor(dK), dPinf_drho=self._tensor(dP),
+                dC1_drho=self._tensor(dC1), dC2_drho=self._tensor(dC2))
+            self._condensed_taylor_maps = None
+        return self.codegen(output_dir, verbose=verbose)
 
     def save(self, path):
-        raise not_ported("save", "ROADMAP.md queue 1, item 14")
+        """Checkpoint the solver (problem, cache, settings, workspace) in the
+        JAX package's file format (utils/checkpoint.py)."""
+        self._require_setup()
+        checkpoint.save(path, self)
 
     @classmethod
-    def load(cls, path):
-        raise not_ported("load", "ROADMAP.md queue 1, item 14")
+    def load(cls, path, *, device):
+        """A solver on ``device`` from a checkpoint written by ``save`` or by
+        the JAX package's ``TinyMPCSolver.save``."""
+        return checkpoint.load(path, cls, device=device)

@@ -197,8 +197,9 @@ def rebuild_update(cache: Cache, problem: Problem, new_rho, *,
     Kinf, Pinf = riccati.riccati_fixed_point(
         A, B, Q1d, R1d, new_rho, max_iter=max_iter, tol=tol,
         K0=cache.Kinf if warm else None, P0=cache.Pinf if warm else None)
-    Quu_inv = torch.linalg.inv(torch.diag(R1d) + B.T @ Pinf @ B)
-    AmBKt = (A - B @ Kinf).T
+    Kinf, Pinf, Quu_inv, AmBKt = (riccati.row_major(t) for t in (
+        Kinf, Pinf, torch.linalg.inv(torch.diag(R1d) + B.T @ Pinf @ B),
+        (A - B @ Kinf).T))
     return cache.replace(rho=new_rho, Kinf=Kinf, Pinf=Pinf, Quu_inv=Quu_inv,
                          AmBKt=AmBKt, C1=Quu_inv, C2=AmBKt)
 

@@ -20,7 +20,7 @@ from ..ops.condensed import (AdaptiveCondensedCarry, CondensedCarry,
                              CondensedMaps, CondensedTaylorMaps)
 from ..ops.cuda.adaptive_kernel import AdaptiveFusedCarry
 from ..ops.cuda.condensed_kernel import FusedCarry
-from ..types import Cache, ConeSet, Problem
+from ..types import Cache, ConeSet, Problem, State
 
 _PROBLEM_ARRAYS = ("A", "B", "f", "Q", "R", "x_min", "x_max", "u_min",
                    "u_max", "Xref", "Uref", "Alin_x", "blin_x", "Alin_u",
@@ -57,6 +57,16 @@ def problem_from_numpy(d, *, dtype, device) -> Problem:
 def cache_from_numpy(d, *, dtype, device) -> Cache:
     return Cache(**{f.name: _t(d[f.name], dtype, device)
                     for f in dataclasses.fields(Cache)})
+
+
+def state_from_numpy(d, *, dtype, device) -> State:
+    """A State (single or with leading batch axes); ``status`` and ``iter``
+    stay int32."""
+    out = {}
+    for f in dataclasses.fields(State):
+        dt = torch.int32 if f.name in ("status", "iter") else dtype
+        out[f.name] = _t(d[f.name], dt, device)
+    return State(**out)
 
 
 def maps_from_numpy(d, *, dtype, device) -> CondensedMaps:
