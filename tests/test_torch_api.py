@@ -1,5 +1,8 @@
 """The port's TinyMPCSolver vs the JAX package's."""
 import dataclasses
+import os
+import subprocess
+import sys
 
 import numpy as np
 import jax.numpy as jnp
@@ -255,6 +258,28 @@ def test_top_level_names_cover_the_jax_package():
     assert not missing, missing
     assert all(hasattr(P, name) for name in P.__all__)
     assert P.scans.__name__.endswith("ops.scans")
+
+
+def test_lazy_submodules_resolve_in_a_fresh_interpreter():
+    """``utils`` and ``ops`` give every submodule the JAX package's
+    ``__init__`` files import as an attribute after importing only the
+    top-level package, and that import loads no JAX."""
+    code = (
+        "import sys, tinympc_julia_tpu_torch as P\n"
+        "for name in ('checkpoint', 'convert', 'export', 'precision',"
+        " 'profiling'):\n"
+        "    assert getattr(P.utils, name).__name__ == "
+        "f'tinympc_julia_tpu_torch.utils.{name}', name\n"
+        "for name in ('admm', 'condensed', 'cuda', 'projections', 'rho',"
+        " 'riccati', 'scans'):\n"
+        "    assert getattr(P.ops, name).__name__ == "
+        "f'tinympc_julia_tpu_torch.ops.{name}', name\n"
+        "assert not hasattr(P.utils, 'missing')\n"
+        "assert 'jax' not in sys.modules\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
 
 
 def test_solver_checks_its_inputs():
