@@ -209,6 +209,25 @@ Phases (one line each; any failure exits non-zero):
      solve(); native.NativeSolver (native/tinympc_native.cpp built with
      g++) on the port's cartpole cache: status and controls (1e-9) against
      the port's; a missing g++ fails the phase;
+ 31. the flagship example, examples.batched_scenario_sweep.main(B=65,536,
+     device="cuda"): 65,536 quadrotor lanes (nx 12, nu 4, N 20, fp32, |u|
+     <= 0.5, max_iter 500) through solve_sharded with the vote on a world
+     of one, equal to solve_batch on the same batch bit for bit; the
+     solved count, the iteration statistics and the timed solve's wall
+     time;
+ 32. dryrun.dryrun_multichip(2, device="cuda", full=True): two gloo ranks
+     sharing cuda:0 (NCCL takes one rank a device), each holding its block
+     bit for bit against the same block run in its own process: leg 1
+     phase 31's batch, 32,768 lanes a rank, vote on and off; leg 2 the
+     headline three-phase pipeline of phase 6 through map_shards, 65,536
+     lanes, 4,096 slots a rank (K1 launched in every rank); leg 3 the
+     mis-set cartpole rebuild of phase 22 at 4,096 lanes, 2,048 a rank
+     (K1d launched in every rank, rho moved); converged counts and each
+     leg's wall time a rank;
+ 33. the nine other examples' main(device="cuda") in the quick arguments
+     of tests/test_examples.py, each with its CPU test's assertion (the
+     swing-up with --no-gif, the codegen projects into a temporary
+     directory), each timed;
 then the kernels' JSON line, the card's name and power limit, and the
 result line.  K1's launches are counted over phases 5 and 6, K1e's (the
 launches that run projections) over phase 8, K2's over phase 11 (its warm
@@ -220,7 +239,10 @@ solves of phase 19, the carry chain's (K1 launched warm from a carry) over
 the MPC loop of phase 20, the rebuild's K1d rows over the first pipeline
 run of phases 22 and 23 and the requantized continuation's over the first
 run of phase 24, each from 0 just before the phase
-and on its first, untimed runs.  The agreement bar
+and on its first, untimed runs; phase 32's ranks count K1 and K1d in their
+own processes from 0 just before legs 2 and 3 and report the counts.  The
+times of phases 31-33 are wall times of host-bound launch loops (two ranks
+on one card in phase 32), not scaling numbers.  The agreement bar
 of every kernel-vs-plain comparison: identical per-lane iteration counts on
 >= 99% of lanes (fp32 sums in another order may move a lane that sits on the
 tolerance by one check interval) and 1e-4 on the controls and states of
@@ -2751,6 +2773,131 @@ def persistence_phases(card):
     shutil.rmtree(tmp)
 
 
+def sharded_and_example_phases(card):
+    """Phases 31-33: the flagship sharded sweep on a world of one, the dry
+    run's three legs on two gloo ranks sharing the card, and the other nine
+    examples on the card.  Their times are wall times of host-bound launch
+    loops (two ranks on one card in phase 32), not scaling numbers."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import sys
+    import tempfile
+
+    from tinympc_julia_tpu_torch import dryrun
+    from tinympc_julia_tpu_torch.examples import batched_scenario_sweep
+    from tinympc_julia_tpu_torch.parallel import solve_batch
+
+    def echoed(fn, *args, **kw):
+        """fn's result and what it printed, which is printed too."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            result = fn(*args, **kw)
+        print(buf.getvalue(), end="", flush=True)
+        return result, buf.getvalue()
+
+    # -- phase 31: the flagship sweep, a world of one ------------------------
+    t0 = time.perf_counter()
+    (sol, dt), _ = echoed(batched_scenario_sweep.main, B=B_MAIN,
+                          device="cuda")
+    p, c, s, st = batched_scenario_sweep.scenario(B_MAIN, torch.device("cuda"))
+    _, _, ref = solve_batch(p, c, s, st)
+    torch.cuda.synchronize()
+    same = all(torch.equal(getattr(sol, k), getattr(ref, k))
+               for k in ("iter", "solved", "x", "u"))
+    n_ok = int(sol.solved.sum())
+    print(f"phase 31 batched_scenario_sweep.main(B={B_MAIN}) on a world of "
+          f"one: {n_ok}/{B_MAIN} solved, iterations mean "
+          f"{float(sol.iter.double().mean()):.1f} max {int(sol.iter.max())}; "
+          f"equal to solve_batch on the same batch bit for bit: {same}; the "
+          f"timed solve_sharded {dt:.3f} s wall (host-bound launch loop), "
+          f"{time.perf_counter() - t0:.1f} s for the phase on {card}",
+          flush=True)
+    check(same, "phase 31: the sharded sweep differs from solve_batch")
+    check(n_ok > 0, "phase 31: no lane solved")
+
+    # -- phase 32: the dry run's legs on two gloo ranks of the one card -----
+    t0 = time.perf_counter()
+    paths = dryrun.dryrun_multichip(2, device="cuda", full=True,
+                                    timeout=480)
+    outs = [dict(np.load(path)) for path in paths]
+    for r, out in enumerate(outs):
+        check(out["l2_k1_launches"] >= 3, f"phase 32 rank {r}: K1 launched "
+              f"{out['l2_k1_launches']} times in leg 2")
+        check(out["l3_k1d_launches"] >= 1, f"phase 32 rank {r}: K1d "
+              f"launched {out['l3_k1d_launches']} times in leg 3")
+    conv = [sum(int(o[k].sum()) for o in outs)
+            for k in ("l1_solved", "l3_solved")]
+    conv2 = sum(int(o["l2_solved1"].sum()
+                    + (o["l2_solved2"] * o["l2_valid"]).sum()) for o in outs)
+    print(f"phase 32 dryrun_multichip(2, full=True), two gloo ranks on "
+          f"cuda:0, every leg bit-equal per rank: leg 1 {conv[0]}/{B_MAIN} "
+          f"quadrotor lanes solved, wall "
+          f"{[round(float(o['l1_seconds_vote1']), 3) for o in outs]} s "
+          f"(vote) {[round(float(o['l1_seconds_vote0']), 3) for o in outs]} "
+          f"s (no vote) a rank; leg 2 (three-phase pipeline, 4,096 slots a "
+          f"rank) {conv2}/{B_MAIN} converged, wall "
+          f"{[round(float(o['l2_seconds']), 3) for o in outs]} s, K1 "
+          f"launches {[int(o['l2_k1_launches']) for o in outs]}; leg 3 "
+          f"(rebuild, 2,048 lanes a rank) {conv[1]}/4096 converged, wall "
+          f"{[round(float(o['l3_seconds']), 3) for o in outs]} s, K1d "
+          f"launches {[int(o['l3_k1d_launches']) for o in outs]}; "
+          f"{time.perf_counter() - t0:.1f} s for the phase (host) on {card}",
+          flush=True)
+
+    # -- phase 33: the other nine examples on the card -----------------------
+    def example(name):
+        return __import__(f"tinympc_julia_tpu_torch.examples.{name}",
+                          fromlist=["main"])
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    cwd, argv = os.getcwd(), sys.argv
+    times = {}
+
+    def run(name, **kw):
+        t0 = time.perf_counter()
+        out = echoed(example(name).main, device="cuda", **kw)
+        times[name] = time.perf_counter() - t0
+        return out
+
+    _, text = run("cartpole_one_solve")
+    check("[" in text, "phase 33: cartpole_one_solve printed no controls")
+    x, _ = run("cartpole_mpc", nsteps=8)
+    check(bool(np.all(np.isfinite(x))), "phase 33: cartpole_mpc")
+    (max_u, _), _ = run("cartpole_constrained", nsteps=8)
+    check(max_u <= 5.0 + 1e-9, f"phase 33: cartpole_constrained |u| {max_u}")
+    traj, _ = run("cartpole_gain_scheduled", nsteps=8, plot=False)
+    check(traj.shape == (8, 4), "phase 33: cartpole_gain_scheduled")
+    for name in ("cartpole_codegen", "quadrotor_hover_codegen"):
+        run(name, out_dir=str(tmp / name))
+        check((tmp / name / "src" / "tiny_data.cpp").exists(),
+              f"phase 33: {name} wrote no project")
+    _, text = run("misset_rho_recovery", B=8)
+    check("adaptive (rebuild)" in text, "phase 33: misset_rho_recovery")
+    _, text = run("rocket_landing")
+    check("Final position" in text, "phase 33: rocket_landing")
+    swing = example("cartpole_swingup_animation")
+    max_steps, stable_steps = swing.MAX_STEPS, swing.STABLE_STEPS
+    try:
+        os.chdir(tmp)
+        sys.argv = ["cartpole_swingup_animation.py", "--no-gif"]
+        swing.MAX_STEPS, swing.STABLE_STEPS = 60, 10
+        run("cartpole_swingup_animation")
+        states = np.load(tmp / "cartpole_swingup.npz")["states"]
+    finally:
+        os.chdir(cwd)
+        sys.argv = argv
+        swing.MAX_STEPS, swing.STABLE_STEPS = max_steps, stable_steps
+    check(states.shape[0] == swing.ATTEMPTS,
+          "phase 33: cartpole_swingup_animation")
+    shutil.rmtree(tmp)
+    print(f"phase 33 the nine other examples on the card, quick arguments, "
+          f"each with its CPU test's assertion; wall s (host-bound): "
+          f"{ {k: round(v, 3) for k, v in times.items()} } on {card}",
+          flush=True)
+
+
 def build_kernels():
     """Phase 2: the three kernels' sources, one nvcc each, side by side."""
     from tinympc_julia_tpu_torch.ops.cuda._build import (load_libraries,
@@ -2803,6 +2950,9 @@ def main():
     print(f"phases 22-25 done {time.perf_counter() - t_start:.0f} s after "
           "the start", flush=True)
     persistence_phases(card)
+    print(f"phases 26-30 done {time.perf_counter() - t_start:.0f} s after "
+          "the start", flush=True)
+    sharded_and_example_phases(card)
     print(f"all phases done {time.perf_counter() - t_start:.0f} s after the "
           "start", flush=True)
     print(json.dumps({"kernels": rows}))

@@ -1,6 +1,7 @@
 """The port's TinyMPCSolver vs the JAX package's."""
 import dataclasses
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -278,6 +279,36 @@ def test_lazy_submodules_resolve_in_a_fresh_interpreter():
         "assert 'jax' not in sys.modules\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     run = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+
+
+def test_parallel_names_cover_the_jax_package():
+    """Every name the JAX ``parallel/__init__.py`` imports (modules and
+    functions) is in the port's ``parallel``, beside ``map_shards``."""
+    import tinympc_julia_tpu.parallel as JP
+    import tinympc_julia_tpu_torch.parallel as TP
+    names = {n for n in vars(JP) if not n.startswith("_")} - {"annotations"}
+    missing = sorted(n for n in names if not hasattr(TP, n))
+    assert not missing, missing
+    assert callable(TP.map_shards) and TP.mesh.BATCH_AXIS == "batch"
+
+
+def test_slice_modules_import_no_jax():
+    """The sharded solve, the dry run and every example import no JAX."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    examples = sorted(p.stem for p in pathlib.Path(
+        root, "tinympc_julia_tpu_torch", "examples").glob("*.py")
+        if p.stem != "__init__")
+    assert len(examples) == 10
+    code = ("import importlib, sys\n"
+            "for m in sys.argv[1:]:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'jax' not in sys.modules\n")
+    mods = ["tinympc_julia_tpu_torch.parallel.sharded",
+            "tinympc_julia_tpu_torch.dryrun"] + [
+        f"tinympc_julia_tpu_torch.examples.{e}" for e in examples]
+    run = subprocess.run([sys.executable, "-c", code, *mods], cwd=root,
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stderr
 

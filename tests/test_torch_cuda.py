@@ -1280,3 +1280,35 @@ def test_profiler_trace_holds_the_kernel(dev, tmp_path):
     assert kernels, "no K1 device event in the trace"
     assert profiling.solve_stats(
         type("S", (), dict(iter=out[2], solved=out[3]))())["n"] == 1024
+
+
+def test_sharded_solve_world_of_one_on_the_card(dev):
+    """make_mesh() with no process group is a world of one on the card, and
+    solve_sharded there equals solve_batch to the bit."""
+    from tinympc_julia_tpu_torch.examples.batched_scenario_sweep import (
+        scenario)
+    from tinympc_julia_tpu_torch.parallel import (make_mesh, shard_state,
+                                                  solve_batch, solve_sharded)
+
+    mesh = make_mesh()
+    assert mesh.world == 1 and mesh.device.type == "cuda"
+    p, c, s, st = scenario(1024, mesh.device)
+    _, _, sol = solve_sharded(p, c, s, shard_state(st, mesh), mesh)
+    _, _, ref = solve_batch(p, c, s, st)
+    assert sol.u.is_cuda and int(sol.solved.sum()) > 0
+    for k in ("iter", "solved", "x", "u"):
+        assert torch.equal(getattr(sol, k), getattr(ref, k)), k
+
+
+def test_sharded_vote_on_two_ranks_of_the_card(dev, tmp_path):
+    """The dry run's leg 1 at its small shapes on two gloo ranks sharing the
+    card: each rank's sharded block, vote on and off, equals its block
+    solved alone bit for bit (the ranks check it; a rank that fails fails
+    the run)."""
+    from tinympc_julia_tpu_torch import dryrun
+
+    paths = dryrun.run_ranks(2, "tinympc_julia_tpu_torch.dryrun:leg_sharded",
+                             device="cuda", out_dir=tmp_path, timeout=600)
+    for path in paths:
+        out = np.load(path)
+        assert out["l1_iter"].shape == (2,) and out["l1_seconds_vote1"] > 0

@@ -32,7 +32,10 @@ in ops/riccati.py), checkpoints in the JAX package's file format
 the single and batched solves (utils/export.py), ``torch.profiler`` traces
 and solve statistics (utils/profiling.py), the embedded C++ emitter
 (codegen/, ``TinyMPCSolver.codegen``) and the ctypes binding of the native
-runtime (native.py).  K1 runs its product
+runtime (native.py); the multi-device layer: rank blocks of the default
+process group (parallel/mesh.py) and ``solve_sharded`` with its convergence
+vote and ``map_shards`` (parallel/sharded.py), the dry run on gloo ranks
+(dryrun.py); and the JAX package's examples (examples/).  K1 runs its product
 as a lane-tile GEMM on the H100 (fp32 FMA in index order, bf16 tensor cores
 for reduced iterations), and every fp32 path runs its matmuls in full fp32
 (utils/precision.py), whatever the process-wide TF32 setting.
