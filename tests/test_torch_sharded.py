@@ -3,9 +3,10 @@ dry run (dryrun.py) against the JAX package's, on a 2-rank gloo group of
 CPU processes.
 
 The cases of tests/test_sharding.py run on the ranks in one job
-(tests/torch_sharded_ranks.py), spawned once for the module through
-``dryrun.run_ranks``: vote on and off, float32 per block bit for bit, the
-output layout, adaptive rho, an indivisible batch, the quadrotor.  This
+(tests/test_torch_sharded_ranks.py, which holds no tests of its own),
+spawned once for the module through ``dryrun.run_ranks``: vote on and off,
+float32 per block bit for bit, the output layout, adaptive rho, an
+indivisible batch, the quadrotor.  This
 process runs JAX ``solve_sharded`` on conftest's 8 virtual devices with the
 same numpy inputs, and the ranks' blocks must match it: equal iteration
 counts and solved flags, states and controls within 1e-12 in float64.  The
@@ -37,13 +38,13 @@ from tinympc_julia_tpu_torch import parallel as TP
 from tinympc_julia_tpu_torch.ops.condensed import (
     build_condensed as build_condensed_port)
 
-import torch_sharded_ranks as R
+import test_torch_sharded_ranks as R
 
 from torch_port_common import INTERPRET
 
 WORLD = 2
 TESTS = os.path.dirname(os.path.abspath(__file__))
-JOB = "torch_sharded_ranks:run"
+JOB = "test_torch_sharded_ranks:run"
 
 
 @pytest.fixture(scope="module")
@@ -264,5 +265,5 @@ def test_dryrun_entry():
 def test_run_ranks_fails_with_a_rank():
     """A rank that raises fails the run in the caller, with its log."""
     with pytest.raises(RuntimeError, match=r"rank \d exited with 1"):
-        dryrun.run_ranks(WORLD, "torch_sharded_ranks:missing", device="cpu",
-                         timeout=120, path=[TESTS])
+        dryrun.run_ranks(WORLD, "test_torch_sharded_ranks:missing",
+                         device="cpu", timeout=120, path=[TESTS])
