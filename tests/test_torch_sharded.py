@@ -232,25 +232,30 @@ def test_dryrun_pipeline_leg_matches_jax_mesh_pipeline(dry):
     bit for bit per rank in the ranks): its first phase against the JAX
     mesh pipeline's at the bar of test_torch_condensed_kernel.py (on the
     lanes both solved, identical counts and controls within 1e-5)."""
-    us1, it1, ok1 = (_cat(dry, f"l2_{k}") for k in ("us1", "iters1",
-                                                    "solved1"))
-    assert us1.shape[0] == 64 and all(int(r["l2_unconv"].sum()) > 0
-                                      for r in dry)
+    us, it1, ok1 = (_cat(dry, f"l2_{k}") for k in ("us", "iters1",
+                                                   "solved1"))
+    assert us.shape[0] == 64 and all(int(r["l2_unconv"].sum()) > 0
+                                     for r in dry)
     jus1, jit1, jok1 = _jax_mesh_pipeline_phase1(64, 8)
+    # a lane solved in phase 1 keeps its phase-1 controls in the merge
     both = (ok1 == 1) & (jok1 == 1)
     assert both.sum() > 0
     np.testing.assert_array_equal(it1[both], jit1[both])
-    np.testing.assert_allclose(us1[both], jus1[both], atol=1e-5)
+    np.testing.assert_allclose(us[both], jus1[both], atol=1e-5)
 
 
 def test_dryrun_legs(dry):
     """Leg 1 solved some lanes; leg 3 moved rho off rho0 and converged
-    lanes; on the CPU no kernel was launched (the plain versions ran)."""
+    lanes; on the CPU no kernel was launched (the plain versions ran), so
+    legs 2 and 3 equal their runs on the plain version to the bit."""
     assert all(r["l1_iter"].shape == (2,) for r in dry)
     assert sum(int(r["l1_solved"].sum()) for r in dry) > 0
     for r in dry:
         assert int(r["l3_solved"].sum()) > 0 and r["l3_rho"].max() > 0.01
         assert r["l2_k1_launches"] == r["l3_k1_launches"] == 0
+        for leg in ("l2", "l3"):
+            assert r[f"{leg}_plain_share"] == 1.0
+            assert r[f"{leg}_plain_err"] == 0.0
 
 
 def test_dryrun_entry():

@@ -7,7 +7,11 @@
 - ``dryrun_multichip(n, *, device, full=False)``: ``n`` ranks in a gloo
   group, each running the JAX dry run's three legs on its block of the
   lanes, each held bit for bit against the same block run alone in the
-  rank's own process (the same shapes, so the same reductions):
+  rank's own process (the same shapes, so the same reductions), and legs 2
+  and 3 also against the same pipeline on kernel K1's plain version
+  (``condensed_fused_reference``) at the kernel-vs-plain bar: equal
+  iteration counts on >= 99% of lanes, controls and states within 1e-4
+  on the lanes with equal counts that both solved:
     1. ``solve_sharded`` of the quadrotor batch, with the vote and without;
     2. a kernel-K1 straggler pipeline through ``map_shards``, each rank
        compacting its own stragglers into its share of the slots, with
@@ -117,6 +121,32 @@ def check_bit_equal(name, got, want):
                and torch.equal(a, b), f"{name}: {key} differs")
 
 
+PLAIN_ITERS_AGREE = 0.99  # the kernel-vs-plain bar of chip_smoke.py
+PLAIN_ATOL = 1e-4
+
+
+def check_plain_agreement(name, got, want):
+    """Per-lane results ``(xs, us, iters, solved)`` of a pipeline on kernel
+    K1 against the same pipeline on its plain version: equal counts on >=
+    99% of lanes (fp32 sums in another order may move a lane that sits on
+    the tolerance by one check interval), states and controls within 1e-4
+    on the lanes with equal counts that both solved.  Returns (share of
+    equal counts, max |diff|)."""
+    (xk, uk, ik, sk), (xp, up, ip, sp) = got, want
+    same = ik == ip
+    share = float(same.double().mean())
+    both = same & (sk == 1) & (sp == 1)
+    err = 0.0
+    if bool(both.any()):
+        err = max(float((uk - up).abs()[both].max()),
+                  float((xk - xp).abs()[both].max()))
+    _check(share >= PLAIN_ITERS_AGREE and err <= PLAIN_ATOL
+           and bool(torch.isfinite(uk).all() and torch.isfinite(xk).all()),
+           f"{name}: against the plain version, counts equal on {share:.4f} "
+           f"of lanes, max |diff| {err:.3e}")
+    return share, err
+
+
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -185,36 +215,48 @@ def _cartpole(rho, device, **kw):
     return p, precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
 
 
-def two_phase_chain(maps, rho, bounds, x0s, *, slots):
+def two_phase_chain(maps, rho, bounds, x0s, *, slots, fused=None):
     """The K1 two-phase straggler chain of the JAX mesh pipeline
     (``tests/test_mesh_pipeline.py``) on the cartpole: a cold pass of 20
     iterations with its carry, the unconverged lanes compacted into
     ``slots`` slots, a warm continuation of up to 40 from their carry
-    (alpha 1.7, residual checks every 4 iterations)."""
+    (alpha 1.7, residual checks every 4 iterations).  ``fused`` replaces
+    K1's entry point, as in ``three_phase_solve``; the result is a
+    ``PipelineResult`` (phase 1 has no phase 0 before it)."""
     from .ops.cuda.condensed_kernel import (FusedCarry,
                                             make_condensed_fused_solver)
-    from .parallel.rebuild import compact_members
+    from .parallel.pipeline import PipelineResult
+    from .parallel.rebuild import compact_members, merge_lanes
 
-    kw = dict(en_input_bound=True, en_state_bound=False,
+    kw = dict(nx=4, nu=1, N=20, abs_pri_tol=1e-3, abs_dua_tol=1e-3,
+              en_input_bound=True, en_state_bound=False,
               relaxation_alpha=1.7, check_termination=4)
-    fn1 = make_condensed_fused_solver(4, 1, 20, max_iter=20, carry_out=True,
-                                      **kw)
-    fn2 = make_condensed_fused_solver(4, 1, 20, max_iter=40, warm_start=True,
-                                      **kw)
-    _, us1, it1, ok1, carry = fn1(maps, rho, *bounds, x0s)
+
+    def phase(**phase_kw):
+        if fused is None:
+            return make_condensed_fused_solver(**kw, **phase_kw)
+        return functools.partial(fused, **kw, **phase_kw)
+
+    fn1 = phase(max_iter=20, warm_start=False, carry_out=True)
+    fn2 = phase(max_iter=40, warm_start=True, carry_out=False)
+    xs1, us1, it1, ok1, carry = fn1(maps, rho, *bounds, x0s)
     unconv = ok1 == 0
     idx, _, valid, _ = compact_members(unconv[None, :], slots)
     idx = idx[0]
     warm = FusedCarry(*(w[:, idx].contiguous() for w in carry))
-    _, _, it2, ok2 = fn2(maps, rho, *bounds, x0s[idx].contiguous(), warm)
-    return dict(us1=us1, iters1=it1, solved1=ok1, idx=idx, iters2=it2,
-                solved2=ok2, unconv=unconv, valid=valid)
+    xs2, us2, it2, ok2 = fn2(maps, rho, *bounds, x0s[idx].contiguous(), warm)
+    merge = functools.partial(merge_lanes,
+                              dest=torch.where(valid, idx, x0s.shape[0]))
+    return PipelineResult(xs=merge(xs1, xs2), us=merge(us1, us2), iters1=it1,
+                          solved1=ok1, idx=idx, iters2=it2, solved2=ok2,
+                          unconv=unconv, valid=valid)
 
 
 def leg_pipeline(mesh, full):
     """Leg 2: the straggler pipeline through ``map_shards`` against the
-    same pipeline on the rank's block."""
+    same pipeline on the rank's block, and against it on the plain K1."""
     from .ops.condensed import build_condensed
+    from .ops.cuda.condensed_kernel import condensed_fused_reference
     from .parallel import map_shards, three_phase_solve
 
     B = 65536 if full else 32 * mesh.world
@@ -234,32 +276,37 @@ def leg_pipeline(mesh, full):
                                slots=slots)
     _zero_launch_counts()
     t0 = time.perf_counter()
-    got = _fields(map_shards(fn, mesh, x0s))
+    got = map_shards(fn, mesh, x0s)
     _sync(mesh.device)
     seconds = time.perf_counter() - t0
     launches = _launch_counts()
     b = B // mesh.world
-    want = fn(x0s[mesh.rank * b:(mesh.rank + 1) * b].contiguous())
-    check_bit_equal(f"leg 2 rank {mesh.rank}", got, want)
-    n_strag = int(got["unconv"].sum())
+    block = x0s[mesh.rank * b:(mesh.rank + 1) * b].contiguous()
+    check_bit_equal(f"leg 2 rank {mesh.rank}", got, fn(block))
+    share, err = check_plain_agreement(
+        f"leg 2 rank {mesh.rank}", got.lane_results(),
+        fn(block, fused=condensed_fused_reference).lane_results())
+    n_strag = int(got.unconv.sum())
     _check(n_strag > 0, f"leg 2 rank {mesh.rank}: phase 1 left no "
            "stragglers")
-    conv = int(got["solved1"].sum()
-               + (got["solved2"] * got["valid"]).sum())
+    conv = int(got.converged())
     print(f"rank {mesh.rank}/{mesh.world} leg 2: "
           f"{'three-phase pipeline' if full else 'two-phase K1 chain'} "
           f"through map_shards on {b} of {B} cartpole lanes, {slots} slots, "
-          f"equal to the rank's own run bit for bit; {n_strag} stragglers, "
-          f"{conv} converged; wall {seconds:.3f} s; K1 launches "
-          f"{launches['k1']}", flush=True)
-    return {**{f"l2_{k}": v for k, v in got.items()},
-            "l2_seconds": seconds, "l2_k1_launches": launches["k1"]}
+          f"equal to the rank's own run bit for bit, and to the plain K1's "
+          f"with counts equal on {share:.4f} of lanes, max |diff| {err:.3e}; "
+          f"{n_strag} stragglers, {conv} converged; wall {seconds:.3f} s; "
+          f"K1 launches {launches['k1']}", flush=True)
+    return {**{f"l2_{k}": v for k, v in got._asdict().items()},
+            "l2_seconds": seconds, "l2_k1_launches": launches["k1"],
+            "l2_plain_share": share, "l2_plain_err": err}
 
 
 def leg_rebuild(mesh, full):
     """Leg 3: the bucketed rebuild of the mis-set cartpole (rho0 = 0.01,
     |x_0| <= 2) through ``map_shards`` against the rank's own run."""
     from . import Settings
+    from .ops.cuda.condensed_kernel import condensed_fused_reference
     from .parallel import make_bucketed_rebuild, map_shards
 
     rho0 = 0.01
@@ -272,8 +319,10 @@ def leg_rebuild(mesh, full):
         b, span, p1, p2 = 16, (1e-3, 1e3), 20, 180
     s = Settings(max_iter=p1 + p2, en_state_bound=True, en_input_bound=True,
                  adaptive_rho_min=span[0], adaptive_rho_max=span[1])
-    pipe = make_bucketed_rebuild(p, c, s, phase1_iters=p1,
-                                 straggler_slots=b, phase2_iters=p2)
+    pkw = dict(phase1_iters=p1, straggler_slots=b, phase2_iters=p2)
+    pipe = make_bucketed_rebuild(p, c, s, **pkw)
+    plain = make_bucketed_rebuild(p, c, s, fused=condensed_fused_reference,
+                                  **pkw)
     B = b * mesh.world
     x0s = torch.as_tensor(np.random.default_rng(5).uniform(
         -1, 1, size=(B, 4)) * np.array([1.8, 1.0, 0.4, 0.5]),
@@ -284,8 +333,17 @@ def leg_rebuild(mesh, full):
     _sync(mesh.device)
     seconds = time.perf_counter() - t0
     launches = _launch_counts()
-    want = pipe.solve(x0s[mesh.rank * b:(mesh.rank + 1) * b].contiguous())
-    check_bit_equal(f"leg 3 rank {mesh.rank}", got, want)
+    block = x0s[mesh.rank * b:(mesh.rank + 1) * b].contiguous()
+    check_bit_equal(f"leg 3 rank {mesh.rank}", got, pipe.solve(block))
+    want = plain.solve(block)
+    share, err = check_plain_agreement(f"leg 3 rank {mesh.rank}", got[:4],
+                                       want[:4])
+    same = got[2] == want[2]
+    rho_share = float((got[4] == want[4])[same].double().mean())
+    _check(rho_share >= PLAIN_ITERS_AGREE and torch.equal(got[5], want[5]),
+           f"leg 3 rank {mesh.rank}: against the plain version, lane rho "
+           f"equal on {rho_share:.4f} of lanes with equal counts, overflow "
+           f"{got[5].tolist()} against {want[5].tolist()}")
     n_ok = int(got[3].sum())
     rho = got[4]
     _check(n_ok > 0 and float(rho.max()) > rho0,
@@ -294,14 +352,17 @@ def leg_rebuild(mesh, full):
     print(f"rank {mesh.rank}/{mesh.world} leg 3: bucketed rebuild through "
           f"map_shards on {b} of {B} mis-set cartpole lanes ({p1} + {p2} "
           f"iterations, {len(pipe.bucket_rhos)} buckets of {b} slots), equal "
-          f"to the rank's own run bit for bit; {n_ok} converged, rho span "
+          f"to the rank's own run bit for bit, and to the plain K1's with "
+          f"counts equal on {share:.4f} of lanes, max |diff| {err:.3e}; "
+          f"{n_ok} converged, rho span "
           f"[{float(rho.min()):.3g}, {float(rho.max()):.3g}]; wall "
           f"{seconds:.3f} s; K1 launches {launches['k1']}, of which K1d "
           f"{launches['k1d']}", flush=True)
     names = ("xs", "us", "iters", "solved", "rho", "overflow")
     return {**{f"l3_{k}": v for k, v in zip(names, got)},
             "l3_seconds": seconds, "l3_k1_launches": launches["k1"],
-            "l3_k1d_launches": launches["k1d"]}
+            "l3_k1d_launches": launches["k1d"], "l3_plain_share": share,
+            "l3_plain_err": err}
 
 
 def legs(mesh, full):

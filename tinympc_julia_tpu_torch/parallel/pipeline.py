@@ -65,6 +65,15 @@ class PipelineResult(NamedTuple):
         """Number of lanes converged by the end of phase 2."""
         return self.solved1.sum() + (self.solved2 * self.valid).sum()
 
+    def lane_results(self):
+        """(xs, us, final iteration count, solved) per lane, each valid
+        phase-2 slot's count added to its lane's phase-1 count."""
+        it, ok = self.iters1.clone(), self.solved1.clone()
+        lanes = self.idx[self.valid]
+        it[lanes] += self.iters2[self.valid]
+        ok[lanes] = self.solved2[self.valid]
+        return self.xs, self.us, it, ok
+
     def total_iters(self, phase0_iters: int) -> torch.Tensor:
         """ADMM iterations run: phase 0's full budget on every lane, the
         phase-1 counts, and the phase-2 counts of valid slots."""

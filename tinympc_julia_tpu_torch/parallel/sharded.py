@@ -6,12 +6,15 @@ MPC instances are independent, so the batch splits cleanly into rank blocks
 batched loop: with the vote, each iteration's count of running instances is
 summed over the ranks (``all_reduce``, the JAX package's ``lax.psum``), so
 every rank runs the same number of iterations and calls the collective the
-same number of times.  Without it, each rank loops alone and calls no
-collective.  The collectives reduce host tensors, so the group's backend
-is gloo, which also lets several ranks share one card.  ``map_shards``
-runs a lane-local function, such as a straggler pipeline, on a rank's
-block, as ``shard_map`` does in the JAX package's mesh pipelines; it calls
-no collective.
+same number of times.  Without it, each rank loops alone.  Vote or not,
+every call starts with one ``all_gather`` of the ranks' block sizes (the
+JAX package's solve without the vote communicates not at all), so that
+blocks of unequal size raise on every rank instead of leaving one rank
+waiting in a collective.  The collectives reduce host tensors, so the
+group's backend is gloo, which also lets several ranks share one card.
+``map_shards`` runs a lane-local function, such as a straggler pipeline,
+on a rank's block, as ``shard_map`` does in the JAX package's mesh
+pipelines; it calls no collective.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ from .mesh import (BATCH_AXIS, Mesh, batch_sharding, check_divisible,
 
 
 def block_sizes(mesh: Mesh, b: int) -> list:
-    """Every rank's block size, gathered on every rank."""
+    """Every rank's block size, gathered on every rank (one ``all_gather``,
+    run by ``solve_sharded`` on every call, vote or not)."""
     if mesh.group is None:
         return [b]
     mine = torch.tensor([b], dtype=torch.int64)
@@ -97,9 +101,8 @@ def jit_solve_sharded(problem: Problem, cache: Cache, settings: Settings,
     return solve_sharded(problem, cache, settings, state, mesh, **kw)
 
 
-def map_shards(fn: Callable, mesh: Mesh, x0s: torch.Tensor,
-               axis_name: str = BATCH_AXIS):
+def map_shards(fn: Callable, mesh: Mesh, x0s: torch.Tensor):
     """``fn`` on this rank's block of the global lanes ``x0s`` (B, ...), on
     the mesh's device: ``shard_map(fn, in_specs=P(axis))`` over a
     lane-local function.  Returns the rank's outputs."""
-    return fn(batch_sharding(mesh, axis_name).local(x0s))
+    return fn(batch_sharding(mesh).local(x0s))
