@@ -235,6 +235,34 @@ Phases (one line each; any failure exits non-zero):
      of tests/test_examples.py, each with its CPU test's assertion (the
      swing-up with --no-gif, the codegen projects into a temporary
      directory), each timed;
+ 34. K1 at maps wider than a tile of 32 lanes' w2 leaves room for, each
+     against its plain version: (a) the quadrotor at N = 150 (sw 2,396) on
+     tiles of 16 lanes, B = 8,192, 100 iterations, alpha 1.7, ct 1, |u|
+     <= 0.5; (b) the same with a 32-iteration bf16 head (K1c; the plan
+     takes w2 in global memory there); (c) the group grid (K1d) on 8
+     quadrotors randomised as models/sweeps.py draws them (seed 4), built
+     at N = 150, x 1,024 lanes; (d) the quadrotor at N = 387 (sw 6,188,
+     the JAX package's condensed budget) with w2 in global memory, B =
+     4,096, 50 iterations; (e) the carry chain (K1b), two launches of 50
+     equal to one of 100 bit for bit and against the plain chain;
+ 35. K2 with its iterates in global memory (the quadrotor at N = 150 and
+     213, B = 2,048, 150 iterations, the termination controller, rho0 5,
+     trust 2) and its OSQP-form controller on the 20-state chain (10 unit
+     masses on unit springs, nx 20, nu 9, N = 20, B = 4,096, 150
+     iterations), each against its plain version, rho included;
+ 36. K1e on the chain: a state stage of 20 entries with 10 cones of dim 2
+     (mu 0.5), 4 halfspace rows and the state box, B = 16,384, 200
+     iterations (the lanes do not converge: every lane compared);
+ 37. K3's wide variant on the chain (lane groups of 8, B = 16,384, 200
+     iterations) and its far layout (the workspace in global memory) on
+     the quadrotor at N = 300 without and with |x| <= 2 (B = 16,384, 100
+     iterations), each against its plain version, and the far layout
+     forced at N = 173 with |x| <= 2, bit-equal to the near one;
+     phases 34-37 hold each case to the bar below, counted on every lane
+     with equal counts and flags (solved or not), and print the kernel's
+     median of 3 after a warm-up, the plain version's (its one comparison
+     run where it takes seconds), the launches of the first run and the
+     bound;
 then the kernels' JSON line, the card's name and power limit, and the
 result line.  K1's launches are counted over phases 5 and 6, K1e's (the
 launches that run projections) over phase 8, K2's over phase 11 (its warm
@@ -2939,6 +2967,491 @@ def sharded_and_example_phases(card):
           flush=True)
 
 
+def chain_plant(n=10, dt=0.5):
+    """The 20-state chain (at n = 10): ``n`` unit masses in a line, unit
+    springs between neighbours and to the two walls, the n - 1 inputs the
+    tensions between neighbours; state (positions, velocities), zero-order
+    hold at ``dt``.  Returns (A (2n, 2n), B (2n, n - 1))."""
+    from scipy.linalg import expm
+    lap = 2 * np.eye(n) - np.eye(n, k=1) - np.eye(n, k=-1)
+    tension = np.eye(n, n - 1) - np.eye(n, n - 1, k=-1)
+    m = np.zeros((3 * n - 1, 3 * n - 1))
+    m[:n, n:2 * n] = np.eye(n)
+    m[n:2 * n, :n] = -lap
+    m[n:2 * n, 2 * n:] = tension
+    e = expm(m * dt)
+    return e[:2 * n, :2 * n], e[:2 * n, 2 * n:]
+
+
+def lifted_agreement(name, out_k, out_p, rho=False):
+    """The lifted shapes' bar, kernel against plain version: equal counts
+    and solved flags on >= 99% of lanes, 1e-4 on the states and controls of
+    those lanes, solved or not; for K2 (``rho``) on those that solved, with
+    the final rho within RHO_RTOL: an unsolved lane's rho path turns on the
+    controller's deadband, so two sums in another order part its iterates.
+    Returns (max |diff|, lanes solved by the kernel)."""
+    same = (out_k[2] == out_p[2]) & (out_k[3] == out_p[3])
+    B = same.numel()
+    frac = same.float().mean().item()
+    if rho:
+        same = same & (out_k[3] == 1)
+    err = max(((out_k[j] - out_p[j]).abs()[same].max().item()
+               if bool(same.any()) else 0.0) for j in (0, 1))
+    rho_err = (((out_k[4] - out_p[4]).abs() / out_p[4])[same].max().item()
+               if rho and bool(same.any()) else 0.0)
+    nk, npl = int(out_k[3].sum()), int(out_p[3].sum())
+    print(f"{name}: solved kernel {nk}/{B}, plain {npl}; counts and flags "
+          f"equal on {round(frac * B)}/{B} lanes ({frac:.4f}); max |diff| on "
+          f"{int(same.sum())} of them {err:.3e}"
+          + (f" (solved), rho rel. diff {rho_err:.3e}" if rho else "")
+          + f"; lanes that differ at all {lanes_differ(out_k, out_p)}",
+          flush=True)
+    check(frac >= ITERS_AGREE, f"{name}: counts agree on {frac:.4f} < "
+          f"{ITERS_AGREE}")
+    check(err <= ATOL, f"{name}: max |diff| {err:.3e} > {ATOL}")
+    check(rho_err <= RHO_RTOL, f"{name}: rho differs by {rho_err:.3e}")
+    check(all(bool(torch.isfinite(t).all()) for t in out_k[:2]),
+          f"{name}: non-finite kernel output")
+    return err, nk
+
+
+def lifted_shape_phases(card):
+    """Phases 34-37: the shapes the kernels once refused and the JAX
+    kernels solve, each kernel against its plain version at the lifted
+    layout the plan takes there, with its launches counted on its first
+    (untimed) run."""
+    from tinympc_julia_tpu_torch import make_problem
+    from tinympc_julia_tpu_torch.models import quadrotor
+    from tinympc_julia_tpu_torch.ops.condensed import (build_condensed,
+                                                       build_condensed_taylor)
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    from tinympc_julia_tpu_torch.ops.cuda import fused as K3
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    from tinympc_julia_tpu_torch.types import stack_instances
+
+    dev, f32 = torch.device("cuda"), torch.float32
+    k1, k2, k3 = (K.condensed_fused_cuda, K2.condensed_adaptive_cuda,
+                  K3.fused_cuda)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    t_start = time.perf_counter()
+
+    def quad(horizon, x_bound=None, rng=None):
+        A, Bm = quadrotor.A, quadrotor.B
+        Qd, Rd, ub = quadrotor.Q_DIAG, quadrotor.R_DIAG, 0.5
+        if rng is not None:  # models/sweeps.py's randomised plant
+            A = A + rng.normal(scale=2e-3, size=(12, 12))
+            Bm = Bm * rng.uniform(0.9, 1.1)
+            Qd = Qd * rng.uniform(0.8, 1.25, size=12)
+            Rd = Rd * rng.uniform(0.8, 1.25, size=4)
+            ub = rng.uniform(0.4, 0.6)
+        kw = {}
+        if x_bound is not None:
+            kw = dict(x_min=np.full((horizon, 12), -x_bound),
+                      x_max=np.full((horizon, 12), x_bound))
+        p = make_problem(A, Bm, np.diag(Qd), np.diag(Rd), quadrotor.RHO,
+                         horizon, u_min=-ub, u_max=ub, dtype=f32,
+                         device=dev, **kw)
+        return p, precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+
+    def chain(horizon, x_bound=None):
+        A, Bm = chain_plant()
+        kw = {}
+        if x_bound is not None:
+            kw = dict(x_min=np.full((horizon, 20), -x_bound),
+                      x_max=np.full((horizon, 20), x_bound))
+        p = make_problem(A, Bm, np.eye(20), np.eye(9), 1.0, horizon,
+                         u_min=-1.0, u_max=1.0, dtype=f32, device=dev, **kw)
+        return p, precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+
+    def uniform(B, nx, seed, scale):
+        return torch.as_tensor(np.random.default_rng(seed).uniform(
+            -scale, scale, size=(B, nx)), dtype=f32, device=dev)
+
+    def chain_x0(B, seed):
+        return torch.as_tensor(0.5 * np.random.default_rng(seed)
+                               .standard_normal((B, 20)), dtype=f32,
+                               device=dev)
+
+    def k1_kw(p, **kw):
+        base = dict(nx=p.nx, nu=p.nu, N=p.N, max_iter=100, abs_pri_tol=1e-3,
+                    abs_dua_tol=1e-3, en_state_bound=False,
+                    en_input_bound=True, relaxation_alpha=1.7,
+                    check_termination=1, warm_start=False, carry_out=False)
+        base.update(kw)
+        return base
+
+    def k1_ops(sw, nx, iters, k0=0, ct=1):
+        """(fp32, bf16) multiply-adds x 2 of K1 launches whose lanes ran
+        ``iters``: one T12 product an iteration after the cold iteration
+        0, reduced in the head but for its checking iteration, and the
+        rollout of x0."""
+        it = iters.double()
+        prods = (it - 1).clamp(min=0)
+        lo = ((torch.minimum(it, torch.tensor(float(k0), device=it.device))
+               - 1).clamp(min=0) - (it >= k0).double()).clamp(min=0) \
+            if k0 else torch.zeros_like(it)
+        per = 2.0 * sw * sw
+        return (per * float((prods - lo).sum()) + 2.0 * sw * nx * it.numel(),
+                per * float(lo.sum()))
+
+    def mixed_bound(f32_ops, bf16_ops, nbytes):
+        t_ops = f32_ops / PEAK_FP32 + bf16_ops / PEAK_BF16
+        t_bytes = nbytes / PEAK_BYTES
+        return (1e3 * max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    def run_case(label, f_k, f_p, counter, *, rho=False, slow_plain=False):
+        """The kernel's first run (its launches counted), the plain
+        version's, the bar, then the kernel's median of 3 after a warm-up
+        (CUDA events) and the plain version's median of 3 (or, where it
+        takes seconds, its one timed comparison run)."""
+        name, attr = counter
+        setattr(name, attr, 0)
+        out_k = f_k()
+        torch.cuda.synchronize()
+        launches = getattr(name, attr)
+        check(launches >= 1, f"{label}: the kernel was not launched")
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out_p = f_p()
+        t1.record()
+        t1.synchronize()
+        err, nk = lifted_agreement(label, out_k, out_p, rho)
+        if slow_plain:
+            f_k()
+            t_k = float(np.median([event_ms(f_k) for _ in range(3)]))
+            t_p = t0.elapsed_time(t1)
+        else:
+            t_k, t_p = paired_ms(f_k, f_p, reps=3)
+        return out_k, out_p, err, launches, t_k, t_p
+
+    def row(name, launches, err, t_k, t_p, b, source, replaces):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"tinympc_julia_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
+
+    k1_src, k1_rep = ("condensed_fused.cu",
+                      "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:232")
+    k2_src, k2_rep = ("condensed_adaptive.cu",
+                      "tinympc_julia_tpu/ops/pallas/adaptive_kernel.py:106")
+    k3_src, k3_rep = ("fused_stage.cu", "tinympc_julia_tpu/ops/pallas/fused.py:44")
+
+    def layout(plan):
+        return (f"tile {plan.tile} lanes, {plan.rpt} rows a thread, "
+                f"{plan.passes} passes, w2 in "
+                f"{'global' if plan.w2_global else 'shared'} memory, "
+                f"{plan.smem} bytes of shared memory")
+
+    # -- phase 34: K1 at wide maps --------------------------------------------
+    N34, B34 = 150, 8192
+    p, c = quad(N34)
+    m = build_condensed(p, c)
+    sw = m.T12.shape[0]
+    x0 = uniform(B34, 12, 34, 0.3)
+    args = (m, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max, x0, None)
+    for tag, kw in (("34a K1", {}),
+                    ("34b K1c, a 32-iteration bf16 head",
+                     dict(bf16_head_iters=32))):
+        full = k1_kw(p, **kw)
+        plan = K.fused_tile_plan(12, 4, N34, bool(kw))
+        label = (f"phase {tag}, quadrotor N={N34} (sw={sw}), B={B34}, 100 "
+                 f"iterations, alpha 1.7, ct 1, |u| <= 0.5: {layout(plan)}")
+        out_k, _, err, n_l, t_k, t_p = run_case(
+            label, functools.partial(k1, *args, **full),
+            functools.partial(K.condensed_fused_reference, *args, **full),
+            (k1, "reduced_launches" if kw else "launches"),
+            slow_plain=bool(kw))  # the tensor cores' sums take seconds
+        ops = k1_ops(sw, 12, out_k[2], kw.get("bf16_head_iters", 0))
+        b = mixed_bound(*ops, tensor_bytes(m.T12, m.T1, *args[2:7],
+                                           out_k[:4]))
+        print(f"phase {tag[:3]} timing: kernel {t_k:.3f} ms, plain "
+              f"{t_p:.3f} ms, {n_l} launch(es), bound {b[0]:.4f} ms by "
+              f"{b[1]}", flush=True)
+        row(f"condensed_fused (K1{'c' if kw else ''}), quadrotor N={N34} "
+            f"(sw {sw}): {layout(plan)}", n_l, err, t_k, t_p, b, k1_src,
+            k1_rep)
+        if kw:
+            continue
+        # the same launch forced onto the other wide layout, w2 in global
+        # memory: the same bits, and its time beside the 16-lane tile's
+        from unittest import mock
+        npass = -(-sw // 512)
+        g_plan = K.TilePlan(32, K.THREADS, False, False, npass * 512,
+                            plan.kp, K.tile_smem(sw, npass * 512, plan.kp, 0,
+                                                 False, False, npass, 32,
+                                                 True), npass, True)
+        with mock.patch.object(K, "fused_tile_plan", lambda *a: g_plan):
+            f_g = functools.partial(k1, *args, **full)
+            out_g = f_g()
+            exact = all(torch.equal(a, b2) for a, b2 in zip(out_g, out_k))
+            f_g()
+            t_g = float(np.median([event_ms(f_g) for _ in range(3)]))
+        print(f"phase 34a the same launch with w2 in global memory (tile 32 "
+              f"lanes, 32 rows a thread, {npass} passes): bit-equal {exact}; "
+              f"{t_g:.3f} ms beside the 16-lane tile's {t_k:.3f} ms",
+              flush=True)
+        check(exact, "phase 34a: the two wide layouts differ")
+
+    # 34c: the group grid on G = 8 randomised plants (models/sweeps.py's
+    # draws, seed 4) built at N = 150
+    G, L = 8, 1024
+    rng = np.random.default_rng(4)
+    pcs = [quad(N34, rng=rng) for _ in range(G)]
+    P = stack_instances([q[0] for q in pcs])
+    Cc = stack_instances([q[1] for q in pcs])
+    mg = build_condensed(P, Cc)
+    x0g = torch.as_tensor(rng.uniform(-0.25, 0.25, size=(G, L, 12)),
+                          dtype=f32, device=dev)
+    gargs = (mg, Cc.rho, P.u_min, P.u_max, P.x_min, P.x_max, x0g, None)
+    gfull = k1_kw(p, check_termination=4)
+    plan = K.fused_tile_plan(12, 4, N34)
+    out_k, _, err, n_l, t_k, t_p = run_case(
+        f"phase 34c K1d, G={G} randomised quadrotors x L={L}, N={N34}, 100 "
+        f"iterations, ct 4: {layout(plan)}",
+        functools.partial(k1, *gargs, num_groups=G, **gfull),
+        functools.partial(K.condensed_fused_reference, *gargs, num_groups=G,
+                          **gfull), (k1, "grouped_launches"))
+    b = bound(k1_ops(sw, 12, out_k[2])[0],
+              tensor_bytes(mg.T12, mg.T1, *gargs[1:7], out_k[:4]))
+    print(f"phase 34c timing: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, {n_l} "
+          f"launch(es), bound {b[0]:.4f} ms by {b[1]}", flush=True)
+    row(f"condensed_fused group grid (K1d), {G} quadrotors x {L} lanes, "
+        f"N={N34}: {layout(plan)}", n_l, err, t_k, t_p, b, k1_src, k1_rep)
+
+    # 34e: the carry chain, two launches of 50 against one of 100
+    chain_k = functools.partial(k1, *args[:7])
+    one = chain_k(None, **k1_kw(p, max_iter=100))
+
+    def chained(fn):
+        a = fn(None, **k1_kw(p, max_iter=50, carry_out=True))
+        b2 = fn(a[4], **k1_kw(p, max_iter=50, warm_start=True))
+        done = a[3] == 1
+        return (torch.where(done[:, None, None], a[0], b2[0]),
+                torch.where(done[:, None, None], a[1], b2[1]),
+                torch.where(done, a[2], 50 + b2[2]),
+                torch.maximum(a[3], b2[3]))
+
+    out_k, _, err, n_l, t_k, t_p = run_case(
+        f"phase 34e K1b, quadrotor N={N34}, B={B34}, 50 + 50 chained "
+        f"through the carry", lambda: chained(chain_k),
+        lambda: chained(functools.partial(K.condensed_fused_reference,
+                                          *args[:7])), (k1, "launches"))
+    exact = all(torch.equal(a, b2) for a, b2 in zip(out_k, one))
+    print(f"phase 34e chain vs one 100-iteration launch: bit-exact {exact}; "
+          f"timing: the two launches {t_k:.3f} ms, plain {t_p:.3f} ms",
+          flush=True)
+    check(exact, "phase 34e: the chained launches differ from one launch")
+    b = bound(k1_ops(sw, 12, out_k[2])[0] + 2.0 * sw * 12 * B34,
+              2 * tensor_bytes(m.T12, m.T1, *args[2:7], out_k[:4]))
+    row(f"condensed_fused carry chain (K1b), quadrotor N={N34}, 50 + 50: "
+        f"{layout(K.fused_tile_plan(12, 4, N34))}", n_l, err, t_k, t_p, b,
+        k1_src, k1_rep)
+
+    # 34d: the JAX budget's edge, w2 in global memory
+    N34d, B34d = 387, 4096
+    p, c = quad(N34d)
+    m = build_condensed(p, c)
+    sw = m.T12.shape[0]
+    args = (m, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max,
+            uniform(B34d, 12, 35, 0.3), None)
+    full = k1_kw(p, max_iter=50)
+    plan = K.fused_tile_plan(12, 4, N34d)
+    check(plan.w2_global, "phase 34d: the plan did not take global w2")
+    out_k, _, err, n_l, t_k, t_p = run_case(
+        f"phase 34d K1, quadrotor N={N34d} (sw={sw}), B={B34d}, 50 "
+        f"iterations: {layout(plan)}", functools.partial(k1, *args, **full),
+        functools.partial(K.condensed_fused_reference, *args, **full),
+        (k1, "launches"))
+    b = bound(k1_ops(sw, 12, out_k[2])[0],
+              tensor_bytes(m.T12, m.T1, *args[2:7], out_k[:4]))
+    print(f"phase 34d timing: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, {n_l} "
+          f"launch(es), bound {b[0]:.4f} ms by {b[1]}", flush=True)
+    row(f"condensed_fused (K1), quadrotor N={N34d} (sw {sw}): "
+        f"{layout(plan)}", n_l, err, t_k, t_p, b, k1_src, k1_rep)
+    del m, args
+    print(f"phase 34 done {time.perf_counter() - t_start:.0f} s into "
+          "phases 34-37", flush=True)
+
+    # -- phase 35: K2 with its iterates in global memory, its OSQP-form
+    # controller on a wide stage ---------------------------------------------
+    def k2_ops(p, order, iters):
+        su, sw = (p.N - 1) * p.nu, p.N * p.nx + (p.N - 1) * p.nu
+        in1 = su + p.nx + 1
+        per = 2.0 * (order + 1) * sw * in1 + 8.0 * su * (sw + 1)
+        return per * float(iters.double().sum())
+
+    for N35 in (150, 213):
+        p, c = quad(N35)
+        tm = build_condensed_taylor(p, c)
+        plan = K2.adaptive_tile_plan(12, 4, N35, 2)
+        check(plan.iterates_global, f"phase 35a N={N35}: the plan did not "
+              "take global iterates")
+        args = (tm, p.u_min, p.u_max, p.x_min, p.x_max,
+                uniform(2048, 12, 36, 0.3), None)
+        full = dict(plant=None, nx=12, nu=4, N=N35, max_iter=150,
+                    abs_pri_tol=1e-3, abs_dua_tol=1e-3, en_state_bound=False,
+                    en_input_bound=True, relaxation_alpha=1.0,
+                    adaptive_rho_min=quadrotor.RHO, adaptive_rho_max=1e3,
+                    adaptive_rho_clipping=True, check_termination=1,
+                    controller="termination", taylor_trust=2.0,
+                    warm_start=False, carry_out=False)
+        out_k, _, err, n_l, t_k, t_p = run_case(
+            f"phase 35a K2, quadrotor N={N35} (sw={tm.T1s.shape[-2]}), "
+            f"B=2048, 150 iterations, termination controller, rho0 5, trust "
+            f"2: tile {plan.tile} lanes, {plan.rpt} rows a thread, passes "
+            f"{plan.passes1} / {plan.passes2}, iterates in global memory, "
+            f"{plan.smem} bytes of shared memory",
+            functools.partial(k2, *args, **full),
+            functools.partial(K2.condensed_adaptive_reference, *args, **full),
+            (k2, "launches"), rho=True)
+        b = bound(k2_ops(p, 2, out_k[2]),
+                  tensor_bytes(tm.T1s, tm.T2s, *args[1:6], out_k[:5]))
+        print(f"phase 35a N={N35} timing: kernel {t_k:.3f} ms, plain "
+              f"{t_p:.3f} ms, {n_l} launch(es), bound {b[0]:.4f} ms by "
+              f"{b[1]}", flush=True)
+        if N35 == 213:
+            row(f"condensed_adaptive (K2), quadrotor N={N35} (sw "
+                f"{tm.T1s.shape[-2]}): iterates in global memory", n_l, err,
+                t_k, t_p, b, k2_src, k2_rep)
+        del tm, args
+
+    p, c = chain(20)
+    tm = build_condensed_taylor(p, c)
+    args = (tm, p.u_min, p.u_max, p.x_min, p.x_max, chain_x0(4096, 37), None)
+    full = dict(plant=K2.AdaptivePlant(p.A, p.B, p.Q, p.R, c.Pinf,
+                                       c.dPinf_drho),
+                nx=20, nu=9, N=20, max_iter=150, abs_pri_tol=1e-3,
+                abs_dua_tol=1e-3, en_state_bound=False, en_input_bound=True,
+                relaxation_alpha=1.0, adaptive_rho_min=0.2,
+                adaptive_rho_max=5.0, adaptive_rho_clipping=True,
+                check_termination=1, controller="osqp",
+                taylor_trust=float("inf"), warm_start=False, carry_out=False)
+    out_k, _, err, n_l, t_k, t_p = run_case(
+        "phase 35b K2's OSQP-form controller, the 20-state chain (nx 20, nu "
+        "9), N=20, B=4096, 150 iterations",
+        functools.partial(k2, *args, **full),
+        functools.partial(K2.condensed_adaptive_reference, *args, **full),
+        (k2, "launches"), rho=True)
+    check(bool((out_k[4] != 1.0).any()), "phase 35b: no lane moved its rho")
+    b = bound(k2_ops(p, 2, out_k[2]),
+              tensor_bytes(tm.T1s, tm.T2s, *args[1:6], out_k[:5]))
+    print(f"phase 35b timing: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, {n_l} "
+          f"launch(es), bound {b[0]:.4f} ms by {b[1]}", flush=True)
+    row("condensed_adaptive (K2), OSQP-form controller on the 20-state chain "
+        "(stages of 20 and 9)", n_l, err, t_k, t_p, b, k2_src, k2_rep)
+    print(f"phase 35 done {time.perf_counter() - t_start:.0f} s into "
+          "phases 34-37", flush=True)
+
+    # -- phase 36: K1e, a stage of 20 entries with 10 cones -------------------
+    p, c = chain(20, x_bound=3.0)
+    m = build_condensed(p, c)
+    sw = m.T12.shape[0]
+    rng = np.random.default_rng(11)
+    cons_kw = dict(soc_x=tuple((2 * j, 2, 0.5) for j in range(10)),
+                   lin_x=(rng.normal(size=(4, 20)), np.full(4, 5.0)))
+    fn_kw = dict(max_iter=200, en_state_bound=True)
+    fk = K.make_condensed_fused_solver(20, 9, 20, **fn_kw, **cons_kw)
+    cons = K.fused_constraints(**cons_kw, nx=20, nu=9, dtype=f32, device=dev)
+    args = (m, float(c.rho), p.u_min.reshape(-1), p.u_max.reshape(-1),
+            p.x_min.reshape(-1), p.x_max.reshape(-1), chain_x0(16384, 38))
+    full = k1_kw(p, relaxation_alpha=1.0, **fn_kw)
+    out_k, _, err, n_l, t_k, t_p = run_case(
+        f"phase 36 K1e, the 20-state chain N=20 (sw={sw}), B=16384, 200 "
+        "iterations: a state stage of 20 entries, 10 cones of dim 2 (mu "
+        "0.5), 4 halfspace rows, the state box (the cones keep the lanes "
+        "from converging: every lane compared)",
+        lambda: fk(*args),
+        functools.partial(K.condensed_fused_reference, *args, None,
+                          constraints=cons, **full),
+        (k1, "projected_launches"), slow_plain=True)
+    b = bound(k1_ops(sw, 20, out_k[2])[0],
+              tensor_bytes(m.T12, m.T1, *args[2:7], out_k[:4]))
+    print(f"phase 36 timing: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, {n_l} "
+          f"launch(es), bound {b[0]:.4f} ms by {b[1]}", flush=True)
+    row("condensed_fused projections (K1e), a stage of 20 entries with 10 "
+        "cones and 4 halfspaces (20-state chain)", n_l, err, t_k, t_p, b,
+        k1_src, "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:127")
+
+    # -- phase 37: K3's wide variant and its far layout -----------------------
+    def k3_case(tag, p, c, x0, budget, box):
+        full = dict(nx=p.nx, nu=p.nu, N=p.N, max_iter=budget,
+                    abs_pri_tol=1e-3, abs_dua_tol=1e-3, en_state_bound=box,
+                    en_input_bound=True, check_termination=1)
+        args = (p.A, p.B, p.f, p.Q, p.R, c.rho, c.Kinf, c.Quu_inv, c.AmBKt,
+                c.Pinf, p.x_min, p.x_max, p.u_min, p.u_max, p.Xref, p.Uref,
+                x0)
+        plan = K3.fused_stage_plan(p.nx, p.nu, p.N, box, x0.shape[0], sms)
+        out_k, _, err, n_l, t_k, t_p = run_case(
+            f"phase {tag}, B={x0.shape[0]}, {budget} iterations: lane group "
+            f"{plan.group}, tile {plan.tile}, matrices in "
+            f"{'registers' if plan.registers else 'shared memory'}, "
+            f"workspace in "
+            f"{'global' if plan.workspace_global else 'shared'} memory, "
+            f"{plan.smem} bytes of shared memory",
+            functools.partial(k3, *args, **full),
+            functools.partial(K3.fused_reference, *args, **full),
+            (k3, "launches"), slow_plain=True)
+        nx, nu = p.nx, p.nu
+        b = bound((p.N - 1) * (4 * nx * nx + 8 * nx * nu + 2 * nu * nu)
+                  * float(out_k[2].double().sum()),
+                  tensor_bytes(*args, out_k))
+        print(f"phase {tag[:3]} timing: kernel {t_k:.3f} ms, plain "
+              f"{t_p:.3f} ms, {n_l} launch(es), bound {b[0]:.4f} ms by "
+              f"{b[1]}", flush=True)
+        return n_l, err, t_k, t_p, b, plan
+
+    p, c = chain(20)
+    n_l, err, t_k, t_p, b, plan = k3_case(
+        "37a K3 wide variant, the 20-state chain N=20", p, c,
+        chain_x0(16384, 39), 200, False)
+    check(not plan.registers and plan.group == 8,
+          "phase 37a: the plan did not take the wide variant")
+    row(f"fused_stage (K3), wide variant (lane group {plan.group}), "
+        "20-state chain N=20", n_l, err, t_k, t_p, b, k3_src, k3_rep)
+    for box in (False, True):
+        p, c = quad(300, x_bound=2.0 if box else None)
+        n_l, err, t_k, t_p, b, plan = k3_case(
+            f"37b K3 far layout, quadrotor N=300"
+            f"{', |x| <= 2' if box else ''}", p, c, uniform(16384, 12, 40, 0.3),
+            100, box)
+        check(plan.workspace_global, "phase 37b: the plan did not take the "
+              "far layout")
+        row(f"fused_stage (K3), workspace in global memory, quadrotor N=300"
+            f"{' with the state box' if box else ''}", n_l, err, t_k, t_p, b,
+            k3_src, k3_rep)
+    # the far layout against the near one where both run: the widest
+    # quadrotor horizon whose workspace fits a warp of lanes with |x| <= 2
+    # (N = 173), the far plan forced; the same bits
+    from unittest import mock
+    p, c = quad(173, x_bound=2.0)
+    x0 = uniform(16384, 12, 41, 0.3)
+    args = (p.A, p.B, p.f, p.Q, p.R, c.rho, c.Kinf, c.Quu_inv, c.AmBKt,
+            c.Pinf, p.x_min, p.x_max, p.u_min, p.u_max, p.Xref, p.Uref, x0)
+    full = dict(nx=12, nu=4, N=173, max_iter=100, abs_pri_tol=1e-3,
+                abs_dua_tol=1e-3, en_state_bound=True, en_input_bound=True,
+                check_termination=1)
+    near_plan = K3.fused_stage_plan(12, 4, 173, True, 16384, sms)
+    check(not near_plan.workspace_global, "phase 37b: N = 173 is not near")
+    near = k3(*args, **full)
+    far_plan = near_plan._replace(
+        smem=4 * K3.stage_floats(12, 4, 173, True), workspace_global=True)
+    with mock.patch.object(K3, "fused_stage_plan", lambda *a: far_plan):
+        far = k3(*args, **full)
+    exact = all(torch.equal(a, b) for a, b in zip(near, far))
+    print(f"phase 37b far layout forced at N=173, |x| <= 2, B=16384: "
+          f"bit-equal to the near layout {exact}; solved {int(near[3].sum())}"
+          f", largest |x| {float(near[0].abs().max()):.6g}", flush=True)
+    check(exact, "phase 37b: the far layout differs from the near one")
+    print(f"phases 34-37 took {time.perf_counter() - t_start:.0f} s", flush=True)
+    return rows
+
+
 def build_kernels():
     """Phase 2: the three kernels' sources, one nvcc each, side by side."""
     from tinympc_julia_tpu_torch.ops.cuda._build import (load_libraries,
@@ -2994,6 +3507,9 @@ def main():
     print(f"phases 26-30 done {time.perf_counter() - t_start:.0f} s after "
           "the start", flush=True)
     sharded_and_example_phases(card)
+    print(f"phases 31-33 done {time.perf_counter() - t_start:.0f} s after "
+          "the start", flush=True)
+    rows += lifted_shape_phases(card)
     print(f"all phases done {time.perf_counter() - t_start:.0f} s after the "
           "start", flush=True)
     print(json.dumps({"kernels": rows}))

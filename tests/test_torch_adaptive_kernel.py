@@ -415,7 +415,8 @@ def test_tile_plan():
     # tiles of 32 lanes while their iterates fit beside the slab ring (sw
     # 1,196 in fp32, N = 75; 860 with the bf16 maps and operand, N = 54),
     # then tiles of 16 (every width the one-thread-a-lane kernel took, sw
-    # 1,436 at N = 90, and more), then no room
+    # 1,436 at N = 90, and more), then tiles of 32 whose iterates live in
+    # global memory, streamed beside the maps
     assert K2.adaptive_tile_plan(12, 4, 75, 2).tile == 32
     assert K2.adaptive_tile_plan(12, 4, 54, 2, reduced=True).tile == 32
     for N_, reduced in ((76, False), (90, False), (133, False), (55, True),
@@ -423,10 +424,12 @@ def test_tile_plan():
         p = K2.adaptive_tile_plan(12, 4, N_, 2, reduced)
         assert (p.tile, p.rpt, p.width) == (16, 8, 256)
         assert p.passes1 * p.width >= 16 * N_ - 4
-    with pytest.raises(ValueError, match="no room"):
-        K2.adaptive_tile_plan(12, 4, 134, 2)
-    with pytest.raises(ValueError, match="no room"):
-        K2.adaptive_tile_plan(12, 4, 95, 2, reduced=True)
+    for N_, reduced in ((134, False), (95, True)):
+        p = K2.adaptive_tile_plan(12, 4, N_, 2, reduced)
+        assert (p.tile, p.rpt, p.iterates_global) == (32, 20, True)
+        assert not p.resident and not p.state_shared
+        assert p.passes1 * p.width >= 16 * N_ - 4
+        assert p.smem <= K.SMEM_PER_BLOCK
 
 
 # -- the group grid ----------------------------------------------------------
@@ -576,3 +579,28 @@ def test_grouped_inputs_are_checked():
     shared = C.CondensedTaylorMaps(*(m[0] for m in pt))
     with pytest.raises(ValueError, match="plant"):
         make(3)(shared, *(b[0] for b in _bounds(pps)), torch.zeros((3, 4, 4)))
+
+
+def test_osqp_controller_on_a_wide_stage_matches_jax_kernel():
+    """The OSQP-form controller on the 20-state chain (stages of 20 and 9
+    entries: the kernel once held 12 a stage in each thread's registers),
+    N = 8, B = 64, 300 iterations, against the Pallas kernel in interpret
+    mode: equal counts on the lanes both solved, rho within rtol 1e-4,
+    states and controls within 1e-5."""
+    from torch_port_common import chain_plant, chain_x0, plant_setup
+    A, B = chain_plant()
+    setup = plant_setup(A, B, np.ones(20), np.ones(9), 1.0, 8, F32, ub=1.0,
+                        taylor=True)
+    x0 = chain_x0(64, 13).astype(np.float32)
+    j, p = _both(setup, x0, tile=32, horizon=8, max_iter=300,
+                 controller="osqp", adaptive_rho_min=0.2,
+                 adaptive_rho_max=5.0, relaxation_alpha=1.0)
+    both = (np.asarray(j[3]) == 1) & (p[3].numpy() == 1)
+    assert both.sum() >= 32
+    np.testing.assert_array_equal(p[2].numpy()[both], np.asarray(j[2])[both])
+    np.testing.assert_allclose(p[4].numpy()[both], np.asarray(j[4])[both],
+                               rtol=1e-4)
+    for a, b in zip(p[:2], j[:2]):
+        np.testing.assert_allclose(a.numpy()[both], np.asarray(b)[both],
+                                   atol=1e-5)
+    assert bool((p[4] != 1.0).any())  # the controller moved rho

@@ -220,12 +220,16 @@ def test_tile_plan_for_wide_maps():
     assert K.fused_tile_plan(12, 4, 40).rpt == 20
     lo = K.fused_tile_plan(12, 4, 57, reduced=True)
     assert (lo.passes, lo.rpt) == (8, 8)
-    K.fused_tile_plan(12, 4, 99)
-    K.fused_tile_plan(12, 4, 66, reduced=True)
-    with pytest.raises(ValueError, match="no room"):
-        K.fused_tile_plan(12, 4, 100)
-    with pytest.raises(ValueError, match="no room"):
-        K.fused_tile_plan(12, 4, 67, reduced=True)
+    # the widest maps a tile of 32 lanes leaves room for (sw 1,580 in fp32,
+    # 1,052 with reduced iterations); one stage further, tiles of 16 lanes
+    # (32 thread rows of 8 rows each) with the same w2 in shared memory
+    assert K.fused_tile_plan(12, 4, 99).tile == 32
+    assert K.fused_tile_plan(12, 4, 66, reduced=True).tile == 32
+    for N_, reduced in ((100, False), (67, True)):
+        p = K.fused_tile_plan(12, 4, N_, reduced)
+        assert (p.tile, p.w2_global, p.rpt) == (16, False, 8)
+        assert p.rows == p.passes * K.row_groups(16) * 8 >= 16 * N_ - 4
+        assert p.smem <= K.SMEM_PER_BLOCK
 
 
 def test_tile_iterations_count_each_tile_to_its_slowest_lane():
@@ -398,8 +402,9 @@ def test_constraint_options_are_checked():
     assert cons.lin_x is None  # no rows: the state-free path stays
     wide = K.fused_constraints(soc_x=((0, 3, 0.5),), nx=16, nu=1,
                                dtype=torch.float32, device="cpu")
-    with pytest.raises(ValueError, match="at most 12"):
-        K._side_args(wide.lin_x, wide.cones_x, 16, "state")
+    # a stage of 16 entries is projected where it lies, in the scratch
+    args = K._side_args(wide.lin_x, wide.cones_x, 16, "state")
+    assert args[1] == 0 and args[4] == 1 and args[2] is not None
 
 
 # -- K1d: the group grid -----------------------------------------------------
@@ -833,3 +838,164 @@ def test_map_layouts_keep_the_group_axis():
                            K.bf16_round(pt.T1s[g]))
         assert float(o1a[:, :, su + 5:].float().abs().max()) == 0.0
     assert K2.map_layout(pt, su, sw, kplan, False)[2:] == (None, None)
+
+
+# -- the lifted shapes ---------------------------------------------------------
+
+def _quad_solver(solver, horizon, **settings):
+    from tinympc_julia_tpu.models import quadrotor
+    solver.setup(quadrotor.A, quadrotor.B, None, np.diag(quadrotor.Q_DIAG),
+                 np.diag(quadrotor.R_DIAG), quadrotor.RHO, 12, 4, horizon)
+    solver.set_bound_constraints(np.full((12, horizon), -1e17),
+                                 np.full((12, horizon), 1e17),
+                                 np.full((4, horizon - 1), -0.5),
+                                 np.full((4, horizon - 1), 0.5))
+    solver.update_settings(**settings)
+    return solver
+
+
+def test_wide_map_solve_batch_matches_jax():
+    """The quadrotor at N = 110 (sw 1,756), wider than a tile of 32 lanes'
+    w2 leaves room for (the card runs tiles of 16 lanes there): JAX's
+    ``solve_batch(method="fused")`` (the Pallas kernel in interpret mode
+    off the TPU) against the port's on the CPU (the plain version), f32,
+    B = 8, 20 iterations, both from the JAX side's f32 cache: the same
+    counts and flags, and 1e-5 on the states and controls of every lane
+    (after 20 iterations none has converged yet)."""
+    import tinympc_julia_tpu as J
+    import tinympc_julia_tpu_torch as P
+    horizon = 110
+    assert K.fused_tile_plan(12, 4, horizon).tile == 16
+    settings = dict(max_iter=20, relaxation_alpha=1.7)
+    js = _quad_solver(J.TinyMPCSolver(dtype=jnp.float32), horizon, **settings)
+    ps = _quad_solver(P.TinyMPCSolver(dtype=torch.float32, device="cpu"),
+                      horizon, **settings)
+    c = js.cache
+    ps.set_cache_terms(*(np.asarray(t) for t in (c.Kinf, c.Pinf, c.Quu_inv,
+                                                 c.AmBKt)))
+    x0 = np.random.default_rng(23).uniform(-0.05, 0.05, (8, 12)).astype(
+        np.float32)
+    jx, ju, jit, jok = js.solve_batch(x0, method="fused")
+    px, pu, pit, pok = ps.solve_batch(x0, method="fused")
+    np.testing.assert_array_equal(pit.numpy(), jit)
+    np.testing.assert_array_equal(pok.numpy(), jok)
+    np.testing.assert_allclose(pu.numpy(), ju, atol=1e-5)
+    np.testing.assert_allclose(px.numpy(), jx, atol=1e-5)
+
+
+def test_wide_stage_and_many_cones_match_jax_kernel():
+    """K1e on the 20-state chain at N = 8: a state stage of 20 entries (the
+    kernel once held 12) with 10 cones of dim 2 (mu 0.5; it once took 8),
+    4 halfspace rows and the box, B = 64, 40 iterations, against the
+    Pallas kernel in interpret mode: equal counts and flags, 1e-5 on the
+    states and controls (the cones keep most lanes from converging, so
+    every lane is compared); the carry, whose duals reach tens, at the
+    state-rule test's 1e-3 / rtol 1e-4."""
+    from torch_port_common import chain_plant, chain_x0, plant_setup
+    A, B = chain_plant()
+    Nc = 8
+    (jp, jc, jm), (pp, pc, pm) = plant_setup(
+        A, B, np.ones(20), np.ones(9), 1.0, Nc, jnp.float32, ub=1.0,
+        x_bound=3.0)
+    rng = np.random.default_rng(11)
+    kw = dict(max_iter=40, en_state_bound=True, relaxation_alpha=1.7,
+              carry_out=True, soc_x=tuple((2 * j, 2, 0.5) for j in range(10)),
+              lin_x=(rng.normal(size=(4, 20)), np.full(4, 5.0)))
+    x0 = chain_x0(64, 12).astype(np.float32)
+    j = jax_fused(20, 9, Nc, batch_tile=32, interpret=INTERPRET, **kw)(
+        jm, jc.rho, jp.u_min, jp.u_max, jp.x_min, jp.x_max, jnp.asarray(x0))
+    p = K.make_condensed_fused_solver(20, 9, Nc, **kw)(
+        pm, pc.rho, *_bounds(pp), torch.as_tensor(x0))
+    np.testing.assert_array_equal(p[2].numpy(), np.asarray(j[2]))
+    np.testing.assert_array_equal(p[3].numpy(), np.asarray(j[3]))
+    for a, b in zip(p[:2], j[:2]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+    for k in K.FusedCarry._fields:
+        np.testing.assert_allclose(getattr(p[4], k).numpy(),
+                                   np.asarray(getattr(j[4], k)), atol=1e-3,
+                                   rtol=1e-4, err_msg=k)
+
+
+# the widths up to which the JAX package keeps condensed maps
+# (AUTO_CONDENSED_BUDGET_BYTES): the fixed-rho and the adaptive maps
+BUDGET_FIXED = [(12, 4, 387), (4, 1, 1295), (6, 3, 643)]
+BUDGET_ADAPTIVE = [(12, 4, 213), (4, 1, 718), (6, 3, 352)]
+
+
+@pytest.mark.parametrize("shape", BUDGET_FIXED,
+                         ids=["quadrotor", "cartpole", "rocket"])
+@pytest.mark.parametrize("reduced", [False, True], ids=["fp32", "reduced"])
+def test_fixed_rho_plan_at_the_budget_width(shape, reduced):
+    """K1 at the widest map the JAX package condenses: tiles of 32 lanes
+    with w2 in global memory, streamed beside the map, 32 rows a thread in
+    passes of 512 rows; the block's shared memory does not depend on the
+    width."""
+    nx, nu, N_ = shape
+    sw = (N_ - 1) * nu + N_ * nx
+    for state_free in (True, False):
+        p = K.fused_tile_plan(nx, nu, N_, reduced, state_free)
+        assert (p.tile, p.w2_global, p.rpt, p.resident, p.state_shared) \
+            == (32, True, K.W2_GLOBAL_RPT, False, False)
+        assert p.rows == p.passes * 512 >= sw > p.rows - 512
+        assert p.smem == K.fused_tile_plan(12, 4, 200, reduced).smem
+        assert p.smem <= K.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("shape", BUDGET_ADAPTIVE,
+                         ids=["quadrotor", "cartpole", "rocket"])
+@pytest.mark.parametrize("reduced", [False, True], ids=["fp32", "reduced"])
+def test_adaptive_plan_at_the_budget_width(shape, reduced):
+    """K2 at the widest Taylor maps the JAX package condenses: tiles of 32
+    lanes whose iterates live in global memory and stream beside the
+    maps."""
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    nx, nu, N_ = shape
+    sw, su = (N_ - 1) * nu + N_ * nx, (N_ - 1) * nu
+    for state_free in (True, False):
+        p = K2.adaptive_tile_plan(nx, nu, N_, 2, reduced, state_free)
+        assert (p.tile, p.iterates_global, p.rpt, p.resident) == (
+            32, True, K2.K2_GLOBAL_RPT, False)
+        assert p.ld1 >= sw and p.ld2 >= 4 * su
+        assert p.smem <= K.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("nx,nu,N_,state_bound,layout", [
+    (64, 64, 20, False, "wide"), (64, 64, 20, True, "wide"),
+    (12, 4, 1000, False, "far"), (12, 4, 1000, True, "far"),
+    (16, 16, 200, True, "far"), (4, 1, 8000, True, "far-stage"),
+    (128, 128, 10, True, "far-wide")])
+def test_stage_plan_at_lifted_shapes(nx, nu, N_, state_bound, layout):
+    """K3 beyond the generic variant's 16 (the wide variant: lane groups of
+    16 threads at 64, 32 at 128, the stage vectors in shared memory) and
+    beyond a warp of lanes' workspace in shared memory (the far layout:
+    the workspace in global memory; at 128 x 128 the matrices too, and at
+    the cartpole's N = 8,000 the per-stage terms)."""
+    from tinympc_julia_tpu_torch.ops.cuda import fused as K3
+    for batch in (64, 16384):
+        p = K3.fused_stage_plan(nx, nu, N_, state_bound, batch, 132)
+        assert p.smem <= K3.SMEM_PER_BLOCK and p.threads % 32 == 0
+        assert p.workspace_global == layout.startswith("far")
+        if layout.endswith("wide"):
+            assert not p.registers and p.group == {64: 16, 128: 32}[nx]
+        assert p.matrices_global == (layout == "far-wide")
+        assert p.stage_global == (layout == "far-stage")
+        if layout.startswith("far") and layout != "far-wide":
+            assert (p.group, p.registers) == K3.lane_group(nx, nu)
+
+
+def test_side_of_64_entries_with_16_cones():
+    """A projected stage of 64 entries with 16 cones and 3 halfspace rows:
+    the side's arguments carry all of them (the cones' pairs on the
+    device)."""
+    cons = K.fused_constraints(
+        soc_x=tuple((4 * j, 4, 0.5) for j in range(16)),
+        lin_x=(np.ones((3, 64)), np.ones(3)), nx=64, nu=1,
+        dtype=torch.float32, device="cpu")
+    args = K._side_args(cons.lin_x, cons.cones_x, 64, "state")
+    assert args[1] == 3 and args[4] == 16
+    pairs = K.cone_pairs(cons.cones_x.starts, cons.cones_x.dims,
+                         cons.cones_x.mus.device)
+    assert pairs.shape == (16, 2) and pairs.dtype == torch.int32
+    assert args[2] == pairs.data_ptr()
+    with pytest.raises(ValueError, match="does not fit"):
+        K._side_args(None, cons.cones_x, 60, "state")

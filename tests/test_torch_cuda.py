@@ -1312,3 +1312,338 @@ def test_sharded_vote_on_two_ranks_of_the_card(dev, tmp_path):
     for path in paths:
         out = np.load(path)
         assert out["l1_iter"].shape == (2,) and out["l1_seconds_vote1"] > 0
+
+
+# -- the lifted shapes: wide maps, wide stages, many cones, long horizons ----
+
+def _quad(horizon, dev, ub=0.5, x_bound=None):
+    kw = {}
+    if x_bound is not None:
+        xb = np.tile(np.full(12, x_bound), (horizon, 1))
+        kw = dict(x_min=-xb, x_max=xb)
+    p = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
+                     np.diag(quadrotor.R_DIAG), quadrotor.RHO, horizon,
+                     u_min=-ub, u_max=ub, dtype=torch.float32, device=dev,
+                     **kw)
+    return p, precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+
+
+def chain_plant(n=10, dt=0.5):
+    """A chain of ``n`` unit masses in a line, unit springs between
+    neighbours and to the two walls, the n - 1 inputs the tensions between
+    neighbours; state (positions, velocities), zero-order hold at ``dt``.
+    Returns (A (2n, 2n), B (2n, n - 1))."""
+    from scipy.linalg import expm
+    lap = 2 * np.eye(n) - np.eye(n, k=1) - np.eye(n, k=-1)
+    tension = np.eye(n, n - 1) - np.eye(n, n - 1, k=-1)
+    m = np.zeros((3 * n - 1, 3 * n - 1))
+    m[:n, n:2 * n] = np.eye(n)
+    m[n:2 * n, :n] = -lap
+    m[n:2 * n, 2 * n:] = tension
+    e = expm(m * dt)
+    return e[:2 * n, :2 * n], e[:2 * n, 2 * n:]
+
+
+def _chain(horizon, dev, ub=1.0, x_bound=None):
+    A, B = chain_plant()
+    kw = {}
+    if x_bound is not None:
+        kw = dict(x_min=np.full((horizon, 20), -x_bound),
+                  x_max=np.full((horizon, 20), x_bound))
+    p = make_problem(A, B, np.eye(20), np.eye(9), 1.0, horizon, u_min=-ub,
+                     u_max=ub, dtype=torch.float32, device=dev, **kw)
+    return p, precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+
+
+def _chain_x0(B, seed, dev):
+    return torch.as_tensor(0.5 * np.random.default_rng(seed).standard_normal(
+        (B, 20)), dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("horizon,kw,layout", [
+    (110, dict(max_iter=100), "tile16"),
+    (110, dict(max_iter=100, bf16_head_iters=32, check_termination=4),
+     "tile16"),
+    (200, dict(max_iter=60), "w2-global"),
+    (200, dict(max_iter=60, bf16_head_iters=16, check_termination=4),
+     "w2-global"),
+], ids=["tile16-fp32", "tile16-head32", "w2-global-fp32",
+        "w2-global-head16"])
+def test_wide_map_layouts_match_plain_version(dev, horizon, kw, layout):
+    """K1 on maps too wide for a tile of 32 lanes' w2 in shared memory: the
+    quadrotor at N = 110 (sw 1,756) on tiles of 16 lanes, and at N = 200
+    (sw 3,196) with w2 in global memory streamed beside the map; fp32 and
+    with a reduced head; the carry too."""
+    p, c = _quad(horizon, dev)
+    reduced = "bf16_head_iters" in kw
+    plan = K.fused_tile_plan(12, 4, horizon, reduced)
+    assert (plan.tile, plan.w2_global) == {
+        "tile16": (16, False), "w2-global": (32, True)}[layout]
+    x0 = _x0(300, 12, 3, 0.3, dev)  # a ragged last tile
+    args = (build_condensed(p, c), float(c.rho), p.u_min, p.u_max, p.x_min,
+            p.x_max, x0, None)
+    full = _kw(12, 4, N=horizon, relaxation_alpha=1.7, **kw)
+    before = K.condensed_fused_cuda.launches
+    k = K.condensed_fused_cuda(*args, **full)
+    r = K.condensed_fused_reference(*args, **full)
+    torch.cuda.synchronize()
+    assert K.condensed_fused_cuda.launches == before + 1
+    _counts_and_values_agree(k, r)
+    same = k[2] == r[2]
+    for a, b in zip(k[4], r[4]):
+        assert ((a - b)[:, same].abs()
+                / b[:, same].abs().clamp(min=1.0)).max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("horizon", [110, 200], ids=["tile16", "w2-global"])
+def test_wide_map_warm_chain_and_groups(dev, horizon):
+    """The wide layouts' carry (K1b: two chained launches equal one, bit for
+    bit) and group grid (K1d: two groups of their own rho and bound)."""
+    p, c = _quad(horizon, dev)
+    m = build_condensed(p, c)
+    args = (m, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max,
+            _x0(100, 12, 4, 0.3, dev))
+    kw = dict(N=horizon, relaxation_alpha=1.7)
+    one = K.condensed_fused_cuda(*args, **_kw(12, 4, max_iter=60,
+                                              carry_out=False, **kw))
+    a = K.condensed_fused_cuda(*args, **_kw(12, 4, max_iter=20, **kw))
+    b = K.condensed_fused_cuda(*args, a[4], **_kw(
+        12, 4, max_iter=40, warm_start=True, carry_out=False, **kw))
+    done = a[3] == 1
+    assert torch.equal(torch.where(done, a[2], 20 + b[2]), one[2])
+    assert torch.equal(torch.where(done[:, None, None], a[1], b[1]), one[1])
+    G = 2
+    mg = type(m)(*(t.expand((G,) + t.shape).contiguous() for t in m))
+    rho = torch.tensor([float(c.rho), float(c.rho)], device=dev)
+    um = torch.stack([p.u_min.reshape(-1), 0.8 * p.u_min.reshape(-1)])
+    x0 = _x0(G * 70, 12, 5, 0.3, dev).reshape(G, 70, 12)
+    gargs = (mg, rho, um, -um, p.x_min.reshape(-1), p.x_max.reshape(-1), x0,
+             None)
+    full = _kw(12, 4, max_iter=60, **kw)
+    k = K.condensed_fused_cuda(*gargs, num_groups=G, **full)
+    r = K.condensed_fused_reference(*gargs, num_groups=G, **full)
+    torch.cuda.synchronize()
+    _counts_and_values_agree(k, r)
+
+
+def test_wide_stages_and_many_cones_match_plain_version(dev):
+    """K1e on the 20-state chain: a state stage of 20 entries with 10 cones
+    of dim 2 (mu 0.5), 4 halfspace rows and the state box, beside a
+    projected input side (one cone over the 9 tensions)."""
+    Nc = 8
+    p, c = _chain(Nc, dev, x_bound=3.0)
+    rng = np.random.default_rng(11)
+    cons = dict(soc_x=tuple((2 * j, 2, 0.5) for j in range(10)),
+                lin_x=(rng.normal(size=(4, 20)), np.full(4, 5.0)),
+                soc_u=((0, 9, 2.0),))
+    fn_kw = dict(max_iter=60, en_state_bound=True, relaxation_alpha=1.7,
+                 carry_out=True)
+    fk = K.make_condensed_fused_solver(20, 9, Nc, **fn_kw, **cons)
+    args = (build_condensed(p, c), float(c.rho), p.u_min.reshape(-1),
+            p.u_max.reshape(-1), p.x_min.reshape(-1), p.x_max.reshape(-1),
+            _chain_x0(500, 12, dev))
+    before = K.condensed_fused_cuda.projected_launches
+    k = fk(*args)
+    torch.cuda.synchronize()
+    assert K.condensed_fused_cuda.projected_launches == before + 1
+    cons_t = K.fused_constraints(**cons, nx=20, nu=9, dtype=torch.float32,
+                                 device=dev)
+    r = K.condensed_fused_reference(
+        *args, constraints=cons_t, nx=20, nu=9, N=Nc, abs_pri_tol=1e-3,
+        abs_dua_tol=1e-3, en_input_bound=True, check_termination=1,
+        warm_start=False, **fn_kw)
+    _counts_and_values_agree(k, r)
+
+
+@pytest.mark.parametrize("horizon,kw", [
+    (150, {}), (150, dict(precision="default", check_termination=5,
+                          max_iter=5)),
+], ids=["fp32", "default"])
+def test_adaptive_global_iterates_match_plain_version(dev, horizon, kw):
+    """K2 on the quadrotor at N = 150 (sw 2,396): the iterates of a tile of
+    16 lanes leave no room, so vec1 and ux live in global memory and stream
+    beside the maps.  Reduced: four bf16 iterations from the cold start
+    (the plain version sums them as the tensor cores do) and one fp32
+    check; later reduced iterations would round the cuBLAS-ordered fp32
+    products of 2,397 columns to bf16 and part from the kernel's."""
+    p, c = _quad(horizon, dev)
+    plan = K2.adaptive_tile_plan(12, 4, horizon, 2, "precision" in kw)
+    assert plan.iterates_global and plan.tile == 32
+    args = (build_condensed_taylor(p, c), p.u_min, p.u_max, p.x_min,
+            p.x_max, _x0(200, 12, 6, 0.3, dev), None)
+    full = _k2_kw(p, c, **dict(_QUAD_KW, **dict(dict(max_iter=150), **kw)))
+    before = K2.condensed_adaptive_cuda.launches
+    k = K2.condensed_adaptive_cuda(*args, **full)
+    r = K2.condensed_adaptive_reference(*args, **full)
+    torch.cuda.synchronize()
+    assert K2.condensed_adaptive_cuda.launches == before + 1
+    _counts_and_values_agree(k, r)
+
+
+def test_adaptive_osqp_controller_on_a_wide_stage(dev):
+    """K2's OSQP-form controller on the 20-state chain (stages of 20 and 9
+    entries), its new slacks and duals in the global scratch."""
+    p, c = _chain(20, dev)
+    args = (build_condensed_taylor(p, c), p.u_min, p.u_max, p.x_min,
+            p.x_max, _chain_x0(300, 13, dev), None)
+    full = _k2_kw(p, c, max_iter=150, adaptive_rho_min=0.2,
+                  adaptive_rho_max=5.0)
+    k = K2.condensed_adaptive_cuda(*args, **full)
+    r = K2.condensed_adaptive_reference(*args, **full)
+    torch.cuda.synchronize()
+    _k2_agree(k, r)
+    assert bool((k[4] != 1.0).any())  # the controller moved rho
+
+
+@pytest.mark.parametrize("case", ["chain-wide", "chain-wide-state-box",
+                                  "quadrotor-far", "quadrotor-far-box",
+                                  "cartpole-far-stage-box",
+                                  "wide-far-matrices"])
+def test_stage_kernel_lifted_shapes(dev, case):
+    """K3's wide variant on the 20-state chain (lane groups of 8, the stage
+    vectors in shared memory) and its far layout on the quadrotor at N = 300
+    (the workspace in global memory), with and without a state box; the
+    per-stage terms in global memory too (the cartpole at N = 4,000 with a
+    state box, two iterations); the wide variant reading its matrices from
+    the caller's tensors (a made-up 96 x 96 plant)."""
+    box = "box" in case
+    budget, batch = 200, 1001
+    if case.startswith("chain"):
+        p, c = _chain(20, dev, x_bound=0.6 if box else None)
+        x0 = _chain_x0(batch, 14, dev)
+        if box:
+            x0 = x0.clamp(-0.5, 0.5)
+    elif case.startswith("quadrotor"):
+        # 4,096 lanes: at 1,001 the plain version's cuBLAS products of
+        # (12, 12) by (12, 1001) sum in another order and, under the state
+        # box over 300 stages, move ~9% of the lanes' latches by one or two
+        # iterations; at 4,096 the two agree on every count
+        batch = 4096
+        p, c = _quad(300, dev, x_bound=2.0 if box else None)
+        x0 = _x0(batch, 12, 15, 0.3, dev)
+    elif case.startswith("cartpole"):
+        horizon, budget, batch = 4000, 2, 300
+        xb = np.tile([2.0, 1e17, 1e17, 1e17], (horizon, 1))
+        p = make_problem(cartpole.A, cartpole.B, np.diag(cartpole.Q_DIAG),
+                         np.diag(cartpole.R_DIAG), cartpole.RHO, horizon,
+                         u_min=-5.0, u_max=5.0, x_min=-xb, x_max=xb,
+                         dtype=torch.float32, device=dev)
+        c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+        x0 = _x0(batch, 4, 16, 0.5, dev)
+    else:
+        rng = np.random.default_rng(17)
+        n, budget, batch = 96, 30, 64
+        p = make_problem(np.eye(n) + rng.normal(size=(n, n)) * 0.01 / 10,
+                         rng.normal(size=(n, n)) * 0.1, np.eye(n), np.eye(n),
+                         1.0, 4, u_min=-1.0, u_max=1.0, dtype=torch.float32,
+                         device=dev)
+        c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+        x0 = _x0(batch, n, 17, 0.1, dev)
+    full = dict(nx=p.nx, nu=p.nu, N=p.N, max_iter=budget, abs_pri_tol=1e-3,
+                abs_dua_tol=1e-3, en_state_bound=box, en_input_bound=True,
+                check_termination=1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = K3.fused_stage_plan(p.nx, p.nu, p.N, box, batch, sms)
+    expect = {"chain": (False, False, False), "quadrotor": (True, False, False),
+              "cartpole": (True, True, False), "wide": (True, False, True)}
+    assert (plan.workspace_global, plan.stage_global,
+            plan.matrices_global) == expect[case.split("-")[0]]
+    before = K3.fused_cuda.launches
+    k = K3.fused_cuda(*_k3_args(p, c, x0), **full)
+    r = K3.fused_reference(*_k3_args(p, c, x0), **full)
+    torch.cuda.synchronize()
+    assert K3.fused_cuda.launches == before + 1
+    _counts_and_values_agree(k, r)
+    if budget > 2:
+        assert int((k[3] == 1).sum()) > batch // 2
+
+
+def _forced(monkeypatch, module, name, plan):
+    """Make ``module``'s wrapper launch ``plan`` whatever the shape."""
+    monkeypatch.setattr(module, name, lambda *a, **k: plan)
+
+
+@pytest.mark.parametrize("layout", ["tile16", "w2-global"])
+@pytest.mark.parametrize("reduced", [False, True], ids=["fp32", "head8"])
+def test_k1_layouts_agree_bit_for_bit(dev, monkeypatch, layout, reduced):
+    """A lane's result does not depend on its layout: the quadrotor at N =
+    20, launched on its own plan and forced onto tiles of 16 lanes or onto
+    w2 in global memory, gives the same bits (every product sums in index
+    order, the reduced one in the tensor cores' order), carry included."""
+    p, c = _quad(20, dev)
+    args = (build_condensed(p, c), float(c.rho), p.u_min, p.u_max, p.x_min,
+            p.x_max, _x0(301, 12, 18, 0.3, dev), None)
+    kw = dict(bf16_head_iters=8, check_termination=4) if reduced else {}
+    full = _kw(12, 4, max_iter=120, relaxation_alpha=1.7, **kw)
+    own = K.condensed_fused_cuda(*args, **full)
+    sw, kp = 316, 320
+    tile, wg = (16, False) if layout == "tile16" else (32, True)
+    width = K.row_groups(tile) * (8 if tile == 16 else K.W2_GLOBAL_RPT)
+    npass = -(-sw // width)
+    rows = npass * width
+    plan = K.TilePlan(tile, K.THREADS, False, False, rows, kp,
+                      K.tile_smem(sw, rows, kp, 0, False, reduced, npass,
+                                  tile, wg), npass, wg)
+    _forced(monkeypatch, K, "fused_tile_plan", plan)
+    forced = K.condensed_fused_cuda(*args, **full)
+    torch.cuda.synchronize()
+    for a, b in zip(own[:4], forced[:4]):
+        assert torch.equal(a, b)
+    for a, b in zip(own[4], forced[4]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(precision="default",
+                                          check_termination=5)],
+                         ids=["fp32", "default"])
+def test_k2_global_iterates_agree_bit_for_bit(dev, monkeypatch, kw):
+    """K2 at the quadrotor's N = 20 on its own plan and forced onto tiles
+    of 32 lanes with the iterates in global memory: the same bits."""
+    p, c = _quad(20, dev)
+    args = (build_condensed_taylor(p, c), p.u_min, p.u_max, p.x_min,
+            p.x_max, _x0(301, 12, 19, 0.3, dev), None)
+    full = _k2_kw(p, c, **dict(_QUAD_KW, max_iter=150, **kw))
+    own = K2.condensed_adaptive_cuda(*args, **full)
+    su, sw = 76, 316
+    rpt = K2.K2_GLOBAL_RPT
+    W = rpt * 2 * K2.THREADS // 32
+    p1, p2 = -(-sw // W), -(-4 * su // W)
+    lo = "precision" in kw
+    plan = K2.AdaptivePlan(32, K2.THREADS, rpt, p1, p2, False, False,
+                           K2._kp(su + 13), K2._kp(sw + 1),
+                           K2.adaptive_smem(12, 4, 20, 2, 32, rpt, p1, p2,
+                                            False, False, lo, True, True),
+                           True)
+    _forced(monkeypatch, K2, "adaptive_tile_plan", plan)
+    forced = K2.condensed_adaptive_cuda(*args, **full)
+    torch.cuda.synchronize()
+    for a, b in zip(own[:5], forced[:5]):
+        assert torch.equal(a, b)
+    for a, b in zip(own[5], forced[5]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("box", [False, True], ids=["free", "state-box"])
+@pytest.mark.parametrize("where", ["workspace", "workspace-and-stage"])
+def test_k3_far_layout_agrees_bit_for_bit(dev, monkeypatch, box, where):
+    """K3 at the quadrotor's N = 20 on its own plan and forced onto the far
+    layout (the workspace, and the per-stage terms, in global memory): the
+    same bits."""
+    p, c = _quad(20, dev, x_bound=0.4 if box else None)
+    x0 = _x0(1001, 12, 20, 0.3, dev)
+    full = dict(nx=12, nu=4, N=20, max_iter=300, abs_pri_tol=1e-3,
+                abs_dua_tol=1e-3, en_state_bound=box, en_input_bound=True,
+                check_termination=1)
+    own = K3.fused_cuda(*_k3_args(p, c, x0), **full)
+    if box:  # the bound binds
+        assert float(own[0].abs().max()) == pytest.approx(0.4, abs=1e-7)
+    else:
+        assert int((own[3] == 1).sum()) > 500
+    stage = where.endswith("stage")
+    smem = 0 if stage else 4 * K3.stage_floats(12, 4, 20, box)
+    plan = K3.StagePlan(4, 32, 128, smem, True, True, stage, False)
+    _forced(monkeypatch, K3, "fused_stage_plan", plan)
+    forced = K3.fused_cuda(*_k3_args(p, c, x0), **full)
+    torch.cuda.synchronize()
+    for a, b in zip(own, forced):
+        assert torch.equal(a, b)

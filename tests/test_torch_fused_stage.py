@@ -118,6 +118,40 @@ def test_plain_version_matches_jax_interpret(name):
         assert np.abs(px[..., 0]).max() == np.float32(0.3)
 
 
+@pytest.mark.parametrize("state_bound", [False, True],
+                         ids=["box-free", "state-box"])
+def test_wide_plant_matches_jax_interpret(state_bound):
+    """The 20-state chain (nx = 20, nu = 9: the card runs the wide variant
+    there) against ``make_fused_solver(20, 9, 8)`` in interpret mode, B =
+    64: equal counts and flags, 1e-5 on the lanes both solve (with the
+    state box |x| <= 0.6, every lane)."""
+    import types
+    from torch_port_common import chain_plant, chain_x0
+    A, B = chain_plant()
+    chain = types.SimpleNamespace(A=A, B=B, Q_DIAG=np.ones(20),
+                                  R_DIAG=np.ones(9))
+    xb = np.full(20, 0.6) if state_bound else None
+    (jp, jc), (pp, pc) = _problem(chain, 8, 1.0, 1.0, x_bound=xb)
+    x0 = chain_x0(64, 14)
+    if state_bound:
+        x0 = np.clip(x0, -0.5, 0.5)
+    kw = dict(en_input_bound=True, en_state_bound=state_bound, max_iter=100)
+    jfn = jax_make(20, 9, 8, batch_tile=32, interpret=INTERPRET, **kw)
+    jx, ju, jit_, jok = (np.asarray(a) for a in jfn(
+        *_args(jp, jc, jnp.asarray(x0, F32))))
+    px, pu, pit, pok = (a.numpy() for a in K3.make_fused_solver(
+        20, 9, 8, **kw)(*_args(pp, pc, torch.as_tensor(x0,
+                                                       dtype=torch.float32))))
+    np.testing.assert_array_equal(pit, jit_)
+    np.testing.assert_array_equal(pok, jok)
+    both = (pok == 1) & (jok == 1)
+    assert both.sum() >= 32
+    sel = slice(None) if state_bound else both
+    np.testing.assert_allclose(pu[sel], ju[sel], atol=ATOL, rtol=0)
+    np.testing.assert_allclose(px[sel], jx[sel], atol=ATOL, rtol=0)
+    assert K3.fused_stage_plan(20, 9, 8, state_bound, 64, 132).group == 8
+
+
 def _solve_batch(pp, pc, x0, **settings):
     st = PB.set_x0_batch(PB.broadcast_state(
         P.init_state(pp.nx, pp.nu, pp.N, device=CPU, dtype=pp.dtype),
@@ -246,10 +280,22 @@ def test_tile_plan():
     assert gen.smem == 4 * (K3.stage_floats(5, 2, 20, False)
                             + K3.matrix_floats(5, 2)
                             + K3.lane_floats(5, 2, 20, False) * 40)
-    with pytest.raises(ValueError, match="nx, nu <="):
-        K3.fused_stage_plan(17, 1, 20, False, 64, 132)
-    with pytest.raises(ValueError, match="no room"):
-        K3.fused_stage_plan(16, 16, 200, True, 64, 132)
+    # beyond the generic variant's 16: the wide variant (lane groups of 8
+    # threads up to 32 rows, the stage vectors in shared memory); a warp of
+    # lanes' workspace beyond shared memory: the far layout
+    wide = K3.fused_stage_plan(17, 1, 20, False, 64, 132)
+    assert (wide.group, wide.registers, wide.workspace_global) == (
+        8, False, False)
+    assert wide.smem == 4 * (K3.stage_floats(17, 1, 20, False)
+                             + K3.matrix_floats(17, 1)
+                             + K3.vec_floats(17, 1) * wide.tile
+                             + K3.lane_floats(17, 1, 20, False)
+                             * K3.lane_stride(wide.tile, 8))
+    far = K3.fused_stage_plan(16, 16, 200, True, 64, 132)
+    assert (far.group, far.registers, far.workspace_global,
+            far.stage_global) == (4, False, True, False)
+    assert far.smem == 4 * (K3.stage_floats(16, 16, 200, True)
+                            + K3.matrix_floats(16, 16))
 
 
 @pytest.mark.parametrize("model", [cartpole, quadrotor, rocket])
@@ -271,17 +317,23 @@ def test_variant_labels_and_ptxas_usage():
     """The names chip_smoke.py prints for each K3 instance, and the
     registers and spills read from ``-Xptxas -v``."""
     from tinympc_julia_tpu_torch.ops.cuda._build import ptxas_usage
-    name = ("_ZN12_GLOBAL__N_118fused_stage_kernelILi12ELi4ELi4ELb1ELb1EEEv"
-            "NS_6ParamsE")
+    name = ("_ZN12_GLOBAL__N_118fused_stage_kernelILi12ELi4ELi4ELb1ELb1ELb0E"
+            "EEvNS_6ParamsE")
     log = (f"ptxas info    : Compiling entry function '{name}' for "
            f"'sm_90a'\nptxas info    : Function properties for {name}\n"
            "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill "
            "loads\nptxas info    : Used 168 registers, used 0 barriers\n")
     assert ptxas_usage(log) == {name: (168, 8, 4, 4)}
     assert K3.variant_label(name) == "12x4, G=4, registers, free"
-    assert K3.variant_label(name.replace("ILi12ELi4ELi4ELb1ELb1E",
-                                         "ILi0ELi0ELi4ELb0ELb0E")) == (
+    assert K3.variant_label(name.replace("ILi12ELi4ELi4ELb1ELb1ELb0E",
+                                         "ILi0ELi0ELi4ELb0ELb0ELb0E")) == (
         "generic, G=4, shared, box")
+    # the far layout (the workspace in global memory) and the wide variant
+    assert K3.variant_label(name.replace("ELb0EEEv", "ELb1EEEv")) == (
+        "12x4, G=4, registers, free, far")
+    wide = ("_ZN12_GLOBAL__N_123fused_stage_wide_kernelILi8ELb0EEEv"
+            "NS_6ParamsE")
+    assert K3.variant_label(wide) == "wide, G=8, box"
     assert K3.variant_label("_Z3foov") is None
 
 

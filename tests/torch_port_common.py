@@ -215,3 +215,53 @@ def settings_pair(**kw):
     """The same Settings for the JAX package and the port."""
     import tinympc_julia_tpu_torch as P
     return J.Settings(**kw), P.Settings(**kw)
+
+
+def chain_plant(n=10, dt=0.5):
+    """A chain of ``n`` unit masses in a line, unit springs between
+    neighbours and to the two walls, the n - 1 inputs the tensions between
+    neighbours; state (positions, velocities), zero-order hold at ``dt``
+    (the 20-state chain at n = 10).  Returns (A (2n, 2n), B (2n, n - 1))."""
+    from scipy.linalg import expm
+    lap = 2 * np.eye(n) - np.eye(n, k=1) - np.eye(n, k=-1)
+    tension = np.eye(n, n - 1) - np.eye(n, n - 1, k=-1)
+    m = np.zeros((3 * n - 1, 3 * n - 1))
+    m[:n, n:2 * n] = np.eye(n)
+    m[n:2 * n, :n] = -lap
+    m[n:2 * n, 2 * n:] = tension
+    e = expm(m * dt)
+    return e[:2 * n, :2 * n], e[:2 * n, 2 * n:]
+
+
+def chain_x0(B, seed):
+    """The chain's initial states: 0.5 N(0, 1) an entry."""
+    return 0.5 * np.random.default_rng(seed).standard_normal((B, 20))
+
+
+def plant_setup(A, B, Q_diag, R_diag, rho, N, dtype, *, ub, x_bound=None,
+                taylor=False, **problem_kw):
+    """(JAX problem, cache, maps) and the port's copies of the same data for
+    a plant with |u| <= ub and, with ``x_bound``, |x| <= x_bound at every
+    stage; the maps are the Taylor maps with ``taylor``.  ``problem_kw``
+    (cones, halfspaces) go to the JAX problem and reach the port through
+    the converters."""
+    nx = np.shape(A)[0]
+    kw = dict(problem_kw)
+    if x_bound is not None:
+        xb = np.full((N, nx), x_bound)
+        kw.update(x_min=jnp.asarray(-xb, dtype), x_max=jnp.asarray(xb, dtype))
+    jp = J.make_problem(jnp.asarray(A, dtype), jnp.asarray(B, dtype),
+                        jnp.asarray(np.diag(Q_diag), dtype),
+                        jnp.asarray(np.diag(R_diag), dtype), rho, N,
+                        u_min=-ub, u_max=ub, **kw)
+    jc = J.precompute_cache(jp.A, jp.B, jp.Q, jp.R, jnp.asarray(rho, dtype))
+    tdt = TORCH_DTYPE[dtype]
+    pp, pc = port_copies(jp, jc, dtype)
+    if taylor:
+        jm = build_condensed_taylor(jp, jc)
+        pm = convert.taylor_maps_from_numpy(jax_arrays(jm), dtype=tdt,
+                                            device=CPU)
+    else:
+        jm = jax_build(jp, jc)
+        pm = convert.maps_from_numpy(jax_arrays(jm), dtype=tdt, device=CPU)
+    return (jp, jc, jm), (pp, pc, pm)

@@ -47,7 +47,10 @@
 //  * The lanes' iterates vec1 = [d; x0; 1] and ux / vec2 = [znew - y;
 //    vnew - g; 1] live in shared memory as [row][lane]; so do the duals and
 //    slacks (y, z, v, g) where they fit, else they stay in the (dim, B)
-//    outputs.
+//    outputs.  Where even the iterates of a tile of 16 lanes leave no room
+//    beside the ring (the widest maps), vec1 and ux live in global memory,
+//    each tile its own columns, and stream through the ring beside the
+//    maps' slabs (kWG, tile_gemm.cuh); the sums keep their order.
 //  * The elementwise step runs on all threads, 256 / T a lane: relaxation,
 //    projections, residuals and dual ascent (tile_gemm.cuh,
 //    projections.cuh), and the OSQP-form prediction stage by stage; the
@@ -57,7 +60,10 @@
 //  * The OSQP-form residuals are block-structured (dynamics rows A x_i +
 //    B u_i - x_{i+1}, the A^T g terms, diagonal costs, the Taylor terminal
 //    cost P0 + drho dP): each stage's come from A, B, the cost diagonals, P0
-//    and dP, each matvec in one thread in index order.
+//    and dP, each matvec in one thread in index order.  The new slacks and
+//    duals they read (a stage's and the next one's) are first written, each
+//    stage by its own thread, to two global scratch arrays, so a stage of
+//    any width takes no registers.
 //  * Reduced precision (precision="default"): an iteration that neither
 //    checks nor predicts rho runs both products on the tensor cores
 //    (mma.sync.m16n8k16 on real-bf16 maps, operands rounded to bf16, each
@@ -71,8 +77,9 @@
 //    lane = g * L + l, and rho stays per lane.
 //
 // Launch contract: the Python wrapper (adaptive_tile_plan) picks the tile
-// and the rows a thread (32 lanes with 8 or 20 rows, 16 lanes with 8: the
-// instances), the passes, the padded layouts, the
+// and the rows a thread (32 lanes with 8 or 20 rows, 16 lanes with 8, and
+// 32 lanes with 20 and the iterates in global memory: the instances), the
+// passes, the padded layouts, the
 // residency of maps and state and the dynamic shared-memory size; the entry
 // point refuses a layout the kernel would overrun.
 #include <cuda_bf16.h>
@@ -127,7 +134,16 @@ struct Params {
   const float* rd;    // (nu,)
   const float* P0;    // (nx, nx) terminal cost and its rho sensitivity
   const float* dP;
+  float* wsc;         // (sw, B) new slacks: the projected stages' scratch,
+                      // and every stage's for the OSQP-form residuals; null
+                      // where neither runs
+  float* dsc;         // (sw, B) the OSQP-form residuals' new duals
+  float* vecg;        // (in1, ldg) the tiles' vec1 in global memory (kWG)
+  float* uxg;         // (sw + 1, ldg) their ux / vec2 (kWG)
+  __nv_bfloat16* w2hg;  // (ldg, max(kp1, kp2)) a product's rounded input
+                        // (kWG, reduced)
   int nx, nu, N, su, sx, sw, in1, B, L;  // B = G * L lanes
+  int tiles, ldg;     // tiles a group; columns of the tiles' global arrays
   int ord1, ld1, ld2, kp1, kp2, passes1, passes2;
   int max_iter, ct, lo_all;
   float alpha, one_m_alpha, pri_tol, dua_tol;
@@ -146,7 +162,9 @@ __host__ __device__ inline int state_rows(int su, int sx, bool state_free) {
 }
 
 // Byte offsets of the block's shared memory for a tile of T lanes: vec1
-// (in1 x T floats), ux / vec2 (sw + 1 rows), the latch flags (T + 1 ints),
+// (in1 x T floats), ux / vec2 (sw + 1 rows; neither with wg, where they
+// live in global memory and stream beside each ring slab), the latch flags
+// (T + 1 ints),
 // the lanes' rho before and after the update (2 x T), the elementwise
 // partials (3 float4 a
 // thread), the lanes' duals and slacks where resident, the map region
@@ -158,12 +176,12 @@ struct K2Layout {
 };
 
 __host__ __device__ inline K2Layout k2_layout(
-    int T, int W, int in1, int sw, int ord1, int ld1, int ld2, int kp1,
-    int kp2, int state_floats, bool resident, bool reduced) {
+    int T, bool wg, int W, int in1, int sw, int ord1, int ld1, int ld2,
+    int kp1, int kp2, int state_floats, bool resident, bool reduced) {
   K2Layout t;
-  size_t off = up16(sizeof(float) * static_cast<size_t>(in1) * T);
+  size_t off = wg ? 0 : up16(sizeof(float) * static_cast<size_t>(in1) * T);
   t.ux = off;
-  off += up16(sizeof(float) * static_cast<size_t>(sw + 1) * T);
+  if (!wg) off += up16(sizeof(float) * static_cast<size_t>(sw + 1) * T);
   t.flags = off;
   off += up16(sizeof(int) * (T + 1));
   t.rho = off;
@@ -184,21 +202,24 @@ __host__ __device__ inline K2Layout k2_layout(
     if (reduced) off += up16(2 * static_cast<size_t>(ld2) * (kp2 + kPadLo));
   } else {
     t.t2 = t.t1a = t.t2a = off;
-    off += up16(ring_bytes(W, reduced) > ring_bytes(W, false)
-                    ? ring_bytes(W, reduced)
-                    : ring_bytes(W, false));
+    const int wt = wg ? T : 0;
+    off += up16(ring_bytes(W, reduced, wt) > ring_bytes(W, false, wt)
+                    ? ring_bytes(W, reduced, wt)
+                    : ring_bytes(W, false, wt));
   }
   t.w2h = off;
   const int kp = kp1 > kp2 ? kp1 : kp2;
-  if (reduced) off += up16(2 * static_cast<size_t>(T) * (kp + kPadLo));
+  if (reduced && !wg)
+    off += up16(2 * static_cast<size_t>(T) * (kp + kPadLo));
   t.total = off;
   return t;
 }
 
 // What one block works on.
 struct Tile {
-  float* vec1;                 // (in1, T)
-  float* ux;                   // (sw + 1, T)
+  float* vec1;                 // (in1, T): element (r, l) at vec1[r * bs + l]
+  float* ux;                   // (sw + 1, T), the same
+  int bs;                      // T in shared memory; ldg in global (kWG)
   const int* done;             // (T,) latched (or absent) lanes
   float* state;                // resident duals and slacks, or null
   float* ring;                 // streamed slabs; null where resident
@@ -206,7 +227,8 @@ struct Tile {
   const float* t2;             // resident, else in global memory
   const __nv_bfloat16* t1a;
   const __nv_bfloat16* t2a;
-  __nv_bfloat16* w2h;
+  __nv_bfloat16* w2h;          // shared (T, kp + kPadLo); with kWG the
+                               // tile's global (T, kp) rows
   float rho0;
   int tid, lane0, nvalid, g, gm;
 };
@@ -254,7 +276,7 @@ __device__ __forceinline__ bool takes(const Tile& t, int r, int rows, int l) {
 // of W rows at a time.  The Horner value v = v drho + acc of each output
 // the thread sums lives in its entry of ux, which no other thread touches
 // until the product is done (the registers hold the product's tile only).
-template <int RPT, int T>
+template <int RPT, int T, bool kWG>
 __device__ __forceinline__ void forward(const Params& p, const Tile& t,
                                         bool lo, const float* rho_b) {
   const int W = Lanes<T>::kRowGroups * RPT, ord1 = p.ord1;
@@ -264,7 +286,7 @@ __device__ __forceinline__ void forward(const Params& p, const Tile& t,
     for (int e = 0; e < 2 * RPT; ++e) {
       const int r = r0 + fr.row(e), l = fr.lane(e);
       if (r < p.sw) {
-        float* v = t.ux + r * T + l;
+        float* v = t.ux + r * t.bs + l;
         *v = c == ord1 - 1
                  ? acc[e]
                  : __fadd_rn(__fmul_rn(*v, __fsub_rn(rho_b[l], t.rho0)),
@@ -276,14 +298,14 @@ __device__ __forceinline__ void forward(const Params& p, const Tile& t,
   if (lo) {
     const int lda = t.ring ? p.kp1 : p.kp1 + kPadLo;
     const GemmLo a{t.vec1, t.w2h, reinterpret_cast<__nv_bfloat16*>(t.ring),
-                   p.in1, p.kp1, W, nseg, t.tid, lda};
-    gemm_lo<RPT, T>(a, [&](int j) {
+                   p.in1, p.kp1, W, nseg, t.tid, lda, t.bs};
+    gemm_lo<RPT, T, kWG>(a, [&](int j) {
       const int c = ord1 - 1 - j % ord1, pass = j / ord1;
       return t.t1a + (static_cast<size_t>(c) * p.ld1 + pass * W) * lda;
     }, epi);
   } else {
-    const GemmF32 a{t.vec1, t.ring, p.in1, W, p.ld1, nseg, t.tid};
-    gemm_fp32<RPT, T>(a, [&](int j) {
+    const GemmF32 a{t.vec1, t.ring, p.in1, W, p.ld1, nseg, t.tid, t.bs};
+    gemm_fp32<RPT, T, kWG>(a, [&](int j) {
       const int c = ord1 - 1 - j % ord1, pass = j / ord1;
       return t.t1 + static_cast<size_t>(c) * p.in1 * p.ld1 + pass * W;
     }, epi);
@@ -302,14 +324,14 @@ __device__ __forceinline__ float bilinear(float a0, float a1, float a2,
 
 // The backward product into vec1's d rows: the interleaved T2 stack, a
 // pass of W stacked rows (W / 4 outputs) at a time.
-template <int RPT, int T>
+template <int RPT, int T, bool kWG>
 __device__ __forceinline__ void backward(const Params& p, const Tile& t,
                                          bool lo, const float* rho_b,
                                          const float* rho_n) {
   const int W = Lanes<T>::kRowGroups * RPT;
   auto store = [&](int r, int l, float a0, float a1, float a2, float a3) {
     if (takes(t, r, p.su, l))
-      t.vec1[r * T + l] = bilinear(
+      t.vec1[r * t.bs + l] = bilinear(
           a0, a1, a2, a3, __fsub_rn(rho_b[l], t.rho0),
           __fsub_rn(rho_n[l], t.rho0));
   };
@@ -341,87 +363,111 @@ __device__ __forceinline__ void backward(const Params& p, const Tile& t,
   if (lo) {
     const int lda = t.ring ? p.kp2 : p.kp2 + kPadLo;
     const GemmLo a{t.ux, t.w2h, reinterpret_cast<__nv_bfloat16*>(t.ring),
-                   p.sw + 1, p.kp2, W, p.passes2, t.tid, lda};
-    gemm_lo<RPT, T>(a, [&](int j) {
+                   p.sw + 1, p.kp2, W, p.passes2, t.tid, lda, t.bs};
+    gemm_lo<RPT, T, kWG>(a, [&](int j) {
       return t.t2a + static_cast<size_t>(j) * W * lda;
     }, epi);
   } else {
-    const GemmF32 a{t.ux, t.ring, p.sw + 1, W, p.ld2, p.passes2, t.tid};
-    gemm_fp32<RPT, T>(a, [&](int j) { return t.t2 + j * W; }, epi);
+    const GemmF32 a{t.ux, t.ring, p.sw + 1, W, p.ld2, p.passes2, t.tid,
+                    t.bs};
+    gemm_fp32<RPT, T, kWG>(a, [&](int j) { return t.t2 + j * W; }, epi);
   }
 }
 
 // The new slack and the ascended dual of stage k of one side, as the update
-// pass will compute them (the same functions, so the same bits).
-template <int T>
+// pass will compute them (the same functions, so the same bits), into the
+// side's rows of the scratch arrays w and dn (element r at [r * B]).  ux:
+// the lane's column, element r at ux[r * us].
 __device__ __forceinline__ void stage_new(const Params& p, const Side& s,
                                           int g, int k, bool relax,
-                                          const float* ux, const float* prev,
+                                          const float* ux, int us,
+                                          const float* prev,
                                           const float* dual, int stride,
                                           float* w, float* dn) {
   const StageParams sp{p.alpha, p.one_m_alpha, stride};
-  stage_slack(sp, s, g, k, relax, ux, prev, dual, 0, T, w);
-  for (int j = 0; j < s.dim; ++j) {
-    const int r = k * s.dim + j, o = r * stride;
-    dn[j] = dual ? __fsub_rn(__fadd_rn(dual[o], relaxed(p, relax, ux[r * T],
-                                                         prev[o])), w[j])
-                 : 0.0f;
+  const int B = p.B, dim = s.dim;
+  stage_slack(sp, s, g, k, relax, ux, prev, dual, 0, us, w + k * dim * B, B);
+  for (int j = 0; j < dim; ++j) {
+    const int r = k * dim + j, o = r * stride;
+    dn[r * B] = dual ? __fsub_rn(__fadd_rn(dual[o], relaxed(p, relax,
+                                                           ux[r * us],
+                                                           prev[o])),
+                                 w[r * B])
+                     : 0.0f;
   }
+}
+
+// The OSQP-form residuals' inputs of one lane, before this iteration's
+// update pass: the new slack and dual of every stage q, q + 256 / T, ... of
+// both sides into the scratch (the lane's column: wsc + lane, dsc + lane).
+template <int T>
+__device__ void osqp_fill(const Params& p, int g, bool relax, const float* ux,
+                          int us, const LaneState& st, int lane, int q) {
+  const int S = st.stride, B = p.B;
+  for (int j = q; j < p.N; j += Lanes<T>::kLaneThreads)
+    stage_new(p, p.side_x, g, j, relax, ux + p.su * us, us, st.v, st.g, S,
+              p.wsc + p.su * B + lane, p.dsc + p.su * B + lane);
+  for (int j = q; j < p.N - 1; j += Lanes<T>::kLaneThreads)
+    stage_new(p, p.side_u, g, j, relax, ux, us, st.z, st.y, S,
+              p.wsc + lane, p.dsc + lane);
 }
 
 // The partial maxima of the OSQP-form residuals (ops/rho.py
 // osqp_residuals, with the per-lane terminal cost P0 + drho dP) over the
-// stages q, q + 256 / T, ... of one lane, before this iteration's update pass:
-// ux holds [u; x] (the lane's column), the state y/g the duals before their
-// ascent and z/v the previous slacks.  m: pri_res, pri_norm, dual_res,
-// px_inf, aty_inf, q_inf.
+// stages q, q + 256 / T, ... of one lane, from osqp_fill's scratch: ux
+// holds [u; x] (the lane's column, element r at ux[r * us]).  m: pri_res,
+// pri_norm, dual_res, px_inf, aty_inf, q_inf.
 template <int T>
-__device__ void osqp_partials(const Params& p, int g, int gp, bool relax,
-                              const float* ux, const LaneState& st,
-                              float drho, int q, float (&m)[6]) {
-  const int nx = p.nx, nu = p.nu, N = p.N, S = st.stride;
+__device__ void osqp_partials(const Params& p, int gp, const float* ux,
+                              int us, int lane, float drho, int q,
+                              float (&m)[6]) {
+  const int nx = p.nx, nu = p.nu, N = p.N, B = p.B;
   const float* A = p.A + gp * nx * nx;
   const float* Bm = p.Bm + gp * nx * nu;
   const float* qd = p.qd + gp * nx;
   const float* rd = p.rd + gp * nu;
   const float* P0 = p.P0 + gp * nx * nx;
   const float* dP = p.dP + gp * nx * nx;
-  const float* xs = ux + p.su * T;
-  float vn[kMaxStage], g_c[kMaxStage], vn_n[kMaxStage], g_n[kMaxStage];
-  float zn[kMaxStage], yn[kMaxStage];
+  const float* xs = ux + p.su * us;
+  // the new slacks and duals, element r of a side at [r * B]
+  const float* wx = p.wsc + p.su * B + lane;
+  const float* dx = p.dsc + p.su * B + lane;
+  const float* wu = p.wsc + lane;
+  const float* du = p.dsc + lane;
   for (int j = q; j < N; j += Lanes<T>::kLaneThreads) {
-    const float* xj = xs + j * nx * T;
+    const float* xj = xs + j * nx * us;
     const bool inner = j < N - 1;
-    if (j >= 1)
-      stage_new<T>(p, p.side_x, g, j, relax, xs, st.v, st.g, S, vn, g_c);
+    const float* vn_n = wx + (j + 1) * nx * B;  // stage j + 1 (inner)
+    const float* g_n = dx + (j + 1) * nx * B;
+    const float* g_c = dx + j * nx * B;
     if (inner) {
-      const float* uj = ux + j * nu * T;
-      stage_new<T>(p, p.side_x, g, j + 1, relax, xs, st.v, st.g, S, vn_n, g_n);
-      stage_new<T>(p, p.side_u, g, j, relax, ux, st.z, st.y, S, zn, yn);
+      const float* uj = ux + j * nu * us;
+      const float* zn = wu + j * nu * B;
+      const float* yn = du + j * nu * B;
       // primal: input rows u_j against znew_j
       for (int a = 0; a < nu; ++a) {
-        const float u = uj[a * T];
-        m[0] = fmaxf(m[0], fabsf(__fsub_rn(u, zn[a])));
-        m[1] = fmaxf(m[1], fmaxf(fabsf(u), fabsf(zn[a])));
+        const float u = uj[a * us];
+        m[0] = fmaxf(m[0], fabsf(__fsub_rn(u, zn[a * B])));
+        m[1] = fmaxf(m[1], fmaxf(fabsf(u), fabsf(zn[a * B])));
       }
       // dynamics rows A x_j + B u_j - x_{j+1} against vnew_{j+1}
       for (int a = 0; a < nx; ++a) {
         float ax = 0.0f, bu = 0.0f;
         for (int b = 0; b < nx; ++b)
-          ax = fmaf(__ldg(A + a * nx + b), xj[b * T], ax);
+          ax = fmaf(__ldg(A + a * nx + b), xj[b * us], ax);
         for (int b = 0; b < nu; ++b)
-          bu = fmaf(__ldg(Bm + a * nu + b), uj[b * T], bu);
-        const float dyn = __fsub_rn(__fadd_rn(ax, bu), xj[(nx + a) * T]);
-        m[0] = fmaxf(m[0], fabsf(__fsub_rn(dyn, vn_n[a])));
-        m[1] = fmaxf(m[1], fmaxf(fabsf(dyn), fabsf(vn_n[a])));
+          bu = fmaf(__ldg(Bm + a * nu + b), uj[b * us], bu);
+        const float dyn = __fsub_rn(__fadd_rn(ax, bu), xj[(nx + a) * us]);
+        m[0] = fmaxf(m[0], fabsf(__fsub_rn(dyn, vn_n[a * B])));
+        m[1] = fmaxf(m[1], fmaxf(fabsf(dyn), fabsf(vn_n[a * B])));
       }
       // dual, input rows: R u (from P x) + R u (from q) + B^T g_{j+1} + y_j
       for (int a = 0; a < nu; ++a) {
         float btg = 0.0f;
         for (int b = 0; b < nx; ++b)
-          btg = fmaf(__ldg(Bm + b * nu + a), g_n[b], btg);
-        const float aty = __fadd_rn(btg, yn[a]);
-        const float qu = __fmul_rn(uj[a * T], __ldg(rd + a));
+          btg = fmaf(__ldg(Bm + b * nu + a), g_n[b * B], btg);
+        const float aty = __fadd_rn(btg, yn[a * B]);
+        const float qu = __fmul_rn(uj[a * us], __ldg(rd + a));
         const float r = __fadd_rn(__fadd_rn(qu, qu), aty);
         m[2] = fmaxf(m[2], fabsf(r));
         m[3] = fmaxf(m[3], fabsf(qu));
@@ -431,21 +477,21 @@ __device__ void osqp_partials(const Params& p, int g, int gp, bool relax,
     }
     // dual, state rows: P x_j + Q x_j + A^T g_{j+1} [inner] - g_j [j >= 1]
     for (int a = 0; a < nx; ++a) {
-      const float qx = __fmul_rn(xj[a * T], __ldg(qd + a));
+      const float qx = __fmul_rn(xj[a * us], __ldg(qd + a));
       float px = qx;
       if (!inner) {
         float p0 = 0.0f, dp = 0.0f;
         for (int b = 0; b < nx; ++b) {
-          p0 = fmaf(__ldg(P0 + a * nx + b), xj[b * T], p0);
-          dp = fmaf(__ldg(dP + a * nx + b), xj[b * T], dp);
+          p0 = fmaf(__ldg(P0 + a * nx + b), xj[b * us], p0);
+          dp = fmaf(__ldg(dP + a * nx + b), xj[b * us], dp);
         }
         px = __fadd_rn(p0, __fmul_rn(drho, dp));
       }
       float aty = 0.0f;
       if (inner)
         for (int b = 0; b < nx; ++b)
-          aty = fmaf(__ldg(A + b * nx + a), g_n[b], aty);
-      if (j >= 1) aty = __fsub_rn(aty, g_c[a]);
+          aty = fmaf(__ldg(A + b * nx + a), g_n[b * B], aty);
+      if (j >= 1) aty = __fsub_rn(aty, g_c[a * B]);
       const float r = __fadd_rn(__fadd_rn(px, qx), aty);
       m[2] = fmaxf(m[2], fabsf(r));
       m[3] = fmaxf(m[3], fabsf(px));
@@ -490,9 +536,10 @@ __device__ __forceinline__ float termination_predict(const Params& p, int gm,
   return pred;
 }
 
-// RPT: rows a thread of the products; T: lanes a tile; kProjU/kProjX:
+// RPT: rows a thread of the products; T: lanes a tile; kWG: the tile's
+// iterates in global memory (streamed beside the maps); kProjU/kProjX:
 // whether the input / state side has halfspaces or cones.
-template <int RPT, int T, bool kProjU, bool kProjX>
+template <int RPT, int T, bool kWG, bool kProjU, bool kProjX>
 __global__ void __launch_bounds__(kThreads, 1)
     condensed_adaptive_kernel(Params p) {
   extern __shared__ float4 smem4[];
@@ -504,8 +551,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int sw = p.sw, su = p.su, sx = p.sx, in1 = p.in1, B = p.B;
   const bool reduced = p.t1a != nullptr;
   const K2Layout lay = k2_layout(
-      T, Lanes<T>::kRowGroups * RPT, in1, sw, p.ord1, p.ld1, p.ld2, p.kp1,
-      p.kp2,
+      T, kWG, Lanes<T>::kRowGroups * RPT, in1, sw, p.ord1, p.ld1, p.ld2,
+      p.kp1, p.kp2,
       p.state_shared ? state_rows(su, sx, p.state_free) : 0, p.resident,
       reduced);
 
@@ -515,8 +562,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   t.gm = p.map_grouped ? g : 0;
   t.lane0 = g * p.L + l0;
   t.nvalid = min(T, p.L - l0);
-  t.vec1 = reinterpret_cast<float*>(sm);
-  t.ux = reinterpret_cast<float*>(sm + lay.ux);
+  // the tile's own columns of the global arrays
+  const size_t col0 = static_cast<size_t>(g * p.tiles + blockIdx.x) * T;
+  if constexpr (kWG) {
+    t.vec1 = p.vecg + col0;
+    t.ux = p.uxg + col0;
+    t.bs = p.ldg;
+  } else {
+    t.vec1 = reinterpret_cast<float*>(sm);
+    t.ux = reinterpret_cast<float*>(sm + lay.ux);
+    t.bs = T;
+  }
   int* done = reinterpret_cast<int*>(sm + lay.flags);
   int* n_done = done + T;
   t.done = done;
@@ -524,7 +580,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   float4* red = reinterpret_cast<float4*>(sm + lay.red);
   t.state = p.state_shared ? reinterpret_cast<float*>(sm + lay.state)
                            : nullptr;
-  t.w2h = reduced ? reinterpret_cast<__nv_bfloat16*>(sm + lay.w2h) : nullptr;
+  if constexpr (kWG) {
+    t.w2h = reduced ? p.w2hg + col0 * (p.kp1 > p.kp2 ? p.kp1 : p.kp2)
+                    : nullptr;
+  } else {
+    t.w2h =
+        reduced ? reinterpret_cast<__nv_bfloat16*>(sm + lay.w2h) : nullptr;
+  }
   t.rho0 = p.rho0 ? p.rho0[t.gm] : p.rho0_one;
 
   // this block's group's maps
@@ -582,9 +644,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       } else {
         v = 1.0f;
       }
-      t.vec1[r * T + l] = v;
+      t.vec1[r * t.bs + l] = v;
     }
-    for (int r = q; r <= sw; r += tpl) t.ux[r * T + l] = r == sw ? 1.0f : 0.0f;
+    for (int r = q; r <= sw; r += tpl)
+      t.ux[r * t.bs + l] = r == sw ? 1.0f : 0.0f;
     if (valid) {
       for (int r = q; r < su; r += tpl) {
         st.y[r * S] = warm ? p.y_in[r * B + lane] : 0.0f;
@@ -619,31 +682,40 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float* rho_b = rho_s + cur * T;
     float* rho_n = rho_s + (cur ^ 1) * T;
 
-    forward<RPT, T>(p, t, lo, rho_b);
+    forward<RPT, T, kWG>(p, t, lo, rho_b);
     __syncthreads();
 
     // the elementwise step of lane l, thread q of its eight
     const bool active = !done[l];
     const LaneState st = lane_state<T>(p, t, l);
+    float* wsc = p.wsc ? p.wsc + lane : nullptr;
     const SidePass su_p{&p.side_u, t.ux + l, st.z, st.y, nullptr,
-                        p.zco + lane, st.stride};
-    const SidePass sx_p{&p.side_x, t.ux + l + su * T, st.v, st.g, nullptr,
-                        p.vco + lane, st.stride};
+                        p.zco + lane, st.stride, t.bs, wsc, B};
+    const SidePass sx_p{&p.side_x, t.ux + l + su * t.bs, st.v, st.g,
+                        nullptr, p.vco + lane, st.stride, t.bs,
+                        wsc ? wsc + su * B : nullptr, B};
     const float rb = rho_b[l];
     float rho_new = rb;
     bool newly = false;
+    const bool osqp_now = update && p.osqp;
+    if (osqp_now) {  // every stage's new slack and dual, for all threads
+      if (active) osqp_fill<T>(p, g, relax, t.ux + l, t.bs, st, lane, q);
+      __syncthreads();
+    }
     if (check || update) {
       float pi = 0.0f, di = 0.0f, ps = 0.0f, ds = 0.0f;
       float m[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       const bool term = check || (update && !p.osqp);
       if (active) {
-        if (term) {
-          side_residuals_q<kProjU, T>(p, su_p, g, relax, q, false, pi, di);
-          side_residuals_q<kProjX, T>(p, sx_p, g, relax, q, false, ps, ds);
+        if (term) {  // the projected slacks are fresh after osqp_fill
+          side_residuals_q<kProjU, T>(p, su_p, g, relax, q, false, pi, di,
+                                      osqp_now);
+          side_residuals_q<kProjX, T>(p, sx_p, g, relax, q, false, ps, ds,
+                                      osqp_now);
         }
-        if (update && p.osqp)
-          osqp_partials<T>(p, g, gp, relax, t.ux + l, st,
-                        __fsub_rn(rb, t.rho0), q, m);
+        if (osqp_now)
+          osqp_partials<T>(p, gp, t.ux + l, t.bs, lane,
+                           __fsub_rn(rb, t.rho0), q, m);
       }
       red[tid] = make_float4(pi, di, ps, ds);
       red[kThreads + tid] = make_float4(m[0], m[1], m[2], m[3]);
@@ -695,7 +767,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (*n_done == t.nvalid) break;  // every lane of the tile has latched
 
     // backward: cost fold at the pre-update drho, gain at the post-update
-    backward<RPT, T>(p, t, lo, rho_b, rho_n);
+    backward<RPT, T, kWG>(p, t, lo, rho_b, rho_n);
     __syncthreads();
   }
 
@@ -712,7 +784,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         p.uout[r * B + lane] = z;
         p.y[r * B + lane] = st.y[r * S];
       }
-      if (p.carry_out) p.d_out[r * B + lane] = t.vec1[r * T + l];
+      if (p.carry_out) p.d_out[r * B + lane] = t.vec1[r * t.bs + l];
       if (carry) p.zco[r * B + lane] = z;
     }
     for (int r = q; r < sx; r += tpl) {
@@ -726,14 +798,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The kernel for RPT rows a thread and tiles of T lanes, with the
-// projections the sides need.
-template <int RPT, int T>
+// The kernel for RPT rows a thread, tiles of T lanes and the iterates in
+// shared or global memory, with the projections the sides need.
+template <int RPT, int T, bool kWG>
 void (*tile_kernel(bool proj_u, bool proj_x))(Params) {
-  return proj_u ? (proj_x ? condensed_adaptive_kernel<RPT, T, true, true>
-                          : condensed_adaptive_kernel<RPT, T, true, false>)
-                : (proj_x ? condensed_adaptive_kernel<RPT, T, false, true>
-                          : condensed_adaptive_kernel<RPT, T, false, false>);
+  return proj_u
+             ? (proj_x ? condensed_adaptive_kernel<RPT, T, kWG, true, true>
+                       : condensed_adaptive_kernel<RPT, T, kWG, true, false>)
+             : (proj_x ? condensed_adaptive_kernel<RPT, T, kWG, false, true>
+                       : condensed_adaptive_kernel<RPT, T, kWG, false,
+                                                   false>);
 }
 
 }  // namespace
@@ -747,12 +821,14 @@ extern "C" int tinympc_condensed_adaptive(
     const float* rho_in, float* xout, float* uout, int* iters, int* solved,
     float* rho_out, float* y, float* g, float* d_out, float* vco, float* zco,
     const float* A, const float* Bm, const float* qd, const float* rd,
-    const float* P0, const float* dP, int nx, int nu, int N, int G, int L,
+    const float* P0, const float* dP, float* wsc, float* dsc, float* vecg,
+    float* uxg, void* w2hg, int nx, int nu, int N, int G, int L,
     int order, int max_iter, int ct, int lo_all, float alpha,
     float one_m_alpha, float pri_tol, float dua_tol, float rho_min,
     float rho_max, float rho0_one, float trust_lo_one, float trust_hi_one,
     int osqp, int clipping, int trust, int en_input_bound,
-    int en_state_bound, int warm_start, int carry_out, int tile, int rpt,
+    int en_state_bound, int warm_start, int carry_out, int tile,
+    int iterates_global, int rpt,
     int passes1, int passes2, int kp1, int kp2, int resident,
     int state_shared, int smem_bytes, int map_grouped, int plant_grouped,
     int box_u_grouped, int box_x_grouped, const float* lin_u, int n_lin_u,
@@ -767,7 +843,12 @@ extern "C" int tinympc_condensed_adaptive(
   // (W = 512 rpt / tile, the product's rows at once); t1a/t2a: the
   // bf16 maps of reduced iterations (lo_all), k padded to kp1/kp2.
   // lin_*: (n_lin, 2*dim + 1) device rows; soc_*: n_soc (start, dim) pairs
-  // in host memory; soc_mu_*: (n_soc,) on the device.
+  // on the device; soc_mu_*: (n_soc,) on the device.  wsc: the (sw, B)
+  // scratch of the new slacks (a projected side, or the OSQP-form
+  // controller), dsc its new duals (the OSQP-form controller);
+  // iterates_global: vec1 and ux in vecg (in1, G x tiles x tile) and uxg
+  // (sw + 1, the same), with reduced iterations rounded into w2hg
+  // (G x tiles x tile, max(kp1, kp2)) bf16.
   Params p;
   p.t1t = t1t; p.t2t = t2t;
   p.t1a = lo_all ? static_cast<const __nv_bfloat16*>(t1a) : nullptr;
@@ -779,6 +860,10 @@ extern "C" int tinympc_condensed_adaptive(
   p.rho_out = rho_out; p.y = y; p.g = g; p.d_out = d_out; p.vco = vco;
   p.zco = zco;
   p.A = A; p.Bm = Bm; p.qd = qd; p.rd = rd; p.P0 = P0; p.dP = dP;
+  p.wsc = wsc; p.dsc = dsc; p.vecg = vecg; p.uxg = uxg;
+  p.w2hg = static_cast<__nv_bfloat16*>(w2hg);
+  p.tiles = tile > 0 ? (L + tile - 1) / tile : 0;
+  p.ldg = G * p.tiles * tile;
   p.nx = nx; p.nu = nu; p.N = N;
   p.su = (N - 1) * nu; p.sx = N * nx; p.sw = p.su + p.sx;
   p.in1 = p.su + nx + 1; p.B = G * L; p.L = L;
@@ -799,8 +884,9 @@ extern "C" int tinympc_condensed_adaptive(
   // no state-side constraint at all: g == 0 and vnew = x_hat
   p.state_free = !en_state_bound && n_lin_x == 0 && n_soc_x == 0;
   // the caller owns the layout; refuse one the kernel would overrun
+  const bool wg = iterates_global != 0;
   const size_t need =
-      k2_layout(tile, W, p.in1, p.sw, p.ord1, p.ld1, p.ld2, kp1, kp2,
+      k2_layout(tile, wg, W, p.in1, p.sw, p.ord1, p.ld1, p.ld2, kp1, kp2,
                 state_shared ? state_rows(p.su, p.sx, p.state_free) : 0,
                 resident, lo_all)
           .total;
@@ -818,9 +904,13 @@ extern "C" int tinympc_condensed_adaptive(
     return static_cast<int>(cudaErrorInvalidValue);
   if (carry_out && (!d_out || !vco || !zco))
     return static_cast<int>(cudaErrorInvalidValue);
-  // the stage-wise OSQP residuals hold one stage of each side per thread
-  if (osqp && (!A || !Bm || !qd || !rd || !P0 || !dP || nx > kMaxStage ||
-               nu > kMaxStage))
+  // the stage-wise OSQP residuals read every stage's new slack and dual
+  // from the scratch
+  if (osqp && (!A || !Bm || !qd || !rd || !P0 || !dP || !wsc || !dsc))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_lin_u + n_soc_u + n_lin_x + n_soc_x > 0 && !wsc)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (wg && (!vecg || !uxg || resident || (lo_all && !w2hg)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!init_side(p.side_u, umin, umax, lin_u, n_lin_u, soc_u, soc_mu_u,
                  n_soc_u, nu, N - 1, en_input_bound, box_u_grouped,
@@ -833,19 +923,21 @@ extern "C" int tinympc_condensed_adaptive(
   const bool proj_u = n_lin_u + n_soc_u > 0, proj_x = n_lin_x + n_soc_x > 0;
   void (*kernel)(Params);
   // the instances adaptive_tile_plan picks from
-  if (tile == 32 && rpt == 8)
-    kernel = tile_kernel<8, 32>(proj_u, proj_x);
-  else if (tile == 32 && rpt == 20)
-    kernel = tile_kernel<20, 32>(proj_u, proj_x);
-  else if (tile == 16 && rpt == 8)
-    kernel = tile_kernel<8, 16>(proj_u, proj_x);
+  if (tile == 32 && !wg && rpt == 8)
+    kernel = tile_kernel<8, 32, false>(proj_u, proj_x);
+  else if (tile == 32 && !wg && rpt == 20)
+    kernel = tile_kernel<20, 32, false>(proj_u, proj_x);
+  else if (tile == 16 && !wg && rpt == 8)
+    kernel = tile_kernel<8, 16, false>(proj_u, proj_x);
+  else if (tile == 32 && wg && rpt == 20)
+    kernel = tile_kernel<20, 32, true>(proj_u, proj_x);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(smem_bytes);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + tile - 1) / tile, G);
+  const dim3 grid(p.tiles, G);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,9 +43,20 @@
 //  * In the variants of a fixed shape (nx, nu template parameters) each
 //    thread holds its rows of K, A, B, B', Quu, AmBKt, K' in registers, so no
 //    matrix load stands in the chain; the generic variant (any nx, nu up to
-//    kMaxDim, rows predicated) reads them from shared memory, rows padded to
-//    an odd stride so that a warp's threads read different banks, through a
-//    pointer that does not alias the lanes' workspace.
+//    kGenericDim, rows predicated) reads them from shared memory, rows padded
+//    to an odd stride so that a warp's threads read different banks, through
+//    a pointer that does not alias the lanes' workspace.
+//  * Wider plants (nx or nu beyond kGenericDim) take the wide variant
+//    (fused_stage_wide_kernel): lane groups of 8, 16 or 32 threads whose
+//    stage vectors live in the group's rows of shared memory instead of
+//    every thread's registers, so a thread's rows cost no registers; the
+//    matrices in shared memory where they fit, else read from the caller's
+//    tensors.
+//  * A long horizon: where a warp of lanes' workspace does not fit in
+//    shared memory, the far layout (kFar) keeps it in global memory, one
+//    slot of the grid's lanes a column (lane-major, so a warp's accesses
+//    coalesce), and the per-stage terms too where they do not fit either
+//    (the wrapper computes them into a buffer in the kernel's layout).
 //  * Elementwise arithmetic uses round-to-nearest intrinsics in the plain
 //    PyTorch version's order of operations, so nothing is contracted into
 //    FMAs behind its back.
@@ -59,10 +70,11 @@
 #include <algorithm>
 #include <atomic>
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 
-constexpr int kMaxDim = 16;  // widest nx, nu of the generic variant
+constexpr int kGenericDim = 16;  // widest nx, nu of the generic variant
 
 __host__ __device__ constexpr int odd_stride(int n) { return n | 1; }
 
@@ -88,6 +100,12 @@ __host__ __device__ inline int lane_floats(int nx, int nu, int N,
   return (state_box ? 2 : 1) * N * nx + 3 * (N - 1) * nu;
 }
 
+// Floats of a wide-variant lane's stage vectors in shared memory: x_k, A x_k
+// (or AmBKt p_{k+1}) and p_{k+1} (nx each), u_k, s_k and r_k (nu each).
+__host__ __device__ inline int vec_floats(int nx, int nu) {
+  return 3 * nx + 3 * nu;
+}
+
 // The workspace's lane stride: the tile rounded up to be = 32 / G (mod 32),
 // so that the G threads of the 32 / G lanes of a warp, each on its own row,
 // fall on 32 different banks.
@@ -104,7 +122,11 @@ struct Params {
   float* uout;      // (B, N-1, nu): the input slacks z
   int* iters;       // (B,)
   int* solved;      // (B,)
+  float* wsg;       // far layout: the workspace, (lane_floats, grid x tile)
+  const float* stg;  // the per-stage terms in global memory (stage_global)
   int nx, nu, N, batch, max_iter, ct, en_input_bound;
+  int stage_global, mats_global;  // per-stage terms / matrices (wide
+                                  // variant) in global memory
   float pri_tol, dua_tol;
   int slot;  // the launch's lane queue
 };
@@ -162,18 +184,19 @@ struct RowRegs {
 };
 
 // kNx, kNu: the plant's widths, or 0 for the generic variant (any nx, nu up
-// to kMaxDim, read from the parameters).  kG: threads a lane.  kRegs: the
-// matrices' rows in registers (fixed shapes) or shared memory.  kStateFree:
-// no state bound, so the state dual is 0 and the state slack equals the
-// rollout.
-template <int kNx, int kNu, int kG, bool kRegs, bool kStateFree>
+// to kGenericDim, read from the parameters).  kG: threads a lane.  kRegs:
+// the matrices' rows in registers (fixed shapes) or shared memory.
+// kStateFree: no state bound, so the state dual is 0 and the state slack
+// equals the rollout.  kFar: the workspace in global memory (and the
+// per-stage terms where stage_global).
+template <int kNx, int kNu, int kG, bool kRegs, bool kStateFree, bool kFar>
 __global__ void fused_stage_kernel(const Params p) {
   static_assert(kG == 1 || kG == 2 || kG == 4 || kG == 8 || kG == 16,
                 "a lane group is a power of two up to 16 threads");
   static_assert(kNx > 0 || !kRegs, "the generic variant reads shared memory");
   extern __shared__ float smem[];
-  constexpr int kCx = kNx > 0 ? kNx : kMaxDim;  // register capacities
-  constexpr int kCu = kNu > 0 ? kNu : kMaxDim;
+  constexpr int kCx = kNx > 0 ? kNx : kGenericDim;  // register capacities
+  constexpr int kCu = kNu > 0 ? kNu : kGenericDim;
   constexpr int kRx = (kCx + kG - 1) / kG;      // rows a thread owns, at most
   constexpr int kRu = (kCu + kG - 1) / kG;
   const int nx = kNx > 0 ? kNx : p.nx;
@@ -185,17 +208,23 @@ __global__ void fused_stage_kernel(const Params p) {
   const int lb = tid / kG, t = tid % kG;  // lane in the block, rank in group
   int lane = blockIdx.x * tile + lb;  // the group's lane; see the queue below
   const unsigned mask = ((1u << kG) - 1u) << ((tid & 31) & ~(kG - 1));
-  const int LS = lane_stride(tile, kG);
+  // the workspace's row stride: a padded tile in shared memory, the grid's
+  // lane slots in global memory
+  using Idx = typename std::conditional<kFar, size_t, int>::type;
+  const Idx LS = kFar ? static_cast<Idx>(gridDim.x) * tile
+                      : static_cast<Idx>(lane_stride(tile, kG));
 
   // -- prologue: the block's per-stage terms (and the generic variant's
-  // matrices) from the caller's tensors
-  float* const qref = smem;
+  // matrices) from the caller's tensors, or the wrapper's per-stage terms
+  // in global memory
+  const bool stage_far = kFar && p.stage_global;
+  float* const qref = stage_far ? const_cast<float*>(p.stg) : smem;
   float* const rref = qref + sx;
   float* const umin = rref + su;
   float* const umax = umin + su;
   float* const xmin = umax + su;
   float* const xmax = xmin + (kStateFree ? 0 : sx);
-  float* const mats = xmax + (kStateFree ? 0 : sx);
+  float* const mats = stage_far ? smem : xmax + (kStateFree ? 0 : sx);
   float* const ws = mats + (kRegs ? 0 : matrix_floats(nx, nu));
   const int lx = odd_stride(nx), lu = odd_stride(nu);
   float* const wA = mats;          // [nx][lx]
@@ -205,17 +234,19 @@ __global__ void fused_stage_kernel(const Params p) {
   float* const wK = wKt + nx * lu;  // [nu][lx]
   float* const wBt = wK + nu * lx;  // [nu][lx]
   float* const wQ = wBt + nu * lx;  // [nu][lu]
-  for (int e = tid; e < sx; e += nthreads) {
-    qref[e] = -__fmul_rn(p.Xref[e], p.Qd[e % nx]);
-    if (!kStateFree) {
-      xmin[e] = p.xmin[e];
-      xmax[e] = p.xmax[e];
+  if (!stage_far) {
+    for (int e = tid; e < sx; e += nthreads) {
+      qref[e] = -__fmul_rn(p.Xref[e], p.Qd[e % nx]);
+      if (!kStateFree) {
+        xmin[e] = p.xmin[e];
+        xmax[e] = p.xmax[e];
+      }
     }
-  }
-  for (int e = tid; e < su; e += nthreads) {
-    rref[e] = -__fmul_rn(p.Uref[e], p.Rd[e % nu]);
-    umin[e] = p.umin[e];
-    umax[e] = p.umax[e];
+    for (int e = tid; e < su; e += nthreads) {
+      rref[e] = -__fmul_rn(p.Uref[e], p.Rd[e % nu]);
+      umin[e] = p.umin[e];
+      umax[e] = p.umax[e];
+    }
   }
   if constexpr (!kRegs) {
     for (int e = tid; e < nx * nx; e += nthreads) {
@@ -297,7 +328,8 @@ __global__ void fused_stage_kernel(const Params p) {
   }
 
   // this group's workspace: row r of an array at [r * LS]
-  float* __restrict__ const v = ws + lb;
+  float* __restrict__ const v =
+      kFar ? p.wsg + static_cast<size_t>(blockIdx.x) * tile + lb : ws + lb;
   float* __restrict__ const g = v + sx * LS;  // unused when kStateFree
   float* __restrict__ const z = (kStateFree ? v : g) + sx * LS;
   float* __restrict__ const y = z + su * LS;
@@ -409,7 +441,7 @@ __global__ void fused_stage_kernel(const Params p) {
       for (int s = 0; s < kRx; ++s) {
         const int j = xrow(s);
         if (j < nx) {
-          const int r = (k * nx + j) * LS;
+          const Idx r = (k * nx + j) * LS;
           float vn = xo[s];
           if (!kStateFree) {
             const float gj = g[r];
@@ -438,7 +470,7 @@ __global__ void fused_stage_kernel(const Params p) {
         const int a = urow(s);
         uo[s] = 0.0f;
         if (a < nu) {
-          const int r = (k * nu + a) * LS;
+          const Idx r = (k * nu + a) * LS;
           const float tk = dot(K3_COEF(K, sK, lx, s, a), xf, nx);
           uo[s] = __fsub_rn(-tk, d[r]);
           const float ya = y[r];
@@ -489,7 +521,7 @@ __global__ void fused_stage_kernel(const Params p) {
       const int j = xrow(s);
       po[s] = 0.0f;
       if (j < nx) {
-        const int r = ((N - 1) * nx + j) * LS;
+        const Idx r = ((N - 1) * nx + j) * LS;
         const float w = kStateFree ? v[r] : __fsub_rn(v[r], g[r]);
         po[s] = __fsub_rn(pNo[s], __fmul_rn(rho, w));
       }
@@ -510,7 +542,7 @@ __global__ void fused_stage_kernel(const Params p) {
         const int a = urow(s);
         ro[s] = so[s] = 0.0f;
         if (a < nu) {
-          const int r = (k * nu + a) * LS;
+          const Idx r = (k * nu + a) * LS;
           ro[s] = __fsub_rn(rref[k * nu + a],
                             __fmul_rn(rho, __fsub_rn(z[r], y[r])));
           so[s] = __fadd_rn(dot(K3_COEF(Bt, sBt, lx, s, a), pf, nx), ro[s]);
@@ -534,7 +566,7 @@ __global__ void fused_stage_kernel(const Params p) {
         po[s] = 0.0f;
         if (j < nx) {
           const float kr = dot(K3_COEF(Kt, sKt, lu, s, j), rf, nu);
-          const int r = (k * nx + j) * LS;
+          const Idx r = (k * nx + j) * LS;
           const float w = kStateFree ? v[r] : __fsub_rn(v[r], g[r]);
           const float q = __fsub_rn(qref[k * nx + j], __fmul_rn(rho, w));
           po[s] = __fsub_rn(__fadd_rn(q, ap[s]), kr);
@@ -557,11 +589,292 @@ __global__ void fused_stage_kernel(const Params p) {
   }
 }
 
+// The wide variant (nx or nu beyond kGenericDim): a lane group of kG = 8,
+// 16 or 32 threads a lane, state row j on thread j % kG and input row a on
+// (a + nx) % kG, each output row summed in index order with fmaf by the
+// thread that owns it, as in fused_stage_kernel.  The stage vectors a
+// thread needs whole (x_k, u_k, p_{k+1}, s_k, r_k) and its rows' partial
+// products live in the lane's shared rows (vec_floats) and are exchanged
+// under the group's __syncwarp, so the rows a thread owns take no
+// registers.  The matrices are in shared memory, rows padded to an odd
+// stride, or (mats_global) read from the caller's tensors; the per-stage
+// terms and the workspace as in fused_stage_kernel's layouts, chosen at
+// run time (p.stage_global, kFar through p.wsg).
+struct Mat {  // coefficient (r, c) at a[r * rs + c * cs]
+  const float* a;
+  int rs, cs;
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    return a[r * rs + c * cs];
+  }
+};
+
+template <int kG, bool kStateFree>
+__global__ void fused_stage_wide_kernel(const Params p) {
+  static_assert(kG == 8 || kG == 16 || kG == 32,
+                "a wide lane group is 8, 16 or 32 threads");
+  extern __shared__ float smem[];
+  const int nx = p.nx, nu = p.nu, N = p.N, B = p.batch;
+  const int sx = N * nx, su = (N - 1) * nu;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int tile = nthreads / kG;
+  const int lb = tid / kG, t = tid % kG;
+  int lane = blockIdx.x * tile + lb;
+  const unsigned mask =
+      kG == 32 ? 0xffffffffu
+               : ((1u << (kG & 31)) - 1u) << ((tid & 31) & ~(kG - 1));
+  const bool far = p.wsg != nullptr;
+  const size_t LS = far ? static_cast<size_t>(gridDim.x) * tile
+                        : static_cast<size_t>(lane_stride(tile, kG));
+
+  // -- prologue: the per-stage terms, the matrices, the lanes' vectors
+  float* sp = smem;
+  float* const qref = p.stage_global ? const_cast<float*>(p.stg) : sp;
+  float* const rref = qref + sx;
+  float* const umin = rref + su;
+  float* const umax = umin + su;
+  float* const xmin = umax + su;
+  float* const xmax = xmin + (kStateFree ? 0 : sx);
+  if (!p.stage_global) {
+    sp = xmax + (kStateFree ? 0 : sx);
+    for (int e = tid; e < sx; e += nthreads) {
+      qref[e] = -__fmul_rn(p.Xref[e], p.Qd[e % nx]);
+      if (!kStateFree) {
+        xmin[e] = p.xmin[e];
+        xmax[e] = p.xmax[e];
+      }
+    }
+    for (int e = tid; e < su; e += nthreads) {
+      rref[e] = -__fmul_rn(p.Uref[e], p.Rd[e % nu]);
+      umin[e] = p.umin[e];
+      umax[e] = p.umax[e];
+    }
+  }
+  const int lx = odd_stride(nx), lu = odd_stride(nu);
+  Mat mA, mAm, mB, mKt, mK, mBt, mQ;
+  if (p.mats_global) {  // the caller's row-major tensors, transposed reads
+    mA = {p.A, nx, 1};
+    mAm = {p.AmBKt, nx, 1};
+    mB = {p.B, nu, 1};
+    mKt = {p.K, 1, nx};   // K'[i][a] = K[a][i]
+    mK = {p.K, nx, 1};
+    mBt = {p.B, 1, nu};   // B'[a][j] = B[j][a]
+    mQ = {p.Quu, nu, 1};
+  } else {
+    float* const wA = sp;
+    float* const wAm = wA + nx * lx;
+    float* const wB = wAm + nx * lx;
+    float* const wKt = wB + nx * lu;
+    float* const wK = wKt + nx * lu;
+    float* const wBt = wK + nu * lx;
+    float* const wQ = wBt + nu * lx;
+    sp += matrix_floats(nx, nu);
+    for (int e = tid; e < nx * nx; e += nthreads) {
+      wA[(e / nx) * lx + e % nx] = p.A[e];
+      wAm[(e / nx) * lx + e % nx] = p.AmBKt[e];
+    }
+    for (int e = tid; e < nx * nu; e += nthreads) {
+      wB[(e / nu) * lu + e % nu] = p.B[e];
+      wBt[(e % nu) * lx + e / nu] = p.B[e];
+      wK[(e / nx) * lx + e % nx] = p.K[e];
+      wKt[(e % nx) * lu + e / nx] = p.K[e];
+    }
+    for (int e = tid; e < nu * nu; e += nthreads)
+      wQ[(e / nu) * lu + e % nu] = p.Quu[e];
+    mA = {wA, lx, 1};
+    mAm = {wAm, lx, 1};
+    mB = {wB, lu, 1};
+    mKt = {wKt, lu, 1};
+    mK = {wK, lx, 1};
+    mBt = {wBt, lx, 1};
+    mQ = {wQ, lu, 1};
+  }
+  // this lane's stage vectors
+  float* const xf = sp + lb * vec_floats(nx, nu);
+  float* const ax = xf + nx;  // A x_k, then AmBKt p_{k+1}, own rows
+  float* const pf = ax + nx;
+  float* const uf = pf + nx;
+  float* const sf = uf + nu;
+  float* const rf = sf + nu;
+  sp += tile * vec_floats(nx, nu);
+  __syncthreads();
+
+  const float rho = p.rho_ptr != nullptr ? *p.rho_ptr : p.rho_val;
+  const int a0 = (t - nx % kG + kG) % kG;  // this thread's first input row
+  // sum_i m(row, i) * x[i] for i < n, in index order on one accumulator
+  auto dot = [&](const Mat& m, int row, const float* x, int n) {
+    float acc = 0.0f;
+    for (int i = 0; i < n; ++i) acc = fmaf(m(row, i), x[i], acc);
+    return acc;
+  };
+
+  // this group's workspace: row r of an array at [r * LS]
+  float* __restrict__ const v =
+      far ? p.wsg + static_cast<size_t>(blockIdx.x) * tile + lb : sp + lb;
+  float* __restrict__ const g = v + sx * LS;  // unused when kStateFree
+  float* __restrict__ const z = (kStateFree ? v : g) + sx * LS;
+  float* __restrict__ const y = z + su * LS;
+  float* __restrict__ const d = y + su * LS;
+
+  auto start_lane = [&]() {
+    for (int k = 0; k < N; ++k) {
+      for (int j = t; j < nx; j += kG) {
+        v[(k * nx + j) * LS] = 0.0f;
+        if (!kStateFree) g[(k * nx + j) * LS] = 0.0f;
+      }
+      if (k == N - 1) break;
+      for (int a = a0; a < nu; a += kG) {
+        z[(k * nu + a) * LS] = 0.0f;
+        y[(k * nu + a) * LS] = 0.0f;
+        d[(k * nu + a) * LS] = 0.0f;
+      }
+    }
+  };
+  auto finish_lane = [&](int n_iter, int ok) {
+    float* const xl = p.xout + static_cast<size_t>(lane) * sx;
+    float* const ul = p.uout + static_cast<size_t>(lane) * su;
+    for (int k = 0; k < N; ++k) {
+      for (int j = t; j < nx; j += kG) xl[k * nx + j] = v[(k * nx + j) * LS];
+      if (k == N - 1) break;
+      for (int a = a0; a < nu; a += kG) ul[k * nu + a] = z[(k * nu + a) * LS];
+    }
+    if (t == 0) {
+      p.iters[lane] = n_iter;
+      p.solved[lane] = ok;
+    }
+  };
+
+  unsigned* const queue = g_lane_queue[p.slot];
+  const int P = gridDim.x * tile;
+  auto next_lane = [&]() {
+    int nxt = 0;
+    if (t == 0) nxt = P + static_cast<int>(atomicAdd(queue, 1u));
+    nxt = __shfl_sync(mask, nxt, 0, kG);
+    lane = nxt;
+    if (lane < B) start_lane();
+  };
+  if (lane < B) start_lane();
+  while (lane < B && p.max_iter == 0) {
+    finish_lane(0, 0);
+    next_lane();
+  }
+
+  int i = 0;
+  while (lane < B) {
+    float ps = 0.0f, pi = 0.0f, ds = 0.0f, di = 0.0f;
+    const float* x0 = p.x0 + static_cast<size_t>(lane) * nx;
+    for (int j = t; j < nx; j += kG) xf[j] = x0[j];
+    __syncwarp(mask);
+
+    // Forward rollout; the slack, dual and residual updates of a stage run
+    // as soon as its x_k (and u_k) exist.
+    for (int k = 0; k < N; ++k) {
+      for (int j = t; j < nx; j += kG) {
+        const size_t r = (k * nx + j) * LS;
+        const float xo = xf[j];
+        float vn = xo;
+        if (!kStateFree) {
+          const float gj = g[r];
+          vn = __fadd_rn(xo, gj);
+          vn = fminf(xmax[k * nx + j], fmaxf(xmin[k * nx + j], vn));
+          g[r] = __fsub_rn(__fadd_rn(gj, xo), vn);
+          ps = fmaxf(ps, fabsf(__fsub_rn(xo, vn)));
+        }
+        ds = fmaxf(ds, fabsf(__fsub_rn(v[r], vn)));
+        v[r] = vn;
+      }
+      if (k == N - 1) break;
+      for (int j = t; j < nx; j += kG) ax[j] = dot(mA, j, xf, nx);
+      // u_k = -K x_k - d_k; input side: zn = clip(u + y), y += u - zn
+      for (int a = a0; a < nu; a += kG) {
+        const size_t r = (k * nu + a) * LS;
+        const float tk = dot(mK, a, xf, nx);
+        const float uo = __fsub_rn(-tk, d[r]);
+        const float ya = y[r];
+        float zn = __fadd_rn(uo, ya);
+        if (p.en_input_bound)
+          zn = fminf(umax[k * nu + a], fmaxf(umin[k * nu + a], zn));
+        y[r] = __fsub_rn(__fadd_rn(ya, uo), zn);
+        pi = fmaxf(pi, fabsf(__fsub_rn(uo, zn)));
+        di = fmaxf(di, fabsf(__fsub_rn(z[r], zn)));
+        z[r] = zn;
+        uf[a] = uo;
+      }
+      __syncwarp(mask);  // u_k whole; every read of x_k done
+      // x_{k+1} = A x_k + B u_k + f
+      for (int j = t; j < nx; j += kG)
+        xf[j] = __fadd_rn(__fadd_rn(ax[j], dot(mB, j, uf, nu)), p.f[j]);
+      __syncwarp(mask);  // x_{k+1} whole; every read of u_k done
+    }
+
+    ps = group_max<kG>(mask, ps);
+    pi = group_max<kG>(mask, pi);
+    ds = group_max<kG>(mask, ds);
+    di = group_max<kG>(mask, di);
+    const bool pass = ps < p.pri_tol && pi < p.pri_tol &&
+                      __fmul_rn(ds, rho) < p.dua_tol &&
+                      __fmul_rn(di, rho) < p.dua_tol;
+    const bool latch = pass && (i + 1) % p.ct == 0;
+    if (latch || i + 1 == p.max_iter) {
+      finish_lane(latch ? i + 1 : p.max_iter, latch ? 1 : 0);
+      next_lane();
+      i = 0;
+      continue;
+    }
+
+    // Backward recursion; q_k, r_k recomputed from the slacks and duals.
+    for (int j = t; j < nx; j += kG) {
+      float acc = 0.0f;  // -(Pinf' Xref[N-1]) row j, in index order
+      for (int e = 0; e < nx; ++e)
+        acc = fmaf(p.Pinf[e * nx + j], p.Xref[(N - 1) * nx + e], acc);
+      const size_t r = ((N - 1) * nx + j) * LS;
+      const float w = kStateFree ? v[r] : __fsub_rn(v[r], g[r]);
+      pf[j] = __fsub_rn(-acc, __fmul_rn(rho, w));
+    }
+    __syncwarp(mask);
+    for (int k = N - 2; k >= 0; --k) {
+      for (int j = t; j < nx; j += kG) ax[j] = dot(mAm, j, pf, nx);
+      // r_k = rref - rho (z - y); s_k = B' p_{k+1} + r_k
+      for (int a = a0; a < nu; a += kG) {
+        const size_t r = (k * nu + a) * LS;
+        const float ro = __fsub_rn(rref[k * nu + a],
+                                   __fmul_rn(rho, __fsub_rn(z[r], y[r])));
+        sf[a] = __fadd_rn(dot(mBt, a, pf, nx), ro);
+        rf[a] = ro;
+      }
+      __syncwarp(mask);  // s_k, r_k whole; every read of p_{k+1} done
+      // d_k = Quu s_k
+      for (int a = a0; a < nu; a += kG)
+        d[(k * nu + a) * LS] = dot(mQ, a, sf, nu);
+      // p_k = q_k + AmBKt p_{k+1} - K' r_k, q_k = qref - rho (v - g)
+      for (int j = t; j < nx; j += kG) {
+        const float kr = dot(mKt, j, rf, nu);
+        const size_t r = (k * nx + j) * LS;
+        const float w = kStateFree ? v[r] : __fsub_rn(v[r], g[r]);
+        const float q = __fsub_rn(qref[k * nx + j], __fmul_rn(rho, w));
+        pf[j] = __fsub_rn(__fadd_rn(q, ax[j]), kr);
+      }
+      __syncwarp(mask);  // p_k whole; every read of s_k, r_k done
+    }
+    ++i;
+  }
+
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(queue + 1, 1u) == gridDim.x - 1) {
+      queue[0] = 0u;
+      queue[1] = 0u;
+    }
+  }
+}
+
 using KernelFn = void (*)(const Params);
 
 // The variants built: (nx, nu, G, matrices in registers), each with and
-// without a state bound; (0, 0, ...) is the generic one.  The Python plan
-// (ops/cuda/fused.py VARIANTS) names the same.
+// without a state bound and with the workspace in shared or global memory;
+// (0, 0, ...) is the generic one.  The Python plan (ops/cuda/fused.py
+// VARIANTS) names the same.  Beyond kGenericDim, the wide variant's lane
+// groups (WIDE_GROUPS there).
 #define K3_VARIANTS(X) \
   X(4, 1, 1, true)     \
   X(6, 3, 2, true)     \
@@ -573,29 +886,55 @@ bool fixed_shape(int nx, int nu) {
          (nx == 12 && nu == 4);
 }
 
-KernelFn pick_kernel(int nx, int nu, int group, bool regs, bool state_free) {
+bool wide_shape(int nx, int nu) {
+  return nx > kGenericDim || nu > kGenericDim;
+}
+
+KernelFn pick_kernel(int nx, int nu, int group, bool regs, bool state_free,
+                     bool far) {
+  if (wide_shape(nx, nu)) {
+    if (regs) return nullptr;
+#define K3_WIDE(G)                                                        \
+  if (group == G)                                                         \
+    return state_free ? fused_stage_wide_kernel<G, true>                  \
+                      : fused_stage_wide_kernel<G, false>;
+    K3_WIDE(8) K3_WIDE(16) K3_WIDE(32)
+#undef K3_WIDE
+    return nullptr;
+  }
   const int knx = fixed_shape(nx, nu) ? nx : 0;
   const int knu = fixed_shape(nx, nu) ? nu : 0;
-#define K3_PICK(NX, NU, G, REGS)                                   \
-  if (knx == NX && knu == NU && group == G && regs == REGS)        \
-    return state_free ? fused_stage_kernel<NX, NU, G, REGS, true>  \
-                      : fused_stage_kernel<NX, NU, G, REGS, false>;
+#define K3_PICK(NX, NU, G, REGS)                                          \
+  if (knx == NX && knu == NU && group == G && regs == REGS)               \
+    return state_free                                                     \
+               ? (far ? fused_stage_kernel<NX, NU, G, REGS, true, true>   \
+                      : fused_stage_kernel<NX, NU, G, REGS, true, false>) \
+               : (far ? fused_stage_kernel<NX, NU, G, REGS, false, true>  \
+                      : fused_stage_kernel<NX, NU, G, REGS, false, false>);
   K3_VARIANTS(K3_PICK)
 #undef K3_PICK
   return nullptr;
 }
 
+// The layout's shared memory: the per-stage terms (unless in global
+// memory), the matrices (the generic and wide variants, unless in global
+// memory), the wide variant's lane vectors, the workspace (unless far).
 size_t smem_need(int nx, int nu, int N, bool state_box, bool regs, int tile,
-                 int group) {
+                 int group, bool far, bool stage_global, bool mats_global) {
+  const bool wide = wide_shape(nx, nu);
   return sizeof(float) *
-         (static_cast<size_t>(stage_floats(nx, nu, N, state_box)) +
-          (regs ? 0 : matrix_floats(nx, nu)) +
-          static_cast<size_t>(lane_floats(nx, nu, N, state_box)) *
-              lane_stride(tile, group));
+         ((stage_global ? 0
+                        : static_cast<size_t>(
+                              stage_floats(nx, nu, N, state_box))) +
+          (regs || mats_global ? 0 : matrix_floats(nx, nu)) +
+          (wide ? static_cast<size_t>(vec_floats(nx, nu)) * tile : 0) +
+          (far ? 0
+               : static_cast<size_t>(lane_floats(nx, nu, N, state_box)) *
+                     lane_stride(tile, group)));
 }
 
 bool valid_group(int g) {
-  return g == 1 || g == 2 || g == 4 || g == 8 || g == 16;
+  return g == 1 || g == 2 || g == 4 || g == 8 || g == 16 || g == 32;
 }
 
 }  // namespace
@@ -606,20 +945,32 @@ extern "C" int tinympc_fused_stage(
     const float* Quu, const float* AmBKt, const float* Pinf, const float* xmin,
     const float* xmax, const float* umin, const float* umax,
     const float* Xref, const float* Uref, const float* x0, float* xout,
-    float* uout, int* iters, int* solved, int nx, int nu, int N, int Bsz,
+    float* uout, int* iters, int* solved, float* wsg, const float* stg,
+    int nx, int nu, int N, int Bsz,
     int max_iter, int ct, float pri_tol, float dua_tol, int en_input_bound,
     int en_state_bound, int group, int regs, int tile, int smem_bytes,
+    int ws_global, int ws_slots, int stage_global, int mats_global,
     void* stream) {
-  if (nx < 1 || nu < 1 || nx > kMaxDim || nu > kMaxDim || N < 2 || Bsz < 1 ||
-      max_iter < 0 || ct < 1 || !valid_group(group) || tile < 1 ||
-      tile * group > 1024 || smem_bytes < 0)
+  // ws_global: the workspace in wsg, (lane_floats, ws_slots) floats, the
+  // grid held to ws_slots / tile blocks; stage_global: the per-stage terms
+  // in stg (qref, rref, u_min, u_max[, x_min, x_max] as the kernel lays them
+  // out in shared memory); mats_global: the wide variant reads the matrices
+  // from the caller's tensors.
+  const bool far = ws_global != 0;
+  if (nx < 1 || nu < 1 || N < 2 || Bsz < 1 || max_iter < 0 || ct < 1 ||
+      !valid_group(group) || tile < 1 || tile * group > 1024 ||
+      smem_bytes < 0 || (far && (!wsg || ws_slots < tile)) ||
+      (stage_global && (!far || !stg)) ||
+      (mats_global && !wide_shape(nx, nu)))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool state_free = !en_state_bound;
   // the caller owns the layout; refuse one the kernel would overrun
   if (static_cast<size_t>(smem_bytes) <
-      smem_need(nx, nu, N, !state_free, regs != 0, tile, group))
+      smem_need(nx, nu, N, !state_free, regs != 0, tile, group, far,
+                stage_global != 0, mats_global != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const KernelFn kernel = pick_kernel(nx, nu, group, regs != 0, state_free);
+  const KernelFn kernel =
+      pick_kernel(nx, nu, group, regs != 0, state_free, far);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
 
   Params p;
@@ -628,6 +979,8 @@ extern "C" int tinympc_fused_stage(
   p.xmin = xmin; p.xmax = xmax; p.umin = umin; p.umax = umax;
   p.Xref = Xref; p.Uref = Uref; p.x0 = x0; p.rho_val = rho_val;
   p.xout = xout; p.uout = uout; p.iters = iters; p.solved = solved;
+  p.wsg = far ? wsg : nullptr; p.stg = stg;
+  p.stage_global = stage_global; p.mats_global = mats_global;
   p.nx = nx; p.nu = nu; p.N = N; p.batch = Bsz; p.max_iter = max_iter;
   p.ct = ct; p.en_input_bound = en_input_bound;
   p.pri_tol = pri_tol; p.dua_tol = dua_tol;
@@ -648,7 +1001,8 @@ extern "C" int tinympc_fused_stage(
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = std::min((Bsz + tile - 1) / tile, std::max(per_sm, 1) * sms);
+  int grid = std::min((Bsz + tile - 1) / tile, std::max(per_sm, 1) * sms);
+  if (far) grid = std::min(grid, ws_slots / tile);  // the workspace's slots
   kernel<<<grid, tile * group, static_cast<size_t>(smem_bytes),
            static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -658,12 +1012,13 @@ extern "C" int tinympc_fused_stage(
 // SM, registers a thread, local (spill) bytes a thread.
 extern "C" int tinympc_fused_stage_occupancy(int nx, int nu, int group,
                                              int regs, int en_state_bound,
-                                             int tile, int smem_bytes,
+                                             int ws_global, int tile,
+                                             int smem_bytes,
                                              int* blocks_per_sm, int* n_regs,
                                              int* local_bytes) {
   const KernelFn kernel =
       valid_group(group) ? pick_kernel(nx, nu, group, regs != 0,
-                                       !en_state_bound)
+                                       !en_state_bound, ws_global != 0)
                          : nullptr;
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(

@@ -1,7 +1,7 @@
 // The lane-tile layout shared by the condensed kernels K1
 // (condensed_fused.cu) and K2 (condensed_adaptive.cu): a block of 256
-// threads owns a tile of T lanes (32; K2 takes 16 where the iterates of 32
-// lanes would not fit beside a wide map), runs the tile's matrix products
+// threads owns a tile of T lanes (32; 16 where the iterates of 32 lanes
+// would not fit beside a wide map), runs the tile's matrix products
 // as GEMMs and the elementwise step of an ADMM iteration with 256 / T
 // threads a lane.  The tile is a template parameter (Lanes<T>), 32 by
 // default.
@@ -29,12 +29,20 @@
 //  * The map is resident in shared memory, or streamed from L2 in slabs
 //    through a ring filled by cp.async (kStages - 1 slabs in flight), the
 //    segments one after another in one stream.
+//  * Where a tile's iterates do not fit in shared memory beside the ring
+//    (the widest maps), w lives in global memory as the tile's own columns
+//    of a [k][lane] array (kWG) and its k-rows stream through the same ring
+//    slots as the map's: a slot holds a slab of the map and the matching
+//    k-rows of w.  The bf16 product then rounds w once into the tile's
+//    [lane][k] rows of a global bf16 array and streams those.  The sums
+//    keep their order, so the results do not change.
 //
 // The elementwise step: the threads of a lane split each side of it, the
 // rows of a box-only side (thread q of its 256 / T takes rows q, q + 256 /
-// T, ...) or the stages of a projected one (stages q, ...: the projections couple
-// only the rows of a stage), in projections.cuh's arithmetic and the plain
-// version's order of operations.
+// T, ...) or the stages of a projected one (stages q, ...: the projections
+// couple only the rows of a stage; a stage's slack is projected in the
+// lane's rows of a global scratch), in projections.cuh's arithmetic and the
+// plain version's order of operations.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,10 +74,13 @@ struct Lanes {
 };
 
 // Bytes of the slab ring of a streamed product of width W (fp32 slabs, or
-// bf16 slabs where ``lo``).
-__host__ __device__ inline size_t ring_bytes(int W, bool lo) {
-  return lo ? 2 * kStagesLo * static_cast<size_t>(W) * (kSlabKLo + kPadLo)
-            : sizeof(float) * kStages * static_cast<size_t>(kSlabK) * W;
+// bf16 slabs where ``lo``), with the k-rows of wt lanes of w beside each
+// slab where w streams too (kWG).
+__host__ __device__ inline size_t ring_bytes(int W, bool lo, int wt = 0) {
+  return lo ? 2 * kStagesLo * static_cast<size_t>(W + wt) *
+                  (kSlabKLo + kPadLo)
+            : sizeof(float) * kStages * static_cast<size_t>(kSlabK) *
+                  (W + wt);
 }
 
 // Which output each register of an fp32 product thread holds: entry e of
@@ -99,16 +110,19 @@ struct FragLo {
 };
 
 struct GemmF32 {
-  const float* w;  // [k][lane], row stride T (shared memory)
+  const float* w;  // [k][lane], row stride T (shared memory); with kWG the
+                   // tile's first column of a global array, row stride ldw
   float* ring;     // the slab ring where the segments are streamed; null:
                    // seg(j) points into shared memory
   int K, W, ld, nseg, tid;  // W = Lanes<T>::kRowGroups * RPT
+  int ldw = 0;
 };
 
 // seg(j): segment j's map, [k][row] with row stride ld (W rows of it);
 // epi(j, acc, frag) after segment j, on every thread.  Every thread must be
-// past its last use of the ring and of w before the call.
-template <int RPT, int T = kTile, class Seg, class Epi>
+// past its last use of the ring and of w (and, with kWG, w's stores must be
+// behind a barrier) before the call.
+template <int RPT, int T = kTile, bool kWG = false, class Seg, class Epi>
 __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
                                           Epi epi) {
   static_assert(RPT % 4 == 0, "rows a thread: a multiple of 4");
@@ -120,9 +134,9 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
 #pragma unroll
     for (int e = 0; e < 2 * RPT; ++e) acc[e] = 0.0f;
   };
-  const float* wcol = a.w + 2 * fr.tl;
-  auto step = [&](const float* mrow, int k) {
-    const float2 w = *reinterpret_cast<const float2*>(wcol + k * T);
+  // mrow: the map's k-row; wrow: w's (T lanes)
+  auto step = [&](const float* mrow, const float* wrow) {
+    const float2 w = *reinterpret_cast<const float2*>(wrow + 2 * fr.tl);
 #pragma unroll
     for (int j4 = 0; j4 < RPT / 4; ++j4) {
       const float4 m = *reinterpret_cast<const float4*>(mrow + r0 + 4 * j4);
@@ -139,7 +153,7 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
   if (!a.ring) {
     for (int j = 0; j < a.nseg; ++j) {
       const float* m = seg(j);
-      for (int k = 0; k < a.K; ++k) step(m + k * a.ld, k);
+      for (int k = 0; k < a.K; ++k) step(m + k * a.ld, a.w + k * T);
       epi(j, acc, fr);
       zero();
     }
@@ -149,6 +163,7 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
   // ring slot s % kStages
   const int nslab = (a.K + kSlabK - 1) / kSlabK, total = nslab * a.nseg;
   const int per = a.W / 4;  // 16-byte chunks of a slab row
+  const int slot = kSlabK * (a.W + (kWG ? T : 0));  // floats of a ring slot
   // this thread's first chunk of a slab: row r0c, chunk c0c; it then steps
   // kThreads chunks at a time
   const int r0c = a.tid / per, c0c = a.tid - r0c * per;
@@ -156,8 +171,17 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
   auto issue = [&](int s) {
     if (s < total) {
       const int rows = min(kSlabK, a.K - ik);
-      float* dst = a.ring + (s % kStages) * kSlabK * a.W;
+      float* dst = a.ring + (s % kStages) * slot;
       const float* src = seg(ij) + static_cast<size_t>(ik) * a.ld;
+      if constexpr (kWG) {  // the tile's w rows of the slab, after the map's
+        constexpr int kPerW = T / 4;
+        const float* wsrc = a.w + static_cast<size_t>(ik) * a.ldw;
+        for (int e = a.tid; e < rows * kPerW; e += kThreads) {
+          const int r = e / kPerW, c = e - r * kPerW;
+          cp_async16(dst + kSlabK * a.W + r * T + 4 * c,
+                     wsrc + static_cast<size_t>(r) * a.ldw + 4 * c);
+        }
+      }
       ik += kSlabK;
       if (ik >= a.K) {
         ik = 0;
@@ -182,9 +206,11 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
     cp_async_wait<kStages - 2>();  // slab s has landed
     __syncthreads();  // ... for every thread; slab s - 1 is consumed
     issue(s + kStages - 1);  // into slab s - 1's slot
-    const float* slab = a.ring + (s % kStages) * kSlabK * a.W;
+    const float* slab = a.ring + (s % kStages) * slot;
     const int k1 = min(a.K, k0 + kSlabK);
-    for (int k = k0; k < k1; ++k) step(slab + (k - k0) * a.W, k);
+    for (int k = k0; k < k1; ++k)
+      step(slab + (k - k0) * a.W,
+           kWG ? slab + kSlabK * a.W + (k - k0) * T : a.w + k * T);
     k0 = k1;
     if (k1 == a.K) {
       epi(j, acc, fr);
@@ -196,25 +222,30 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
 }
 
 struct GemmLo {
-  const float* w;        // fp32 [k][lane], row stride T (shared memory)
-  __nv_bfloat16* w2h;    // (T, kp + kPadLo): w rounded to bf16
+  const float* w;        // fp32 [k][lane], row stride T (shared memory);
+                         // with kWG global, row stride ldw
+  __nv_bfloat16* w2h;    // (T, kp + kPadLo): w rounded to bf16; with kWG
+                         // the tile's (T, kp) rows of a global array
   __nv_bfloat16* ring;   // the slab ring where streamed; null: resident
   int K, kp, W, nseg, tid;
   int lda;  // row stride of a resident segment (kp + kPadLo)
+  int ldw = 0;
 };
 
 // seg(j): segment j's bf16 map, W rows of kp columns (row stride kp in
 // global memory where streamed, lda where resident); epi as gemm_fp32's.
 // The map's columns K..kp-1 are zero, and so are w2h's.
-template <int RPT, int T = kTile, class Seg, class Epi>
+template <int RPT, int T = kTile, bool kWG = false, class Seg, class Epi>
 __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
   constexpr int kMt = RPT / 4;
   constexpr int kRowWarps = Lanes<T>::kRowWarps;
-  const int ldw = a.kp + kPadLo;
+  const int ldh = kWG ? a.kp : a.kp + kPadLo;  // w2h's row stride
   for (int e = a.tid; e < a.kp * T; e += kThreads) {
     const int k = e / T, n = e - k * T;
-    a.w2h[n * ldw + k] = __float2bfloat16_rn(k < a.K ? a.w[e] : 0.0f);
+    const float v = k >= a.K ? 0.0f : kWG ? a.w[k * a.ldw + n] : a.w[e];
+    a.w2h[n * ldh + k] = __float2bfloat16_rn(v);
   }
+  if constexpr (kWG) __syncthreads();  // the rounded w before it streams
   const int warp = a.tid >> 5, ln = a.tid & 31;
   const FragLo<RPT> fr{warp % kRowWarps, warp / kRowWarps, ln >> 2, ln & 3};
   float acc[8 * kMt];
@@ -222,17 +253,20 @@ __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
 #pragma unroll
     for (int e = 0; e < 8 * kMt; ++e) acc[e] = 0.0f;
   };
-  // this thread's ldmatrix rows: lanes (B) and map rows (A)
-  const __nv_bfloat16* brow =
-      a.w2h + (fr.wn * 16 + (ln & 7) + ((ln >> 4) << 3)) * ldw +
-      ((ln >> 3) & 1) * 8;
+  // this thread's ldmatrix rows: lanes (B, in w2h or, with kWG, in a ring
+  // slot's w rows) and map rows (A)
+  constexpr int lds = kSlabKLo + kPadLo;
+  const int bn = fr.wn * 16 + (ln & 7) + ((ln >> 4) << 3);
+  const int bk = ((ln >> 3) & 1) * 8;
+  const __nv_bfloat16* brow = a.w2h + bn * ldh + bk;
   const int arow = fr.wm * kMt * 16 + (ln & 15), acol = (ln >> 4) * 8;
-  // k16 steps over a block of columns of A (row stride lda) whose column 0
-  // is column kb of the map
-  auto ksteps = [&](const __nv_bfloat16* A, int lda, int kb, int n16) {
+  // k16 steps over a block of columns of A (row stride lda) and of B (this
+  // thread's row at bp)
+  auto ksteps = [&](const __nv_bfloat16* A, int lda, const __nv_bfloat16* bp,
+                    int n16) {
     for (int kk = 0; kk < n16; ++kk) {
       unsigned b[4];
-      ldmatrix_x4(b, brow + kb + kk * 16);
+      ldmatrix_x4(b, bp + kk * 16);
 #pragma unroll
       for (int m = 0; m < kMt; ++m) {
         unsigned af[4];
@@ -257,7 +291,7 @@ __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
   if (!a.ring) {
     __syncthreads();  // w2h staged
     for (int j = 0; j < a.nseg; ++j) {
-      ksteps(seg(j), a.lda, 0, a.kp / 16);
+      ksteps(seg(j), a.lda, brow, a.kp / 16);
       epi(j, acc, fr);
       zero();
     }
@@ -266,12 +300,19 @@ __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
   // slab s: map columns [(s % nslab) * kSlabKLo, ...) of every row of
   // segment s / nslab, in ring slot s % kStagesLo
   const int nslab = a.kp / kSlabKLo, total = nslab * a.nseg;
-  constexpr int lds = kSlabKLo + kPadLo;
+  const int slot = (a.W + (kWG ? T : 0)) * lds;  // bf16 of a ring slot
   int ij = 0, ic = 0;  // the next slab to issue: segment ij, slab ic of it
   auto issue = [&](int s) {
     if (s < total) {
-      __nv_bfloat16* dst = a.ring + (s % kStagesLo) * a.W * lds;
+      __nv_bfloat16* dst = a.ring + (s % kStagesLo) * slot;
       const __nv_bfloat16* src = seg(ij) + ic * kSlabKLo;
+      if constexpr (kWG) {  // the tile's rounded w columns, after the map's
+        for (int e = a.tid; e < T * (kSlabKLo / 8); e += kThreads) {
+          const int n = e / (kSlabKLo / 8), q = e % (kSlabKLo / 8);
+          cp_async16(dst + (a.W + n) * lds + 8 * q,
+                     a.w2h + n * a.kp + ic * kSlabKLo + 8 * q);
+        }
+      }
       if (++ic == nslab) {
         ic = 0;
         ++ij;
@@ -291,7 +332,9 @@ __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
     __syncthreads();  // ... for every thread (and on s = 0 w2h is staged);
                       // slab s - 1 is consumed
     issue(s + kStagesLo - 1);
-    ksteps(a.ring + (s % kStagesLo) * a.W * lds, lds, c * kSlabKLo, 1);
+    const __nv_bfloat16* sl = a.ring + (s % kStagesLo) * slot;
+    ksteps(sl, lds,
+           kWG ? sl + (a.W + bn) * lds + bk : brow + c * kSlabKLo, 1);
     if (++c == nslab) {
       epi(j, acc, fr);
       zero();
@@ -304,9 +347,11 @@ __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
 // -- the elementwise step ---------------------------------------------------
 
 // One side of a lane: its column of the tile buffer (element r at
-// ux[r * T]), its slack, dual and rollout constant (element r at
-// [r * stride]: a [row][lane] shared array or a (dim, B) global one) and its
-// carry slack (global, element r at [r * B]).
+// ux[r * us]: us = T in shared memory, the global array's row stride with
+// kWG), its slack, dual and rollout constant (element r at [r * stride]: a
+// [row][lane] shared array or a (dim, B) global one), its carry slack
+// (global, element r at [r * B]) and, for a projected side, its rows of the
+// projection scratch (global, element r at w[r * ws]).
 struct SidePass {
   const Side* s;
   float* ux;
@@ -315,6 +360,9 @@ struct SidePass {
   const float* uxc;   // null: nothing to add
   float* co;          // carry slack
   int stride;
+  int us;
+  float* w;           // null: a box-only side
+  int ws;
 };
 
 // What stage_slack (projections.cuh) reads of the kernel's parameters,
@@ -361,40 +409,43 @@ __device__ __forceinline__ float box_slack(const Side& s, float wh,
 }
 
 // Adds uxc to the rows of stage k of a projected side (add), then its
-// slack into w.
-template <int T, class P>
+// slack into the side's scratch rows.
+template <class P>
 __device__ __forceinline__ void projected_stage(const P& p, const SidePass& sp,
                                                 int g, int k, bool relax,
-                                                bool add, float* w) {
+                                                bool add) {
   const Side& s = *sp.s;
   if (add)
     for (int j = 0; j < s.dim; ++j) {
       const int r = k * s.dim + j;
-      sp.ux[r * T] = __fadd_rn(sp.ux[r * T], sp.uxc[r * sp.stride]);
+      sp.ux[r * sp.us] = __fadd_rn(sp.ux[r * sp.us], sp.uxc[r * sp.stride]);
     }
   const StageParams sp_p{p.alpha, p.one_m_alpha, sp.stride};
-  stage_slack(sp_p, s, g, k, relax, sp.ux, sp.prev, sp.dual, 0, T, w);
+  stage_slack(sp_p, s, g, k, relax, sp.ux, sp.prev, sp.dual, 0, sp.us,
+              sp.w + k * s.dim * sp.ws, sp.ws);
 }
 
 // The residual pass of thread q of a lane: the max-abs primal (pri) and
 // dual (dua, before its rho scaling) residuals of its share of one side;
-// with add it also completes ux = product + uxc in the buffer.
+// with add it also completes ux = product + uxc in the buffer.  fresh: the
+// projection scratch already holds this iteration's projected slacks.
 template <bool kProj, int T = kTile, class P>
 __device__ __forceinline__ void side_residuals_q(const P& p,
                                                  const SidePass& sp, int g,
                                                  bool relax, int q, bool add,
-                                                 float& pri, float& dua) {
+                                                 float& pri, float& dua,
+                                                 bool fresh = false) {
   constexpr int kLaneThreads = Lanes<T>::kLaneThreads;
   const Side& s = *sp.s;
   float* ux = sp.ux;
   if constexpr (kProj) {
     for (int k = q; k < s.n_stages; k += kLaneThreads) {
-      float w[kMaxStage];
-      projected_stage<T>(p, sp, g, k, relax, add, w);
+      if (!fresh) projected_stage(p, sp, g, k, relax, add);
       for (int j = 0; j < s.dim; ++j) {
         const int r = k * s.dim + j;
-        pri = fmaxf(pri, fabsf(__fsub_rn(ux[r * T], w[j])));
-        dua = fmaxf(dua, fabsf(__fsub_rn(sp.prev[r * sp.stride], w[j])));
+        const float w = sp.w[r * sp.ws];
+        pri = fmaxf(pri, fabsf(__fsub_rn(ux[r * sp.us], w)));
+        dua = fmaxf(dua, fabsf(__fsub_rn(sp.prev[r * sp.stride], w)));
       }
     }
   } else {
@@ -406,10 +457,10 @@ __device__ __forceinline__ void side_residuals_q(const P& p,
       for (int j = 0; j < kRowBatch; ++j) {
         const int r = r0 + kLaneThreads * j;
         if (r < rows) {
-          float u = ux[r * T];
+          float u = ux[r * sp.us];
           if (add) {
             u = __fadd_rn(u, b.uxc[j]);
-            ux[r * T] = u;
+            ux[r * sp.us] = u;
           }
           const float vn = box_slack(s, relaxed(p, relax, u, b.prev[j]),
                                      sp.dual != nullptr, b.dual[j], b.lo[j],
@@ -445,15 +496,15 @@ __device__ __forceinline__ void side_update_q(const P& p, const SidePass& sp,
     }
     sp.prev[o] = vn;
     if (latch) sp.co[r * p.B] = prev;
-    ux[r * T] = next;
+    ux[r * sp.us] = next;
   };
   if constexpr (kProj) {
     for (int k = q; k < s.n_stages; k += kLaneThreads) {
-      float w[kMaxStage];
-      projected_stage<T>(p, sp, g, k, relax, add, w);
+      projected_stage(p, sp, g, k, relax, add);
       for (int j = 0; j < s.dim; ++j) {
         const int r = k * s.dim + j, o = r * sp.stride;
-        row(r, ux[r * T], sp.prev[o], sp.dual ? sp.dual[o] : 0.0f, w[j]);
+        row(r, ux[r * sp.us], sp.prev[o], sp.dual ? sp.dual[o] : 0.0f,
+            sp.w[r * sp.ws]);
       }
     }
   } else {
@@ -465,7 +516,7 @@ __device__ __forceinline__ void side_update_q(const P& p, const SidePass& sp,
       for (int j = 0; j < kRowBatch; ++j) {
         const int r = r0 + kLaneThreads * j;
         if (r < rows) {
-          float u = ux[r * T];
+          float u = ux[r * sp.us];
           if (add) u = __fadd_rn(u, b.uxc[j]);
           const float vn = box_slack(s, relaxed(p, relax, u, b.prev[j]),
                                      sp.dual != nullptr, b.dual[j], b.lo[j],

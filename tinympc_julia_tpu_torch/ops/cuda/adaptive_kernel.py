@@ -56,7 +56,7 @@ from ..condensed import (CondensedTaylorMaps, _cones_stacked,
 from ..rho import EPS, RHO_INTERVAL, TERM_DEADBAND, TERM_MAX_STEP
 from ...utils.precision import full_fp32_matmul
 from ._build import load_library
-from .condensed_kernel import (KP_ALIGN, MAX_STAGE, SMEM_PER_BLOCK, THREADS,
+from .condensed_kernel import (KP_ALIGN, SMEM_PER_BLOCK, THREADS,
                                TILE, FusedConstraints,
                                _check_constraints,
                                _check_cuda_inputs, _check_grouped_shape,
@@ -72,8 +72,12 @@ from .condensed_kernel import _check_precision as _check_k1_precision
 # (TILE, THREADS), or 16 lanes where the iterates of 32 leave no room beside
 # a wide map's slab ring; the products' 512 / tile thread rows cover W =
 # 512 RPT / tile rows at once, RPT one of the kernel's instances for that
-# tile; a wider product runs in passes.
+# tile; a wider product runs in passes.  Where even 16 lanes' iterates
+# leave no room, tiles of 32 lanes keep them in global memory and stream
+# them beside the maps (K2_GLOBAL_RPT rows a thread): that layout's shared
+# memory does not depend on the width.
 K2_RPTS = {32: (8, 20), 16: (8,)}
+K2_GLOBAL_RPT = 20
 
 
 class AdaptiveFusedCarry(NamedTuple):
@@ -121,6 +125,8 @@ class AdaptivePlan(NamedTuple):
     kp1: int            # padded k of the bf16 T1 blocks (reduced only)
     kp2: int            # padded k of the bf16 T2 stack
     smem: int           # dynamic shared memory of one block, bytes
+    iterates_global: bool = False  # vec1 and ux in global memory, streamed
+                                   # beside the maps
 
     @property
     def width(self) -> int:
@@ -141,20 +147,23 @@ class AdaptivePlan(NamedTuple):
 def adaptive_smem(nx: int, nu: int, N: int, order: int, tile: int, rpt: int,
                   passes1: int, passes2: int, resident: bool,
                   state_shared: bool, reduced: bool,
-                  state_free: bool) -> int:
+                  state_free: bool, iterates_global: bool = False) -> int:
     """One block's shared memory (csrc/condensed_adaptive.cu k2_layout):
-    vec1 and ux/vec2 of the tile's lanes, the latch flags, the lanes' rho
-    twice, the elementwise partials (12 floats a thread), the duals and
-    slacks where resident, the maps (resident: fp32 and, with reduced
-    iterations, bf16 with rows padded by 8; streamed: the slab ring), the
-    bf16 product input of reduced iterations."""
+    vec1 and ux/vec2 of the tile's lanes (none where they live in global
+    memory), the latch flags, the lanes' rho twice, the elementwise
+    partials (12 floats a thread), the duals and slacks where resident, the
+    maps (resident: fp32 and, with reduced iterations, bf16 with rows padded
+    by 8; streamed: the slab ring, each slab with the tile's rows of the
+    product's input beside it where the iterates are global), the bf16
+    product input of reduced iterations (global with the iterates)."""
     su, sx, sw = _dims(nx, nu, N)
     in1, ord1 = su + nx + 1, order + 1
     W = rpt * 2 * THREADS // tile
     ld1, ld2 = passes1 * W, passes2 * W
     kp1, kp2 = _kp(in1), _kp(sw + 1)
     state = (2 * su + (1 if state_free else 2) * sx) if state_shared else 0
-    n = (_up16(4 * in1 * tile) + _up16(4 * (sw + 1) * tile)
+    wg = iterates_global
+    n = ((0 if wg else _up16(4 * in1 * tile) + _up16(4 * (sw + 1) * tile))
          + _up16(4 * (tile + 1)) + _up16(8 * tile) + _up16(48 * THREADS)
          + _up16(4 * state * tile))
     if resident:
@@ -163,8 +172,8 @@ def adaptive_smem(nx: int, nu: int, N: int, order: int, tile: int, rpt: int,
             n += (_up16(2 * ord1 * ld1 * (kp1 + 8))
                   + _up16(2 * ld2 * (kp2 + 8)))
     else:
-        n += _up16(ring_bytes(W, reduced))
-    if reduced:
+        n += _up16(ring_bytes(W, reduced, tile if wg else 0))
+    if reduced and not wg:
         n += _up16(2 * tile * (max(kp1, kp2) + 8))
     return n
 
@@ -187,18 +196,22 @@ def adaptive_tile_plan(nx: int, nu: int, N: int, order: int,
     fewest passes (each costs a slab stream), padding them the least.
     Within it the lanes' duals and slacks in shared
     memory where they fit, then the maps resident where they fit beside
-    them and streamed through the slab ring otherwise."""
+    them and streamed through the slab ring otherwise.  Where no tile of 16
+    fits either, tiles of 32 whose iterates live in global memory and
+    stream beside the maps: that layout's shared memory does not depend on
+    the width, so every width has a plan (a launch needs (in1 + sw + 1, B)
+    floats of global memory for the iterates)."""
     su, sx, sw = _dims(nx, nu, N)
     in1, ord1 = su + nx + 1, order + 1
 
-    for tile in (TILE, TILE // 2):
-        def cost(rpt):
-            W = rpt * 2 * THREADS // tile
-            p1, p2 = -(-sw // W), -(-4 * su // W)
-            return (p1 + p2, ord1 * in1 * p1 * W + (sw + 1) * p2 * W, p1, p2)
+    def cost(tile, rpt):
+        W = rpt * 2 * THREADS // tile
+        p1, p2 = -(-sw // W), -(-4 * su // W)
+        return (p1 + p2, ord1 * in1 * p1 * W + (sw + 1) * p2 * W, p1, p2)
 
-        for rpt in sorted(K2_RPTS[tile], key=cost):
-            _, _, p1, p2 = cost(rpt)
+    for tile in (TILE, TILE // 2):
+        for rpt in sorted(K2_RPTS[tile], key=lambda r: cost(tile, r)):
+            _, _, p1, p2 = cost(tile, rpt)
             for shared in (True, False):
                 for resident in (True, False):
                     smem = adaptive_smem(nx, nu, N, order, tile, rpt, p1, p2,
@@ -208,8 +221,12 @@ def adaptive_tile_plan(nx: int, nu: int, N: int, order: int,
                         return AdaptivePlan(tile, THREADS, rpt, p1, p2,
                                             resident, shared, _kp(in1),
                                             _kp(sw + 1), smem)
-    raise ValueError(f"adaptive fused kernel: a problem of width {sw} leaves "
-                     "no room for a tile of lanes in shared memory")
+    _, _, p1, p2 = cost(TILE, K2_GLOBAL_RPT)
+    smem = adaptive_smem(nx, nu, N, order, TILE, K2_GLOBAL_RPT, p1, p2,
+                         False, False, reduced, state_free, True)
+    assert smem <= SMEM_PER_BLOCK  # independent of sw
+    return AdaptivePlan(TILE, THREADS, K2_GLOBAL_RPT, p1, p2, False, False,
+                        _kp(in1), _kp(sw + 1), smem, True)
 
 
 _PLANT_SHAPES = lambda nx, nu: ((nx, nx), (nx, nu), (nx,), (nu,), (nx, nx),
@@ -485,7 +502,7 @@ def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
     return out
 
 
-_ARGTYPES = ([_PTR] * 34 + [_INT] * 9 + [_FLT] * 9 + [_INT] * 20
+_ARGTYPES = ([_PTR] * 39 + [_INT] * 9 + [_FLT] * 9 + [_INT] * 21
              + _SIDE + _SIDE + [_PTR])
 
 
@@ -541,9 +558,7 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
     """Launch kernel K2 (csrc/condensed_adaptive.cu) on CUDA tensors; the
     arguments and results are those of ``condensed_adaptive_reference``.
     Raises on CPU tensors, on any dtype but float32, on non-contiguous
-    inputs, on stages wider than MAX_STAGE where the kernel holds one per
-    thread (a projected side; both sides under the OSQP-form controller),
-    and when the build or the launch fails.  Counts every launch in
+    inputs, and when the build or the launch fails.  Counts every launch in
     ``.launches``, those over more than one group in ``.grouped_launches``,
     those with reduced-precision iterations in ``.reduced_launches`` and
     warm ones (continuations) in ``.warm_launches``."""
@@ -560,10 +575,6 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
         raise ValueError("empty batch")
     order = tmaps.T1s.shape[-3] - 1
     osqp = controller == "osqp"
-    if osqp and max(nx, nu) > MAX_STAGE:
-        raise ValueError(f"the OSQP-form controller of the adaptive fused "
-                         f"kernel takes stages of at most {MAX_STAGE} "
-                         f"entries; got nx={nx}, nu={nu}")
     dev = x0s.device
     state_free = _state_free(en_state_bound, cons)
     plan = adaptive_tile_plan(nx, nu, N, order, lo_all, state_free)
@@ -601,6 +612,21 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
     zco = torch.empty((su, B), **f32) if carry_out else None
     w = warm if warm is not None else AdaptiveFusedCarry(*[None] * 6)
     pl = plant if osqp else AdaptivePlant(*[None] * 6)
+    # the new slacks (projected stages, the OSQP-form residuals) and duals
+    # (the OSQP-form residuals)
+    projected = bool(side_u[1] or side_u[4] or side_x[1] or side_x[4])
+    wsc = torch.empty((sw, B), **f32) if projected or osqp else None
+    dsc = torch.empty((sw, B), **f32) if osqp else None
+    # the tiles' iterates where they live in global memory: each tile its
+    # own columns
+    vecg = uxg = w2hg = None
+    if plan.iterates_global:
+        ldg = G * -(-L // plan.tile) * plan.tile
+        vecg = torch.empty((su + nx + 1, ldg), **f32)
+        uxg = torch.empty((sw + 1, ldg), **f32)
+        if lo_all:
+            w2hg = torch.empty((ldg, max(plan.kp1, plan.kp2)),
+                               dtype=torch.bfloat16, device=dev)
 
     fn = _kernel_fn()
     with torch.cuda.device(dev):
@@ -613,14 +639,16 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
                  _ptr(solved), _ptr(rho), _ptr(y),
                  None if state_free else _ptr(g), _ptr(d_out), _ptr(vco),
                  _ptr(zco), _ptr(pl.A), _ptr(pl.B), _ptr(pl.Q), _ptr(pl.R),
-                 _ptr(pl.Pinf), _ptr(pl.dPinf_drho),
+                 _ptr(pl.Pinf), _ptr(pl.dPinf_drho), _ptr(wsc), _ptr(dsc),
+                 _ptr(vecg), _ptr(uxg), _ptr(w2hg),
                  nx, nu, N, G, L, order, max_iter, check_termination,
                  int(lo_all), relaxation_alpha, 1.0 - relaxation_alpha,
                  abs_pri_tol, abs_dua_tol, adaptive_rho_min,
                  adaptive_rho_max, *one, int(osqp),
                  int(adaptive_rho_clipping), int(trust),
                  int(en_input_bound), int(en_state_bound), int(warm_start),
-                 int(carry_out), plan.tile, plan.rpt, plan.passes1,
+                 int(carry_out), plan.tile, int(plan.iterates_global),
+                 plan.rpt, plan.passes1,
                  plan.passes2, plan.kp1, plan.kp2, int(plan.resident),
                  int(plan.state_shared), plan.smem,
                  int(tmaps.T1s.ndim == 4),

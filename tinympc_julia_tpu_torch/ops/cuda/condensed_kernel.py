@@ -79,15 +79,21 @@ class FusedConstraints(NamedTuple):
 # 8, the quadrotor's 20), a wider map in passes of 16 RPT rows; a ring of 6
 # fp32 slabs of 8 map rows of a pass (kStages, kSlabK) or 4 bf16 slabs of 16
 # map columns (kStagesLo, kSlabKLo) whose rows are padded by 8 (kPadLo); the
-# bf16 map's k padded to a multiple of 32.  MAX_TILE is the adaptive kernel's largest tile.  The
-# projections hold one stage of a side in a per-thread buffer of MAX_STAGE
-# floats (kMaxStage) and take at most MAX_CONES cones a side (kMaxCones).
+# bf16 map's k padded to a multiple of 32.  MAX_TILE is the adaptive
+# kernel's largest tile.  Where a tile of 32 lanes' w2 leaves no room, tiles
+# of 16 lanes (TILE_16_RPTS: 32 thread rows of 8 rows each); where that
+# leaves none either, tiles of 32 whose w2 lives in global memory and
+# streams beside the map (W2_GLOBAL_RPT rows a thread), whose shared memory
+# does not grow with the map's width.  The projections work on a stage of
+# any width in a global scratch and take any number of cones.
 SMEM_PER_BLOCK = 232448
 MAX_TILE = 128
 TILE = 32
 THREADS = 256
 TILE_ROW_GROUPS = 16
 TILE_RPTS = (8, 20, 32)
+TILE_16_RPTS = (8,)
+W2_GLOBAL_RPT = 32
 SLAB_K = 8
 STAGES = 6
 SLAB_K_LO = 16
@@ -95,8 +101,6 @@ STAGES_LO = 4
 KP_ALIGN = 32
 PAD_LO = 8
 MMA_N = 8
-MAX_STAGE = 12
-MAX_CONES = 8
 
 
 class TilePlan(NamedTuple):
@@ -109,12 +113,19 @@ class TilePlan(NamedTuple):
     kp: int             # padded k of the bf16 map of reduced iterations
     smem: int           # dynamic shared memory of one block, bytes
     passes: int = 1     # passes of rows / passes map rows (the product's
-                        # 16 thread rows x the rows a thread)
+                        # 512 / tile thread rows x the rows a thread)
+    w2_global: bool = False  # the tiles' w2 in global memory, streamed
+                             # beside the map
 
     @property
     def rpt(self) -> int:
         """Rows a thread of the product (the kernel's instance)."""
-        return self.rows // (self.passes * TILE_ROW_GROUPS)
+        return self.rows // (self.passes * row_groups(self.tile))
+
+
+def row_groups(tile: int) -> int:
+    """Thread rows of a tile's product: 256 threads of 2 lanes each."""
+    return 2 * THREADS // tile
 
 
 def bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -279,36 +290,42 @@ def state_floats(nx: int, nu: int, N: int, state_free: bool) -> int:
     return su + sx + 2 * su + (1 if state_free else 2) * sx
 
 
-def ring_bytes(width: int, reduced: bool) -> int:
+def ring_bytes(width: int, reduced: bool, w_lanes: int = 0) -> int:
     """The slab ring of a streamed product of ``width`` rows at once
     (csrc/tile_gemm.cuh): STAGES fp32 slabs of SLAB_K k-rows, or with
     reduced iterations the larger of that and STAGES_LO bf16 slabs of
-    SLAB_K_LO columns (rows padded by PAD_LO)."""
-    ring = 4 * STAGES * SLAB_K * width
+    SLAB_K_LO columns (rows padded by PAD_LO); each slab with the k-rows of
+    ``w_lanes`` lanes of the product's input beside it where that streams
+    too."""
+    ring = 4 * STAGES * SLAB_K * (width + w_lanes)
     if reduced:
-        ring = max(ring, 2 * STAGES_LO * width * (SLAB_K_LO + PAD_LO))
+        ring = max(ring, 2 * STAGES_LO * (width + w_lanes)
+                   * (SLAB_K_LO + PAD_LO))
     return ring
 
 
 def tile_smem(sw: int, rows: int, kp: int, state: int, resident: bool,
-              reduced: bool, passes: int = 1) -> int:
+              reduced: bool, passes: int = 1, tile: int = TILE,
+              w2_global: bool = False) -> int:
     """One block's shared memory (csrc/condensed_fused.cu tile_layout): the
-    tile's w2 (sw x 32 floats), the latch flags, the residual partials of
-    the lanes' threads, the lanes' solver state (``state`` floats a lane,
-    0 where it stays in global memory), the map (resident: fp32, and bf16
-    with reduced iterations; streamed: the slab ring of one pass of
-    rows / passes rows), the bf16 w2 of reduced iterations ([lane][k], rows
-    padded)."""
-    n = (_up16(4 * sw * TILE) + _up16(4 * (TILE + 1)) + _up16(16 * THREADS)
-         + _up16(4 * state * TILE))
+    tile's w2 (sw x tile floats; none where it lives in global memory), the
+    latch flags, the residual partials of the lanes' threads, the lanes'
+    solver state (``state`` floats a lane, 0 where it stays in global
+    memory), the map (resident: fp32, and bf16 with reduced iterations;
+    streamed: the slab ring of one pass of rows / passes rows, with the
+    tile's w2 rows beside each slab where w2 is global), the bf16 w2 of
+    reduced iterations ([lane][k], rows padded; global with w2)."""
+    n = ((0 if w2_global else _up16(4 * sw * tile)) + _up16(4 * (tile + 1))
+         + _up16(16 * THREADS) + _up16(4 * state * tile))
     if resident:
         n += _up16(4 * sw * rows)
         if reduced:
             n += _up16(2 * rows * (kp + PAD_LO))
     else:
-        n += _up16(ring_bytes(rows // passes, reduced))
-    if reduced:
-        n += _up16(2 * TILE * (kp + PAD_LO))
+        n += _up16(ring_bytes(rows // passes, reduced,
+                              tile if w2_global else 0))
+    if reduced and not w2_global:
+        n += _up16(2 * tile * (kp + PAD_LO))
     return n
 
 
@@ -316,30 +333,40 @@ def fused_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
                     state_free: bool = True) -> TilePlan:
     """The layout of a launch at this shape (``reduced``: with
     reduced-precision iterations; ``state_free``: no state-side
-    constraint, so no state dual).  The rows a thread: the instance that
-    covers the map in the fewest passes of 16 RPT rows, padding it the
-    least; where no layout of it fits, the next.  Within one: the lanes'
-    solver state in
-    shared memory where it fits, then T12 resident where it fits beside it
-    and streamed in slabs otherwise."""
+    constraint, so no state dual).  Tiles of 32 lanes first: the rows a
+    thread, the instance that covers the map in the fewest passes of 16 RPT
+    rows, padding it the least; where no layout of it fits, the next.
+    Within one: the lanes' solver state in shared memory where it fits,
+    then T12 resident where it fits beside it and streamed in slabs
+    otherwise.  Where no tile of 32 fits (the tile's w2 fills the block),
+    tiles of 16 lanes the same way; where none of those fits either, tiles
+    of 32 with w2 in global memory, streamed beside the map: that layout's
+    shared memory does not depend on the width, so every width has a plan
+    (a launch needs (sw, B) floats of global memory for w2)."""
     sw = (N - 1) * nu + N * nx
     kp = -(-sw // KP_ALIGN) * KP_ALIGN
     state = state_floats(nx, nu, N, state_free)
 
-    def passes(rpt):
-        return -(-sw // (TILE_ROW_GROUPS * rpt))
+    def passes(tile, rpt):
+        return -(-sw // (row_groups(tile) * rpt))
 
-    for rpt in sorted(TILE_RPTS, key=lambda r: (passes(r), passes(r) * r)):
-        rows = passes(rpt) * TILE_ROW_GROUPS * rpt
-        for shared in (True, False):
-            for resident in (True, False):
-                smem = tile_smem(sw, rows, kp, state if shared else 0,
-                                 resident, reduced, passes(rpt))
-                if smem <= SMEM_PER_BLOCK:
-                    return TilePlan(TILE, THREADS, resident, shared, rows,
-                                    kp, smem, passes(rpt))
-    raise ValueError(f"fused kernel: a map of width {sw} leaves no room for "
-                     "a tile of lanes in shared memory")
+    for tile, rpts in ((TILE, TILE_RPTS), (TILE // 2, TILE_16_RPTS)):
+        for rpt in sorted(rpts, key=lambda r: (passes(tile, r),
+                                               passes(tile, r) * r)):
+            npass = passes(tile, rpt)
+            rows = npass * row_groups(tile) * rpt
+            for shared in (True, False):
+                for resident in (True, False):
+                    smem = tile_smem(sw, rows, kp, state if shared else 0,
+                                     resident, reduced, npass, tile)
+                    if smem <= SMEM_PER_BLOCK:
+                        return TilePlan(tile, THREADS, resident, shared,
+                                        rows, kp, smem, npass)
+    npass = passes(TILE, W2_GLOBAL_RPT)
+    rows = npass * row_groups(TILE) * W2_GLOBAL_RPT
+    smem = tile_smem(sw, rows, kp, 0, False, reduced, npass, TILE, True)
+    assert smem <= SMEM_PER_BLOCK  # independent of sw
+    return TilePlan(TILE, THREADS, False, False, rows, kp, smem, npass, True)
 
 
 def tile_iterations(counts: torch.Tensor, tile: int, groups: int = 1) -> int:
@@ -627,12 +654,11 @@ def condensed_fused_reference(maps: CondensedMaps, rho, u_min, u_max, x_min,
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLT = ctypes.c_float
-_IPTR = ctypes.POINTER(ctypes.c_int)
 # one side's constraints: halfspace rows (device), their count, the cones'
-# (start, dim) pairs (host), the cones' mu (device), the cone count, and
+# (start, dim) pairs (device), the cones' mu (device), the cone count, and
 # whether the rows and the mus carry a leading group axis
-_SIDE = [_PTR, _INT, _IPTR, _PTR, _INT, _INT, _INT]
-_ARGTYPES = ([_PTR] * 27 + [_INT] * 9 + [_FLT] * 4 + [_INT] * 14
+_SIDE = [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT]
+_ARGTYPES = ([_PTR] * 30 + [_INT] * 9 + [_FLT] * 4 + [_INT] * 16
              + _SIDE + _SIDE + [_PTR])
 
 
@@ -671,20 +697,26 @@ def map_layout(maps: CondensedMaps, nx, su, sw, reduced: bool,
             maps.T1[..., -1].contiguous())
 
 
+@functools.lru_cache(maxsize=64)
+def cone_pairs(starts: tuple, dims: tuple, device) -> torch.Tensor:
+    """The cones' (start, dim) pairs as the kernels read them: an (n, 2)
+    int32 tensor on ``device``, made once per cone structure."""
+    return torch.tensor([v for c in zip(starts, dims) for v in c],
+                        dtype=torch.int32, device=device).reshape(-1, 2)
+
+
 def _side_args(rows, cones: ConeSet, dim: int, side: str) -> list:
-    """The seven C arguments of one side's constraints (``_SIDE``)."""
+    """The seven C arguments of one side's constraints (``_SIDE``): a stage
+    of any width and any number of cones, each within the stage."""
     n_lin = 0 if rows is None else int(rows.shape[-2])
     n_soc = cones.num_cones
-    if (n_lin or n_soc) and dim > MAX_STAGE:
-        raise ValueError(f"the fused kernel projects stages of at most "
-                         f"{MAX_STAGE} entries; the {side} side has {dim} "
-                         "(ROADMAP.md queue 2, K1e stage width)")
-    if n_soc > MAX_CONES:
-        raise ValueError(f"the fused kernel takes at most {MAX_CONES} cones "
-                         f"a side; the {side} side has {n_soc}")
-    spec = (ctypes.c_int * max(2 * n_soc, 1))(
-        *(v for c in zip(cones.starts, cones.dims) for v in c))
-    return [_ptr(rows), n_lin, spec, _ptr(cones.mus) if n_soc else None,
+    for st, dm in zip(cones.starts, cones.dims):
+        if st < 0 or dm < 2 or st + dm > dim:
+            raise ValueError(f"the {side} side's cone [{st}, {st + dm}) "
+                             f"does not fit a stage of {dim}")
+    pairs = cone_pairs(tuple(cones.starts), tuple(cones.dims),
+                       cones.mus.device) if n_soc else None
+    return [_ptr(rows), n_lin, _ptr(pairs), _ptr(cones.mus) if n_soc else None,
             n_soc, int(rows is not None and rows.ndim == 3),
             int(cones.mus.ndim == 2)]
 
@@ -712,8 +744,7 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
     """Launch kernel K1 (csrc/condensed_fused.cu) on CUDA tensors; the
     arguments and results are those of ``condensed_fused_reference``.
     Raises on CPU tensors, on any dtype but float32, on non-contiguous
-    inputs, on a projected stage wider than MAX_STAGE, and when the build
-    or the launch fails.
+    inputs, and when the build or the launch fails.
 
     The maps' kernel-side layouts (and, for reduced iterations, the bf16
     T12) are made at every launch.
@@ -760,6 +791,18 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
     park = torch.empty((sw, B), **f32) if plan.passes > 1 else None
     vco = torch.empty((sx, B), **f32) if carry_out else None
     zco = torch.empty((su, B), **f32) if carry_out else None
+    projected = bool(side_u[1] or side_u[4] or side_x[1] or side_x[4])
+    # the projected stages' scratch
+    wsc = torch.empty((sw, B), **f32) if projected else None
+    # the tiles' w2 (and its bf16 rounding) where it lives in global memory:
+    # each tile its own columns
+    w2g = w2hg = None
+    if plan.w2_global:
+        ldg = G * -(-L // plan.tile) * plan.tile
+        w2g = torch.empty((sw, ldg), **f32)
+        if reduced:
+            w2hg = torch.empty((ldg, plan.kp), dtype=torch.bfloat16,
+                               device=dev)
     w = warm if warm is not None else FusedCarry(None, None, None, None, None)
 
     fn = _kernel_fn()
@@ -771,13 +814,15 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
                  None if state_free else _ptr(w.g), _ptr(w.v), _ptr(w.z),
                  _ptr(xout), _ptr(uout), _ptr(iters), _ptr(solved),
                  _ptr(y), None if state_free else _ptr(g), _ptr(uxc),
-                 _ptr(w2o), _ptr(vco), _ptr(zco), _ptr(park),
+                 _ptr(w2o), _ptr(vco), _ptr(zco), _ptr(park), _ptr(wsc),
+                 _ptr(w2g), _ptr(w2hg),
                  nx, nu, N, G, L, max_iter, ct, k0, int(lo_all),
                  relaxation_alpha, 1.0 - relaxation_alpha,
                  abs_pri_tol, abs_dua_tol, int(en_input_bound),
                  int(en_state_bound), int(warm_start), int(carry_out),
-                 int(plan.state_shared), int(plan.resident), plan.rpt,
-                 plan.rows, plan.kp, plan.smem,
+                 int(plan.state_shared), int(plan.resident), plan.tile,
+                 int(plan.w2_global), plan.rpt, plan.rows, plan.kp,
+                 plan.smem,
                  int(maps.T12.ndim == 3), int(rho_t.numel() > 1),
                  int(G > 1 and u_min.numel() == G * su),
                  int(G > 1 and x_min.numel() == G * sx),
@@ -786,7 +831,7 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
         raise RuntimeError(f"condensed_fused kernel launch failed: CUDA "
                            f"error {err}")
     condensed_fused_cuda.launches += 1
-    if side_u[1] or side_u[4] or side_x[1] or side_x[4]:
+    if projected:
         condensed_fused_cuda.projected_launches += 1
     if G > 1:
         condensed_fused_cuda.grouped_launches += 1

@@ -38,17 +38,21 @@ from ._build import load_library
 
 # The launch layout is decided here and passed to the kernel, which checks
 # it: shared memory one block may use on sm_90 (opt-in maximum, bytes), the
-# widest nx, nu of the kernel's generic variant (csrc/fused_stage.cu kMaxDim)
-# and the threads of a block the plan starts from.
+# widest nx, nu of the kernel's generic variant (csrc/fused_stage.cu
+# kGenericDim) and the threads of a block the plan starts from.
 SMEM_PER_BLOCK = 232448
-MAX_DIM = 16
+GENERIC_DIM = 16
 MAX_THREADS = 128
 
 # The variants csrc/fused_stage.cu builds (its K3_VARIANTS): (nx, nu) ->
 # (lane group, the matrices' rows in registers); any other shape up to
-# MAX_DIM runs the generic variant, GENERIC.
+# GENERIC_DIM runs the generic variant, GENERIC.  A wider plant runs the
+# wide variant with the first lane group of WIDE_GROUPS whose threads hold
+# at most WIDE_ROWS rows of each stage vector (32 beyond that).
 VARIANTS = {(4, 1): (1, True), (6, 3): (2, True), (12, 4): (4, True)}
 GENERIC = (4, False)
+WIDE_GROUPS = (8, 16, 32)
+WIDE_ROWS = 4
 
 
 class StagePlan(NamedTuple):
@@ -57,6 +61,10 @@ class StagePlan(NamedTuple):
     threads: int     # tile * group
     smem: int        # dynamic shared memory a block, bytes
     registers: bool  # the matrices' rows in registers (else shared memory)
+    workspace_global: bool = False  # the lanes' workspace in global memory
+    stage_global: bool = False      # ... and the per-stage terms
+    matrices_global: bool = False   # the wide variant's matrices read from
+                                    # the caller's tensors
 
 
 def reference_terms(Qd, Rd, Pinf, Xref, Uref):
@@ -85,6 +93,21 @@ def matrix_floats(nx: int, nu: int) -> int:
     return nx * (2 * lx + 2 * lu) + nu * (2 * lx + lu)
 
 
+def vec_floats(nx: int, nu: int) -> int:
+    """The wide variant's stage vectors of a lane in shared memory: x_k,
+    A x_k (or AmBKt p_{k+1}), p_{k+1}, u_k, s_k, r_k."""
+    return 3 * nx + 3 * nu
+
+
+def lane_group(nx: int, nu: int) -> tuple:
+    """(lane group, the matrices' rows in registers) of the variant that
+    solves this shape."""
+    if max(nx, nu) <= GENERIC_DIM:
+        return VARIANTS.get((nx, nu), GENERIC)
+    return next((g for g in WIDE_GROUPS if max(nx, nu) <= WIDE_ROWS * g),
+                WIDE_GROUPS[-1]), False
+
+
 def lane_stride(tile: int, group: int) -> int:
     """The workspace's lane stride: ``tile`` rounded up to be = 32 / group
     (mod 32), so that a warp's threads, each on its own row, fall on 32
@@ -96,32 +119,44 @@ def fused_stage_plan(nx: int, nu: int, N: int, en_state_bound: bool,
                      batch: int, sm_count: int) -> StagePlan:
     """The launch layout of kernel K3.
 
-    The lane group and where the matrices live come from ``VARIANTS``.  The
-    tile is ``MAX_THREADS / group`` lanes, halved while two blocks do not
-    fit an SM's shared memory and while the grid would leave SMs without a
-    block, but never below one warp of threads."""
-    if nx > MAX_DIM or nu > MAX_DIM:
-        raise ValueError(f"the fused per-stage kernel takes nx, nu <= "
-                         f"{MAX_DIM}; got nx={nx}, nu={nu}")
-    group, registers = VARIANTS.get((nx, nu), GENERIC)
-    fixed = stage_floats(nx, nu, N, en_state_bound) + (
-        0 if registers else matrix_floats(nx, nu))
+    The lane group and where the matrices live come from ``lane_group``.
+    The tile is ``MAX_THREADS / group`` lanes, halved while two blocks do
+    not fit an SM's shared memory and while the grid would leave SMs
+    without a block, but never below one warp of threads.  Where a warp of
+    lanes' workspace does not fit in shared memory (a long horizon), the
+    far layout: the workspace in global memory, then (the wide variant) the
+    matrices and the per-stage terms too while the rest does not fit."""
+    group, registers = lane_group(nx, nu)
+    wide = max(nx, nu) > GENERIC_DIM
+    stage = stage_floats(nx, nu, N, en_state_bound)
+    mats = 0 if registers else matrix_floats(nx, nu)
+    vec = vec_floats(nx, nu) if wide else 0
     per_lane = lane_floats(nx, nu, N, en_state_bound)
 
-    def smem(tile):
-        return 4 * (fixed + per_lane * lane_stride(tile, group))
+    def smem(tile, far=False, sg=False, mg=False):
+        return 4 * ((0 if sg else stage) + (0 if mg else mats) + vec * tile
+                    + (0 if far else per_lane * lane_stride(tile, group)))
 
     warp = 32 // group
     tile = max(MAX_THREADS // group, warp)
     while tile > warp and 2 * smem(tile) > SMEM_PER_BLOCK:
         tile //= 2
+    far = sg = mg = False
     if smem(tile) > SMEM_PER_BLOCK:
-        raise ValueError(f"fused per-stage kernel: a horizon of {N} stages "
-                         f"of nx={nx}, nu={nu} leaves no room for a warp of "
-                         "lanes in shared memory")
+        far = True
+        tile = max(MAX_THREADS // group, warp)
+        mg = wide and smem(tile, far) > SMEM_PER_BLOCK
+        sg = smem(tile, far, False, mg) > SMEM_PER_BLOCK
+        while tile > warp and smem(tile, far, sg, mg) > SMEM_PER_BLOCK:
+            tile //= 2
+        if smem(tile, far, sg, mg) > SMEM_PER_BLOCK:
+            raise ValueError(f"fused per-stage kernel: nx={nx}, nu={nu} "
+                             "leave no room for one lane's stage vectors in "
+                             "shared memory")
     while tile > warp and -(-batch // tile) < sm_count:
         tile //= 2
-    return StagePlan(group, tile, tile * group, smem(tile), registers)
+    return StagePlan(group, tile, tile * group, smem(tile, far, sg, mg),
+                     registers, far, sg, mg)
 
 
 def _validate(args, nx, nu, N):
@@ -248,10 +283,11 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLT = ctypes.c_float
 # A, B, f, Qd, Rd, rho (pointer, value), Kinf, Quu, AmBKt, Pinf, the bounds,
-# the references, x0, the four outputs, then the sizes, settings and layout
-_ARGTYPES = ([_PTR] * 6 + [_FLT] + [_PTR] * 15 + [_INT] * 6 + [_FLT] * 2
-             + [_INT] * 6 + [_PTR])
-_OCC_ARGTYPES = [_INT] * 7 + [ctypes.POINTER(_INT)] * 3
+# the references, x0, the four outputs, the far layout's workspace and
+# per-stage terms, then the sizes, settings and layout
+_ARGTYPES = ([_PTR] * 6 + [_FLT] + [_PTR] * 17 + [_INT] * 6 + [_FLT] * 2
+             + [_INT] * 10 + [_PTR])
+_OCC_ARGTYPES = [_INT] * 8 + [ctypes.POINTER(_INT)] * 3
 
 
 @functools.cache
@@ -284,17 +320,22 @@ def _check_cuda_inputs(tensors):
 
 
 def variant_label(mangled: str) -> str | None:
-    """``nx x nu, G, registers|shared, free|box`` of a K3 instance from its
-    mangled name (``fused_stage_kernel<nx, nu, G, regs, state_free>``; nx 0
-    is the generic variant), None for another symbol."""
-    m = re.search(r"fused_stage_kernelI((?:L[ib]\d+E){5})E", mangled)
+    """``nx x nu, G, registers|shared, free|box[, far]`` of a K3 instance
+    from its mangled name (``fused_stage_kernel<nx, nu, G, regs,
+    state_free, far>``; nx 0 is the generic variant), ``wide, G,
+    free|box`` of the wide variant's (``fused_stage_wide_kernel<G,
+    state_free>``), None for another symbol."""
+    m = re.search(r"fused_stage_(wide_)?kernelI((?:L[ib]\d+E)+)E", mangled)
     if m is None:
         return None
-    nx, nu, g, regs, free = (int(v) for v in re.findall(r"L[ib](\d+)E",
-                                                          m.group(1)))
+    vals = [int(v) for v in re.findall(r"L[ib](\d+)E", m.group(2))]
+    if m.group(1):
+        g, free = vals
+        return f"wide, G={g}, {'free' if free else 'box'}"
+    nx, nu, g, regs, free, far = vals
     shape = f"{nx}x{nu}" if nx else "generic"
     return (f"{shape}, G={g}, {'registers' if regs else 'shared'}, "
-            f"{'free' if free else 'box'}")
+            f"{'free' if free else 'box'}{', far' if far else ''}")
 
 
 def stage_occupancy(plan: StagePlan, nx: int, nu: int,
@@ -305,14 +346,21 @@ def stage_occupancy(plan: StagePlan, nx: int, nu: int,
     blocks, regs, local = _INT(), _INT(), _INT()
     err = _library().tinympc_fused_stage_occupancy(
         nx, nu, plan.group, int(plan.registers), int(en_state_bound),
-        plan.tile, plan.smem, ctypes.byref(blocks), ctypes.byref(regs),
-        ctypes.byref(local))
+        int(plan.workspace_global), plan.tile, plan.smem,
+        ctypes.byref(blocks), ctypes.byref(regs), ctypes.byref(local))
     if err != 0:
         raise RuntimeError(f"fused_stage occupancy query failed: CUDA error "
                            f"{err}")
     return dict(blocks_per_sm=blocks.value,
                 warps_per_sm=blocks.value * plan.threads // 32,
                 registers=regs.value, local_bytes=local.value)
+
+
+@functools.cache
+def _occupancy(plan: StagePlan, nx, nu, en_state_bound, device) -> int:
+    """Blocks of ``plan``'s variant an SM holds at once."""
+    with torch.cuda.device(device):
+        return stage_occupancy(plan, nx, nu, en_state_bound)["blocks_per_sm"]
 
 
 def fused_cuda(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min,
@@ -323,8 +371,14 @@ def fused_cuda(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min,
     and results are those of ``fused_reference``.  One launch: the kernel
     reads the caller's tensors and ``rho`` (a float, or a 0-d tensor read on
     the card) itself.  Raises on CPU tensors, on any dtype but float32, on a
-    non-contiguous tensor, on nx or nu beyond MAX_DIM, and when the build or
-    the launch fails.  Counts every launch in ``.launches``."""
+    non-contiguous tensor, and when the build or the launch fails.  Counts
+    every launch in ``.launches``.
+
+    The far layout (``StagePlan.workspace_global``) takes a global
+    workspace of ``lane_floats`` floats for each lane slot of the grid (as
+    many blocks as the SMs hold, from the occupancy query) and, with
+    ``stage_global``, the per-stage terms computed here in the kernel's
+    layout (the same float32 products as its prologue)."""
     args = (A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min, x_max,
             u_min, u_max, Xref, Uref, x0s)
     _check_cuda_inputs(_validate(args, nx, nu, N))
@@ -344,6 +398,20 @@ def fused_cuda(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min,
         rho_ptr, rho_val = rho.data_ptr(), 0.0
     else:
         rho_ptr, rho_val = None, float(rho)
+    wsg = stg = None
+    slots = 0
+    if plan.workspace_global:  # a column for each lane slot of the grid
+        occ = _occupancy(plan, nx, nu, en_state_bound, dev)
+        tiles = min(-(-Bsz // plan.tile),
+                    max(occ, 1) * _sm_count(dev))
+        slots = tiles * plan.tile
+        wsg = torch.empty((lane_floats(nx, nu, N, en_state_bound), slots),
+                          dtype=torch.float32, device=dev)
+    if plan.stage_global:
+        terms = [-(Xref * Qd), -(Uref * Rd), u_min, u_max]
+        if en_state_bound:
+            terms += [x_min, x_max]
+        stg = torch.cat([t.reshape(-1) for t in terms])
     head = [t.data_ptr() for t in (A, B, f, Qd, Rd)]
     tail = [t.data_ptr() for t in (Kinf, Quu_inv, AmBKt, Pinf, x_min, x_max,
                                    u_min, u_max, Xref, Uref, x0s, xs, us,
@@ -351,10 +419,14 @@ def fused_cuda(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _library().tinympc_fused_stage(
-            *head, rho_ptr, rho_val, *tail, nx, nu, N, Bsz, max_iter,
-            check_termination, abs_pri_tol, abs_dua_tol, int(en_input_bound),
-            int(en_state_bound), plan.group, int(plan.registers), plan.tile,
-            plan.smem, stream)
+            *head, rho_ptr, rho_val, *tail,
+            None if wsg is None else wsg.data_ptr(),
+            None if stg is None else stg.data_ptr(), nx, nu, N, Bsz,
+            max_iter, check_termination, abs_pri_tol, abs_dua_tol,
+            int(en_input_bound), int(en_state_bound), plan.group,
+            int(plan.registers), plan.tile, plan.smem,
+            int(plan.workspace_global), slots, int(plan.stage_global),
+            int(plan.matrices_global), stream)
     if err != 0:
         raise RuntimeError(f"fused_stage kernel launch failed: CUDA error "
                            f"{err}")
