@@ -125,7 +125,9 @@ def fused_stage_plan(nx: int, nu: int, N: int, en_state_bound: bool,
     without a block, but never below one warp of threads.  Where a warp of
     lanes' workspace does not fit in shared memory (a long horizon), the
     far layout: the workspace in global memory, then (the wide variant) the
-    matrices and the per-stage terms too while the rest does not fit."""
+    matrices and the per-stage terms too while the rest does not fit.  It
+    raises only where one lane's stage vectors alone exceed a block's
+    shared memory (nx + nu above 19,370)."""
     group, registers = lane_group(nx, nu)
     wide = max(nx, nu) > GENERIC_DIM
     stage = stage_floats(nx, nu, N, en_state_bound)
