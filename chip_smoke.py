@@ -235,11 +235,13 @@ Phases (one line each; any failure exits non-zero):
      of tests/test_examples.py, each with its CPU test's assertion (the
      swing-up with --no-gif, the codegen projects into a temporary
      directory), each timed;
- 34. K1 at maps wider than a tile of 32 lanes' w2 leaves room for, each
-     against its plain version: (a) the quadrotor at N = 150 (sw 2,396) on
-     tiles of 16 lanes, B = 8,192, 100 iterations, alpha 1.7, ct 1, |u|
-     <= 0.5; (b) the same with a 32-iteration bf16 head (K1c; the plan
-     takes w2 in global memory there); (c) the group grid (K1d) on 8
+ 34. K1 at maps wider than a tile's w2 in shared memory leaves room for,
+     with w2 in global memory, each against its plain version: (a) the
+     quadrotor at N = 150 (sw 2,396), B = 8,192, 100 iterations, alpha
+     1.7, ct 1, |u| <= 0.5, and the widest map whose plan keeps w2 in
+     shared memory (N = 99) on its plan and forced onto w2 in global
+     memory, bit-equal, both timed; (b) the same with a 32-iteration bf16
+     head (K1c); (c) the group grid (K1d) on 8
      quadrotors randomised as models/sweeps.py draws them (seed 4), built
      at N = 150, x 1,024 lanes; (d) the quadrotor at N = 387 (sw 6,188,
      the JAX package's condensed budget) with w2 in global memory, B =
@@ -249,17 +251,26 @@ Phases (one line each; any failure exits non-zero):
      213, B = 2,048, 150 iterations, the termination controller, rho0 5,
      trust 2) and its OSQP-form controller on the 20-state chain (10 unit
      masses on unit springs, nx 20, nu 9, N = 20, B = 4,096, 150
-     iterations), each against its plain version, rho included;
+     iterations), each against its plain version, rho included; at N =
+     213 the lanes with equal counts that did not solve, the kernel's and
+     the fp32 plain version's distance from the plain version in float64;
+     at N = 90 (both products in passes) the plan's tiles of 16 lanes and
+     the global iterates forced on the same launch, fp32 and
+     precision='default' at ct 5, bit-equal;
  36. K1e on the chain: a state stage of 20 entries with 10 cones of dim 2
      (mu 0.5), 4 halfspace rows and the state box, B = 16,384, 200
-     iterations (the lanes do not converge: every lane compared);
+     iterations (the lanes do not converge: every lane compared), the
+     stages projected in each thread's buffer in shared memory, and forced
+     into the global scratch, bit-equal, both timed;
  37. K3's wide variant on the chain (lane groups of 8, B = 16,384, 200
      iterations) and its far layout (the workspace in global memory) on
      the quadrotor at N = 300 without and with |x| <= 2 (B = 16,384, 100
      iterations), each against its plain version, and the far layout
      forced at N = 173 with |x| <= 2, bit-equal to the near one;
      phases 34-37 hold each case to the bar below, counted on every lane
-     with equal counts and flags (solved or not), and print the kernel's
+     with equal counts and flags (solved or not; K2's values on those
+     that solved, the max over all of them printed beside it), and print
+     the kernel's
      median of 3 after a warm-up, the plain version's (its one comparison
      run where it takes seconds), the launches of the first run and the
      bound;
@@ -2993,6 +3004,8 @@ def lifted_agreement(name, out_k, out_p, rho=False):
     same = (out_k[2] == out_p[2]) & (out_k[3] == out_p[3])
     B = same.numel()
     frac = same.float().mean().item()
+    every = max(((out_k[j] - out_p[j]).abs()[same].max().item()
+                 if bool(same.any()) else 0.0) for j in (0, 1))
     if rho:
         same = same & (out_k[3] == 1)
     err = max(((out_k[j] - out_p[j]).abs()[same].max().item()
@@ -3003,7 +3016,8 @@ def lifted_agreement(name, out_k, out_p, rho=False):
     print(f"{name}: solved kernel {nk}/{B}, plain {npl}; counts and flags "
           f"equal on {round(frac * B)}/{B} lanes ({frac:.4f}); max |diff| on "
           f"{int(same.sum())} of them {err:.3e}"
-          + (f" (solved), rho rel. diff {rho_err:.3e}" if rho else "")
+          + (f" (solved), rho rel. diff {rho_err:.3e}; on every lane with "
+             f"equal counts {every:.3e}" if rho else "")
           + f"; lanes that differ at all {lanes_differ(out_k, out_p)}",
           flush=True)
     check(frac >= ITERS_AGREE, f"{name}: counts agree on {frac:.4f} < "
@@ -3029,6 +3043,7 @@ def lifted_shape_phases(card):
     from tinympc_julia_tpu_torch.ops.cuda import fused as K3
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.types import stack_instances
+    from unittest import mock
 
     dev, f32 = torch.device("cuda"), torch.float32
     k1, k2, k3 = (K.condensed_fused_cuda, K2.condensed_adaptive_cuda,
@@ -3160,6 +3175,8 @@ def lifted_shape_phases(card):
                      dict(bf16_head_iters=32))):
         full = k1_kw(p, **kw)
         plan = K.fused_tile_plan(12, 4, N34, bool(kw))
+        check(plan.w2_global, f"phase {tag[:3]}: the plan did not take "
+              "global w2")
         label = (f"phase {tag}, quadrotor N={N34} (sw={sw}), B={B34}, 100 "
                  f"iterations, alpha 1.7, ct 1, |u| <= 0.5: {layout(plan)}")
         out_k, _, err, n_l, t_k, t_p = run_case(
@@ -3176,27 +3193,36 @@ def lifted_shape_phases(card):
         row(f"condensed_fused (K1{'c' if kw else ''}), quadrotor N={N34} "
             f"(sw {sw}): {layout(plan)}", n_l, err, t_k, t_p, b, k1_src,
             k1_rep)
-        if kw:
-            continue
-        # the same launch forced onto the other wide layout, w2 in global
-        # memory: the same bits, and its time beside the 16-lane tile's
-        from unittest import mock
-        npass = -(-sw // 512)
-        g_plan = K.TilePlan(32, K.THREADS, False, False, npass * 512,
-                            plan.kp, K.tile_smem(sw, npass * 512, plan.kp, 0,
-                                                 False, False, npass, 32,
-                                                 True), npass, True)
-        with mock.patch.object(K, "fused_tile_plan", lambda *a: g_plan):
-            f_g = functools.partial(k1, *args, **full)
-            out_g = f_g()
-            exact = all(torch.equal(a, b2) for a, b2 in zip(out_g, out_k))
-            f_g()
-            t_g = float(np.median([event_ms(f_g) for _ in range(3)]))
-        print(f"phase 34a the same launch with w2 in global memory (tile 32 "
-              f"lanes, 32 rows a thread, {npass} passes): bit-equal {exact}; "
-              f"{t_g:.3f} ms beside the 16-lane tile's {t_k:.3f} ms",
-              flush=True)
-        check(exact, "phase 34a: the two wide layouts differ")
+    # the widest map whose plan keeps w2 in shared memory (N = 99, sw 1,580,
+    # in passes of 128 rows) on its plan and forced onto w2 in global
+    # memory: the same bits, and the two times (where the plan's switch
+    # pays)
+    p99, c99 = quad(99)
+    m99 = build_condensed(p99, c99)
+    sw99 = m99.T12.shape[0]
+    args99 = (m99, float(c99.rho), p99.u_min, p99.u_max, p99.x_min,
+              p99.x_max, x0, None)
+    f99 = functools.partial(k1, *args99, **k1_kw(p99))
+    plan99 = K.fused_tile_plan(12, 4, 99)
+    check(not plan99.w2_global, "phase 34a: N = 99 took global w2")
+    out_s = f99()
+    f99()
+    t_s = float(np.median([event_ms(f99) for _ in range(3)]))
+    npass = -(-sw99 // 512)
+    g_plan = K.TilePlan(32, K.THREADS, False, False, npass * 512, plan99.kp,
+                        K.tile_smem(sw99, npass * 512, plan99.kp, 0, False,
+                                    False, npass, True), npass, True)
+    with mock.patch.object(K, "fused_tile_plan", lambda *a: g_plan):
+        out_g = f99()
+        exact = all(torch.equal(a, b2) for a, b2 in zip(out_g, out_s))
+        f99()
+        t_g = float(np.median([event_ms(f99) for _ in range(3)]))
+    print(f"phase 34a quadrotor N=99 (sw={sw99}), B={B34}, 100 iterations: "
+          f"its plan ({layout(plan99)}) {t_s:.3f} ms; forced onto w2 in "
+          f"global memory ({npass} passes of 512 rows) {t_g:.3f} ms; "
+          f"bit-equal {exact}", flush=True)
+    check(exact, "phase 34a: the two layouts at N = 99 differ")
+    del m99, args99, f99
 
     # 34c: the group grid on G = 8 randomised plants (models/sweeps.py's
     # draws, seed 4) built at N = 150
@@ -3301,7 +3327,7 @@ def lifted_shape_phases(card):
                     adaptive_rho_clipping=True, check_termination=1,
                     controller="termination", taylor_trust=2.0,
                     warm_start=False, carry_out=False)
-        out_k, _, err, n_l, t_k, t_p = run_case(
+        out_k, out_p, err, n_l, t_k, t_p = run_case(
             f"phase 35a K2, quadrotor N={N35} (sw={tm.T1s.shape[-2]}), "
             f"B=2048, 150 iterations, termination controller, rho0 5, trust "
             f"2: tile {plan.tile} lanes, {plan.rpt} rows a thread, passes "
@@ -3319,7 +3345,76 @@ def lifted_shape_phases(card):
             row(f"condensed_adaptive (K2), quadrotor N={N35} (sw "
                 f"{tm.T1s.shape[-2]}): iterates in global memory", n_l, err,
                 t_k, t_p, b, k2_src, k2_rep)
+            # the lanes with equal counts that did not solve, each fp32 run
+            # against the plain version in float64 on the same problem
+            p64 = make_problem(quadrotor.A, quadrotor.B,
+                               np.diag(quadrotor.Q_DIAG),
+                               np.diag(quadrotor.R_DIAG), quadrotor.RHO,
+                               N35, u_min=-0.5, u_max=0.5,
+                               dtype=torch.float64, device=dev)
+            c64 = precompute_cache(p64.A, p64.B, p64.Q, p64.R, p64.rho_setup)
+            args64 = (build_condensed_taylor(p64, c64), p64.u_min, p64.u_max,
+                      p64.x_min, p64.x_max, args[5].double(), None)
+            out64 = K2.condensed_adaptive_reference(*args64, **full)
+            open_ = ((out_k[2] == out_p[2]) & (out_k[3] == 0)
+                     & (out_p[3] == 0))
+            d_k, d_p = (max(float((o[j].double() - out64[j]).abs()[open_]
+                                  .max()) if bool(open_.any()) else 0.0
+                            for j in (0, 1))
+                        for o in (out_k, out_p))
+            print(f"phase 35a N={N35}: on the {int(open_.sum())} lanes with "
+                  f"equal counts that did not solve, max |diff| from the "
+                  f"float64 plain version: kernel {d_k:.3e}, fp32 plain "
+                  f"{d_p:.3e}; lanes where float64 also has not solved "
+                  f"{int((open_ & (out64[3] == 0)).sum())}", flush=True)
+            check(d_k <= 2.0 * d_p + ATOL, f"phase 35a N={N35}: the kernel "
+                  "strays from float64 further than the fp32 plain version")
+            del args64, out64
         del tm, args
+
+    # the global iterates against the 16-lane tile on the same launch at N =
+    # 90 (sw 1,436: both products in passes), fp32 and with the reduced
+    # products of the iterations that neither check nor predict rho: the
+    # same bits, whatever order cuBLAS sums in
+    N90 = 90
+    p, c = quad(N90)
+    tm = build_condensed_taylor(p, c)
+    args = (tm, p.u_min, p.u_max, p.x_min, p.x_max,
+            uniform(2048, 12, 39, 0.3), None)
+    su, sw = 4 * (N90 - 1), 16 * N90 - 4
+    W = K2.K2_GLOBAL_RPT * 2 * K2.THREADS // 32
+    p1, p2 = -(-sw // W), -(-4 * su // W)
+    for tag, kw in (("fp32", {}), ("precision='default' at ct=5",
+                                   dict(precision="default",
+                                        check_termination=5))):
+        lo = bool(kw)
+        own_plan = K2.adaptive_tile_plan(12, 4, N90, 2, lo)
+        check(not own_plan.iterates_global, "phase 35a: N = 90 took the "
+              "global iterates")
+        g_plan = K2.AdaptivePlan(
+            32, K2.THREADS, K2.K2_GLOBAL_RPT, p1, p2, False, False,
+            K2._kp(su + 13), K2._kp(sw + 1),
+            K2.adaptive_smem(12, 4, N90, 2, 32, K2.K2_GLOBAL_RPT, p1, p2,
+                             False, False, lo, True, True), True)
+        f90 = functools.partial(k2, *args, **dict(full, N=N90, **kw))
+        out_s = f90()
+        t_s = float(np.median([event_ms(f90) for _ in range(3)]))
+        with mock.patch.object(K2, "adaptive_tile_plan", lambda *a, **k:
+                               g_plan):
+            out_g = f90()
+            t_g = float(np.median([event_ms(f90) for _ in range(3)]))
+        torch.cuda.synchronize()
+        exact = all(torch.equal(a, b2) for a, b2 in zip(out_g[:5],
+                                                         out_s[:5]))
+        print(f"phase 35a quadrotor N={N90} (sw={sw}), B=2048, 150 "
+              f"iterations, {tag}: tiles of {own_plan.tile} lanes (passes "
+              f"{own_plan.passes1} / {own_plan.passes2}) {t_s:.3f} ms "
+              f"against the global iterates forced (passes {p1} / {p2}) "
+              f"{t_g:.3f} ms: bit-equal {exact}, solved "
+              f"{int(out_s[3].sum())}", flush=True)
+        check(exact, f"phase 35a N={N90} {tag}: the global iterates differ "
+              "from the 16-lane tile")
+    del tm, args
 
     p, c = chain(20)
     tm = build_condensed_taylor(p, c)
@@ -3374,9 +3469,33 @@ def lifted_shape_phases(card):
               tensor_bytes(m.T12, m.T1, *args[2:7], out_k[:4]))
     print(f"phase 36 timing: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, {n_l} "
           f"launch(es), bound {b[0]:.4f} ms by {b[1]}", flush=True)
+    smem36, shared36 = K.launch_smem(K.fused_tile_plan(20, 9, 20,
+                                                       state_free=False),
+                                     20, 0)
+    check(shared36, "phase 36: the stage buffers did not fit")
     row("condensed_fused projections (K1e), a stage of 20 entries with 10 "
-        "cones and 4 halfspaces (20-state chain)", n_l, err, t_k, t_p, b,
-        k1_src, "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:127")
+        "cones and 4 halfspaces (20-state chain), stage buffers in shared "
+        f"memory ({smem36} bytes)", n_l, err, t_k, t_p, b, k1_src,
+        "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:127")
+    # the same launch with the stages projected in the global scratch (the
+    # layout of a stage that leaves no room in shared memory): the same bits
+    with mock.patch.object(K, "launch_smem", lambda plan, *d: (plan.smem,
+                                                               False)):
+        k1.projected_launches = 0
+        out_g = fk(*args)
+        torch.cuda.synchronize()
+        n_g = k1.projected_launches
+        exact = all(torch.equal(a, b2) for a, b2 in zip(out_g, out_k))
+        fk(*args)
+        t_g = float(np.median([event_ms(lambda: fk(*args))
+                               for _ in range(3)]))
+    print(f"phase 36 the same launch with the stages in the global scratch: "
+          f"bit-equal {exact}, {n_g} launch(es), {t_g:.3f} ms beside the "
+          f"shared buffers' {t_k:.3f} ms", flush=True)
+    check(exact and n_g >= 1, "phase 36: the global scratch differs")
+    row("condensed_fused projections (K1e), the same with the stages in "
+        "the global scratch (forced)", n_g, err, t_g, t_p, b, k1_src,
+        "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:127")
 
     # -- phase 37: K3's wide variant and its far layout -----------------------
     def k3_case(tag, p, c, x0, budget, box):
@@ -3428,7 +3547,6 @@ def lifted_shape_phases(card):
     # the far layout against the near one where both run: the widest
     # quadrotor horizon whose workspace fits a warp of lanes with |x| <= 2
     # (N = 173), the far plan forced; the same bits
-    from unittest import mock
     p, c = quad(173, x_bound=2.0)
     x0 = uniform(16384, 12, 41, 0.3)
     args = (p.A, p.B, p.f, p.Q, p.R, c.rho, c.Kinf, c.Quu_inv, c.AmBKt,

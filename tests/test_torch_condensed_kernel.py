@@ -220,15 +220,16 @@ def test_tile_plan_for_wide_maps():
     assert K.fused_tile_plan(12, 4, 40).rpt == 20
     lo = K.fused_tile_plan(12, 4, 57, reduced=True)
     assert (lo.passes, lo.rpt) == (8, 8)
-    # the widest maps a tile of 32 lanes leaves room for (sw 1,580 in fp32,
-    # 1,052 with reduced iterations); one stage further, tiles of 16 lanes
-    # (32 thread rows of 8 rows each) with the same w2 in shared memory
-    assert K.fused_tile_plan(12, 4, 99).tile == 32
-    assert K.fused_tile_plan(12, 4, 66, reduced=True).tile == 32
+    # the widest maps a tile leaves room for w2 in shared memory (sw 1,580
+    # in fp32, 1,052 with reduced iterations); one stage further, w2 in
+    # global memory streamed beside the map, 32 rows a thread in passes of
+    # 512 rows
+    assert not K.fused_tile_plan(12, 4, 99).w2_global
+    assert not K.fused_tile_plan(12, 4, 66, reduced=True).w2_global
     for N_, reduced in ((100, False), (67, True)):
         p = K.fused_tile_plan(12, 4, N_, reduced)
-        assert (p.tile, p.w2_global, p.rpt) == (16, False, 8)
-        assert p.rows == p.passes * K.row_groups(16) * 8 >= 16 * N_ - 4
+        assert (p.tile, p.w2_global, p.rpt) == (32, True, K.W2_GLOBAL_RPT)
+        assert p.rows == p.passes * K.TILE_ROW_GROUPS * 32 >= 16 * N_ - 4
         assert p.smem <= K.SMEM_PER_BLOCK
 
 
@@ -405,6 +406,29 @@ def test_constraint_options_are_checked():
     # a stage of 16 entries is projected where it lies, in the scratch
     args = K._side_args(wide.lin_x, wide.cones_x, 16, "state")
     assert args[1] == 0 and args[4] == 1 and args[2] is not None
+
+
+@pytest.mark.parametrize("shape,dims,shared", [
+    ((6, 3, 10, False), (6, 3), True),     # the rocket's cones
+    ((4, 1, 20, False), (4, 0), True),     # the cartpole's halfspaces
+    ((20, 9, 20, False), (20, 9), True),   # the chain's 10 cones
+    ((12, 4, 20, True), (0, 4), True),     # input cones beside free states
+    ((12, 4, 20, False), (12, 0), False),  # the state dual fills the block
+    ((12, 4, 6, False), (0, 0), False),    # box only: no buffers
+], ids=["rocket", "cartpole", "chain", "quadrotor-input",
+        "quadrotor-state", "box"])
+def test_projected_stages_take_shared_buffers_where_they_fit(shape, dims,
+                                                             shared):
+    """A launch with halfspaces or cones projects each stage in a buffer of
+    each thread's own, as wide as the widest projected stage, after the
+    plan's layout in shared memory where it fits (the plan itself does not
+    change), and in the lanes' rows of a global scratch where it does
+    not."""
+    plan = K.fused_tile_plan(*shape[:3], state_free=shape[3])
+    smem, in_shared = K.launch_smem(plan, *dims)
+    assert in_shared == shared
+    assert smem == plan.smem + (4 * K.THREADS * max(dims) if shared else 0)
+    assert smem <= K.SMEM_PER_BLOCK
 
 
 # -- K1d: the group grid -----------------------------------------------------
@@ -855,8 +879,9 @@ def _quad_solver(solver, horizon, **settings):
 
 
 def test_wide_map_solve_batch_matches_jax():
-    """The quadrotor at N = 110 (sw 1,756), wider than a tile of 32 lanes'
-    w2 leaves room for (the card runs tiles of 16 lanes there): JAX's
+    """The quadrotor at N = 110 (sw 1,756), wider than a tile's w2 in
+    shared memory leaves room for (the card keeps w2 in global memory
+    there): JAX's
     ``solve_batch(method="fused")`` (the Pallas kernel in interpret mode
     off the TPU) against the port's on the CPU (the plain version), f32,
     B = 8, 20 iterations, both from the JAX side's f32 cache: the same
@@ -865,7 +890,7 @@ def test_wide_map_solve_batch_matches_jax():
     import tinympc_julia_tpu as J
     import tinympc_julia_tpu_torch as P
     horizon = 110
-    assert K.fused_tile_plan(12, 4, horizon).tile == 16
+    assert K.fused_tile_plan(12, 4, horizon).w2_global
     settings = dict(max_iter=20, relaxation_alpha=1.7)
     js = _quad_solver(J.TinyMPCSolver(dtype=jnp.float32), horizon, **settings)
     ps = _quad_solver(P.TinyMPCSolver(dtype=torch.float32, device="cpu"),

@@ -1360,25 +1360,20 @@ def _chain_x0(B, seed, dev):
         (B, 20)), dtype=torch.float32, device=dev)
 
 
-@pytest.mark.parametrize("horizon,kw,layout", [
-    (110, dict(max_iter=100), "tile16"),
-    (110, dict(max_iter=100, bf16_head_iters=32, check_termination=4),
-     "tile16"),
-    (200, dict(max_iter=60), "w2-global"),
-    (200, dict(max_iter=60, bf16_head_iters=16, check_termination=4),
-     "w2-global"),
-], ids=["tile16-fp32", "tile16-head32", "w2-global-fp32",
-        "w2-global-head16"])
-def test_wide_map_layouts_match_plain_version(dev, horizon, kw, layout):
-    """K1 on maps too wide for a tile of 32 lanes' w2 in shared memory: the
-    quadrotor at N = 110 (sw 1,756) on tiles of 16 lanes, and at N = 200
-    (sw 3,196) with w2 in global memory streamed beside the map; fp32 and
-    with a reduced head; the carry too."""
+@pytest.mark.parametrize("horizon,kw", [
+    (110, dict(max_iter=100)),
+    (110, dict(max_iter=100, bf16_head_iters=32, check_termination=4)),
+    (200, dict(max_iter=60)),
+    (200, dict(max_iter=60, bf16_head_iters=16, check_termination=4)),
+], ids=["n110-fp32", "n110-head32", "n200-fp32", "n200-head16"])
+def test_wide_map_layouts_match_plain_version(dev, horizon, kw):
+    """K1 on maps too wide for a tile's w2 in shared memory: the quadrotor
+    at N = 110 (sw 1,756) and N = 200 (sw 3,196) with w2 in global memory
+    streamed beside the map; fp32 and with a reduced head; the carry too."""
     p, c = _quad(horizon, dev)
     reduced = "bf16_head_iters" in kw
     plan = K.fused_tile_plan(12, 4, horizon, reduced)
-    assert (plan.tile, plan.w2_global) == {
-        "tile16": (16, False), "w2-global": (32, True)}[layout]
+    assert (plan.tile, plan.w2_global) == (32, True)
     x0 = _x0(300, 12, 3, 0.3, dev)  # a ragged last tile
     args = (build_condensed(p, c), float(c.rho), p.u_min, p.u_max, p.x_min,
             p.x_max, x0, None)
@@ -1395,7 +1390,7 @@ def test_wide_map_layouts_match_plain_version(dev, horizon, kw, layout):
                 / b[:, same].abs().clamp(min=1.0)).max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("horizon", [110, 200], ids=["tile16", "w2-global"])
+@pytest.mark.parametrize("horizon", [110, 200], ids=["n110", "n200"])
 def test_wide_map_warm_chain_and_groups(dev, horizon):
     """The wide layouts' carry (K1b: two chained launches equal one, bit for
     bit) and group grid (K1d: two groups of their own rho and bound)."""
@@ -1453,6 +1448,50 @@ def test_wide_stages_and_many_cones_match_plain_version(dev):
         abs_dua_tol=1e-3, en_input_bound=True, check_termination=1,
         warm_start=False, **fn_kw)
     _counts_and_values_agree(k, r)
+
+
+@pytest.mark.parametrize("case", ["chain", "rocket"])
+def test_k1e_stage_buffers_agree_bit_for_bit(dev, monkeypatch, case):
+    """K1e projects a stage in a buffer of each thread's own in shared
+    memory where it fits and in the lanes' rows of a global scratch where
+    it does not: the 20-state chain (10 state cones, 4 halfspace rows, an
+    input cone) and the rocket (its input and state cones), launched on
+    their shared buffers and forced onto the global scratch, give the same
+    bits, carry included."""
+    if case == "chain":
+        Nc, nx, nu = 8, 20, 9
+        p, c = _chain(Nc, dev, x_bound=3.0)
+        m = build_condensed(p, c)
+        rng = np.random.default_rng(11)
+        cons = K.fused_constraints(
+            soc_x=tuple((2 * j, 2, 0.5) for j in range(10)),
+            lin_x=(rng.normal(size=(4, 20)), np.full(4, 5.0)),
+            soc_u=((0, 9, 2.0),), nx=nx, nu=nu, dtype=torch.float32,
+            device=dev)
+        x0 = _chain_x0(500, 12, dev)
+    else:
+        Nc, nx, nu = rocket.HORIZON, 6, 3
+        s = _rocket(dev)
+        p, c = s.problem, s.cache
+        m = build_condensed(p, c)
+        cons = K.fused_constraints(**K.problem_constraint_kw(p, s.settings),
+                                   nx=nx, nu=nu, dtype=torch.float32,
+                                   device=dev)
+        x0 = _rocket_x0(500, dev)
+    args = (m, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max, x0, None)
+    kw = _kw(nx, nu, N=Nc, max_iter=80, en_state_bound=True,
+             constraints=cons)
+    plan = K.fused_tile_plan(nx, nu, Nc, state_free=False)
+    assert K.launch_smem(plan, nx, nu)[1]
+    own = K.condensed_fused_cuda(*args, **kw)
+    monkeypatch.setattr(K, "launch_smem",
+                        lambda plan, *dims: (plan.smem, False))
+    forced = K.condensed_fused_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(own[:4], forced[:4]):
+        assert torch.equal(a, b)
+    for a, b in zip(own[4], forced[4]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("horizon,kw", [
@@ -1563,27 +1602,29 @@ def _forced(monkeypatch, module, name, plan):
     monkeypatch.setattr(module, name, lambda *a, **k: plan)
 
 
-@pytest.mark.parametrize("layout", ["tile16", "w2-global"])
+@pytest.mark.parametrize("horizon", [20, 60], ids=["n20", "n60"])
 @pytest.mark.parametrize("reduced", [False, True], ids=["fp32", "head8"])
-def test_k1_layouts_agree_bit_for_bit(dev, monkeypatch, layout, reduced):
+def test_k1_layouts_agree_bit_for_bit(dev, monkeypatch, horizon, reduced):
     """A lane's result does not depend on its layout: the quadrotor at N =
-    20, launched on its own plan and forced onto tiles of 16 lanes or onto
-    w2 in global memory, gives the same bits (every product sums in index
-    order, the reduced one in the tensor cores' order), carry included."""
-    p, c = _quad(20, dev)
+    20 (one pass) and N = 60 (sw 956, two passes), launched on its own
+    plan (w2 in shared memory) and forced onto w2 in global memory, gives
+    the same bits (every product sums in index order, the reduced one in
+    the tensor cores' order), carry included."""
+    p, c = _quad(horizon, dev)
     args = (build_condensed(p, c), float(c.rho), p.u_min, p.u_max, p.x_min,
             p.x_max, _x0(301, 12, 18, 0.3, dev), None)
     kw = dict(bf16_head_iters=8, check_termination=4) if reduced else {}
-    full = _kw(12, 4, max_iter=120, relaxation_alpha=1.7, **kw)
+    full = _kw(12, 4, N=horizon, max_iter=120, relaxation_alpha=1.7, **kw)
+    assert not K.fused_tile_plan(12, 4, horizon, reduced).w2_global
     own = K.condensed_fused_cuda(*args, **full)
-    sw, kp = 316, 320
-    tile, wg = (16, False) if layout == "tile16" else (32, True)
-    width = K.row_groups(tile) * (8 if tile == 16 else K.W2_GLOBAL_RPT)
+    sw = 16 * horizon - 4
+    kp = -(-sw // K.KP_ALIGN) * K.KP_ALIGN
+    width = K.TILE_ROW_GROUPS * K.W2_GLOBAL_RPT
     npass = -(-sw // width)
     rows = npass * width
-    plan = K.TilePlan(tile, K.THREADS, False, False, rows, kp,
+    plan = K.TilePlan(32, K.THREADS, False, False, rows, kp,
                       K.tile_smem(sw, rows, kp, 0, False, reduced, npass,
-                                  tile, wg), npass, wg)
+                                  True), npass, True)
     _forced(monkeypatch, K, "fused_tile_plan", plan)
     forced = K.condensed_fused_cuda(*args, **full)
     torch.cuda.synchronize()
@@ -1593,26 +1634,33 @@ def test_k1_layouts_agree_bit_for_bit(dev, monkeypatch, layout, reduced):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("horizon", [20, 80], ids=["n20", "n80"])
 @pytest.mark.parametrize("kw", [{}, dict(precision="default",
                                           check_termination=5)],
                          ids=["fp32", "default"])
-def test_k2_global_iterates_agree_bit_for_bit(dev, monkeypatch, kw):
-    """K2 at the quadrotor's N = 20 on its own plan and forced onto tiles
-    of 32 lanes with the iterates in global memory: the same bits."""
-    p, c = _quad(20, dev)
+def test_k2_global_iterates_agree_bit_for_bit(dev, monkeypatch, kw, horizon):
+    """K2 at the quadrotor's N = 20 (tiles of 32 lanes, one pass each
+    product) and N = 80 (sw 1,276: tiles of 16 lanes, both products in
+    passes) on its own plan and forced onto tiles of 32 lanes with the
+    iterates in global memory, streamed in passes: the same bits, 150
+    iterations, fp32 and with the reduced products of the iterations that
+    neither check nor predict rho."""
+    p, c = _quad(horizon, dev)
     args = (build_condensed_taylor(p, c), p.u_min, p.u_max, p.x_min,
             p.x_max, _x0(301, 12, 19, 0.3, dev), None)
     full = _k2_kw(p, c, **dict(_QUAD_KW, max_iter=150, **kw))
+    lo = "precision" in kw
+    assert not K2.adaptive_tile_plan(12, 4, horizon, 2, lo).iterates_global
     own = K2.condensed_adaptive_cuda(*args, **full)
-    su, sw = 76, 316
+    su, sw = 4 * (horizon - 1), 16 * horizon - 4
     rpt = K2.K2_GLOBAL_RPT
     W = rpt * 2 * K2.THREADS // 32
     p1, p2 = -(-sw // W), -(-4 * su // W)
-    lo = "precision" in kw
     plan = K2.AdaptivePlan(32, K2.THREADS, rpt, p1, p2, False, False,
                            K2._kp(su + 13), K2._kp(sw + 1),
-                           K2.adaptive_smem(12, 4, 20, 2, 32, rpt, p1, p2,
-                                            False, False, lo, True, True),
+                           K2.adaptive_smem(12, 4, horizon, 2, 32, rpt, p1,
+                                            p2, False, False, lo, True,
+                                            True),
                            True)
     _forced(monkeypatch, K2, "adaptive_tile_plan", plan)
     forced = K2.condensed_adaptive_cuda(*args, **full)

@@ -690,10 +690,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const LaneState st = lane_state<T>(p, t, l);
     float* wsc = p.wsc ? p.wsc + lane : nullptr;
     const SidePass su_p{&p.side_u, t.ux + l, st.z, st.y, nullptr,
-                        p.zco + lane, st.stride, t.bs, wsc, B};
+                        p.zco + lane, st.stride, t.bs, wsc, B,
+                        p.side_u.dim * B};
     const SidePass sx_p{&p.side_x, t.ux + l + su * t.bs, st.v, st.g,
                         nullptr, p.vco + lane, st.stride, t.bs,
-                        wsc ? wsc + su * B : nullptr, B};
+                        wsc ? wsc + su * B : nullptr, B, p.side_x.dim * B};
     const float rb = rho_b[l];
     float rho_new = rb;
     bool newly = false;

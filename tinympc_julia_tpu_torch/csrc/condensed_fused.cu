@@ -44,13 +44,13 @@
 //  * The tile's w2 lives in shared memory as [row][lane], a single buffer:
 //    after a barrier the product overwrites it (latched lanes keep theirs),
 //    and the elementwise step adds uxc and turns ux into the next w2 in
-//    place.  A map too wide for 32 lanes' w2 beside the ring runs tiles of
-//    16 lanes (T, 32 thread rows); one too wide for those keeps each
+//    place.  A map too wide for the tile's w2 beside the ring keeps each
 //    tile's w2 in its own columns of a global (sw, tiles x 32) array
 //    (kWG), whose k-rows stream through the ring slots beside the map's
 //    (tile_gemm.cuh), so the block's shared memory no longer grows with
 //    the width; with reduced iterations w2 is rounded once an iteration
-//    into the tile's rows of a global bf16 array and streamed the same way.  A latched lane's carry is its state before its latching
+//    into the tile's rows of a global bf16 array and streamed the same
+//    way.  A latched lane's carry is its state before its latching
 //    iteration: with carry_out, every checking iteration copies the tile's
 //    w2 to w2_out before the product, a latching lane writes its slacks'
 //    old values as the carry's v/z, and lanes that never latch write their
@@ -92,11 +92,11 @@
 //    of its iterate and a true residual.  The head checks only on its last
 //    iteration.
 //
-// Launch contract: the Python wrapper (fused_tile_plan) picks the tile and
-// the rows a thread (32 lanes with 8, 20 or 32; 16 lanes with 8; 32 lanes
-// with w2 in global memory and 32: the instances), the passes, the padded
-// layouts (swp = passes x 512 RPT / tile rows of the transposed map; kp
-// columns of the bf16 map), whether the map and the state are resident
+// Launch contract: the Python wrapper (fused_tile_plan) picks the rows a
+// thread (8, 20 or 32 with w2 in shared memory, 32 with w2 in global
+// memory: the instances), the passes, the padded layouts (swp = passes x
+// 16 RPT rows of the transposed map; kp columns of the bf16 map), whether
+// the map and the state are resident
 // and the dynamic shared-memory size; the entry point refuses a layout the
 // kernel would overrun and a constraint set whose arrays are missing (the
 // wrapper checks the cones' extents).
@@ -109,6 +109,9 @@
 namespace {
 
 using namespace tinympc;
+
+constexpr int kLaneThreads = Lanes<kTile>::kLaneThreads;  // threads a lane: 8
+constexpr int kRowGroups = Lanes<kTile>::kRowGroups;  // product rows: 16
 
 struct Params {
   // the maps, with a leading group axis where map_grouped
@@ -138,8 +141,8 @@ struct Params {
   float* zco;         // (su, B)
   float* park;        // (sw, B) the sums of all but the last pass; null
                       // with one pass
-  float* wsc;         // (sw, B) the projection scratch; null without
-                      // linear or cone constraints
+  float* wsc;         // (sw, B) the projection scratch where the stage
+                      // buffers leave no room in shared memory; else null
   float* w2g;         // (sw, ldg) the tiles' w2 in global memory (kWG)
   __nv_bfloat16* w2hg;  // (ldg, kp) its bf16 rounding (kWG, reduced)
   int nx, su, sx, sw, swp, kp, B, L;  // B = G * L lanes, L in each group
@@ -170,9 +173,9 @@ __host__ __device__ inline int state_rows(int su, int sx, int sw,
   return sw + 2 * su + (state_free ? 1 : 2) * sx;
 }
 
-// Byte offsets of the block's shared memory for a tile of T lanes: the
-// tile's w2 (sw x T floats; none with wg, where it lives in global
-// memory), the latch flags (T + 1 ints), the residual partials of the
+// Byte offsets of the block's shared memory: the tile's w2 (sw x kTile
+// floats; none with wg, where it lives in global memory), the latch flags
+// (kTile + 1 ints), the residual partials of the
 // lanes' threads (kThreads float4), the lanes' solver state where it is
 // resident ([row][lane]), the map region (resident: the fp32 map, then the
 // bf16 one with reduced iterations; streamed: the slab ring of a pass of W
@@ -183,40 +186,40 @@ struct TileLayout {
   size_t flags, red, state, map, maplo, w2h, total;
 };
 
-__host__ __device__ inline TileLayout tile_layout(int T, bool wg, int sw,
+__host__ __device__ inline TileLayout tile_layout(bool wg, int sw,
                                                   int swp, int W, int kp,
                                                   int state_floats,
                                                   bool resident,
                                                   bool reduced) {
   TileLayout t;
-  size_t off = wg ? 0 : up16(sizeof(float) * static_cast<size_t>(sw) * T);
+  size_t off = wg ? 0 : up16(sizeof(float) * static_cast<size_t>(sw) * kTile);
   t.flags = off;
-  off += up16(sizeof(int) * (T + 1));
+  off += up16(sizeof(int) * (kTile + 1));
   t.red = off;
   off += up16(sizeof(float) * 4 * kThreads);
   t.state = off;
-  off += up16(sizeof(float) * static_cast<size_t>(state_floats) * T);
+  off += up16(sizeof(float) * static_cast<size_t>(state_floats) * kTile);
   t.map = off;
   if (resident) {
     off += up16(sizeof(float) * static_cast<size_t>(sw) * swp);
     t.maplo = off;
     if (reduced) off += up16(2 * static_cast<size_t>(swp) * (kp + kPadLo));
   } else {
-    const int wt = wg ? T : 0;
+    const int wt = wg ? kTile : 0;
     size_t ring = ring_bytes(W, false, wt);
     if (reduced && ring_bytes(W, true, wt) > ring) ring = ring_bytes(W, true, wt);
     off += up16(ring);
     t.maplo = t.map;
   }
   t.w2h = off;
-  if (reduced && !wg) off += up16(2 * static_cast<size_t>(T) * (kp + kPadLo));
+  if (reduced && !wg) off += up16(2 * static_cast<size_t>(kTile) * (kp + kPadLo));
   t.total = off;
   return t;
 }
 
 // One lane's solver state for the elementwise step: element r of an array
 // at [r * stride] from the lane's own base (its column of a [row][lane]
-// shared array, stride T, or of a (dim, B) global one, stride B).
+// shared array, stride kTile, or of a (dim, B) global one, stride B).
 struct LaneState {
   float* uxc;   // (sw) rollout constant
   float* y;     // (su) input dual
@@ -228,34 +231,36 @@ struct LaneState {
 
 // What one block works on.
 struct Tile {
-  float* buf;                  // (sw, T) w2, then ux, then the next w2:
+  float* buf;                  // (sw, kTile) w2, then ux, then the next w2:
                                // element (r, l) at buf[r * bs + l]
-  int bs;                      // T in shared memory; ldg in global (kWG)
-  const int* done;             // (T,) latched (or absent) lanes
+  int bs;                      // kTile in shared memory; ldg in global (kWG)
+  const int* done;             // (kTile,) latched (or absent) lanes
   float* ring;                 // streamed slabs; null where resident
   const float* map;            // resident fp32 map (sw, swp), or the group's
                                // map in global memory when streamed
   const __nv_bfloat16* amap;   // resident bf16 map (swp, kp + kPadLo), or
                                // the group's (swp, kp) in global memory
-  __nv_bfloat16* w2h;          // (T, kp + kPadLo) rounded w2; with kWG the
-                               // tile's (T, kp) rows of w2hg
+  __nv_bfloat16* w2h;          // (kTile, kp + kPadLo) rounded w2; with kWG
+                               // the tile's (kTile, kp) rows of w2hg
   float* state;                // resident solver state, or null
+  float* stage;                // the projected stages' buffers in shared
+                               // memory (thread tid's entry j at
+                               // stage[j * kThreads + tid]), or null
   int tid, lane0, nvalid;
 };
 
 // Lane l's state (l: its index in the tile).
-template <int T>
 __device__ __forceinline__ LaneState lane_state(const Params& p,
                                                 const Tile& t, int l) {
   LaneState s;
   if (t.state) {
     float* b = t.state + l;
     s.uxc = b;
-    s.y = b + p.sw * T;
-    s.z = s.y + p.su * T;
-    s.v = s.z + p.su * T;
-    s.g = p.state_free ? nullptr : s.v + p.sx * T;
-    s.stride = T;
+    s.y = b + p.sw * kTile;
+    s.z = s.y + p.su * kTile;
+    s.v = s.z + p.su * kTile;
+    s.g = p.state_free ? nullptr : s.v + p.sx * kTile;
+    s.stride = kTile;
   } else {
     const int lane = t.lane0 + l;
     s.uxc = p.uxc + lane;
@@ -268,17 +273,15 @@ __device__ __forceinline__ LaneState lane_state(const Params& p,
   return s;
 }
 
-// Lane l's state before iteration 0, rows q, q + 256 / T, ... of each
+// Lane l's state before iteration 0, rows q, q + kLaneThreads, ... of each
 // array: uxc = Tx0 @ x0 + T1c (+ T12c on a warm start, whose every
 // iteration replays the fused matmul), w2, the slacks and duals.
-template <int T>
 __device__ __forceinline__ void lane_init(const Params& p, const Tile& t,
                                           int l, int q, const float* tx0,
                                           const float* t1c,
                                           const float* t12c) {
-  constexpr int kLaneThreads = Lanes<T>::kLaneThreads;
   const int lane = t.lane0 + l, B = p.B;
-  const LaneState st = lane_state<T>(p, t, l);
+  const LaneState st = lane_state(p, t, l);
   const int S = st.stride;
   for (int r = q; r < p.sw; r += kLaneThreads) {
     float acc = 0.0f;
@@ -346,12 +349,12 @@ __device__ __forceinline__ void tile_epilogue(const Params& p, const Tile& t,
 // The fp32 product, pass by pass: thread (tr, tl) owns rows tr*RPT ..
 // +RPT-1 of the pass, lanes 2 tl, 2 tl + 1, and sums each over k in index
 // order with fmaf.
-template <int RPT, int T, bool kWG>
+template <int RPT, bool kWG>
 __device__ __forceinline__ void tile_product_fp32(const Params& p,
                                                   const Tile& t) {
-  const int W = Lanes<T>::kRowGroups * RPT;
+  const int W = kRowGroups * RPT;
   const GemmF32 a{t.buf, t.ring, p.sw, W, p.swp, p.passes, t.tid, t.bs};
-  gemm_fp32<RPT, T, kWG>(
+  gemm_fp32<RPT, kTile, kWG>(
       a, [&](int j) { return t.map + j * W; },
       [&](int j, const float(&acc)[2 * RPT], const FragF32<RPT>& fr) {
         tile_epilogue(p, t, W, j, acc, fr);
@@ -362,14 +365,14 @@ __device__ __forceinline__ void tile_product_fp32(const Params& p,
 // bf16 into w2h[lane][k], then per warp (wm, wn) the rows wm*4*RPT ..
 // +4*RPT-1 of the pass (RPT/4 tiles of 16) of lanes wn*16 .. +15 (two tiles
 // of 8), k in steps of 16.
-template <int RPT, int T, bool kWG>
+template <int RPT, bool kWG>
 __device__ __forceinline__ void tile_product_lo(const Params& p,
                                                 const Tile& t) {
-  const int W = Lanes<T>::kRowGroups * RPT;
+  const int W = kRowGroups * RPT;
   const int lda = t.ring ? p.kp : p.kp + kPadLo;
   const GemmLo a{t.buf, t.w2h, reinterpret_cast<__nv_bfloat16*>(t.ring),
                  p.sw, p.kp, W, p.passes, t.tid, lda, t.bs};
-  gemm_lo<RPT, T, kWG>(
+  gemm_lo<RPT, kTile, kWG>(
       a, [&](int j) { return t.amap + static_cast<size_t>(j) * W * lda; },
       [&](int j, const float(&acc)[2 * RPT], const FragLo<RPT>& fr) {
         tile_epilogue(p, t, W, j, acc, fr);
@@ -381,34 +384,46 @@ __device__ __forceinline__ void tile_product_lo(const Params& p,
 // partial maxima meet in shared memory (a max is exact in any order) and
 // every thread of the lane takes the same latch decision.  Returns whether
 // lane l latched, from its thread 0 (which writes the count).
-template <int T, bool kProjU, bool kProjX>
+template <bool kProjU, bool kProjX>
 __device__ __forceinline__ bool tile_step(const Params& p, const Tile& t,
                                           float4* red, int g, float rho,
                                           int i, bool check, bool add) {
-  constexpr int kLaneThreads = Lanes<T>::kLaneThreads;
-  const int l = t.tid % T, q = t.tid / T;
+  const int l = t.tid % kTile, q = t.tid / kTile;
   const int lane = t.lane0 + l;
   const bool active = !t.done[l];
   const bool relax = p.alpha != 1.0f;
-  const LaneState st = lane_state<T>(p, t, l);
-  float* wsc = p.wsc ? p.wsc + lane : nullptr;
+  const LaneState st = lane_state(p, t, l);
+  // where a projected stage is projected: the thread's own buffer in
+  // shared memory, or the lane's rows of the global scratch
+  float *wu = nullptr, *wx = nullptr;
+  int ws = 0, wku = 0, wkx = 0;
+  if (t.stage) {
+    wu = wx = t.stage + t.tid;
+    ws = kThreads;
+  } else if (p.wsc) {
+    wu = p.wsc + lane;
+    wx = wu + p.su * p.B;
+    ws = p.B;
+    wku = p.side_u.dim * p.B;
+    wkx = p.side_x.dim * p.B;
+  }
   const SidePass su{&p.side_u, t.buf + l, st.z, st.y, st.uxc,
-                    p.zco + lane, st.stride, t.bs, wsc, p.B};
+                    p.zco + lane, st.stride, t.bs, wu, ws, wku};
   const SidePass sx{&p.side_x, t.buf + l + p.su * t.bs, st.v, st.g,
                     st.uxc + p.su * st.stride, p.vco + lane, st.stride,
-                    t.bs, wsc ? wsc + p.su * p.B : nullptr, p.B};
+                    t.bs, wx, ws, wkx};
   bool newly = false;
   if (check) {
     float pi = 0.0f, di = 0.0f, ps = 0.0f, ds = 0.0f;
     if (active) {
-      side_residuals_q<kProjU, T>(p, su, g, relax, q, add, pi, di);
-      side_residuals_q<kProjX, T>(p, sx, g, relax, q, add, ps, ds);
+      side_residuals_q<kProjU>(p, su, g, relax, q, add, pi, di);
+      side_residuals_q<kProjX>(p, sx, g, relax, q, add, ps, ds);
     }
-    red[q * T + l] = make_float4(pi, di, ps, ds);
+    red[q * kTile + l] = make_float4(pi, di, ps, ds);
     __syncthreads();
     if (active) {
       for (int j = 0; j < kLaneThreads; ++j) {
-        const float4 v = red[j * T + l];
+        const float4 v = red[j * kTile + l];
         pi = fmaxf(pi, v.x);
         di = fmaxf(di, v.y);
         ps = fmaxf(ps, v.z);
@@ -422,8 +437,8 @@ __device__ __forceinline__ bool tile_step(const Params& p, const Tile& t,
   }
   if (active) {
     const bool latch = p.carry_out && newly;
-    side_update_q<kProjU, T>(p, su, g, relax, q, add, latch);
-    side_update_q<kProjX, T>(p, sx, g, relax, q, add, latch);
+    side_update_q<kProjU>(p, su, g, relax, q, add, latch);
+    side_update_q<kProjX>(p, sx, g, relax, q, add, latch);
   }
   if (newly && q == 0) {
     p.iters[lane] = i + 1;
@@ -432,44 +447,46 @@ __device__ __forceinline__ bool tile_step(const Params& p, const Tile& t,
   return newly && q == 0;
 }
 
-// RPT: rows a thread of the product; T: lanes a tile; kWG: the tile's w2 in
+// RPT: rows a thread of the product; kWG: the tile's w2 in
 // global memory (streamed beside the map); kProjU/kProjX: whether the
 // input / state side has halfspaces or cones.
-template <int RPT, int T, bool kWG, bool kProjU, bool kProjX>
+template <int RPT, bool kWG, bool kProjU, bool kProjX>
 __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
     condensed_fused_kernel(Params p) {
   extern __shared__ float4 smem4[];
-  constexpr int kLaneThreads = Lanes<T>::kLaneThreads;
   char* sm = reinterpret_cast<char*>(smem4);
   const int tid = threadIdx.x;
   const int g = blockIdx.y;
-  const int l0 = blockIdx.x * T;  // the tile's first index in the group
+  const int l0 = blockIdx.x * kTile;  // the tile's first index in the group
   const int sw = p.sw, swp = p.swp, kp = p.kp;
   const bool reduced = p.t12a != nullptr;
   const TileLayout lay = tile_layout(
-      T, kWG, sw, swp, Lanes<T>::kRowGroups * RPT, kp,
+      kWG, sw, swp, kRowGroups * RPT, kp,
       p.state_shared ? state_rows(p.su, p.sx, sw, p.state_free) : 0,
       p.t12_resident, reduced);
 
   Tile t;
   t.tid = tid;
   t.lane0 = g * p.L + l0;
-  t.nvalid = min(T, p.L - l0);
+  t.nvalid = min(kTile, p.L - l0);
   // the tile's own columns of the global arrays
-  const size_t col0 = static_cast<size_t>(g * p.tiles + blockIdx.x) * T;
+  const size_t col0 = static_cast<size_t>(g * p.tiles + blockIdx.x) * kTile;
   if constexpr (kWG) {
     t.buf = p.w2g + col0;
     t.bs = p.ldg;
     t.w2h = reduced ? p.w2hg + col0 * kp : nullptr;
   } else {
     t.buf = reinterpret_cast<float*>(sm);
-    t.bs = T;
+    t.bs = kTile;
     t.w2h =
         reduced ? reinterpret_cast<__nv_bfloat16*>(sm + lay.w2h) : nullptr;
   }
   int* done = reinterpret_cast<int*>(sm + lay.flags);
-  int* n_done = done + T;
+  int* n_done = done + kTile;
   t.done = done;
+  t.stage = (kProjU || kProjX) && !p.wsc
+                ? reinterpret_cast<float*>(sm + lay.total)
+                : nullptr;
   float4* red = reinterpret_cast<float4*>(sm + lay.red);
   t.state = p.state_shared ? reinterpret_cast<float*>(sm + lay.state)
                            : nullptr;
@@ -499,11 +516,10 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
     t.ring = reinterpret_cast<float*>(sm + lay.map);
   }
   {
-    const int l = tid % T, q = tid / T;
+    const int l = tid % kTile, q = tid / kTile;
     if (q == 0) done[l] = l < t.nvalid ? 0 : 1;
     if (l < t.nvalid)
-      lane_init<T>(p, t, l, q, p.tx0 + gm * sw * p.nx, p.t1c + gm * sw,
-                   t12c);
+      lane_init(p, t, l, q, p.tx0 + gm * sw * p.nx, p.t1c + gm * sw, t12c);
     else
       for (int r = q; r < sw; r += kLaneThreads) t.buf[r * t.bs + l] = 0.0f;
   }
@@ -515,9 +531,9 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
     if (i == 0 && !p.warm_start) {
       // cold iteration 0: d = 0, so ux is the pure rollout (no matmul); the
       // fused-map constant joins uxc only after it
-      const int l = tid % T, q = tid / T;
+      const int l = tid % kTile, q = tid / kTile;
       if (l < t.nvalid) {
-        const LaneState st = lane_state<T>(p, t, l);
+        const LaneState st = lane_state(p, t, l);
         for (int r = q; r < sw; r += kLaneThreads) {
           const float c = st.uxc[r * st.stride];
           t.buf[r * t.bs + l] = c;
@@ -526,19 +542,19 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
       }
     } else {
       if (check && p.carry_out)  // a lane that latches now keeps this w2
-        for (int e = tid; e < sw * T; e += kThreads) {
-          const int r = e / T, l = e - r * T;
+        for (int e = tid; e < sw * kTile; e += kThreads) {
+          const int r = e / kTile, l = e - r * kTile;
           if (!done[l]) p.w2_out[r * p.B + t.lane0 + l] = t.buf[r * t.bs + l];
         }
       if (is_reduced(p, i, check))
-        tile_product_lo<RPT, T, kWG>(p, t);
+        tile_product_lo<RPT, kWG>(p, t);
       else
-        tile_product_fp32<RPT, T, kWG>(p, t);
+        tile_product_fp32<RPT, kWG>(p, t);
     }
     __syncthreads();
-    if (tile_step<T, kProjU, kProjX>(p, t, red, g, rho, i, check,
-                                     i > 0 || p.warm_start)) {
-      done[tid % T] = 1;
+    if (tile_step<kProjU, kProjX>(p, t, red, g, rho, i, check,
+                                  i > 0 || p.warm_start)) {
+      done[tid % kTile] = 1;
       atomicAdd(n_done, 1);
     }
     __syncthreads();
@@ -547,9 +563,9 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
 
   // the outputs from the resident state, and the carry of the lanes that
   // never latched: their last state
-  const int l = tid % T, q = tid / T, lane = t.lane0 + l;
+  const int l = tid % kTile, q = tid / kTile, lane = t.lane0 + l;
   if (l < t.nvalid) {
-    const LaneState st = lane_state<T>(p, t, l);
+    const LaneState st = lane_state(p, t, l);
     const int S = st.stride, B = p.B;
     const bool carry = p.carry_out && !done[l];
     for (int r = q; r < sw; r += kLaneThreads)
@@ -573,15 +589,15 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
   }
 }
 
-// The kernel for RPT rows a thread, tiles of T lanes and w2 in shared or
+// The kernel for RPT rows a thread and w2 in shared or
 // global memory, with the projections the sides need.
-template <int RPT, int T, bool kWG>
+template <int RPT, bool kWG>
 void (*tile_kernel(bool proj_u, bool proj_x))(Params) {
   return proj_u
-             ? (proj_x ? condensed_fused_kernel<RPT, T, kWG, true, true>
-                       : condensed_fused_kernel<RPT, T, kWG, true, false>)
-             : (proj_x ? condensed_fused_kernel<RPT, T, kWG, false, true>
-                       : condensed_fused_kernel<RPT, T, kWG, false, false>);
+             ? (proj_x ? condensed_fused_kernel<RPT, kWG, true, true>
+                       : condensed_fused_kernel<RPT, kWG, true, false>)
+             : (proj_x ? condensed_fused_kernel<RPT, kWG, false, true>
+                       : condensed_fused_kernel<RPT, kWG, false, false>);
 }
 
 }  // namespace
@@ -598,7 +614,7 @@ extern "C" int tinympc_condensed_fused(
     int max_iter,
     int ct, int k0, int lo_all, float alpha, float one_m_alpha, float pri_tol,
     float dua_tol, int en_input_bound, int en_state_bound, int warm_start,
-    int carry_out, int state_shared, int t12_resident, int tile, int w2_global,
+    int carry_out, int state_shared, int t12_resident, int w2_global,
     int rpt, int swp, int kp,
     int smem_bytes, int map_grouped, int rho_grouped, int box_u_grouped,
     int box_x_grouped, const float* lin_u, int n_lin_u, const int* soc_u,
@@ -609,12 +625,14 @@ extern "C" int tinympc_condensed_fused(
   // leading group axis.  lin_*: (n_lin, 2*dim + 1) device rows; soc_*: n_soc
   // (start, dim) pairs on the device; soc_mu_*: (n_soc,) on the device.
   // t12a: the (swp, kp) bf16 map of reduced iterations; swp = the passes x
-  // the rows a pass (512 rpt / tile), rpt the rows a thread and tile the
-  // lanes a block (the instances), kp a multiple of kSlabKLo; park: the
-  // (sw, B) scratch of a launch of several passes; wsc: the (sw, B)
-  // projection scratch of a launch with linear or cone constraints;
-  // w2_global: the tiles' w2 in w2g (sw, G x tiles x tile), with reduced
-  // iterations rounded into w2hg (G x tiles x tile, kp) bf16;
+  // 16 x rpt, the rows a thread (the instances), kp a multiple of
+  // kSlabKLo; park: the (sw, B) scratch of a launch of several passes; wsc:
+  // the (sw, B) projection scratch of a launch with linear or cone
+  // constraints whose stage buffers (kThreads x the widest projected
+  // side's dim floats, after the tile's layout) leave no room in
+  // smem_bytes, else null;
+  // w2_global: the tiles' w2 in w2g (sw, G x tiles x 32), with reduced
+  // iterations rounded into w2hg (G x tiles x 32, kp) bf16;
   // state_shared: the lanes' solver state lives in shared memory (else in
   // the (dim, B) arrays, uxc included).
   Params p;
@@ -629,8 +647,8 @@ extern "C" int tinympc_condensed_fused(
   p.w2hg = static_cast<__nv_bfloat16*>(w2hg);
   p.nx = nx; p.su = (N - 1) * nu; p.sx = N * nx; p.sw = p.su + p.sx;
   p.swp = swp; p.kp = kp; p.B = G * L; p.L = L;
-  p.tiles = tile > 0 ? (L + tile - 1) / tile : 0;
-  p.ldg = G * p.tiles * tile;
+  p.tiles = (L + kTile - 1) / kTile;
+  p.ldg = G * p.tiles * kTile;
   p.max_iter = max_iter; p.ct = ct; p.k0 = k0; p.lo_all = lo_all;
   p.alpha = alpha; p.one_m_alpha = one_m_alpha;
   p.pri_tol = pri_tol; p.dua_tol = dua_tol;
@@ -640,22 +658,26 @@ extern "C" int tinympc_condensed_fused(
   // no state-side constraint at all: g == 0 and vnew = x_hat
   p.state_free = !en_state_bound && n_lin_x == 0 && n_soc_x == 0;
   // the caller owns the layout; refuse one the kernel would overrun
-  const int W = tile > 0 ? rpt * (2 * kThreads / tile) : 0;
-  p.passes = W > 0 ? swp / W : 0;
+  const int W = kRowGroups * rpt;
+  p.passes = rpt > 0 ? swp / W : 0;
   const bool wg = w2_global != 0;
   const size_t need =
-      tile_layout(tile, wg, p.sw, swp, W, kp,
+      tile_layout(wg, p.sw, swp, W, kp,
                   state_shared ? state_rows(p.su, p.sx, p.sw, p.state_free)
                                : 0,
                   t12_resident, reduced)
           .total;
   const bool proj_u = n_lin_u + n_soc_u > 0, proj_x = n_lin_x + n_soc_x > 0;
+  const int sdim = proj_x && (!proj_u || nx > nu) ? nx : nu;
+  const size_t stage =
+      (proj_u || proj_x) && !wsc ? sizeof(float) * kThreads * sdim : 0;
   if (G <= 0 || L <= 0 || G > 65535 || ct < 1 || k0 < 0 || k0 > max_iter ||
-      rpt <= 0 || W <= 0 || swp < p.sw || swp != p.passes * W ||
-      (p.passes > 1 && !park) || ((proj_u || proj_x) && !wsc) ||
+      rpt <= 0 || swp < p.sw || swp != p.passes * W ||
+      (p.passes > 1 && !park) ||
       (wg && (!w2g || t12_resident || (reduced && !w2hg))) ||
       kp % kSlabKLo != 0 || kp < p.sw || smem_bytes < 0 ||
-      static_cast<size_t>(smem_bytes) < need || !rho || (reduced && !t12a))
+      static_cast<size_t>(smem_bytes) < need + stage || !rho ||
+      (reduced && !t12a))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!init_side(p.side_u, umin, umax, lin_u, n_lin_u, soc_u, soc_mu_u,
                  n_soc_u, nu, N - 1, en_input_bound, box_u_grouped,
@@ -667,16 +689,14 @@ extern "C" int tinympc_condensed_fused(
 
   void (*kernel)(Params) = nullptr;
   // the instances fused_tile_plan picks from
-  if (tile == 32 && !wg && rpt == 8)
-    kernel = tile_kernel<8, 32, false>(proj_u, proj_x);
-  else if (tile == 32 && !wg && rpt == 20)
-    kernel = tile_kernel<20, 32, false>(proj_u, proj_x);
-  else if (tile == 32 && !wg && rpt == 32)
-    kernel = tile_kernel<32, 32, false>(proj_u, proj_x);
-  else if (tile == 16 && !wg && rpt == 8)
-    kernel = tile_kernel<8, 16, false>(proj_u, proj_x);
-  else if (tile == 32 && wg && rpt == 32)
-    kernel = tile_kernel<32, 32, true>(proj_u, proj_x);
+  if (!wg && rpt == 8)
+    kernel = tile_kernel<8, false>(proj_u, proj_x);
+  else if (!wg && rpt == 20)
+    kernel = tile_kernel<20, false>(proj_u, proj_x);
+  else if (!wg && rpt == 32)
+    kernel = tile_kernel<32, false>(proj_u, proj_x);
+  else if (wg && rpt == 32)
+    kernel = tile_kernel<32, true>(proj_u, proj_x);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(smem_bytes);

@@ -21,8 +21,9 @@
 //
 // The projections couple the rows of one stage (a halfspace all of them, a
 // cone its own), so a projected side is walked stage by stage: the stage's
-// slack is written to the lane's rows of a scratch array (global memory,
-// element r at w[r * ws], so a stage of any width fits), clipped to the
+// slack is written to a scratch (entry j at w[j * ws]: a buffer of the
+// thread's own in shared memory, or the lane's rows of a global array where
+// the stage leaves no room there, so a stage of any width fits), clipped to the
 // box, put through each halfspace row in order and then each cone where it
 // lies, and only then the pass takes the residuals or writes the updates.
 // The halfspace rows (a, a/||a||^2, b), the cones' (start, dim) pairs and

@@ -40,9 +40,10 @@
 // The elementwise step: the threads of a lane split each side of it, the
 // rows of a box-only side (thread q of its 256 / T takes rows q, q + 256 /
 // T, ...) or the stages of a projected one (stages q, ...: the projections
-// couple only the rows of a stage; a stage's slack is projected in the
-// lane's rows of a global scratch), in projections.cuh's arithmetic and the
-// plain version's order of operations.
+// couple only the rows of a stage; a stage's slack is projected in a
+// stage buffer of the thread's own in shared memory, or where that leaves
+// no room in the lane's rows of a global scratch), in projections.cuh's
+// arithmetic and the plain version's order of operations.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -350,8 +351,10 @@ __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
 // ux[r * us]: us = T in shared memory, the global array's row stride with
 // kWG), its slack, dual and rollout constant (element r at [r * stride]: a
 // [row][lane] shared array or a (dim, B) global one), its carry slack
-// (global, element r at [r * B]) and, for a projected side, its rows of the
-// projection scratch (global, element r at w[r * ws]).
+// (global, element r at [r * B]) and, for a projected side, where stage k
+// is projected: entry j at w[k * wk + j * ws] (the lane's rows of a (sw, B)
+// global scratch: ws = B, wk = dim * B; or a stage buffer of the thread's
+// own in shared memory, reused by every stage: wk = 0).
 struct SidePass {
   const Side* s;
   float* ux;
@@ -362,7 +365,7 @@ struct SidePass {
   int stride;
   int us;
   float* w;           // null: a box-only side
-  int ws;
+  int ws, wk;
 };
 
 // What stage_slack (projections.cuh) reads of the kernel's parameters,
@@ -422,7 +425,7 @@ __device__ __forceinline__ void projected_stage(const P& p, const SidePass& sp,
     }
   const StageParams sp_p{p.alpha, p.one_m_alpha, sp.stride};
   stage_slack(sp_p, s, g, k, relax, sp.ux, sp.prev, sp.dual, 0, sp.us,
-              sp.w + k * s.dim * sp.ws, sp.ws);
+              sp.w + k * sp.wk, sp.ws);
 }
 
 // The residual pass of thread q of a lane: the max-abs primal (pri) and
@@ -443,7 +446,7 @@ __device__ __forceinline__ void side_residuals_q(const P& p,
       if (!fresh) projected_stage(p, sp, g, k, relax, add);
       for (int j = 0; j < s.dim; ++j) {
         const int r = k * s.dim + j;
-        const float w = sp.w[r * sp.ws];
+        const float w = sp.w[k * sp.wk + j * sp.ws];
         pri = fmaxf(pri, fabsf(__fsub_rn(ux[r * sp.us], w)));
         dua = fmaxf(dua, fabsf(__fsub_rn(sp.prev[r * sp.stride], w)));
       }
@@ -504,7 +507,7 @@ __device__ __forceinline__ void side_update_q(const P& p, const SidePass& sp,
       for (int j = 0; j < s.dim; ++j) {
         const int r = k * s.dim + j, o = r * sp.stride;
         row(r, ux[r * sp.us], sp.prev[o], sp.dual ? sp.dual[o] : 0.0f,
-            sp.w[r * sp.ws]);
+            sp.w[k * sp.wk + j * sp.ws]);
       }
     }
   } else {

@@ -80,19 +80,16 @@ class FusedConstraints(NamedTuple):
 # fp32 slabs of 8 map rows of a pass (kStages, kSlabK) or 4 bf16 slabs of 16
 # map columns (kStagesLo, kSlabKLo) whose rows are padded by 8 (kPadLo); the
 # bf16 map's k padded to a multiple of 32.  MAX_TILE is the adaptive
-# kernel's largest tile.  Where a tile of 32 lanes' w2 leaves no room, tiles
-# of 16 lanes (TILE_16_RPTS: 32 thread rows of 8 rows each); where that
-# leaves none either, tiles of 32 whose w2 lives in global memory and
-# streams beside the map (W2_GLOBAL_RPT rows a thread), whose shared memory
-# does not grow with the map's width.  The projections work on a stage of
-# any width in a global scratch and take any number of cones.
+# kernel's largest tile.  Where a tile's w2 leaves no room, tiles whose w2
+# lives in global memory and streams beside the map (W2_GLOBAL_RPT rows a
+# thread), whose shared memory does not grow with the map's width.  The
+# projections work on a stage of any width and take any number of cones.
 SMEM_PER_BLOCK = 232448
 MAX_TILE = 128
 TILE = 32
 THREADS = 256
 TILE_ROW_GROUPS = 16
 TILE_RPTS = (8, 20, 32)
-TILE_16_RPTS = (8,)
 W2_GLOBAL_RPT = 32
 SLAB_K = 8
 STAGES = 6
@@ -113,19 +110,14 @@ class TilePlan(NamedTuple):
     kp: int             # padded k of the bf16 map of reduced iterations
     smem: int           # dynamic shared memory of one block, bytes
     passes: int = 1     # passes of rows / passes map rows (the product's
-                        # 512 / tile thread rows x the rows a thread)
+                        # 16 thread rows x the rows a thread)
     w2_global: bool = False  # the tiles' w2 in global memory, streamed
                              # beside the map
 
     @property
     def rpt(self) -> int:
         """Rows a thread of the product (the kernel's instance)."""
-        return self.rows // (self.passes * row_groups(self.tile))
-
-
-def row_groups(tile: int) -> int:
-    """Thread rows of a tile's product: 256 threads of 2 lanes each."""
-    return 2 * THREADS // tile
+        return self.rows // (self.passes * TILE_ROW_GROUPS)
 
 
 def bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -305,27 +297,27 @@ def ring_bytes(width: int, reduced: bool, w_lanes: int = 0) -> int:
 
 
 def tile_smem(sw: int, rows: int, kp: int, state: int, resident: bool,
-              reduced: bool, passes: int = 1, tile: int = TILE,
+              reduced: bool, passes: int = 1,
               w2_global: bool = False) -> int:
     """One block's shared memory (csrc/condensed_fused.cu tile_layout): the
-    tile's w2 (sw x tile floats; none where it lives in global memory), the
+    tile's w2 (sw x 32 floats; none where it lives in global memory), the
     latch flags, the residual partials of the lanes' threads, the lanes'
     solver state (``state`` floats a lane, 0 where it stays in global
     memory), the map (resident: fp32, and bf16 with reduced iterations;
     streamed: the slab ring of one pass of rows / passes rows, with the
     tile's w2 rows beside each slab where w2 is global), the bf16 w2 of
     reduced iterations ([lane][k], rows padded; global with w2)."""
-    n = ((0 if w2_global else _up16(4 * sw * tile)) + _up16(4 * (tile + 1))
-         + _up16(16 * THREADS) + _up16(4 * state * tile))
+    n = ((0 if w2_global else _up16(4 * sw * TILE)) + _up16(4 * (TILE + 1))
+         + _up16(16 * THREADS) + _up16(4 * state * TILE))
     if resident:
         n += _up16(4 * sw * rows)
         if reduced:
             n += _up16(2 * rows * (kp + PAD_LO))
     else:
         n += _up16(ring_bytes(rows // passes, reduced,
-                              tile if w2_global else 0))
+                              TILE if w2_global else 0))
     if reduced and not w2_global:
-        n += _up16(2 * tile * (kp + PAD_LO))
+        n += _up16(2 * TILE * (kp + PAD_LO))
     return n
 
 
@@ -338,35 +330,45 @@ def fused_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
     rows, padding it the least; where no layout of it fits, the next.
     Within one: the lanes' solver state in shared memory where it fits,
     then T12 resident where it fits beside it and streamed in slabs
-    otherwise.  Where no tile of 32 fits (the tile's w2 fills the block),
-    tiles of 16 lanes the same way; where none of those fits either, tiles
-    of 32 with w2 in global memory, streamed beside the map: that layout's
-    shared memory does not depend on the width, so every width has a plan
-    (a launch needs (sw, B) floats of global memory for w2)."""
+    otherwise.  Where none fits (the tile's w2 fills the block), w2 in
+    global memory, streamed beside the map: that layout's shared memory
+    does not depend on the width, so every width has a plan (a launch
+    needs (sw, B) floats of global memory for w2)."""
     sw = (N - 1) * nu + N * nx
     kp = -(-sw // KP_ALIGN) * KP_ALIGN
     state = state_floats(nx, nu, N, state_free)
 
-    def passes(tile, rpt):
-        return -(-sw // (row_groups(tile) * rpt))
+    def passes(rpt):
+        return -(-sw // (TILE_ROW_GROUPS * rpt))
 
-    for tile, rpts in ((TILE, TILE_RPTS), (TILE // 2, TILE_16_RPTS)):
-        for rpt in sorted(rpts, key=lambda r: (passes(tile, r),
-                                               passes(tile, r) * r)):
-            npass = passes(tile, rpt)
-            rows = npass * row_groups(tile) * rpt
-            for shared in (True, False):
-                for resident in (True, False):
-                    smem = tile_smem(sw, rows, kp, state if shared else 0,
-                                     resident, reduced, npass, tile)
-                    if smem <= SMEM_PER_BLOCK:
-                        return TilePlan(tile, THREADS, resident, shared,
-                                        rows, kp, smem, npass)
-    npass = passes(TILE, W2_GLOBAL_RPT)
-    rows = npass * row_groups(TILE) * W2_GLOBAL_RPT
-    smem = tile_smem(sw, rows, kp, 0, False, reduced, npass, TILE, True)
+    for rpt in sorted(TILE_RPTS, key=lambda r: (passes(r), passes(r) * r)):
+        npass = passes(rpt)
+        rows = npass * TILE_ROW_GROUPS * rpt
+        for shared in (True, False):
+            for resident in (True, False):
+                smem = tile_smem(sw, rows, kp, state if shared else 0,
+                                 resident, reduced, npass)
+                if smem <= SMEM_PER_BLOCK:
+                    return TilePlan(TILE, THREADS, resident, shared, rows,
+                                    kp, smem, npass)
+    npass = passes(W2_GLOBAL_RPT)
+    rows = npass * TILE_ROW_GROUPS * W2_GLOBAL_RPT
+    smem = tile_smem(sw, rows, kp, 0, False, reduced, npass, True)
     assert smem <= SMEM_PER_BLOCK  # independent of sw
     return TilePlan(TILE, THREADS, False, False, rows, kp, smem, npass, True)
+
+
+def launch_smem(plan: TilePlan, dim_x: int, dim_u: int) -> tuple[int, bool]:
+    """A launch's shared memory and whether its projected stages are
+    projected there: each thread's own buffer of the widest projected
+    side's stage (``dim_x``, ``dim_u``: the stage widths of the projected
+    sides, 0 for a side without halfspaces or cones) after the plan's
+    layout, where that fits; else the plan's alone, and the stages are
+    projected in the lanes' rows of a global scratch."""
+    stage = 4 * THREADS * max(dim_x, dim_u)
+    if stage and plan.smem + stage <= SMEM_PER_BLOCK:
+        return plan.smem + stage, True
+    return plan.smem, False
 
 
 def tile_iterations(counts: torch.Tensor, tile: int, groups: int = 1) -> int:
@@ -658,7 +660,7 @@ _FLT = ctypes.c_float
 # (start, dim) pairs (device), the cones' mu (device), the cone count, and
 # whether the rows and the mus carry a leading group axis
 _SIDE = [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT]
-_ARGTYPES = ([_PTR] * 30 + [_INT] * 9 + [_FLT] * 4 + [_INT] * 16
+_ARGTYPES = ([_PTR] * 30 + [_INT] * 9 + [_FLT] * 4 + [_INT] * 15
              + _SIDE + _SIDE + [_PTR])
 
 
@@ -791,9 +793,14 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
     park = torch.empty((sw, B), **f32) if plan.passes > 1 else None
     vco = torch.empty((sx, B), **f32) if carry_out else None
     zco = torch.empty((su, B), **f32) if carry_out else None
-    projected = bool(side_u[1] or side_u[4] or side_x[1] or side_x[4])
-    # the projected stages' scratch
-    wsc = torch.empty((sw, B), **f32) if projected else None
+    proj_u, proj_x = bool(side_u[1] or side_u[4]), bool(side_x[1] or side_x[4])
+    projected = proj_u or proj_x
+    smem, stage_shared = launch_smem(plan, nx if proj_x else 0,
+                                     nu if proj_u else 0)
+    # the projected stages' global scratch where their buffers leave no
+    # room in shared memory
+    wsc = (torch.empty((sw, B), **f32) if projected and not stage_shared
+           else None)
     # the tiles' w2 (and its bf16 rounding) where it lives in global memory:
     # each tile its own columns
     w2g = w2hg = None
@@ -820,9 +827,8 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
                  relaxation_alpha, 1.0 - relaxation_alpha,
                  abs_pri_tol, abs_dua_tol, int(en_input_bound),
                  int(en_state_bound), int(warm_start), int(carry_out),
-                 int(plan.state_shared), int(plan.resident), plan.tile,
-                 int(plan.w2_global), plan.rpt, plan.rows, plan.kp,
-                 plan.smem,
+                 int(plan.state_shared), int(plan.resident),
+                 int(plan.w2_global), plan.rpt, plan.rows, plan.kp, smem,
                  int(maps.T12.ndim == 3), int(rho_t.numel() > 1),
                  int(G > 1 and u_min.numel() == G * su),
                  int(G > 1 and x_min.numel() == G * sx),
