@@ -236,27 +236,31 @@ Phases (one line each; any failure exits non-zero):
      swing-up with --no-gif, the codegen projects into a temporary
      directory), each timed;
  34. K1 at maps wider than a tile's w2 in shared memory leaves room for,
-     with w2 in global memory, each against its plain version: (a) the
-     quadrotor at N = 150 (sw 2,396), B = 8,192, 100 iterations, alpha
-     1.7, ct 1, |u| <= 0.5, and the widest map whose plan keeps w2 in
-     shared memory (N = 99) on its plan and forced onto w2 in global
-     memory, bit-equal, both timed; (b) the same with a 32-iteration bf16
+     on its cluster layout (a tile split over a thread block cluster),
+     each against its plain version and beside a product yardstick, each
+     printing its plan (the cluster, the launch's blocks, how many run at
+     once on how many SMs): (a) the quadrotor at N = 150 (sw 2,396), B =
+     8,192, 100 iterations, alpha 1.7, ct 1, |u| <= 0.5, and the widest map
+     whose w2 fits in shared memory (N = 99) on its plan (the cluster)
+     and forced onto w2 in shared memory, bit-equal, both timed; (b) the
+     same with a 32-iteration bf16
      head (K1c); (c) the group grid (K1d) on 8
      quadrotors randomised as models/sweeps.py draws them (seed 4), built
      at N = 150, x 1,024 lanes; (d) the quadrotor at N = 387 (sw 6,188,
-     the JAX package's condensed budget) with w2 in global memory, B =
-     4,096, 50 iterations; (e) the carry chain (K1b), two launches of 50
+     the JAX package's condensed budget), B = 4,096, 50 iterations; (e)
+     the carry chain (K1b), two launches of 50
      equal to one of 100 bit for bit and against the plain chain;
- 35. K2 with its iterates in global memory (the quadrotor at N = 150 and
-     213, B = 2,048, 150 iterations, the termination controller, rho0 5,
-     trust 2) and its OSQP-form controller on the 20-state chain (10 unit
+ 35. K2 on its cluster layout (the quadrotor at N = 150 and 213, B =
+     2,048, 150 iterations, the termination controller, rho0 5, trust 2;
+     plan and yardstick printed as in 34) and its OSQP-form controller on
+     the 20-state chain (10 unit
      masses on unit springs, nx 20, nu 9, N = 20, B = 4,096, 150
      iterations), each against its plain version, rho included; at N =
      213 the lanes with equal counts that did not solve, the kernel's and
      the fp32 plain version's distance from the plain version in float64;
-     at N = 90 (both products in passes) the plan's tiles of 16 lanes and
-     the global iterates forced on the same launch, fp32 and
-     precision='default' at ct 5, bit-equal;
+     at N = 90 the plan's cluster and the tiles of 16 lanes in shared
+     memory (both products in passes) forced on the same launch, fp32 and
+     precision='default' at ct 5, bit-equal, both timed;
  36. K1e on the chain: a state stage of 20 entries with 10 cones of dim 2
      (mu 0.5), 4 halfspace rows and the state box, B = 16,384, 200
      iterations (the lanes do not converge: every lane compared), the
@@ -646,9 +650,11 @@ def earlier_phases(card):
             out_k, out_p = f_k(), f_p()
             errs.append(agreement(
                 f"phase 4b K1 wide map, quadrotor N={Nw} (sw={sw_w}), {mode}, "
-                f"{kw['max_iter']} iterations, B={B_WIDE}: {plan_w.passes} "
-                f"passes of {plan_w.rows // plan_w.passes} rows ({plan_w.rpt} "
-                f"a thread), T12 "
+                f"{kw['max_iter']} iterations, B={B_WIDE}: "
+                f"{plan_w.cluster} block(s) a tile, {plan_w.passes} "
+                f"passes a block of "
+                f"{plan_w.rows // plan_w.cluster // plan_w.passes} rows "
+                f"({plan_w.rpt} a thread), T12 "
                 f"{'resident' if plan_w.resident else 'streamed'}, state in "
                 f"{'shared' if plan_w.state_shared else 'global'} memory, "
                 f"{plan_w.smem} bytes of shared memory", out_k, out_p,
@@ -1047,7 +1053,8 @@ def earlier_phases(card):
     out_k, out_p = k2_both(pw, cw, build_condensed_taylor(pw, cw), x0_q,
                            max_iter=300, **quad_kw)
     a_errs.append(agreement(
-        f"phase 10h quadrotor N=80 (sw=1276, tiles of {plan_w.tile} lanes, "
+        f"phase 10h quadrotor N=80 (sw=1276, tiles of {plan_w.tile} lanes "
+        f"on {plan_w.cluster} block(s), "
         f"{plan_w.rpt} rows a thread in {plan_w.passes1} + "
         f"{plan_w.passes2} passes, {plan_w.smem} bytes of shared memory), "
         "termination controller, trust 2", out_k, out_p))
@@ -3157,11 +3164,44 @@ def lifted_shape_phases(card):
                       "tinympc_julia_tpu/ops/pallas/adaptive_kernel.py:106")
     k3_src, k3_rep = ("fused_stage.cu", "tinympc_julia_tpu/ops/pallas/fused.py:44")
 
-    def layout(plan):
-        return (f"tile {plan.tile} lanes, {plan.rpt} rows a thread, "
-                f"{plan.passes} passes, w2 in "
-                f"{'global' if plan.w2_global else 'shared'} memory, "
-                f"{plan.smem} bytes of shared memory")
+    def layout(plan, lanes=None):
+        """K1's or K2's plan as phases 34-35 print it; with ``lanes``, the
+        launch's blocks and how many of them (of the card's SMs) run at
+        once, from the occupancy API."""
+        if plan.cluster > 1:
+            where = (f"a cluster of {plan.cluster} blocks a tile, each a "
+                     f"slice of whole stages (bounds {list(plan.stages)}) "
+                     "with its rows of the input in its shared memory")
+        elif getattr(plan, "w2_global", False) or getattr(
+                plan, "iterates_global", False):
+            where = "the input in global memory"
+        else:
+            where = "the input in shared memory"
+        passes = (plan.passes if hasattr(plan, "passes")
+                  else f"{plan.passes1} / {plan.passes2}")
+        text = (f"tile {plan.tile} lanes, {plan.rpt} rows a thread, "
+                f"{passes} passes a block, {where}, {plan.smem} bytes of "
+                "shared memory")
+        if lanes is not None:
+            occ = (K.tile_occupancy(plan) if hasattr(plan, "passes")
+                   else K2.adaptive_occupancy(plan))
+            blocks = -(-lanes // plan.tile) * plan.cluster
+            at_once = min(blocks, occ * plan.cluster if plan.cluster > 1
+                          else occ * sms)
+            text += (f"; {blocks} blocks, {at_once} at once on "
+                     f"{min(at_once, sms)} of {sms} SMs")
+        return text
+
+    def yardstick(label, shapes, lanes, counts, tile):
+        """Phase 16's kind of yardstick: the launch's products alone, one
+        cuBLAS fp32 matmul an iteration over every lane, times the
+        iterations its tiles ran on average (printed; not a kernels-line
+        number)."""
+        tiles = -(-lanes // tile)
+        y = product_yardstick(shapes, lanes, K.tile_iterations(counts, tile),
+                              tiles)
+        print(f"{label} product yardstick: {y:.3f} ms", flush=True)
+        return y
 
     # -- phase 34: K1 at wide maps --------------------------------------------
     N34, B34 = 150, 8192
@@ -3175,10 +3215,11 @@ def lifted_shape_phases(card):
                      dict(bf16_head_iters=32))):
         full = k1_kw(p, **kw)
         plan = K.fused_tile_plan(12, 4, N34, bool(kw))
-        check(plan.w2_global, f"phase {tag[:3]}: the plan did not take "
-              "global w2")
+        check(plan.cluster > 1, f"phase {tag[:3]}: the plan did not take "
+              "a cluster")
         label = (f"phase {tag}, quadrotor N={N34} (sw={sw}), B={B34}, 100 "
-                 f"iterations, alpha 1.7, ct 1, |u| <= 0.5: {layout(plan)}")
+                 f"iterations, alpha 1.7, ct 1, |u| <= 0.5: "
+                 f"{layout(plan, B34)}")
         out_k, _, err, n_l, t_k, t_p = run_case(
             label, functools.partial(k1, *args, **full),
             functools.partial(K.condensed_fused_reference, *args, **full),
@@ -3190,13 +3231,14 @@ def lifted_shape_phases(card):
         print(f"phase {tag[:3]} timing: kernel {t_k:.3f} ms, plain "
               f"{t_p:.3f} ms, {n_l} launch(es), bound {b[0]:.4f} ms by "
               f"{b[1]}", flush=True)
+        yardstick(f"phase {tag[:3]}", [(sw, sw)], B34, out_k[2], 32)
         row(f"condensed_fused (K1{'c' if kw else ''}), quadrotor N={N34} "
             f"(sw {sw}): {layout(plan)}", n_l, err, t_k, t_p, b, k1_src,
             k1_rep)
-    # the widest map whose plan keeps w2 in shared memory (N = 99, sw 1,580,
-    # in passes of 128 rows) on its plan and forced onto w2 in global
-    # memory: the same bits, and the two times (where the plan's switch
-    # pays)
+    # N = 99 (sw 1,580), the widest map whose w2 fits a block's shared
+    # memory, on the cluster layout and forced onto w2 in shared memory (13
+    # passes of 128 rows): the same bits, and the two times (where the
+    # plan's switch pays, R11)
     p99, c99 = quad(99)
     m99 = build_condensed(p99, c99)
     sw99 = m99.T12.shape[0]
@@ -3204,23 +3246,21 @@ def lifted_shape_phases(card):
               p99.x_max, x0, None)
     f99 = functools.partial(k1, *args99, **k1_kw(p99))
     plan99 = K.fused_tile_plan(12, 4, 99)
-    check(not plan99.w2_global, "phase 34a: N = 99 took global w2")
-    out_s = f99()
+    s_plan = K.shared_tile_plan(12, 4, 99)
+    out_c = f99()
     f99()
-    t_s = float(np.median([event_ms(f99) for _ in range(3)]))
-    npass = -(-sw99 // 512)
-    g_plan = K.TilePlan(32, K.THREADS, False, False, npass * 512, plan99.kp,
-                        K.tile_smem(sw99, npass * 512, plan99.kp, 0, False,
-                                    False, npass, True), npass, True)
-    with mock.patch.object(K, "fused_tile_plan", lambda *a: g_plan):
-        out_g = f99()
-        exact = all(torch.equal(a, b2) for a, b2 in zip(out_g, out_s))
+    t_c = float(np.median([event_ms(f99) for _ in range(3)]))
+    with mock.patch.object(K, "fused_tile_plan", lambda *a: s_plan):
+        out_s = f99()
+        exact = all(torch.equal(a, b2) for a, b2 in zip(out_c, out_s))
         f99()
-        t_g = float(np.median([event_ms(f99) for _ in range(3)]))
+        t_s = float(np.median([event_ms(f99) for _ in range(3)]))
     print(f"phase 34a quadrotor N=99 (sw={sw99}), B={B34}, 100 iterations: "
-          f"its plan ({layout(plan99)}) {t_s:.3f} ms; forced onto w2 in "
-          f"global memory ({npass} passes of 512 rows) {t_g:.3f} ms; "
+          f"its plan ({layout(plan99, B34)}) {t_c:.3f} ms; forced onto w2 "
+          f"in shared memory ({layout(s_plan, B34)}) {t_s:.3f} ms; "
           f"bit-equal {exact}", flush=True)
+    check(plan99.cluster > 1 and s_plan.cluster == 1,
+          "phase 34a: N = 99 is not on the cluster layout")
     check(exact, "phase 34a: the two layouts at N = 99 differ")
     del m99, args99, f99
 
@@ -3239,7 +3279,7 @@ def lifted_shape_phases(card):
     plan = K.fused_tile_plan(12, 4, N34)
     out_k, _, err, n_l, t_k, t_p = run_case(
         f"phase 34c K1d, G={G} randomised quadrotors x L={L}, N={N34}, 100 "
-        f"iterations, ct 4: {layout(plan)}",
+        f"iterations, ct 4: {layout(plan, G * L)}",
         functools.partial(k1, *gargs, num_groups=G, **gfull),
         functools.partial(K.condensed_fused_reference, *gargs, num_groups=G,
                           **gfull), (k1, "grouped_launches"))
@@ -3247,6 +3287,7 @@ def lifted_shape_phases(card):
               tensor_bytes(mg.T12, mg.T1, *gargs[1:7], out_k[:4]))
     print(f"phase 34c timing: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, {n_l} "
           f"launch(es), bound {b[0]:.4f} ms by {b[1]}", flush=True)
+    yardstick("phase 34c", [(sw, sw)], G * L, out_k[2], 32)
     row(f"condensed_fused group grid (K1d), {G} quadrotors x {L} lanes, "
         f"N={N34}: {layout(plan)}", n_l, err, t_k, t_p, b, k1_src, k1_rep)
 
@@ -3265,13 +3306,15 @@ def lifted_shape_phases(card):
 
     out_k, _, err, n_l, t_k, t_p = run_case(
         f"phase 34e K1b, quadrotor N={N34}, B={B34}, 50 + 50 chained "
-        f"through the carry", lambda: chained(chain_k),
+        f"through the carry: {layout(K.fused_tile_plan(12, 4, N34), B34)}",
+        lambda: chained(chain_k),
         lambda: chained(functools.partial(K.condensed_fused_reference,
                                           *args[:7])), (k1, "launches"))
     exact = all(torch.equal(a, b2) for a, b2 in zip(out_k, one))
     print(f"phase 34e chain vs one 100-iteration launch: bit-exact {exact}; "
           f"timing: the two launches {t_k:.3f} ms, plain {t_p:.3f} ms",
           flush=True)
+    yardstick("phase 34e", [(sw, sw)], B34, out_k[2], 32)
     check(exact, "phase 34e: the chained launches differ from one launch")
     b = bound(k1_ops(sw, 12, out_k[2])[0] + 2.0 * sw * 12 * B34,
               2 * tensor_bytes(m.T12, m.T1, *args[2:7], out_k[:4]))
@@ -3288,23 +3331,25 @@ def lifted_shape_phases(card):
             uniform(B34d, 12, 35, 0.3), None)
     full = k1_kw(p, max_iter=50)
     plan = K.fused_tile_plan(12, 4, N34d)
-    check(plan.w2_global, "phase 34d: the plan did not take global w2")
+    check(plan.cluster > 1, "phase 34d: the plan did not take a cluster")
     out_k, _, err, n_l, t_k, t_p = run_case(
         f"phase 34d K1, quadrotor N={N34d} (sw={sw}), B={B34d}, 50 "
-        f"iterations: {layout(plan)}", functools.partial(k1, *args, **full),
+        f"iterations: {layout(plan, B34d)}",
+        functools.partial(k1, *args, **full),
         functools.partial(K.condensed_fused_reference, *args, **full),
         (k1, "launches"))
     b = bound(k1_ops(sw, 12, out_k[2])[0],
               tensor_bytes(m.T12, m.T1, *args[2:7], out_k[:4]))
     print(f"phase 34d timing: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, {n_l} "
           f"launch(es), bound {b[0]:.4f} ms by {b[1]}", flush=True)
+    yardstick("phase 34d", [(sw, sw)], B34d, out_k[2], 32)
     row(f"condensed_fused (K1), quadrotor N={N34d} (sw {sw}): "
         f"{layout(plan)}", n_l, err, t_k, t_p, b, k1_src, k1_rep)
     del m, args
     print(f"phase 34 done {time.perf_counter() - t_start:.0f} s into "
           "phases 34-37", flush=True)
 
-    # -- phase 35: K2 with its iterates in global memory, its OSQP-form
+    # -- phase 35: K2 with its tile split over a cluster, its OSQP-form
     # controller on a wide stage ---------------------------------------------
     def k2_ops(p, order, iters):
         su, sw = (p.N - 1) * p.nu, p.N * p.nx + (p.N - 1) * p.nu
@@ -3316,8 +3361,8 @@ def lifted_shape_phases(card):
         p, c = quad(N35)
         tm = build_condensed_taylor(p, c)
         plan = K2.adaptive_tile_plan(12, 4, N35, 2)
-        check(plan.iterates_global, f"phase 35a N={N35}: the plan did not "
-              "take global iterates")
+        check(plan.cluster > 1, f"phase 35a N={N35}: the plan did not "
+              "take a cluster")
         args = (tm, p.u_min, p.u_max, p.x_min, p.x_max,
                 uniform(2048, 12, 36, 0.3), None)
         full = dict(plant=None, nx=12, nu=4, N=N35, max_iter=150,
@@ -3330,9 +3375,7 @@ def lifted_shape_phases(card):
         out_k, out_p, err, n_l, t_k, t_p = run_case(
             f"phase 35a K2, quadrotor N={N35} (sw={tm.T1s.shape[-2]}), "
             f"B=2048, 150 iterations, termination controller, rho0 5, trust "
-            f"2: tile {plan.tile} lanes, {plan.rpt} rows a thread, passes "
-            f"{plan.passes1} / {plan.passes2}, iterates in global memory, "
-            f"{plan.smem} bytes of shared memory",
+            f"2: {layout(plan, 2048)}",
             functools.partial(k2, *args, **full),
             functools.partial(K2.condensed_adaptive_reference, *args, **full),
             (k2, "launches"), rho=True)
@@ -3341,10 +3384,13 @@ def lifted_shape_phases(card):
         print(f"phase 35a N={N35} timing: kernel {t_k:.3f} ms, plain "
               f"{t_p:.3f} ms, {n_l} launch(es), bound {b[0]:.4f} ms by "
               f"{b[1]}", flush=True)
+        sw35, su35 = tm.T1s.shape[-2], 4 * (N35 - 1)
+        yardstick(f"phase 35a N={N35}", [(3 * sw35, su35 + 13),
+                                         (4 * su35, sw35 + 1)], 2048,
+                  out_k[2], 32)
+        row(f"condensed_adaptive (K2), quadrotor N={N35} (sw {sw35}): "
+            f"{layout(plan)}", n_l, err, t_k, t_p, b, k2_src, k2_rep)
         if N35 == 213:
-            row(f"condensed_adaptive (K2), quadrotor N={N35} (sw "
-                f"{tm.T1s.shape[-2]}): iterates in global memory", n_l, err,
-                t_k, t_p, b, k2_src, k2_rep)
             # the lanes with equal counts that did not solve, each fp32 run
             # against the plain version in float64 on the same problem
             p64 = make_problem(quadrotor.A, quadrotor.B,
@@ -3372,48 +3418,47 @@ def lifted_shape_phases(card):
             del args64, out64
         del tm, args
 
-    # the global iterates against the 16-lane tile on the same launch at N =
-    # 90 (sw 1,436: both products in passes), fp32 and with the reduced
-    # products of the iterations that neither check nor predict rho: the
-    # same bits, whatever order cuBLAS sums in
+    # N = 90 (sw 1,436) on its plan and on the other layout, fp32 and with
+    # the reduced products of the iterations that neither check nor predict
+    # rho: the cluster against tiles of 16 lanes in shared memory (both
+    # products in passes), the same bits whatever order cuBLAS sums in, and
+    # the two times (the switch, R11)
     N90 = 90
     p, c = quad(N90)
     tm = build_condensed_taylor(p, c)
     args = (tm, p.u_min, p.u_max, p.x_min, p.x_max,
             uniform(2048, 12, 39, 0.3), None)
-    su, sw = 4 * (N90 - 1), 16 * N90 - 4
-    W = K2.K2_GLOBAL_RPT * 2 * K2.THREADS // 32
-    p1, p2 = -(-sw // W), -(-4 * su // W)
+    sw = 16 * N90 - 4
     for tag, kw in (("fp32", {}), ("precision='default' at ct=5",
                                    dict(precision="default",
                                         check_termination=5))):
         lo = bool(kw)
-        own_plan = K2.adaptive_tile_plan(12, 4, N90, 2, lo)
-        check(not own_plan.iterates_global, "phase 35a: N = 90 took the "
-              "global iterates")
-        g_plan = K2.AdaptivePlan(
-            32, K2.THREADS, K2.K2_GLOBAL_RPT, p1, p2, False, False,
-            K2._kp(su + 13), K2._kp(sw + 1),
-            K2.adaptive_smem(12, 4, N90, 2, 32, K2.K2_GLOBAL_RPT, p1, p2,
-                             False, False, lo, True, True), True)
+        c_plan = K2.cluster_adaptive_plan(12, 4, N90, 2, lo)
+        s_plan = K2.shared_adaptive_plan(12, 4, N90, 2, lo)
+        check(c_plan is not None and s_plan is not None
+              and s_plan.tile == 16, "phase 35a: N = 90 lacks a layout")
         f90 = functools.partial(k2, *args, **dict(full, N=N90, **kw))
-        out_s = f90()
-        t_s = float(np.median([event_ms(f90) for _ in range(3)]))
-        with mock.patch.object(K2, "adaptive_tile_plan", lambda *a, **k:
-                               g_plan):
-            out_g = f90()
-            t_g = float(np.median([event_ms(f90) for _ in range(3)]))
+        times, outs = {}, {}
+        for name, pl in (("cluster", c_plan), ("tiles", s_plan)):
+            with mock.patch.object(K2, "adaptive_tile_plan",
+                                   lambda *a, pl=pl, **k: pl):
+                outs[name] = f90()
+                times[name] = float(np.median([event_ms(f90)
+                                               for _ in range(3)]))
         torch.cuda.synchronize()
-        exact = all(torch.equal(a, b2) for a, b2 in zip(out_g[:5],
-                                                         out_s[:5]))
+        exact = all(torch.equal(a, b2) for a, b2 in
+                    zip(outs["cluster"][:5], outs["tiles"][:5]))
+        takes = ("the cluster" if K2.adaptive_tile_plan(
+            12, 4, N90, 2, lo).cluster > 1 else "tiles of 16")
         print(f"phase 35a quadrotor N={N90} (sw={sw}), B=2048, 150 "
-              f"iterations, {tag}: tiles of {own_plan.tile} lanes (passes "
-              f"{own_plan.passes1} / {own_plan.passes2}) {t_s:.3f} ms "
-              f"against the global iterates forced (passes {p1} / {p2}) "
-              f"{t_g:.3f} ms: bit-equal {exact}, solved "
-              f"{int(out_s[3].sum())}", flush=True)
-        check(exact, f"phase 35a N={N90} {tag}: the global iterates differ "
-              "from the 16-lane tile")
+              f"iterations, {tag}: the plan takes {takes}; "
+              f"cluster ({layout(c_plan, 2048)}) {times['cluster']:.3f} ms "
+              f"against tiles of {s_plan.tile} lanes (passes "
+              f"{s_plan.passes1} / {s_plan.passes2}) {times['tiles']:.3f} "
+              f"ms: bit-equal {exact}, solved "
+              f"{int(outs['tiles'][3].sum())}", flush=True)
+        check(exact, f"phase 35a N={N90} {tag}: the cluster differs from "
+              "the 16-lane tile")
     del tm, args
 
     p, c = chain(20)
@@ -3568,6 +3613,268 @@ def lifted_shape_phases(card):
     check(exact, "phase 37b: the far layout differs from the near one")
     print(f"phases 34-37 took {time.perf_counter() - t_start:.0f} s", flush=True)
     return rows
+
+
+def quad_problem(horizon, dev):
+    """The quadrotor at ``horizon`` (|u| <= 0.5) on ``dev`` in float32:
+    (problem, cache)."""
+    from tinympc_julia_tpu_torch import make_problem
+    from tinympc_julia_tpu_torch.models import quadrotor
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    p = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
+                     np.diag(quadrotor.R_DIAG), quadrotor.RHO, horizon,
+                     u_min=-0.5, u_max=0.5, dtype=torch.float32, device=dev)
+    return p, precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+
+
+def product_yardstick(shapes, lanes, tile_iters, tiles):
+    """One iteration's products over the whole batch, each one torch.matmul
+    in full fp32 ((rows, k) @ (k, ``lanes``) for each (rows, k) of
+    ``shapes``; median of 3 CUDA-event timings after a warm-up), times the
+    iterations the launch's tiles ran on average (``tile_iters`` summed
+    over ``tiles``): what the products alone take on cuBLAS.  A yardstick
+    only; the port never calls it."""
+    from tinympc_julia_tpu_torch.utils.precision import full_fp32_matmul
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mats = [(torch.randn(r, k, device="cuda", generator=gen),
+             torch.randn(k, lanes, device="cuda", generator=gen))
+            for r, k in shapes]
+
+    def run():
+        for a, b in mats:
+            torch.matmul(a, b)
+
+    with full_fp32_matmul():
+        run()
+        t = float(np.median([event_ms(run) for _ in range(3)]))
+    return t * tile_iters / tiles
+
+
+def wide_layout_probe(reps=3):
+    """The wide-map layouts of K1 and K2 timed alone at the shapes of
+    phases 34a, 34d and 35a (CUDA events, median of ``reps`` after a
+    warm-up), each with its plan, the blocks an SM from the occupancy API
+    where the package has it, and its product yardstick.  It asks the
+    plans for no field the layouts before the cluster lacked, so the same
+    function times this package and an older one (put that tree's root
+    first on sys.path) in one call.  Returns {label: ms}."""
+    from tinympc_julia_tpu_torch.ops.condensed import (build_condensed,
+                                                       build_condensed_taylor)
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+
+    def occupancy(mod, fn, plan):
+        f = getattr(mod, fn, None)  # not in trees before the cluster layout
+        return None if f is None else f(plan)
+
+    def timed(label, f, plan, occ, tiles, tile_iters, shapes, lanes):
+        f()
+        t = float(np.median([event_ms(f) for _ in range(reps)]))
+        y = product_yardstick(shapes, lanes, tile_iters, tiles)
+        print(f"wide probe {label}: {t:.3f} ms; product yardstick "
+              f"{y:.3f} ms; {tile_iters} tile iterations over {tiles} "
+              f"tiles; blocks an SM {occ}; {plan}", flush=True)
+        out[label] = t
+
+    x_gen = np.random.default_rng(34)
+    for N_, B, iters in ((150, 8192, 100), (387, 4096, 50)):
+        p, c = quad_problem(N_, dev)
+        m = build_condensed(p, c)
+        sw = m.T12.shape[0]
+        x0 = torch.as_tensor(x_gen.uniform(-0.3, 0.3, (B, 12)),
+                             dtype=torch.float32, device=dev)
+        kw = dict(nx=12, nu=4, N=N_, max_iter=iters, abs_pri_tol=1e-3,
+                  abs_dua_tol=1e-3, en_state_bound=False,
+                  en_input_bound=True, relaxation_alpha=1.7,
+                  check_termination=1, warm_start=False, carry_out=False)
+        f = functools.partial(K.condensed_fused_cuda, m, float(c.rho),
+                              p.u_min, p.u_max, p.x_min, p.x_max, x0, None,
+                              **kw)
+        plan = K.fused_tile_plan(12, 4, N_)
+        res = f()
+        tiles = -(-B // K.TILE)
+        occ = occupancy(K, "tile_occupancy", plan)
+        timed(f"K1 N={N_} B={B} {iters} iterations", f, plan,
+              f"{occ} (clusters at once)" if getattr(plan, "cluster", 1) > 1
+              else occ, tiles,
+              K.tile_iterations(res[2], K.TILE), [(sw, sw)], B)
+        del m, f, res
+    for N_ in (150, 213):
+        p, c = quad_problem(N_, dev)
+        tm = build_condensed_taylor(p, c)
+        sw, su = tm.T1s.shape[-2], 4 * (N_ - 1)
+        x0 = torch.as_tensor(x_gen.uniform(-0.3, 0.3, (2048, 12)),
+                             dtype=torch.float32, device=dev)
+        kw = dict(plant=None, nx=12, nu=4, N=N_, max_iter=150,
+                  abs_pri_tol=1e-3, abs_dua_tol=1e-3, en_state_bound=False,
+                  en_input_bound=True, relaxation_alpha=1.0,
+                  adaptive_rho_min=5.0, adaptive_rho_max=1e3,
+                  adaptive_rho_clipping=True, check_termination=1,
+                  controller="termination", taylor_trust=2.0,
+                  warm_start=False, carry_out=False)
+        f = functools.partial(K2.condensed_adaptive_cuda, tm, p.u_min,
+                              p.u_max, p.x_min, p.x_max, x0, None, **kw)
+        plan = K2.adaptive_tile_plan(12, 4, N_, 2)
+        res = f()
+        occ = occupancy(K2, "adaptive_occupancy", plan)
+        timed(f"K2 N={N_} B=2048 150 iterations", f, plan,
+              f"{occ} (clusters at once)" if getattr(plan, "cluster", 1) > 1
+              else occ,
+              -(-2048 // plan.tile), K.tile_iterations(res[2], plan.tile),
+              [(3 * sw, su + 13), (4 * su, sw + 1)], 2048)
+        del tm, f, res
+    print(f"wide probe: {sms} SMs", flush=True)
+    return out
+
+
+def cluster_probe(reps=3):
+    """The cluster layouts of K1 and K2 beside the layouts they replace, in
+    one process: each launch timed alone (CUDA events, median of ``reps``
+    after a warm-up) and held bit for bit against the same launch on
+    another layout.  K1 at the wide maps of phases 34a and 34d on the
+    plan's cluster and on other cluster sizes, against w2 in global memory
+    (fp32 and reduced); at N = 57, 75, 90, 99 the cluster and w2 in
+    shared memory; K2 the same at phase 35a's N = 150 and 213 and at N =
+    20, 76, 90, 133 against its iterates in shared memory.  Each line
+    names the plan, its blocks an SM or clusters at once (the occupancy
+    API).  Prints only; what the R11 switch and PERF.md's predictions are
+    checked against."""
+    from unittest import mock
+    from tinympc_julia_tpu_torch.ops.condensed import (build_condensed,
+                                                       build_condensed_taylor)
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    dev = torch.device("cuda")
+    x_gen = np.random.default_rng(34)
+
+    def x0s(B):
+        return torch.as_tensor(x_gen.uniform(-0.3, 0.3, (B, 12)),
+                               dtype=torch.float32, device=dev)
+
+    def time_plan(mod, name, plan, f):
+        with mock.patch.object(mod, name, lambda *a, **k: plan):
+            out = f()
+            torch.cuda.synchronize()
+            t = float(np.median([event_ms(f) for _ in range(reps)]))
+        return out, t
+
+    def describe(plan, occ):
+        if plan.cluster > 1:
+            return (f"cluster {plan.cluster} x {plan.rpt} rows a thread, "
+                    f"{plan.smem} B, {occ} clusters at once")
+        return f"{plan}, {occ} blocks an SM"
+
+    def k1_global(N_, reduced):
+        sw = 16 * N_ - 4
+        npass = -(-sw // 512)
+        return K.TilePlan(32, K.THREADS, False, False, npass * 512,
+                          -(-sw // 32) * 32,
+                          K.tile_smem(sw, npass * 512, -(-sw // 32) * 32, 0,
+                                      False, reduced, npass, True),
+                          npass, True)
+
+    def k2_global(N_, reduced):
+        su, sw = 4 * (N_ - 1), 16 * N_ - 4
+        W = K2.K2_GLOBAL_RPT * 2 * K2.THREADS // 32
+        p1, p2 = -(-sw // W), -(-4 * su // W)
+        return K2.AdaptivePlan(
+            32, K2.THREADS, K2.K2_GLOBAL_RPT, p1, p2, False, False,
+            K2._kp(su + 13), K2._kp(sw + 1),
+            K2.adaptive_smem(12, 4, N_, 2, 32, K2.K2_GLOBAL_RPT, p1, p2,
+                             False, False, reduced, True, True), True)
+
+    def k1_case(N_, B, iters, kw, others):
+        p, c = quad_problem(N_, dev)
+        m = build_condensed(p, c)
+        full = dict(nx=12, nu=4, N=N_, max_iter=iters, abs_pri_tol=1e-3,
+                    abs_dua_tol=1e-3, en_state_bound=False,
+                    en_input_bound=True, relaxation_alpha=1.7,
+                    check_termination=1, warm_start=False, carry_out=False)
+        full.update(kw)
+        f = functools.partial(K.condensed_fused_cuda, m, float(c.rho),
+                              p.u_min, p.u_max, p.x_min, p.x_max, x0s(B),
+                              None, **full)
+        reduced = bool(kw)
+        plan = K.fused_tile_plan(12, 4, N_, reduced)
+        base, t0 = time_plan(K, "fused_tile_plan", plan, f)
+        print(f"cluster probe K1 N={N_} B={B} {iters} iterations {kw}: plan "
+              f"{t0:.3f} ms ({describe(plan, K.tile_occupancy(plan))})",
+              flush=True)
+        for label, other in others:
+            if other is None:
+                continue
+            out, t = time_plan(K, "fused_tile_plan", other, f)
+            exact = all(torch.equal(a, b) for a, b in zip(out, base))
+            print(f"cluster probe K1 N={N_}: {label} {t:.3f} ms, bit-equal "
+                  f"{exact} ({describe(other, K.tile_occupancy(other))})",
+                  flush=True)
+        del m, f
+
+    def k2_case(N_, B, kw, others):
+        p, c = quad_problem(N_, dev)
+        tm = build_condensed_taylor(p, c)
+        full = dict(plant=None, nx=12, nu=4, N=N_, max_iter=150,
+                    abs_pri_tol=1e-3, abs_dua_tol=1e-3,
+                    en_state_bound=False, en_input_bound=True,
+                    relaxation_alpha=1.0, adaptive_rho_min=5.0,
+                    adaptive_rho_max=1e3, adaptive_rho_clipping=True,
+                    check_termination=1, controller="termination",
+                    taylor_trust=2.0, warm_start=False, carry_out=False)
+        full.update(kw)
+        f = functools.partial(K2.condensed_adaptive_cuda, tm, p.u_min,
+                              p.u_max, p.x_min, p.x_max, x0s(B), None,
+                              **full)
+        reduced = bool(kw)
+        plan = K2.adaptive_tile_plan(12, 4, N_, 2, reduced)
+        base, t0 = time_plan(K2, "adaptive_tile_plan", plan, f)
+        print(f"cluster probe K2 N={N_} B={B} {kw}: plan {t0:.3f} ms "
+              f"({describe(plan, K2.adaptive_occupancy(plan))})", flush=True)
+        for label, other in others:
+            if other is None:
+                continue
+            out, t = time_plan(K2, "adaptive_tile_plan", other, f)
+            exact = all(torch.equal(a, b) for a, b in zip(out, base))
+            print(f"cluster probe K2 N={N_}: {label} {t:.3f} ms, bit-equal "
+                  f"{exact} ({describe(other, K2.adaptive_occupancy(other))})",
+                  flush=True)
+        del tm, f
+
+    # the clusters the card holds at once for each size, at one block an SM
+    for C in K.CLUSTER_SIZES:
+        pl = K.cluster_tile_plan(12, 4, 150, blocks=C)
+        if pl is not None:
+            print(f"cluster probe: a cluster of {C} blocks of {pl.smem} B: "
+                  f"{K.tile_occupancy(pl)} at once", flush=True)
+    lo = dict(precision="default", check_termination=5)
+    for N_, B, iters, alt in ((150, 8192, 100, (4, 6, 8)),
+                              (387, 4096, 50, (8,))):
+        k1_case(N_, B, iters, {},
+                [("w2 in global memory", k1_global(N_, False))]
+                + [(f"cluster of {C}", K.cluster_tile_plan(12, 4, N_,
+                                                            blocks=C))
+                   for C in alt])
+    k1_case(150, 2048, 20, lo, [("w2 in global memory", k1_global(150, True))])
+    for N_ in (57, 75, 90, 99):
+        k1_case(N_, 8192, 100, {},
+                [("the cluster", K.cluster_tile_plan(12, 4, N_)),
+                 ("w2 in shared memory", K.shared_tile_plan(12, 4, N_))])
+    for N_, alt in ((150, (4, 6, 8)), (213, (8,))):
+        k2_case(N_, 2048, {},
+                [("iterates in global memory", k2_global(N_, False))]
+                + [(f"cluster of {C}", K2.cluster_adaptive_plan(
+                    12, 4, N_, 2, blocks=C)) for C in alt])
+    k2_case(150, 2048, lo, [("iterates in global memory",
+                             k2_global(150, True))])
+    for N_ in (20, 76, 90, 133):
+        k2_case(N_, 2048, {},
+                [("the cluster", K2.cluster_adaptive_plan(12, 4, N_, 2)),
+                 ("iterates in shared memory", K2.shared_adaptive_plan(
+                     12, 4, N_, 2))]
+                + [(f"cluster of {C}", K2.cluster_adaptive_plan(
+                    12, 4, N_, 2, blocks=C)) for C in (2, 4) if N_ > 20])
 
 
 def build_kernels():

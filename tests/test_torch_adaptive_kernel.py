@@ -412,23 +412,29 @@ def test_tile_plan():
             > (wide.passes1 - 1) * wide.width
         assert wide.passes2 * wide.width >= 4 * su
         assert wide.passes1 > 1
-    # tiles of 32 lanes while their iterates fit beside the slab ring (sw
-    # 1,196 in fp32, N = 75; 860 with the bf16 maps and operand, N = 54),
-    # then tiles of 16 (every width the one-thread-a-lane kernel took, sw
-    # 1,436 at N = 90, and more), then tiles of 32 whose iterates live in
-    # global memory, streamed beside the maps
+    # in shared memory, tiles of 32 lanes while their iterates fit beside
+    # the slab ring (sw 1,196 in fp32, N = 75; 860 with the bf16 maps and
+    # operand, N = 54), then tiles of 16 (sw 1,436 at N = 90, and more),
+    # then none; from K2_CLUSTER_FROM_WIDTH (where the cluster beat the
+    # tiles of 16 on the card) or past the last shared layout, a tile of
+    # 32 split over a thread block cluster
     assert K2.adaptive_tile_plan(12, 4, 75, 2).tile == 32
     assert K2.adaptive_tile_plan(12, 4, 54, 2, reduced=True).tile == 32
     for N_, reduced in ((76, False), (90, False), (133, False), (55, True),
                         (94, True)):
-        p = K2.adaptive_tile_plan(12, 4, N_, 2, reduced)
+        p = K2.shared_adaptive_plan(12, 4, N_, 2, reduced)
         assert (p.tile, p.rpt, p.width) == (16, 8, 256)
         assert p.passes1 * p.width >= 16 * N_ - 4
+        q = K2.adaptive_tile_plan(12, 4, N_, 2, reduced)
+        assert q == (p if 16 * N_ - 4 < K2.K2_CLUSTER_FROM_WIDTH else
+                     K2.cluster_adaptive_plan(12, 4, N_, 2, reduced))
     for N_, reduced in ((134, False), (95, True)):
+        assert K2.shared_adaptive_plan(12, 4, N_, 2, reduced) is None
         p = K2.adaptive_tile_plan(12, 4, N_, 2, reduced)
-        assert (p.tile, p.rpt, p.iterates_global) == (32, 20, True)
-        assert not p.resident and not p.state_shared
-        assert p.passes1 * p.width >= 16 * N_ - 4
+        assert (p.tile, p.rpt, p.iterates_global) == (32, K2.K2_CLUSTER_RPT,
+                                                      False)
+        assert p.cluster > 1 and not p.resident and not p.state_shared
+        assert p.ld1 >= 16 * N_ - 4 and p.ld2 >= 16 * (N_ - 1)
         assert p.smem <= K.SMEM_PER_BLOCK
 
 

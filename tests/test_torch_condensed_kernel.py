@@ -203,33 +203,43 @@ def test_tile_plan():
 
 def test_tile_plan_for_wide_maps():
     """The quadrotor at N = 40 and 57 (sw 636, 908), widths a one-pass plan
-    refused: the product in passes of 16 RPT rows, every layout within one
-    block's shared memory, the state in global memory beside w2; reduced
-    iterations at 908 take 8 passes of 128 rows (the bf16 ring and the
-    rounded w2 then fit); the widest maps a tile leaves room for."""
+    refused: w2 in shared memory, the product in passes of 16 RPT rows,
+    every layout within one block's shared memory, the state in global
+    memory beside w2; reduced iterations at 908 take 8 passes of 128 rows
+    (the bf16 ring and the rounded w2 then fit); the widest maps a tile
+    leaves room for.  From CLUSTER_FROM_WIDTH (sw 908, where the cluster
+    first beat them on the card) the plan splits the tile over a
+    cluster."""
     for N_, sw in ((40, 636), (57, 908)):
         for reduced in (False, True):
             for state_free in (True, False):
-                plan = K.fused_tile_plan(12, 4, N_, reduced, state_free)
+                plan = K.shared_tile_plan(12, 4, N_, reduced, state_free)
                 assert plan.passes > 1 and not plan.state_shared
                 assert plan.rows == plan.passes * K.TILE_ROW_GROUPS \
                     * plan.rpt
                 assert plan.rows >= sw > plan.rows - plan.rows // plan.passes
                 assert plan.smem <= K.SMEM_PER_BLOCK
                 assert plan.kp >= sw and plan.kp % K.KP_ALIGN == 0
+                assert K.fused_tile_plan(12, 4, N_, reduced, state_free) \
+                    == (plan if sw < K.CLUSTER_FROM_WIDTH else
+                        K.cluster_tile_plan(12, 4, N_, reduced))
     assert K.fused_tile_plan(12, 4, 40).rpt == 20
-    lo = K.fused_tile_plan(12, 4, 57, reduced=True)
+    lo = K.shared_tile_plan(12, 4, 57, reduced=True)
     assert (lo.passes, lo.rpt) == (8, 8)
     # the widest maps a tile leaves room for w2 in shared memory (sw 1,580
-    # in fp32, 1,052 with reduced iterations); one stage further, w2 in
-    # global memory streamed beside the map, 32 rows a thread in passes of
-    # 512 rows
-    assert not K.fused_tile_plan(12, 4, 99).w2_global
-    assert not K.fused_tile_plan(12, 4, 66, reduced=True).w2_global
-    for N_, reduced in ((100, False), (67, True)):
+    # in fp32, 1,052 with reduced iterations); past them, and from
+    # CLUSTER_FROM_WIDTH, the tile split over a cluster, 8 lanes x 8 rows a
+    # thread in passes of 512 rows over a block's slice
+    assert not K.shared_tile_plan(12, 4, 99).w2_global
+    assert not K.shared_tile_plan(12, 4, 66, reduced=True).w2_global
+    assert K.shared_tile_plan(12, 4, 100) is None
+    assert K.shared_tile_plan(12, 4, 67, reduced=True) is None
+    for N_, reduced in ((100, False), (67, True), (99, False)):
         p = K.fused_tile_plan(12, 4, N_, reduced)
-        assert (p.tile, p.w2_global, p.rpt) == (32, True, K.W2_GLOBAL_RPT)
-        assert p.rows == p.passes * K.TILE_ROW_GROUPS * 32 >= 16 * N_ - 4
+        assert (p.tile, p.w2_global, p.rpt) == (32, False, K.CLUSTER_RPT)
+        assert p.cluster in K.CLUSTER_SIZES
+        assert p.rows == p.cluster * p.passes * K.TILE_ROW_GROUPS * 32 \
+            >= 16 * N_ - 4
         assert p.smem <= K.SMEM_PER_BLOCK
 
 
@@ -880,8 +890,8 @@ def _quad_solver(solver, horizon, **settings):
 
 def test_wide_map_solve_batch_matches_jax():
     """The quadrotor at N = 110 (sw 1,756), wider than a tile's w2 in
-    shared memory leaves room for (the card keeps w2 in global memory
-    there): JAX's
+    shared memory leaves room for (the card splits the tile over a thread
+    block cluster there): JAX's
     ``solve_batch(method="fused")`` (the Pallas kernel in interpret mode
     off the TPU) against the port's on the CPU (the plain version), f32,
     B = 8, 20 iterations, both from the JAX side's f32 cache: the same
@@ -890,7 +900,7 @@ def test_wide_map_solve_batch_matches_jax():
     import tinympc_julia_tpu as J
     import tinympc_julia_tpu_torch as P
     horizon = 110
-    assert K.fused_tile_plan(12, 4, horizon).w2_global
+    assert K.fused_tile_plan(12, 4, horizon).cluster > 1
     settings = dict(max_iter=20, relaxation_alpha=1.7)
     js = _quad_solver(J.TinyMPCSolver(dtype=jnp.float32), horizon, **settings)
     ps = _quad_solver(P.TinyMPCSolver(dtype=torch.float32, device="cpu"),
@@ -947,40 +957,191 @@ BUDGET_FIXED = [(12, 4, 387), (4, 1, 1295), (6, 3, 643)]
 BUDGET_ADAPTIVE = [(12, 4, 213), (4, 1, 718), (6, 3, 352)]
 
 
-@pytest.mark.parametrize("shape", BUDGET_FIXED,
-                         ids=["quadrotor", "cartpole", "rocket"])
+def _check_slices(nx, nu, N_, blocks, stages, per_block):
+    """A cluster's stage bounds: whole stages, each block at least one,
+    the blocks' rows covering the map's in order, each within its padded
+    ``per_block`` rows, and as even as whole stages allow."""
+    sw = (N_ - 1) * nu + N_ * nx
+    assert len(stages) == blocks + 1
+    assert stages[0] == 0 and stages[-1] == 2 * N_ - 1
+    assert all(a < b for a, b in zip(stages[:-1], stages[1:]))
+    spans = K.slice_rows(nx, nu, N_, stages)
+    starts = {0}
+    for k in range(2 * N_ - 1):
+        starts.add(max(starts) + (nu if k < N_ - 1 else nx))
+    assert spans[0][0] == 0 and spans[-1][1] == sw
+    for c, (a, b) in enumerate(spans):
+        assert a in starts and b in starts  # on stage boundaries
+        assert 0 < b - a <= per_block
+        if c:
+            assert a == spans[c - 1][1]
+            assert abs(a - c * sw / blocks) <= max(nx, nu)
+
+
+@pytest.mark.parametrize("shape,blocks", [
+    (BUDGET_FIXED[0], 7), (BUDGET_FIXED[1], 7), (BUDGET_FIXED[2], 8)],
+    ids=["quadrotor", "cartpole", "rocket"])
 @pytest.mark.parametrize("reduced", [False, True], ids=["fp32", "reduced"])
-def test_fixed_rho_plan_at_the_budget_width(shape, reduced):
-    """K1 at the widest map the JAX package condenses: tiles of 32 lanes
-    with w2 in global memory, streamed beside the map, 32 rows a thread in
-    passes of 512 rows; the block's shared memory does not depend on the
-    width."""
+def test_fixed_rho_plan_at_the_budget_width(shape, blocks, reduced):
+    """K1 at the widest map the JAX package condenses: a tile of 32 lanes
+    split over a thread block cluster, each block a slice of whole stages
+    with its rows of w2 in its shared memory (the bf16 w2 of reduced
+    iterations in global memory), 8 lanes x 8 rows a thread in passes of
+    512 rows; the cluster size whose passes cost the card least."""
     nx, nu, N_ = shape
     sw = (N_ - 1) * nu + N_ * nx
     for state_free in (True, False):
         p = K.fused_tile_plan(nx, nu, N_, reduced, state_free)
         assert (p.tile, p.w2_global, p.rpt, p.resident, p.state_shared) \
-            == (32, True, K.W2_GLOBAL_RPT, False, False)
-        assert p.rows == p.passes * 512 >= sw > p.rows - 512
-        assert p.smem == K.fused_tile_plan(12, 4, 200, reduced).smem
+            == (32, False, K.CLUSTER_RPT, False, False)
+        assert p.cluster == blocks
+        assert p.stages == K.stage_slices(nx, nu, N_, blocks)
+        assert p.rows == blocks * p.passes * 512 >= sw
+        _check_slices(nx, nu, N_, blocks, p.stages, p.passes * 512)
+        rows = max(b - a for a, b in K.slice_rows(nx, nu, N_, p.stages))
+        assert p.smem == K.cluster_smem(rows, reduced)
         assert p.smem <= K.SMEM_PER_BLOCK
+        assert p == K.cluster_tile_plan(nx, nu, N_, reduced, blocks=blocks)
+        # no cluster size whose slices fit costs the card less
+        cost = K.pass_cost(rows) * blocks / K.CLUSTER_SMS[blocks]
+        for C in K.CLUSTER_SIZES:
+            other = K.cluster_tile_plan(nx, nu, N_, reduced, blocks=C)
+            if other is not None:
+                r = max(b - a for a, b in K.slice_rows(nx, nu, N_,
+                                                        other.stages))
+                assert K.pass_cost(r) * C / K.CLUSTER_SMS[C] >= cost
 
 
-@pytest.mark.parametrize("shape", BUDGET_ADAPTIVE,
-                         ids=["quadrotor", "cartpole", "rocket"])
+@pytest.mark.parametrize("shape", [(12, 4, 150), (12, 4, 60), (4, 1, 300),
+                                   (6, 3, 100), (20, 9, 40)],
+                         ids=["quadrotor150", "quadrotor60", "cartpole300",
+                              "rocket100", "chain40"])
+def test_cluster_slices_end_on_stage_boundaries(shape):
+    """Every cluster size's slices (K1's and K2's stage bounds, K2's input
+    stages of d) are whole stages, in order, as even as stages allow."""
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    nx, nu, N_ = shape
+    for C in K.CLUSTER_SIZES:
+        stages = K.stage_slices(nx, nu, N_, C)
+        _check_slices(nx, nu, N_, C, stages, 1 << 30)
+        p2 = K2.cluster_adaptive_plan(nx, nu, N_, 2, blocks=C)
+        if p2 is not None:
+            assert p2.stages == stages
+            u = p2.ustages
+            assert u[0] == 0 and u[-1] == N_ - 1
+            assert all(0 < b - a for a, b in zip(u[:-1], u[1:]))
+            assert max(b - a for a, b in zip(u[:-1], u[1:])) \
+                - min(b - a for a, b in zip(u[:-1], u[1:])) <= 1
+    assert K.stage_slices(12, 4, 3, 8) is None  # 5 stages, 8 blocks
+
+
+@pytest.mark.parametrize("horizon", [1000, 3000], ids=["n1000", "n3000"])
+def test_width_past_a_cluster_of_8_still_gets_a_plan(horizon):
+    """Past a cluster of 8's slices in shared memory (the quadrotor at N =
+    1,000, sw 15,996; 3,000), K1 keeps w2 and K2 its iterates in global
+    memory streamed beside the maps, whose shared memory does not depend on
+    the width: no cap comes back."""
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    for reduced in (False, True):
+        assert K.cluster_tile_plan(12, 4, horizon, reduced) is None
+        p = K.fused_tile_plan(12, 4, horizon, reduced)
+        assert (p.cluster, p.w2_global, p.rpt) == (1, True, K.W2_GLOBAL_RPT)
+        assert p.rows >= 16 * horizon - 4
+        assert p.smem == K.fused_tile_plan(12, 4, 200 * 10, reduced).smem
+        assert K2.cluster_adaptive_plan(12, 4, horizon, 2, reduced) is None
+        q = K2.adaptive_tile_plan(12, 4, horizon, 2, reduced)
+        assert (q.cluster, q.iterates_global) == (1, True)
+        assert q.ld1 >= 16 * horizon - 4 and q.smem <= K.SMEM_PER_BLOCK
+
+
+# the plans at the main shapes as 9d6d48e made them: (shape, reduced,
+# state_free) -> K1's TilePlan fields, K2's AdaptivePlan fields (order 2)
+MAIN_SHAPE_PLANS = [
+    ((4, 1, 20), False, True, (32, 256, True, True, 128, 128, 95376, 1, False),
+     (32, 256, 8, 1, 1, True, True, 32, 128, 131728, False)),
+    ((4, 1, 20), False, False, (32, 256, True, True, 128, 128, 105616, 1,
+                                False),
+     (32, 256, 8, 1, 1, True, True, 32, 128, 141968, False)),
+    ((4, 1, 20), True, True, (32, 256, True, True, 128, 128, 138896, 1, False),
+     (32, 256, 8, 1, 1, True, True, 32, 128, 205968, False)),
+    ((4, 1, 20), True, False, (32, 256, True, True, 128, 128, 149136, 1,
+                               False),
+     (32, 256, 8, 1, 1, True, True, 32, 128, 216208, False)),
+    ((6, 3, 10), False, True, (32, 256, True, True, 128, 96, 85648, 1, False),
+     (32, 256, 8, 1, 1, True, True, 64, 96, 140176, False)),
+    ((6, 3, 10), False, False, (32, 256, True, True, 128, 96, 93328, 1, False),
+     (32, 256, 8, 1, 1, True, True, 64, 96, 147856, False)),
+    ((6, 3, 10), True, True, (32, 256, True, True, 128, 96, 118928, 1, False),
+     (32, 256, 8, 1, 1, True, True, 64, 96, 228752, False)),
+    ((6, 3, 10), True, False, (32, 256, True, True, 128, 96, 126608, 1,
+                               False),
+     (32, 256, 8, 1, 1, False, True, 64, 96, 81808, False)),
+    ((12, 4, 20), False, True, (32, 256, False, True, 320, 320, 196752, 1,
+                                False),
+     (32, 256, 20, 1, 1, False, True, 96, 320, 176272, False)),
+    ((12, 4, 20), False, False, (32, 256, False, True, 320, 320, 227472, 1,
+                                 False),
+     (32, 256, 20, 1, 1, False, True, 96, 320, 206992, False)),
+    ((12, 4, 20), True, True, (32, 256, False, True, 320, 320, 217744, 1,
+                               False),
+     (32, 256, 20, 1, 1, False, True, 96, 320, 197264, False)),
+    ((12, 4, 20), True, False, (32, 256, False, False, 320, 320, 127120, 1,
+                                False),
+     (32, 256, 20, 1, 1, False, True, 96, 320, 227984, False)),
+    ((12, 4, 32), False, True, (32, 256, False, False, 512, 512, 167568, 1,
+                                False),
+     (32, 256, 20, 2, 2, False, False, 160, 512, 156816, False)),
+    ((12, 4, 32), True, False, (32, 256, False, False, 512, 512, 200848, 1,
+                                False),
+     (32, 256, 20, 2, 2, False, False, 160, 512, 190096, False)),
+    ((12, 4, 40), False, True, (32, 256, False, False, 640, 640, 147088, 2,
+                                False),
+     (32, 256, 20, 2, 2, False, False, 192, 640, 177296, False)),
+    ((12, 4, 40), True, False, (32, 256, False, False, 640, 640, 188560, 2,
+                                False),
+     (32, 256, 20, 2, 2, False, False, 192, 640, 218768, False)),
+]
+
+
+@pytest.mark.parametrize("shape,reduced,state_free,k1,k2", MAIN_SHAPE_PLANS,
+                         ids=[f"{s[0][0]}x{s[0][1]}-N{s[0][2]}"
+                              f"-{'lo' if s[1] else 'fp32'}"
+                              f"-{'free' if s[2] else 'dual'}"
+                              for s in MAIN_SHAPE_PLANS])
+def test_main_shape_plans_are_unchanged(shape, reduced, state_free, k1, k2):
+    """The cartpole at N = 20, the rocket at N = 10 and the quadrotor at N
+    = 20, 32 and 40 keep the plans they had before the cluster layout,
+    field for field: no cluster, nothing in global memory."""
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    p = K.fused_tile_plan(*shape, reduced, state_free)
+    assert p == K.TilePlan(*k1) and (p.cluster, p.stages) == (1, ())
+    q = K2.adaptive_tile_plan(*shape, 2, reduced, state_free)
+    assert q == K2.AdaptivePlan(*k2) and (q.cluster, q.stages) == (1, ())
+
+
+@pytest.mark.parametrize("shape,blocks", [
+    (BUDGET_ADAPTIVE[0], 7), (BUDGET_ADAPTIVE[1], 8), (BUDGET_ADAPTIVE[2], 5)],
+    ids=["quadrotor", "cartpole", "rocket"])
 @pytest.mark.parametrize("reduced", [False, True], ids=["fp32", "reduced"])
-def test_adaptive_plan_at_the_budget_width(shape, reduced):
-    """K2 at the widest Taylor maps the JAX package condenses: tiles of 32
-    lanes whose iterates live in global memory and stream beside the
-    maps."""
+def test_adaptive_plan_at_the_budget_width(shape, blocks, reduced):
+    """K2 at the widest Taylor maps the JAX package condenses: a tile of 32
+    lanes split over a thread block cluster, block c the rows of ux of
+    whole stages and the rows of d of whole input stages in its shared
+    memory; the cluster size whose passes cost the card least."""
     from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
     nx, nu, N_ = shape
     sw, su = (N_ - 1) * nu + N_ * nx, (N_ - 1) * nu
     for state_free in (True, False):
         p = K2.adaptive_tile_plan(nx, nu, N_, 2, reduced, state_free)
-        assert (p.tile, p.iterates_global, p.rpt, p.resident) == (
-            32, True, K2.K2_GLOBAL_RPT, False)
-        assert p.ld1 >= sw and p.ld2 >= 4 * su
+        assert (p.tile, p.iterates_global, p.rpt, p.resident,
+                p.state_shared) == (32, False, K2.K2_CLUSTER_RPT, False,
+                                    False)
+        assert p.cluster == blocks
+        assert p.ld1 == blocks * p.passes1 * 512 >= sw
+        assert p.ld2 == blocks * p.passes2 * 512 >= 4 * su
+        _check_slices(nx, nu, N_, blocks, p.stages, p.passes1 * 512)
+        assert max(b - a for a, b in zip(p.ustages[:-1], p.ustages[1:])) \
+            * 4 * nu <= p.passes2 * 512
         assert p.smem <= K.SMEM_PER_BLOCK
 
 

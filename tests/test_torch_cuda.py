@@ -412,7 +412,7 @@ def _counts_and_values_agree(k, r):
     (57, dict(max_iter=400)),
     (57, dict(max_iter=200, bf16_head_iters=16)),
 ], ids=["sw636", "sw636-default", "sw908", "sw908-head16"])
-def test_wide_map_matches_plain_version(dev, horizon, kw):
+def test_wide_map_matches_plain_version(dev, monkeypatch, horizon, kw):
     """K1 at the quadrotor's horizons 40 and 57 (maps of 636 and 908 rows,
     wider than the product's 16 thread rows cover at once): the product in
     passes, the first passes' sums parked; fp32 and reduced (every
@@ -426,8 +426,11 @@ def test_wide_map_matches_plain_version(dev, horizon, kw):
     c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
     maps = build_condensed(p, c)
     reduced = "precision" in kw or "bf16_head_iters" in kw
-    plan = K.fused_tile_plan(12, 4, horizon, reduced)
+    # w2 in shared memory, in passes (from sw 908 the plan itself takes the
+    # cluster layout, which the cluster tests cover)
+    plan = K.shared_tile_plan(12, 4, horizon, reduced)
     assert plan.passes > 1
+    _forced(monkeypatch, K, "fused_tile_plan", plan)
     x0 = _x0(256 if "precision" in kw else 1024, 12, 3, 0.3, dev)
     args = (maps, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max, x0)
     full = _kw(12, 4, N=horizon, check_termination=4, **kw)
@@ -516,19 +519,21 @@ def test_adaptive_continuation_matches_plain_version(dev):
                                 dict(max_iter=300, check_termination=5,
                                      precision="default")],
                          ids=["fp32", "default"])
-def test_adaptive_wide_maps_take_tiles_of_16(dev, kw):
+def test_adaptive_wide_maps_take_tiles_of_16(dev, monkeypatch, kw):
     """The quadrotor at N = 80 (sw 1,276): the iterates of 32 lanes leave no
-    room beside the slab ring, so the launch runs tiles of 16 lanes, each
-    product in five passes; against the plain version on K1's bar (at 1,277
-    columns cuBLAS need not sum in index order)."""
+    room beside the slab ring, so the shared-memory layout runs tiles of 16
+    lanes, each product in five passes (forced: from sw 1,212 the plan takes
+    the cluster); against the plain version on K1's bar (at 1,277 columns
+    cuBLAS need not sum in index order)."""
     Nw = 80
     pw = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
                       np.diag(quadrotor.R_DIAG), quadrotor.RHO, Nw,
                       u_min=-0.5, u_max=0.5, dtype=torch.float32,
                       device=dev)
     cw = precompute_cache(pw.A, pw.B, pw.Q, pw.R, pw.rho_setup)
-    plan = K2.adaptive_tile_plan(12, 4, Nw, 2, "precision" in kw)
+    plan = K2.shared_adaptive_plan(12, 4, Nw, 2, "precision" in kw)
     assert plan.tile == 16 and plan.passes1 > 1
+    _forced(monkeypatch, K2, "adaptive_tile_plan", plan)
     args = (build_condensed_taylor(pw, cw), pw.u_min, pw.u_max, pw.x_min,
             pw.x_max, _x0(512, 12, 6, 0.3, dev), None)
     full = _k2_kw(pw, cw, **dict(_QUAD_KW, **kw))
@@ -1368,12 +1373,14 @@ def _chain_x0(B, seed, dev):
 ], ids=["n110-fp32", "n110-head32", "n200-fp32", "n200-head16"])
 def test_wide_map_layouts_match_plain_version(dev, horizon, kw):
     """K1 on maps too wide for a tile's w2 in shared memory: the quadrotor
-    at N = 110 (sw 1,756) and N = 200 (sw 3,196) with w2 in global memory
-    streamed beside the map; fp32 and with a reduced head; the carry too."""
+    at N = 110 (sw 1,756) and N = 200 (sw 3,196), the tile split over a
+    thread block cluster, each block a slice of whole stages with its rows
+    of w2 in its shared memory; fp32 and with a reduced head; the carry
+    too."""
     p, c = _quad(horizon, dev)
     reduced = "bf16_head_iters" in kw
     plan = K.fused_tile_plan(12, 4, horizon, reduced)
-    assert (plan.tile, plan.w2_global) == (32, True)
+    assert plan.tile == 32 and plan.cluster > 1 and not plan.w2_global
     x0 = _x0(300, 12, 3, 0.3, dev)  # a ragged last tile
     args = (build_condensed(p, c), float(c.rho), p.u_min, p.u_max, p.x_min,
             p.x_max, x0, None)
@@ -1500,14 +1507,16 @@ def test_k1e_stage_buffers_agree_bit_for_bit(dev, monkeypatch, case):
 ], ids=["fp32", "default"])
 def test_adaptive_global_iterates_match_plain_version(dev, horizon, kw):
     """K2 on the quadrotor at N = 150 (sw 2,396): the iterates of a tile of
-    16 lanes leave no room, so vec1 and ux live in global memory and stream
-    beside the maps.  Reduced: four bf16 iterations from the cold start
+    16 lanes leave no room, so a tile of 32 splits over a thread block
+    cluster, each block with its slices of vec1 and ux in its shared
+    memory.
+    Reduced: four bf16 iterations from the cold start
     (the plain version sums them as the tensor cores do) and one fp32
     check; later reduced iterations would round the cuBLAS-ordered fp32
     products of 2,397 columns to bf16 and part from the kernel's."""
     p, c = _quad(horizon, dev)
     plan = K2.adaptive_tile_plan(12, 4, horizon, 2, "precision" in kw)
-    assert plan.iterates_global and plan.tile == 32
+    assert plan.tile == 32 and plan.cluster > 1 and not plan.iterates_global
     args = (build_condensed_taylor(p, c), p.u_min, p.u_max, p.x_min,
             p.x_max, _x0(200, 12, 6, 0.3, dev), None)
     full = _k2_kw(p, c, **dict(_QUAD_KW, **dict(dict(max_iter=150), **kw)))
@@ -1606,10 +1615,11 @@ def _forced(monkeypatch, module, name, plan):
 @pytest.mark.parametrize("reduced", [False, True], ids=["fp32", "head8"])
 def test_k1_layouts_agree_bit_for_bit(dev, monkeypatch, horizon, reduced):
     """A lane's result does not depend on its layout: the quadrotor at N =
-    20 (one pass) and N = 60 (sw 956, two passes), launched on its own
-    plan (w2 in shared memory) and forced onto w2 in global memory, gives
-    the same bits (every product sums in index order, the reduced one in
-    the tensor cores' order), carry included."""
+    20 (one pass) and N = 60 (sw 956), launched on its own plan (w2 in
+    shared memory at N = 20, split over a cluster at N = 60) and forced
+    onto w2 in global memory, gives the same bits (every product sums in
+    index order, the reduced one in the tensor cores' order), carry
+    included."""
     p, c = _quad(horizon, dev)
     args = (build_condensed(p, c), float(c.rho), p.u_min, p.u_max, p.x_min,
             p.x_max, _x0(301, 12, 18, 0.3, dev), None)
@@ -1640,9 +1650,9 @@ def test_k1_layouts_agree_bit_for_bit(dev, monkeypatch, horizon, reduced):
                          ids=["fp32", "default"])
 def test_k2_global_iterates_agree_bit_for_bit(dev, monkeypatch, kw, horizon):
     """K2 at the quadrotor's N = 20 (tiles of 32 lanes, one pass each
-    product) and N = 80 (sw 1,276: tiles of 16 lanes, both products in
-    passes) on its own plan and forced onto tiles of 32 lanes with the
-    iterates in global memory, streamed in passes: the same bits, 150
+    product) and N = 80 (sw 1,276: a tile of 32 split over a cluster) on
+    its own plan and forced onto tiles of 32 lanes with the iterates in
+    global memory, streamed in passes: the same bits, 150
     iterations, fp32 and with the reduced products of the iterations that
     neither check nor predict rho."""
     p, c = _quad(horizon, dev)
@@ -1662,6 +1672,67 @@ def test_k2_global_iterates_agree_bit_for_bit(dev, monkeypatch, kw, horizon):
                                             p2, False, False, lo, True,
                                             True),
                            True)
+    _forced(monkeypatch, K2, "adaptive_tile_plan", plan)
+    forced = K2.condensed_adaptive_cuda(*args, **full)
+    torch.cuda.synchronize()
+    for a, b in zip(own[:5], forced[:5]):
+        assert torch.equal(a, b)
+    for a, b in zip(own[5], forced[5]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("blocks", [2, 8], ids=["cluster2", "cluster8"])
+@pytest.mark.parametrize("horizon", [20, 60], ids=["n20", "n60"])
+@pytest.mark.parametrize("reduced", [False, True], ids=["fp32", "head8"])
+def test_k1_cluster_agrees_bit_for_bit(dev, monkeypatch, horizon, reduced,
+                                       blocks):
+    """The quadrotor at N = 20 and 60 forced onto w2 in shared memory (one
+    pass; two passes of 512 rows) and onto a cluster of 2 or 8 blocks (each
+    a slice of whole stages; at N = 60 a cluster of 2 runs two passes a
+    block): the same bits, carry included, fp32 and with a reduced
+    head."""
+    p, c = _quad(horizon, dev)
+    args = (build_condensed(p, c), float(c.rho), p.u_min, p.u_max, p.x_min,
+            p.x_max, _x0(301, 12, 18, 0.3, dev), None)
+    kw = dict(bf16_head_iters=8, check_termination=4) if reduced else {}
+    full = _kw(12, 4, N=horizon, max_iter=120, relaxation_alpha=1.7, **kw)
+    shared = K.shared_tile_plan(12, 4, horizon, reduced)
+    assert shared.cluster == 1
+    _forced(monkeypatch, K, "fused_tile_plan", shared)
+    own = K.condensed_fused_cuda(*args, **full)
+    plan = K.cluster_tile_plan(12, 4, horizon, reduced, blocks=blocks)
+    assert plan.cluster == blocks
+    _forced(monkeypatch, K, "fused_tile_plan", plan)
+    before = K.condensed_fused_cuda.launches
+    forced = K.condensed_fused_cuda(*args, **full)
+    torch.cuda.synchronize()
+    assert K.condensed_fused_cuda.launches == before + 1
+    for a, b in zip(own[:4], forced[:4]):
+        assert torch.equal(a, b)
+    for a, b in zip(own[4], forced[4]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("horizon", [80, 90], ids=["n80", "n90"])
+@pytest.mark.parametrize("kw", [{}, dict(precision="default",
+                                          check_termination=5)],
+                         ids=["fp32", "default"])
+def test_k2_cluster_agrees_bit_for_bit(dev, monkeypatch, kw, horizon):
+    """K2 at the quadrotor's N = 80 and 90 forced onto tiles of 16 lanes in
+    shared memory (both products in passes) and onto a cluster of 8 blocks
+    sharing a tile of 32: the same bits, 150 iterations, carry included,
+    fp32 and with the reduced products of the iterations that neither check
+    nor predict rho."""
+    p, c = _quad(horizon, dev)
+    args = (build_condensed_taylor(p, c), p.u_min, p.u_max, p.x_min,
+            p.x_max, _x0(301, 12, 19, 0.3, dev), None)
+    full = _k2_kw(p, c, **dict(_QUAD_KW, max_iter=150, **kw))
+    lo = "precision" in kw
+    shared = K2.shared_adaptive_plan(12, 4, horizon, 2, lo)
+    assert (shared.tile, shared.cluster) == (16, 1)
+    _forced(monkeypatch, K2, "adaptive_tile_plan", shared)
+    own = K2.condensed_adaptive_cuda(*args, **full)
+    plan = K2.cluster_adaptive_plan(12, 4, horizon, 2, lo, blocks=8)
     _forced(monkeypatch, K2, "adaptive_tile_plan", plan)
     forced = K2.condensed_adaptive_cuda(*args, **full)
     torch.cuda.synchronize()

@@ -47,10 +47,23 @@
 //  * The lanes' iterates vec1 = [d; x0; 1] and ux / vec2 = [znew - y;
 //    vnew - g; 1] live in shared memory as [row][lane]; so do the duals and
 //    slacks (y, z, v, g) where they fit, else they stay in the (dim, B)
-//    outputs.  Where even the iterates of a tile of 16 lanes leave no room
-//    beside the ring (the widest maps), vec1 and ux live in global memory,
-//    each tile its own columns, and stream through the ring beside the
-//    maps' slabs (kWG, tile_gemm.cuh); the sums keep their order.
+//    outputs.
+//  * From K2_CLUSTER_FROM_WIDTH, or where even the iterates of a tile of
+//    16 lanes leave no room beside the ring, a tile of 32 splits over a
+//    thread block cluster of 2-8 blocks (In::kCluster, tile_gemm.cuh):
+//    block c owns the rows of ux of whole stages (the forward product's
+//    output and the elementwise step) and the rows of d of whole input
+//    stages (the backward product's output), the last block also x0's and
+//    the 1s; each keeps its rows of vec1 and ux in its shared memory and
+//    fetches the others' k-rows over distributed shared memory.  Cluster
+//    barriers order each product after every block's last read of its
+//    output and its inputs' last writes; the residual and OSQP-form maxima
+//    meet over the cluster, so every block predicts the same rho and
+//    latches the same lanes; the OSQP-form residuals read the next stage's
+//    rows of ux from a global copy.  Where even a cluster of 8's slices
+//    leave no room, vec1 and ux live in global memory, each tile its own
+//    columns, and stream through the ring beside the maps' slabs
+//    (In::kGlobal).  The sums keep their order in every layout.
 //  * The elementwise step runs on all threads, 256 / T a lane: relaxation,
 //    projections, residuals and dual ascent (tile_gemm.cuh,
 //    projections.cuh), and the OSQP-form prediction stage by stage; the
@@ -77,9 +90,10 @@
 //    lane = g * L + l, and rho stays per lane.
 //
 // Launch contract: the Python wrapper (adaptive_tile_plan) picks the tile
-// and the rows a thread (32 lanes with 8 or 20 rows, 16 lanes with 8, and
-// 32 lanes with 20 and the iterates in global memory: the instances), the
-// passes, the padded layouts, the
+// and the rows a thread (32 lanes with 8 or 20 rows, 16 lanes with 8, 32
+// lanes with 20 and the iterates in global memory, and 32 lanes with 32
+// split over a cluster: the instances), the cluster and its blocks'
+// stages, the passes, the padded layouts, the
 // residency of maps and state and the dynamic shared-memory size; the entry
 // point refuses a layout the kernel would overrun.
 #include <cuda_bf16.h>
@@ -138,13 +152,24 @@ struct Params {
                       // and every stage's for the OSQP-form residuals; null
                       // where neither runs
   float* dsc;         // (sw, B) the OSQP-form residuals' new duals
-  float* vecg;        // (in1, ldg) the tiles' vec1 in global memory (kWG)
-  float* uxg;         // (sw + 1, ldg) their ux / vec2 (kWG)
+  float* vecg;        // (in1, ldg) the tiles' vec1 in global memory
+  float* uxg;         // (sw + 1, ldg) their ux / vec2 (both kGlobal)
   __nv_bfloat16* w2hg;  // (ldg, max(kp1, kp2)) a product's rounded input
-                        // (kWG, reduced)
+                        // (kGlobal, reduced)
+  float* uxo;         // (sw, B) ux for the OSQP-form residuals (kCluster)
   int nx, nu, N, su, sx, sw, in1, B, L;  // B = G * L lanes
   int tiles, ldg;     // tiles a group; columns of the tiles' global arrays
   int ord1, ld1, ld2, kp1, kp2, passes1, passes2;
+  // a cluster of ``cluster`` blocks a tile (kCluster; 1 otherwise): block c
+  // owns stages [stages[c], stages[c + 1]) of the list of the N - 1 input
+  // stages then the N state stages (its rows of ux, the forward product's
+  // output) and input stages [ustages[c], ustages[c + 1]) (its rows of d,
+  // the backward product's); the last block also the rows of x0 and the
+  // constant 1 of vec1 and the 1 of vec2.  rows1 / rows2: the most rows of
+  // vec1 / ux a block owns.
+  int cluster, rows1, rows2;
+  int stages[kMaxCluster + 1], ustages[kMaxCluster + 1];
+  int cones_shared;   // the cones' pairs staged in shared memory
   int max_iter, ct, lo_all;
   float alpha, one_m_alpha, pri_tol, dua_tol;
   float rho_min, rho_max;
@@ -162,26 +187,29 @@ __host__ __device__ inline int state_rows(int su, int sx, bool state_free) {
 }
 
 // Byte offsets of the block's shared memory for a tile of T lanes: vec1
-// (in1 x T floats), ux / vec2 (sw + 1 rows; neither with wg, where they
-// live in global memory and stream beside each ring slab), the latch flags
-// (T + 1 ints),
-// the lanes' rho before and after the update (2 x T), the elementwise
-// partials (3 float4 a
-// thread), the lanes' duals and slacks where resident, the map region
-// (resident: both fp32 maps, then both bf16 ones with reduced iterations;
-// streamed: the slab ring), the bf16 product input ([lane][k], reduced
-// only).
+// (rows1 x T floats: in1 rows, or a cluster block's own), ux / vec2
+// (rows2: sw + 1, or the block's own; neither with kGlobal, where they live
+// in global memory and stream beside each ring slab), the latch flags
+// (T + 1 ints), the lanes' rho before and after the update (2 x T), the
+// elementwise partials (3 float4 a thread), the lanes' duals and slacks
+// where resident, with kCluster the cluster's meta (kClusterMeta), the map
+// region (resident: both fp32 maps, then both bf16 ones with reduced
+// iterations; streamed: the slab ring), the bf16 product input ([lane][k],
+// reduced only; in global memory with kGlobal and kCluster).
 struct K2Layout {
-  size_t ux, flags, rho, red, state, map, t2, t1a, t2a, w2h, total;
+  size_t ux, flags, rho, red, state, meta, map, t2, t1a, t2a, w2h, total;
 };
 
 __host__ __device__ inline K2Layout k2_layout(
-    int T, bool wg, int W, int in1, int sw, int ord1, int ld1, int ld2,
-    int kp1, int kp2, int state_floats, bool resident, bool reduced) {
+    int T, In in, int W, int rows1, int rows2, int in1, int sw, int ord1,
+    int ld1, int ld2, int kp1, int kp2, int state_floats, bool resident,
+    bool reduced) {
   K2Layout t;
-  size_t off = wg ? 0 : up16(sizeof(float) * static_cast<size_t>(in1) * T);
+  const bool wg = in == In::kGlobal;
+  size_t off =
+      wg ? 0 : up16(sizeof(float) * static_cast<size_t>(rows1) * T);
   t.ux = off;
-  if (!wg) off += up16(sizeof(float) * static_cast<size_t>(sw + 1) * T);
+  if (!wg) off += up16(sizeof(float) * static_cast<size_t>(rows2) * T);
   t.flags = off;
   off += up16(sizeof(int) * (T + 1));
   t.rho = off;
@@ -190,6 +218,8 @@ __host__ __device__ inline K2Layout k2_layout(
   off += up16(sizeof(float) * 12 * kThreads);
   t.state = off;
   off += up16(sizeof(float) * static_cast<size_t>(state_floats) * T);
+  t.meta = off;
+  if (in == In::kCluster) off += kClusterMeta;
   t.map = off;
   if (resident) {
     off += up16(sizeof(float) * static_cast<size_t>(ord1) * in1 * ld1);
@@ -202,24 +232,31 @@ __host__ __device__ inline K2Layout k2_layout(
     if (reduced) off += up16(2 * static_cast<size_t>(ld2) * (kp2 + kPadLo));
   } else {
     t.t2 = t.t1a = t.t2a = off;
-    const int wt = wg ? T : 0;
+    const int wt = in == In::kShared ? 0 : T;
     off += up16(ring_bytes(W, reduced, wt) > ring_bytes(W, false, wt)
                     ? ring_bytes(W, reduced, wt)
                     : ring_bytes(W, false, wt));
   }
   t.w2h = off;
   const int kp = kp1 > kp2 ? kp1 : kp2;
-  if (reduced && !wg)
+  if (reduced && in == In::kShared)
     off += up16(2 * static_cast<size_t>(T) * (kp + kPadLo));
   t.total = off;
   return t;
 }
 
+// Row of the first entry of stage s of the list of the N - 1 input stages
+// then the N state stages.
+__host__ __device__ inline int stage_row(int s, int nu, int nx, int n_u) {
+  return s <= n_u ? s * nu : n_u * nu + (s - n_u) * nx;
+}
+
 // What one block works on.
 struct Tile {
   float* vec1;                 // (in1, T): element (r, l) at vec1[r * bs + l]
-  float* ux;                   // (sw + 1, T), the same
-  int bs;                      // T in shared memory; ldg in global (kWG)
+                               // for the block's rows v0 <= r < v1
+  float* ux;                   // (sw + 1, T), the same for u0 <= r < u1
+  int bs;                      // T in shared memory; ldg in global
   const int* done;             // (T,) latched (or absent) lanes
   float* state;                // resident duals and slacks, or null
   float* ring;                 // streamed slabs; null where resident
@@ -227,10 +264,21 @@ struct Tile {
   const float* t2;             // resident, else in global memory
   const __nv_bfloat16* t1a;
   const __nv_bfloat16* t2a;
-  __nv_bfloat16* w2h;          // shared (T, kp + kPadLo); with kWG the
-                               // tile's global (T, kp) rows
+  __nv_bfloat16* w2h;          // shared (T, kp + kPadLo); kGlobal,
+                               // kCluster: the tile's global (T, kp) rows
+  const int* cones_u;          // the sides' cone pairs
+  const int* cones_x;
   float rho0;
   int tid, lane0, nvalid, g, gm;
+  // the block's slice (all of it without a cluster): ux rows [r0, r1) (the
+  // forward product's output), input stages [ku0, ku1), state stages [kx0,
+  // kx1), d rows [d0, d1) (the backward product's); the rows of vec1 [v0,
+  // v1) = [d0, d1) and of ux [u0, u1) = [r0, r1) it keeps, plus those of
+  // x0 and the 1s on the last block; its first padded row of each map
+  int rank, r0, r1, ku0, ku1, kx0, kx1, d0, d1, v1, u1, m1row0, m2row0;
+  ClusterIn* ci1;              // kCluster: where each k-row of vec1 lives
+  ClusterIn* ci2;              // ... and of ux / vec2
+  float4* cred;                // kCluster: the lanes' residual maxima
 };
 
 // One lane's duals and slacks: element r of an array at [r * stride] from
@@ -276,16 +324,18 @@ __device__ __forceinline__ bool takes(const Tile& t, int r, int rows, int l) {
 // of W rows at a time.  The Horner value v = v drho + acc of each output
 // the thread sums lives in its entry of ux, which no other thread touches
 // until the product is done (the registers hold the product's tile only).
-template <int RPT, int T, bool kWG>
+template <int RPT, int T, In kIn>
 __device__ __forceinline__ void forward(const Params& p, const Tile& t,
                                         bool lo, const float* rho_b) {
   const int W = Lanes<T>::kRowGroups * RPT, ord1 = p.ord1;
+  // the cluster layout's fp32 product: 8 lanes x RPT / 4 rows a thread
+  constexpr bool kWide = kIn == In::kCluster;
   auto epi = [&](int j, const auto& acc, const auto& fr) {
-    const int c = ord1 - 1 - j % ord1, r0 = (j / ord1) * W;
+    const int c = ord1 - 1 - j % ord1, r0 = t.r0 + (j / ord1) * W;
 #pragma unroll
-    for (int e = 0; e < 2 * RPT; ++e) {
+    for (int e = 0; e < std::decay_t<decltype(fr)>::kN; ++e) {
       const int r = r0 + fr.row(e), l = fr.lane(e);
-      if (r < p.sw) {
+      if (r < t.r1) {
         float* v = t.ux + r * t.bs + l;
         *v = c == ord1 - 1
                  ? acc[e]
@@ -297,17 +347,32 @@ __device__ __forceinline__ void forward(const Params& p, const Tile& t,
   const int nseg = p.passes1 * ord1;
   if (lo) {
     const int lda = t.ring ? p.kp1 : p.kp1 + kPadLo;
-    const GemmLo a{t.vec1, t.w2h, reinterpret_cast<__nv_bfloat16*>(t.ring),
-                   p.in1, p.kp1, W, nseg, t.tid, lda, t.bs};
-    gemm_lo<RPT, T, kWG>(a, [&](int j) {
+    GemmLo a{kIn == In::kCluster ? t.vec1 + t.d0 * t.bs : t.vec1, t.w2h,
+             reinterpret_cast<__nv_bfloat16*>(t.ring), p.in1, p.kp1, W,
+             nseg, t.tid, lda, t.bs};
+    if constexpr (kIn == In::kCluster) {
+      a.ci = t.ci1;
+      a.vrows = t.r1 - t.r0;
+      a.vper = ord1;
+    }
+    gemm_lo<RPT, T, kIn>(a, [&](int j) {
       const int c = ord1 - 1 - j % ord1, pass = j / ord1;
-      return t.t1a + (static_cast<size_t>(c) * p.ld1 + pass * W) * lda;
+      return t.t1a +
+             (static_cast<size_t>(c) * p.ld1 + t.m1row0 + pass * W) * lda;
     }, epi);
   } else {
-    const GemmF32 a{t.vec1, t.ring, p.in1, W, p.ld1, nseg, t.tid, t.bs};
-    gemm_fp32<RPT, T, kWG>(a, [&](int j) {
+    GemmF32 a{t.vec1, t.ring, p.in1, W, p.ld1, nseg, t.tid, t.bs};
+    if constexpr (kIn == In::kCluster) {
+      a.ci = t.ci1;
+      a.vrows = t.r1 - t.r0;
+      a.vper = ord1;
+    }
+    gemm_fp32<kWide ? RPT / 4 : RPT, T, kIn, kWide ? 8 : 2,
+              kWide ? kSlabKWide : kSlabK, kWide ? kStagesWide : kStages>(
+        a, [&](int j) {
       const int c = ord1 - 1 - j % ord1, pass = j / ord1;
-      return t.t1 + static_cast<size_t>(c) * p.in1 * p.ld1 + pass * W;
+      return t.t1 + static_cast<size_t>(c) * p.in1 * p.ld1 + t.m1row0 +
+             pass * W;
     }, epi);
   }
 }
@@ -324,13 +389,16 @@ __device__ __forceinline__ float bilinear(float a0, float a1, float a2,
 
 // The backward product into vec1's d rows: the interleaved T2 stack, a
 // pass of W stacked rows (W / 4 outputs) at a time.
-template <int RPT, int T, bool kWG>
+template <int RPT, int T, In kIn>
 __device__ __forceinline__ void backward(const Params& p, const Tile& t,
                                          bool lo, const float* rho_b,
                                          const float* rho_n) {
   const int W = Lanes<T>::kRowGroups * RPT;
+  constexpr bool kWide = kIn == In::kCluster;
+  // r: the output's index in the block's d rows
   auto store = [&](int r, int l, float a0, float a1, float a2, float a3) {
-    if (takes(t, r, p.su, l))
+    r += t.d0;
+    if (takes(t, r, t.d1, l))
       t.vec1[r * t.bs + l] = bilinear(
           a0, a1, a2, a3, __fsub_rn(rho_b[l], t.rho0),
           __fsub_rn(rho_n[l], t.rho0));
@@ -350,27 +418,39 @@ __device__ __forceinline__ void backward(const Params& p, const Tile& t,
           store((j * W + fr.row(e)) / 4, fr.lane(e), a[0], a[1], a[2], a[3]);
       }
     } else {
+      using F = std::decay_t<decltype(fr)>;
+      constexpr int kL = F::kLanes;
 #pragma unroll
-      for (int r4 = 0; r4 < RPT / 4; ++r4)
+      for (int r4 = 0; r4 < F::kN / kL / 4; ++r4)
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int e = 8 * r4 + q;  // row 4 r4 of the thread's, lane q
-          store((j * W + fr.row(e)) / 4, fr.lane(e), acc[e], acc[e + 2],
-                acc[e + 4], acc[e + 6]);
+        for (int q = 0; q < kL; ++q) {
+          const int e = 4 * kL * r4 + q;  // row 4 r4 of the thread's, lane q
+          store((j * W + fr.row(e)) / 4, fr.lane(e), acc[e], acc[e + kL],
+                acc[e + 2 * kL], acc[e + 3 * kL]);
         }
     }
   };
   if (lo) {
     const int lda = t.ring ? p.kp2 : p.kp2 + kPadLo;
-    const GemmLo a{t.ux, t.w2h, reinterpret_cast<__nv_bfloat16*>(t.ring),
-                   p.sw + 1, p.kp2, W, p.passes2, t.tid, lda, t.bs};
-    gemm_lo<RPT, T, kWG>(a, [&](int j) {
-      return t.t2a + static_cast<size_t>(j) * W * lda;
+    GemmLo a{kIn == In::kCluster ? t.ux + t.r0 * t.bs : t.ux, t.w2h,
+             reinterpret_cast<__nv_bfloat16*>(t.ring), p.sw + 1, p.kp2, W,
+             p.passes2, t.tid, lda, t.bs};
+    if constexpr (kIn == In::kCluster) {
+      a.ci = t.ci2;
+      a.vrows = 4 * (t.d1 - t.d0);
+    }
+    gemm_lo<RPT, T, kIn>(a, [&](int j) {
+      return t.t2a + static_cast<size_t>(t.m2row0 + j * W) * lda;
     }, epi);
   } else {
-    const GemmF32 a{t.ux, t.ring, p.sw + 1, W, p.ld2, p.passes2, t.tid,
-                    t.bs};
-    gemm_fp32<RPT, T, kWG>(a, [&](int j) { return t.t2 + j * W; }, epi);
+    GemmF32 a{t.ux, t.ring, p.sw + 1, W, p.ld2, p.passes2, t.tid, t.bs};
+    if constexpr (kIn == In::kCluster) {
+      a.ci = t.ci2;
+      a.vrows = 4 * (t.d1 - t.d0);
+    }
+    gemm_fp32<kWide ? RPT / 4 : RPT, T, kIn, kWide ? 8 : 2,
+              kWide ? kSlabKWide : kSlabK, kWide ? kStagesWide : kStages>(
+        a, [&](int j) { return t.t2 + t.m2row0 + j * W; }, epi);
   }
 }
 
@@ -379,14 +459,15 @@ __device__ __forceinline__ void backward(const Params& p, const Tile& t,
 // side's rows of the scratch arrays w and dn (element r at [r * B]).  ux:
 // the lane's column, element r at ux[r * us].
 __device__ __forceinline__ void stage_new(const Params& p, const Side& s,
-                                          int g, int k, bool relax,
-                                          const float* ux, int us,
-                                          const float* prev,
+                                          const int* cones, int g, int k,
+                                          bool relax, const float* ux,
+                                          int us, const float* prev,
                                           const float* dual, int stride,
                                           float* w, float* dn) {
   const StageParams sp{p.alpha, p.one_m_alpha, stride};
   const int B = p.B, dim = s.dim;
-  stage_slack(sp, s, g, k, relax, ux, prev, dual, 0, us, w + k * dim * B, B);
+  stage_slack(sp, s, g, k, relax, ux, prev, dual, 0, us, w + k * dim * B, B,
+              cones);
   for (int j = 0; j < dim; ++j) {
     const int r = k * dim + j, o = r * stride;
     dn[r * B] = dual ? __fsub_rn(__fadd_rn(dual[o], relaxed(p, relax,
@@ -399,28 +480,30 @@ __device__ __forceinline__ void stage_new(const Params& p, const Side& s,
 
 // The OSQP-form residuals' inputs of one lane, before this iteration's
 // update pass: the new slack and dual of every stage q, q + 256 / T, ... of
-// both sides into the scratch (the lane's column: wsc + lane, dsc + lane).
+// the block's stages of both sides into the scratch (the lane's column:
+// wsc + lane, dsc + lane).
 template <int T>
-__device__ void osqp_fill(const Params& p, int g, bool relax, const float* ux,
-                          int us, const LaneState& st, int lane, int q) {
+__device__ void osqp_fill(const Params& p, const Tile& t, int g, bool relax,
+                          const float* ux, int us, const LaneState& st,
+                          int lane, int q) {
   const int S = st.stride, B = p.B;
-  for (int j = q; j < p.N; j += Lanes<T>::kLaneThreads)
-    stage_new(p, p.side_x, g, j, relax, ux + p.su * us, us, st.v, st.g, S,
-              p.wsc + p.su * B + lane, p.dsc + p.su * B + lane);
-  for (int j = q; j < p.N - 1; j += Lanes<T>::kLaneThreads)
-    stage_new(p, p.side_u, g, j, relax, ux, us, st.z, st.y, S,
+  for (int j = t.kx0 + q; j < t.kx1; j += Lanes<T>::kLaneThreads)
+    stage_new(p, p.side_x, t.cones_x, g, j, relax, ux + p.su * us, us, st.v,
+              st.g, S, p.wsc + p.su * B + lane, p.dsc + p.su * B + lane);
+  for (int j = t.ku0 + q; j < t.ku1; j += Lanes<T>::kLaneThreads)
+    stage_new(p, p.side_u, t.cones_u, g, j, relax, ux, us, st.z, st.y, S,
               p.wsc + lane, p.dsc + lane);
 }
 
 // The partial maxima of the OSQP-form residuals (ops/rho.py
 // osqp_residuals, with the per-lane terminal cost P0 + drho dP) over the
-// stages q, q + 256 / T, ... of one lane, from osqp_fill's scratch: ux
-// holds [u; x] (the lane's column, element r at ux[r * us]).  m: pri_res,
-// pri_norm, dual_res, px_inf, aty_inf, q_inf.
+// block's stages q, q + 256 / T, ... of [kx0, kx1) of one lane, from
+// osqp_fill's scratch: ux holds [u; x] (the lane's column, element r at
+// ux[r * us]).  m: pri_res, pri_norm, dual_res, px_inf, aty_inf, q_inf.
 template <int T>
-__device__ void osqp_partials(const Params& p, int gp, const float* ux,
-                              int us, int lane, float drho, int q,
-                              float (&m)[6]) {
+__device__ void osqp_partials(const Params& p, const Tile& t, int gp,
+                              const float* ux, int us, int lane, float drho,
+                              int q, float (&m)[6]) {
   const int nx = p.nx, nu = p.nu, N = p.N, B = p.B;
   const float* A = p.A + gp * nx * nx;
   const float* Bm = p.Bm + gp * nx * nu;
@@ -434,7 +517,7 @@ __device__ void osqp_partials(const Params& p, int gp, const float* ux,
   const float* dx = p.dsc + p.su * B + lane;
   const float* wu = p.wsc + lane;
   const float* du = p.dsc + lane;
-  for (int j = q; j < N; j += Lanes<T>::kLaneThreads) {
+  for (int j = t.kx0 + q; j < t.kx1; j += Lanes<T>::kLaneThreads) {
     const float* xj = xs + j * nx * us;
     const bool inner = j < N - 1;
     const float* vn_n = wx + (j + 1) * nx * B;  // stage j + 1 (inner)
@@ -536,23 +619,27 @@ __device__ __forceinline__ float termination_predict(const Params& p, int gm,
   return pred;
 }
 
-// RPT: rows a thread of the products; T: lanes a tile; kWG: the tile's
-// iterates in global memory (streamed beside the maps); kProjU/kProjX:
-// whether the input / state side has halfspaces or cones.
-template <int RPT, int T, bool kWG, bool kProjU, bool kProjX>
+// RPT: rows a thread of the products; T: lanes a tile; kIn: where the
+// tile's iterates live (the block's shared memory, global memory streamed
+// beside the maps, or split over a cluster); kProjU/kProjX: whether the
+// input / state side has halfspaces or cones.
+template <int RPT, int T, In kIn, bool kProjU, bool kProjX>
 __global__ void __launch_bounds__(kThreads, 1)
     condensed_adaptive_kernel(Params p) {
   extern __shared__ float4 smem4[];
   char* sm = reinterpret_cast<char*>(smem4);
   constexpr int tpl = Lanes<T>::kLaneThreads;
+  constexpr bool kCl = kIn == In::kCluster;
   const int tid = threadIdx.x;
   const int g = blockIdx.y;
-  const int l0 = blockIdx.x * T;  // the tile's first index in the group
+  const int C = kCl ? p.cluster : 1;
+  const int tile = blockIdx.x / C;
+  const int l0 = tile * T;  // the tile's first index in the group
   const int sw = p.sw, su = p.su, sx = p.sx, in1 = p.in1, B = p.B;
   const bool reduced = p.t1a != nullptr;
   const K2Layout lay = k2_layout(
-      T, kWG, Lanes<T>::kRowGroups * RPT, in1, sw, p.ord1, p.ld1, p.ld2,
-      p.kp1, p.kp2,
+      T, kIn, Lanes<T>::kRowGroups * RPT, kCl ? p.rows1 : in1,
+      kCl ? p.rows2 : sw + 1, in1, sw, p.ord1, p.ld1, p.ld2, p.kp1, p.kp2,
       p.state_shared ? state_rows(su, sx, p.state_free) : 0, p.resident,
       reduced);
 
@@ -562,15 +649,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   t.gm = p.map_grouped ? g : 0;
   t.lane0 = g * p.L + l0;
   t.nvalid = min(T, p.L - l0);
+  // the block's slice
+  const int n_u = p.N - 1, n_x = p.N, nu = p.nu;
+  t.rank = kCl ? static_cast<int>(cluster_rank()) : 0;
+  const bool last = t.rank == C - 1;
+  const int s0 = kCl ? p.stages[t.rank] : 0;
+  const int s1 = kCl ? p.stages[t.rank + 1] : n_u + n_x;
+  t.ku0 = min(s0, n_u);
+  t.ku1 = min(s1, n_u);
+  t.kx0 = max(s0 - n_u, 0);
+  t.kx1 = max(s1 - n_u, 0);
+  t.r0 = stage_row(s0, nu, p.nx, n_u);
+  t.r1 = stage_row(s1, nu, p.nx, n_u);
+  t.d0 = kCl ? p.ustages[t.rank] * nu : 0;
+  t.d1 = kCl ? p.ustages[t.rank + 1] * nu : su;
+  t.v1 = last ? in1 : t.d1;
+  t.u1 = last ? sw + 1 : t.r1;
+  t.m1row0 = t.rank * (p.ld1 / C);
+  t.m2row0 = t.rank * (p.ld2 / C);
   // the tile's own columns of the global arrays
-  const size_t col0 = static_cast<size_t>(g * p.tiles + blockIdx.x) * T;
-  if constexpr (kWG) {
+  const size_t col0 = static_cast<size_t>(g * p.tiles + tile) * T;
+  if constexpr (kIn == In::kGlobal) {
     t.vec1 = p.vecg + col0;
     t.ux = p.uxg + col0;
     t.bs = p.ldg;
   } else {
-    t.vec1 = reinterpret_cast<float*>(sm);
-    t.ux = reinterpret_cast<float*>(sm + lay.ux);
+    // the block's rows from each buffer's start
+    t.vec1 = reinterpret_cast<float*>(sm) - t.d0 * T;
+    t.ux = reinterpret_cast<float*>(sm + lay.ux) - t.r0 * T;
     t.bs = T;
   }
   int* done = reinterpret_cast<int*>(sm + lay.flags);
@@ -580,13 +686,40 @@ __global__ void __launch_bounds__(kThreads, 1)
   float4* red = reinterpret_cast<float4*>(sm + lay.red);
   t.state = p.state_shared ? reinterpret_cast<float*>(sm + lay.state)
                            : nullptr;
-  if constexpr (kWG) {
-    t.w2h = reduced ? p.w2hg + col0 * (p.kp1 > p.kp2 ? p.kp1 : p.kp2)
-                    : nullptr;
-  } else {
+  if constexpr (kIn == In::kShared) {
     t.w2h =
         reduced ? reinterpret_cast<__nv_bfloat16*>(sm + lay.w2h) : nullptr;
+  } else {
+    t.w2h = reduced ? p.w2hg + col0 * (p.kp1 > p.kp2 ? p.kp1 : p.kp2)
+                    : nullptr;
   }
+  t.ci1 = t.ci2 = nullptr;
+  t.cred = nullptr;
+  if constexpr (kCl) {
+    t.cred = reinterpret_cast<float4*>(sm + lay.meta);
+    ClusterIn* ci1 = reinterpret_cast<ClusterIn*>(sm + lay.meta + 3 * 16 * 32);
+    ClusterIn* ci2 = reinterpret_cast<ClusterIn*>(sm + lay.meta + 3 * 16 * 32 +
+                                                  256);
+    if (tid < C) {
+      ci1->base[tid] = peer_address(sm, tid);
+      ci2->base[tid] = peer_address(sm + lay.ux, tid);
+      ci1->kb[tid] = p.ustages[tid] * nu;
+      ci2->kb[tid] = stage_row(p.stages[tid], nu, p.nx, n_u);
+    }
+    if (tid == 0) {
+      ci1->kb[C] = in1;
+      ci2->kb[C] = sw + 1;
+      ci1->C = ci2->C = C;
+      ci1->rank = ci2->rank = t.rank;
+    }
+    t.ci1 = ci1;
+    t.ci2 = ci2;
+  }
+  t.cones_u = p.side_u.cones;
+  t.cones_x = p.side_x.cones;
+  if (p.cones_shared)
+    stage_cones(p.side_u, p.side_x, reinterpret_cast<int*>(sm + lay.total),
+                tid, kThreads, &t.cones_u, &t.cones_x);
   t.rho0 = p.rho0 ? p.rho0[t.gm] : p.rho0_one;
 
   // this block's group's maps
@@ -635,7 +768,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const LaneState st = lane_state<T>(p, t, l);
     const int S = st.stride;
     const bool warm = p.warm_start && valid;
-    for (int r = q; r < in1; r += tpl) {
+    for (int r = t.d0 + q; r < t.v1; r += tpl) {
       float v = 0.0f;
       if (r < su) {
         v = warm ? p.d_in[r * B + lane] : 0.0f;
@@ -646,14 +779,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       t.vec1[r * t.bs + l] = v;
     }
-    for (int r = q; r <= sw; r += tpl)
+    for (int r = t.r0 + q; r < t.u1; r += tpl)
       t.ux[r * t.bs + l] = r == sw ? 1.0f : 0.0f;
     if (valid) {
-      for (int r = q; r < su; r += tpl) {
+      for (int r = t.ku0 * nu + q; r < t.ku1 * nu; r += tpl) {
         st.y[r * S] = warm ? p.y_in[r * B + lane] : 0.0f;
         st.z[r * S] = warm ? p.z_in[r * B + lane] : 0.0f;
       }
-      for (int r = q; r < sx; r += tpl) {
+      for (int r = t.kx0 * p.nx + q; r < t.kx1 * p.nx; r += tpl) {
         if (st.g) st.g[r * S] = warm ? p.g_in[r * B + lane] : 0.0f;
         st.v[r * S] = warm ? p.v_in[r * B + lane] : 0.0f;
       }
@@ -662,14 +795,22 @@ __global__ void __launch_bounds__(kThreads, 1)
       done[l] = valid ? 0 : 1;
       rho_s[l] = warm ? p.rho_in[lane] : t.rho0;
       rho_s[T + l] = rho_s[l];
-      if (valid) {
+      if (valid && t.rank == 0) {
         p.iters[lane] = p.max_iter;
         p.solved[lane] = 0;
       }
     }
   }
   if (tid == 0) *n_done = 0;
-  __syncthreads();
+  // a barrier of the block, or of the cluster, whose blocks read each
+  // other's iterates
+  auto sync = [] {
+    if constexpr (kCl)
+      cluster_sync();
+    else
+      __syncthreads();
+  };
+  sync();
 
   const bool relax = p.alpha != 1.0f;
   const int gp = p.plant_grouped ? g : 0;
@@ -682,8 +823,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float* rho_b = rho_s + cur * T;
     float* rho_n = rho_s + (cur ^ 1) * T;
 
-    forward<RPT, T, kWG>(p, t, lo, rho_b);
-    __syncthreads();
+    forward<RPT, T, kIn>(p, t, lo, rho_b);
+    sync();  // ux complete; no block reads vec1 any more
 
     // the elementwise step of lane l, thread q of its eight
     const bool active = !done[l];
@@ -691,17 +832,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     float* wsc = p.wsc ? p.wsc + lane : nullptr;
     const SidePass su_p{&p.side_u, t.ux + l, st.z, st.y, nullptr,
                         p.zco + lane, st.stride, t.bs, wsc, B,
-                        p.side_u.dim * B};
+                        p.side_u.dim * B, t.cones_u, t.ku0, t.ku1};
     const SidePass sx_p{&p.side_x, t.ux + l + su * t.bs, st.v, st.g,
                         nullptr, p.vco + lane, st.stride, t.bs,
-                        wsc ? wsc + su * B : nullptr, B, p.side_x.dim * B};
+                        wsc ? wsc + su * B : nullptr, B, p.side_x.dim * B,
+                        t.cones_x, t.kx0, t.kx1};
     const float rb = rho_b[l];
     float rho_new = rb;
     bool newly = false;
     const bool osqp_now = update && p.osqp;
     if (osqp_now) {  // every stage's new slack and dual, for all threads
-      if (active) osqp_fill<T>(p, g, relax, t.ux + l, t.bs, st, lane, q);
-      __syncthreads();
+      if (active) {
+        osqp_fill<T>(p, t, g, relax, t.ux + l, t.bs, st, lane, q);
+        if constexpr (kCl)  // the block's rows of ux, for the neighbours'
+          for (int r = t.r0 + q; r < t.r1; r += tpl)
+            p.uxo[r * B + lane] = t.ux[r * t.bs + l];
+      }
+      sync();
     }
     if (check || update) {
       float pi = 0.0f, di = 0.0f, ps = 0.0f, ds = 0.0f;
@@ -714,30 +861,49 @@ __global__ void __launch_bounds__(kThreads, 1)
           side_residuals_q<kProjX, T>(p, sx_p, g, relax, q, false, ps, ds,
                                       osqp_now);
         }
-        if (osqp_now)
-          osqp_partials<T>(p, gp, t.ux + l, t.bs, lane,
-                           __fsub_rn(rb, t.rho0), q, m);
+        if (osqp_now) {
+          if constexpr (kCl)
+            osqp_partials<T>(p, t, gp, p.uxo + lane, B, lane,
+                             __fsub_rn(rb, t.rho0), q, m);
+          else
+            osqp_partials<T>(p, t, gp, t.ux + l, t.bs, lane,
+                             __fsub_rn(rb, t.rho0), q, m);
+        }
       }
       red[tid] = make_float4(pi, di, ps, ds);
       red[kThreads + tid] = make_float4(m[0], m[1], m[2], m[3]);
       red[2 * kThreads + tid] = make_float4(m[4], m[5], 0.0f, 0.0f);
       __syncthreads();
-      if (active) {
+      auto fold = [&](const float4& a, const float4& b, const float4& c) {
+        pi = fmaxf(pi, a.x);
+        di = fmaxf(di, a.y);
+        ps = fmaxf(ps, a.z);
+        ds = fmaxf(ds, a.w);
+        m[0] = fmaxf(m[0], b.x);
+        m[1] = fmaxf(m[1], b.y);
+        m[2] = fmaxf(m[2], b.z);
+        m[3] = fmaxf(m[3], b.w);
+        m[4] = fmaxf(m[4], c.x);
+        m[5] = fmaxf(m[5], c.y);
+      };
+      if (active)
         for (int j = 0; j < tpl; ++j) {
           const int o = j * T + l;
-          const float4 a = red[o], b = red[kThreads + o],
-                       c = red[2 * kThreads + o];
-          pi = fmaxf(pi, a.x);
-          di = fmaxf(di, a.y);
-          ps = fmaxf(ps, a.z);
-          ds = fmaxf(ds, a.w);
-          m[0] = fmaxf(m[0], b.x);
-          m[1] = fmaxf(m[1], b.y);
-          m[2] = fmaxf(m[2], b.z);
-          m[3] = fmaxf(m[3], b.w);
-          m[4] = fmaxf(m[4], c.x);
-          m[5] = fmaxf(m[5], c.y);
+          fold(red[o], red[kThreads + o], red[2 * kThreads + o]);
         }
+      if constexpr (kCl) {  // ... then the cluster's blocks'
+        if (q == 0) {
+          t.cred[3 * l] = make_float4(pi, di, ps, ds);
+          t.cred[3 * l + 1] = make_float4(m[0], m[1], m[2], m[3]);
+          t.cred[3 * l + 2] = make_float4(m[4], m[5], 0.0f, 0.0f);
+        }
+        cluster_sync();
+        for (int c = 0; c < C; ++c) {
+          const unsigned a = peer_address(t.cred + 3 * l, c);
+          fold(peer_load4(a), peer_load4(a + 16), peer_load4(a + 32));
+        }
+      }
+      if (active) {
         if (update)
           rho_new = p.osqp ? osqp_predict(p, m, rb)
                            : termination_predict(p, t.gm, fmaxf(ps, pi),
@@ -757,19 +923,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (q == 0) {
       rho_n[l] = rho_new;
       if (newly) {  // the outputs hold vnew/znew; d stays frozen
-        p.iters[lane] = i + 1;
-        p.solved[lane] = 1;
+        if (t.rank == 0) {
+          p.iters[lane] = i + 1;
+          p.solved[lane] = 1;
+        }
         done[l] = 1;
         atomicAdd(n_done, 1);
       }
     }
-    __syncthreads();
+    sync();  // vec2 complete
     cur ^= 1;
     if (*n_done == t.nvalid) break;  // every lane of the tile has latched
 
     // backward: cost fold at the pre-update drho, gain at the post-update
-    backward<RPT, T, kWG>(p, t, lo, rho_b, rho_n);
-    __syncthreads();
+    backward<RPT, T, kIn>(p, t, lo, rho_b, rho_n);
+    sync();  // d complete; no block reads vec2 any more
   }
 
   // the outputs from the resident state, the rho, d and the carry of the
@@ -778,17 +946,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     const LaneState st = lane_state<T>(p, t, l);
     const int S = st.stride;
     const bool carry = p.carry_out && !done[l];
-    if (q == 0) p.rho_out[lane] = rho_s[cur * T + l];
-    for (int r = q; r < su; r += tpl) {
+    if (q == 0 && t.rank == 0) p.rho_out[lane] = rho_s[cur * T + l];
+    for (int r = t.d0 + q; r < t.d1; r += tpl)
+      if (p.carry_out) p.d_out[r * B + lane] = t.vec1[r * t.bs + l];
+    for (int r = t.ku0 * nu + q; r < t.ku1 * nu; r += tpl) {
       const float z = st.z[r * S];
       if (t.state) {
         p.uout[r * B + lane] = z;
         p.y[r * B + lane] = st.y[r * S];
       }
-      if (p.carry_out) p.d_out[r * B + lane] = t.vec1[r * t.bs + l];
       if (carry) p.zco[r * B + lane] = z;
     }
-    for (int r = q; r < sx; r += tpl) {
+    for (int r = t.kx0 * p.nx + q; r < t.kx1 * p.nx; r += tpl) {
       const float v = st.v[r * S];
       if (t.state) {
         p.xout[r * B + lane] = v;
@@ -800,18 +969,84 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // The kernel for RPT rows a thread, tiles of T lanes and the iterates in
-// shared or global memory, with the projections the sides need.
-template <int RPT, int T, bool kWG>
+// shared, global or a cluster's memory, with the projections the sides
+// need.
+template <int RPT, int T, In kIn>
 void (*tile_kernel(bool proj_u, bool proj_x))(Params) {
   return proj_u
-             ? (proj_x ? condensed_adaptive_kernel<RPT, T, kWG, true, true>
-                       : condensed_adaptive_kernel<RPT, T, kWG, true, false>)
-             : (proj_x ? condensed_adaptive_kernel<RPT, T, kWG, false, true>
-                       : condensed_adaptive_kernel<RPT, T, kWG, false,
+             ? (proj_x ? condensed_adaptive_kernel<RPT, T, kIn, true, true>
+                       : condensed_adaptive_kernel<RPT, T, kIn, true, false>)
+             : (proj_x ? condensed_adaptive_kernel<RPT, T, kIn, false, true>
+                       : condensed_adaptive_kernel<RPT, T, kIn, false,
                                                    false>);
 }
 
+// The instances adaptive_tile_plan picks from; null for any other.
+void (*pick_kernel(int tile, int rpt, In in, bool proj_u,
+                   bool proj_x))(Params) {
+  if (tile == 32 && in == In::kShared && rpt == 8)
+    return tile_kernel<8, 32, In::kShared>(proj_u, proj_x);
+  if (tile == 32 && in == In::kShared && rpt == 20)
+    return tile_kernel<20, 32, In::kShared>(proj_u, proj_x);
+  if (tile == 16 && in == In::kShared && rpt == 8)
+    return tile_kernel<8, 16, In::kShared>(proj_u, proj_x);
+  if (tile == 32 && in == In::kGlobal && rpt == 20)
+    return tile_kernel<20, 32, In::kGlobal>(proj_u, proj_x);
+  if (tile == 32 && in == In::kCluster && rpt == 32)
+    return tile_kernel<32, 32, In::kCluster>(proj_u, proj_x);
+  return nullptr;
+}
+
+In layout_of(int iterates_global, int cluster) {
+  return cluster > 1 ? In::kCluster
+                     : iterates_global ? In::kGlobal : In::kShared;
+}
+
+// The launch configuration of ``grid`` (x a multiple of ``cluster``), as
+// clusters of ``cluster`` blocks along x where that is more than 1.
+struct LaunchConfig {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  LaunchConfig(dim3 grid, int cluster, size_t smem, cudaStream_t stream) {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = cluster > 1 ? 1 : 0;
+  }
+};
+
 }  // namespace
+
+// Blocks of one SM for the instance of a launch (the occupancy API), or,
+// for a cluster of ``cluster`` blocks, the clusters the whole card holds at
+// once; a negative CUDA error.
+extern "C" int tinympc_condensed_adaptive_occupancy(int tile, int rpt,
+                                                    int iterates_global,
+                                                    int cluster, int proj_u,
+                                                    int proj_x,
+                                                    int smem_bytes) {
+  void (*kernel)(Params) =
+      pick_kernel(tile, rpt, layout_of(iterates_global, cluster),
+                  proj_u != 0, proj_x != 0);
+  if (!kernel) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  int n = 0;
+  if (err == cudaSuccess && cluster > 1) {
+    LaunchConfig lc(dim3(cluster * 64), cluster, smem_bytes, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &lc.cfg);
+  } else if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
+                                                        smem_bytes);
+  }
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
 
 extern "C" int tinympc_condensed_adaptive(
     const float* t1t, const float* t2t, const void* t1a, const void* t2a,
@@ -823,13 +1058,14 @@ extern "C" int tinympc_condensed_adaptive(
     float* rho_out, float* y, float* g, float* d_out, float* vco, float* zco,
     const float* A, const float* Bm, const float* qd, const float* rd,
     const float* P0, const float* dP, float* wsc, float* dsc, float* vecg,
-    float* uxg, void* w2hg, int nx, int nu, int N, int G, int L,
+    float* uxg, void* w2hg, float* uxo, int nx, int nu, int N, int G, int L,
     int order, int max_iter, int ct, int lo_all, float alpha,
     float one_m_alpha, float pri_tol, float dua_tol, float rho_min,
     float rho_max, float rho0_one, float trust_lo_one, float trust_hi_one,
     int osqp, int clipping, int trust, int en_input_bound,
     int en_state_bound, int warm_start, int carry_out, int tile,
-    int iterates_global, int rpt,
+    int iterates_global, int cluster, const int* stages,
+    const int* ustages, int rpt,
     int passes1, int passes2, int kp1, int kp2, int resident,
     int state_shared, int smem_bytes, int map_grouped, int plant_grouped,
     int box_u_grouped, int box_x_grouped, const float* lin_u, int n_lin_u,
@@ -849,7 +1085,10 @@ extern "C" int tinympc_condensed_adaptive(
   // controller), dsc its new duals (the OSQP-form controller);
   // iterates_global: vec1 and ux in vecg (in1, G x tiles x tile) and uxg
   // (sw + 1, the same), with reduced iterations rounded into w2hg
-  // (G x tiles x tile, max(kp1, kp2)) bf16.
+  // (G x tiles x tile, max(kp1, kp2)) bf16.  cluster: the blocks a tile
+  // (1, or 2 to 8 with ``stages`` and ``ustages``, the host's cluster + 1
+  // stage bounds, the maps' padded rows cluster x passes x W; uxo the (sw,
+  // B) scratch of ux for the OSQP-form controller).
   Params p;
   p.t1t = t1t; p.t2t = t2t;
   p.t1a = lo_all ? static_cast<const __nv_bfloat16*>(t1a) : nullptr;
@@ -861,7 +1100,7 @@ extern "C" int tinympc_condensed_adaptive(
   p.rho_out = rho_out; p.y = y; p.g = g; p.d_out = d_out; p.vco = vco;
   p.zco = zco;
   p.A = A; p.Bm = Bm; p.qd = qd; p.rd = rd; p.P0 = P0; p.dP = dP;
-  p.wsc = wsc; p.dsc = dsc; p.vecg = vecg; p.uxg = uxg;
+  p.wsc = wsc; p.dsc = dsc; p.vecg = vecg; p.uxg = uxg; p.uxo = uxo;
   p.w2hg = static_cast<__nv_bfloat16*>(w2hg);
   p.tiles = tile > 0 ? (L + tile - 1) / tile : 0;
   p.ldg = G * p.tiles * tile;
@@ -871,7 +1110,8 @@ extern "C" int tinympc_condensed_adaptive(
   p.ord1 = order + 1;
   const int W = tile > 0 ? rpt * (2 * kThreads / tile) : 0;
   p.passes1 = passes1; p.passes2 = passes2;
-  p.ld1 = passes1 * W; p.ld2 = passes2 * W; p.kp1 = kp1; p.kp2 = kp2;
+  p.ld1 = cluster * passes1 * W; p.ld2 = cluster * passes2 * W;
+  p.kp1 = kp1; p.kp2 = kp2;
   p.max_iter = max_iter; p.ct = ct; p.lo_all = lo_all;
   p.alpha = alpha; p.one_m_alpha = one_m_alpha;
   p.pri_tol = pri_tol; p.dua_tol = dua_tol;
@@ -886,11 +1126,45 @@ extern "C" int tinympc_condensed_adaptive(
   p.state_free = !en_state_bound && n_lin_x == 0 && n_soc_x == 0;
   // the caller owns the layout; refuse one the kernel would overrun
   const bool wg = iterates_global != 0;
+  const In in = layout_of(iterates_global, cluster);
+  const int n_u = N - 1, n_st = n_u + N;
+  p.cluster = cluster;
+  p.rows1 = p.in1;
+  p.rows2 = p.sw + 1;
+  if (cluster < 1 || cluster > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster > 1) {  // each block's stages, rows and slices of the maps
+    if (!stages || !ustages || stages[0] != 0 || stages[cluster] != n_st ||
+        ustages[0] != 0 || ustages[cluster] != n_u || wg || resident ||
+        state_shared || tile != 32 || (osqp && !uxo))
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.rows1 = p.rows2 = 0;
+    for (int c = 0; c <= cluster; ++c) {
+      p.stages[c] = stages[c];
+      p.ustages[c] = ustages[c];
+      if (c == 0) continue;
+      const bool end = c == cluster;
+      const int rows = stage_row(stages[c], nu, nx, n_u) -
+                       stage_row(stages[c - 1], nu, nx, n_u);
+      const int drows = (ustages[c] - ustages[c - 1]) * nu;
+      if (stages[c] <= stages[c - 1] || ustages[c] <= ustages[c - 1] ||
+          rows > passes1 * W || 4 * drows > passes2 * W)
+        return static_cast<int>(cudaErrorInvalidValue);
+      const int r1 = drows + (end ? nx + 1 : 0), r2 = rows + (end ? 1 : 0);
+      p.rows1 = r1 > p.rows1 ? r1 : p.rows1;
+      p.rows2 = r2 > p.rows2 ? r2 : p.rows2;
+    }
+  }
   const size_t need =
-      k2_layout(tile, wg, W, p.in1, p.sw, p.ord1, p.ld1, p.ld2, kp1, kp2,
+      k2_layout(tile, in, W, p.rows1, p.rows2, p.in1, p.sw, p.ord1, p.ld1,
+                p.ld2, kp1, kp2,
                 state_shared ? state_rows(p.su, p.sx, p.state_free) : 0,
                 resident, lo_all)
           .total;
+  p.cones_shared =
+      n_soc_u + n_soc_x > 0 &&
+      static_cast<size_t>(smem_bytes) >=
+          need + up16(2 * sizeof(int) * (n_soc_u + n_soc_x));
   if (G <= 0 || L <= 0 || G > 65535 || (tile != 32 && tile != 16) ||
       ct < 1 || order < 1 ||
       p.ld1 < p.sw || p.ld2 < 4 * p.su ||
@@ -911,7 +1185,8 @@ extern "C" int tinympc_condensed_adaptive(
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_lin_u + n_soc_u + n_lin_x + n_soc_x > 0 && !wsc)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (wg && (!vecg || !uxg || resident || (lo_all && !w2hg)))
+  if ((wg && (!vecg || !uxg || resident)) ||
+      ((wg || cluster > 1) && lo_all && !w2hg))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!init_side(p.side_u, umin, umax, lin_u, n_lin_u, soc_u, soc_mu_u,
                  n_soc_u, nu, N - 1, en_input_bound, box_u_grouped,
@@ -922,23 +1197,15 @@ extern "C" int tinympc_condensed_adaptive(
     return static_cast<int>(cudaErrorInvalidValue);
 
   const bool proj_u = n_lin_u + n_soc_u > 0, proj_x = n_lin_x + n_soc_x > 0;
-  void (*kernel)(Params);
-  // the instances adaptive_tile_plan picks from
-  if (tile == 32 && !wg && rpt == 8)
-    kernel = tile_kernel<8, 32, false>(proj_u, proj_x);
-  else if (tile == 32 && !wg && rpt == 20)
-    kernel = tile_kernel<20, 32, false>(proj_u, proj_x);
-  else if (tile == 16 && !wg && rpt == 8)
-    kernel = tile_kernel<8, 16, false>(proj_u, proj_x);
-  else if (tile == 32 && wg && rpt == 20)
-    kernel = tile_kernel<20, 32, true>(proj_u, proj_x);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(Params) = pick_kernel(tile, rpt, in, proj_u, proj_x);
+  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(smem_bytes);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.tiles, G);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  LaunchConfig lc(dim3(p.tiles * cluster, G), cluster, smem,
+                  static_cast<cudaStream_t>(stream));
+  err = cudaLaunchKernelEx(&lc.cfg, kernel, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

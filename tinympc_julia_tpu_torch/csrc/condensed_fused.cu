@@ -44,13 +44,29 @@
 //  * The tile's w2 lives in shared memory as [row][lane], a single buffer:
 //    after a barrier the product overwrites it (latched lanes keep theirs),
 //    and the elementwise step adds uxc and turns ux into the next w2 in
-//    place.  A map too wide for the tile's w2 beside the ring keeps each
-//    tile's w2 in its own columns of a global (sw, tiles x 32) array
-//    (kWG), whose k-rows stream through the ring slots beside the map's
-//    (tile_gemm.cuh), so the block's shared memory no longer grows with
-//    the width; with reduced iterations w2 is rounded once an iteration
-//    into the tile's rows of a global bf16 array and streamed the same
-//    way.  A latched lane's carry is its state before its latching
+//    place.
+//  * A map too wide for the tile's w2 beside the ring splits the tile over
+//    a thread block cluster of C blocks (In::kCluster; C = 2, 4 or 8 on as
+//    many SMs, fused_tile_plan's choice): block c owns a slice of whole
+//    stages (their rows of w2, ux and the map, and their share of the
+//    elementwise step) and keeps its rows of w2 in its own shared memory;
+//    its product runs its own rows of the map over every k-row of w2, the
+//    peers' reaching its ring over distributed shared memory
+//    (tile_gemm.cuh).  The product's store waits at a cluster barrier
+//    until no block reads w2 any more, the next product at another until
+//    every block's next w2 is written, and a checking iteration's residual
+//    maxima meet over the cluster, so every block latches the same lanes.
+//    The map's rows are laid out slice by slice (each padded to the
+//    block's passes of W rows; the padding is neither copied nor
+//    multiplied), the solver state stays in global memory.  One SM no
+//    longer runs a whole tile, and the map's bytes a block streams shrink
+//    C-fold.  Where even a cluster's slices do not fit, each tile keeps
+//    its w2 in its own columns of a global (sw, tiles x 32) array
+//    (In::kGlobal), whose k-rows stream through the ring slots beside the
+//    map's, so the block's shared memory does not grow with the width;
+//    with reduced iterations w2 is rounded once an iteration into the
+//    tile's rows of a global bf16 array and streamed the same way.
+//  * A latched lane's carry is its state before its latching
 //    iteration: with carry_out, every checking iteration copies the tile's
 //    w2 to w2_out before the product, a latching lane writes its slacks'
 //    old values as the carry's v/z, and lanes that never latch write their
@@ -93,9 +109,10 @@
 //    iteration.
 //
 // Launch contract: the Python wrapper (fused_tile_plan) picks the rows a
-// thread (8, 20 or 32 with w2 in shared memory, 32 with w2 in global
-// memory: the instances), the passes, the padded layouts (swp = passes x
-// 16 RPT rows of the transposed map; kp columns of the bf16 map), whether
+// thread (8, 20 or 32 with w2 in shared memory, 32 split over a cluster,
+// 32 with w2 in global memory: the instances), the cluster and its blocks'
+// stages, the passes, the padded layouts (swp = cluster x passes x 16 RPT
+// rows of the transposed map; kp columns of the bf16 map), whether
 // the map and the state are resident
 // and the dynamic shared-memory size; the entry point refuses a layout the
 // kernel would overrun and a constraint set whose arrays are missing (the
@@ -143,11 +160,18 @@ struct Params {
                       // with one pass
   float* wsc;         // (sw, B) the projection scratch where the stage
                       // buffers leave no room in shared memory; else null
-  float* w2g;         // (sw, ldg) the tiles' w2 in global memory (kWG)
-  __nv_bfloat16* w2hg;  // (ldg, kp) its bf16 rounding (kWG, reduced)
+  float* w2g;         // (sw, ldg) the tiles' w2 in global memory (kGlobal)
+  __nv_bfloat16* w2hg;  // (ldg, kp) its bf16 rounding (kGlobal, reduced)
   int nx, su, sx, sw, swp, kp, B, L;  // B = G * L lanes, L in each group
   int tiles, ldg;     // tiles a group; columns of the tiles' global arrays
-  int passes;         // passes of the product's rows at once
+  int passes;         // passes of a block's product rows at once
+  // a cluster of ``cluster`` blocks a tile (kCluster; 1 otherwise): block c
+  // owns stages [stages[c], stages[c + 1]) of the list of the N - 1 input
+  // stages then the N state stages, so their rows and its slice of the
+  // map's padded rows (swp / cluster); rows_loc: the most rows a block owns
+  int cluster, rows_loc;
+  int stages[kMaxCluster + 1];
+  int cones_shared;   // the cones' pairs staged in shared memory
   int max_iter, ct, k0, lo_all;
   float alpha, one_m_alpha, pri_tol, dua_tol;
   int state_free, warm_start, carry_out, t12_resident, state_shared;
@@ -173,48 +197,61 @@ __host__ __device__ inline int state_rows(int su, int sx, int sw,
   return sw + 2 * su + (state_free ? 1 : 2) * sx;
 }
 
-// Byte offsets of the block's shared memory: the tile's w2 (sw x kTile
-// floats; none with wg, where it lives in global memory), the latch flags
-// (kTile + 1 ints), the residual partials of the
-// lanes' threads (kThreads float4), the lanes' solver state where it is
-// resident ([row][lane]), the map region (resident: the fp32 map, then the
-// bf16 one with reduced iterations; streamed: the slab ring of a pass of W
-// rows, fp32 or bf16 slabs in turn, each slot with the tile's w2 rows
-// beside the map's where wg), the bf16 w2 ([lane][k], reduced only; in
-// global memory with wg).
+// Byte offsets of the block's shared memory: the tile's w2 (rows x kTile
+// floats: every row; none with kGlobal, where it lives in global memory;
+// the block's own rows with kCluster), the latch flags (kTile + 1 ints),
+// the residual partials of the lanes' threads (kThreads float4), the lanes'
+// solver state where it is resident ([row][lane]), with kCluster the
+// cluster's meta (kClusterMeta), the map region (resident: the fp32 map,
+// then the bf16 one with reduced iterations; streamed: the slab ring of a
+// pass of W rows, fp32 or bf16 slabs in turn, each slot with the tile's w2
+// rows beside the map's where w2 streams), the bf16 w2 ([lane][k], reduced
+// only: every k with kShared, in global
+// memory with kGlobal and kCluster).
 struct TileLayout {
-  size_t flags, red, state, map, maplo, w2h, total;
+  size_t flags, red, state, meta, map, maplo, w2h, total;
 };
 
-__host__ __device__ inline TileLayout tile_layout(bool wg, int sw,
-                                                  int swp, int W, int kp,
+__host__ __device__ inline TileLayout tile_layout(In in, int rows, int swp,
+                                                  int W, int kp,
                                                   int state_floats,
                                                   bool resident,
                                                   bool reduced) {
   TileLayout t;
-  size_t off = wg ? 0 : up16(sizeof(float) * static_cast<size_t>(sw) * kTile);
+  size_t off = in == In::kGlobal
+                   ? 0
+                   : up16(sizeof(float) * static_cast<size_t>(rows) * kTile);
   t.flags = off;
   off += up16(sizeof(int) * (kTile + 1));
   t.red = off;
   off += up16(sizeof(float) * 4 * kThreads);
   t.state = off;
   off += up16(sizeof(float) * static_cast<size_t>(state_floats) * kTile);
+  t.meta = off;
+  if (in == In::kCluster) off += kClusterMeta;
   t.map = off;
   if (resident) {
-    off += up16(sizeof(float) * static_cast<size_t>(sw) * swp);
+    off += up16(sizeof(float) * static_cast<size_t>(rows) * swp);
     t.maplo = off;
     if (reduced) off += up16(2 * static_cast<size_t>(swp) * (kp + kPadLo));
   } else {
-    const int wt = wg ? kTile : 0;
+    const int wt = in == In::kShared ? 0 : kTile;
     size_t ring = ring_bytes(W, false, wt);
     if (reduced && ring_bytes(W, true, wt) > ring) ring = ring_bytes(W, true, wt);
     off += up16(ring);
     t.maplo = t.map;
   }
   t.w2h = off;
-  if (reduced && !wg) off += up16(2 * static_cast<size_t>(kTile) * (kp + kPadLo));
+  if (reduced && in == In::kShared)
+    off += up16(2 * static_cast<size_t>(kTile) * (kp + kPadLo));
   t.total = off;
   return t;
+}
+
+// Row of the first entry of stage s of the list of the N - 1 input stages
+// then the N state stages.
+__host__ __device__ inline int stage_row(int s, int nu, int nx, int n_u) {
+  return s <= n_u ? s * nu : n_u * nu + (s - n_u) * nx;
 }
 
 // One lane's solver state for the elementwise step: element r of an array
@@ -232,21 +269,30 @@ struct LaneState {
 // What one block works on.
 struct Tile {
   float* buf;                  // (sw, kTile) w2, then ux, then the next w2:
-                               // element (r, l) at buf[r * bs + l]
-  int bs;                      // kTile in shared memory; ldg in global (kWG)
+                               // element (r, l) at buf[r * bs + l] for the
+                               // block's rows r0 <= r < r1
+  int bs;                      // kTile in shared memory; ldg in global
   const int* done;             // (kTile,) latched (or absent) lanes
   float* ring;                 // streamed slabs; null where resident
   const float* map;            // resident fp32 map (sw, swp), or the group's
                                // map in global memory when streamed
   const __nv_bfloat16* amap;   // resident bf16 map (swp, kp + kPadLo), or
                                // the group's (swp, kp) in global memory
-  __nv_bfloat16* w2h;          // (kTile, kp + kPadLo) rounded w2; with kWG
-                               // the tile's (kTile, kp) rows of w2hg
+  __nv_bfloat16* w2h;          // (kTile, kp + kPadLo) rounded w2; kGlobal,
+                               // kCluster: the tile's (kTile, kp) rows of
+                               // w2hg
   float* state;                // resident solver state, or null
   float* stage;                // the projected stages' buffers in shared
                                // memory (thread tid's entry j at
                                // stage[j * kThreads + tid]), or null
+  const int* cones_u;          // the sides' cone pairs
+  const int* cones_x;
   int tid, lane0, nvalid;
+  // the block's slice: rows [r0, r1), input stages [ku0, ku1), state stages
+  // [kx0, kx1), its first padded map row (all of them without a cluster)
+  int rank, r0, r1, ku0, ku1, kx0, kx1, mrow0;
+  ClusterIn* ci;               // kCluster: where each k-row of w2 lives
+  float4* cred;                // kCluster: the lanes' residual maxima
 };
 
 // Lane l's state (l: its index in the tile).
@@ -283,7 +329,7 @@ __device__ __forceinline__ void lane_init(const Params& p, const Tile& t,
   const int lane = t.lane0 + l, B = p.B;
   const LaneState st = lane_state(p, t, l);
   const int S = st.stride;
-  for (int r = q; r < p.sw; r += kLaneThreads) {
+  for (int r = t.r0 + q; r < t.r1; r += kLaneThreads) {
     float acc = 0.0f;
     for (int j = 0; j < p.nx; ++j)
       acc = fmaf(tx0[r * p.nx + j], p.x0[lane * p.nx + j], acc);
@@ -292,33 +338,35 @@ __device__ __forceinline__ void lane_init(const Params& p, const Tile& t,
     st.uxc[r * S] = c;
     t.buf[r * t.bs + l] = p.warm_start ? p.w2_in[r * B + lane] : 0.0f;
   }
-  for (int r = q; r < p.su; r += kLaneThreads) {
+  for (int r = t.ku0 * p.side_u.dim + q; r < t.ku1 * p.side_u.dim;
+       r += kLaneThreads) {
     st.y[r * S] = p.warm_start ? p.y_in[r * B + lane] : 0.0f;
     st.z[r * S] = p.warm_start ? p.z_in[r * B + lane] : 0.0f;
   }
-  for (int r = q; r < p.sx; r += kLaneThreads) {
+  for (int r = t.kx0 * p.nx + q; r < t.kx1 * p.nx; r += kLaneThreads) {
     if (st.g) st.g[r * S] = p.warm_start ? p.g_in[r * B + lane] : 0.0f;
     st.v[r * S] = p.warm_start ? p.v_in[r * B + lane] : 0.0f;
   }
-  if (q == 0) {
+  if (q == 0 && t.rank == 0) {
     p.iters[lane] = p.max_iter;
     p.solved[lane] = 0;
   }
 }
 
 // The product T12w @ w2 into the buffer, for the rows and lanes that take
-// it: within the map, a lane of the group that has not latched (the
+// it: the block's rows, a lane of the group that has not latched (the
 // elementwise step adds uxc).
-__device__ __forceinline__ void tile_store(const Params& p, const Tile& t,
-                                           int r, int l, float acc) {
-  if (r < p.sw && l < t.nvalid && !t.done[l]) t.buf[r * t.bs + l] = acc;
+__device__ __forceinline__ void tile_store(const Tile& t, int r, int l,
+                                           float acc) {
+  if (r < t.r1 && l < t.nvalid && !t.done[l]) t.buf[r * t.bs + l] = acc;
 }
 
 // The epilogue of pass j of either product: all but the last pass park
-// their sums in the global scratch; the last waits until every thread is
-// done reading w2, then stores its own sums and brings its parked ones
-// back (each thread reads only what it parked itself).
-template <class Frag, int kN>
+// their sums in the global scratch; the last waits until every thread (of
+// the cluster, with kCluster) is done reading w2, then stores its own sums
+// and brings its parked ones back (each thread reads only what it parked
+// itself).
+template <In kIn, class Frag, int kN>
 __device__ __forceinline__ void tile_epilogue(const Params& p, const Tile& t,
                                               int W, int j,
                                               const float (&acc)[kN],
@@ -326,22 +374,25 @@ __device__ __forceinline__ void tile_epilogue(const Params& p, const Tile& t,
   if (j + 1 < p.passes) {
 #pragma unroll
     for (int e = 0; e < kN; ++e) {
-      const int r = j * W + fr.row(e), l = fr.lane(e);
-      if (r < p.sw && l < t.nvalid)
+      const int r = t.r0 + j * W + fr.row(e), l = fr.lane(e);
+      if (r < t.r1 && l < t.nvalid)
         p.park[static_cast<size_t>(r) * p.B + t.lane0 + l] = acc[e];
     }
     return;
   }
-  __syncthreads();  // every thread is done reading w2
+  if constexpr (kIn == In::kCluster)
+    cluster_sync();  // every block is done reading this block's w2
+  else
+    __syncthreads();  // every thread is done reading w2
 #pragma unroll
   for (int e = 0; e < kN; ++e)
-    tile_store(p, t, j * W + fr.row(e), fr.lane(e), acc[e]);
+    tile_store(t, t.r0 + j * W + fr.row(e), fr.lane(e), acc[e]);
   for (int jp = 0; jp < j; ++jp)
 #pragma unroll
     for (int e = 0; e < kN; ++e) {
-      const int r = jp * W + fr.row(e), l = fr.lane(e);
-      if (r < p.sw && l < t.nvalid)
-        tile_store(p, t, r, l,
+      const int r = t.r0 + jp * W + fr.row(e), l = fr.lane(e);
+      if (r < t.r1 && l < t.nvalid)
+        tile_store(t, r, l,
                    p.park[static_cast<size_t>(r) * p.B + t.lane0 + l]);
     }
 }
@@ -349,15 +400,23 @@ __device__ __forceinline__ void tile_epilogue(const Params& p, const Tile& t,
 // The fp32 product, pass by pass: thread (tr, tl) owns rows tr*RPT ..
 // +RPT-1 of the pass, lanes 2 tl, 2 tl + 1, and sums each over k in index
 // order with fmaf.
-template <int RPT, bool kWG>
+template <int RPT, In kIn>
 __device__ __forceinline__ void tile_product_fp32(const Params& p,
                                                   const Tile& t) {
   const int W = kRowGroups * RPT;
-  const GemmF32 a{t.buf, t.ring, p.sw, W, p.swp, p.passes, t.tid, t.bs};
-  gemm_fp32<RPT, kTile, kWG>(
-      a, [&](int j) { return t.map + j * W; },
-      [&](int j, const float(&acc)[2 * RPT], const FragF32<RPT>& fr) {
-        tile_epilogue(p, t, W, j, acc, fr);
+  GemmF32 a{t.buf, t.ring, p.sw, W, p.swp, p.passes, t.tid, t.bs};
+  if constexpr (kIn == In::kCluster) {
+    a.ci = t.ci;
+    a.vrows = t.r1 - t.r0;
+  }
+  // the cluster layout: 8 lanes x RPT / 4 rows a thread, the same W
+  constexpr bool kWide = kIn == In::kCluster;
+  gemm_fp32<kWide ? RPT / 4 : RPT, kTile, kIn, kWide ? 8 : 2,
+            kWide ? kSlabKWide : kSlabK, kWide ? kStagesWide : kStages,
+            kWide>(
+      a, [&](int j) { return t.map + t.mrow0 + j * W; },
+      [&](int j, const auto& acc, const auto& fr) {
+        tile_epilogue<kIn>(p, t, W, j, acc, fr);
       });
 }
 
@@ -365,26 +424,36 @@ __device__ __forceinline__ void tile_product_fp32(const Params& p,
 // bf16 into w2h[lane][k], then per warp (wm, wn) the rows wm*4*RPT ..
 // +4*RPT-1 of the pass (RPT/4 tiles of 16) of lanes wn*16 .. +15 (two tiles
 // of 8), k in steps of 16.
-template <int RPT, bool kWG>
+template <int RPT, In kIn>
 __device__ __forceinline__ void tile_product_lo(const Params& p,
                                                 const Tile& t) {
   const int W = kRowGroups * RPT;
   const int lda = t.ring ? p.kp : p.kp + kPadLo;
-  const GemmLo a{t.buf, t.w2h, reinterpret_cast<__nv_bfloat16*>(t.ring),
-                 p.sw, p.kp, W, p.passes, t.tid, lda, t.bs};
-  gemm_lo<RPT, kTile, kWG>(
-      a, [&](int j) { return t.amap + static_cast<size_t>(j) * W * lda; },
-      [&](int j, const float(&acc)[2 * RPT], const FragLo<RPT>& fr) {
-        tile_epilogue(p, t, W, j, acc, fr);
+  GemmLo a{kIn == In::kCluster ? t.buf + t.r0 * t.bs : t.buf, t.w2h,
+           reinterpret_cast<__nv_bfloat16*>(t.ring), p.sw, p.kp, W,
+           p.passes, t.tid, lda, t.bs};
+  if constexpr (kIn == In::kCluster) {
+    a.ci = t.ci;
+    a.vrows = t.r1 - t.r0;
+  }
+  gemm_lo<RPT, kTile, kIn>(
+      a,
+      [&](int j) {
+        return t.amap + static_cast<size_t>(t.mrow0 + j * W) * lda;
+      },
+      [&](int j, const auto& acc, const auto& fr) {
+        tile_epilogue<kIn>(p, t, W, j, acc, fr);
       });
 }
 
-// The elementwise part of iteration i for the whole tile: thread q of lane l
-// works on its share of both sides; on a checking iteration the lane's
-// partial maxima meet in shared memory (a max is exact in any order) and
-// every thread of the lane takes the same latch decision.  Returns whether
-// lane l latched, from its thread 0 (which writes the count).
-template <bool kProjU, bool kProjX>
+// The elementwise part of iteration i for the whole tile (the block's
+// slice of it with kCluster): thread q of lane l works on its share of both
+// sides; on a checking iteration the lane's partial maxima meet in shared
+// memory (a max is exact in any order), with kCluster then the blocks' over
+// distributed shared memory, and every thread of the lane (of every block)
+// takes the same latch decision.  Returns whether lane l latched, from its
+// thread 0 (which writes the count).
+template <In kIn, bool kProjU, bool kProjX>
 __device__ __forceinline__ bool tile_step(const Params& p, const Tile& t,
                                           float4* red, int g, float rho,
                                           int i, bool check, bool add) {
@@ -408,10 +477,11 @@ __device__ __forceinline__ bool tile_step(const Params& p, const Tile& t,
     wkx = p.side_x.dim * p.B;
   }
   const SidePass su{&p.side_u, t.buf + l, st.z, st.y, st.uxc,
-                    p.zco + lane, st.stride, t.bs, wu, ws, wku};
+                    p.zco + lane, st.stride, t.bs, wu, ws, wku,
+                    t.cones_u, t.ku0, t.ku1};
   const SidePass sx{&p.side_x, t.buf + l + p.su * t.bs, st.v, st.g,
                     st.uxc + p.su * st.stride, p.vco + lane, st.stride,
-                    t.bs, wx, ws, wkx};
+                    t.bs, wx, ws, wkx, t.cones_x, t.kx0, t.kx1};
   bool newly = false;
   if (check) {
     float pi = 0.0f, di = 0.0f, ps = 0.0f, ds = 0.0f;
@@ -429,10 +499,20 @@ __device__ __forceinline__ bool tile_step(const Params& p, const Tile& t,
         ps = fmaxf(ps, v.z);
         ds = fmaxf(ds, v.w);
       }
-      newly = ps < p.pri_tol && pi < p.pri_tol &&
-              __fmul_rn(ds, rho) < p.dua_tol &&
-              __fmul_rn(di, rho) < p.dua_tol;
     }
+    if constexpr (kIn == In::kCluster) {  // ... then the cluster's blocks'
+      if (q == 0) t.cred[l] = make_float4(pi, di, ps, ds);
+      cluster_sync();
+      for (int c = 0; c < t.ci->C; ++c) {
+        const float4 v = peer_load4(peer_address(t.cred + l, c));
+        pi = fmaxf(pi, v.x);
+        di = fmaxf(di, v.y);
+        ps = fmaxf(ps, v.z);
+        ds = fmaxf(ds, v.w);
+      }
+    }
+    newly = active && ps < p.pri_tol && pi < p.pri_tol &&
+            __fmul_rn(ds, rho) < p.dua_tol && __fmul_rn(di, rho) < p.dua_tol;
     add = false;  // the residual pass completed ux
   }
   if (active) {
@@ -440,28 +520,32 @@ __device__ __forceinline__ bool tile_step(const Params& p, const Tile& t,
     side_update_q<kProjU>(p, su, g, relax, q, add, latch);
     side_update_q<kProjX>(p, sx, g, relax, q, add, latch);
   }
-  if (newly && q == 0) {
+  if (newly && q == 0 && t.rank == 0) {
     p.iters[lane] = i + 1;
     p.solved[lane] = 1;
   }
   return newly && q == 0;
 }
 
-// RPT: rows a thread of the product; kWG: the tile's w2 in
-// global memory (streamed beside the map); kProjU/kProjX: whether the
-// input / state side has halfspaces or cones.
-template <int RPT, bool kWG, bool kProjU, bool kProjX>
+// RPT: rows a thread of the product; kIn: where the tile's w2 lives (the
+// block's shared memory, global memory streamed beside the map, or split
+// over a cluster); kProjU/kProjX: whether the input / state side has
+// halfspaces or cones.
+template <int RPT, In kIn, bool kProjU, bool kProjX>
 __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
     condensed_fused_kernel(Params p) {
   extern __shared__ float4 smem4[];
   char* sm = reinterpret_cast<char*>(smem4);
+  constexpr bool kCl = kIn == In::kCluster;
   const int tid = threadIdx.x;
   const int g = blockIdx.y;
-  const int l0 = blockIdx.x * kTile;  // the tile's first index in the group
+  const int C = kCl ? p.cluster : 1;
+  const int tile = blockIdx.x / C;
+  const int l0 = tile * kTile;  // the tile's first index in the group
   const int sw = p.sw, swp = p.swp, kp = p.kp;
   const bool reduced = p.t12a != nullptr;
   const TileLayout lay = tile_layout(
-      kWG, sw, swp, kRowGroups * RPT, kp,
+      kIn, kCl ? p.rows_loc : sw, swp, kRowGroups * RPT, kp,
       p.state_shared ? state_rows(p.su, p.sx, sw, p.state_free) : 0,
       p.t12_resident, reduced);
 
@@ -469,24 +553,67 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
   t.tid = tid;
   t.lane0 = g * p.L + l0;
   t.nvalid = min(kTile, p.L - l0);
+  // the block's slice
+  const int n_u = p.side_u.n_stages, n_x = p.side_x.n_stages;
+  t.rank = kCl ? static_cast<int>(cluster_rank()) : 0;
+  const int s0 = kCl ? p.stages[t.rank] : 0;
+  const int s1 = kCl ? p.stages[t.rank + 1] : n_u + n_x;
+  t.ku0 = min(s0, n_u);
+  t.ku1 = min(s1, n_u);
+  t.kx0 = max(s0 - n_u, 0);
+  t.kx1 = max(s1 - n_u, 0);
+  t.r0 = stage_row(s0, p.side_u.dim, p.nx, n_u);
+  t.r1 = stage_row(s1, p.side_u.dim, p.nx, n_u);
+  t.mrow0 = t.rank * (swp / C);
   // the tile's own columns of the global arrays
-  const size_t col0 = static_cast<size_t>(g * p.tiles + blockIdx.x) * kTile;
-  if constexpr (kWG) {
+  const size_t col0 = static_cast<size_t>(g * p.tiles + tile) * kTile;
+  if constexpr (kIn == In::kGlobal) {
     t.buf = p.w2g + col0;
     t.bs = p.ldg;
-    t.w2h = reduced ? p.w2hg + col0 * kp : nullptr;
   } else {
-    t.buf = reinterpret_cast<float*>(sm);
+    // the block's rows r0 .. r1 - 1 from the buffer's start
+    t.buf = reinterpret_cast<float*>(sm) - t.r0 * kTile;
     t.bs = kTile;
-    t.w2h =
-        reduced ? reinterpret_cast<__nv_bfloat16*>(sm + lay.w2h) : nullptr;
+  }
+  t.w2h = !reduced            ? nullptr
+          : kIn == In::kShared ? reinterpret_cast<__nv_bfloat16*>(sm + lay.w2h)
+                               : p.w2hg + col0 * kp;
+  t.ci = nullptr;
+  t.cred = nullptr;
+  if constexpr (kCl) {
+    t.cred = reinterpret_cast<float4*>(sm + lay.meta);
+    ClusterIn* ci = reinterpret_cast<ClusterIn*>(sm + lay.meta + 3 * 16 * 32);
+    if (tid < C) {
+      ci->base[tid] = peer_address(sm, tid);
+      ci->kb[tid] = stage_row(p.stages[tid], p.side_u.dim, p.nx, n_u);
+    }
+    if (tid == 0) {
+      ci->kb[C] = sw;
+      ci->C = C;
+      ci->rank = t.rank;
+      ci->slabs = 0;
+      for (int i = 0; i < kStages; ++i) mbar_init(&ci->full[i]);
+      mbar_fence_init();
+    }
+    t.ci = ci;
   }
   int* done = reinterpret_cast<int*>(sm + lay.flags);
   int* n_done = done + kTile;
   t.done = done;
-  t.stage = (kProjU || kProjX) && !p.wsc
-                ? reinterpret_cast<float*>(sm + lay.total)
-                : nullptr;
+  // after the layout: the projected stages' buffers, then the cone pairs
+  const size_t stage_bytes =
+      (kProjU || kProjX) && !p.wsc
+          ? sizeof(float) * kThreads *
+                (kProjX && (!kProjU || p.nx > p.side_u.dim) ? p.nx
+                                                            : p.side_u.dim)
+          : 0;
+  t.stage = stage_bytes ? reinterpret_cast<float*>(sm + lay.total) : nullptr;
+  t.cones_u = p.side_u.cones;
+  t.cones_x = p.side_x.cones;
+  if (p.cones_shared)
+    stage_cones(p.side_u, p.side_x,
+                reinterpret_cast<int*>(sm + lay.total + stage_bytes), tid,
+                kThreads, &t.cones_u, &t.cones_x);
   float4* red = reinterpret_cast<float4*>(sm + lay.red);
   t.state = p.state_shared ? reinterpret_cast<float*>(sm + lay.state)
                            : nullptr;
@@ -521,10 +648,14 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
     if (l < t.nvalid)
       lane_init(p, t, l, q, p.tx0 + gm * sw * p.nx, p.t1c + gm * sw, t12c);
     else
-      for (int r = q; r < sw; r += kLaneThreads) t.buf[r * t.bs + l] = 0.0f;
+      for (int r = t.r0 + q; r < t.r1; r += kLaneThreads)
+        t.buf[r * t.bs + l] = 0.0f;
   }
   if (tid == 0) *n_done = 0;
-  __syncthreads();
+  if constexpr (kCl)
+    cluster_sync();  // every block's w2 and meta before the first product
+  else
+    __syncthreads();
 
   for (int i = 0; i < p.max_iter; ++i) {
     const bool check = is_check(p, i);
@@ -534,7 +665,7 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
       const int l = tid % kTile, q = tid / kTile;
       if (l < t.nvalid) {
         const LaneState st = lane_state(p, t, l);
-        for (int r = q; r < sw; r += kLaneThreads) {
+        for (int r = t.r0 + q; r < t.r1; r += kLaneThreads) {
           const float c = st.uxc[r * st.stride];
           t.buf[r * t.bs + l] = c;
           st.uxc[r * st.stride] = __fadd_rn(c, t12c[r]);
@@ -542,22 +673,25 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
       }
     } else {
       if (check && p.carry_out)  // a lane that latches now keeps this w2
-        for (int e = tid; e < sw * kTile; e += kThreads) {
-          const int r = e / kTile, l = e - r * kTile;
+        for (int e = tid; e < (t.r1 - t.r0) * kTile; e += kThreads) {
+          const int r = t.r0 + e / kTile, l = e % kTile;
           if (!done[l]) p.w2_out[r * p.B + t.lane0 + l] = t.buf[r * t.bs + l];
         }
       if (is_reduced(p, i, check))
-        tile_product_lo<RPT, kWG>(p, t);
+        tile_product_lo<RPT, kIn>(p, t);
       else
-        tile_product_fp32<RPT, kWG>(p, t);
+        tile_product_fp32<RPT, kIn>(p, t);
     }
     __syncthreads();
-    if (tile_step<kProjU, kProjX>(p, t, red, g, rho, i, check,
-                                  i > 0 || p.warm_start)) {
+    if (tile_step<kIn, kProjU, kProjX>(p, t, red, g, rho, i, check,
+                                       i > 0 || p.warm_start)) {
       done[tid % kTile] = 1;
       atomicAdd(n_done, 1);
     }
-    __syncthreads();
+    if constexpr (kCl)
+      cluster_sync();  // every block's next w2 before the next product
+    else
+      __syncthreads();
     if (*n_done == t.nvalid) break;  // every lane of the tile has latched
   }
 
@@ -568,9 +702,10 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
     const LaneState st = lane_state(p, t, l);
     const int S = st.stride, B = p.B;
     const bool carry = p.carry_out && !done[l];
-    for (int r = q; r < sw; r += kLaneThreads)
+    for (int r = t.r0 + q; r < t.r1; r += kLaneThreads)
       if (carry) p.w2_out[r * B + lane] = t.buf[r * t.bs + l];
-    for (int r = q; r < p.su; r += kLaneThreads) {
+    for (int r = t.ku0 * p.side_u.dim + q; r < t.ku1 * p.side_u.dim;
+         r += kLaneThreads) {
       const float z = st.z[r * S];
       if (t.state) {
         p.uout[r * B + lane] = z;
@@ -578,7 +713,7 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
       }
       if (carry) p.zco[r * B + lane] = z;
     }
-    for (int r = q; r < p.sx; r += kLaneThreads) {
+    for (int r = t.kx0 * p.nx + q; r < t.kx1 * p.nx; r += kLaneThreads) {
       const float v = st.v[r * S];
       if (t.state) {
         p.xout[r * B + lane] = v;
@@ -589,18 +724,89 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
   }
 }
 
-// The kernel for RPT rows a thread and w2 in shared or
-// global memory, with the projections the sides need.
-template <int RPT, bool kWG>
+// The kernel for RPT rows a thread and w2 in shared, global or a
+// cluster's memory, with the projections the sides need.
+template <int RPT, In kIn>
 void (*tile_kernel(bool proj_u, bool proj_x))(Params) {
   return proj_u
-             ? (proj_x ? condensed_fused_kernel<RPT, kWG, true, true>
-                       : condensed_fused_kernel<RPT, kWG, true, false>)
-             : (proj_x ? condensed_fused_kernel<RPT, kWG, false, true>
-                       : condensed_fused_kernel<RPT, kWG, false, false>);
+             ? (proj_x ? condensed_fused_kernel<RPT, kIn, true, true>
+                       : condensed_fused_kernel<RPT, kIn, true, false>)
+             : (proj_x ? condensed_fused_kernel<RPT, kIn, false, true>
+                       : condensed_fused_kernel<RPT, kIn, false, false>);
+}
+
+// The instances fused_tile_plan picks from; null for any other.
+void (*pick_kernel(int rpt, In in, bool proj_u, bool proj_x))(Params) {
+  if (in == In::kShared && rpt == 8)
+    return tile_kernel<8, In::kShared>(proj_u, proj_x);
+  if (in == In::kShared && rpt == 20)
+    return tile_kernel<20, In::kShared>(proj_u, proj_x);
+  if (in == In::kShared && rpt == 32)
+    return tile_kernel<32, In::kShared>(proj_u, proj_x);
+  if (in == In::kGlobal && rpt == 32)
+    return tile_kernel<32, In::kGlobal>(proj_u, proj_x);
+  if (in == In::kCluster && rpt == 32)
+    return tile_kernel<32, In::kCluster>(proj_u, proj_x);
+  return nullptr;
+}
+
+In layout_of(int w2_global, int cluster) {
+  return cluster > 1 ? In::kCluster : w2_global ? In::kGlobal : In::kShared;
+}
+
+// Launches ``kernel`` on ``grid`` (x a multiple of ``cluster``), as
+// clusters of ``cluster`` blocks along x where that is more than 1.
+cudaError_t launch(void (*kernel)(Params), dim3 grid, int cluster,
+                   size_t smem, cudaStream_t stream, const Params& p) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, p);
 }
 
 }  // namespace
+
+// Blocks of one SM for the instance of a launch (the occupancy API), or,
+// for a cluster of ``cluster`` blocks, the clusters the whole card holds at
+// once; a negative CUDA error.
+extern "C" int tinympc_condensed_fused_occupancy(int rpt, int w2_global,
+                                                 int cluster, int proj_u,
+                                                 int proj_x,
+                                                 int smem_bytes) {
+  void (*kernel)(Params) = pick_kernel(rpt, layout_of(w2_global, cluster),
+                                       proj_u != 0, proj_x != 0);
+  if (!kernel) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  int n = 0;
+  if (err == cudaSuccess && cluster > 1) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster * 64);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem_bytes;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  } else if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
+                                                        smem_bytes);
+  }
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
 
 extern "C" int tinympc_condensed_fused(
     const float* t12t, const void* t12a, const float* t12c,
@@ -615,7 +821,7 @@ extern "C" int tinympc_condensed_fused(
     int ct, int k0, int lo_all, float alpha, float one_m_alpha, float pri_tol,
     float dua_tol, int en_input_bound, int en_state_bound, int warm_start,
     int carry_out, int state_shared, int t12_resident, int w2_global,
-    int rpt, int swp, int kp,
+    int cluster, const int* stages, int rpt, int swp, int kp,
     int smem_bytes, int map_grouped, int rho_grouped, int box_u_grouped,
     int box_x_grouped, const float* lin_u, int n_lin_u, const int* soc_u,
     const float* soc_mu_u, int n_soc_u, int lin_u_grouped, int mu_u_grouped,
@@ -632,7 +838,10 @@ extern "C" int tinympc_condensed_fused(
   // side's dim floats, after the tile's layout) leave no room in
   // smem_bytes, else null;
   // w2_global: the tiles' w2 in w2g (sw, G x tiles x 32), with reduced
-  // iterations rounded into w2hg (G x tiles x 32, kp) bf16;
+  // iterations (also with a cluster) rounded into w2hg (G x tiles x 32, kp)
+  // bf16; cluster: the
+  // blocks a tile (1, or 2 to 8 with ``stages``, the host's cluster + 1
+  // stage bounds, and swp = cluster x passes x 16 x rpt);
   // state_shared: the lanes' solver state lives in shared memory (else in
   // the (dim, B) arrays, uxc included).
   Params p;
@@ -659,10 +868,31 @@ extern "C" int tinympc_condensed_fused(
   p.state_free = !en_state_bound && n_lin_x == 0 && n_soc_x == 0;
   // the caller owns the layout; refuse one the kernel would overrun
   const int W = kRowGroups * rpt;
-  p.passes = rpt > 0 ? swp / W : 0;
   const bool wg = w2_global != 0;
+  const In in = layout_of(w2_global, cluster);
+  const int n_u = N - 1, n_st = n_u + N;
+  p.cluster = cluster;
+  p.rows_loc = p.sw;
+  if (cluster < 1 || cluster > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster > 1) {  // each block's stages, rows and slice of the map
+    if (!stages || stages[0] != 0 || stages[cluster] != n_st || wg ||
+        t12_resident || state_shared || swp % cluster != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.rows_loc = 0;
+    for (int c = 0; c <= cluster; ++c) {
+      p.stages[c] = stages[c];
+      if (c == 0) continue;
+      const int rows = stage_row(stages[c], nu, nx, n_u) -
+                       stage_row(stages[c - 1], nu, nx, n_u);
+      if (stages[c] <= stages[c - 1] || rows > swp / cluster)
+        return static_cast<int>(cudaErrorInvalidValue);
+      p.rows_loc = rows > p.rows_loc ? rows : p.rows_loc;
+    }
+  }
+  p.passes = rpt > 0 ? swp / cluster / W : 0;
   const size_t need =
-      tile_layout(wg, p.sw, swp, W, kp,
+      tile_layout(in, p.rows_loc, swp, W, kp,
                   state_shared ? state_rows(p.su, p.sx, p.sw, p.state_free)
                                : 0,
                   t12_resident, reduced)
@@ -672,13 +902,20 @@ extern "C" int tinympc_condensed_fused(
   const size_t stage =
       (proj_u || proj_x) && !wsc ? sizeof(float) * kThreads * sdim : 0;
   if (G <= 0 || L <= 0 || G > 65535 || ct < 1 || k0 < 0 || k0 > max_iter ||
-      rpt <= 0 || swp < p.sw || swp != p.passes * W ||
+      rpt <= 0 || swp < p.sw || swp != cluster * p.passes * W ||
       (p.passes > 1 && !park) ||
-      (wg && (!w2g || t12_resident || (reduced && !w2hg))) ||
+      (wg && (!w2g || t12_resident)) ||
+      ((wg || cluster > 1) && reduced && !w2hg) ||
       kp % kSlabKLo != 0 || kp < p.sw || smem_bytes < 0 ||
       static_cast<size_t>(smem_bytes) < need + stage || !rho ||
       (reduced && !t12a))
     return static_cast<int>(cudaErrorInvalidValue);
+  // the cones' pairs in shared memory after the stage buffers, where the
+  // launch left room for them
+  p.cones_shared =
+      n_soc_u + n_soc_x > 0 &&
+      static_cast<size_t>(smem_bytes) >=
+          need + stage + up16(2 * sizeof(int) * (n_soc_u + n_soc_x));
   if (!init_side(p.side_u, umin, umax, lin_u, n_lin_u, soc_u, soc_mu_u,
                  n_soc_u, nu, N - 1, en_input_bound, box_u_grouped,
                  lin_u_grouped, mu_u_grouped) ||
@@ -687,23 +924,14 @@ extern "C" int tinympc_condensed_fused(
                  mu_x_grouped))
     return static_cast<int>(cudaErrorInvalidValue);
 
-  void (*kernel)(Params) = nullptr;
-  // the instances fused_tile_plan picks from
-  if (!wg && rpt == 8)
-    kernel = tile_kernel<8, false>(proj_u, proj_x);
-  else if (!wg && rpt == 20)
-    kernel = tile_kernel<20, false>(proj_u, proj_x);
-  else if (!wg && rpt == 32)
-    kernel = tile_kernel<32, false>(proj_u, proj_x);
-  else if (wg && rpt == 32)
-    kernel = tile_kernel<32, true>(proj_u, proj_x);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(Params) = pick_kernel(rpt, in, proj_u, proj_x);
+  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(smem_bytes);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.tiles, G);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  err = launch(kernel, dim3(p.tiles * cluster, G), cluster, smem,
+               static_cast<cudaStream_t>(stream), p);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,9 +26,10 @@
 // the stage leaves no room there, so a stage of any width fits), clipped to the
 // box, put through each halfspace row in order and then each cone where it
 // lies, and only then the pass takes the residuals or writes the updates.
-// The halfspace rows (a, a/||a||^2, b), the cones' (start, dim) pairs and
-// their mu are small device arrays read through the cache by every thread
-// alike, any number of each.  A side without projections keeps the
+// The halfspace rows (a, a/||a||^2, b) and the cones' mu are small device
+// arrays read through the cache by every thread alike, any number of each;
+// the cones' (start, dim) pairs are staged once a block in shared memory
+// (stage_cones).  A side without projections keeps the
 // row-by-row arithmetic of the box path.
 //
 // Group grid: a launch may solve G distinct problems, each block lanes of
@@ -74,6 +75,19 @@ inline bool init_side(Side& s, const float* wmin, const float* wmax,
            (n_soc > 0 && (soc == nullptr || mu == nullptr)));
 }
 
+// Copies both sides' cone pairs into the block's shared memory (2 x
+// (side_u.n_soc + side_x.n_soc) ints at ``dst``) and returns where each
+// side's start; the caller's barrier makes them visible.
+__device__ __forceinline__ void stage_cones(const Side& su, const Side& sx,
+                                            int* dst, int tid, int threads,
+                                            const int** cu, const int** cx) {
+  const int nu2 = 2 * su.n_soc, nx2 = 2 * sx.n_soc;
+  for (int e = tid; e < nu2 + nx2; e += threads)
+    dst[e] = e < nu2 ? su.cones[e] : sx.cones[e - nu2];
+  *cu = dst;
+  *cx = dst + nu2;
+}
+
 template <class P>
 __device__ __forceinline__ float relaxed(const P& p, bool relax, float w,
                                          float prev) {
@@ -99,12 +113,13 @@ __device__ __forceinline__ float row_slack(const Side& s, int g, int r,
 // the box, then each halfspace row in order (w -= max(a.w - b, 0)
 // a/||a||^2, the dot product summed in index order), then each cone
 // (projections._project_soc_scaled), in the plain version's order of
-// operations.  ux: the lane's iterate, element r at ux[r * T].
+// operations.  ux: the lane's iterate, element r at ux[r * T]; cones: the
+// cones' (start, dim) pairs, the block's copy in shared memory.
 template <class P>
 __device__ __forceinline__ void stage_slack(
     const P& p, const Side& s, int g, int k, bool relax, const float* ux,
     const float* prev, const float* dual, int lane, int T, float* w,
-    int ws) {
+    int ws, const int* cones) {
   const int dim = s.dim;
   for (int j = 0; j < dim; ++j) {
     const int r = k * dim + j, o = r * p.B + lane;
@@ -121,8 +136,8 @@ __device__ __forceinline__ void stage_slack(
       w[d * ws] = __fsub_rn(w[d * ws], __fmul_rn(viol, __ldg(row + dim + d)));
   }
   for (int c = 0; c < s.n_soc; ++c) {
-    float* seg = w + __ldg(s.cones + 2 * c) * ws;
-    const int last = __ldg(s.cones + 2 * c + 1) - 1;
+    float* seg = w + cones[2 * c] * ws;
+    const int last = cones[2 * c + 1] - 1;
     const float mu = __ldg(s.mu + g * s.mu_stride + c);
     float sq = __fmul_rn(seg[0], seg[0]);
     for (int d = 1; d < last; ++d)

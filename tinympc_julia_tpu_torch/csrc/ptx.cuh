@@ -1,7 +1,9 @@
 // The inline-PTX helpers of the tile products (tile_gemm.cuh): cp.async
 // copies into shared memory, ldmatrix and the bf16 mma.sync of the tensor
-// cores, and the warp shuffle.  Kept apart so that a host emulation of a
-// kernel can put its own versions of these in their place.
+// cores, the warp shuffle, a thread block cluster's rank, barrier and
+// distributed shared memory, and the bulk copy engine with its mbarriers.
+// Kept apart so that a host emulation of a kernel can put its own versions
+// of these in their place.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,6 +48,113 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 // the value of ``v`` in lane ``src`` of the warp (every lane takes part)
 __device__ __forceinline__ float warp_read(float v, int src) {
   return __shfl_sync(0xffffffffu, v, src);
+}
+
+// -- thread block clusters ---------------------------------------------------
+
+// this block's rank in its cluster
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits for all:
+// the block's and its peers' shared-memory writes before it are visible to
+// every thread of the cluster after it (release / acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// The shared::cluster address of ``p`` (this block's shared memory) in the
+// shared memory of the cluster's block ``rank``.
+__device__ __forceinline__ unsigned peer_address(const void* p,
+                                                 unsigned rank) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(s), "r"(rank));
+  return r;
+}
+
+// loads from a shared::cluster address (a peer's shared memory, or the
+// block's own)
+__device__ __forceinline__ float peer_load(unsigned addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 peer_load4(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// -- the bulk copy engine (TMA, one-dimensional) and its barriers ----------
+
+__device__ __forceinline__ unsigned smem_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// an mbarrier in shared memory that completes on one arrival and the bytes
+// its copies announce
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_address(bar))
+               : "memory");
+}
+
+// the async proxy sees the initialised barriers
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrives on ``bar`` announcing ``bytes`` of copies into its phase
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_address(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// waits until the phase of ``bar`` with this parity has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned a = smem_address(bar);
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+}
+
+// ``bytes`` (a multiple of 16, both addresses 16-byte aligned) from global
+// to this block's shared memory, completing on ``bar``
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_address(dst)),
+      "l"(src), "r"(bytes), "r"(smem_address(bar))
+      : "memory");
 }
 
 }  // namespace tinympc

@@ -9,12 +9,18 @@
 // The products.  out(row, lane) = sum_k M(k, row) w(k, lane) over the
 // tile, w in shared memory as [k][lane] (row stride T), M a transposed map
 // ([k][row], row stride ld) in fp32 or a row-major bf16 map ([row][k]).
-//  * fp32 (gemm_fp32): each thread keeps a register tile of RPT rows x 2
+//  * fp32 (gemm_fp32): each thread keeps a register tile of RPT rows x LPT
 //    lanes and sums every output over k in index order with fmaf, so a
 //    lane's result does not depend on its tile-mates (and equals a
 //    product that sums in index order: cuBLAS's at these shapes).  No
-//    TF32.  The T / 2 lane groups x 512 / T row groups cover W = 512 RPT /
-//    T rows at once.
+//    TF32.  The T / LPT lane groups x 256 LPT / T row groups cover W = 256
+//    LPT RPT / T rows at once.  LPT = 2 (the shared-memory layouts): a
+//    thread's k step loads RPT / 4 16-byte map chunks that 16 threads of
+//    its warp share and 8 bytes of w for 2 RPT FMAs.  LPT = 8 (the cluster
+//    layout, RPT 8): 32 bytes of map and 32 of w for 64 FMAs, so a k step
+//    of the block asks the shared-memory pipe for about half the
+//    wavefronts per FMA (each 16-byte load of a warp costs 4 whatever it
+//    shares).
 //  * bf16 (gemm_lo): the input is rounded to bf16 (round to nearest even)
 //    into a [lane][k] buffer and mma.sync.m16n8k16 multiplies it by a
 //    real-bf16 map, warps split over rows (128 / T of them) and lanes
@@ -29,13 +35,24 @@
 //  * The map is resident in shared memory, or streamed from L2 in slabs
 //    through a ring filled by cp.async (kStages - 1 slabs in flight), the
 //    segments one after another in one stream.
-//  * Where a tile's iterates do not fit in shared memory beside the ring
-//    (the widest maps), w lives in global memory as the tile's own columns
-//    of a [k][lane] array (kWG) and its k-rows stream through the same ring
-//    slots as the map's: a slot holds a slab of the map and the matching
-//    k-rows of w.  The bf16 product then rounds w once into the tile's
-//    [lane][k] rows of a global bf16 array and streams those.  The sums
-//    keep their order, so the results do not change.
+//  * Where a tile's iterates do not fit in one block's shared memory (the
+//    wide maps), a thread block cluster of C blocks (2 to 8, on C SMs)
+//    shares the tile (In::kCluster): block c owns a slice of the product's
+//    output rows and the k-rows of w it computes itself, in its own shared
+//    memory; the k-rows of every block reach each ring slot beside the
+//    map's slab over distributed shared memory (a peer's shared memory
+//    loaded through its shared::cluster address), fetched before the block
+//    multiplies the slab in hand and stored after it, so the loads' latency
+//    hides behind the FMAs.  The bf16 product rounds each block's own rows
+//    once into the tile's [lane][k] rows of a global bf16 array, and every
+//    block streams those as In::kGlobal does.
+//    Where even a cluster's slices do not fit, w lives in global memory as
+//    the tile's own columns of a [k][lane] array (In::kGlobal) and its
+//    k-rows stream through the same ring slots; the bf16 product then
+//    rounds w once into the tile's [lane][k] rows of a global bf16 array.
+//    The sums keep their order in every layout, so the results do not
+//    change.  A segment's map rows past its valid ones (``vrows``: a
+//    slice's padding) are neither copied nor multiplied.
 //
 // The elementwise step: the threads of a lane split each side of it, the
 // rows of a box-only side (thread q of its 256 / T takes rows q, q + 256 /
@@ -61,6 +78,11 @@ constexpr int kSlabKLo = 16;   // bf16 map k-columns per slab
 constexpr int kStagesLo = 4;   // bf16 slabs in the ring
 constexpr int kPadLo = 8;      // bf16 row padding (conflict-free ldmatrix)
 constexpr int kRowBatch = 4;   // rows an elementwise pass loads at once
+constexpr int kMaxCluster = 8; // blocks a cluster (the portable maximum)
+// the cluster layout's fp32 ring: half the slabs, each twice as deep (the
+// same bytes as kStages x kSlabK), so a block waits at half the barriers
+constexpr int kSlabKWide = 2 * kSlabK;
+constexpr int kStagesWide = kStages / 2;
 
 __host__ __device__ inline size_t up16(size_t n) { return (n + 15) / 16 * 16; }
 
@@ -74,9 +96,42 @@ struct Lanes {
   static constexpr int kRowWarps = 128 / T;  // warps over a bf16 product's rows
 };
 
+// Where a product's input w lives: in the block's shared memory (all its
+// k-rows), in global memory streamed beside the map, or split over a
+// cluster's blocks.
+enum class In { kShared, kGlobal, kCluster };
+
+// A cluster's product input: block c owns k-rows [kb[c], kb[c + 1]) of w,
+// [k][lane] with row stride T from its buffer's start (shared::cluster
+// address base[c]).  Lives in each block's shared memory, beside the
+// mbarriers on which the bulk copies of the map's slabs complete (one a
+// ring slot) and the count of slabs the block has streamed through them
+// (a slab's slot and its barrier's phase follow from it).
+struct ClusterIn {
+  unsigned long long full[kStages];
+  unsigned base[kMaxCluster];
+  int kb[kMaxCluster + 1];
+  int C, rank, slabs;
+
+  // the block that owns k-row k (k < kb[C]; the same in every thread of a
+  // warp where the warp fetches one k-row)
+  __device__ __forceinline__ int owner(int k) const {
+    int c = 0;
+    while (c + 1 < C && k >= kb[c + 1]) ++c;
+    return c;
+  }
+};
+
+static_assert(sizeof(ClusterIn) <= 256, "a ClusterIn fits its 256 bytes");
+
+// Bytes a cluster block keeps beside its slices: the lanes' residual maxima
+// that the cluster combines (up to 3 float4 a lane of a tile of 32) and a
+// ClusterIn for each product input.
+constexpr size_t kClusterMeta = 3 * 16 * 32 + 2 * 256;
+
 // Bytes of the slab ring of a streamed product of width W (fp32 slabs, or
 // bf16 slabs where ``lo``), with the k-rows of wt lanes of w beside each
-// slab where w streams too (kWG).
+// slab where w streams too (kGlobal, kCluster).
 __host__ __device__ inline size_t ring_bytes(int W, bool lo, int wt = 0) {
   return lo ? 2 * kStagesLo * static_cast<size_t>(W + wt) *
                   (kSlabKLo + kPadLo)
@@ -85,13 +140,20 @@ __host__ __device__ inline size_t ring_bytes(int W, bool lo, int wt = 0) {
 }
 
 // Which output each register of an fp32 product thread holds: entry e of
-// its 2 RPT is row tr * RPT + e / 2 of the segment, lane 2 tl + e % 2.
-template <int RPT>
+// its LPT RPT is row tr * RPT + e / LPT of the segment, lane LPT tl + e %
+// LPT.
+template <int RPT, int LPT = 2>
 struct FragF32 {
   static constexpr bool kLo = false;
+  static constexpr int kLanes = LPT;
+  static constexpr int kN = RPT * LPT;
   int tr, tl;
-  __device__ __forceinline__ int row(int e) const { return tr * RPT + e / 2; }
-  __device__ __forceinline__ int lane(int e) const { return 2 * tl + (e & 1); }
+  __device__ __forceinline__ int row(int e) const {
+    return tr * RPT + e / LPT;
+  }
+  __device__ __forceinline__ int lane(int e) const {
+    return LPT * tl + e % LPT;
+  }
 };
 
 // ... and of a bf16 product thread (mma.sync's m16n8 accumulator layout):
@@ -101,6 +163,7 @@ template <int RPT>
 struct FragLo {
   static constexpr bool kLo = true;
   static constexpr int kMt = RPT / 4;  // 16-row tiles a warp
+  static constexpr int kN = 8 * kMt;
   int wm, wn, gq, tq;
   __device__ __forceinline__ int row(int e) const {
     return (wm * kMt + e / 8) * 16 + gq + 8 * ((e & 3) >> 1);
@@ -111,43 +174,73 @@ struct FragLo {
 };
 
 struct GemmF32 {
-  const float* w;  // [k][lane], row stride T (shared memory); with kWG the
-                   // tile's first column of a global array, row stride ldw
+  const float* w;  // [k][lane], row stride T (shared memory); kGlobal: the
+                   // tile's first column of a global array, row stride ldw;
+                   // kCluster: unused (ci says where each k-row lives)
   float* ring;     // the slab ring where the segments are streamed; null:
                    // seg(j) points into shared memory
-  int K, W, ld, nseg, tid;  // W = Lanes<T>::kRowGroups * RPT
+  int K, W, ld, nseg, tid;  // W: the rows the threads cover at once
   int ldw = 0;
+  ClusterIn* ci = nullptr;  // kCluster
+  // segment j's valid rows: min(W, vrows - (j / vper) W); 0: all W
+  int vrows = 0, vper = 1;
 };
+
+// The valid rows of segment j of a product (GemmF32 / GemmLo's vrows).
+template <class A>
+__device__ __forceinline__ int seg_rows(const A& a, int j) {
+  return a.vrows ? min(a.W, a.vrows - (j / a.vper) * a.W) : a.W;
+}
 
 // seg(j): segment j's map, [k][row] with row stride ld (W rows of it);
 // epi(j, acc, frag) after segment j, on every thread.  Every thread must be
-// past its last use of the ring and of w (and, with kWG, w's stores must be
-// behind a barrier) before the call.
-template <int RPT, int T = kTile, bool kWG = false, class Seg, class Epi>
+// past its last use of the ring and of w (with kGlobal, w's stores behind a
+// barrier; with kCluster, every block's behind a cluster barrier) before
+// the call.
+template <int RPT, int T = kTile, In kIn = In::kShared, int LPT = 2,
+          int kSK = kSlabK, int kST = kStages, bool kBulk = false, class Seg,
+          class Epi>
 __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
                                           Epi epi) {
   static_assert(RPT % 4 == 0, "rows a thread: a multiple of 4");
-  constexpr int kLaneGroups = Lanes<T>::kLaneGroups;
-  const FragF32<RPT> fr{a.tid / kLaneGroups, a.tid % kLaneGroups};
+  static_assert(LPT == 2 || LPT == 8, "lanes a thread: 2 or 8");
+  constexpr bool kStream = kIn != In::kShared;  // w's rows in the ring slots
+  constexpr int kLaneGroups = T / LPT;
+  const FragF32<RPT, LPT> fr{a.tid / kLaneGroups, a.tid % kLaneGroups};
   const int r0 = fr.tr * RPT;
-  float acc[2 * RPT];
+  float acc[LPT * RPT];
   auto zero = [&] {
 #pragma unroll
-    for (int e = 0; e < 2 * RPT; ++e) acc[e] = 0.0f;
+    for (int e = 0; e < LPT * RPT; ++e) acc[e] = 0.0f;
   };
   // mrow: the map's k-row; wrow: w's (T lanes)
   auto step = [&](const float* mrow, const float* wrow) {
-    const float2 w = *reinterpret_cast<const float2*>(wrow + 2 * fr.tl);
+    float w[LPT];
+    if constexpr (LPT == 2) {
+      const float2 v = *reinterpret_cast<const float2*>(wrow + 2 * fr.tl);
+      w[0] = v.x;
+      w[1] = v.y;
+    } else {
+#pragma unroll
+      for (int q4 = 0; q4 < LPT / 4; ++q4) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(wrow + LPT * fr.tl + 4 * q4);
+        w[4 * q4] = v.x;
+        w[4 * q4 + 1] = v.y;
+        w[4 * q4 + 2] = v.z;
+        w[4 * q4 + 3] = v.w;
+      }
+    }
 #pragma unroll
     for (int j4 = 0; j4 < RPT / 4; ++j4) {
       const float4 m = *reinterpret_cast<const float4*>(mrow + r0 + 4 * j4);
       const float mv[4] = {m.x, m.y, m.z, m.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[2 * (4 * j4 + j)] = fmaf(mv[j], w.x, acc[2 * (4 * j4 + j)]);
-        acc[2 * (4 * j4 + j) + 1] =
-            fmaf(mv[j], w.y, acc[2 * (4 * j4 + j) + 1]);
-      }
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < LPT; ++q)
+          acc[LPT * (4 * j4 + j) + q] =
+              fmaf(mv[j], w[q], acc[LPT * (4 * j4 + j) + q]);
     }
   };
   zero();
@@ -160,35 +253,84 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
     }
     return;
   }
-  // slab s: k-rows [(s % nslab) * kSlabK, ...) of segment s / nslab, in
-  // ring slot s % kStages
-  const int nslab = (a.K + kSlabK - 1) / kSlabK, total = nslab * a.nseg;
+  // slab s: k-rows [(s % nslab) * kSK, ...) of segment s / nslab, in ring
+  // slot (s0 + s) % kST.  kBulk (kCluster only): the map's rows of a slab
+  // arrive by the bulk copy engine, one copy a k-row issued by thread 0, on
+  // the slot's mbarrier (phase (s0 + s) / kST; s0 the block's slabs before
+  // this product); otherwise by cp.async, 16 bytes a thread at a time
+  static_assert(!kBulk || kIn == In::kCluster, "bulk copies: a cluster's");
+  const int nslab = (a.K + kSK - 1) / kSK, total = nslab * a.nseg;
+  int s0 = 0;
+  if constexpr (kBulk) {
+    s0 = a.ci->slabs;
+    __syncthreads();  // every thread has read the count
+    if (a.tid == 0) a.ci->slabs = s0 + total;
+  }
   const int per = a.W / 4;  // 16-byte chunks of a slab row
-  const int slot = kSlabK * (a.W + (kWG ? T : 0));  // floats of a ring slot
+  const int slot = kSK * (a.W + (kStream ? T : 0));  // floats a slot
   // this thread's first chunk of a slab: row r0c, chunk c0c; it then steps
   // kThreads chunks at a time
   const int r0c = a.tid / per, c0c = a.tid - r0c * per;
   int ij = 0, ik = 0;  // the next slab to issue: segment ij, k-row ik
+  // kCluster: this thread's entries of the w rows of the slab last issued
+  // (entry e = tid + i kThreads: k-row ik + e / T, lane e % T), held in
+  // registers until put
+  constexpr int kPer = (kSK * T + kThreads - 1) / kThreads;
+  float wv[kPer];
+  float* wdst = nullptr;
+  int wn = 0;  // entries of this thread in the slab
   auto issue = [&](int s) {
+    wn = 0;
     if (s < total) {
-      const int rows = min(kSlabK, a.K - ik);
-      float* dst = a.ring + (s % kStages) * slot;
+      const int rows = min(kSK, a.K - ik);
+      const int vr = seg_rows(a, ij);
+      float* dst = a.ring + ((s0 + s) % kST) * slot;
       const float* src = seg(ij) + static_cast<size_t>(ik) * a.ld;
-      if constexpr (kWG) {  // the tile's w rows of the slab, after the map's
+      if constexpr (kIn == In::kGlobal) {  // the tile's w rows of the slab
         constexpr int kPerW = T / 4;
         const float* wsrc = a.w + static_cast<size_t>(ik) * a.ldw;
         for (int e = a.tid; e < rows * kPerW; e += kThreads) {
           const int r = e / kPerW, c = e - r * kPerW;
-          cp_async16(dst + kSlabK * a.W + r * T + 4 * c,
+          cp_async16(dst + kSK * a.W + r * T + 4 * c,
                      wsrc + static_cast<size_t>(r) * a.ldw + 4 * c);
         }
       }
-      ik += kSlabK;
+      if constexpr (kIn == In::kCluster) {  // ... from the block owning it
+        wdst = dst + kSK * a.W + a.tid;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int e = a.tid + i * kThreads, r = e / T;
+          if (r < rows) {
+            const int k = ik + r, c = a.ci->owner(k);
+            wv[i] = peer_load(a.ci->base[c] +
+                              4u * static_cast<unsigned>(
+                                       (k - a.ci->kb[c]) * T + e - r * T));
+            wn = i + 1;
+          }
+        }
+      }
+      ik += kSK;
       if (ik >= a.K) {
         ik = 0;
         ++ij;
       }
-      if (a.ld == a.W) {  // one pass: the slab is contiguous
+      if constexpr (kBulk) {
+        if (a.tid == 0) {
+          const unsigned bytes = 16u * static_cast<unsigned>((vr + 3) / 4);
+          unsigned long long* bar = &a.ci->full[(s0 + s) % kST];
+          mbar_expect(bar, bytes * rows);
+          for (int r = 0; r < rows; ++r)
+            bulk_copy(dst + r * a.W, src + static_cast<size_t>(r) * a.ld,
+                      bytes, bar);
+        }
+      } else if (vr < a.W) {  // a slice's last segment: its valid rows only
+        const int pv = (vr + 3) / 4;
+        for (int e = a.tid; e < rows * pv; e += kThreads) {
+          const int r = e / pv, c = e - r * pv;
+          cp_async16(dst + r * a.W + 4 * c,
+                     src + static_cast<size_t>(r) * a.ld + 4 * c);
+        }
+      } else if (a.ld == a.W) {  // one pass: the slab is contiguous
         for (int e = a.tid; e < rows * per; e += kThreads)
           cp_async16(dst + 4 * e, src + 4 * e);
       } else {
@@ -201,52 +343,96 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
     }
     cp_async_commit();  // always, so the group count stays in step
   };
-  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  auto put = [&] {
+    if constexpr (kIn == In::kCluster)
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        if (i < wn) wdst[i * kThreads] = wv[i];
+  };
+  for (int s = 0; s < kST - 1; ++s) {
+    issue(s);
+    put();
+  }
   int j = 0, k0 = 0;  // slab s's segment and first k-row
+  bool rows_here = r0 < seg_rows(a, 0);  // the thread has valid rows
   for (int s = 0; s < total; ++s) {
-    cp_async_wait<kStages - 2>();  // slab s has landed
+    if constexpr (kBulk)
+      mbar_wait(&a.ci->full[(s0 + s) % kST], ((s0 + s) / kST) & 1);
+    else
+      cp_async_wait<kST - 2>();  // slab s has landed
     __syncthreads();  // ... for every thread; slab s - 1 is consumed
-    issue(s + kStages - 1);  // into slab s - 1's slot
-    const float* slab = a.ring + (s % kStages) * slot;
-    const int k1 = min(a.K, k0 + kSlabK);
-    for (int k = k0; k < k1; ++k)
-      step(slab + (k - k0) * a.W,
-           kWG ? slab + kSlabK * a.W + (k - k0) * T : a.w + k * T);
+    issue(s + kST - 1);  // into slab s - 1's slot
+    const float* slab = a.ring + ((s0 + s) % kST) * slot;
+    const int k1 = min(a.K, k0 + kSK);
+    if (rows_here) {
+      const float* wk = kStream ? slab + kSK * a.W : a.w + k0 * T;
+      if (LPT == 8 && k1 - k0 == kSK) {
+        // a whole slab, unrolled, so the next k-row's loads overlap this
+        // one's FMAs
+#pragma unroll
+        for (int k = 0; k < kSK; ++k) step(slab + k * a.W, wk + k * T);
+      } else {
+        for (int k = k0; k < k1; ++k)
+          step(slab + (k - k0) * a.W, wk + (k - k0) * T);
+      }
+    }
+    put();  // after the FMAs: the peer load's latency hides behind them
     k0 = k1;
     if (k1 == a.K) {
       epi(j, acc, fr);
       zero();
       ++j;
       k0 = 0;
+      if (j < a.nseg) rows_here = r0 < seg_rows(a, j);
     }
   }
 }
 
 struct GemmLo {
   const float* w;        // fp32 [k][lane], row stride T (shared memory);
-                         // with kWG global, row stride ldw
-  __nv_bfloat16* w2h;    // (T, kp + kPadLo): w rounded to bf16; with kWG
-                         // the tile's (T, kp) rows of a global array
+                         // kGlobal: global, row stride ldw; kCluster: the
+                         // block's own k-rows
+  __nv_bfloat16* w2h;    // (T, kp + kPadLo): w rounded to bf16; kGlobal,
+                         // kCluster: the tile's (T, kp) rows of a global
+                         // array
   __nv_bfloat16* ring;   // the slab ring where streamed; null: resident
   int K, kp, W, nseg, tid;
   int lda;  // row stride of a resident segment (kp + kPadLo)
   int ldw = 0;
+  ClusterIn* ci = nullptr;  // kCluster
+  int vrows = 0, vper = 1;        // as GemmF32's
 };
 
 // seg(j): segment j's bf16 map, W rows of kp columns (row stride kp in
 // global memory where streamed, lda where resident); epi as gemm_fp32's.
 // The map's columns K..kp-1 are zero, and so are w2h's.
-template <int RPT, int T = kTile, bool kWG = false, class Seg, class Epi>
+template <int RPT, int T = kTile, In kIn = In::kShared, class Seg, class Epi>
 __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
   constexpr int kMt = RPT / 4;
   constexpr int kRowWarps = Lanes<T>::kRowWarps;
-  const int ldh = kWG ? a.kp : a.kp + kPadLo;  // w2h's row stride
-  for (int e = a.tid; e < a.kp * T; e += kThreads) {
-    const int k = e / T, n = e - k * T;
-    const float v = k >= a.K ? 0.0f : kWG ? a.w[k * a.ldw + n] : a.w[e];
-    a.w2h[n * ldh + k] = __float2bfloat16_rn(v);
+  constexpr bool kStream = kIn != In::kShared;
+  const int ldh = kStream ? a.kp : a.kp + kPadLo;  // w2h's row stride
+  if constexpr (kIn == In::kCluster) {
+    // the block's own k-rows (the last block's also the zero columns K ..
+    // kp - 1); a.w: the block's buffer, its first row kb[rank]
+    const ClusterIn& ci = *a.ci;
+    const int k0 = ci.kb[ci.rank];
+    const int k1 = ci.rank + 1 == ci.C ? a.kp : ci.kb[ci.rank + 1];
+    for (int e = a.tid; e < (k1 - k0) * T; e += kThreads) {
+      const int k = e / T, n = e - k * T;
+      const float v = k0 + k >= a.K ? 0.0f : a.w[e];
+      a.w2h[n * ldh + k0 + k] = __float2bfloat16_rn(v);
+    }
+    cluster_sync();  // every block's rounded rows before they stream
+  } else {
+    for (int e = a.tid; e < a.kp * T; e += kThreads) {
+      const int k = e / T, n = e - k * T;
+      const float v = k >= a.K ? 0.0f
+                      : kIn == In::kGlobal ? a.w[k * a.ldw + n] : a.w[e];
+      a.w2h[n * ldh + k] = __float2bfloat16_rn(v);
+    }
+    if constexpr (kIn == In::kGlobal) __syncthreads();  // before it streams
   }
-  if constexpr (kWG) __syncthreads();  // the rounded w before it streams
   const int warp = a.tid >> 5, ln = a.tid & 31;
   const FragLo<RPT> fr{warp % kRowWarps, warp / kRowWarps, ln >> 2, ln & 3};
   float acc[8 * kMt];
@@ -254,7 +440,7 @@ __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
 #pragma unroll
     for (int e = 0; e < 8 * kMt; ++e) acc[e] = 0.0f;
   };
-  // this thread's ldmatrix rows: lanes (B, in w2h or, with kWG, in a ring
+  // this thread's ldmatrix rows: lanes (B, in w2h or, streamed, in a ring
   // slot's w rows) and map rows (A)
   constexpr int lds = kSlabKLo + kPadLo;
   const int bn = fr.wn * 16 + (ln & 7) + ((ln >> 4) << 3);
@@ -301,13 +487,14 @@ __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
   // slab s: map columns [(s % nslab) * kSlabKLo, ...) of every row of
   // segment s / nslab, in ring slot s % kStagesLo
   const int nslab = a.kp / kSlabKLo, total = nslab * a.nseg;
-  const int slot = (a.W + (kWG ? T : 0)) * lds;  // bf16 of a ring slot
+  const int slot = (a.W + (kStream ? T : 0)) * lds;  // bf16 of a ring slot
   int ij = 0, ic = 0;  // the next slab to issue: segment ij, slab ic of it
   auto issue = [&](int s) {
     if (s < total) {
+      const int vr = seg_rows(a, ij);
       __nv_bfloat16* dst = a.ring + (s % kStagesLo) * slot;
       const __nv_bfloat16* src = seg(ij) + ic * kSlabKLo;
-      if constexpr (kWG) {  // the tile's rounded w columns, after the map's
+      if constexpr (kStream) {  // the tile's rounded w columns
         for (int e = a.tid; e < T * (kSlabKLo / 8); e += kThreads) {
           const int n = e / (kSlabKLo / 8), q = e % (kSlabKLo / 8);
           cp_async16(dst + (a.W + n) * lds + 8 * q,
@@ -318,7 +505,7 @@ __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
         ic = 0;
         ++ij;
       }
-      for (int e = a.tid; e < a.W * (kSlabKLo / 8); e += kThreads) {
+      for (int e = a.tid; e < vr * (kSlabKLo / 8); e += kThreads) {
         const int r = e / (kSlabKLo / 8), q = e % (kSlabKLo / 8);
         cp_async16(dst + r * lds + 8 * q,
                    src + static_cast<size_t>(r) * a.kp + 8 * q);
@@ -328,19 +515,22 @@ __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
   };
   for (int s = 0; s < kStagesLo - 1; ++s) issue(s);
   int j = 0, c = 0;  // slab s's segment and slab within it
+  bool rows_here = fr.wm * kMt * 16 < seg_rows(a, 0);
   for (int s = 0; s < total; ++s) {
     cp_async_wait<kStagesLo - 2>();  // slab s has landed
     __syncthreads();  // ... for every thread (and on s = 0 w2h is staged);
                       // slab s - 1 is consumed
     issue(s + kStagesLo - 1);
     const __nv_bfloat16* sl = a.ring + (s % kStagesLo) * slot;
-    ksteps(sl, lds,
-           kWG ? sl + (a.W + bn) * lds + bk : brow + c * kSlabKLo, 1);
+    if (rows_here)
+      ksteps(sl, lds,
+             kStream ? sl + (a.W + bn) * lds + bk : brow + c * kSlabKLo, 1);
     if (++c == nslab) {
       epi(j, acc, fr);
       zero();
       c = 0;
       ++j;
+      if (j < a.nseg) rows_here = fr.wm * kMt * 16 < seg_rows(a, j);
     }
   }
 }
@@ -349,12 +539,15 @@ __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
 
 // One side of a lane: its column of the tile buffer (element r at
 // ux[r * us]: us = T in shared memory, the global array's row stride with
-// kWG), its slack, dual and rollout constant (element r at [r * stride]: a
-// [row][lane] shared array or a (dim, B) global one), its carry slack
-// (global, element r at [r * B]) and, for a projected side, where stage k
-// is projected: entry j at w[k * wk + j * ws] (the lane's rows of a (sw, B)
+// In::kGlobal), its slack, dual and rollout constant (element r at
+// [r * stride]: a [row][lane] shared array or a (dim, B) global one), its
+// carry slack (global, element r at [r * B]) and, for a projected side,
+// where stage k is projected: entry j at w[k * wk + j * ws] (the lane's rows of a (sw, B)
 // global scratch: ws = B, wk = dim * B; or a stage buffer of the thread's
-// own in shared memory, reused by every stage: wk = 0).
+// own in shared memory, reused by every stage: wk = 0).  A pass covers the
+// side's stages [k0, k1) (a cluster block's slice; all of them by
+// default); a projected side reads its cones' (start, dim) pairs from the
+// block's copy in shared memory.
 struct SidePass {
   const Side* s;
   float* ux;
@@ -366,6 +559,8 @@ struct SidePass {
   int us;
   float* w;           // null: a box-only side
   int ws, wk;
+  const int* cones = nullptr;  // (n_soc, 2), shared memory
+  int k0 = 0, k1 = 0x7fffffff;
 };
 
 // What stage_slack (projections.cuh) reads of the kernel's parameters,
@@ -425,7 +620,7 @@ __device__ __forceinline__ void projected_stage(const P& p, const SidePass& sp,
     }
   const StageParams sp_p{p.alpha, p.one_m_alpha, sp.stride};
   stage_slack(sp_p, s, g, k, relax, sp.ux, sp.prev, sp.dual, 0, sp.us,
-              sp.w + k * sp.wk, sp.ws);
+              sp.w + k * sp.wk, sp.ws, sp.cones);
 }
 
 // The residual pass of thread q of a lane: the max-abs primal (pri) and
@@ -441,8 +636,9 @@ __device__ __forceinline__ void side_residuals_q(const P& p,
   constexpr int kLaneThreads = Lanes<T>::kLaneThreads;
   const Side& s = *sp.s;
   float* ux = sp.ux;
+  const int k1 = min(sp.k1, s.n_stages);
   if constexpr (kProj) {
-    for (int k = q; k < s.n_stages; k += kLaneThreads) {
+    for (int k = sp.k0 + q; k < k1; k += kLaneThreads) {
       if (!fresh) projected_stage(p, sp, g, k, relax, add);
       for (int j = 0; j < s.dim; ++j) {
         const int r = k * s.dim + j;
@@ -452,8 +648,9 @@ __device__ __forceinline__ void side_residuals_q(const P& p,
       }
     }
   } else {
-    const int rows = s.dim * s.n_stages;
-    for (int r0 = q; r0 < rows; r0 += kLaneThreads * kRowBatch) {
+    const int rows = s.dim * k1;
+    for (int r0 = s.dim * sp.k0 + q; r0 < rows;
+         r0 += kLaneThreads * kRowBatch) {
       BoxRows b;
       load_box_rows<T>(sp, g, r0, rows, add, b);
 #pragma unroll
@@ -501,8 +698,9 @@ __device__ __forceinline__ void side_update_q(const P& p, const SidePass& sp,
     if (latch) sp.co[r * p.B] = prev;
     ux[r * sp.us] = next;
   };
+  const int k1 = min(sp.k1, s.n_stages);
   if constexpr (kProj) {
-    for (int k = q; k < s.n_stages; k += kLaneThreads) {
+    for (int k = sp.k0 + q; k < k1; k += kLaneThreads) {
       projected_stage(p, sp, g, k, relax, add);
       for (int j = 0; j < s.dim; ++j) {
         const int r = k * s.dim + j, o = r * sp.stride;
@@ -511,8 +709,9 @@ __device__ __forceinline__ void side_update_q(const P& p, const SidePass& sp,
       }
     }
   } else {
-    const int rows = s.dim * s.n_stages;
-    for (int r0 = q; r0 < rows; r0 += kLaneThreads * kRowBatch) {
+    const int rows = s.dim * k1;
+    for (int r0 = s.dim * sp.k0 + q; r0 < rows;
+         r0 += kLaneThreads * kRowBatch) {
       BoxRows b;
       load_box_rows<T>(sp, g, r0, rows, add, b);
 #pragma unroll

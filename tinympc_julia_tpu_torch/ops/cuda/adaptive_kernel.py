@@ -56,7 +56,8 @@ from ..condensed import (CondensedTaylorMaps, _cones_stacked,
 from ..rho import EPS, RHO_INTERVAL, TERM_DEADBAND, TERM_MAX_STEP
 from ...utils.precision import full_fp32_matmul
 from ._build import load_library
-from .condensed_kernel import (KP_ALIGN, SMEM_PER_BLOCK, THREADS,
+from .condensed_kernel import (CLUSTER_META, CLUSTER_SIZES, K2_HALF_PASS,
+                               CLUSTER_SMS, KP_ALIGN, SMEM_PER_BLOCK, THREADS,
                                TILE, FusedConstraints,
                                _check_constraints,
                                _check_cuda_inputs, _check_grouped_shape,
@@ -64,7 +65,8 @@ from .condensed_kernel import (KP_ALIGN, SMEM_PER_BLOCK, THREADS,
                                _no_constraints, _ptr, _side_args,
                                _state_free, _up16, _FLT, _INT, _PTR, _SIDE,
                                bf16_round, fused_constraints, mma_product,
-                               ring_bytes)
+                               pass_cost, ring_bytes, slice_rows,
+                               stage_bounds_arg, stage_slices)
 from .condensed_kernel import _check_precision as _check_k1_precision
 
 # The launch layout is decided here and passed to the kernel, which checks
@@ -75,9 +77,18 @@ from .condensed_kernel import _check_precision as _check_k1_precision
 # tile; a wider product runs in passes.  Where even 16 lanes' iterates
 # leave no room, tiles of 32 lanes keep them in global memory and stream
 # them beside the maps (K2_GLOBAL_RPT rows a thread): that layout's shared
-# memory does not depend on the width.
+# memory does not depend on the width.  Before that, a thread block cluster
+# shares a tile of 32 lanes (K1's CLUSTER_SIZES; passes of 512 rows, the
+# 4 sums of an interleaved backward row in one thread's rows), each block
+# a slice of whole stages of ux and of the input stages of d.
 K2_RPTS = {32: (8, 20), 16: (8,)}
 K2_GLOBAL_RPT = 20
+K2_CLUSTER_RPT = 32  # K1's CLUSTER_RPT
+# the width (rows of ux) from which K2 takes the cluster layout even where
+# its iterates fit in shared memory: the quadrotor's N = 76, where the
+# plan's tiles of 16 lanes begin and the cluster beat them on the card
+# (PERF.md section 6, R11)
+K2_CLUSTER_FROM_WIDTH = 1212
 
 
 class AdaptiveFusedCarry(NamedTuple):
@@ -127,6 +138,12 @@ class AdaptivePlan(NamedTuple):
     smem: int           # dynamic shared memory of one block, bytes
     iterates_global: bool = False  # vec1 and ux in global memory, streamed
                                    # beside the maps
+    cluster: int = 1    # blocks a tile (a thread block cluster where > 1)
+    stages: tuple = ()  # cluster + 1 bounds: block c owns stages [stages[c],
+                        # stages[c + 1]) of the N - 1 input stages then the
+                        # N state stages (its rows of ux)
+    ustages: tuple = ()  # ... and input stages [ustages[c], ustages[c +
+                         # 1]) (its rows of d)
 
     @property
     def width(self) -> int:
@@ -135,13 +152,13 @@ class AdaptivePlan(NamedTuple):
 
     @property
     def ld1(self) -> int:
-        """Padded rows of each transposed T1 block."""
-        return self.passes1 * self.width
+        """Padded rows of each transposed T1 block (every block's)."""
+        return self.cluster * self.passes1 * self.width
 
     @property
     def ld2(self) -> int:
         """Padded rows of the transposed, interleaved T2 stack."""
-        return self.passes2 * self.width
+        return self.cluster * self.passes2 * self.width
 
 
 def adaptive_smem(nx: int, nu: int, N: int, order: int, tile: int, rpt: int,
@@ -182,25 +199,80 @@ def _kp(k: int) -> int:
     return -(-k // KP_ALIGN) * KP_ALIGN
 
 
-def adaptive_tile_plan(nx: int, nu: int, N: int, order: int,
-                       reduced: bool = False,
-                       state_free: bool = True) -> AdaptivePlan:
-    """The layout of a launch at this shape (``reduced``: with
-    reduced-precision iterations; ``state_free``: no state dual).
+def cluster_rows(nx: int, nu: int, N: int, stages: tuple,
+                 ustages: tuple) -> tuple[int, int, int, int]:
+    """A cluster's most rows a block owns: of ux and of d (the products'
+    outputs), and of vec1 and ux / vec2 as it keeps them (the last block
+    also x0's and the 1s)."""
+    spans = slice_rows(nx, nu, N, stages)
+    last = len(spans) - 1
+    rows = max(b - a for a, b in spans)
+    drows = max((b - a) * nu for a, b in zip(ustages[:-1], ustages[1:]))
+    keep1 = max((b - a) * nu + (nx + 1 if c == last else 0)
+                for c, (a, b) in enumerate(zip(ustages[:-1], ustages[1:])))
+    keep2 = max(b - a + (1 if c == last else 0)
+                for c, (a, b) in enumerate(spans))
+    return rows, drows, keep1, keep2
 
-    Tiles of 32 lanes whatever the batch (a tile's iteration is bound by its
-    map stream, not by its lanes, so smaller tiles for few lanes, a
-    continuation's slots, only cost: PERF.md section 6); tiles of 16 where
-    the iterates of 32 lanes leave no room beside a wide map's slab ring.
-    The rows a thread: the instance that covers the two products in the
-    fewest passes (each costs a slab stream), padding them the least.
-    Within it the lanes' duals and slacks in shared
-    memory where they fit, then the maps resident where they fit beside
-    them and streamed through the slab ring otherwise.  Where no tile of 16
-    fits either, tiles of 32 whose iterates live in global memory and
-    stream beside the maps: that layout's shared memory does not depend on
-    the width, so every width has a plan (a launch needs (in1 + sw + 1, B)
-    floats of global memory for the iterates)."""
+
+def cluster_adaptive_smem(keep1: int, keep2: int, reduced: bool) -> int:
+    """One cluster block's shared memory (csrc/condensed_adaptive.cu
+    k2_layout, In::kCluster): its rows of vec1 and of ux / vec2, the latch
+    flags, the lanes' rho twice, the elementwise partials, the cluster's
+    meta, the slab ring with the tile's input rows beside each slab (the
+    bf16 product input of reduced iterations lives in global memory)."""
+    W = K2_CLUSTER_RPT * 2 * THREADS // TILE
+    return (_up16(4 * keep1 * TILE) + _up16(4 * keep2 * TILE)
+            + _up16(4 * (TILE + 1)) + _up16(8 * TILE) + _up16(48 * THREADS)
+            + CLUSTER_META + _up16(ring_bytes(W, reduced, TILE)))
+
+
+def cluster_adaptive_plan(nx: int, nu: int, N: int, order: int,
+                          reduced: bool = False,
+                          blocks: int | None = None) -> AdaptivePlan | None:
+    """The cluster layout at this shape: ``blocks`` blocks a tile of 32
+    lanes (default: of CLUSTER_SIZES whose slices fit, the one whose
+    blocks' passes of the o + 1 forward blocks and the backward stack cost
+    the card least, K1's ``pass_cost`` x blocks over CLUSTER_SMS, then the
+    smallest), block c the rows of ux of whole stages and the d rows of
+    whole input stages, each in its shared memory beside its ring,
+    K2_CLUSTER_RPT rows a thread; the state in global memory.  None where the
+    slices do not fit (or, for ``blocks``, do not exist)."""
+    su, sx, sw = _dims(nx, nu, N)
+    in1 = su + nx + 1
+    W = K2_CLUSTER_RPT * 2 * THREADS // TILE
+    plans = []
+    for C in ((blocks,) if blocks else CLUSTER_SIZES):
+        stages = stage_slices(nx, nu, N, C)
+        if stages is None or N - 1 < C:
+            continue
+        ustages = tuple(round(c * (N - 1) / C) for c in range(C + 1))
+        rows, drows, keep1, keep2 = cluster_rows(nx, nu, N, stages, ustages)
+        smem = cluster_adaptive_smem(keep1, keep2, reduced)
+        if smem <= SMEM_PER_BLOCK:
+            cost = (((order + 1) * pass_cost(rows, K2_HALF_PASS)
+                     + pass_cost(4 * drows, K2_HALF_PASS))
+                    * C / CLUSTER_SMS[C])
+            plans.append((cost, C, AdaptivePlan(
+                TILE, THREADS, K2_CLUSTER_RPT, -(-rows // W),
+                -(-4 * drows // W), False, False, _kp(in1), _kp(sw + 1),
+                smem, False, C, stages, ustages)))
+    return min(plans, default=(None, None, None))[2]
+
+
+def shared_adaptive_plan(nx: int, nu: int, N: int, order: int,
+                         reduced: bool = False,
+                         state_free: bool = True) -> AdaptivePlan | None:
+    """The layout with the tile's iterates in one block's shared memory
+    (None where none fits).  Tiles of 32 lanes whatever the batch (a tile's
+    iteration is bound by its map stream, not by its lanes, so smaller
+    tiles for few lanes, a continuation's slots, only cost: PERF.md section
+    6); tiles of 16 where the iterates of 32 lanes leave no room beside a
+    wide map's slab ring.  The rows a thread: the instance that covers the
+    two products in the fewest passes (each costs a slab stream), padding
+    them the least.  Within it the lanes' duals and slacks in shared memory
+    where they fit, then the maps resident where they fit beside them and
+    streamed through the slab ring otherwise."""
     su, sx, sw = _dims(nx, nu, N)
     in1, ord1 = su + nx + 1, order + 1
 
@@ -221,7 +293,33 @@ def adaptive_tile_plan(nx: int, nu: int, N: int, order: int,
                         return AdaptivePlan(tile, THREADS, rpt, p1, p2,
                                             resident, shared, _kp(in1),
                                             _kp(sw + 1), smem)
-    _, _, p1, p2 = cost(TILE, K2_GLOBAL_RPT)
+    return None
+
+
+def adaptive_tile_plan(nx: int, nu: int, N: int, order: int,
+                       reduced: bool = False,
+                       state_free: bool = True) -> AdaptivePlan:
+    """The layout of a launch at this shape (``reduced``: with
+    reduced-precision iterations; ``state_free``: no state dual; the plan
+    depends on the shape, not the batch).  Below K2_CLUSTER_FROM_WIDTH
+    rows, the iterates in shared memory (``shared_adaptive_plan``) where
+    they fit; from there, or where they do not fit, the tile of 32 split
+    over a thread block cluster (``cluster_adaptive_plan``: every width of
+    the JAX package's condensed budget); where even a cluster of 8's slices
+    do not fit, tiles of 32 whose iterates live in global memory and stream
+    beside the maps: that layout's shared memory does not depend on the
+    width, so every width has a plan (a launch needs (in1 + sw + 1, B)
+    floats of global memory for the iterates)."""
+    su, sx, sw = _dims(nx, nu, N)
+    in1 = su + nx + 1
+    plan = (shared_adaptive_plan(nx, nu, N, order, reduced, state_free)
+            if sw < K2_CLUSTER_FROM_WIDTH else None)
+    if plan is None:
+        plan = cluster_adaptive_plan(nx, nu, N, order, reduced)
+    if plan is not None:
+        return plan
+    W = K2_GLOBAL_RPT * 2 * THREADS // TILE
+    p1, p2 = -(-sw // W), -(-4 * su // W)
     smem = adaptive_smem(nx, nu, N, order, TILE, K2_GLOBAL_RPT, p1, p2,
                          False, False, reduced, state_free, True)
     assert smem <= SMEM_PER_BLOCK  # independent of sw
@@ -502,8 +600,8 @@ def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
     return out
 
 
-_ARGTYPES = ([_PTR] * 39 + [_INT] * 9 + [_FLT] * 9 + [_INT] * 21
-             + _SIDE + _SIDE + [_PTR])
+_ARGTYPES = ([_PTR] * 40 + [_INT] * 9 + [_FLT] * 9 + [_INT] * 10
+             + [_PTR] * 2 + [_INT] * 12 + _SIDE + _SIDE + [_PTR])
 
 
 @functools.cache
@@ -512,6 +610,44 @@ def _kernel_fn():
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def adaptive_occupancy(plan: AdaptivePlan, proj_u: bool = False,
+                       proj_x: bool = False) -> int:
+    """Blocks an SM of the plan's instance (the occupancy API), or for a
+    cluster plan the clusters the card holds at once; builds the kernel.
+    Raises on a CUDA error."""
+    fn = load_library(
+        "condensed_adaptive").lib.tinympc_condensed_adaptive_occupancy
+    fn.argtypes = [_INT] * 7
+    n = fn(plan.tile, plan.rpt, int(plan.iterates_global), plan.cluster,
+           int(proj_u), int(proj_x), plan.smem)
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+    return n
+
+
+def _row_layout(plan: AdaptivePlan, nx: int, nu: int, N: int, device):
+    """Where each block's output rows sit in the padded maps: (destination,
+    source) row indices of the forward map's ux rows and of the backward
+    stack's interleaved d rows; slices of the first sw / 4 su rows without
+    a cluster."""
+    su, sw = (N - 1) * nu, (N - 1) * nu + N * nx
+    if plan.cluster == 1:
+        return ((slice(0, sw), slice(0, sw)),
+                (slice(0, 4 * su), slice(0, 4 * su)))
+    per1, per2 = plan.ld1 // plan.cluster, plan.ld2 // plan.cluster
+
+    def index(spans, per):
+        src = torch.cat([torch.arange(a, b) for a, b in spans])
+        dst = torch.cat([torch.arange(c * per, c * per + b - a)
+                         for c, (a, b) in enumerate(spans)])
+        return dst.to(device), src.to(device)
+
+    dspans = [(4 * a * nu, 4 * b * nu)
+              for a, b in zip(plan.ustages[:-1], plan.ustages[1:])]
+    return (index(slice_rows(nx, nu, N, plan.stages), per1),
+            index(dspans, per2))
 
 
 def map_layout(tmaps: CondensedTaylorMaps, su, sw, plan: AdaptivePlan,
@@ -523,25 +659,30 @@ def map_layout(tmaps: CondensedTaylorMaps, su, sw, plan: AdaptivePlan,
     being row r of block c, (sw + 1, ``plan.ld2``); rows zero-padded.  With
     reduced iterations also both in real bf16 (round to nearest even),
     row-major and zero-padded to (o+1, ld1, kp1) and (ld2, kp2), else
-    None."""
+    None.  A cluster plan lays each map's rows out block by block: block
+    c's output rows from row c x ld / cluster, padded to its passes."""
     T1s, T2s = tmaps.T1s, tmaps.T2s
     lead = T1s.shape[:-3]
     ord1, in1 = T1s.shape[-3], T1s.shape[-1]
+    nx = in1 - su - 1
+    N = (sw - su) // nx
+    (d1, s1), (d2, s2) = _row_layout(plan, nx, su // max(N - 1, 1), N,
+                                     T1s.device)
     f32 = dict(dtype=torch.float32, device=T1s.device)
     t1t = torch.zeros(lead + (ord1, in1, plan.ld1), **f32)
-    t1t[..., :sw] = T1s.transpose(-1, -2)
+    t1t[..., d1] = T1s.transpose(-1, -2)[..., s1].float()
     # (..., 4, su, sw + 1) -> rows 4 r + c
     t2s = torch.cat([T2s[..., :sw], T2s[..., -1:]], dim=-1).transpose(-3, -2)
     t2s = t2s.reshape(lead + (4 * su, sw + 1))
     t2t = torch.zeros(lead + (sw + 1, plan.ld2), **f32)
-    t2t[..., :4 * su] = t2s.transpose(-1, -2)
+    t2t[..., d2] = t2s.transpose(-1, -2)[..., s2].float()
     if not reduced:
         return t1t, t2t, None, None
     bf = dict(dtype=torch.bfloat16, device=T1s.device)
     t1a = torch.zeros(lead + (ord1, plan.ld1, plan.kp1), **bf)
-    t1a[..., :sw, :in1] = T1s
+    t1a[..., d1, :in1] = T1s[..., s1, :].to(torch.bfloat16)
     t2a = torch.zeros(lead + (plan.ld2, plan.kp2), **bf)
-    t2a[..., :4 * su, :sw + 1] = t2s
+    t2a[..., d2, :sw + 1] = t2s[..., s2, :].to(torch.bfloat16)
     return t1t, t2t, t1a, t2a
 
 
@@ -617,16 +758,24 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
     projected = bool(side_u[1] or side_u[4] or side_x[1] or side_x[4])
     wsc = torch.empty((sw, B), **f32) if projected or osqp else None
     dsc = torch.empty((sw, B), **f32) if osqp else None
+    # the cones' pairs in shared memory after the plan's layout, where they
+    # fit
+    pairs = _up16(8 * (side_u[4] + side_x[4]))
+    smem = plan.smem + (pairs if plan.smem + pairs <= SMEM_PER_BLOCK else 0)
     # the tiles' iterates where they live in global memory: each tile its
     # own columns
     vecg = uxg = w2hg = None
+    # a cluster's copy of ux for the OSQP-form residuals, which read the
+    # next stage's rows
+    uxo = (torch.empty((sw, B), **f32) if osqp and plan.cluster > 1
+           else None)
+    ldg = G * -(-L // plan.tile) * plan.tile
     if plan.iterates_global:
-        ldg = G * -(-L // plan.tile) * plan.tile
         vecg = torch.empty((su + nx + 1, ldg), **f32)
         uxg = torch.empty((sw + 1, ldg), **f32)
-        if lo_all:
-            w2hg = torch.empty((ldg, max(plan.kp1, plan.kp2)),
-                               dtype=torch.bfloat16, device=dev)
+    if lo_all and (plan.iterates_global or plan.cluster > 1):
+        w2hg = torch.empty((ldg, max(plan.kp1, plan.kp2)),
+                           dtype=torch.bfloat16, device=dev)
 
     fn = _kernel_fn()
     with torch.cuda.device(dev):
@@ -640,7 +789,7 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
                  None if state_free else _ptr(g), _ptr(d_out), _ptr(vco),
                  _ptr(zco), _ptr(pl.A), _ptr(pl.B), _ptr(pl.Q), _ptr(pl.R),
                  _ptr(pl.Pinf), _ptr(pl.dPinf_drho), _ptr(wsc), _ptr(dsc),
-                 _ptr(vecg), _ptr(uxg), _ptr(w2hg),
+                 _ptr(vecg), _ptr(uxg), _ptr(w2hg), _ptr(uxo),
                  nx, nu, N, G, L, order, max_iter, check_termination,
                  int(lo_all), relaxation_alpha, 1.0 - relaxation_alpha,
                  abs_pri_tol, abs_dua_tol, adaptive_rho_min,
@@ -648,9 +797,10 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
                  int(adaptive_rho_clipping), int(trust),
                  int(en_input_bound), int(en_state_bound), int(warm_start),
                  int(carry_out), plan.tile, int(plan.iterates_global),
-                 plan.rpt, plan.passes1,
+                 plan.cluster, stage_bounds_arg(plan.stages),
+                 stage_bounds_arg(plan.ustages), plan.rpt, plan.passes1,
                  plan.passes2, plan.kp1, plan.kp2, int(plan.resident),
-                 int(plan.state_shared), plan.smem,
+                 int(plan.state_shared), smem,
                  int(tmaps.T1s.ndim == 4),
                  int(osqp and pl.A.ndim == 3),
                  int(G > 1 and u_min.numel() == G * su),

@@ -80,10 +80,15 @@ class FusedConstraints(NamedTuple):
 # fp32 slabs of 8 map rows of a pass (kStages, kSlabK) or 4 bf16 slabs of 16
 # map columns (kStagesLo, kSlabKLo) whose rows are padded by 8 (kPadLo); the
 # bf16 map's k padded to a multiple of 32.  MAX_TILE is the adaptive
-# kernel's largest tile.  Where a tile's w2 leaves no room, tiles whose w2
-# lives in global memory and streams beside the map (W2_GLOBAL_RPT rows a
-# thread), whose shared memory does not grow with the map's width.  The
-# projections work on a stage of any width and take any number of cones.
+# kernel's largest tile.  Where a tile's w2 leaves no room, a thread block
+# cluster of CLUSTER_SIZES blocks shares the tile, each block a slice of
+# whole stages (CLUSTER_RPT rows a thread, its rows of w2 in its own shared
+# memory, CLUSTER_META bytes for the cluster's residual maxima and its
+# input's addresses); where even a cluster of 8's slices leave no room,
+# tiles whose w2 lives in global memory and streams beside the map
+# (W2_GLOBAL_RPT rows a thread), whose shared memory does not grow with the
+# map's width.  The projections work on a stage of any width and take any
+# number of cones.
 SMEM_PER_BLOCK = 232448
 MAX_TILE = 128
 TILE = 32
@@ -91,6 +96,17 @@ THREADS = 256
 TILE_ROW_GROUPS = 16
 TILE_RPTS = (8, 20, 32)
 W2_GLOBAL_RPT = 32
+CLUSTER_RPT = 32
+CLUSTER_SIZES = (2, 3, 4, 5, 6, 7, 8)
+CLUSTER_META = 3 * 16 * 32 + 2 * 256
+# The SMs an NVIDIA H100 80GB HBM3 keeps busy with clusters of each size at
+# one block an SM (cudaOccupancyMaxActiveClusters x the size; a cluster's
+# blocks share a GPC): what the plan weighs a cluster size by
+CLUSTER_SMS = {2: 132, 3: 117, 4: 120, 5: 110, 6: 102, 7: 105, 8: 120}
+# the width (rows of w2) from which K1 takes the cluster layout even where
+# w2 fits in shared memory: the quadrotor's N = 57, where the cluster first
+# beat the shared plans on the card (PERF.md section 6, R11)
+CLUSTER_FROM_WIDTH = 908
 SLAB_K = 8
 STAGES = 6
 SLAB_K_LO = 16
@@ -109,15 +125,20 @@ class TilePlan(NamedTuple):
     rows: int           # padded rows of the transposed map (swp)
     kp: int             # padded k of the bf16 map of reduced iterations
     smem: int           # dynamic shared memory of one block, bytes
-    passes: int = 1     # passes of rows / passes map rows (the product's
-                        # 16 thread rows x the rows a thread)
+    passes: int = 1     # a block's passes of rows / (cluster x passes) map
+                        # rows (the product's 16 thread rows x the rows a
+                        # thread)
     w2_global: bool = False  # the tiles' w2 in global memory, streamed
                              # beside the map
+    cluster: int = 1    # blocks a tile (a thread block cluster where > 1)
+    stages: tuple = ()  # cluster + 1 bounds: block c owns stages
+                        # [stages[c], stages[c + 1]) of the N - 1 input
+                        # stages then the N state stages
 
     @property
     def rpt(self) -> int:
         """Rows a thread of the product (the kernel's instance)."""
-        return self.rows // (self.passes * TILE_ROW_GROUPS)
+        return self.rows // (self.cluster * self.passes * TILE_ROW_GROUPS)
 
 
 def bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -321,19 +342,103 @@ def tile_smem(sw: int, rows: int, kp: int, state: int, resident: bool,
     return n
 
 
-def fused_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
-                    state_free: bool = True) -> TilePlan:
-    """The layout of a launch at this shape (``reduced``: with
-    reduced-precision iterations; ``state_free``: no state-side
-    constraint, so no state dual).  Tiles of 32 lanes first: the rows a
-    thread, the instance that covers the map in the fewest passes of 16 RPT
-    rows, padding it the least; where no layout of it fits, the next.
-    Within one: the lanes' solver state in shared memory where it fits,
-    then T12 resident where it fits beside it and streamed in slabs
-    otherwise.  Where none fits (the tile's w2 fills the block), w2 in
-    global memory, streamed beside the map: that layout's shared memory
-    does not depend on the width, so every width has a plan (a launch
-    needs (sw, B) floats of global memory for w2)."""
+def stage_slices(nx: int, nu: int, N: int, blocks: int) -> tuple | None:
+    """The stage bounds of a cluster of ``blocks``: block c owns stages
+    [b[c], b[c + 1]) of the N - 1 input stages then the N state stages
+    (nu and nx rows each), whole stages, each block at least one, the rows
+    as even as the stages allow.  None where there are fewer stages than
+    blocks."""
+    widths = [nu] * (N - 1) + [nx] * N
+    if len(widths) < blocks:
+        return None
+    starts = [0]
+    for w in widths:
+        starts.append(starts[-1] + w)
+    sw = starts[-1]
+    bounds = [0]
+    for c in range(1, blocks):
+        lo, hi = bounds[-1] + 1, len(widths) - (blocks - c)
+        best = min(range(lo, hi + 1),
+                   key=lambda b: (abs(starts[b] - c * sw / blocks), b))
+        bounds.append(best)
+    bounds.append(len(widths))
+    return tuple(bounds)
+
+
+def slice_rows(nx: int, nu: int, N: int, stages: tuple) -> list:
+    """Each block's (first row, end row) of a cluster's stage bounds."""
+    def row(s):
+        return s * nu if s <= N - 1 else (N - 1) * nu + (s - N + 1) * nx
+    return [(row(a), row(b)) for a, b in zip(stages[:-1], stages[1:])]
+
+
+# What a pass of at most 4 warps' rows costs beside a full one: a pass's
+# warps past its rows idle, and one busy warp a scheduler hides less of
+# its loads' latency than two (fitted to launches measured on an H100,
+# PERF.md section 6: K1, its map by the bulk copy engine, and K2)
+HALF_PASS = 0.75
+K2_HALF_PASS = 0.5
+
+
+def pass_cost(rows: int, half: float = HALF_PASS) -> float:
+    """What a block's passes of W = 16 CLUSTER_RPT rows over ``rows`` rows
+    cost, in full passes: a last pass of at most 4 warps' rows (W / 2)
+    costs ``half`` (its warps on 4 schedulers, warp w on w % 4), a longer
+    one a full pass."""
+    W = TILE_ROW_GROUPS * CLUSTER_RPT
+    full, rest = divmod(rows, W)
+    return full + (0.0 if rest == 0 else half if rest <= W // 2 else 1.0)
+
+
+def cluster_smem(rows: int, reduced: bool) -> int:
+    """One cluster block's shared memory (csrc/condensed_fused.cu
+    tile_layout, In::kCluster): its ``rows`` rows of w2, the latch flags,
+    the residual partials, the cluster's meta, the slab ring of CLUSTER_RPT
+    x 16 rows with the tile's w2 rows beside each slab (the bf16 w2 of
+    reduced iterations lives in global memory)."""
+    W = TILE_ROW_GROUPS * CLUSTER_RPT
+    return (_up16(4 * rows * TILE) + _up16(4 * (TILE + 1))
+            + _up16(16 * THREADS) + CLUSTER_META
+            + _up16(ring_bytes(W, reduced, TILE)))
+
+
+def cluster_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
+                      blocks: int | None = None) -> TilePlan | None:
+    """The cluster layout at this shape: ``blocks`` blocks a tile of 32
+    lanes (default: of CLUSTER_SIZES whose slices fit, the one whose
+    blocks' passes cost the card least, ``pass_cost`` x blocks over
+    CLUSTER_SMS, then the smallest), each a slice of whole stages with its
+    rows of w2 in its shared memory; its product in passes of W = 16
+    CLUSTER_RPT rows over its slice (a pass's rows past the slice are
+    skipped); the state in global memory.  None where the slices do not fit
+    (or, for ``blocks``, do not exist)."""
+    sw = (N - 1) * nu + N * nx
+    kp = -(-sw // KP_ALIGN) * KP_ALIGN
+    W = TILE_ROW_GROUPS * CLUSTER_RPT
+    plans = []
+    for C in ((blocks,) if blocks else CLUSTER_SIZES):
+        stages = stage_slices(nx, nu, N, C)
+        if stages is None:
+            continue
+        rows = max(b - a for a, b in slice_rows(nx, nu, N, stages))
+        smem = cluster_smem(rows, reduced)
+        if smem <= SMEM_PER_BLOCK:
+            npass = -(-rows // W)
+            cost = pass_cost(rows) * C / CLUSTER_SMS[C]
+            plans.append((cost, C, TilePlan(
+                TILE, THREADS, False, False, C * npass * W, kp, smem, npass,
+                False, C, stages)))
+    return min(plans, default=(None, None, None))[2]
+
+
+def shared_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
+                     state_free: bool = True) -> TilePlan | None:
+    """The layout with the tile's w2 in one block's shared memory (None
+    where it does not fit): the rows a thread, the instance that covers the
+    map in the fewest passes of 16 RPT rows, padding it the least; where no
+    layout of it fits, the next.  Within one: the lanes' solver state in
+    shared memory where it fits, then T12 resident where it fits beside it
+    and streamed in slabs otherwise."""
     sw = (N - 1) * nu + N * nx
     kp = -(-sw // KP_ALIGN) * KP_ALIGN
     state = state_floats(nx, nu, N, state_free)
@@ -351,23 +456,53 @@ def fused_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
                 if smem <= SMEM_PER_BLOCK:
                     return TilePlan(TILE, THREADS, resident, shared, rows,
                                     kp, smem, npass)
-    npass = passes(W2_GLOBAL_RPT)
+    return None
+
+
+def fused_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
+                    state_free: bool = True) -> TilePlan:
+    """The layout of a launch at this shape (``reduced``: with
+    reduced-precision iterations; ``state_free``: no state-side
+    constraint, so no state dual).  Below CLUSTER_FROM_WIDTH rows, tiles of
+    32 lanes with w2 in shared memory (``shared_tile_plan``) where that
+    fits; from there, or where it does not fit, the tile split over a
+    thread block cluster (``cluster_tile_plan``: the smallest cluster
+    whose slices fit; every width of the JAX package's condensed budget);
+    where even a cluster of 8's slices do not fit, w2 in global memory,
+    streamed beside the map: that layout's shared memory does not depend
+    on the width, so every width has a plan (a launch needs (sw, B) floats
+    of global memory for w2)."""
+    sw = (N - 1) * nu + N * nx
+    plan = (shared_tile_plan(nx, nu, N, reduced, state_free)
+            if sw < CLUSTER_FROM_WIDTH else None)
+    if plan is None:
+        plan = cluster_tile_plan(nx, nu, N, reduced)
+    if plan is not None:
+        return plan
+    kp = -(-sw // KP_ALIGN) * KP_ALIGN
+    npass = -(-sw // (TILE_ROW_GROUPS * W2_GLOBAL_RPT))
     rows = npass * TILE_ROW_GROUPS * W2_GLOBAL_RPT
     smem = tile_smem(sw, rows, kp, 0, False, reduced, npass, True)
     assert smem <= SMEM_PER_BLOCK  # independent of sw
     return TilePlan(TILE, THREADS, False, False, rows, kp, smem, npass, True)
 
 
-def launch_smem(plan: TilePlan, dim_x: int, dim_u: int) -> tuple[int, bool]:
+def launch_smem(plan: TilePlan, dim_x: int, dim_u: int,
+                cones: int = 0) -> tuple[int, bool]:
     """A launch's shared memory and whether its projected stages are
     projected there: each thread's own buffer of the widest projected
     side's stage (``dim_x``, ``dim_u``: the stage widths of the projected
     sides, 0 for a side without halfspaces or cones) after the plan's
     layout, where that fits; else the plan's alone, and the stages are
-    projected in the lanes' rows of a global scratch."""
+    projected in the lanes' rows of a global scratch.  The pairs of
+    ``cones`` cones follow where they fit (the kernel reads them from the
+    device array where the launch leaves them no room)."""
     stage = 4 * THREADS * max(dim_x, dim_u)
-    if stage and plan.smem + stage <= SMEM_PER_BLOCK:
-        return plan.smem + stage, True
+    pairs = _up16(8 * cones) if cones else 0
+    if stage and plan.smem + stage + pairs <= SMEM_PER_BLOCK:
+        return plan.smem + stage + pairs, True
+    if plan.smem + pairs <= SMEM_PER_BLOCK:
+        return plan.smem + pairs, False
     return plan.smem, False
 
 
@@ -660,8 +795,8 @@ _FLT = ctypes.c_float
 # (start, dim) pairs (device), the cones' mu (device), the cone count, and
 # whether the rows and the mus carry a leading group axis
 _SIDE = [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT]
-_ARGTYPES = ([_PTR] * 30 + [_INT] * 9 + [_FLT] * 4 + [_INT] * 15
-             + _SIDE + _SIDE + [_PTR])
+_ARGTYPES = ([_PTR] * 30 + [_INT] * 9 + [_FLT] * 4 + [_INT] * 8 + [_PTR]
+             + [_INT] * 8 + _SIDE + _SIDE + [_PTR])
 
 
 @functools.cache
@@ -670,6 +805,26 @@ def _kernel_fn():
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def stage_bounds_arg(stages: tuple):
+    """A cluster's stage bounds as the C entry points read them (a host
+    int array; None without a cluster)."""
+    return (ctypes.c_int * len(stages))(*stages) if stages else None
+
+
+def tile_occupancy(plan: TilePlan, proj_u: bool = False,
+                   proj_x: bool = False, smem: int | None = None) -> int:
+    """Blocks an SM of the plan's instance (the occupancy API), or for a
+    cluster plan the clusters the card holds at once; builds the kernel.
+    Raises on a CUDA error."""
+    fn = load_library("condensed_fused").lib.tinympc_condensed_fused_occupancy
+    fn.argtypes = [_INT] * 6
+    n = fn(plan.rpt, int(plan.w2_global), plan.cluster, int(proj_u),
+           int(proj_x), plan.smem if smem is None else smem)
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+    return n
 
 
 def _ptr(t):
@@ -683,17 +838,28 @@ def map_layout(maps: CondensedMaps, nx, su, sw, reduced: bool,
     real bf16 (round to nearest even), row-major and zero-padded to
     (``plan.rows``, ``plan.kp``), where the launch has reduced iterations
     (else None), the rollout and constant columns as contiguous vectors; a
-    leading group axis is kept."""
+    leading group axis is kept.  A cluster plan lays the rows out block by
+    block: block c's rows from row c x rows / cluster, each block's padded
+    to its passes."""
     lead = maps.T12.shape[:-2]
     dev = maps.T12.device
+    dst = src = slice(0, sw)
+    if plan.cluster > 1:
+        N = (sw - su) // nx
+        nu = su // (N - 1)
+        per = plan.rows // plan.cluster
+        spans = slice_rows(nx, nu, N, plan.stages)
+        src = torch.cat([torch.arange(a, b) for a, b in spans]).to(dev)
+        dst = torch.cat([torch.arange(c * per, c * per + b - a)
+                         for c, (a, b) in enumerate(spans)]).to(dev)
     t12t = torch.zeros(lead + (sw, plan.rows), dtype=torch.float32,
                        device=dev)
-    t12t[..., :sw] = maps.T12[..., :sw].transpose(-1, -2)
+    t12t[..., dst] = maps.T12[..., :sw].transpose(-1, -2)[..., src].float()
     lo = None
     if reduced:
         lo = torch.zeros(lead + (plan.rows, plan.kp), dtype=torch.bfloat16,
                          device=dev)
-        lo[..., :sw, :sw] = maps.T12[..., :sw]
+        lo[..., dst, :sw] = maps.T12[..., src, :sw].to(torch.bfloat16)
     return (t12t, lo, maps.T12[..., sw].contiguous(),
             maps.T1[..., su:su + nx].contiguous(),
             maps.T1[..., -1].contiguous())
@@ -796,20 +962,20 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
     proj_u, proj_x = bool(side_u[1] or side_u[4]), bool(side_x[1] or side_x[4])
     projected = proj_u or proj_x
     smem, stage_shared = launch_smem(plan, nx if proj_x else 0,
-                                     nu if proj_u else 0)
+                                     nu if proj_u else 0,
+                                     side_u[4] + side_x[4])
     # the projected stages' global scratch where their buffers leave no
     # room in shared memory
     wsc = (torch.empty((sw, B), **f32) if projected and not stage_shared
            else None)
-    # the tiles' w2 (and its bf16 rounding) where it lives in global memory:
-    # each tile its own columns
+    # the tiles' w2 (and its bf16 rounding, also a cluster's) where it
+    # lives in global memory: each tile its own columns
     w2g = w2hg = None
+    ldg = G * -(-L // plan.tile) * plan.tile
     if plan.w2_global:
-        ldg = G * -(-L // plan.tile) * plan.tile
         w2g = torch.empty((sw, ldg), **f32)
-        if reduced:
-            w2hg = torch.empty((ldg, plan.kp), dtype=torch.bfloat16,
-                               device=dev)
+    if reduced and (plan.w2_global or plan.cluster > 1):
+        w2hg = torch.empty((ldg, plan.kp), dtype=torch.bfloat16, device=dev)
     w = warm if warm is not None else FusedCarry(None, None, None, None, None)
 
     fn = _kernel_fn()
@@ -828,7 +994,9 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
                  abs_pri_tol, abs_dua_tol, int(en_input_bound),
                  int(en_state_bound), int(warm_start), int(carry_out),
                  int(plan.state_shared), int(plan.resident),
-                 int(plan.w2_global), plan.rpt, plan.rows, plan.kp, smem,
+                 int(plan.w2_global), plan.cluster,
+                 stage_bounds_arg(plan.stages), plan.rpt, plan.rows, plan.kp,
+                 smem,
                  int(maps.T12.ndim == 3), int(rho_t.numel() > 1),
                  int(G > 1 and u_min.numel() == G * su),
                  int(G > 1 and x_min.numel() == G * sx),
