@@ -236,11 +236,15 @@ Phases (one line each; any failure exits non-zero):
      swing-up with --no-gif, the codegen projects into a temporary
      directory), each timed;
  34. K1 at maps wider than a tile's w2 in shared memory leaves room for,
-     on its cluster layout (a tile split over a thread block cluster),
-     each against its plain version and beside a product yardstick, each
-     printing its plan (the cluster, the launch's blocks, how many run at
-     once on how many SMs): (a) the quadrotor at N = 150 (sw 2,396), B =
-     8,192, 100 iterations, alpha 1.7, ct 1, |u| <= 0.5, and the widest map
+     on its cluster layout (a tile split over a thread block cluster, its
+     size weighed by the SMs the card's occupancy API says each size
+     keeps busy, printed beside the CPU tests' table), each against its
+     plain version and beside a product yardstick, each printing its plan
+     (the cluster, the launch's blocks, how many run at once on how many
+     SMs): (a) the quadrotor at N = 150 (sw 2,396), B = 8,192, 100
+     iterations, alpha 1.7, ct 1, |u| <= 0.5, also forced onto w2 in
+     global memory (the layout past a cluster of 8's slices) against its
+     plain version and bit-equal to the cluster, and the widest map
      whose w2 fits in shared memory (N = 99) on its plan (the cluster)
      and forced onto w2 in shared memory, bit-equal, both timed; (b) the
      same with a 32-iteration bf16
@@ -256,16 +260,20 @@ Phases (one line each; any failure exits non-zero):
      the 20-state chain (10 unit
      masses on unit springs, nx 20, nu 9, N = 20, B = 4,096, 150
      iterations), each against its plain version, rho included; at N =
-     213 the lanes with equal counts that did not solve, the kernel's and
-     the fp32 plain version's distance from the plain version in float64;
-     at N = 90 the plan's cluster and the tiles of 16 lanes in shared
-     memory (both products in passes) forced on the same launch, fp32 and
-     precision='default' at ct 5, bit-equal, both timed;
+     150 the launch also forced onto the iterates in global memory (the
+     layout past a cluster of 8's slices) against its plain version and
+     bit-equal to the cluster; at N = 213 the lanes with equal counts that
+     did not solve, the kernel's and the fp32 plain version's distance
+     from the plain version in float64; at N = 90 the plan's cluster and
+     the tiles of 16 lanes in shared memory (both products in passes)
+     forced on the same launch, fp32, precision='default' at ct 5 and the
+     OSQP-form controller (rho in [3, 7]), bit-equal, both timed;
  36. K1e on the chain: a state stage of 20 entries with 10 cones of dim 2
      (mu 0.5), 4 halfspace rows and the state box, B = 16,384, 200
      iterations (the lanes do not converge: every lane compared), the
-     stages projected in each thread's buffer in shared memory, and forced
-     into the global scratch, bit-equal, both timed;
+     stages projected in each thread's buffer in shared memory, forced
+     into the global scratch, and forced onto a cluster of 2 blocks (each
+     projecting its own stages), bit-equal, all timed;
  37. K3's wide variant on the chain (lane groups of 8, B = 16,384, 200
      iterations) and its far layout (the workspace in global memory) on
      the quadrotor at N = 300 without and with |x| <= 2 (B = 16,384, 100
@@ -3048,6 +3056,8 @@ def lifted_shape_phases(card):
     from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
     from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
     from tinympc_julia_tpu_torch.ops.cuda import fused as K3
+    from tinympc_julia_tpu_torch.ops.cuda.layout_probe import (
+        product_yardstick)
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.types import stack_instances
     from unittest import mock
@@ -3095,6 +3105,24 @@ def lifted_shape_phases(card):
         return torch.as_tensor(0.5 * np.random.default_rng(seed)
                                .standard_normal((B, 20)), dtype=f32,
                                device=dev)
+
+    def k1_plan(*a):
+        """K1's plan as a launch takes it: cluster sizes weighed by the
+        card's occupancy API."""
+        return K.fused_tile_plan(*a, busy_sms=K.card_busy_sms)
+
+    def k2_plan(*a):
+        return K2.adaptive_tile_plan(*a, busy_sms=K2.card_busy_sms)
+
+    def forced(mod, name, plan, f):
+        """``f`` with ``mod``'s wrapper made to launch ``plan``."""
+        def run():
+            with mock.patch.object(mod, name, lambda *a, **k: plan):
+                return f()
+        return run
+
+    def same_bits(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
 
     def k1_kw(p, **kw):
         base = dict(nx=p.nx, nu=p.nu, N=p.N, max_iter=100, abs_pri_tol=1e-3,
@@ -3204,6 +3232,14 @@ def lifted_shape_phases(card):
         return y
 
     # -- phase 34: K1 at wide maps --------------------------------------------
+    # the SMs each cluster size keeps busy on this card (the occupancy API,
+    # what a launch weighs the sizes by) beside the CLUSTER_SMS table the
+    # CPU plan tests use
+    busy = {C: K.card_busy_sms(K.cluster_tile_plan(12, 4, 150, blocks=C))
+            for C in K.CLUSTER_SIZES if C >= 3}
+    print(f"phase 34 busy SMs by cluster size (quadrotor N=150 slices): "
+          f"card {busy}, table "
+          f"{ {C: K.CLUSTER_SMS[C] for C in busy} }", flush=True)
     N34, B34 = 150, 8192
     p, c = quad(N34)
     m = build_condensed(p, c)
@@ -3214,7 +3250,7 @@ def lifted_shape_phases(card):
                     ("34b K1c, a 32-iteration bf16 head",
                      dict(bf16_head_iters=32))):
         full = k1_kw(p, **kw)
-        plan = K.fused_tile_plan(12, 4, N34, bool(kw))
+        plan = k1_plan(12, 4, N34, bool(kw))
         check(plan.cluster > 1, f"phase {tag[:3]}: the plan did not take "
               "a cluster")
         label = (f"phase {tag}, quadrotor N={N34} (sw={sw}), B={B34}, 100 "
@@ -3225,6 +3261,8 @@ def lifted_shape_phases(card):
             functools.partial(K.condensed_fused_reference, *args, **full),
             (k1, "reduced_launches" if kw else "launches"),
             slow_plain=bool(kw))  # the tensor cores' sums take seconds
+        if not kw:
+            out_34a, plan_34a = out_k, plan
         ops = k1_ops(sw, 12, out_k[2], kw.get("bf16_head_iters", 0))
         b = mixed_bound(*ops, tensor_bytes(m.T12, m.T1, *args[2:7],
                                            out_k[:4]))
@@ -3235,6 +3273,29 @@ def lifted_shape_phases(card):
         row(f"condensed_fused (K1{'c' if kw else ''}), quadrotor N={N34} "
             f"(sw {sw}): {layout(plan)}", n_l, err, t_k, t_p, b, k1_src,
             k1_rep)
+    # 34a forced onto w2 in global memory, the layout a map takes past a
+    # cluster of 8's slices: against the plain version, and bit for bit
+    # against the cluster
+    full = k1_kw(p)
+    g_plan = K.global_tile_plan(12, 4, N34)
+    out_k, _, err, n_l, t_k, t_p = run_case(
+        f"phase 34a K1 forced onto w2 in global memory, quadrotor N={N34}, "
+        f"B={B34}, 100 iterations: {layout(g_plan, B34)}",
+        forced(K, "fused_tile_plan", g_plan,
+               functools.partial(k1, *args, **full)),
+        functools.partial(K.condensed_fused_reference, *args, **full),
+        (k1, "launches"))
+    exact = same_bits(out_k, out_34a)
+    b = bound(k1_ops(sw, 12, out_k[2])[0],
+              tensor_bytes(m.T12, m.T1, *args[2:7], out_k[:4]))
+    print(f"phase 34a w2 in global memory timing: kernel {t_k:.3f} ms, "
+          f"plain {t_p:.3f} ms, {n_l} launch(es), bound {b[0]:.4f} ms by "
+          f"{b[1]}; bit-equal to the cluster of {plan_34a.cluster} {exact}",
+          flush=True)
+    check(exact, "phase 34a: w2 in global memory differs from the cluster")
+    row(f"condensed_fused (K1), quadrotor N={N34} (sw {sw}) forced onto "
+        f"{layout(g_plan)}", n_l, err, t_k, t_p, b, k1_src, k1_rep)
+    del out_34a
     # N = 99 (sw 1,580), the widest map whose w2 fits a block's shared
     # memory, on the cluster layout and forced onto w2 in shared memory (13
     # passes of 128 rows): the same bits, and the two times (where the
@@ -3245,16 +3306,16 @@ def lifted_shape_phases(card):
     args99 = (m99, float(c99.rho), p99.u_min, p99.u_max, p99.x_min,
               p99.x_max, x0, None)
     f99 = functools.partial(k1, *args99, **k1_kw(p99))
-    plan99 = K.fused_tile_plan(12, 4, 99)
+    plan99 = k1_plan(12, 4, 99)
     s_plan = K.shared_tile_plan(12, 4, 99)
     out_c = f99()
     f99()
     t_c = float(np.median([event_ms(f99) for _ in range(3)]))
-    with mock.patch.object(K, "fused_tile_plan", lambda *a: s_plan):
-        out_s = f99()
-        exact = all(torch.equal(a, b2) for a, b2 in zip(out_c, out_s))
-        f99()
-        t_s = float(np.median([event_ms(f99) for _ in range(3)]))
+    f99s = forced(K, "fused_tile_plan", s_plan, f99)
+    out_s = f99s()
+    exact = same_bits(out_c, out_s)
+    f99s()
+    t_s = float(np.median([event_ms(f99s) for _ in range(3)]))
     print(f"phase 34a quadrotor N=99 (sw={sw99}), B={B34}, 100 iterations: "
           f"its plan ({layout(plan99, B34)}) {t_c:.3f} ms; forced onto w2 "
           f"in shared memory ({layout(s_plan, B34)}) {t_s:.3f} ms; "
@@ -3276,7 +3337,7 @@ def lifted_shape_phases(card):
                           dtype=f32, device=dev)
     gargs = (mg, Cc.rho, P.u_min, P.u_max, P.x_min, P.x_max, x0g, None)
     gfull = k1_kw(p, check_termination=4)
-    plan = K.fused_tile_plan(12, 4, N34)
+    plan = k1_plan(12, 4, N34)
     out_k, _, err, n_l, t_k, t_p = run_case(
         f"phase 34c K1d, G={G} randomised quadrotors x L={L}, N={N34}, 100 "
         f"iterations, ct 4: {layout(plan, G * L)}",
@@ -3306,7 +3367,7 @@ def lifted_shape_phases(card):
 
     out_k, _, err, n_l, t_k, t_p = run_case(
         f"phase 34e K1b, quadrotor N={N34}, B={B34}, 50 + 50 chained "
-        f"through the carry: {layout(K.fused_tile_plan(12, 4, N34), B34)}",
+        f"through the carry: {layout(k1_plan(12, 4, N34), B34)}",
         lambda: chained(chain_k),
         lambda: chained(functools.partial(K.condensed_fused_reference,
                                           *args[:7])), (k1, "launches"))
@@ -3319,7 +3380,7 @@ def lifted_shape_phases(card):
     b = bound(k1_ops(sw, 12, out_k[2])[0] + 2.0 * sw * 12 * B34,
               2 * tensor_bytes(m.T12, m.T1, *args[2:7], out_k[:4]))
     row(f"condensed_fused carry chain (K1b), quadrotor N={N34}, 50 + 50: "
-        f"{layout(K.fused_tile_plan(12, 4, N34))}", n_l, err, t_k, t_p, b,
+        f"{layout(k1_plan(12, 4, N34))}", n_l, err, t_k, t_p, b,
         k1_src, k1_rep)
 
     # 34d: the JAX budget's edge, w2 in global memory
@@ -3330,7 +3391,7 @@ def lifted_shape_phases(card):
     args = (m, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max,
             uniform(B34d, 12, 35, 0.3), None)
     full = k1_kw(p, max_iter=50)
-    plan = K.fused_tile_plan(12, 4, N34d)
+    plan = k1_plan(12, 4, N34d)
     check(plan.cluster > 1, "phase 34d: the plan did not take a cluster")
     out_k, _, err, n_l, t_k, t_p = run_case(
         f"phase 34d K1, quadrotor N={N34d} (sw={sw}), B={B34d}, 50 "
@@ -3360,7 +3421,7 @@ def lifted_shape_phases(card):
     for N35 in (150, 213):
         p, c = quad(N35)
         tm = build_condensed_taylor(p, c)
-        plan = K2.adaptive_tile_plan(12, 4, N35, 2)
+        plan = k2_plan(12, 4, N35, 2)
         check(plan.cluster > 1, f"phase 35a N={N35}: the plan did not "
               "take a cluster")
         args = (tm, p.u_min, p.u_max, p.x_min, p.x_max,
@@ -3390,6 +3451,31 @@ def lifted_shape_phases(card):
                   out_k[2], 32)
         row(f"condensed_adaptive (K2), quadrotor N={N35} (sw {sw35}): "
             f"{layout(plan)}", n_l, err, t_k, t_p, b, k2_src, k2_rep)
+        if N35 == 150:
+            # forced onto the iterates in global memory, the layout past a
+            # cluster of 8's slices: against the plain version, and bit for
+            # bit against the cluster
+            g_plan = K2.global_adaptive_plan(12, 4, N35, 2)
+            out_g, _, err, n_l, t_k, t_p = run_case(
+                f"phase 35a K2 forced onto the iterates in global memory, "
+                f"quadrotor N={N35}, B=2048: {layout(g_plan, 2048)}",
+                forced(K2, "adaptive_tile_plan", g_plan,
+                       functools.partial(k2, *args, **full)),
+                functools.partial(K2.condensed_adaptive_reference, *args,
+                                  **full), (k2, "launches"), rho=True)
+            exact = same_bits(out_g, out_k)
+            b = bound(k2_ops(p, 2, out_g[2]),
+                      tensor_bytes(tm.T1s, tm.T2s, *args[1:6], out_g[:5]))
+            print(f"phase 35a N={N35} iterates in global memory timing: "
+                  f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms, {n_l} "
+                  f"launch(es), bound {b[0]:.4f} ms by {b[1]}; bit-equal "
+                  f"to the cluster of {plan.cluster} {exact}", flush=True)
+            check(exact, "phase 35a: the iterates in global memory differ "
+                  "from the cluster")
+            row(f"condensed_adaptive (K2), quadrotor N={N35} (sw {sw35}) "
+                f"forced onto {layout(g_plan)}", n_l, err, t_k, t_p, b,
+                k2_src, k2_rep)
+            del out_g
         if N35 == 213:
             # the lanes with equal counts that did not solve, each fp32 run
             # against the plain version in float64 on the same problem
@@ -3420,19 +3506,24 @@ def lifted_shape_phases(card):
 
     # N = 90 (sw 1,436) on its plan and on the other layout, fp32 and with
     # the reduced products of the iterations that neither check nor predict
-    # rho: the cluster against tiles of 16 lanes in shared memory (both
-    # products in passes), the same bits whatever order cuBLAS sums in, and
-    # the two times (the switch, R11)
+    # rho, and under the OSQP-form controller (its residuals read the next
+    # stage's rows across the cluster's slices): the cluster against tiles
+    # of 16 lanes in shared memory (both products in passes), the same bits
+    # whatever order cuBLAS sums in, and the two times (the switch, R11)
     N90 = 90
     p, c = quad(N90)
     tm = build_condensed_taylor(p, c)
     args = (tm, p.u_min, p.u_max, p.x_min, p.x_max,
             uniform(2048, 12, 39, 0.3), None)
     sw = 16 * N90 - 4
+    osqp = dict(controller="osqp", adaptive_rho_min=3.0,
+                plant=K2.AdaptivePlant(p.A, p.B, p.Q, p.R, c.Pinf,
+                                       c.dPinf_drho))
     for tag, kw in (("fp32", {}), ("precision='default' at ct=5",
                                    dict(precision="default",
-                                        check_termination=5))):
-        lo = bool(kw)
+                                        check_termination=5)),
+                    ("the OSQP-form controller, rho in [3, 7]", osqp)):
+        lo = "precision" in kw
         c_plan = K2.cluster_adaptive_plan(12, 4, N90, 2, lo)
         s_plan = K2.shared_adaptive_plan(12, 4, N90, 2, lo)
         check(c_plan is not None and s_plan is not None
@@ -3448,8 +3539,8 @@ def lifted_shape_phases(card):
         torch.cuda.synchronize()
         exact = all(torch.equal(a, b2) for a, b2 in
                     zip(outs["cluster"][:5], outs["tiles"][:5]))
-        takes = ("the cluster" if K2.adaptive_tile_plan(
-            12, 4, N90, 2, lo).cluster > 1 else "tiles of 16")
+        takes = ("the cluster" if k2_plan(12, 4, N90, 2, lo).cluster > 1
+                 else "tiles of 16")
         print(f"phase 35a quadrotor N={N90} (sw={sw}), B=2048, 150 "
               f"iterations, {tag}: the plan takes {takes}; "
               f"cluster ({layout(c_plan, 2048)}) {times['cluster']:.3f} ms "
@@ -3541,6 +3632,26 @@ def lifted_shape_phases(card):
     row("condensed_fused projections (K1e), the same with the stages in "
         "the global scratch (forced)", n_g, err, t_g, t_p, b, k1_src,
         "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:127")
+    # the same launch on a cluster of 2 blocks (forced), each projecting
+    # its own whole stages in its buffers with the cones' pairs in its
+    # shared memory: the same bits
+    c_plan = K.cluster_tile_plan(20, 9, 20, blocks=2)
+    fc = forced(K, "fused_tile_plan", c_plan, lambda: fk(*args))
+    k1.projected_launches = 0
+    out_c = fc()
+    torch.cuda.synchronize()
+    n_c = k1.projected_launches
+    exact = same_bits(out_c, out_k)
+    fc()
+    t_c = float(np.median([event_ms(fc) for _ in range(3)]))
+    print(f"phase 36 the same launch on a cluster of 2 blocks (stage "
+          f"bounds {list(c_plan.stages)}, stage buffers in shared memory "
+          f"{K.launch_smem(c_plan, 20, 0, 10)[1]}): bit-equal {exact}, "
+          f"{n_c} launch(es), {t_c:.3f} ms", flush=True)
+    check(exact and n_c >= 1, "phase 36: the cluster differs")
+    row("condensed_fused projections (K1e), the same on a cluster of 2 "
+        "blocks (forced)", n_c, err, t_c, t_p, b, k1_src,
+        "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:127")
 
     # -- phase 37: K3's wide variant and its far layout -----------------------
     def k3_case(tag, p, c, x0, budget, box):
@@ -3613,268 +3724,6 @@ def lifted_shape_phases(card):
     check(exact, "phase 37b: the far layout differs from the near one")
     print(f"phases 34-37 took {time.perf_counter() - t_start:.0f} s", flush=True)
     return rows
-
-
-def quad_problem(horizon, dev):
-    """The quadrotor at ``horizon`` (|u| <= 0.5) on ``dev`` in float32:
-    (problem, cache)."""
-    from tinympc_julia_tpu_torch import make_problem
-    from tinympc_julia_tpu_torch.models import quadrotor
-    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
-    p = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
-                     np.diag(quadrotor.R_DIAG), quadrotor.RHO, horizon,
-                     u_min=-0.5, u_max=0.5, dtype=torch.float32, device=dev)
-    return p, precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
-
-
-def product_yardstick(shapes, lanes, tile_iters, tiles):
-    """One iteration's products over the whole batch, each one torch.matmul
-    in full fp32 ((rows, k) @ (k, ``lanes``) for each (rows, k) of
-    ``shapes``; median of 3 CUDA-event timings after a warm-up), times the
-    iterations the launch's tiles ran on average (``tile_iters`` summed
-    over ``tiles``): what the products alone take on cuBLAS.  A yardstick
-    only; the port never calls it."""
-    from tinympc_julia_tpu_torch.utils.precision import full_fp32_matmul
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    mats = [(torch.randn(r, k, device="cuda", generator=gen),
-             torch.randn(k, lanes, device="cuda", generator=gen))
-            for r, k in shapes]
-
-    def run():
-        for a, b in mats:
-            torch.matmul(a, b)
-
-    with full_fp32_matmul():
-        run()
-        t = float(np.median([event_ms(run) for _ in range(3)]))
-    return t * tile_iters / tiles
-
-
-def wide_layout_probe(reps=3):
-    """The wide-map layouts of K1 and K2 timed alone at the shapes of
-    phases 34a, 34d and 35a (CUDA events, median of ``reps`` after a
-    warm-up), each with its plan, the blocks an SM from the occupancy API
-    where the package has it, and its product yardstick.  It asks the
-    plans for no field the layouts before the cluster lacked, so the same
-    function times this package and an older one (put that tree's root
-    first on sys.path) in one call.  Returns {label: ms}."""
-    from tinympc_julia_tpu_torch.ops.condensed import (build_condensed,
-                                                       build_condensed_taylor)
-    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
-    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
-    dev = torch.device("cuda")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    out = {}
-
-    def occupancy(mod, fn, plan):
-        f = getattr(mod, fn, None)  # not in trees before the cluster layout
-        return None if f is None else f(plan)
-
-    def timed(label, f, plan, occ, tiles, tile_iters, shapes, lanes):
-        f()
-        t = float(np.median([event_ms(f) for _ in range(reps)]))
-        y = product_yardstick(shapes, lanes, tile_iters, tiles)
-        print(f"wide probe {label}: {t:.3f} ms; product yardstick "
-              f"{y:.3f} ms; {tile_iters} tile iterations over {tiles} "
-              f"tiles; blocks an SM {occ}; {plan}", flush=True)
-        out[label] = t
-
-    x_gen = np.random.default_rng(34)
-    for N_, B, iters in ((150, 8192, 100), (387, 4096, 50)):
-        p, c = quad_problem(N_, dev)
-        m = build_condensed(p, c)
-        sw = m.T12.shape[0]
-        x0 = torch.as_tensor(x_gen.uniform(-0.3, 0.3, (B, 12)),
-                             dtype=torch.float32, device=dev)
-        kw = dict(nx=12, nu=4, N=N_, max_iter=iters, abs_pri_tol=1e-3,
-                  abs_dua_tol=1e-3, en_state_bound=False,
-                  en_input_bound=True, relaxation_alpha=1.7,
-                  check_termination=1, warm_start=False, carry_out=False)
-        f = functools.partial(K.condensed_fused_cuda, m, float(c.rho),
-                              p.u_min, p.u_max, p.x_min, p.x_max, x0, None,
-                              **kw)
-        plan = K.fused_tile_plan(12, 4, N_)
-        res = f()
-        tiles = -(-B // K.TILE)
-        occ = occupancy(K, "tile_occupancy", plan)
-        timed(f"K1 N={N_} B={B} {iters} iterations", f, plan,
-              f"{occ} (clusters at once)" if getattr(plan, "cluster", 1) > 1
-              else occ, tiles,
-              K.tile_iterations(res[2], K.TILE), [(sw, sw)], B)
-        del m, f, res
-    for N_ in (150, 213):
-        p, c = quad_problem(N_, dev)
-        tm = build_condensed_taylor(p, c)
-        sw, su = tm.T1s.shape[-2], 4 * (N_ - 1)
-        x0 = torch.as_tensor(x_gen.uniform(-0.3, 0.3, (2048, 12)),
-                             dtype=torch.float32, device=dev)
-        kw = dict(plant=None, nx=12, nu=4, N=N_, max_iter=150,
-                  abs_pri_tol=1e-3, abs_dua_tol=1e-3, en_state_bound=False,
-                  en_input_bound=True, relaxation_alpha=1.0,
-                  adaptive_rho_min=5.0, adaptive_rho_max=1e3,
-                  adaptive_rho_clipping=True, check_termination=1,
-                  controller="termination", taylor_trust=2.0,
-                  warm_start=False, carry_out=False)
-        f = functools.partial(K2.condensed_adaptive_cuda, tm, p.u_min,
-                              p.u_max, p.x_min, p.x_max, x0, None, **kw)
-        plan = K2.adaptive_tile_plan(12, 4, N_, 2)
-        res = f()
-        occ = occupancy(K2, "adaptive_occupancy", plan)
-        timed(f"K2 N={N_} B=2048 150 iterations", f, plan,
-              f"{occ} (clusters at once)" if getattr(plan, "cluster", 1) > 1
-              else occ,
-              -(-2048 // plan.tile), K.tile_iterations(res[2], plan.tile),
-              [(3 * sw, su + 13), (4 * su, sw + 1)], 2048)
-        del tm, f, res
-    print(f"wide probe: {sms} SMs", flush=True)
-    return out
-
-
-def cluster_probe(reps=3):
-    """The cluster layouts of K1 and K2 beside the layouts they replace, in
-    one process: each launch timed alone (CUDA events, median of ``reps``
-    after a warm-up) and held bit for bit against the same launch on
-    another layout.  K1 at the wide maps of phases 34a and 34d on the
-    plan's cluster and on other cluster sizes, against w2 in global memory
-    (fp32 and reduced); at N = 57, 75, 90, 99 the cluster and w2 in
-    shared memory; K2 the same at phase 35a's N = 150 and 213 and at N =
-    20, 76, 90, 133 against its iterates in shared memory.  Each line
-    names the plan, its blocks an SM or clusters at once (the occupancy
-    API).  Prints only; what the R11 switch and PERF.md's predictions are
-    checked against."""
-    from unittest import mock
-    from tinympc_julia_tpu_torch.ops.condensed import (build_condensed,
-                                                       build_condensed_taylor)
-    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
-    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
-    dev = torch.device("cuda")
-    x_gen = np.random.default_rng(34)
-
-    def x0s(B):
-        return torch.as_tensor(x_gen.uniform(-0.3, 0.3, (B, 12)),
-                               dtype=torch.float32, device=dev)
-
-    def time_plan(mod, name, plan, f):
-        with mock.patch.object(mod, name, lambda *a, **k: plan):
-            out = f()
-            torch.cuda.synchronize()
-            t = float(np.median([event_ms(f) for _ in range(reps)]))
-        return out, t
-
-    def describe(plan, occ):
-        if plan.cluster > 1:
-            return (f"cluster {plan.cluster} x {plan.rpt} rows a thread, "
-                    f"{plan.smem} B, {occ} clusters at once")
-        return f"{plan}, {occ} blocks an SM"
-
-    def k1_global(N_, reduced):
-        sw = 16 * N_ - 4
-        npass = -(-sw // 512)
-        return K.TilePlan(32, K.THREADS, False, False, npass * 512,
-                          -(-sw // 32) * 32,
-                          K.tile_smem(sw, npass * 512, -(-sw // 32) * 32, 0,
-                                      False, reduced, npass, True),
-                          npass, True)
-
-    def k2_global(N_, reduced):
-        su, sw = 4 * (N_ - 1), 16 * N_ - 4
-        W = K2.K2_GLOBAL_RPT * 2 * K2.THREADS // 32
-        p1, p2 = -(-sw // W), -(-4 * su // W)
-        return K2.AdaptivePlan(
-            32, K2.THREADS, K2.K2_GLOBAL_RPT, p1, p2, False, False,
-            K2._kp(su + 13), K2._kp(sw + 1),
-            K2.adaptive_smem(12, 4, N_, 2, 32, K2.K2_GLOBAL_RPT, p1, p2,
-                             False, False, reduced, True, True), True)
-
-    def k1_case(N_, B, iters, kw, others):
-        p, c = quad_problem(N_, dev)
-        m = build_condensed(p, c)
-        full = dict(nx=12, nu=4, N=N_, max_iter=iters, abs_pri_tol=1e-3,
-                    abs_dua_tol=1e-3, en_state_bound=False,
-                    en_input_bound=True, relaxation_alpha=1.7,
-                    check_termination=1, warm_start=False, carry_out=False)
-        full.update(kw)
-        f = functools.partial(K.condensed_fused_cuda, m, float(c.rho),
-                              p.u_min, p.u_max, p.x_min, p.x_max, x0s(B),
-                              None, **full)
-        reduced = bool(kw)
-        plan = K.fused_tile_plan(12, 4, N_, reduced)
-        base, t0 = time_plan(K, "fused_tile_plan", plan, f)
-        print(f"cluster probe K1 N={N_} B={B} {iters} iterations {kw}: plan "
-              f"{t0:.3f} ms ({describe(plan, K.tile_occupancy(plan))})",
-              flush=True)
-        for label, other in others:
-            if other is None:
-                continue
-            out, t = time_plan(K, "fused_tile_plan", other, f)
-            exact = all(torch.equal(a, b) for a, b in zip(out, base))
-            print(f"cluster probe K1 N={N_}: {label} {t:.3f} ms, bit-equal "
-                  f"{exact} ({describe(other, K.tile_occupancy(other))})",
-                  flush=True)
-        del m, f
-
-    def k2_case(N_, B, kw, others):
-        p, c = quad_problem(N_, dev)
-        tm = build_condensed_taylor(p, c)
-        full = dict(plant=None, nx=12, nu=4, N=N_, max_iter=150,
-                    abs_pri_tol=1e-3, abs_dua_tol=1e-3,
-                    en_state_bound=False, en_input_bound=True,
-                    relaxation_alpha=1.0, adaptive_rho_min=5.0,
-                    adaptive_rho_max=1e3, adaptive_rho_clipping=True,
-                    check_termination=1, controller="termination",
-                    taylor_trust=2.0, warm_start=False, carry_out=False)
-        full.update(kw)
-        f = functools.partial(K2.condensed_adaptive_cuda, tm, p.u_min,
-                              p.u_max, p.x_min, p.x_max, x0s(B), None,
-                              **full)
-        reduced = bool(kw)
-        plan = K2.adaptive_tile_plan(12, 4, N_, 2, reduced)
-        base, t0 = time_plan(K2, "adaptive_tile_plan", plan, f)
-        print(f"cluster probe K2 N={N_} B={B} {kw}: plan {t0:.3f} ms "
-              f"({describe(plan, K2.adaptive_occupancy(plan))})", flush=True)
-        for label, other in others:
-            if other is None:
-                continue
-            out, t = time_plan(K2, "adaptive_tile_plan", other, f)
-            exact = all(torch.equal(a, b) for a, b in zip(out, base))
-            print(f"cluster probe K2 N={N_}: {label} {t:.3f} ms, bit-equal "
-                  f"{exact} ({describe(other, K2.adaptive_occupancy(other))})",
-                  flush=True)
-        del tm, f
-
-    # the clusters the card holds at once for each size, at one block an SM
-    for C in K.CLUSTER_SIZES:
-        pl = K.cluster_tile_plan(12, 4, 150, blocks=C)
-        if pl is not None:
-            print(f"cluster probe: a cluster of {C} blocks of {pl.smem} B: "
-                  f"{K.tile_occupancy(pl)} at once", flush=True)
-    lo = dict(precision="default", check_termination=5)
-    for N_, B, iters, alt in ((150, 8192, 100, (4, 6, 8)),
-                              (387, 4096, 50, (8,))):
-        k1_case(N_, B, iters, {},
-                [("w2 in global memory", k1_global(N_, False))]
-                + [(f"cluster of {C}", K.cluster_tile_plan(12, 4, N_,
-                                                            blocks=C))
-                   for C in alt])
-    k1_case(150, 2048, 20, lo, [("w2 in global memory", k1_global(150, True))])
-    for N_ in (57, 75, 90, 99):
-        k1_case(N_, 8192, 100, {},
-                [("the cluster", K.cluster_tile_plan(12, 4, N_)),
-                 ("w2 in shared memory", K.shared_tile_plan(12, 4, N_))])
-    for N_, alt in ((150, (4, 6, 8)), (213, (8,))):
-        k2_case(N_, 2048, {},
-                [("iterates in global memory", k2_global(N_, False))]
-                + [(f"cluster of {C}", K2.cluster_adaptive_plan(
-                    12, 4, N_, 2, blocks=C)) for C in alt])
-    k2_case(150, 2048, lo, [("iterates in global memory",
-                             k2_global(150, True))])
-    for N_ in (20, 76, 90, 133):
-        k2_case(N_, 2048, {},
-                [("the cluster", K2.cluster_adaptive_plan(12, 4, N_, 2)),
-                 ("iterates in shared memory", K2.shared_adaptive_plan(
-                     12, 4, N_, 2))]
-                + [(f"cluster of {C}", K2.cluster_adaptive_plan(
-                    12, 4, N_, 2, blocks=C)) for C in (2, 4) if N_ > 20])
 
 
 def build_kernels():

@@ -1048,10 +1048,41 @@ def test_width_past_a_cluster_of_8_still_gets_a_plan(horizon):
         assert (p.cluster, p.w2_global, p.rpt) == (1, True, K.W2_GLOBAL_RPT)
         assert p.rows >= 16 * horizon - 4
         assert p.smem == K.fused_tile_plan(12, 4, 200 * 10, reduced).smem
+        assert p == K.global_tile_plan(12, 4, horizon, reduced)
         assert K2.cluster_adaptive_plan(12, 4, horizon, 2, reduced) is None
         q = K2.adaptive_tile_plan(12, 4, horizon, 2, reduced)
         assert (q.cluster, q.iterates_global) == (1, True)
         assert q.ld1 >= 16 * horizon - 4 and q.smem <= K.SMEM_PER_BLOCK
+        assert q == K2.global_adaptive_plan(12, 4, horizon, 2, reduced)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_cluster_size_follows_the_cards_busy_sms(kernel):
+    """A launch weighs each cluster size by the SMs the card's occupancy
+    API says its clusters keep busy (``busy_sms``): the CLUSTER_SMS table
+    gives the table's plan; a size the card cannot hold is passed over for
+    the next cheapest; where it holds none, the global layout stays."""
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    if kernel == "K1":
+        def plan(N_, busy):
+            return K.fused_tile_plan(12, 4, N_, busy_sms=busy)
+
+        def glob(N_):
+            return K.global_tile_plan(12, 4, N_)
+    else:
+        def plan(N_, busy):
+            return K2.adaptive_tile_plan(12, 4, N_, 2, busy_sms=busy)
+
+        def glob(N_):
+            return K2.global_adaptive_plan(12, 4, N_, 2)
+    for N_ in (150, 213):
+        table = plan(N_, None)
+        assert table.cluster > 1
+        assert plan(N_, lambda p: K.CLUSTER_SMS[p.cluster]) == table
+        other = plan(N_, lambda p: 0 if p.cluster == table.cluster
+                     else K.CLUSTER_SMS[p.cluster])
+        assert other.cluster not in (1, table.cluster)
+        assert plan(N_, lambda p: 0) == glob(N_)
 
 
 # the plans at the main shapes as 9d6d48e made them: (shape, reduced,

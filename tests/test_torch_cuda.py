@@ -1627,15 +1627,8 @@ def test_k1_layouts_agree_bit_for_bit(dev, monkeypatch, horizon, reduced):
     full = _kw(12, 4, N=horizon, max_iter=120, relaxation_alpha=1.7, **kw)
     assert not K.fused_tile_plan(12, 4, horizon, reduced).w2_global
     own = K.condensed_fused_cuda(*args, **full)
-    sw = 16 * horizon - 4
-    kp = -(-sw // K.KP_ALIGN) * K.KP_ALIGN
-    width = K.TILE_ROW_GROUPS * K.W2_GLOBAL_RPT
-    npass = -(-sw // width)
-    rows = npass * width
-    plan = K.TilePlan(32, K.THREADS, False, False, rows, kp,
-                      K.tile_smem(sw, rows, kp, 0, False, reduced, npass,
-                                  True), npass, True)
-    _forced(monkeypatch, K, "fused_tile_plan", plan)
+    _forced(monkeypatch, K, "fused_tile_plan",
+            K.global_tile_plan(12, 4, horizon, reduced))
     forced = K.condensed_fused_cuda(*args, **full)
     torch.cuda.synchronize()
     for a, b in zip(own[:4], forced[:4]):
@@ -1662,17 +1655,8 @@ def test_k2_global_iterates_agree_bit_for_bit(dev, monkeypatch, kw, horizon):
     lo = "precision" in kw
     assert not K2.adaptive_tile_plan(12, 4, horizon, 2, lo).iterates_global
     own = K2.condensed_adaptive_cuda(*args, **full)
-    su, sw = 4 * (horizon - 1), 16 * horizon - 4
-    rpt = K2.K2_GLOBAL_RPT
-    W = rpt * 2 * K2.THREADS // 32
-    p1, p2 = -(-sw // W), -(-4 * su // W)
-    plan = K2.AdaptivePlan(32, K2.THREADS, rpt, p1, p2, False, False,
-                           K2._kp(su + 13), K2._kp(sw + 1),
-                           K2.adaptive_smem(12, 4, horizon, 2, 32, rpt, p1,
-                                            p2, False, False, lo, True,
-                                            True),
-                           True)
-    _forced(monkeypatch, K2, "adaptive_tile_plan", plan)
+    _forced(monkeypatch, K2, "adaptive_tile_plan",
+            K2.global_adaptive_plan(12, 4, horizon, 2, lo))
     forced = K2.condensed_adaptive_cuda(*args, **full)
     torch.cuda.synchronize()
     for a, b in zip(own[:5], forced[:5]):
@@ -1740,6 +1724,208 @@ def test_k2_cluster_agrees_bit_for_bit(dev, monkeypatch, kw, horizon):
         assert torch.equal(a, b)
     for a, b in zip(own[5], forced[5]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("blocks", [3, 8], ids=["cluster3", "cluster8"])
+@pytest.mark.parametrize("horizon", [80, 90], ids=["n80", "n90"])
+def test_k2_cluster_osqp_controller_agrees_bit_for_bit(dev, monkeypatch,
+                                                       horizon, blocks):
+    """K2's OSQP-form controller on a cluster (its residuals read the next
+    stage's rows from the cluster's copy of ux, their six maxima meet over
+    the cluster): the quadrotor at N = 80 and 90 forced onto tiles of 16
+    lanes in shared memory and onto a cluster of 3 (the smallest whose
+    slices fit at N = 90, the plan's there) or 8 blocks, the same
+    bits, 150 iterations, carry included; the cluster against the plain
+    version on K1's bar, as the 16-lane tile's own test holds it (at 1,277
+    and 1,437 columns cuBLAS need not sum in index order: at N = 90 a dual
+    of the carry parts from the kernel's by 1.1e-4 of its size)."""
+    p, c = _quad(horizon, dev)
+    args = (build_condensed_taylor(p, c), p.u_min, p.u_max, p.x_min,
+            p.x_max, _x0(301, 12, 19, 0.3, dev), None)
+    full = _k2_kw(p, c, **dict(_QUAD_KW, controller="osqp",
+                               adaptive_rho_min=3.0, max_iter=150))
+    shared = K2.shared_adaptive_plan(12, 4, horizon, 2)
+    assert (shared.tile, shared.cluster) == (16, 1)
+    _forced(monkeypatch, K2, "adaptive_tile_plan", shared)
+    own = K2.condensed_adaptive_cuda(*args, **full)
+    plan = K2.cluster_adaptive_plan(12, 4, horizon, 2, blocks=blocks)
+    assert plan.cluster == blocks
+    _forced(monkeypatch, K2, "adaptive_tile_plan", plan)
+    before = K2.condensed_adaptive_cuda.launches
+    forced = K2.condensed_adaptive_cuda(*args, **full)
+    r = K2.condensed_adaptive_reference(*args, **full)
+    torch.cuda.synchronize()
+    assert K2.condensed_adaptive_cuda.launches == before + 1
+    for a, b in zip(own[:5], forced[:5]):
+        assert torch.equal(a, b)
+    for a, b in zip(own[5], forced[5]):
+        assert torch.equal(a, b)
+    assert bool((forced[4] != quadrotor.RHO).any())  # the controller moved
+    same = (forced[2] == r[2]) & (forced[3] == r[3])
+    assert same.float().mean().item() >= 0.99
+    both = same & (forced[3] == 1) & (r[3] == 1)
+    assert int(both.sum()) > 150
+    for j in (0, 1):
+        assert (forced[j] - r[j])[both].abs().max().item() <= 1e-4
+    assert ((forced[4] - r[4]).abs() / r[4])[both].max().item() <= 1e-4
+
+
+def _k1e_case(case, dev):
+    """K1e's projected stages as the plain-version tests run them: the
+    20-state chain at N = 8 (10 state cones of dim 2, 4 halfspace rows, an
+    input cone over the 9 tensions, the state box; 500 lanes, 60
+    iterations) or the rocket (its input and state cones and the state box;
+    1,000 lanes, 200 iterations).  Returns (nx, nu, N, args, kw, agree)."""
+    if case == "chain":
+        Nc, nx, nu = 8, 20, 9
+        p, c = _chain(Nc, dev, x_bound=3.0)
+        rng = np.random.default_rng(11)
+        cons = K.fused_constraints(
+            soc_x=tuple((2 * j, 2, 0.5) for j in range(10)),
+            lin_x=(rng.normal(size=(4, 20)), np.full(4, 5.0)),
+            soc_u=((0, 9, 2.0),), nx=nx, nu=nu, dtype=torch.float32,
+            device=dev)
+        x0 = _chain_x0(500, 12, dev)
+        kw = _kw(nx, nu, N=Nc, max_iter=60, en_state_bound=True,
+                 constraints=cons)
+        agree = _counts_and_values_agree
+    else:
+        Nc, nx, nu = rocket.HORIZON, 6, 3
+        s = _rocket(dev)
+        p, c = s.problem, s.cache
+        cons = K.fused_constraints(**K.problem_constraint_kw(p, s.settings),
+                                   nx=nx, nu=nu, dtype=torch.float32,
+                                   device=dev)
+        x0 = _rocket_x0(1000, dev)
+        kw = _kw(nx, nu, N=Nc, abs_pri_tol=2e-3, relaxation_alpha=1.0,
+                 max_iter=200, en_state_bound=True, constraints=cons)
+        agree = _agree
+    args = (build_condensed(p, c), float(c.rho), p.u_min, p.u_max, p.x_min,
+            p.x_max, x0, None)
+    return nx, nu, Nc, args, kw, agree
+
+
+@pytest.mark.parametrize("blocks", [2, 8], ids=["cluster2", "cluster8"])
+@pytest.mark.parametrize("stages", ["shared-buffers", "global-scratch"])
+@pytest.mark.parametrize("case", ["chain", "rocket"])
+def test_k1e_cluster_agrees_bit_for_bit(dev, monkeypatch, case, stages,
+                                        blocks):
+    """K1e on a cluster, each block projecting its own whole stages (the
+    cones' pairs staged in its shared memory): the 20-state chain and the
+    rocket forced onto w2 in shared memory and onto a cluster of 2 or 8
+    blocks, their stages projected in each thread's buffer in shared
+    memory or in the global scratch: the same bits, carry included; the
+    cluster against the plain version too."""
+    nx, nu, Nc, args, kw, agree = _k1e_case(case, dev)
+    if stages == "global-scratch":
+        monkeypatch.setattr(K, "launch_smem",
+                            lambda plan, *dims: (plan.smem, False))
+    else:
+        plan = K.cluster_tile_plan(nx, nu, Nc, blocks=blocks)
+        assert K.launch_smem(plan, nx, nu)[1]
+    shared = K.shared_tile_plan(nx, nu, Nc, state_free=False)
+    _forced(monkeypatch, K, "fused_tile_plan", shared)
+    own = K.condensed_fused_cuda(*args, **kw)
+    plan = K.cluster_tile_plan(nx, nu, Nc, blocks=blocks)
+    assert plan.cluster == blocks
+    _forced(monkeypatch, K, "fused_tile_plan", plan)
+    before = K.condensed_fused_cuda.projected_launches
+    forced = K.condensed_fused_cuda(*args, **kw)
+    r = K.condensed_fused_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert K.condensed_fused_cuda.projected_launches == before + 1
+    for a, b in zip(own[:4], forced[:4]):
+        assert torch.equal(a, b)
+    for a, b in zip(own[4], forced[4]):
+        assert torch.equal(a, b)
+    agree(forced, r)
+
+
+def test_k1e_cluster_at_the_rocket_budget_width(dev, monkeypatch):
+    """The rocket at the JAX package's budget width (N = 643, sw 5,784):
+    its plan splits a tile over a cluster of 8 blocks that project their
+    own stages (cones and the state box); held bit for bit against w2 in
+    global memory (forced), and against the plain version (>= 99% equal
+    counts, x and u within 1e-4 of the larger of 1 and the entry)."""
+    Nr = 643
+    s = rocket.make_solver(Nr, dtype=torch.float32, device=dev)
+    Xref, Uref = rocket.reference_trajectory(0, Nr, Nr)
+    s.set_x_ref(Xref)
+    s.set_u_ref(Uref)
+    p, c = s.problem, s.cache
+    cons = K.fused_constraints(**K.problem_constraint_kw(p, s.settings),
+                               nx=6, nu=3, dtype=torch.float32, device=dev)
+    args = (build_condensed(p, c), float(c.rho), p.u_min, p.u_max, p.x_min,
+            p.x_max, _rocket_x0(64, dev), None)
+    kw = _kw(6, 3, N=Nr, abs_pri_tol=2e-3, relaxation_alpha=1.0,
+             max_iter=30, en_state_bound=True, constraints=cons)
+    plan = K.fused_tile_plan(6, 3, Nr, state_free=False)
+    assert plan.cluster == 8 and K.launch_smem(plan, 6, 3)[1]
+    before = K.condensed_fused_cuda.projected_launches
+    own = K.condensed_fused_cuda(*args, **kw)
+    r = K.condensed_fused_reference(*args, **kw)
+    _forced(monkeypatch, K, "fused_tile_plan", K.global_tile_plan(6, 3, Nr))
+    forced = K.condensed_fused_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert K.condensed_fused_cuda.projected_launches == before + 2
+    for a, b in zip(own[:4], forced[:4]):
+        assert torch.equal(a, b)
+    for a, b in zip(own[4], forced[4]):
+        assert torch.equal(a, b)
+    same = (own[2] == r[2]) & (own[3] == r[3])
+    assert same.float().mean().item() >= 0.99
+    for j in (0, 1):
+        assert ((own[j] - r[j]).abs() / r[j].abs().clamp(min=1.0))[
+            same].max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("blocks", [2, 8], ids=["cluster2", "cluster8"])
+@pytest.mark.parametrize("case", ["rocket-cones", "chain-osqp"])
+def test_k2_cluster_projected_stages_agree_bit_for_bit(dev, monkeypatch,
+                                                       case, blocks):
+    """K2's stages on a cluster as the plain-version tests run them: the
+    rocket's cones and state box (termination controller, 1,000 lanes) and
+    the 20-state chain's stages of 20 and 9 under the OSQP-form controller
+    (300 lanes), forced onto the iterates in shared memory and onto a
+    cluster of 2 or 8 blocks: the same bits, carry included; the cluster
+    against the plain version too."""
+    if case.startswith("rocket"):
+        s = _rocket(dev)
+        p, c = s.problem, s.cache
+        nx, nu = 6, 3
+        cons = K.fused_constraints(**K.problem_constraint_kw(p, s.settings),
+                                   nx=nx, nu=nu, dtype=torch.float32,
+                                   device=dev)
+        x0 = _rocket_x0(1000, dev)
+        kw = dict(controller="termination", en_state_bound=True,
+                  abs_pri_tol=2e-3, adaptive_rho_min=1.0,
+                  adaptive_rho_max=100.0, max_iter=100, constraints=cons)
+    else:
+        p, c = _chain(20, dev)
+        nx, nu = 20, 9
+        x0 = _chain_x0(300, 13, dev)
+        kw = dict(max_iter=150, adaptive_rho_min=0.2, adaptive_rho_max=5.0)
+    args = (build_condensed_taylor(p, c), p.u_min, p.u_max, p.x_min,
+            p.x_max, x0, None)
+    full = _k2_kw(p, c, **kw)
+    state_free = not case.startswith("rocket")
+    shared = K2.shared_adaptive_plan(nx, nu, p.N, 2, False, state_free)
+    assert shared.cluster == 1
+    _forced(monkeypatch, K2, "adaptive_tile_plan", shared)
+    own = K2.condensed_adaptive_cuda(*args, **full)
+    plan = K2.cluster_adaptive_plan(nx, nu, p.N, 2, blocks=blocks)
+    assert plan.cluster == blocks
+    _forced(monkeypatch, K2, "adaptive_tile_plan", plan)
+    before = K2.condensed_adaptive_cuda.launches
+    forced = K2.condensed_adaptive_cuda(*args, **full)
+    r = K2.condensed_adaptive_reference(*args, **full)
+    torch.cuda.synchronize()
+    assert K2.condensed_adaptive_cuda.launches == before + 1
+    for a, b in zip(own[:5], forced[:5]):
+        assert torch.equal(a, b)
+    for a, b in zip(own[5], forced[5]):
+        assert torch.equal(a, b)
+    _k2_agree(forced, r)
 
 
 @pytest.mark.parametrize("box", [False, True], ids=["free", "state-box"])

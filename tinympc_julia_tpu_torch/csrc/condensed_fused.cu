@@ -46,7 +46,7 @@
 //    and the elementwise step adds uxc and turns ux into the next w2 in
 //    place.
 //  * A map too wide for the tile's w2 beside the ring splits the tile over
-//    a thread block cluster of C blocks (In::kCluster; C = 2, 4 or 8 on as
+//    a thread block cluster of C blocks (In::kCluster; C from 2 to 8 on as
 //    many SMs, fused_tile_plan's choice): block c owns a slice of whole
 //    stages (their rows of w2, ux and the map, and their share of the
 //    elementwise step) and keeps its rows of w2 in its own shared memory;

@@ -229,15 +229,19 @@ def cluster_adaptive_smem(keep1: int, keep2: int, reduced: bool) -> int:
 
 def cluster_adaptive_plan(nx: int, nu: int, N: int, order: int,
                           reduced: bool = False,
-                          blocks: int | None = None) -> AdaptivePlan | None:
+                          blocks: int | None = None,
+                          busy_sms=None) -> AdaptivePlan | None:
     """The cluster layout at this shape: ``blocks`` blocks a tile of 32
     lanes (default: of CLUSTER_SIZES whose slices fit, the one whose
     blocks' passes of the o + 1 forward blocks and the backward stack cost
-    the card least, K1's ``pass_cost`` x blocks over CLUSTER_SMS, then the
-    smallest), block c the rows of ux of whole stages and the d rows of
-    whole input stages, each in its shared memory beside its ring,
-    K2_CLUSTER_RPT rows a thread; the state in global memory.  None where the
-    slices do not fit (or, for ``blocks``, do not exist)."""
+    the card least, K1's ``pass_cost`` x blocks over the SMs its clusters
+    keep busy at once, then the smallest), block c the rows of ux of whole
+    stages and the d rows of whole input stages, each in its shared memory
+    beside its ring, K2_CLUSTER_RPT rows a thread; the state in global
+    memory.  ``busy_sms(plan)`` gives a candidate's busy SMs (a launch's:
+    ``card_busy_sms``; default K1's CLUSTER_SMS table); a size the card
+    cannot hold is passed over.  None where the slices do not fit (or, for
+    ``blocks``, do not exist)."""
     su, sx, sw = _dims(nx, nu, N)
     in1 = su + nx + 1
     W = K2_CLUSTER_RPT * 2 * THREADS // TILE
@@ -250,13 +254,15 @@ def cluster_adaptive_plan(nx: int, nu: int, N: int, order: int,
         rows, drows, keep1, keep2 = cluster_rows(nx, nu, N, stages, ustages)
         smem = cluster_adaptive_smem(keep1, keep2, reduced)
         if smem <= SMEM_PER_BLOCK:
-            cost = (((order + 1) * pass_cost(rows, K2_HALF_PASS)
-                     + pass_cost(4 * drows, K2_HALF_PASS))
-                    * C / CLUSTER_SMS[C])
-            plans.append((cost, C, AdaptivePlan(
+            plan = AdaptivePlan(
                 TILE, THREADS, K2_CLUSTER_RPT, -(-rows // W),
                 -(-4 * drows // W), False, False, _kp(in1), _kp(sw + 1),
-                smem, False, C, stages, ustages)))
+                smem, False, C, stages, ustages)
+            sms = busy_sms(plan) if busy_sms else CLUSTER_SMS[C]
+            if sms:
+                cost = ((order + 1) * pass_cost(rows, K2_HALF_PASS)
+                        + pass_cost(4 * drows, K2_HALF_PASS)) * C / sms
+                plans.append((cost, C, plan))
     return min(plans, default=(None, None, None))[2]
 
 
@@ -296,28 +302,15 @@ def shared_adaptive_plan(nx: int, nu: int, N: int, order: int,
     return None
 
 
-def adaptive_tile_plan(nx: int, nu: int, N: int, order: int,
-                       reduced: bool = False,
-                       state_free: bool = True) -> AdaptivePlan:
-    """The layout of a launch at this shape (``reduced``: with
-    reduced-precision iterations; ``state_free``: no state dual; the plan
-    depends on the shape, not the batch).  Below K2_CLUSTER_FROM_WIDTH
-    rows, the iterates in shared memory (``shared_adaptive_plan``) where
-    they fit; from there, or where they do not fit, the tile of 32 split
-    over a thread block cluster (``cluster_adaptive_plan``: every width of
-    the JAX package's condensed budget); where even a cluster of 8's slices
-    do not fit, tiles of 32 whose iterates live in global memory and stream
-    beside the maps: that layout's shared memory does not depend on the
-    width, so every width has a plan (a launch needs (in1 + sw + 1, B)
-    floats of global memory for the iterates)."""
+def global_adaptive_plan(nx: int, nu: int, N: int, order: int,
+                         reduced: bool = False,
+                         state_free: bool = True) -> AdaptivePlan:
+    """Tiles of 32 lanes whose iterates live in global memory and stream
+    beside the maps (K2_GLOBAL_RPT rows a thread): that layout's shared
+    memory does not depend on the width, so it holds any (a launch needs
+    (in1 + sw + 1, B) floats of global memory for the iterates)."""
     su, sx, sw = _dims(nx, nu, N)
     in1 = su + nx + 1
-    plan = (shared_adaptive_plan(nx, nu, N, order, reduced, state_free)
-            if sw < K2_CLUSTER_FROM_WIDTH else None)
-    if plan is None:
-        plan = cluster_adaptive_plan(nx, nu, N, order, reduced)
-    if plan is not None:
-        return plan
     W = K2_GLOBAL_RPT * 2 * THREADS // TILE
     p1, p2 = -(-sw // W), -(-4 * su // W)
     smem = adaptive_smem(nx, nu, N, order, TILE, K2_GLOBAL_RPT, p1, p2,
@@ -325,6 +318,29 @@ def adaptive_tile_plan(nx: int, nu: int, N: int, order: int,
     assert smem <= SMEM_PER_BLOCK  # independent of sw
     return AdaptivePlan(TILE, THREADS, K2_GLOBAL_RPT, p1, p2, False, False,
                         _kp(in1), _kp(sw + 1), smem, True)
+
+
+def adaptive_tile_plan(nx: int, nu: int, N: int, order: int,
+                       reduced: bool = False, state_free: bool = True,
+                       busy_sms=None) -> AdaptivePlan:
+    """The layout of a launch at this shape (``reduced``: with
+    reduced-precision iterations; ``state_free``: no state dual;
+    ``busy_sms``: as ``cluster_adaptive_plan``'s; the plan depends on the
+    shape, not the batch).  Below K2_CLUSTER_FROM_WIDTH rows, the iterates
+    in shared memory (``shared_adaptive_plan``) where they fit; from there,
+    or where they do not fit, the tile of 32 split over a thread block
+    cluster (``cluster_adaptive_plan``: every width of the JAX package's
+    condensed budget); where even a cluster of 8's slices do not fit, the
+    iterates in global memory (``global_adaptive_plan``), so every width
+    has a plan."""
+    sw = _dims(nx, nu, N)[2]
+    plan = (shared_adaptive_plan(nx, nu, N, order, reduced, state_free)
+            if sw < K2_CLUSTER_FROM_WIDTH else None)
+    if plan is None:
+        plan = cluster_adaptive_plan(nx, nu, N, order, reduced,
+                                     busy_sms=busy_sms)
+    return (plan if plan is not None
+            else global_adaptive_plan(nx, nu, N, order, reduced, state_free))
 
 
 _PLANT_SHAPES = lambda nx, nu: ((nx, nx), (nx, nu), (nx,), (nu,), (nx, nx),
@@ -627,6 +643,14 @@ def adaptive_occupancy(plan: AdaptivePlan, proj_u: bool = False,
     return n
 
 
+@functools.cache
+def card_busy_sms(plan: AdaptivePlan) -> int:
+    """The SMs a cluster plan's clusters keep busy at once on the current
+    card: the occupancy API's clusters at once x the blocks a cluster
+    (builds the kernel)."""
+    return adaptive_occupancy(plan) * plan.cluster
+
+
 def _row_layout(plan: AdaptivePlan, nx: int, nu: int, N: int, device):
     """Where each block's output rows sit in the padded maps: (destination,
     source) row indices of the forward map's ux rows and of the backward
@@ -718,7 +742,8 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
     osqp = controller == "osqp"
     dev = x0s.device
     state_free = _state_free(en_state_bound, cons)
-    plan = adaptive_tile_plan(nx, nu, N, order, lo_all, state_free)
+    plan = adaptive_tile_plan(nx, nu, N, order, lo_all, state_free,
+                              busy_sms=card_busy_sms)
     side_u = _side_args(cons.lin_u, cons.cones_u, nu, "input")
     side_x = _side_args(cons.lin_x, cons.cones_x, nx, "state")
 

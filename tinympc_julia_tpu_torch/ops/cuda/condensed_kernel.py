@@ -101,7 +101,9 @@ CLUSTER_SIZES = (2, 3, 4, 5, 6, 7, 8)
 CLUSTER_META = 3 * 16 * 32 + 2 * 256
 # The SMs an NVIDIA H100 80GB HBM3 keeps busy with clusters of each size at
 # one block an SM (cudaOccupancyMaxActiveClusters x the size; a cluster's
-# blocks share a GPC): what the plan weighs a cluster size by
+# blocks share a GPC): what the plan weighs a cluster size by off the card
+# (the CPU plan tests); a launch asks the card's occupancy API instead
+# (``card_busy_sms``)
 CLUSTER_SMS = {2: 132, 3: 117, 4: 120, 5: 110, 6: 102, 7: 105, 8: 120}
 # the width (rows of w2) from which K1 takes the cluster layout even where
 # w2 fits in shared memory: the quadrotor's N = 57, where the cluster first
@@ -375,7 +377,9 @@ def slice_rows(nx: int, nu: int, N: int, stages: tuple) -> list:
 # What a pass of at most 4 warps' rows costs beside a full one: a pass's
 # warps past its rows idle, and one busy warp a scheduler hides less of
 # its loads' latency than two (fitted to launches measured on an H100,
-# PERF.md section 6: K1, its map by the bulk copy engine, and K2)
+# PERF.md section 6: K1, its map by the bulk copy engine, and K2; one
+# value for both would move the cluster size of hundreds of widths off
+# the one measured there)
 HALF_PASS = 0.75
 K2_HALF_PASS = 0.5
 
@@ -403,15 +407,18 @@ def cluster_smem(rows: int, reduced: bool) -> int:
 
 
 def cluster_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
-                      blocks: int | None = None) -> TilePlan | None:
+                      blocks: int | None = None,
+                      busy_sms=None) -> TilePlan | None:
     """The cluster layout at this shape: ``blocks`` blocks a tile of 32
     lanes (default: of CLUSTER_SIZES whose slices fit, the one whose
-    blocks' passes cost the card least, ``pass_cost`` x blocks over
-    CLUSTER_SMS, then the smallest), each a slice of whole stages with its
-    rows of w2 in its shared memory; its product in passes of W = 16
-    CLUSTER_RPT rows over its slice (a pass's rows past the slice are
-    skipped); the state in global memory.  None where the slices do not fit
-    (or, for ``blocks``, do not exist)."""
+    blocks' passes cost the card least, ``pass_cost`` x blocks over the SMs
+    its clusters keep busy at once, then the smallest), each a slice of
+    whole stages with its rows of w2 in its shared memory; its product in
+    passes of W = 16 CLUSTER_RPT rows over its slice (a pass's rows past
+    the slice are skipped); the state in global memory.  ``busy_sms(plan)``
+    gives a candidate's busy SMs (a launch's: ``card_busy_sms``; default
+    the CLUSTER_SMS table); a size the card cannot hold is passed over.
+    None where the slices do not fit (or, for ``blocks``, do not exist)."""
     sw = (N - 1) * nu + N * nx
     kp = -(-sw // KP_ALIGN) * KP_ALIGN
     W = TILE_ROW_GROUPS * CLUSTER_RPT
@@ -424,11 +431,27 @@ def cluster_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
         smem = cluster_smem(rows, reduced)
         if smem <= SMEM_PER_BLOCK:
             npass = -(-rows // W)
-            cost = pass_cost(rows) * C / CLUSTER_SMS[C]
-            plans.append((cost, C, TilePlan(
-                TILE, THREADS, False, False, C * npass * W, kp, smem, npass,
-                False, C, stages)))
+            plan = TilePlan(TILE, THREADS, False, False, C * npass * W, kp,
+                            smem, npass, False, C, stages)
+            sms = busy_sms(plan) if busy_sms else CLUSTER_SMS[C]
+            if sms:
+                plans.append((pass_cost(rows) * C / sms, C, plan))
     return min(plans, default=(None, None, None))[2]
+
+
+def global_tile_plan(nx: int, nu: int, N: int,
+                     reduced: bool = False) -> TilePlan:
+    """The layout with the tiles' w2 in global memory, streamed beside the
+    map (W2_GLOBAL_RPT rows a thread, the state in global memory): its
+    shared memory does not depend on the width, so it holds any (a launch
+    needs (sw, B) floats of global memory for w2)."""
+    sw = (N - 1) * nu + N * nx
+    kp = -(-sw // KP_ALIGN) * KP_ALIGN
+    npass = -(-sw // (TILE_ROW_GROUPS * W2_GLOBAL_RPT))
+    rows = npass * TILE_ROW_GROUPS * W2_GLOBAL_RPT
+    smem = tile_smem(sw, rows, kp, 0, False, reduced, npass, True)
+    assert smem <= SMEM_PER_BLOCK  # independent of sw
+    return TilePlan(TILE, THREADS, False, False, rows, kp, smem, npass, True)
 
 
 def shared_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
@@ -460,31 +483,22 @@ def shared_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
 
 
 def fused_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
-                    state_free: bool = True) -> TilePlan:
+                    state_free: bool = True, busy_sms=None) -> TilePlan:
     """The layout of a launch at this shape (``reduced``: with
     reduced-precision iterations; ``state_free``: no state-side
-    constraint, so no state dual).  Below CLUSTER_FROM_WIDTH rows, tiles of
-    32 lanes with w2 in shared memory (``shared_tile_plan``) where that
-    fits; from there, or where it does not fit, the tile split over a
-    thread block cluster (``cluster_tile_plan``: the smallest cluster
-    whose slices fit; every width of the JAX package's condensed budget);
-    where even a cluster of 8's slices do not fit, w2 in global memory,
-    streamed beside the map: that layout's shared memory does not depend
-    on the width, so every width has a plan (a launch needs (sw, B) floats
-    of global memory for w2)."""
+    constraint, so no state dual; ``busy_sms``: as ``cluster_tile_plan``'s).
+    Below CLUSTER_FROM_WIDTH rows, tiles of 32 lanes with w2 in shared
+    memory (``shared_tile_plan``) where that fits; from there, or where it
+    does not fit, the tile split over a thread block cluster
+    (``cluster_tile_plan``; every width of the JAX package's condensed
+    budget); where even a cluster of 8's slices do not fit, w2 in global
+    memory (``global_tile_plan``), so every width has a plan."""
     sw = (N - 1) * nu + N * nx
     plan = (shared_tile_plan(nx, nu, N, reduced, state_free)
             if sw < CLUSTER_FROM_WIDTH else None)
     if plan is None:
-        plan = cluster_tile_plan(nx, nu, N, reduced)
-    if plan is not None:
-        return plan
-    kp = -(-sw // KP_ALIGN) * KP_ALIGN
-    npass = -(-sw // (TILE_ROW_GROUPS * W2_GLOBAL_RPT))
-    rows = npass * TILE_ROW_GROUPS * W2_GLOBAL_RPT
-    smem = tile_smem(sw, rows, kp, 0, False, reduced, npass, True)
-    assert smem <= SMEM_PER_BLOCK  # independent of sw
-    return TilePlan(TILE, THREADS, False, False, rows, kp, smem, npass, True)
+        plan = cluster_tile_plan(nx, nu, N, reduced, busy_sms=busy_sms)
+    return plan if plan is not None else global_tile_plan(nx, nu, N, reduced)
 
 
 def launch_smem(plan: TilePlan, dim_x: int, dim_u: int,
@@ -827,6 +841,14 @@ def tile_occupancy(plan: TilePlan, proj_u: bool = False,
     return n
 
 
+@functools.cache
+def card_busy_sms(plan: TilePlan) -> int:
+    """The SMs a cluster plan's clusters keep busy at once on the current
+    card: the occupancy API's clusters at once x the blocks a cluster
+    (builds the kernel)."""
+    return tile_occupancy(plan) * plan.cluster
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -935,7 +957,8 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
     dev = x0s.device
     reduced = bool(k0 or lo_all)
     state_free = _state_free(en_state_bound, cons)
-    plan = fused_tile_plan(nx, nu, N, reduced, state_free)
+    plan = fused_tile_plan(nx, nu, N, reduced, state_free,
+                           busy_sms=card_busy_sms)
     side_u = _side_args(cons.lin_u, cons.cones_u, nu, "input")
     side_x = _side_args(cons.lin_x, cons.cones_x, nx, "state")
 
