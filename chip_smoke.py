@@ -267,7 +267,9 @@ Phases (one line each; any failure exits non-zero):
      from the plain version in float64; at N = 90 the plan's cluster and
      the tiles of 16 lanes in shared memory (both products in passes)
      forced on the same launch, fp32, precision='default' at ct 5 and the
-     OSQP-form controller (rho in [3, 7]), bit-equal, both timed;
+     OSQP-form controller (rho in [3, 7]), bit-equal, both timed, the
+     cluster's OSQP-form launch also against its plain version (one timed
+     run) with its bound;
  36. K1e on the chain: a state stage of 20 entries with 10 cones of dim 2
      (mu 0.5), 4 halfspace rows and the state box, B = 16,384, 200
      iterations (the lanes do not converge: every lane compared), the
@@ -275,10 +277,14 @@ Phases (one line each; any failure exits non-zero):
      into the global scratch, and forced onto a cluster of 2 blocks (each
      projecting its own stages), bit-equal, all timed;
  37. K3's wide variant on the chain (lane groups of 8, B = 16,384, 200
-     iterations) and its far layout (the workspace in global memory) on
-     the quadrotor at N = 300 without and with |x| <= 2 (B = 16,384, 100
-     iterations), each against its plain version, and the far layout
-     forced at N = 173 with |x| <= 2, bit-equal to the near one;
+     iterations) and its far layout (the lanes' records in global memory,
+     streamed through each lane group's ring) on the quadrotor at N = 300
+     without and with |x| <= 2 (B = 16,384, 100 iterations), each against
+     its plain version, each plan with its blocks an SM, registers, local
+     (spill) bytes and lane slots, the far rows with their workspace
+     stream floor beside the FLOP bound (also in the kernels line); and
+     the far layout forced at N = 173 with |x| <= 2, bit-equal to the
+     near one, both timed;
      phases 34-37 hold each case to the bar below, counted on every lane
      with equal counts and flags (solved or not; K2's values on those
      that solved, the max over all of them printed beside it), and print
@@ -3178,13 +3184,13 @@ def lifted_shape_phases(card):
             t_k, t_p = paired_ms(f_k, f_p, reps=3)
         return out_k, out_p, err, launches, t_k, t_p
 
-    def row(name, launches, err, t_k, t_p, b, source, replaces):
+    def row(name, launches, err, t_k, t_p, b, source, replaces, **extra):
         rows.append({
             "name": name, "route": "cuda",
             "source": f"tinympc_julia_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-            "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None, **extra})
 
     k1_src, k1_rep = ("condensed_fused.cu",
                       "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:232")
@@ -3529,11 +3535,14 @@ def lifted_shape_phases(card):
         check(c_plan is not None and s_plan is not None
               and s_plan.tile == 16, "phase 35a: N = 90 lacks a layout")
         f90 = functools.partial(k2, *args, **dict(full, N=N90, **kw))
-        times, outs = {}, {}
+        times, outs, counts = {}, {}, {}
         for name, pl in (("cluster", c_plan), ("tiles", s_plan)):
             with mock.patch.object(K2, "adaptive_tile_plan",
                                    lambda *a, pl=pl, **k: pl):
+                k2.launches = 0
                 outs[name] = f90()
+                torch.cuda.synchronize()
+                counts[name] = k2.launches
                 times[name] = float(np.median([event_ms(f90)
                                                for _ in range(3)]))
         torch.cuda.synchronize()
@@ -3550,6 +3559,31 @@ def lifted_shape_phases(card):
               f"{int(outs['tiles'][3].sum())}", flush=True)
         check(exact, f"phase 35a N={N90} {tag}: the cluster differs from "
               "the 16-lane tile")
+        if kw is osqp:
+            # the OSQP-form controller on the cluster beside its plain
+            # version (one timed comparison run) and its bound
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out_p = K2.condensed_adaptive_reference(
+                *args, **dict(full, N=N90, **kw))
+            t1.record()
+            t1.synchronize()
+            err, _ = lifted_agreement(
+                f"phase 35a N={N90} {tag}, the cluster against the plain "
+                "version", outs["cluster"], out_p, rho=True)
+            b = bound(k2_ops(p, 2, outs["cluster"][2]),
+                      tensor_bytes(tm.T1s, tm.T2s, *args[1:6],
+                                   outs["cluster"][:5]))
+            print(f"phase 35a N={N90} {tag} timing: kernel on the cluster "
+                  f"{times['cluster']:.3f} ms, plain {t0.elapsed_time(t1):.3f}"
+                  f" ms, {counts['cluster']} launch(es), bound {b[0]:.4f} ms "
+                  f"by {b[1]}", flush=True)
+            row(f"condensed_adaptive (K2), OSQP-form controller, quadrotor "
+                f"N={N90} (sw {sw}): {layout(c_plan)}", counts["cluster"],
+                err, times["cluster"], t0.elapsed_time(t1), b, k2_src,
+                k2_rep)
+            del out_p
     del tm, args
 
     p, c = chain(20)
@@ -3654,14 +3688,40 @@ def lifted_shape_phases(card):
         "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:127")
 
     # -- phase 37: K3's wide variant and its far layout -----------------------
-    def k3_case(tag, p, c, x0, budget, box):
-        full = dict(nx=p.nx, nu=p.nu, N=p.N, max_iter=budget,
+    def k3_full(p, budget, box):
+        return dict(nx=p.nx, nu=p.nu, N=p.N, max_iter=budget,
                     abs_pri_tol=1e-3, abs_dua_tol=1e-3, en_state_bound=box,
                     en_input_bound=True, check_termination=1)
-        args = (p.A, p.B, p.f, p.Q, p.R, c.rho, c.Kinf, c.Quu_inv, c.AmBKt,
+
+    def k3_args(p, c, x0):
+        return (p.A, p.B, p.f, p.Q, p.R, c.rho, c.Kinf, c.Quu_inv, c.AmBKt,
                 c.Pinf, p.x_min, p.x_max, p.u_min, p.u_max, p.Xref, p.Uref,
                 x0)
-        plan = K3.fused_stage_plan(p.nx, p.nu, p.N, box, x0.shape[0], sms)
+
+    def k3_describe(tag, plan, p, box, lanes):
+        """The plan with its blocks and warps an SM, registers and local
+        (spill) bytes a thread (the occupancy API) and the grid's lane
+        slots."""
+        occ = K3.stage_occupancy(plan, p.nx, p.nu, box)
+        slots = min(-(-lanes // plan.tile),
+                    max(occ["blocks_per_sm"], 1) * sms) * plan.tile
+        print(f"phase {tag} plan: {plan}; {occ['blocks_per_sm']} blocks "
+              f"({occ['warps_per_sm']} warps) an SM, {occ['registers']} "
+              f"registers and {occ['local_bytes']} local (spill) bytes a "
+              f"thread, {slots} lane slots", flush=True)
+
+    def stream_floor(p, box, iters):
+        """The far layout's least time: each lane-iteration's workspace
+        (``lane_floats``) read once and written once at the card's memory
+        rate, ms."""
+        n = float(iters.double().sum())
+        return (1e3 * n * 2 * 4 * K3.lane_floats(p.nx, p.nu, p.N, box)
+                / PEAK_BYTES)
+
+    def k3_case(tag, p, c, x0, budget, box):
+        full = k3_full(p, budget, box)
+        args = k3_args(p, c, x0)
+        plan = K3.launch_plan(p.nx, p.nu, p.N, box, x0.shape[0], dev)
         out_k, _, err, n_l, t_k, t_p = run_case(
             f"phase {tag}, B={x0.shape[0]}, {budget} iterations: lane group "
             f"{plan.group}, tile {plan.tile}, matrices in "
@@ -3676,13 +3736,18 @@ def lifted_shape_phases(card):
         b = bound((p.N - 1) * (4 * nx * nx + 8 * nx * nu + 2 * nu * nu)
                   * float(out_k[2].double().sum()),
                   tensor_bytes(*args, out_k))
+        k3_describe(tag[:3], plan, p, box, x0.shape[0])
+        floor = stream_floor(p, box, out_k[2]) if plan.workspace_global \
+            else None
         print(f"phase {tag[:3]} timing: kernel {t_k:.3f} ms, plain "
               f"{t_p:.3f} ms, {n_l} launch(es), bound {b[0]:.4f} ms by "
-              f"{b[1]}", flush=True)
-        return n_l, err, t_k, t_p, b, plan
+              f"{b[1]}"
+              + (f", workspace stream floor {floor:.4f} ms"
+                 if floor is not None else ""), flush=True)
+        return n_l, err, t_k, t_p, b, plan, floor
 
     p, c = chain(20)
-    n_l, err, t_k, t_p, b, plan = k3_case(
+    n_l, err, t_k, t_p, b, plan, _ = k3_case(
         "37a K3 wide variant, the 20-state chain N=20", p, c,
         chain_x0(16384, 39), 200, False)
     check(not plan.registers and plan.group == 8,
@@ -3691,36 +3756,40 @@ def lifted_shape_phases(card):
         "20-state chain N=20", n_l, err, t_k, t_p, b, k3_src, k3_rep)
     for box in (False, True):
         p, c = quad(300, x_bound=2.0 if box else None)
-        n_l, err, t_k, t_p, b, plan = k3_case(
+        n_l, err, t_k, t_p, b, plan, floor = k3_case(
             f"37b K3 far layout, quadrotor N=300"
             f"{', |x| <= 2' if box else ''}", p, c, uniform(16384, 12, 40, 0.3),
             100, box)
-        check(plan.workspace_global, "phase 37b: the plan did not take the "
-              "far layout")
-        row(f"fused_stage (K3), workspace in global memory, quadrotor N=300"
+        check(plan.workspace_global and plan.ring >= K3.MIN_RING,
+              "phase 37b: the plan did not take the far layout")
+        row(f"fused_stage (K3), workspace in global memory (far layout, "
+            f"ring of {plan.ring}), quadrotor N=300"
             f"{' with the state box' if box else ''}", n_l, err, t_k, t_p, b,
-            k3_src, k3_rep)
+            k3_src, k3_rep, stream_floor_ms=floor)
     # the far layout against the near one where both run: the widest
     # quadrotor horizon whose workspace fits a warp of lanes with |x| <= 2
-    # (N = 173), the far plan forced; the same bits
+    # (N = 173), the far plan forced; the same bits, each timed alone
     p, c = quad(173, x_bound=2.0)
     x0 = uniform(16384, 12, 41, 0.3)
-    args = (p.A, p.B, p.f, p.Q, p.R, c.rho, c.Kinf, c.Quu_inv, c.AmBKt,
-            c.Pinf, p.x_min, p.x_max, p.u_min, p.u_max, p.Xref, p.Uref, x0)
-    full = dict(nx=12, nu=4, N=173, max_iter=100, abs_pri_tol=1e-3,
-                abs_dua_tol=1e-3, en_state_bound=True, en_input_bound=True,
-                check_termination=1)
-    near_plan = K3.fused_stage_plan(12, 4, 173, True, 16384, sms)
+    args, full = k3_args(p, c, x0), k3_full(p, 100, True)
+    near_plan = K3.launch_plan(12, 4, 173, True, 16384, dev)
     check(not near_plan.workspace_global, "phase 37b: N = 173 is not near")
-    near = k3(*args, **full)
-    far_plan = near_plan._replace(
-        smem=4 * K3.stage_floats(12, 4, 173, True), workspace_global=True)
-    with mock.patch.object(K3, "fused_stage_plan", lambda *a: far_plan):
-        far = k3(*args, **full)
-    exact = all(torch.equal(a, b) for a, b in zip(near, far))
+    far_plan = K3.launch_plan(12, 4, 173, True, 16384, dev, far=True)
+    k3_describe("37b N=173 near", near_plan, p, True, 16384)
+    k3_describe("37b N=173 far (forced)", far_plan, p, True, 16384)
+    f_near = functools.partial(k3, *args, **full)
+    f_far = forced(K3, "fused_stage_plan", far_plan, f_near)
+    near, far = f_near(), f_far()
+    torch.cuda.synchronize()
+    exact = same_bits(near, far)
+    t_near = float(np.median([event_ms(f_near) for _ in range(3)]))
+    t_far = float(np.median([event_ms(f_far) for _ in range(3)]))
     print(f"phase 37b far layout forced at N=173, |x| <= 2, B=16384: "
-          f"bit-equal to the near layout {exact}; solved {int(near[3].sum())}"
-          f", largest |x| {float(near[0].abs().max()):.6g}", flush=True)
+          f"bit-equal to the near layout {exact}; near {t_near:.3f} ms, far "
+          f"{t_far:.3f} ms (stream floor "
+          f"{stream_floor(p, True, near[2]):.4f} ms); solved "
+          f"{int(near[3].sum())}, largest |x| "
+          f"{float(near[0].abs().max()):.6g}", flush=True)
     check(exact, "phase 37b: the far layout differs from the near one")
     print(f"phases 34-37 took {time.perf_counter() - t_start:.0f} s", flush=True)
     return rows

@@ -1929,26 +1929,79 @@ def test_k2_cluster_projected_stages_agree_bit_for_bit(dev, monkeypatch,
 
 
 @pytest.mark.parametrize("box", [False, True], ids=["free", "state-box"])
-@pytest.mark.parametrize("where", ["workspace", "workspace-and-stage"])
+@pytest.mark.parametrize("where", ["workspace", "workspace-and-stage",
+                                   "generic-stage", "wide", "wide-matrices",
+                                   "queue"])
 def test_k3_far_layout_agrees_bit_for_bit(dev, monkeypatch, box, where):
-    """K3 at the quadrotor's N = 20 on its own plan and forced onto the far
-    layout (the workspace, and the per-stage terms, in global memory): the
-    same bits."""
-    p, c = _quad(20, dev, x_bound=0.4 if box else None)
-    x0 = _x0(1001, 12, 20, 0.3, dev)
-    full = dict(nx=12, nu=4, N=20, max_iter=300, abs_pri_tol=1e-3,
+    """K3 at N = 20 on its own plan (the near layout) and forced onto the far
+    layout (the lanes' records in global memory, streamed through each lane
+    group's ring): the same bits, and the plain version's counts and values
+    on the lanes that solve.
+    The quadrotor's fixed variant with the per-stage terms in shared and in
+    global memory; the generic variant (a made-up 5 x 2 plant) with them in
+    global memory; the wide variant on the 20-state chain with its matrices
+    in shared and in global memory; and the quadrotor with a batch several
+    times the grid's lane slots, so that slots take lanes from the queue
+    and their records are reused."""
+    batch, budget = 1001, 300
+    if where.startswith("wide"):
+        p, c = _chain(20, dev, x_bound=0.6 if box else None)
+        x0 = _chain_x0(batch, 21, dev)
+        if box:
+            x0 = x0.clamp(-0.5, 0.5)
+        budget = 200
+    elif where.startswith("generic"):
+        rng = np.random.default_rng(9)
+        kw = {}
+        if box:
+            xb = np.tile(np.full(5, 0.3), (20, 1))
+            kw = dict(x_min=-xb, x_max=xb)
+        p = make_problem(np.eye(5) + rng.normal(size=(5, 5)) * 0.05,
+                         rng.normal(size=(5, 2)) * 0.1, np.eye(5), np.eye(2),
+                         1.0, 20, u_min=-1.0, u_max=1.0, dtype=torch.float32,
+                         device=dev, **kw)
+        c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+        x0 = _x0(batch, 5, 22, 0.25, dev)
+    else:
+        p, c = _quad(20, dev, x_bound=0.4 if box else None)
+        if where == "queue":
+            batch = 40000
+        x0 = _x0(batch, 12, 20, 0.3, dev)
+    full = dict(nx=p.nx, nu=p.nu, N=20, max_iter=budget, abs_pri_tol=1e-3,
                 abs_dua_tol=1e-3, en_state_bound=box, en_input_bound=True,
                 check_termination=1)
     own = K3.fused_cuda(*_k3_args(p, c, x0), **full)
-    if box:  # the bound binds
+    assert not K3.launch_plan(p.nx, p.nu, 20, box, batch, dev)\
+        .workspace_global
+    if box and where.startswith(("workspace", "queue")):  # the bound binds
         assert float(own[0].abs().max()) == pytest.approx(0.4, abs=1e-7)
-    else:
-        assert int((own[3] == 1).sum()) > 500
-    stage = where.endswith("stage")
-    smem = 0 if stage else 4 * K3.stage_floats(12, 4, 20, box)
-    plan = K3.StagePlan(4, 32, 128, smem, True, True, stage, False)
+    elif not box:
+        assert int((own[3] == 1).sum()) > batch // 2
+    plan = K3.launch_plan(p.nx, p.nu, 20, box, batch, dev, far=True)
+    assert plan.workspace_global and plan.ring >= K3.MIN_RING
+    if where.endswith("stage"):
+        plan = plan._replace(stage_global=True)
+    if where == "wide-matrices":
+        plan = plan._replace(matrices_global=True)
+    if where == "queue":
+        occ = K3.stage_occupancy(plan, p.nx, p.nu, box)["blocks_per_sm"]
+        slots = occ * plan.tile * torch.cuda.get_device_properties(dev)\
+            .multi_processor_count
+        assert batch >= 3 * slots
     _forced(monkeypatch, K3, "fused_stage_plan", plan)
+    before = K3.fused_cuda.launches
     forced = K3.fused_cuda(*_k3_args(p, c, x0), **full)
     torch.cuda.synchronize()
+    assert K3.fused_cuda.launches == before + 1
     for a, b in zip(own, forced):
         assert torch.equal(a, b)
+    # against the plain version: equal counts and flags on >= 99% of lanes,
+    # 1e-4 on those that solved (its cuBLAS sums in another order move an
+    # unsolved lane's last iterate further: 1.09e-4 at the boxed quadrotor)
+    r = K3.fused_reference(*_k3_args(p, c, x0), **full)
+    same = (forced[2] == r[2]) & (forced[3] == r[3])
+    assert same.float().mean().item() >= 0.99
+    both = same & (r[3] == 1)
+    assert bool(both.any())
+    for j in (0, 1):
+        assert (forced[j] - r[j])[both].abs().max().item() <= 1e-4

@@ -295,7 +295,97 @@ def test_tile_plan():
     assert (far.group, far.registers, far.workspace_global,
             far.stage_global) == (4, False, True, False)
     assert far.smem == 4 * (K3.stage_floats(16, 16, 200, True)
-                            + K3.matrix_floats(16, 16))
+                            + K3.matrix_floats(16, 16)
+                            + K3.ring_stride(16, 16, True, far.ring, 4)
+                            * far.tile)
+
+
+def _parent_far_smem(nx, nu, N, box, tile, sg=False, mg=False):
+    """The far plan's shared memory without its ring: the per-stage terms
+    and the matrices unless in global memory, the wide variant's vectors."""
+    group, regs = K3.lane_group(nx, nu)
+    wide = max(nx, nu) > K3.GENERIC_DIM
+    return 4 * ((0 if sg else K3.stage_floats(nx, nu, N, box))
+                + (0 if mg or regs else K3.matrix_floats(nx, nu))
+                + (K3.vec_floats(nx, nu) * tile if wide else 0))
+
+
+@pytest.mark.parametrize("nx,nu,N,box,batch", [
+    (12, 4, 300, False, 16384), (12, 4, 300, True, 16384),
+    (4, 1, 4000, True, 300), (6, 3, 900, False, 4096),
+    (5, 2, 700, True, 1001), (20, 9, 200, True, 64),
+    (96, 96, 4, False, 64)])
+def test_far_plan_holds_a_ring_beside_the_parents_layout(nx, nu, N, box,
+                                                         batch):
+    """The far layout at shapes whose workspace leaves shared memory: the
+    ring of each lane group in ``smem`` beside what the layout kept before
+    (the per-stage terms, the matrices, the wide variant's vectors, the
+    same choices of what leaves for global memory), its depth the deepest
+    up to MAX_RING that keeps the blocks an SM of the plan without it."""
+    plan = K3.fused_stage_plan(nx, nu, N, box, batch, 132)
+    assert plan.workspace_global
+    assert K3.MIN_RING <= plan.ring <= K3.MAX_RING
+    ring = K3.ring_stride(nx, nu, box, plan.ring, plan.group)
+    assert plan.smem == _parent_far_smem(nx, nu, N, box, plan.tile,
+                                         plan.stage_global,
+                                         plan.matrices_global) \
+        + 4 * ring * plan.tile
+    assert plan.smem <= K3.SMEM_PER_BLOCK
+    bare = plan._replace(smem=plan.smem - 4 * ring * plan.tile, ring=0)
+    blocks = K3.estimated_blocks(bare)
+    if plan.ring > K3.MIN_RING:
+        assert K3.estimated_blocks(plan) >= blocks
+    if plan.ring < K3.MAX_RING:  # one deeper would cost a block or not fit
+        deeper = plan.smem + 4 * plan.tile * (K3.ring_stride(
+            nx, nu, box, plan.ring + 1, plan.group) - ring)
+        assert deeper > K3.SMEM_PER_BLOCK or K3.estimated_blocks(
+            plan._replace(smem=deeper)) < blocks
+    # a record holds v, g (under the box), z, y, d in whole 16-byte pieces;
+    # a ring, whole records at an odd multiple of max(G, 4) floats
+    rec = K3.record_floats(nx, nu, box)
+    assert rec % 4 == 0 and 0 <= rec - ((2 if box else 1) * nx + 3 * nu) < 4
+    assert ring >= plan.ring * rec and ring % 4 == 0
+    if plan.group < 32:
+        q = max(plan.group, 4)
+        assert ring % q == 0 and (ring // q) % 2 == 1
+
+
+def test_far_plan_keeps_the_grid_and_weighs_the_card():
+    """The far plan's lane slots never fall below the ringless layout's:
+    where the card holds two blocks an SM by their registers (the
+    quadrotor's far instances, 222 registers) the ring deepens to MAX_RING
+    in both the free and the boxed plan, and a ``resident`` that loses a
+    block to any ring keeps the shallowest.  The workspace is ``N``
+    records for each of the grid's lane slots; ``far`` forces the layout
+    where the near one fits."""
+    for box in (False, True):
+        def two(plan):
+            return min(2, K3.SMEM_PER_SM // (plan.smem + K3.SMEM_RESERVED))
+        plan = K3.fused_stage_plan(12, 4, 300, box, 16384, 132,
+                                   resident=two)
+        assert plan.ring == K3.MAX_RING and two(plan) == 2
+        assert (plan.group, plan.tile, plan.threads) == (4, 32, 128)
+        bare = K3.fused_stage_plan(12, 4, 300, box, 16384, 132,
+                                   resident=lambda pl: 99 if pl.ring == 0
+                                   else 1)
+        assert bare.ring == K3.MIN_RING
+        slots = 2 * 132 * plan.tile
+        floats = slots * 300 * K3.record_floats(12, 4, box)
+        assert floats >= slots * K3.lane_floats(12, 4, 300, box)
+    assert K3.record_floats(12, 4, False) == 24
+    assert K3.record_floats(12, 4, True) == 36
+    near = K3.fused_stage_plan(12, 4, 173, True, 16384, 132)
+    assert not near.workspace_global and near.ring == 0
+    forced = K3.fused_stage_plan(12, 4, 173, True, 16384, 132, far=True)
+    assert forced.workspace_global and not forced.stage_global
+    assert forced.ring >= K3.MIN_RING
+    # the wide variant's far plan with its matrices in global memory
+    wide = K3.fused_stage_plan(96, 96, 4, False, 64, 132)
+    assert (wide.group, wide.tile, wide.matrices_global,
+            wide.stage_global) == (32, 1, True, False)
+    assert wide.smem == 4 * (K3.stage_floats(96, 96, 4, False)
+                             + K3.vec_floats(96, 96)
+                             + K3.ring_stride(96, 96, False, wide.ring, 32))
 
 
 @pytest.mark.parametrize("model", [cartpole, quadrotor, rocket])

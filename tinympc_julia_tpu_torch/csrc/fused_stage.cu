@@ -11,9 +11,10 @@
 // Per lane and iteration that is (N-1)(4 nx^2 + 8 nx nu + 2 nu^2) FLOPs
 // (1,862 at the cartpole, 18,848 at the quadrotor) on matrices of a few
 // hundred floats, and device memory is touched only for the inputs and the
-// results.  What bounds the kernel is not bytes but the chain of small
-// dependent matvecs (two recursions over the horizon) of the slowest lanes:
-// a lane that never passes runs every iteration, and its warp with it.
+// results (but in the far layout, below).  What bounds the kernel is not
+// bytes but the chain of small dependent matvecs (two recursions over the
+// horizon) of the slowest lanes: a lane that never passes runs every
+// iteration, and its warp with it.
 //
 // What this design does about it:
 //  * A lane group of G threads (a template parameter: 1, 2, 4, 8 or 16)
@@ -53,10 +54,28 @@
 //    matrices in shared memory where they fit, else read from the caller's
 //    tensors.
 //  * A long horizon: where a warp of lanes' workspace does not fit in
-//    shared memory, the far layout (kFar) keeps it in global memory, one
-//    slot of the grid's lanes a column (lane-major, so a warp's accesses
-//    coalesce), and the per-stage terms too where they do not fit either
-//    (the wrapper computes them into a buffer in the kernel's layout).
+//    shared memory, the far layout (kFar) keeps it in global memory as one
+//    record a lane and stage (v, g, z, y, d, record_floats), laid out
+//    [warp slot][stage][lane of the warp][record]: one stage of a warp's
+//    lanes is one contiguous slab (768 bytes at the quadrotor, 1,152 with
+//    a state box), and a warp's whole workspace one run of memory.  Each
+//    lane group streams the records of its sweep (the rollout over stages
+//    0 .. N-1, the recursion back) through a ring of D of them in shared
+//    memory, D - 1 in flight ahead of the dependent chain, and stores its
+//    results straight from registers (plain stores, which nothing waits
+//    on).  What bounds it then is that stream: a lane-iteration reads its
+//    records twice and writes them once, against a floor of lane_floats
+//    read once and written once at 3.35 TB/s (12.3 ms free and 27.5 ms
+//    with |x| <= 2 at the quadrotor's N = 300 with 16,384 lanes and 100
+//    iterations).  The records come in 16-byte cp.async pieces, issued by
+//    the group's own threads: they stay in the generic proxy, so the plain
+//    stores they read back need no proxy fence, and one bulk copy a record
+//    on an mbarrier measured 1.1-1.7x slower (PERF.md).  The per-stage
+//    terms stay in shared memory, and go to global memory where they do
+//    not fit (the wrapper computes them into a buffer in the kernel's
+//    layout).  A layout that spread a warp's rows over the grid's lane
+//    slots, one row apart by the whole grid, took 18-21 us a stage step
+//    under load against 0.56-0.74 us for this one.
 //  * Elementwise arithmetic uses round-to-nearest intrinsics in the plain
 //    PyTorch version's order of operations, so nothing is contracted into
 //    FMAs behind its back.
@@ -70,7 +89,8 @@
 #include <algorithm>
 #include <atomic>
 #include <cstddef>
-#include <type_traits>
+
+#include "ptx.cuh"
 
 namespace {
 
@@ -114,6 +134,98 @@ __host__ __device__ inline int lane_stride(int tile, int group) {
   return tile + ((lanes_per_warp - tile) % 32 + 32) % 32;
 }
 
+// The far layout's record of one lane and stage: v, g (under a state box),
+// z, y, d, padded to whole 16-byte pieces.
+__host__ __device__ inline int record_floats(int nx, int nu, bool state_box) {
+  return ((state_box ? 2 : 1) * nx + 3 * nu + 3) / 4 * 4;
+}
+
+// The far layout's ring of a lane group in shared memory: ``depth`` records,
+// its stride an odd multiple of max(G, 4) floats (any multiple of 4 at G =
+// 32), so that the rings of a warp's groups start on banks as far apart as
+// 16-byte alignment allows.
+__host__ __device__ inline int ring_stride(int nx, int nu, bool state_box,
+                                           int depth, int group) {
+  const int n = depth * record_floats(nx, nu, state_box);
+  if (group >= 32 || n == 0) return n;
+  const int q = group < 4 ? 4 : group;
+  const int r = (n + q - 1) / q * q;
+  return (r / q) % 2 ? r : r + q;
+}
+
+// The far layout's deepest ring, in records (all but one in flight).
+constexpr int kMaxRing = 8;
+
+// Waits until at most ``n`` of this thread's cp.async groups are pending.
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: tinympc::cp_async_wait<0>(); break;
+    case 1: tinympc::cp_async_wait<1>(); break;
+    case 2: tinympc::cp_async_wait<2>(); break;
+    case 3: tinympc::cp_async_wait<3>(); break;
+    case 4: tinympc::cp_async_wait<4>(); break;
+    case 5: tinympc::cp_async_wait<5>(); break;
+    default: tinympc::cp_async_wait<6>(); break;
+  }
+}
+
+// The far layout's stream of one lane group's records.  A sweep (the
+// rollout over stages 0 .. N-1, the recursion over N-1 .. 0) runs them
+// through the group's ring of D slots: step i's record lies in slot i % D,
+// and steps i + 1 .. i + D - 1 are in flight while it computes.  The
+// group's threads copy a record in 16-byte cp.async pieces.  The stage's
+// results go from registers straight to the record (plain stores, which
+// nothing waits on), so a slot is free once its step has read it.  A sweep
+// starts after the group's __syncwarp, so it reads what the sweep before
+// it wrote.
+template <int kG>
+struct RecordStream {
+  static constexpr int kW = 32 / kG;  // lanes a warp
+  float* ring;  // the group's D slots of FP floats in shared memory
+  float* rec0;  // the lane slot's record of stage 0 in global memory
+  int FP, D, N, t;
+  unsigned mask;
+  int cur = 0;  // the ring slot of the sweep's step
+
+  // the records of lane slot ``slot`` in ``wsg``: [warp slot][stage][lane
+  // of the warp][record]
+  __device__ RecordStream(float* ring_, float* wsg, int slot, int FP_,
+                          int D_, int N_, int t_, unsigned mask_)
+      : ring(ring_),
+        rec0(wsg ? wsg + (static_cast<size_t>(slot / kW) * N_ * kW +
+                          slot % kW) * FP_
+                 : nullptr),
+        FP(FP_), D(D_), N(N_), t(t_), mask(mask_) {}
+
+  __device__ float* record(int k) const {
+    return rec0 + static_cast<size_t>(k) * kW * FP;
+  }
+  __device__ void fill(int i, int into, bool fwd) {
+    if (i < N) {
+      const float* src = record(fwd ? i : N - 1 - i);
+      float* dst = ring + into * FP;
+      for (int c = t; c < FP / 4; c += kG)
+        tinympc::cp_async16(dst + 4 * c, src + 4 * c);
+    }
+    tinympc::cp_async_commit();
+  }
+  __device__ void begin(bool fwd) {
+    __syncwarp(mask);
+    for (int i = 0; i < D - 1; ++i) fill(i, i, fwd);
+    cur = 0;
+  }
+  // waits for step i's record, puts step i + D - 1's in flight and returns
+  // step i's slot
+  __device__ float* step(int i, bool fwd) {
+    cp_async_wait_n(D - 2);
+    __syncwarp(mask);
+    fill(i + D - 1, cur == 0 ? D - 1 : cur - 1, fwd);
+    float* const slot = ring + cur * FP;
+    cur = cur + 1 == D ? 0 : cur + 1;
+    return slot;
+  }
+};
+
 struct Params {
   const float *A, *B, *f, *Qd, *Rd, *rho_ptr, *K, *Quu, *AmBKt, *Pinf;
   const float *xmin, *xmax, *umin, *umax, *Xref, *Uref, *x0;
@@ -122,9 +234,10 @@ struct Params {
   float* uout;      // (B, N-1, nu): the input slacks z
   int* iters;       // (B,)
   int* solved;      // (B,)
-  float* wsg;       // far layout: the workspace, (lane_floats, grid x tile)
+  float* wsg;       // far layout: the workspace, the grid's lane slots' records
   const float* stg;  // the per-stage terms in global memory (stage_global)
   int nx, nu, N, batch, max_iter, ct, en_input_bound;
+  int ring;  // far layout: records a lane group's ring holds
   int stage_global, mats_global;  // per-stage terms / matrices (wide
                                   // variant) in global memory
   float pri_tol, dua_tol;
@@ -194,7 +307,7 @@ __global__ void fused_stage_kernel(const Params p) {
   static_assert(kG == 1 || kG == 2 || kG == 4 || kG == 8 || kG == 16,
                 "a lane group is a power of two up to 16 threads");
   static_assert(kNx > 0 || !kRegs, "the generic variant reads shared memory");
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   constexpr int kCx = kNx > 0 ? kNx : kGenericDim;  // register capacities
   constexpr int kCu = kNu > 0 ? kNu : kGenericDim;
   constexpr int kRx = (kCx + kG - 1) / kG;      // rows a thread owns, at most
@@ -206,25 +319,27 @@ __global__ void fused_stage_kernel(const Params p) {
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int tile = nthreads / kG;
   const int lb = tid / kG, t = tid % kG;  // lane in the block, rank in group
-  int lane = blockIdx.x * tile + lb;  // the group's lane; see the queue below
+  const int slot = blockIdx.x * tile + lb;  // the group's lane slot
+  int lane = slot;  // the group's lane; see the queue below
   const unsigned mask = ((1u << kG) - 1u) << ((tid & 31) & ~(kG - 1));
-  // the workspace's row stride: a padded tile in shared memory, the grid's
-  // lane slots in global memory
-  using Idx = typename std::conditional<kFar, size_t, int>::type;
-  const Idx LS = kFar ? static_cast<Idx>(gridDim.x) * tile
-                      : static_cast<Idx>(lane_stride(tile, kG));
+  // the near layout's workspace row stride: a padded tile
+  const int LS = lane_stride(tile, kG);
+  // the far layout's ring of each lane group leads the shared memory
+  const int RS = kFar ? ring_stride(nx, nu, !kStateFree, p.ring, kG) : 0;
+  float* const ring = smem + lb * RS;
+  float* const sbase = smem + tile * RS;
 
   // -- prologue: the block's per-stage terms (and the generic variant's
   // matrices) from the caller's tensors, or the wrapper's per-stage terms
   // in global memory
   const bool stage_far = kFar && p.stage_global;
-  float* const qref = stage_far ? const_cast<float*>(p.stg) : smem;
+  float* const qref = stage_far ? const_cast<float*>(p.stg) : sbase;
   float* const rref = qref + sx;
   float* const umin = rref + su;
   float* const umax = umin + su;
   float* const xmin = umax + su;
   float* const xmax = xmin + (kStateFree ? 0 : sx);
-  float* const mats = stage_far ? smem : xmax + (kStateFree ? 0 : sx);
+  float* const mats = stage_far ? sbase : xmax + (kStateFree ? 0 : sx);
   float* const ws = mats + (kRegs ? 0 : matrix_floats(nx, nu));
   const int lx = odd_stride(nx), lu = odd_stride(nu);
   float* const wA = mats;          // [nx][lx]
@@ -327,13 +442,36 @@ __global__ void fused_stage_kernel(const Params p) {
     }
   }
 
-  // this group's workspace: row r of an array at [r * LS]
-  float* __restrict__ const v =
-      kFar ? p.wsg + static_cast<size_t>(blockIdx.x) * tile + lb : ws + lb;
-  float* __restrict__ const g = v + sx * LS;  // unused when kStateFree
-  float* __restrict__ const z = (kStateFree ? v : g) + sx * LS;
-  float* __restrict__ const y = z + su * LS;
-  float* __restrict__ const d = y + su * LS;
+  // This group's workspace.  Near: row r of an array at [r * LS] of the
+  // lane's column in shared memory, read and written in place.  Far: the
+  // lane's records in global memory, [warp slot][stage][lane of the warp]
+  // [v, g, z, y, d], read through the group's ring (v .. d point into the
+  // ring slot of the stage) and written straight to the record (vw .. dw).
+  const int xr = (kStateFree ? 1 : 2) * nx;  // a record's state rows
+  float* __restrict__ v = kFar ? ring : ws + lb;
+  float* __restrict__ g = v + (kFar ? nx : sx * LS);  // unused when kStateFree
+  float* __restrict__ z = v + (kFar ? xr : (kStateFree ? 1 : 2) * sx * LS);
+  float* __restrict__ y = z + (kFar ? nu : su * LS);
+  float* __restrict__ d = y + (kFar ? nu : su * LS);
+  float *vw = nullptr, *gw = nullptr, *zw = nullptr, *yw = nullptr,
+        *dw = nullptr;
+  RecordStream<kG> rs(ring, p.wsg, slot, record_floats(nx, nu, !kStateFree),
+                      p.ring, N, t, mask);
+  // a far sweep's step i: v .. d at its slot, vw .. dw at its record
+  auto sweep_step = [&](int i, bool fwd) {
+    v = rs.step(i, fwd);
+    g = v + nx;
+    z = v + xr;
+    y = z + nu;
+    d = y + nu;
+    vw = rs.record(fwd ? i : N - 1 - i);
+    gw = vw + nx;
+    zw = vw + xr;
+    yw = zw + nu;
+    dw = yw + nu;
+  };
+  // a result's store: in place (near) or to the record (far)
+#define K3_PUT(A, r, val) (kFar ? A##w : A)[r] = (val)
 
   // a fresh solve of ``lane``: its x0 (this thread's rows, and all of it),
   // the workspace zeroed
@@ -345,12 +483,18 @@ __global__ void fused_stage_kernel(const Params p) {
 #pragma unroll
     for (int s = 0; s < kRx; ++s) x0o[s] = xrow(s) < nx ? x0[xrow(s)] : 0.0f;
     for (int k = 0; k < N; ++k) {
+      float* const rk = kFar ? rs.record(k) : nullptr;
 #pragma unroll
       for (int s = 0; s < kRx; ++s) {
         const int j = xrow(s);
         if (j < nx) {
-          v[(k * nx + j) * LS] = 0.0f;
-          if (!kStateFree) g[(k * nx + j) * LS] = 0.0f;
+          if constexpr (kFar) {
+            rk[j] = 0.0f;
+            if (!kStateFree) rk[nx + j] = 0.0f;
+          } else {
+            v[(k * nx + j) * LS] = 0.0f;
+            if (!kStateFree) g[(k * nx + j) * LS] = 0.0f;
+          }
         }
       }
       if (k == N - 1) break;
@@ -358,9 +502,15 @@ __global__ void fused_stage_kernel(const Params p) {
       for (int s = 0; s < kRu; ++s) {
         const int a = urow(s);
         if (a < nu) {
-          z[(k * nu + a) * LS] = 0.0f;
-          y[(k * nu + a) * LS] = 0.0f;
-          d[(k * nu + a) * LS] = 0.0f;
+          if constexpr (kFar) {
+            rk[xr + a] = 0.0f;
+            rk[xr + nu + a] = 0.0f;
+            rk[xr + 2 * nu + a] = 0.0f;
+          } else {
+            z[(k * nu + a) * LS] = 0.0f;
+            y[(k * nu + a) * LS] = 0.0f;
+            d[(k * nu + a) * LS] = 0.0f;
+          }
         }
       }
     }
@@ -374,16 +524,19 @@ __global__ void fused_stage_kernel(const Params p) {
     float* const xl = p.xout + static_cast<size_t>(lane) * sx;
     float* const ul = p.uout + static_cast<size_t>(lane) * su;
     for (int k = 0; k < N; ++k) {
+      const float* const rk = kFar ? rs.record(k) : nullptr;
 #pragma unroll
       for (int s = 0; s < kRx; ++s) {
         const int j = xrow(s);
-        if (j < nx) xl[k * nx + j] = v[(k * nx + j) * LS];
+        if (j < nx)
+          xl[k * nx + j] = kFar ? rk[j] : v[(k * nx + j) * LS];
       }
       if (k == N - 1) break;
 #pragma unroll
       for (int s = 0; s < kRu; ++s) {
         const int a = urow(s);
-        if (a < nu) ul[k * nu + a] = z[(k * nu + a) * LS];
+        if (a < nu)
+          ul[k * nu + a] = kFar ? rk[xr + a] : z[(k * nu + a) * LS];
       }
     }
     if (t == 0) {
@@ -434,24 +587,26 @@ __global__ void fused_stage_kernel(const Params p) {
 
     // Forward rollout; the slack, dual and residual updates of a stage run
     // as soon as its x_k (and u_k) exist.
+    if constexpr (kFar) rs.begin(true);
     for (int k = 0; k < N; ++k) {
+      if constexpr (kFar) sweep_step(k, true);
       // state side of stage k: vn = clip(x + g), g += x - vn (kStateFree:
       // no bound, vn = x)
 #pragma unroll
       for (int s = 0; s < kRx; ++s) {
         const int j = xrow(s);
         if (j < nx) {
-          const Idx r = (k * nx + j) * LS;
+          const int r = kFar ? j : (k * nx + j) * LS;
           float vn = xo[s];
           if (!kStateFree) {
             const float gj = g[r];
             vn = __fadd_rn(xo[s], gj);
             vn = fminf(xmax[k * nx + j], fmaxf(xmin[k * nx + j], vn));
-            g[r] = __fsub_rn(__fadd_rn(gj, xo[s]), vn);
+            K3_PUT(g, r, __fsub_rn(__fadd_rn(gj, xo[s]), vn));
             ps = fmaxf(ps, fabsf(__fsub_rn(xo[s], vn)));
           }
           ds = fmaxf(ds, fabsf(__fsub_rn(v[r], vn)));
-          v[r] = vn;
+          K3_PUT(v, r, vn);
         }
       }
       if (k == N - 1) break;
@@ -470,17 +625,17 @@ __global__ void fused_stage_kernel(const Params p) {
         const int a = urow(s);
         uo[s] = 0.0f;
         if (a < nu) {
-          const Idx r = (k * nu + a) * LS;
+          const int r = kFar ? a : (k * nu + a) * LS;
           const float tk = dot(K3_COEF(K, sK, lx, s, a), xf, nx);
           uo[s] = __fsub_rn(-tk, d[r]);
           const float ya = y[r];
           float zn = __fadd_rn(uo[s], ya);
           if (p.en_input_bound)
             zn = fminf(umax[k * nu + a], fmaxf(umin[k * nu + a], zn));
-          y[r] = __fsub_rn(__fadd_rn(ya, uo[s]), zn);
+          K3_PUT(y, r, __fsub_rn(__fadd_rn(ya, uo[s]), zn));
           pi = fmaxf(pi, fabsf(__fsub_rn(uo[s], zn)));
           di = fmaxf(di, fabsf(__fsub_rn(z[r], zn)));
-          z[r] = zn;
+          K3_PUT(z, r, zn);
         }
       }
       gather<kG>(mask, uo, uf, nu, nx);
@@ -515,19 +670,24 @@ __global__ void fused_stage_kernel(const Params p) {
     }
 
     // Backward recursion; q_k, r_k recomputed from the slacks and duals.
+    if constexpr (kFar) {
+      rs.begin(false);
+      sweep_step(0, false);
+    }
     float po[kRx], pf[kCx];
 #pragma unroll
     for (int s = 0; s < kRx; ++s) {
       const int j = xrow(s);
       po[s] = 0.0f;
       if (j < nx) {
-        const Idx r = ((N - 1) * nx + j) * LS;
+        const int r = kFar ? j : ((N - 1) * nx + j) * LS;
         const float w = kStateFree ? v[r] : __fsub_rn(v[r], g[r]);
         po[s] = __fsub_rn(pNo[s], __fmul_rn(rho, w));
       }
     }
     gather<kG>(mask, po, pf, nx, 0);
     for (int k = N - 2; k >= 0; --k) {
+      if constexpr (kFar) sweep_step(N - 1 - k, false);
       // AmBKt p_{k+1} first: it does not wait for r_k
       float ap[kRx];
 #pragma unroll
@@ -542,7 +702,7 @@ __global__ void fused_stage_kernel(const Params p) {
         const int a = urow(s);
         ro[s] = so[s] = 0.0f;
         if (a < nu) {
-          const Idx r = (k * nu + a) * LS;
+          const int r = kFar ? a : (k * nu + a) * LS;
           ro[s] = __fsub_rn(rref[k * nu + a],
                             __fmul_rn(rho, __fsub_rn(z[r], y[r])));
           so[s] = __fadd_rn(dot(K3_COEF(Bt, sBt, lx, s, a), pf, nx), ro[s]);
@@ -556,7 +716,8 @@ __global__ void fused_stage_kernel(const Params p) {
       for (int s = 0; s < kRu; ++s) {
         const int a = urow(s);
         if (a < nu)
-          d[(k * nu + a) * LS] = dot(K3_COEF(Q, sQ, lu, s, a), sf, nu);
+          K3_PUT(d, kFar ? a : (k * nu + a) * LS,
+                 dot(K3_COEF(Q, sQ, lu, s, a), sf, nu));
       }
 
       // p_k = q_k + AmBKt p_{k+1} - K' r_k, q_k = qref - rho (v - g)
@@ -566,7 +727,7 @@ __global__ void fused_stage_kernel(const Params p) {
         po[s] = 0.0f;
         if (j < nx) {
           const float kr = dot(K3_COEF(Kt, sKt, lu, s, j), rf, nu);
-          const Idx r = (k * nx + j) * LS;
+          const int r = kFar ? j : (k * nx + j) * LS;
           const float w = kStateFree ? v[r] : __fsub_rn(v[r], g[r]);
           const float q = __fsub_rn(qref[k * nx + j], __fmul_rn(rho, w));
           po[s] = __fsub_rn(__fadd_rn(q, ap[s]), kr);
@@ -577,6 +738,7 @@ __global__ void fused_stage_kernel(const Params p) {
     ++i;
   }
 #undef K3_COEF
+#undef K3_PUT
 
   // the last block out resets its queue for the next launch
   __syncthreads();
@@ -612,22 +774,25 @@ template <int kG, bool kStateFree>
 __global__ void fused_stage_wide_kernel(const Params p) {
   static_assert(kG == 8 || kG == 16 || kG == 32,
                 "a wide lane group is 8, 16 or 32 threads");
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int nx = p.nx, nu = p.nu, N = p.N, B = p.batch;
   const int sx = N * nx, su = (N - 1) * nu;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int tile = nthreads / kG;
   const int lb = tid / kG, t = tid % kG;
-  int lane = blockIdx.x * tile + lb;
+  const int slot = blockIdx.x * tile + lb;  // the group's lane slot
+  int lane = slot;
   const unsigned mask =
       kG == 32 ? 0xffffffffu
                : ((1u << (kG & 31)) - 1u) << ((tid & 31) & ~(kG - 1));
   const bool far = p.wsg != nullptr;
-  const size_t LS = far ? static_cast<size_t>(gridDim.x) * tile
-                        : static_cast<size_t>(lane_stride(tile, kG));
+  const int LS = lane_stride(tile, kG);  // the near layout's row stride
+  // the far layout's ring of each lane group leads the shared memory
+  const int RS = far ? ring_stride(nx, nu, !kStateFree, p.ring, kG) : 0;
+  float* const ring = smem + lb * RS;
 
   // -- prologue: the per-stage terms, the matrices, the lanes' vectors
-  float* sp = smem;
+  float* sp = smem + tile * RS;
   float* const qref = p.stage_global ? const_cast<float*>(p.stg) : sp;
   float* const rref = qref + sx;
   float* const umin = rref + su;
@@ -707,25 +872,66 @@ __global__ void fused_stage_wide_kernel(const Params p) {
     return acc;
   };
 
-  // this group's workspace: row r of an array at [r * LS]
-  float* __restrict__ const v =
-      far ? p.wsg + static_cast<size_t>(blockIdx.x) * tile + lb : sp + lb;
-  float* __restrict__ const g = v + sx * LS;  // unused when kStateFree
-  float* __restrict__ const z = (kStateFree ? v : g) + sx * LS;
-  float* __restrict__ const y = z + su * LS;
-  float* __restrict__ const d = y + su * LS;
+  // this group's workspace, as in fused_stage_kernel: near, row r of an
+  // array at [r * LS] in shared memory, read and written in place; far, the
+  // lane's records in global memory read through the ring (v .. d) and
+  // written straight back (vw .. dw)
+  const int xr = (kStateFree ? 1 : 2) * nx;
+  float* __restrict__ v = far ? ring : sp + lb;
+  float* __restrict__ g = v + (far ? nx : sx * LS);  // unused when kStateFree
+  float* __restrict__ z = v + (far ? xr : (kStateFree ? 1 : 2) * sx * LS);
+  float* __restrict__ y = z + (far ? nu : su * LS);
+  float* __restrict__ d = y + (far ? nu : su * LS);
+  float *vw = nullptr, *gw = nullptr, *zw = nullptr, *yw = nullptr,
+        *dw = nullptr;
+  // the far layout's records, as in fused_stage_kernel
+  RecordStream<kG> rs(ring, p.wsg, slot, record_floats(nx, nu, !kStateFree),
+                      p.ring, N, t, mask);
+  // a far sweep's step i: v .. d at its slot, vw .. dw at its record
+  auto sweep_step = [&](int i, bool fwd) {
+    v = rs.step(i, fwd);
+    g = v + nx;
+    z = v + xr;
+    y = z + nu;
+    d = y + nu;
+    vw = rs.record(fwd ? i : N - 1 - i);
+    gw = vw + nx;
+    zw = vw + xr;
+    yw = zw + nu;
+    dw = yw + nu;
+  };
+  // a result's store: in place (near) or to the record (far)
+#define K3W_PUT(A, r, val) \
+  do {                     \
+    if (far)               \
+      A##w[r] = (val);     \
+    else                   \
+      A[r] = (val);        \
+  } while (0)
 
   auto start_lane = [&]() {
     for (int k = 0; k < N; ++k) {
+      float* const rk = far ? rs.record(k) : nullptr;
       for (int j = t; j < nx; j += kG) {
-        v[(k * nx + j) * LS] = 0.0f;
-        if (!kStateFree) g[(k * nx + j) * LS] = 0.0f;
+        if (far) {
+          rk[j] = 0.0f;
+          if (!kStateFree) rk[nx + j] = 0.0f;
+        } else {
+          v[(k * nx + j) * LS] = 0.0f;
+          if (!kStateFree) g[(k * nx + j) * LS] = 0.0f;
+        }
       }
       if (k == N - 1) break;
       for (int a = a0; a < nu; a += kG) {
-        z[(k * nu + a) * LS] = 0.0f;
-        y[(k * nu + a) * LS] = 0.0f;
-        d[(k * nu + a) * LS] = 0.0f;
+        if (far) {
+          rk[xr + a] = 0.0f;
+          rk[xr + nu + a] = 0.0f;
+          rk[xr + 2 * nu + a] = 0.0f;
+        } else {
+          z[(k * nu + a) * LS] = 0.0f;
+          y[(k * nu + a) * LS] = 0.0f;
+          d[(k * nu + a) * LS] = 0.0f;
+        }
       }
     }
   };
@@ -733,9 +939,12 @@ __global__ void fused_stage_wide_kernel(const Params p) {
     float* const xl = p.xout + static_cast<size_t>(lane) * sx;
     float* const ul = p.uout + static_cast<size_t>(lane) * su;
     for (int k = 0; k < N; ++k) {
-      for (int j = t; j < nx; j += kG) xl[k * nx + j] = v[(k * nx + j) * LS];
+      const float* const rk = far ? rs.record(k) : nullptr;
+      for (int j = t; j < nx; j += kG)
+        xl[k * nx + j] = far ? rk[j] : v[(k * nx + j) * LS];
       if (k == N - 1) break;
-      for (int a = a0; a < nu; a += kG) ul[k * nu + a] = z[(k * nu + a) * LS];
+      for (int a = a0; a < nu; a += kG)
+        ul[k * nu + a] = far ? rk[xr + a] : z[(k * nu + a) * LS];
     }
     if (t == 0) {
       p.iters[lane] = n_iter;
@@ -767,36 +976,38 @@ __global__ void fused_stage_wide_kernel(const Params p) {
 
     // Forward rollout; the slack, dual and residual updates of a stage run
     // as soon as its x_k (and u_k) exist.
+    if (far) rs.begin(true);
     for (int k = 0; k < N; ++k) {
+      if (far) sweep_step(k, true);
       for (int j = t; j < nx; j += kG) {
-        const size_t r = (k * nx + j) * LS;
+        const int r = far ? j : (k * nx + j) * LS;
         const float xo = xf[j];
         float vn = xo;
         if (!kStateFree) {
           const float gj = g[r];
           vn = __fadd_rn(xo, gj);
           vn = fminf(xmax[k * nx + j], fmaxf(xmin[k * nx + j], vn));
-          g[r] = __fsub_rn(__fadd_rn(gj, xo), vn);
+          K3W_PUT(g, r, __fsub_rn(__fadd_rn(gj, xo), vn));
           ps = fmaxf(ps, fabsf(__fsub_rn(xo, vn)));
         }
         ds = fmaxf(ds, fabsf(__fsub_rn(v[r], vn)));
-        v[r] = vn;
+        K3W_PUT(v, r, vn);
       }
       if (k == N - 1) break;
       for (int j = t; j < nx; j += kG) ax[j] = dot(mA, j, xf, nx);
       // u_k = -K x_k - d_k; input side: zn = clip(u + y), y += u - zn
       for (int a = a0; a < nu; a += kG) {
-        const size_t r = (k * nu + a) * LS;
+        const int r = far ? a : (k * nu + a) * LS;
         const float tk = dot(mK, a, xf, nx);
         const float uo = __fsub_rn(-tk, d[r]);
         const float ya = y[r];
         float zn = __fadd_rn(uo, ya);
         if (p.en_input_bound)
           zn = fminf(umax[k * nu + a], fmaxf(umin[k * nu + a], zn));
-        y[r] = __fsub_rn(__fadd_rn(ya, uo), zn);
+        K3W_PUT(y, r, __fsub_rn(__fadd_rn(ya, uo), zn));
         pi = fmaxf(pi, fabsf(__fsub_rn(uo, zn)));
         di = fmaxf(di, fabsf(__fsub_rn(z[r], zn)));
-        z[r] = zn;
+        K3W_PUT(z, r, zn);
         uf[a] = uo;
       }
       __syncwarp(mask);  // u_k whole; every read of x_k done
@@ -822,20 +1033,25 @@ __global__ void fused_stage_wide_kernel(const Params p) {
     }
 
     // Backward recursion; q_k, r_k recomputed from the slacks and duals.
+    if (far) {
+      rs.begin(false);
+      sweep_step(0, false);
+    }
     for (int j = t; j < nx; j += kG) {
       float acc = 0.0f;  // -(Pinf' Xref[N-1]) row j, in index order
       for (int e = 0; e < nx; ++e)
         acc = fmaf(p.Pinf[e * nx + j], p.Xref[(N - 1) * nx + e], acc);
-      const size_t r = ((N - 1) * nx + j) * LS;
+      const int r = far ? j : ((N - 1) * nx + j) * LS;
       const float w = kStateFree ? v[r] : __fsub_rn(v[r], g[r]);
       pf[j] = __fsub_rn(-acc, __fmul_rn(rho, w));
     }
     __syncwarp(mask);
     for (int k = N - 2; k >= 0; --k) {
+      if (far) sweep_step(N - 1 - k, false);
       for (int j = t; j < nx; j += kG) ax[j] = dot(mAm, j, pf, nx);
       // r_k = rref - rho (z - y); s_k = B' p_{k+1} + r_k
       for (int a = a0; a < nu; a += kG) {
-        const size_t r = (k * nu + a) * LS;
+        const int r = far ? a : (k * nu + a) * LS;
         const float ro = __fsub_rn(rref[k * nu + a],
                                    __fmul_rn(rho, __fsub_rn(z[r], y[r])));
         sf[a] = __fadd_rn(dot(mBt, a, pf, nx), ro);
@@ -844,11 +1060,11 @@ __global__ void fused_stage_wide_kernel(const Params p) {
       __syncwarp(mask);  // s_k, r_k whole; every read of p_{k+1} done
       // d_k = Quu s_k
       for (int a = a0; a < nu; a += kG)
-        d[(k * nu + a) * LS] = dot(mQ, a, sf, nu);
+        K3W_PUT(d, far ? a : (k * nu + a) * LS, dot(mQ, a, sf, nu));
       // p_k = q_k + AmBKt p_{k+1} - K' r_k, q_k = qref - rho (v - g)
       for (int j = t; j < nx; j += kG) {
         const float kr = dot(mKt, j, rf, nu);
-        const size_t r = (k * nx + j) * LS;
+        const int r = far ? j : (k * nx + j) * LS;
         const float w = kStateFree ? v[r] : __fsub_rn(v[r], g[r]);
         const float q = __fsub_rn(qref[k * nx + j], __fmul_rn(rho, w));
         pf[j] = __fsub_rn(__fadd_rn(q, ax[j]), kr);
@@ -857,6 +1073,7 @@ __global__ void fused_stage_wide_kernel(const Params p) {
     }
     ++i;
   }
+#undef K3W_PUT
 
   __syncthreads();
   if (tid == 0) {
@@ -916,14 +1133,20 @@ KernelFn pick_kernel(int nx, int nu, int group, bool regs, bool state_free,
   return nullptr;
 }
 
-// The layout's shared memory: the per-stage terms (unless in global
-// memory), the matrices (the generic and wide variants, unless in global
-// memory), the wide variant's lane vectors, the workspace (unless far).
+// The layout's shared memory: the far layout's rings, the per-stage terms
+// (unless in global memory), the matrices (the generic and wide variants,
+// unless in global memory), the wide variant's lane vectors, the workspace
+// (unless far).
 size_t smem_need(int nx, int nu, int N, bool state_box, bool regs, int tile,
-                 int group, bool far, bool stage_global, bool mats_global) {
+                 int group, bool far, int ring, bool stage_global,
+                 bool mats_global) {
   const bool wide = wide_shape(nx, nu);
   return sizeof(float) *
-         ((stage_global ? 0
+         ((far ? static_cast<size_t>(
+                     ring_stride(nx, nu, state_box, ring, group)) *
+                     tile
+               : 0) +
+          (stage_global ? 0
                         : static_cast<size_t>(
                               stage_floats(nx, nu, N, state_box))) +
           (regs || mats_global ? 0 : matrix_floats(nx, nu)) +
@@ -949,24 +1172,28 @@ extern "C" int tinympc_fused_stage(
     int nx, int nu, int N, int Bsz,
     int max_iter, int ct, float pri_tol, float dua_tol, int en_input_bound,
     int en_state_bound, int group, int regs, int tile, int smem_bytes,
-    int ws_global, int ws_slots, int stage_global, int mats_global,
+    int ws_global, int ws_slots, int ring, int stage_global, int mats_global,
     void* stream) {
-  // ws_global: the workspace in wsg, (lane_floats, ws_slots) floats, the
-  // grid held to ws_slots / tile blocks; stage_global: the per-stage terms
-  // in stg (qref, rref, u_min, u_max[, x_min, x_max] as the kernel lays them
-  // out in shared memory); mats_global: the wide variant reads the matrices
-  // from the caller's tensors.
+  // ws_global: the workspace in wsg, N x record_floats floats for each of
+  // ws_slots lane slots ([warp slot][stage][lane of the warp][record]), the
+  // grid held to ws_slots / tile blocks, each lane group's ring ``ring``
+  // records deep; stage_global: the per-stage terms in stg (qref, rref,
+  // u_min, u_max[, x_min, x_max] as the kernel lays them out in shared
+  // memory); mats_global: the wide variant reads the matrices from the
+  // caller's tensors.
   const bool far = ws_global != 0;
   if (nx < 1 || nu < 1 || N < 2 || Bsz < 1 || max_iter < 0 || ct < 1 ||
       !valid_group(group) || tile < 1 || tile * group > 1024 ||
-      smem_bytes < 0 || (far && (!wsg || ws_slots < tile)) ||
+      smem_bytes < 0 ||
+      (far && (!wsg || ws_slots < tile || ws_slots % tile != 0 ||
+               (tile * group) % 32 != 0 || ring < 2 || ring > kMaxRing)) ||
       (stage_global && (!far || !stg)) ||
       (mats_global && !wide_shape(nx, nu)))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool state_free = !en_state_bound;
   // the caller owns the layout; refuse one the kernel would overrun
   if (static_cast<size_t>(smem_bytes) <
-      smem_need(nx, nu, N, !state_free, regs != 0, tile, group, far,
+      smem_need(nx, nu, N, !state_free, regs != 0, tile, group, far, ring,
                 stage_global != 0, mats_global != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const KernelFn kernel =
@@ -982,7 +1209,7 @@ extern "C" int tinympc_fused_stage(
   p.wsg = far ? wsg : nullptr; p.stg = stg;
   p.stage_global = stage_global; p.mats_global = mats_global;
   p.nx = nx; p.nu = nu; p.N = N; p.batch = Bsz; p.max_iter = max_iter;
-  p.ct = ct; p.en_input_bound = en_input_bound;
+  p.ct = ct; p.en_input_bound = en_input_bound; p.ring = far ? ring : 0;
   p.pri_tol = pri_tol; p.dua_tol = dua_tol;
 
   static std::atomic<unsigned> launches{0};

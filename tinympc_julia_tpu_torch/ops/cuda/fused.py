@@ -43,6 +43,19 @@ from ._build import load_library
 SMEM_PER_BLOCK = 232448
 GENERIC_DIM = 16
 MAX_THREADS = 128
+# What an H100 SM holds, for the far layout's estimate of its blocks an SM
+# off the card: shared memory (bytes, and what the runtime reserves a
+# block), threads, registers, blocks; and the registers a thread of a far
+# instance may take (ptxas: 216-248).
+SMEM_PER_SM = 233472
+SMEM_RESERVED = 1024
+THREADS_PER_SM = 2048
+REGISTERS_PER_SM = 65536
+BLOCKS_PER_SM = 32
+FAR_REGISTERS = 255
+# The far layout's ring: records of a lane a group keeps in shared memory
+# (csrc/fused_stage.cu kMaxRing), one fewer in flight.
+MIN_RING, MAX_RING = 2, 8
 
 # The variants csrc/fused_stage.cu builds (its K3_VARIANTS): (nx, nu) ->
 # (lane group, the matrices' rows in registers); any other shape up to
@@ -65,6 +78,8 @@ class StagePlan(NamedTuple):
     stage_global: bool = False      # ... and the per-stage terms
     matrices_global: bool = False   # the wide variant's matrices read from
                                     # the caller's tensors
+    ring: int = 0                   # the far layout's records a lane group
+                                    # keeps in shared memory
 
 
 def reference_terms(Qd, Rd, Pinf, Xref, Uref):
@@ -108,6 +123,37 @@ def lane_group(nx: int, nu: int) -> tuple:
                 WIDE_GROUPS[-1]), False
 
 
+def record_floats(nx: int, nu: int, en_state_bound: bool) -> int:
+    """The far layout's record of a lane and stage: v, g (under a state
+    bound), z, y, d, padded to whole 16-byte pieces.  The workspace holds
+    ``N`` records for each lane slot, laid out [warp slot][stage][lane of
+    the warp][record]."""
+    return -(-((2 if en_state_bound else 1) * nx + 3 * nu) // 4) * 4
+
+
+def ring_stride(nx: int, nu: int, en_state_bound: bool, depth: int,
+                group: int) -> int:
+    """The far layout's ring of a lane group in shared memory: ``depth``
+    records, padded to an odd multiple of max(group, 4) floats (a multiple
+    of 4 at group 32), so that the rings of a warp's groups start on banks
+    as far apart as 16-byte alignment allows."""
+    n = depth * record_floats(nx, nu, en_state_bound)
+    if group >= 32 or n == 0:
+        return n
+    q = max(group, 4)
+    r = -(-n // q) * q
+    return r if (r // q) % 2 else r + q
+
+
+def estimated_blocks(plan: "StagePlan") -> int:
+    """Blocks of ``plan`` an H100 SM holds, off the card: its shared
+    memory, its threads and FAR_REGISTERS registers a thread."""
+    return min(SMEM_PER_SM // (plan.smem + SMEM_RESERVED),
+               THREADS_PER_SM // plan.threads,
+               REGISTERS_PER_SM // (plan.threads * FAR_REGISTERS),
+               BLOCKS_PER_SM)
+
+
 def lane_stride(tile: int, group: int) -> int:
     """The workspace's lane stride: ``tile`` rounded up to be = 32 / group
     (mod 32), so that a warp's threads, each on its own row, fall on 32
@@ -116,18 +162,24 @@ def lane_stride(tile: int, group: int) -> int:
 
 
 def fused_stage_plan(nx: int, nu: int, N: int, en_state_bound: bool,
-                     batch: int, sm_count: int) -> StagePlan:
+                     batch: int, sm_count: int, *, far: bool = False,
+                     resident=estimated_blocks) -> StagePlan:
     """The launch layout of kernel K3.
 
     The lane group and where the matrices live come from ``lane_group``.
     The tile is ``MAX_THREADS / group`` lanes, halved while two blocks do
     not fit an SM's shared memory and while the grid would leave SMs
     without a block, but never below one warp of threads.  Where a warp of
-    lanes' workspace does not fit in shared memory (a long horizon), the
-    far layout: the workspace in global memory, then (the wide variant) the
-    matrices and the per-stage terms too while the rest does not fit.  It
-    raises only where one lane's stage vectors alone exceed a block's
-    shared memory (nx + nu above 19,370)."""
+    lanes' workspace does not fit in shared memory (a long horizon), or
+    with ``far``, the far layout: the workspace in global memory, streamed
+    through a ring of each lane group's next records in shared memory, then
+    (the wide variant) the matrices and the per-stage terms in global
+    memory too while the rest does not fit beside the shallowest ring.  The
+    ring is the deepest up to MAX_RING records that keeps the blocks an SM
+    (``resident(plan)``: off the card ``estimated_blocks``, at a launch the
+    occupancy API) of the plan without one.  It raises only where one
+    lane's stage vectors alone exceed a block's shared memory (nx + nu
+    above 19,370)."""
     group, registers = lane_group(nx, nu)
     wide = max(nx, nu) > GENERIC_DIM
     stage = stage_floats(nx, nu, N, en_state_bound)
@@ -135,30 +187,42 @@ def fused_stage_plan(nx: int, nu: int, N: int, en_state_bound: bool,
     vec = vec_floats(nx, nu) if wide else 0
     per_lane = lane_floats(nx, nu, N, en_state_bound)
 
-    def smem(tile, far=False, sg=False, mg=False):
+    def smem(tile, far=False, sg=False, mg=False, ring=0):
+        ws = (ring_stride(nx, nu, en_state_bound, ring, group) * tile if far
+              else per_lane * lane_stride(tile, group))
         return 4 * ((0 if sg else stage) + (0 if mg else mats) + vec * tile
-                    + (0 if far else per_lane * lane_stride(tile, group)))
+                    + ws)
 
     warp = 32 // group
     tile = max(MAX_THREADS // group, warp)
     while tile > warp and 2 * smem(tile) > SMEM_PER_BLOCK:
         tile //= 2
-    far = sg = mg = False
-    if smem(tile) > SMEM_PER_BLOCK:
+    sg = mg = False
+    if far or smem(tile) > SMEM_PER_BLOCK:
         far = True
         tile = max(MAX_THREADS // group, warp)
-        mg = wide and smem(tile, far) > SMEM_PER_BLOCK
-        sg = smem(tile, far, False, mg) > SMEM_PER_BLOCK
-        while tile > warp and smem(tile, far, sg, mg) > SMEM_PER_BLOCK:
+        mg = wide and smem(tile, far, ring=MIN_RING) > SMEM_PER_BLOCK
+        sg = smem(tile, far, False, mg, MIN_RING) > SMEM_PER_BLOCK
+        while tile > warp and smem(tile, far, sg, mg, MIN_RING) \
+                > SMEM_PER_BLOCK:
             tile //= 2
-        if smem(tile, far, sg, mg) > SMEM_PER_BLOCK:
+        if smem(tile, far, sg, mg, MIN_RING) > SMEM_PER_BLOCK:
             raise ValueError(f"fused per-stage kernel: nx={nx}, nu={nu} "
                              "leave no room for one lane's stage vectors in "
                              "shared memory")
     while tile > warp and -(-batch // tile) < sm_count:
         tile //= 2
-    return StagePlan(group, tile, tile * group, smem(tile, far, sg, mg),
+    plan = StagePlan(group, tile, tile * group, smem(tile, far, sg, mg),
                      registers, far, sg, mg)
+    if not far:
+        return plan
+    blocks = resident(plan)
+    for ring in range(MAX_RING, MIN_RING, -1):
+        deep = plan._replace(smem=smem(tile, far, sg, mg, ring), ring=ring)
+        if deep.smem <= SMEM_PER_BLOCK and resident(deep) >= blocks:
+            return deep
+    return plan._replace(smem=smem(tile, far, sg, mg, MIN_RING),
+                         ring=MIN_RING)
 
 
 def _validate(args, nx, nu, N):
@@ -288,7 +352,7 @@ _FLT = ctypes.c_float
 # the references, x0, the four outputs, the far layout's workspace and
 # per-stage terms, then the sizes, settings and layout
 _ARGTYPES = ([_PTR] * 6 + [_FLT] + [_PTR] * 17 + [_INT] * 6 + [_FLT] * 2
-             + [_INT] * 10 + [_PTR])
+             + [_INT] * 11 + [_PTR])
 _OCC_ARGTYPES = [_INT] * 8 + [ctypes.POINTER(_INT)] * 3
 
 
@@ -365,6 +429,17 @@ def _occupancy(plan: StagePlan, nx, nu, en_state_bound, device) -> int:
         return stage_occupancy(plan, nx, nu, en_state_bound)["blocks_per_sm"]
 
 
+def launch_plan(nx: int, nu: int, N: int, en_state_bound: bool, batch: int,
+                device, far: bool = False) -> StagePlan:
+    """The plan a launch on ``device`` takes: ``fused_stage_plan`` with the
+    far layout's ring weighed by the occupancy API."""
+    device = torch.device(device)
+    return fused_stage_plan(
+        nx, nu, N, en_state_bound, batch, _sm_count(device), far=far,
+        resident=lambda plan: _occupancy(plan, nx, nu, en_state_bound,
+                                         device))
+
+
 def fused_cuda(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min,
                x_max, u_min, u_max, Xref, Uref, x0s, *, nx, nu, N, max_iter,
                abs_pri_tol, abs_dua_tol, en_state_bound, en_input_bound,
@@ -377,10 +452,10 @@ def fused_cuda(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min,
     every launch in ``.launches``.
 
     The far layout (``StagePlan.workspace_global``) takes a global
-    workspace of ``lane_floats`` floats for each lane slot of the grid (as
-    many blocks as the SMs hold, from the occupancy query) and, with
-    ``stage_global``, the per-stage terms computed here in the kernel's
-    layout (the same float32 products as its prologue)."""
+    workspace of ``N`` records (``record_floats``) for each lane slot of
+    the grid (as many blocks as the SMs hold, from the occupancy query)
+    and, with ``stage_global``, the per-stage terms computed here in the
+    kernel's layout (the same float32 products as its prologue)."""
     args = (A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min, x_max,
             u_min, u_max, Xref, Uref, x0s)
     _check_cuda_inputs(_validate(args, nx, nu, N))
@@ -391,7 +466,7 @@ def fused_cuda(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min,
     if Bsz == 0:
         raise ValueError("empty batch")
     dev = x0s.device
-    plan = fused_stage_plan(nx, nu, N, en_state_bound, Bsz, _sm_count(dev))
+    plan = launch_plan(nx, nu, N, en_state_bound, Bsz, dev)
     xs = torch.empty((Bsz, N, nx), dtype=torch.float32, device=dev)
     us = torch.empty((Bsz, N - 1, nu), dtype=torch.float32, device=dev)
     iters = torch.empty((Bsz,), dtype=torch.int32, device=dev)
@@ -407,7 +482,7 @@ def fused_cuda(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min,
         tiles = min(-(-Bsz // plan.tile),
                     max(occ, 1) * _sm_count(dev))
         slots = tiles * plan.tile
-        wsg = torch.empty((lane_floats(nx, nu, N, en_state_bound), slots),
+        wsg = torch.empty((slots, N, record_floats(nx, nu, en_state_bound)),
                           dtype=torch.float32, device=dev)
     if plan.stage_global:
         terms = [-(Xref * Qd), -(Uref * Rd), u_min, u_max]
@@ -427,8 +502,8 @@ def fused_cuda(A, B, f, Qd, Rd, rho, Kinf, Quu_inv, AmBKt, Pinf, x_min,
             max_iter, check_termination, abs_pri_tol, abs_dua_tol,
             int(en_input_bound), int(en_state_bound), plan.group,
             int(plan.registers), plan.tile, plan.smem,
-            int(plan.workspace_global), slots, int(plan.stage_global),
-            int(plan.matrices_global), stream)
+            int(plan.workspace_global), slots, plan.ring,
+            int(plan.stage_global), int(plan.matrices_global), stream)
     if err != 0:
         raise RuntimeError(f"fused_stage kernel launch failed: CUDA error "
                            f"{err}")

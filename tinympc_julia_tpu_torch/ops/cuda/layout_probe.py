@@ -1,13 +1,15 @@
-"""Timing probes of kernels K1's and K2's wide-map layouts on one NVIDIA
-GPU (not run by the tests or by chip_smoke.py):
+"""Timing probes of kernels K1's and K2's wide-map layouts and of K3's far
+layout on one NVIDIA GPU (not run by the tests or by chip_smoke.py):
 
-    python -m tinympc_julia_tpu_torch.ops.cuda.layout_probe [wide|cluster]
+    python -m tinympc_julia_tpu_torch.ops.cuda.layout_probe [wide|cluster|far]
 
 ``wide`` times the layouts the plans take at the wide maps of
 chip_smoke.py's phases 34a, 34d and 35a, each beside its product
 yardstick; ``cluster`` times the cluster layouts against the layouts they
 replace at those shapes and at the switch's widths (ROADMAP R11), each
-held bit for bit against the plan's launch.  Both print only.
+held bit for bit against the plan's launch; ``far`` times K3's far layout
+at chip_smoke.py's phase 37b shapes beside its bounds, and against the near
+layout where both run.  All print only.
 ``product_yardstick`` is also chip_smoke.py's yardstick."""
 from __future__ import annotations
 
@@ -31,15 +33,20 @@ def event_ms(fn):
     return a.elapsed_time(b)
 
 
-def quad_problem(horizon, dev):
-    """The quadrotor at ``horizon`` (|u| <= 0.5) on ``dev`` in float32:
-    (problem, cache)."""
+def quad_problem(horizon, dev, x_bound=None):
+    """The quadrotor at ``horizon`` (|u| <= 0.5, and |x| <= ``x_bound``
+    where given) on ``dev`` in float32: (problem, cache)."""
     from tinympc_julia_tpu_torch import make_problem
     from tinympc_julia_tpu_torch.models import quadrotor
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    kw = {}
+    if x_bound is not None:
+        kw = dict(x_min=np.full((horizon, 12), -x_bound),
+                  x_max=np.full((horizon, 12), x_bound))
     p = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
                      np.diag(quadrotor.R_DIAG), quadrotor.RHO, horizon,
-                     u_min=-0.5, u_max=0.5, dtype=torch.float32, device=dev)
+                     u_min=-0.5, u_max=0.5, dtype=torch.float32, device=dev,
+                     **kw)
     return p, precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
 
 
@@ -268,14 +275,113 @@ def cluster_probe(reps=3):
                     12, 4, N_, 2, blocks=C)) for C in (2, 4) if N_ > 20])
 
 
+def slot_makespan(iters, slots):
+    """Iterations the busiest lane slot runs when ``slots`` slots take the
+    lanes in order, each next lane going to the slot that frees first (the
+    kernel's lane queue, every iteration of equal cost)."""
+    import heapq
+    its = [int(v) for v in iters.tolist()]
+    heap = its[:slots]
+    heapq.heapify(heap)
+    for v in its[slots:]:
+        heapq.heappush(heap, heapq.heappop(heap) + v)
+    return max(heap)
+
+
+def far_layout_probe(reps=3, N_far=300, B=16384, iters=100):
+    """K3's far layout (the workspace in global memory) at chip_smoke.py's
+    phase 37b shapes: each K3 instance's registers and spills (``-Xptxas
+    -v``, when this process builds the library), each plan with its blocks
+    and warps an SM (the occupancy API) and the grid's lane slots; the far
+    launch at the quadrotor's N = ``N_far`` (free and |x| <= 2, ``B`` lanes,
+    ``iters`` iterations, phase 37b's x0) timed alone (CUDA events, median
+    of ``reps`` after a warm-up) beside its FLOP bound (67 TFLOP/s), its
+    workspace-stream floor (each lane-iteration's ``lane_floats`` read once
+    and written once at 3.35 TB/s) and its busiest slot's iterations; and
+    at N = 173 with |x| <= 2 the near layout and the far one forced, timed
+    the same way and held bit for bit.  Returns {label: ms}."""
+    from unittest import mock
+    from tinympc_julia_tpu_torch.ops.cuda import fused as K3
+    from tinympc_julia_tpu_torch.ops.cuda._build import (load_library,
+                                                         ptxas_usage)
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    built = load_library("fused_stage")
+    for mangled, use in ptxas_usage(built.log).items():
+        print(f"far probe ptxas: {K3.variant_label(mangled)}: "
+              f"{use.registers} registers, {use.spill_stores} / "
+              f"{use.spill_loads} bytes spill stores / loads, "
+              f"{use.stack_bytes} bytes stack", flush=True)
+    out = {}
+
+    def far_plan(N_, box, lanes=B):
+        """The far layout at this shape as a launch takes it, forced where
+        the near one fits (a tree without ``launch_plan``: the layout
+        without a ring)."""
+        if hasattr(K3, "launch_plan"):
+            return K3.launch_plan(12, 4, N_, box, lanes, dev, far=True)
+        plan = K3.fused_stage_plan(12, 4, N_, box, lanes, sms)
+        if plan.workspace_global:
+            return plan
+        return plan._replace(smem=4 * K3.stage_floats(12, 4, N_, box),
+                             workspace_global=True)
+
+    def run(label, N_, box, plan, B=B):
+        p, c = quad_problem(N_, dev, 2.0 if box else None)
+        x0 = torch.as_tensor(np.random.default_rng(40).uniform(
+            -0.3, 0.3, size=(B, 12)), dtype=torch.float32, device=dev)
+        full = dict(nx=12, nu=4, N=N_, max_iter=iters, abs_pri_tol=1e-3,
+                    abs_dua_tol=1e-3, en_state_bound=box,
+                    en_input_bound=True, check_termination=1)
+        f = functools.partial(K3.fused_cuda, p.A, p.B, p.f, p.Q, p.R, c.rho,
+                              c.Kinf, c.Quu_inv, c.AmBKt, c.Pinf, p.x_min,
+                              p.x_max, p.u_min, p.u_max, p.Xref, p.Uref, x0,
+                              **full)
+        with mock.patch.object(K3, "fused_stage_plan", lambda *a, **k: plan):
+            res = f()
+            torch.cuda.synchronize()
+            t = float(np.median([event_ms(f) for _ in range(reps)]))
+        occ = K3.stage_occupancy(plan, 12, 4, box)
+        slots = min(-(-B // plan.tile), max(occ["blocks_per_sm"], 1) * sms) \
+            * plan.tile
+        lane_it = float(res[2].double().sum())
+        flops = (N_ - 1) * (4 * 144 + 8 * 48 + 2 * 16) * lane_it
+        floor = lane_it * 2 * K3.lane_floats(12, 4, N_, box) * 4 / 3.35e12
+        span = slot_makespan(res[2], slots)
+        print(f"far probe {label}: {t:.3f} ms; {lane_it:.0f} lane-iterations"
+              f" (max {int(res[2].max())}, {int((res[3] == 1).sum())} of {B}"
+              f" solved); busiest slot {span} iterations, "
+              f"{1e3 * t / (span * (2 * N_ - 1)):.3f} us a stage step; FLOP "
+              f"bound {1e3 * flops / 67e12:.3f} ms, stream floor "
+              f"{1e3 * floor:.3f} ms; {plan}; {occ}, {slots} lane slots",
+              flush=True)
+        out[label] = t
+        return res
+
+    for box in (False, True):
+        run(f"N={N_far} {'|x| <= 2' if box else 'free'} far", N_far, box,
+            far_plan(N_far, box))
+    # a light load: a lane's stage step with few lanes in flight
+    run(f"N={N_far} free far, B=1024", N_far, False,
+        far_plan(N_far, False, 1024), 1024)
+    near_plan = K3.fused_stage_plan(12, 4, 173, True, B, sms)
+    assert not near_plan.workspace_global
+    near = run("N=173 |x| <= 2 near", 173, True, near_plan)
+    far = run("N=173 |x| <= 2 far (forced)", 173, True, far_plan(173, True))
+    print(f"far probe N=173: far bit-equal to near "
+          f"{all(torch.equal(a, b) for a, b in zip(near, far))}", flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", nargs="?", choices=("wide", "cluster"),
+    ap.add_argument("probe", nargs="?", choices=("wide", "cluster", "far"),
                     default="cluster")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("layout_probe: needs an NVIDIA GPU")
-    (wide_layout_probe if args.probe == "wide" else cluster_probe)()
+    dict(wide=wide_layout_probe, cluster=cluster_probe,
+         far=far_layout_probe)[args.probe]()
 
 
 if __name__ == "__main__":
