@@ -935,6 +935,14 @@ def earlier_phases(card):
         lambda: condensed_fused_cuda(*r_args, x0_rm, None, **full),
         lambda: condensed_fused_cuda(*r_args, x0_rm, None,
                                      **dict(full, constraints=None)))
+    # ... and checking every iteration as the API does (ct = 1), at
+    # tolerances 0 so that every lane still runs all 72
+    full1 = dict(full, check_termination=1, abs_pri_tol=0.0,
+                 abs_dua_tol=0.0)
+    t_cones1, t_box1 = paired_ms(
+        lambda: condensed_fused_cuda(*r_args, x0_rm, None, **full1),
+        lambda: condensed_fused_cuda(*r_args, x0_rm, None,
+                                     **dict(full1, constraints=None)))
     print(f"phase 8 rocket API chain B={B_MAIN}, fp32 24+48: {n_rock} "
           f"converged ({100.0 * n_rock / B_MAIN:.2f}%), mean iterations "
           f"{it_a.float().mean().item():.2f}, largest cone excess "
@@ -943,7 +951,10 @@ def earlier_phases(card):
           f"on {card}; one cold 72-iteration launch {t_e:.3f} ms, plain "
           f"{t_e_p:.3f} ms; 72 iterations on every lane: with the cones "
           f"{t_cones:.3f} ms, box only {t_box:.3f} ms "
-          f"({t_cones / t_box:.3f}x per iteration)", flush=True)
+          f"({t_cones / t_box:.3f}x per iteration); checking every "
+          f"iteration (ct=1, tolerances 0): with the cones {t_cones1:.3f} "
+          f"ms, box only {t_box1:.3f} ms ({t_cones1 / t_box1:.3f}x)",
+          flush=True)
 
     # -- phase 9: the single-instance solve() on the card, float64 -----------
     loops = [rocket.make_solver(dtype=torch.float64, device=d)
@@ -2999,22 +3010,6 @@ def sharded_and_example_phases(card):
           flush=True)
 
 
-def chain_plant(n=10, dt=0.5):
-    """The 20-state chain (at n = 10): ``n`` unit masses in a line, unit
-    springs between neighbours and to the two walls, the n - 1 inputs the
-    tensions between neighbours; state (positions, velocities), zero-order
-    hold at ``dt``.  Returns (A (2n, 2n), B (2n, n - 1))."""
-    from scipy.linalg import expm
-    lap = 2 * np.eye(n) - np.eye(n, k=1) - np.eye(n, k=-1)
-    tension = np.eye(n, n - 1) - np.eye(n, n - 1, k=-1)
-    m = np.zeros((3 * n - 1, 3 * n - 1))
-    m[:n, n:2 * n] = np.eye(n)
-    m[n:2 * n, :n] = -lap
-    m[n:2 * n, 2 * n:] = tension
-    e = expm(m * dt)
-    return e[:2 * n, :2 * n], e[:2 * n, 2 * n:]
-
-
 def lifted_agreement(name, out_k, out_p, rho=False):
     """The lifted shapes' bar, kernel against plain version: equal counts
     and solved flags on >= 99% of lanes, 1e-4 on the states and controls of
@@ -3063,7 +3058,7 @@ def lifted_shape_phases(card):
     from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
     from tinympc_julia_tpu_torch.ops.cuda import fused as K3
     from tinympc_julia_tpu_torch.ops.cuda.layout_probe import (
-        product_yardstick)
+        chain_plant, product_yardstick)
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.types import stack_instances
     from unittest import mock
@@ -3641,8 +3636,26 @@ def lifted_shape_phases(card):
           f"launch(es), bound {b[0]:.4f} ms by {b[1]}", flush=True)
     smem36, shared36 = K.launch_smem(K.fused_tile_plan(20, 9, 20,
                                                        state_free=False),
-                                     20, 0)
+                                     20, 0, K.constraint_bytes(cons, 20, 9))
     check(shared36, "phase 36: the stage buffers did not fit")
+    # what the projections cost: the same launch at tolerances 0 (every lane
+    # runs all 200 iterations, as it does here) checking every iteration
+    # and once at the end, with its constraints and with the box alone
+    t36 = {}
+    for ct in (1, 200):
+        for tag, cc in (("", cons), (" box only", None)):
+            kw36 = dict(full, check_termination=ct, abs_pri_tol=0.0,
+                        abs_dua_tol=0.0, constraints=cc)
+            f36 = functools.partial(K.condensed_fused_cuda, *args, None,
+                                    **kw36)
+            f36()
+            t36[f"ct={ct}{tag}"] = float(np.median([event_ms(f36)
+                                                    for _ in range(3)]))
+    print("phase 36 split (tolerances 0): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in t36.items())
+        + f"; the projections {t36['ct=1'] - t36['ct=1 box only']:.3f} ms "
+        f"at ct=1, {t36['ct=200'] - t36['ct=200 box only']:.3f} ms at "
+        "ct=200", flush=True)
     row("condensed_fused projections (K1e), a stage of 20 entries with 10 "
         "cones and 4 halfspaces (20-state chain), stage buffers in shared "
         f"memory ({smem36} bytes)", n_l, err, t_k, t_p, b, k1_src,
@@ -3655,7 +3668,7 @@ def lifted_shape_phases(card):
         out_g = fk(*args)
         torch.cuda.synchronize()
         n_g = k1.projected_launches
-        exact = all(torch.equal(a, b2) for a, b2 in zip(out_g, out_k))
+        exact = same_bits(out_g, out_k)
         fk(*args)
         t_g = float(np.median([event_ms(lambda: fk(*args))
                                for _ in range(3)]))
@@ -3667,8 +3680,8 @@ def lifted_shape_phases(card):
         "the global scratch (forced)", n_g, err, t_g, t_p, b, k1_src,
         "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:127")
     # the same launch on a cluster of 2 blocks (forced), each projecting
-    # its own whole stages in its buffers with the cones' pairs in its
-    # shared memory: the same bits
+    # its own whole stages in its buffers with its group's constraint data
+    # in its shared memory: the same bits
     c_plan = K.cluster_tile_plan(20, 9, 20, blocks=2)
     fc = forced(K, "fused_tile_plan", c_plan, lambda: fk(*args))
     k1.projected_launches = 0
@@ -3680,7 +3693,7 @@ def lifted_shape_phases(card):
     t_c = float(np.median([event_ms(fc) for _ in range(3)]))
     print(f"phase 36 the same launch on a cluster of 2 blocks (stage "
           f"bounds {list(c_plan.stages)}, stage buffers in shared memory "
-          f"{K.launch_smem(c_plan, 20, 0, 10)[1]}): bit-equal {exact}, "
+          f"{K.launch_smem(c_plan, 20, 0)[1]}): bit-equal {exact}, "
           f"{n_c} launch(es), {t_c:.3f} ms", flush=True)
     check(exact and n_c >= 1, "phase 36: the cluster differs")
     row("condensed_fused projections (K1e), the same on a cluster of 2 "
@@ -3797,7 +3810,8 @@ def lifted_shape_phases(card):
 
 def build_kernels():
     """Phase 2: the three kernels' sources, one nvcc each, side by side."""
-    from tinympc_julia_tpu_torch.ops.cuda._build import (load_libraries,
+    from tinympc_julia_tpu_torch.ops.cuda._build import (kernel_label,
+                                                         load_libraries,
                                                          ptxas_usage)
     from tinympc_julia_tpu_torch.ops.cuda.fused import variant_label
     t0 = time.perf_counter()
@@ -3813,12 +3827,14 @@ def build_kernels():
         print(f"phase 2 build: {built.path.name} in {built.seconds:.1f} s "
               f"of nvcc; registers per thread over its variants {regs}, "
               f"variants that spill {len(spills)} {spills}", flush=True)
-        if built.path.name.startswith("fused_stage"):
-            for mangled, use in usage.items():
-                print(f"phase 2 build: K3 variant {variant_label(mangled)}: "
-                      f"{use.registers} registers, {use.spill_stores} / "
-                      f"{use.spill_loads} bytes spill stores / loads, "
-                      f"{use.stack_bytes} bytes stack", flush=True)
+        k3 = built.path.name.startswith("fused_stage")
+        for mangled, use in sorted(usage.items()):
+            what = (f"K3 variant {variant_label(mangled)}" if k3
+                    else kernel_label(mangled))
+            print(f"phase 2 build: {what}: {use.registers} registers, "
+                  f"{use.spill_stores} / {use.spill_loads} bytes spill "
+                  f"stores / loads, {use.stack_bytes} bytes stack",
+                  flush=True)
 
 
 def main():

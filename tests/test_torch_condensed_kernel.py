@@ -432,13 +432,42 @@ def test_projected_stages_take_shared_buffers_where_they_fit(shape, dims,
     """A launch with halfspaces or cones projects each stage in a buffer of
     each thread's own, as wide as the widest projected stage, after the
     plan's layout in shared memory where it fits (the plan itself does not
-    change), and in the lanes' rows of a global scratch where it does
-    not."""
+    change), and in the lanes' rows of a global scratch where it does not;
+    the block's constraint data (``data`` bytes) follows in shared memory
+    where it fits, and is left out where it does not."""
     plan = K.fused_tile_plan(*shape[:3], state_free=shape[3])
     smem, in_shared = K.launch_smem(plan, *dims)
     assert in_shared == shared
-    assert smem == plan.smem + (4 * K.THREADS * max(dims) if shared else 0)
+    buffers = 4 * K.THREADS * max(dims) if shared else 0
+    assert smem == plan.smem + buffers
     assert smem <= K.SMEM_PER_BLOCK
+    data = 1024
+    with_data, kept = K.launch_smem(plan, *dims, data)
+    assert kept == shared
+    fits = plan.smem + buffers + data <= K.SMEM_PER_BLOCK
+    assert with_data == plan.smem + buffers + (data if fits else 0)
+    assert K.launch_smem(plan, *dims, K.SMEM_PER_BLOCK) == (smem, shared)
+
+
+def test_constraint_bytes_follow_the_kernels_layout():
+    """A block's copy of one group's constraint data (csrc/projections.cuh
+    constraint_bytes): the cone pairs (8 bytes a cone) and mu (4), then
+    the halfspace rows (2 dim + 1 floats each), each part 16-byte aligned;
+    per-group data counts one group's slice."""
+    rng = np.random.default_rng(11)
+    cons = K.fused_constraints(
+        soc_x=tuple((2 * j, 2, 0.5) for j in range(10)),
+        lin_x=(rng.normal(size=(4, 20)), np.full(4, 5.0)),
+        soc_u=((0, 9, 2.0),), nx=20, nu=9, dtype=torch.float32,
+        device="cpu")
+    assert K.constraint_bytes(cons, 20, 9) == 96 + 48 + 4 * 4 * 41
+    grouped = K.fused_constraints(
+        soc_x=((0, 3, np.array([0.5, 0.4])),),
+        lin_x=(np.ones((2, 3, 6)), np.ones((2, 3))), nx=6, nu=3,
+        dtype=torch.float32, device="cpu", num_groups=2)
+    assert K.constraint_bytes(grouped, 6, 3) == 16 + 16 + 160  # 39 floats
+    box = K.fused_constraints(nx=6, nu=3, dtype=torch.float32, device="cpu")
+    assert K.constraint_bytes(box, 6, 3) == 0
 
 
 # -- K1d: the group grid -----------------------------------------------------

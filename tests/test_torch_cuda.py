@@ -1457,48 +1457,74 @@ def test_wide_stages_and_many_cones_match_plain_version(dev):
     _counts_and_values_agree(k, r)
 
 
-@pytest.mark.parametrize("case", ["chain", "rocket"])
-def test_k1e_stage_buffers_agree_bit_for_bit(dev, monkeypatch, case):
-    """K1e projects a stage in a buffer of each thread's own in shared
-    memory where it fits and in the lanes' rows of a global scratch where
-    it does not: the 20-state chain (10 state cones, 4 halfspace rows, an
-    input cone) and the rocket (its input and state cones), launched on
-    their shared buffers and forced onto the global scratch, give the same
-    bits, carry included."""
-    if case == "chain":
-        Nc, nx, nu = 8, 20, 9
-        p, c = _chain(Nc, dev, x_bound=3.0)
-        m = build_condensed(p, c)
-        rng = np.random.default_rng(11)
-        cons = K.fused_constraints(
-            soc_x=tuple((2 * j, 2, 0.5) for j in range(10)),
-            lin_x=(rng.normal(size=(4, 20)), np.full(4, 5.0)),
-            soc_u=((0, 9, 2.0),), nx=nx, nu=nu, dtype=torch.float32,
-            device=dev)
-        x0 = _chain_x0(500, 12, dev)
+def _wide64(dev):
+    """A made-up stable plant of 64 states and 2 inputs at N = 3, |x| <= 2,
+    with 16 state cones of dim 4 (mu 0.5) and 3 halfspace rows: a stage
+    wider than the widest register width, projected in memory."""
+    rng = np.random.default_rng(3)
+    A = 0.9 * np.eye(64) + rng.normal(scale=0.005, size=(64, 64))
+    p = make_problem(A, rng.normal(scale=0.1, size=(64, 2)), np.eye(64),
+                     np.eye(2), 1.0, 3, u_min=-1.0, u_max=1.0,
+                     x_min=np.full((3, 64), -2.0), x_max=np.full((3, 64), 2.0),
+                     dtype=torch.float32, device=dev)
+    c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+    cons = dict(soc_x=tuple((4 * j, 4, 0.5) for j in range(16)),
+                lin_x=(np.ones((3, 64)), np.ones(3)))
+    x0 = torch.as_tensor(np.random.default_rng(4).uniform(-1, 1, (300, 64)),
+                         dtype=torch.float32, device=dev)
+    return p, c, cons, x0
+
+
+@pytest.mark.parametrize("alpha", [1.0, 1.7], ids=["alpha1", "alpha1.7"])
+@pytest.mark.parametrize("ct", [1, 4], ids=["ct1", "ct4"])
+@pytest.mark.parametrize("case", ["chain", "rocket", "wide64", "grouped"])
+def test_k1e_stage_buffers_agree_bit_for_bit(dev, monkeypatch, case, ct,
+                                             alpha):
+    """K1e projects each stage once an iteration, in a buffer of each
+    thread's own in shared memory where it fits and in the lanes' rows of a
+    global scratch where it does not, in one pass that also takes its
+    residuals.  The 20-state chain (10 state cones, 4 halfspace rows, an
+    input cone), the rocket (its input and state cones: lanes latch and
+    write the carry), a stage of 64 entries with 16 cones and the chain's
+    group grid (two groups, per-group cone mu and halfspace rows), at ct 1
+    and 4 and alpha 1 and 1.7: the buffers and the global scratch forced
+    give the same bits, carry included, and the plain version's counts and
+    values."""
+    G = 1
+    if case == "wide64":
+        p, c, cons_kw, x0 = _wide64(dev)
+        nx, nu, Nc = 64, 2, 3
+        cons = K.fused_constraints(**cons_kw, nx=nx, nu=nu,
+                                   dtype=torch.float32, device=dev)
+        args = (build_condensed(p, c), float(c.rho), p.u_min, p.u_max,
+                p.x_min, p.x_max, x0, None)
+        kw = _kw(nx, nu, N=Nc, max_iter=60, en_state_bound=True,
+                 constraints=cons)
+        agree = _counts_and_values_agree
     else:
-        Nc, nx, nu = rocket.HORIZON, 6, 3
-        s = _rocket(dev)
-        p, c = s.problem, s.cache
-        m = build_condensed(p, c)
-        cons = K.fused_constraints(**K.problem_constraint_kw(p, s.settings),
-                                   nx=nx, nu=nu, dtype=torch.float32,
-                                   device=dev)
-        x0 = _rocket_x0(500, dev)
-    args = (m, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max, x0, None)
-    kw = _kw(nx, nu, N=Nc, max_iter=80, en_state_bound=True,
-             constraints=cons)
+        nx, nu, Nc, args, kw, agree = _k1e_case(
+            "rocket" if case == "rocket" else "chain", dev,
+            grouped=case == "grouped")
+        G = kw.get("num_groups", 1)
+    kw = dict(kw, check_termination=ct, relaxation_alpha=alpha,
+              max_iter=kw["max_iter"] // ct * ct)
     plan = K.fused_tile_plan(nx, nu, Nc, state_free=False)
     assert K.launch_smem(plan, nx, nu)[1]
     own = K.condensed_fused_cuda(*args, **kw)
     monkeypatch.setattr(K, "launch_smem",
                         lambda plan, *dims: (plan.smem, False))
-    forced = K.condensed_fused_cuda(*args, **kw)
+    scratch = K.condensed_fused_cuda(*args, **kw)
+    r = K.condensed_fused_reference(*args, **kw)
     torch.cuda.synchronize()
-    for a, b in zip(own[:4], forced[:4]):
+    for a, b in zip(own[:4], scratch[:4]):
         assert torch.equal(a, b)
-    for a, b in zip(own[4], forced[4]):
+    for a, b in zip(own[4], scratch[4]):
         assert torch.equal(a, b)
+    if case == "rocket":
+        assert int(own[3].sum()) > 0  # lanes latch and freeze their carry
+    if G > 1:
+        agree = _counts_and_values_agree
+    agree(own, r)
 
 
 @pytest.mark.parametrize("horizon,kw", [
@@ -1770,24 +1796,34 @@ def test_k2_cluster_osqp_controller_agrees_bit_for_bit(dev, monkeypatch,
     assert ((forced[4] - r[4]).abs() / r[4])[both].max().item() <= 1e-4
 
 
-def _k1e_case(case, dev):
+def _k1e_case(case, dev, grouped=False):
     """K1e's projected stages as the plain-version tests run them: the
     20-state chain at N = 8 (10 state cones of dim 2, 4 halfspace rows, an
     input cone over the 9 tensions, the state box; 500 lanes, 60
-    iterations) or the rocket (its input and state cones and the state box;
-    1,000 lanes, 200 iterations).  Returns (nx, nu, N, args, kw, agree)."""
+    iterations; ``grouped``: two groups of 250 lanes, the second's cone mu
+    0.4 and halfspace rows 0.9 times the first's) or the rocket (its input
+    and state cones and the state box; 1,000 lanes, 200 iterations).
+    Returns (nx, nu, N, args, kw, agree)."""
     if case == "chain":
         Nc, nx, nu = 8, 20, 9
         p, c = _chain(Nc, dev, x_bound=3.0)
         rng = np.random.default_rng(11)
+        a, b = rng.normal(size=(4, 20)), np.full(4, 5.0)
+        G = 2 if grouped else 1
+        if grouped:
+            mu = np.array([0.5, 0.4])
+            a, b = np.stack([a, 0.9 * a]), np.stack([b, b])
+        else:
+            mu = 0.5
         cons = K.fused_constraints(
-            soc_x=tuple((2 * j, 2, 0.5) for j in range(10)),
-            lin_x=(rng.normal(size=(4, 20)), np.full(4, 5.0)),
+            soc_x=tuple((2 * j, 2, mu) for j in range(10)), lin_x=(a, b),
             soc_u=((0, 9, 2.0),), nx=nx, nu=nu, dtype=torch.float32,
-            device=dev)
+            device=dev, num_groups=G)
         x0 = _chain_x0(500, 12, dev)
+        if grouped:
+            x0 = x0.reshape(G, 250, nx)
         kw = _kw(nx, nu, N=Nc, max_iter=60, en_state_bound=True,
-                 constraints=cons)
+                 constraints=cons, **({"num_groups": G} if grouped else {}))
         agree = _counts_and_values_agree
     else:
         Nc, nx, nu = rocket.HORIZON, 6, 3
@@ -1810,12 +1846,12 @@ def _k1e_case(case, dev):
 @pytest.mark.parametrize("case", ["chain", "rocket"])
 def test_k1e_cluster_agrees_bit_for_bit(dev, monkeypatch, case, stages,
                                         blocks):
-    """K1e on a cluster, each block projecting its own whole stages (the
-    cones' pairs staged in its shared memory): the 20-state chain and the
-    rocket forced onto w2 in shared memory and onto a cluster of 2 or 8
-    blocks, their stages projected in each thread's buffer in shared
-    memory or in the global scratch: the same bits, carry included; the
-    cluster against the plain version too."""
+    """K1e on a cluster, each block projecting its own whole stages (its
+    group's constraint data staged in its shared memory): the 20-state
+    chain and the rocket forced onto w2 in shared memory and onto a cluster
+    of 2 or 8 blocks, their stages projected in each thread's buffer in
+    shared memory or in the global scratch: the same bits, carry included;
+    the cluster against the plain version too."""
     nx, nu, Nc, args, kw, agree = _k1e_case(case, dev)
     if stages == "global-scratch":
         monkeypatch.setattr(K, "launch_smem",
@@ -1879,16 +1915,13 @@ def test_k1e_cluster_at_the_rocket_budget_width(dev, monkeypatch):
             same].max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("blocks", [2, 8], ids=["cluster2", "cluster8"])
-@pytest.mark.parametrize("case", ["rocket-cones", "chain-osqp"])
-def test_k2_cluster_projected_stages_agree_bit_for_bit(dev, monkeypatch,
-                                                       case, blocks):
-    """K2's stages on a cluster as the plain-version tests run them: the
-    rocket's cones and state box (termination controller, 1,000 lanes) and
+def _k2_projected_case(case, dev):
+    """K2's projected stages as the plain-version tests run them: the
+    rocket's cones and state box (termination controller, 1,000 lanes),
     the 20-state chain's stages of 20 and 9 under the OSQP-form controller
-    (300 lanes), forced onto the iterates in shared memory and onto a
-    cluster of 2 or 8 blocks: the same bits, carry included; the cluster
-    against the plain version too."""
+    (300 lanes, no projections), and the chain with 10 state cones, 4
+    halfspace rows and the state box under the OSQP-form controller (300
+    lanes).  Returns (nx, nu, args, kw)."""
     if case.startswith("rocket"):
         s = _rocket(dev)
         p, c = s.problem, s.cache
@@ -1901,19 +1934,42 @@ def test_k2_cluster_projected_stages_agree_bit_for_bit(dev, monkeypatch,
                   abs_pri_tol=2e-3, adaptive_rho_min=1.0,
                   adaptive_rho_max=100.0, max_iter=100, constraints=cons)
     else:
-        p, c = _chain(20, dev)
+        cones = case == "chain-osqp-cones"
+        p, c = _chain(20, dev, x_bound=3.0 if cones else None)
         nx, nu = 20, 9
         x0 = _chain_x0(300, 13, dev)
         kw = dict(max_iter=150, adaptive_rho_min=0.2, adaptive_rho_max=5.0)
+        if cones:
+            rng = np.random.default_rng(11)
+            kw.update(en_state_bound=True, max_iter=60,
+                      constraints=K.fused_constraints(
+                          soc_x=tuple((2 * j, 2, 0.5) for j in range(10)),
+                          lin_x=(rng.normal(size=(4, 20)), np.full(4, 5.0)),
+                          nx=nx, nu=nu, dtype=torch.float32, device=dev))
     args = (build_condensed_taylor(p, c), p.u_min, p.u_max, p.x_min,
             p.x_max, x0, None)
-    full = _k2_kw(p, c, **kw)
-    state_free = not case.startswith("rocket")
-    shared = K2.shared_adaptive_plan(nx, nu, p.N, 2, False, state_free)
+    return nx, nu, args, _k2_kw(p, c, **kw)
+
+
+@pytest.mark.parametrize("blocks", [2, 8], ids=["cluster2", "cluster8"])
+@pytest.mark.parametrize("case", ["rocket-cones", "chain-osqp",
+                                  "chain-osqp-cones"])
+def test_k2_cluster_projected_stages_agree_bit_for_bit(dev, monkeypatch,
+                                                       case, blocks):
+    """K2's stages on a cluster as the plain-version tests run them
+    (``_k2_projected_case``: the rocket's cones, the chain's wide stages
+    under the OSQP-form controller, without and with cones and
+    halfspaces), forced onto the iterates in shared memory and onto a
+    cluster of 2 or 8 blocks: the same bits, carry included; the cluster
+    against the plain version too."""
+    nx, nu, args, full = _k2_projected_case(case, dev)
+    N_ = full["N"]
+    state_free = case == "chain-osqp"
+    shared = K2.shared_adaptive_plan(nx, nu, N_, 2, False, state_free)
     assert shared.cluster == 1
     _forced(monkeypatch, K2, "adaptive_tile_plan", shared)
     own = K2.condensed_adaptive_cuda(*args, **full)
-    plan = K2.cluster_adaptive_plan(nx, nu, p.N, 2, blocks=blocks)
+    plan = K2.cluster_adaptive_plan(nx, nu, N_, 2, blocks=blocks)
     assert plan.cluster == blocks
     _forced(monkeypatch, K2, "adaptive_tile_plan", plan)
     before = K2.condensed_adaptive_cuda.launches
@@ -1926,6 +1982,25 @@ def test_k2_cluster_projected_stages_agree_bit_for_bit(dev, monkeypatch,
     for a, b in zip(own[5], forced[5]):
         assert torch.equal(a, b)
     _k2_agree(forced, r)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 1.7], ids=["alpha1", "alpha1.7"])
+@pytest.mark.parametrize("ct", [1, 4], ids=["ct1", "ct4"])
+@pytest.mark.parametrize("case", ["rocket-cones", "chain-osqp-cones"])
+def test_k2_projected_stages_match_plain_version(dev, case, ct, alpha):
+    """K2 projects each stage once an iteration: in one pass that also
+    takes its residuals, and under the OSQP-form controller once into the
+    scratch that its residuals and the update pass then read.  The
+    rocket's cones under the termination controller and the chain's 10
+    cones and 4 halfspace rows under the OSQP-form one, at ct 1 and 4 and
+    alpha 1 and 1.7, against the plain version: counts, values, rho and
+    the carry."""
+    nx, nu, args, full = _k2_projected_case(case, dev)
+    full = dict(full, check_termination=ct, relaxation_alpha=alpha)
+    own = K2.condensed_adaptive_cuda(*args, **full)
+    r = K2.condensed_adaptive_reference(*args, **full)
+    torch.cuda.synchronize()
+    _k2_agree(own, r)
 
 
 @pytest.mark.parametrize("box", [False, True], ids=["free", "state-box"])

@@ -169,7 +169,7 @@ struct Params {
   // vec1 / ux a block owns.
   int cluster, rows1, rows2;
   int stages[kMaxCluster + 1], ustages[kMaxCluster + 1];
-  int cones_shared;   // the cones' pairs staged in shared memory
+  int cons_shared;    // the constraint data staged in shared memory
   int max_iter, ct, lo_all;
   float alpha, one_m_alpha, pri_tol, dua_tol;
   float rho_min, rho_max;
@@ -266,8 +266,7 @@ struct Tile {
   const __nv_bfloat16* t2a;
   __nv_bfloat16* w2h;          // shared (T, kp + kPadLo); kGlobal,
                                // kCluster: the tile's global (T, kp) rows
-  const int* cones_u;          // the sides' cone pairs
-  const int* cones_x;
+  SideData du, dx;             // the sides' constraint data
   float rho0;
   int tid, lane0, nvalid, g, gm;
   // the block's slice (all of it without a cluster): ux rows [r0, r1) (the
@@ -454,45 +453,127 @@ __device__ __forceinline__ void backward(const Params& p, const Tile& t,
   }
 }
 
-// The new slack and the ascended dual of stage k of one side, as the update
-// pass will compute them (the same functions, so the same bits), into the
-// side's rows of the scratch arrays w and dn (element r at [r * B]).  ux:
-// the lane's column, element r at ux[r * us].
-__device__ __forceinline__ void stage_new(const Params& p, const Side& s,
-                                          const int* cones, int g, int k,
-                                          bool relax, const float* ux,
-                                          int us, const float* prev,
-                                          const float* dual, int stride,
-                                          float* w, float* dn) {
-  const StageParams sp{p.alpha, p.one_m_alpha, stride};
-  const int B = p.B, dim = s.dim;
-  stage_slack(sp, s, g, k, relax, ux, prev, dual, 0, us, w + k * dim * B, B,
-              cones);
-  for (int j = 0; j < dim; ++j) {
-    const int r = k * dim + j, o = r * stride;
-    dn[r * B] = dual ? __fsub_rn(__fadd_rn(dual[o], relaxed(p, relax,
-                                                           ux[r * us],
-                                                           prev[o])),
-                                 w[r * B])
-                     : 0.0f;
+// The new slack and the ascended dual of each of thread q's stages of one
+// side, as the update pass would compute them (the same functions, so the
+// same bits), into the side's rows of the scratch arrays w and dn (element
+// r at [r * B]): a projected side's stages (sp.qs on) projected where they
+// live, the scratch itself, kStageBatchSmall rows' loads at a time; a box
+// side's (q on) row by row.
+template <int T, bool kProj>
+__device__ __forceinline__ void stage_new(const Params& p,
+                                          const SidePass& sp, int g,
+                                          bool relax, int q, float* w,
+                                          float* dn) {
+  constexpr int kB = kStageBatchSmall;
+  const Side& s = *sp.s;
+  const int B = p.B, k1 = min(sp.k1, s.n_stages);
+  for (int k = sp.k0 + (kProj ? sp.qs : q); k < k1;
+       k += Lanes<T>::kLaneThreads) {
+    const int rk = k * s.dim;
+    if constexpr (!kProj) {
+      for (int r = rk; r < rk + s.dim; ++r) {
+        const int o = r * sp.stride, b = g * s.box_stride + r;
+        const float dual = sp.dual ? sp.dual[o] : 0.0f;
+        const float wh = relaxed(p, relax, sp.ux[r * sp.us], sp.prev[o]);
+        const float v = box_slack(s, wh, sp.dual != nullptr, dual,
+                                  s.en_box ? __ldg(s.wmin + b) : 0.0f,
+                                  s.en_box ? __ldg(s.wmax + b) : 0.0f);
+        w[r * B] = v;
+        dn[r * B] = sp.dual ? __fsub_rn(__fadd_rn(dual, wh), v) : 0.0f;
+      }
+      continue;
+    }
+    const StageMem st{w + rk * B, B};
+    stage_slack<kB>(p, sp, g, k, relax, false, st);
+    project_stage(st, s, sp.d);
+    for (int j0 = 0; j0 < s.dim; j0 += kB) {
+      float u[kB], prev[kB], dual[kB], vn[kB];
+#pragma unroll
+      for (int i = 0; i < kB; ++i) {
+        const int j = j0 + i, r = rk + j, o = r * sp.stride;
+        if (j < s.dim) {
+          u[i] = sp.ux[r * sp.us];
+          prev[i] = sp.prev[o];
+          dual[i] = sp.dual ? sp.dual[o] : 0.0f;
+          vn[i] = st[j];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kB; ++i) {
+        const int j = j0 + i;
+        if (j < s.dim)
+          dn[(rk + j) * B] =
+              sp.dual ? __fsub_rn(__fadd_rn(dual[i], relaxed(p, relax, u[i],
+                                                             prev[i])),
+                                  vn[i])
+                      : 0.0f;
+      }
+    }
   }
 }
 
 // The OSQP-form residuals' inputs of one lane, before this iteration's
-// update pass: the new slack and dual of every stage q, q + 256 / T, ... of
-// the block's stages of both sides into the scratch (the lane's column:
+// update pass: the new slack and dual of every stage of the block's slice of
+// both sides, each thread its stages, into the scratch (the lane's column:
 // wsc + lane, dsc + lane).
+template <int T, bool kProjU, bool kProjX>
+__device__ void osqp_fill(const Params& p, const SidePass& su,
+                          const SidePass& sx, int g, bool relax, int lane,
+                          int q) {
+  const int B = p.B;
+  stage_new<T, kProjX>(p, sx, g, relax, q, p.wsc + p.su * B + lane,
+                       p.dsc + p.su * B + lane);
+  stage_new<T, kProjU>(p, su, g, relax, q, p.wsc + lane, p.dsc + lane);
+}
+
+// The residual pass (residuals) or the update pass (else) of thread q of a
+// lane over its stages of a projected side, from the new slacks and duals
+// osqp_fill wrote (w, dn: the side's rows of the scratch, element r at [r *
+// B]): nothing is projected again.  The update writes the carry's slack
+// where the lane latches now (latch).
 template <int T>
-__device__ void osqp_fill(const Params& p, const Tile& t, int g, bool relax,
-                          const float* ux, int us, const LaneState& st,
-                          int lane, int q) {
-  const int S = st.stride, B = p.B;
-  for (int j = t.kx0 + q; j < t.kx1; j += Lanes<T>::kLaneThreads)
-    stage_new(p, p.side_x, t.cones_x, g, j, relax, ux + p.su * us, us, st.v,
-              st.g, S, p.wsc + p.su * B + lane, p.dsc + p.su * B + lane);
-  for (int j = t.ku0 + q; j < t.ku1; j += Lanes<T>::kLaneThreads)
-    stage_new(p, p.side_u, t.cones_u, g, j, relax, ux, us, st.z, st.y, S,
-              p.wsc + lane, p.dsc + lane);
+__device__ __forceinline__ void fresh_pass_q(const Params& p,
+                                             const SidePass& sp,
+                                             const float* w, const float* dn,
+                                             bool residuals, bool latch,
+                                             float& pri, float& dua) {
+  const Side& s = *sp.s;
+  const int B = p.B, k1 = min(sp.k1, s.n_stages);
+  for (int k = sp.k0 + sp.qs; k < k1; k += Lanes<T>::kLaneThreads) {
+    const int rk = k * s.dim;
+    for (int j0 = 0; j0 < s.dim; j0 += kStageBatchSmall) {
+      float u[kStageBatchSmall], prev[kStageBatchSmall],
+          vn[kStageBatchSmall], d[kStageBatchSmall];
+#pragma unroll
+      for (int i = 0; i < kStageBatchSmall; ++i) {
+        const int r = rk + j0 + i;
+        if (j0 + i < s.dim) {
+          u[i] = sp.ux[r * sp.us];
+          prev[i] = sp.prev[r * sp.stride];
+          vn[i] = w[r * B];
+          d[i] = residuals ? 0.0f : dn[r * B];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kStageBatchSmall; ++i) {
+        const int r = rk + j0 + i, o = r * sp.stride;
+        if (j0 + i >= s.dim) continue;
+        if (residuals) {
+          pri = fmaxf(pri, fabsf(__fsub_rn(u[i], vn[i])));
+          dua = fmaxf(dua, fabsf(__fsub_rn(prev[i], vn[i])));
+          continue;
+        }
+        float next = vn[i];
+        if (sp.dual) {
+          sp.dual[o] = d[i];
+          next = __fsub_rn(vn[i], d[i]);
+        }
+        sp.prev[o] = vn[i];
+        if (latch) sp.co[r * B] = prev[i];
+        sp.ux[r * sp.us] = next;
+      }
+    }
+  }
 }
 
 // The partial maxima of the OSQP-form residuals (ops/rho.py
@@ -715,11 +796,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     t.ci1 = ci1;
     t.ci2 = ci2;
   }
-  t.cones_u = p.side_u.cones;
-  t.cones_x = p.side_x.cones;
-  if (p.cones_shared)
-    stage_cones(p.side_u, p.side_x, reinterpret_cast<int*>(sm + lay.total),
-                tid, kThreads, &t.cones_u, &t.cones_x);
+  t.du = side_data(p.side_u, g);
+  t.dx = side_data(p.side_x, g);
+  if (p.cons_shared)
+    stage_constraints(p.side_u, p.side_x, g, sm + lay.total, tid, kThreads,
+                      &t.du, &t.dx);
   t.rho0 = p.rho0 ? p.rho0[t.gm] : p.rho0_one;
 
   // this block's group's maps
@@ -826,24 +907,45 @@ __global__ void __launch_bounds__(kThreads, 1)
     forward<RPT, T, kIn>(p, t, lo, rho_b);
     sync();  // ux complete; no block reads vec1 any more
 
-    // the elementwise step of lane l, thread q of its eight
+    // the elementwise step of lane l, thread q of its 256 / T
     const bool active = !done[l];
     const LaneState st = lane_state<T>(p, t, l);
     float* wsc = p.wsc ? p.wsc + lane : nullptr;
-    const SidePass su_p{&p.side_u, t.ux + l, st.z, st.y, nullptr,
-                        p.zco + lane, st.stride, t.bs, wsc, B,
-                        p.side_u.dim * B, t.cones_u, t.ku0, t.ku1};
-    const SidePass sx_p{&p.side_x, t.ux + l + su * t.bs, st.v, st.g,
-                        nullptr, p.vco + lane, st.stride, t.bs,
-                        wsc ? wsc + su * B : nullptr, B, p.side_x.dim * B,
-                        t.cones_x, t.kx0, t.kx1};
+    SidePass su_p{&p.side_u, t.ux + l, st.z, st.y, nullptr, p.zco + lane,
+                  st.stride, t.bs, wsc, B, p.side_u.dim * B, t.du, t.ku0,
+                  t.ku1};
+    SidePass sx_p{&p.side_x, t.ux + l + su * t.bs, st.v, st.g, nullptr,
+                  p.vco + lane, st.stride, t.bs, wsc ? wsc + su * B : nullptr,
+                  B, p.side_x.dim * B, t.dx, t.kx0, t.kx1};
+    // the two sides' projected stages go round the lane's threads as one
+    // list; a box side beside a projected one is shared out against it
+    constexpr bool kRangeU = kProjX && !kProjU, kRangeX = kProjU && !kProjX;
+    if constexpr (kProjU) su_p.qs = q;
+    if constexpr (kProjX)
+      sx_p.qs = kProjU ? (q + tpl - slice_stages(su_p) % tpl) % tpl : q;
+    if constexpr (kRangeU) box_share<tpl>(su_p, sx_p, q);
+    if constexpr (kRangeX) box_share<tpl>(sx_p, su_p, q);
     const float rb = rho_b[l];
     float rho_new = rb;
     bool newly = false;
     const bool osqp_now = update && p.osqp;
+    // the termination residuals, on a checking iteration and where the
+    // termination controller predicts rho
+    const bool term = check || (update && !p.osqp);
+    float pi = 0.0f, di = 0.0f, ps = 0.0f, ds = 0.0f;
+    if (active && !osqp_now) {  // a projected side's one pass: its stages'
+                                // residuals and updates
+      const bool ahead = check && p.carry_out;
+      if constexpr (kProjU)
+        projected_pass<T, kStageBatchSmall>(p, su_p, g, relax, q, false,
+                                            term, ahead, pi, di);
+      if constexpr (kProjX)
+        projected_pass<T, kStageBatchSmall>(p, sx_p, g, relax, q, false,
+                                            term, ahead, ps, ds);
+    }
     if (osqp_now) {  // every stage's new slack and dual, for all threads
       if (active) {
-        osqp_fill<T>(p, t, g, relax, t.ux + l, t.bs, st, lane, q);
+        osqp_fill<T, kProjU, kProjX>(p, su_p, sx_p, g, relax, lane, q);
         if constexpr (kCl)  // the block's rows of ux, for the neighbours'
           for (int r = t.r0 + q; r < t.r1; r += tpl)
             p.uxo[r * B + lane] = t.ux[r * t.bs + l];
@@ -851,15 +953,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       sync();
     }
     if (check || update) {
-      float pi = 0.0f, di = 0.0f, ps = 0.0f, ds = 0.0f;
       float m[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      const bool term = check || (update && !p.osqp);
       if (active) {
         if (term) {  // the projected slacks are fresh after osqp_fill
-          side_residuals_q<kProjU, T>(p, su_p, g, relax, q, false, pi, di,
-                                      osqp_now);
-          side_residuals_q<kProjX, T>(p, sx_p, g, relax, q, false, ps, ds,
-                                      osqp_now);
+          if constexpr (!kProjU)
+            box_residuals_q<kRangeU, T>(p, su_p, g, relax, q, false, pi, di);
+          else if (osqp_now)
+            fresh_pass_q<T>(p, su_p, p.wsc + lane, p.dsc + lane, true,
+                            false, pi, di);
+          if constexpr (!kProjX)
+            box_residuals_q<kRangeX, T>(p, sx_p, g, relax, q, false, ps, ds);
+          else if (osqp_now)
+            fresh_pass_q<T>(p, sx_p, p.wsc + su * B + lane,
+                            p.dsc + su * B + lane, true, false, ps, ds);
         }
         if (osqp_now) {
           if constexpr (kCl)
@@ -914,11 +1020,21 @@ __global__ void __launch_bounds__(kThreads, 1)
                 __fmul_rn(di, rho_new) < p.dua_tol;
       }
     }
-    // slack, dual, output and carry updates; ux becomes vec2
+    // a box side's slack, dual, output and carry updates (and a projected
+    // side's from the scratch after osqp_fill); ux becomes vec2
     if (active) {
       const bool latch = p.carry_out && newly;
-      side_update_q<kProjU, T>(p, su_p, g, relax, q, false, latch);
-      side_update_q<kProjX, T>(p, sx_p, g, relax, q, false, latch);
+      float unused = 0.0f;
+      if constexpr (!kProjU)
+        box_update_q<kRangeU, T>(p, su_p, g, relax, q, false, latch);
+      else if (osqp_now)
+        fresh_pass_q<T>(p, su_p, p.wsc + lane, p.dsc + lane, false, latch,
+                        unused, unused);
+      if constexpr (!kProjX)
+        box_update_q<kRangeX, T>(p, sx_p, g, relax, q, false, latch);
+      else if (osqp_now)
+        fresh_pass_q<T>(p, sx_p, p.wsc + su * B + lane,
+                        p.dsc + su * B + lane, false, latch, unused, unused);
     }
     if (q == 0) {
       rho_n[l] = rho_new;
@@ -1081,8 +1197,9 @@ extern "C" int tinympc_condensed_adaptive(
   // bf16 maps of reduced iterations (lo_all), k padded to kp1/kp2.
   // lin_*: (n_lin, 2*dim + 1) device rows; soc_*: n_soc (start, dim) pairs
   // on the device; soc_mu_*: (n_soc,) on the device.  wsc: the (sw, B)
-  // scratch of the new slacks (a projected side, or the OSQP-form
-  // controller), dsc its new duals (the OSQP-form controller);
+  // scratch of the new slacks (a projected side, where its stages live, or
+  // the OSQP-form controller), dsc its new duals (the OSQP-form
+  // controller);
   // iterates_global: vec1 and ux in vecg (in1, G x tiles x tile) and uxg
   // (sw + 1, the same), with reduced iterations rounded into w2hg
   // (G x tiles x tile, max(kp1, kp2)) bf16.  cluster: the blocks a tile
@@ -1161,10 +1278,6 @@ extern "C" int tinympc_condensed_adaptive(
                 state_shared ? state_rows(p.su, p.sx, p.state_free) : 0,
                 resident, lo_all)
           .total;
-  p.cones_shared =
-      n_soc_u + n_soc_x > 0 &&
-      static_cast<size_t>(smem_bytes) >=
-          need + up16(2 * sizeof(int) * (n_soc_u + n_soc_x));
   if (G <= 0 || L <= 0 || G > 65535 || (tile != 32 && tile != 16) ||
       ct < 1 || order < 1 ||
       p.ld1 < p.sw || p.ld2 < 4 * p.su ||
@@ -1183,7 +1296,8 @@ extern "C" int tinympc_condensed_adaptive(
   // from the scratch
   if (osqp && (!A || !Bm || !qd || !rd || !P0 || !dP || !wsc || !dsc))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_lin_u + n_soc_u + n_lin_x + n_soc_x > 0 && !wsc)
+  const bool proj_u = n_lin_u + n_soc_u > 0, proj_x = n_lin_x + n_soc_x > 0;
+  if ((proj_u || proj_x) && !wsc)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((wg && (!vecg || !uxg || resident)) ||
       ((wg || cluster > 1) && lo_all && !w2hg))
@@ -1195,8 +1309,12 @@ extern "C" int tinympc_condensed_adaptive(
                  n_soc_x, nx, N, en_state_bound, box_x_grouped, lin_x_grouped,
                  mu_x_grouped))
     return static_cast<int>(cudaErrorInvalidValue);
+  // the block's group's constraint data in shared memory after the layout,
+  // where the launch left room for it
+  const size_t cons = constraint_bytes(p.side_u, p.side_x);
+  p.cons_shared =
+      cons > 0 && static_cast<size_t>(smem_bytes) >= need + cons;
 
-  const bool proj_u = n_lin_u + n_soc_u > 0, proj_x = n_lin_x + n_soc_x > 0;
   void (*kernel)(Params) = pick_kernel(tile, rpt, in, proj_u, proj_x);
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(smem_bytes);

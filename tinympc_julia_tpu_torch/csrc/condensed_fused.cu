@@ -171,7 +171,7 @@ struct Params {
   // map's padded rows (swp / cluster); rows_loc: the most rows a block owns
   int cluster, rows_loc;
   int stages[kMaxCluster + 1];
-  int cones_shared;   // the cones' pairs staged in shared memory
+  int cons_shared;    // the constraint data staged in shared memory
   int max_iter, ct, k0, lo_all;
   float alpha, one_m_alpha, pri_tol, dua_tol;
   int state_free, warm_start, carry_out, t12_resident, state_shared;
@@ -285,8 +285,7 @@ struct Tile {
   float* stage;                // the projected stages' buffers in shared
                                // memory (thread tid's entry j at
                                // stage[j * kThreads + tid]), or null
-  const int* cones_u;          // the sides' cone pairs
-  const int* cones_x;
+  SideData du, dx;             // the sides' constraint data
   int tid, lane0, nvalid;
   // the block's slice: rows [r0, r1), input stages [ku0, ku1), state stages
   // [kx0, kx1), its first padded map row (all of them without a cluster)
@@ -448,12 +447,14 @@ __device__ __forceinline__ void tile_product_lo(const Params& p,
 
 // The elementwise part of iteration i for the whole tile (the block's
 // slice of it with kCluster): thread q of lane l works on its share of both
-// sides; on a checking iteration the lane's partial maxima meet in shared
-// memory (a max is exact in any order), with kCluster then the blocks' over
-// distributed shared memory, and every thread of the lane (of every block)
-// takes the same latch decision.  Returns whether lane l latched, from its
-// thread 0 (which writes the count).
-template <In kIn, bool kProjU, bool kProjX>
+// sides, a projected side's stages in one pass that also takes their
+// residuals on a checking iteration; there the lane's partial maxima meet in
+// shared memory (a max is exact in any order), with kCluster then the
+// blocks' over distributed shared memory, and every thread of the lane (of
+// every block) takes the same latch decision; a box side's update follows
+// it.  Returns whether lane l latched, from its thread 0 (which writes the
+// count).
+template <In kIn, bool kProjU, bool kProjX, int kB>
 __device__ __forceinline__ bool tile_step(const Params& p, const Tile& t,
                                           float4* red, int g, float rho,
                                           int i, bool check, bool add) {
@@ -462,8 +463,8 @@ __device__ __forceinline__ bool tile_step(const Params& p, const Tile& t,
   const bool active = !t.done[l];
   const bool relax = p.alpha != 1.0f;
   const LaneState st = lane_state(p, t, l);
-  // where a projected stage is projected: the thread's own buffer in
-  // shared memory, or the lane's rows of the global scratch
+  // where a projected stage lives: the thread's own buffer in shared
+  // memory, or the lane's rows of the global scratch
   float *wu = nullptr, *wx = nullptr;
   int ws = 0, wku = 0, wkx = 0;
   if (t.stage) {
@@ -476,19 +477,37 @@ __device__ __forceinline__ bool tile_step(const Params& p, const Tile& t,
     wku = p.side_u.dim * p.B;
     wkx = p.side_x.dim * p.B;
   }
-  const SidePass su{&p.side_u, t.buf + l, st.z, st.y, st.uxc,
-                    p.zco + lane, st.stride, t.bs, wu, ws, wku,
-                    t.cones_u, t.ku0, t.ku1};
-  const SidePass sx{&p.side_x, t.buf + l + p.su * t.bs, st.v, st.g,
-                    st.uxc + p.su * st.stride, p.vco + lane, st.stride,
-                    t.bs, wx, ws, wkx, t.cones_x, t.kx0, t.kx1};
+  SidePass su{&p.side_u, t.buf + l, st.z, st.y, st.uxc, p.zco + lane,
+              st.stride, t.bs, wu, ws, wku, t.du, t.ku0, t.ku1};
+  SidePass sx{&p.side_x, t.buf + l + p.su * t.bs, st.v, st.g,
+              st.uxc + p.su * st.stride, p.vco + lane, st.stride, t.bs, wx,
+              ws, wkx, t.dx, t.kx0, t.kx1};
+  // the two sides' projected stages go round the lane's threads as one
+  // list; a box side beside a projected one is shared out against it
+  constexpr bool kRangeU = kProjX && !kProjU, kRangeX = kProjU && !kProjX;
+  if constexpr (kProjU) su.qs = q;
+  if constexpr (kProjX)
+    sx.qs = kProjU ? (q + kLaneThreads - slice_stages(su) % kLaneThreads) %
+                         kLaneThreads
+                   : q;
+  if constexpr (kRangeU) box_share<kLaneThreads>(su, sx, q);
+  if constexpr (kRangeX) box_share<kLaneThreads>(sx, su, q);
+  float pi = 0.0f, di = 0.0f, ps = 0.0f, ds = 0.0f;
+  if (active) {
+    const bool ahead = check && p.carry_out;
+    if constexpr (kProjU)
+      projected_pass<kTile, kB>(p, su, g, relax, q, add, check, ahead, pi,
+                                di);
+    else if (check)
+      box_residuals_q<kRangeU>(p, su, g, relax, q, add, pi, di);
+    if constexpr (kProjX)
+      projected_pass<kTile, kB>(p, sx, g, relax, q, add, check, ahead, ps,
+                                ds);
+    else if (check)
+      box_residuals_q<kRangeX>(p, sx, g, relax, q, add, ps, ds);
+  }
   bool newly = false;
   if (check) {
-    float pi = 0.0f, di = 0.0f, ps = 0.0f, ds = 0.0f;
-    if (active) {
-      side_residuals_q<kProjU>(p, su, g, relax, q, add, pi, di);
-      side_residuals_q<kProjX>(p, sx, g, relax, q, add, ps, ds);
-    }
     red[q * kTile + l] = make_float4(pi, di, ps, ds);
     __syncthreads();
     if (active) {
@@ -517,8 +536,10 @@ __device__ __forceinline__ bool tile_step(const Params& p, const Tile& t,
   }
   if (active) {
     const bool latch = p.carry_out && newly;
-    side_update_q<kProjU>(p, su, g, relax, q, add, latch);
-    side_update_q<kProjX>(p, sx, g, relax, q, add, latch);
+    if constexpr (!kProjU)
+      box_update_q<kRangeU>(p, su, g, relax, q, add, latch);
+    if constexpr (!kProjX)
+      box_update_q<kRangeX>(p, sx, g, relax, q, add, latch);
   }
   if (newly && q == 0 && t.rank == 0) {
     p.iters[lane] = i + 1;
@@ -600,7 +621,8 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
   int* done = reinterpret_cast<int*>(sm + lay.flags);
   int* n_done = done + kTile;
   t.done = done;
-  // after the layout: the projected stages' buffers, then the cone pairs
+  // after the layout: the projected stages' buffers, then the constraint
+  // data
   const size_t stage_bytes =
       (kProjU || kProjX) && !p.wsc
           ? sizeof(float) * kThreads *
@@ -608,12 +630,11 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
                                                             : p.side_u.dim)
           : 0;
   t.stage = stage_bytes ? reinterpret_cast<float*>(sm + lay.total) : nullptr;
-  t.cones_u = p.side_u.cones;
-  t.cones_x = p.side_x.cones;
-  if (p.cones_shared)
-    stage_cones(p.side_u, p.side_x,
-                reinterpret_cast<int*>(sm + lay.total + stage_bytes), tid,
-                kThreads, &t.cones_u, &t.cones_x);
+  t.du = side_data(p.side_u, g);
+  t.dx = side_data(p.side_x, g);
+  if (p.cons_shared)
+    stage_constraints(p.side_u, p.side_x, g, sm + lay.total + stage_bytes,
+                      tid, kThreads, &t.du, &t.dx);
   float4* red = reinterpret_cast<float4*>(sm + lay.red);
   t.state = p.state_shared ? reinterpret_cast<float*>(sm + lay.state)
                            : nullptr;
@@ -657,6 +678,9 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
   else
     __syncthreads();
 
+  // rows a projected stage's pass loads at once (tile_gemm.cuh)
+  constexpr int kB =
+      (kIn == In::kShared && RPT > 8) ? kStageBatch : kStageBatchSmall;
   for (int i = 0; i < p.max_iter; ++i) {
     const bool check = is_check(p, i);
     if (i == 0 && !p.warm_start) {
@@ -683,8 +707,8 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
         tile_product_fp32<RPT, kIn>(p, t);
     }
     __syncthreads();
-    if (tile_step<kIn, kProjU, kProjX>(p, t, red, g, rho, i, check,
-                                       i > 0 || p.warm_start)) {
+    if (tile_step<kIn, kProjU, kProjX, kB>(p, t, red, g, rho, i, check,
+                                           i > 0 || p.warm_start)) {
       done[tid % kTile] = 1;
       atomicAdd(n_done, 1);
     }
@@ -910,12 +934,6 @@ extern "C" int tinympc_condensed_fused(
       static_cast<size_t>(smem_bytes) < need + stage || !rho ||
       (reduced && !t12a))
     return static_cast<int>(cudaErrorInvalidValue);
-  // the cones' pairs in shared memory after the stage buffers, where the
-  // launch left room for them
-  p.cones_shared =
-      n_soc_u + n_soc_x > 0 &&
-      static_cast<size_t>(smem_bytes) >=
-          need + stage + up16(2 * sizeof(int) * (n_soc_u + n_soc_x));
   if (!init_side(p.side_u, umin, umax, lin_u, n_lin_u, soc_u, soc_mu_u,
                  n_soc_u, nu, N - 1, en_input_bound, box_u_grouped,
                  lin_u_grouped, mu_u_grouped) ||
@@ -923,6 +941,11 @@ extern "C" int tinympc_condensed_fused(
                  n_soc_x, nx, N, en_state_bound, box_x_grouped, lin_x_grouped,
                  mu_x_grouped))
     return static_cast<int>(cudaErrorInvalidValue);
+  // the block's group's constraint data in shared memory after the stage
+  // buffers, where the launch left room for it
+  const size_t cons = constraint_bytes(p.side_u, p.side_x);
+  p.cons_shared =
+      cons > 0 && static_cast<size_t>(smem_bytes) >= need + stage + cons;
 
   void (*kernel)(Params) = pick_kernel(rpt, in, proj_u, proj_x);
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);

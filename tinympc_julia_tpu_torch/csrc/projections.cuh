@@ -9,11 +9,9 @@
 // tinympc_julia_tpu/ops/pallas/condensed_kernel.py (selector matmuls there;
 // here one thread walks a stage of one lane).
 //
-// Every function is a template on the kernel's parameter struct P, of which
-// it reads P::alpha, P::one_m_alpha (over-relaxation) and P::B (the row
-// stride of the lane's slack and dual: element r of the lane at [r * B +
-// lane]).  The lane's iterate ux lives in shared memory, element r at
-// ux[r * T] for a tile of T lanes.
+// The over-relaxation reads the kernel's parameter struct P (P::alpha,
+// P::one_m_alpha); the stage functions work on a stage's entries wherever
+// it lives (Stage, StageMem), tile_gemm.cuh's passes load and store them.
 //
 // Elementwise arithmetic uses explicit round-to-nearest intrinsics so the
 // compiler does not contract it into FMAs: a kernel then computes the same
@@ -21,16 +19,17 @@
 //
 // The projections couple the rows of one stage (a halfspace all of them, a
 // cone its own), so a projected side is walked stage by stage: the stage's
-// slack is written to a scratch (entry j at w[j * ws]: a buffer of the
-// thread's own in shared memory, or the lane's rows of a global array where
-// the stage leaves no room there, so a stage of any width fits), clipped to the
-// box, put through each halfspace row in order and then each cone where it
-// lies, and only then the pass takes the residuals or writes the updates.
-// The halfspace rows (a, a/||a||^2, b) and the cones' mu are small device
-// arrays read through the cache by every thread alike, any number of each;
-// the cones' (start, dim) pairs are staged once a block in shared memory
-// (stage_cones).  A side without projections keeps the
-// row-by-row arithmetic of the box path.
+// slack is clipped to the box, put through each halfspace row in order and
+// then each cone where it lies, and only then the pass takes the residuals
+// or writes the updates (tile_gemm.cuh's projected pass, once a stage an
+// iteration).  The stage lives in memory (StageMem, entry j at w[j * ws]):
+// a buffer of the thread's own in shared memory, or the lane's rows of a
+// global scratch where the stage leaves no room there, so a stage of any
+// width and any cones fit.  The halfspace rows (a, a/||a||^2, b), the
+// cones' mu and their (start, dim) pairs are read from the block's copy in
+// shared memory where the launch leaves room (stage_constraints), else from
+// the device arrays.  A side without projections keeps the row-by-row
+// arithmetic of the box path.
 //
 // Group grid: a launch may solve G distinct problems, each block lanes of
 // one group g.  The constraint STRUCTURE (row counts, cone extents) is the
@@ -75,17 +74,54 @@ inline bool init_side(Side& s, const float* wmin, const float* wmax,
            (n_soc > 0 && (soc == nullptr || mu == nullptr)));
 }
 
-// Copies both sides' cone pairs into the block's shared memory (2 x
-// (side_u.n_soc + side_x.n_soc) ints at ``dst``) and returns where each
-// side's start; the caller's barrier makes them visible.
-__device__ __forceinline__ void stage_cones(const Side& su, const Side& sx,
-                                            int* dst, int tid, int threads,
-                                            const int** cu, const int** cx) {
-  const int nu2 = 2 * su.n_soc, nx2 = 2 * sx.n_soc;
+// The constraint data of one side as a block reads it: its group's
+// halfspace rows and cone mu, and the cones' (start, dim) pairs.
+struct SideData {
+  const float* lin;
+  const float* mu;
+  const int* cones;
+};
+
+// Bytes of both sides' constraint data staged in shared memory: the cone
+// pairs, the mu and the halfspace rows of one group.
+__host__ __device__ inline size_t constraint_bytes(const Side& su,
+                                                   const Side& sx) {
+  auto up = [](size_t n) { return (n + 15) / 16 * 16; };
+  const size_t nc = su.n_soc + sx.n_soc;
+  const size_t nl = static_cast<size_t>(su.n_lin) * (2 * su.dim + 1) +
+                    static_cast<size_t>(sx.n_lin) * (2 * sx.dim + 1);
+  return nc ? up(8 * nc) + up(4 * nc) + up(4 * nl) : up(4 * nl);
+}
+
+// Where a side's data is read: group g's slice of the device arrays.
+__device__ __forceinline__ SideData side_data(const Side& s, int g) {
+  return {s.lin + g * s.lin_stride, s.mu + g * s.mu_stride, s.cones};
+}
+
+// Copies both sides' constraint data of group g into the block's shared
+// memory (constraint_bytes at ``dst``: the cone pairs, the mu, the halfspace
+// rows) and points du, dx at it; the caller's barrier makes it visible.
+__device__ __forceinline__ void stage_constraints(const Side& su,
+                                                  const Side& sx, int g,
+                                                  char* dst, int tid,
+                                                  int threads, SideData* du,
+                                                  SideData* dx) {
+  const int nu2 = 2 * su.n_soc, nx2 = 2 * sx.n_soc, nc = su.n_soc + sx.n_soc;
+  int* pairs = reinterpret_cast<int*>(dst);
+  float* mu = reinterpret_cast<float*>(
+      dst + (nc ? (8 * static_cast<size_t>(nc) + 15) / 16 * 16 : 0));
+  float* lin = mu + (nc ? (nc + 3) / 4 * 4 : 0);
+  const int lu = su.n_lin * (2 * su.dim + 1), lx = sx.n_lin * (2 * sx.dim + 1);
   for (int e = tid; e < nu2 + nx2; e += threads)
-    dst[e] = e < nu2 ? su.cones[e] : sx.cones[e - nu2];
-  *cu = dst;
-  *cx = dst + nu2;
+    pairs[e] = e < nu2 ? su.cones[e] : sx.cones[e - nu2];
+  for (int e = tid; e < nc; e += threads)
+    mu[e] = e < su.n_soc ? su.mu[g * su.mu_stride + e]
+                         : sx.mu[g * sx.mu_stride + e - su.n_soc];
+  for (int e = tid; e < lu + lx; e += threads)
+    lin[e] = e < lu ? su.lin[g * su.lin_stride + e]
+                    : sx.lin[g * sx.lin_stride + e - lu];
+  *du = {lin, mu, pairs};
+  *dx = {lin + lu, mu + su.n_soc, pairs + nu2};
 }
 
 template <class P>
@@ -97,62 +133,72 @@ __device__ __forceinline__ float relaxed(const P& p, bool relax, float w,
 }
 
 // The slack of row r before the linear and cone projections: w_hat + dual
-// (dual null: the state-free path, g == 0), clipped to the box.
-__device__ __forceinline__ float row_slack(const Side& s, int g, int r,
-                                           float wh, const float* dual,
-                                           int o) {
-  float v = dual ? __fadd_rn(wh, dual[o]) : wh;
-  if (s.en_box) {
-    const int b = g * s.box_stride + r;
-    v = fminf(s.wmax[b], fmaxf(s.wmin[b], v));
-  }
+// (no dual: the state-free path, g == 0), clipped to the box [lo, hi].
+__device__ __forceinline__ float box_slack(const Side& s, float wh,
+                                           bool has_dual, float dual,
+                                           float lo, float hi) {
+  float v = has_dual ? __fadd_rn(wh, dual) : wh;
+  if (s.en_box) v = fminf(hi, fmaxf(lo, v));
   return v;
 }
 
-// The projected slack of stage k into w (the stage's entry j at w[j * ws]):
-// the box, then each halfspace row in order (w -= max(a.w - b, 0)
-// a/||a||^2, the dot product summed in index order), then each cone
-// (projections._project_soc_scaled), in the plain version's order of
-// operations.  ux: the lane's iterate, element r at ux[r * T]; cones: the
-// cones' (start, dim) pairs, the block's copy in shared memory.
-template <class P>
-__device__ __forceinline__ void stage_slack(
-    const P& p, const Side& s, int g, int k, bool relax, const float* ux,
-    const float* prev, const float* dual, int lane, int T, float* w,
-    int ws, const int* cones) {
-  const int dim = s.dim;
-  for (int j = 0; j < dim; ++j) {
-    const int r = k * dim + j, o = r * p.B + lane;
-    w[j * ws] =
-        row_slack(s, g, r, relaxed(p, relax, ux[r * T], prev[o]), dual, o);
+// A stage in memory, entry j at w[j * ws].
+struct StageMem {
+  float* w;
+  int ws;
+  __device__ __forceinline__ float& operator[](int j) const {
+    return w[j * ws];
   }
-  for (int h = 0; h < s.n_lin; ++h) {
-    const float* row = s.lin + g * s.lin_stride + h * (2 * dim + 1);
-    float dot = __fmul_rn(w[0], __ldg(row));
+};
+
+// Each halfspace row in order on stage w (w -= max(a.w - b, 0) a/||a||^2,
+// the dot product summed in index order).
+__device__ __forceinline__ void project_halfspaces(const StageMem& w,
+                                                   int dim,
+                                                   const float* lin,
+                                                   int n_lin) {
+  for (int h = 0; h < n_lin; ++h) {
+    const float* row = lin + h * (2 * dim + 1);
+    float dot = __fmul_rn(w[0], row[0]);
     for (int d = 1; d < dim; ++d)
-      dot = __fadd_rn(dot, __fmul_rn(w[d * ws], __ldg(row + d)));
-    const float viol = fmaxf(__fsub_rn(dot, __ldg(row + 2 * dim)), 0.0f);
+      dot = __fadd_rn(dot, __fmul_rn(w[d], row[d]));
+    const float viol = fmaxf(__fsub_rn(dot, row[2 * dim]), 0.0f);
     for (int d = 0; d < dim; ++d)
-      w[d * ws] = __fsub_rn(w[d * ws], __fmul_rn(viol, __ldg(row + dim + d)));
+      w[d] = __fsub_rn(w[d], __fmul_rn(viol, row[dim + d]));
   }
-  for (int c = 0; c < s.n_soc; ++c) {
-    float* seg = w + cones[2 * c] * ws;
+}
+
+// Each cone in order (projections._project_soc_scaled): the origin below
+// the cone, the boundary outside it, unchanged inside.
+__device__ __forceinline__ void project_cones(const StageMem& w,
+                                              const float* mu,
+                                              const int* cones, int n_soc) {
+  for (int c = 0; c < n_soc; ++c) {
+    const StageMem seg{w.w + cones[2 * c] * w.ws, w.ws};
     const int last = cones[2 * c + 1] - 1;
-    const float mu = __ldg(s.mu + g * s.mu_stride + c);
     float sq = __fmul_rn(seg[0], seg[0]);
     for (int d = 1; d < last; ++d)
-      sq = __fadd_rn(sq, __fmul_rn(seg[d * ws], seg[d * ws]));
+      sq = __fadd_rn(sq, __fmul_rn(seg[d], seg[d]));
     const float a = __fsqrt_rn(sq);
-    const float u0 = __fmul_rn(seg[last * ws], mu);
+    const float u0 = __fmul_rn(seg[last], mu[c]);
     if (a <= -u0) {  // below the cone: the origin
-      for (int d = 0; d <= last; ++d) seg[d * ws] = 0.0f;
+      for (int d = 0; d <= last; ++d) seg[d] = 0.0f;
     } else if (!(a <= u0)) {  // outside: onto the boundary
       const float factor = __fdiv_rn(__fadd_rn(a, u0),
                                      __fmul_rn(2.0f, fmaxf(a, 1e-30f)));
-      for (int d = 0; d < last; ++d) seg[d * ws] = __fmul_rn(factor, seg[d * ws]);
-      seg[last * ws] = __fmul_rn(factor, __fdiv_rn(a, mu));
+      for (int d = 0; d < last; ++d) seg[d] = __fmul_rn(factor, seg[d]);
+      seg[last] = __fmul_rn(factor, __fdiv_rn(a, mu[c]));
     }
   }
+}
+
+// The linear and cone projections of a stage's clipped slack w, in the
+// plain version's order of operations.
+__device__ __forceinline__ void project_stage(const StageMem& w,
+                                              const Side& s,
+                                              const SideData& d) {
+  project_halfspaces(w, s.dim, d.lin, s.n_lin);
+  project_cones(w, d.mu, d.cones, s.n_soc);
 }
 
 }  // namespace tinympc

@@ -56,11 +56,15 @@
 //
 // The elementwise step: the threads of a lane split each side of it, the
 // rows of a box-only side (thread q of its 256 / T takes rows q, q + 256 /
-// T, ...) or the stages of a projected one (stages q, ...: the projections
-// couple only the rows of a stage; a stage's slack is projected in a
-// stage buffer of the thread's own in shared memory, or where that leaves
-// no room in the lane's rows of a global scratch), in projections.cuh's
-// arithmetic and the plain version's order of operations.
+// T, ...) or the stages of a projected one (the projections couple only the
+// rows of a stage), a projected side's stages and the rows of a box side
+// beside it dealt so that the threads' work comes out even.  A projected
+// stage is projected once an iteration in memory (a stage buffer of the
+// thread's own in shared memory, or where that leaves no room the lane's
+// rows of a global scratch), its rows' loads in flight a batch at a time
+// before the arithmetic; one pass then takes the residuals and writes the
+// updates.  The arithmetic is projections.cuh's, in the plain version's
+// order of operations.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -541,13 +545,18 @@ __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
 // ux[r * us]: us = T in shared memory, the global array's row stride with
 // In::kGlobal), its slack, dual and rollout constant (element r at
 // [r * stride]: a [row][lane] shared array or a (dim, B) global one), its
-// carry slack (global, element r at [r * B]) and, for a projected side,
-// where stage k is projected: entry j at w[k * wk + j * ws] (the lane's rows of a (sw, B)
-// global scratch: ws = B, wk = dim * B; or a stage buffer of the thread's
-// own in shared memory, reused by every stage: wk = 0).  A pass covers the
-// side's stages [k0, k1) (a cluster block's slice; all of them by
-// default); a projected side reads its cones' (start, dim) pairs from the
-// block's copy in shared memory.
+// carry slack (global, element r at [r * B]) and, for a projected side, its
+// constraint data and where a stage of it lives (StageMem): entry j of
+// stage k at w[k * wk + j * ws] (the lane's rows of a (sw, B) global
+// scratch: ws = B, wk = dim * B; or a stage buffer of the thread's own in
+// shared memory, reused by each of its stages: wk = 0).  A
+// pass covers the side's stages [k0, k1) (a cluster block's slice; all of
+// them by default).  Who takes what: thread q of a lane takes the projected
+// stages k0 + qs, k0 + qs + 256 / T, ... (qs: q less the stages the lane's
+// other projected side dealt out first, so the two sides' stages go round
+// the threads as one list), and of a box side beside a projected one the
+// rows [rb0, rb1), a share that evens out the threads' work (box_share);
+// of a box side beside another, rows q, q + 256 / T, ....
 struct SidePass {
   const Side* s;
   float* ux;
@@ -557,33 +566,62 @@ struct SidePass {
   float* co;          // carry slack
   int stride;
   int us;
-  float* w;           // null: a box-only side
+  float* w;           // where a stage lives; null: a box-only side
   int ws, wk;
-  const int* cones = nullptr;  // (n_soc, 2), shared memory
+  SideData d{};       // a projected side's halfspace rows, mu, cone pairs
   int k0 = 0, k1 = 0x7fffffff;
+  int qs = 0;         // the thread's first stage, from k0
+  int rb0 = 0, rb1 = 0;  // a box side's rows beside a projected side
 };
 
-// What stage_slack (projections.cuh) reads of the kernel's parameters,
-// with the state's row stride in place of the batch size.
-struct StageParams {
-  float alpha, one_m_alpha;
-  int B;
-};
+// Stages k0 .. k1 - 1 of a side in a block's slice.
+__device__ __forceinline__ int slice_stages(const SidePass& sp) {
+  return max(min(sp.k1, sp.s->n_stages) - sp.k0, 0);
+}
+
+// A projected stage's work in box rows: an entry about two (its slack and
+// its update), a fifth more for each halfspace row and four fifths for the
+// cones (an estimate from the instructions of the two paths): what
+// box_share weighs a thread's stages by.
+__device__ __forceinline__ int stage_weight(const Side& s) {
+  return s.dim * (10 + 2 * s.n_lin + 4 * (s.n_soc > 0)) / 5;
+}
+
+// The rows [rb0, rb1) of a box side ``box`` that thread q of tpl takes
+// beside the stages it takes of the projected side ``proj`` (round the
+// threads from the slice's first stage): the threads with fewer stages take
+// more rows, so every thread's work (stage_weight a stage) comes to about
+// the mean.
+template <int tpl>
+__device__ __forceinline__ void box_share(SidePass& box, const SidePass& proj,
+                                          int q) {
+  const int n = slice_stages(proj), c = stage_weight(*proj.s);
+  const int r0 = box.s->dim * box.k0;
+  const int rows = box.s->dim * min(box.k1, box.s->n_stages) - r0;
+  const int mean = (n * c + max(rows, 0) + tpl - 1) / tpl;
+  int at = 0;
+  for (int t = 0; t <= q; ++t) {
+    const int stages = n / tpl + (t < n % tpl);
+    const int take = t == tpl - 1 ? rows : max(mean - stages * c, 0);
+    box.rb0 = r0 + min(at, rows);
+    at += take;
+    box.rb1 = r0 + min(at, rows);
+  }
+}
 
 struct BoxRows {
   float prev[kRowBatch], dual[kRowBatch], lo[kRowBatch], hi[kRowBatch],
       uxc[kRowBatch];
 };
 
-template <int T>
+template <int kStep>
 __device__ __forceinline__ void load_box_rows(const SidePass& sp, int g,
                                               int r0, int rows, bool add,
                                               BoxRows& b) {
-  constexpr int kLaneThreads = Lanes<T>::kLaneThreads;
   const Side& s = *sp.s;
 #pragma unroll
   for (int j = 0; j < kRowBatch; ++j) {
-    const int r = r0 + kLaneThreads * j;
+    const int r = r0 + kStep * j;
     if (r < rows) {
       const int o = r * sp.stride;
       b.prev[j] = sp.prev[o];
@@ -597,133 +635,204 @@ __device__ __forceinline__ void load_box_rows(const SidePass& sp, int g,
   }
 }
 
-// row_slack of projections.cuh on loaded values
-__device__ __forceinline__ float box_slack(const Side& s, float wh,
-                                          bool has_dual, float dual, float lo,
-                                          float hi) {
-  float v = has_dual ? __fadd_rn(wh, dual) : wh;
-  if (s.en_box) v = fminf(hi, fmaxf(lo, v));
-  return v;
-}
+// The rows a box pass of thread q walks: [first, end) by kStep, rows q, q
+// + 256 / T, ... of the slice (kRange false), or its share [rb0, rb1)
+// beside a projected side (kRange true, kStep 1).
+template <int T, bool kRange>
+struct BoxWalk {
+  static constexpr int kStep = kRange ? 1 : Lanes<T>::kLaneThreads;
+  int first, end;
+  __device__ __forceinline__ BoxWalk(const SidePass& sp, int q) {
+    const int dim = sp.s->dim;
+    first = kRange ? sp.rb0 : dim * sp.k0 + q;
+    end = kRange ? sp.rb1 : dim * min(sp.k1, sp.s->n_stages);
+  }
+};
 
-// Adds uxc to the rows of stage k of a projected side (add), then its
-// slack into the side's scratch rows.
-template <class P>
-__device__ __forceinline__ void projected_stage(const P& p, const SidePass& sp,
-                                                int g, int k, bool relax,
-                                                bool add) {
-  const Side& s = *sp.s;
-  if (add)
-    for (int j = 0; j < s.dim; ++j) {
-      const int r = k * s.dim + j;
-      sp.ux[r * sp.us] = __fadd_rn(sp.ux[r * sp.us], sp.uxc[r * sp.stride]);
-    }
-  const StageParams sp_p{p.alpha, p.one_m_alpha, sp.stride};
-  stage_slack(sp_p, s, g, k, relax, sp.ux, sp.prev, sp.dual, 0, sp.us,
-              sp.w + k * sp.wk, sp.ws, sp.cones);
-}
-
-// The residual pass of thread q of a lane: the max-abs primal (pri) and
-// dual (dua, before its rho scaling) residuals of its share of one side;
-// with add it also completes ux = product + uxc in the buffer.  fresh: the
-// projection scratch already holds this iteration's projected slacks.
-template <bool kProj, int T = kTile, class P>
-__device__ __forceinline__ void side_residuals_q(const P& p,
-                                                 const SidePass& sp, int g,
-                                                 bool relax, int q, bool add,
-                                                 float& pri, float& dua,
-                                                 bool fresh = false) {
-  constexpr int kLaneThreads = Lanes<T>::kLaneThreads;
+// The residual pass of thread q of a lane over a box side: the max-abs
+// primal (pri) and dual (dua, before its rho scaling) residuals of its rows;
+// with add it also completes ux = product + uxc in the buffer.
+template <bool kRange = false, int T = kTile, class P>
+__device__ __forceinline__ void box_residuals_q(const P& p,
+                                                const SidePass& sp, int g,
+                                                bool relax, int q, bool add,
+                                                float& pri, float& dua) {
   const Side& s = *sp.s;
   float* ux = sp.ux;
-  const int k1 = min(sp.k1, s.n_stages);
-  if constexpr (kProj) {
-    for (int k = sp.k0 + q; k < k1; k += kLaneThreads) {
-      if (!fresh) projected_stage(p, sp, g, k, relax, add);
-      for (int j = 0; j < s.dim; ++j) {
-        const int r = k * s.dim + j;
-        const float w = sp.w[k * sp.wk + j * sp.ws];
-        pri = fmaxf(pri, fabsf(__fsub_rn(ux[r * sp.us], w)));
-        dua = fmaxf(dua, fabsf(__fsub_rn(sp.prev[r * sp.stride], w)));
-      }
-    }
-  } else {
-    const int rows = s.dim * k1;
-    for (int r0 = s.dim * sp.k0 + q; r0 < rows;
-         r0 += kLaneThreads * kRowBatch) {
-      BoxRows b;
-      load_box_rows<T>(sp, g, r0, rows, add, b);
+  const BoxWalk<T, kRange> wk(sp, q);
+  constexpr int kStep = BoxWalk<T, kRange>::kStep;
+  for (int r0 = wk.first; r0 < wk.end; r0 += kStep * kRowBatch) {
+    BoxRows b;
+    load_box_rows<kStep>(sp, g, r0, wk.end, add, b);
 #pragma unroll
-      for (int j = 0; j < kRowBatch; ++j) {
-        const int r = r0 + kLaneThreads * j;
-        if (r < rows) {
-          float u = ux[r * sp.us];
-          if (add) {
-            u = __fadd_rn(u, b.uxc[j]);
-            ux[r * sp.us] = u;
-          }
-          const float vn = box_slack(s, relaxed(p, relax, u, b.prev[j]),
-                                     sp.dual != nullptr, b.dual[j], b.lo[j],
-                                     b.hi[j]);
-          pri = fmaxf(pri, fabsf(__fsub_rn(u, vn)));
-          dua = fmaxf(dua, fabsf(__fsub_rn(b.prev[j], vn)));
+    for (int j = 0; j < kRowBatch; ++j) {
+      const int r = r0 + kStep * j;
+      if (r < wk.end) {
+        float u = ux[r * sp.us];
+        if (add) {
+          u = __fadd_rn(u, b.uxc[j]);
+          ux[r * sp.us] = u;
         }
+        const float vn = box_slack(s, relaxed(p, relax, u, b.prev[j]),
+                                   sp.dual != nullptr, b.dual[j], b.lo[j],
+                                   b.hi[j]);
+        pri = fmaxf(pri, fabsf(__fsub_rn(u, vn)));
+        dua = fmaxf(dua, fabsf(__fsub_rn(b.prev[j], vn)));
       }
     }
   }
 }
 
-// The update pass of thread q of a lane: the new slack, the dual ascent,
-// and the next product input (slack - dual) into the buffer.  The carry's
+// The update of one row: the new slack vn, the dual ascent, and the next
+// product input (slack - dual) into the buffer; the carry's slack ``prev``
+// where co_prev (the row's lane latches now, or a checking iteration writes
+// it ahead).
+template <class P>
+__device__ __forceinline__ void update_row(const P& p, const SidePass& sp,
+                                           bool relax, int r, float u,
+                                           float prev, float dual, float vn,
+                                           bool co_prev) {
+  const int o = r * sp.stride;
+  const float wh = relaxed(p, relax, u, prev);
+  float next = vn;  // state-free: g == 0, the entry is vnew
+  if (sp.dual) {
+    const float dn = __fsub_rn(__fadd_rn(dual, wh), vn);
+    sp.dual[o] = dn;
+    next = __fsub_rn(vn, dn);
+  }
+  sp.prev[o] = vn;
+  if (co_prev) sp.co[r * p.B] = prev;
+  sp.ux[r * sp.us] = next;
+}
+
+// The update pass of thread q of a lane over a box side.  The carry's
 // slack freezes before the converging iteration: a lane that latches now
 // (latch) writes the slack it had; the other lanes' carry is written once,
 // at the end.
-template <bool kProj, int T = kTile, class P>
-__device__ __forceinline__ void side_update_q(const P& p, const SidePass& sp,
-                                              int g, bool relax, int q,
-                                              bool add, bool latch) {
-  constexpr int kLaneThreads = Lanes<T>::kLaneThreads;
+template <bool kRange = false, int T = kTile, class P>
+__device__ __forceinline__ void box_update_q(const P& p, const SidePass& sp,
+                                             int g, bool relax, int q,
+                                             bool add, bool latch) {
   const Side& s = *sp.s;
-  float* ux = sp.ux;
-  auto row = [&](int r, float u, float prev, float dual, float vn) {
-    const int o = r * sp.stride;
-    const float wh = relaxed(p, relax, u, prev);
-    float next = vn;  // state-free: g == 0, the entry is vnew
-    if (sp.dual) {
-      const float dn = __fsub_rn(__fadd_rn(dual, wh), vn);
-      sp.dual[o] = dn;
-      next = __fsub_rn(vn, dn);
-    }
-    sp.prev[o] = vn;
-    if (latch) sp.co[r * p.B] = prev;
-    ux[r * sp.us] = next;
-  };
-  const int k1 = min(sp.k1, s.n_stages);
-  if constexpr (kProj) {
-    for (int k = sp.k0 + q; k < k1; k += kLaneThreads) {
-      projected_stage(p, sp, g, k, relax, add);
-      for (int j = 0; j < s.dim; ++j) {
-        const int r = k * s.dim + j, o = r * sp.stride;
-        row(r, ux[r * sp.us], sp.prev[o], sp.dual ? sp.dual[o] : 0.0f,
-            sp.w[k * sp.wk + j * sp.ws]);
+  const BoxWalk<T, kRange> wk(sp, q);
+  constexpr int kStep = BoxWalk<T, kRange>::kStep;
+  for (int r0 = wk.first; r0 < wk.end; r0 += kStep * kRowBatch) {
+    BoxRows b;
+    load_box_rows<kStep>(sp, g, r0, wk.end, add, b);
+#pragma unroll
+    for (int j = 0; j < kRowBatch; ++j) {
+      const int r = r0 + kStep * j;
+      if (r < wk.end) {
+        float u = sp.ux[r * sp.us];
+        if (add) u = __fadd_rn(u, b.uxc[j]);
+        const float vn = box_slack(s, relaxed(p, relax, u, b.prev[j]),
+                                   sp.dual != nullptr, b.dual[j], b.lo[j],
+                                   b.hi[j]);
+        update_row(p, sp, relax, r, u, b.prev[j], b.dual[j], vn, latch);
       }
     }
-  } else {
-    const int rows = s.dim * k1;
-    for (int r0 = s.dim * sp.k0 + q; r0 < rows;
-         r0 += kLaneThreads * kRowBatch) {
-      BoxRows b;
-      load_box_rows<T>(sp, g, r0, rows, add, b);
+  }
+}
+
+// Rows a projected stage's pass loads at once: 8, or 4 in an instance whose
+// registers 8 rows' loads would overflow (two blocks an SM, 128 registers a
+// thread; the cluster and global layouts and K2, whose products already
+// fill 255).
+constexpr int kStageBatch = 8;
+constexpr int kStageBatchSmall = 4;
+
+// The clipped slack of stage k of a projected side into w (with add, ux =
+// product + uxc completed in the buffer), kB rows at a time: a batch's
+// loads are all in flight before its arithmetic starts.
+template <int kB, class P>
+__device__ __forceinline__ void stage_slack(const P& p, const SidePass& sp,
+                                            int g, int k, bool relax,
+                                            bool add, const StageMem& w) {
+  const Side& s = *sp.s;
+  const int rk = k * s.dim;
+  const float* wmin = s.wmin + g * s.box_stride + rk;
+  const float* wmax = s.wmax + g * s.box_stride + rk;
+  for (int j0 = 0; j0 < s.dim; j0 += kB) {
+    float u[kB], prev[kB], dual[kB], c[kB], lo[kB], hi[kB];
 #pragma unroll
-      for (int j = 0; j < kRowBatch; ++j) {
-        const int r = r0 + kLaneThreads * j;
-        if (r < rows) {
-          float u = ux[r * sp.us];
-          if (add) u = __fadd_rn(u, b.uxc[j]);
-          const float vn = box_slack(s, relaxed(p, relax, u, b.prev[j]),
-                                     sp.dual != nullptr, b.dual[j], b.lo[j],
-                                     b.hi[j]);
-          row(r, u, b.prev[j], b.dual[j], vn);
+    for (int i = 0; i < kB; ++i) {
+      const int j = j0 + i, r = rk + j, o = r * sp.stride;
+      if (j < s.dim) {
+        u[i] = sp.ux[r * sp.us];
+        c[i] = add ? sp.uxc[o] : 0.0f;
+        prev[i] = sp.prev[o];
+        dual[i] = sp.dual ? sp.dual[o] : 0.0f;
+        if (s.en_box) {
+          lo[i] = __ldg(wmin + j);
+          hi[i] = __ldg(wmax + j);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kB; ++i) {
+      const int j = j0 + i;
+      if (j < s.dim) {
+        float v = u[i];
+        if (add) {
+          v = __fadd_rn(v, c[i]);
+          sp.ux[(rk + j) * sp.us] = v;
+        }
+        w[j] = box_slack(s, relaxed(p, relax, v, prev[i]),
+                         sp.dual != nullptr, dual[i], lo[i], hi[i]);
+      }
+    }
+  }
+}
+
+// Where stage k of a projected side lives: the side's StageMem.
+__device__ __forceinline__ StageMem stage_at(const SidePass& sp, int k) {
+  return {sp.w + k * sp.wk, sp.ws};
+}
+
+// The projected pass of thread q of a lane over its stages of one side,
+// each stage projected once an iteration (stage_slack, project_stage), then
+// each row's residuals (check: the max-abs primal and dual residuals, the
+// dual before its rho scaling) and its update (update_row), kB rows at a
+// time; the carry's slack is written ahead on every checking
+// iteration where the launch has a carry (co_ahead): a lane that latches on
+// it keeps the slack it had, and the others overwrite it at the end.  The
+// residuals and the update read only the row's own entries, so one pass
+// serves both.
+template <int T, int kB, class P>
+__device__ __forceinline__ void projected_pass(const P& p, const SidePass& sp,
+                                               int g, bool relax, int q,
+                                               bool add, bool check,
+                                               bool co_ahead, float& pri,
+                                               float& dua) {
+  const Side& s = *sp.s;
+  const int k1 = min(sp.k1, s.n_stages);
+  for (int k = sp.k0 + sp.qs; k < k1; k += Lanes<T>::kLaneThreads) {
+    const StageMem w = stage_at(sp, k);
+    stage_slack<kB>(p, sp, g, k, relax, add, w);
+    project_stage(w, s, sp.d);
+    const int rk = k * s.dim;
+    for (int j0 = 0; j0 < s.dim; j0 += kB) {
+      float u[kB], prev[kB], dual[kB], vn[kB];
+#pragma unroll
+      for (int i = 0; i < kB; ++i) {
+        const int j = j0 + i, r = rk + j, o = r * sp.stride;
+        if (j < s.dim) {
+          u[i] = sp.ux[r * sp.us];
+          prev[i] = sp.prev[o];
+          dual[i] = sp.dual ? sp.dual[o] : 0.0f;
+          vn[i] = w[j];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kB; ++i) {
+        const int j = j0 + i;
+        if (j < s.dim) {
+          if (check) {
+            pri = fmaxf(pri, fabsf(__fsub_rn(u[i], vn[i])));
+            dua = fmaxf(dua, fabsf(__fsub_rn(prev[i], vn[i])));
+          }
+          update_row(p, sp, relax, rk + j, u[i], prev[i], dual[i], vn[i],
+                     co_ahead);
         }
       }
     }

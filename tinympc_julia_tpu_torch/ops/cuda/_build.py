@@ -103,3 +103,16 @@ def ptxas_usage(log: str) -> dict:
             out[name] = KernelUsage(int(m.group(1)), *frame)
             frame = (0, 0, 0)
     return out
+
+
+def kernel_label(mangled: str) -> str:
+    """A K1 or K2 tile kernel's template arguments from its mangled name, as
+    ``name<ints..., In::k..., bools...>`` (other names as they are)."""
+    name = re.search(r"\d+(condensed_\w+?_kernel)I", mangled)
+    if not name:
+        return mangled
+    args = re.findall(r"L(i|b|N7tinympc2InE)(-?\d+)E", mangled)
+    words = {"i": str, "b": lambda v: ("false", "true")[int(v)],
+             "N7tinympc2InE": lambda v: ("kShared", "kGlobal",
+                                         "kCluster")[int(v)]}
+    return f"{name.group(1)}<{', '.join(words[k](v) for k, v in args)}>"

@@ -64,7 +64,8 @@ from .condensed_kernel import (CLUSTER_META, CLUSTER_SIZES, K2_HALF_PASS,
                                _dims, _flat_x0, _grouped_view,
                                _no_constraints, _ptr, _side_args,
                                _state_free, _up16, _FLT, _INT, _PTR, _SIDE,
-                               bf16_round, fused_constraints, mma_product,
+                               bf16_round, constraint_bytes,
+                               fused_constraints, mma_product,
                                pass_cost, ring_bytes, slice_rows,
                                stage_bounds_arg, stage_slices)
 from .condensed_kernel import _check_precision as _check_k1_precision
@@ -783,10 +784,10 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
     projected = bool(side_u[1] or side_u[4] or side_x[1] or side_x[4])
     wsc = torch.empty((sw, B), **f32) if projected or osqp else None
     dsc = torch.empty((sw, B), **f32) if osqp else None
-    # the cones' pairs in shared memory after the plan's layout, where they
-    # fit
-    pairs = _up16(8 * (side_u[4] + side_x[4]))
-    smem = plan.smem + (pairs if plan.smem + pairs <= SMEM_PER_BLOCK else 0)
+    # one group's constraint data in shared memory after the plan's layout,
+    # where it fits
+    data = constraint_bytes(cons, nx, nu)
+    smem = plan.smem + (data if plan.smem + data <= SMEM_PER_BLOCK else 0)
     # the tiles' iterates where they live in global memory: each tile its
     # own columns
     vecg = uxg = w2hg = None

@@ -501,23 +501,33 @@ def fused_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
     return plan if plan is not None else global_tile_plan(nx, nu, N, reduced)
 
 
+def constraint_bytes(cons: FusedConstraints, nx: int, nu: int) -> int:
+    """Bytes of a block's copy of one group's constraint data in shared
+    memory (csrc/projections.cuh constraint_bytes): both sides' cone
+    pairs and mu, then their halfspace rows."""
+    nc = cons.cones_u.num_cones + cons.cones_x.num_cones
+    nl = sum(int(rows.shape[-2]) * (2 * n + 1)
+             for rows, n in ((cons.lin_u, nu), (cons.lin_x, nx))
+             if rows is not None)
+    return (_up16(8 * nc) + _up16(4 * nc) if nc else 0) + _up16(4 * nl)
+
+
 def launch_smem(plan: TilePlan, dim_x: int, dim_u: int,
-                cones: int = 0) -> tuple[int, bool]:
+                data: int = 0) -> tuple[int, bool]:
     """A launch's shared memory and whether its projected stages are
     projected there: each thread's own buffer of the widest projected
     side's stage (``dim_x``, ``dim_u``: the stage widths of the projected
     sides, 0 for a side without halfspaces or cones) after the plan's
-    layout, where that fits; else the plan's alone, and the stages are
-    projected in the lanes' rows of a global scratch.  The pairs of
-    ``cones`` cones follow where they fit (the kernel reads them from the
-    device array where the launch leaves them no room)."""
+    layout, where that fits; else the stages are projected in the lanes'
+    rows of a global scratch.  The constraint data (``data`` bytes,
+    ``constraint_bytes``) follows where it fits; the kernel reads the device
+    arrays where the launch leaves it no room."""
     stage = 4 * THREADS * max(dim_x, dim_u)
-    pairs = _up16(8 * cones) if cones else 0
-    if stage and plan.smem + stage + pairs <= SMEM_PER_BLOCK:
-        return plan.smem + stage + pairs, True
-    if plan.smem + pairs <= SMEM_PER_BLOCK:
-        return plan.smem + pairs, False
-    return plan.smem, False
+    kept = stage > 0 and plan.smem + stage <= SMEM_PER_BLOCK
+    smem = plan.smem + (stage if kept else 0)
+    if smem + data <= SMEM_PER_BLOCK:
+        smem += data
+    return smem, kept
 
 
 def tile_iterations(counts: torch.Tensor, tile: int, groups: int = 1) -> int:
@@ -986,7 +996,7 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
     projected = proj_u or proj_x
     smem, stage_shared = launch_smem(plan, nx if proj_x else 0,
                                      nu if proj_u else 0,
-                                     side_u[4] + side_x[4])
+                                     constraint_bytes(cons, nx, nu))
     # the projected stages' global scratch where their buffers leave no
     # room in shared memory
     wsc = (torch.empty((sw, B), **f32) if projected and not stage_shared

@@ -1,7 +1,8 @@
 """Timing probes of kernels K1's and K2's wide-map layouts and of K3's far
 layout on one NVIDIA GPU (not run by the tests or by chip_smoke.py):
 
-    python -m tinympc_julia_tpu_torch.ops.cuda.layout_probe [wide|cluster|far]
+    python -m tinympc_julia_tpu_torch.ops.cuda.layout_probe \
+        [wide|cluster|far|stage]
 
 ``wide`` times the layouts the plans take at the wide maps of
 chip_smoke.py's phases 34a, 34d and 35a, each beside its product
@@ -9,7 +10,9 @@ yardstick; ``cluster`` times the cluster layouts against the layouts they
 replace at those shapes and at the switch's widths (ROADMAP R11), each
 held bit for bit against the plan's launch; ``far`` times K3's far layout
 at chip_smoke.py's phase 37b shapes beside its bounds, and against the near
-layout where both run.  All print only.
+layout where both run; ``stage`` splits K1e's projected stage pass (ROADMAP
+R13) and K2's OSQP-form controller (R14) off the rest of their launches.
+All print only.
 ``product_yardstick`` is also chip_smoke.py's yardstick."""
 from __future__ import annotations
 
@@ -373,15 +376,207 @@ def far_layout_probe(reps=3, N_far=300, B=16384, iters=100):
     return out
 
 
+def chain_plant(n=10, dt=0.5):
+    """The 20-state chain of chip_smoke.py's phases 35-37 and of the
+    ``stage`` probe: ``n`` unit masses in a line, unit springs between
+    neighbours and to the two walls, the n - 1 inputs the tensions between
+    neighbours; state (positions, velocities), zero-order hold at ``dt``.
+    Returns (A (2n, 2n), B (2n, n - 1))."""
+    from scipy.linalg import expm
+    lap = 2 * np.eye(n) - np.eye(n, k=1) - np.eye(n, k=-1)
+    tension = np.eye(n, n - 1) - np.eye(n, n - 1, k=-1)
+    m = np.zeros((3 * n - 1, 3 * n - 1))
+    m[:n, n:2 * n] = np.eye(n)
+    m[n:2 * n, :n] = -lap
+    m[n:2 * n, 2 * n:] = tension
+    e = expm(m * dt)
+    return e[:2 * n, :2 * n], e[:2 * n, 2 * n:]
+
+
+def digest(out) -> str:
+    """The first 12 hex digits of the sha1 of a launch's results (every
+    tensor's bytes in order): launches of two trees compare bit for bit."""
+    import hashlib
+    h = hashlib.sha1()
+    for t in out:
+        if isinstance(t, torch.Tensor):
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:12]
+
+
+def stage_probe(reps=3):
+    """K1e's projected stage pass split off the rest of its launches (ROADMAP
+    R13), and K2's OSQP-form controller off the termination one (R14), at
+    tolerances 0 so that no lane latches and every lane runs every
+    iteration (CUDA events, median of ``reps`` after a warm-up, each with
+    the digest of its results):
+
+    * phase 36's launch (the 20-state chain, N = 20, B = 16,384, 200
+      iterations, 10 state cones and 4 halfspace rows, the state box) and
+      the rocket's cold 72-iteration launch at B = 65,536 (phase 8), each
+      checking every iteration (ct = 1) and once at the end (ct =
+      max_iter), each with its constraints and with ``constraints=None``
+      (the box alone);
+    * the K1 instances' registers and spill bytes (``-Xptxas -v``, when this
+      process builds the library) and each launch's blocks an SM and shared
+      memory;
+    * K2 on phase 35b's chain (B = 4,096, 150 iterations) and at phase 35a's
+      N = 90 (B = 2,048, 150 iterations, the cluster) under the OSQP-form
+      and the termination controller.  Returns {label: ms}."""
+    from tinympc_julia_tpu_torch import make_problem
+    from tinympc_julia_tpu_torch.models import quadrotor, rocket
+    from tinympc_julia_tpu_torch.ops.condensed import (build_condensed,
+                                                       build_condensed_taylor)
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    from tinympc_julia_tpu_torch.ops.cuda._build import (kernel_label,
+                                                         load_libraries,
+                                                         ptxas_usage)
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    dev, f32 = torch.device("cuda"), torch.float32
+    for built in load_libraries(["condensed_fused", "condensed_adaptive"]):
+        for mangled, use in sorted(ptxas_usage(built.log).items()):
+            print(f"stage probe ptxas: {kernel_label(mangled)}: "
+                  f"{use.registers} registers, {use.spill_stores} / "
+                  f"{use.spill_loads} bytes spill stores / loads, "
+                  f"{use.stack_bytes} bytes stack", flush=True)
+    out = {}
+
+    def timed(label, f, extra=""):
+        res = f()
+        torch.cuda.synchronize()
+        t = float(np.median([event_ms(f) for _ in range(reps)]))
+        print(f"stage probe {label}: {t:.3f} ms, digest {digest(res)}, "
+              f"{int(res[2].double().sum())} lane-iterations{extra}",
+              flush=True)
+        out[label] = t
+        return t
+
+    def k1_split(name, maps, rho, p, x0, iters, cons, kw):
+        nx, nu, N = p.nx, p.nu, p.N
+        full = dict(nx=nx, nu=nu, N=N, max_iter=iters, abs_pri_tol=0.0,
+                    abs_dua_tol=0.0, en_input_bound=True,
+                    relaxation_alpha=1.0, warm_start=False, carry_out=False,
+                    **kw)
+        state_free = K._state_free(full["en_state_bound"], cons)
+        plan = K.fused_tile_plan(nx, nu, N, state_free=state_free,
+                                 busy_sms=K.card_busy_sms)
+        proj_u = cons.lin_u is not None or cons.cones_u.num_cones > 0
+        proj_x = cons.lin_x is not None or cons.cones_x.num_cones > 0
+        dims = (nx if proj_x else 0, nu if proj_u else 0)
+        # a parent tree without the staged constraint data takes the cones'
+        # count in its place
+        smem, shared = K.launch_smem(
+            plan, *dims, K.constraint_bytes(cons, nx, nu)
+            if hasattr(K, "constraint_bytes") else
+            cons.cones_u.num_cones + cons.cones_x.num_cones)
+        occ = K.tile_occupancy(plan, proj_u, proj_x, smem)
+        print(f"stage probe {name}: plan {plan}; projected launch "
+              f"{smem} B of shared memory, stage buffers in shared memory "
+              f"{shared}, {occ} blocks an SM; box-only launch {plan.smem} "
+              f"B, {K.tile_occupancy(plan)} blocks an SM", flush=True)
+        args = (maps, rho, p.u_min.reshape(-1), p.u_max.reshape(-1),
+                p.x_min.reshape(-1), p.x_max.reshape(-1), x0, None)
+        t = {}
+        for ct in (1, iters):
+            for tag, c in (("", cons), (" box only", None)):
+                f = functools.partial(K.condensed_fused_cuda, *args,
+                                      check_termination=ct, constraints=c,
+                                      **full)
+                t[f"ct={ct}{tag}"] = timed(f"{name} ct={ct}{tag}", f)
+        twice = t["ct=1"] - t["ct=1 box only"]
+        once = t[f"ct={iters}"] - t[f"ct={iters} box only"]
+        print(f"stage probe {name} split: the projections {twice:.3f} ms at "
+              f"ct=1 ({twice / iters * 1e3:.2f} us an iteration), "
+              f"{once:.3f} ms at ct={iters} ({once / iters * 1e3:.2f} us); "
+              f"cones over box {t['ct=1'] / t['ct=1 box only']:.3f}x at "
+              f"ct=1, {t[f'ct={iters}'] / t[f'ct={iters} box only']:.3f}x "
+              f"at ct={iters}", flush=True)
+
+    # phase 36: the chain, a state stage of 20 with 10 cones, 4 halfspaces
+    A, Bm = chain_plant()
+    xb = 3.0
+    p = make_problem(A, Bm, np.eye(20), np.eye(9), 1.0, 20, u_min=-1.0,
+                     u_max=1.0, x_min=np.full((20, 20), -xb),
+                     x_max=np.full((20, 20), xb), dtype=f32, device=dev)
+    c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+    rng = np.random.default_rng(11)
+    cons = K.fused_constraints(
+        soc_x=tuple((2 * j, 2, 0.5) for j in range(10)),
+        lin_x=(rng.normal(size=(4, 20)), np.full(4, 5.0)), nx=20, nu=9,
+        dtype=f32, device=dev)
+    x0 = torch.as_tensor(0.5 * np.random.default_rng(38).standard_normal(
+        (16384, 20)), dtype=f32, device=dev)
+    k1_split("phase 36 chain N=20 B=16384", build_condensed(p, c),
+             float(c.rho), p, x0, 200, cons, dict(en_state_bound=True))
+    # phase 8: the rocket's cold launch
+    from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import \
+        problem_constraint_kw
+    solver = rocket.make_solver(dtype=f32, device=dev)
+    Xref, Uref = rocket.reference_trajectory(0)
+    solver.set_x_ref(Xref)
+    solver.set_u_ref(Uref)
+    rp, rc, rs = solver.problem, solver.cache, solver.settings
+    r_cons = K.fused_constraints(**problem_constraint_kw(rp, rs), nx=6,
+                                 nu=3, dtype=f32, device=dev)
+    x0 = torch.as_tensor(rocket.X_INIT[None, :] * np.random.default_rng(
+        2).uniform(0.9, 1.1, size=(65536, 1)), dtype=f32, device=dev)
+    k1_split("phase 8 rocket cold B=65536", build_condensed(rp, rc),
+             float(rc.rho), rp, x0, 72, r_cons, dict(en_state_bound=True))
+
+    # K2: the OSQP-form controller against the termination one
+    def k2_split(name, p, c, x0, kw):
+        tm = build_condensed_taylor(p, c)
+        plant = K2.AdaptivePlant(p.A, p.B, p.Q, p.R, c.Pinf, c.dPinf_drho)
+        base = dict(nx=p.nx, nu=p.nu, N=p.N, max_iter=150, abs_pri_tol=0.0,
+                    abs_dua_tol=0.0, en_state_bound=False,
+                    en_input_bound=True, relaxation_alpha=1.0,
+                    adaptive_rho_clipping=True, check_termination=1,
+                    taylor_trust=float("inf"), warm_start=False,
+                    carry_out=False)
+        base.update(kw)
+        plan = K2.adaptive_tile_plan(p.nx, p.nu, p.N, 2,
+                                     busy_sms=K2.card_busy_sms)
+        t = {}
+        for ctl in ("osqp", "termination"):
+            f = functools.partial(K2.condensed_adaptive_cuda, tm, p.u_min,
+                                  p.u_max, p.x_min, p.x_max, x0, None,
+                                  plant=plant if ctl == "osqp" else None,
+                                  controller=ctl, **base)
+            t[ctl] = timed(f"{name} {ctl}", f)
+        print(f"stage probe {name} split: the OSQP-form controller "
+              f"{t['osqp'] - t['termination']:.3f} ms over the termination "
+              f"one ({t['osqp'] / t['termination']:.3f}x); {plan}",
+              flush=True)
+
+    p = make_problem(A, Bm, np.eye(20), np.eye(9), 1.0, 20, u_min=-1.0,
+                     u_max=1.0, dtype=f32, device=dev)
+    c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+    x0 = torch.as_tensor(0.5 * np.random.default_rng(37).standard_normal(
+        (4096, 20)), dtype=f32, device=dev)
+    k2_split("phase 35b K2 chain N=20 B=4096", p, c, x0,
+             dict(adaptive_rho_min=0.2, adaptive_rho_max=5.0))
+    p = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
+                     np.diag(quadrotor.R_DIAG), quadrotor.RHO, 90,
+                     u_min=-0.5, u_max=0.5, dtype=f32, device=dev)
+    c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+    x0 = torch.as_tensor(np.random.default_rng(39).uniform(
+        -0.3, 0.3, size=(2048, 12)), dtype=f32, device=dev)
+    k2_split("phase 35a K2 quadrotor N=90 B=2048", p, c, x0,
+             dict(adaptive_rho_min=3.0, adaptive_rho_max=1e3,
+                  taylor_trust=2.0))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", nargs="?", choices=("wide", "cluster", "far"),
+    ap.add_argument("probe", nargs="?", choices=("wide", "cluster", "far", "stage"),
                     default="cluster")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("layout_probe: needs an NVIDIA GPU")
     dict(wide=wide_layout_probe, cluster=cluster_probe,
-         far=far_layout_probe)[args.probe]()
+         far=far_layout_probe, stage=stage_probe)[args.probe]()
 
 
 if __name__ == "__main__":
