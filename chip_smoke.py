@@ -413,6 +413,40 @@ def paired_ms(f_kernel, f_plain, reps=5, plain_reps=None):
     return float(np.median(tk)), float(np.median(tp))
 
 
+def forced(mod, name, plan, f):
+    """``f`` with ``mod``'s wrapper made to launch ``plan``."""
+    from unittest import mock
+
+    def run():
+        with mock.patch.object(mod, name, lambda *a, **k: plan):
+            return f()
+    return run
+
+
+def same_bits(a, b):
+    """Whether two launches' results (carries walked) are the same bits."""
+    def flat(out):
+        for t in out:
+            if isinstance(t, tuple):
+                yield from flat(t)
+            elif t is not None:
+                yield t
+    return all(torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
+
+
+def describe_plan(plan):
+    """A K1 or K2 plan's layout as phases 4, 10e, 11 and 24 print it (a
+    plan of one block a tile)."""
+    passes = (plan.passes if hasattr(plan, "passes")
+              else f"{plan.passes1} + {plan.passes2}")
+    ring = ("by the bulk copy engine, no block barrier a slab"
+            if plan.bulk_ring else "by cp.async, a block barrier a slab")
+    return (f"tiles of {plan.tile} lanes, {plan.cluster} block(s) a tile, "
+            f"{plan.lanes} lanes x {2 * plan.rpt // plan.lanes} rows a "
+            f"thread in the fp32 product, slabs of {plan.slab_k} k-rows "
+            f"{ring}, {passes} passes, {plan.smem} bytes of shared memory")
+
+
 def lanes_differ(out_k, out_p):
     """Lanes whose count, flag, states or controls (and rho, for K2) are not
     the same bits on both sides."""
@@ -546,18 +580,23 @@ def earlier_phases(card):
     from tinympc_julia_tpu_torch.models import cartpole, quadrotor, rocket
     from tinympc_julia_tpu_torch.ops.condensed import (
         build_condensed, build_condensed_taylor)
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
     from tinympc_julia_tpu_torch.ops.cuda.adaptive_kernel import (
         AdaptiveFusedCarry, AdaptivePlant, adaptive_tile_plan,
-        condensed_adaptive_cuda, condensed_adaptive_reference)
+        condensed_adaptive_cuda, condensed_adaptive_reference,
+        shared_adaptive_plan)
     from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
         condensed_fused_cuda, condensed_fused_reference, fused_constraints,
         fused_tile_plan, problem_constraint_kw, tile_iterations)
+    from tinympc_julia_tpu_torch.ops.cuda.layout_probe import \
+        product_yardstick
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.parallel.pipeline import (
         ADAPTIVE_BUDGETS, STAGED, three_phase_solve, two_phase_adaptive_solve)
     from tinympc_julia_tpu_torch.parallel.rebuild import compact_members
 
     dev = torch.device("cuda")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     f32 = torch.float32
     N = cartpole.HORIZON
 
@@ -631,8 +670,8 @@ def earlier_phases(card):
     out_k, out_p = run_both(pq, cq, mq, x0_q, max_iter=1000,
                             check_termination=4, en_state_bound=False)
     errs.append(agreement(
-        f"phase 4 quadrotor (sw=316, tile {plan_q.tile}, T12 in shared "
-        f"memory: {plan_q.resident})", out_k, out_p))
+        f"phase 4 quadrotor (sw=316, {describe_plan(plan_q)}, T12 in "
+        f"shared memory: {plan_q.resident})", out_k, out_p))
 
     # -- phase 4b: K1's wide maps, the product in passes ---------------------
     for Nw in (40, 57):
@@ -1045,12 +1084,13 @@ def earlier_phases(card):
                    adaptive_rho_min=quadrotor.RHO, adaptive_rho_max=1e3)
     tq = build_condensed_taylor(pq, cq)
     out_k, out_p = k2_both(pq, cq, tq, x0_q, max_iter=300, **quad_kw)
-    plan_a = adaptive_tile_plan(12, 4, qN, 2)
+    plan_a = adaptive_tile_plan(12, 4, qN, 2)  # the bulk pass's (phase 11)
+    plan_10e = adaptive_tile_plan(12, 4, qN, 2, tiles=-(-B_QUAD // 32),
+                                  sms=n_sm)
     a_errs.append(adaptive_agreement(
-        f"phase 10e quadrotor (sw=316, tiles of {plan_a.tile} lanes, "
-        f"{plan_a.rpt} rows a thread in {plan_a.passes1} + {plan_a.passes2} "
-        f"passes, maps {'resident' if plan_a.resident else 'streamed'}, "
-        f"{plan_a.smem} bytes of shared memory), termination controller, "
+        f"phase 10e quadrotor (sw=316, {describe_plan(plan_10e)}, maps "
+        f"{'resident' if plan_10e.resident else 'streamed'}), termination "
+        "controller, "
         "trust 2", out_k, out_p))
     # any Taylor order; the reduced-precision products
     t4 = build_condensed_taylor(pa, ca, order=4)
@@ -1164,7 +1204,6 @@ def earlier_phases(card):
         k2_flops * int(it.sum()),
         tensor_bytes(tqa.T1s, tqa.T2s[:, :, :sw_q], tqa.T2s[:, :, -1:],
                      *bulk_args[1:6], xs, us, it, ok, tuple(carry.data)))
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     n_tile_b = tile_iterations(it, plan_a.tile)
     # the continuation launch alone: the bulk pass's stragglers compacted
     # into the slots as the pipeline does, warm from the kernel's carry,
@@ -1185,8 +1224,23 @@ def earlier_phases(card):
         f"phase 11 continuation launch ({SLOTS_ADAPT} slots warm from the "
         f"bulk pass's carry, up to {ADAPTIVE_BUDGETS[1]} iterations) vs "
         "plain", cont_k, cont_p, min_solved=0))
+    # the continuation's plan from its batch, and the layout of tiles of 32
+    # it replaced forced beside it: the same bits, timed in turns
+    plan_c = adaptive_tile_plan(12, 4, qN, 2, tiles=-(-SLOTS_ADAPT // 32),
+                                sms=n_sm)
+    f_co = forced(K2, "adaptive_tile_plan",
+                  shared_adaptive_plan(12, 4, qN, 2), f_ck)
+    same_c = same_bits(cont_k, f_co())
+    print(f"phase 11 continuation plan: {describe_plan(plan_c)}; tiles of "
+          f"32 forced (the layout before the batch-aware plan) bit-equal "
+          f"{same_c}", flush=True)
+    check(same_c, "phase 11: the continuation differs from its tiles of 32")
     t_c, t_c_p = paired_ms(f_ck, f_cp, reps=3, plain_reps=1)
-    n_tile_c = tile_iterations(cont_k[2], plan_a.tile)
+    t_c, t_co = paired_ms(f_ck, f_co, reps=4)
+    n_tile_c = tile_iterations(cont_k[2], plan_c.tile)
+    y_c = product_yardstick([(ord1 * sw_q, in1_q), (4 * su_q, sw_q + 1)],
+                            SLOTS_ADAPT, n_tile_c,
+                            -(-SLOTS_ADAPT // plan_c.tile))
     k2c_bound = bound(
         k2_flops * int(cont_k[2].sum()),
         tensor_bytes(tqa.T1s, tqa.T2s[:, :, :sw_q], tqa.T2s[:, :, -1:],
@@ -1196,17 +1250,20 @@ def earlier_phases(card):
           f"{plan_a.tile * n_tile_b / int(it.sum()):.3f} x the lanes' own, "
           f"{1e3 * t_k2 * n_sm / n_tile_b:.3f} SM-us each; bound "
           f"{k2_bound[0]:.4f} ms by {k2_bound[1]}", flush=True)
-    print(f"phase 11 K2 continuation launch: tiles of {plan_a.tile} lanes, "
-          f"{plan_a.rpt} rows a thread in {plan_a.passes1} + "
-          f"{plan_a.passes2} passes; mean iterations "
-          f"{cont_k[2].float().mean().item():.1f}, largest "
-          f"{int(cont_k[2].max())}; {n_tile_c} tile iterations "
-          f"({-(-SLOTS_ADAPT // plan_a.tile)} tiles), "
-          f"{plan_a.tile * n_tile_c / max(1, int(cont_k[2].sum())):.3f} x "
+    n_cont = -(-SLOTS_ADAPT // plan_c.tile)
+    print(f"phase 11 K2 continuation launch: {describe_plan(plan_c)}; mean "
+          f"iterations {cont_k[2].float().mean().item():.1f}, largest "
+          f"{int(cont_k[2].max())}; {n_tile_c} tile iterations ({n_cont} "
+          f"tiles on {min(n_cont, n_sm)} of {n_sm} SMs), "
+          f"{plan_c.tile * n_tile_c / max(1, int(cont_k[2].sum())):.3f} x "
           f"the lanes' own, {1e3 * t_c / int(cont_k[2].max()):.3f} us an "
-          f"iteration of the slowest tile; kernel {t_c:.3f} ms (median of "
-          f"3), plain {t_c_p:.3f} ms (one timing), bound "
-          f"{k2c_bound[0]:.4f} ms by {k2c_bound[1]}", flush=True)
+          f"iteration of the slowest tile, "
+          f"{1e3 * t_c * min(n_cont, n_sm) / n_tile_c:.3f} SM-us a tile "
+          f"iteration; kernel {t_c:.3f} ms (median of 4, in turns with the "
+          f"tiles of 32 forced: {t_co:.3f} ms, {t_co / t_c:.3f}x), plain "
+          f"{t_c_p:.3f} ms (one timing), bound {k2c_bound[0]:.4f} ms by "
+          f"{k2c_bound[1]}; product yardstick (one cuBLAS fp32 matmul an "
+          f"iteration x the tile iterations) {y_c:.3f} ms", flush=True)
     n_strag = int(res_a.unconv.sum())
     print(f"phase 11 adaptive pipeline B={B_ADAPT}, {SLOTS_ADAPT} slots, "
           f"fp32 150 + 2500: {int(ok.sum())} converged in the bulk pass, "
@@ -2165,9 +2222,13 @@ def rebuild_and_horizon_phases(card):
     from tinympc_julia_tpu_torch.ops.cuda.adaptive_kernel import (
         AdaptiveFusedCarry, condensed_adaptive_cuda,
         condensed_adaptive_reference)
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
     from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
         FusedCarry, condensed_fused_cuda, condensed_fused_reference,
-        make_condensed_fused_solver, tile_iterations)
+        fused_tile_plan, make_condensed_fused_solver, shared_tile_plan,
+        tile_iterations)
+    from tinympc_julia_tpu_torch.ops.cuda.layout_probe import \
+        product_yardstick
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.parallel import batch as batch_mod
     from tinympc_julia_tpu_torch.parallel.pipeline import (
@@ -2476,6 +2537,15 @@ def rebuild_and_horizon_phases(card):
                        f"{REQUANT_HEAD} reduced iterations) vs plain", o_k,
                        o_p, min_solved=0)
     t_k, t_p = paired_ms(f_k, f_p, reps=3, plain_reps=1)
+    # the launch's plan from its batch, and the layout it replaced (2 lanes
+    # a thread) forced beside it: the same bits, timed in turns
+    plan24 = fused_tile_plan(12, 4, qN, True)
+    f_ko = forced(K, "fused_tile_plan", shared_tile_plan(12, 4, qN, True),
+                  f_k)
+    same24 = same_bits(o_k, f_ko())
+    check(same24, "phase 24: the requantized continuation differs from its "
+          "layout of 2 lanes a thread")
+    t_k, t_ko = paired_ms(f_k, f_ko, reps=4)
     f_k0 = functools.partial(condensed_fused_cuda, *args2,
                              **dict(kw2, bf16_head_iters=0))
     o_k0 = f_k0()
@@ -2486,6 +2556,8 @@ def rebuild_and_horizon_phases(card):
                        o_k)
     n_tile = tile_iterations(o_k[2], 32, G)
     n_tile0 = tile_iterations(o_k0[2], 32, G)
+    y24 = product_yardstick([(sw, sw)], G * SLOTS_ADAPT, n_tile,
+                            G * -(-SLOTS_ADAPT // 32))
     sv = valid.reshape(G, -1)
     slow = [int(o_k[2].reshape(G, -1)[g][sv[g]].max()) if bool(sv[g].any())
             else 0 for g in range(G)]
@@ -2508,12 +2580,19 @@ def rebuild_and_horizon_phases(card):
           f"solves/s; without the head {t_r0:.3f} ms; the two-phase K2 "
           f"pipeline (phase 11's) {t_2:.3f} ms (median of {DEEP_REPS}) on "
           f"{card}", flush=True)
+    print(f"phase 24 requantized continuation plan: {describe_plan(plan24)};"
+          f" 2 lanes a thread forced (the layout before the batch-aware "
+          f"plan) bit-equal {same24}", flush=True)
     print(f"phase 24 continuations alone, from the same bulk carry (median "
           f"of {DEEP_REPS}): K2's {t_k2c:.3f} ms; the requantized K1d launch "
-          f"with its {REQUANT_HEAD}-iteration head {t_k:.3f} ms (plain "
+          f"with its {REQUANT_HEAD}-iteration head {t_k:.3f} ms (median of "
+          f"4, in turns with 2 lanes a thread forced: {t_ko:.3f} ms, "
+          f"{t_ko / t_k:.3f}x; plain "
           f"{t_p:.3f} ms, one timing; bound {b24[0]:.4f} ms by {b24[1]}; "
-          f"{n_tile} tile iterations, {1e3 * t_k * n_sm / n_tile:.3f} SM-us "
-          f"each; the slowest slot per bucket {slow}), without the head "
+          f"{n_tile} tile iterations over {G * -(-SLOTS_ADAPT // 32)} tiles, "
+          f"{1e3 * t_k * n_sm / n_tile:.3f} SM-us each; product yardstick "
+          f"(one cuBLAS fp32 matmul an iteration x the tile iterations) "
+          f"{y24:.3f} ms; the slowest slot per bucket {slow}), without the head "
           f"{t_k0:.3f} ms ({n_tile0} tile iterations, "
           f"{1e3 * t_k0 * n_sm / n_tile0:.3f} SM-us each)", flush=True)
     rows.append({
@@ -3114,16 +3193,6 @@ def lifted_shape_phases(card):
 
     def k2_plan(*a):
         return K2.adaptive_tile_plan(*a, busy_sms=K2.card_busy_sms)
-
-    def forced(mod, name, plan, f):
-        """``f`` with ``mod``'s wrapper made to launch ``plan``."""
-        def run():
-            with mock.patch.object(mod, name, lambda *a, **k: plan):
-                return f()
-        return run
-
-    def same_bits(a, b):
-        return all(torch.equal(x, y) for x, y in zip(a, b))
 
     def k1_kw(p, **kw):
         base = dict(nx=p.nx, nu=p.nu, N=p.N, max_iter=100, abs_pri_tol=1e-3,

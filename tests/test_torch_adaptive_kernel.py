@@ -377,7 +377,8 @@ def test_wrong_inputs_raise():
 
 
 def test_tile_plan():
-    """K1's tiles of 32 lanes on 256 threads, whatever the batch.  The
+    """K1's tiles of 32 lanes on 256 threads for a batch that fills the
+    card (the batch-aware plans: ``test_plan_takes_the_batch``).  The
     cartpole's maps (T1 3 x 24 x 128, the interleaved T2 stack 100 x 128,
     fp32) sit in shared memory beside the lanes' state; the quadrotor's
     (337 KB + 385 KB) stream through the slab ring, 20 rows a thread
@@ -436,6 +437,53 @@ def test_tile_plan():
         assert p.cluster > 1 and not p.resident and not p.state_shared
         assert p.ld1 >= 16 * N_ - 4 and p.ld2 >= 16 * (N_ - 1)
         assert p.smem <= K.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("shape,tiles,sms,cont", [
+    ((12, 4, 20), 64, 132, True),     # the adaptive pipeline's 2,048 slots
+    ((12, 4, 20), 66, 132, True),     # tiles of 16 on all 132 SMs
+    ((12, 4, 20), 67, 132, False),    # past the card: tiles of 32
+    ((12, 4, 20), 512, 132, False),   # the bulk pass's 16,384 lanes
+    ((12, 4, 20), 128, 132, False),   # the group grid's 8 x 512 lanes
+    ((12, 4, 20), 64, 114, False),    # a card of 114 SMs
+    ((12, 4, 32), 16, 132, True),     # sw 508: one pass of 512 rows
+    ((12, 4, 40), 16, 132, False),    # sw 636: more than one pass
+    ((4, 1, 20), 16, 132, False),     # the cartpole: its maps resident
+    ((6, 3, 10), 16, 132, False),     # the rocket: its maps resident
+    ((12, 4, 90), 16, 132, False),    # the cluster's widths
+], ids=["quad-2048", "quad-66", "quad-67", "quad-bulk", "quad-grid",
+        "quad-114sms", "quad-n32", "quad-n40", "cartpole", "rocket",
+        "quad-n90"])
+def test_plan_takes_the_batch(shape, tiles, sms, cont):
+    """A launch whose tiles of 32 lanes would leave half the card's SMs idle
+    (2 x tiles <= SMs) and stream their maps takes the continuation layout
+    where its products take one pass: tiles of 16 lanes, each product one
+    pass of 512 rows (8 rows x 4 lanes a thread, slabs of 16 k-rows), only
+    the map's valid rows streamed, where the forward pass uses at least
+    half its rows; every other launch keeps the plan of a batch that fills
+    the card, field for field."""
+    full = K2.adaptive_tile_plan(*shape, 2)
+    for reduced in (False, True):
+        for state_free in (True, False):
+            p = K2.adaptive_tile_plan(*shape, 2, reduced, state_free,
+                                      tiles=tiles, sms=sms)
+            base = K2.adaptive_tile_plan(*shape, 2, reduced, state_free)
+            if not cont:
+                assert p == base
+                continue
+            assert p == K2.continuation_adaptive_plan(*shape, 2, reduced,
+                                                      state_free)
+            assert (p.tile, p.rpt, p.width, p.passes1, p.passes2) == (
+                16, K2.K2_CONT_RPT, 512, 1, 1)
+            assert (p.lanes, p.slab_k, p.cluster, p.resident) == (4, 16, 1,
+                                                                  False)
+            assert p.smem <= K.SMEM_PER_BLOCK
+    if shape == (12, 4, 20):
+        assert full.tile == 32 and (full.lanes, full.slab_k) == (2, 8)
+    # the maps' rows padded only to a multiple of a thread's 8 (sw 316,
+    # 4 su 304), so that a slab is one bulk copy
+    p = K2.continuation_adaptive_plan(12, 4, 20, 2)
+    assert (p.ld1, p.ld2) == (320, 304) and p.bulk_ring
 
 
 # -- the group grid ----------------------------------------------------------

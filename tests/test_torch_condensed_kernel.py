@@ -182,12 +182,14 @@ def test_tile_plan():
     # resident map 99 x 128
     assert K.fused_tile_plan(4, 1, 20) == K.TilePlan(
         32, 256, True, True, 128, 128, 12672 + 144 + 4096 + 27776 + 50688)
-    # quadrotor, sw = 316: 20 rows a thread (320 padded rows), the state
-    # (708 floats a lane) resident, T12 streamed in 8-row slabs (a ring of
-    # six 8 x 320 fp32 slabs)
+    # quadrotor, sw = 316: 20 rows a thread (320 padded rows; in the fp32
+    # product 10 rows x 4 lanes, the 4-lane layout), the state (708 floats
+    # a lane) resident, T12 streamed through a ring of the bytes of six 8 x
+    # 320 fp32 slabs (three 16-row slabs with 4 lanes a thread)
     plan = K.fused_tile_plan(12, 4, 20)
     assert plan == K.TilePlan(32, 256, False, True, 320, 320,
-                              40448 + 144 + 4096 + 90624 + 6 * 8 * 320 * 4)
+                              40448 + 144 + 4096 + 90624 + 6 * 8 * 320 * 4,
+                              lanes=4)
     assert plan.smem <= K.SMEM_PER_BLOCK == 232448
     assert plan.tile % (2 * K.MMA_N) == 0
     # a state dual adds sx floats a lane
@@ -823,7 +825,7 @@ def test_tile_plan_with_reduced_iterations():
     ring = max(6 * 8 * 320 * 4, 4 * 320 * (16 + 8) * 2)
     assert plan == K.TilePlan(32, 256, False, True, 320, 320,
                               40448 + 144 + 4096 + 90624 + ring
-                              + 2 * 32 * 328)
+                              + 2 * 32 * 328, lanes=4)
     assert plan.smem <= 232448 and plan.tile % K.MMA_N == 0
 
 
@@ -1136,17 +1138,18 @@ MAIN_SHAPE_PLANS = [
     ((6, 3, 10), True, False, (32, 256, True, True, 128, 96, 126608, 1,
                                False),
      (32, 256, 8, 1, 1, False, True, 64, 96, 81808, False)),
+    # the quadrotor at N = 20: K1's 4-lane layout (lanes 4, the last field)
     ((12, 4, 20), False, True, (32, 256, False, True, 320, 320, 196752, 1,
-                                False),
+                                False, 1, (), 4),
      (32, 256, 20, 1, 1, False, True, 96, 320, 176272, False)),
     ((12, 4, 20), False, False, (32, 256, False, True, 320, 320, 227472, 1,
-                                 False),
+                                 False, 1, (), 4),
      (32, 256, 20, 1, 1, False, True, 96, 320, 206992, False)),
     ((12, 4, 20), True, True, (32, 256, False, True, 320, 320, 217744, 1,
-                               False),
+                               False, 1, (), 4),
      (32, 256, 20, 1, 1, False, True, 96, 320, 197264, False)),
     ((12, 4, 20), True, False, (32, 256, False, False, 320, 320, 127120, 1,
-                                False),
+                                False, 1, (), 4),
      (32, 256, 20, 1, 1, False, True, 96, 320, 227984, False)),
     ((12, 4, 32), False, True, (32, 256, False, False, 512, 512, 167568, 1,
                                 False),
@@ -1163,20 +1166,56 @@ MAIN_SHAPE_PLANS = [
 ]
 
 
+@pytest.mark.parametrize("tiles", [None, 512, 2048],
+                         ids=["any-batch", "16384-lanes", "65536-lanes"])
 @pytest.mark.parametrize("shape,reduced,state_free,k1,k2", MAIN_SHAPE_PLANS,
                          ids=[f"{s[0][0]}x{s[0][1]}-N{s[0][2]}"
                               f"-{'lo' if s[1] else 'fp32'}"
                               f"-{'free' if s[2] else 'dual'}"
                               for s in MAIN_SHAPE_PLANS])
-def test_main_shape_plans_are_unchanged(shape, reduced, state_free, k1, k2):
+def test_main_shape_plans_are_unchanged(shape, reduced, state_free, k1, k2,
+                                        tiles):
     """The cartpole at N = 20, the rocket at N = 10 and the quadrotor at N
     = 20, 32 and 40 keep the plans they had before the cluster layout,
-    field for field: no cluster, nothing in global memory."""
+    field for field: no cluster, nothing in global memory; K1's at the
+    quadrotor's N = 20 takes 4 lanes a thread in its fp32 product (the
+    4-lane layout, faster on the card at every batch measured: PERF.md
+    section 6), the rest 2.  K2's are the same for the bulk batches
+    (``tiles`` of 32 lanes: the adaptive pipeline's 16,384 lanes, the
+    headline's 65,536) under the batch-aware plan."""
     from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
     p = K.fused_tile_plan(*shape, reduced, state_free)
     assert p == K.TilePlan(*k1) and (p.cluster, p.stages) == (1, ())
-    q = K2.adaptive_tile_plan(*shape, 2, reduced, state_free)
+    q = K2.adaptive_tile_plan(*shape, 2, reduced, state_free, tiles=tiles)
     assert q == K2.AdaptivePlan(*k2) and (q.cluster, q.stages) == (1, ())
+
+
+@pytest.mark.parametrize("shape,lanes4", [
+    ((12, 4, 20), True),    # sw 316: one pass of 320 rows, map streamed
+    ((12, 4, 32), False),   # 32 rows a thread (sw 508)
+    ((12, 4, 40), False),   # two passes (sw 636)
+    ((4, 1, 20), False),    # the cartpole: its map resident
+    ((6, 3, 10), False),    # the rocket: its map resident
+    ((12, 4, 60), False),   # the cluster's widths
+], ids=["quad-n20", "quad-n32", "quad-n40", "cartpole", "rocket",
+        "quad-n60"])
+def test_four_lane_plan(shape, lanes4):
+    """A plan that streams its map in one pass of 320 rows takes the 4-lane
+    layout (10 rows x 4 lanes a thread in the fp32 product, slabs of 16
+    k-rows), whatever the batch, with room left for its ring's barriers;
+    every other plan keeps 2 lanes a thread and 8-row slabs."""
+    for reduced in (False, True):
+        for state_free in (True, False):
+            p = K.fused_tile_plan(*shape, reduced, state_free)
+            base = K.shared_tile_plan(*shape, reduced, state_free)
+            if lanes4:
+                assert p == base._replace(lanes=4)
+                assert (p.rpt, p.passes, p.resident, p.slab_k) == (20, 1,
+                                                                   False, 16)
+                assert p.smem + K.RING_BARS_BYTES <= K.SMEM_PER_BLOCK
+            else:
+                assert p.lanes == 2
+                assert p.slab_k == (16 if p.cluster > 1 else 8)
 
 
 @pytest.mark.parametrize("shape,blocks", [

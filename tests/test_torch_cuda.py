@@ -1637,6 +1637,102 @@ def _forced(monkeypatch, module, name, plan):
     monkeypatch.setattr(module, name, lambda *a, **k: plan)
 
 
+def _same_bits(a, b):
+    """Whether two launches' results, carries included, are the same bits."""
+    def flat(out):
+        for t in out:
+            if isinstance(t, tuple):
+                yield from flat(t)
+            elif t is not None:
+                yield t
+    fa, fb = list(flat(a)), list(flat(b))
+    return len(fa) == len(fb) and all(torch.equal(x, y)
+                                      for x, y in zip(fa, fb))
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize("slots", [2048, 2040], ids=["2048", "partial"])
+@pytest.mark.parametrize("order", [2, 4], ids=["order2", "order4"])
+@pytest.mark.parametrize("controller", ["termination", "osqp"])
+def test_k2_continuation_layout_agrees_bit_for_bit(dev, monkeypatch,
+                                                   controller, order, slots):
+    """K2's warm continuation at the adaptive quadrotor's 2,048 slots (and
+    2,040: a last tile of 8 of its 16 lanes) takes the continuation layout
+    (tiles of 16 lanes, one pass each product, slabs by the bulk copy
+    engine, a checking iteration's box passes in one): the same bits as
+    the tiles of 32 it replaced, forced, carry included, under the
+    termination and the OSQP-form controller at Taylor order 2 and 4; the
+    same bits as the plain version under the termination controller, and
+    under the OSQP-form one K2's bar against its plain version
+    (``_k2_agree``: the plain OSQP-form residuals are batched matmuls on
+    the card, not sums in index order)."""
+    p, c = _quad(N, dev)
+    tm = build_condensed_taylor(p, c, order=order)
+    args = (tm, p.u_min, p.u_max, p.x_min, p.x_max, _x0(slots, 12, 23, 0.3,
+                                                          dev))
+    rho = _QUAD_KW if controller == "termination" else dict(
+        controller="osqp", adaptive_rho_min=1.0, adaptive_rho_max=50.0)
+    kw = _k2_kw(p, c, max_iter=30, **rho)
+    bulk = K2.condensed_adaptive_cuda(*args, None, **kw)
+    kw = dict(kw, max_iter=300, warm_start=True)
+    plan = K2.adaptive_tile_plan(12, 4, N, order, tiles=-(-slots // 32),
+                                 sms=_sms(dev))
+    assert (plan.tile, plan.passes1, plan.passes2, plan.bulk_ring) == (
+        16, 1, 1, True)
+    k = K2.condensed_adaptive_cuda(*args, bulk[5], **kw)
+    r = K2.condensed_adaptive_reference(*args, bulk[5], **kw)
+    _forced(monkeypatch, K2, "adaptive_tile_plan",
+            K2.shared_adaptive_plan(12, 4, N, order))
+    o = K2.condensed_adaptive_cuda(*args, bulk[5], **kw)
+    torch.cuda.synchronize()
+    assert _same_bits(k, o)
+    if controller == "termination":
+        assert int(k[3].sum()) > slots // 2
+        assert _same_bits(k, r)
+    else:
+        _k2_agree(k, r)
+
+
+@pytest.mark.parametrize("slots", [2048, 2040], ids=["2048", "partial"])
+@pytest.mark.parametrize("head", [0, 64], ids=["fp32", "head64"])
+def test_k1d_continuation_layout_agrees_bit_for_bit(dev, monkeypatch, head,
+                                                    slots):
+    """K1d's grouped warm continuation at the requantized pipeline's 3
+    buckets x 2,048 slots (and 2,040) on the 4-lane layout (10 rows x 4
+    lanes a thread in the fp32 product, slabs of 16 k-rows by the bulk copy
+    engine, a checking iteration's box passes in one), with and without a
+    reduced head: the same bits as the plain version and as 2 lanes a
+    thread, forced, carry included."""
+    from tinympc_julia_tpu_torch.parallel.pipeline import requantized_buckets
+    p, c = _quad(N, dev)
+    rhos, bmaps = requantized_buckets(p, c)
+    G = len(rhos)
+    brho = torch.tensor(rhos, dtype=torch.float32, device=dev)
+    args = (bmaps, brho, p.u_min, p.u_max, p.x_min, p.x_max,
+            _x0(G * slots, 12, 24, 0.3, dev))
+    kw = dict(nx=12, nu=4, N=N, abs_pri_tol=1e-3, abs_dua_tol=1e-3,
+              en_state_bound=False, en_input_bound=True,
+              relaxation_alpha=1.0, check_termination=1, num_groups=G,
+              carry_out=True)
+    cold = K.condensed_fused_cuda(*args, None, max_iter=30,
+                                  warm_start=False, **kw)
+    kw = dict(kw, max_iter=300, warm_start=True, bf16_head_iters=head)
+    plan = K.fused_tile_plan(12, 4, N, head > 0)
+    assert (plan.lanes, plan.passes, plan.rpt) == (4, 1, 20)
+    k = K.condensed_fused_cuda(*args, cold[4], **kw)
+    r = K.condensed_fused_reference(*args, cold[4], **kw)
+    _forced(monkeypatch, K, "fused_tile_plan",
+            K.shared_tile_plan(12, 4, N, head > 0))
+    o = K.condensed_fused_cuda(*args, cold[4], **kw)
+    torch.cuda.synchronize()
+    assert int(k[3].sum()) > G * slots // 2
+    assert _same_bits(k, o)
+    assert _same_bits(k, r)
+
+
 @pytest.mark.parametrize("horizon", [20, 60], ids=["n20", "n60"])
 @pytest.mark.parametrize("reduced", [False, True], ids=["fp32", "head8"])
 def test_k1_layouts_agree_bit_for_bit(dev, monkeypatch, horizon, reduced):

@@ -64,6 +64,15 @@
 //    leave no room, vec1 and ux live in global memory, each tile its own
 //    columns, and stream through the ring beside the maps' slabs
 //    (In::kGlobal).  The sums keep their order in every layout.
+//  * A launch of few tiles (a continuation's slots: tiles of 32 would
+//    leave half the card idle) takes the continuation layout: tiles of 16
+//    lanes on twice the SMs, each product one pass of 512 rows (8 rows x
+//    4 lanes a thread in the fp32 product: K2Product), the maps' rows
+//    padded only to a thread's rows so that a
+//    16-row slab is one bulk copy, issued by thread 0 once every warp has
+//    freed the slot (no block barrier a slab), a row's 4 lanes stored as one
+//    16-byte word in the forward epilogue, and a checking iteration's box
+//    residuals and updates in one pass (the carry's slack written ahead).
 //  * The elementwise step runs on all threads, 256 / T a lane: relaxation,
 //    projections, residuals and dual ascent (tile_gemm.cuh,
 //    projections.cuh), and the OSQP-form prediction stage by stage; the
@@ -90,9 +99,9 @@
 //    lane = g * L + l, and rho stays per lane.
 //
 // Launch contract: the Python wrapper (adaptive_tile_plan) picks the tile
-// and the rows a thread (32 lanes with 8 or 20 rows, 16 lanes with 8, 32
-// lanes with 20 and the iterates in global memory, and 32 lanes with 32
-// split over a cluster: the instances), the cluster and its blocks'
+// and the rows a thread (32 lanes with 8 or 20 rows, 16 lanes with 8 or
+// 16, 32 lanes with 20 and the iterates in global memory, and 32 lanes
+// with 32 split over a cluster: the instances), the cluster and its blocks'
 // stages, the passes, the padded layouts, the
 // residency of maps and state and the dynamic shared-memory size; the entry
 // point refuses a layout the kernel would overrun.
@@ -319,6 +328,30 @@ __device__ __forceinline__ bool takes(const Tile& t, int r, int rows, int l) {
   return r < rows && l < t.nvalid && !t.done[l];
 }
 
+// The fp32 products' thread layout of an instance: lanes a thread (8 on a
+// cluster, RPT / 4 rows; 4 in the continuation layout's tiles of 16 with
+// RPT 16, 8 rows; else 2, RPT rows), the
+// ring's slab depth and slots (16 k-rows in 3 slots where a thread takes
+// more than 2 lanes, else 8 in 6: the same bytes), whether a slab carries
+// only the map's valid rows (a cluster block's slice; the continuation
+// layout's one pass of 512 rows over fewer), and whether the ring
+// fills by the bulk copy engine with no block barrier a slab (gemm_fp32's
+// kMbar; the continuation layout's maps have their rows padded only to a
+// thread's rows, so a slab is one copy).  The continuation layout: tiles
+// of 16 lanes whose products cover RPT x 32 rows at once, for launches
+// whose tiles of 32 would leave half the card idle (adaptive_tile_plan).
+template <int RPT, int T, In kIn>
+struct K2Product {
+  static constexpr bool kCont = kIn == In::kShared && T == 16 && RPT == 16;
+  static constexpr int kLanes = kIn == In::kCluster ? 8 : kCont ? 4 : 2;
+  static constexpr int kRows = RPT * 2 / kLanes;
+  static constexpr bool kDeep = kLanes > 2;
+  static constexpr int kSK = kDeep ? kSlabKWide : kSlabK;
+  static constexpr int kST = kDeep ? kStagesWide : kStages;
+  static constexpr bool kValid = kIn == In::kCluster || kCont;
+  static constexpr bool kMbar = kCont;
+};
+
 // The forward product into ux: the T1 blocks from order o down to 0, a pass
 // of W rows at a time.  The Horner value v = v drho + acc of each output
 // the thread sums lives in its entry of ux, which no other thread touches
@@ -327,12 +360,43 @@ template <int RPT, int T, In kIn>
 __device__ __forceinline__ void forward(const Params& p, const Tile& t,
                                         bool lo, const float* rho_b) {
   const int W = Lanes<T>::kRowGroups * RPT, ord1 = p.ord1;
-  // the cluster layout's fp32 product: 8 lanes x RPT / 4 rows a thread
-  constexpr bool kWide = kIn == In::kCluster;
+  using P = K2Product<RPT, T, kIn>;
   auto epi = [&](int j, const auto& acc, const auto& fr) {
     const int c = ord1 - 1 - j % ord1, r0 = t.r0 + (j / ord1) * W;
+    using F = std::decay_t<decltype(fr)>;
+    constexpr bool kRow4 = [] {
+      if constexpr (F::kLo)
+        return false;
+      else
+        return F::kLanes == 4 && kIn == In::kShared;
+    }();
+    if constexpr (kRow4) {
+      // the continuation layout: a row's 4 lanes as one 16-byte load and
+      // store (a warp's 8 rows share the banks), their drho read once
+      const int l0 = fr.lane(0);
+      float4 d = *reinterpret_cast<const float4*>(rho_b + l0);
+      d = make_float4(__fsub_rn(d.x, t.rho0), __fsub_rn(d.y, t.rho0),
+                      __fsub_rn(d.z, t.rho0), __fsub_rn(d.w, t.rho0));
 #pragma unroll
-    for (int e = 0; e < std::decay_t<decltype(fr)>::kN; ++e) {
+      for (int i = 0; i < F::kN / 4; ++i) {
+        const int r = r0 + fr.row(4 * i);
+        if (r >= t.r1) continue;
+        float4* v = reinterpret_cast<float4*>(t.ux + r * t.bs + l0);
+        const float* a = acc + 4 * i;
+        if (c == ord1 - 1) {
+          *v = make_float4(a[0], a[1], a[2], a[3]);
+        } else {
+          const float4 u = *v;
+          *v = make_float4(__fadd_rn(__fmul_rn(u.x, d.x), a[0]),
+                           __fadd_rn(__fmul_rn(u.y, d.y), a[1]),
+                           __fadd_rn(__fmul_rn(u.z, d.z), a[2]),
+                           __fadd_rn(__fmul_rn(u.w, d.w), a[3]));
+        }
+      }
+      return;
+    }
+#pragma unroll
+    for (int e = 0; e < F::kN; ++e) {
       const int r = r0 + fr.row(e), l = fr.lane(e);
       if (r < t.r1) {
         float* v = t.ux + r * t.bs + l;
@@ -349,8 +413,8 @@ __device__ __forceinline__ void forward(const Params& p, const Tile& t,
     GemmLo a{kIn == In::kCluster ? t.vec1 + t.d0 * t.bs : t.vec1, t.w2h,
              reinterpret_cast<__nv_bfloat16*>(t.ring), p.in1, p.kp1, W,
              nseg, t.tid, lda, t.bs};
-    if constexpr (kIn == In::kCluster) {
-      a.ci = t.ci1;
+    if constexpr (kIn == In::kCluster) a.ci = t.ci1;
+    if constexpr (P::kValid) {
       a.vrows = t.r1 - t.r0;
       a.vper = ord1;
     }
@@ -361,13 +425,12 @@ __device__ __forceinline__ void forward(const Params& p, const Tile& t,
     }, epi);
   } else {
     GemmF32 a{t.vec1, t.ring, p.in1, W, p.ld1, nseg, t.tid, t.bs};
-    if constexpr (kIn == In::kCluster) {
-      a.ci = t.ci1;
+    if constexpr (kIn == In::kCluster) a.ci = t.ci1;
+    if constexpr (P::kValid) {
       a.vrows = t.r1 - t.r0;
       a.vper = ord1;
     }
-    gemm_fp32<kWide ? RPT / 4 : RPT, T, kIn, kWide ? 8 : 2,
-              kWide ? kSlabKWide : kSlabK, kWide ? kStagesWide : kStages>(
+    gemm_fp32<P::kRows, T, kIn, P::kLanes, P::kSK, P::kST, false, P::kMbar>(
         a, [&](int j) {
       const int c = ord1 - 1 - j % ord1, pass = j / ord1;
       return t.t1 + static_cast<size_t>(c) * p.in1 * p.ld1 + t.m1row0 +
@@ -393,7 +456,7 @@ __device__ __forceinline__ void backward(const Params& p, const Tile& t,
                                          bool lo, const float* rho_b,
                                          const float* rho_n) {
   const int W = Lanes<T>::kRowGroups * RPT;
-  constexpr bool kWide = kIn == In::kCluster;
+  using P = K2Product<RPT, T, kIn>;
   // r: the output's index in the block's d rows
   auto store = [&](int r, int l, float a0, float a1, float a2, float a3) {
     r += t.d0;
@@ -434,21 +497,16 @@ __device__ __forceinline__ void backward(const Params& p, const Tile& t,
     GemmLo a{kIn == In::kCluster ? t.ux + t.r0 * t.bs : t.ux, t.w2h,
              reinterpret_cast<__nv_bfloat16*>(t.ring), p.sw + 1, p.kp2, W,
              p.passes2, t.tid, lda, t.bs};
-    if constexpr (kIn == In::kCluster) {
-      a.ci = t.ci2;
-      a.vrows = 4 * (t.d1 - t.d0);
-    }
+    if constexpr (kIn == In::kCluster) a.ci = t.ci2;
+    if constexpr (P::kValid) a.vrows = 4 * (t.d1 - t.d0);
     gemm_lo<RPT, T, kIn>(a, [&](int j) {
       return t.t2a + static_cast<size_t>(t.m2row0 + j * W) * lda;
     }, epi);
   } else {
     GemmF32 a{t.ux, t.ring, p.sw + 1, W, p.ld2, p.passes2, t.tid, t.bs};
-    if constexpr (kIn == In::kCluster) {
-      a.ci = t.ci2;
-      a.vrows = 4 * (t.d1 - t.d0);
-    }
-    gemm_fp32<kWide ? RPT / 4 : RPT, T, kIn, kWide ? 8 : 2,
-              kWide ? kSlabKWide : kSlabK, kWide ? kStagesWide : kStages>(
+    if constexpr (kIn == In::kCluster) a.ci = t.ci2;
+    if constexpr (P::kValid) a.vrows = 4 * (t.d1 - t.d0);
+    gemm_fp32<P::kRows, T, kIn, P::kLanes, P::kSK, P::kST, false, P::kMbar>(
         a, [&](int j) { return t.t2 + t.m2row0 + j * W; }, epi);
   }
 }
@@ -707,6 +765,7 @@ __device__ __forceinline__ float termination_predict(const Params& p, int gm,
 template <int RPT, int T, In kIn, bool kProjU, bool kProjX>
 __global__ void __launch_bounds__(kThreads, 1)
     condensed_adaptive_kernel(Params p) {
+  TINYMPC_SEC_BEGIN();
   extern __shared__ float4 smem4[];
   char* sm = reinterpret_cast<char*>(smem4);
   constexpr int tpl = Lanes<T>::kLaneThreads;
@@ -883,6 +942,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   if (tid == 0) *n_done = 0;
+  if constexpr (K2Product<RPT, T, kIn>::kMbar)
+    if (tid == 0) ring_bars_init();
   // a barrier of the block, or of the cluster, whose blocks read each
   // other's iterates
   auto sync = [] {
@@ -892,11 +953,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();
   };
   sync();
+  TINYMPC_SEC(kSecOther);
 
   const bool relax = p.alpha != 1.0f;
   const int gp = p.plant_grouped ? g : 0;
   int cur = 0;  // which half of rho_s holds the lanes' rho
   for (int i = 0; i < p.max_iter; ++i) {
+    TINYMPC_SEC_ITERATION();
     const bool check = (i + 1) % p.ct == 0;
     const bool update = i > 0 && i % kRhoInterval == 0;
     // an iteration that checks or predicts rho runs its products in fp32
@@ -906,6 +969,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     forward<RPT, T, kIn>(p, t, lo, rho_b);
     sync();  // ux complete; no block reads vec1 any more
+    TINYMPC_SEC(kSecBarrier);
 
     // the elementwise step of lane l, thread q of its 256 / T
     const bool active = !done[l];
@@ -932,6 +996,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     // the termination residuals, on a checking iteration and where the
     // termination controller predicts rho
     const bool term = check || (update && !p.osqp);
+    // the continuation layout takes a box side's residuals and update in
+    // one pass (box_pass_q), the carry's slack written ahead on a checking
+    // iteration
+    const bool fused = K2Product<RPT, T, kIn>::kCont && term && !osqp_now;
     float pi = 0.0f, di = 0.0f, ps = 0.0f, ds = 0.0f;
     if (active && !osqp_now) {  // a projected side's one pass: its stages'
                                 // residuals and updates
@@ -943,6 +1011,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         projected_pass<T, kStageBatchSmall>(p, sx_p, g, relax, q, false,
                                             term, ahead, ps, ds);
     }
+    TINYMPC_SEC(kSecStep);
     if (osqp_now) {  // every stage's new slack and dual, for all threads
       if (active) {
         osqp_fill<T, kProjU, kProjX>(p, su_p, sx_p, g, relax, lane, q);
@@ -951,22 +1020,36 @@ __global__ void __launch_bounds__(kThreads, 1)
             p.uxo[r * B + lane] = t.ux[r * t.bs + l];
       }
       sync();
+      TINYMPC_SEC(kSecRho);
     }
     if (check || update) {
       float m[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       if (active) {
+        const bool ahead = check && p.carry_out;
         if (term) {  // the projected slacks are fresh after osqp_fill
-          if constexpr (!kProjU)
-            box_residuals_q<kRangeU, T>(p, su_p, g, relax, q, false, pi, di);
-          else if (osqp_now)
+          if constexpr (!kProjU) {
+            if (fused)
+              box_pass_q<kRangeU, T>(p, su_p, g, relax, q, false, ahead, pi,
+                                     di);
+            else
+              box_residuals_q<kRangeU, T>(p, su_p, g, relax, q, false, pi,
+                                          di);
+          } else if (osqp_now) {
             fresh_pass_q<T>(p, su_p, p.wsc + lane, p.dsc + lane, true,
                             false, pi, di);
-          if constexpr (!kProjX)
-            box_residuals_q<kRangeX, T>(p, sx_p, g, relax, q, false, ps, ds);
-          else if (osqp_now)
+          }
+          if constexpr (!kProjX) {
+            if (fused)
+              box_pass_q<kRangeX, T>(p, sx_p, g, relax, q, false, ahead, ps,
+                                     ds);
+            else
+              box_residuals_q<kRangeX, T>(p, sx_p, g, relax, q, false, ps,
+                                          ds);
+          } else if (osqp_now)
             fresh_pass_q<T>(p, sx_p, p.wsc + su * B + lane,
                             p.dsc + su * B + lane, true, false, ps, ds);
         }
+        TINYMPC_SEC(kSecStep);
         if (osqp_now) {
           if constexpr (kCl)
             osqp_partials<T>(p, t, gp, p.uxo + lane, B, lane,
@@ -974,6 +1057,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           else
             osqp_partials<T>(p, t, gp, t.ux + l, t.bs, lane,
                              __fsub_rn(rb, t.rho0), q, m);
+          TINYMPC_SEC(kSecRho);
         }
       }
       red[tid] = make_float4(pi, di, ps, ds);
@@ -1009,6 +1093,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           fold(peer_load4(a), peer_load4(a + 16), peer_load4(a + 32));
         }
       }
+      TINYMPC_SEC(kSecMaxima);
       if (active) {
         if (update)
           rho_new = p.osqp ? osqp_predict(p, m, rb)
@@ -1019,23 +1104,28 @@ __global__ void __launch_bounds__(kThreads, 1)
                 __fmul_rn(ds, rho_new) < p.dua_tol &&
                 __fmul_rn(di, rho_new) < p.dua_tol;
       }
+      TINYMPC_SEC(kSecRho);
     }
     // a box side's slack, dual, output and carry updates (and a projected
     // side's from the scratch after osqp_fill); ux becomes vec2
     if (active) {
       const bool latch = p.carry_out && newly;
       float unused = 0.0f;
-      if constexpr (!kProjU)
-        box_update_q<kRangeU, T>(p, su_p, g, relax, q, false, latch);
-      else if (osqp_now)
+      if constexpr (!kProjU) {
+        if (!fused)
+          box_update_q<kRangeU, T>(p, su_p, g, relax, q, false, latch);
+      } else if (osqp_now) {
         fresh_pass_q<T>(p, su_p, p.wsc + lane, p.dsc + lane, false, latch,
                         unused, unused);
-      if constexpr (!kProjX)
-        box_update_q<kRangeX, T>(p, sx_p, g, relax, q, false, latch);
-      else if (osqp_now)
+      }
+      if constexpr (!kProjX) {
+        if (!fused)
+          box_update_q<kRangeX, T>(p, sx_p, g, relax, q, false, latch);
+      } else if (osqp_now)
         fresh_pass_q<T>(p, sx_p, p.wsc + su * B + lane,
                         p.dsc + su * B + lane, false, latch, unused, unused);
     }
+    TINYMPC_SEC(kSecStep);
     if (q == 0) {
       rho_n[l] = rho_new;
       if (newly) {  // the outputs hold vnew/znew; d stays frozen
@@ -1047,13 +1137,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         atomicAdd(n_done, 1);
       }
     }
+    TINYMPC_SEC(kSecMaxima);
     sync();  // vec2 complete
+    TINYMPC_SEC(kSecStep);  // the wait for the lanes' slowest thread
     cur ^= 1;
     if (*n_done == t.nvalid) break;  // every lane of the tile has latched
 
     // backward: cost fold at the pre-update drho, gain at the post-update
     backward<RPT, T, kIn>(p, t, lo, rho_b, rho_n);
     sync();  // d complete; no block reads vec2 any more
+    TINYMPC_SEC(kSecBarrier);
   }
 
   // the outputs from the resident state, the rho, d and the carry of the
@@ -1082,6 +1175,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (carry) p.vco[r * B + lane] = v;
     }
   }
+  TINYMPC_SEC_END();
 }
 
 // The kernel for RPT rows a thread, tiles of T lanes and the iterates in
@@ -1106,6 +1200,8 @@ void (*pick_kernel(int tile, int rpt, In in, bool proj_u,
     return tile_kernel<20, 32, In::kShared>(proj_u, proj_x);
   if (tile == 16 && in == In::kShared && rpt == 8)
     return tile_kernel<8, 16, In::kShared>(proj_u, proj_x);
+  if (tile == 16 && in == In::kShared && rpt == 16)
+    return tile_kernel<16, 16, In::kShared>(proj_u, proj_x);
   if (tile == 32 && in == In::kGlobal && rpt == 20)
     return tile_kernel<20, 32, In::kGlobal>(proj_u, proj_x);
   if (tile == 32 && in == In::kCluster && rpt == 32)
@@ -1228,6 +1324,15 @@ extern "C" int tinympc_condensed_adaptive(
   const int W = tile > 0 ? rpt * (2 * kThreads / tile) : 0;
   p.passes1 = passes1; p.passes2 = passes2;
   p.ld1 = cluster * passes1 * W; p.ld2 = cluster * passes2 * W;
+  if (tile == 16 && rpt == 16) {
+    // the continuation layout's one pass: the maps' rows padded only to a
+    // multiple of a thread's 8 rows (K2Product), a slab one contiguous copy
+    p.ld1 = (p.sw + 7) / 8 * 8;
+    p.ld2 = (4 * p.su + 7) / 8 * 8;
+    if (passes1 != 1 || passes2 != 1 || cluster != 1 || iterates_global ||
+        resident)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   p.kp1 = kp1; p.kp2 = kp2;
   p.max_iter = max_iter; p.ct = ct; p.lo_all = lo_all;
   p.alpha = alpha; p.one_m_alpha = one_m_alpha;

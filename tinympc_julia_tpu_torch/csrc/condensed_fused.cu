@@ -41,6 +41,14 @@
 //    while the block multiplies one.  (A two-slot ring times the same at
 //    the quadrotor shape: the slabs' latency is not what bounds the
 //    streamed product; PERF.md section 6.)
+//  * Where the map streams in one pass of 320 rows (the quadrotor at N =
+//    20), the 4-lane layout: the fp32 product's thread tile is 10 rows x 4
+//    lanes (the same W: fewer shared-memory loads an FMA), the map's slabs
+//    are 16 k-rows, each one bulk copy issued by thread 0 once every warp
+//    has freed its slot (the warps wait on the slab's mbarrier, not on a
+//    block barrier a slab), and a checking iteration takes a box side's
+//    residuals and updates in one pass (the carry's slack written ahead, as
+//    a projected side's pass does).
 //  * The tile's w2 lives in shared memory as [row][lane], a single buffer:
 //    after a barrier the product overwrites it (latched lanes keep theirs),
 //    and the elementwise step adds uxc and turns ux into the next w2 in
@@ -109,8 +117,8 @@
 //    iteration.
 //
 // Launch contract: the Python wrapper (fused_tile_plan) picks the rows a
-// thread (8, 20 or 32 with w2 in shared memory, 32 split over a cluster,
-// 32 with w2 in global memory: the instances), the cluster and its blocks'
+// thread (8, 20 or 32 with w2 in shared memory, 20 with 4 lanes a thread,
+// 32 split over a cluster, 32 with w2 in global memory: the instances), the cluster and its blocks'
 // stages, the passes, the padded layouts (swp = cluster x passes x 16 RPT
 // rows of the transposed map; kp columns of the bf16 map), whether
 // the map and the state are resident
@@ -396,10 +404,14 @@ __device__ __forceinline__ void tile_epilogue(const Params& p, const Tile& t,
     }
 }
 
-// The fp32 product, pass by pass: thread (tr, tl) owns rows tr*RPT ..
-// +RPT-1 of the pass, lanes 2 tl, 2 tl + 1, and sums each over k in index
-// order with fmaf.
-template <int RPT, In kIn>
+// The fp32 product, pass by pass: thread (tr, tl) owns rows tr*R ..
+// +R-1 of the pass (R = 2 RPT / LPT), lanes LPT tl .. +LPT-1, and sums each
+// over k in index order with fmaf.  The cluster layout takes 8 lanes x RPT
+// / 4 rows a thread; a thread of more than 2 lanes streams slabs of 16
+// k-rows (the same W and ring bytes), and the 4-lane layout (4 lanes,
+// w2 in shared memory) fills its ring by the bulk copy engine with no block
+// barrier a slab (kMbar).
+template <int RPT, In kIn, int LPT>
 __device__ __forceinline__ void tile_product_fp32(const Params& p,
                                                   const Tile& t) {
   const int W = kRowGroups * RPT;
@@ -408,11 +420,11 @@ __device__ __forceinline__ void tile_product_fp32(const Params& p,
     a.ci = t.ci;
     a.vrows = t.r1 - t.r0;
   }
-  // the cluster layout: 8 lanes x RPT / 4 rows a thread, the same W
-  constexpr bool kWide = kIn == In::kCluster;
-  gemm_fp32<kWide ? RPT / 4 : RPT, kTile, kIn, kWide ? 8 : 2,
-            kWide ? kSlabKWide : kSlabK, kWide ? kStagesWide : kStages,
-            kWide>(
+  constexpr int kL = kIn == In::kCluster ? 8 : LPT;
+  constexpr bool kDeep = kL > 2;
+  gemm_fp32<RPT * 2 / kL, kTile, kIn, kL, kDeep ? kSlabKWide : kSlabK,
+            kDeep ? kStagesWide : kStages, kIn == In::kCluster,
+            kIn == In::kShared && kL == 4>(
       a, [&](int j) { return t.map + t.mrow0 + j * W; },
       [&](int j, const auto& acc, const auto& fr) {
         tile_epilogue<kIn>(p, t, W, j, acc, fr);
@@ -452,9 +464,10 @@ __device__ __forceinline__ void tile_product_lo(const Params& p,
 // shared memory (a max is exact in any order), with kCluster then the
 // blocks' over distributed shared memory, and every thread of the lane (of
 // every block) takes the same latch decision; a box side's update follows
-// it.  Returns whether lane l latched, from its thread 0 (which writes the
-// count).
-template <In kIn, bool kProjU, bool kProjX, int kB>
+// it (with kFuse, the continuation layout's, a checking iteration takes a
+// box side's residuals and update in one pass: box_pass_q).  Returns
+// whether lane l latched, from its thread 0 (which writes the count).
+template <In kIn, bool kProjU, bool kProjX, int kB, bool kFuse = false>
 __device__ __forceinline__ bool tile_step(const Params& p, const Tile& t,
                                           float4* red, int g, float rho,
                                           int i, bool check, bool add) {
@@ -498,14 +511,19 @@ __device__ __forceinline__ bool tile_step(const Params& p, const Tile& t,
     if constexpr (kProjU)
       projected_pass<kTile, kB>(p, su, g, relax, q, add, check, ahead, pi,
                                 di);
+    else if (check && kFuse)
+      box_pass_q<kRangeU>(p, su, g, relax, q, add, ahead, pi, di);
     else if (check)
       box_residuals_q<kRangeU>(p, su, g, relax, q, add, pi, di);
     if constexpr (kProjX)
       projected_pass<kTile, kB>(p, sx, g, relax, q, add, check, ahead, ps,
                                 ds);
+    else if (check && kFuse)
+      box_pass_q<kRangeX>(p, sx, g, relax, q, add, ahead, ps, ds);
     else if (check)
       box_residuals_q<kRangeX>(p, sx, g, relax, q, add, ps, ds);
   }
+  TINYMPC_SEC(kSecStep);
   bool newly = false;
   if (check) {
     red[q * kTile + l] = make_float4(pi, di, ps, ds);
@@ -533,14 +551,16 @@ __device__ __forceinline__ bool tile_step(const Params& p, const Tile& t,
     newly = active && ps < p.pri_tol && pi < p.pri_tol &&
             __fmul_rn(ds, rho) < p.dua_tol && __fmul_rn(di, rho) < p.dua_tol;
     add = false;  // the residual pass completed ux
+    TINYMPC_SEC(kSecMaxima);
   }
-  if (active) {
+  if (active && !(kFuse && check)) {
     const bool latch = p.carry_out && newly;
     if constexpr (!kProjU)
       box_update_q<kRangeU>(p, su, g, relax, q, add, latch);
     if constexpr (!kProjX)
       box_update_q<kRangeX>(p, sx, g, relax, q, add, latch);
   }
+  TINYMPC_SEC(kSecStep);
   if (newly && q == 0 && t.rank == 0) {
     p.iters[lane] = i + 1;
     p.solved[lane] = 1;
@@ -552,9 +572,10 @@ __device__ __forceinline__ bool tile_step(const Params& p, const Tile& t,
 // block's shared memory, global memory streamed beside the map, or split
 // over a cluster); kProjU/kProjX: whether the input / state side has
 // halfspaces or cones.
-template <int RPT, In kIn, bool kProjU, bool kProjX>
+template <int RPT, In kIn, bool kProjU, bool kProjX, int LPT>
 __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
     condensed_fused_kernel(Params p) {
+  TINYMPC_SEC_BEGIN();
   extern __shared__ float4 smem4[];
   char* sm = reinterpret_cast<char*>(smem4);
   constexpr bool kCl = kIn == In::kCluster;
@@ -673,6 +694,8 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
         t.buf[r * t.bs + l] = 0.0f;
   }
   if (tid == 0) *n_done = 0;
+  if constexpr (kIn == In::kShared && LPT == 4)
+    if (tid == 0) ring_bars_init();
   if constexpr (kCl)
     cluster_sync();  // every block's w2 and meta before the first product
   else
@@ -681,7 +704,9 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
   // rows a projected stage's pass loads at once (tile_gemm.cuh)
   constexpr int kB =
       (kIn == In::kShared && RPT > 8) ? kStageBatch : kStageBatchSmall;
+  TINYMPC_SEC(kSecOther);
   for (int i = 0; i < p.max_iter; ++i) {
+    TINYMPC_SEC_ITERATION();
     const bool check = is_check(p, i);
     if (i == 0 && !p.warm_start) {
       // cold iteration 0: d = 0, so ux is the pure rollout (no matmul); the
@@ -704,18 +729,21 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
       if (is_reduced(p, i, check))
         tile_product_lo<RPT, kIn>(p, t);
       else
-        tile_product_fp32<RPT, kIn>(p, t);
+        tile_product_fp32<RPT, kIn, LPT>(p, t);
     }
     __syncthreads();
-    if (tile_step<kIn, kProjU, kProjX, kB>(p, t, red, g, rho, i, check,
-                                           i > 0 || p.warm_start)) {
+    TINYMPC_SEC(kSecBarrier);
+    if (tile_step<kIn, kProjU, kProjX, kB, kIn == In::kShared && LPT == 4>(
+            p, t, red, g, rho, i, check, i > 0 || p.warm_start)) {
       done[tid % kTile] = 1;
       atomicAdd(n_done, 1);
     }
+    TINYMPC_SEC(kSecMaxima);
     if constexpr (kCl)
       cluster_sync();  // every block's next w2 before the next product
     else
       __syncthreads();
+    TINYMPC_SEC(kSecStep);  // the wait for the lanes' slowest thread
     if (*n_done == t.nvalid) break;  // every lane of the tile has latched
   }
 
@@ -746,21 +774,30 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
       if (carry) p.vco[r * B + lane] = v;
     }
   }
+  TINYMPC_SEC_END();
 }
 
-// The kernel for RPT rows a thread and w2 in shared, global or a
-// cluster's memory, with the projections the sides need.
-template <int RPT, In kIn>
+// The kernel for RPT rows a thread (2 RPT / LPT rows x LPT lanes of the
+// fp32 product) and w2 in shared, global or a cluster's memory, with the
+// projections the sides need.
+template <int RPT, In kIn, int LPT = 2>
 void (*tile_kernel(bool proj_u, bool proj_x))(Params) {
   return proj_u
-             ? (proj_x ? condensed_fused_kernel<RPT, kIn, true, true>
-                       : condensed_fused_kernel<RPT, kIn, true, false>)
-             : (proj_x ? condensed_fused_kernel<RPT, kIn, false, true>
-                       : condensed_fused_kernel<RPT, kIn, false, false>);
+             ? (proj_x ? condensed_fused_kernel<RPT, kIn, true, true, LPT>
+                       : condensed_fused_kernel<RPT, kIn, true, false, LPT>)
+             : (proj_x ? condensed_fused_kernel<RPT, kIn, false, true, LPT>
+                       : condensed_fused_kernel<RPT, kIn, false, false,
+                                                LPT>);
 }
 
 // The instances fused_tile_plan picks from; null for any other.
-void (*pick_kernel(int rpt, In in, bool proj_u, bool proj_x))(Params) {
+void (*pick_kernel(int rpt, In in, int lanes, bool proj_u,
+                   bool proj_x))(Params) {
+  if (lanes == 4)  // the 4-lane layout: 10 rows x 4 lanes a thread
+    return in == In::kShared && rpt == 20
+               ? tile_kernel<20, In::kShared, 4>(proj_u, proj_x)
+               : nullptr;
+  if (lanes != 2) return nullptr;
   if (in == In::kShared && rpt == 8)
     return tile_kernel<8, In::kShared>(proj_u, proj_x);
   if (in == In::kShared && rpt == 20)
@@ -802,12 +839,13 @@ cudaError_t launch(void (*kernel)(Params), dim3 grid, int cluster,
 // Blocks of one SM for the instance of a launch (the occupancy API), or,
 // for a cluster of ``cluster`` blocks, the clusters the whole card holds at
 // once; a negative CUDA error.
-extern "C" int tinympc_condensed_fused_occupancy(int rpt, int w2_global,
-                                                 int cluster, int proj_u,
-                                                 int proj_x,
+extern "C" int tinympc_condensed_fused_occupancy(int rpt, int lanes,
+                                                 int w2_global, int cluster,
+                                                 int proj_u, int proj_x,
                                                  int smem_bytes) {
-  void (*kernel)(Params) = pick_kernel(rpt, layout_of(w2_global, cluster),
-                                       proj_u != 0, proj_x != 0);
+  void (*kernel)(Params) =
+      pick_kernel(rpt, layout_of(w2_global, cluster), lanes, proj_u != 0,
+                  proj_x != 0);
   if (!kernel) return -static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -845,7 +883,7 @@ extern "C" int tinympc_condensed_fused(
     int ct, int k0, int lo_all, float alpha, float one_m_alpha, float pri_tol,
     float dua_tol, int en_input_bound, int en_state_bound, int warm_start,
     int carry_out, int state_shared, int t12_resident, int w2_global,
-    int cluster, const int* stages, int rpt, int swp, int kp,
+    int cluster, const int* stages, int rpt, int lanes, int swp, int kp,
     int smem_bytes, int map_grouped, int rho_grouped, int box_u_grouped,
     int box_x_grouped, const float* lin_u, int n_lin_u, const int* soc_u,
     const float* soc_mu_u, int n_soc_u, int lin_u_grouped, int mu_u_grouped,
@@ -855,7 +893,8 @@ extern "C" int tinympc_condensed_fused(
   // leading group axis.  lin_*: (n_lin, 2*dim + 1) device rows; soc_*: n_soc
   // (start, dim) pairs on the device; soc_mu_*: (n_soc,) on the device.
   // t12a: the (swp, kp) bf16 map of reduced iterations; swp = the passes x
-  // 16 x rpt, the rows a thread (the instances), kp a multiple of
+  // 16 x rpt, the rows a thread (the instances: 2 rpt / lanes rows x lanes
+  // lanes of the fp32 product, lanes 2, or 4 at rpt 20), kp a multiple of
   // kSlabKLo; park: the (sw, B) scratch of a launch of several passes; wsc:
   // the (sw, B) projection scratch of a launch with linear or cone
   // constraints whose stage buffers (kThreads x the widest projected
@@ -947,7 +986,7 @@ extern "C" int tinympc_condensed_fused(
   p.cons_shared =
       cons > 0 && static_cast<size_t>(smem_bytes) >= need + stage + cons;
 
-  void (*kernel)(Params) = pick_kernel(rpt, in, proj_u, proj_x);
+  void (*kernel)(Params) = pick_kernel(rpt, in, lanes, proj_u, proj_x);
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(smem_bytes);
   cudaError_t err = cudaFuncSetAttribute(

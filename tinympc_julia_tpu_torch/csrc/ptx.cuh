@@ -115,6 +115,22 @@ __device__ __forceinline__ void mbar_init(unsigned long long* bar) {
                : "memory");
 }
 
+// ... that completes on ``count`` arrivals
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_address(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival on ``bar``
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_address(bar))
+               : "memory");
+}
+
 // the async proxy sees the initialised barriers
 __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");

@@ -71,6 +71,7 @@
 
 #include "projections.cuh"
 #include "ptx.cuh"
+#include "sections.cuh"
 
 namespace tinympc {
 
@@ -127,6 +128,30 @@ struct ClusterIn {
 };
 
 static_assert(sizeof(ClusterIn) <= 256, "a ClusterIn fits its 256 bytes");
+
+// The slab ring's barriers of a product that streams its map by the bulk
+// copy engine with no block barrier a slab (gemm_fp32's kMbar, the
+// continuation layouts): slot i fills on full[i] (one arrival and the
+// copies' bytes) and frees on empty[i] (one arrival a warp once it is done
+// with the slab); slabs counts the slabs the block has streamed through
+// the ring (a slab's slot and its barriers' phases follow from it).  In the
+// static shared memory of the kernels that use it.
+struct RingBars {
+  unsigned long long full[kStages], empty[kStages];
+  int slabs;
+};
+__shared__ RingBars ring_bars;
+
+// Thread 0 of a kernel whose products take kMbar, before a block barrier
+// that precedes its first product.
+__device__ __forceinline__ void ring_bars_init() {
+  for (int i = 0; i < kStages; ++i) {
+    mbar_init(&ring_bars.full[i]);
+    mbar_init(&ring_bars.empty[i], kThreads / 32);
+  }
+  ring_bars.slabs = 0;
+  mbar_fence_init();
+}
 
 // Bytes a cluster block keeps beside its slices: the lanes' residual maxima
 // that the cluster combines (up to 3 float4 a lane of a tile of 32) and a
@@ -202,12 +227,12 @@ __device__ __forceinline__ int seg_rows(const A& a, int j) {
 // barrier; with kCluster, every block's behind a cluster barrier) before
 // the call.
 template <int RPT, int T = kTile, In kIn = In::kShared, int LPT = 2,
-          int kSK = kSlabK, int kST = kStages, bool kBulk = false, class Seg,
-          class Epi>
+          int kSK = kSlabK, int kST = kStages, bool kBulk = false,
+          bool kMbar = false, class Seg, class Epi>
 __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
                                           Epi epi) {
-  static_assert(RPT % 4 == 0, "rows a thread: a multiple of 4");
-  static_assert(LPT == 2 || LPT == 8, "lanes a thread: 2 or 8");
+  static_assert(RPT % 2 == 0, "rows a thread: even");
+  static_assert(LPT == 2 || LPT == 4 || LPT == 8, "lanes a thread: 2, 4, 8");
   constexpr bool kStream = kIn != In::kShared;  // w's rows in the ring slots
   constexpr int kLaneGroups = T / LPT;
   const FragF32<RPT, LPT> fr{a.tid / kLaneGroups, a.tid % kLaneGroups};
@@ -235,16 +260,30 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
         w[4 * q4 + 3] = v.w;
       }
     }
+    // the map's rows, 16 bytes a load (8 where RPT is not a multiple of 4)
+    constexpr int kV = RPT % 4 == 0 ? 4 : 2;
 #pragma unroll
-    for (int j4 = 0; j4 < RPT / 4; ++j4) {
-      const float4 m = *reinterpret_cast<const float4*>(mrow + r0 + 4 * j4);
-      const float mv[4] = {m.x, m.y, m.z, m.w};
+    for (int jv = 0; jv < RPT / kV; ++jv) {
+      float mv[kV];
+      if constexpr (kV == 4) {
+        const float4 m =
+            *reinterpret_cast<const float4*>(mrow + r0 + 4 * jv);
+        mv[0] = m.x;
+        mv[1] = m.y;
+        mv[2] = m.z;
+        mv[3] = m.w;
+      } else {
+        const float2 m =
+            *reinterpret_cast<const float2*>(mrow + r0 + 2 * jv);
+        mv[0] = m.x;
+        mv[1] = m.y;
+      }
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < kV; ++j)
 #pragma unroll
         for (int q = 0; q < LPT; ++q)
-          acc[LPT * (4 * j4 + j) + q] =
-              fmaf(mv[j], w[q], acc[LPT * (4 * j4 + j) + q]);
+          acc[LPT * (kV * jv + j) + q] =
+              fmaf(mv[j], w[q], acc[LPT * (kV * jv + j) + q]);
     }
   };
   zero();
@@ -252,7 +291,9 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
     for (int j = 0; j < a.nseg; ++j) {
       const float* m = seg(j);
       for (int k = 0; k < a.K; ++k) step(m + k * a.ld, a.w + k * T);
+      TINYMPC_SEC(kSecProduct);
       epi(j, acc, fr);
+      TINYMPC_SEC(kSecEpilogue);
       zero();
     }
     return;
@@ -261,17 +302,29 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
   // slot (s0 + s) % kST.  kBulk (kCluster only): the map's rows of a slab
   // arrive by the bulk copy engine, one copy a k-row issued by thread 0, on
   // the slot's mbarrier (phase (s0 + s) / kST; s0 the block's slabs before
-  // this product); otherwise by cp.async, 16 bytes a thread at a time
+  // this product); kMbar (kShared only): the slab's k-rows of the map, ld
+  // apart (at most W), as one copy into a slot of rows ld apart, issued by
+  // thread 0 once every warp has arrived on the slot's empty barrier, the
+  // warps waiting on nothing but their slab's full barrier (no block
+  // barrier a slab); otherwise by cp.async, 16 bytes a thread at a time
   static_assert(!kBulk || kIn == In::kCluster, "bulk copies: a cluster's");
+  static_assert(!kMbar || (kIn == In::kShared && kST <= kStages),
+                "the barrier ring: a shared-memory product's");
   const int nslab = (a.K + kSK - 1) / kSK, total = nslab * a.nseg;
   int s0 = 0;
-  if constexpr (kBulk) {
-    s0 = a.ci->slabs;
+  if constexpr (kBulk || kMbar) {
+    int* count;
+    if constexpr (kBulk)
+      count = &a.ci->slabs;
+    else
+      count = &ring_bars.slabs;
+    s0 = *count;
     __syncthreads();  // every thread has read the count
-    if (a.tid == 0) a.ci->slabs = s0 + total;
+    if (a.tid == 0) *count = s0 + total;
   }
   const int per = a.W / 4;  // 16-byte chunks of a slab row
-  const int slot = kSK * (a.W + (kStream ? T : 0));  // floats a slot
+  const int rs = kMbar ? a.ld : a.W;  // a slab's row stride
+  const int slot = kSK * (rs + (kStream ? T : 0));  // floats a slot
   // this thread's first chunk of a slab: row r0c, chunk c0c; it then steps
   // kThreads chunks at a time
   const int r0c = a.tid / per, c0c = a.tid - r0c * per;
@@ -285,6 +338,29 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
   int wn = 0;  // entries of this thread in the slab
   auto issue = [&](int s) {
     wn = 0;
+    if constexpr (kMbar) {
+      if (s >= total) return;
+      const int rows = min(kSK, a.K - ik);
+      const int g = s0 + s;
+      float* dst = a.ring + (g % kST) * slot;
+      const float* src = seg(ij) + static_cast<size_t>(ik) * a.ld;
+      ik += kSK;
+      if (ik >= a.K) {
+        ik = 0;
+        ++ij;
+      }
+      if (a.tid >= 32) return;
+      // warp 0: the slot's last slab consumed by every warp, then thread 0
+      // announces this one's bytes and issues its copies
+      if (g >= kST) mbar_wait(&ring_bars.empty[g % kST], (g / kST - 1) & 1);
+      if (a.tid == 0) {
+        unsigned long long* bar = &ring_bars.full[g % kST];
+        const unsigned bytes = 4u * static_cast<unsigned>(rows * rs);
+        mbar_expect(bar, bytes);
+        bulk_copy(dst, src, bytes, bar);
+      }
+      return;
+    }
     if (s < total) {
       const int rows = min(kSK, a.K - ik);
       const int vr = seg_rows(a, ij);
@@ -357,33 +433,44 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
     issue(s);
     put();
   }
+  TINYMPC_SEC(kSecRing);
   int j = 0, k0 = 0;  // slab s's segment and first k-row
   bool rows_here = r0 < seg_rows(a, 0);  // the thread has valid rows
   for (int s = 0; s < total; ++s) {
     if constexpr (kBulk)
       mbar_wait(&a.ci->full[(s0 + s) % kST], ((s0 + s) / kST) & 1);
+    else if constexpr (kMbar)
+      mbar_wait(&ring_bars.full[(s0 + s) % kST], ((s0 + s) / kST) & 1);
     else
       cp_async_wait<kST - 2>();  // slab s has landed
-    __syncthreads();  // ... for every thread; slab s - 1 is consumed
+    if constexpr (!kMbar)
+      __syncthreads();  // ... for every thread; slab s - 1 is consumed
+    TINYMPC_SEC(kSecRing);
     issue(s + kST - 1);  // into slab s - 1's slot
     const float* slab = a.ring + ((s0 + s) % kST) * slot;
     const int k1 = min(a.K, k0 + kSK);
     if (rows_here) {
-      const float* wk = kStream ? slab + kSK * a.W : a.w + k0 * T;
-      if (LPT == 8 && k1 - k0 == kSK) {
+      const float* wk = kStream ? slab + kSK * rs : a.w + k0 * T;
+      if (LPT >= 4 && k1 - k0 == kSK) {
         // a whole slab, unrolled, so the next k-row's loads overlap this
         // one's FMAs
 #pragma unroll
-        for (int k = 0; k < kSK; ++k) step(slab + k * a.W, wk + k * T);
+        for (int k = 0; k < kSK; ++k) step(slab + k * rs, wk + k * T);
       } else {
         for (int k = k0; k < k1; ++k)
-          step(slab + (k - k0) * a.W, wk + (k - k0) * T);
+          step(slab + (k - k0) * rs, wk + (k - k0) * T);
       }
     }
     put();  // after the FMAs: the peer load's latency hides behind them
+    if constexpr (kMbar) {  // this warp is done with the slot
+      __syncwarp();
+      if ((a.tid & 31) == 0) mbar_arrive(&ring_bars.empty[(s0 + s) % kST]);
+    }
+    TINYMPC_SEC(kSecProduct);
     k0 = k1;
     if (k1 == a.K) {
       epi(j, acc, fr);
+      TINYMPC_SEC(kSecEpilogue);
       zero();
       ++j;
       k0 = 0;
@@ -483,7 +570,9 @@ __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
     __syncthreads();  // w2h staged
     for (int j = 0; j < a.nseg; ++j) {
       ksteps(seg(j), a.lda, brow, a.kp / 16);
+      TINYMPC_SEC(kSecProductLo);
       epi(j, acc, fr);
+      TINYMPC_SEC(kSecEpilogue);
       zero();
     }
     return;
@@ -518,19 +607,23 @@ __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
     cp_async_commit();
   };
   for (int s = 0; s < kStagesLo - 1; ++s) issue(s);
+  TINYMPC_SEC(kSecProductLo);  // w's rounding and the first issues
   int j = 0, c = 0;  // slab s's segment and slab within it
   bool rows_here = fr.wm * kMt * 16 < seg_rows(a, 0);
   for (int s = 0; s < total; ++s) {
     cp_async_wait<kStagesLo - 2>();  // slab s has landed
     __syncthreads();  // ... for every thread (and on s = 0 w2h is staged);
                       // slab s - 1 is consumed
+    TINYMPC_SEC(kSecRingLo);
     issue(s + kStagesLo - 1);
     const __nv_bfloat16* sl = a.ring + (s % kStagesLo) * slot;
     if (rows_here)
       ksteps(sl, lds,
              kStream ? sl + (a.W + bn) * lds + bk : brow + c * kSlabKLo, 1);
+    TINYMPC_SEC(kSecProductLo);
     if (++c == nslab) {
       epi(j, acc, fr);
+      TINYMPC_SEC(kSecEpilogue);
       zero();
       c = 0;
       ++j;
@@ -703,6 +796,40 @@ __device__ __forceinline__ void update_row(const P& p, const SidePass& sp,
   sp.prev[o] = vn;
   if (co_prev) sp.co[r * p.B] = prev;
   sp.ux[r * sp.us] = next;
+}
+
+// The residual and the update pass of thread q of a lane over a box side
+// in one pass (the continuation layouts, on a checking iteration): each
+// row's residuals (box_residuals_q's) and its update (box_update_q's) from
+// the same loads; the carry's slack written ahead where the launch has a
+// carry (``ahead``; a lane that latches on it keeps the slack it had, the
+// others overwrite it at the end), as a projected side's pass does.
+template <bool kRange = false, int T = kTile, class P>
+__device__ __forceinline__ void box_pass_q(const P& p, const SidePass& sp,
+                                           int g, bool relax, int q,
+                                           bool add, bool ahead, float& pri,
+                                           float& dua) {
+  const Side& s = *sp.s;
+  const BoxWalk<T, kRange> wk(sp, q);
+  constexpr int kStep = BoxWalk<T, kRange>::kStep;
+  for (int r0 = wk.first; r0 < wk.end; r0 += kStep * kRowBatch) {
+    BoxRows b;
+    load_box_rows<kStep>(sp, g, r0, wk.end, add, b);
+#pragma unroll
+    for (int j = 0; j < kRowBatch; ++j) {
+      const int r = r0 + kStep * j;
+      if (r < wk.end) {
+        float u = sp.ux[r * sp.us];
+        if (add) u = __fadd_rn(u, b.uxc[j]);
+        const float vn = box_slack(s, relaxed(p, relax, u, b.prev[j]),
+                                   sp.dual != nullptr, b.dual[j], b.lo[j],
+                                   b.hi[j]);
+        pri = fmaxf(pri, fabsf(__fsub_rn(u, vn)));
+        dua = fmaxf(dua, fabsf(__fsub_rn(b.prev[j], vn)));
+        update_row(p, sp, relax, r, u, b.prev[j], b.dual[j], vn, ahead);
+      }
+    }
+  }
 }
 
 // The update pass of thread q of a lane over a box side.  The carry's

@@ -45,19 +45,22 @@ def _nvcc() -> str:
 
 
 @functools.cache
-def load_library(name: str) -> BuiltLibrary:
-    """Build (if needed) and load ``csrc/<name>.cu``; raises on failure."""
+def load_library(name: str, defines: tuple = ()) -> BuiltLibrary:
+    """Build (if needed) and load ``csrc/<name>.cu``, with ``-D`` of each of
+    ``defines`` (a probe build: ``("TINYMPC_SECTIONS",)``); raises on
+    failure."""
     src = CSRC_DIR / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
     digest = hashlib.sha1(src.read_bytes() + headers
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                          + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     seconds, log = 0.0, ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
@@ -67,12 +70,15 @@ def load_library(name: str) -> BuiltLibrary:
     return BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
 
 
-def load_libraries(names) -> list[BuiltLibrary]:
-    """``load_library`` of every name, the builds running side by side (the
-    threads only wait for their nvcc)."""
+def load_libraries(names, defines: tuple = ()) -> list[BuiltLibrary]:
+    """``load_library`` of every name (with ``defines``), the builds running
+    side by side (the threads only wait for their nvcc)."""
     names = list(names)
+    # the shipped build by load_library(name) itself, so that the cache
+    # keeps one entry (and its nvcc log) for it
+    args = (tuple(defines),) if defines else ()
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
-        return list(pool.map(load_library, names))
+        return list(pool.map(lambda n: load_library(n, *args), names))
 
 
 class KernelUsage(NamedTuple):

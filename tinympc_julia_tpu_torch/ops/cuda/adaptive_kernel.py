@@ -57,7 +57,8 @@ from ..rho import EPS, RHO_INTERVAL, TERM_DEADBAND, TERM_MAX_STEP
 from ...utils.precision import full_fp32_matmul
 from ._build import load_library
 from .condensed_kernel import (CLUSTER_META, CLUSTER_SIZES, K2_HALF_PASS,
-                               CLUSTER_SMS, KP_ALIGN, SMEM_PER_BLOCK, THREADS,
+                               CLUSTER_SMS, KP_ALIGN, RING_BARS_BYTES,
+                               SMEM_PER_BLOCK, THREADS,
                                TILE, FusedConstraints,
                                _check_constraints,
                                _check_cuda_inputs, _check_grouped_shape,
@@ -81,7 +82,8 @@ from .condensed_kernel import _check_precision as _check_k1_precision
 # memory does not depend on the width.  Before that, a thread block cluster
 # shares a tile of 32 lanes (K1's CLUSTER_SIZES; passes of 512 rows, the
 # 4 sums of an interleaved backward row in one thread's rows), each block
-# a slice of whole stages of ux and of the input stages of d.
+# a slice of whole stages of ux and of the input stages of d.  A launch of
+# few tiles takes the continuation layout (K2_CONT_RPT, below).
 K2_RPTS = {32: (8, 20), 16: (8,)}
 K2_GLOBAL_RPT = 20
 K2_CLUSTER_RPT = 32  # K1's CLUSTER_RPT
@@ -90,6 +92,17 @@ K2_CLUSTER_RPT = 32  # K1's CLUSTER_RPT
 # plan's tiles of 16 lanes begin and the cluster beat them on the card
 # (PERF.md section 6, R11)
 K2_CLUSTER_FROM_WIDTH = 1212
+# The continuation layout (ROADMAP R5): a launch whose tiles of 32 lanes
+# would leave half the card's SMs idle (a continuation's slots) takes tiles
+# of 16 lanes, twice the blocks, each block's products one pass of
+# K2_CONT_RPT x 32 = 512 rows over the map's valid rows (8 rows x 4 lanes a
+# thread in the fp32 product: csrc/condensed_adaptive.cu K2Product), the
+# maps' rows padded only to a multiple of 8, the slab ring filled by the
+# bulk copy engine.
+K2_CONT_RPT = 16
+# the SMs the plans assume off the card (an H100's); a launch passes its
+# card's
+CARD_SMS = 132
 
 
 class AdaptiveFusedCarry(NamedTuple):
@@ -145,6 +158,8 @@ class AdaptivePlan(NamedTuple):
                         # N state stages (its rows of ux)
     ustages: tuple = ()  # ... and input stages [ustages[c], ustages[c +
                          # 1]) (its rows of d)
+    ld: tuple = ()      # the continuation layout's (ld1, ld2): the maps'
+                        # rows padded to a multiple of a thread's rows
 
     @property
     def width(self) -> int:
@@ -152,14 +167,36 @@ class AdaptivePlan(NamedTuple):
         return self.rpt * 2 * self.threads // self.tile
 
     @property
+    def lanes(self) -> int:
+        """Lanes a thread of the fp32 products (2 rpt / lanes rows;
+        csrc/condensed_adaptive.cu K2Product)."""
+        if self.cluster > 1:
+            return 8
+        return 4 if self.tile == TILE // 2 and self.rpt == K2_CONT_RPT else 2
+
+    @property
+    def slab_k(self) -> int:
+        """k-rows of a slab of the fp32 products' ring (16 in 3 slots where
+        a thread takes more than 2 lanes, else 8 in 6)."""
+        return 16 if self.lanes > 2 else 8
+
+    @property
+    def bulk_ring(self) -> bool:
+        """The fp32 products' ring filled by the bulk copy engine, with no
+        block barrier a slab (the continuation layout's)."""
+        return bool(self.ld)
+
+    @property
     def ld1(self) -> int:
         """Padded rows of each transposed T1 block (every block's)."""
-        return self.cluster * self.passes1 * self.width
+        return self.ld[0] if self.ld else (self.cluster * self.passes1
+                                           * self.width)
 
     @property
     def ld2(self) -> int:
         """Padded rows of the transposed, interleaved T2 stack."""
-        return self.cluster * self.passes2 * self.width
+        return self.ld[1] if self.ld else (self.cluster * self.passes2
+                                           * self.width)
 
 
 def adaptive_smem(nx: int, nu: int, N: int, order: int, tile: int, rpt: int,
@@ -267,14 +304,38 @@ def cluster_adaptive_plan(nx: int, nu: int, N: int, order: int,
     return min(plans, default=(None, None, None))[2]
 
 
+def continuation_adaptive_plan(nx: int, nu: int, N: int, order: int,
+                               reduced: bool = False,
+                               state_free: bool = True) -> AdaptivePlan | None:
+    """The continuation layout at this shape: tiles of 16 lanes, each
+    product one pass of K2_CONT_RPT x 32 rows (its slabs carrying only the
+    map's valid rows, its maps' rows padded to a multiple of a thread's 8),
+    the maps streamed, the lanes' duals and slacks in shared memory where
+    they fit.  None where a product needs more than one pass or the layout
+    does not fit."""
+    su, sx, sw = _dims(nx, nu, N)
+    tile, rpt = TILE // 2, K2_CONT_RPT
+    W = rpt * 2 * THREADS // tile
+    if sw > W or 4 * su > W:
+        return None
+    ld = (-(-sw // 8) * 8, -(-4 * su // 8) * 8)
+    for shared in (True, False):
+        smem = adaptive_smem(nx, nu, N, order, tile, rpt, 1, 1, False,
+                             shared, reduced, state_free)
+        if smem <= SMEM_PER_BLOCK - RING_BARS_BYTES:
+            return AdaptivePlan(tile, THREADS, rpt, 1, 1, False, shared,
+                                _kp(su + nx + 1), _kp(sw + 1), smem, ld=ld)
+    return None
+
+
 def shared_adaptive_plan(nx: int, nu: int, N: int, order: int,
                          reduced: bool = False,
                          state_free: bool = True) -> AdaptivePlan | None:
     """The layout with the tile's iterates in one block's shared memory
-    (None where none fits).  Tiles of 32 lanes whatever the batch (a tile's
-    iteration is bound by its map stream, not by its lanes, so smaller
-    tiles for few lanes, a continuation's slots, only cost: PERF.md section
-    6); tiles of 16 where the iterates of 32 lanes leave no room beside a
+    (None where none fits).  Tiles of 32 lanes (a launch of few tiles
+    takes the continuation layout instead: ``adaptive_tile_plan``; tiles of
+    16 in this layout's passes of 256 rows lost there, PERF.md section 6);
+    tiles of 16 where the iterates of 32 lanes leave no room beside a
     wide map's slab ring.  The rows a thread: the instance that covers the
     two products in the fewest passes (each costs a slab stream), padding
     them the least.  Within it the lanes' duals and slacks in shared memory
@@ -323,20 +384,32 @@ def global_adaptive_plan(nx: int, nu: int, N: int, order: int,
 
 def adaptive_tile_plan(nx: int, nu: int, N: int, order: int,
                        reduced: bool = False, state_free: bool = True,
-                       busy_sms=None) -> AdaptivePlan:
+                       busy_sms=None, tiles: int | None = None,
+                       sms: int = CARD_SMS) -> AdaptivePlan:
     """The layout of a launch at this shape (``reduced``: with
     reduced-precision iterations; ``state_free``: no state dual;
-    ``busy_sms``: as ``cluster_adaptive_plan``'s; the plan depends on the
-    shape, not the batch).  Below K2_CLUSTER_FROM_WIDTH rows, the iterates
-    in shared memory (``shared_adaptive_plan``) where they fit; from there,
-    or where they do not fit, the tile of 32 split over a thread block
-    cluster (``cluster_adaptive_plan``: every width of the JAX package's
-    condensed budget); where even a cluster of 8's slices do not fit, the
-    iterates in global memory (``global_adaptive_plan``), so every width
-    has a plan."""
+    ``busy_sms``: as ``cluster_adaptive_plan``'s) and batch (``tiles``: the
+    launch's tiles of 32 lanes, G x ceil(L / 32); None: a batch that fills
+    the card; ``sms``: the card's SMs).  Below K2_CLUSTER_FROM_WIDTH rows,
+    the iterates in shared memory (``shared_adaptive_plan``) where they
+    fit, and there, for a launch whose tiles of 32 would leave half the SMs
+    idle (2 x ``tiles`` <= ``sms``) and stream their maps, the
+    continuation layout (``continuation_adaptive_plan``) where its
+    products take one pass and its forward pass uses more than half its
+    rows;
+    from K2_CLUSTER_FROM_WIDTH, or where the iterates do not fit, the tile
+    of 32 split over a thread block cluster (``cluster_adaptive_plan``:
+    every width of the JAX package's condensed budget); where even a
+    cluster of 8's slices do not fit, the iterates in global memory
+    (``global_adaptive_plan``), so every width has a plan."""
     sw = _dims(nx, nu, N)[2]
     plan = (shared_adaptive_plan(nx, nu, N, order, reduced, state_free)
             if sw < K2_CLUSTER_FROM_WIDTH else None)
+    if plan is not None and plan.tile == TILE and not plan.resident \
+            and tiles is not None and 2 * tiles <= sms \
+            and 2 * sw > K2_CONT_RPT * 2 * THREADS // (TILE // 2):
+        plan = continuation_adaptive_plan(nx, nu, N, order, reduced,
+                                          state_free) or plan
     if plan is None:
         plan = cluster_adaptive_plan(nx, nu, N, order, reduced,
                                      busy_sms=busy_sms)
@@ -743,8 +816,10 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
     osqp = controller == "osqp"
     dev = x0s.device
     state_free = _state_free(en_state_bound, cons)
-    plan = adaptive_tile_plan(nx, nu, N, order, lo_all, state_free,
-                              busy_sms=card_busy_sms)
+    plan = adaptive_tile_plan(
+        nx, nu, N, order, lo_all, state_free, busy_sms=card_busy_sms,
+        tiles=G * -(-L // TILE),
+        sms=torch.cuda.get_device_properties(dev).multi_processor_count)
     side_u = _side_args(cons.lin_u, cons.cones_u, nu, "input")
     side_x = _side_args(cons.lin_x, cons.cones_x, nx, "state")
 
@@ -787,7 +862,8 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
     # one group's constraint data in shared memory after the plan's layout,
     # where it fits
     data = constraint_bytes(cons, nx, nu)
-    smem = plan.smem + (data if plan.smem + data <= SMEM_PER_BLOCK else 0)
+    cap = SMEM_PER_BLOCK - (RING_BARS_BYTES if plan.bulk_ring else 0)
+    smem = plan.smem + (data if plan.smem + data <= cap else 0)
     # the tiles' iterates where they live in global memory: each tile its
     # own columns
     vecg = uxg = w2hg = None

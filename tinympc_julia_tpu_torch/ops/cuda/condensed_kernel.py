@@ -109,6 +109,18 @@ CLUSTER_SMS = {2: 132, 3: 117, 4: 120, 5: 110, 6: 102, 7: 105, 8: 120}
 # w2 fits in shared memory: the quadrotor's N = 57, where the cluster first
 # beat the shared plans on the card (PERF.md section 6, R11)
 CLUSTER_FROM_WIDTH = 908
+# The 4-lane layout (ROADMAP R5): a plan that streams its map in one pass
+# of 16 x LANES4_RPT rows takes 10 rows x 4 lanes a thread in the fp32
+# product (TilePlan.lanes), slabs of 16 k-rows by the bulk copy engine
+# with no block barrier a slab, and a checking iteration's box residuals
+# and updates in one pass (csrc/condensed_fused.cu); on the card it beat 2
+# lanes a thread at a continuation's 192 tiles and a bulk launch's 1,536
+# (PERF.md section 6), so it does not depend on the batch.
+LANES4_RPT = 20
+# static shared memory of a kernel whose ring the bulk copy engine fills
+# (csrc/tile_gemm.cuh RingBars, rounded up to 16 bytes): the dynamic
+# shared memory such a launch may take is SMEM_PER_BLOCK less it
+RING_BARS_BYTES = 112
 SLAB_K = 8
 STAGES = 6
 SLAB_K_LO = 16
@@ -136,11 +148,25 @@ class TilePlan(NamedTuple):
     stages: tuple = ()  # cluster + 1 bounds: block c owns stages
                         # [stages[c], stages[c + 1]) of the N - 1 input
                         # stages then the N state stages
+    lanes: int = 2      # lanes a thread of the fp32 product (2 rpt / lanes
+                        # rows); 4: the 4-lane layout (LANES4_RPT)
 
     @property
     def rpt(self) -> int:
         """Rows a thread of the product (the kernel's instance)."""
         return self.rows // (self.cluster * self.passes * TILE_ROW_GROUPS)
+
+    @property
+    def slab_k(self) -> int:
+        """k-rows of a slab of the fp32 product's ring (16 in 3 slots on a
+        cluster or with more than 2 lanes a thread, else 8 in 6)."""
+        return 16 if self.cluster > 1 or self.lanes > 2 else 8
+
+    @property
+    def bulk_ring(self) -> bool:
+        """The fp32 product's ring filled by the bulk copy engine with no
+        block barrier a slab (the 4-lane layout's)."""
+        return self.lanes == 4
 
 
 def bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -488,14 +514,20 @@ def fused_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
     reduced-precision iterations; ``state_free``: no state-side
     constraint, so no state dual; ``busy_sms``: as ``cluster_tile_plan``'s).
     Below CLUSTER_FROM_WIDTH rows, tiles of 32 lanes with w2 in shared
-    memory (``shared_tile_plan``) where that fits; from there, or where it
-    does not fit, the tile split over a thread block cluster
-    (``cluster_tile_plan``; every width of the JAX package's condensed
-    budget); where even a cluster of 8's slices do not fit, w2 in global
-    memory (``global_tile_plan``), so every width has a plan."""
+    memory (``shared_tile_plan``) where that fits, with 4 lanes a thread
+    where its map streams in one pass of 16 x LANES4_RPT rows (the 4-lane
+    layout); from there, or where w2 does not fit, the tile split over a
+    thread block cluster (``cluster_tile_plan``; every width of the JAX
+    package's condensed budget); where even a cluster of 8's slices do not
+    fit, w2 in global memory (``global_tile_plan``), so every width has a
+    plan."""
     sw = (N - 1) * nu + N * nx
     plan = (shared_tile_plan(nx, nu, N, reduced, state_free)
             if sw < CLUSTER_FROM_WIDTH else None)
+    if plan is not None and not plan.resident and plan.passes == 1 \
+            and plan.rpt == LANES4_RPT \
+            and plan.smem <= SMEM_PER_BLOCK - RING_BARS_BYTES:
+        return plan._replace(lanes=4)
     if plan is None:
         plan = cluster_tile_plan(nx, nu, N, reduced, busy_sms=busy_sms)
     return plan if plan is not None else global_tile_plan(nx, nu, N, reduced)
@@ -522,10 +554,11 @@ def launch_smem(plan: TilePlan, dim_x: int, dim_u: int,
     rows of a global scratch.  The constraint data (``data`` bytes,
     ``constraint_bytes``) follows where it fits; the kernel reads the device
     arrays where the launch leaves it no room."""
+    cap = SMEM_PER_BLOCK - (RING_BARS_BYTES if plan.bulk_ring else 0)
     stage = 4 * THREADS * max(dim_x, dim_u)
-    kept = stage > 0 and plan.smem + stage <= SMEM_PER_BLOCK
+    kept = stage > 0 and plan.smem + stage <= cap
     smem = plan.smem + (stage if kept else 0)
-    if smem + data <= SMEM_PER_BLOCK:
+    if smem + data <= cap:
         smem += data
     return smem, kept
 
@@ -820,7 +853,7 @@ _FLT = ctypes.c_float
 # whether the rows and the mus carry a leading group axis
 _SIDE = [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT]
 _ARGTYPES = ([_PTR] * 30 + [_INT] * 9 + [_FLT] * 4 + [_INT] * 8 + [_PTR]
-             + [_INT] * 8 + _SIDE + _SIDE + [_PTR])
+             + [_INT] * 9 + _SIDE + _SIDE + [_PTR])
 
 
 @functools.cache
@@ -843,9 +876,9 @@ def tile_occupancy(plan: TilePlan, proj_u: bool = False,
     cluster plan the clusters the card holds at once; builds the kernel.
     Raises on a CUDA error."""
     fn = load_library("condensed_fused").lib.tinympc_condensed_fused_occupancy
-    fn.argtypes = [_INT] * 6
-    n = fn(plan.rpt, int(plan.w2_global), plan.cluster, int(proj_u),
-           int(proj_x), plan.smem if smem is None else smem)
+    fn.argtypes = [_INT] * 7
+    n = fn(plan.rpt, plan.lanes, int(plan.w2_global), plan.cluster,
+           int(proj_u), int(proj_x), plan.smem if smem is None else smem)
     if n < 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
     return n
@@ -1028,7 +1061,8 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
                  int(en_state_bound), int(warm_start), int(carry_out),
                  int(plan.state_shared), int(plan.resident),
                  int(plan.w2_global), plan.cluster,
-                 stage_bounds_arg(plan.stages), plan.rpt, plan.rows, plan.kp,
+                 stage_bounds_arg(plan.stages), plan.rpt, plan.lanes,
+                 plan.rows, plan.kp,
                  smem,
                  int(maps.T12.ndim == 3), int(rho_t.numel() > 1),
                  int(G > 1 and u_min.numel() == G * su),

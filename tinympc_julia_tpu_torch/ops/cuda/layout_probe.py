@@ -2,7 +2,7 @@
 layout on one NVIDIA GPU (not run by the tests or by chip_smoke.py):
 
     python -m tinympc_julia_tpu_torch.ops.cuda.layout_probe \
-        [wide|cluster|far|stage]
+        [wide|cluster|far|stage|sections]
 
 ``wide`` times the layouts the plans take at the wide maps of
 chip_smoke.py's phases 34a, 34d and 35a, each beside its product
@@ -11,12 +11,17 @@ replace at those shapes and at the switch's widths (ROADMAP R11), each
 held bit for bit against the plan's launch; ``far`` times K3's far layout
 at chip_smoke.py's phase 37b shapes beside its bounds, and against the near
 layout where both run; ``stage`` splits K1e's projected stage pass (ROADMAP
-R13) and K2's OSQP-form controller (R14) off the rest of their launches.
+R13) and K2's OSQP-form controller (R14) off the rest of their launches;
+``sections`` splits a tile iteration of K1 and K2 between the product, its
+ring, the elementwise step and the rest (ROADMAP R6, R5) on a probe build
+with clock64() counters, at the continuations of the adaptive quadrotor.
 All print only.
 ``product_yardstick`` is also chip_smoke.py's yardstick."""
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import functools
 
 import numpy as np
@@ -319,15 +324,8 @@ def far_layout_probe(reps=3, N_far=300, B=16384, iters=100):
 
     def far_plan(N_, box, lanes=B):
         """The far layout at this shape as a launch takes it, forced where
-        the near one fits (a tree without ``launch_plan``: the layout
-        without a ring)."""
-        if hasattr(K3, "launch_plan"):
-            return K3.launch_plan(12, 4, N_, box, lanes, dev, far=True)
-        plan = K3.fused_stage_plan(12, 4, N_, box, lanes, sms)
-        if plan.workspace_global:
-            return plan
-        return plan._replace(smem=4 * K3.stage_floats(12, 4, N_, box),
-                             workspace_global=True)
+        the near one fits."""
+        return K3.launch_plan(12, 4, N_, box, lanes, dev, far=True)
 
     def run(label, N_, box, plan, B=B):
         p, c = quad_problem(N_, dev, 2.0 if box else None)
@@ -464,12 +462,8 @@ def stage_probe(reps=3):
         proj_u = cons.lin_u is not None or cons.cones_u.num_cones > 0
         proj_x = cons.lin_x is not None or cons.cones_x.num_cones > 0
         dims = (nx if proj_x else 0, nu if proj_u else 0)
-        # a parent tree without the staged constraint data takes the cones'
-        # count in its place
-        smem, shared = K.launch_smem(
-            plan, *dims, K.constraint_bytes(cons, nx, nu)
-            if hasattr(K, "constraint_bytes") else
-            cons.cones_u.num_cones + cons.cones_x.num_cones)
+        smem, shared = K.launch_smem(plan, *dims,
+                                     K.constraint_bytes(cons, nx, nu))
         occ = K.tile_occupancy(plan, proj_u, proj_x, smem)
         print(f"stage probe {name}: plan {plan}; projected launch "
               f"{smem} B of shared memory, stage buffers in shared memory "
@@ -568,13 +562,267 @@ def stage_probe(reps=3):
     return out
 
 
+SECTION_NAMES = ("product", "ring waits", "bf16 product", "bf16 ring waits",
+                 "epilogue", "elementwise step", "maxima and latch",
+                 "rho prediction", "product barrier", "other")
+
+
+def continuation_cases(dev):
+    """The launches of the adaptive quadrotor's continuations, from phase
+    24's inputs (chip_smoke.py): K2's bulk pass (16,384 lanes, 150
+    iterations, carry out), K2's warm continuation (its stragglers
+    compacted into 2,048 slots, up to 2,500 iterations), the requantized
+    K1d launch with K1c's 256-iteration head (3 buckets x 2,048 slots) and
+    a bulk-sized K1d launch (the 3 buckets' maps cold over 3 x 16,384
+    lanes, 150 iterations).  Returns {name: (module, wrapper's partial)}."""
+    from tinympc_julia_tpu_torch import make_problem
+    from tinympc_julia_tpu_torch.models import quadrotor
+    from tinympc_julia_tpu_torch.ops.condensed import build_condensed_taylor
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    from tinympc_julia_tpu_torch.parallel.pipeline import (
+        ADAPTIVE_BUDGETS, REQUANT_HEAD, requantized_buckets)
+    from tinympc_julia_tpu_torch.parallel.rebuild import compact_members
+    f32, qN, B, slots = torch.float32, quadrotor.HORIZON, 16384, 2048
+    qp = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
+                      np.diag(quadrotor.R_DIAG), quadrotor.RHO, qN,
+                      u_min=-quadrotor.U_HOVER_BOUND,
+                      u_max=quadrotor.U_HOVER_BOUND, dtype=f32, device=dev)
+    qc = precompute_cache(qp.A, qp.B, qp.Q, qp.R, qp.rho_setup)
+    tqa = build_condensed_taylor(qp, qc)
+    x0 = torch.as_tensor(np.random.default_rng(1).uniform(
+        -0.3, 0.3, size=(B, 12)), dtype=f32, device=dev)
+    rhos, bmaps = requantized_buckets(qp, qc)
+    G = len(rhos)
+    bounds = (qp.u_min, qp.u_max, qp.x_min, qp.x_max)
+    bulk_kw = dict(plant=None, nx=12, nu=4, N=qN, max_iter=ADAPTIVE_BUDGETS[0],
+                   abs_pri_tol=1e-3, abs_dua_tol=1e-3, en_state_bound=False,
+                   en_input_bound=True, relaxation_alpha=1.0,
+                   adaptive_rho_min=quadrotor.RHO, adaptive_rho_max=1e3,
+                   adaptive_rho_clipping=True, check_termination=1,
+                   controller="termination", taylor_trust=2.0,
+                   warm_start=False, carry_out=True)
+    bulk = functools.partial(K2.condensed_adaptive_cuda, tqa, *bounds, x0,
+                             None, **bulk_kw)
+    _, _, _, ok, _, carry = bulk()
+    unconv = ok == 0
+    idx = compact_members(unconv[None, :], slots)[0][0]
+    cont = functools.partial(
+        K2.condensed_adaptive_cuda, tqa, *bounds, x0[idx].contiguous(),
+        K2.AdaptiveFusedCarry(*(w[:, idx].contiguous() for w in carry)),
+        **dict(bulk_kw, max_iter=ADAPTIVE_BUDGETS[1], warm_start=True,
+               carry_out=False))
+    brho = torch.tensor(rhos, dtype=f32, device=dev)
+    snap = torch.argmin(torch.abs(carry.rho[0][:, None] - brho[None, :]),
+                        dim=1)
+    m = unconv[None, :] & (snap[None, :] == torch.arange(G, device=dev)[
+        :, None])
+    gidx, _, valid, _ = compact_members(m, slots)
+    gidx = gidx.reshape(-1)
+
+    def gather(a):
+        return torch.where(valid[None, :], a[:, gidx], 0.0).contiguous()
+
+    w2 = torch.cat([carry.z - carry.y, carry.v - carry.g], dim=0)
+    warm = K.FusedCarry(gather(w2), gather(carry.y), gather(carry.g),
+                        gather(carry.v), gather(carry.z))
+    x0s2 = torch.where(valid[:, None], x0[gidx], 0.0).contiguous()
+    k1_kw = dict(nx=12, nu=4, N=qN, abs_pri_tol=1e-3, abs_dua_tol=1e-3,
+                 en_state_bound=False, en_input_bound=True,
+                 relaxation_alpha=1.0, check_termination=1, carry_out=False,
+                 num_groups=G)
+    requant = functools.partial(
+        K.condensed_fused_cuda, bmaps, brho, *bounds, x0s2, warm,
+        max_iter=ADAPTIVE_BUDGETS[1], warm_start=True,
+        bf16_head_iters=REQUANT_HEAD, **k1_kw)
+    x0g = torch.as_tensor(np.random.default_rng(2).uniform(
+        -0.3, 0.3, size=(G * B, 12)), dtype=f32, device=dev)
+    k1d_bulk = functools.partial(
+        K.condensed_fused_cuda, bmaps, brho, *bounds, x0g, None,
+        max_iter=150, warm_start=False, **k1_kw)
+    return {"K2 bulk (16,384 lanes, 150 iterations)": (K2, bulk),
+            "K2 continuation (2,048 slots)": (K2, cont),
+            "K1d + K1c head requantized continuation (3 x 2,048 slots)":
+                (K, requant),
+            "K1d bulk-sized (3 x 16,384 lanes cold, 150 iterations)":
+                (K, k1d_bulk)}
+
+
+def _flat(out):
+    """A launch's result tensors in order (a carry's fields included)."""
+    for t in out:
+        if isinstance(t, torch.Tensor):
+            yield t
+        elif t is not None:
+            yield from _flat(t)
+
+
+def section_split(lib, blocks):
+    """The section sums of a probe build's last launch (csrc/sections.cuh):
+    an (n blocks, sections + 1) array, the last column each block's tile
+    iterations; zeroes them on the card."""
+    fn = lib.tinympc_sections
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    n = len(SECTION_NAMES)
+    buf = (ctypes.c_ulonglong * ((n + 1) * blocks))()
+    got = fn(ctypes.addressof(buf), blocks)
+    if got != n:
+        raise RuntimeError(f"tinympc_sections returned {got}")
+    return np.frombuffer(buf, dtype=np.uint64).reshape(blocks, n + 1)
+
+
+SASS_LABELS = ("condensed_adaptive_kernel<16, 16, kShared, false, false>",
+               "condensed_adaptive_kernel<20, 32, kShared, false, false>",
+               "condensed_fused_kernel<20, kShared, false, false, 2>",
+               "condensed_fused_kernel<20, kShared, false, false, 4>")
+
+
+def dump_sass(built, labels, out_dir):
+    """The SASS of the kernels of ``built`` (a library built by this
+    process, with its ptxas log) whose label is one of ``labels``
+    (cuobjdump -sass -fun), a file each under ``out_dir``."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+    from tinympc_julia_tpu_torch.ops.cuda._build import (kernel_label,
+                                                         ptxas_usage)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for mangled in ptxas_usage(built.log):
+        label = kernel_label(mangled)
+        if label in labels:
+            res = subprocess.run([tool, "-sass", "-fun", mangled,
+                                  str(built.path)], capture_output=True,
+                                 text=True)
+            path = out_dir / (re.sub(r"\W+", "_", label).strip("_")
+                              + ".sass")
+            path.write_text(res.stdout + res.stderr)
+            print(f"sections SASS of {label}: {path}", flush=True)
+
+
+def sections_probe(reps=3, cases=None, plans=None, sass_dir=None):
+    """How a tile iteration of K1 and K2 splits between its sections
+    (ROADMAP R6's first step): the K1 and K2 instances built again with
+    csrc/sections.cuh's clock64() counters (``-DTINYMPC_SECTIONS``; the
+    shipped libraries stay as they are, and both builds' ptxas lines are
+    printed), each launch of ``continuation_cases`` run once on the
+    counters: each section's cycles a tile iteration, summed over the
+    launch's blocks and over its slowest block (the most tile iterations,
+    the continuation's critical path), and their shares; beside it the
+    launch on the shipped build (CUDA events, median of ``reps`` after a
+    warm-up) and its one timing on the probe build.  ``plans``: {case:
+    [(label, plan)]} further layouts of a case, forced (a plan of the
+    case's module's plan function); ``sass_dir``: where the SASS of the
+    shipped SASS_LABELS kernels goes (``dump_sass``).  Prints only; returns
+    {label: ms}."""
+    from unittest import mock
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    from tinympc_julia_tpu_torch.ops.cuda._build import (kernel_label,
+                                                         load_libraries,
+                                                         ptxas_usage)
+    dev = torch.device("cuda")
+    names = ["condensed_fused", "condensed_adaptive"]
+    probe = {}
+    for defines in ((), ("TINYMPC_SECTIONS",)):
+        tag = "probe" if defines else "shipped"
+        for name, built in zip(names, load_libraries(names, defines)):
+            probe[(name, tag)] = built
+            print(f"sections ptxas {tag} {name}: built in "
+                  f"{built.seconds:.1f} s", flush=True)
+            for mangled, use in sorted(ptxas_usage(built.log).items()):
+                print(f"sections ptxas {tag}: {kernel_label(mangled)}: "
+                      f"{use.registers} registers, {use.spill_stores} / "
+                      f"{use.spill_loads} bytes spill stores / loads",
+                      flush=True)
+            if sass_dir and not defines:
+                dump_sass(built, SASS_LABELS, sass_dir)
+    fns = {}
+    for mod, name in ((K, "condensed_fused"), (K2, "condensed_adaptive")):
+        fn = getattr(probe[(name, "probe")].lib, f"tinympc_{name}")
+        fn.argtypes = mod._ARGTYPES
+        fn.restype = ctypes.c_int
+        fns[mod] = (fn, probe[(name, "probe")].lib)
+    plan_fn = {K: "fused_tile_plan", K2: "adaptive_tile_plan"}
+    out = {}
+    cases = cases if cases is not None else continuation_cases(dev)
+    for case, (mod, f) in cases.items():
+        for label, plan in [("plan", None)] + list((plans or {}).get(case, ())):
+            patch = (mock.patch.object(mod, plan_fn[mod],
+                                       lambda *a, **k: plan)
+                     if plan is not None else contextlib.nullcontext())
+            with patch:
+                res = f()
+                torch.cuda.synchronize()
+                t = float(np.median([event_ms(f) for _ in range(reps)]))
+                fn, lib = fns[mod]
+                section_split(lib, 4096)  # zeroes the counters
+                with mock.patch.object(mod, "_kernel_fn", lambda: fn):
+                    t_probe = event_ms(f)
+                split = section_split(lib, 4096)
+            if plan is None:
+                base = res
+            same = all(torch.equal(a, b) for a, b in zip(
+                _flat(res), _flat(base)))
+            used = split[split[:, -1] > 0]
+            its = used[:, -1].astype(np.float64)
+            cyc = used[:, :-1].astype(np.float64)
+            slow = int(np.argmax(its))
+            whole = cyc.sum(0) / its.sum()
+            worst = cyc[slow] / its[slow]
+            tot = cyc[slow].sum()
+            share = ", ".join(f"{n} {100 * w / whole.sum():.1f}%"
+                              for n, w in zip(SECTION_NAMES, whole) if w)
+            share_w = ", ".join(f"{n} {w:.0f}" for n, w in
+                                zip(SECTION_NAMES, worst) if w)
+            print(f"sections {case} [{label}]: shipped {t:.3f} ms (median of "
+                  f"{reps}), probe build {t_probe:.3f} ms; bit-equal to the "
+                  f"plan's {same}; {len(used)} "
+                  f"blocks, {int(its.sum())} tile iterations (slowest block "
+                  f"{int(its[slow])}); cycles a tile iteration over all "
+                  f"blocks {whole.sum():.0f}: {share}; the slowest block "
+                  f"{worst.sum():.0f} cycles a tile iteration ({share_w}), "
+                  f"{tot / max(t_probe, 1e-9) / 1e3:.0f} cycles a us of the "
+                  f"probe launch", flush=True)
+            out[f"{case} [{label}]"] = t
+    return out
+
+
+def sections_main(sass_dir=None):
+    """``sections_probe`` at the continuations' shapes, each launch also on
+    the other layouts that could take it (forced, held bit for bit against
+    the plan's): K2's continuation on tiles of 32 (the layout before the
+    batch-aware plan); K1d's launches with 2 lanes a thread (the layout
+    before the 4-lane one)."""
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    cases = continuation_cases(torch.device("cuda"))
+    names = list(cases)
+    k1_shared = [K.shared_tile_plan(12, 4, 20, red) for red in (False, True)]
+    return sections_probe(sass_dir=sass_dir, cases=cases, plans={
+        names[1]: [("tiles of 32 (the parent's)",
+                    K2.shared_adaptive_plan(12, 4, 20, 2))],
+        names[2]: [("2 lanes a thread (the parent's)", k1_shared[1])],
+        names[3]: [("2 lanes a thread (the parent's)", k1_shared[0])]})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", nargs="?", choices=("wide", "cluster", "far", "stage"),
+    ap.add_argument("probe", nargs="?",
+                    choices=("wide", "cluster", "far", "stage", "sections"),
                     default="cluster")
+    ap.add_argument("--sass", metavar="DIR",
+                    help="sections: write the SASS of the continuation "
+                         "layouts' kernels under DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("layout_probe: needs an NVIDIA GPU")
+    if args.probe == "sections":
+        sections_main(args.sass)
+        return
     dict(wide=wide_layout_probe, cluster=cluster_probe,
          far=far_layout_probe, stage=stage_probe)[args.probe]()
 
