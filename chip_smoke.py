@@ -423,17 +423,6 @@ def forced(mod, name, plan, f):
     return run
 
 
-def same_bits(a, b):
-    """Whether two launches' results (carries walked) are the same bits."""
-    def flat(out):
-        for t in out:
-            if isinstance(t, tuple):
-                yield from flat(t)
-            elif t is not None:
-                yield t
-    return all(torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
-
-
 def describe_plan(plan):
     """A K1 or K2 plan's layout as phases 4, 10e, 11 and 24 print it (a
     plan of one block a tile)."""
@@ -588,8 +577,8 @@ def earlier_phases(card):
     from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
         condensed_fused_cuda, condensed_fused_reference, fused_constraints,
         fused_tile_plan, problem_constraint_kw, tile_iterations)
-    from tinympc_julia_tpu_torch.ops.cuda.layout_probe import \
-        product_yardstick
+    from tinympc_julia_tpu_torch.ops.cuda.layout_probe import (
+        product_yardstick, same_bits)
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.parallel.pipeline import (
         ADAPTIVE_BUDGETS, STAGED, three_phase_solve, two_phase_adaptive_solve)
@@ -2227,8 +2216,8 @@ def rebuild_and_horizon_phases(card):
         FusedCarry, condensed_fused_cuda, condensed_fused_reference,
         fused_tile_plan, make_condensed_fused_solver, shared_tile_plan,
         tile_iterations)
-    from tinympc_julia_tpu_torch.ops.cuda.layout_probe import \
-        product_yardstick
+    from tinympc_julia_tpu_torch.ops.cuda.layout_probe import (
+        product_yardstick, same_bits)
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.parallel import batch as batch_mod
     from tinympc_julia_tpu_torch.parallel.pipeline import (
@@ -3137,7 +3126,7 @@ def lifted_shape_phases(card):
     from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
     from tinympc_julia_tpu_torch.ops.cuda import fused as K3
     from tinympc_julia_tpu_torch.ops.cuda.layout_probe import (
-        chain_plant, product_yardstick)
+        chain_plant, product_yardstick, same_bits)
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.types import stack_instances
     from unittest import mock

@@ -461,8 +461,10 @@ def test_plan_takes_the_batch(shape, tiles, sms, cont):
     pass of 512 rows (8 rows x 4 lanes a thread, slabs of 16 k-rows), only
     the map's valid rows streamed, where the forward pass uses at least
     half its rows; every other launch keeps the plan of a batch that fills
-    the card, field for field."""
+    the card, field for field.  A plan for a batch needs the card's SMs."""
     full = K2.adaptive_tile_plan(*shape, 2)
+    with pytest.raises(ValueError, match="SMs"):
+        K2.adaptive_tile_plan(*shape, 2, tiles=tiles)
     for reduced in (False, True):
         for state_free in (True, False):
             p = K2.adaptive_tile_plan(*shape, 2, reduced, state_free,

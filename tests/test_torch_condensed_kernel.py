@@ -1182,11 +1182,12 @@ def test_main_shape_plans_are_unchanged(shape, reduced, state_free, k1, k2,
     4-lane layout, faster on the card at every batch measured: PERF.md
     section 6), the rest 2.  K2's are the same for the bulk batches
     (``tiles`` of 32 lanes: the adaptive pipeline's 16,384 lanes, the
-    headline's 65,536) under the batch-aware plan."""
+    headline's 65,536) under the batch-aware plan, on an H100's 132 SMs."""
     from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
     p = K.fused_tile_plan(*shape, reduced, state_free)
     assert p == K.TilePlan(*k1) and (p.cluster, p.stages) == (1, ())
-    q = K2.adaptive_tile_plan(*shape, 2, reduced, state_free, tiles=tiles)
+    q = K2.adaptive_tile_plan(*shape, 2, reduced, state_free, tiles=tiles,
+                              sms=132)
     assert q == K2.AdaptivePlan(*k2) and (q.cluster, q.stages) == (1, ())
 
 

@@ -24,6 +24,7 @@ from tinympc_julia_tpu_torch.ops.condensed import (build_condensed,
 from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
 from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
 from tinympc_julia_tpu_torch.ops.cuda import fused as K3
+from tinympc_julia_tpu_torch.ops.cuda.layout_probe import same_bits
 from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
 from tinympc_julia_tpu_torch.parallel import (GroupedBatchSolver, mpc,
                                               three_phase_solve,
@@ -1637,100 +1638,149 @@ def _forced(monkeypatch, module, name, plan):
     monkeypatch.setattr(module, name, lambda *a, **k: plan)
 
 
-def _same_bits(a, b):
-    """Whether two launches' results, carries included, are the same bits."""
-    def flat(out):
-        for t in out:
-            if isinstance(t, tuple):
-                yield from flat(t)
-            elif t is not None:
-                yield t
-    fa, fb = list(flat(a)), list(flat(b))
-    return len(fa) == len(fb) and all(torch.equal(x, y)
-                                      for x, y in zip(fa, fb))
-
-
 def _sms(dev):
     return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _streamed_case(model, horizon, dev):
+    """A plant at a width whose maps stream in one pass on the continuation
+    layouts: (problem, cache, constraints or None, x0s(B, seed), K2's rho
+    settings).  The quadrotor (|u| <= 0.5), the cartpole (|u| <= 5) and the
+    rocket with its cones and state box."""
+    if model == "rocket":
+        s = rocket.make_solver(N=horizon, dtype=torch.float32, device=dev)
+        Xref, Uref = rocket.reference_trajectory(0, N=horizon)
+        s.set_x_ref(Xref)
+        s.set_u_ref(Uref)
+        p, c = s.problem, s.cache
+        cons = K.fused_constraints(**K.problem_constraint_kw(p, s.settings),
+                                   nx=6, nu=3, dtype=torch.float32,
+                                   device=dev)
+        return (p, c, cons, lambda B, seed: _rocket_x0(B, dev),
+                dict(controller="termination", taylor_trust=2.0,
+                     adaptive_rho_min=1.0, adaptive_rho_max=1e3))
+    if model == "quadrotor":
+        p, c = _quad(horizon, dev)
+        return (p, c, None, lambda B, seed: _x0(B, 12, seed, 0.3, dev),
+                _QUAD_KW)
+    p = make_problem(cartpole.A, cartpole.B, np.diag(cartpole.Q_DIAG),
+                     np.diag(cartpole.R_DIAG), cartpole.RHO, horizon,
+                     u_min=-5.0, u_max=5.0, dtype=torch.float32, device=dev)
+    c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+    return (p, c, None, lambda B, seed: _x0(B, 4, seed, 0.5, dev),
+            dict(controller="termination", taylor_trust=2.0,
+                 adaptive_rho_min=1.0, adaptive_rho_max=1e3))
 
 
 @pytest.mark.parametrize("slots", [2048, 2040], ids=["2048", "partial"])
 @pytest.mark.parametrize("order", [2, 4], ids=["order2", "order4"])
 @pytest.mark.parametrize("controller", ["termination", "osqp"])
-def test_k2_continuation_layout_agrees_bit_for_bit(dev, monkeypatch,
-                                                   controller, order, slots):
+@pytest.mark.parametrize("model,horizon", [
+    ("quadrotor", 20), ("quadrotor", 32), ("cartpole", 80), ("rocket", 40)],
+    ids=["quadrotor20", "quadrotor32", "cartpole80", "rocket40"])
+def test_k2_continuation_layout_agrees_bit_for_bit(dev, monkeypatch, model,
+                                                   horizon, controller,
+                                                   order, slots):
     """K2's warm continuation at the adaptive quadrotor's 2,048 slots (and
     2,040: a last tile of 8 of its 16 lanes) takes the continuation layout
     (tiles of 16 lanes, one pass each product, slabs by the bulk copy
-    engine, a checking iteration's box passes in one): the same bits as
+    engine, a checking iteration's box passes in one; forced at the
+    other widths, whatever the plan takes there): the same bits as
     the tiles of 32 it replaced, forced, carry included, under the
     termination and the OSQP-form controller at Taylor order 2 and 4; the
     same bits as the plain version under the termination controller, and
     under the OSQP-form one K2's bar against its plain version
     (``_k2_agree``: the plain OSQP-form residuals are batched matmuls on
-    the card, not sums in index order)."""
-    p, c = _quad(N, dev)
+    the card, not sums in index order).  At the quadrotor's N = 20 (sw
+    316) and 32 (sw 508: the forward map's padded rows fill the pass), the
+    cartpole's N = 80 (sw 399) and the rocket's N = 40 (sw 357, its cones
+    projected; no lane latches within the budget there, so every lane runs
+    every iteration).  At the cartpole's width the plain version's
+    products, matmuls on the card, do not sum in index order under either
+    controller (the two layouts agree bit for bit and the plain version
+    differs from both), so there K2's bar holds it."""
+    p, c, cons, x0s, rho_kw = _streamed_case(model, horizon, dev)
+    nx, nu = p.nx, p.nu
     tm = build_condensed_taylor(p, c, order=order)
-    args = (tm, p.u_min, p.u_max, p.x_min, p.x_max, _x0(slots, 12, 23, 0.3,
-                                                          dev))
-    rho = _QUAD_KW if controller == "termination" else dict(
+    args = (tm, p.u_min, p.u_max, p.x_min, p.x_max, x0s(slots, 23))
+    rho = rho_kw if controller == "termination" else dict(
         controller="osqp", adaptive_rho_min=1.0, adaptive_rho_max=50.0)
-    kw = _k2_kw(p, c, max_iter=30, **rho)
+    kw = _k2_kw(p, c, max_iter=30, constraints=cons,
+                en_state_bound=cons is not None, **rho)
     bulk = K2.condensed_adaptive_cuda(*args, None, **kw)
     kw = dict(kw, max_iter=300, warm_start=True)
-    plan = K2.adaptive_tile_plan(12, 4, N, order, tiles=-(-slots // 32),
-                                 sms=_sms(dev))
+    free = cons is None
+    plan = K2.continuation_adaptive_plan(nx, nu, horizon, order, False, free)
     assert (plan.tile, plan.passes1, plan.passes2, plan.bulk_ring) == (
         16, 1, 1, True)
+    if (model, horizon) == ("quadrotor", N):  # the pipeline's plan
+        assert plan == K2.adaptive_tile_plan(
+            nx, nu, horizon, order, False, free, tiles=-(-slots // 32),
+            sms=_sms(dev))
+    else:
+        _forced(monkeypatch, K2, "adaptive_tile_plan", plan)
     k = K2.condensed_adaptive_cuda(*args, bulk[5], **kw)
     r = K2.condensed_adaptive_reference(*args, bulk[5], **kw)
     _forced(monkeypatch, K2, "adaptive_tile_plan",
-            K2.shared_adaptive_plan(12, 4, N, order))
+            K2.shared_adaptive_plan(nx, nu, horizon, order, False, free))
     o = K2.condensed_adaptive_cuda(*args, bulk[5], **kw)
     torch.cuda.synchronize()
-    assert _same_bits(k, o)
+    assert same_bits(k, o)
     if controller == "termination":
-        assert int(k[3].sum()) > slots // 2
-        assert _same_bits(k, r)
+        assert model == "rocket" or int(k[3].sum()) > slots // 2
+    if controller == "termination" and model != "cartpole":
+        assert same_bits(k, r)
     else:
         _k2_agree(k, r)
 
 
 @pytest.mark.parametrize("slots", [2048, 2040], ids=["2048", "partial"])
 @pytest.mark.parametrize("head", [0, 64], ids=["fp32", "head64"])
-def test_k1d_continuation_layout_agrees_bit_for_bit(dev, monkeypatch, head,
-                                                    slots):
+@pytest.mark.parametrize("model,horizon", [
+    ("quadrotor", 20), ("cartpole", 64), ("rocket", 35)],
+    ids=["quadrotor20", "cartpole64", "rocket35"])
+def test_k1d_continuation_layout_agrees_bit_for_bit(dev, monkeypatch, model,
+                                                    horizon, head, slots):
     """K1d's grouped warm continuation at the requantized pipeline's 3
     buckets x 2,048 slots (and 2,040) on the 4-lane layout (10 rows x 4
     lanes a thread in the fp32 product, slabs of 16 k-rows by the bulk copy
-    engine, a checking iteration's box passes in one), with and without a
+    engine, a checking iteration's box passes in one; the plan's at the
+    quadrotor's N = 20, forced at the other widths), with and without a
     reduced head: the same bits as the plain version and as 2 lanes a
-    thread, forced, carry included."""
+    thread, forced, carry included.  At the quadrotor's N = 20 (sw 316),
+    the cartpole's N = 64 (sw 319) and the rocket's N = 35 (sw 312, its
+    cones projected; no lane latches within the budget there)."""
     from tinympc_julia_tpu_torch.parallel.pipeline import requantized_buckets
-    p, c = _quad(N, dev)
+    p, c, cons, x0s, _ = _streamed_case(model, horizon, dev)
+    nx, nu = p.nx, p.nu
     rhos, bmaps = requantized_buckets(p, c)
     G = len(rhos)
     brho = torch.tensor(rhos, dtype=torch.float32, device=dev)
     args = (bmaps, brho, p.u_min, p.u_max, p.x_min, p.x_max,
-            _x0(G * slots, 12, 24, 0.3, dev))
-    kw = dict(nx=12, nu=4, N=N, abs_pri_tol=1e-3, abs_dua_tol=1e-3,
-              en_state_bound=False, en_input_bound=True,
+            x0s(G * slots, 24))
+    kw = dict(nx=nx, nu=nu, N=horizon, abs_pri_tol=1e-3, abs_dua_tol=1e-3,
+              en_state_bound=cons is not None, en_input_bound=True,
               relaxation_alpha=1.0, check_termination=1, num_groups=G,
-              carry_out=True)
+              carry_out=True, constraints=cons)
     cold = K.condensed_fused_cuda(*args, None, max_iter=30,
                                   warm_start=False, **kw)
     kw = dict(kw, max_iter=300, warm_start=True, bf16_head_iters=head)
-    plan = K.fused_tile_plan(12, 4, N, head > 0)
-    assert (plan.lanes, plan.passes, plan.rpt) == (4, 1, 20)
+    two = K.shared_tile_plan(nx, nu, horizon, head > 0, cons is None)
+    assert (two.lanes, two.passes, two.rpt, two.resident) == (2, 1, 20,
+                                                              False)
+    if (model, horizon) == ("quadrotor", N):  # the pipeline's plan
+        assert K.fused_tile_plan(nx, nu, horizon, head > 0,
+                                 cons is None) == two._replace(lanes=4)
+    else:
+        _forced(monkeypatch, K, "fused_tile_plan", two._replace(lanes=4))
     k = K.condensed_fused_cuda(*args, cold[4], **kw)
     r = K.condensed_fused_reference(*args, cold[4], **kw)
-    _forced(monkeypatch, K, "fused_tile_plan",
-            K.shared_tile_plan(12, 4, N, head > 0))
+    _forced(monkeypatch, K, "fused_tile_plan", two)
     o = K.condensed_fused_cuda(*args, cold[4], **kw)
     torch.cuda.synchronize()
-    assert int(k[3].sum()) > G * slots // 2
-    assert _same_bits(k, o)
-    assert _same_bits(k, r)
+    assert model == "rocket" or int(k[3].sum()) > G * slots // 2
+    assert same_bits(k, o)
+    assert same_bits(k, r)
 
 
 @pytest.mark.parametrize("horizon", [20, 60], ids=["n20", "n60"])

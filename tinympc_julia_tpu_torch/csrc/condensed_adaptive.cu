@@ -998,7 +998,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bool term = check || (update && !p.osqp);
     // the continuation layout takes a box side's residuals and update in
     // one pass (box_pass_q), the carry's slack written ahead on a checking
-    // iteration
+    // iteration; the other layouts keep the two passes, where the one-pass
+    // step has not been timed (ROADMAP R6)
     const bool fused = K2Product<RPT, T, kIn>::kCont && term && !osqp_now;
     float pi = 0.0f, di = 0.0f, ps = 0.0f, ds = 0.0f;
     if (active && !osqp_now) {  // a projected side's one pass: its stages'

@@ -464,8 +464,10 @@ __device__ __forceinline__ void tile_product_lo(const Params& p,
 // shared memory (a max is exact in any order), with kCluster then the
 // blocks' over distributed shared memory, and every thread of the lane (of
 // every block) takes the same latch decision; a box side's update follows
-// it (with kFuse, the continuation layout's, a checking iteration takes a
-// box side's residuals and update in one pass: box_pass_q).  Returns
+// it (with kFuse, the 4-lane layout's, a checking iteration takes a box
+// side's residuals and update in one pass: box_pass_q; the other layouts
+// keep the two passes, where the one-pass step has not been timed: PERF.md
+// section 6, ROADMAP R6).  Returns
 // whether lane l latched, from its thread 0 (which writes the count).
 template <In kIn, bool kProjU, bool kProjX, int kB, bool kFuse = false>
 __device__ __forceinline__ bool tile_step(const Params& p, const Tile& t,

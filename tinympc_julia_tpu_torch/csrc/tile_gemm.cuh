@@ -135,7 +135,13 @@ static_assert(sizeof(ClusterIn) <= 256, "a ClusterIn fits its 256 bytes");
 // copies' bytes) and frees on empty[i] (one arrival a warp once it is done
 // with the slab); slabs counts the slabs the block has streamed through
 // the ring (a slab's slot and its barriers' phases follow from it).  In the
-// static shared memory of the kernels that use it.
+// static shared memory of the kernels that use it.  The cluster products
+// (kBulk) keep their own barriers in ClusterIn: a slot there also holds
+// the tile's k-rows of w, which every thread stores from its peer loads,
+// so a slab still ends at a block barrier and needs no empty barrier; the
+// rows of a block's slice of the map are ld > W apart, one copy a k-row;
+// and ClusterIn lives in the dynamic shared memory the cluster plans are
+// sized in (cluster_smem), which a RingBars beside it would shrink.
 struct RingBars {
   unsigned long long full[kStages], empty[kStages];
   int slabs;

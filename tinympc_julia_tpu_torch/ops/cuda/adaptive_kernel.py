@@ -100,9 +100,6 @@ K2_CLUSTER_FROM_WIDTH = 1212
 # maps' rows padded only to a multiple of 8, the slab ring filled by the
 # bulk copy engine.
 K2_CONT_RPT = 16
-# the SMs the plans assume off the card (an H100's); a launch passes its
-# card's
-CARD_SMS = 132
 
 
 class AdaptiveFusedCarry(NamedTuple):
@@ -385,12 +382,12 @@ def global_adaptive_plan(nx: int, nu: int, N: int, order: int,
 def adaptive_tile_plan(nx: int, nu: int, N: int, order: int,
                        reduced: bool = False, state_free: bool = True,
                        busy_sms=None, tiles: int | None = None,
-                       sms: int = CARD_SMS) -> AdaptivePlan:
+                       sms: int | None = None) -> AdaptivePlan:
     """The layout of a launch at this shape (``reduced``: with
     reduced-precision iterations; ``state_free``: no state dual;
     ``busy_sms``: as ``cluster_adaptive_plan``'s) and batch (``tiles``: the
     launch's tiles of 32 lanes, G x ceil(L / 32); None: a batch that fills
-    the card; ``sms``: the card's SMs).  Below K2_CLUSTER_FROM_WIDTH rows,
+    the card; ``sms``: the card's SMs, needed with ``tiles``).  Below K2_CLUSTER_FROM_WIDTH rows,
     the iterates in shared memory (``shared_adaptive_plan``) where they
     fit, and there, for a launch whose tiles of 32 would leave half the SMs
     idle (2 x ``tiles`` <= ``sms``) and stream their maps, the
@@ -402,6 +399,8 @@ def adaptive_tile_plan(nx: int, nu: int, N: int, order: int,
     every width of the JAX package's condensed budget); where even a
     cluster of 8's slices do not fit, the iterates in global memory
     (``global_adaptive_plan``), so every width has a plan."""
+    if tiles is not None and sms is None:
+        raise ValueError("a plan for a batch (tiles) needs the card's SMs")
     sw = _dims(nx, nu, N)[2]
     plan = (shared_adaptive_plan(nx, nu, N, order, reduced, state_free)
             if sw < K2_CLUSTER_FROM_WIDTH else None)

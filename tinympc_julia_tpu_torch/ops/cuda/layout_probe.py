@@ -2,7 +2,7 @@
 layout on one NVIDIA GPU (not run by the tests or by chip_smoke.py):
 
     python -m tinympc_julia_tpu_torch.ops.cuda.layout_probe \
-        [wide|cluster|far|stage|sections]
+        [wide|cluster|far|stage|sections|switch]
 
 ``wide`` times the layouts the plans take at the wide maps of
 chip_smoke.py's phases 34a, 34d and 35a, each beside its product
@@ -15,8 +15,9 @@ R13) and K2's OSQP-form controller (R14) off the rest of their launches;
 ``sections`` splits a tile iteration of K1 and K2 between the product, its
 ring, the elementwise step and the rest (ROADMAP R6, R5) on a probe build
 with clock64() counters, at the continuations of the adaptive quadrotor.
-All print only.
-``product_yardstick`` is also chip_smoke.py's yardstick."""
+``switch`` times the batch-aware plans' layouts on each side of their
+switches (ROADMAP R5).  All print only.  ``product_yardstick`` is also
+chip_smoke.py's yardstick, ``same_bits`` its comparison of layouts."""
 from __future__ import annotations
 
 import argparse
@@ -658,6 +659,14 @@ def _flat(out):
             yield from _flat(t)
 
 
+def same_bits(a, b) -> bool:
+    """Whether two launches' results, carries included, are the same bits
+    (also chip_smoke.py's and the CUDA tests' comparison of layouts)."""
+    fa, fb = list(_flat(a)), list(_flat(b))
+    return len(fa) == len(fb) and all(torch.equal(x, y)
+                                      for x, y in zip(fa, fb))
+
+
 def section_split(lib, blocks):
     """The section sums of a probe build's last launch (csrc/sections.cuh):
     an (n blocks, sections + 1) array, the last column each block's tile
@@ -765,8 +774,7 @@ def sections_probe(reps=3, cases=None, plans=None, sass_dir=None):
                 split = section_split(lib, 4096)
             if plan is None:
                 base = res
-            same = all(torch.equal(a, b) for a, b in zip(
-                _flat(res), _flat(base)))
+            same = same_bits(res, base)
             used = split[split[:, -1] > 0]
             its = used[:, -1].astype(np.float64)
             cyc = used[:, :-1].astype(np.float64)
@@ -794,8 +802,9 @@ def sections_probe(reps=3, cases=None, plans=None, sass_dir=None):
 def sections_main(sass_dir=None):
     """``sections_probe`` at the continuations' shapes, each launch also on
     the other layouts that could take it (forced, held bit for bit against
-    the plan's): K2's continuation on tiles of 32 (the layout before the
-    batch-aware plan); K1d's launches with 2 lanes a thread (the layout
+    the plan's): K2's bulk launch on the continuation layout (why the plan
+    takes the batch); K2's continuation on tiles of 32 (the layout before
+    the batch-aware plan); K1d's launches with 2 lanes a thread (the layout
     before the 4-lane one)."""
     from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
     from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
@@ -803,16 +812,180 @@ def sections_main(sass_dir=None):
     names = list(cases)
     k1_shared = [K.shared_tile_plan(12, 4, 20, red) for red in (False, True)]
     return sections_probe(sass_dir=sass_dir, cases=cases, plans={
+        names[0]: [("tiles of 16, the continuation layout",
+                    K2.continuation_adaptive_plan(12, 4, 20, 2))],
         names[1]: [("tiles of 32 (the parent's)",
                     K2.shared_adaptive_plan(12, 4, 20, 2))],
         names[2]: [("2 lanes a thread (the parent's)", k1_shared[1])],
         names[3]: [("2 lanes a thread (the parent's)", k1_shared[0])]})
 
 
+def _sw(nx, nu, N):
+    return (N - 1) * nu + N * nx
+
+
+def switch_cases(dev, sms):
+    """The shapes on each side of the batch-aware plans' switches, cold
+    launches of 300 (K2) and 150 (K1) iterations checking every one:
+    [(label, module, wrapper's partial, sw, the plan's layout, the layouts
+    to force: [(name, plan)])], the plan's layout first where it is one.
+
+    * K2's continuation layout (tiles of 16, one pass of 512 rows) against
+      tiles of 32: at 64 tiles, the quadrotor at N = 16 (sw 252, below the
+      cut-off: tiles of 32), 17 (268), 20 (316) and 32 (508), the cartpole
+      at N = 52 (259), 80 (399) and 102 (509), the rocket with its cones at
+      N = 29 (258) and 43 (384); the quadrotor at N = 20 at 4, 66 and 67
+      tiles (67: tiles of 32, twice 67 blocks exceed ``sms``, the card's
+      SMs).
+    * K1's 4-lane layout (10 rows x 4 lanes a thread) against 2 lanes, at
+      64 and 2,048 tiles: the quadrotor at N = 9 (sw 140) and 20 (316), the
+      cartpole at N = 28 (139) and 64 (319), the rocket with its cones at
+      N = 16 (141) and 35 (312); the cartpole at N = 64 with a 32-iteration
+      reduced head."""
+    from tinympc_julia_tpu_torch import make_problem
+    from tinympc_julia_tpu_torch.models import cartpole, quadrotor, rocket
+    from tinympc_julia_tpu_torch.ops.condensed import (build_condensed,
+                                                       build_condensed_taylor)
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    f32 = torch.float32
+    models = dict(quadrotor=(quadrotor, 0.5, 0.3), cartpole=(cartpole, 5.0,
+                                                             0.5))
+
+    @functools.cache
+    def problem(name, N):
+        """(problem, cache, constraints, x0 of 65,536 lanes)."""
+        if name == "rocket":
+            solver = rocket.make_solver(N=N, dtype=f32, device=dev)
+            Xref, Uref = rocket.reference_trajectory(0, N=N)
+            solver.set_x_ref(Xref)
+            solver.set_u_ref(Uref)
+            p, c = solver.problem, solver.cache
+            cons = K.fused_constraints(
+                **K.problem_constraint_kw(p, solver.settings), nx=6, nu=3,
+                dtype=f32, device=dev)
+            x0 = rocket.X_INIT[None, :] * np.random.default_rng(2).uniform(
+                0.9, 1.1, size=(65536, 1))
+        else:
+            m, ub, scale = models[name]
+            p = make_problem(m.A, m.B, np.diag(m.Q_DIAG), np.diag(m.R_DIAG),
+                             m.RHO, N, u_min=-ub, u_max=ub, dtype=f32,
+                             device=dev)
+            c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+            cons = None
+            x0 = np.random.default_rng(3).uniform(-scale, scale,
+                                                  size=(65536, p.nx))
+        return p, c, cons, torch.as_tensor(x0, dtype=f32, device=dev)
+
+    def bounds(p):
+        return (p.u_min.reshape(-1), p.u_max.reshape(-1),
+                p.x_min.reshape(-1), p.x_max.reshape(-1))
+
+    cases = []
+    k2_shapes = [("quadrotor", n, 64) for n in (16, 17, 20, 32)] + [
+        ("cartpole", n, 64) for n in (52, 80, 102)] + [
+        ("rocket", n, 64) for n in (29, 43)] + [
+        ("quadrotor", 20, t) for t in (4, 66, 67)]
+    for name, N, tiles in k2_shapes:
+        p, c, cons, x0 = problem(name, N)
+        nx, nu = p.nx, p.nu
+        kw = dict(plant=None, nx=nx, nu=nu, N=N, max_iter=300,
+                  abs_pri_tol=1e-3, abs_dua_tol=1e-3,
+                  en_state_bound=cons is not None, en_input_bound=True,
+                  relaxation_alpha=1.0, adaptive_rho_min=float(c.rho),
+                  adaptive_rho_max=1e3, adaptive_rho_clipping=True,
+                  check_termination=1, controller="termination",
+                  taylor_trust=2.0, warm_start=False, carry_out=True,
+                  constraints=cons)
+        f = functools.partial(K2.condensed_adaptive_cuda,
+                              build_condensed_taylor(p, c), *bounds(p),
+                              x0[:32 * tiles].contiguous(), None, **kw)
+        free = cons is None
+        plan = K2.adaptive_tile_plan(nx, nu, N, 2, False, free, tiles=tiles,
+                                     sms=sms)
+        others = [("tiles of 16, continuation",
+                   K2.continuation_adaptive_plan(nx, nu, N, 2, False, free)),
+                  ("tiles of 32", K2.shared_adaptive_plan(nx, nu, N, 2,
+                                                          False, free))]
+        cases.append((f"K2 {name} N={N} {tiles} tiles", K2, f,
+                      _sw(nx, nu, N), plan,
+                      sorted(others, key=lambda o: o[1] != plan)))
+    k1_shapes = [(m, n, t, 0) for m, n in (("quadrotor", 9),
+                                           ("quadrotor", 20),
+                                           ("cartpole", 28), ("cartpole", 64),
+                                           ("rocket", 16), ("rocket", 35))
+                 for t in (64, 2048)] + [("cartpole", 64, 2048, 32)]
+    for name, N, tiles, head in k1_shapes:
+        p, c, cons, x0 = problem(name, N)
+        nx, nu = p.nx, p.nu
+        kw = dict(nx=nx, nu=nu, N=N, max_iter=150, abs_pri_tol=1e-3,
+                  abs_dua_tol=1e-3, en_state_bound=cons is not None,
+                  en_input_bound=True, relaxation_alpha=1.0,
+                  check_termination=1, warm_start=False, carry_out=True,
+                  constraints=cons, bf16_head_iters=head)
+        f = functools.partial(K.condensed_fused_cuda, build_condensed(p, c),
+                              float(c.rho), *bounds(p),
+                              x0[:32 * tiles].contiguous(), None, **kw)
+        two = K.shared_tile_plan(nx, nu, N, head > 0, cons is None)
+        cases.append((f"K1 {name} N={N} {tiles} tiles"
+                      + (f" head {head}" if head else ""), K, f,
+                      _sw(nx, nu, N),
+                      K.fused_tile_plan(nx, nu, N, head > 0, cons is None),
+                      [("4 lanes a thread", two._replace(lanes=4)),
+                       ("2 lanes a thread", two)]))
+    return cases
+
+
+def switch_probe(reps=3):
+    """The batch-aware plans' switches (``switch_cases``) measured on each
+    side: each case on each of its layouts, forced, held bit for bit
+    against the first (the plan's), with its time (CUDA events, median of
+    ``reps`` after a warm-up), its tile iterations and the SM-us a tile
+    iteration (the time x the blocks at once, at most the SMs, over the
+    tile iterations), and which layout the plan takes.  Prints only;
+    returns {label: ms}."""
+    from unittest import mock
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    from tinympc_julia_tpu_torch.ops.cuda._build import load_libraries
+    from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import \
+        tile_iterations
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for built in load_libraries(["condensed_fused", "condensed_adaptive"]):
+        print(f"switch probe: {built.path.name} built in "
+              f"{built.seconds:.1f} s", flush=True)
+    out = {}
+    for label, mod, f, sw, taken, layouts in switch_cases(dev, sms):
+        name = "adaptive_tile_plan" if mod is K2 else "fused_tile_plan"
+        base, times = None, []
+        for lname, plan in layouts:
+            with mock.patch.object(mod, name, lambda *a, **k: plan):
+                res = f()
+                torch.cuda.synchronize()
+                t = float(np.median([event_ms(f) for _ in range(reps)]))
+            base = res if base is None else base
+            same = same_bits(res, base)
+            its = tile_iterations(res[2], plan.tile)
+            blocks = -(-res[2].numel() // plan.tile) * plan.cluster
+            times.append(t)
+            mark = " (the plan's)" if plan == taken else ""
+            print(f"switch probe {label} (sw {sw}) [{lname}{mark}]: "
+                  f"{t:.3f} ms (median of {reps}); bit-equal to the first "
+                  f"{same}; {its} tile iterations of {blocks} blocks, "
+                  f"{t * 1e3 * min(blocks, sms) / its:.2f} SM-us a tile "
+                  f"iteration", flush=True)
+            out[f"{label} [{lname}]"] = t
+        print(f"switch probe {label}: {layouts[1][0]} / {layouts[0][0]} "
+              f"{times[1] / times[0]:.3f}", flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probe", nargs="?",
-                    choices=("wide", "cluster", "far", "stage", "sections"),
+                    choices=("wide", "cluster", "far", "stage", "sections",
+                             "switch"),
                     default="cluster")
     ap.add_argument("--sass", metavar="DIR",
                     help="sections: write the SASS of the continuation "
@@ -824,7 +997,8 @@ def main(argv=None):
         sections_main(args.sass)
         return
     dict(wide=wide_layout_probe, cluster=cluster_probe,
-         far=far_layout_probe, stage=stage_probe)[args.probe]()
+         far=far_layout_probe, stage=stage_probe,
+         switch=switch_probe)[args.probe]()
 
 
 if __name__ == "__main__":
