@@ -149,9 +149,13 @@ Phases (one line each; any failure exits non-zero):
      K1 launch chained through its carry (100 launches counted): share of
      (plant, step) solved >= 99%; per-(plant, step) iteration counts and
      applied controls against the same loop on K1's plain version; paired
-     times, closed-loop steps/s, the host's enqueue time of a loop; one warm
-     launch at the loop's shape timed beside its plain version, and the
-     per-launch map layouts on their own;
+     times (the plain loop timed once), closed-loop steps/s, the host's
+     enqueue time of a loop; one warm launch at the loop's shape timed
+     beside its plain version, and the map layouts (made once for a
+     solver's maps) on their own; the warm launch on K1's warp layout (the
+     plan's at the cartpole's narrow map) against tiles of 32 lanes forced,
+     bit for bit, timed in turns, with its lane groups' iterations and the
+     queue model's critical path against the lanes' own;
  21. the two other loops on the card in float64: run_mpc_loop (2 cartpole
      plants x 25 steps; the adaptive-rho case, 10 steps) against the same
      loop on the CPU (equal iteration counts, controls within 1e-6, equal
@@ -166,7 +170,10 @@ Phases (one line each; any failure exits non-zero):
      merged per-lane results against the same pipeline on the plain version;
      pipeline kernel vs plain (median of 3) beside the fixed-rho0 control
      (K1, 500 iterations); the phase-2 launch alone vs plain, with its tile
-     iterations and its tiles of pad slots only; the standard per-update
+     iterations and its tiles of pad slots only (on the warp layout: its
+     lane groups' iterations, the queue model's critical path and the live
+     slots by bucket, and the launch against tiles of 32 forced, bit for
+     bit, timed in turns); the standard per-update
      rebuild (adaptive_rho_rebuild on the standard path, a Riccati fixed
      point per lane update) on 16 lanes as a quality reference;
  23. the same on the mis-set quadrotor (misset_rho_quadrotor): rho0 =
@@ -337,6 +344,7 @@ single PyTorch call computes an ADMM solve.
 """
 import functools
 import json
+import math
 import subprocess
 import time
 from pathlib import Path
@@ -393,15 +401,54 @@ def event_ms(fn):
     return a.elapsed_time(b)
 
 
+SLOW_PLAIN_MS = 1000.0  # a plain version this slow is timed once
+
+
+class PhaseClock:
+    """Prints each phase's wall seconds (host clock) when the next begins."""
+
+    def __init__(self):
+        self.name, self.t = None, time.perf_counter()
+
+    def mark(self, name=None):
+        now = time.perf_counter()
+        if self.name is not None:
+            print(f"phase {self.name} wall {now - self.t:.1f} s", flush=True)
+        self.name, self.t = name, now
+
+
+WALL = PhaseClock()
+
+
+def timed_once(fn):
+    """``fn()`` and its ms, one CUDA-event timing (a plain version that
+    takes seconds: its comparison run is its one timing)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
 def paired_ms(f_kernel, f_plain, reps=5, plain_reps=None):
     """Median ms of each over ``reps`` turns after one warm-up each, the
     order alternating (plain, kernel, kernel, plain, ...).  With
     ``plain_reps`` (a plain version that takes seconds, run by the caller
     just before) the plain version gets no warm-up and only the first
-    ``plain_reps`` turns."""
+    ``plain_reps`` turns (0: none, the caller timed it: its plain time is
+    NaN).  A plain version whose warm-up takes over SLOW_PLAIN_MS is timed
+    once, by that run (printed as one timing)."""
     n_plain = reps if plain_reps is None else plain_reps
     if plain_reps is None:
-        f_plain()
+        t_first = event_ms(f_plain)
+        if t_first > SLOW_PLAIN_MS:
+            f_kernel()
+            tk = [event_ms(f_kernel) for _ in range(reps)]
+            print(f"(the plain version above {SLOW_PLAIN_MS:.0f} ms: one "
+                  f"timing, {t_first:.3f} ms)", flush=True)
+            return float(np.median(tk)), t_first
     f_kernel()
     tk, tp = [], []
     for r in range(reps):
@@ -410,7 +457,7 @@ def paired_ms(f_kernel, f_plain, reps=5, plain_reps=None):
         tk.append(event_ms(f_kernel))
         if r % 2 == 1 and r < n_plain:
             tp.append(event_ms(f_plain))
-    return float(np.median(tk)), float(np.median(tp))
+    return float(np.median(tk)), float(np.median(tp)) if tp else math.nan
 
 
 def forced(mod, name, plan, f):
@@ -424,8 +471,14 @@ def forced(mod, name, plan, f):
 
 
 def describe_plan(plan):
-    """A K1 or K2 plan's layout as phases 4, 10e, 11 and 24 print it (a
-    plan of one block a tile)."""
+    """A K1 or K2 plan's layout as phases 4, 10e, 11, 20, 22 and 24 print
+    it (a plan of one block a tile, or K1's warp layout)."""
+    if getattr(plan, "warps", 0):
+        return (f"the warp layout: lane groups of {plan.tile} lanes, a warp "
+                f"each, up to {plan.warps} warps a block taking lane groups "
+                f"from the launch's queue, 8 rows x {plan.lanes} lanes a "
+                f"thread in the fp32 product, the map resident, "
+                f"{plan.smem} bytes of shared memory")
     passes = (plan.passes if hasattr(plan, "passes")
               else f"{plan.passes1} + {plan.passes2}")
     ring = ("by the bulk copy engine, no block barrier a slab"
@@ -434,6 +487,38 @@ def describe_plan(plan):
             f"{plan.lanes} lanes x {2 * plan.rpt // plan.lanes} rows a "
             f"thread in the fp32 product, slabs of {plan.slab_k} k-rows "
             f"{ring}, {passes} passes, {plan.smem} bytes of shared memory")
+
+
+def iteration_report(counts, plan, groups, sms, sw, state):
+    """A K1 launch's iterations as phases 20 and 22 print them: the lanes'
+    mean and largest counts; the tiles' (or lane groups') iterations, each
+    its slowest lane's count, against the lanes' own; with the warp layout
+    (a map of ``sw`` rows, ``state`` floats a lane, its staged carry
+    included) its blocks a group,
+    warps a block and blocks at once (the occupancy API) and the queue
+    model's critical path (``queue_iterations``), beside what tiles of 32
+    lanes run."""
+    from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
+        TILE, launch_warps, queue_iterations, tile_iterations,
+        tile_occupancy, warp_smem)
+    own = int(counts.sum())
+    out = (f"lanes' mean count {counts.float().mean().item():.2f}, largest "
+           f"{int(counts.max())}")
+    t32 = tile_iterations(counts, TILE, groups)
+    if not getattr(plan, "warps", 0):
+        return (f"{out}; {t32} tile iterations, {TILE * t32 / own:.3f} x "
+                "the lanes' own")
+    per = -(-(counts.numel() // groups) // plan.tile)
+    blocks, warps = launch_warps(plan, per, sms, tile_occupancy(plan))
+    slots = sms * tile_occupancy(plan._replace(warps=warps),
+                                 smem=warp_smem(sw, state, warps))
+    n_lg = tile_iterations(counts, plan.tile, groups)
+    crit = queue_iterations(counts, groups, blocks, warps, slots)
+    return (f"{out}; {groups * per} lane groups of {plan.tile} ran {n_lg} "
+            f"iterations ({plan.tile * n_lg / own:.3f} x the lanes' own) on "
+            f"{blocks} blocks a group x {warps} warps, {slots} blocks at "
+            f"once, the queue model's critical path {crit} iterations; "
+            f"tiles of 32 would run {t32} ({TILE * t32 / own:.3f} x)")
 
 
 def lanes_differ(out_k, out_p):
@@ -612,6 +697,7 @@ def earlier_phases(card):
                 condensed_fused_reference(*args, **full))
 
     # -- phase 3: kernel vs plain at the cartpole shape ---------------------
+    WALL.mark("3")
     rng = np.random.default_rng(0)
     x0_check = torch.as_tensor(rng.uniform(-0.5, 0.5, size=(B_CHECK, 4)),
                                dtype=f32, device=dev)
@@ -650,6 +736,7 @@ def earlier_phases(card):
           "solve")
 
     # -- phase 4: the quadrotor shape (T12 read from global memory) ---------
+    WALL.mark("4")
     qN = quadrotor.HORIZON
     assert qN == N
     pq, cq, mq = plant(quadrotor, quadrotor.U_HOVER_BOUND, quadrotor.RHO)
@@ -663,6 +750,7 @@ def earlier_phases(card):
         f"shared memory: {plan_q.resident})", out_k, out_p))
 
     # -- phase 4b: K1's wide maps, the product in passes ---------------------
+    WALL.mark("4b")
     for Nw in (40, 57):
         pw = make_problem(quadrotor.A, quadrotor.B,
                           np.diag(quadrotor.Q_DIAG), np.diag(quadrotor.R_DIAG),
@@ -719,6 +807,7 @@ def earlier_phases(card):
                   f"{busy} busy SMs", flush=True)
 
     # -- phase 5: the main path through the API -----------------------------
+    WALL.mark("5")
     condensed_fused_cuda.launches = 0
     x0_main = torch.as_tensor(
         np.random.default_rng(0).uniform(-0.5, 0.5, size=(B_MAIN, 4)),
@@ -756,6 +845,7 @@ def earlier_phases(card):
     check(api_exact, "API warm chain differs from the one-shot solve")
 
     # -- phase 6: the headline three-phase pipeline --------------------------
+    WALL.mark("6")
     pipe_args = (maps, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max,
                  x0_main)
     pkw = dict(nx=4, nu=1, N=N, straggler_slots=SLOTS)
@@ -838,6 +928,7 @@ def earlier_phases(card):
           flush=True)
 
     # -- phase 7: K1e, the projections, kernel vs plain ---------------------
+    WALL.mark("7")
     rN = rocket.HORIZON
     r_solver = rocket.make_solver(dtype=f32, device="cuda")
     Xref, Uref = rocket.reference_trajectory(0)
@@ -910,6 +1001,7 @@ def earlier_phases(card):
     check(h_ex <= CONE_TOL, f"phase 7c: halfspace excess {h_ex:.3e}")
 
     # -- phase 8: the rocket main path through the API -----------------------
+    WALL.mark("8")
     x0_rm = rocket_x0(B_MAIN)
     condensed_fused_cuda.launches = 0
     condensed_fused_cuda.projected_launches = 0
@@ -985,6 +1077,7 @@ def earlier_phases(card):
           flush=True)
 
     # -- phase 9: the single-instance solve() on the card, float64 -----------
+    WALL.mark("9")
     loops = [rocket.make_solver(dtype=torch.float64, device=d)
              for d in ("cuda", "cpu")]
     xs_loop = [rocket.X_INIT * 1.1, rocket.X_INIT * 1.1]
@@ -1012,6 +1105,7 @@ def earlier_phases(card):
     check(du <= LOOP_ATOL, f"phase 9: controls differ by {du:.3e}")
 
     # -- phase 10: K2, per-lane adaptive rho, kernel vs plain ---------------
+    WALL.mark("10")
     def k2_kw(pp, cc, **kw):
         full = dict(plant=AdaptivePlant(pp.A, pp.B, pp.Q, pp.R, cc.Pinf,
                                         cc.dPinf_drho),
@@ -1124,6 +1218,7 @@ def earlier_phases(card):
           "'highest'")
 
     # -- phase 11: the adaptive main path at the quadrotor's full width ------
+    WALL.mark("11")
     x0_a = torch.as_tensor(np.random.default_rng(1).uniform(
         -0.3, 0.3, size=(B_ADAPT, 12)), dtype=f32, device=dev)
     q_solver = quadrotor.make_solver(dtype=f32, device="cuda")
@@ -1267,6 +1362,7 @@ def earlier_phases(card):
           f"5: {t_k2:.3f} ms, plain {t_k2_p:.3f} ms", flush=True)
 
     # -- phase 12: the adaptive single-instance solve(), float64 -------------
+    WALL.mark("12")
     x0_1 = np.array([0.1, -0.2, 0.3, 0.05, -0.05, 0.1, 0.2, -0.1, 0.15, 0.0,
                      0.0, 0.0])
     golden = Path(__file__).resolve().parent / "tests" / "golden"
@@ -1435,6 +1531,7 @@ def grouped_phases(card):
         return int(differ.sum())
 
     # -- phase 13: K1d, the group grid, kernel vs plain ---------------------
+    WALL.mark("13")
     d_errs = []
     G, L = G_CHECK, L_CHECK
     Pc, Cc = groups(cartpole, G, (3.0, 6.0), 3)
@@ -1507,6 +1604,7 @@ def grouped_phases(card):
           "80-iteration solve")
 
     # -- phase 14: K1c, the reduced-precision product and head --------------
+    WALL.mark("14")
     c_errs = []
     head_kw = dict(max_iter=96, bf16_head_iters=16)
     out_k, out_p = k1_both(Pc, Cc, mc, x0c, **head_kw)
@@ -1578,6 +1676,7 @@ def grouped_phases(card):
         check(du <= ATOL, f"phase 14d {what}: controls differ by {du:.3e}")
 
     # -- phase 15: K2's group grid ------------------------------------------
+    WALL.mark("15")
     g_errs = []
 
     def k2_both(P, C, tmaps, x0s, **kw):
@@ -1666,6 +1765,7 @@ def grouped_phases(card):
     check(n_a >= int(ok_a.sum()), "the adaptive pipeline lost lanes")
 
     # -- phases 16 and 17: the two sweeps at full width ---------------------
+    WALL.mark("16-17")
     d_launches = c_launches = 0
     sweep_rows = {}
 
@@ -1705,10 +1805,11 @@ def grouped_phases(card):
         check(tuple(us.shape) == (G, L, gs.N - 1, gs.nu), f"controls "
               f"{tuple(us.shape)}")
         check(n_conv >= 0.99 * B, f"phase {phase}: {n_conv}/{B} converged")
+        out_sp, t_st_p = timed_once(lambda: staged_p(x0s))
         errs = [agreement(
             f"phase {phase} {name}, staged pipeline vs its plain version",
-            flat_lanes(out), flat_lanes(staged_p(x0s)),
-            min_solved=int(0.99 * B))]
+            flat_lanes(out), flat_lanes(out_sp), min_solved=int(0.99 * B))]
+        del out_sp
         out_u = flat(x0s)
         errs.append(agreement(
             f"phase {phase} {name}, unstaged pipeline vs its plain version",
@@ -1726,8 +1827,9 @@ def grouped_phases(card):
                 o[3].reshape(B)) for o in (out, out_u))
             check(viol <= CONE_TOL, f"phase {phase}: cone excess {viol:.3e}")
             extra = f", largest cone excess on solved lanes {viol:.3e}"
-        t_st, t_st_p = paired_ms(lambda: staged(x0s), lambda: staged_p(x0s),
-                                 reps=DEEP_REPS, plain_reps=1)
+        # the plain staged pipeline's one timing: its comparison run above
+        t_st, _ = paired_ms(lambda: staged(x0s), None, reps=DEEP_REPS,
+                            plain_reps=0)
         t_fl, t_fl_p = paired_ms(lambda: flat(x0s), lambda: flat_p(x0s),
                                  reps=1)
         print(f"phase {phase} {name} G={G} x L={L}: staged {pkw}: {n_conv} "
@@ -1758,7 +1860,8 @@ def grouped_phases(card):
         full = k1_kw(Pq, **kw)
         f_k = functools.partial(condensed_fused_cuda, *argsq, **full)
         f_p = functools.partial(condensed_fused_reference, *argsq, **full)
-        out_k, out_p = f_k(), f_p()
+        out_k = f_k()
+        out_p, t_p1 = timed_once(f_p)
         if key == "K1d":
             err = agreement(f"phase 16 {key} bulk launch G={Gq} x L={Lq}, "
                             f"{kw['max_iter']} fp32 iterations vs plain",
@@ -1775,8 +1878,11 @@ def grouped_phases(card):
         t_bytes = tensor_bytes(gs_q.maps().T12, gs_q.maps().T1, Cq.rho,
                                Pq.u_min, Pq.u_max, Pq.x_min, Pq.x_max, x0_q,
                                out_k[:4], tuple(out_k[4])) / PEAK_BYTES
+        # K1c's plain version (seconds): its comparison run is its timing
         t_k, t_p = paired_ms(f_k, f_p, reps=3,
-                             plain_reps=1 if key == "K1c" else None)
+                             plain_reps=0 if key == "K1c" else None)
+        if key == "K1c":
+            t_p = t_p1
         timed[key] = (err, t_k, t_p, 1e3 * max(t_ops, t_bytes),
                       "operations" if t_ops >= t_bytes else "bytes")
         n_tile = tile_iterations(out_k[2], 32, Gq)
@@ -1854,12 +1960,14 @@ def stage_and_loop_phases(card):
     from tinympc_julia_tpu_torch import Settings, make_problem
     from tinympc_julia_tpu_torch.models import cartpole, quadrotor, rocket
     from tinympc_julia_tpu_torch.ops.condensed import build_condensed
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
     from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
         condensed_fused_cuda, condensed_fused_reference, fused_tile_plan,
-        map_layout)
+        map_layout, shared_tile_plan)
     from tinympc_julia_tpu_torch.ops.cuda.fused import (
         fused_cuda, fused_reference, fused_stage_plan, make_fused_solver,
         stage_occupancy)
+    from tinympc_julia_tpu_torch.ops.cuda.layout_probe import same_bits
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.parallel import mpc
 
@@ -1898,6 +2006,7 @@ def stage_and_loop_phases(card):
             -scale, scale, size=(B, nx)), dtype=f32, device=dev)
 
     # -- phase 18: K3 vs plain ------------------------------------------------
+    WALL.mark("18")
     errs = []
     x0_check = draw(B_CHECK, 4, 0, 0.5)[:B_CHECK - 3].contiguous()
     p, c = plant(cartpole, (5.0, 5.0), cartpole.RHO)
@@ -1955,6 +2064,7 @@ def stage_and_loop_phases(card):
                   "phase 18c: a state slack outside its box")
 
     # -- phase 19: K3's path at full width, beside K1 -------------------------
+    WALL.mark("19")
     def stage_flops(pp, iters):
         nx, nu = pp.nx, pp.nu
         return ((pp.N - 1) * (4 * nx * nx + 8 * nx * nu + 2 * nu * nu)
@@ -2045,6 +2155,7 @@ def stage_and_loop_phases(card):
     check(fused_cuda.launches >= 2, "K3 was not launched on its path")
 
     # -- phase 20: the fused MPC loop at full width ---------------------------
+    WALL.mark("20")
     B_LOOP, STEPS = 8192, 100
     s = Settings(max_iter=100, en_state_bound=False, relaxation_alpha=1.7)
     x0_l = draw(B_LOOP, 4, 3, 0.5)
@@ -2076,7 +2187,9 @@ def stage_and_loop_phases(card):
     loop(x0_l)
     t_enq = time.perf_counter() - t0
     torch.cuda.synchronize()
-    t_loop, t_loop_p = paired_ms(lambda: loop(x0_l), lambda: loop_p(x0_l))
+    # the plain loop (seconds) was run just before: one timing
+    t_loop, t_loop_p = paired_ms(lambda: loop(x0_l), lambda: loop_p(x0_l),
+                                 plain_reps=1)
     it_step = res.iters.float().mean(dim=0)
     print(f"phase 20 fused MPC loop, {B_LOOP} cartpole plants x {STEPS} "
           f"steps, alpha 1.7, max_iter 100: {loop_launches} K1 launches; "
@@ -2088,7 +2201,8 @@ def stage_and_loop_phases(card):
           f"{it_step[-1].item():.1f}, all "
           f"{res.iters.float().mean().item():.2f}; final |pole angle| mean {res.xs[:, -1, 2].abs().mean():.2e}; "
           f"median of 5: kernel loop {t_loop:.3f} ms, plain loop "
-          f"{t_loop_p:.3f} ms -> {B_LOOP * STEPS / (t_loop * 1e-3):.0f} "
+          f"{t_loop_p:.3f} ms (one timing) -> "
+          f"{B_LOOP * STEPS / (t_loop * 1e-3):.0f} "
           f"closed-loop steps/s on {card}; the host enqueues a loop in "
           f"{1e3 * t_enq:.1f} ms", flush=True)
     # one warm launch at the loop's shape: step 1, from step 0's carry
@@ -2113,19 +2227,30 @@ def stage_and_loop_phases(card):
                     + 2.0 * sw * 4 * B_LOOP,
                     tensor_bytes(maps.T12, maps.T1, *l_args[2:], x1,
                                  tuple(cold[4]), w_k[:4], tuple(w_k[4])))
+    f_w = functools.partial(condensed_fused_cuda, *l_args, x1, cold[4],
+                            warm_start=True, **l_kw)
     t_w, t_w_p = paired_ms(
-        lambda: condensed_fused_cuda(*l_args, x1, cold[4], warm_start=True,
-                                     **l_kw),
-        lambda: condensed_fused_reference(*l_args, x1, cold[4],
-                                          warm_start=True, **l_kw))
+        f_w, lambda: condensed_fused_reference(*l_args, x1, cold[4],
+                                               warm_start=True, **l_kw))
+    plan_w = fused_tile_plan(4, 1, N)
     t_lay = float(np.median([event_ms(lambda: map_layout(
-        maps, 4, (N - 1) * 1, sw, False, fused_tile_plan(4, 1, N)))
-        for _ in range(5)]))
+        maps, 4, (N - 1) * 1, sw, False, plan_w)) for _ in range(5)]))
     print(f"phase 20 one warm launch, B={B_LOOP}, mean iterations "
           f"{w_k[2].float().mean().item():.1f}: median of 5: kernel "
           f"{t_w:.3f} ms, plain {t_w_p:.3f} ms, bound {b_bound[0]:.4f} ms by "
-          f"{b_bound[1]}; the map layouts every launch makes: {t_lay:.3f} ms",
-          flush=True)
+          f"{b_bound[1]}; the map layouts, made once for a solver's maps "
+          f"(the loop's solvers keep them): {t_lay:.3f} ms", flush=True)
+    # the layout the plan takes against tiles of 32 lanes forced, in turns
+    t32 = shared_tile_plan(4, 1, N)
+    same_w = same_bits(w_k, forced(K, "fused_tile_plan", t32, f_w)())
+    check(same_w, "phase 20: the warm launch differs from its tiles of 32")
+    t_w2, t_w32 = paired_ms(f_w, forced(K, "fused_tile_plan", t32, f_w),
+                            reps=4)
+    print(f"phase 20 warm launch layouts: {describe_plan(plan_w)}; "
+          f"{iteration_report(w_k[2], plan_w, 1, sms, sw, K.state_floats(4, 1, N, True) + 2 * sw)}; bit-equal to tiles "
+          f"of 32 forced {same_w}; median of 4 in turns: the plan's "
+          f"{t_w2:.3f} ms, tiles of 32 {t_w32:.3f} ms "
+          f"({t_w32 / t_w2:.3f}x)", flush=True)
     rows.append({
         "name": "condensed_fused carry chain (K1b), fused MPC loop: one "
                 "warm launch at B=8192",
@@ -2137,6 +2262,7 @@ def stage_and_loop_phases(card):
         "library_ms": None})
 
     # -- phase 21: the two other loops, float64 -------------------------------
+    WALL.mark("21")
     f64 = torch.float64
     t0 = time.perf_counter()
 
@@ -2359,6 +2485,23 @@ def rebuild_and_horizon_phases(card):
                           tuple(warm), o_k)
         n_tile = tile_iterations(o_k[2], 32, G)
         pad_tiles = int((valid.reshape(G, -1, 32).sum(dim=2) == 0).sum())
+        plan2 = fused_tile_plan(p.nx, p.nu, N, False, not s.en_state_bound)
+        if plan2.warps:  # the warp layout against tiles of 32 forced
+            t32 = shared_tile_plan(p.nx, p.nu, N, False,
+                                   not s.en_state_bound)
+            f_32 = forced(K, "fused_tile_plan", t32, f_k)
+            same2 = same_bits(o_k, f_32())
+            check(same2, f"phase {phase}: the phase-2 launch differs from "
+                  "its tiles of 32")
+            t_k2, t_k32 = paired_ms(f_k, f_32, reps=4)
+            live = valid.reshape(G, -1).sum(dim=1).tolist()
+            print(f"phase {phase} phase-2 launch layouts: "
+                  f"{describe_plan(plan2)}; live slots by bucket {live}; "
+                  f"{iteration_report(o_k[2], plan2, G, n_sm, sw, K.state_floats(p.nx, p.nu, N, not s.en_state_bound))}; "
+                  f"bit-equal "
+                  f"to tiles of 32 forced {same2}; median of 4 in turns: "
+                  f"the plan's {t_k2:.3f} ms, tiles of 32 {t_k32:.3f} ms "
+                  f"({t_k32 / t_k2:.3f}x)", flush=True)
         print(f"phase {phase} {name}, B={B}, rho0 {rho0}, buckets "
               f"{[float(f'{r:.6g}') for r in rhos]}: phase-1 stragglers "
               f"{int((ok1 == 0).sum())} over the buckets "
@@ -2376,12 +2519,14 @@ def rebuild_and_horizon_phases(card):
               f"{n_bkt / (t_pipe * 1e-3):.0f} solves/s; the control "
               f"{t_fix:.3f} ms (median of 5) -> {n_fix / (t_fix * 1e-3):.0f} "
               f"solves/s on {card}", flush=True)
+        tiles = ("" if plan2.warps else
+                 f"{n_tile} tile iterations ({G * B // 32} tiles, {pad_tiles} "
+                 f"of them all pad slots), "
+                 f"{32 * n_tile / int(o_k[2].sum()):.3f} x the slots' own, "
+                 f"{1e3 * t_k * n_sm / n_tile:.3f} SM-us each; ")
         print(f"phase {phase} phase-2 launch: kernel {t_k:.3f} ms, plain "
               f"{t_p:.3f} ms (median of 5), bound {b2[0]:.4f} ms by {b2[1]}; "
-              f"{n_tile} tile iterations ({G * B // 32} tiles, {pad_tiles} of "
-              f"them all pad slots), {32 * n_tile / int(o_k[2].sum()):.3f} x "
-              f"the slots' own, {1e3 * t_k * n_sm / n_tile:.3f} SM-us each; "
-              f"largest count {int(o_k[2].max())}", flush=True)
+              f"{tiles}largest count {int(o_k[2].max())}", flush=True)
         if ref_lanes:
             # the standard per-update rebuild, a Riccati fixed point per
             # lane update on the host: a quality reference on a few lanes
@@ -2420,14 +2565,17 @@ def rebuild_and_horizon_phases(card):
             "bound_by": b2[1], "library_ms": None})
 
     # -- phase 22: the mis-set cartpole (bench.py's misset_rho_adaptive) ------
+    WALL.mark("22")
     rebuild_phase(22, "mis-set cartpole", cartpole, 0.01, 5.0,
                   np.array([2.0, 1e17, 1e17, 1e17]), 5,
                   np.array([1.8, 1.0, 0.4, 0.5]), (1e-4, 1e4), 16)
     # -- phase 23: the mis-set quadrotor (bench.py's misset_rho_quadrotor) ----
+    WALL.mark("23")
     rebuild_phase(23, "mis-set quadrotor", quadrotor, 0.05,
                   quadrotor.U_HOVER_BOUND, None, 1, 0.3, (1e-3, 1e3), 0)
 
     # -- phase 24: the requantized adaptive quadrotor ------------------------
+    WALL.mark("24")
     qN = quadrotor.HORIZON
     qp = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
                       np.diag(quadrotor.R_DIAG), quadrotor.RHO, qN,
@@ -2594,6 +2742,7 @@ def rebuild_and_horizon_phases(card):
         "library_ms": None})
 
     # -- phase 25: the long horizon, float64, card against CPU ---------------
+    WALL.mark("25")
     N_LONG = 1537
     check(not auto_uses_condensed(4, 1, N_LONG)
           and auto_chunk_size(4, 1, N_LONG) is not None,
@@ -2719,6 +2868,7 @@ def persistence_phases(card):
         return sv2
 
     # -- phase 26: checkpoint ------------------------------------------------
+    WALL.mark("26")
     t0 = time.perf_counter()
     cp64 = cartpole.make_solver(device="cuda", dtype=torch.float64,
                                 max_iter=100, constrained=True)
@@ -2760,6 +2910,7 @@ def persistence_phases(card):
     check(same26, "phase 26: the loaded solver's fused batch differs")
 
     # -- phase 27: export ----------------------------------------------------
+    WALL.mark("27")
     t0 = time.perf_counter()
     sv = cartpole.make_solver(device="cuda", dtype=torch.float64,
                               max_iter=100, constrained=True)
@@ -2809,6 +2960,7 @@ def persistence_phases(card):
           "phase", flush=True)
 
     # -- phase 28: sensitivities ---------------------------------------------
+    WALL.mark("28")
     t0 = time.perf_counter()
     errs28 = []
     for mod in (cartpole, quadrotor):
@@ -2836,6 +2988,7 @@ def persistence_phases(card):
           + f"; {time.perf_counter() - t0:.1f} s for the phase", flush=True)
 
     # -- phase 29: profiling -------------------------------------------------
+    WALL.mark("29")
     log_dir = tmp / "trace"
     condensed_fused_cuda.launches = 0
     with profiling.trace(str(log_dir)):
@@ -2843,8 +2996,10 @@ def persistence_phases(card):
     n29 = condensed_fused_cuda.launches
     with open(log_dir / "trace.json") as fh:
         events = json.load(fh)["traceEvents"]
+    # K1's symbols: condensed_fused_kernel (tiles of lanes) and
+    # condensed_fused_warp_kernel (the warp layout, this cartpole's)
     k1_events = [e for e in events if e.get("cat") == "kernel"
-                 and "condensed_fused_kernel" in e.get("name", "")]
+                 and "condensed_fused_" in e.get("name", "")]
     n_dev = sum(1 for e in events if e.get("cat") == "kernel")
     stats = profiling.solve_stats(
         type("Sol", (), dict(iter=out29[2], solved=out29[3]))())
@@ -2861,6 +3016,7 @@ def persistence_phases(card):
           f"phase 29: solve_stats {stats}")
 
     # -- phase 30: codegen and the native runtime ------------------------------
+    WALL.mark("30")
     t0 = time.perf_counter()
     gxx = shutil.which("g++")
     check(gxx is not None, "phase 30: no g++")
@@ -2942,6 +3098,7 @@ def sharded_and_example_phases(card):
         return result, buf.getvalue()
 
     # -- phase 31: the flagship sweep, a one-rank gloo group -----------------
+    WALL.mark("31")
     # in a group the vote runs: an all_reduce of the running count an
     # iteration, and the all_gather of block sizes before the loop
     t0 = time.perf_counter()
@@ -2991,6 +3148,7 @@ def sharded_and_example_phases(card):
           f"fewer than {SWEEP_SOLVED:.3f} of the lanes")
 
     # -- phase 32: the dry run's legs on two gloo ranks of the one card -----
+    WALL.mark("32")
     t0 = time.perf_counter()
     paths = dryrun.dryrun_multichip(2, device="cuda", full=True,
                                     timeout=480)
@@ -3027,6 +3185,7 @@ def sharded_and_example_phases(card):
           flush=True)
 
     # -- phase 33: the other nine examples on the card -----------------------
+    WALL.mark("33")
     def example(name):
         return __import__(f"tinympc_julia_tpu_torch.examples.{name}",
                           fromlist=["main"])
@@ -3215,7 +3374,8 @@ def lifted_shape_phases(card):
         """The kernel's first run (its launches counted), the plain
         version's, the bar, then the kernel's median of 3 after a warm-up
         (CUDA events) and the plain version's median of 3 (or, where it
-        takes seconds, its one timed comparison run)."""
+        takes seconds or over SLOW_PLAIN_MS, its one timed comparison run,
+        printed as one timing)."""
         name, attr = counter
         setattr(name, attr, 0)
         out_k = f_k()
@@ -3229,10 +3389,12 @@ def lifted_shape_phases(card):
         t1.record()
         t1.synchronize()
         err, nk = lifted_agreement(label, out_k, out_p, rho)
-        if slow_plain:
+        if slow_plain or t0.elapsed_time(t1) > SLOW_PLAIN_MS:
             f_k()
             t_k = float(np.median([event_ms(f_k) for _ in range(3)]))
             t_p = t0.elapsed_time(t1)
+            print(f"({label}: the plain version timed once, {t_p:.3f} ms)",
+                  flush=True)
         else:
             t_k, t_p = paired_ms(f_k, f_p, reps=3)
         return out_k, out_p, err, launches, t_k, t_p
@@ -3291,6 +3453,7 @@ def lifted_shape_phases(card):
         return y
 
     # -- phase 34: K1 at wide maps --------------------------------------------
+    WALL.mark("34")
     # the SMs each cluster size keeps busy on this card (the occupancy API,
     # what a launch weighs the sizes by) beside the CLUSTER_SMS table the
     # CPU plan tests use
@@ -3470,6 +3633,7 @@ def lifted_shape_phases(card):
           "phases 34-37", flush=True)
 
     # -- phase 35: K2 with its tile split over a cluster, its OSQP-form
+    WALL.mark("35")
     # controller on a wide stage ---------------------------------------------
     def k2_ops(p, order, iters):
         su, sw = (p.N - 1) * p.nu, p.N * p.nx + (p.N - 1) * p.nu
@@ -3667,6 +3831,7 @@ def lifted_shape_phases(card):
           "phases 34-37", flush=True)
 
     # -- phase 36: K1e, a stage of 20 entries with 10 cones -------------------
+    WALL.mark("36")
     p, c = chain(20, x_bound=3.0)
     m = build_condensed(p, c)
     sw = m.T12.shape[0]
@@ -3759,6 +3924,7 @@ def lifted_shape_phases(card):
         "tinympc_julia_tpu/ops/pallas/condensed_kernel.py:127")
 
     # -- phase 37: K3's wide variant and its far layout -----------------------
+    WALL.mark("37")
     def k3_full(p, budget, box):
         return dict(nx=p.nx, nu=p.nu, N=p.N, max_iter=budget,
                     abs_pri_tol=1e-3, abs_dua_tol=1e-3, en_state_bound=box,
@@ -3907,6 +4073,7 @@ def main():
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s), "
           f"card {card}", flush=True)
     t_start = time.perf_counter()
+    WALL.mark("2")
     build_kernels()
     rows = earlier_phases(card)
     print(f"phases 2-12 done {time.perf_counter() - t_start:.0f} s after "
@@ -3927,6 +4094,7 @@ def main():
     print(f"phases 31-33 done {time.perf_counter() - t_start:.0f} s after "
           "the start", flush=True)
     rows += lifted_shape_phases(card)
+    WALL.mark()
     print(f"all phases done {time.perf_counter() - t_start:.0f} s after the "
           "start", flush=True)
     print(json.dumps({"kernels": rows}))

@@ -60,6 +60,9 @@ import torch
 from torch.autograd import DeviceType
 
 F32 = torch.float32
+# K1's device symbols: condensed_fused_kernel<...> (tiles of lanes) and
+# condensed_fused_warp_kernel<...> (the warp layout of the narrow maps)
+K1_KERNEL = "condensed_fused_"
 
 
 def cartpole_workload(dev):
@@ -96,7 +99,7 @@ def cartpole_workload(dev):
                     phase2_max_iters=int(it2.max()) if it2.numel() else 0,
                     converged=int(res.converged()))
 
-    return "condensed_fused_kernel", 3, setup, run, stats
+    return K1_KERNEL, 3, setup, run, stats
 
 
 def rocket_workload(dev):
@@ -128,7 +131,7 @@ def rocket_workload(dev):
         return dict(mean_iters=res[1].float().mean().item(),
                     max_iters=int(res[1].max()), converged=int(res[2].sum()))
 
-    return "condensed_fused_kernel", 2, setup, run, stats
+    return K1_KERNEL, 2, setup, run, stats
 
 
 def adaptive_workload(dev):
@@ -251,7 +254,7 @@ def sweep_workload(build, staged):
                         converged=int(solved.sum()), lanes=solved.numel(),
                         overflow=int(overflow.sum()))
 
-        return ("condensed_fused_kernel", 3 if "phase0_bf16_iters" in pkw
+        return (K1_KERNEL, 3 if "phase0_bf16_iters" in pkw
                 else 2, setup, lambda: pipe(x0s), stats)
 
     return workload
@@ -293,7 +296,7 @@ def mpc_loop_workload(dev):
                     mean_iters_last_step=it[:, -1].mean().item(),
                     max_iters_after_step0=int(res.iters[:, 1:].max()))
 
-    return "condensed_fused_kernel", steps, setup, lambda: loop(x0), stats
+    return K1_KERNEL, steps, setup, lambda: loop(x0), stats
 
 
 def fused_stage_workload(name):

@@ -179,9 +179,17 @@ def test_tile_plan():
     # tiles of 32 lanes on 256 threads.  Cartpole, sw = 99: 8 rows a thread
     # (128 padded rows); w2 99 x 32 floats + flags + residual partials + the
     # lanes' state (uxc 99, y and z 19 each, v 80: 217 floats a lane) + the
-    # resident map 99 x 128
+    # resident map 99 x 128 (the plan of its reduced and projected
+    # launches; an fp32 box launch takes the warp layout: the map, its
+    # bounds 2 x 99 floats, and 8 warps of w2 128 x 8 floats and 8 lanes'
+    # state and staged carry, 217 + 198 floats a lane)
+    tiles = K.TilePlan(32, 256, True, True, 128, 128,
+                       12672 + 144 + 4096 + 27776 + 50688)
+    assert K.shared_tile_plan(4, 1, 20) == tiles
+    assert K.fused_tile_plan(4, 1, 20, projected=True) == tiles
     assert K.fused_tile_plan(4, 1, 20) == K.TilePlan(
-        32, 256, True, True, 128, 128, 12672 + 144 + 4096 + 27776 + 50688)
+        8, 256, True, True, 128, 128, 50688 + 800 + 8 * (4096 + 13280),
+        lanes=4, warps=8)
     # quadrotor, sw = 316: 20 rows a thread (320 padded rows; in the fp32
     # product 10 rows x 4 lanes, the 4-lane layout), the state (708 floats
     # a lane) resident, T12 streamed through a ring of the bytes of six 8 x
@@ -437,7 +445,8 @@ def test_projected_stages_take_shared_buffers_where_they_fit(shape, dims,
     change), and in the lanes' rows of a global scratch where it does not;
     the block's constraint data (``data`` bytes) follows in shared memory
     where it fits, and is left out where it does not."""
-    plan = K.fused_tile_plan(*shape[:3], state_free=shape[3])
+    plan = K.fused_tile_plan(*shape[:3], state_free=shape[3],
+                             projected=any(dims))
     smem, in_shared = K.launch_smem(plan, *dims)
     assert in_shared == shared
     buffers = 4 * K.THREADS * max(dims) if shared else 0
@@ -1119,10 +1128,14 @@ def test_cluster_size_follows_the_cards_busy_sms(kernel):
 # the plans at the main shapes as 9d6d48e made them: (shape, reduced,
 # state_free) -> K1's TilePlan fields, K2's AdaptivePlan fields (order 2)
 MAIN_SHAPE_PLANS = [
-    ((4, 1, 20), False, True, (32, 256, True, True, 128, 128, 95376, 1, False),
+    # the cartpole's fp32 launches (box constraints only): the warp layout,
+    # 8 warps of lane groups of 8 lanes (the last two fields: 4 lanes a
+    # thread, 8 warps), room for a staged carry
+    ((4, 1, 20), False, True, (8, 256, True, True, 128, 128, 190496, 1, False,
+                               1, (), 4, 8),
      (32, 256, 8, 1, 1, True, True, 32, 128, 131728, False)),
-    ((4, 1, 20), False, False, (32, 256, True, True, 128, 128, 105616, 1,
-                                False),
+    ((4, 1, 20), False, False, (8, 256, True, True, 128, 128, 210976, 1,
+                                False, 1, (), 4, 8),
      (32, 256, 8, 1, 1, True, True, 32, 128, 141968, False)),
     ((4, 1, 20), True, True, (32, 256, True, True, 128, 128, 138896, 1, False),
      (32, 256, 8, 1, 1, True, True, 32, 128, 205968, False)),
@@ -1180,11 +1193,15 @@ def test_main_shape_plans_are_unchanged(shape, reduced, state_free, k1, k2,
     field for field: no cluster, nothing in global memory; K1's at the
     quadrotor's N = 20 takes 4 lanes a thread in its fp32 product (the
     4-lane layout, faster on the card at every batch measured: PERF.md
-    section 6), the rest 2.  K2's are the same for the bulk batches
+    section 6), the rest 2; but the cartpole's fp32 launches take the warp
+    layout (faster on the card at every batch measured: PERF.md section
+    6), and the rocket's plan is that of its launches, which project its
+    cones.  K2's are the same for the bulk batches
     (``tiles`` of 32 lanes: the adaptive pipeline's 16,384 lanes, the
     headline's 65,536) under the batch-aware plan, on an H100's 132 SMs."""
     from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
-    p = K.fused_tile_plan(*shape, reduced, state_free)
+    p = K.fused_tile_plan(*shape, reduced, state_free,
+                          projected=shape == (6, 3, 10))
     assert p == K.TilePlan(*k1) and (p.cluster, p.stages) == (1, ())
     q = K2.adaptive_tile_plan(*shape, 2, reduced, state_free, tiles=tiles,
                               sms=132)
@@ -1204,7 +1221,9 @@ def test_four_lane_plan(shape, lanes4):
     """A plan that streams its map in one pass of 320 rows takes the 4-lane
     layout (10 rows x 4 lanes a thread in the fp32 product, slabs of 16
     k-rows), whatever the batch, with room left for its ring's barriers;
-    every other plan keeps 2 lanes a thread and 8-row slabs."""
+    every other plan of tiles keeps 2 lanes a thread and 8-row slabs (the
+    cartpole's and the rocket's fp32 launches with box constraints only
+    take the warp layout, with no ring)."""
     for reduced in (False, True):
         for state_free in (True, False):
             p = K.fused_tile_plan(*shape, reduced, state_free)
@@ -1215,6 +1234,12 @@ def test_four_lane_plan(shape, lanes4):
                                                                    False, 16)
                 assert p.smem + K.RING_BARS_BYTES <= K.SMEM_PER_BLOCK
             else:
+                sw = (shape[2] - 1) * shape[1] + shape[2] * shape[0]
+                if sw <= K.WARP_ROWS and not reduced:  # the warp layout
+                    assert p == K.warp_tile_plan(*shape, state_free)
+                    assert not p.bulk_ring
+                    p = K.fused_tile_plan(*shape, reduced, state_free,
+                                          projected=True)
                 assert p.lanes == 2
                 assert p.slab_k == (16 if p.cluster > 1 else 8)
 
@@ -1285,3 +1310,128 @@ def test_side_of_64_entries_with_16_cones():
     assert args[2] == pairs.data_ptr()
     with pytest.raises(ValueError, match="does not fit"):
         K._side_args(None, cons.cones_x, 60, "state")
+
+
+# -- the warp layout (narrow maps) --------------------------------------------
+
+@pytest.mark.parametrize("shape,takes", [
+    ((4, 1, 20), True),     # the cartpole, sw 99
+    ((4, 1, 25), True),     # sw 124
+    ((4, 1, 26), False),    # sw 129: wider than the warp's 128 rows
+    ((6, 3, 10), True),     # the rocket's box alone, sw 87
+    ((12, 4, 8), True),     # sw 124
+    ((12, 4, 9), False),    # sw 140
+    ((12, 4, 20), False),   # the quadrotor, sw 316
+], ids=["cartpole", "cartpole-n25", "cartpole-n26", "rocket-box",
+        "quad-n8", "quad-n9", "quad-n20"])
+def test_warp_plan(shape, takes):
+    """An fp32 launch with box constraints only whose map has at most 128
+    rows takes the warp layout: lane groups of 8 lanes, a warp each, as
+    many warps a block (up to 16) as fit beside the resident map with
+    their w2 (128 rows) and state, 8 rows x 4 lanes a thread in the
+    product, one pass; reduced iterations and projections keep the tiles,
+    and so do wider maps."""
+    sw = (shape[2] - 1) * shape[1] + shape[2] * shape[0]
+    for state_free in (True, False):
+        plan = K.warp_tile_plan(*shape, state_free)
+        assert (plan is not None) == takes
+        chosen = K.fused_tile_plan(*shape, False, state_free)
+        assert (chosen == plan) == takes
+        if not takes:
+            assert chosen.warps == 0
+            continue
+        # a lane's state and the carry it stages (2 sw floats)
+        state = K.state_floats(*shape, state_free) + 2 * sw
+        # the map, the bounds (lo and hi a row, whole 16-byte pieces), then
+        # each warp's w2 (128 rows) and its 8 lanes' state
+        fixed = 4 * (sw * 128 + -(-2 * sw // 4) * 4)
+        per_warp = 4 * 8 * (128 + state)
+        assert plan.warps == min(K.MAX_WARPS, (
+            K.SMEM_PER_BLOCK - K.WARP_STATIC_BYTES - fixed) // per_warp)
+        assert plan.warps >= K.MIN_WARPS
+        assert plan.smem == fixed + plan.warps * per_warp
+        assert plan.smem + K.WARP_STATIC_BYTES <= K.SMEM_PER_BLOCK
+        assert (plan.tile, plan.threads, plan.rows, plan.passes, plan.rpt,
+                plan.lanes) == (8, 32 * plan.warps, 128, 1, 8, 4)
+        assert plan.resident and plan.state_shared and not plan.bulk_ring
+        assert (plan.cluster, plan.w2_global) == (1, False)
+        # reduced iterations (K1c) and projections (K1e) keep the tiles
+        for kw in (dict(reduced=True), dict(projected=True)):
+            other = K.fused_tile_plan(*shape, state_free=state_free, **kw)
+            assert other.warps == 0 and other.tile == 32
+    # the cartpole: 8 warps a block (255 registers a thread), state-free
+    # or not; past WARP_MAX_GROUPS groups the tiles
+    if shape == (4, 1, 20):
+        assert K.warp_tile_plan(4, 1, 20).warps == 8
+        assert K.warp_tile_plan(4, 1, 20, False).warps == 8
+        assert K.fused_tile_plan(4, 1, 20, groups=1024).warps == 8
+        assert K.fused_tile_plan(4, 1, 20, groups=1025).warps == 0
+
+
+@pytest.mark.parametrize("per_group,warps,per_sm,expect", [
+    (1024, 8, 1, (132, 8)),   # the MPC loop's 8,192 plants
+    (512, 8, 1, (132, 4)),    # the mis-set cartpole's 4,096 slots a bucket
+    (8192, 8, 1, (132, 8)),   # the headline's 65,536 lanes
+    (512, 4, 2, (264, 2)),    # two blocks an SM
+    (5, 8, 1, (5, 1)),        # fewer lane groups than SMs
+], ids=["mpc-8192", "misset-4096", "headline-65536", "two-an-sm", "tiny"])
+def test_warp_launch_shares_the_lane_groups_over_the_sms(per_group, warps,
+                                                         per_sm, expect):
+    """A warp-layout launch runs as many blocks a group as the card holds
+    at once, no more than a group's lane groups, each of no more warps than
+    the plan's and than a group's lane groups share out over its blocks."""
+    plan = K.warp_tile_plan(4, 1, 20)._replace(warps=warps)
+    assert K.launch_warps(plan, per_group, 132, per_sm) == expect
+
+
+def test_queue_iterations_model():
+    """The queue model: one warp runs every lane group in turn (and stages
+    the map once); many warps end with the slowest lane group; a group's
+    blocks start as block slots free; one group's lane groups spread over
+    its blocks whichever group the live lanes lie in."""
+    counts = torch.tensor([3, 9, 1, 1, 7, 2, 2, 5] * 2)
+    assert K.queue_iterations(counts, 1, 1, 1, lanes=2) == \
+        K.tile_iterations(counts, 2) + 1
+    assert K.queue_iterations(counts, 1, 8, 1, lanes=2) == 9 + 1
+    # two groups, a block of two warps each: group 0's lane groups (9, 1,
+    # 7, 5) end at 1 + 13 (warp 0: 9; warp 1: 1, 7, 5, each ticket taken
+    # as it frees), group 1's four of 1 iteration at 1 + 2 beside it, or
+    # after it (1 + 13, then 1 + 2) where the card holds one block
+    g = torch.tensor([3, 9, 1, 1, 7, 2, 2, 5, 1, 1, 1, 1, 1, 1, 1, 1])
+    assert K.queue_iterations(g, 2, 1, 2, lanes=2) == 1 + 13
+    assert K.queue_iterations(g, 2, 1, 2, slots=1, lanes=2) == 1 + 13 + 1 + 2
+    # a bucketed launch: every live lane in one of five groups, the rest
+    # pads (1 iteration); the slowest lane group sets the end
+    live = torch.ones(5 * 64, dtype=torch.int32)
+    live[128:192] = torch.arange(64) + 100
+    assert K.queue_iterations(live, 5, 8, 2, lanes=8) == 1 + 163
+    assert 1 + 163 <= K.queue_iterations(live, 5, 8, 2, slots=8,
+                                         lanes=8) <= 1 + 163 + 6
+
+
+def test_last_layout_keeps_the_maps_layout():
+    """A solver's launch layout (``LastLayout``): the same maps give the
+    same layout object; an in-place write to a map, other maps or a plan
+    forced in the plan function's place make it anew, equal to a fresh
+    ``launch_layout``."""
+    (_, _, _), (pp, pc, pm) = cartpole_setup(jnp.float32)
+    keep = K.LastLayout()
+    args = (4, 1, 20, False, True, False, 1)
+    first = keep(pm, *args)
+    assert keep(pm, *args) is first
+    assert first[0] == K.warp_tile_plan(4, 1, 20)
+    pm.T12.mul_(2.0)
+    again = keep(pm, *args)
+    assert again is not first
+    assert torch.equal(again[1][0], 2.0 * first[1][0])
+    other = pm._replace(T1=pm.T1 + 1.0)
+    assert torch.equal(keep(other, *args)[1][3], first[1][3] + 1.0)
+    assert keep(other, 4, 1, 20, False, True, True, 1)[0].warps == 0
+    tiles = K.shared_tile_plan(4, 1, 20)
+    saved = K.fused_tile_plan
+    K.fused_tile_plan = lambda *a, **k: tiles
+    try:
+        assert keep(other, *args)[0] == tiles
+    finally:
+        K.fused_tile_plan = saved
+    assert keep(other, *args)[0] == first[0]

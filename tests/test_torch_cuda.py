@@ -1509,7 +1509,7 @@ def test_k1e_stage_buffers_agree_bit_for_bit(dev, monkeypatch, case, ct,
         G = kw.get("num_groups", 1)
     kw = dict(kw, check_termination=ct, relaxation_alpha=alpha,
               max_iter=kw["max_iter"] // ct * ct)
-    plan = K.fused_tile_plan(nx, nu, Nc, state_free=False)
+    plan = K.fused_tile_plan(nx, nu, Nc, state_free=False, projected=True)
     assert K.launch_smem(plan, nx, nu)[1]
     own = K.condensed_fused_cuda(*args, **kw)
     monkeypatch.setattr(K, "launch_smem",
@@ -2226,3 +2226,131 @@ def test_k3_far_layout_agrees_bit_for_bit(dev, monkeypatch, box, where):
     assert bool(both.any())
     for j in (0, 1):
         assert (forced[j] - r[j])[both].abs().max().item() <= 1e-4
+
+
+# -- the warp layout: K1 on the narrow maps ----------------------------------
+
+def _warp_vs_tiles(monkeypatch, f, free):
+    """``f``'s launch on the warp layout (the plan's, checked) and on tiles
+    of 32 lanes forced."""
+    plan = K.warp_tile_plan(4, 1, N, free)
+    assert plan is not None and K.fused_tile_plan(4, 1, N, False,
+                                                  free) == plan
+    before = K.condensed_fused_cuda.launches
+    w = f()
+    _forced(monkeypatch, K, "fused_tile_plan",
+            K.shared_tile_plan(4, 1, N, False, free))
+    t = f()
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert K.condensed_fused_cuda.launches == before + 2
+    return w, t
+
+
+@pytest.mark.parametrize("B,ct,alpha,bounded", [
+    (8192, 1, 1.7, False), (1000, 1, 1.7, False), (1000, 4, 1.0, False),
+    (1000, 1, 1.0, True), (1000, 4, 1.7, True)],
+    ids=["8192-ct1-a1.7", "1000-ct1-a1.7", "1000-ct4-a1.0",
+         "1000-ct1-a1.0-bounded", "1000-ct4-a1.7-bounded"])
+def test_warp_layout_warm_launch_bit_for_bit(dev, monkeypatch, B, ct, alpha,
+                                             bounded):
+    """The fused MPC loop's warm launch (step 1 from step 0's carry, 100
+    iterations, the carry out) on the warp layout: every lane's bits, carry
+    included, equal the plain version's and those of tiles of 32 lanes
+    forced, at the loop's 8,192 plants and at a ragged 1,000 (its last lane
+    group holds 5 lanes), check_termination 1 and 4, alpha 1.0 and 1.7,
+    state-free and with the constrained cartpole's state bound."""
+    p, c, maps = _plant(cartpole, 5.0, dev,
+                        np.array([2.0, 1e17, 1e17, 1e17]) if bounded
+                        else None)
+    args = (maps, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max)
+    kw = _kw(4, 1, max_iter=100, check_termination=ct,
+             relaxation_alpha=alpha, en_state_bound=bounded)
+    x0 = _x0(B, 4, 3, 0.5, dev)
+    cold = K.condensed_fused_cuda(*args, x0, None, **kw)
+    x1 = mpc._plant_step(p, x0, cold[1][:, 0, :]).contiguous()
+    warm = dict(kw, warm_start=True)
+    w, t = _warp_vs_tiles(
+        monkeypatch, lambda: K.condensed_fused_cuda(*args, x1, cold[4],
+                                                    **warm), not bounded)
+    r = K.condensed_fused_reference(*args, x1, cold[4], **warm)
+    assert int(w[3].sum()) > B // 2
+    assert same_bits(w, t)
+    assert same_bits(w, r)
+
+
+def test_warp_layout_grouped_launch_with_pad_slots(dev, monkeypatch):
+    """The mis-set cartpole's phase-2 launch of the bucketed rebuild (K1d
+    over 5 buckets x 4,096 slots, warm, 450 iterations): its live lanes all
+    lie in one bucket, every other slot is a pad (zero carry, zero x0); the
+    warp layout's lanes equal the plain version's and those of tiles of 32
+    forced, bit for bit."""
+    from tinympc_julia_tpu_torch.ops.cuda.layout_probe import misset_launch
+    f, valid = misset_launch(dev)
+    live = valid.reshape(5, -1).sum(dim=1)
+    assert int((live > 0).sum()) == 1 and int(live.sum()) > 1000
+    w, t = _warp_vs_tiles(monkeypatch, f, False)
+    r = K.condensed_fused_reference(*f.args, **f.keywords)
+    assert same_bits(w, t)
+    assert same_bits(w, r)
+    assert (w[3][valid] == 1).float().mean().item() >= 0.9
+
+
+def test_warp_layout_cold_launch_at_65536(dev, monkeypatch):
+    """The headline's cold phase-0 launch (65,536 lanes, 56 iterations,
+    one check at the end, the carry out) on the warp layout: bit for bit
+    the plain version's and that of tiles of 32 forced."""
+    p, c, maps = _plant(cartpole, 5.0, dev)
+    args = (maps, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max,
+            _x0(65536, 4, 0, 0.5, dev), None)
+    kw = _kw(4, 1, max_iter=56, check_termination=56)
+    w, t = _warp_vs_tiles(
+        monkeypatch, lambda: K.condensed_fused_cuda(*args, **kw), True)
+    r = K.condensed_fused_reference(*args, **kw)
+    assert same_bits(w, t)
+    assert same_bits(w, r)
+
+
+def test_warp_layout_takes_the_solvers_cached_layout(dev):
+    """A solver keeps the plan and map layouts of the maps it was last
+    given: a second launch on the same maps reuses them, an in-place change
+    of the maps makes them anew, and the results stay those of a launch
+    that makes its own."""
+    p, c, maps = _plant(cartpole, 5.0, dev)
+    args = (maps, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max,
+            _x0(777, 4, 7, 0.5, dev))
+    kw = _kw(4, 1, max_iter=100)
+    fn = K.make_condensed_fused_solver(
+        **{k: v for k, v in kw.items() if k != "warm_start"})
+    a, b = fn(*args), fn(*args)
+    own = K.condensed_fused_cuda(*args, None, **kw)
+    assert same_bits(a, own) and same_bits(b, own)
+    maps.T12.mul_(1.0)  # bumps the version: the layouts are made anew
+    assert same_bits(fn(*args), own)
+
+
+@pytest.mark.parametrize("layout", ["warp", "tiles"])
+def test_carry_of_a_lane_latching_at_cold_iteration_0(dev, monkeypatch,
+                                                      layout):
+    """A lane at the origin latches on a cold launch's first iteration
+    (check_termination 1, carry out): its carry keeps the w2 and slacks it
+    started from (zeros), as the plain version's does, on the warp layout
+    and on tiles of 32 lanes forced, bit for bit; the other lanes take the
+    plain version's bar (at 64 lanes its matmuls need not sum in index
+    order)."""
+    p, c, maps = _plant(cartpole, 5.0, dev)
+    x0 = _x0(64, 4, 9, 0.5, dev)
+    x0[:8] = 0.0
+    args = (maps, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max, x0,
+            None)
+    kw = _kw(4, 1, max_iter=100)
+    if layout == "tiles":
+        _forced(monkeypatch, K, "fused_tile_plan",
+                K.shared_tile_plan(4, 1, N))
+    k = K.condensed_fused_cuda(*args, **kw)
+    r = K.condensed_fused_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert (k[2][:8] == 1).all() and (r[2][:8] == 1).all()
+    for a, b in zip(k[4], r[4]):  # the carry of the lanes at the origin
+        assert torch.equal(a[:, :8], b[:, :8])
+    _agree(k, r)

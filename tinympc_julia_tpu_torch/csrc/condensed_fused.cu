@@ -110,6 +110,13 @@
 //    group offset into G-stacked arrays (offset 0 where an array is shared)
 //    and stages its own group's T12; the last tile of every group is ragged
 //    and masked.  Lanes keep the flat order lane = g * L + l.
+//  * A narrow map (at most 128 rows: the cartpole's, the MPC loop's) with
+//    box constraints only, in fp32, takes the warp layout instead
+//    (condensed_fused_warp_kernel below): lane groups of 8 lanes owned by
+//    warps, no block barrier an iteration, a warp taking its next lane
+//    group from the launch's queue, so a few slow lanes no longer hold a
+//    32-lane tile's block and a launch of few live lanes spreads over
+//    every SM.
 //  * Reduced iterations: the first k0 iterations (the head) are reduced,
 //    and all of them with lo_all; an iteration that runs the residual check
 //    always takes the fp32 product, so what a lane latches is a true rollout
@@ -118,7 +125,8 @@
 //
 // Launch contract: the Python wrapper (fused_tile_plan) picks the rows a
 // thread (8, 20 or 32 with w2 in shared memory, 20 with 4 lanes a thread,
-// 32 split over a cluster, 32 with w2 in global memory: the instances), the cluster and its blocks'
+// 32 split over a cluster, 32 with w2 in global memory: the instances; or
+// the warp layout and its most warps a block), the cluster and its blocks'
 // stages, the passes, the padded layouts (swp = cluster x passes x 16 RPT
 // rows of the transposed map; kp columns of the bf16 map), whether
 // the map and the state are resident
@@ -127,6 +135,9 @@
 // wrapper checks the cones' extents).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <atomic>
 
 #include "projections.cuh"
 #include "tile_gemm.cuh"
@@ -185,6 +196,9 @@ struct Params {
   int state_free, warm_start, carry_out, t12_resident, state_shared;
   int map_grouped, rho_grouped;
   Side side_u, side_x;
+  // the warp layout: G groups, lane groups a group, warps a block and the
+  // launch's queue slot
+  int G, per_g, warps, slot;
 };
 
 // The head checks on its last iteration only; a checking iteration's
@@ -710,6 +724,13 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
   for (int i = 0; i < p.max_iter; ++i) {
     TINYMPC_SEC_ITERATION();
     const bool check = is_check(p, i);
+    if (check && p.carry_out) {  // a lane that latches now keeps this w2
+      for (int e = tid; e < (t.r1 - t.r0) * kTile; e += kThreads) {
+        const int r = t.r0 + e / kTile, l = e % kTile;
+        if (!done[l]) p.w2_out[r * p.B + t.lane0 + l] = t.buf[r * t.bs + l];
+      }
+      if (i == 0 && !p.warm_start) __syncthreads();  // before it is written
+    }
     if (i == 0 && !p.warm_start) {
       // cold iteration 0: d = 0, so ux is the pure rollout (no matmul); the
       // fused-map constant joins uxc only after it
@@ -723,11 +744,6 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
         }
       }
     } else {
-      if (check && p.carry_out)  // a lane that latches now keeps this w2
-        for (int e = tid; e < (t.r1 - t.r0) * kTile; e += kThreads) {
-          const int r = t.r0 + e / kTile, l = e % kTile;
-          if (!done[l]) p.w2_out[r * p.B + t.lane0 + l] = t.buf[r * t.bs + l];
-        }
       if (is_reduced(p, i, check))
         tile_product_lo<RPT, kIn>(p, t);
       else
@@ -774,6 +790,497 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
         if (st.g) p.g[r * B + lane] = st.g[r * S];
       }
       if (carry) p.vco[r * B + lane] = v;
+    }
+  }
+  TINYMPC_SEC_END();
+}
+
+// -- the warp layout (narrow maps) -------------------------------------------
+//
+// A map of at most kWarpRows rows with box constraints only, in fp32, takes
+// lane groups owned by warps.  A block of up to kMaxWarps warps stages its
+// group's map (T12w transposed, [k][row], kWarpRows rows) and box bounds
+// once in shared memory, and each warp owns a group of kWarpLanes lanes for
+// the whole solve: the lanes' w2 ([row][lane], kWarpRows rows) and solver
+// state ([row][lane]) in the warp's own slice of shared memory, the product
+// a warp register tile (thread (tr, tl) = (lane / 2, lane % 2): rows 8 tr ..
+// 8 tr + 7, lanes 4 tl .. 4 tl + 3, 16-byte map and w2 loads; each sum over
+// k in index order with fmaf, as the tiles'), the elementwise step on the
+// lane's kWarpLT threads (rows q, q + kWarpLT, ... in batches whose loads
+// are all in flight before the arithmetic, unguarded so the rows' chains
+// interleave; a checking iteration's residuals and updates in one pass)
+// with the residual maxima met by shuffles.  With a carry out, the carry a
+// lane would keep (its w2 before a checking iteration's product, its
+// slacks before the update) is staged in the warp's slice of shared memory
+// and written to global memory once, where the lane latches: staged in
+// global memory at every checking iteration it cost a quarter of the MPC
+// loop's warm launch (PERF.md section 6).  No block barrier an iteration: a
+// warp waits on nothing but its own threads, so a tile's few slow lanes no
+// longer hold 32 lanes' block.  A warp whose lanes have all latched takes
+// the next lane group of its group from the launch's queue (a ticket
+// counter a group in global memory), so a launch's tail is its slowest
+// group of kWarpLanes lanes.  The grid is (X, G): X blocks a group, as many
+// as the card holds at once (no more than the group's lane groups), each
+// block of one group, the blocks of group g started after those of groups
+// before it as SMs free, so the lane groups of one group spread over every
+// SM (a bucketed rebuild's live lanes all lie in one bucket) and a block
+// never restages.  A lane's arithmetic is the tiles' in the same order, so
+// its counts, latch, carry and outputs do not depend on the warp, block or
+// group slot that took it.  With 8 warps a block the instance keeps every
+// value in registers (255 a thread); 12 or 16 spilled (PERF.md section 6).
+constexpr int kWarpLanes = 8;   // lanes a warp's group
+constexpr int kWarpRows = 128;  // product rows (16 thread rows x 8)
+constexpr int kWarpLT = 32 / kWarpLanes;  // threads a lane: 4
+constexpr int kWarpBatch = 8;   // rows an elementwise batch loads at once
+constexpr int kMaxWarps = 8;    // warps a block
+constexpr int kQueueSlots = 64;
+constexpr int kQueueGroups = 1024;  // groups a launch's queue holds
+// lane-group queues: blocks done, then each group's next ticket; each left
+// at zero by the launch that used it; a launch takes the next slot, so
+// launches on other streams running at the same time use other queues
+__device__ unsigned g_warp_queue[kQueueSlots][kQueueGroups + 1];
+
+// Floats of a warp-layout block's copy of the box bounds (lo and hi of
+// every row), whole 16-byte pieces.
+__host__ __device__ inline int warp_bounds(int sw) {
+  return (2 * sw + 3) / 4 * 4;
+}
+
+// Floats of a warp-layout lane's state: the tiles' (state_rows), then,
+// with a carry out, the carry it would keep were it to latch (w2 before the
+// checking iteration's product, its slacks before the update: sw floats
+// each), staged in shared memory and written out once, where it latches.
+__host__ __device__ inline int warp_state_rows(int su, int sx, int sw,
+                                               bool state_free,
+                                               bool carry_out) {
+  return state_rows(su, sx, sw, state_free) + (carry_out ? 2 * sw : 0);
+}
+
+// Bytes of a warp-layout block of ``warps`` warps: the map (sw x kWarpRows
+// floats), the box bounds, then each warp's w2 (kWarpRows x kWarpLanes) and
+// solver state (state_floats x kWarpLanes).
+__host__ __device__ inline size_t warp_smem(int sw, int state_floats,
+                                            int warps) {
+  return sizeof(float) * (static_cast<size_t>(sw) * kWarpRows +
+                          warp_bounds(sw) +
+                          static_cast<size_t>(warps) * kWarpLanes *
+                              (kWarpRows + state_floats));
+}
+
+// Four k-rows of a warp product's operands in registers: thread (tr, tl)'s
+// 8 map rows (two 16-byte loads a k-row) and 4 lanes of w2 (one).
+struct WarpRows {
+  float4 m0[4], m1[4], w[4];
+
+  // k-rows k .. k + 3 (a row past the map's, read into the block's memory
+  // after it, is never multiplied)
+  __device__ __forceinline__ void load(const float* m, const float* w2,
+                                       int k) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      m0[j] = *reinterpret_cast<const float4*>(m + (k + j) * kWarpRows);
+      m1[j] = *reinterpret_cast<const float4*>(m + (k + j) * kWarpRows + 4);
+      w[j] = *reinterpret_cast<const float4*>(w2 + (k + j) * kWarpLanes);
+    }
+  }
+
+  // the first n (<= 4) k-rows into the thread's 8 x 4 sums, in k order
+  __device__ __forceinline__ void fma(float (&acc)[32], int n = 4) const {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < n) {
+        const float mv[8] = {m0[j].x, m0[j].y, m0[j].z, m0[j].w,
+                             m1[j].x, m1[j].y, m1[j].z, m1[j].w};
+        const float wl[4] = {w[j].x, w[j].y, w[j].z, w[j].w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            acc[4 * e + q] = fmaf(mv[e], wl[q], acc[4 * e + q]);
+      }
+    }
+  }
+};
+
+// The product of a warp's lane group: the buffer's w2 ([k][lane], rows of
+// kWarpLanes) becomes ux = T12w @ w2 ([row][lane]) for every row and lane
+// (a latched lane's entries are never read again).  The k-rows go four at
+// a time through two register sets in turn, the next four's loads in
+// flight while the FMAs take these, each sum in k order.
+__device__ __forceinline__ void warp_product(const float* map, float* buf,
+                                             int sw, int ln) {
+  const int tr = ln >> 1, tl = ln & 1;
+  float acc[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0.0f;
+  const float* m = map + 8 * tr;
+  const float* w = buf + 4 * tl;
+  WarpRows a, b;
+  a.load(m, w, 0);
+  int k = 0;
+  for (; k + 8 <= sw; k += 8) {
+    b.load(m, w, k + 4);
+    a.fma(acc);
+    a.load(m, w, k + 8);
+    b.fma(acc);
+  }
+  if (k + 4 <= sw) {  // a holds k-rows k .. k + 3, the last whole four
+    b.load(m, w, k + 4);
+    a.fma(acc);
+    b.fma(acc, sw - k - 4);
+  } else {
+    a.fma(acc, sw - k);
+  }
+  TINYMPC_SEC(kSecProduct);
+  __syncwarp();  // every thread is done reading w2
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    *reinterpret_cast<float4*>(buf + (8 * tr + e) * kWarpLanes + 4 * tl) =
+        make_float4(acc[4 * e], acc[4 * e + 1], acc[4 * e + 2],
+                    acc[4 * e + 3]);
+  __syncwarp();
+  TINYMPC_SEC(kSecEpilogue);
+}
+
+// One side's rows q, q + kWarpLT, ... of a lane (thread q of its kWarpLT),
+// kWarpBatch rows at a time, every load of a batch (the product, the
+// slack, the dual, the rollout constant, the bounds from the block's copy
+// ``lo``/``hi``) in flight before its arithmetic, which runs unguarded on
+// every row of the batch (a row past the side's reads its last row; only
+// its stores and its residuals are dropped), so the rows' chains
+// interleave: with kCheck the residual and the update pass in one
+// (box_pass_q's arithmetic, the carry's slack written ahead where ``co``,
+// into the lane's staged carry ``sp.co`` at the state's stride), else the
+// update pass (box_update_q's).  The arithmetic is relaxed(),
+// box_slack() and update_row()'s, in their order.
+template <bool kCheck>
+__device__ __forceinline__ void warp_box_pass(const Params& p,
+                                              const SidePass& sp,
+                                              const float* lo,
+                                              const float* hi, bool relax,
+                                              int q, bool add, bool co,
+                                              float& pri, float& dua) {
+  const Side& s = *sp.s;
+  const int rows = s.dim * s.n_stages;
+  const bool box = s.en_box != 0, has_dual = sp.dual != nullptr;
+  const float alpha = p.alpha, one_m_alpha = p.one_m_alpha;
+  for (int r0 = q; r0 < rows; r0 += kWarpLT * kWarpBatch) {
+    float u[kWarpBatch], prev[kWarpBatch], dual[kWarpBatch],
+        c[kWarpBatch], l[kWarpBatch], h[kWarpBatch];
+#pragma unroll
+    for (int j = 0; j < kWarpBatch; ++j) {
+      const int r = min(r0 + kWarpLT * j, rows - 1), o = r * sp.stride;
+      u[j] = sp.ux[r * sp.us];
+      prev[j] = sp.prev[o];
+      dual[j] = has_dual ? sp.dual[o] : 0.0f;
+      c[j] = add ? sp.uxc[o] : 0.0f;
+      l[j] = lo[r];
+      h[j] = hi[r];
+    }
+#pragma unroll
+    for (int j = 0; j < kWarpBatch; ++j) {
+      const int r = r0 + kWarpLT * j, o = r * sp.stride;
+      const bool in = r < rows;
+      const float v = add ? __fadd_rn(u[j], c[j]) : u[j];
+      const float wh = relax ? __fadd_rn(__fmul_rn(alpha, v),
+                                         __fmul_rn(one_m_alpha, prev[j]))
+                             : v;
+      float vn = has_dual ? __fadd_rn(wh, dual[j]) : wh;
+      if (box) vn = fminf(h[j], fmaxf(l[j], vn));
+      if (kCheck && in) {
+        pri = fmaxf(pri, fabsf(__fsub_rn(v, vn)));
+        dua = fmaxf(dua, fabsf(__fsub_rn(prev[j], vn)));
+      }
+      const float dn = __fsub_rn(__fadd_rn(dual[j], wh), vn);
+      const float next = has_dual ? __fsub_rn(vn, dn) : vn;
+      if (in) {
+        if (has_dual) sp.dual[o] = dn;
+        sp.prev[o] = vn;
+        if (co) sp.co[o] = prev[j];
+        sp.ux[r * sp.us] = next;
+      }
+    }
+  }
+}
+
+// The elementwise part of iteration i for thread q of a lane of a warp's
+// group (``done``: the lane had latched; ``add``: ux = product + uxc still
+// to complete; ``bnd``: the block's copy of the bounds, lo then hi of the
+// input rows, then of the state rows): a checking iteration's residuals and
+// updates in one pass (the carry's slack written ahead into the lane's
+// staged carry), the lane's maxima over its kWarpLT threads by shuffles and
+// its latch, where it latches its staged carry (``cw2``: the w2 staged
+// before the product; the slacks at ``su_p.co``, ``sx_p.co``) written out;
+// otherwise the update pass.  Returns whether the lane has latched.
+__device__ __forceinline__ bool warp_step(const Params& p,
+                                          const SidePass& su_p,
+                                          const SidePass& sx_p,
+                                          const float* cw2, const float* bnd,
+                                          float rho, int q, int lane, int i,
+                                          bool check, bool add, bool done) {
+  const bool relax = p.alpha != 1.0f;
+  const float* lx = bnd + 2 * p.su;
+  float pi = 0.0f, di = 0.0f, ps = 0.0f, ds = 0.0f;
+  if (!done) {
+    if (check) {
+      const bool ahead = p.carry_out;
+      warp_box_pass<true>(p, su_p, bnd, bnd + p.su, relax, q, add, ahead,
+                          pi, di);
+      warp_box_pass<true>(p, sx_p, lx, lx + p.sx, relax, q, add, ahead, ps,
+                          ds);
+    } else {
+      warp_box_pass<false>(p, su_p, bnd, bnd + p.su, relax, q, add, false,
+                           pi, di);
+      warp_box_pass<false>(p, sx_p, lx, lx + p.sx, relax, q, add, false, ps,
+                           ds);
+    }
+  }
+  TINYMPC_SEC(kSecStep);
+  if (!check) return done;
+#pragma unroll
+  for (int o = kWarpLanes; o < 32; o <<= 1) {
+    pi = fmaxf(pi, __shfl_xor_sync(0xffffffffu, pi, o));
+    di = fmaxf(di, __shfl_xor_sync(0xffffffffu, di, o));
+    ps = fmaxf(ps, __shfl_xor_sync(0xffffffffu, ps, o));
+    ds = fmaxf(ds, __shfl_xor_sync(0xffffffffu, ds, o));
+  }
+  const bool newly = !done && ps < p.pri_tol && pi < p.pri_tol &&
+                     __fmul_rn(ds, rho) < p.dua_tol &&
+                     __fmul_rn(di, rho) < p.dua_tol;
+  if (newly && q == 0) {
+    p.iters[lane] = i + 1;
+    p.solved[lane] = 1;
+  }
+  if (newly && p.carry_out) {  // the carry staged at this iteration, out
+    const int B = p.B, S = kWarpLanes;
+    for (int r = q; r < p.sw; r += kWarpLT)
+      p.w2_out[r * B + lane] = cw2[r * S];
+    for (int r = q; r < p.su; r += kWarpLT)
+      p.zco[r * B + lane] = su_p.co[r * S];
+    for (int r = q; r < p.sx; r += kWarpLT)
+      p.vco[r * B + lane] = sx_p.co[r * S];
+  }
+  return done || newly;
+}
+
+// The whole solve of one lane group: lanes l0 .. l0 + 7 of group g (past L:
+// absent), thread q of lane l = ln % kWarpLanes.  ``map``, ``bnd``: the
+// group's map and bounds in the block's shared memory; ``buf``, ``st``: the
+// warp's w2 and state.
+__device__ void warp_group(const Params& p, const float* map,
+                           const float* bnd, float* buf, float* st, int g,
+                           int l0, int ln) {
+  const int l = ln % kWarpLanes, q = ln / kWarpLanes;
+  const bool valid = l0 + l < p.L;
+  const int lane = g * p.L + l0 + l, B = p.B;
+  const int sw = p.sw, su = p.su, sx = p.sx, S = kWarpLanes;
+  const int gm = p.map_grouped ? g : 0;
+  const float* tx0 = p.tx0 + gm * sw * p.nx;
+  const float* t1c = p.t1c + gm * sw;
+  const float* t12c = p.t12c + gm * sw;
+  const float rho = p.rho[p.rho_grouped ? g : 0];
+  float* uxc = st + l;
+  float* y = uxc + sw * S;
+  float* z = y + su * S;
+  float* v = z + su * S;
+  float* gd = p.state_free ? nullptr : v + sx * S;
+  // the staged carry (carry_out): w2 (sw rows), then the slacks z and v
+  float* cw2 = st + state_rows(su, sx, sw, p.state_free) * S + l;
+  // the state before iteration 0 (lane_init's arithmetic), kWarpBatch
+  // rows at a time, a batch's loads in flight before its stores
+  constexpr int kStep = kWarpLT * kWarpBatch;
+  if (valid) {
+    const bool warm = p.warm_start;
+    for (int r0 = q; r0 < sw; r0 += kStep) {
+      float acc[kWarpBatch], c1[kWarpBatch], c12[kWarpBatch],
+          w2[kWarpBatch];
+#pragma unroll
+      for (int j = 0; j < kWarpBatch; ++j) acc[j] = 0.0f;
+      for (int i = 0; i < p.nx; ++i) {
+        const float xi = p.x0[lane * p.nx + i];
+#pragma unroll
+        for (int j = 0; j < kWarpBatch; ++j) {
+          const int r = r0 + kWarpLT * j;
+          if (r < sw) acc[j] = fmaf(tx0[r * p.nx + i], xi, acc[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kWarpBatch; ++j) {
+        const int r = r0 + kWarpLT * j;
+        if (r < sw) {
+          c1[j] = t1c[r];
+          c12[j] = warm ? t12c[r] : 0.0f;
+          w2[j] = warm ? p.w2_in[r * B + lane] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kWarpBatch; ++j) {
+        const int r = r0 + kWarpLT * j;
+        if (r < sw) {
+          float c = __fadd_rn(acc[j], c1[j]);
+          if (warm) c = __fadd_rn(c, c12[j]);
+          uxc[r * S] = c;
+          buf[r * S + l] = w2[j];
+          if (p.carry_out) cw2[r * S] = w2[j];  // a lane latching at 0
+        }
+      }
+    }
+    for (int r0 = q; r0 < su; r0 += kStep) {
+      float yv[kWarpBatch], zv[kWarpBatch];
+#pragma unroll
+      for (int j = 0; j < kWarpBatch; ++j) {
+        const int r = r0 + kWarpLT * j;
+        if (r < su) {
+          yv[j] = warm ? p.y_in[r * B + lane] : 0.0f;
+          zv[j] = warm ? p.z_in[r * B + lane] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kWarpBatch; ++j) {
+        const int r = r0 + kWarpLT * j;
+        if (r < su) {
+          y[r * S] = yv[j];
+          z[r * S] = zv[j];
+        }
+      }
+    }
+    for (int r0 = q; r0 < sx; r0 += kStep) {
+      float gv[kWarpBatch], vv[kWarpBatch];
+#pragma unroll
+      for (int j = 0; j < kWarpBatch; ++j) {
+        const int r = r0 + kWarpLT * j;
+        if (r < sx) {
+          gv[j] = warm && gd ? p.g_in[r * B + lane] : 0.0f;
+          vv[j] = warm ? p.v_in[r * B + lane] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kWarpBatch; ++j) {
+        const int r = r0 + kWarpLT * j;
+        if (r < sx) {
+          if (gd) gd[r * S] = gv[j];
+          v[r * S] = vv[j];
+        }
+      }
+    }
+    if (q == 0) {
+      p.iters[lane] = p.max_iter;
+      p.solved[lane] = 0;
+    }
+  } else {
+    for (int r = q; r < sw; r += kWarpLT) buf[r * S + l] = 0.0f;
+  }
+  __syncwarp();
+  TINYMPC_SEC(kSecOther);
+  SidePass su_p{&p.side_u, buf + l, z, y, uxc, cw2 + sw * S, S, S,
+                nullptr, 0, 0, {}};
+  SidePass sx_p{&p.side_x, buf + l + su * S, v, gd, uxc + su * S,
+                cw2 + (sw + su) * S, S, S, nullptr, 0, 0, {}};
+  bool done = !valid;
+  for (int i = 0; i < p.max_iter; ++i) {
+    TINYMPC_SEC_ITERATION();
+    const bool check = (i + 1) % p.ct == 0;
+    if (i == 0 && !p.warm_start) {
+      // cold iteration 0: ux is the pure rollout; T12c joins uxc after it
+      if (valid)
+        for (int r = q; r < sw; r += kWarpLT) {
+          const float c = uxc[r * S];
+          buf[r * S + l] = c;
+          uxc[r * S] = __fadd_rn(c, t12c[r]);
+        }
+      __syncwarp();
+    } else {
+      if (check && p.carry_out && !done)  // a lane latching now keeps it
+        for (int r = q; r < sw; r += kWarpLT) cw2[r * S] = buf[r * S + l];
+      warp_product(map, buf, sw, ln);
+    }
+    done = warp_step(p, su_p, sx_p, cw2, bnd, rho, q, lane, i, check,
+                     i > 0 || p.warm_start, done);
+    __syncwarp();  // the next w2 before the next product
+    TINYMPC_SEC(kSecMaxima);
+    if (__all_sync(0xffffffffu, done)) break;  // every lane has latched
+  }
+  // the outputs from the state, and the carry of the lanes that never
+  // latched: their last state
+  if (valid) {
+    const bool carry = p.carry_out && !done;
+    if (carry)
+      for (int r = q; r < sw; r += kWarpLT)
+        p.w2_out[r * B + lane] = buf[r * S + l];
+    for (int r = q; r < su; r += kWarpLT) {
+      const float zr = z[r * S];
+      p.uout[r * B + lane] = zr;
+      p.y[r * B + lane] = y[r * S];
+      if (carry) p.zco[r * B + lane] = zr;
+    }
+    for (int r = q; r < sx; r += kWarpLT) {
+      const float vr = v[r * S];
+      p.xout[r * B + lane] = vr;
+      if (gd) p.g[r * B + lane] = gd[r * S];
+      if (carry) p.vco[r * B + lane] = vr;
+    }
+  }
+  __syncwarp();  // before the warp's next group overwrites its state
+  TINYMPC_SEC(kSecOther);
+}
+
+// The warp layout's kernel: grid (X, G), blockDim.x = 32 x p.warps; ticket
+// t of group g's queue is its lane group t (lanes 8 t .. 8 t + 7).
+template <int RPT, int LPT>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+    condensed_fused_warp_kernel(Params p) {
+  static_assert(RPT == 8 && LPT == 4, "8 rows x 4 lanes a thread");
+  TINYMPC_SEC_BEGIN();
+  extern __shared__ float4 smem4[];
+  __shared__ int any;  // a warp of the block holds a ticket
+  float* map = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x >> 5, ln = threadIdx.x & 31;
+  const int sw = p.sw, g = blockIdx.y;
+  float* bnd = map + sw * kWarpRows;
+  float* buf = bnd + warp_bounds(sw) +
+               warp * kWarpLanes *
+                   (kWarpRows + warp_state_rows(p.su, p.sx, sw, p.state_free,
+                                                p.carry_out));
+  float* st = buf + kWarpRows * kWarpLanes;
+  unsigned* const queue = g_warp_queue[p.slot];
+  auto claim = [&]() {
+    int t = 0;
+    if (ln == 0) t = static_cast<int>(atomicAdd(queue + 1 + g, 1u));
+    return __shfl_sync(0xffffffffu, t, 0);
+  };
+  if (threadIdx.x == 0) any = 0;
+  __syncthreads();
+  int ticket = claim();
+  if (ln == 0 && ticket < p.per_g) any = 1;
+  __syncthreads();
+  if (any) {  // the group's map and bounds, once
+    const float4* src = reinterpret_cast<const float4*>(
+        p.t12t + static_cast<size_t>(p.map_grouped ? g : 0) * sw * kWarpRows);
+    for (int e = threadIdx.x; e < sw * kWarpRows / 4; e += blockDim.x)
+      smem4[e] = src[e];
+    const Side* sides[2] = {&p.side_u, &p.side_x};
+    float* dst = bnd;
+    for (const Side* s : sides) {
+      const int rows = s->dim * s->n_stages;
+      for (int e = threadIdx.x; e < rows; e += blockDim.x) {
+        dst[e] = s->wmin[g * s->box_stride + e];
+        dst[rows + e] = s->wmax[g * s->box_stride + e];
+      }
+      dst += 2 * rows;
+    }
+  }
+  __syncthreads();
+  TINYMPC_SEC(kSecBarrier);
+  while (ticket < p.per_g) {
+    warp_group(p, map, bnd, buf, st, g, ticket * kWarpLanes, ln);
+    ticket = claim();
+  }
+  // the last block out resets its queue for the next launch
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(queue, 1u) == gridDim.x * gridDim.y - 1) {
+      for (int h = 0; h <= p.G; ++h) queue[h] = 0u;
     }
   }
   TINYMPC_SEC_END();
@@ -836,19 +1343,64 @@ cudaError_t launch(void (*kernel)(Params), dim3 grid, int cluster,
   return cudaLaunchKernelEx(&cfg, kernel, p);
 }
 
+// The warp layout's launch (the entry point has checked the shared
+// arguments; ``not_shared``: the map or the state not in shared memory, or
+// a cluster): refuses a layout it does not take; grid (X, G), X blocks a
+// group as many as the card holds at once and no more than a group's lane
+// groups, each of at most ``warps`` warps and no more than a group's lane
+// groups share out over its X blocks.
+int launch_warps(Params& p, int warps, int rpt, int lanes, bool projected,
+                 bool reduced, bool not_shared, int smem_bytes,
+                 void* stream) {
+  const int sf = warp_state_rows(p.su, p.sx, p.sw, p.state_free,
+                                 p.carry_out);
+  if (warps < 1 || warps > kMaxWarps || rpt != 8 || lanes != 4 ||
+      projected || reduced || not_shared || p.swp != kWarpRows ||
+      p.sw > kWarpRows || p.passes != 1 || p.G > kQueueGroups ||
+      static_cast<size_t>(smem_bytes) < warp_smem(p.sw, sf, warps))
+    return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(Params) = condensed_fused_warp_kernel<8, 4>;
+  p.per_g = (p.L + kWarpLanes - 1) / kWarpLanes;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, 32 * warps, static_cast<size_t>(smem_bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int X = std::min(p.per_g, std::max(per_sm, 1) * sms);
+  p.warps = std::min(warps, (p.per_g + X - 1) / X);
+  static std::atomic<unsigned> launches{0};
+  p.slot = static_cast<int>(launches.fetch_add(1) % kQueueSlots);
+  const size_t smem = warp_smem(p.sw, sf, p.warps);
+  kernel<<<dim3(X, p.G), 32 * p.warps, smem,
+           static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Blocks of one SM for the instance of a launch (the occupancy API), or,
-// for a cluster of ``cluster`` blocks, the clusters the whole card holds at
-// once; a negative CUDA error.
+// Blocks of one SM for the instance of a launch (the occupancy API; the
+// warp layout's blocks of ``warps`` warps where that is not 0), or, for a
+// cluster of ``cluster`` blocks, the clusters the whole card holds at once;
+// a negative CUDA error.
 extern "C" int tinympc_condensed_fused_occupancy(int rpt, int lanes,
                                                  int w2_global, int cluster,
                                                  int proj_u, int proj_x,
-                                                 int smem_bytes) {
+                                                 int smem_bytes, int warps) {
   void (*kernel)(Params) =
-      pick_kernel(rpt, layout_of(w2_global, cluster), lanes, proj_u != 0,
-                  proj_x != 0);
-  if (!kernel) return -static_cast<int>(cudaErrorInvalidValue);
+      warps > 0 ? (rpt == 8 && lanes == 4 && !proj_u && !proj_x
+                       ? condensed_fused_warp_kernel<8, 4>
+                       : nullptr)
+                : pick_kernel(rpt, layout_of(w2_global, cluster), lanes,
+                              proj_u != 0, proj_x != 0);
+  if (!kernel || warps < 0 || warps > kMaxWarps)
+    return -static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   int n = 0;
@@ -866,8 +1418,8 @@ extern "C" int tinympc_condensed_fused_occupancy(int rpt, int lanes,
     cfg.numAttrs = 1;
     err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   } else if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
-                                                        smem_bytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, kernel, warps > 0 ? 32 * warps : kThreads, smem_bytes);
   }
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
@@ -885,7 +1437,8 @@ extern "C" int tinympc_condensed_fused(
     int ct, int k0, int lo_all, float alpha, float one_m_alpha, float pri_tol,
     float dua_tol, int en_input_bound, int en_state_bound, int warm_start,
     int carry_out, int state_shared, int t12_resident, int w2_global,
-    int cluster, const int* stages, int rpt, int lanes, int swp, int kp,
+    int cluster, const int* stages, int rpt, int lanes, int warps, int swp,
+    int kp,
     int smem_bytes, int map_grouped, int rho_grouped, int box_u_grouped,
     int box_x_grouped, const float* lin_u, int n_lin_u, const int* soc_u,
     const float* soc_mu_u, int n_soc_u, int lin_u_grouped, int mu_u_grouped,
@@ -904,8 +1457,10 @@ extern "C" int tinympc_condensed_fused(
   // smem_bytes, else null;
   // w2_global: the tiles' w2 in w2g (sw, G x tiles x 32), with reduced
   // iterations (also with a cluster) rounded into w2hg (G x tiles x 32, kp)
-  // bf16; cluster: the
-  // blocks a tile (1, or 2 to 8 with ``stages``, the host's cluster + 1
+  // bf16; warps: the warp layout with blocks of at most ``warps`` warps
+  // (rpt 8, lanes 4, swp kWarpRows, fp32, box only, the map and the state
+  // in shared memory, smem_bytes for that many warps), 0: tiles; cluster:
+  // the blocks a tile (1, or 2 to 8 with ``stages``, the host's cluster + 1
   // stage bounds, and swp = cluster x passes x 16 x rpt);
   // state_shared: the lanes' solver state lives in shared memory (else in
   // the (dim, B) arrays, uxc included).
@@ -972,7 +1527,8 @@ extern "C" int tinympc_condensed_fused(
       (wg && (!w2g || t12_resident)) ||
       ((wg || cluster > 1) && reduced && !w2hg) ||
       kp % kSlabKLo != 0 || kp < p.sw || smem_bytes < 0 ||
-      static_cast<size_t>(smem_bytes) < need + stage || !rho ||
+      (warps == 0 && static_cast<size_t>(smem_bytes) < need + stage) ||
+      !rho ||
       (reduced && !t12a))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!init_side(p.side_u, umin, umax, lin_u, n_lin_u, soc_u, soc_mu_u,
@@ -988,6 +1544,11 @@ extern "C" int tinympc_condensed_fused(
   p.cons_shared =
       cons > 0 && static_cast<size_t>(smem_bytes) >= need + stage + cons;
 
+  p.G = G;
+  if (warps != 0) return launch_warps(p, warps, rpt, lanes, proj_u || proj_x,
+                                      reduced, wg || cluster > 1 ||
+                                      !t12_resident || !state_shared,
+                                      smem_bytes, stream);
   void (*kernel)(Params) = pick_kernel(rpt, in, lanes, proj_u, proj_x);
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(smem_bytes);

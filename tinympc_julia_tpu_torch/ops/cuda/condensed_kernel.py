@@ -121,6 +121,22 @@ LANES4_RPT = 20
 # (csrc/tile_gemm.cuh RingBars, rounded up to 16 bytes): the dynamic
 # shared memory such a launch may take is SMEM_PER_BLOCK less it
 RING_BARS_BYTES = 112
+# The warp layout (ROADMAP R3, csrc/condensed_fused.cu): a map of at most
+# WARP_ROWS rows, fp32, box constraints only, of at most WARP_MAX_GROUPS
+# groups, takes lane groups of WARP_LANES lanes owned by warps, up to
+# MAX_WARPS a block beside the group's map and bounds in shared memory
+# (WARP_STATIC_BYTES of static shared memory), each thread of the product
+# 8 rows x 4 lanes, the lanes' w2 and state in the warp's own slice of
+# shared memory; a warp takes its next lane group from its group's queue.
+# MAX_WARPS keeps the instance's registers within 255 a thread (12 or 16
+# warps a block spilled: PERF.md section 6).  MIN_WARPS: the fewest warps
+# a block for which the plan takes it.
+WARP_LANES = 8
+WARP_ROWS = 128
+MAX_WARPS = 8
+MIN_WARPS = 4
+WARP_MAX_GROUPS = 1024
+WARP_STATIC_BYTES = 16
 SLAB_K = 8
 STAGES = 6
 SLAB_K_LO = 16
@@ -149,7 +165,10 @@ class TilePlan(NamedTuple):
                         # [stages[c], stages[c + 1]) of the N - 1 input
                         # stages then the N state stages
     lanes: int = 2      # lanes a thread of the fp32 product (2 rpt / lanes
-                        # rows); 4: the 4-lane layout (LANES4_RPT)
+                        # rows); 4: the 4-lane layout (LANES4_RPT), or
+                        # the warp layout's 8 rows x 4 lanes
+    warps: int = 0      # the warp layout: the most warps a block (lane
+                        # groups of ``tile`` lanes, a warp each); 0: tiles
 
     @property
     def rpt(self) -> int:
@@ -166,7 +185,7 @@ class TilePlan(NamedTuple):
     def bulk_ring(self) -> bool:
         """The fp32 product's ring filled by the bulk copy engine with no
         block barrier a slab (the 4-lane layout's)."""
-        return self.lanes == 4
+        return self.lanes == 4 and not self.warps
 
 
 def bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -508,11 +527,52 @@ def shared_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
     return None
 
 
+def warp_smem(sw: int, state: int, warps: int) -> int:
+    """One warp-layout block's shared memory (csrc/condensed_fused.cu
+    warp_smem): the map (sw x WARP_ROWS floats), the box bounds (2 sw
+    floats, whole 16-byte pieces), then each warp's w2 (WARP_ROWS x
+    WARP_LANES floats) and its lanes' solver state (``state`` floats a
+    lane)."""
+    return 4 * (sw * WARP_ROWS + -(-2 * sw // 4) * 4
+                + warps * WARP_LANES * (WARP_ROWS + state))
+
+
+def warp_tile_plan(nx: int, nu: int, N: int,
+                   state_free: bool = True) -> TilePlan | None:
+    """The warp layout at this shape: lane groups of WARP_LANES lanes, a
+    warp each, as many warps a block (up to MAX_WARPS) as fit beside the
+    resident map, the lanes' w2 and state in shared memory (with room for
+    the carry a lane of a launch with a carry out stages there: 2 sw floats
+    more a lane), one pass of WARP_ROWS rows.  For fp32 launches with box
+    constraints only; None where the map is wider than WARP_ROWS or fewer
+    than MIN_WARPS warps fit."""
+    sw = (N - 1) * nu + N * nx
+    if sw > WARP_ROWS:
+        return None
+    state = state_floats(nx, nu, N, state_free) + 2 * sw
+    cap = SMEM_PER_BLOCK - WARP_STATIC_BYTES
+    warps = min(MAX_WARPS, (cap - warp_smem(sw, state, 0))
+                // (4 * WARP_LANES * (WARP_ROWS + state)))
+    if warps < MIN_WARPS:
+        return None
+    kp = -(-sw // KP_ALIGN) * KP_ALIGN
+    return TilePlan(WARP_LANES, 32 * warps, True, True, WARP_ROWS, kp,
+                    warp_smem(sw, state, warps), lanes=4, warps=warps)
+
+
 def fused_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
-                    state_free: bool = True, busy_sms=None) -> TilePlan:
+                    state_free: bool = True, busy_sms=None,
+                    projected: bool = False, groups: int = 1) -> TilePlan:
     """The layout of a launch at this shape (``reduced``: with
     reduced-precision iterations; ``state_free``: no state-side
-    constraint, so no state dual; ``busy_sms``: as ``cluster_tile_plan``'s).
+    constraint, so no state dual; ``busy_sms``: as ``cluster_tile_plan``'s;
+    ``projected``: with halfspaces or cones; ``groups``: G).  An fp32
+    launch with box constraints only whose map has at most WARP_ROWS rows,
+    of at most WARP_MAX_GROUPS groups, takes the warp layout
+    (``warp_tile_plan``: lane groups of 8 lanes, a warp each, a queue of
+    lane groups a group), at every batch; reduced iterations (K1c: phase
+    6's staged pipeline, ``phase1_bf16``), projections (K1e: the rocket)
+    and every wider map keep the tiles.
     Below CLUSTER_FROM_WIDTH rows, tiles of 32 lanes with w2 in shared
     memory (``shared_tile_plan``) where that fits, with 4 lanes a thread
     where its map streams in one pass of 16 x LANES4_RPT rows (the 4-lane
@@ -522,6 +582,10 @@ def fused_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
     fit, w2 in global memory (``global_tile_plan``), so every width has a
     plan."""
     sw = (N - 1) * nu + N * nx
+    if not reduced and not projected and groups <= WARP_MAX_GROUPS:
+        plan = warp_tile_plan(nx, nu, N, state_free)
+        if plan is not None:
+            return plan
     plan = (shared_tile_plan(nx, nu, N, reduced, state_free)
             if sw < CLUSTER_FROM_WIDTH else None)
     if plan is not None and not plan.resident and plan.passes == 1 \
@@ -565,11 +629,87 @@ def launch_smem(plan: TilePlan, dim_x: int, dim_u: int,
 
 def tile_iterations(counts: torch.Tensor, tile: int, groups: int = 1) -> int:
     """Iterations summed over a launch's tiles (``tile`` lanes of one group,
-    a block each) from the lanes' iteration counts: a tile runs until its
-    last lane latches."""
+    a block each; the warp layout's lane groups) from the lanes' iteration
+    counts: a tile runs until its last lane latches."""
+    return int(_tile_counts(counts, tile, groups).sum())
+
+
+def _tile_counts(counts, tile, groups):
+    """(groups, tiles) iterations of each tile (its slowest lane)."""
     per = counts.reshape(groups, -1)
     per = torch.nn.functional.pad(per, (0, -per.shape[1] % tile))
-    return int(per.reshape(groups, -1, tile).amax(dim=2).sum())
+    return per.reshape(groups, -1, tile).amax(dim=2)
+
+
+def launch_warps(plan: TilePlan, per_group: int, sms: int,
+                 per_sm: int = 1) -> tuple[int, int]:
+    """(blocks a group X, warps a block) of a warp-layout launch whose
+    groups have ``per_group`` lane groups each, on a card of ``sms`` SMs
+    holding ``per_sm`` blocks of ``plan.warps`` warps each
+    (csrc/condensed_fused.cu launch_warps): as many blocks a group as the
+    card holds at once, no more than a group's lane groups, each of at
+    most ``plan.warps`` warps and no more than a group's lane groups share
+    out over its blocks."""
+    blocks = min(per_group, max(per_sm, 1) * sms)
+    return blocks, min(plan.warps, -(-per_group // blocks))
+
+
+def queue_iterations(counts: torch.Tensor, groups: int, blocks: int,
+                     warps: int, slots: int | None = None,
+                     lanes: int = WARP_LANES) -> int:
+    """A model of the warp layout's queues: the iterations of the launch's
+    critical path from the lanes' iteration counts, a lane group's time its
+    slowest lane's count.  The grid is ``blocks`` blocks a group of
+    ``warps`` warps, started group by group as ``slots`` block slots free
+    (default: all at once); a block's warps each take a ticket of its
+    group as it starts, stage the map (one iteration, where a warp got a
+    ticket) and take the next as they free; a block ends with its last
+    warp."""
+    import heapq
+    per = _tile_counts(counts, lanes, groups)
+    per_g = per.shape[1]
+    per = per.tolist()
+    order = [(g, x) for g in range(groups) for x in range(blocks)]
+    nxt = [0] * groups
+    live = {}
+    events = []
+    end = 0
+    started = 0
+
+    def take(g):
+        if nxt[g] >= per_g:
+            return None
+        nxt[g] += 1
+        return per[g][nxt[g] - 1]
+
+    def start(t):
+        """The next block takes the slot freed at t."""
+        nonlocal started, end
+        while started < len(order):
+            b = started
+            started += 1
+            got = [c for c in (take(order[b][0]) for _ in range(warps))
+                   if c is not None]
+            if got:
+                live[b] = len(got)
+                for c in got:
+                    heapq.heappush(events, (t + 1 + c, b))
+                return
+            end = max(end, t)
+
+    for _ in range(min(slots or len(order), len(order))):
+        start(0)
+    while events:
+        t, b = heapq.heappop(events)
+        c = take(order[b][0])
+        if c is not None:
+            heapq.heappush(events, (t + c, b))
+            continue
+        end = max(end, t)
+        live[b] -= 1
+        if live[b] == 0:
+            start(t)
+    return int(end)
 
 
 def _dims(nx, nu, N):
@@ -853,7 +993,7 @@ _FLT = ctypes.c_float
 # whether the rows and the mus carry a leading group axis
 _SIDE = [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT]
 _ARGTYPES = ([_PTR] * 30 + [_INT] * 9 + [_FLT] * 4 + [_INT] * 8 + [_PTR]
-             + [_INT] * 9 + _SIDE + _SIDE + [_PTR])
+             + [_INT] * 10 + _SIDE + _SIDE + [_PTR])
 
 
 @functools.cache
@@ -876,9 +1016,10 @@ def tile_occupancy(plan: TilePlan, proj_u: bool = False,
     cluster plan the clusters the card holds at once; builds the kernel.
     Raises on a CUDA error."""
     fn = load_library("condensed_fused").lib.tinympc_condensed_fused_occupancy
-    fn.argtypes = [_INT] * 7
+    fn.argtypes = [_INT] * 8
     n = fn(plan.rpt, plan.lanes, int(plan.w2_global), plan.cluster,
-           int(proj_u), int(proj_x), plan.smem if smem is None else smem)
+           int(proj_u), int(proj_x), plan.smem if smem is None else smem,
+           plan.warps)
     if n < 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
     return n
@@ -898,7 +1039,7 @@ def _ptr(t):
 
 def map_layout(maps: CondensedMaps, nx, su, sw, reduced: bool,
                plan: TilePlan):
-    """Kernel-side layouts of the maps, made at every launch: T12w
+    """Kernel-side layouts of the maps (``launch_layout``): T12w
     transposed with its rows zero-padded to ``plan.rows``, T12w itself in
     real bf16 (round to nearest even), row-major and zero-padded to
     (``plan.rows``, ``plan.kp``), where the launch has reduced iterations
@@ -928,6 +1069,40 @@ def map_layout(maps: CondensedMaps, nx, su, sw, reduced: bool,
     return (t12t, lo, maps.T12[..., sw].contiguous(),
             maps.T1[..., su:su + nx].contiguous(),
             maps.T1[..., -1].contiguous())
+
+
+def launch_layout(maps: CondensedMaps, nx: int, nu: int, N: int,
+                  reduced: bool, state_free: bool, projected: bool,
+                  groups: int):
+    """A launch's plan (``fused_tile_plan``, cluster sizes from the card)
+    and its maps' kernel-side layouts (``map_layout``): what
+    ``condensed_fused_cuda`` makes at a launch unless it is given them."""
+    su, sw = (N - 1) * nu, (N - 1) * nu + N * nx
+    plan = fused_tile_plan(nx, nu, N, reduced, state_free,
+                           busy_sms=card_busy_sms, projected=projected,
+                           groups=groups)
+    return plan, map_layout(maps, nx, su, sw, reduced, plan)
+
+
+class LastLayout:
+    """The launch layout (``launch_layout``) of the maps last given, kept
+    with their tensors and versions (an in-place change makes it anew) and
+    the plan function (a plan forced in its place too): what a solver of
+    ``make_condensed_fused_solver`` hands its launches (``layout=``), so
+    that a loop of launches on the same maps plans and lays them out
+    once."""
+
+    def __init__(self):
+        self.last = None
+
+    def __call__(self, maps: CondensedMaps, *args):
+        key = (maps.T12._version, maps.T1._version, args, fused_tile_plan)
+        last = self.last
+        if last is None or last[0] is not maps.T12 \
+                or last[1] is not maps.T1 or last[2] != key:
+            self.last = last = (maps.T12, maps.T1, key,
+                                launch_layout(maps, *args))
+        return last[3]
 
 
 @functools.lru_cache(maxsize=64)
@@ -973,14 +1148,16 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
                          warm_start, carry_out,
                          constraints: FusedConstraints | None = None,
                          num_groups: int = 1, precision: str = "highest",
-                         bf16_head_iters: int = 0):
+                         bf16_head_iters: int = 0, layout=None):
     """Launch kernel K1 (csrc/condensed_fused.cu) on CUDA tensors; the
     arguments and results are those of ``condensed_fused_reference``.
     Raises on CPU tensors, on any dtype but float32, on non-contiguous
     inputs, and when the build or the launch fails.
 
-    The maps' kernel-side layouts (and, for reduced iterations, the bf16
-    T12) are made at every launch.
+    The plan and the maps' kernel-side layouts (and, for reduced
+    iterations, the bf16 T12) come from ``layout`` (a function of
+    ``launch_layout``'s arguments, by default ``launch_layout`` itself:
+    made at the launch; ``make_condensed_fused_solver`` keeps the last).
     Counts every launch in ``.launches``; those that run linear or cone
     projections (K1e) also in ``.projected_launches``, those over more than
     one group (K1d) in ``.grouped_launches`` and those with reduced
@@ -1000,14 +1177,14 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
     dev = x0s.device
     reduced = bool(k0 or lo_all)
     state_free = _state_free(en_state_bound, cons)
-    plan = fused_tile_plan(nx, nu, N, reduced, state_free,
-                           busy_sms=card_busy_sms)
     side_u = _side_args(cons.lin_u, cons.cones_u, nu, "input")
     side_x = _side_args(cons.lin_x, cons.cones_x, nx, "state")
+    proj_u, proj_x = bool(side_u[1] or side_u[4]), bool(side_x[1] or side_x[4])
+    projected = proj_u or proj_x
+    plan, (t12t, t12lo, t12c, tx0, t1c) = (layout or launch_layout)(
+        maps, nx, nu, N, reduced, state_free, projected, G)
 
     f32 = dict(dtype=torch.float32, device=dev)
-    t12t, t12lo, t12c, tx0, t1c = map_layout(maps, nx, su, sw, reduced,
-                                             plan)
     rho_t = torch.as_tensor(rho, **f32).reshape(-1).contiguous()
     xout = torch.empty((sx, B), **f32)
     uout = torch.empty((su, B), **f32)
@@ -1025,8 +1202,6 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
     park = torch.empty((sw, B), **f32) if plan.passes > 1 else None
     vco = torch.empty((sx, B), **f32) if carry_out else None
     zco = torch.empty((su, B), **f32) if carry_out else None
-    proj_u, proj_x = bool(side_u[1] or side_u[4]), bool(side_x[1] or side_x[4])
-    projected = proj_u or proj_x
     smem, stage_shared = launch_smem(plan, nx if proj_x else 0,
                                      nu if proj_u else 0,
                                      constraint_bytes(cons, nx, nu))
@@ -1062,7 +1237,7 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
                  int(plan.state_shared), int(plan.resident),
                  int(plan.w2_global), plan.cluster,
                  stage_bounds_arg(plan.stages), plan.rpt, plan.lanes,
-                 plan.rows, plan.kp,
+                 plan.warps, plan.rows, plan.kp,
                  smem,
                  int(maps.T12.ndim == 3), int(rho_t.numel() > 1),
                  int(G > 1 and u_min.numel() == G * su),
@@ -1154,10 +1329,11 @@ def make_condensed_fused_solver(nx: int, nu: int, N: int, *,
               bf16_head_iters=k0)
 
     constraints = {}  # (device, dtype) -> FusedConstraints
+    layout = LastLayout()
 
     def solve_fn(maps, rho, u_min, u_max, x_min, x_max, x0s, warm=None):
         if x0s.device.type == "cuda":
-            fn = condensed_fused_cuda
+            fn = functools.partial(condensed_fused_cuda, layout=layout)
         elif x0s.device.type == "cpu":
             fn = condensed_fused_reference
         else:

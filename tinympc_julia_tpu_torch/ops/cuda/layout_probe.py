@@ -2,7 +2,7 @@
 layout on one NVIDIA GPU (not run by the tests or by chip_smoke.py):
 
     python -m tinympc_julia_tpu_torch.ops.cuda.layout_probe \
-        [wide|cluster|far|stage|sections|switch]
+        [wide|cluster|far|stage|sections [--cartpole]|switch|narrow]
 
 ``wide`` times the layouts the plans take at the wide maps of
 chip_smoke.py's phases 34a, 34d and 35a, each beside its product
@@ -14,9 +14,12 @@ layout where both run; ``stage`` splits K1e's projected stage pass (ROADMAP
 R13) and K2's OSQP-form controller (R14) off the rest of their launches;
 ``sections`` splits a tile iteration of K1 and K2 between the product, its
 ring, the elementwise step and the rest (ROADMAP R6, R5) on a probe build
-with clock64() counters, at the continuations of the adaptive quadrotor.
-``switch`` times the batch-aware plans' layouts on each side of their
-switches (ROADMAP R5).  All print only.  ``product_yardstick`` is also
+with clock64() counters, at the continuations of the adaptive quadrotor
+(with ``--cartpole``: at the cartpole's narrow-map launches,
+``cartpole_cases``, each also on tiles of 32 forced).  ``switch`` times
+the batch-aware plans' layouts on each side of their switches (ROADMAP
+R5); ``narrow`` K1's warp layout against tiles of 32 forced at the
+cartpole's launches (ROADMAP R3).  All print only.  ``product_yardstick`` is also
 chip_smoke.py's yardstick, ``same_bits`` its comparison of layouts."""
 from __future__ import annotations
 
@@ -650,6 +653,240 @@ def continuation_cases(dev):
                 (K, k1d_bulk)}
 
 
+def cartpole_problem(dev, rho=None, x_bound=None):
+    """The cartpole (|u| <= 5, and |x| <= ``x_bound`` where given) at its
+    horizon on ``dev`` in float32: (problem, cache, maps)."""
+    from tinympc_julia_tpu_torch import make_problem
+    from tinympc_julia_tpu_torch.models import cartpole
+    from tinympc_julia_tpu_torch.ops.condensed import build_condensed
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    N, kw = cartpole.HORIZON, {}
+    if x_bound is not None:
+        xb = np.tile(x_bound, (N, 1))
+        kw = dict(x_min=-xb, x_max=xb)
+    p = make_problem(cartpole.A, cartpole.B, np.diag(cartpole.Q_DIAG),
+                     np.diag(cartpole.R_DIAG),
+                     cartpole.RHO if rho is None else rho, N, u_min=-5.0,
+                     u_max=5.0, dtype=torch.float32, device=dev, **kw)
+    c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+    return p, c, build_condensed(p, c)
+
+
+def mpc_launch(dev, B=8192, step=1, seed=3):
+    """The warm K1 launch of step ``step`` of chip_smoke.py's phase 20 (the
+    fused MPC loop: the cartpole, alpha 1.7, 100 iterations, ct 1, the
+    carry out) on its first ``B`` plants, its earlier steps run on the
+    kernel: the wrapper's partial."""
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    from tinympc_julia_tpu_torch.parallel.mpc import _plant_step
+    from tinympc_julia_tpu_torch.utils.precision import full_fp32_matmul
+    p, c, maps = cartpole_problem(dev)
+    x = torch.as_tensor(np.random.default_rng(seed).uniform(
+        -0.5, 0.5, size=(8192, 4))[:B], dtype=torch.float32, device=dev)
+    args = (maps, c.rho, p.u_min, p.u_max, p.x_min, p.x_max)
+    kw = dict(nx=4, nu=1, N=p.N, max_iter=100, abs_pri_tol=1e-3,
+              abs_dua_tol=1e-3, en_state_bound=False, en_input_bound=True,
+              relaxation_alpha=1.7, check_termination=1, carry_out=True)
+    warm = None
+    with full_fp32_matmul():
+        for t in range(step):
+            _, us, _, _, warm = K.condensed_fused_cuda(
+                *args, x, warm, warm_start=t > 0, **kw)
+            x = _plant_step(p, x, us[:, 0, :]).contiguous()
+    return functools.partial(K.condensed_fused_cuda, *args, x, warm,
+                             warm_start=True, **kw)
+
+
+def misset_launch(dev, slots=4096):
+    """chip_smoke.py's phase 22 phase-2 launch: the mis-set cartpole (rho0
+    0.01, |x_0| <= 2, seed 5), K1d over 5 buckets of ``slots`` slots warm
+    from the kernel's 50-iteration phase 1, compacted as the pipeline does
+    (a pad slot: zero carry, zero x0), up to 450 iterations: the
+    wrapper's partial and the slots' validity."""
+    from tinympc_julia_tpu_torch import Settings
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    from tinympc_julia_tpu_torch.parallel.rebuild import (
+        bucket_maps, compact_members, default_bucket_rhos,
+        predict_rho_bucketed)
+    p, c, maps = cartpole_problem(dev, 0.01, np.array([2.0, 1e17, 1e17,
+                                                       1e17]))
+    span = (1e-4, 1e4)
+    s = Settings(max_iter=500, en_state_bound=True, en_input_bound=True,
+                 adaptive_rho_min=span[0], adaptive_rho_max=span[1])
+    x0 = torch.as_tensor(np.random.default_rng(5).uniform(
+        -1, 1, size=(4096, 4)) * np.array([1.8, 1.0, 0.4, 0.5]),
+        dtype=torch.float32, device=dev)
+    rhos = default_bucket_rhos(*span)
+    G = len(rhos)
+    bmaps = bucket_maps(p, c, rhos)
+    fargs = (maps, float(c.rho), p.u_min, p.u_max, p.x_min, p.x_max, x0)
+    fn1 = K.make_condensed_fused_solver(
+        4, 1, p.N, max_iter=50, carry_out=True, en_state_bound=True,
+        en_input_bound=True)
+    _, _, _, ok1, carry = fn1(*fargs)
+    bucket, _ = predict_rho_bucketed(p, s, maps, carry, x0, float(c.rho),
+                                     rhos)
+    m = (ok1 == 0)[None, :] & (bucket[None, :] == torch.arange(
+        G, device=dev)[:, None])
+    idx, _, valid, _ = compact_members(m, slots)
+    gidx = idx.reshape(-1)
+    warm = K.FusedCarry(*(torch.where(valid[None, :], w[:, gidx], 0.0)
+                          .contiguous() for w in carry))
+    x0s2 = torch.where(valid[:, None], x0[gidx], 0.0).contiguous()
+    brho = torch.tensor(rhos, dtype=torch.float32, device=dev)
+    return functools.partial(
+        K.condensed_fused_cuda, bmaps, brho, p.u_min, p.u_max, p.x_min,
+        p.x_max, x0s2, warm, nx=4, nu=1, N=p.N, max_iter=450,
+        abs_pri_tol=1e-3, abs_dua_tol=1e-3, en_state_bound=True,
+        en_input_bound=True, relaxation_alpha=1.0, check_termination=1,
+        warm_start=True, carry_out=False, num_groups=G), valid
+
+
+def cartpole_cases(dev):
+    """K1's launches on the cartpole's narrow map (sw 99) with
+    chip_smoke.py's inputs: (a) phase 20's warm launch (8,192 plants,
+    step 1 from step 0's carry, 100 iterations, alpha 1.7, ct 1, the carry
+    out), (b) a late step of the same loop (step 50), (c) phase 22's
+    phase-2 K1d launch (5 x 4,096 slots), (d) phase 6's cold phase-0 launch
+    (65,536 lanes, 56 iterations, one check), the control.  Returns {name:
+    (module, wrapper's partial)}."""
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    p, c, maps = cartpole_problem(dev)
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(
+        -0.5, 0.5, size=(65536, 4)), dtype=torch.float32, device=dev)
+    cold = functools.partial(
+        K.condensed_fused_cuda, maps, float(c.rho), p.u_min, p.u_max,
+        p.x_min, p.x_max, x0, None, nx=4, nu=1, N=p.N, max_iter=56,
+        abs_pri_tol=1e-3, abs_dua_tol=1e-3, en_state_bound=False,
+        en_input_bound=True, relaxation_alpha=1.7, check_termination=56,
+        warm_start=False, carry_out=True)
+    return {"(a) K1b MPC loop step 1 (8,192 plants)": (K, mpc_launch(dev)),
+            "(b) K1b MPC loop step 50 (8,192 plants)":
+                (K, mpc_launch(dev, step=50)),
+            "(c) K1d mis-set cartpole phase 2 (5 x 4,096 slots)":
+                (K, misset_launch(dev)[0]),
+            "(d) K1 cold phase 0 (65,536 lanes, 56 iterations)": (K, cold)}
+
+
+def narrow_cases(dev):
+    """The warp layout's batch range on the cartpole: ``cartpole_cases``
+    and cold and warm launches (100 iterations, ct 1, alpha 1.7, the carry
+    out; warm: the MPC loop's step 1) at B = 1,024, 8,192 and 65,536, and
+    a grouped cold launch over the 5 bucket maps of phase 22 at 4,096
+    lanes each (20,480), with |x| <= 2: [(label, wrapper's partial,
+    state_free)]."""
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    from tinympc_julia_tpu_torch.parallel.rebuild import (
+        bucket_maps, default_bucket_rhos)
+    out = [(k, f, not k.startswith("(c)"))
+           for k, (_, f) in cartpole_cases(dev).items()]
+    p, c, maps = cartpole_problem(dev)
+    kw = dict(nx=4, nu=1, N=p.N, max_iter=100, abs_pri_tol=1e-3,
+              abs_dua_tol=1e-3, en_state_bound=False, en_input_bound=True,
+              relaxation_alpha=1.7, check_termination=1, carry_out=True)
+    for B in (1024, 8192, 65536):
+        x0 = torch.as_tensor(np.random.default_rng(0).uniform(
+            -0.5, 0.5, size=(B, 4)), dtype=torch.float32, device=dev)
+        out.append((f"cold B={B}", functools.partial(
+            K.condensed_fused_cuda, maps, float(c.rho), p.u_min, p.u_max,
+            p.x_min, p.x_max, x0, None, warm_start=False, **kw), True))
+        if B < 8192:
+            out.append((f"warm B={B} (MPC step 1)", mpc_launch(dev, B),
+                        True))
+    pb, cb, _ = cartpole_problem(dev, 0.01, np.array([2.0, 1e17, 1e17,
+                                                      1e17]))
+    rhos = default_bucket_rhos(1e-4, 1e4)
+    x0 = torch.as_tensor(np.random.default_rng(5).uniform(
+        -1, 1, size=(len(rhos), 4096, 4)) * np.array([1.8, 1.0, 0.4, 0.5]),
+        dtype=torch.float32, device=dev)
+    out.append(("grouped cold 5 x 4,096, |x| <= 2", functools.partial(
+        K.condensed_fused_cuda, bucket_maps(pb, cb, rhos),
+        torch.tensor(rhos, dtype=torch.float32, device=dev), pb.u_min,
+        pb.u_max, pb.x_min, pb.x_max, x0, None,
+        **dict(kw, en_state_bound=True, relaxation_alpha=1.0,
+               max_iter=450), warm_start=False, num_groups=len(rhos)),
+        False))
+    return out
+
+
+def narrow_probe(reps=5):
+    """The warp layout against tiles of 32 lanes forced (``narrow_cases``),
+    in turns (warp, tiles, tiles, warp, ...: CUDA events, median of
+    ``reps`` each after a warm-up), bit for bit, with the lanes' mean and
+    largest counts, the lane groups' and tiles' iterations and the queue
+    model's critical path; the build's ptxas lines first.  Prints only;
+    returns {label: (warp ms, tiles ms)}."""
+    from unittest import mock
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    from tinympc_julia_tpu_torch.ops.cuda._build import (kernel_label,
+                                                         load_library,
+                                                         ptxas_usage)
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    built = load_library("condensed_fused")
+    print(f"narrow probe: {built.path.name} built in {built.seconds:.1f} s",
+          flush=True)
+    for mangled, use in sorted(ptxas_usage(built.log).items()):
+        label = kernel_label(mangled)
+        if "false, false" in label or "warp" in label:
+            print(f"narrow probe ptxas: {label}: {use.registers} registers, "
+                  f"{use.spill_stores} / {use.spill_loads} bytes spill "
+                  "stores / loads", flush=True)
+    out = {}
+    for label, f, free in narrow_cases(dev):
+        warp = K.warp_tile_plan(4, 1, 20, free)
+        tiles = K.shared_tile_plan(4, 1, 20, False, free)
+
+        def run(plan):
+            with mock.patch.object(K, "fused_tile_plan",
+                                   lambda *a, **k: plan):
+                return f()
+        rw, rt = run(warp), run(tiles)
+        torch.cuda.synchronize()
+        same = same_bits(rw, rt)
+        diff = ""
+        if not same:
+            bad = (rw[2] != rt[2]) | (rw[3] != rt[3]) | (
+                rw[1] != rt[1]).flatten(1).any(1) | (
+                rw[0] != rt[0]).flatten(1).any(1)
+            diff = (f" ({int(bad.sum())} lanes differ, first "
+                    f"{bad.nonzero()[:4].flatten().tolist()}, largest x "
+                    f"difference {float((rw[0] - rt[0]).abs().max()):.3e})")
+        tw, tt = [], []
+        for r in range(reps):
+            if r % 2 == 0:
+                tw.append(event_ms(lambda: run(warp)))
+                tt.append(event_ms(lambda: run(tiles)))
+            else:
+                tt.append(event_ms(lambda: run(tiles)))
+                tw.append(event_ms(lambda: run(warp)))
+        t_w, t_t = float(np.median(tw)), float(np.median(tt))
+        counts = rw[2]
+        G = f.keywords.get("num_groups", 1)
+        groups = K.tile_iterations(counts, K.WARP_LANES, G)
+        n_tiles = K.tile_iterations(counts, K.TILE, G)
+        per = -(-(counts.numel() // G) // K.WARP_LANES)
+        lg = G * per
+        blocks, warps = K.launch_warps(warp, per, sms, K.tile_occupancy(warp))
+        state = K.state_floats(4, 1, 20, free) + (
+            2 * 99 if f.keywords.get("carry_out") else 0)
+        slots = sms * K.tile_occupancy(warp._replace(warps=warps),
+                                       smem=K.warp_smem(99, state, warps))
+        crit = K.queue_iterations(counts, G, blocks, warps, slots)
+        print(f"narrow probe {label}: warp layout {t_w:.3f} ms, tiles of "
+              f"32 forced {t_t:.3f} ms ({t_t / t_w:.3f}x), median of "
+              f"{reps} in turns; bit-equal {same}{diff}; lanes' mean count "
+              f"{counts.float().mean().item():.2f}, largest "
+              f"{int(counts.max())}; lane-group iterations {groups} "
+              f"({lg} groups, {blocks} blocks a group x {warps} warps, "
+              f"{slots} at once, the queue model's critical path {crit}), "
+              f"tile iterations {n_tiles}; "
+              f"{t_w * 1e3 / max(crit, 1):.2f} us a critical-path "
+              f"iteration", flush=True)
+        out[label] = (t_w, t_t)
+    return out
+
+
 def _flat(out):
     """A launch's result tensors in order (a carry's fields included)."""
     for t in out:
@@ -659,12 +896,21 @@ def _flat(out):
             yield from _flat(t)
 
 
+def _same(x, y) -> bool:
+    """Equal tensors, a NaN equal to a NaN in the same place."""
+    if torch.equal(x, y):
+        return True
+    return (x.shape == y.shape and x.dtype == y.dtype
+            and x.is_floating_point()
+            and bool(((x == y) | (torch.isnan(x) & torch.isnan(y))).all()))
+
+
 def same_bits(a, b) -> bool:
     """Whether two launches' results, carries included, are the same bits
-    (also chip_smoke.py's and the CUDA tests' comparison of layouts)."""
+    (also chip_smoke.py's and the CUDA tests' comparison of layouts; a
+    lane that diverged holds NaN in the same places in both)."""
     fa, fb = list(_flat(a)), list(_flat(b))
-    return len(fa) == len(fb) and all(torch.equal(x, y)
-                                      for x, y in zip(fa, fb))
+    return len(fa) == len(fb) and all(_same(x, y) for x, y in zip(fa, fb))
 
 
 def section_split(lib, blocks):
@@ -818,6 +1064,18 @@ def sections_main(sass_dir=None):
                     K2.shared_adaptive_plan(12, 4, 20, 2))],
         names[2]: [("2 lanes a thread (the parent's)", k1_shared[1])],
         names[3]: [("2 lanes a thread (the parent's)", k1_shared[0])]})
+
+
+def sections_cartpole():
+    """``sections_probe`` at the cartpole's launches (``cartpole_cases``),
+    each on the plan's layout and on tiles of 32 lanes forced (the layout
+    before the warp layout), held bit for bit."""
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    cases = cartpole_cases(torch.device("cuda"))
+    return sections_probe(cases=cases, plans={
+        name: [("tiles of 32 (the parent's)", K.shared_tile_plan(
+            4, 1, 20, False, not name.startswith("(c)")))]
+        for name in cases})
 
 
 def _sw(nx, nu, N):
@@ -985,8 +1243,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probe", nargs="?",
                     choices=("wide", "cluster", "far", "stage", "sections",
-                             "switch"),
+                             "switch", "narrow"),
                     default="cluster")
+    ap.add_argument("--cartpole", action="store_true",
+                    help="sections: the cartpole's launches (cartpole_cases) "
+                         "instead of the continuations")
     ap.add_argument("--sass", metavar="DIR",
                     help="sections: write the SASS of the continuation "
                          "layouts' kernels under DIR")
@@ -994,11 +1255,11 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("layout_probe: needs an NVIDIA GPU")
     if args.probe == "sections":
-        sections_main(args.sass)
+        sections_cartpole() if args.cartpole else sections_main(args.sass)
         return
     dict(wide=wide_layout_probe, cluster=cluster_probe,
-         far=far_layout_probe, stage=stage_probe,
-         switch=switch_probe)[args.probe]()
+         far=far_layout_probe, stage=stage_probe, switch=switch_probe,
+         narrow=narrow_probe)[args.probe]()
 
 
 if __name__ == "__main__":
