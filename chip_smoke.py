@@ -1167,7 +1167,6 @@ def earlier_phases(card):
                    adaptive_rho_min=quadrotor.RHO, adaptive_rho_max=1e3)
     tq = build_condensed_taylor(pq, cq)
     out_k, out_p = k2_both(pq, cq, tq, x0_q, max_iter=300, **quad_kw)
-    plan_a = adaptive_tile_plan(12, 4, qN, 2)  # the bulk pass's (phase 11)
     plan_10e = adaptive_tile_plan(12, 4, qN, 2, tiles=-(-B_QUAD // 32),
                                   sms=n_sm)
     a_errs.append(adaptive_agreement(
@@ -1281,6 +1280,23 @@ def earlier_phases(card):
     t_k2, t_k2_p = paired_ms(
         lambda: condensed_adaptive_cuda(*bulk_args, **bulk_kw),
         lambda: condensed_adaptive_reference(*bulk_args, **bulk_kw))
+    # the bulk launch's plan from its batch (the 4-lane layout), and the
+    # layout it replaced (2 lanes a thread) forced beside it: the same bits
+    # as that and as the plain version, timed in turns
+    plan_a = adaptive_tile_plan(12, 4, qN, 2, tiles=-(-B_ADAPT // 32),
+                                sms=n_sm)
+    f_bk = functools.partial(condensed_adaptive_cuda, *bulk_args, **bulk_kw)
+    f_bo = forced(K2, "adaptive_tile_plan",
+                  shared_adaptive_plan(12, 4, qN, 2), f_bk)
+    out_b = f_bk()
+    same_b, same_bp = same_bits(out_b, f_bo()), same_bits(out_b, bulk_p)
+    print(f"phase 11 bulk plan: {describe_plan(plan_a)}; 2 lanes a thread "
+          f"forced (the layout before it) bit-equal {same_b}, the plain "
+          f"version bit-equal {same_bp} (lanes that differ "
+          f"{lanes_differ(out_b, bulk_p)})", flush=True)
+    check(same_b and same_bp, "phase 11: the bulk launch differs from its "
+          "layout of 2 lanes a thread or from the plain version")
+    t_b, t_bo = paired_ms(f_bk, f_bo, reps=4)
     ord1, sw_q, in1_q = tqa.T1s.shape
     su_q = tqa.T2s.shape[1]
     k2_flops = 2.0 * (ord1 * sw_q * in1_q + 4 * su_q * (sw_q + 1))
@@ -1329,11 +1345,14 @@ def earlier_phases(card):
         k2_flops * int(cont_k[2].sum()),
         tensor_bytes(tqa.T1s, tqa.T2s[:, :, :sw_q], tqa.T2s[:, :, -1:],
                      *cont_args[1:], cont_k))
-    print(f"phase 11 K2 bulk launch: tiles of {plan_a.tile} lanes, "
-          f"{plan_a.rpt} rows a thread, {n_tile_b} tile iterations, "
+    print(f"phase 11 K2 bulk launch: {describe_plan(plan_a)}; "
+          f"{n_tile_b} tile iterations, "
           f"{plan_a.tile * n_tile_b / int(it.sum()):.3f} x the lanes' own, "
-          f"{1e3 * t_k2 * n_sm / n_tile_b:.3f} SM-us each; bound "
-          f"{k2_bound[0]:.4f} ms by {k2_bound[1]}", flush=True)
+          f"{1e3 * t_k2 * n_sm / n_tile_b:.3f} SM-us each; {t_b:.3f} ms "
+          f"(median of 4, in turns with 2 lanes a thread forced: "
+          f"{t_bo:.3f} ms, {t_bo / t_b:.3f}x, "
+          f"{1e3 * t_bo * n_sm / n_tile_b:.3f} SM-us a tile iteration); "
+          f"bound {k2_bound[0]:.4f} ms by {k2_bound[1]}", flush=True)
     n_cont = -(-SLOTS_ADAPT // plan_c.tile)
     print(f"phase 11 K2 continuation launch: {describe_plan(plan_c)}; mean "
           f"iterations {cont_k[2].float().mean().item():.1f}, largest "
@@ -1455,12 +1474,14 @@ def grouped_phases(card):
                                                 sweeps)
     from tinympc_julia_tpu_torch.ops.condensed import (
         build_condensed, build_condensed_taylor)
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
     from tinympc_julia_tpu_torch.ops.cuda.adaptive_kernel import (
         AdaptivePlant, adaptive_tile_plan, condensed_adaptive_cuda,
-        condensed_adaptive_reference)
+        condensed_adaptive_reference, shared_adaptive_plan)
     from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
         condensed_fused_cuda, condensed_fused_reference, fused_constraints,
         fused_tile_plan, map_layout, problem_constraint_kw, tile_iterations)
+    from tinympc_julia_tpu_torch.ops.cuda.layout_probe import same_bits
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.parallel.grouped import GroupedBatchSolver
     from tinympc_julia_tpu_torch.types import stack_instances
@@ -1711,10 +1732,24 @@ def grouped_phases(card):
                    adaptive_rho_max=1e3, max_iter=150)
     f_k, f_p = k2_both(Pa, Ca, ta, x0a, **quad_kw)
     out_k = f_k()
+    out_p = f_p()
     g_errs.append(adaptive_agreement(
         f"phase 15b K2 grid, quadrotor G={G} x L={L}, termination "
-        "controller, trust 2 around each group's rho0", out_k, f_p(),
+        "controller, trust 2 around each group's rho0", out_k, out_p,
         min_solved=0))
+    # the grid's plan from its batch, and 2 lanes a thread (the layout
+    # before it) forced beside it: the same bits, timed in turns
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan_g = adaptive_tile_plan(12, 4, N, 2, tiles=G * -(-L // 32), sms=n_sm)
+    f_go = forced(K2, "adaptive_tile_plan", shared_adaptive_plan(12, 4, N, 2),
+                  f_k)
+    same_g, same_gp = same_bits(out_k, f_go()), same_bits(out_k, out_p)
+    print(f"phase 15b grid plan: {describe_plan(plan_g)}; 2 lanes a thread "
+          f"forced (the layout before it) bit-equal {same_g}, the plain "
+          f"version bit-equal {same_gp}", flush=True)
+    check(same_g and same_gp, "phase 15b: the grid differs from its layout "
+          "of 2 lanes a thread or from the plain version")
+    t_g, t_go = paired_ms(f_k, f_go, reps=4)
     off = (out_k[4] - Ca.rho.repeat_interleave(L)).abs().max().item()
     check(off <= 2.0 + 1e-5, f"phase 15b: a lane's rho is {off:.3f} from its "
           "group's rho0, beyond the trust radius")
@@ -1727,16 +1762,16 @@ def grouped_phases(card):
                      Pa.u_max, Pa.x_min, Pa.x_max, x0a, out_k[:5],
                      tuple(out_k[5])))
     t_k2g, t_k2g_p = paired_ms(f_k, f_p)
-    plan_g = adaptive_tile_plan(12, 4, N, 2)
     n_tile_g = tile_iterations(out_k[2], plan_g.tile, G)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     n_tiles = G * -(-L // plan_g.tile)
-    print(f"phase 15b K2 grid launch: tiles of {plan_g.tile} lanes "
-          f"({n_tiles} tiles on {n_sm} SMs), {plan_g.rpt} rows a thread, "
+    print(f"phase 15b K2 grid launch: {describe_plan(plan_g)} "
+          f"({n_tiles} tiles on {n_sm} SMs), "
           f"{n_tile_g} tile iterations, "
           f"{plan_g.tile * n_tile_g / int(out_k[2].sum()):.3f} x the lanes' "
           f"own, {1e3 * t_k2g * min(n_sm, n_tiles) / n_tile_g:.3f} SM-us "
-          "each on the busy SMs", flush=True)
+          f"each on the busy SMs; {t_g:.3f} ms (median of 4, in turns with "
+          f"2 lanes a thread forced: {t_go:.3f} ms, {t_go / t_g:.3f}x)",
+          flush=True)
     condensed_adaptive_cuda.launches = 0
     condensed_adaptive_cuda.grouped_launches = 0
     gs_a = GroupedBatchSolver(Pa, Ca, Settings(
@@ -2334,9 +2369,10 @@ def rebuild_and_horizon_phases(card):
     from tinympc_julia_tpu_torch.ops.condensed import (
         AUTO_CONDENSED_BUDGET_BYTES, auto_chunk_size, auto_uses_condensed,
         build_condensed, build_condensed_taylor)
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
     from tinympc_julia_tpu_torch.ops.cuda.adaptive_kernel import (
-        AdaptiveFusedCarry, condensed_adaptive_cuda,
-        condensed_adaptive_reference)
+        AdaptiveFusedCarry, adaptive_tile_plan, condensed_adaptive_cuda,
+        condensed_adaptive_reference, shared_adaptive_plan)
     from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
     from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
         FusedCarry, condensed_fused_cuda, condensed_fused_reference,
@@ -2634,8 +2670,21 @@ def rebuild_and_horizon_phases(card):
                    adaptive_rho_clipping=True, check_termination=1,
                    controller="termination", taylor_trust=2.0,
                    warm_start=False, carry_out=True)
-    _, _, _, ok_b, _, carry = condensed_adaptive_cuda(tqa, *bounds, x0_a,
-                                                      None, **bulk_kw)
+    f_b24 = functools.partial(condensed_adaptive_cuda, tqa, *bounds, x0_a,
+                              None, **bulk_kw)
+    out_b24 = f_b24()
+    _, _, _, ok_b, _, carry = out_b24
+    # the pipeline's K2 bulk launch on its plan (the 4-lane layout) and on
+    # 2 lanes a thread (the layout before it) forced: the same bits, timed
+    # in turns
+    plan24a = adaptive_tile_plan(12, 4, qN, 2, tiles=-(-B_ADAPT // 32),
+                                 sms=n_sm)
+    f_b24o = forced(K2, "adaptive_tile_plan",
+                    shared_adaptive_plan(12, 4, qN, 2), f_b24)
+    same24a = same_bits(out_b24, f_b24o())
+    check(same24a, "phase 24: the K2 bulk launch differs from its layout of "
+          "2 lanes a thread")
+    t_b24, t_b24o = paired_ms(f_b24, f_b24o, reps=4)
     unconv = ok_b == 0
     idx_c, _, _, _ = compact_members(unconv[None, :], SLOTS_ADAPT)
     idx_c = idx_c[0]
@@ -2720,6 +2769,10 @@ def rebuild_and_horizon_phases(card):
     print(f"phase 24 requantized continuation plan: {describe_plan(plan24)};"
           f" 2 lanes a thread forced (the layout before the batch-aware "
           f"plan) bit-equal {same24}", flush=True)
+    print(f"phase 24 K2 bulk plan: {describe_plan(plan24a)}; 2 lanes a "
+          f"thread forced (the layout before it) bit-equal {same24a}; "
+          f"{t_b24:.3f} ms (median of 4, in turns with 2 lanes a thread "
+          f"forced: {t_b24o:.3f} ms, {t_b24o / t_b24:.3f}x)", flush=True)
     print(f"phase 24 continuations alone, from the same bulk carry (median "
           f"of {DEEP_REPS}): K2's {t_k2c:.3f} ms; the requantized K1d launch "
           f"with its {REQUANT_HEAD}-iteration head {t_k:.3f} ms (median of "

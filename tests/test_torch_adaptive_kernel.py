@@ -382,7 +382,9 @@ def test_tile_plan():
     cartpole's maps (T1 3 x 24 x 128, the interleaved T2 stack 100 x 128,
     fp32) sit in shared memory beside the lanes' state; the quadrotor's
     (337 KB + 385 KB) stream through the slab ring, 20 rows a thread
-    covering its 316 forward and 304 stacked backward rows in one pass."""
+    covering its 316 forward and 304 stacked backward rows in one pass, on
+    the 4-lane layout (10 rows x 4 lanes a thread, 12 x 4 in the backward;
+    the maps' rows padded to 320 and 312: the same bytes)."""
     cart = K2.adaptive_tile_plan(4, 1, 20, 2)
     # vec1 24 + ux 100 rows, flags, rho, partials, y/z/v 118 rows, maps
     assert cart == K2.AdaptivePlan(
@@ -391,7 +393,8 @@ def test_tile_plan():
     quad = K2.adaptive_tile_plan(12, 4, 20, 2)
     assert quad == K2.AdaptivePlan(
         32, 256, 20, 1, 1, False, True, 96, 320,
-        11392 + 40576 + 144 + 256 + 12288 + 50176 + 6 * 8 * 320 * 4)
+        11392 + 40576 + 144 + 256 + 12288 + 50176 + 6 * 8 * 320 * 4,
+        ld=(320, 312), lanes=4)
     assert quad.width == 320 and quad.ld1 >= 316 and quad.ld2 >= 4 * 76
     # reduced iterations add the bf16 maps (rows padded by 8) and the
     # rounded operand; every plan fits a block's shared memory
@@ -440,28 +443,37 @@ def test_tile_plan():
 
 
 @pytest.mark.parametrize("shape,tiles,sms,cont", [
-    ((12, 4, 20), 64, 132, True),     # the adaptive pipeline's 2,048 slots
-    ((12, 4, 20), 66, 132, True),     # tiles of 16 on all 132 SMs
-    ((12, 4, 20), 67, 132, False),    # past the card: tiles of 32
-    ((12, 4, 20), 512, 132, False),   # the bulk pass's 16,384 lanes
-    ((12, 4, 20), 128, 132, False),   # the group grid's 8 x 512 lanes
-    ((12, 4, 20), 64, 114, False),    # a card of 114 SMs
-    ((12, 4, 32), 16, 132, True),     # sw 508: one pass of 512 rows
-    ((12, 4, 40), 16, 132, False),    # sw 636: more than one pass
-    ((4, 1, 20), 16, 132, False),     # the cartpole: its maps resident
-    ((6, 3, 10), 16, 132, False),     # the rocket: its maps resident
-    ((12, 4, 90), 16, 132, False),    # the cluster's widths
+    ((12, 4, 20), 64, 132, "cont"),   # the adaptive pipeline's 2,048 slots
+    ((12, 4, 20), 66, 132, "cont"),   # tiles of 16 on all 132 SMs
+    ((12, 4, 20), 67, 132, "four"),   # past the card: tiles of 32
+    ((12, 4, 20), 512, 132, "four"),  # the bulk pass's 16,384 lanes
+    ((12, 4, 20), 128, 132, "four"),  # the group grid's 8 x 512 lanes
+    ((12, 4, 20), 64, 114, "four"),   # a card of 114 SMs
+    ((12, 4, 32), 16, 132, "cont"),   # sw 508: one pass of 512 rows
+    ((12, 4, 40), 16, 132, "two"),    # sw 636: more than one pass
+    ((4, 1, 20), 16, 132, "two"),     # the cartpole: its maps resident
+    ((6, 3, 10), 16, 132, "two"),     # the rocket: its maps resident
+    ((12, 4, 90), 16, 132, "two"),    # the cluster's widths
+    ((12, 4, 20), 256, 132, "four"),  # one group of 8,192 lanes
+    ((12, 4, 20), 72, 132, "four"),   # past the card, the 4-lane's win
+    ((12, 4, 12), 64, 132, "cont"),   # sw 188: a narrow map streamed
+    ((6, 3, 12), 64, 132, "cont"),    # sw 105: the narrowest streamed
 ], ids=["quad-2048", "quad-66", "quad-67", "quad-bulk", "quad-grid",
         "quad-114sms", "quad-n32", "quad-n40", "cartpole", "rocket",
-        "quad-n90"])
+        "quad-n90", "quad-256", "quad-72", "quad-n12", "rocket-n12"])
 def test_plan_takes_the_batch(shape, tiles, sms, cont):
     """A launch whose tiles of 32 lanes would leave half the card's SMs idle
     (2 x tiles <= SMs) and stream their maps takes the continuation layout
-    where its products take one pass: tiles of 16 lanes, each product one
-    pass of 512 rows (8 rows x 4 lanes a thread, slabs of 16 k-rows), only
-    the map's valid rows streamed, where the forward pass uses at least
-    half its rows; every other launch keeps the plan of a batch that fills
-    the card, field for field.  A plan for a batch needs the card's SMs."""
+    where its products take one pass ("cont"): tiles of 16 lanes, each
+    product one pass of 512 rows (8 rows x 4 lanes a thread, slabs of 16
+    k-rows), only the map's valid rows streamed, where its tiles of 32
+    take 20 rows a thread, at any width (quad-n12: sw 188; rocket-n12: sw
+    105); every other launch keeps the plan of a
+    batch that fills the card, field for field: where its tiles of 32
+    stream their maps in one pass of 320 rows, the 4-lane layout ("four":
+    10 rows x 4 lanes a thread, 12 x 4 in the backward product, slabs of
+    16 k-rows by the bulk copy engine), else 2 lanes a thread or a
+    cluster's 8 ("two").  A plan for a batch needs the card's SMs."""
     full = K2.adaptive_tile_plan(*shape, 2)
     with pytest.raises(ValueError, match="SMs"):
         K2.adaptive_tile_plan(*shape, 2, tiles=tiles)
@@ -470,8 +482,19 @@ def test_plan_takes_the_batch(shape, tiles, sms, cont):
             p = K2.adaptive_tile_plan(*shape, 2, reduced, state_free,
                                       tiles=tiles, sms=sms)
             base = K2.adaptive_tile_plan(*shape, 2, reduced, state_free)
-            if not cont:
-                assert p == base
+            if cont == "four":
+                assert p == base == K2.four_lane_adaptive_plan(
+                    *shape, 2, reduced, state_free)
+                assert (p.tile, p.rpt, p.width, p.passes1, p.passes2) == (
+                    32, K2.K2_LANES4_RPT, 320, 1, 1)
+                assert (p.lanes, p.slab_k, p.bulk_ring, p.resident) == (
+                    4, 16, True, False)
+                assert p.smem + K.RING_BARS_BYTES <= K.SMEM_PER_BLOCK
+                continue
+            if cont == "two":
+                assert p == base and not p.bulk_ring
+                assert K2.four_lane_adaptive_plan(*shape, 2, reduced,
+                                                  state_free) is None
                 continue
             assert p == K2.continuation_adaptive_plan(*shape, 2, reduced,
                                                       state_free)
@@ -481,11 +504,128 @@ def test_plan_takes_the_batch(shape, tiles, sms, cont):
                                                                   False)
             assert p.smem <= K.SMEM_PER_BLOCK
     if shape == (12, 4, 20):
-        assert full.tile == 32 and (full.lanes, full.slab_k) == (2, 8)
+        assert full.tile == 32 and (full.lanes, full.slab_k) == (4, 16)
+        assert full == K2.four_lane_adaptive_plan(12, 4, 20, 2)
     # the maps' rows padded only to a multiple of a thread's 8 (sw 316,
     # 4 su 304), so that a slab is one bulk copy
     p = K2.continuation_adaptive_plan(12, 4, 20, 2)
     assert (p.ld1, p.ld2) == (320, 304) and p.bulk_ring
+
+
+def _k2_layout_smem(nx, nu, N, order, tile, W, reduced, state_free, shared):
+    """csrc/condensed_adaptive.cu k2_layout's total for a streamed plan of
+    one block a tile, offset by offset: vec1, ux, the latch flags, rho
+    twice, the partials, the duals and slacks where shared, the slab ring
+    (the larger of the fp32 ring, kStages x kSlabK rows of W floats, and
+    the bf16 one), the bf16 product input."""
+    up16 = lambda n: -(-n // 16) * 16
+    su, sx = (N - 1) * nu, N * nx
+    sw, in1 = su + sx, su + nx + 1
+    state = (2 * su + (1 if state_free else 2) * sx) if shared else 0
+    kp = max(-(-in1 // 32) * 32, -(-(sw + 1) // 32) * 32)
+    ring = max(4 * 6 * 8 * W, 2 * 4 * W * (16 + 8) if reduced else 0)
+    return (up16(4 * in1 * tile) + up16(4 * (sw + 1) * tile)
+            + up16(4 * (tile + 1)) + up16(8 * tile) + up16(48 * 256)
+            + up16(4 * state * tile) + up16(ring)
+            + (up16(2 * tile * (kp + 8)) if reduced else 0))
+
+
+@pytest.mark.parametrize("shape", [(12, 4, 20), (4, 1, 52), (4, 1, 64),
+                                   (6, 3, 27)],
+                         ids=["quad-n20", "cart-n52", "cart-n64",
+                              "rocket-n27"])
+def test_four_lane_plan_pads_the_maps_to_the_threads_rows(shape):
+    """The 4-lane layout's padded rows (``bulk_ld``) and shared memory
+    against the kernel's arithmetic (csrc/condensed_adaptive.cu
+    bulk_rows, K2Product, k2_layout): the forward map's sw rows padded to
+    a multiple of a thread's 10 rows and of 4, the backward stack's 4 su
+    to whole outputs of 4 rows (12 a thread) and of 4, both within the
+    products' 320 rows, so that every thread's rows lie inside a slab's
+    row and 3 slots of 16 k-rows of either map fit the ring of 6 x 8 rows
+    of 320; the plan's bytes are the 2-lane plan's (the same ring), with
+    room for the ring's barriers; a launch with a carry out stages its
+    carry slacks after the layout where they fit (``launch_smem``).  At
+    the quadrotor's N = 20, the
+    cartpole's N = 52 and 64 and the rocket's N = 27 (the widest whose
+    backward stack, 4 su = 312, takes one pass)."""
+    nx, nu, N_ = shape
+    su, sw = (N_ - 1) * nu, (N_ - 1) * nu + N_ * nx
+    for reduced in (False, True):
+        for state_free in (True, False):
+            p = K2.four_lane_adaptive_plan(nx, nu, N_, 2, reduced,
+                                           state_free)
+            two = K2.shared_adaptive_plan(nx, nu, N_, 2, reduced,
+                                          state_free)
+            assert p == two._replace(lanes=4, ld=p.ld)
+            ld1, ld2 = p.ld
+            assert ld1 % 4 == 0 and ld2 % 4 == 0
+            assert ld1 >= -(-sw // 10) * 10 > ld1 - 14
+            assert ld2 >= -(-4 * su // 12) * 12 > ld2 - 16
+            assert max(p.ld) <= p.width == 320
+            assert 3 * 16 * max(p.ld) * 4 <= K.ring_bytes(p.width, False)
+            assert (p.ld1, p.ld2) == K2.bulk_ld(su, sw, p.rpt)
+            assert p.smem == _k2_layout_smem(nx, nu, N_, 2, 32, 320,
+                                             reduced, state_free,
+                                             p.state_shared)
+            assert p.smem + K.RING_BARS_BYTES <= K.SMEM_PER_BLOCK
+            # a launch with a carry out stages the tile's carry slacks (sw
+            # rows x 32 lanes) after the layout where they fit, then the
+            # constraint data; without a carry, or on 2 lanes, none
+            cap = K.SMEM_PER_BLOCK - K.RING_BARS_BYTES
+            stage = -(-4 * sw * 32 // 16) * 16
+            smem, staged = K2.launch_smem(p, sw, True, 64)
+            assert staged == (p.smem + stage <= cap)
+            assert smem == p.smem + (stage if staged else 0) + (
+                64 if p.smem + (stage if staged else 0) + 64 <= cap else 0)
+            assert K2.launch_smem(p, sw, False, 64) == (p.smem + 64, False)
+            assert not K2.launch_smem(two, sw, True)[1]
+    # the quadrotor's fp32 state-free bulk pass stages its carry (176,272 +
+    # 40,448 bytes); with the state dual or the bf16 maps there is no room
+    quad = K2.four_lane_adaptive_plan(12, 4, 20, 2)
+    assert K2.launch_smem(quad, 316, True) == (176272 + 40448, True)
+    for reduced, free in ((False, False), (True, True)):
+        q = K2.four_lane_adaptive_plan(12, 4, 20, 2, reduced, free)
+        assert K2.launch_smem(q, 316, True) == (q.smem, False)
+    assert K2.bulk_ld(76, 316, 20) == (320, 312)
+    assert K2.bulk_ld(76, 316, 16) == (320, 304)  # the continuation's
+
+
+def test_last_layout_keeps_the_maps_layout(monkeypatch):
+    """K2's launch layout (``LastLayout``): a second launch on the same maps
+    makes no new plan or layout (the same objects); the pipeline's two
+    plans (the bulk launch's 4-lane layout, the continuation's tiles of
+    16) each keep their own layout; an in-place write to a map or other
+    maps make them anew, equal to a fresh ``map_layout``; a plan forced
+    in the plan function's place is taken."""
+    _, (_, _, pt) = taylor_setup(quadrotor, F32, rho=5.0, ub=0.5)
+    keep = K2.LastLayout()
+    args = (12, 4, N, 2, False, True)
+    su, sw = pt.T2s.shape[-2], pt.T1s.shape[-2]
+    bulk = dict(tiles=512, sms=132)
+    plan, maps = keep(pt, *args, **bulk)
+    assert plan == K2.four_lane_adaptive_plan(*args)
+    again = keep(pt, *args, **bulk)
+    assert again[0] is plan and again[1] is maps
+    cplan, cmaps = keep(pt, *args, tiles=64, sms=132)
+    assert cplan.tile == 16 and cmaps is not maps
+    assert keep(pt, *args, tiles=64, sms=132)[1] is cmaps
+    assert keep(pt, *args, **bulk)[1] is maps
+    for a, b in zip(maps, K2.map_layout(pt, su, sw, plan, False)):
+        assert (a is None and b is None) or torch.equal(a, b)
+    pt.T1s.mul_(2.0)
+    plan2, maps2 = keep(pt, *args, **bulk)
+    assert maps2 is not maps and torch.equal(maps2[0], 2.0 * maps[0])
+    assert torch.equal(maps2[1], maps[1])
+    other = pt._replace(T2s=pt.T2s + 1.0)
+    maps3 = keep(other, *args, **bulk)[1]
+    assert maps3 is not maps2
+    assert torch.equal(maps3[1], K2.map_layout(other, su, sw, plan,
+                                               False)[1])
+    two = K2.shared_adaptive_plan(*args)
+    monkeypatch.setattr(K2, "adaptive_tile_plan", lambda *a, **k: two)
+    forced, fmaps = keep(other, *args, **bulk)
+    assert forced == two and fmaps[0].shape[-1] == two.ld1 == 320
+    assert fmaps[1].shape[-1] == two.ld2 == 320
 
 
 # -- the group grid ----------------------------------------------------------

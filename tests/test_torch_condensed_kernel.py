@@ -1151,19 +1151,24 @@ MAIN_SHAPE_PLANS = [
     ((6, 3, 10), True, False, (32, 256, True, True, 128, 96, 126608, 1,
                                False),
      (32, 256, 8, 1, 1, False, True, 64, 96, 81808, False)),
-    # the quadrotor at N = 20: K1's 4-lane layout (lanes 4, the last field)
+    # the quadrotor at N = 20: K1's and K2's 4-lane layouts (lanes 4, the
+    # last field; K2's maps' rows padded to 320 and 312, the field before)
     ((12, 4, 20), False, True, (32, 256, False, True, 320, 320, 196752, 1,
                                 False, 1, (), 4),
-     (32, 256, 20, 1, 1, False, True, 96, 320, 176272, False)),
+     (32, 256, 20, 1, 1, False, True, 96, 320, 176272, False, 1, (), (),
+      (320, 312), 4)),
     ((12, 4, 20), False, False, (32, 256, False, True, 320, 320, 227472, 1,
                                  False, 1, (), 4),
-     (32, 256, 20, 1, 1, False, True, 96, 320, 206992, False)),
+     (32, 256, 20, 1, 1, False, True, 96, 320, 206992, False, 1, (), (),
+      (320, 312), 4)),
     ((12, 4, 20), True, True, (32, 256, False, True, 320, 320, 217744, 1,
                                False, 1, (), 4),
-     (32, 256, 20, 1, 1, False, True, 96, 320, 197264, False)),
+     (32, 256, 20, 1, 1, False, True, 96, 320, 197264, False, 1, (), (),
+      (320, 312), 4)),
     ((12, 4, 20), True, False, (32, 256, False, False, 320, 320, 127120, 1,
                                 False, 1, (), 4),
-     (32, 256, 20, 1, 1, False, True, 96, 320, 227984, False)),
+     (32, 256, 20, 1, 1, False, True, 96, 320, 227984, False, 1, (), (),
+      (320, 312), 4)),
     ((12, 4, 32), False, True, (32, 256, False, False, 512, 512, 167568, 1,
                                 False),
      (32, 256, 20, 2, 2, False, False, 160, 512, 156816, False)),
@@ -1190,10 +1195,11 @@ def test_main_shape_plans_are_unchanged(shape, reduced, state_free, k1, k2,
                                         tiles):
     """The cartpole at N = 20, the rocket at N = 10 and the quadrotor at N
     = 20, 32 and 40 keep the plans they had before the cluster layout,
-    field for field: no cluster, nothing in global memory; K1's at the
-    quadrotor's N = 20 takes 4 lanes a thread in its fp32 product (the
-    4-lane layout, faster on the card at every batch measured: PERF.md
-    section 6), the rest 2; but the cartpole's fp32 launches take the warp
+    field for field: no cluster, nothing in global memory; K1's and K2's
+    at the quadrotor's N = 20 take 4 lanes a thread in their fp32 products
+    (the 4-lane layouts, faster on the card at every batch measured:
+    PERF.md section 6; K2's maps' rows padded to its threads' rows), the
+    rest 2; but the cartpole's fp32 launches take the warp
     layout (faster on the card at every batch measured: PERF.md section
     6), and the rocket's plan is that of its launches, which project its
     cones.  K2's are the same for the bulk batches

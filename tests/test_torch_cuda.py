@@ -1734,6 +1734,115 @@ def test_k2_continuation_layout_agrees_bit_for_bit(dev, monkeypatch, model,
         _k2_agree(k, r)
 
 
+@pytest.mark.parametrize("case", ["bulk", "ragged", "grid", "default",
+                                  "osqp", "rocket", "cartpole"])
+def test_k2_four_lane_layout_agrees_bit_for_bit(dev, monkeypatch, case):
+    """K2's tiles of 32 lanes on the 4-lane layout (10 rows x 4 lanes a
+    thread in the forward product, 12 x 4 in the backward, slabs of 16
+    k-rows by the bulk copy engine, the maps' rows padded to the threads'
+    rows): the same bits as 2 lanes a thread (the layout it replaced,
+    forced), carry included; the same bits as the plain version under the
+    termination controller where the plain products sum in index order
+    (the quadrotor's and the rocket's single problem), else K2's bar
+    against it (``_k2_agree``).  bulk: the adaptive pipeline's bulk pass
+    (the quadrotor at N = 20, the termination controller with trust 2,
+    150 iterations, the carry out, staged in shared memory so that a
+    checking iteration's box step takes one pass) at 8,192 lanes, on the
+    plan's layout;
+    ragged: 4,100 lanes (a last tile of 4) without the carry out (the
+    one-pass box step), the plan's; grid: 3 randomised quadrotors x 1,000
+    lanes (per-group maps, rho0 and bounds, ragged tiles), the plan's;
+    default: ``precision="default"`` at ct = 5 (the bf16 iterations keep
+    the tensor-core product; the carry not staged, no room: two passes);
+    osqp: the OSQP-form controller (these two held to the plain version
+    on their outputs, the bar of the reduced quadrotor's tiles of 16, and
+    bit for bit to 2 lanes, carry included); rocket: the
+    rocket at N = 27 (sw 240, 4 su 312) with its cones and state box, the
+    projected stages; cartpole: the cartpole at N = 52 (sw 259).  The last
+    four forced onto the layout at 2,200 lanes."""
+    G, nx, nu = 1, 12, 4
+    if case in ("rocket", "cartpole"):
+        model, horizon = case, 27 if case == "rocket" else 52
+        p, c, cons, x0s, rho_kw = _streamed_case(model, horizon, dev)
+        tm = build_condensed_taylor(p, c)
+        x0 = x0s(2200, 41)
+        kw = _k2_kw(p, c, max_iter=150, constraints=cons,
+                    en_state_bound=cons is not None, **rho_kw)
+        nx, nu = p.nx, p.nu
+    elif case == "grid":
+        G, horizon = 3, N
+        p, c = _groups(quadrotor, G, dev, ub_range=(0.4, 0.6), seed=5)
+        tm = build_condensed_taylor(p, c)
+        x0 = _gx0(G, 1000, 12, 6, 0.3, dev)
+        kw = dict(plant=None, nx=12, nu=4, N=N, max_iter=150,
+                  abs_pri_tol=1e-3, abs_dua_tol=1e-3, en_state_bound=False,
+                  en_input_bound=True, relaxation_alpha=1.0,
+                  adaptive_rho_min=quadrotor.RHO * 0.8,
+                  adaptive_rho_max=1e3, adaptive_rho_clipping=True,
+                  check_termination=1, controller="termination",
+                  taylor_trust=2.0, warm_start=False, carry_out=True,
+                  num_groups=G)
+    else:
+        horizon = N
+        p, c = _quad(N, dev)
+        tm = build_condensed_taylor(p, c)
+        B = dict(bulk=8192, ragged=4100).get(case, 2200)
+        x0 = _x0(B, 12, 31, 0.3, dev)
+        rho = (dict(controller="osqp", adaptive_rho_min=1.0,
+                    adaptive_rho_max=50.0) if case == "osqp" else _QUAD_KW)
+        kw = _k2_kw(p, c, max_iter=150, **rho)
+        if case == "ragged":
+            kw["carry_out"] = False
+        if case == "default":
+            kw.update(check_termination=5, precision="default")
+    free = kw.get("constraints") is None
+    reduced = case == "default"
+    four = K2.four_lane_adaptive_plan(nx, nu, horizon, 2, reduced, free)
+    assert (four.tile, four.lanes, four.passes1, four.passes2) == (32, 4, 1,
+                                                                   1)
+    assert four.bulk_ring and four.ld == K2.bulk_ld(
+        (horizon - 1) * nu, (horizon - 1) * nu + horizon * nx, 20)
+    if case in ("bulk", "ragged", "grid"):  # the plan's at this batch
+        assert four == K2.adaptive_tile_plan(
+            nx, nu, horizon, 2, reduced, free,
+            tiles=G * -(-(x0.numel() // nx // G) // 32), sms=_sms(dev))
+    else:
+        _forced(monkeypatch, K2, "adaptive_tile_plan", four)
+    args = (tm, p.u_min, p.u_max, p.x_min, p.x_max, x0, None)
+    before = K2.condensed_adaptive_cuda.launches
+    k = K2.condensed_adaptive_cuda(*args, **kw)
+    assert K2.condensed_adaptive_cuda.launches == before + 1
+    r = K2.condensed_adaptive_reference(*args, **kw)
+    _forced(monkeypatch, K2, "adaptive_tile_plan",
+            K2.shared_adaptive_plan(nx, nu, horizon, 2, reduced, free))
+    o = K2.condensed_adaptive_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert same_bits(k, o)
+    # no rocket lane latches within the budget, nor any lane at ct = 5
+    # under bf16 noise (a true fp32 check fails on the reduced iterates:
+    # ROADMAP R8); under the OSQP-form controller fewer than half latch
+    if case not in ("rocket", "default"):
+        solved = int(k[3].sum())
+        assert solved > (0 if case == "osqp" else k[2].numel() // 2)
+    if case in ("bulk", "ragged", "rocket"):
+        assert same_bits(k, r)
+    elif case in ("grid", "cartpole"):
+        _k2_agree(k, r)
+    else:
+        # the plain OSQP-form residuals (batched matmuls) and bf16 products
+        # do not sum as the kernel does: counts and flags on >= 99% of
+        # lanes, x, u and rho within 1e-4 on the lanes that both solved
+        # with equal counts (the bar of the reduced quadrotor's tiles of 16)
+        same = (k[2] == r[2]) & (k[3] == r[3])
+        assert same.float().mean().item() >= 0.99
+        both = same & (k[3] == 1) & (r[3] == 1)
+        assert case == "default" or bool(both.any())
+        if bool(both.any()):
+            for j in (0, 1):
+                assert (k[j] - r[j])[both].abs().max().item() <= 1e-4
+            assert ((k[4] - r[4]).abs() / r[4])[both].max().item() <= 1e-4
+
+
 @pytest.mark.parametrize("slots", [2048, 2040], ids=["2048", "partial"])
 @pytest.mark.parametrize("head", [0, 64], ids=["fp32", "head64"])
 @pytest.mark.parametrize("model,horizon", [

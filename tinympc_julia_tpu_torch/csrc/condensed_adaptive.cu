@@ -26,7 +26,7 @@
 //  * A block of 256 threads owns a tile of 32 lanes (16 where the iterates
 //    of 32 would not fit beside a wide map's slab ring) and runs both
 //    products over the tile as GEMMs, each thread a register tile of RPT
-//    rows x 2 lanes, each
+//    rows x 2 lanes (or fewer rows x more lanes: K2Product), each
 //    output summed over k in index order with fmaf (no TF32), so a lane's
 //    fp32 result does not depend on its tile-mates and equals the plain
 //    version's product.
@@ -64,15 +64,24 @@
 //    leave no room, vec1 and ux live in global memory, each tile its own
 //    columns, and stream through the ring beside the maps' slabs
 //    (In::kGlobal).  The sums keep their order in every layout.
-//  * A launch of few tiles (a continuation's slots: tiles of 32 would
-//    leave half the card idle) takes the continuation layout: tiles of 16
-//    lanes on twice the SMs, each product one pass of 512 rows (8 rows x
-//    4 lanes a thread in the fp32 product: K2Product), the maps' rows
-//    padded only to a thread's rows so that a
-//    16-row slab is one bulk copy, issued by thread 0 once every warp has
-//    freed the slot (no block barrier a slab), a row's 4 lanes stored as one
-//    16-byte word in the forward epilogue, and a checking iteration's box
-//    residuals and updates in one pass (the carry's slack written ahead).
+//  * Where both products take one pass, the maps stream through a ring
+//    filled by the bulk copy engine (the bulk-ring layouts, K2Product):
+//    the maps' rows padded only to a thread's rows so that a 16-row slab
+//    is one bulk copy, issued by thread 0 once every warp has freed the
+//    slot (no block barrier a slab), each thread 4 lanes of the fp32
+//    products (a k step's 16-byte load of w feeds 4 lanes: fewer shared-
+//    memory wavefronts an FMA than 2 lanes' 8-byte one), a row's 4 lanes
+//    stored as one 16-byte word in the forward epilogue.  A launch of few
+//    tiles (a continuation's slots: tiles of 32 would leave the card
+//    idle) takes tiles of 16 lanes on twice the SMs, each product one pass
+//    of 512 rows (8 rows x 4 lanes a thread); a batch that fills the card
+//    keeps tiles of 32 lanes, one pass of 320 rows (10 rows x 4 lanes a
+//    thread in the forward product, 12 x 4 in the backward, whose outputs
+//    take 4 rows each).  Both take a checking iteration's box residuals
+//    and updates in one pass; with a carry out, each lane's slack is
+//    written ahead to a copy staged in shared memory (carry_stage_bytes)
+//    and written out where the lane latches, and where that copy does not
+//    fit the two passes stay.
 //  * The elementwise step runs on all threads, 256 / T a lane: relaxation,
 //    projections, residuals and dual ascent (tile_gemm.cuh,
 //    projections.cuh), and the OSQP-form prediction stage by stage; the
@@ -98,11 +107,12 @@
 //    every group is ragged and masked; lanes keep the flat order
 //    lane = g * L + l, and rho stays per lane.
 //
-// Launch contract: the Python wrapper (adaptive_tile_plan) picks the tile
-// and the rows a thread (32 lanes with 8 or 20 rows, 16 lanes with 8 or
-// 16, 32 lanes with 20 and the iterates in global memory, and 32 lanes
-// with 32 split over a cluster: the instances), the cluster and its blocks'
-// stages, the passes, the padded layouts, the
+// Launch contract: the Python wrapper (adaptive_tile_plan) picks the tile,
+// the rows a thread and the lanes a thread of the fp32 products (32 lanes
+// with 8 or 20 rows at 2 lanes or 20 at 4, 16 lanes with 8 rows at 2 or 16
+// at 4, 32 lanes with 20 rows at 2 and the iterates in global memory, and
+// 32 lanes with 32 at 8 split over a cluster: the instances), the cluster
+// and its blocks' stages, the passes, the padded layouts, the
 // residency of maps and state and the dynamic shared-memory size; the entry
 // point refuses a layout the kernel would overrun.
 #include <cuda_bf16.h>
@@ -179,6 +189,9 @@ struct Params {
   int cluster, rows1, rows2;
   int stages[kMaxCluster + 1], ustages[kMaxCluster + 1];
   int cons_shared;    // the constraint data staged in shared memory
+  int carry_stage;    // the lanes' carry slacks staged in shared memory
+                      // (carry_stage_bytes after the layout) and written
+                      // out where a lane latches
   int max_iter, ct, lo_all;
   float alpha, one_m_alpha, pri_tol, dua_tol;
   float rho_min, rho_max;
@@ -252,6 +265,14 @@ __host__ __device__ inline K2Layout k2_layout(
     off += up16(2 * static_cast<size_t>(T) * (kp + kPadLo));
   t.total = off;
   return t;
+}
+
+// Bytes of a tile's staged carry slacks (sw rows of T lanes), after the
+// layout: a bulk-ring launch with a carry out takes a checking iteration's
+// box residuals and updates in one pass and writes each lane's slack there
+// ahead, instead of to the (dim, B) outputs, where it fits.
+__host__ __device__ inline size_t carry_stage_bytes(int sw, int T) {
+  return up16(sizeof(float) * static_cast<size_t>(sw) * T);
 }
 
 // Row of the first entry of stage s of the list of the N - 1 input stages
@@ -328,39 +349,45 @@ __device__ __forceinline__ bool takes(const Tile& t, int r, int rows, int l) {
   return r < rows && l < t.nvalid && !t.done[l];
 }
 
-// The fp32 products' thread layout of an instance: lanes a thread (8 on a
-// cluster, RPT / 4 rows; 4 in the continuation layout's tiles of 16 with
-// RPT 16, 8 rows; else 2, RPT rows), the
+// The fp32 products' thread layout of an instance: lanes a thread (LPT: 8
+// on a cluster, RPT / 4 rows; 4 in the bulk-ring layouts, RPT / 2 rows;
+// else 2, RPT rows), the rows a thread of the backward product (whole
+// outputs of the interleaved stack: a multiple of 4, so the four block
+// sums of an output are in one thread; 12 where the forward takes 10), the
 // ring's slab depth and slots (16 k-rows in 3 slots where a thread takes
 // more than 2 lanes, else 8 in 6: the same bytes), whether a slab carries
-// only the map's valid rows (a cluster block's slice; the continuation
-// layout's one pass of 512 rows over fewer), and whether the ring
-// fills by the bulk copy engine with no block barrier a slab (gemm_fp32's
-// kMbar; the continuation layout's maps have their rows padded only to a
-// thread's rows, so a slab is one copy).  The continuation layout: tiles
-// of 16 lanes whose products cover RPT x 32 rows at once, for launches
-// whose tiles of 32 would leave half the card idle (adaptive_tile_plan).
-template <int RPT, int T, In kIn>
+// only the map's valid rows (a cluster block's slice; the bulk-ring
+// layouts' one pass over fewer rows), and whether the ring fills by the
+// bulk copy engine with no block barrier a slab (gemm_fp32's kMbar; those
+// layouts' maps have their rows padded only to a thread's rows, so a slab
+// is one copy).  The bulk-ring layouts, each product one pass: the
+// continuation layout (tiles of 16 lanes, 8 rows x 4 lanes a thread, for
+// launches whose tiles of 32 would leave the card idle) and tiles of 32
+// lanes at 10 rows x 4 lanes (12 in the backward product), for the
+// batches that fill it (adaptive_tile_plan).
+template <int RPT, int T, In kIn, int LPT>
 struct K2Product {
-  static constexpr bool kCont = kIn == In::kShared && T == 16 && RPT == 16;
-  static constexpr int kLanes = kIn == In::kCluster ? 8 : kCont ? 4 : 2;
+  static constexpr int kLanes = kIn == In::kCluster ? 8 : LPT;
   static constexpr int kRows = RPT * 2 / kLanes;
+  static constexpr int kRows2 = (kRows + 3) / 4 * 4;
   static constexpr bool kDeep = kLanes > 2;
   static constexpr int kSK = kDeep ? kSlabKWide : kSlabK;
   static constexpr int kST = kDeep ? kStagesWide : kStages;
-  static constexpr bool kValid = kIn == In::kCluster || kCont;
-  static constexpr bool kMbar = kCont;
+  static constexpr bool kMbar = kIn == In::kShared && kLanes == 4;
+  static constexpr bool kValid = kIn == In::kCluster || kMbar;
+  static_assert(kLanes == 2 || kLanes == 4 || kLanes == 8,
+                "lanes a thread: 2, 4 or 8");
 };
 
 // The forward product into ux: the T1 blocks from order o down to 0, a pass
 // of W rows at a time.  The Horner value v = v drho + acc of each output
 // the thread sums lives in its entry of ux, which no other thread touches
 // until the product is done (the registers hold the product's tile only).
-template <int RPT, int T, In kIn>
+template <int RPT, int T, In kIn, int LPT>
 __device__ __forceinline__ void forward(const Params& p, const Tile& t,
                                         bool lo, const float* rho_b) {
   const int W = Lanes<T>::kRowGroups * RPT, ord1 = p.ord1;
-  using P = K2Product<RPT, T, kIn>;
+  using P = K2Product<RPT, T, kIn, LPT>;
   auto epi = [&](int j, const auto& acc, const auto& fr) {
     const int c = ord1 - 1 - j % ord1, r0 = t.r0 + (j / ord1) * W;
     using F = std::decay_t<decltype(fr)>;
@@ -371,8 +398,8 @@ __device__ __forceinline__ void forward(const Params& p, const Tile& t,
         return F::kLanes == 4 && kIn == In::kShared;
     }();
     if constexpr (kRow4) {
-      // the continuation layout: a row's 4 lanes as one 16-byte load and
-      // store (a warp's 8 rows share the banks), their drho read once
+      // the bulk-ring layouts: a row's 4 lanes as one 16-byte load and
+      // store (a warp's rows share the banks), their drho read once
       const int l0 = fr.lane(0);
       float4 d = *reinterpret_cast<const float4*>(rho_b + l0);
       d = make_float4(__fsub_rn(d.x, t.rho0), __fsub_rn(d.y, t.rho0),
@@ -450,13 +477,15 @@ __device__ __forceinline__ float bilinear(float a0, float a1, float a2,
 }
 
 // The backward product into vec1's d rows: the interleaved T2 stack, a
-// pass of W stacked rows (W / 4 outputs) at a time.
-template <int RPT, int T, In kIn>
+// pass of W stacked rows (W / 4 outputs) at a time (the fp32 product's W
+// at its own rows a thread, K2Product::kRows2).
+template <int RPT, int T, In kIn, int LPT>
 __device__ __forceinline__ void backward(const Params& p, const Tile& t,
                                          bool lo, const float* rho_b,
                                          const float* rho_n) {
+  using P = K2Product<RPT, T, kIn, LPT>;
   const int W = Lanes<T>::kRowGroups * RPT;
-  using P = K2Product<RPT, T, kIn>;
+  const int W2 = W / P::kRows * P::kRows2;
   // r: the output's index in the block's d rows
   auto store = [&](int r, int l, float a0, float a1, float a2, float a3) {
     r += t.d0;
@@ -482,12 +511,13 @@ __device__ __forceinline__ void backward(const Params& p, const Tile& t,
     } else {
       using F = std::decay_t<decltype(fr)>;
       constexpr int kL = F::kLanes;
+      static_assert(F::kN / kL % 4 == 0, "whole outputs a thread");
 #pragma unroll
       for (int r4 = 0; r4 < F::kN / kL / 4; ++r4)
 #pragma unroll
         for (int q = 0; q < kL; ++q) {
           const int e = 4 * kL * r4 + q;  // row 4 r4 of the thread's, lane q
-          store((j * W + fr.row(e)) / 4, fr.lane(e), acc[e], acc[e + kL],
+          store((j * W2 + fr.row(e)) / 4, fr.lane(e), acc[e], acc[e + kL],
                 acc[e + 2 * kL], acc[e + 3 * kL]);
         }
     }
@@ -503,11 +533,11 @@ __device__ __forceinline__ void backward(const Params& p, const Tile& t,
       return t.t2a + static_cast<size_t>(t.m2row0 + j * W) * lda;
     }, epi);
   } else {
-    GemmF32 a{t.ux, t.ring, p.sw + 1, W, p.ld2, p.passes2, t.tid, t.bs};
+    GemmF32 a{t.ux, t.ring, p.sw + 1, W2, p.ld2, p.passes2, t.tid, t.bs};
     if constexpr (kIn == In::kCluster) a.ci = t.ci2;
     if constexpr (P::kValid) a.vrows = 4 * (t.d1 - t.d0);
-    gemm_fp32<P::kRows, T, kIn, P::kLanes, P::kSK, P::kST, false, P::kMbar>(
-        a, [&](int j) { return t.t2 + t.m2row0 + j * W; }, epi);
+    gemm_fp32<P::kRows2, T, kIn, P::kLanes, P::kSK, P::kST, false, P::kMbar>(
+        a, [&](int j) { return t.t2 + t.m2row0 + j * W2; }, epi);
   }
 }
 
@@ -627,7 +657,7 @@ __device__ __forceinline__ void fresh_pass_q(const Params& p,
           next = __fsub_rn(vn[i], d[i]);
         }
         sp.prev[o] = vn[i];
-        if (latch) sp.co[r * B] = prev[i];
+        if (latch) carry_at(p, sp, r) = prev[i];
         sp.ux[r * sp.us] = next;
       }
     }
@@ -758,13 +788,15 @@ __device__ __forceinline__ float termination_predict(const Params& p, int gm,
   return pred;
 }
 
-// RPT: rows a thread of the products; T: lanes a tile; kIn: where the
-// tile's iterates live (the block's shared memory, global memory streamed
-// beside the maps, or split over a cluster); kProjU/kProjX: whether the
-// input / state side has halfspaces or cones.
-template <int RPT, int T, In kIn, bool kProjU, bool kProjX>
+// RPT: rows a thread of the products (2 RPT / LPT rows x LPT lanes in the
+// fp32 products, K2Product); T: lanes a tile; kIn: where the tile's
+// iterates live (the block's shared memory, global memory streamed beside
+// the maps, or split over a cluster); kProjU/kProjX: whether the input /
+// state side has halfspaces or cones.
+template <int RPT, int T, In kIn, bool kProjU, bool kProjX, int LPT>
 __global__ void __launch_bounds__(kThreads, 1)
     condensed_adaptive_kernel(Params p) {
+  using P = K2Product<RPT, T, kIn, LPT>;
   TINYMPC_SEC_BEGIN();
   extern __shared__ float4 smem4[];
   char* sm = reinterpret_cast<char*>(smem4);
@@ -857,8 +889,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   t.du = side_data(p.side_u, g);
   t.dx = side_data(p.side_x, g);
+  // the staged carry slacks ([row][lane], u rows then x rows), then the
+  // constraint data
+  float* cstage =
+      p.carry_stage ? reinterpret_cast<float*>(sm + lay.total) : nullptr;
+  const size_t after =
+      lay.total + (p.carry_stage ? carry_stage_bytes(sw, T) : 0);
   if (p.cons_shared)
-    stage_constraints(p.side_u, p.side_x, g, sm + lay.total, tid, kThreads,
+    stage_constraints(p.side_u, p.side_x, g, sm + after, tid, kThreads,
                       &t.du, &t.dx);
   t.rho0 = p.rho0 ? p.rho0[t.gm] : p.rho0_one;
 
@@ -942,7 +980,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   if (tid == 0) *n_done = 0;
-  if constexpr (K2Product<RPT, T, kIn>::kMbar)
+  if constexpr (P::kMbar)
     if (tid == 0) ring_bars_init();
   // a barrier of the block, or of the cluster, whose blocks read each
   // other's iterates
@@ -967,7 +1005,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float* rho_b = rho_s + cur * T;
     float* rho_n = rho_s + (cur ^ 1) * T;
 
-    forward<RPT, T, kIn>(p, t, lo, rho_b);
+    forward<RPT, T, kIn, LPT>(p, t, lo, rho_b);
     sync();  // ux complete; no block reads vec1 any more
     TINYMPC_SEC(kSecBarrier);
 
@@ -975,12 +1013,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bool active = !done[l];
     const LaneState st = lane_state<T>(p, t, l);
     float* wsc = p.wsc ? p.wsc + lane : nullptr;
-    SidePass su_p{&p.side_u, t.ux + l, st.z, st.y, nullptr, p.zco + lane,
-                  st.stride, t.bs, wsc, B, p.side_u.dim * B, t.du, t.ku0,
-                  t.ku1};
+    SidePass su_p{&p.side_u, t.ux + l, st.z, st.y, nullptr,
+                  cstage ? cstage + l : p.zco + lane, st.stride, t.bs, wsc,
+                  B, p.side_u.dim * B, t.du, t.ku0, t.ku1};
     SidePass sx_p{&p.side_x, t.ux + l + su * t.bs, st.v, st.g, nullptr,
-                  p.vco + lane, st.stride, t.bs, wsc ? wsc + su * B : nullptr,
-                  B, p.side_x.dim * B, t.dx, t.kx0, t.kx1};
+                  cstage ? cstage + su * T + l : p.vco + lane, st.stride,
+                  t.bs, wsc ? wsc + su * B : nullptr, B, p.side_x.dim * B,
+                  t.dx, t.kx0, t.kx1};
+    if (cstage) su_p.cs = sx_p.cs = T;
     // the two sides' projected stages go round the lane's threads as one
     // list; a box side beside a projected one is shared out against it
     constexpr bool kRangeU = kProjX && !kProjU, kRangeX = kProjU && !kProjX;
@@ -996,11 +1036,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     // the termination residuals, on a checking iteration and where the
     // termination controller predicts rho
     const bool term = check || (update && !p.osqp);
-    // the continuation layout takes a box side's residuals and update in
-    // one pass (box_pass_q), the carry's slack written ahead on a checking
-    // iteration; the other layouts keep the two passes, where the one-pass
-    // step has not been timed (ROADMAP R6)
-    const bool fused = K2Product<RPT, T, kIn>::kCont && term && !osqp_now;
+    // the bulk-ring layouts take a box side's residuals and update in one
+    // pass (box_pass_q) where the launch has no carry out or stages it
+    // (the carry's slack written ahead to the staged copy on a checking
+    // iteration; to the outputs it would cost every lane's slack every
+    // such iteration); the other layouts and launches keep the two passes
+    const bool fused =
+        P::kMbar && term && !osqp_now && (!p.carry_out || cstage);
     float pi = 0.0f, di = 0.0f, ps = 0.0f, ds = 0.0f;
     if (active && !osqp_now) {  // a projected side's one pass: its stages'
                                 // residuals and updates
@@ -1065,6 +1107,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       red[kThreads + tid] = make_float4(m[0], m[1], m[2], m[3]);
       red[2 * kThreads + tid] = make_float4(m[4], m[5], 0.0f, 0.0f);
       __syncthreads();
+      TINYMPC_SEC(kSecMaximaWait);
       auto fold = [&](const float4& a, const float4& b, const float4& c) {
         pi = fmaxf(pi, a.x);
         di = fmaxf(di, a.y);
@@ -1141,11 +1184,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     TINYMPC_SEC(kSecMaxima);
     sync();  // vec2 complete
     TINYMPC_SEC(kSecStep);  // the wait for the lanes' slowest thread
+    if (cstage && newly) {  // the latched lane's staged carry slacks, out
+      for (int r = q; r < su; r += tpl)
+        p.zco[r * B + lane] = cstage[r * T + l];
+      for (int r = q; r < sx; r += tpl)
+        p.vco[r * B + lane] = cstage[(su + r) * T + l];
+    }
     cur ^= 1;
     if (*n_done == t.nvalid) break;  // every lane of the tile has latched
 
     // backward: cost fold at the pre-update drho, gain at the post-update
-    backward<RPT, T, kIn>(p, t, lo, rho_b, rho_n);
+    backward<RPT, T, kIn, LPT>(p, t, lo, rho_b, rho_n);
     sync();  // d complete; no block reads vec2 any more
     TINYMPC_SEC(kSecBarrier);
   }
@@ -1179,35 +1228,54 @@ __global__ void __launch_bounds__(kThreads, 1)
   TINYMPC_SEC_END();
 }
 
-// The kernel for RPT rows a thread, tiles of T lanes and the iterates in
-// shared, global or a cluster's memory, with the projections the sides
-// need.
-template <int RPT, int T, In kIn>
+// The kernel for RPT rows a thread, LPT lanes a thread of the fp32
+// products, tiles of T lanes and the iterates in shared, global or a
+// cluster's memory, with the projections the sides need.
+template <int RPT, int T, In kIn, int LPT = 2>
 void (*tile_kernel(bool proj_u, bool proj_x))(Params) {
   return proj_u
-             ? (proj_x ? condensed_adaptive_kernel<RPT, T, kIn, true, true>
-                       : condensed_adaptive_kernel<RPT, T, kIn, true, false>)
-             : (proj_x ? condensed_adaptive_kernel<RPT, T, kIn, false, true>
-                       : condensed_adaptive_kernel<RPT, T, kIn, false,
-                                                   false>);
+             ? (proj_x
+                    ? condensed_adaptive_kernel<RPT, T, kIn, true, true, LPT>
+                    : condensed_adaptive_kernel<RPT, T, kIn, true, false, LPT>)
+             : (proj_x
+                    ? condensed_adaptive_kernel<RPT, T, kIn, false, true, LPT>
+                    : condensed_adaptive_kernel<RPT, T, kIn, false, false,
+                                                LPT>);
 }
 
-// The instances adaptive_tile_plan picks from; null for any other.
-void (*pick_kernel(int tile, int rpt, In in, bool proj_u,
+// The instances adaptive_tile_plan picks from (lanes: a thread's of the
+// fp32 products); null for any other.
+void (*pick_kernel(int tile, int rpt, int lanes, In in, bool proj_u,
                    bool proj_x))(Params) {
+  if (in == In::kCluster)
+    return tile == 32 && rpt == 32 && lanes == 8
+               ? tile_kernel<32, 32, In::kCluster, 8>(proj_u, proj_x)
+               : nullptr;
+  if (lanes == 4) {  // the bulk-ring layouts
+    if (tile == 32 && in == In::kShared && rpt == 20)
+      return tile_kernel<20, 32, In::kShared, 4>(proj_u, proj_x);
+    if (tile == 16 && in == In::kShared && rpt == 16)
+      return tile_kernel<16, 16, In::kShared, 4>(proj_u, proj_x);
+    return nullptr;
+  }
+  if (lanes != 2) return nullptr;
   if (tile == 32 && in == In::kShared && rpt == 8)
     return tile_kernel<8, 32, In::kShared>(proj_u, proj_x);
   if (tile == 32 && in == In::kShared && rpt == 20)
     return tile_kernel<20, 32, In::kShared>(proj_u, proj_x);
   if (tile == 16 && in == In::kShared && rpt == 8)
     return tile_kernel<8, 16, In::kShared>(proj_u, proj_x);
-  if (tile == 16 && in == In::kShared && rpt == 16)
-    return tile_kernel<16, 16, In::kShared>(proj_u, proj_x);
   if (tile == 32 && in == In::kGlobal && rpt == 20)
     return tile_kernel<20, 32, In::kGlobal>(proj_u, proj_x);
-  if (tile == 32 && in == In::kCluster && rpt == 32)
-    return tile_kernel<32, 32, In::kCluster>(proj_u, proj_x);
   return nullptr;
+}
+
+// The padded rows of a map that the bulk copy engine streams in one pass
+// (``v`` valid rows, ``rows`` a thread): a multiple of the thread's rows,
+// so that its last rows are read inside the slab's row, and of 4 (16-byte
+// rows).
+__host__ __device__ inline int bulk_rows(int v, int rows) {
+  return ((v + rows - 1) / rows * rows + 3) / 4 * 4;
 }
 
 In layout_of(int iterates_global, int cluster) {
@@ -1240,12 +1308,13 @@ struct LaunchConfig {
 // for a cluster of ``cluster`` blocks, the clusters the whole card holds at
 // once; a negative CUDA error.
 extern "C" int tinympc_condensed_adaptive_occupancy(int tile, int rpt,
+                                                    int lanes,
                                                     int iterates_global,
                                                     int cluster, int proj_u,
                                                     int proj_x,
                                                     int smem_bytes) {
   void (*kernel)(Params) =
-      pick_kernel(tile, rpt, layout_of(iterates_global, cluster),
+      pick_kernel(tile, rpt, lanes, layout_of(iterates_global, cluster),
                   proj_u != 0, proj_x != 0);
   if (!kernel) return -static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
@@ -1278,7 +1347,7 @@ extern "C" int tinympc_condensed_adaptive(
     int osqp, int clipping, int trust, int en_input_bound,
     int en_state_bound, int warm_start, int carry_out, int tile,
     int iterates_global, int cluster, const int* stages,
-    const int* ustages, int rpt,
+    const int* ustages, int rpt, int lanes,
     int passes1, int passes2, int kp1, int kp2, int resident,
     int state_shared, int smem_bytes, int map_grouped, int plant_grouped,
     int box_u_grouped, int box_x_grouped, const float* lin_u, int n_lin_u,
@@ -1290,8 +1359,12 @@ extern "C" int tinympc_condensed_adaptive(
   // leading group axis (rho0 and the trust bounds go with the maps; a
   // single group passes them by value as rho0_one, trust_*_one and null
   // arrays).  The maps' layouts: ld1 = passes1 x W, ld2 = passes2 x W rows
-  // (W = 512 rpt / tile, the product's rows at once); t1a/t2a: the
-  // bf16 maps of reduced iterations (lo_all), k padded to kp1/kp2.
+  // (W = 512 rpt / tile, the product's rows at once; with lanes 4, one
+  // pass, bulk_rows of sw and 4 su at a thread's rows of each product);
+  // t1a/t2a: the bf16 maps of reduced iterations (lo_all), k padded to
+  // kp1/kp2.  lanes: a thread's of the fp32 products (2; 4 in the
+  // bulk-ring layouts, tile 32 with rpt 20 or tile 16 with rpt 16; 8 on
+  // a cluster).
   // lin_*: (n_lin, 2*dim + 1) device rows; soc_*: n_soc (start, dim) pairs
   // on the device; soc_mu_*: (n_soc,) on the device.  wsc: the (sw, B)
   // scratch of the new slacks (a projected side, where its stages live, or
@@ -1325,13 +1398,16 @@ extern "C" int tinympc_condensed_adaptive(
   const int W = tile > 0 ? rpt * (2 * kThreads / tile) : 0;
   p.passes1 = passes1; p.passes2 = passes2;
   p.ld1 = cluster * passes1 * W; p.ld2 = cluster * passes2 * W;
-  if (tile == 16 && rpt == 16) {
-    // the continuation layout's one pass: the maps' rows padded only to a
-    // multiple of a thread's 8 rows (K2Product), a slab one contiguous copy
-    p.ld1 = (p.sw + 7) / 8 * 8;
-    p.ld2 = (4 * p.su + 7) / 8 * 8;
+  if (lanes == 4) {
+    // the bulk-ring layouts' one pass: the maps' rows padded only to a
+    // thread's rows of each product (K2Product: 2 rpt / 4, the backward's
+    // rounded up to whole outputs), a slab one contiguous copy that fits
+    // the ring's slot of W rows
+    const int rows = rpt / 2, rows2 = (rows + 3) / 4 * 4;
+    p.ld1 = bulk_rows(p.sw, rows);
+    p.ld2 = bulk_rows(4 * p.su, rows2);
     if (passes1 != 1 || passes2 != 1 || cluster != 1 || iterates_global ||
-        resident)
+        resident || p.ld1 > W || p.ld2 > W)
       return static_cast<int>(cudaErrorInvalidValue);
   }
   p.kp1 = kp1; p.kp2 = kp2;
@@ -1415,13 +1491,21 @@ extern "C" int tinympc_condensed_adaptive(
                  n_soc_x, nx, N, en_state_bound, box_x_grouped, lin_x_grouped,
                  mu_x_grouped))
     return static_cast<int>(cudaErrorInvalidValue);
-  // the block's group's constraint data in shared memory after the layout,
-  // where the launch left room for it
+  // the tiles' staged carry slacks, then the block's group's constraint
+  // data, in shared memory after the layout, each where the launch left
+  // room for it
+  const size_t stage = carry_out && lanes == 4 && cluster == 1
+                           ? carry_stage_bytes(p.sw, tile)
+                           : 0;
+  p.carry_stage =
+      stage > 0 && static_cast<size_t>(smem_bytes) >= need + stage;
   const size_t cons = constraint_bytes(p.side_u, p.side_x);
   p.cons_shared =
-      cons > 0 && static_cast<size_t>(smem_bytes) >= need + cons;
+      cons > 0 && static_cast<size_t>(smem_bytes) >=
+                      need + (p.carry_stage ? stage : 0) + cons;
 
-  void (*kernel)(Params) = pick_kernel(tile, rpt, in, proj_u, proj_x);
+  void (*kernel)(Params) = pick_kernel(tile, rpt, lanes, in, proj_u,
+                                       proj_x);
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(smem_bytes);
   cudaError_t err = cudaFuncSetAttribute(

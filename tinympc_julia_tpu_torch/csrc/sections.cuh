@@ -23,8 +23,10 @@ enum Section {
   kSecStep,       // the elementwise step: projections, residual and update
                   // passes, and the barrier after them (the lanes'
                   // slowest thread)
-  kSecMaxima,     // the residual maxima meeting (with the wait for every
-                  // thread's residual pass), the latch and done flags
+  kSecMaxima,     // the residual maxima meeting (K1's with the wait for
+                  // every thread's residual pass), the latch and done flags
+  kSecMaximaWait,  // K2's: the barrier before the maxima meet, the wait
+                   // for every thread's residual pass
   kSecRho,        // K2's rho prediction (the OSQP-form residuals with it)
   kSecBarrier,    // the barrier after each product (its warps' imbalance)
   kSecOther,      // set-up before the loop and the outputs after it

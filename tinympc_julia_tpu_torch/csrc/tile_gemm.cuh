@@ -644,7 +644,10 @@ __device__ __forceinline__ void gemm_lo(const GemmLo& a, Seg seg, Epi epi) {
 // ux[r * us]: us = T in shared memory, the global array's row stride with
 // In::kGlobal), its slack, dual and rollout constant (element r at
 // [r * stride]: a [row][lane] shared array or a (dim, B) global one), its
-// carry slack (global, element r at [r * B]) and, for a projected side, its
+// carry slack (element r at [r * cs]; cs 0: the launch's B, the global
+// output; else the lane's column of a block's staged copy in shared
+// memory, which the kernel writes out where the lane latches) and, for a
+// projected side, its
 // constraint data and where a stage of it lives (StageMem): entry j of
 // stage k at w[k * wk + j * ws] (the lane's rows of a (sw, B) global
 // scratch: ws = B, wk = dim * B; or a stage buffer of the thread's own in
@@ -671,7 +674,15 @@ struct SidePass {
   int k0 = 0, k1 = 0x7fffffff;
   int qs = 0;         // the thread's first stage, from k0
   int rb0 = 0, rb1 = 0;  // a box side's rows beside a projected side
+  int cs = 0;         // the carry slack's row stride (0: B, global)
 };
+
+// The carry slack's entry of row r of a side (SidePass::cs).
+template <class P>
+__device__ __forceinline__ float& carry_at(const P& p, const SidePass& sp,
+                                           int r) {
+  return sp.co[r * (sp.cs ? sp.cs : p.B)];
+}
 
 // Stages k0 .. k1 - 1 of a side in a block's slice.
 __device__ __forceinline__ int slice_stages(const SidePass& sp) {
@@ -800,7 +811,7 @@ __device__ __forceinline__ void update_row(const P& p, const SidePass& sp,
     next = __fsub_rn(vn, dn);
   }
   sp.prev[o] = vn;
-  if (co_prev) sp.co[r * p.B] = prev;
+  if (co_prev) carry_at(p, sp, r) = prev;
   sp.ux[r * sp.us] = next;
 }
 

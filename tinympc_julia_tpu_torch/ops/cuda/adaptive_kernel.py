@@ -92,14 +92,20 @@ K2_CLUSTER_RPT = 32  # K1's CLUSTER_RPT
 # plan's tiles of 16 lanes begin and the cluster beat them on the card
 # (PERF.md section 6, R11)
 K2_CLUSTER_FROM_WIDTH = 1212
-# The continuation layout (ROADMAP R5): a launch whose tiles of 32 lanes
-# would leave half the card's SMs idle (a continuation's slots) takes tiles
-# of 16 lanes, twice the blocks, each block's products one pass of
+# The bulk-ring layouts (ROADMAP R5, R6): where both products take one
+# pass, 4 lanes a thread in the fp32 products (csrc/condensed_adaptive.cu
+# K2Product), the maps' rows padded only to a thread's rows (``bulk_rows``)
+# so that a slab of 16 k-rows is one copy of the bulk copy engine, with no
+# block barrier a slab.  A launch whose tiles of 32 lanes would leave half
+# the card's SMs idle (a continuation's slots) takes the continuation
+# layout: tiles of 16 lanes, twice the blocks, each product one pass of
 # K2_CONT_RPT x 32 = 512 rows over the map's valid rows (8 rows x 4 lanes a
-# thread in the fp32 product: csrc/condensed_adaptive.cu K2Product), the
-# maps' rows padded only to a multiple of 8, the slab ring filled by the
-# bulk copy engine.
+# thread).  A batch that fills the card takes the 4-lane layout: tiles of
+# 32 lanes, one pass of K2_LANES4_RPT x 16 = 320 rows (10 rows x 4 lanes a
+# thread in the forward product, 12 x 4 in the backward, whose interleaved
+# outputs take 4 rows each).
 K2_CONT_RPT = 16
+K2_LANES4_RPT = 20
 
 
 class AdaptiveFusedCarry(NamedTuple):
@@ -155,21 +161,16 @@ class AdaptivePlan(NamedTuple):
                         # N state stages (its rows of ux)
     ustages: tuple = ()  # ... and input stages [ustages[c], ustages[c +
                          # 1]) (its rows of d)
-    ld: tuple = ()      # the continuation layout's (ld1, ld2): the maps'
-                        # rows padded to a multiple of a thread's rows
+    ld: tuple = ()      # the bulk-ring layouts' (ld1, ld2): the maps' rows
+                        # padded to a thread's rows (``bulk_rows``)
+    lanes: int = 2      # lanes a thread of the fp32 products (2 rpt / lanes
+                        # rows; csrc/condensed_adaptive.cu K2Product): 4 in
+                        # the bulk-ring layouts, 8 on a cluster
 
     @property
     def width(self) -> int:
         """Rows the products cover at once."""
         return self.rpt * 2 * self.threads // self.tile
-
-    @property
-    def lanes(self) -> int:
-        """Lanes a thread of the fp32 products (2 rpt / lanes rows;
-        csrc/condensed_adaptive.cu K2Product)."""
-        if self.cluster > 1:
-            return 8
-        return 4 if self.tile == TILE // 2 and self.rpt == K2_CONT_RPT else 2
 
     @property
     def slab_k(self) -> int:
@@ -180,8 +181,8 @@ class AdaptivePlan(NamedTuple):
     @property
     def bulk_ring(self) -> bool:
         """The fp32 products' ring filled by the bulk copy engine, with no
-        block barrier a slab (the continuation layout's)."""
-        return bool(self.ld)
+        block barrier a slab (the bulk-ring layouts')."""
+        return self.lanes == 4
 
     @property
     def ld1(self) -> int:
@@ -230,8 +231,45 @@ def adaptive_smem(nx: int, nu: int, N: int, order: int, tile: int, rpt: int,
     return n
 
 
+def launch_smem(plan: AdaptivePlan, sw: int, carry_out: bool,
+                data: int = 0) -> tuple[int, bool]:
+    """A launch's shared memory and whether it stages the lanes' carry
+    slacks: the plan's layout, then, for a bulk-ring launch with a carry
+    out, the tile's staged carry slacks (csrc/condensed_adaptive.cu
+    carry_stage_bytes: sw rows of the tile's lanes; a checking iteration's
+    box step then takes one pass and writes each lane's slack there, and a
+    lane's is written out where it latches) where they fit, then the
+    constraint data (``data`` bytes, ``constraint_bytes``) where it fits;
+    the room for the ring's barriers stays free (RING_BARS_BYTES).  The
+    kernel stages wherever the shared memory holds the slacks (as here)."""
+    cap = SMEM_PER_BLOCK - (RING_BARS_BYTES if plan.bulk_ring else 0)
+    stage = (_up16(4 * sw * plan.tile) if carry_out and plan.bulk_ring
+             else 0)
+    smem = plan.smem + (stage if plan.smem + stage <= cap else 0)
+    if smem + data <= cap:
+        smem += data
+    return smem, stage > 0 and smem >= plan.smem + stage
+
+
 def _kp(k: int) -> int:
     return -(-k // KP_ALIGN) * KP_ALIGN
+
+
+def bulk_rows(v: int, rows: int) -> int:
+    """The padded rows of a map that the bulk copy engine streams in one
+    pass (csrc/condensed_adaptive.cu bulk_rows): ``v`` valid rows rounded
+    up to a multiple of a thread's ``rows`` (its last rows read inside the
+    slab's row), then of 4 (16-byte rows)."""
+    return -(-(-(-v // rows) * rows) // 4) * 4
+
+
+def bulk_ld(su: int, sw: int, rpt: int) -> tuple[int, int]:
+    """A bulk-ring layout's (ld1, ld2) at ``rpt`` rows a thread of the
+    products: the forward map's sw rows at the 2 rpt / 4 rows of a thread
+    of 4 lanes, the backward stack's 4 su at that rounded up to whole
+    outputs of 4 rows (K2Product::kRows2)."""
+    rows = rpt // 2
+    return bulk_rows(sw, rows), bulk_rows(4 * su, -(-rows // 4) * 4)
 
 
 def cluster_rows(nx: int, nu: int, N: int, stages: tuple,
@@ -292,7 +330,7 @@ def cluster_adaptive_plan(nx: int, nu: int, N: int, order: int,
             plan = AdaptivePlan(
                 TILE, THREADS, K2_CLUSTER_RPT, -(-rows // W),
                 -(-4 * drows // W), False, False, _kp(in1), _kp(sw + 1),
-                smem, False, C, stages, ustages)
+                smem, False, C, stages, ustages, lanes=8)
             sms = busy_sms(plan) if busy_sms else CLUSTER_SMS[C]
             if sms:
                 cost = ((order + 1) * pass_cost(rows, K2_HALF_PASS)
@@ -313,25 +351,50 @@ def continuation_adaptive_plan(nx: int, nu: int, N: int, order: int,
     su, sx, sw = _dims(nx, nu, N)
     tile, rpt = TILE // 2, K2_CONT_RPT
     W = rpt * 2 * THREADS // tile
-    if sw > W or 4 * su > W:
+    ld = bulk_ld(su, sw, rpt)
+    if max(ld) > W:
         return None
-    ld = (-(-sw // 8) * 8, -(-4 * su // 8) * 8)
     for shared in (True, False):
         smem = adaptive_smem(nx, nu, N, order, tile, rpt, 1, 1, False,
                              shared, reduced, state_free)
         if smem <= SMEM_PER_BLOCK - RING_BARS_BYTES:
             return AdaptivePlan(tile, THREADS, rpt, 1, 1, False, shared,
-                                _kp(su + nx + 1), _kp(sw + 1), smem, ld=ld)
+                                _kp(su + nx + 1), _kp(sw + 1), smem, ld=ld,
+                                lanes=4)
     return None
+
+
+def four_lane_adaptive_plan(nx: int, nu: int, N: int, order: int,
+                            reduced: bool = False,
+                            state_free: bool = True) -> AdaptivePlan | None:
+    """The 4-lane layout at this shape: the plan of tiles of 32 lanes
+    (``shared_adaptive_plan``) where it streams its maps in one pass of
+    K2_LANES4_RPT x 16 = 320 rows, with 4 lanes a thread in the fp32
+    products (10 rows in the forward, 12 in the backward), the maps' rows
+    padded to those (``bulk_ld``), the ring filled by the bulk copy engine
+    and room left for its barriers (RING_BARS_BYTES).  None where that
+    plan is another or the padded rows or the barriers do not fit."""
+    su, sx, sw = _dims(nx, nu, N)
+    plan = shared_adaptive_plan(nx, nu, N, order, reduced, state_free)
+    if plan is None or plan.tile != TILE or plan.rpt != K2_LANES4_RPT \
+            or plan.resident or (plan.passes1, plan.passes2) != (1, 1) \
+            or plan.smem > SMEM_PER_BLOCK - RING_BARS_BYTES:
+        return None
+    ld = bulk_ld(su, sw, plan.rpt)
+    return (plan._replace(lanes=4, ld=ld) if max(ld) <= plan.width
+            else None)
 
 
 def shared_adaptive_plan(nx: int, nu: int, N: int, order: int,
                          reduced: bool = False,
                          state_free: bool = True) -> AdaptivePlan | None:
     """The layout with the tile's iterates in one block's shared memory
-    (None where none fits).  Tiles of 32 lanes (a launch of few tiles
-    takes the continuation layout instead: ``adaptive_tile_plan``; tiles of
-    16 in this layout's passes of 256 rows lost there, PERF.md section 6);
+    (None where none fits), 2 lanes a thread in the fp32 products (where
+    its maps stream in one pass of 320 rows, the 4-lane layout takes it
+    over: ``four_lane_adaptive_plan``).  Tiles of 32 lanes (a launch of
+    few tiles takes the continuation layout instead:
+    ``adaptive_tile_plan``; tiles of 16 in this layout's passes of 256
+    rows lost there, PERF.md section 6);
     tiles of 16 where the iterates of 32 lanes leave no room beside a
     wide map's slab ring.  The rows a thread: the instance that covers the
     two products in the fewest passes (each costs a slab stream), padding
@@ -387,13 +450,18 @@ def adaptive_tile_plan(nx: int, nu: int, N: int, order: int,
     reduced-precision iterations; ``state_free``: no state dual;
     ``busy_sms``: as ``cluster_adaptive_plan``'s) and batch (``tiles``: the
     launch's tiles of 32 lanes, G x ceil(L / 32); None: a batch that fills
-    the card; ``sms``: the card's SMs, needed with ``tiles``).  Below K2_CLUSTER_FROM_WIDTH rows,
-    the iterates in shared memory (``shared_adaptive_plan``) where they
-    fit, and there, for a launch whose tiles of 32 would leave half the SMs
-    idle (2 x ``tiles`` <= ``sms``) and stream their maps, the
-    continuation layout (``continuation_adaptive_plan``) where its
-    products take one pass and its forward pass uses more than half its
-    rows;
+    the card; ``sms``: the card's SMs, needed with ``tiles``).  Below
+    K2_CLUSTER_FROM_WIDTH rows, the iterates in shared memory
+    (``shared_adaptive_plan``) where they fit, and there, for a launch
+    whose tiles of 32 would leave half the SMs idle (2 x ``tiles`` <=
+    ``sms``) and stream their maps, the continuation layout
+    (``continuation_adaptive_plan``) where its products take one pass and
+    the tiles of 32 would take K2_LANES4_RPT rows a thread (it won at
+    every such width measured, down to sw 105: PERF.md section 6; a map
+    narrow enough for 8 rows a thread keeps its tiles); at any other batch, where the tiles of 32 stream their
+    maps in one pass of 320 rows, the 4-lane layout
+    (``four_lane_adaptive_plan``: it beat the continuation layout from 72
+    tiles of 32 on, and 2 lanes a thread at every batch measured);
     from K2_CLUSTER_FROM_WIDTH, or where the iterates do not fit, the tile
     of 32 split over a thread block cluster (``cluster_adaptive_plan``:
     every width of the JAX package's condensed budget); where even a
@@ -404,11 +472,14 @@ def adaptive_tile_plan(nx: int, nu: int, N: int, order: int,
     sw = _dims(nx, nu, N)[2]
     plan = (shared_adaptive_plan(nx, nu, N, order, reduced, state_free)
             if sw < K2_CLUSTER_FROM_WIDTH else None)
-    if plan is not None and plan.tile == TILE and not plan.resident \
-            and tiles is not None and 2 * tiles <= sms \
-            and 2 * sw > K2_CONT_RPT * 2 * THREADS // (TILE // 2):
-        plan = continuation_adaptive_plan(nx, nu, N, order, reduced,
-                                          state_free) or plan
+    if plan is not None and plan.tile == TILE and not plan.resident:
+        cont = None
+        if tiles is not None and 2 * tiles <= sms \
+                and plan.rpt == K2_LANES4_RPT:
+            cont = continuation_adaptive_plan(nx, nu, N, order, reduced,
+                                              state_free)
+        plan = cont or four_lane_adaptive_plan(nx, nu, N, order, reduced,
+                                               state_free) or plan
     if plan is None:
         plan = cluster_adaptive_plan(nx, nu, N, order, reduced,
                                      busy_sms=busy_sms)
@@ -690,7 +761,7 @@ def condensed_adaptive_reference(tmaps: CondensedTaylorMaps, u_min, u_max,
 
 
 _ARGTYPES = ([_PTR] * 40 + [_INT] * 9 + [_FLT] * 9 + [_INT] * 10
-             + [_PTR] * 2 + [_INT] * 12 + _SIDE + _SIDE + [_PTR])
+             + [_PTR] * 2 + [_INT] * 13 + _SIDE + _SIDE + [_PTR])
 
 
 @functools.cache
@@ -708,9 +779,9 @@ def adaptive_occupancy(plan: AdaptivePlan, proj_u: bool = False,
     Raises on a CUDA error."""
     fn = load_library(
         "condensed_adaptive").lib.tinympc_condensed_adaptive_occupancy
-    fn.argtypes = [_INT] * 7
-    n = fn(plan.tile, plan.rpt, int(plan.iterates_global), plan.cluster,
-           int(proj_u), int(proj_x), plan.smem)
+    fn.argtypes = [_INT] * 8
+    n = fn(plan.tile, plan.rpt, plan.lanes, int(plan.iterates_global),
+           plan.cluster, int(proj_u), int(proj_x), plan.smem)
     if n < 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
     return n
@@ -749,7 +820,7 @@ def _row_layout(plan: AdaptivePlan, nx: int, nu: int, N: int, device):
 
 def map_layout(tmaps: CondensedTaylorMaps, su, sw, plan: AdaptivePlan,
                reduced: bool):
-    """Kernel-side layouts of the Taylor maps, made at every launch, a
+    """Kernel-side layouts of the Taylor maps (kept by ``LastLayout``), a
     leading group axis kept: each T1 block transposed, (o+1, in1,
     ``plan.ld1``); the four T2 blocks (their sw + 1 read columns)
     transposed and stacked with rows interleaved, row 4 r + c of the stack
@@ -783,6 +854,49 @@ def map_layout(tmaps: CondensedTaylorMaps, su, sw, plan: AdaptivePlan,
     return t1t, t2t, t1a, t2a
 
 
+class LastLayout:
+    """The launch plans (``adaptive_tile_plan``) and the maps' kernel-side
+    layouts (``map_layout``) of the Taylor maps last given, kept with their
+    tensors and versions (an in-place change or other maps make them
+    anew): a plan by the plan function's arguments and the function itself
+    (a plan forced in its place too), a layout by what it depends on (the
+    plan's padded rows, its cluster's slices, the bf16 maps' k), so that a
+    loop of launches on the same maps plans and lays them out once, and a
+    pipeline's bulk launch and continuation, which take two plans, once
+    each.  Called with the plan function's arguments; returns (plan,
+    map_layout's four tensors).  ``condensed_adaptive_cuda`` keeps one for
+    the maps last given to it (``LAST_LAYOUT``), a solver of
+    ``make_condensed_adaptive_fused_solver`` its own."""
+
+    def __init__(self):
+        self.maps, self.plans, self.layouts = None, {}, {}
+
+    def __call__(self, tmaps: CondensedTaylorMaps, nx, nu, N, order,
+                 reduced, state_free, **kw):
+        T1s, T2s = tmaps.T1s, tmaps.T2s
+        versions = (T1s._version, T2s._version)
+        m = self.maps
+        if m is None or m[0] is not T1s or m[1] is not T2s \
+                or m[2] != versions:
+            self.maps, self.plans, self.layouts = (T1s, T2s, versions), {}, {}
+        key = ((nx, nu, N, order, reduced, state_free),
+               tuple(sorted(kw.items())), adaptive_tile_plan)
+        plan = self.plans.get(key)
+        if plan is None:
+            plan = self.plans[key] = adaptive_tile_plan(
+                nx, nu, N, order, reduced, state_free, **kw)
+        lkey = (plan.ld1, plan.ld2, plan.cluster, plan.stages,
+                plan.ustages, plan.kp1, plan.kp2, reduced)
+        maps = self.layouts.get(lkey)
+        if maps is None:
+            maps = self.layouts[lkey] = map_layout(
+                tmaps, T2s.shape[-2], T1s.shape[-2], plan, reduced)
+        return plan, maps
+
+
+LAST_LAYOUT = LastLayout()
+
+
 def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
                             x_max, x0s, warm=None, *,
                             plant: AdaptivePlant | None, nx, nu, N, max_iter,
@@ -792,11 +906,14 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
                             adaptive_rho_clipping, check_termination,
                             controller, taylor_trust, warm_start, carry_out,
                             constraints: FusedConstraints | None = None,
-                            num_groups: int = 1, precision: str = "highest"):
+                            num_groups: int = 1, precision: str = "highest",
+                            layout: LastLayout | None = None):
     """Launch kernel K2 (csrc/condensed_adaptive.cu) on CUDA tensors; the
     arguments and results are those of ``condensed_adaptive_reference``.
     Raises on CPU tensors, on any dtype but float32, on non-contiguous
-    inputs, and when the build or the launch fails.  Counts every launch in
+    inputs, and when the build or the launch fails.  The plan and the maps'
+    kernel-side layouts come from ``layout`` (default ``LAST_LAYOUT``: kept
+    for the maps last given).  Counts every launch in
     ``.launches``, those over more than one group in ``.grouped_launches``,
     those with reduced-precision iterations in ``.reduced_launches`` and
     warm ones (continuations) in ``.warm_launches``."""
@@ -815,15 +932,14 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
     osqp = controller == "osqp"
     dev = x0s.device
     state_free = _state_free(en_state_bound, cons)
-    plan = adaptive_tile_plan(
-        nx, nu, N, order, lo_all, state_free, busy_sms=card_busy_sms,
+    plan, (t1t, t2t, t1a, t2a) = (layout or LAST_LAYOUT)(
+        tmaps, nx, nu, N, order, lo_all, state_free, busy_sms=card_busy_sms,
         tiles=G * -(-L // TILE),
         sms=torch.cuda.get_device_properties(dev).multi_processor_count)
     side_u = _side_args(cons.lin_u, cons.cones_u, nu, "input")
     side_x = _side_args(cons.lin_x, cons.cones_x, nx, "state")
 
     f32 = dict(dtype=torch.float32, device=dev)
-    t1t, t2t, t1a, t2a = map_layout(tmaps, su, sw, plan, lo_all)
     # the expansion centre and the trust clip's bounds in the plain
     # version's float32 arithmetic: one per group on the device, or for a
     # single group by value (read on the host)
@@ -858,11 +974,10 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
     projected = bool(side_u[1] or side_u[4] or side_x[1] or side_x[4])
     wsc = torch.empty((sw, B), **f32) if projected or osqp else None
     dsc = torch.empty((sw, B), **f32) if osqp else None
-    # one group's constraint data in shared memory after the plan's layout,
-    # where it fits
-    data = constraint_bytes(cons, nx, nu)
-    cap = SMEM_PER_BLOCK - (RING_BARS_BYTES if plan.bulk_ring else 0)
-    smem = plan.smem + (data if plan.smem + data <= cap else 0)
+    # the staged carry slacks and one group's constraint data in shared
+    # memory after the plan's layout, each where it fits
+    smem, _ = launch_smem(plan, sw, carry_out,
+                          constraint_bytes(cons, nx, nu))
     # the tiles' iterates where they live in global memory: each tile its
     # own columns
     vecg = uxg = w2hg = None
@@ -899,7 +1014,8 @@ def condensed_adaptive_cuda(tmaps: CondensedTaylorMaps, u_min, u_max, x_min,
                  int(en_input_bound), int(en_state_bound), int(warm_start),
                  int(carry_out), plan.tile, int(plan.iterates_global),
                  plan.cluster, stage_bounds_arg(plan.stages),
-                 stage_bounds_arg(plan.ustages), plan.rpt, plan.passes1,
+                 stage_bounds_arg(plan.ustages), plan.rpt, plan.lanes,
+                 plan.passes1,
                  plan.passes2, plan.kp1, plan.kp2, int(plan.resident),
                  int(plan.state_shared), smem,
                  int(tmaps.T1s.ndim == 4),
@@ -1019,6 +1135,7 @@ def make_condensed_adaptive_fused_solver(
               precision=precision)
 
     on_device = {}  # (device, dtype) -> (AdaptivePlant, FusedConstraints)
+    layout = LastLayout()
 
     def solve_fn(tmaps, u_min, u_max, x_min, x_max, x0s, warm=None):
         key = (x0s.device, x0s.dtype)
@@ -1031,8 +1148,9 @@ def make_condensed_adaptive_fused_solver(
                 soc_u, soc_x, lin_u, lin_x, nx=nx, nu=nu, dtype=x0s.dtype,
                 device=x0s.device, num_groups=num_groups))
         plant, constraints = on_device[key]
-        return condensed_adaptive(tmaps, u_min, u_max, x_min, x_max, x0s,
-                                  warm, plant=plant, constraints=constraints,
-                                  **kw)
+        fn = (functools.partial(condensed_adaptive_cuda, layout=layout)
+              if x0s.device.type == "cuda" else condensed_adaptive)
+        return fn(tmaps, u_min, u_max, x_min, x_max, x0s, warm, plant=plant,
+                  constraints=constraints, **kw)
 
     return solve_fn

@@ -2,7 +2,7 @@
 layout on one NVIDIA GPU (not run by the tests or by chip_smoke.py):
 
     python -m tinympc_julia_tpu_torch.ops.cuda.layout_probe \
-        [wide|cluster|far|stage|sections [--cartpole]|switch|narrow]
+        [wide|cluster|far|stage|sections [--cartpole|--k2]|switch|narrow]
 
 ``wide`` times the layouts the plans take at the wide maps of
 chip_smoke.py's phases 34a, 34d and 35a, each beside its product
@@ -16,9 +16,9 @@ R13) and K2's OSQP-form controller (R14) off the rest of their launches;
 ring, the elementwise step and the rest (ROADMAP R6, R5) on a probe build
 with clock64() counters, at the continuations of the adaptive quadrotor
 (with ``--cartpole``: at the cartpole's narrow-map launches,
-``cartpole_cases``, each also on tiles of 32 forced).  ``switch`` times
-the batch-aware plans' layouts on each side of their switches (ROADMAP
-R5); ``narrow`` K1's warp layout against tiles of 32 forced at the
+``cartpole_cases``, each also on tiles of 32 forced; with ``--k2``: K2's
+launches alone).  ``switch`` times the batch-aware plans' layouts on each
+side of their switches (ROADMAP R5, R6); ``narrow`` K1's warp layout against tiles of 32 forced at the
 cartpole's launches (ROADMAP R3).  All print only.  ``product_yardstick`` is also
 chip_smoke.py's yardstick, ``same_bits`` its comparison of layouts."""
 from __future__ import annotations
@@ -568,7 +568,8 @@ def stage_probe(reps=3):
 
 SECTION_NAMES = ("product", "ring waits", "bf16 product", "bf16 ring waits",
                  "epilogue", "elementwise step", "maxima and latch",
-                 "rho prediction", "product barrier", "other")
+                 "maxima barrier", "rho prediction", "product barrier",
+                 "other")
 
 
 def continuation_cases(dev):
@@ -927,34 +928,34 @@ def section_split(lib, blocks):
     return np.frombuffer(buf, dtype=np.uint64).reshape(blocks, n + 1)
 
 
-SASS_LABELS = ("condensed_adaptive_kernel<16, 16, kShared, false, false>",
-               "condensed_adaptive_kernel<20, 32, kShared, false, false>",
+SASS_LABELS = ("condensed_adaptive_kernel<16, 16, kShared, false, false, 4>",
+               "condensed_adaptive_kernel<20, 32, kShared, false, false, 2>",
+               "condensed_adaptive_kernel<20, 32, kShared, false, false, 4>",
                "condensed_fused_kernel<20, kShared, false, false, 2>",
                "condensed_fused_kernel<20, kShared, false, false, 4>")
 
 
 def dump_sass(built, labels, out_dir):
-    """The SASS of the kernels of ``built`` (a library built by this
-    process, with its ptxas log) whose label is one of ``labels``
-    (cuobjdump -sass -fun), a file each under ``out_dir``."""
+    """The SASS of the kernels of ``built`` whose label is one of
+    ``labels``, from ``cuobjdump -sass`` of the whole library split at its
+    function headers (so a library loaded as built, without its ptxas log,
+    serves too), a file each under ``out_dir``."""
     import re
     import shutil
     import subprocess
     from pathlib import Path
-    from tinympc_julia_tpu_torch.ops.cuda._build import (kernel_label,
-                                                         ptxas_usage)
+    from tinympc_julia_tpu_torch.ops.cuda._build import kernel_label
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    for mangled in ptxas_usage(built.log):
-        label = kernel_label(mangled)
+    sass = subprocess.run([tool, "-sass", str(built.path)],
+                          capture_output=True, text=True).stdout
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        label = kernel_label(part.split("\n", 1)[0].strip())
         if label in labels:
-            res = subprocess.run([tool, "-sass", "-fun", mangled,
-                                  str(built.path)], capture_output=True,
-                                 text=True)
             path = out_dir / (re.sub(r"\W+", "_", label).strip("_")
                               + ".sass")
-            path.write_text(res.stdout + res.stderr)
+            path.write_text(part)
             print(f"sections SASS of {label}: {path}", flush=True)
 
 
@@ -980,7 +981,10 @@ def sections_probe(reps=3, cases=None, plans=None, sass_dir=None):
                                                          load_libraries,
                                                          ptxas_usage)
     dev = torch.device("cuda")
-    names = ["condensed_fused", "condensed_adaptive"]
+    cases = cases if cases is not None else continuation_cases(dev)
+    lib_of = {K: "condensed_fused", K2: "condensed_adaptive"}
+    names = [lib_of[m] for m in (K, K2)
+             if any(mod is m for mod, _ in cases.values())]
     probe = {}
     for defines in ((), ("TINYMPC_SECTIONS",)):
         tag = "probe" if defines else "shipped"
@@ -996,14 +1000,15 @@ def sections_probe(reps=3, cases=None, plans=None, sass_dir=None):
             if sass_dir and not defines:
                 dump_sass(built, SASS_LABELS, sass_dir)
     fns = {}
-    for mod, name in ((K, "condensed_fused"), (K2, "condensed_adaptive")):
+    for mod, name in lib_of.items():
+        if name not in names:
+            continue
         fn = getattr(probe[(name, "probe")].lib, f"tinympc_{name}")
         fn.argtypes = mod._ARGTYPES
         fn.restype = ctypes.c_int
         fns[mod] = (fn, probe[(name, "probe")].lib)
     plan_fn = {K: "fused_tile_plan", K2: "adaptive_tile_plan"}
     out = {}
-    cases = cases if cases is not None else continuation_cases(dev)
     for case, (mod, f) in cases.items():
         for label, plan in [("plan", None)] + list((plans or {}).get(case, ())):
             patch = (mock.patch.object(mod, plan_fn[mod],
@@ -1045,23 +1050,38 @@ def sections_probe(reps=3, cases=None, plans=None, sass_dir=None):
     return out
 
 
-def sections_main(sass_dir=None):
+def sections_main(sass_dir=None, k2_only=False):
     """``sections_probe`` at the continuations' shapes, each launch also on
     the other layouts that could take it (forced, held bit for bit against
-    the plan's): K2's bulk launch on the continuation layout (why the plan
-    takes the batch); K2's continuation on tiles of 32 (the layout before
-    the batch-aware plan); K1d's launches with 2 lanes a thread (the layout
-    before the 4-lane one)."""
+    the plan's): K2's bulk launch with 2 lanes a thread (the layout before
+    the 4-lane one) and on the continuation layout (why the plan takes the
+    batch), and without its carry out (so on the 4-lane layout with the
+    one-pass box step; with 2 lanes, the two passes); K2's continuation on
+    tiles of 32 (the layout before the batch-aware plan); K1d's launches
+    with 2 lanes a thread (the layout before the 4-lane one).  With
+    ``k2_only``, K2's launches alone (K1 is neither built nor run)."""
     from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
     from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
     cases = continuation_cases(torch.device("cuda"))
     names = list(cases)
+    bulk = cases[names[0]][1]
+    free = "K2 bulk, no carry out (16,384 lanes, 150 iterations)"
+    cases = {names[0]: cases[names[0]],
+             free: (K2, functools.partial(bulk.func, *bulk.args, **dict(
+                 bulk.keywords, carry_out=False))),
+             **{n: cases[n] for n in names[1:]}}
+    if k2_only:
+        cases = {n: c for n, c in cases.items() if c[0] is K2}
+    two = K2.shared_adaptive_plan(12, 4, 20, 2)
     k1_shared = [K.shared_tile_plan(12, 4, 20, red) for red in (False, True)]
     return sections_probe(sass_dir=sass_dir, cases=cases, plans={
-        names[0]: [("tiles of 16, the continuation layout",
+        names[0]: [("tiles of 32, 2 lanes (the parent's)", two),
+                   ("tiles of 16, the continuation layout",
                     K2.continuation_adaptive_plan(12, 4, 20, 2))],
-        names[1]: [("tiles of 32 (the parent's)",
-                    K2.shared_adaptive_plan(12, 4, 20, 2))],
+        free: [("tiles of 32, 2 lanes (the parent's)", two)],
+        names[1]: [("tiles of 32, 2 lanes (the parent's)", two),
+                   ("tiles of 32, 4 lanes",
+                    K2.four_lane_adaptive_plan(12, 4, 20, 2))],
         names[2]: [("2 lanes a thread (the parent's)", k1_shared[1])],
         names[3]: [("2 lanes a thread (the parent's)", k1_shared[0])]})
 
@@ -1082,24 +1102,30 @@ def _sw(nx, nu, N):
     return (N - 1) * nu + N * nx
 
 
-def switch_cases(dev, sms):
+def switch_cases(dev, sms, k2_only=False):
     """The shapes on each side of the batch-aware plans' switches, cold
     launches of 300 (K2) and 150 (K1) iterations checking every one:
     [(label, module, wrapper's partial, sw, the plan's layout, the layouts
     to force: [(name, plan)])], the plan's layout first where it is one.
 
     * K2's continuation layout (tiles of 16, one pass of 512 rows) against
-      tiles of 32: at 64 tiles, the quadrotor at N = 16 (sw 252, below the
-      cut-off: tiles of 32), 17 (268), 20 (316) and 32 (508), the cartpole
-      at N = 52 (259), 80 (399) and 102 (509), the rocket with its cones at
-      N = 29 (258) and 43 (384); the quadrotor at N = 20 at 4, 66 and 67
-      tiles (67: tiles of 32, twice 67 blocks exceed ``sms``, the card's
-      SMs).
+      tiles of 32 with 4 lanes a thread (where their maps stream in one
+      pass of 320 rows) and with 2: at 64 tiles, the quadrotor at N = 9
+      (sw 140, the narrowest whose maps stream), 12 (188), 16 (252), 17
+      (268), 20 (316) and 32 (508), the cartpole at N = 52 (259), 80 (399)
+      and 102 (509), the rocket with its cones at N = 12 (105, the
+      narrowest streamed), 27 (240), 29 (258) and 43 (384); the quadrotor
+      at N = 20 at 4, 66, 67, 72, 80, 96, 112, 128, 256 and 512 tiles (67:
+      twice 67 blocks exceed ``sms``, the card's SMs; 512: the bulk pass's
+      16,384 lanes) and on the group grid of chip_smoke.py's phase 15b
+      (``grid_case``: 8 groups x 512 lanes, 128 tiles).
     * K1's 4-lane layout (10 rows x 4 lanes a thread) against 2 lanes, at
       64 and 2,048 tiles: the quadrotor at N = 9 (sw 140) and 20 (316), the
       cartpole at N = 28 (139) and 64 (319), the rocket with its cones at
       N = 16 (141) and 35 (312); the cartpole at N = 64 with a 32-iteration
-      reduced head."""
+      reduced head.
+
+    With ``k2_only``, K2's cases alone."""
     from tinympc_julia_tpu_torch import make_problem
     from tinympc_julia_tpu_torch.models import cartpole, quadrotor, rocket
     from tinympc_julia_tpu_torch.ops.condensed import (build_condensed,
@@ -1141,10 +1167,11 @@ def switch_cases(dev, sms):
                 p.x_min.reshape(-1), p.x_max.reshape(-1))
 
     cases = []
-    k2_shapes = [("quadrotor", n, 64) for n in (16, 17, 20, 32)] + [
+    k2_shapes = [("quadrotor", n, 64) for n in (9, 12, 16, 17, 20, 32)] + [
         ("cartpole", n, 64) for n in (52, 80, 102)] + [
-        ("rocket", n, 64) for n in (29, 43)] + [
-        ("quadrotor", 20, t) for t in (4, 66, 67)]
+        ("rocket", n, 64) for n in (12, 27, 29, 43)] + [
+        ("quadrotor", 20, t) for t in (4, 66, 67, 72, 80, 96, 112, 128, 256,
+                                       512)]
     for name, N, tiles in k2_shapes:
         p, c, cons, x0 = problem(name, N)
         nx, nu = p.nx, p.nu
@@ -1162,13 +1189,14 @@ def switch_cases(dev, sms):
         free = cons is None
         plan = K2.adaptive_tile_plan(nx, nu, N, 2, False, free, tiles=tiles,
                                      sms=sms)
-        others = [("tiles of 16, continuation",
-                   K2.continuation_adaptive_plan(nx, nu, N, 2, False, free)),
-                  ("tiles of 32", K2.shared_adaptive_plan(nx, nu, N, 2,
-                                                          False, free))]
         cases.append((f"K2 {name} N={N} {tiles} tiles", K2, f,
-                      _sw(nx, nu, N), plan,
-                      sorted(others, key=lambda o: o[1] != plan)))
+                      _sw(nx, nu, N), plan, k2_layouts(nx, nu, N, free,
+                                                       plan)))
+    f, plan = grid_case(dev, sms)
+    cases.append(("K2 quadrotor grid 8 x 512 (128 tiles)", K2, f,
+                  _sw(12, 4, 20), plan, k2_layouts(12, 4, 20, True, plan)))
+    if k2_only:
+        return cases
     k1_shapes = [(m, n, t, 0) for m, n in (("quadrotor", 9),
                                            ("quadrotor", 20),
                                            ("cartpole", 28), ("cartpole", 64),
@@ -1195,7 +1223,63 @@ def switch_cases(dev, sms):
     return cases
 
 
-def switch_probe(reps=3):
+def k2_layouts(nx, nu, N, state_free, plan):
+    """K2's layouts of a streamed shape that the switches weigh, the plan's
+    first: the continuation layout, tiles of 32 with 4 lanes a thread and
+    with 2 (each where it exists), as [(name, plan)]."""
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    out = [("tiles of 16, continuation", K2.continuation_adaptive_plan(
+               nx, nu, N, 2, False, state_free)),
+           ("tiles of 32, 4 lanes", K2.four_lane_adaptive_plan(
+               nx, nu, N, 2, False, state_free)),
+           ("tiles of 32, 2 lanes", K2.shared_adaptive_plan(
+               nx, nu, N, 2, False, state_free))]
+    return sorted([o for o in out if o[1] is not None],
+                  key=lambda o: o[1] != plan)
+
+
+def grid_case(dev, sms):
+    """K2's group grid as chip_smoke.py's phase 15b launches it: 8
+    randomised quadrotors (dynamics, input gain, costs, rho, |u| bound in
+    [0.4, 0.6], seed 11) x 512 lanes (seed 12), the termination
+    controller with trust 2 around each group's rho0, 150 iterations,
+    the carry out: (the wrapper's partial, the plan)."""
+    from tinympc_julia_tpu_torch import make_problem
+    from tinympc_julia_tpu_torch.models import quadrotor
+    from tinympc_julia_tpu_torch.ops.condensed import build_condensed_taylor
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    from tinympc_julia_tpu_torch.types import stack_instances
+    G, L, N, nx = 8, 512, 20, 12
+    rng = np.random.default_rng(11)
+    ps, cs = [], []
+    for _ in range(G):
+        ub = rng.uniform(0.4, 0.6)
+        p = make_problem(
+            quadrotor.A + rng.normal(scale=2e-3, size=(nx, nx)),
+            quadrotor.B * rng.uniform(0.9, 1.1),
+            np.diag(quadrotor.Q_DIAG * rng.uniform(0.8, 1.25, size=nx)),
+            np.diag(quadrotor.R_DIAG), quadrotor.RHO * rng.uniform(0.8, 1.2),
+            N, u_min=-ub, u_max=ub, dtype=torch.float32, device=dev)
+        ps.append(p)
+        cs.append(precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup))
+    P, C = stack_instances(ps), stack_instances(cs)
+    x0 = torch.as_tensor(np.random.default_rng(12).uniform(
+        -0.3, 0.3, size=(G, L, nx)), dtype=torch.float32, device=dev)
+    kw = dict(plant=None, nx=nx, nu=4, N=N, max_iter=150, abs_pri_tol=1e-3,
+              abs_dua_tol=1e-3, en_state_bound=False, en_input_bound=True,
+              relaxation_alpha=1.0, adaptive_rho_min=quadrotor.RHO * 0.8,
+              adaptive_rho_max=1e3, adaptive_rho_clipping=True,
+              check_termination=1, controller="termination",
+              taylor_trust=2.0, warm_start=False, carry_out=True,
+              num_groups=G)
+    f = functools.partial(K2.condensed_adaptive_cuda,
+                          build_condensed_taylor(P, C), P.u_min, P.u_max,
+                          P.x_min, P.x_max, x0, None, **kw)
+    return f, K2.adaptive_tile_plan(nx, 4, N, 2, tiles=G * L // 32, sms=sms)
+
+
+def switch_probe(reps=3, k2_only=False):
     """The batch-aware plans' switches (``switch_cases``) measured on each
     side: each case on each of its layouts, forced, held bit for bit
     against the first (the plan's), with its time (CUDA events, median of
@@ -1210,11 +1294,13 @@ def switch_probe(reps=3):
         tile_iterations
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for built in load_libraries(["condensed_fused", "condensed_adaptive"]):
+    names = ["condensed_adaptive"] + ([] if k2_only else ["condensed_fused"])
+    for built in load_libraries(names):
         print(f"switch probe: {built.path.name} built in "
               f"{built.seconds:.1f} s", flush=True)
     out = {}
-    for label, mod, f, sw, taken, layouts in switch_cases(dev, sms):
+    for label, mod, f, sw, taken, layouts in switch_cases(dev, sms,
+                                                          k2_only):
         name = "adaptive_tile_plan" if mod is K2 else "fused_tile_plan"
         base, times = None, []
         for lname, plan in layouts:
@@ -1234,8 +1320,9 @@ def switch_probe(reps=3):
                   f"{t * 1e3 * min(blocks, sms) / its:.2f} SM-us a tile "
                   f"iteration", flush=True)
             out[f"{label} [{lname}]"] = t
-        print(f"switch probe {label}: {layouts[1][0]} / {layouts[0][0]} "
-              f"{times[1] / times[0]:.3f}", flush=True)
+        for (lname, _), t in zip(layouts[1:], times[1:]):
+            print(f"switch probe {label}: {lname} / {layouts[0][0]} "
+                  f"{t / times[0]:.3f}", flush=True)
     return out
 
 
@@ -1251,14 +1338,20 @@ def main(argv=None):
     ap.add_argument("--sass", metavar="DIR",
                     help="sections: write the SASS of the continuation "
                          "layouts' kernels under DIR")
+    ap.add_argument("--k2", action="store_true",
+                    help="sections, switch: K2's launches alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("layout_probe: needs an NVIDIA GPU")
     if args.probe == "sections":
-        sections_cartpole() if args.cartpole else sections_main(args.sass)
+        (sections_cartpole() if args.cartpole
+         else sections_main(args.sass, args.k2))
+        return
+    if args.probe == "switch":
+        switch_probe(k2_only=args.k2)
         return
     dict(wide=wide_layout_probe, cluster=cluster_probe,
-         far=far_layout_probe, stage=stage_probe, switch=switch_probe,
+         far=far_layout_probe, stage=stage_probe,
          narrow=narrow_probe)[args.probe]()
 
 
