@@ -266,7 +266,9 @@ Phases (one line each; any failure exits non-zero):
      plan and yardstick printed as in 34) and its OSQP-form controller on
      the 20-state chain (10 unit
      masses on unit springs, nx 20, nu 9, N = 20, B = 4,096, 150
-     iterations), each against its plain version, rho included; at N =
+     iterations; the 4-lane layout in 2 + 2 passes, also against 2 lanes a
+     thread forced, bit-equal, timed in turns), each against its plain
+     version, rho included; at N =
      150 the launch also forced onto the iterates in global memory (the
      layout past a cluster of 8's slices) against its plain version and
      bit-equal to the cluster; at N = 213 the lanes with equal counts that
@@ -277,6 +279,12 @@ Phases (one line each; any failure exits non-zero):
      OSQP-form controller (rho in [3, 7]), bit-equal, both timed, the
      cluster's OSQP-form launch also against its plain version (one timed
      run) with its bound;
+ 11w. (run after 35) the adaptive pipeline's bulk pass at the
+     quadrotor's N = 40 (sw 636): K2 at B = 16,384, 150 iterations, the
+     termination controller floored at rho0 = 5 with trust 2, the carry
+     out, on the 4-lane layout in 2 + 2 passes, against its plain version
+     and against 2 lanes a thread forced (bit-equal, timed in turns), with
+     its bound;
  36. K1e on the chain: a state stage of 20 entries with 10 cones of dim 2
      (mu 0.5), 4 halfspace rows and the state box, B = 16,384, 200
      iterations (the lanes do not converge: every lane compared), the
@@ -2481,9 +2489,10 @@ def rebuild_and_horizon_phases(card):
         check(n_bkt > n_fix and n_bkt >= 0.95 * B,
               f"phase {phase}: the pipeline converged {n_bkt} of {B}, the "
               f"fixed-rho0 control {n_fix}")
+        # the plain pipeline ran its comparison just before: one timing
         t_pipe, t_pipe_p = paired_ms(lambda: pipe.solve(x0),
                                      lambda: pipe_p.solve(x0),
-                                     reps=DEEP_REPS)
+                                     reps=DEEP_REPS, plain_reps=1)
         t_fix = median_ms(lambda: fix(*fargs), reps=5)
 
         # phase 2's launch alone: K1d over the G buckets' slots, warm from
@@ -2550,8 +2559,8 @@ def rebuild_and_horizon_phases(card):
               f"{out_f[2].float().mean().item():.1f}), lane rho span "
               f"[{rho.min().item():.4g}, {rho.max().item():.4g}], overflow "
               f"{overflow.tolist()}; set-up (bucket caches and maps) "
-              f"{t_setup:.2f} s; median of {DEEP_REPS}: pipeline kernel "
-              f"{t_pipe:.3f} ms, plain {t_pipe_p:.3f} ms -> "
+              f"{t_setup:.2f} s; pipeline kernel {t_pipe:.3f} ms (median "
+              f"of {DEEP_REPS}), plain {t_pipe_p:.3f} ms (one timing) -> "
               f"{n_bkt / (t_pipe * 1e-3):.0f} solves/s; the control "
               f"{t_fix:.3f} ms (median of 5) -> {n_fix / (t_fix * 1e-3):.0f} "
               f"solves/s on {card}", flush=True)
@@ -3338,7 +3347,8 @@ def lifted_shape_phases(card):
     from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
     from tinympc_julia_tpu_torch.ops.cuda import fused as K3
     from tinympc_julia_tpu_torch.ops.cuda.layout_probe import (
-        chain_plant, product_yardstick, same_bits)
+        chain_plant, product_yardstick, quad_wide_case, quad_wide_kw,
+        same_bits)
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.types import stack_instances
     from unittest import mock
@@ -3867,19 +3877,76 @@ def lifted_shape_phases(card):
                 adaptive_rho_max=5.0, adaptive_rho_clipping=True,
                 check_termination=1, controller="osqp",
                 taylor_trust=float("inf"), warm_start=False, carry_out=False)
+    f_k = functools.partial(k2, *args, **full)
     out_k, _, err, n_l, t_k, t_p = run_case(
         "phase 35b K2's OSQP-form controller, the 20-state chain (nx 20, nu "
-        "9), N=20, B=4096, 150 iterations",
-        functools.partial(k2, *args, **full),
+        "9), N=20, B=4096, 150 iterations", f_k,
         functools.partial(K2.condensed_adaptive_reference, *args, **full),
         (k2, "launches"), rho=True)
     check(bool((out_k[4] != 1.0).any()), "phase 35b: no lane moved its rho")
     b = bound(k2_ops(p, 2, out_k[2]),
               tensor_bytes(tm.T1s, tm.T2s, *args[1:6], out_k[:5]))
+    # the plan's layout (4 lanes a thread in passes) and the one it
+    # replaced (2 lanes a thread) forced beside it: the same bits, timed in
+    # turns
+    plan_b = K2.adaptive_tile_plan(20, 9, 20, 2, tiles=4096 // 32, sms=sms)
+    check(plan_b.lanes == 4 and plan_b.passes2 > 1, "phase 35b: the plan "
+          "did not take the 4-lane layout in passes")
+    f_two = forced(K2, "adaptive_tile_plan",
+                   K2.shared_adaptive_plan(20, 9, 20, 2), f_k)
+    same_two = same_bits(out_k, f_two())
+    check(same_two, "phase 35b: the 4-lane layout differs from 2 lanes a "
+          "thread")
+    t_4, t_2 = paired_ms(f_k, f_two, reps=4)
+    print(f"phase 35b plan: {describe_plan(plan_b)}; 2 lanes a thread "
+          f"forced (the layout before it) bit-equal {same_two}; in turns "
+          f"(median of 4) {t_4:.3f} ms against 2 lanes {t_2:.3f} ms "
+          f"({t_2 / t_4:.3f}x)", flush=True)
     print(f"phase 35b timing: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, {n_l} "
           f"launch(es), bound {b[0]:.4f} ms by {b[1]}", flush=True)
     row("condensed_adaptive (K2), OSQP-form controller on the 20-state chain "
-        "(stages of 20 and 9)", n_l, err, t_k, t_p, b, k2_src, k2_rep)
+        "(stages of 20 and 9), 4 lanes a thread in 2 + 2 passes", n_l, err,
+        t_k, t_p, b, k2_src, k2_rep)
+
+    # -- phase 11w: the adaptive pipeline's bulk pass at the quadrotor's N =
+    # 40 (sw 636): K2's 4-lane layout in 2 + 2 passes ---------------------
+    WALL.mark("11w")
+    qw, _, tw, x0w = quad_wide_case(dev)
+    args = (tw, qw.u_min, qw.u_max, qw.x_min, qw.x_max, x0w, None)
+    wkw = quad_wide_kw(qw)
+    plan_w = K2.adaptive_tile_plan(12, 4, 40, 2, tiles=x0w.shape[0] // 32,
+                                   sms=sms)
+    check(plan_w.lanes == 4 and plan_w.passes1 > 1, "phase 11w: the plan "
+          "did not take the 4-lane layout in passes")
+    f_k = functools.partial(k2, *args, **wkw)
+    out_k, out_p, err, n_l, t_k, t_p = run_case(
+        "phase 11w K2, the adaptive pipeline's bulk pass at the quadrotor's "
+        "N=40 (sw 636), B=16384, 150 iterations, carry out", f_k,
+        functools.partial(K2.condensed_adaptive_reference, *args, **wkw),
+        (k2, "launches"), rho=True)
+    f_two = forced(K2, "adaptive_tile_plan",
+                   K2.shared_adaptive_plan(12, 4, 40, 2), f_k)
+    same_two, same_p = same_bits(out_k, f_two()), same_bits(out_k, out_p)
+    check(same_two, "phase 11w: the 4-lane layout differs from 2 lanes a "
+          "thread")
+    t_4, t_2 = paired_ms(f_k, f_two, reps=4)
+    b = bound(k2_ops(qw, 2, out_k[2]),
+              tensor_bytes(tw.T1s, tw.T2s, *args[1:6], out_k[:5],
+                           tuple(out_k[5])))
+    print(f"phase 11w plan: {describe_plan(plan_w)}; 2 lanes a thread "
+          f"forced (the layout before it) bit-equal {same_two}, the plain "
+          f"version bit-equal {same_p} (lanes that differ "
+          f"{lanes_differ(out_k, out_p)}); in turns (median of 4) "
+          f"{t_4:.3f} ms against 2 lanes {t_2:.3f} ms ({t_2 / t_4:.3f}x); "
+          f"solved {int(out_k[3].sum())} of {x0w.shape[0]}, "
+          f"{K.tile_iterations(out_k[2], plan_w.tile)} tile iterations",
+          flush=True)
+    print(f"phase 11w timing: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, {n_l} "
+          f"launch(es), bound {b[0]:.4f} ms by {b[1]}", flush=True)
+    row("condensed_adaptive (K2), the adaptive pipeline's bulk pass at the "
+        "quadrotor's N=40 (sw 636), 4 lanes a thread in 2 + 2 passes", n_l,
+        err, t_k, t_p, b, k2_src, k2_rep)
+    del out_k, out_p, tw, args
     print(f"phase 35 done {time.perf_counter() - t_start:.0f} s into "
           "phases 34-37", flush=True)
 

@@ -409,20 +409,29 @@ def test_tile_plan():
                                               state_free)
                     assert p.smem <= K.SMEM_PER_BLOCK
     # the quadrotor at N = 40 and 57 (sw = 636, 908): the products in
-    # passes of 320 rows
+    # passes of 320 rows (the backward's of 384 on the 4-lane layout, the
+    # plan's at N = 40; at N = 57 the plan takes the cluster, and the
+    # tiles of 32 on 2 lanes beside it run passes of 320)
     for N_, sw, su in ((40, 636, 156), (57, 908, 224)):
         wide = K2.adaptive_tile_plan(12, 4, N_, 2)
+        if N_ == 57:
+            assert wide.cluster > 1
+            wide = K2.shared_adaptive_plan(12, 4, N_, 2)
         assert wide.passes1 * wide.width >= sw \
             > (wide.passes1 - 1) * wide.width
-        assert wide.passes2 * wide.width >= 4 * su
+        assert wide.passes2 * wide.width2 >= 4 * su
         assert wide.passes1 > 1
     # in shared memory, tiles of 32 lanes while their iterates fit beside
     # the slab ring (sw 1,196 in fp32, N = 75; 860 with the bf16 maps and
     # operand, N = 54), then tiles of 16 (sw 1,436 at N = 90, and more),
-    # then none; from K2_CLUSTER_FROM_WIDTH (where the cluster beat the
-    # tiles of 16 on the card) or past the last shared layout, a tile of
-    # 32 split over a thread block cluster
-    assert K2.adaptive_tile_plan(12, 4, 75, 2).tile == 32
+    # then none; from K2_CLUSTER_FROM_WIDTH (sw 908, N = 57: where the
+    # cluster beat the tiles of 32 on 2 lanes and the tiles of 16 on the
+    # card) or past the last shared layout, a tile of 32 split over a
+    # thread block cluster
+    assert K2.shared_adaptive_plan(12, 4, 75, 2).tile == 32
+    assert K2.K2_CLUSTER_FROM_WIDTH == 16 * 57 - 4
+    assert K2.adaptive_tile_plan(12, 4, 75, 2) == K2.cluster_adaptive_plan(
+        12, 4, 75, 2)
     assert K2.adaptive_tile_plan(12, 4, 54, 2, reduced=True).tile == 32
     for N_, reduced in ((76, False), (90, False), (133, False), (55, True),
                         (94, True)):
@@ -450,7 +459,7 @@ def test_tile_plan():
     ((12, 4, 20), 128, 132, "four"),  # the group grid's 8 x 512 lanes
     ((12, 4, 20), 64, 114, "four"),   # a card of 114 SMs
     ((12, 4, 32), 16, 132, "cont"),   # sw 508: one pass of 512 rows
-    ((12, 4, 40), 16, 132, "two"),    # sw 636: more than one pass
+    ((12, 4, 40), 16, 132, "four"),   # sw 636: 4 lanes in 2 + 2 passes
     ((4, 1, 20), 16, 132, "two"),     # the cartpole: its maps resident
     ((6, 3, 10), 16, 132, "two"),     # the rocket: its maps resident
     ((12, 4, 90), 16, 132, "two"),    # the cluster's widths
@@ -470,10 +479,11 @@ def test_plan_takes_the_batch(shape, tiles, sms, cont):
     take 20 rows a thread, at any width (quad-n12: sw 188; rocket-n12: sw
     105); every other launch keeps the plan of a
     batch that fills the card, field for field: where its tiles of 32
-    stream their maps in one pass of 320 rows, the 4-lane layout ("four":
-    10 rows x 4 lanes a thread, 12 x 4 in the backward product, slabs of
-    16 k-rows by the bulk copy engine), else 2 lanes a thread or a
-    cluster's 8 ("two").  A plan for a batch needs the card's SMs."""
+    stream their maps at 20 rows a thread, the 4-lane layout ("four": 10
+    rows x 4 lanes a thread in passes of 320 rows, 12 x 4 in the backward
+    product in passes of 384, slabs of 16 k-rows by the bulk copy engine;
+    quad-n40: 2 + 2 passes), else 2 lanes a thread or a cluster's 8
+    ("two").  A plan for a batch needs the card's SMs."""
     full = K2.adaptive_tile_plan(*shape, 2)
     with pytest.raises(ValueError, match="SMs"):
         K2.adaptive_tile_plan(*shape, 2, tiles=tiles)
@@ -483,10 +493,13 @@ def test_plan_takes_the_batch(shape, tiles, sms, cont):
                                       tiles=tiles, sms=sms)
             base = K2.adaptive_tile_plan(*shape, 2, reduced, state_free)
             if cont == "four":
+                su, _, sw = K2._dims(*shape)
                 assert p == base == K2.four_lane_adaptive_plan(
                     *shape, 2, reduced, state_free)
-                assert (p.tile, p.rpt, p.width, p.passes1, p.passes2) == (
-                    32, K2.K2_LANES4_RPT, 320, 1, 1)
+                assert (p.tile, p.rpt, p.width, p.width2) == (
+                    32, K2.K2_LANES4_RPT, 320, 384)
+                assert (p.passes1, p.passes2) == (-(-sw // 320),
+                                                  -(-4 * su // 384))
                 assert (p.lanes, p.slab_k, p.bulk_ring, p.resident) == (
                     4, 16, True, False)
                 assert p.smem + K.RING_BARS_BYTES <= K.SMEM_PER_BLOCK
@@ -588,6 +601,166 @@ def test_four_lane_plan_pads_the_maps_to_the_threads_rows(shape):
         assert K2.launch_smem(q, 316, True) == (q.smem, False)
     assert K2.bulk_ld(76, 316, 20) == (320, 312)
     assert K2.bulk_ld(76, 316, 16) == (320, 304)  # the continuation's
+
+
+MULTI_PASS_SHAPES = [(12, 4, 21), (12, 4, 30), (12, 4, 40), (20, 9, 20),
+                     (6, 3, 40)]
+MULTI_PASS_IDS = ["quad-n21", "quad-n30", "quad-n40", "chain", "rocket-n40"]
+
+
+@pytest.mark.parametrize("shape", MULTI_PASS_SHAPES, ids=MULTI_PASS_IDS)
+def test_multi_pass_plan_takes_four_lanes(shape):
+    """Where K2's tiles of 32 lanes stream their maps in more than one pass
+    (the quadrotor at N = 21, 30, 40, sw 332-636; the 20-state chain, sw
+    571; the rocket at N = 40, sw 357), the plan takes the 4-lane layout,
+    for fp32 and reduced iterations, state-free or not, at any batch that
+    fills the card: 10 rows x 4 lanes a thread in passes of 320 rows in
+    the forward product, 12 x 4 in passes of 384 in the backward (whole
+    interleaved outputs), each map's passes laid out one after the other,
+    every pass but the last as wide as the product's rows at once and the
+    last padded only to a thread's rows and to 16 bytes
+    (csrc/condensed_adaptive.cu pass_rows), the ring's slots as wide as the
+    widest pass, the shared memory the kernel's layout (k2_layout) with
+    room for the ring's barriers.  The 2-lane plan it replaces took passes
+    of 320 rows in both products."""
+    nx, nu, N_ = shape
+    su, sw = (N_ - 1) * nu, (N_ - 1) * nu + N_ * nx
+    for reduced in (False, True):
+        for state_free in (True, False):
+            p = K2.adaptive_tile_plan(*shape, 2, reduced, state_free)
+            for tiles in (128, 512, 2048):
+                assert p == K2.adaptive_tile_plan(*shape, 2, reduced,
+                                                  state_free, tiles=tiles,
+                                                  sms=132)
+            assert p == K2.four_lane_adaptive_plan(*shape, 2, reduced,
+                                                   state_free)
+            assert (p.tile, p.rpt, p.lanes, p.cluster) == (32, 20, 4, 1)
+            assert p.bulk_ring and not p.resident and not p.iterates_global
+            assert (p.width, p.width2, p.slab_k) == (320, 384, 16)
+            assert (p.passes1, p.passes2) == (-(-sw // 320),
+                                              -(-4 * su // 384))
+            assert max(p.passes1, p.passes2) > 1
+            two = K2.shared_adaptive_plan(*shape, 2, reduced, state_free)
+            assert (two.lanes, two.width, two.passes1, two.passes2) == (
+                2, 320, -(-sw // 320), -(-4 * su // 320))
+            # each map: its full passes, then the last's valid rows padded
+            # to a multiple of a thread's rows (10; 12 in the backward) and
+            # of 4, never past the pass's rows
+            for ld, v, W, rows in ((p.ld1, sw, 320, 10),
+                                   (p.ld2, 4 * su, 384, 12)):
+                full = (-(-v // W) - 1) * W
+                last = ld - full
+                assert v - full <= last <= W and last % 4 == 0
+                assert -(-(v - full) // rows) * rows <= last \
+                    < -(-(v - full) // rows) * rows + 4
+                assert ld == K2.pass_rows(v, rows, W)
+            assert p.ld == K2.bulk_ld(su, sw, 20, 320)
+            last2 = p.ld2 - (p.passes2 - 1) * 384
+            assert p.ring_rows == (384 if p.passes2 > 1 else
+                                   max(320, last2))
+            assert p.smem == _k2_layout_smem(nx, nu, N_, 2, 32, p.ring_rows,
+                                             reduced, state_free,
+                                             p.state_shared)
+            assert p.smem + K.RING_BARS_BYTES <= K.SMEM_PER_BLOCK
+            # a carry out stages the tile's carry slacks where they fit
+            cap = K.SMEM_PER_BLOCK - K.RING_BARS_BYTES
+            stage = -(-4 * sw * 32 // 16) * 16
+            assert K2.launch_smem(p, sw, True)[1] == (p.smem + stage <= cap)
+
+
+def test_four_lane_plan_stops_where_the_ring_does_not_fit():
+    """The 4-lane layout in passes holds the tile's vec1 and ux beside a
+    ring of 3 slots of 16 k-rows of 384 rows: up to the quadrotor's N = 56
+    in fp32 (sw 892; the widest it takes), not at N = 57 (sw 908), where
+    the plan keeps 2 lanes a thread in passes of 320 rows; with reduced
+    iterations (the bf16 operand beside them) up to N = 40 (sw 636); the
+    quadrotor at N = 20 keeps its one pass.  From N = 57 the plan takes the
+    cluster (K2_CLUSTER_FROM_WIDTH: it beat 2 lanes a thread there)."""
+    p = K2.adaptive_tile_plan(12, 4, 56, 2)
+    assert (p.lanes, p.passes1, p.passes2, p.ring_rows) == (4, 3, 3, 384)
+    assert p.smem + K.RING_BARS_BYTES <= K.SMEM_PER_BLOCK
+    assert K2.four_lane_adaptive_plan(12, 4, 57, 2) is None
+    assert K2.shared_adaptive_plan(12, 4, 57, 2).lanes == 2
+    for reduced in (False, True):
+        q = K2.adaptive_tile_plan(12, 4, 57, 2, reduced)
+        assert q == K2.cluster_adaptive_plan(12, 4, 57, 2, reduced)
+        assert q.cluster > 1
+    assert K2.four_lane_adaptive_plan(12, 4, 40, 2, True).lanes == 4
+    assert K2.four_lane_adaptive_plan(12, 4, 41, 2, True) is None
+    one = K2.adaptive_tile_plan(12, 4, 20, 2)
+    assert (one.passes1, one.passes2, one.ring_rows) == (1, 1, 320)
+
+
+def _from_pass_major(flat, blocks, K, v, W, ld):
+    """A pass-major map (..., blocks x K x ld floats) gathered back to
+    (..., blocks, K, v), read as the kernel's segments do
+    (csrc/condensed_adaptive.cu forward / backward, tile_gemm.cuh
+    gemm_fp32 with kPassMajor): block c's pass p from (c ld + p W) K, its
+    rows W apart, the last pass's ld - (P - 1) W; with every padded entry,
+    which the kernel's threads read but never store, checked to be zero."""
+    P = -(-v // W)
+    assert flat.shape[-1] == blocks * K * ld
+    out = []
+    for c in range(blocks):
+        cols = []
+        for p in range(P):
+            stride = W if p < P - 1 else ld - (P - 1) * W
+            base = (c * ld + p * W) * K
+            seg = flat[..., base:base + K * stride].unflatten(-1, (K,
+                                                                   stride))
+            n = min(W, v - p * W)
+            cols.append(seg[..., :n])
+            assert not seg[..., n:].any()
+        out.append(torch.cat(cols, -1))
+    return torch.stack(out, -3)
+
+
+@pytest.mark.parametrize("groups", [1, 3], ids=["shared", "grouped"])
+@pytest.mark.parametrize("shape", MULTI_PASS_SHAPES[1:] + [(12, 4, 20)],
+                         ids=MULTI_PASS_IDS[1:] + ["quad-n20"])
+def test_map_layout_pass_major_round_trip(shape, groups):
+    """A 4-lane plan's maps (``map_layout``) laid out pass by pass: each T1
+    block's rows in passes of 320 and the interleaved T2 stack's in passes
+    of 384, a pass's [k][row] block after the earlier ones', gathered back
+    as the kernel reads them, return the T1 blocks and the stack (row 4 r
+    + c the row r of block c, its sw + 1 read columns) bit for bit, and
+    every padded entry is zero; the bf16 maps keep their row-major layout
+    (rows in order, padded to ld1 / ld2 and kp1 / kp2).  With one pass
+    (the quadrotor at N = 20) the layout is the one-pass [k][row] one
+    (ld1 320, ld2 312).  A leading group axis is kept."""
+    nx, nu, N_ = shape
+    su, sw = (N_ - 1) * nu, (N_ - 1) * nu + N_ * nx
+    in1, ord1 = su + nx + 1, 3
+    lead = (groups,) if groups > 1 else ()
+    g = torch.Generator().manual_seed(7)
+    T1s = torch.randn(lead + (ord1, sw, in1), generator=g)
+    T2s = torch.randn(lead + (4, su, 2 * sw + 1), generator=g)
+    tm = C.CondensedTaylorMaps(T1s, T2s, torch.ones(lead))
+    plan = K2.four_lane_adaptive_plan(nx, nu, N_, 2, True)
+    t1t, t2t, t1a, t2a = K2.map_layout(tm, su, sw, plan, True)
+    assert t1t.shape == lead + (ord1, in1 * plan.ld1)
+    assert t2t.shape == lead + ((sw + 1) * plan.ld2,)
+    back1 = _from_pass_major(t1t.flatten(-2), ord1, in1, sw, 320, plan.ld1)
+    assert torch.equal(back1, T1s.transpose(-1, -2))
+    stack = torch.cat([T2s[..., :sw], T2s[..., -1:]], -1)  # (.., 4, su, sw+1)
+    stack = stack.transpose(-3, -2).reshape(lead + (4 * su, sw + 1))
+    back2 = _from_pass_major(t2t, 1, sw + 1, 4 * su, 384, plan.ld2)[..., 0,
+                                                                    :, :]
+    assert torch.equal(back2, stack.transpose(-1, -2))
+    for c in range(4):  # row 4 r + c of the stack: row r of block c
+        assert torch.equal(back2[..., c::4].transpose(-1, -2),
+                           torch.cat([T2s[..., c, :, :sw],
+                                      T2s[..., c, :, -1:]], -1))
+    if plan.passes1 == plan.passes2 == 1:
+        assert (plan.ld1, plan.ld2) == (320, 312)
+        assert torch.equal(t1t.unflatten(-1, (in1, 320))[..., :sw],
+                           T1s.transpose(-1, -2))
+    assert t1a.shape == lead + (ord1, plan.ld1, plan.kp1)
+    assert t2a.shape == lead + (plan.ld2, plan.kp2)
+    assert torch.equal(t1a[..., :sw, :in1], T1s.to(torch.bfloat16))
+    assert not t1a[..., sw:, :].any() and not t1a[..., in1:].any()
+    assert torch.equal(t2a[..., :4 * su, :sw + 1], stack.to(torch.bfloat16))
+    assert not t2a[..., 4 * su:, :].any() and not t2a[..., sw + 1:].any()
 
 
 def test_last_layout_keeps_the_maps_layout(monkeypatch):

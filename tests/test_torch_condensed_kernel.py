@@ -1169,18 +1169,26 @@ MAIN_SHAPE_PLANS = [
                                 False, 1, (), 4),
      (32, 256, 20, 1, 1, False, True, 96, 320, 227984, False, 1, (), (),
       (320, 312), 4)),
+    # the quadrotor at N = 32 and 40: K2's 4-lane layout in passes (2 + 2:
+    # the forward's of 320 rows, the backward's of 384), the maps laid out
+    # pass by pass (640 + 624 rows at N = 40), the ring's slots 384 rows
+    # wide; K1's 2 lanes a thread
     ((12, 4, 32), False, True, (32, 256, False, False, 512, 512, 167568, 1,
                                 False),
-     (32, 256, 20, 2, 2, False, False, 160, 512, 156816, False)),
+     (32, 256, 20, 2, 2, False, False, 160, 512, 169104, False, 1, (), (),
+      (512, 504), 4)),
     ((12, 4, 32), True, False, (32, 256, False, False, 512, 512, 200848, 1,
                                 False),
-     (32, 256, 20, 2, 2, False, False, 160, 512, 190096, False)),
+     (32, 256, 20, 2, 2, False, False, 160, 512, 202384, False, 1, (), (),
+      (512, 504), 4)),
     ((12, 4, 40), False, True, (32, 256, False, False, 640, 640, 147088, 2,
                                 False),
-     (32, 256, 20, 2, 2, False, False, 192, 640, 177296, False)),
+     (32, 256, 20, 2, 2, False, False, 192, 640, 189584, False, 1, (), (),
+      (640, 624), 4)),
     ((12, 4, 40), True, False, (32, 256, False, False, 640, 640, 188560, 2,
                                 False),
-     (32, 256, 20, 2, 2, False, False, 192, 640, 218768, False)),
+     (32, 256, 20, 2, 2, False, False, 192, 640, 231056, False, 1, (), (),
+      (640, 624), 4)),
 ]
 
 
@@ -1198,8 +1206,9 @@ def test_main_shape_plans_are_unchanged(shape, reduced, state_free, k1, k2,
     field for field: no cluster, nothing in global memory; K1's and K2's
     at the quadrotor's N = 20 take 4 lanes a thread in their fp32 products
     (the 4-lane layouts, faster on the card at every batch measured:
-    PERF.md section 6; K2's maps' rows padded to its threads' rows), the
-    rest 2; but the cartpole's fp32 launches take the warp
+    PERF.md section 6; K2's maps' rows padded to its threads' rows), and
+    so do K2's at N = 32 and 40 in passes (its maps laid out pass by
+    pass), the rest 2; but the cartpole's fp32 launches take the warp
     layout (faster on the card at every batch measured: PERF.md section
     6), and the rocket's plan is that of its launches, which project its
     cones.  K2's are the same for the bulk batches

@@ -523,7 +523,7 @@ def test_adaptive_continuation_matches_plain_version(dev):
 def test_adaptive_wide_maps_take_tiles_of_16(dev, monkeypatch, kw):
     """The quadrotor at N = 80 (sw 1,276): the iterates of 32 lanes leave no
     room beside the slab ring, so the shared-memory layout runs tiles of 16
-    lanes, each product in five passes (forced: from sw 1,212 the plan takes
+    lanes, each product in five passes (forced: from sw 908 the plan takes
     the cluster); against the plain version on K1's bar (at 1,277 columns
     cuBLAS need not sum in index order)."""
     Nw = 80
@@ -1735,7 +1735,8 @@ def test_k2_continuation_layout_agrees_bit_for_bit(dev, monkeypatch, model,
 
 
 @pytest.mark.parametrize("case", ["bulk", "ragged", "grid", "default",
-                                  "osqp", "rocket", "cartpole"])
+                                  "osqp", "rocket", "cartpole", "chain-osqp",
+                                  "quad-n21", "quad-n40", "widest"])
 def test_k2_four_lane_layout_agrees_bit_for_bit(dev, monkeypatch, case):
     """K2's tiles of 32 lanes on the 4-lane layout (10 rows x 4 lanes a
     thread in the forward product, 12 x 4 in the backward, slabs of 16
@@ -1758,10 +1759,34 @@ def test_k2_four_lane_layout_agrees_bit_for_bit(dev, monkeypatch, case):
     on their outputs, the bar of the reduced quadrotor's tiles of 16, and
     bit for bit to 2 lanes, carry included); rocket: the
     rocket at N = 27 (sw 240, 4 su 312) with its cones and state box, the
-    projected stages; cartpole: the cartpole at N = 52 (sw 259).  The last
-    four forced onto the layout at 2,200 lanes."""
+    projected stages; cartpole: the cartpole at N = 52 (sw 259).  Those
+    four forced onto the layout at 2,200 lanes.  In passes (the maps laid
+    out pass by pass, passes of 320 rows in the forward product and of 384
+    in the backward): chain-osqp, the 20-state chain under the OSQP-form
+    controller (phase 35b's settings at 2,200 lanes with the carry out: 2 +
+    2 passes, the state in global memory; held to the plain version by
+    K2's bar); quad-n21
+    and quad-n40, the quadrotor at N = 21 (2 + 1 passes, the backward's 324
+    rows a slot wider than the forward's 320) and 40 (2 + 2) under the
+    termination controller with the carry out, at 8,192 lanes on the plan's
+    layout; widest, the quadrotor at N = 56 (sw 892, 3 + 3 passes: the
+    widest the layout takes), the same, at 4,096 lanes."""
     G, nx, nu = 1, 12, 4
-    if case in ("rocket", "cartpole"):
+    if case == "chain-osqp":
+        horizon, nx, nu = N, 20, 9
+        p, c = _chain(horizon, dev)
+        tm = build_condensed_taylor(p, c)
+        x0 = _chain_x0(2200, 37, dev)
+        kw = _k2_kw(p, c, max_iter=150, adaptive_rho_min=0.2,
+                    adaptive_rho_max=5.0)
+    elif case in ("quad-n21", "quad-n40", "widest"):
+        horizon = dict(zip(("quad-n21", "quad-n40", "widest"),
+                           (21, 40, 56)))[case]
+        p, c = _quad(horizon, dev)
+        tm = build_condensed_taylor(p, c)
+        x0 = _x0(4096 if case == "widest" else 8192, 12, 33, 0.3, dev)
+        kw = _k2_kw(p, c, max_iter=150, **_QUAD_KW)
+    elif case in ("rocket", "cartpole"):
         model, horizon = case, 27 if case == "rocket" else 52
         p, c, cons, x0s, rho_kw = _streamed_case(model, horizon, dev)
         tm = build_condensed_taylor(p, c)
@@ -1798,11 +1823,15 @@ def test_k2_four_lane_layout_agrees_bit_for_bit(dev, monkeypatch, case):
     free = kw.get("constraints") is None
     reduced = case == "default"
     four = K2.four_lane_adaptive_plan(nx, nu, horizon, 2, reduced, free)
-    assert (four.tile, four.lanes, four.passes1, four.passes2) == (32, 4, 1,
-                                                                   1)
+    su, sw = (horizon - 1) * nu, (horizon - 1) * nu + horizon * nx
+    passes = dict(zip(("chain-osqp", "quad-n21", "quad-n40", "widest"),
+                      ((2, 2), (2, 1), (2, 2), (3, 3)))).get(case, (1, 1))
+    assert (four.tile, four.lanes, four.passes1, four.passes2) == (
+        32, 4) + passes
     assert four.bulk_ring and four.ld == K2.bulk_ld(
-        (horizon - 1) * nu, (horizon - 1) * nu + horizon * nx, 20)
-    if case in ("bulk", "ragged", "grid"):  # the plan's at this batch
+        su, sw, 20, None if passes == (1, 1) else 320)
+    if case in ("bulk", "ragged", "grid", "quad-n21", "quad-n40",
+                "widest"):  # the plan's at this batch
         assert four == K2.adaptive_tile_plan(
             nx, nu, horizon, 2, reduced, free,
             tiles=G * -(-(x0.numel() // nx // G) // 32), sms=_sms(dev))
@@ -1821,12 +1850,15 @@ def test_k2_four_lane_layout_agrees_bit_for_bit(dev, monkeypatch, case):
     # no rocket lane latches within the budget, nor any lane at ct = 5
     # under bf16 noise (a true fp32 check fails on the reduced iterates:
     # ROADMAP R8); under the OSQP-form controller fewer than half latch
-    if case not in ("rocket", "default"):
+    if case not in ("rocket", "default", "chain-osqp"):
         solved = int(k[3].sum())
         assert solved > (0 if case == "osqp" else k[2].numel() // 2)
-    if case in ("bulk", "ragged", "rocket"):
+    if case in ("bulk", "ragged", "rocket", "quad-n21", "quad-n40",
+                "widest"):
         assert same_bits(k, r)
-    elif case in ("grid", "cartpole"):
+    elif case in ("grid", "cartpole", "chain-osqp"):
+        if case == "chain-osqp":
+            assert bool((k[4] != 1.0).any())  # the controller moved rho
         _k2_agree(k, r)
     else:
         # the plain OSQP-form residuals (batched matmuls) and bf16 products

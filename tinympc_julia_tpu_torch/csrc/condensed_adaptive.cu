@@ -64,20 +64,22 @@
 //    leave no room, vec1 and ux live in global memory, each tile its own
 //    columns, and stream through the ring beside the maps' slabs
 //    (In::kGlobal).  The sums keep their order in every layout.
-//  * Where both products take one pass, the maps stream through a ring
-//    filled by the bulk copy engine (the bulk-ring layouts, K2Product):
-//    the maps' rows padded only to a thread's rows so that a 16-row slab
-//    is one bulk copy, issued by thread 0 once every warp has freed the
-//    slot (no block barrier a slab), each thread 4 lanes of the fp32
-//    products (a k step's 16-byte load of w feeds 4 lanes: fewer shared-
-//    memory wavefronts an FMA than 2 lanes' 8-byte one), a row's 4 lanes
-//    stored as one 16-byte word in the forward epilogue.  A launch of few
-//    tiles (a continuation's slots: tiles of 32 would leave the card
+//  * Where the iterates of a tile of 32 lanes fit beside it, the maps
+//    stream through a ring filled by the bulk copy engine (the bulk-ring
+//    layouts, K2Product): each map laid out pass by pass, a pass's [k][row]
+//    block with its rows padded only to a thread's rows, so that a 16-row
+//    slab of a pass is one bulk copy, issued by thread 0 once every warp
+//    has freed the slot (no block barrier a slab), each thread 4 lanes of
+//    the fp32 products (a k step's 16-byte load of w feeds 4 lanes: fewer
+//    shared-memory wavefronts an FMA than 2 lanes' 8-byte one), a row's 4
+//    lanes stored as one 16-byte word in the forward epilogue.  A launch
+//    of few tiles (a continuation's slots: tiles of 32 would leave the card
 //    idle) takes tiles of 16 lanes on twice the SMs, each product one pass
 //    of 512 rows (8 rows x 4 lanes a thread); a batch that fills the card
-//    keeps tiles of 32 lanes, one pass of 320 rows (10 rows x 4 lanes a
-//    thread in the forward product, 12 x 4 in the backward, whose outputs
-//    take 4 rows each).  Both take a checking iteration's box residuals
+//    keeps tiles of 32 lanes, passes of 320 rows in the forward product
+//    (10 rows x 4 lanes a thread) and of 384 in the backward (12 x 4, whose
+//    outputs take 4 rows each), the ring's slots as wide as the widest
+//    pass (bulk_ring_rows).  Both take a checking iteration's box residuals
 //    and updates in one pass; with a carry out, each lane's slack is
 //    written ahead to a copy staged in shared memory (carry_stage_bytes)
 //    and written out where the lane latches, and where that copy does not
@@ -135,8 +137,10 @@ constexpr float kMaxStep = 10.0f;
 struct Params {
   // the maps, with a leading group axis where map_grouped
   const float* t1t;  // (ord1, in1, ld1): T1 block c transposed, [c][k][row]
+                     // (bulk-ring layouts: [c][pass][k][row], pass_rows)
   const float* t2t;  // (sw + 1, ld2): the T2 blocks transposed, row 4 r + c
-                     // of the stack is row r of block c
+                     // of the stack is row r of block c (bulk-ring
+                     // layouts: [pass][k][row])
   const __nv_bfloat16* t1a;  // (ord1, ld1, kp1) the same in bf16, row-major;
   const __nv_bfloat16* t2a;  // (ld2, kp2)   null without reduced iterations
   const float* rho0;      // (G,) expansion centre; null: rho0_one
@@ -208,7 +212,9 @@ __host__ __device__ inline int state_rows(int su, int sx, bool state_free) {
   return 2 * su + (state_free ? 1 : 2) * sx;
 }
 
-// Byte offsets of the block's shared memory for a tile of T lanes: vec1
+// Byte offsets of the block's shared memory for a tile of T lanes (W: the
+// rows of a slot of the fp32 products' ring, bulk_ring_rows on the
+// bulk-ring layouts): vec1
 // (rows1 x T floats: in1 rows, or a cluster block's own), ux / vec2
 // (rows2: sw + 1, or the block's own; neither with kGlobal, where they live
 // in global memory and stream beside each ring slab), the latch flags
@@ -265,6 +271,15 @@ __host__ __device__ inline K2Layout k2_layout(
     off += up16(2 * static_cast<size_t>(T) * (kp + kPadLo));
   t.total = off;
   return t;
+}
+
+// Rows of a slot of a bulk-ring layout's fp32 ring: the widest pass of
+// either product (W rows at once in the forward, W2 in the backward; a
+// backward of one pass its ld2 padded rows), at least W.
+__host__ __device__ inline int bulk_ring_rows(int W, int W2, int passes2,
+                                              int ld2) {
+  const int w2 = passes2 > 1 ? W2 : ld2;
+  return w2 > W ? w2 : W;
 }
 
 // Bytes of a tile's staged carry slacks (sw rows of T lanes), after the
@@ -360,11 +375,13 @@ __device__ __forceinline__ bool takes(const Tile& t, int r, int rows, int l) {
 // layouts' one pass over fewer rows), and whether the ring fills by the
 // bulk copy engine with no block barrier a slab (gemm_fp32's kMbar; those
 // layouts' maps have their rows padded only to a thread's rows, so a slab
-// is one copy).  The bulk-ring layouts, each product one pass: the
-// continuation layout (tiles of 16 lanes, 8 rows x 4 lanes a thread, for
-// launches whose tiles of 32 would leave the card idle) and tiles of 32
-// lanes at 10 rows x 4 lanes (12 in the backward product), for the
-// batches that fill it (adaptive_tile_plan).
+// is one copy).  The bulk-ring layouts: the continuation layout (tiles of
+// 16 lanes, 8 rows x 4 lanes a thread, each product one pass, for launches
+// whose tiles of 32 would leave the card idle) and tiles of 32 lanes at 10
+// rows x 4 lanes (12 in the backward product), in one pass or more, for
+// the batches that fill it (adaptive_tile_plan); their maps are laid out
+// pass by pass (kPassMajor: pass_rows), so that a slab of any pass is one
+// copy.
 template <int RPT, int T, In kIn, int LPT>
 struct K2Product {
   static constexpr int kLanes = kIn == In::kCluster ? 8 : LPT;
@@ -375,6 +392,7 @@ struct K2Product {
   static constexpr int kST = kDeep ? kStagesWide : kStages;
   static constexpr bool kMbar = kIn == In::kShared && kLanes == 4;
   static constexpr bool kValid = kIn == In::kCluster || kMbar;
+  static constexpr bool kPassMajor = kMbar;
   static_assert(kLanes == 2 || kLanes == 4 || kLanes == 8,
                 "lanes a thread: 2, 4 or 8");
 };
@@ -451,17 +469,22 @@ __device__ __forceinline__ void forward(const Params& p, const Tile& t,
              (static_cast<size_t>(c) * p.ld1 + t.m1row0 + pass * W) * lda;
     }, epi);
   } else {
-    GemmF32 a{t.vec1, t.ring, p.in1, W, p.ld1, nseg, t.tid, t.bs};
+    // pass by pass: every pass's rows W apart but the last's (ld)
+    const int ld = P::kPassMajor ? p.ld1 - (p.passes1 - 1) * W : p.ld1;
+    GemmF32 a{t.vec1, t.ring, p.in1, W, ld, nseg, t.tid, t.bs};
     if constexpr (kIn == In::kCluster) a.ci = t.ci1;
     if constexpr (P::kValid) {
       a.vrows = t.r1 - t.r0;
       a.vper = ord1;
     }
-    gemm_fp32<P::kRows, T, kIn, P::kLanes, P::kSK, P::kST, false, P::kMbar>(
-        a, [&](int j) {
+    gemm_fp32<P::kRows, T, kIn, P::kLanes, P::kSK, P::kST, false, P::kMbar,
+              P::kPassMajor>(a, [&](int j) {
       const int c = ord1 - 1 - j % ord1, pass = j / ord1;
-      return t.t1 + static_cast<size_t>(c) * p.in1 * p.ld1 + t.m1row0 +
-             pass * W;
+      if constexpr (P::kPassMajor)
+        return t.t1 + (static_cast<size_t>(c) * p.ld1 + pass * W) * p.in1;
+      else
+        return t.t1 + static_cast<size_t>(c) * p.in1 * p.ld1 + t.m1row0 +
+               pass * W;
     }, epi);
   }
 }
@@ -524,20 +547,31 @@ __device__ __forceinline__ void backward(const Params& p, const Tile& t,
   };
   if (lo) {
     const int lda = t.ring ? p.kp2 : p.kp2 + kPadLo;
+    // the bf16 stack in passes of W rows (passes2 counts the fp32
+    // product's of W2)
+    const int np = P::kRows2 == P::kRows ? p.passes2
+                                         : (4 * (t.d1 - t.d0) + W - 1) / W;
     GemmLo a{kIn == In::kCluster ? t.ux + t.r0 * t.bs : t.ux, t.w2h,
              reinterpret_cast<__nv_bfloat16*>(t.ring), p.sw + 1, p.kp2, W,
-             p.passes2, t.tid, lda, t.bs};
+             np, t.tid, lda, t.bs};
     if constexpr (kIn == In::kCluster) a.ci = t.ci2;
     if constexpr (P::kValid) a.vrows = 4 * (t.d1 - t.d0);
     gemm_lo<RPT, T, kIn>(a, [&](int j) {
       return t.t2a + static_cast<size_t>(t.m2row0 + j * W) * lda;
     }, epi);
   } else {
-    GemmF32 a{t.ux, t.ring, p.sw + 1, W2, p.ld2, p.passes2, t.tid, t.bs};
+    // pass by pass: every pass's rows W2 apart but the last's (ld)
+    const int ld = P::kPassMajor ? p.ld2 - (p.passes2 - 1) * W2 : p.ld2;
+    GemmF32 a{t.ux, t.ring, p.sw + 1, W2, ld, p.passes2, t.tid, t.bs};
     if constexpr (kIn == In::kCluster) a.ci = t.ci2;
     if constexpr (P::kValid) a.vrows = 4 * (t.d1 - t.d0);
-    gemm_fp32<P::kRows2, T, kIn, P::kLanes, P::kSK, P::kST, false, P::kMbar>(
-        a, [&](int j) { return t.t2 + t.m2row0 + j * W2; }, epi);
+    gemm_fp32<P::kRows2, T, kIn, P::kLanes, P::kSK, P::kST, false, P::kMbar,
+              P::kPassMajor>(a, [&](int j) {
+      if constexpr (P::kPassMajor)
+        return t.t2 + static_cast<size_t>(j) * W2 * (p.sw + 1);
+      else
+        return t.t2 + t.m2row0 + j * W2;
+    }, epi);
   }
 }
 
@@ -809,8 +843,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int l0 = tile * T;  // the tile's first index in the group
   const int sw = p.sw, su = p.su, sx = p.sx, in1 = p.in1, B = p.B;
   const bool reduced = p.t1a != nullptr;
+  constexpr int W = Lanes<T>::kRowGroups * RPT;
   const K2Layout lay = k2_layout(
-      T, kIn, Lanes<T>::kRowGroups * RPT, kCl ? p.rows1 : in1,
+      T, kIn,
+      P::kMbar ? bulk_ring_rows(W, W / P::kRows * P::kRows2, p.passes2,
+                                p.ld2)
+               : W,
+      kCl ? p.rows1 : in1,
       kCl ? p.rows2 : sw + 1, in1, sw, p.ord1, p.ld1, p.ld2, p.kp1, p.kp2,
       p.state_shared ? state_rows(su, sx, p.state_free) : 0, p.resident,
       reduced);
@@ -1278,6 +1317,14 @@ __host__ __device__ inline int bulk_rows(int v, int rows) {
   return ((v + rows - 1) / rows * rows + 3) / 4 * 4;
 }
 
+// The padded rows of a map of ``v`` valid rows that the bulk copy engine
+// streams in passes of W rows, laid out pass by pass: every pass but the
+// last W rows, the last its valid rows padded (bulk_rows).
+__host__ __device__ inline int pass_rows(int v, int rows, int W) {
+  const int full = (v + W - 1) / W * W - W;
+  return full + bulk_rows(v - full, rows);
+}
+
 In layout_of(int iterates_global, int cluster) {
   return cluster > 1 ? In::kCluster
                      : iterates_global ? In::kGlobal : In::kShared;
@@ -1359,8 +1406,9 @@ extern "C" int tinympc_condensed_adaptive(
   // leading group axis (rho0 and the trust bounds go with the maps; a
   // single group passes them by value as rho0_one, trust_*_one and null
   // arrays).  The maps' layouts: ld1 = passes1 x W, ld2 = passes2 x W rows
-  // (W = 512 rpt / tile, the product's rows at once; with lanes 4, one
-  // pass, bulk_rows of sw and 4 su at a thread's rows of each product);
+  // (W = 512 rpt / tile, the product's rows at once; with lanes 4, pass
+  // by pass, pass_rows of sw and 4 su at a thread's rows of each product
+  // in passes of W and of the backward's W2);
   // t1a/t2a: the bf16 maps of reduced iterations (lo_all), k padded to
   // kp1/kp2.  lanes: a thread's of the fp32 products (2; 4 in the
   // bulk-ring layouts, tile 32 with rpt 20 or tile 16 with rpt 16; 8 on
@@ -1398,17 +1446,24 @@ extern "C" int tinympc_condensed_adaptive(
   const int W = tile > 0 ? rpt * (2 * kThreads / tile) : 0;
   p.passes1 = passes1; p.passes2 = passes2;
   p.ld1 = cluster * passes1 * W; p.ld2 = cluster * passes2 * W;
+  int ringw = W;  // rows of a slot of the fp32 ring
   if (lanes == 4) {
-    // the bulk-ring layouts' one pass: the maps' rows padded only to a
-    // thread's rows of each product (K2Product: 2 rpt / 4, the backward's
-    // rounded up to whole outputs), a slab one contiguous copy that fits
-    // the ring's slot of W rows
+    // the bulk-ring layouts, pass by pass: every pass but the last the
+    // product's rows at once (W; the backward's W2 at its thread's rows,
+    // K2Product: 2 rpt / 4, rounded up to whole outputs), the last's rows
+    // padded only to a thread's, so that a slab is one contiguous copy
+    // into a slot as wide as the widest pass, at least W
     const int rows = rpt / 2, rows2 = (rows + 3) / 4 * 4;
-    p.ld1 = bulk_rows(p.sw, rows);
-    p.ld2 = bulk_rows(4 * p.su, rows2);
-    if (passes1 != 1 || passes2 != 1 || cluster != 1 || iterates_global ||
-        resident || p.ld1 > W || p.ld2 > W)
+    const int W2 = W / rows * rows2;
+    if (passes1 != (p.sw + W - 1) / W ||
+        passes2 != (4 * p.su + W2 - 1) / W2 || cluster != 1 ||
+        iterates_global || resident)
       return static_cast<int>(cudaErrorInvalidValue);
+    p.ld1 = pass_rows(p.sw, rows, W);
+    p.ld2 = pass_rows(4 * p.su, rows2, W2);
+    if (p.ld1 - (passes1 - 1) * W > W || p.ld2 - (passes2 - 1) * W2 > W2)
+      return static_cast<int>(cudaErrorInvalidValue);
+    ringw = bulk_ring_rows(W, W2, passes2, p.ld2);
   }
   p.kp1 = kp1; p.kp2 = kp2;
   p.max_iter = max_iter; p.ct = ct; p.lo_all = lo_all;
@@ -1455,8 +1510,8 @@ extern "C" int tinympc_condensed_adaptive(
     }
   }
   const size_t need =
-      k2_layout(tile, in, W, p.rows1, p.rows2, p.in1, p.sw, p.ord1, p.ld1,
-                p.ld2, kp1, kp2,
+      k2_layout(tile, in, ringw, p.rows1, p.rows2, p.in1, p.sw, p.ord1,
+                p.ld1, p.ld2, kp1, kp2,
                 state_shared ? state_rows(p.su, p.sx, p.state_free) : 0,
                 resident, lo_all)
           .total;

@@ -228,13 +228,16 @@ __device__ __forceinline__ int seg_rows(const A& a, int j) {
 }
 
 // seg(j): segment j's map, [k][row] with row stride ld (W rows of it);
-// epi(j, acc, frag) after segment j, on every thread.  Every thread must be
-// past its last use of the ring and of w (with kGlobal, w's stores behind a
-// barrier; with kCluster, every block's behind a cluster barrier) before
-// the call.
+// with kPassMajor (kMbar only), the map laid out pass by pass (a pass: the
+// vper segments j / vper), segment j's rows W apart where a later pass
+// follows it and ld apart in the last pass (its rows padded only to a
+// thread's), so that every slab is one contiguous copy; epi(j, acc, frag)
+// after segment j, on every thread.  Every thread must be past its last
+// use of the ring and of w (with kGlobal, w's stores behind a barrier;
+// with kCluster, every block's behind a cluster barrier) before the call.
 template <int RPT, int T = kTile, In kIn = In::kShared, int LPT = 2,
           int kSK = kSlabK, int kST = kStages, bool kBulk = false,
-          bool kMbar = false, class Seg, class Epi>
+          bool kMbar = false, bool kPassMajor = false, class Seg, class Epi>
 __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
                                           Epi epi) {
   static_assert(RPT % 2 == 0, "rows a thread: even");
@@ -309,13 +312,15 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
   // arrive by the bulk copy engine, one copy a k-row issued by thread 0, on
   // the slot's mbarrier (phase (s0 + s) / kST; s0 the block's slabs before
   // this product); kMbar (kShared only): the slab's k-rows of the map, ld
-  // apart (at most W), as one copy into a slot of rows ld apart, issued by
+  // apart (at most W; with kPassMajor the segment's stride), as one copy
+  // into a slot of rows as far apart, issued by
   // thread 0 once every warp has arrived on the slot's empty barrier, the
   // warps waiting on nothing but their slab's full barrier (no block
   // barrier a slab); otherwise by cp.async, 16 bytes a thread at a time
   static_assert(!kBulk || kIn == In::kCluster, "bulk copies: a cluster's");
   static_assert(!kMbar || (kIn == In::kShared && kST <= kStages),
                 "the barrier ring: a shared-memory product's");
+  static_assert(!kPassMajor || kMbar, "pass by pass: the barrier ring's");
   const int nslab = (a.K + kSK - 1) / kSK, total = nslab * a.nseg;
   int s0 = 0;
   if constexpr (kBulk || kMbar) {
@@ -329,8 +334,18 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
     if (a.tid == 0) *count = s0 + total;
   }
   const int per = a.W / 4;  // 16-byte chunks of a slab row
-  const int rs = kMbar ? a.ld : a.W;  // a slab's row stride
-  const int slot = kSK * (rs + (kStream ? T : 0));  // floats a slot
+  // segment j's row stride in the map and in its slab (with kPassMajor,
+  // the last pass's segments are the last vper)
+  auto stride = [&](int j) {
+    if constexpr (kPassMajor)
+      return j < a.nseg - a.vper ? a.W : a.ld;
+    else
+      return kMbar ? a.ld : a.W;
+  };
+  int rs = stride(0);  // ... of the slab in hand
+  // floats a slot (with kPassMajor as wide as the widest pass)
+  const int slot =
+      kSK * ((kPassMajor && a.nseg > a.vper ? a.W : rs) + (kStream ? T : 0));
   // this thread's first chunk of a slab: row r0c, chunk c0c; it then steps
   // kThreads chunks at a time
   const int r0c = a.tid / per, c0c = a.tid - r0c * per;
@@ -347,9 +362,9 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
     if constexpr (kMbar) {
       if (s >= total) return;
       const int rows = min(kSK, a.K - ik);
-      const int g = s0 + s;
+      const int g = s0 + s, ld = stride(ij);
       float* dst = a.ring + (g % kST) * slot;
-      const float* src = seg(ij) + static_cast<size_t>(ik) * a.ld;
+      const float* src = seg(ij) + static_cast<size_t>(ik) * ld;
       ik += kSK;
       if (ik >= a.K) {
         ik = 0;
@@ -361,7 +376,7 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
       if (g >= kST) mbar_wait(&ring_bars.empty[g % kST], (g / kST - 1) & 1);
       if (a.tid == 0) {
         unsigned long long* bar = &ring_bars.full[g % kST];
-        const unsigned bytes = 4u * static_cast<unsigned>(rows * rs);
+        const unsigned bytes = 4u * static_cast<unsigned>(rows * ld);
         mbar_expect(bar, bytes);
         bulk_copy(dst, src, bytes, bar);
       }
@@ -480,7 +495,10 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
       zero();
       ++j;
       k0 = 0;
-      if (j < a.nseg) rows_here = r0 < seg_rows(a, j);
+      if (j < a.nseg) {
+        rows_here = r0 < seg_rows(a, j);
+        if constexpr (kPassMajor) rs = stride(j);
+      }
     }
   }
 }

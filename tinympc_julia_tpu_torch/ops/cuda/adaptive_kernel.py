@@ -88,22 +88,24 @@ K2_RPTS = {32: (8, 20), 16: (8,)}
 K2_GLOBAL_RPT = 20
 K2_CLUSTER_RPT = 32  # K1's CLUSTER_RPT
 # the width (rows of ux) from which K2 takes the cluster layout even where
-# its iterates fit in shared memory: the quadrotor's N = 76, where the
-# plan's tiles of 16 lanes begin and the cluster beat them on the card
-# (PERF.md section 6, R11)
-K2_CLUSTER_FROM_WIDTH = 1212
-# The bulk-ring layouts (ROADMAP R5, R6): where both products take one
-# pass, 4 lanes a thread in the fp32 products (csrc/condensed_adaptive.cu
-# K2Product), the maps' rows padded only to a thread's rows (``bulk_rows``)
-# so that a slab of 16 k-rows is one copy of the bulk copy engine, with no
-# block barrier a slab.  A launch whose tiles of 32 lanes would leave half
-# the card's SMs idle (a continuation's slots) takes the continuation
-# layout: tiles of 16 lanes, twice the blocks, each product one pass of
-# K2_CONT_RPT x 32 = 512 rows over the map's valid rows (8 rows x 4 lanes a
-# thread).  A batch that fills the card takes the 4-lane layout: tiles of
-# 32 lanes, one pass of K2_LANES4_RPT x 16 = 320 rows (10 rows x 4 lanes a
-# thread in the forward product, 12 x 4 in the backward, whose interleaved
-# outputs take 4 rows each).
+# its iterates fit in shared memory: the quadrotor's N = 57, the first
+# width past the 4-lane layout in passes in fp32, where a cluster of 2
+# beat the tiles of 32 on 2 lanes a thread (at N = 57 and 60, 128 and 512
+# tiles) as it beat the tiles of 16 from N = 76 on the card (PERF.md
+# section 6, R11, R17)
+K2_CLUSTER_FROM_WIDTH = 908
+# The bulk-ring layouts (ROADMAP R5, R6, R17): 4 lanes a thread in the fp32
+# products (csrc/condensed_adaptive.cu K2Product), each map laid out pass
+# by pass, a pass's [k][row] block with its rows padded only to a thread's
+# rows (``bulk_ld``), so that a slab of 16 k-rows of a pass is one copy of
+# the bulk copy engine, with no block barrier a slab.  A launch whose tiles
+# of 32 lanes would leave half the card's SMs idle (a continuation's slots)
+# takes the continuation layout: tiles of 16 lanes, twice the blocks, each
+# product one pass of K2_CONT_RPT x 32 = 512 rows over the map's valid rows
+# (8 rows x 4 lanes a thread).  A batch that fills the card takes the
+# 4-lane layout: tiles of 32 lanes, passes of K2_LANES4_RPT x 16 = 320 rows
+# (10 rows x 4 lanes a thread) in the forward product and of 384 in the
+# backward (12 x 4, whose interleaved outputs take 4 rows each).
 K2_CONT_RPT = 16
 K2_LANES4_RPT = 20
 
@@ -161,8 +163,9 @@ class AdaptivePlan(NamedTuple):
                         # N state stages (its rows of ux)
     ustages: tuple = ()  # ... and input stages [ustages[c], ustages[c +
                          # 1]) (its rows of d)
-    ld: tuple = ()      # the bulk-ring layouts' (ld1, ld2): the maps' rows
-                        # padded to a thread's rows (``bulk_rows``)
+    ld: tuple = ()      # the bulk-ring layouts' (ld1, ld2): the maps'
+                        # rows, pass by pass, each pass's padded to a
+                        # thread's rows (``bulk_ld``)
     lanes: int = 2      # lanes a thread of the fp32 products (2 rpt / lanes
                         # rows; csrc/condensed_adaptive.cu K2Product): 4 in
                         # the bulk-ring layouts, 8 on a cluster
@@ -171,6 +174,27 @@ class AdaptivePlan(NamedTuple):
     def width(self) -> int:
         """Rows the products cover at once."""
         return self.rpt * 2 * self.threads // self.tile
+
+    @property
+    def width2(self) -> int:
+        """Rows the backward product covers at once: the forward's at its
+        own rows a thread, whole outputs of 4 interleaved rows
+        (csrc/condensed_adaptive.cu K2Product::kRows2; 384 on the 4-lane
+        layout, else the forward's)."""
+        rows = 2 * self.rpt // self.lanes
+        return self.width // rows * (-(-rows // 4) * 4)
+
+    @property
+    def ring_rows(self) -> int:
+        """Rows of a slot of the fp32 products' ring: the products' rows at
+        once, or on the bulk-ring layouts the widest pass a slot takes (a
+        backward pass of 384 rows where the backward takes more than one,
+        else its one pass's padded rows where they are more than the
+        forward's 320)."""
+        if not self.bulk_ring:
+            return self.width
+        return max(self.width,
+                   self.width2 if self.passes2 > 1 else self.ld2)
 
     @property
     def slab_k(self) -> int:
@@ -186,7 +210,8 @@ class AdaptivePlan(NamedTuple):
 
     @property
     def ld1(self) -> int:
-        """Padded rows of each transposed T1 block (every block's)."""
+        """Padded rows of each transposed T1 block (every block's; on the
+        bulk-ring layouts its passes' together)."""
         return self.ld[0] if self.ld else (self.cluster * self.passes1
                                            * self.width)
 
@@ -200,15 +225,18 @@ class AdaptivePlan(NamedTuple):
 def adaptive_smem(nx: int, nu: int, N: int, order: int, tile: int, rpt: int,
                   passes1: int, passes2: int, resident: bool,
                   state_shared: bool, reduced: bool,
-                  state_free: bool, iterates_global: bool = False) -> int:
+                  state_free: bool, iterates_global: bool = False,
+                  ring_rows: int | None = None) -> int:
     """One block's shared memory (csrc/condensed_adaptive.cu k2_layout):
     vec1 and ux/vec2 of the tile's lanes (none where they live in global
     memory), the latch flags, the lanes' rho twice, the elementwise
     partials (12 floats a thread), the duals and slacks where resident, the
     maps (resident: fp32 and, with reduced iterations, bf16 with rows padded
-    by 8; streamed: the slab ring, each slab with the tile's rows of the
-    product's input beside it where the iterates are global), the bf16
-    product input of reduced iterations (global with the iterates)."""
+    by 8; streamed: the slab ring of ``ring_rows`` rows a slab, default the
+    products' rows at once (``AdaptivePlan.ring_rows``), each slab with the
+    tile's rows of the product's input beside it where the iterates are
+    global), the bf16 product input of reduced iterations (global with the
+    iterates)."""
     su, sx, sw = _dims(nx, nu, N)
     in1, ord1 = su + nx + 1, order + 1
     W = rpt * 2 * THREADS // tile
@@ -225,7 +253,7 @@ def adaptive_smem(nx: int, nu: int, N: int, order: int, tile: int, rpt: int,
             n += (_up16(2 * ord1 * ld1 * (kp1 + 8))
                   + _up16(2 * ld2 * (kp2 + 8)))
     else:
-        n += _up16(ring_bytes(W, reduced, tile if wg else 0))
+        n += _up16(ring_bytes(ring_rows or W, reduced, tile if wg else 0))
     if reduced and not wg:
         n += _up16(2 * tile * (max(kp1, kp2) + 8))
     return n
@@ -263,13 +291,27 @@ def bulk_rows(v: int, rows: int) -> int:
     return -(-(-(-v // rows) * rows) // 4) * 4
 
 
-def bulk_ld(su: int, sw: int, rpt: int) -> tuple[int, int]:
+def pass_rows(v: int, rows: int, width: int | None = None) -> int:
+    """The padded rows of a map of ``v`` valid rows laid out pass by pass
+    (csrc/condensed_adaptive.cu pass_rows): every pass but the last
+    ``width`` rows, the last its valid rows padded (``bulk_rows``); one
+    pass where ``width`` is None."""
+    full = 0 if width is None else (-(-v // width) - 1) * width
+    return full + bulk_rows(v - full, rows)
+
+
+def bulk_ld(su: int, sw: int, rpt: int,
+            width: int | None = None) -> tuple[int, int]:
     """A bulk-ring layout's (ld1, ld2) at ``rpt`` rows a thread of the
     products: the forward map's sw rows at the 2 rpt / 4 rows of a thread
     of 4 lanes, the backward stack's 4 su at that rounded up to whole
-    outputs of 4 rows (K2Product::kRows2)."""
+    outputs of 4 rows (K2Product::kRows2), each in passes (``pass_rows``)
+    of ``width`` rows (the forward product's rows at once; the backward's
+    at its own rows a thread) or, where None, in one pass."""
     rows = rpt // 2
-    return bulk_rows(sw, rows), bulk_rows(4 * su, -(-rows // 4) * 4)
+    rows2 = -(-rows // 4) * 4
+    width2 = None if width is None else width // rows * rows2
+    return (pass_rows(sw, rows, width), pass_rows(4 * su, rows2, width2))
 
 
 def cluster_rows(nx: int, nu: int, N: int, stages: tuple,
@@ -367,22 +409,35 @@ def continuation_adaptive_plan(nx: int, nu: int, N: int, order: int,
 def four_lane_adaptive_plan(nx: int, nu: int, N: int, order: int,
                             reduced: bool = False,
                             state_free: bool = True) -> AdaptivePlan | None:
-    """The 4-lane layout at this shape: the plan of tiles of 32 lanes
-    (``shared_adaptive_plan``) where it streams its maps in one pass of
-    K2_LANES4_RPT x 16 = 320 rows, with 4 lanes a thread in the fp32
-    products (10 rows in the forward, 12 in the backward), the maps' rows
-    padded to those (``bulk_ld``), the ring filled by the bulk copy engine
-    and room left for its barriers (RING_BARS_BYTES).  None where that
-    plan is another or the padded rows or the barriers do not fit."""
+    """The 4-lane layout at this shape, where the plan of tiles of 32 lanes
+    (``shared_adaptive_plan``) streams its maps at K2_LANES4_RPT rows a
+    thread: 4 lanes a thread in the fp32 products, passes of 10 rows x 32
+    = 320 rows in the forward and 12 x 32 = 384 in the backward, the maps
+    laid out pass by pass with each pass's rows padded to a thread's
+    (``bulk_ld``), the ring filled by the bulk copy engine, its slots as
+    wide as the widest pass (``AdaptivePlan.ring_rows``), the lanes' duals
+    and slacks in shared memory where they fit, and room left for the
+    ring's barriers (RING_BARS_BYTES).  None where that plan is another or
+    the layout does not fit (from the quadrotor's N = 57 in fp32, sw 908:
+    vec1, ux and a ring of 384-row slots)."""
     su, sx, sw = _dims(nx, nu, N)
-    plan = shared_adaptive_plan(nx, nu, N, order, reduced, state_free)
-    if plan is None or plan.tile != TILE or plan.rpt != K2_LANES4_RPT \
-            or plan.resident or (plan.passes1, plan.passes2) != (1, 1) \
-            or plan.smem > SMEM_PER_BLOCK - RING_BARS_BYTES:
+    two = shared_adaptive_plan(nx, nu, N, order, reduced, state_free)
+    if two is None or two.tile != TILE or two.rpt != K2_LANES4_RPT \
+            or two.resident:
         return None
-    ld = bulk_ld(su, sw, plan.rpt)
-    return (plan._replace(lanes=4, ld=ld) if max(ld) <= plan.width
-            else None)
+    W = two.width
+    ld = bulk_ld(su, sw, K2_LANES4_RPT, W)
+    plan = AdaptivePlan(TILE, THREADS, K2_LANES4_RPT, -(-sw // W), 1, False,
+                        True, _kp(su + nx + 1), _kp(sw + 1), 0, ld=ld,
+                        lanes=4)
+    plan = plan._replace(passes2=-(-4 * su // plan.width2))
+    for shared in (True, False):
+        smem = adaptive_smem(nx, nu, N, order, TILE, plan.rpt, plan.passes1,
+                             plan.passes2, False, shared, reduced,
+                             state_free, ring_rows=plan.ring_rows)
+        if smem <= SMEM_PER_BLOCK - RING_BARS_BYTES:
+            return plan._replace(state_shared=shared, smem=smem)
+    return None
 
 
 def shared_adaptive_plan(nx: int, nu: int, N: int, order: int,
@@ -390,8 +445,9 @@ def shared_adaptive_plan(nx: int, nu: int, N: int, order: int,
                          state_free: bool = True) -> AdaptivePlan | None:
     """The layout with the tile's iterates in one block's shared memory
     (None where none fits), 2 lanes a thread in the fp32 products (where
-    its maps stream in one pass of 320 rows, the 4-lane layout takes it
-    over: ``four_lane_adaptive_plan``).  Tiles of 32 lanes (a launch of
+    its tiles of 32 stream their maps at 20 rows a thread, the 4-lane
+    layout takes it over where that fits: ``four_lane_adaptive_plan``).
+    Tiles of 32 lanes (a launch of
     few tiles takes the continuation layout instead:
     ``adaptive_tile_plan``; tiles of 16 in this layout's passes of 256
     rows lost there, PERF.md section 6);
@@ -459,9 +515,10 @@ def adaptive_tile_plan(nx: int, nu: int, N: int, order: int,
     the tiles of 32 would take K2_LANES4_RPT rows a thread (it won at
     every such width measured, down to sw 105: PERF.md section 6; a map
     narrow enough for 8 rows a thread keeps its tiles); at any other batch, where the tiles of 32 stream their
-    maps in one pass of 320 rows, the 4-lane layout
-    (``four_lane_adaptive_plan``: it beat the continuation layout from 72
-    tiles of 32 on, and 2 lanes a thread at every batch measured);
+    maps at 20 rows a thread, the 4-lane layout in one pass or more
+    (``four_lane_adaptive_plan``: in one pass it beat the continuation
+    layout from 72 tiles of 32 on, and 2 lanes a thread at every batch
+    measured; in passes: PERF.md section 6);
     from K2_CLUSTER_FROM_WIDTH, or where the iterates do not fit, the tile
     of 32 split over a thread block cluster (``cluster_adaptive_plan``:
     every width of the JAX package's condensed budget); where even a
@@ -818,17 +875,38 @@ def _row_layout(plan: AdaptivePlan, nx: int, nu: int, N: int, device):
             index(dspans, per2))
 
 
+def _pass_major(m: torch.Tensor, width: int, ld: int) -> torch.Tensor:
+    """A transposed map (..., K, v) laid out pass by pass, (..., K x ld):
+    pass p's [k][row] block of its rows [p width, (p + 1) width) after the
+    earlier passes', every pass but the last ``width`` rows wide, the last
+    the rest of the ``ld`` padded rows (``pass_rows``); padding zero."""
+    K, v = m.shape[-2:]
+    out = m.new_zeros(m.shape[:-2] + (K * ld,))
+    off = 0
+    for a in range(0, v, width):
+        b = min(v, a + width)
+        rows = width if b < v else ld - a
+        out.narrow(-1, off, K * rows).unflatten(-1, (K, rows))[
+            ..., :b - a] = m[..., a:b]
+        off += K * rows
+    return out
+
+
 def map_layout(tmaps: CondensedTaylorMaps, su, sw, plan: AdaptivePlan,
                reduced: bool):
     """Kernel-side layouts of the Taylor maps (kept by ``LastLayout``), a
     leading group axis kept: each T1 block transposed, (o+1, in1,
     ``plan.ld1``); the four T2 blocks (their sw + 1 read columns)
     transposed and stacked with rows interleaved, row 4 r + c of the stack
-    being row r of block c, (sw + 1, ``plan.ld2``); rows zero-padded.  With
-    reduced iterations also both in real bf16 (round to nearest even),
-    row-major and zero-padded to (o+1, ld1, kp1) and (ld2, kp2), else
-    None.  A cluster plan lays each map's rows out block by block: block
-    c's output rows from row c x ld / cluster, padded to its passes."""
+    being row r of block c, (sw + 1, ``plan.ld2``); rows zero-padded.  A
+    bulk-ring plan lays each out pass by pass (``_pass_major``: passes of
+    ``plan.width`` rows of each T1 block, (o+1, in1 x ld1), and of
+    ``plan.width2`` of the stack, ((sw + 1) x ld2,)), so that a slab of a
+    pass is one bulk copy.  With reduced iterations also both in real bf16
+    (round to nearest even), row-major and zero-padded to (o+1, ld1, kp1)
+    and (ld2, kp2), else None.  A cluster plan lays each map's rows out
+    block by block: block c's output rows from row c x ld / cluster,
+    padded to its passes."""
     T1s, T2s = tmaps.T1s, tmaps.T2s
     lead = T1s.shape[:-3]
     ord1, in1 = T1s.shape[-3], T1s.shape[-1]
@@ -837,13 +915,19 @@ def map_layout(tmaps: CondensedTaylorMaps, su, sw, plan: AdaptivePlan,
     (d1, s1), (d2, s2) = _row_layout(plan, nx, su // max(N - 1, 1), N,
                                      T1s.device)
     f32 = dict(dtype=torch.float32, device=T1s.device)
-    t1t = torch.zeros(lead + (ord1, in1, plan.ld1), **f32)
-    t1t[..., d1] = T1s.transpose(-1, -2)[..., s1].float()
     # (..., 4, su, sw + 1) -> rows 4 r + c
     t2s = torch.cat([T2s[..., :sw], T2s[..., -1:]], dim=-1).transpose(-3, -2)
     t2s = t2s.reshape(lead + (4 * su, sw + 1))
-    t2t = torch.zeros(lead + (sw + 1, plan.ld2), **f32)
-    t2t[..., d2] = t2s.transpose(-1, -2)[..., s2].float()
+    if plan.bulk_ring:
+        t1t = _pass_major(T1s.transpose(-1, -2).float(), plan.width,
+                          plan.ld1)
+        t2t = _pass_major(t2s.transpose(-1, -2).float(), plan.width2,
+                          plan.ld2)
+    else:
+        t1t = torch.zeros(lead + (ord1, in1, plan.ld1), **f32)
+        t1t[..., d1] = T1s.transpose(-1, -2)[..., s1].float()
+        t2t = torch.zeros(lead + (sw + 1, plan.ld2), **f32)
+        t2t[..., d2] = t2s.transpose(-1, -2)[..., s2].float()
     if not reduced:
         return t1t, t2t, None, None
     bf = dict(dtype=torch.bfloat16, device=T1s.device)

@@ -2,7 +2,8 @@
 layout on one NVIDIA GPU (not run by the tests or by chip_smoke.py):
 
     python -m tinympc_julia_tpu_torch.ops.cuda.layout_probe \
-        [wide|cluster|far|stage|sections [--cartpole|--k2]|switch|narrow]
+        [wide|cluster|far|stage|sections [--cartpole|--k2]|switch|narrow|
+         rows]
 
 ``wide`` times the layouts the plans take at the wide maps of
 chip_smoke.py's phases 34a, 34d and 35a, each beside its product
@@ -19,7 +20,11 @@ with clock64() counters, at the continuations of the adaptive quadrotor
 ``cartpole_cases``, each also on tiles of 32 forced; with ``--k2``: K2's
 launches alone).  ``switch`` times the batch-aware plans' layouts on each
 side of their switches (ROADMAP R5, R6); ``narrow`` K1's warp layout against tiles of 32 forced at the
-cartpole's launches (ROADMAP R3).  All print only.  ``product_yardstick`` is also
+cartpole's launches (ROADMAP R3); ``rows [--k1]`` times K2's (K1's)
+launches of chip_smoke.py's kernels line on their plans with each one's
+digest, so that runs of two trees in turns compare times and bits
+(ROADMAP R17).
+All print only.  ``product_yardstick`` is also
 chip_smoke.py's yardstick, ``same_bits`` its comparison of layouts."""
 from __future__ import annotations
 
@@ -1050,26 +1055,106 @@ def sections_probe(reps=3, cases=None, plans=None, sass_dir=None):
     return out
 
 
+def multi_pass_cases(dev):
+    """K2's launches whose maps take more than one pass, as chip_smoke.py
+    drives them: phase 35b (the 20-state chain, N = 20, the OSQP-form
+    controller with rho in [0.2, 5], 4,096 lanes, 150 iterations, no
+    carry) and phase 11w (the adaptive pipeline's bulk pass at the
+    quadrotor's N = 40: 16,384 lanes, 150 iterations, the termination
+    controller floored at rho0 = 5 with trust 2, the carry out).  Returns
+    {name: (module, wrapper's partial, the 2-lane plan)}."""
+    from tinympc_julia_tpu_torch import make_problem
+    from tinympc_julia_tpu_torch.ops.condensed import build_condensed_taylor
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    f32 = torch.float32
+    A, Bm = chain_plant()
+    p = make_problem(A, Bm, np.eye(20), np.eye(9), 1.0, 20, u_min=-1.0,
+                     u_max=1.0, dtype=f32, device=dev)
+    c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+    x0 = torch.as_tensor(0.5 * np.random.default_rng(37).standard_normal(
+        (4096, 20)), dtype=f32, device=dev)
+    chain = functools.partial(
+        K2.condensed_adaptive_cuda, build_condensed_taylor(p, c), p.u_min,
+        p.u_max, p.x_min, p.x_max, x0, None,
+        plant=K2.AdaptivePlant(p.A, p.B, p.Q, p.R, c.Pinf, c.dPinf_drho),
+        nx=20, nu=9, N=20, max_iter=150, abs_pri_tol=1e-3, abs_dua_tol=1e-3,
+        en_state_bound=False, en_input_bound=True, relaxation_alpha=1.0,
+        adaptive_rho_min=0.2, adaptive_rho_max=5.0,
+        adaptive_rho_clipping=True, check_termination=1, controller="osqp",
+        taylor_trust=float("inf"), warm_start=False, carry_out=False)
+    q, qc, tq, x0q = quad_wide_case(dev)
+    wide = functools.partial(K2.condensed_adaptive_cuda, tq, q.u_min,
+                             q.u_max, q.x_min, q.x_max, x0q, None,
+                             **quad_wide_kw(q))
+    return {"K2 chain OSQP-form (phase 35b, 4,096 lanes, 150 iterations)":
+            (K2, chain, K2.shared_adaptive_plan(20, 9, 20, 2)),
+            "K2 quadrotor N=40 bulk (phase 11w, 16,384 lanes, 150 "
+            "iterations)": (K2, wide, K2.shared_adaptive_plan(12, 4, 40, 2))}
+
+
+def quad_wide_case(dev, N=40, B=16384):
+    """Phase 11w's inputs: the quadrotor at horizon ``N`` (|u| <= its
+    hover bound), its Taylor maps, ``B`` initial states uniform in
+    [-0.3, 0.3] (seed 1, phase 11's): (problem, cache, maps, x0)."""
+    from tinympc_julia_tpu_torch import make_problem
+    from tinympc_julia_tpu_torch.models import quadrotor
+    from tinympc_julia_tpu_torch.ops.condensed import build_condensed_taylor
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    f32 = torch.float32
+    p = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
+                     np.diag(quadrotor.R_DIAG), quadrotor.RHO, N,
+                     u_min=-quadrotor.U_HOVER_BOUND,
+                     u_max=quadrotor.U_HOVER_BOUND, dtype=f32, device=dev)
+    c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+    x0 = torch.as_tensor(np.random.default_rng(1).uniform(
+        -0.3, 0.3, size=(B, 12)), dtype=f32, device=dev)
+    return p, c, build_condensed_taylor(p, c), x0
+
+
+def quad_wide_kw(p, **kw):
+    """The adaptive pipeline's bulk-pass settings (phase 11's) at ``p``'s
+    horizon: 150 iterations, the termination controller floored at rho0 =
+    5 with trust 2, the carry out."""
+    from tinympc_julia_tpu_torch.models import quadrotor
+    base = dict(plant=None, nx=12, nu=4, N=p.N, max_iter=150,
+                abs_pri_tol=1e-3, abs_dua_tol=1e-3, en_state_bound=False,
+                en_input_bound=True, relaxation_alpha=1.0,
+                adaptive_rho_min=quadrotor.RHO, adaptive_rho_max=1e3,
+                adaptive_rho_clipping=True, check_termination=1,
+                controller="termination", taylor_trust=2.0,
+                warm_start=False, carry_out=True)
+    base.update(kw)
+    return base
+
+
 def sections_main(sass_dir=None, k2_only=False):
-    """``sections_probe`` at the continuations' shapes, each launch also on
-    the other layouts that could take it (forced, held bit for bit against
+    """``sections_probe`` at the continuations' shapes and at K2's
+    launches in passes (``multi_pass_cases``), each launch also on the
+    other layouts that could take it (forced, held bit for bit against
     the plan's): K2's bulk launch with 2 lanes a thread (the layout before
     the 4-lane one) and on the continuation layout (why the plan takes the
     batch), and without its carry out (so on the 4-lane layout with the
     one-pass box step; with 2 lanes, the two passes); K2's continuation on
-    tiles of 32 (the layout before the batch-aware plan); K1d's launches
-    with 2 lanes a thread (the layout before the 4-lane one).  With
-    ``k2_only``, K2's launches alone (K1 is neither built nor run)."""
+    tiles of 32 (the layout before the batch-aware plan); phase 35b's and
+    11w's launches with 2 lanes a thread (the layout before the 4-lane one
+    in passes); K1d's launches with 2 lanes a thread (the layout before
+    the 4-lane one).  With ``k2_only``, K2's launches alone (K1 is neither
+    built nor run)."""
     from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
     from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
-    cases = continuation_cases(torch.device("cuda"))
+    dev = torch.device("cuda")
+    cases = continuation_cases(dev)
     names = list(cases)
     bulk = cases[names[0]][1]
     free = "K2 bulk, no carry out (16,384 lanes, 150 iterations)"
+    wide = multi_pass_cases(dev)
     cases = {names[0]: cases[names[0]],
              free: (K2, functools.partial(bulk.func, *bulk.args, **dict(
                  bulk.keywords, carry_out=False))),
-             **{n: cases[n] for n in names[1:]}}
+             names[1]: cases[names[1]],
+             **{n: (m, f) for n, (m, f, _) in wide.items()},
+             **{n: cases[n] for n in names[2:]}}
     if k2_only:
         cases = {n: c for n, c in cases.items() if c[0] is K2}
     two = K2.shared_adaptive_plan(12, 4, 20, 2)
@@ -1082,6 +1167,8 @@ def sections_main(sass_dir=None, k2_only=False):
         names[1]: [("tiles of 32, 2 lanes (the parent's)", two),
                    ("tiles of 32, 4 lanes",
                     K2.four_lane_adaptive_plan(12, 4, 20, 2))],
+        **{n: [("tiles of 32, 2 lanes (the parent's)", plan)]
+           for n, (_, _, plan) in wide.items()},
         names[2]: [("2 lanes a thread (the parent's)", k1_shared[1])],
         names[3]: [("2 lanes a thread (the parent's)", k1_shared[0])]})
 
@@ -1119,6 +1206,13 @@ def switch_cases(dev, sms, k2_only=False):
       twice 67 blocks exceed ``sms``, the card's SMs; 512: the bulk pass's
       16,384 lanes) and on the group grid of chip_smoke.py's phase 15b
       (``grid_case``: 8 groups x 512 lanes, 128 tiles).
+    * K2's 4-lane layout in passes (320 rows in the forward product, 384
+      in the backward) against 2 lanes a thread and, from sw 892, the
+      cluster, at 128 and 512 tiles: the quadrotor at N = 21 (sw 332), 30
+      (476), 40 (636), 50 (796), 56 (892, the widest the layout takes), 57
+      (908, the first it does not: 2 lanes against the cluster) and 60
+      (956), and the 20-state chain under phase 35b's OSQP-form controller
+      (571; rho in [0.2, 5], no carry).
     * K1's 4-lane layout (10 rows x 4 lanes a thread) against 2 lanes, at
       64 and 2,048 tiles: the quadrotor at N = 9 (sw 140) and 20 (316), the
       cartpole at N = 28 (139) and 64 (319), the rocket with its cones at
@@ -1136,10 +1230,18 @@ def switch_cases(dev, sms, k2_only=False):
     f32 = torch.float32
     models = dict(quadrotor=(quadrotor, 0.5, 0.3), cartpole=(cartpole, 5.0,
                                                              0.5))
+    wide_from = 892  # sw from which the cluster stands beside 2 lanes
 
     @functools.cache
     def problem(name, N):
         """(problem, cache, constraints, x0 of 65,536 lanes)."""
+        if name == "chain":
+            A, Bm = chain_plant()
+            p = make_problem(A, Bm, np.eye(20), np.eye(9), 1.0, N,
+                             u_min=-1.0, u_max=1.0, dtype=f32, device=dev)
+            c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+            x0 = 0.5 * np.random.default_rng(37).standard_normal((65536, 20))
+            return p, c, None, torch.as_tensor(x0, dtype=f32, device=dev)
         if name == "rocket":
             solver = rocket.make_solver(N=N, dtype=f32, device=dev)
             Xref, Uref = rocket.reference_trajectory(0, N=N)
@@ -1171,7 +1273,10 @@ def switch_cases(dev, sms, k2_only=False):
         ("cartpole", n, 64) for n in (52, 80, 102)] + [
         ("rocket", n, 64) for n in (12, 27, 29, 43)] + [
         ("quadrotor", 20, t) for t in (4, 66, 67, 72, 80, 96, 112, 128, 256,
-                                       512)]
+                                       512)] + [
+        (name, n, t) for name, n in [("quadrotor", n) for n in (
+            21, 30, 40, 50, 56, 57, 60)] + [("chain", 20)]
+        for t in (128, 512)]
     for name, N, tiles in k2_shapes:
         p, c, cons, x0 = problem(name, N)
         nx, nu = p.nx, p.nu
@@ -1183,6 +1288,12 @@ def switch_cases(dev, sms, k2_only=False):
                   check_termination=1, controller="termination",
                   taylor_trust=2.0, warm_start=False, carry_out=True,
                   constraints=cons)
+        if name == "chain":  # phase 35b's controller
+            kw.update(plant=K2.AdaptivePlant(p.A, p.B, p.Q, p.R, c.Pinf,
+                                             c.dPinf_drho),
+                      max_iter=150, adaptive_rho_min=0.2,
+                      adaptive_rho_max=5.0, controller="osqp",
+                      taylor_trust=float("inf"), carry_out=False)
         f = functools.partial(K2.condensed_adaptive_cuda,
                               build_condensed_taylor(p, c), *bounds(p),
                               x0[:32 * tiles].contiguous(), None, **kw)
@@ -1190,8 +1301,9 @@ def switch_cases(dev, sms, k2_only=False):
         plan = K2.adaptive_tile_plan(nx, nu, N, 2, False, free, tiles=tiles,
                                      sms=sms)
         cases.append((f"K2 {name} N={N} {tiles} tiles", K2, f,
-                      _sw(nx, nu, N), plan, k2_layouts(nx, nu, N, free,
-                                                       plan)))
+                      _sw(nx, nu, N), plan, k2_layouts(
+                          nx, nu, N, free, plan,
+                          cluster=_sw(nx, nu, N) >= wide_from)))
     f, plan = grid_case(dev, sms)
     cases.append(("K2 quadrotor grid 8 x 512 (128 tiles)", K2, f,
                   _sw(12, 4, 20), plan, k2_layouts(12, 4, 20, True, plan)))
@@ -1223,10 +1335,11 @@ def switch_cases(dev, sms, k2_only=False):
     return cases
 
 
-def k2_layouts(nx, nu, N, state_free, plan):
+def k2_layouts(nx, nu, N, state_free, plan, cluster=False):
     """K2's layouts of a streamed shape that the switches weigh, the plan's
     first: the continuation layout, tiles of 32 with 4 lanes a thread and
-    with 2 (each where it exists), as [(name, plan)]."""
+    with 2 (each where it exists) and, with ``cluster``, the cluster the
+    card's occupancy picks, as [(name, plan)]."""
     from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
     out = [("tiles of 16, continuation", K2.continuation_adaptive_plan(
                nx, nu, N, 2, False, state_free)),
@@ -1234,6 +1347,10 @@ def k2_layouts(nx, nu, N, state_free, plan):
                nx, nu, N, 2, False, state_free)),
            ("tiles of 32, 2 lanes", K2.shared_adaptive_plan(
                nx, nu, N, 2, False, state_free))]
+    if cluster:
+        c = K2.cluster_adaptive_plan(nx, nu, N, 2,
+                                     busy_sms=K2.card_busy_sms)
+        out.append((f"a cluster of {c.cluster}", c))
     return sorted([o for o in out if o[1] is not None],
                   key=lambda o: o[1] != plan)
 
@@ -1326,11 +1443,45 @@ def switch_probe(reps=3, k2_only=False):
     return out
 
 
+def rows_probe(reps=5, k1=False):
+    """K2's launches of chip_smoke.py's kernels line on the plans the tree
+    takes: the adaptive bulk pass (16,384 lanes) and its continuation
+    (2,048 slots), the group grid of phase 15b, phase 35b's chain and phase
+    11w's bulk pass at N = 40 (``continuation_cases``, ``grid_case``,
+    ``multi_pass_cases``); with ``k1`` K1's instead (the cartpole's
+    launches of phases 6, 20 and 22, ``cartpole_cases``, and the
+    requantized and bulk-sized K1d launches of ``continuation_cases``);
+    each timed (CUDA events, median of ``reps`` after a warm-up) with its
+    digest, so that two trees, each with this file, run in turns compare
+    bit for bit.  Prints only; returns {name: ms}."""
+    from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = {n: f for n, (m, f) in continuation_cases(dev).items()
+             if (m is K2) != k1}
+    if k1:
+        cases.update({n: f for n, (_, f) in cartpole_cases(dev).items()})
+    else:
+        cases["K2 group grid 8 x 512 (phase 15b)"] = grid_case(dev, sms)[0]
+        cases.update({n: f for n, (_, f, _) in
+                      multi_pass_cases(dev).items()})
+    out = {}
+    for name, f in cases.items():
+        res = f()
+        torch.cuda.synchronize()
+        t = float(np.median([event_ms(f) for _ in range(reps)]))
+        print(f"rows probe {name}: {t:.3f} ms (median of {reps}), digest "
+              f"(the carry included) {digest(list(_flat(res)))}",
+              flush=True)
+        out[name] = t
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probe", nargs="?",
                     choices=("wide", "cluster", "far", "stage", "sections",
-                             "switch", "narrow"),
+                             "switch", "narrow", "rows"),
                     default="cluster")
     ap.add_argument("--cartpole", action="store_true",
                     help="sections: the cartpole's launches (cartpole_cases) "
@@ -1340,6 +1491,8 @@ def main(argv=None):
                          "layouts' kernels under DIR")
     ap.add_argument("--k2", action="store_true",
                     help="sections, switch: K2's launches alone")
+    ap.add_argument("--k1", action="store_true",
+                    help="rows: K1's launches instead of K2's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("layout_probe: needs an NVIDIA GPU")
@@ -1349,6 +1502,9 @@ def main(argv=None):
         return
     if args.probe == "switch":
         switch_probe(k2_only=args.k2)
+        return
+    if args.probe == "rows":
+        rows_probe(k1=args.k1)
         return
     dict(wide=wide_layout_probe, cluster=cluster_probe,
          far=far_layout_probe, stage=stage_probe,
