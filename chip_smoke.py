@@ -9,9 +9,10 @@ Phases (one line each; any failure exits non-zero):
      fp32 in every fp32 path (the plain versions included), so every
      comparison below also shows that the pin holds;
   2. build: nvcc compiles kernels K1 (csrc/condensed_fused.cu), K2
-     (csrc/condensed_adaptive.cu) and K3 (csrc/fused_stage.cu), side by
-     side, into build/torch_kernels/, with each file's registers and the
-     variants that spill, and each K3 variant's registers and spill bytes;
+     (csrc/condensed_adaptive.cu, in two translation units) and K3
+     (csrc/fused_stage.cu), side by side, into build/torch_kernels/, with
+     each file's registers and the variants that spill, and each K3
+     variant's registers and spill bytes;
   3. kernel vs plain at the cartpole shape (B = 4096): (a) cold, ct=1,
      alpha=1.7, no state bound; (b) ct=4; (c) the generic path with the
      constrained cartpole's state bound |x0| <= 2; (d) a 30 + 50 warm chain
@@ -21,8 +22,9 @@ Phases (one line each; any failure exits non-zero):
      57 (sw 636 and 908, wider than the 16 RPT rows the product's threads
      cover at once: the product in passes), B = 2,048, fp32 (400
      iterations, timed beside its plain version with its tile iterations)
-     and precision="default" (24 iterations), each with its plan (passes,
-     rows a thread, residency, shared-memory bytes);
+     and precision="default" (24 iterations), each with its plan (the
+     layout it takes, passes, lanes and rows a thread, residency,
+     shared-memory bytes);
   5. the main path through the API: TinyMPCSolver on "cuda",
      solve_batch(method="fused") at B = 65,536 and a return_carry/warm chain;
   6. the headline three-phase pipeline at B = 65,536 with 8,192 straggler
@@ -285,12 +287,20 @@ Phases (one line each; any failure exits non-zero):
      out, on the 4-lane layout in 2 + 2 passes, against its plain version
      and against 2 lanes a thread forced (bit-equal, timed in turns), with
      its bound;
+ 4w. (run after 11w) K1 at the quadrotor's N = 40 (sw 636) at full batch:
+     B = 16,384, fp32, |u| <= 0.5, alpha 1.7, ct 4, 150 iterations, cold,
+     the carry out, on the 4-lane layout in 2 passes of 320 rows, against
+     its plain version and against 2 lanes a thread forced (bit-equal,
+     timed in turns), with its plan, its tile iterations against the
+     lanes' own and its bound;
  36. K1e on the chain: a state stage of 20 entries with 10 cones of dim 2
      (mu 0.5), 4 halfspace rows and the state box, B = 16,384, 200
      iterations (the lanes do not converge: every lane compared), the
      stages projected in each thread's buffer in shared memory, forced
      into the global scratch, and forced onto a cluster of 2 blocks (each
-     projecting its own stages), bit-equal, all timed;
+     projecting its own stages), bit-equal, all timed; the launch and its
+     box-only launch (tolerances 0) on the plan's 4-lane layout in 2
+     passes against 2 lanes a thread forced, bit-equal, timed in turns;
  37. K3's wide variant on the chain (lane groups of 8, B = 16,384, 200
      iterations) and its far layout (the lanes' records in global memory,
      streamed through each lane group's ring) on the quadrotor at N = 300
@@ -668,8 +678,9 @@ def earlier_phases(card):
         condensed_adaptive_cuda, condensed_adaptive_reference,
         shared_adaptive_plan)
     from tinympc_julia_tpu_torch.ops.cuda.condensed_kernel import (
-        condensed_fused_cuda, condensed_fused_reference, fused_constraints,
-        fused_tile_plan, problem_constraint_kw, tile_iterations)
+        card_busy_sms, condensed_fused_cuda, condensed_fused_reference,
+        fused_constraints, fused_tile_plan, problem_constraint_kw,
+        tile_iterations)
     from tinympc_julia_tpu_torch.ops.cuda.layout_probe import (
         product_yardstick, same_bits)
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
@@ -781,18 +792,24 @@ def earlier_phases(card):
                         carry_out=False, check_termination=4,
                         en_state_bound=False, **kw)
             reduced = "precision" in kw
-            plan_w = fused_tile_plan(12, 4, Nw, reduced)
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            plan_w = fused_tile_plan(12, 4, Nw, reduced,
+                                     busy_sms=card_busy_sms,
+                                     tiles=-(-B_WIDE // 32), sms=n_sm)
             f_k = functools.partial(condensed_fused_cuda, *args_w, **full)
             f_p = functools.partial(condensed_fused_reference, *args_w,
                                     **full)
             out_k, out_p = f_k(), f_p()
+            kind = ("a cluster" if plan_w.cluster > 1 else
+                    "the 4-lane layout" if plan_w.lanes == 4 else
+                    "2 lanes a thread")
             errs.append(agreement(
                 f"phase 4b K1 wide map, quadrotor N={Nw} (sw={sw_w}), {mode}, "
-                f"{kw['max_iter']} iterations, B={B_WIDE}: "
-                f"{plan_w.cluster} block(s) a tile, {plan_w.passes} "
-                f"passes a block of "
-                f"{plan_w.rows // plan_w.cluster // plan_w.passes} rows "
-                f"({plan_w.rpt} a thread), T12 "
+                f"{kw['max_iter']} iterations, B={B_WIDE}: the plan takes "
+                f"{kind}, {plan_w.cluster} block(s) a tile, {plan_w.passes} "
+                f"passes a block of {plan_w.width} rows ({plan_w.lanes} "
+                f"lanes x {2 * plan_w.rpt // plan_w.lanes} rows a thread, "
+                f"{plan_w.rows // plan_w.cluster} padded rows a block), T12 "
                 f"{'resident' if plan_w.resident else 'streamed'}, state in "
                 f"{'shared' if plan_w.state_shared else 'global'} memory, "
                 f"{plan_w.smem} bytes of shared memory", out_k, out_p,
@@ -805,8 +822,8 @@ def earlier_phases(card):
                         + 2.0 * sw_w * 12 * B_WIDE,
                         tensor_bytes(mw.T12, mw.T1, *args_w[2:7], out_k))
             n_tile = tile_iterations(out_k[2], 32)
-            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-            busy = min(n_sm, -(-B_WIDE // 32))  # one SM a tile
+            # one SM a block
+            busy = min(n_sm, -(-B_WIDE // 32) * plan_w.cluster)
             print(f"phase 4b K1 wide map sw={sw_w}, fp32 launch: kernel "
                   f"{t_w:.3f} ms, plain {t_w_p:.3f} ms (median of 3), bound "
                   f"{b_w[0]:.4f} ms by {b_w[1]}; {n_tile} tile iterations, "
@@ -3347,8 +3364,8 @@ def lifted_shape_phases(card):
     from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
     from tinympc_julia_tpu_torch.ops.cuda import fused as K3
     from tinympc_julia_tpu_torch.ops.cuda.layout_probe import (
-        chain_plant, product_yardstick, quad_wide_case, quad_wide_kw,
-        same_bits)
+        chain36_case, chain_plant, product_yardstick, quad_k1_case,
+        quad_k1_kw, quad_wide_case, quad_wide_kw, same_bits)
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
     from tinympc_julia_tpu_torch.types import stack_instances
     from unittest import mock
@@ -3947,31 +3964,68 @@ def lifted_shape_phases(card):
         "quadrotor's N=40 (sw 636), 4 lanes a thread in 2 + 2 passes", n_l,
         err, t_k, t_p, b, k2_src, k2_rep)
     del out_k, out_p, tw, args
+
+    # -- phase 4w: K1 at the quadrotor's N = 40 (sw 636) at full batch: the
+    # 4-lane layout in 2 passes of 320 rows ---------------------------------
+    WALL.mark("4w")
+    q4, c4, m4, x04 = quad_k1_case(dev)
+    kw4 = quad_k1_kw(q4)
+    args = (m4, float(c4.rho), q4.u_min, q4.u_max, q4.x_min, q4.x_max, x04,
+            None)
+    plan4 = k1_plan(12, 4, 40)
+    check(plan4.lanes == 4 and plan4.passes > 1, "phase 4w: the plan did "
+          "not take the 4-lane layout in passes")
+    f_k = functools.partial(k1, *args, **kw4)
+    out_k, out_p, err, n_l, t_k, t_p = run_case(
+        "phase 4w K1 at the quadrotor's N=40 (sw 636), B=16384, fp32, |u| "
+        "<= 0.5, alpha 1.7, ct 4, 150 iterations, cold, carry out", f_k,
+        functools.partial(K.condensed_fused_reference, *args, **kw4),
+        (k1, "launches"))
+    f_two = forced(K, "fused_tile_plan", K.shared_tile_plan(12, 4, 40), f_k)
+    same_two, same_p = same_bits(out_k, f_two()), same_bits(out_k, out_p)
+    check(same_two, "phase 4w: the 4-lane layout differs from 2 lanes a "
+          "thread")
+    t_4, t_2 = paired_ms(f_k, f_two, reps=3)
+    n_own = int(out_k[2].sum())
+    n_tile = K.tile_iterations(out_k[2], plan4.tile)
+    b = bound(k1_ops(636, 12, out_k[2])[0],
+              tensor_bytes(m4.T12, m4.T1, *args[2:7], out_k[:4],
+                           tuple(out_k[4])))
+    print(f"phase 4w plan: {describe_plan(plan4)}; {plan4.passes} passes of "
+          f"{plan4.width} rows ({plan4.rows} padded rows, pass by pass), "
+          f"{plan4.lanes} lanes x {2 * plan4.rpt // plan4.lanes} rows a "
+          f"thread, T12 {'resident' if plan4.resident else 'streamed'}, "
+          f"state in {'shared' if plan4.state_shared else 'global'} memory; "
+          f"2 lanes a thread forced (the layout before it) bit-equal "
+          f"{same_two}, the plain version bit-equal {same_p} (lanes that "
+          f"differ {lanes_differ(out_k, out_p)}); in turns (median of 3) "
+          f"{t_4:.3f} ms against 2 lanes {t_2:.3f} ms ({t_2 / t_4:.3f}x); "
+          f"solved {int(out_k[3].sum())} of {x04.shape[0]}, {n_tile} tile "
+          f"iterations against the lanes' own {n_own} "
+          f"({32 * n_tile / n_own:.3f} x)", flush=True)
+    print(f"phase 4w timing: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, {n_l} "
+          f"launch(es), bound {b[0]:.4f} ms by {b[1]} (2 sw^2 FLOP a "
+          f"product over {n_own - x04.shape[0]} products, the rollouts, at "
+          f"{PEAK_FP32 / 1e12:.0f} TFLOP/s)", flush=True)
+    row("condensed_fused (K1), the quadrotor at N=40 (sw 636), B=16384, 150 "
+        "iterations: 4 lanes a thread in 2 passes of 320 rows (phase 4w)",
+        n_l, err, t_k, t_p, b, k1_src, k1_rep)
+    del out_k, out_p, m4, args
     print(f"phase 35 done {time.perf_counter() - t_start:.0f} s into "
           "phases 34-37", flush=True)
 
     # -- phase 36: K1e, a stage of 20 entries with 10 cones -------------------
     WALL.mark("36")
-    p, c = chain(20, x_bound=3.0)
-    m = build_condensed(p, c)
+    args, full, box36 = chain36_case(dev)
+    m, cons = args[0], full["constraints"]
     sw = m.T12.shape[0]
-    rng = np.random.default_rng(11)
-    cons_kw = dict(soc_x=tuple((2 * j, 2, 0.5) for j in range(10)),
-                   lin_x=(rng.normal(size=(4, 20)), np.full(4, 5.0)))
-    fn_kw = dict(max_iter=200, en_state_bound=True)
-    fk = K.make_condensed_fused_solver(20, 9, 20, **fn_kw, **cons_kw)
-    cons = K.fused_constraints(**cons_kw, nx=20, nu=9, dtype=f32, device=dev)
-    args = (m, float(c.rho), p.u_min.reshape(-1), p.u_max.reshape(-1),
-            p.x_min.reshape(-1), p.x_max.reshape(-1), chain_x0(16384, 38))
-    full = k1_kw(p, relaxation_alpha=1.0, **fn_kw)
+    fk = functools.partial(K.condensed_fused_cuda, *args, **full)
     out_k, _, err, n_l, t_k, t_p = run_case(
         f"phase 36 K1e, the 20-state chain N=20 (sw={sw}), B=16384, 200 "
         "iterations: a state stage of 20 entries, 10 cones of dim 2 (mu "
         "0.5), 4 halfspace rows, the state box (the cones keep the lanes "
         "from converging: every lane compared)",
-        lambda: fk(*args),
-        functools.partial(K.condensed_fused_reference, *args, None,
-                          constraints=cons, **full),
+        fk, functools.partial(K.condensed_fused_reference, *args, **full),
         (k1, "projected_launches"), slow_plain=True)
     b = bound(k1_ops(sw, 20, out_k[2])[0],
               tensor_bytes(m.T12, m.T1, *args[2:7], out_k[:4]))
@@ -3989,8 +4043,7 @@ def lifted_shape_phases(card):
         for tag, cc in (("", cons), (" box only", None)):
             kw36 = dict(full, check_termination=ct, abs_pri_tol=0.0,
                         abs_dua_tol=0.0, constraints=cc)
-            f36 = functools.partial(K.condensed_fused_cuda, *args, None,
-                                    **kw36)
+            f36 = functools.partial(K.condensed_fused_cuda, *args, **kw36)
             f36()
             t36[f"ct={ct}{tag}"] = float(np.median([event_ms(f36)
                                                     for _ in range(3)]))
@@ -3999,6 +4052,24 @@ def lifted_shape_phases(card):
         + f"; the projections {t36['ct=1'] - t36['ct=1 box only']:.3f} ms "
         f"at ct=1, {t36['ct=200'] - t36['ct=200 box only']:.3f} ms at "
         "ct=200", flush=True)
+    # the projected launch and its box-only launch (the split's ct=1 box
+    # only) on the plan's 4-lane layout in passes against 2 lanes a thread
+    # forced (the layout before it): the same bits, timed in turns
+    plan36 = K.fused_tile_plan(20, 9, 20, state_free=False, projected=True)
+    check(plan36.lanes == 4 and plan36.passes > 1, "phase 36: the plan did "
+          "not take the 4-lane layout in passes")
+    two36 = K.shared_tile_plan(20, 9, 20, state_free=False)
+    for tag, kw36 in (("projected", full), ("box-only", box36)):
+        f4 = functools.partial(K.condensed_fused_cuda, *args, **kw36)
+        f2 = forced(K, "fused_tile_plan", two36, f4)
+        same = same_bits(f4(), f2())
+        check(same, f"phase 36: the {tag} launch on 4 lanes differs from 2 "
+              "lanes a thread")
+        t_4, t_2 = paired_ms(f4, f2, reps=3)
+        print(f"phase 36 {tag} launch: {describe_plan(plan36)}; 2 lanes a "
+              f"thread forced bit-equal {same}; in turns (median of 3) "
+              f"{t_4:.3f} ms against 2 lanes {t_2:.3f} ms "
+              f"({t_2 / t_4:.3f}x)", flush=True)
     row("condensed_fused projections (K1e), a stage of 20 entries with 10 "
         "cones and 4 halfspaces (20-state chain), stage buffers in shared "
         f"memory ({smem36} bytes)", n_l, err, t_k, t_p, b, k1_src,
@@ -4008,13 +4079,12 @@ def lifted_shape_phases(card):
     with mock.patch.object(K, "launch_smem", lambda plan, *d: (plan.smem,
                                                                False)):
         k1.projected_launches = 0
-        out_g = fk(*args)
+        out_g = fk()
         torch.cuda.synchronize()
         n_g = k1.projected_launches
         exact = same_bits(out_g, out_k)
-        fk(*args)
-        t_g = float(np.median([event_ms(lambda: fk(*args))
-                               for _ in range(3)]))
+        fk()
+        t_g = float(np.median([event_ms(fk) for _ in range(3)]))
     print(f"phase 36 the same launch with the stages in the global scratch: "
           f"bit-equal {exact}, {n_g} launch(es), {t_g:.3f} ms beside the "
           f"shared buffers' {t_k:.3f} ms", flush=True)
@@ -4026,7 +4096,7 @@ def lifted_shape_phases(card):
     # its own whole stages in its buffers with its group's constraint data
     # in its shared memory: the same bits
     c_plan = K.cluster_tile_plan(20, 9, 20, blocks=2)
-    fc = forced(K, "fused_tile_plan", c_plan, lambda: fk(*args))
+    fc = forced(K, "fused_tile_plan", c_plan, fk)
     k1.projected_launches = 0
     out_c = fc()
     torch.cuda.synchronize()
@@ -4153,7 +4223,8 @@ def lifted_shape_phases(card):
 
 
 def build_kernels():
-    """Phase 2: the three kernels' sources, one nvcc each, side by side."""
+    """Phase 2: the three kernels' sources side by side (one nvcc each, two
+    for K2's translation units)."""
     from tinympc_julia_tpu_torch.ops.cuda._build import (kernel_label,
                                                          load_libraries,
                                                          ptxas_usage)

@@ -23,9 +23,9 @@ from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
 from tinympc_julia_tpu_torch.utils import convert
 
 from torch_port_common import (CART_X_BOUND, CPU, INTERPRET, TORCH_DTYPE,
-                               grouped_cartpoles, grouped_rockets,
-                               jax_arrays, rocket_setup, rocket_x0,
-                               taylor_setup, x0_batch)
+                               from_pass_major, grouped_cartpoles,
+                               grouped_rockets, jax_arrays, rocket_setup,
+                               rocket_x0, taylor_setup, x0_batch)
 
 F32 = jnp.float32
 N = 20
@@ -691,30 +691,6 @@ def test_four_lane_plan_stops_where_the_ring_does_not_fit():
     assert (one.passes1, one.passes2, one.ring_rows) == (1, 1, 320)
 
 
-def _from_pass_major(flat, blocks, K, v, W, ld):
-    """A pass-major map (..., blocks x K x ld floats) gathered back to
-    (..., blocks, K, v), read as the kernel's segments do
-    (csrc/condensed_adaptive.cu forward / backward, tile_gemm.cuh
-    gemm_fp32 with kPassMajor): block c's pass p from (c ld + p W) K, its
-    rows W apart, the last pass's ld - (P - 1) W; with every padded entry,
-    which the kernel's threads read but never store, checked to be zero."""
-    P = -(-v // W)
-    assert flat.shape[-1] == blocks * K * ld
-    out = []
-    for c in range(blocks):
-        cols = []
-        for p in range(P):
-            stride = W if p < P - 1 else ld - (P - 1) * W
-            base = (c * ld + p * W) * K
-            seg = flat[..., base:base + K * stride].unflatten(-1, (K,
-                                                                   stride))
-            n = min(W, v - p * W)
-            cols.append(seg[..., :n])
-            assert not seg[..., n:].any()
-        out.append(torch.cat(cols, -1))
-    return torch.stack(out, -3)
-
-
 @pytest.mark.parametrize("groups", [1, 3], ids=["shared", "grouped"])
 @pytest.mark.parametrize("shape", MULTI_PASS_SHAPES[1:] + [(12, 4, 20)],
                          ids=MULTI_PASS_IDS[1:] + ["quad-n20"])
@@ -740,12 +716,12 @@ def test_map_layout_pass_major_round_trip(shape, groups):
     t1t, t2t, t1a, t2a = K2.map_layout(tm, su, sw, plan, True)
     assert t1t.shape == lead + (ord1, in1 * plan.ld1)
     assert t2t.shape == lead + ((sw + 1) * plan.ld2,)
-    back1 = _from_pass_major(t1t.flatten(-2), ord1, in1, sw, 320, plan.ld1)
+    back1 = from_pass_major(t1t.flatten(-2), ord1, in1, sw, 320, plan.ld1)
     assert torch.equal(back1, T1s.transpose(-1, -2))
     stack = torch.cat([T2s[..., :sw], T2s[..., -1:]], -1)  # (.., 4, su, sw+1)
     stack = stack.transpose(-3, -2).reshape(lead + (4 * su, sw + 1))
-    back2 = _from_pass_major(t2t, 1, sw + 1, 4 * su, 384, plan.ld2)[..., 0,
-                                                                    :, :]
+    back2 = from_pass_major(t2t, 1, sw + 1, 4 * su, 384, plan.ld2)[..., 0,
+                                                                   :, :]
     assert torch.equal(back2, stack.transpose(-1, -2))
     for c in range(4):  # row 4 r + c of the stack: row r of block c
         assert torch.equal(back2[..., c::4].transpose(-1, -2),

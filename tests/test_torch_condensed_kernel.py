@@ -19,8 +19,9 @@ from tinympc_julia_tpu_torch.ops.cuda import _build
 from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
 
 from torch_port_common import (CPU, INTERPRET, cartpole_setup,
-                               grouped_cartpoles, grouped_rockets,
-                               jax_arrays, rocket_setup, rocket_x0, x0_batch)
+                               from_pass_major, grouped_cartpoles,
+                               grouped_rockets, jax_arrays, rocket_setup,
+                               rocket_x0, x0_batch)
 from tinympc_julia_tpu.ops.condensed import build_condensed as jax_build
 from tinympc_julia_tpu_torch.utils import convert
 
@@ -202,13 +203,19 @@ def test_tile_plan():
     assert plan.tile % (2 * K.MMA_N) == 0
     # a state dual adds sx floats a lane
     assert K.state_floats(12, 4, 20, False) == 708 + 240
-    # sw = 508 with a state dual: the state stays in global memory
+    # sw = 508 with a state dual: the state stays in global memory; 4 lanes
+    # a thread in two passes of 320 rows, the map pass by pass (320 + 192)
     wide = K.fused_tile_plan(12, 4, 32, state_free=False)
     assert not wide.state_shared and not wide.resident and wide.rows == 512
-    # sw = 790: two passes of 16 x 32 rows, the first pass's sums parked
+    assert (wide.lanes, wide.passes) == (4, 2)
+    # sw = 790: three passes of 320 rows on 4 lanes (320 + 320 + 152), the
+    # first two passes' sums parked (2 lanes would take two of 16 x 32)
     wider = K.fused_tile_plan(30, 10, 20)
-    assert (wider.passes, wider.rpt, wider.rows) == (2, 32, 1024)
+    assert (wider.passes, wider.rpt, wider.rows, wider.lanes) == (3, 20, 792,
+                                                                  4)
     assert wider.smem <= K.SMEM_PER_BLOCK
+    two = K.shared_tile_plan(30, 10, 20)
+    assert (two.passes, two.rpt, two.rows, two.lanes) == (2, 32, 1024, 2)
 
 
 def test_tile_plan_for_wide_maps():
@@ -217,9 +224,11 @@ def test_tile_plan_for_wide_maps():
     every layout within one block's shared memory, the state in global
     memory beside w2; reduced iterations at 908 take 8 passes of 128 rows
     (the bf16 ring and the rounded w2 then fit); the widest maps a tile
-    leaves room for.  From CLUSTER_FROM_WIDTH (sw 908, where the cluster
-    first beat them on the card) the plan splits the tile over a
-    cluster."""
+    leaves room for.  Where those plans stream at 20 or 32 rows a thread,
+    the plan takes the 4-lane layout in passes (it beat the cluster on the
+    card at every width it takes); else, from CLUSTER_FROM_WIDTH (sw 908,
+    where the cluster first beat the 2-lane plans on the card), it splits
+    the tile over a cluster."""
     for N_, sw in ((40, 636), (57, 908)):
         for reduced in (False, True):
             for state_free in (True, False):
@@ -230,9 +239,12 @@ def test_tile_plan_for_wide_maps():
                 assert plan.rows >= sw > plan.rows - plan.rows // plan.passes
                 assert plan.smem <= K.SMEM_PER_BLOCK
                 assert plan.kp >= sw and plan.kp % K.KP_ALIGN == 0
+                four = K.four_lane_tile_plan(12, 4, N_, reduced,
+                                             state_free)
+                assert (four is None) == (plan.rpt == 8)
                 assert K.fused_tile_plan(12, 4, N_, reduced, state_free) \
-                    == (plan if sw < K.CLUSTER_FROM_WIDTH else
-                        K.cluster_tile_plan(12, 4, N_, reduced))
+                    == (four or (plan if sw < K.CLUSTER_FROM_WIDTH else
+                                 K.cluster_tile_plan(12, 4, N_, reduced)))
     assert K.fused_tile_plan(12, 4, 40).rpt == 20
     lo = K.shared_tile_plan(12, 4, 57, reduced=True)
     assert (lo.passes, lo.rpt) == (8, 8)
@@ -914,6 +926,54 @@ def test_map_layouts_keep_the_group_axis():
     assert K2.map_layout(pt, su, sw, kplan, False)[2:] == (None, None)
 
 
+@pytest.mark.parametrize("groups", [1, 3], ids=["shared", "grouped"])
+@pytest.mark.parametrize("shape,passes", [
+    ((12, 4, 20), 1),   # sw 316: one pass, padded to 320 rows
+    ((12, 4, 40), 2),   # sw 636: 320 + 316 (padded to 320)
+    ((20, 9, 20), 2),   # the chain, sw 571: 320 + 251 (padded to 260)
+    ((12, 4, 56), 3),   # sw 892: 320 + 320 + 252 (padded to 260)
+], ids=["quad-n20", "quad-n40", "chain", "quad-n56"])
+def test_k1_map_layout_pass_major_round_trip(shape, passes, groups):
+    """K1's 4-lane plan (``four_lane_tile_plan``) lays T12w out pass by
+    pass (``map_layout``): passes of 320 rows, a pass's [k][row] block
+    after the earlier ones', every pass but the last 320 rows wide and the
+    last padded only to a thread's 10 rows and to 16 bytes (``pass_rows``,
+    as csrc/condensed_fused.cu's entry point checks it).  Gathered back as
+    the kernel reads it, it returns T12w transposed bit for bit, every
+    padded entry zero; the bf16 map keeps its row-major layout (rows in
+    order, padded to the plan's rows and kp).  A leading group axis is
+    kept, each group's slice its own map's layout."""
+    nx, nu, N_ = shape
+    su, sw = (N_ - 1) * nu, (N_ - 1) * nu + N_ * nx
+    plan = K.four_lane_tile_plan(nx, nu, N_)
+    assert (plan.lanes, plan.rpt, plan.width, plan.passes) == (4, 20, 320,
+                                                               passes)
+    last = plan.rows - (passes - 1) * 320
+    assert plan.rows == K.pass_rows(sw, 10, 320)
+    assert sw - (passes - 1) * 320 <= last <= 320 and last % 10 in (0, 2)
+    assert last % 4 == 0 and plan.kp >= sw
+    lead = (groups,) if groups > 1 else ()
+    g = torch.Generator().manual_seed(9)
+    maps = C.CondensedMaps(T1=torch.randn(lead + (sw, su + nx + 1),
+                                          generator=g),
+                           T2=None,
+                           T12=torch.randn(lead + (sw, sw + 1), generator=g))
+    t12t, lo, t12c, tx0, t1c = K.map_layout(maps, nx, su, sw, True, plan)
+    assert t12t.shape == lead + (sw * plan.rows,)
+    back = from_pass_major(t12t, 1, sw, sw, 320, plan.rows)[..., 0, :, :]
+    assert torch.equal(back, maps.T12[..., :sw].transpose(-1, -2))
+    assert lo.shape == lead + (plan.rows, plan.kp)
+    assert torch.equal(lo[..., :sw, :sw].float(),
+                       K.bf16_round(maps.T12[..., :sw]))
+    assert not lo[..., sw:, :].float().any()
+    assert not lo[..., :, sw:].float().any()
+    assert torch.equal(t12c, maps.T12[..., sw])
+    for j in range(groups if lead else 0):
+        one = C.CondensedMaps(maps.T1[j], None, maps.T12[j])
+        assert torch.equal(K.map_layout(one, nx, su, sw, False, plan)[0],
+                           t12t[j])
+
+
 # -- the lifted shapes ---------------------------------------------------------
 
 def _quad_solver(solver, horizon, **settings):
@@ -1172,21 +1232,23 @@ MAIN_SHAPE_PLANS = [
     # the quadrotor at N = 32 and 40: K2's 4-lane layout in passes (2 + 2:
     # the forward's of 320 rows, the backward's of 384), the maps laid out
     # pass by pass (640 + 624 rows at N = 40), the ring's slots 384 rows
-    # wide; K1's 2 lanes a thread
-    ((12, 4, 32), False, True, (32, 256, False, False, 512, 512, 167568, 1,
-                                False),
+    # wide; K1's 4-lane layout in passes (two of 320 rows, the map pass by
+    # pass: 320 + 192 rows at N = 32, 320 + 320 at N = 40; 2 lanes took one
+    # pass of 512 rows at N = 32, with a ring of 512-row slots)
+    ((12, 4, 32), False, True, (32, 256, False, False, 512, 512, 130704, 2,
+                                False, 1, (), 4),
      (32, 256, 20, 2, 2, False, False, 160, 512, 169104, False, 1, (), (),
       (512, 504), 4)),
-    ((12, 4, 32), True, False, (32, 256, False, False, 512, 512, 200848, 1,
-                                False),
+    ((12, 4, 32), True, False, (32, 256, False, False, 512, 512, 163984, 2,
+                                False, 1, (), 4),
      (32, 256, 20, 2, 2, False, False, 160, 512, 202384, False, 1, (), (),
       (512, 504), 4)),
     ((12, 4, 40), False, True, (32, 256, False, False, 640, 640, 147088, 2,
-                                False),
+                                False, 1, (), 4),
      (32, 256, 20, 2, 2, False, False, 192, 640, 189584, False, 1, (), (),
       (640, 624), 4)),
     ((12, 4, 40), True, False, (32, 256, False, False, 640, 640, 188560, 2,
-                                False),
+                                False, 1, (), 4),
      (32, 256, 20, 2, 2, False, False, 192, 640, 231056, False, 1, (), (),
       (640, 624), 4)),
 ]
@@ -1207,8 +1269,8 @@ def test_main_shape_plans_are_unchanged(shape, reduced, state_free, k1, k2,
     at the quadrotor's N = 20 take 4 lanes a thread in their fp32 products
     (the 4-lane layouts, faster on the card at every batch measured:
     PERF.md section 6; K2's maps' rows padded to its threads' rows), and
-    so do K2's at N = 32 and 40 in passes (its maps laid out pass by
-    pass), the rest 2; but the cartpole's fp32 launches take the warp
+    so do K1's and K2's at N = 32 and 40 in passes (their maps laid out
+    pass by pass), the rest 2; but the cartpole's fp32 launches take the warp
     layout (faster on the card at every batch measured: PERF.md section
     6), and the rocket's plan is that of its launches, which project its
     cones.  K2's are the same for the bulk batches
@@ -1224,32 +1286,60 @@ def test_main_shape_plans_are_unchanged(shape, reduced, state_free, k1, k2,
 
 
 @pytest.mark.parametrize("shape,lanes4", [
-    ((12, 4, 20), True),    # sw 316: one pass of 320 rows, map streamed
-    ((12, 4, 32), False),   # 32 rows a thread (sw 508)
-    ((12, 4, 40), False),   # two passes (sw 636)
-    ((4, 1, 20), False),    # the cartpole: its map resident
-    ((6, 3, 10), False),    # the rocket: its map resident
-    ((12, 4, 60), False),   # the cluster's widths
-], ids=["quad-n20", "quad-n32", "quad-n40", "cartpole", "rocket",
-        "quad-n60"])
+    ((12, 4, 20), 1),       # sw 316: one pass of 320 rows, map streamed
+    ((12, 4, 21), 2),       # sw 332: 320 + 20 (2 lanes: one pass of 512)
+    ((12, 4, 30), 2),       # sw 476 (2 lanes: one pass of 512)
+    ((12, 4, 32), 2),       # 32 rows a thread on 2 lanes (sw 508)
+    ((12, 4, 40), 2),       # two passes (sw 636) on both
+    ((12, 4, 56), 3),       # sw 892 (2 lanes: two passes of 512)
+    ((20, 9, 20), 2),       # the 20-state chain, sw 571
+    ((6, 3, 40), 2),        # the rocket at N = 40, sw 357
+    ((4, 1, 20), 0),        # the cartpole: its map resident
+    ((6, 3, 10), 0),        # the rocket: its map resident
+    ((12, 4, 60), 3),       # sw 956: 4 lanes beat the cluster of 2 there
+    ((12, 4, 81), 5),       # sw 1,292: the widest 4 lanes take, and beat
+                            # the cluster of 3 at
+    ((12, 4, 82), 0),       # sw 1,308: the cluster's widths
+], ids=["quad-n20", "quad-n21", "quad-n30", "quad-n32", "quad-n40",
+        "quad-n56", "chain", "rocket-n40", "cartpole", "rocket", "quad-n60",
+        "quad-n81", "quad-n82"])
 def test_four_lane_plan(shape, lanes4):
-    """A plan that streams its map in one pass of 320 rows takes the 4-lane
-    layout (10 rows x 4 lanes a thread in the fp32 product, slabs of 16
-    k-rows), whatever the batch, with room left for its ring's barriers;
-    every other plan of tiles keeps 2 lanes a thread and 8-row slabs (the
-    cartpole's and the rocket's fp32 launches with box constraints only
-    take the warp layout, with no ring)."""
+    """A plan of tiles of 32 lanes that streams its map at 20 or 32 rows a
+    thread takes the 4-lane layout (10 rows x 4 lanes a thread in the fp32
+    product, slabs of 16 k-rows, ceil(sw / 320) passes of 320 rows, the map
+    pass by pass, its last pass padded to a thread's rows), whatever the
+    batch, with room left for its ring's barriers, also where 2 lanes take
+    fewer passes and where the 2-lane plans take the cluster (faster on
+    the card at every width measured: PERF.md section 6); every other plan
+    of tiles keeps 2 lanes a thread and 8-row slabs (the cartpole's and
+    the rocket's fp32 launches with box constraints only take the warp
+    layout, with no ring), and the cluster's 16.  ``lanes4``: the 4-lane
+    layout's passes, 0 where the plan keeps another layout."""
+    nx, nu, N_ = shape
+    sw = (N_ - 1) * nu + N_ * nx
     for reduced in (False, True):
         for state_free in (True, False):
-            p = K.fused_tile_plan(*shape, reduced, state_free)
+            p = K.fused_tile_plan(*shape, reduced, state_free,
+                                  projected=shape == (6, 3, 40))
             base = K.shared_tile_plan(*shape, reduced, state_free)
-            if lanes4:
-                assert p == base._replace(lanes=4)
-                assert (p.rpt, p.passes, p.resident, p.slab_k) == (20, 1,
-                                                                   False, 16)
+            four = K.four_lane_tile_plan(*shape, reduced, state_free)
+            if lanes4 and four is not None:
+                assert p == four and base.rpt in (20, 32)
+                assert (p.rpt, p.passes, p.resident, p.slab_k) == (
+                    20, lanes4, False, 16)
+                assert p.rows == K.pass_rows(sw, 10, 320) >= sw
+                assert p.kp == base.kp and p.bulk_ring
                 assert p.smem + K.RING_BARS_BYTES <= K.SMEM_PER_BLOCK
+                assert p.smem == K.tile_smem(
+                    sw, p.rows, p.kp,
+                    K.state_floats(*shape, state_free) if p.state_shared
+                    else 0, False, reduced, p.passes, width=320)
             else:
-                sw = (shape[2] - 1) * shape[1] + shape[2] * shape[0]
+                # no 4-lane plan only where the bf16 ring leaves 8 rows a
+                # thread or no room for w2 (the quadrotor at N = 56-81 with
+                # reduced iterations)
+                assert not lanes4 or (reduced and (base is None
+                                                   or base.rpt == 8))
                 if sw <= K.WARP_ROWS and not reduced:  # the warp layout
                     assert p == K.warp_tile_plan(*shape, state_free)
                     assert not p.bulk_ring
@@ -1257,6 +1347,81 @@ def test_four_lane_plan(shape, lanes4):
                                           projected=True)
                 assert p.lanes == 2
                 assert p.slab_k == (16 if p.cluster > 1 else 8)
+
+
+@pytest.mark.parametrize("shape,lanes", [
+    ((12, 4, 21), 4), ((12, 4, 30), 4), ((12, 4, 32), 4), ((6, 3, 40), 4),
+    ((12, 4, 50), 4), ((12, 4, 56), 4), ((12, 4, 57), 4), ((12, 4, 60), 4),
+    ((12, 4, 64), 4), ((12, 4, 81), 4), ((12, 4, 82), 0),
+], ids=["quad-n21", "quad-n30", "quad-n32", "rocket-n40", "quad-n50",
+        "quad-n56", "quad-n57", "quad-n60", "quad-n64", "quad-n81",
+        "quad-n82"])
+def test_k1_switches_follow_the_measured_times(shape, lanes):
+    """K1's switches as measured on an H100 80GB HBM3 at 700 W (``python -m
+    tinympc_julia_tpu_torch.ops.cuda.layout_probe switch --k1``, PERF.md
+    section 6): 4 lanes a thread in passes of 320 rows beat 2 lanes at
+    every width measured, also where 2 lanes take fewer passes (one pass
+    of 512 rows at the quadrotor's N = 21-32 and the rocket's N = 40, two
+    of 512 at N = 50-60: 1.04-1.85x), so the plan has no switch by passes;
+    and at batches that keep the card busy (96-512 tiles) they beat the
+    cluster the 2-lane plans take from CLUSTER_FROM_WIDTH (sw 908) at
+    every width they take (a cluster of 2 at N = 56-60, 1.24-1.28x; of 3
+    at N = 64-81, 1.23-1.94x), so the fp32 plan for such a batch takes
+    them wherever they fit (up to the quadrotor's N = 81, sw 1,292); past
+    that, and with reduced iterations at 8 rows a thread (no 4-lane plan),
+    the cluster from sw 908 as before (a launch with few tiles:
+    ``test_k1_cluster_switch_takes_the_batch``).  ``lanes``: 4, or 0 for
+    the cluster."""
+    nx, nu, N_ = shape
+    sw = (N_ - 1) * nu + N_ * nx
+    assert K.CLUSTER_FROM_WIDTH == 908
+    projected = shape == (6, 3, 40)
+    p = K.fused_tile_plan(nx, nu, N_, state_free=not projected,
+                          projected=projected)
+    two = K.shared_tile_plan(nx, nu, N_, state_free=not projected)
+    four = K.four_lane_tile_plan(nx, nu, N_, state_free=not projected)
+    if lanes:
+        assert p == four and two.rpt in (20, 32)
+        assert p.passes >= two.passes
+        assert (p.passes > two.passes) == (two.rpt == 32)
+    else:
+        assert four is None and two.rpt == 8
+        assert p == K.cluster_tile_plan(nx, nu, N_)
+    if sw >= K.CLUSTER_FROM_WIDTH:
+        assert K.fused_tile_plan(nx, nu, N_, True).cluster > 1
+
+
+@pytest.mark.parametrize("N_,tiles,lanes", [
+    (57, 32, 0), (57, 64, 0), (57, 66, 0), (57, 67, 4), (57, 96, 4),
+    (57, 128, 4), (57, None, 4), (60, 64, 0), (64, 32, 0), (64, 64, 0),
+    (81, 64, 0), (81, 96, 4), (56, 64, 4), (40, 64, 4), (40, None, 4),
+])
+def test_k1_cluster_switch_takes_the_batch(N_, tiles, lanes):
+    """K1's cluster switch takes the launch's batch, as measured on an
+    H100 80GB HBM3 at 700 W (132 SMs; ``layout_probe switch --k1``,
+    PERF.md section 6): from CLUSTER_FROM_WIDTH a launch whose tiles of 32
+    leave half the SMs idle (``few_tiles``: 2 x tiles <= SMs) takes the
+    cluster, whose blocks run on those SMs (4 lanes' time over the
+    cluster's at the quadrotor's N = 57 and 60: 1.48-1.51 at 32 and 64
+    tiles; of 3 at N = 64 and 81: 1.81-2.25 at 32 tiles, 0.96-1.19 at
+    64); from 67 tiles on the 4-lane layout in passes (the cluster's time
+    over 4 lanes' 1.23-1.52 at 96 tiles, 1.25-1.94 at 128).  Below sw 908
+    the plan keeps 4 lanes at every batch (the cluster of 2 measured
+    faster at 64 tiles there too, at N = 21-56, but that switch is not
+    made: ROADMAP R18).  ``lanes``: 4, or 0 for the cluster."""
+    sw = (N_ - 1) * 4 + N_ * 12
+    p = K.fused_tile_plan(12, 4, N_, tiles=tiles,
+                          sms=None if tiles is None else 132)
+    assert K.few_tiles(66, 132) and not K.few_tiles(67, 132)
+    if lanes:
+        assert p == K.four_lane_tile_plan(12, 4, N_)
+        assert (p.lanes, p.cluster) == (4, 1)
+    else:
+        assert sw >= K.CLUSTER_FROM_WIDTH
+        assert p == K.cluster_tile_plan(12, 4, N_)
+        assert p.cluster == (2 if N_ < 64 else 3)
+    with pytest.raises(ValueError, match="SMs"):
+        K.fused_tile_plan(12, 4, N_, tiles=64)
 
 
 @pytest.mark.parametrize("shape,blocks", [
@@ -1450,3 +1615,36 @@ def test_last_layout_keeps_the_maps_layout():
     finally:
         K.fused_tile_plan = saved
     assert keep(other, *args)[0] == first[0]
+
+
+def test_last_layout_plans_each_batch_and_shares_its_layout(monkeypatch):
+    """A solver's launch layout (``LastLayout``) plans each batch (the
+    launch's tiles and the card's SMs, ``fused_tile_plan``'s cluster
+    switch) and lays the maps out once a plan: at the quadrotor's N = 57
+    a launch of 64 tiles takes the cluster and one of 128 the 4-lane
+    layout, each with its own layout; launches of other batches on the
+    same plan share its layout object, equal to a fresh ``map_layout``.
+    The cluster sizes' busy SMs come from the H100 table here
+    (``CLUSTER_SMS``; on the card, its occupancy API)."""
+    monkeypatch.setattr(K, "card_busy_sms",
+                        lambda plan: K.CLUSTER_SMS[plan.cluster])
+    from tinympc_julia_tpu_torch import make_problem
+    from tinympc_julia_tpu_torch.models import quadrotor
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    p = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
+                     np.diag(quadrotor.R_DIAG), quadrotor.RHO, 57,
+                     u_min=-0.5, u_max=0.5, dtype=torch.float32, device=CPU)
+    maps = C.build_condensed(p, precompute_cache(p.A, p.B, p.Q, p.R,
+                                                 p.rho_setup))
+    keep = K.LastLayout()
+    args = (12, 4, 57, False, True, False, 1)
+    few, many = keep(maps, *args, 64, 132), keep(maps, *args, 128, 132)
+    assert few[0] == K.cluster_tile_plan(12, 4, 57)
+    assert many[0] == K.four_lane_tile_plan(12, 4, 57)
+    assert keep(maps, *args, 20, 132) is few
+    assert keep(maps, *args, 512, 132) is many
+    assert keep(maps, *args) is many
+    for plan, lay in (few, many):
+        for a, b in zip(lay, K.map_layout(maps, 12, 56 * 4, 57 * 16 - 4,
+                                          False, plan)):
+            assert (a is None and b is None) or torch.equal(a, b)

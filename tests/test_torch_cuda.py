@@ -1322,15 +1322,14 @@ def test_sharded_vote_on_two_ranks_of_the_card(dev, tmp_path):
 
 # -- the lifted shapes: wide maps, wide stages, many cones, long horizons ----
 
-def _quad(horizon, dev, ub=0.5, x_bound=None):
+def _quad(horizon, dev, ub=0.5, x_bound=None, dtype=torch.float32):
     kw = {}
     if x_bound is not None:
         xb = np.tile(np.full(12, x_bound), (horizon, 1))
         kw = dict(x_min=-xb, x_max=xb)
     p = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
                      np.diag(quadrotor.R_DIAG), quadrotor.RHO, horizon,
-                     u_min=-ub, u_max=ub, dtype=torch.float32, device=dev,
-                     **kw)
+                     u_min=-ub, u_max=ub, dtype=dtype, device=dev, **kw)
     return p, precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
 
 
@@ -1924,15 +1923,150 @@ def test_k1d_continuation_layout_agrees_bit_for_bit(dev, monkeypatch, model,
     assert same_bits(k, r)
 
 
+def _agree_as_float32(k, r, r64, lanes):
+    """The kernel (``k``) as close to the plain version in float64
+    (``r64``) as the plain version in float32 (``r``) is: the lanes whose
+    counts or flags differ from float64's no more than the float32 plain
+    version's, give or take ``lanes`` (which of the lanes on the tolerance
+    move depends on the sum order, so two float32 orders move about as
+    many, not the same ones); and ``_agree``'s values against the float32
+    plain version, whose maps are the kernel's (the float64 maps move the
+    solution itself by ~1e-4): more than half the lanes solved with equal
+    counts on both, their controls and states within 1e-4."""
+    def differ(a):
+        return int(((a[2] != r64[2]) | (a[3] != r64[3])).sum())
+    assert differ(k) <= differ(r) + lanes
+    both = (k[2] == r[2]) & (k[3] == 1) & (r[3] == 1)
+    assert int(both.sum()) > k[2].numel() // 2
+    for j in (0, 1):
+        assert (k[j] - r[j]).abs()[both].max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("case", ["quad-n40", "quad-n40-state-box",
+                                  "quad-n40-state-box-ct1", "widest",
+                                  "chain-k1e", "grid", "warm-chain", "carry",
+                                  "head"])
+def test_k1_four_lane_multi_pass_agrees_bit_for_bit(dev, monkeypatch, case):
+    """K1's 4-lane layout in passes (10 rows x 4 lanes a thread, passes of
+    320 rows, the map laid out pass by pass, slabs of 16 k-rows of a pass
+    by the bulk copy engine, the first passes' sums parked): the same bits
+    as 2 lanes a thread (the layout it replaced, forced), carry included,
+    and the plain version's bar.  The quadrotor at N = 40 (sw 636, 2
+    passes, the last of 316 rows) without a state box and with |x| <= 2;
+    widest, N = 56 (sw 892, 3 passes); chain-k1e, the 20-state chain at
+    N = 20 with phase 36's 10
+    state cones, 4 halfspace rows and state box (sw 571; the lanes do not
+    converge: counts and values); grid, K1d over 4 randomised quadrotors
+    at N = 40 x 300 lanes (ragged tiles); warm-chain, K1b: a 30-iteration
+    launch with its carry and a 50-iteration warm one equal the
+    80-iteration launch; carry, 8 lanes at the origin that latch on the
+    cold launch's first checking iteration keep the w2 and slacks they
+    started from (F11), as the plain version's carry does; head, K1c's
+    8-iteration reduced head (the bf16 map row-major, its last pass's
+    valid rows streamed) then fp32.  The quadrotor's cases check every 4
+    iterations, as phase 4w does, but carry, warm-chain and
+    quad-n40-state-box-ct1 (every one).  With the state box and a check
+    every iteration the plain version's cuBLAS product (not in index
+    order at 636 rows) moves about 1% of the lanes' counts by one against
+    every index-order layout of the kernel (23 of 2,048 lanes on an H100,
+    ``layout_probe order``, PERF.md section 6), so that case holds the
+    kernel's counts to the plain version in float64 instead: no farther
+    from it than the float32 plain version, give or take 0.5% of the
+    lanes (``_agree_as_float32``; measured 38 lanes against 37)."""
+    G, horizon, nx, nu, agree = 1, 40, 12, 4, _agree
+    cons = None
+    if case == "chain-k1e":
+        horizon, nx, nu = N, 20, 9
+        p, c = _chain(horizon, dev, x_bound=3.0)
+        rng = np.random.default_rng(11)
+        cons = K.fused_constraints(
+            soc_x=tuple((2 * j, 2, 0.5) for j in range(10)),
+            lin_x=(rng.normal(size=(4, 20)), np.full(4, 5.0)), nx=20, nu=9,
+            dtype=torch.float32, device=dev)
+        x0 = _chain_x0(1000, 38, dev)
+        kw = _kw(nx, nu, N=horizon, max_iter=100, relaxation_alpha=1.0,
+                 en_state_bound=True, constraints=cons)
+        agree = _counts_and_values_agree
+    elif case == "grid":
+        G = 4
+        p, c = _groups(quadrotor, G, dev, ub_range=(0.4, 0.6), seed=5,
+                       horizon=horizon)
+        x0 = _gx0(G, 300, 12, 6, 0.3, dev)
+        kw = _kw(12, 4, N=horizon, max_iter=200, check_termination=4,
+                 num_groups=G)
+    else:
+        horizon = 56 if case == "widest" else horizon
+        box = case.startswith("quad-n40-state-box")
+        p, c = _quad(horizon, dev, x_bound=2.0 if box else None)
+        x0 = _x0(2048, 12, 33, 0.3, dev)
+        if case == "carry":
+            x0[:8] = 0.0
+        # phase 4w's check every 4 iterations, but where a lane must latch
+        # on the cold iteration 0, the chain's 30 + 50 and the state box's
+        # check every iteration
+        every = case in ("carry", "warm-chain", "quad-n40-state-box-ct1")
+        kw = _kw(12, 4, N=horizon, max_iter=200, en_state_bound=box,
+                 check_termination=1 if every else 4,
+                 **(dict(bf16_head_iters=8) if case == "head" else {}))
+        if case == "quad-n40-state-box-ct1":
+            p64, c64 = _quad(horizon, dev, x_bound=2.0, dtype=torch.float64)
+            r64 = K.condensed_fused_reference(
+                build_condensed(p64, c64), float(c64.rho), p64.u_min,
+                p64.u_max, p64.x_min, p64.x_max, x0.double(), None, **kw)
+
+            def agree(k, r):
+                _agree_as_float32(k, r, r64, x0.shape[0] // 200)
+    reduced = case == "head"
+    free = not kw["en_state_bound"] and cons is None
+    sw = (horizon - 1) * nu + horizon * nx
+    four = K.four_lane_tile_plan(nx, nu, horizon, reduced, free)
+    assert (four.lanes, four.rpt, four.passes, four.resident) == (
+        4, 20, 3 if case == "widest" else 2, False)
+    assert four.rows == K.pass_rows(sw, 10, 320) <= four.passes * 320
+    assert K.fused_tile_plan(nx, nu, horizon, reduced, free,
+                             projected=cons is not None, groups=G) == four
+    args = (build_condensed(p, c), c.rho if G > 1 else float(c.rho),
+            p.u_min, p.u_max, p.x_min, p.x_max, x0)
+    if case == "warm-chain":
+        one = K.condensed_fused_cuda(*args, None,
+                                     **dict(kw, max_iter=80, carry_out=False))
+        first = K.condensed_fused_cuda(*args, None, **dict(kw, max_iter=30))
+        args = args + (first[4],)
+        kw = dict(kw, max_iter=50, warm_start=True, carry_out=False)
+    else:
+        args = args + (None,)
+    before = K.condensed_fused_cuda.launches
+    k = K.condensed_fused_cuda(*args, **kw)
+    assert K.condensed_fused_cuda.launches == before + 1
+    r = K.condensed_fused_reference(*args, **kw)
+    _forced(monkeypatch, K, "fused_tile_plan",
+            K.shared_tile_plan(nx, nu, horizon, reduced, free))
+    o = K.condensed_fused_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert same_bits(k, o)
+    agree(k, r)
+    if case == "warm-chain":
+        done = first[3] == 1
+        assert torch.equal(torch.where(done, first[2], 30 + k[2]), one[2])
+        assert torch.equal(torch.maximum(first[3], k[3]), one[3])
+        for j in (0, 1):
+            assert torch.equal(torch.where(done[:, None, None], first[j],
+                                           k[j]), one[j])
+    if case == "carry":
+        assert (k[2][:8] == 1).all() and (r[2][:8] == 1).all()
+        for a, b in zip(k[4], r[4]):  # the carry of the lanes at the origin
+            assert torch.equal(a[:, :8], b[:, :8])
+
+
 @pytest.mark.parametrize("horizon", [20, 60], ids=["n20", "n60"])
 @pytest.mark.parametrize("reduced", [False, True], ids=["fp32", "head8"])
 def test_k1_layouts_agree_bit_for_bit(dev, monkeypatch, horizon, reduced):
     """A lane's result does not depend on its layout: the quadrotor at N =
     20 (one pass) and N = 60 (sw 956), launched on its own plan (w2 in
-    shared memory at N = 20, split over a cluster at N = 60) and forced
-    onto w2 in global memory, gives the same bits (every product sums in
-    index order, the reduced one in the tensor cores' order), carry
-    included."""
+    shared memory at N = 20, split over a cluster at N = 60, where its 10
+    tiles leave the card idle) and forced onto w2 in global memory, gives
+    the same bits (every product sums in index order, the reduced one in
+    the tensor cores' order), carry included."""
     p, c = _quad(horizon, dev)
     args = (build_condensed(p, c), float(c.rho), p.u_min, p.u_max, p.x_min,
             p.x_max, _x0(301, 12, 18, 0.3, dev), None)

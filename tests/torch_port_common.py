@@ -265,3 +265,28 @@ def plant_setup(A, B, Q_diag, R_diag, rho, N, dtype, *, ub, x_bound=None,
         jm = jax_build(jp, jc)
         pm = convert.maps_from_numpy(jax_arrays(jm), dtype=tdt, device=CPU)
     return (jp, jc, jm), (pp, pc, pm)
+
+
+def from_pass_major(flat, blocks, K, v, W, ld):
+    """A pass-major map (..., blocks x K x ld floats) gathered back to
+    (..., blocks, K, v), read as the kernel's segments do
+    (csrc/condensed_adaptive.cu forward / backward, condensed_fused.cu
+    tile_product_fp32, tile_gemm.cuh gemm_fp32 with kPassMajor): block c's
+    pass p from (c ld + p W) K, its rows W apart, the last pass's ld - (P -
+    1) W; with every padded entry, which the kernel's threads read but
+    never store, checked to be zero."""
+    P = -(-v // W)
+    assert flat.shape[-1] == blocks * K * ld
+    out = []
+    for c in range(blocks):
+        cols = []
+        for p in range(P):
+            stride = W if p < P - 1 else ld - (P - 1) * W
+            base = (c * ld + p * W) * K
+            seg = flat[..., base:base + K * stride].unflatten(-1, (K,
+                                                                   stride))
+            n = min(W, v - p * W)
+            cols.append(seg[..., :n])
+            assert not seg[..., n:].any()
+        out.append(torch.cat(cols, -1))
+    return torch.stack(out, -3)

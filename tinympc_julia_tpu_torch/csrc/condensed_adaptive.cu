@@ -125,6 +125,14 @@
 #include "projections.cuh"
 #include "tile_gemm.cuh"
 
+// The shipped build compiles this file twice, side by side, and links the
+// two (ops/cuda/_build.py PARTS): -DTINYMPC_PART=0 holds the entry points
+// and part of the instances, -DTINYMPC_PART=1 the rest (pick_rest); a
+// build without the define (a probe build) holds everything.
+#ifndef TINYMPC_PART
+#define TINYMPC_PART -1
+#endif
+
 namespace {
 
 using namespace tinympc;
@@ -380,8 +388,7 @@ __device__ __forceinline__ bool takes(const Tile& t, int r, int rows, int l) {
 // whose tiles of 32 would leave the card idle) and tiles of 32 lanes at 10
 // rows x 4 lanes (12 in the backward product), in one pass or more, for
 // the batches that fill it (adaptive_tile_plan); their maps are laid out
-// pass by pass (kPassMajor: pass_rows), so that a slab of any pass is one
-// copy.
+// pass by pass (pass_rows), so that a slab of any pass is one copy.
 template <int RPT, int T, In kIn, int LPT>
 struct K2Product {
   static constexpr int kLanes = kIn == In::kCluster ? 8 : LPT;
@@ -392,7 +399,6 @@ struct K2Product {
   static constexpr int kST = kDeep ? kStagesWide : kStages;
   static constexpr bool kMbar = kIn == In::kShared && kLanes == 4;
   static constexpr bool kValid = kIn == In::kCluster || kMbar;
-  static constexpr bool kPassMajor = kMbar;
   static_assert(kLanes == 2 || kLanes == 4 || kLanes == 8,
                 "lanes a thread: 2, 4 or 8");
 };
@@ -470,17 +476,17 @@ __device__ __forceinline__ void forward(const Params& p, const Tile& t,
     }, epi);
   } else {
     // pass by pass: every pass's rows W apart but the last's (ld)
-    const int ld = P::kPassMajor ? p.ld1 - (p.passes1 - 1) * W : p.ld1;
+    const int ld = P::kMbar ? p.ld1 - (p.passes1 - 1) * W : p.ld1;
     GemmF32 a{t.vec1, t.ring, p.in1, W, ld, nseg, t.tid, t.bs};
     if constexpr (kIn == In::kCluster) a.ci = t.ci1;
     if constexpr (P::kValid) {
       a.vrows = t.r1 - t.r0;
       a.vper = ord1;
     }
-    gemm_fp32<P::kRows, T, kIn, P::kLanes, P::kSK, P::kST, false, P::kMbar,
-              P::kPassMajor>(a, [&](int j) {
+    gemm_fp32<P::kRows, T, kIn, P::kLanes, P::kSK, P::kST, false, P::kMbar>(
+        a, [&](int j) {
       const int c = ord1 - 1 - j % ord1, pass = j / ord1;
-      if constexpr (P::kPassMajor)
+      if constexpr (P::kMbar)
         return t.t1 + (static_cast<size_t>(c) * p.ld1 + pass * W) * p.in1;
       else
         return t.t1 + static_cast<size_t>(c) * p.in1 * p.ld1 + t.m1row0 +
@@ -561,13 +567,13 @@ __device__ __forceinline__ void backward(const Params& p, const Tile& t,
     }, epi);
   } else {
     // pass by pass: every pass's rows W2 apart but the last's (ld)
-    const int ld = P::kPassMajor ? p.ld2 - (p.passes2 - 1) * W2 : p.ld2;
+    const int ld = P::kMbar ? p.ld2 - (p.passes2 - 1) * W2 : p.ld2;
     GemmF32 a{t.ux, t.ring, p.sw + 1, W2, ld, p.passes2, t.tid, t.bs};
     if constexpr (kIn == In::kCluster) a.ci = t.ci2;
     if constexpr (P::kValid) a.vrows = 4 * (t.d1 - t.d0);
-    gemm_fp32<P::kRows2, T, kIn, P::kLanes, P::kSK, P::kST, false, P::kMbar,
-              P::kPassMajor>(a, [&](int j) {
-      if constexpr (P::kPassMajor)
+    gemm_fp32<P::kRows2, T, kIn, P::kLanes, P::kSK, P::kST, false, P::kMbar>(
+        a, [&](int j) {
+      if constexpr (P::kMbar)
         return t.t2 + static_cast<size_t>(j) * W2 * (p.sw + 1);
       else
         return t.t2 + t.m2row0 + j * W2;
@@ -1283,47 +1289,43 @@ void (*tile_kernel(bool proj_u, bool proj_x))(Params) {
 }
 
 // The instances adaptive_tile_plan picks from (lanes: a thread's of the
-// fp32 products); null for any other.
-void (*pick_kernel(int tile, int rpt, int lanes, In in, bool proj_u,
-                   bool proj_x))(Params) {
+// fp32 products), in two sets that the shipped build compiles in two
+// translation units side by side (TINYMPC_PART, below): tiles of 32 lanes
+// with the iterates in shared memory (part 0, beside the entry points), and
+// the rest (part 1); null for any other.
+#if TINYMPC_PART != 1
+void (*pick_shared32(int tile, int rpt, int lanes, In in, bool proj_u,
+                     bool proj_x))(Params) {
+  if (tile != 32 || in != In::kShared) return nullptr;
+  if (lanes == 4 && rpt == 20)  // the bulk-ring layout of the bulk batches
+    return tile_kernel<20, 32, In::kShared, 4>(proj_u, proj_x);
+  if (lanes == 2 && rpt == 8)
+    return tile_kernel<8, 32, In::kShared>(proj_u, proj_x);
+  if (lanes == 2 && rpt == 20)
+    return tile_kernel<20, 32, In::kShared>(proj_u, proj_x);
+  return nullptr;
+}
+#endif
+
+#if TINYMPC_PART != 0
+void (*pick_rest(int tile, int rpt, int lanes, In in, bool proj_u,
+                 bool proj_x))(Params) {
   if (in == In::kCluster)
     return tile == 32 && rpt == 32 && lanes == 8
                ? tile_kernel<32, 32, In::kCluster, 8>(proj_u, proj_x)
                : nullptr;
-  if (lanes == 4) {  // the bulk-ring layouts
-    if (tile == 32 && in == In::kShared && rpt == 20)
-      return tile_kernel<20, 32, In::kShared, 4>(proj_u, proj_x);
-    if (tile == 16 && in == In::kShared && rpt == 16)
-      return tile_kernel<16, 16, In::kShared, 4>(proj_u, proj_x);
-    return nullptr;
-  }
+  if (lanes == 4)  // the continuation layout
+    return tile == 16 && in == In::kShared && rpt == 16
+               ? tile_kernel<16, 16, In::kShared, 4>(proj_u, proj_x)
+               : nullptr;
   if (lanes != 2) return nullptr;
-  if (tile == 32 && in == In::kShared && rpt == 8)
-    return tile_kernel<8, 32, In::kShared>(proj_u, proj_x);
-  if (tile == 32 && in == In::kShared && rpt == 20)
-    return tile_kernel<20, 32, In::kShared>(proj_u, proj_x);
   if (tile == 16 && in == In::kShared && rpt == 8)
     return tile_kernel<8, 16, In::kShared>(proj_u, proj_x);
   if (tile == 32 && in == In::kGlobal && rpt == 20)
     return tile_kernel<20, 32, In::kGlobal>(proj_u, proj_x);
   return nullptr;
 }
-
-// The padded rows of a map that the bulk copy engine streams in one pass
-// (``v`` valid rows, ``rows`` a thread): a multiple of the thread's rows,
-// so that its last rows are read inside the slab's row, and of 4 (16-byte
-// rows).
-__host__ __device__ inline int bulk_rows(int v, int rows) {
-  return ((v + rows - 1) / rows * rows + 3) / 4 * 4;
-}
-
-// The padded rows of a map of ``v`` valid rows that the bulk copy engine
-// streams in passes of W rows, laid out pass by pass: every pass but the
-// last W rows, the last its valid rows padded (bulk_rows).
-__host__ __device__ inline int pass_rows(int v, int rows, int W) {
-  const int full = (v + W - 1) / W * W - W;
-  return full + bulk_rows(v - full, rows);
-}
+#endif
 
 In layout_of(int iterates_global, int cluster) {
   return cluster > 1 ? In::kCluster
@@ -1348,6 +1350,34 @@ struct LaunchConfig {
     cfg.numAttrs = cluster > 1 ? 1 : 0;
   }
 };
+
+}  // namespace
+
+// Part 1's instances, for part 0 (a kernel's address as void*: the
+// translation units share no type).
+namespace tinympc {
+void* k2_pick_rest(int tile, int rpt, int lanes, int in, int proj_u,
+                   int proj_x)
+#if TINYMPC_PART == 0
+    ;
+#else
+{
+  return reinterpret_cast<void*>(pick_rest(tile, rpt, lanes,
+                                           static_cast<In>(in), proj_u != 0,
+                                           proj_x != 0));
+}
+#endif
+}  // namespace tinympc
+
+#if TINYMPC_PART != 1
+namespace {
+
+void (*pick_kernel(int tile, int rpt, int lanes, In in, bool proj_u,
+                   bool proj_x))(Params) {
+  if (auto k = pick_shared32(tile, rpt, lanes, in, proj_u, proj_x)) return k;
+  return reinterpret_cast<void (*)(Params)>(k2_pick_rest(
+      tile, rpt, lanes, static_cast<int>(in), proj_u, proj_x));
+}
 
 }  // namespace
 
@@ -1572,3 +1602,4 @@ extern "C" int tinympc_condensed_adaptive(
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // TINYMPC_PART != 1

@@ -41,14 +41,18 @@
 //    while the block multiplies one.  (A two-slot ring times the same at
 //    the quadrotor shape: the slabs' latency is not what bounds the
 //    streamed product; PERF.md section 6.)
-//  * Where the map streams in one pass of 320 rows (the quadrotor at N =
-//    20), the 4-lane layout: the fp32 product's thread tile is 10 rows x 4
-//    lanes (the same W: fewer shared-memory loads an FMA), the map's slabs
-//    are 16 k-rows, each one bulk copy issued by thread 0 once every warp
-//    has freed its slot (the warps wait on the slab's mbarrier, not on a
-//    block barrier a slab), and a checking iteration takes a box side's
-//    residuals and updates in one pass (the carry's slack written ahead, as
-//    a projected side's pass does).
+//  * Where the tile's w2 lives in shared memory and the map streams (the
+//    quadrotor at N = 20-56, the 20-state chain, the rocket at N = 40), the
+//    4-lane layout: the fp32 product's thread tile is 10 rows x 4 lanes
+//    (fewer shared-memory loads an FMA), in passes of W = 320 rows, the
+//    map laid out pass by pass (a pass's [k][row] block after the earlier
+//    passes', the last pass's rows padded only to a thread's), so that a
+//    slab of 16 k-rows of any pass is one bulk copy, issued by thread 0
+//    once every warp has freed its slot (the warps wait on the slab's
+//    mbarrier, not on a block barrier a slab); the sums of every pass but
+//    the last are parked as on 2 lanes, and a checking iteration takes a
+//    box side's residuals and updates in one pass (the carry's slack
+//    written ahead, as a projected side's pass does).
 //  * The tile's w2 lives in shared memory as [row][lane], a single buffer:
 //    after a barrier the product overwrites it (latched lanes keep theirs),
 //    and the elementwise step adds uxc and turns ux into the next w2 in
@@ -128,7 +132,8 @@
 // 32 split over a cluster, 32 with w2 in global memory: the instances; or
 // the warp layout and its most warps a block), the cluster and its blocks'
 // stages, the passes, the padded layouts (swp = cluster x passes x 16 RPT
-// rows of the transposed map; kp columns of the bf16 map), whether
+// rows of the transposed map, or with 4 lanes a thread its pass_rows; kp
+// columns of the bf16 map), whether
 // the map and the state are resident
 // and the dynamic shared-memory size; the entry point refuses a layout the
 // kernel would overrun and a constraint set whose arrays are missing (the
@@ -151,7 +156,8 @@ constexpr int kRowGroups = Lanes<kTile>::kRowGroups;  // product rows: 16
 
 struct Params {
   // the maps, with a leading group axis where map_grouped
-  const float* t12t;  // (sw, swp) T12w transposed, rows padded to swp
+  const float* t12t;  // (sw, swp) T12w transposed, rows padded to swp (the
+                      // 4-lane layout: pass by pass, [pass][k][row])
   const __nv_bfloat16* t12a;  // (swp, kp) T12w in bf16; null without
                               // reduced iterations
   const float* t12c;  // (sw,)  fused-map constant column
@@ -424,22 +430,34 @@ __device__ __forceinline__ void tile_epilogue(const Params& p, const Tile& t,
 // / 4 rows a thread; a thread of more than 2 lanes streams slabs of 16
 // k-rows (the same W and ring bytes), and the 4-lane layout (4 lanes,
 // w2 in shared memory) fills its ring by the bulk copy engine with no block
-// barrier a slab (kMbar).
+// barrier a slab (kMbar), its map laid out pass by pass (a pass's
+// [k][row] block after the earlier passes', W rows wide, the last
+// pass's rows padded only to a thread's: pass_rows), so that a slab of any
+// pass is one copy; its threads past the map's rows skip the FMAs.
 template <int RPT, In kIn, int LPT>
 __device__ __forceinline__ void tile_product_fp32(const Params& p,
                                                   const Tile& t) {
   const int W = kRowGroups * RPT;
-  GemmF32 a{t.buf, t.ring, p.sw, W, p.swp, p.passes, t.tid, t.bs};
+  constexpr int kL = kIn == In::kCluster ? 8 : LPT;
+  constexpr bool kDeep = kL > 2;
+  constexpr bool kMbar = kIn == In::kShared && kL == 4;
+  // pass by pass: every pass's rows W apart but the last's (ld)
+  const int ld = kMbar ? p.swp - (p.passes - 1) * W : p.swp;
+  GemmF32 a{t.buf, t.ring, p.sw, W, ld, p.passes, t.tid, t.bs};
   if constexpr (kIn == In::kCluster) {
     a.ci = t.ci;
     a.vrows = t.r1 - t.r0;
   }
-  constexpr int kL = kIn == In::kCluster ? 8 : LPT;
-  constexpr bool kDeep = kL > 2;
+  if constexpr (kMbar) a.vrows = p.sw;
   gemm_fp32<RPT * 2 / kL, kTile, kIn, kL, kDeep ? kSlabKWide : kSlabK,
-            kDeep ? kStagesWide : kStages, kIn == In::kCluster,
-            kIn == In::kShared && kL == 4>(
-      a, [&](int j) { return t.map + t.mrow0 + j * W; },
+            kDeep ? kStagesWide : kStages, kIn == In::kCluster, kMbar>(
+      a,
+      [&](int j) {
+        if constexpr (kMbar)
+          return t.map + static_cast<size_t>(j) * W * p.sw;
+        else
+          return t.map + t.mrow0 + j * W;
+      },
       [&](int j, const auto& acc, const auto& fr) {
         tile_epilogue<kIn>(p, t, W, j, acc, fr);
       });
@@ -448,8 +466,10 @@ __device__ __forceinline__ void tile_product_fp32(const Params& p,
 // The reduced product on the tensor cores, pass by pass: w2 rounded to
 // bf16 into w2h[lane][k], then per warp (wm, wn) the rows wm*4*RPT ..
 // +4*RPT-1 of the pass (RPT/4 tiles of 16) of lanes wn*16 .. +15 (two tiles
-// of 8), k in steps of 16.
-template <int RPT, In kIn>
+// of 8), k in steps of 16.  The 4-lane layout's bf16 map keeps its rows
+// (pass_rows of them, fewer than its passes' W each) and streams only the
+// valid rows of its last pass.
+template <int RPT, In kIn, int LPT>
 __device__ __forceinline__ void tile_product_lo(const Params& p,
                                                 const Tile& t) {
   const int W = kRowGroups * RPT;
@@ -461,6 +481,7 @@ __device__ __forceinline__ void tile_product_lo(const Params& p,
     a.ci = t.ci;
     a.vrows = t.r1 - t.r0;
   }
+  if constexpr (kIn == In::kShared && LPT == 4) a.vrows = p.sw;
   gemm_lo<RPT, kTile, kIn>(
       a,
       [&](int j) {
@@ -745,7 +766,7 @@ __global__ void __launch_bounds__(kThreads, RPT <= 8 ? 2 : 1)
       }
     } else {
       if (is_reduced(p, i, check))
-        tile_product_lo<RPT, kIn>(p, t);
+        tile_product_lo<RPT, kIn, LPT>(p, t);
       else
         tile_product_fp32<RPT, kIn, LPT>(p, t);
     }
@@ -1449,7 +1470,9 @@ extern "C" int tinympc_condensed_fused(
   // (start, dim) pairs on the device; soc_mu_*: (n_soc,) on the device.
   // t12a: the (swp, kp) bf16 map of reduced iterations; swp = the passes x
   // 16 x rpt, the rows a thread (the instances: 2 rpt / lanes rows x lanes
-  // lanes of the fp32 product, lanes 2, or 4 at rpt 20), kp a multiple of
+  // lanes of the fp32 product, lanes 2, or 4 at rpt 20: then the map pass
+  // by pass in ceil(sw / 320) passes, swp = pass_rows(sw, 10, 320), the
+  // map streamed, w2 in shared memory, no cluster), kp a multiple of
   // kSlabKLo; park: the (sw, B) scratch of a launch of several passes; wsc:
   // the (sw, B) projection scratch of a launch with linear or cone
   // constraints whose stage buffers (kThreads x the widest projected
@@ -1510,7 +1533,12 @@ extern "C" int tinympc_condensed_fused(
       p.rows_loc = rows > p.rows_loc ? rows : p.rows_loc;
     }
   }
-  p.passes = rpt > 0 ? swp / cluster / W : 0;
+  // the 4-lane layout's map pass by pass: passes of W rows, the last's
+  // padded only to a thread's rows (2 rpt / lanes)
+  const bool pass_major = lanes == 4 && warps == 0;
+  p.passes = rpt <= 0       ? 0
+             : pass_major ? (p.sw + W - 1) / W
+                          : swp / cluster / W;
   const size_t need =
       tile_layout(in, p.rows_loc, swp, W, kp,
                   state_shared ? state_rows(p.su, p.sx, p.sw, p.state_free)
@@ -1522,7 +1550,10 @@ extern "C" int tinympc_condensed_fused(
   const size_t stage =
       (proj_u || proj_x) && !wsc ? sizeof(float) * kThreads * sdim : 0;
   if (G <= 0 || L <= 0 || G > 65535 || ct < 1 || k0 < 0 || k0 > max_iter ||
-      rpt <= 0 || swp < p.sw || swp != cluster * p.passes * W ||
+      rpt <= 0 || swp < p.sw ||
+      (pass_major ? cluster != 1 || wg || t12_resident ||
+                        swp != pass_rows(p.sw, 2 * rpt / lanes, W)
+                  : swp != cluster * p.passes * W) ||
       (p.passes > 1 && !park) ||
       (wg && (!w2g || t12_resident)) ||
       ((wg || cluster > 1) && reduced && !w2hg) ||

@@ -146,7 +146,7 @@ struct RingBars {
   unsigned long long full[kStages], empty[kStages];
   int slabs;
 };
-__shared__ RingBars ring_bars;
+static __shared__ RingBars ring_bars;  // each translation unit's own
 
 // Thread 0 of a kernel whose products take kMbar, before a block barrier
 // that precedes its first product.
@@ -172,6 +172,22 @@ __host__ __device__ inline size_t ring_bytes(int W, bool lo, int wt = 0) {
                   (kSlabKLo + kPadLo)
             : sizeof(float) * kStages * static_cast<size_t>(kSlabK) *
                   (W + wt);
+}
+
+// The padded rows of a map that the bulk copy engine streams in one pass
+// (``v`` valid rows, ``rows`` a thread): a multiple of the thread's rows,
+// so that its last rows are read inside the slab's row, and of 4 (16-byte
+// rows).
+__host__ __device__ inline int bulk_rows(int v, int rows) {
+  return ((v + rows - 1) / rows * rows + 3) / 4 * 4;
+}
+
+// The padded rows of a map of ``v`` valid rows that the bulk copy engine
+// streams in passes of W rows, laid out pass by pass: every pass but the
+// last W rows, the last its valid rows padded (bulk_rows).
+__host__ __device__ inline int pass_rows(int v, int rows, int W) {
+  const int full = (v + W - 1) / W * W - W;
+  return full + bulk_rows(v - full, rows);
 }
 
 // Which output each register of an fp32 product thread holds: entry e of
@@ -228,16 +244,16 @@ __device__ __forceinline__ int seg_rows(const A& a, int j) {
 }
 
 // seg(j): segment j's map, [k][row] with row stride ld (W rows of it);
-// with kPassMajor (kMbar only), the map laid out pass by pass (a pass: the
-// vper segments j / vper), segment j's rows W apart where a later pass
-// follows it and ld apart in the last pass (its rows padded only to a
-// thread's), so that every slab is one contiguous copy; epi(j, acc, frag)
+// with kMbar, the map laid out pass by pass (a pass: the vper segments j /
+// vper), segment j's rows W apart where a later pass follows it and ld
+// apart in the last pass (its rows padded only to a thread's), so that
+// every slab is one contiguous copy; epi(j, acc, frag)
 // after segment j, on every thread.  Every thread must be past its last
 // use of the ring and of w (with kGlobal, w's stores behind a barrier;
 // with kCluster, every block's behind a cluster barrier) before the call.
 template <int RPT, int T = kTile, In kIn = In::kShared, int LPT = 2,
           int kSK = kSlabK, int kST = kStages, bool kBulk = false,
-          bool kMbar = false, bool kPassMajor = false, class Seg, class Epi>
+          bool kMbar = false, class Seg, class Epi>
 __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
                                           Epi epi) {
   static_assert(RPT % 2 == 0, "rows a thread: even");
@@ -311,16 +327,15 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
   // slot (s0 + s) % kST.  kBulk (kCluster only): the map's rows of a slab
   // arrive by the bulk copy engine, one copy a k-row issued by thread 0, on
   // the slot's mbarrier (phase (s0 + s) / kST; s0 the block's slabs before
-  // this product); kMbar (kShared only): the slab's k-rows of the map, ld
-  // apart (at most W; with kPassMajor the segment's stride), as one copy
-  // into a slot of rows as far apart, issued by
+  // this product); kMbar (kShared only): the slab's k-rows of the map, its
+  // segment's stride apart (at most W), as one copy into a slot of rows as
+  // far apart, issued by
   // thread 0 once every warp has arrived on the slot's empty barrier, the
   // warps waiting on nothing but their slab's full barrier (no block
   // barrier a slab); otherwise by cp.async, 16 bytes a thread at a time
   static_assert(!kBulk || kIn == In::kCluster, "bulk copies: a cluster's");
   static_assert(!kMbar || (kIn == In::kShared && kST <= kStages),
                 "the barrier ring: a shared-memory product's");
-  static_assert(!kPassMajor || kMbar, "pass by pass: the barrier ring's");
   const int nslab = (a.K + kSK - 1) / kSK, total = nslab * a.nseg;
   int s0 = 0;
   if constexpr (kBulk || kMbar) {
@@ -334,18 +349,18 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
     if (a.tid == 0) *count = s0 + total;
   }
   const int per = a.W / 4;  // 16-byte chunks of a slab row
-  // segment j's row stride in the map and in its slab (with kPassMajor,
-  // the last pass's segments are the last vper)
+  // segment j's row stride in the map and in its slab (with kMbar, pass by
+  // pass: the last pass's segments are the last vper)
   auto stride = [&](int j) {
-    if constexpr (kPassMajor)
+    if constexpr (kMbar)
       return j < a.nseg - a.vper ? a.W : a.ld;
     else
-      return kMbar ? a.ld : a.W;
+      return a.W;
   };
   int rs = stride(0);  // ... of the slab in hand
-  // floats a slot (with kPassMajor as wide as the widest pass)
+  // floats a slot (with kMbar as wide as the widest pass)
   const int slot =
-      kSK * ((kPassMajor && a.nseg > a.vper ? a.W : rs) + (kStream ? T : 0));
+      kSK * ((kMbar && a.nseg > a.vper ? a.W : rs) + (kStream ? T : 0));
   // this thread's first chunk of a slab: row r0c, chunk c0c; it then steps
   // kThreads chunks at a time
   const int r0c = a.tid / per, c0c = a.tid - r0c * per;
@@ -497,7 +512,7 @@ __device__ __forceinline__ void gemm_fp32(const GemmF32& a, Seg seg,
       k0 = 0;
       if (j < a.nseg) {
         rows_here = r0 < seg_rows(a, j);
-        if constexpr (kPassMajor) rs = stride(j);
+        if constexpr (kMbar) rs = stride(j);
       }
     }
   }

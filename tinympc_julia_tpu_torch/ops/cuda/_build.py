@@ -5,7 +5,10 @@ at the root of the checkout (``build/`` is git-ignored), for ``sm_90a``, with a
 plain C interface: no PyTorch headers, so a build takes seconds.  The digest
 of the source and of the headers beside it (``csrc/*.cuh``) names the
 library, so an edited source is rebuilt and an unchanged one is loaded as it
-is.  ``load_libraries`` builds several sources at once, one nvcc each.
+is.  ``load_libraries`` builds several sources at once, one nvcc each; a
+source listed in ``PARTS`` is compiled as that many translation units
+(``-DTINYMPC_PART=i``, each a share of its kernel instances) by as many
+nvcc side by side, then linked into one library.
 """
 from __future__ import annotations
 
@@ -26,6 +29,9 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# sources whose shipped build (no defines) is split over translation units:
+# K2's 28 instances took twice K1's nvcc time in one (PERF.md section 6)
+PARTS = {"condensed_adaptive": 2}
 
 
 class BuiltLibrary(NamedTuple):
@@ -52,22 +58,42 @@ def load_library(name: str, defines: tuple = ()) -> BuiltLibrary:
     src = CSRC_DIR / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    parts = PARTS.get(name, 1) if not defines else 1
     digest = hashlib.sha1(src.read_bytes() + headers
-                          + " ".join(flags).encode()).hexdigest()[:16]
+                          + " ".join(flags).encode()
+                          + f" parts {parts}".encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     seconds, log = 0.0, ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
+        if parts == 1:
+            log = _run([_nvcc(), *flags, "-o", str(tmp), str(src)], src)
+        else:
+            objs = [out.with_suffix(f".{os.getpid()}.{i}.o")
+                    for i in range(parts)]
+            compile_flags = [f for f in flags if f != "-shared"]
+            with ThreadPoolExecutor(max_workers=parts) as pool:
+                logs = list(pool.map(lambda i: _run(
+                    [_nvcc(), *compile_flags, f"-DTINYMPC_PART={i}", "-c",
+                     "-o", str(objs[i]), str(src)], src), range(parts)))
+            log = "".join(logs) + _run(
+                [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)], src)
+            for o in objs:
+                o.unlink()
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
         os.replace(tmp, out)
     return BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
+
+
+def _run(cmd, src: Path) -> str:
+    """One nvcc run; its output (the ptxas lines), or raises with it."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+    return log
 
 
 def load_libraries(names, defines: tuple = ()) -> list[BuiltLibrary]:

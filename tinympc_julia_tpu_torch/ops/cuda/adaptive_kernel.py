@@ -60,14 +60,15 @@ from .condensed_kernel import (CLUSTER_META, CLUSTER_SIZES, K2_HALF_PASS,
                                CLUSTER_SMS, KP_ALIGN, RING_BARS_BYTES,
                                SMEM_PER_BLOCK, THREADS,
                                TILE, FusedConstraints,
-                               _check_constraints,
+                               _check_constraints, _pass_major,
                                _check_cuda_inputs, _check_grouped_shape,
                                _dims, _flat_x0, _grouped_view,
                                _no_constraints, _ptr, _side_args,
                                _state_free, _up16, _FLT, _INT, _PTR, _SIDE,
                                bf16_round, constraint_bytes,
                                fused_constraints, mma_product,
-                               pass_cost, ring_bytes, slice_rows,
+                               pass_cost, pass_rows, ring_bytes,
+                               slice_rows,
                                stage_bounds_arg, stage_slices)
 from .condensed_kernel import _check_precision as _check_k1_precision
 
@@ -281,23 +282,6 @@ def launch_smem(plan: AdaptivePlan, sw: int, carry_out: bool,
 
 def _kp(k: int) -> int:
     return -(-k // KP_ALIGN) * KP_ALIGN
-
-
-def bulk_rows(v: int, rows: int) -> int:
-    """The padded rows of a map that the bulk copy engine streams in one
-    pass (csrc/condensed_adaptive.cu bulk_rows): ``v`` valid rows rounded
-    up to a multiple of a thread's ``rows`` (its last rows read inside the
-    slab's row), then of 4 (16-byte rows)."""
-    return -(-(-(-v // rows) * rows) // 4) * 4
-
-
-def pass_rows(v: int, rows: int, width: int | None = None) -> int:
-    """The padded rows of a map of ``v`` valid rows laid out pass by pass
-    (csrc/condensed_adaptive.cu pass_rows): every pass but the last
-    ``width`` rows, the last its valid rows padded (``bulk_rows``); one
-    pass where ``width`` is None."""
-    full = 0 if width is None else (-(-v // width) - 1) * width
-    return full + bulk_rows(v - full, rows)
 
 
 def bulk_ld(su: int, sw: int, rpt: int,
@@ -873,23 +857,6 @@ def _row_layout(plan: AdaptivePlan, nx: int, nu: int, N: int, device):
               for a, b in zip(plan.ustages[:-1], plan.ustages[1:])]
     return (index(slice_rows(nx, nu, N, plan.stages), per1),
             index(dspans, per2))
-
-
-def _pass_major(m: torch.Tensor, width: int, ld: int) -> torch.Tensor:
-    """A transposed map (..., K, v) laid out pass by pass, (..., K x ld):
-    pass p's [k][row] block of its rows [p width, (p + 1) width) after the
-    earlier passes', every pass but the last ``width`` rows wide, the last
-    the rest of the ``ld`` padded rows (``pass_rows``); padding zero."""
-    K, v = m.shape[-2:]
-    out = m.new_zeros(m.shape[:-2] + (K * ld,))
-    off = 0
-    for a in range(0, v, width):
-        b = min(v, a + width)
-        rows = width if b < v else ld - a
-        out.narrow(-1, off, K * rows).unflatten(-1, (K, rows))[
-            ..., :b - a] = m[..., a:b]
-        off += K * rows
-    return out
 
 
 def map_layout(tmaps: CondensedTaylorMaps, su, sw, plan: AdaptivePlan,

@@ -106,16 +106,28 @@ CLUSTER_META = 3 * 16 * 32 + 2 * 256
 # (``card_busy_sms``)
 CLUSTER_SMS = {2: 132, 3: 117, 4: 120, 5: 110, 6: 102, 7: 105, 8: 120}
 # the width (rows of w2) from which K1 takes the cluster layout even where
-# w2 fits in shared memory: the quadrotor's N = 57, where the cluster first
-# beat the shared plans on the card (PERF.md section 6, R11)
+# w2 fits in shared memory with 2 lanes a thread: the quadrotor's N = 57,
+# where the cluster first beat those plans on the card (PERF.md section 6,
+# R11); the 4-lane layout in passes (``four_lane_tile_plan``) beat the
+# cluster at every width it takes where the launch's tiles keep the card
+# busy (the quadrotor's N = 56-81 at 96-512 tiles: 1.23-1.94x), and lost to
+# it where they leave half the SMs idle (``few_tiles``; N = 57-60 at 32-64
+# tiles: 1.48-1.51x; a cluster of 3 at N = 64-81: 1.81-2.25x at 32 tiles,
+# 0.96-1.19x at 64: PERF.md section 6, R18), so from here it takes only
+# launches of the former
 CLUSTER_FROM_WIDTH = 908
-# The 4-lane layout (ROADMAP R5): a plan that streams its map in one pass
-# of 16 x LANES4_RPT rows takes 10 rows x 4 lanes a thread in the fp32
-# product (TilePlan.lanes), slabs of 16 k-rows by the bulk copy engine
+# The 4-lane layout (ROADMAP R5, R18): a plan of tiles of 32 lanes that
+# streams its map at 20 or 32 rows a thread takes 10 rows x 4 lanes a
+# thread in the fp32 product (TilePlan.lanes), in passes of W = 16 x
+# LANES4_RPT = 320 rows, the map laid out pass by pass (``pass_rows``,
+# ``_pass_major``), slabs of 16 k-rows of a pass by the bulk copy engine
 # with no block barrier a slab, and a checking iteration's box residuals
-# and updates in one pass (csrc/condensed_fused.cu); on the card it beat 2
-# lanes a thread at a continuation's 192 tiles and a bulk launch's 1,536
-# (PERF.md section 6), so it does not depend on the batch.
+# and updates in one pass (csrc/condensed_fused.cu); in one pass it beat 2
+# lanes a thread at a continuation's 192 tiles and a bulk launch's 1,536,
+# in passes at every width measured, at 32-512 tiles, also where 2 lanes
+# take fewer passes (one of 512 rows at sw 321-512, two of 512 at sw
+# 641-907: PERF.md section 6), so against 2 lanes it depends neither on
+# the batch nor on the passes (against the cluster: CLUSTER_FROM_WIDTH).
 LANES4_RPT = 20
 # static shared memory of a kernel whose ring the bulk copy engine fills
 # (csrc/tile_gemm.cuh RingBars, rounded up to 16 bytes): the dynamic
@@ -173,7 +185,14 @@ class TilePlan(NamedTuple):
     @property
     def rpt(self) -> int:
         """Rows a thread of the product (the kernel's instance)."""
+        if self.bulk_ring:  # its last pass padded only to a thread's rows
+            return LANES4_RPT
         return self.rows // (self.cluster * self.passes * TILE_ROW_GROUPS)
+
+    @property
+    def width(self) -> int:
+        """Rows of a pass of the product (the threads' rows at once)."""
+        return TILE_ROW_GROUPS * self.rpt
 
     @property
     def slab_k(self) -> int:
@@ -364,17 +383,52 @@ def ring_bytes(width: int, reduced: bool, w_lanes: int = 0) -> int:
     return ring
 
 
+def bulk_rows(v: int, rows: int) -> int:
+    """The padded rows of a map that the bulk copy engine streams in one
+    pass (csrc/tile_gemm.cuh bulk_rows): ``v`` valid rows rounded
+    up to a multiple of a thread's ``rows`` (its last rows read inside the
+    slab's row), then of 4 (16-byte rows)."""
+    return -(-(-(-v // rows) * rows) // 4) * 4
+
+
+def pass_rows(v: int, rows: int, width: int | None = None) -> int:
+    """The padded rows of a map of ``v`` valid rows laid out pass by pass
+    (csrc/tile_gemm.cuh pass_rows): every pass but the last
+    ``width`` rows, the last its valid rows padded (``bulk_rows``); one
+    pass where ``width`` is None."""
+    full = 0 if width is None else (-(-v // width) - 1) * width
+    return full + bulk_rows(v - full, rows)
+
+
+def _pass_major(m: torch.Tensor, width: int, ld: int) -> torch.Tensor:
+    """A transposed map (..., K, v) laid out pass by pass, (..., K x ld):
+    pass p's [k][row] block of its rows [p width, (p + 1) width) after the
+    earlier passes', every pass but the last ``width`` rows wide, the last
+    the rest of the ``ld`` padded rows (``pass_rows``); padding zero."""
+    K, v = m.shape[-2:]
+    out = m.new_zeros(m.shape[:-2] + (K * ld,))
+    off = 0
+    for a in range(0, v, width):
+        b = min(v, a + width)
+        rows = width if b < v else ld - a
+        out.narrow(-1, off, K * rows).unflatten(-1, (K, rows))[
+            ..., :b - a] = m[..., a:b]
+        off += K * rows
+    return out
+
+
 def tile_smem(sw: int, rows: int, kp: int, state: int, resident: bool,
               reduced: bool, passes: int = 1,
-              w2_global: bool = False) -> int:
+              w2_global: bool = False, width: int | None = None) -> int:
     """One block's shared memory (csrc/condensed_fused.cu tile_layout): the
     tile's w2 (sw x 32 floats; none where it lives in global memory), the
     latch flags, the residual partials of the lanes' threads, the lanes'
     solver state (``state`` floats a lane, 0 where it stays in global
     memory), the map (resident: fp32, and bf16 with reduced iterations;
-    streamed: the slab ring of one pass of rows / passes rows, with the
-    tile's w2 rows beside each slab where w2 is global), the bf16 w2 of
-    reduced iterations ([lane][k], rows padded; global with w2)."""
+    streamed: the slab ring of one pass of ``width`` rows, by default rows
+    / passes, with the tile's w2 rows beside each slab where w2 is
+    global), the bf16 w2 of reduced iterations ([lane][k], rows padded;
+    global with w2)."""
     n = ((0 if w2_global else _up16(4 * sw * TILE)) + _up16(4 * (TILE + 1))
          + _up16(16 * THREADS) + _up16(4 * state * TILE))
     if resident:
@@ -382,7 +436,7 @@ def tile_smem(sw: int, rows: int, kp: int, state: int, resident: bool,
         if reduced:
             n += _up16(2 * rows * (kp + PAD_LO))
     else:
-        n += _up16(ring_bytes(rows // passes, reduced,
+        n += _up16(ring_bytes(width or rows // passes, reduced,
                               TILE if w2_global else 0))
     if reduced and not w2_global:
         n += _up16(2 * TILE * (kp + PAD_LO))
@@ -560,38 +614,83 @@ def warp_tile_plan(nx: int, nu: int, N: int,
                     warp_smem(sw, state, warps), lanes=4, warps=warps)
 
 
+def four_lane_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
+                        state_free: bool = True) -> TilePlan | None:
+    """The 4-lane layout at this shape, where the plan of tiles of 32 lanes
+    with w2 in shared memory (``shared_tile_plan``) streams its map at 20
+    or 32 rows a thread: 10 rows x 4 lanes a thread in the fp32 product,
+    ceil(sw / 320) passes of 320 rows, the map laid out pass by pass with
+    the last pass's rows padded to a thread's (``pass_rows``), the ring
+    filled by the bulk copy engine (its slots one pass wide), the lanes'
+    state in shared memory where it fits, and room left for the ring's
+    barriers (RING_BARS_BYTES).  None where that plan is another or the
+    layout does not fit."""
+    sw = (N - 1) * nu + N * nx
+    two = shared_tile_plan(nx, nu, N, reduced, state_free)
+    if two is None or two.resident or two.rpt not in (LANES4_RPT, 32):
+        return None
+    W = TILE_ROW_GROUPS * LANES4_RPT
+    npass = -(-sw // W)
+    rows = pass_rows(sw, 2 * LANES4_RPT // 4, W)
+    state = state_floats(nx, nu, N, state_free)
+    for shared in (True, False):
+        smem = tile_smem(sw, rows, two.kp, state if shared else 0, False,
+                         reduced, npass, width=W)
+        if smem <= SMEM_PER_BLOCK - RING_BARS_BYTES:
+            return TilePlan(TILE, THREADS, False, shared, rows, two.kp,
+                            smem, npass, lanes=4)
+    return None
+
+
+def few_tiles(tiles: int, sms: int) -> bool:
+    """Whether a launch of ``tiles`` tiles of 32 lanes, a block each,
+    leaves half or more of the card's ``sms`` SMs idle (2 x ``tiles`` <=
+    ``sms``), so that a cluster of 2 blocks a tile runs on SMs that the
+    tiles would leave idle."""
+    return 2 * tiles <= sms
+
+
 def fused_tile_plan(nx: int, nu: int, N: int, reduced: bool = False,
                     state_free: bool = True, busy_sms=None,
-                    projected: bool = False, groups: int = 1) -> TilePlan:
+                    projected: bool = False, groups: int = 1,
+                    tiles: int | None = None,
+                    sms: int | None = None) -> TilePlan:
     """The layout of a launch at this shape (``reduced``: with
     reduced-precision iterations; ``state_free``: no state-side
     constraint, so no state dual; ``busy_sms``: as ``cluster_tile_plan``'s;
-    ``projected``: with halfspaces or cones; ``groups``: G).  An fp32
+    ``projected``: with halfspaces or cones; ``groups``: G) and batch
+    (``tiles``: the launch's tiles of 32 lanes, G x ceil(L / 32); None: a
+    batch that fills the card; ``sms``: the card's SMs, needed with
+    ``tiles``).  An fp32
     launch with box constraints only whose map has at most WARP_ROWS rows,
     of at most WARP_MAX_GROUPS groups, takes the warp layout
     (``warp_tile_plan``: lane groups of 8 lanes, a warp each, a queue of
     lane groups a group), at every batch; reduced iterations (K1c: phase
     6's staged pipeline, ``phase1_bf16``), projections (K1e: the rocket)
     and every wider map keep the tiles.
-    Below CLUSTER_FROM_WIDTH rows, tiles of 32 lanes with w2 in shared
-    memory (``shared_tile_plan``) where that fits, with 4 lanes a thread
-    where its map streams in one pass of 16 x LANES4_RPT rows (the 4-lane
-    layout); from there, or where w2 does not fit, the tile split over a
-    thread block cluster (``cluster_tile_plan``; every width of the JAX
-    package's condensed budget); where even a cluster of 8's slices do not
-    fit, w2 in global memory (``global_tile_plan``), so every width has a
-    plan."""
+    Where tiles of 32 lanes with w2 in shared memory stream the map
+    (``four_lane_tile_plan``), 4 lanes a thread in passes of 320 rows (the
+    4-lane layout), from CLUSTER_FROM_WIDTH only for a launch whose tiles
+    keep the card busy (not ``few_tiles``); else below CLUSTER_FROM_WIDTH,
+    tiles of 32 lanes with w2 in shared memory and 2 lanes a thread
+    (``shared_tile_plan``) where that fits; from there, or
+    where w2 does not fit, the tile split over a thread block cluster
+    (``cluster_tile_plan``; every width of the JAX package's condensed
+    budget); where even a cluster of 8's slices do not fit, w2 in global
+    memory (``global_tile_plan``), so every width has a plan."""
+    if tiles is not None and sms is None:
+        raise ValueError("a plan for a batch (tiles) needs the card's SMs")
     sw = (N - 1) * nu + N * nx
     if not reduced and not projected and groups <= WARP_MAX_GROUPS:
         plan = warp_tile_plan(nx, nu, N, state_free)
         if plan is not None:
             return plan
-    plan = (shared_tile_plan(nx, nu, N, reduced, state_free)
-            if sw < CLUSTER_FROM_WIDTH else None)
-    if plan is not None and not plan.resident and plan.passes == 1 \
-            and plan.rpt == LANES4_RPT \
-            and plan.smem <= SMEM_PER_BLOCK - RING_BARS_BYTES:
-        return plan._replace(lanes=4)
+    plan = None
+    if sw < CLUSTER_FROM_WIDTH or tiles is None \
+            or not few_tiles(tiles, sms):
+        plan = four_lane_tile_plan(nx, nu, N, reduced, state_free)
+    if plan is None and sw < CLUSTER_FROM_WIDTH:
+        plan = shared_tile_plan(nx, nu, N, reduced, state_free)
     if plan is None:
         plan = cluster_tile_plan(nx, nu, N, reduced, busy_sms=busy_sms)
     return plan if plan is not None else global_tile_plan(nx, nu, N, reduced)
@@ -1026,6 +1125,12 @@ def tile_occupancy(plan: TilePlan, proj_u: bool = False,
 
 
 @functools.cache
+def _card_sms(device: torch.device) -> int:
+    """The SMs of the card ``device`` is on."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
 def card_busy_sms(plan: TilePlan) -> int:
     """The SMs a cluster plan's clusters keep busy at once on the current
     card: the occupancy API's clusters at once x the blocks a cluster
@@ -1046,7 +1151,10 @@ def map_layout(maps: CondensedMaps, nx, su, sw, reduced: bool,
     (else None), the rollout and constant columns as contiguous vectors; a
     leading group axis is kept.  A cluster plan lays the rows out block by
     block: block c's rows from row c x rows / cluster, each block's padded
-    to its passes."""
+    to its passes.  A 4-lane plan (``plan.bulk_ring``) lays the transposed
+    map out pass by pass (``_pass_major``: passes of ``plan.width`` rows,
+    (sw x ``plan.rows``,)), so that a slab of a pass is one bulk copy; its
+    bf16 map stays row-major."""
     lead = maps.T12.shape[:-2]
     dev = maps.T12.device
     dst = src = slice(0, sw)
@@ -1058,9 +1166,14 @@ def map_layout(maps: CondensedMaps, nx, su, sw, reduced: bool,
         src = torch.cat([torch.arange(a, b) for a, b in spans]).to(dev)
         dst = torch.cat([torch.arange(c * per, c * per + b - a)
                          for c, (a, b) in enumerate(spans)]).to(dev)
-    t12t = torch.zeros(lead + (sw, plan.rows), dtype=torch.float32,
-                       device=dev)
-    t12t[..., dst] = maps.T12[..., :sw].transpose(-1, -2)[..., src].float()
+    if plan.bulk_ring:
+        t12t = _pass_major(maps.T12[..., :sw].transpose(-1, -2).float(),
+                           plan.width, plan.rows)
+    else:
+        t12t = torch.zeros(lead + (sw, plan.rows), dtype=torch.float32,
+                           device=dev)
+        t12t[..., dst] = maps.T12[..., :sw].transpose(-1, -2)[
+            ..., src].float()
     lo = None
     if reduced:
         lo = torch.zeros(lead + (plan.rows, plan.kp), dtype=torch.bfloat16,
@@ -1073,36 +1186,54 @@ def map_layout(maps: CondensedMaps, nx, su, sw, reduced: bool,
 
 def launch_layout(maps: CondensedMaps, nx: int, nu: int, N: int,
                   reduced: bool, state_free: bool, projected: bool,
-                  groups: int):
+                  groups: int, tiles: int | None = None,
+                  sms: int | None = None):
     """A launch's plan (``fused_tile_plan``, cluster sizes from the card)
     and its maps' kernel-side layouts (``map_layout``): what
     ``condensed_fused_cuda`` makes at a launch unless it is given them."""
     su, sw = (N - 1) * nu, (N - 1) * nu + N * nx
     plan = fused_tile_plan(nx, nu, N, reduced, state_free,
                            busy_sms=card_busy_sms, projected=projected,
-                           groups=groups)
+                           groups=groups, tiles=tiles, sms=sms)
     return plan, map_layout(maps, nx, su, sw, reduced, plan)
 
 
 class LastLayout:
-    """The launch layout (``launch_layout``) of the maps last given, kept
-    with their tensors and versions (an in-place change makes it anew) and
-    the plan function (a plan forced in its place too): what a solver of
-    ``make_condensed_fused_solver`` hands its launches (``layout=``), so
-    that a loop of launches on the same maps plans and lays them out
-    once."""
+    """The launch plans (``fused_tile_plan``) and the maps' kernel-side
+    layouts (``map_layout``) of the maps last given, kept with their
+    tensors and versions (an in-place change or other maps make them
+    anew): a plan by ``launch_layout``'s arguments and the plan function
+    itself (a plan forced in its place too), a layout by its plan, so that
+    a loop of launches on the same maps plans and lays them out once, and
+    launches of other batches on the same plan share its layout: what a
+    solver of ``make_condensed_fused_solver`` hands its launches
+    (``layout=``)."""
 
     def __init__(self):
-        self.last = None
+        self.maps, self.plans, self.layouts = None, {}, {}
 
-    def __call__(self, maps: CondensedMaps, *args):
-        key = (maps.T12._version, maps.T1._version, args, fused_tile_plan)
-        last = self.last
-        if last is None or last[0] is not maps.T12 \
-                or last[1] is not maps.T1 or last[2] != key:
-            self.last = last = (maps.T12, maps.T1, key,
-                                launch_layout(maps, *args))
-        return last[3]
+    def __call__(self, maps: CondensedMaps, nx, nu, N, reduced, state_free,
+                 projected, groups, tiles=None, sms=None):
+        versions = (maps.T12._version, maps.T1._version)
+        m = self.maps
+        if m is None or m[0] is not maps.T12 or m[1] is not maps.T1 \
+                or m[2] != versions:
+            self.maps, self.plans, self.layouts = (
+                (maps.T12, maps.T1, versions), {}, {})
+        key = (nx, nu, N, reduced, state_free, projected, groups, tiles, sms,
+               fused_tile_plan)
+        plan = self.plans.get(key)
+        if plan is None:
+            plan = self.plans[key] = fused_tile_plan(
+                nx, nu, N, reduced, state_free, busy_sms=card_busy_sms,
+                projected=projected, groups=groups, tiles=tiles, sms=sms)
+        lkey = (plan, nx, nu, N, reduced)
+        out = self.layouts.get(lkey)
+        if out is None:
+            out = self.layouts[lkey] = (plan, map_layout(
+                maps, nx, (N - 1) * nu, (N - 1) * nu + N * nx, reduced,
+                plan))
+        return out
 
 
 @functools.lru_cache(maxsize=64)
@@ -1182,7 +1313,8 @@ def condensed_fused_cuda(maps: CondensedMaps, rho, u_min, u_max, x_min,
     proj_u, proj_x = bool(side_u[1] or side_u[4]), bool(side_x[1] or side_x[4])
     projected = proj_u or proj_x
     plan, (t12t, t12lo, t12c, tx0, t1c) = (layout or launch_layout)(
-        maps, nx, nu, N, reduced, state_free, projected, G)
+        maps, nx, nu, N, reduced, state_free, projected, G,
+        G * -(-L // TILE), _card_sms(dev))
 
     f32 = dict(dtype=torch.float32, device=dev)
     rho_t = torch.as_tensor(rho, **f32).reshape(-1).contiguous()

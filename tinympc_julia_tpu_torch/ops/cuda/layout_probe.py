@@ -2,8 +2,8 @@
 layout on one NVIDIA GPU (not run by the tests or by chip_smoke.py):
 
     python -m tinympc_julia_tpu_torch.ops.cuda.layout_probe \
-        [wide|cluster|far|stage|sections [--cartpole|--k2]|switch|narrow|
-         rows]
+        [wide|cluster|far|stage|sections [--cartpole|--k2|--k1]|
+         switch [--k2|--k1]|narrow|rows [--k1]|order]
 
 ``wide`` times the layouts the plans take at the wide maps of
 chip_smoke.py's phases 34a, 34d and 35a, each beside its product
@@ -23,7 +23,8 @@ side of their switches (ROADMAP R5, R6); ``narrow`` K1's warp layout against til
 cartpole's launches (ROADMAP R3); ``rows [--k1]`` times K2's (K1's)
 launches of chip_smoke.py's kernels line on their plans with each one's
 digest, so that runs of two trees in turns compare times and bits
-(ROADMAP R17).
+(ROADMAP R17); ``order`` whether K1's differences from its plain version
+at a wide map are the plain product's sum order (``order_probe``).
 All print only.  ``product_yardstick`` is also
 chip_smoke.py's yardstick, ``same_bits`` its comparison of layouts."""
 from __future__ import annotations
@@ -50,9 +51,9 @@ def event_ms(fn):
     return a.elapsed_time(b)
 
 
-def quad_problem(horizon, dev, x_bound=None):
+def quad_problem(horizon, dev, x_bound=None, dtype=torch.float32):
     """The quadrotor at ``horizon`` (|u| <= 0.5, and |x| <= ``x_bound``
-    where given) on ``dev`` in float32: (problem, cache)."""
+    where given) on ``dev`` in ``dtype``: (problem, cache)."""
     from tinympc_julia_tpu_torch import make_problem
     from tinympc_julia_tpu_torch.models import quadrotor
     from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
@@ -62,8 +63,7 @@ def quad_problem(horizon, dev, x_bound=None):
                   x_max=np.full((horizon, 12), x_bound))
     p = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
                      np.diag(quadrotor.R_DIAG), quadrotor.RHO, horizon,
-                     u_min=-0.5, u_max=0.5, dtype=torch.float32, device=dev,
-                     **kw)
+                     u_min=-0.5, u_max=0.5, dtype=dtype, device=dev, **kw)
     return p, precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
 
 
@@ -1128,7 +1128,93 @@ def quad_wide_kw(p, **kw):
     return base
 
 
-def sections_main(sass_dir=None, k2_only=False):
+def quad_k1_case(dev, N=40, B=16384):
+    """Phase 4w's inputs: the quadrotor at horizon ``N`` (|u| <= its hover
+    bound), its condensed maps, ``B`` initial states uniform in [-0.3, 0.3]
+    (seed 1, phase 11's): (problem, cache, maps, x0)."""
+    from tinympc_julia_tpu_torch import make_problem
+    from tinympc_julia_tpu_torch.models import quadrotor
+    from tinympc_julia_tpu_torch.ops.condensed import build_condensed
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    f32 = torch.float32
+    p = make_problem(quadrotor.A, quadrotor.B, np.diag(quadrotor.Q_DIAG),
+                     np.diag(quadrotor.R_DIAG), quadrotor.RHO, N,
+                     u_min=-quadrotor.U_HOVER_BOUND,
+                     u_max=quadrotor.U_HOVER_BOUND, dtype=f32, device=dev)
+    c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+    x0 = torch.as_tensor(np.random.default_rng(1).uniform(
+        -0.3, 0.3, size=(B, 12)), dtype=f32, device=dev)
+    return p, c, build_condensed(p, c), x0
+
+
+def quad_k1_kw(p, **kw):
+    """Phase 4w's K1 settings at ``p``'s horizon: 150 iterations, alpha
+    1.7, a check every 4, cold, the carry out."""
+    base = dict(nx=12, nu=4, N=p.N, max_iter=150, abs_pri_tol=1e-3,
+                abs_dua_tol=1e-3, en_state_bound=False, en_input_bound=True,
+                relaxation_alpha=1.7, check_termination=4, warm_start=False,
+                carry_out=True)
+    base.update(kw)
+    return base
+
+
+def chain36_case(dev, B=16384):
+    """Phase 36's launch: the 20-state chain at N = 20 with |u| <= 1 and
+    |x| <= 3, a state stage of 20 entries with 10 cones of dim 2 (mu 0.5)
+    and 4 halfspace rows (seed 11), ``B`` initial states (seed 38), 200
+    iterations, alpha 1, a check every iteration, cold, no carry: (the
+    wrapper's arguments, its settings with the constraints, the box-only
+    settings: the same launch at tolerances 0 without the cones and
+    halfspaces, every lane its 200 iterations)."""
+    from tinympc_julia_tpu_torch import make_problem
+    from tinympc_julia_tpu_torch.ops.condensed import build_condensed
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    from tinympc_julia_tpu_torch.ops.riccati import precompute_cache
+    f32, N = torch.float32, 20
+    A, Bm = chain_plant()
+    p = make_problem(A, Bm, np.eye(20), np.eye(9), 1.0, N, u_min=-1.0,
+                     u_max=1.0, x_min=np.full((N, 20), -3.0),
+                     x_max=np.full((N, 20), 3.0), dtype=f32, device=dev)
+    c = precompute_cache(p.A, p.B, p.Q, p.R, p.rho_setup)
+    rng = np.random.default_rng(11)
+    cons = K.fused_constraints(
+        soc_x=tuple((2 * j, 2, 0.5) for j in range(10)),
+        lin_x=(rng.normal(size=(4, 20)), np.full(4, 5.0)), nx=20, nu=9,
+        dtype=f32, device=dev)
+    x0 = torch.as_tensor(0.5 * np.random.default_rng(38).standard_normal(
+        (B, 20)), dtype=f32, device=dev)
+    args = (build_condensed(p, c), float(c.rho), p.u_min.reshape(-1),
+            p.u_max.reshape(-1), p.x_min.reshape(-1), p.x_max.reshape(-1),
+            x0, None)
+    full = dict(nx=20, nu=9, N=N, max_iter=200, abs_pri_tol=1e-3,
+                abs_dua_tol=1e-3, en_state_bound=True, en_input_bound=True,
+                relaxation_alpha=1.0, check_termination=1, warm_start=False,
+                carry_out=False, constraints=cons)
+    box = dict(full, abs_pri_tol=0.0, abs_dua_tol=0.0, constraints=None)
+    return args, full, box
+
+
+def k1_multi_pass_cases(dev):
+    """K1's launches whose map takes more than one pass, as chip_smoke.py
+    drives them: phase 4w (the quadrotor at N = 40, 16,384 lanes, 150
+    iterations, ``quad_k1_kw``) and phase 36's box-only launch (the
+    20-state chain, 16,384 lanes, 200 iterations at tolerances 0,
+    ``chain36_case``).  Returns {name: (module, wrapper's partial, the
+    2-lane plan)}."""
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    p, c, m, x0 = quad_k1_case(dev)
+    quad = functools.partial(K.condensed_fused_cuda, m, float(c.rho),
+                             p.u_min, p.u_max, p.x_min, p.x_max, x0, None,
+                             **quad_k1_kw(p))
+    args, _, box = chain36_case(dev)
+    chain = functools.partial(K.condensed_fused_cuda, *args, **box)
+    return {"K1 quadrotor N=40 (phase 4w, 16,384 lanes, 150 iterations)":
+            (K, quad, K.shared_tile_plan(12, 4, 40)),
+            "K1 chain box only (phase 36, 16,384 lanes, 200 iterations)":
+            (K, chain, K.shared_tile_plan(20, 9, 20, state_free=False))}
+
+
+def sections_main(sass_dir=None, k2_only=False, k1_only=False):
     """``sections_probe`` at the continuations' shapes and at K2's
     launches in passes (``multi_pass_cases``), each launch also on the
     other layouts that could take it (forced, held bit for bit against
@@ -1139,8 +1225,11 @@ def sections_main(sass_dir=None, k2_only=False):
     tiles of 32 (the layout before the batch-aware plan); phase 35b's and
     11w's launches with 2 lanes a thread (the layout before the 4-lane one
     in passes); K1d's launches with 2 lanes a thread (the layout before
-    the 4-lane one).  With ``k2_only``, K2's launches alone (K1 is neither
-    built nor run)."""
+    the 4-lane one); K1's launches in passes (``k1_multi_pass_cases``:
+    phase 4w's and phase 36's box-only launch) with 2 lanes a thread (the
+    layout before the 4-lane one in passes).  With ``k2_only``, K2's
+    launches alone (K1 is neither built nor run); with ``k1_only``, K1's
+    alone (K2 runs once to make the continuations' inputs)."""
     from tinympc_julia_tpu_torch.ops.cuda import adaptive_kernel as K2
     from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
     dev = torch.device("cuda")
@@ -1148,15 +1237,17 @@ def sections_main(sass_dir=None, k2_only=False):
     names = list(cases)
     bulk = cases[names[0]][1]
     free = "K2 bulk, no carry out (16,384 lanes, 150 iterations)"
-    wide = multi_pass_cases(dev)
+    wide = multi_pass_cases(dev) if not k1_only else {}
+    wide1 = k1_multi_pass_cases(dev) if not k2_only else {}
     cases = {names[0]: cases[names[0]],
              free: (K2, functools.partial(bulk.func, *bulk.args, **dict(
                  bulk.keywords, carry_out=False))),
              names[1]: cases[names[1]],
              **{n: (m, f) for n, (m, f, _) in wide.items()},
-             **{n: cases[n] for n in names[2:]}}
-    if k2_only:
-        cases = {n: c for n, c in cases.items() if c[0] is K2}
+             **{n: cases[n] for n in names[2:]},
+             **{n: (m, f) for n, (m, f, _) in wide1.items()}}
+    if k2_only or k1_only:
+        cases = {n: c for n, c in cases.items() if (c[0] is K2) == k2_only}
     two = K2.shared_adaptive_plan(12, 4, 20, 2)
     k1_shared = [K.shared_tile_plan(12, 4, 20, red) for red in (False, True)]
     return sections_probe(sass_dir=sass_dir, cases=cases, plans={
@@ -1168,7 +1259,7 @@ def sections_main(sass_dir=None, k2_only=False):
                    ("tiles of 32, 4 lanes",
                     K2.four_lane_adaptive_plan(12, 4, 20, 2))],
         **{n: [("tiles of 32, 2 lanes (the parent's)", plan)]
-           for n, (_, _, plan) in wide.items()},
+           for n, (_, _, plan) in {**wide, **wide1}.items()},
         names[2]: [("2 lanes a thread (the parent's)", k1_shared[1])],
         names[3]: [("2 lanes a thread (the parent's)", k1_shared[0])]})
 
@@ -1189,7 +1280,7 @@ def _sw(nx, nu, N):
     return (N - 1) * nu + N * nx
 
 
-def switch_cases(dev, sms, k2_only=False):
+def switch_cases(dev, sms, k2_only=False, k1_only=False):
     """The shapes on each side of the batch-aware plans' switches, cold
     launches of 300 (K2) and 150 (K1) iterations checking every one:
     [(label, module, wrapper's partial, sw, the plan's layout, the layouts
@@ -1218,8 +1309,21 @@ def switch_cases(dev, sms, k2_only=False):
       cartpole at N = 28 (139) and 64 (319), the rocket with its cones at
       N = 16 (141) and 35 (312); the cartpole at N = 64 with a 32-iteration
       reduced head.
+    * K1's 4-lane layout in passes of 320 rows against 2 lanes a thread
+      (one pass of 512 rows up to sw 512, two of 320 to 640, two of 512
+      beyond) and, from sw 892 and at 64 tiles, the cluster, at 64 (phase
+      4b's 2,048 lanes), 128 and 512 tiles, alpha 1.7, a check every 4:
+      the quadrotor at N = 21 (sw 332), 30 (476), 40 (636), 50 (796), 56
+      (892), 57 (908, the first width of the 2-lane plans' cluster), 60
+      (956), 64 (1,020), 70 (1,116), 75 (1,196) and 81 (1,292, the widest
+      the 4-lane layout takes), the rocket with its cones at N = 40 (357),
+      and phase 36's 20-state chain with its cones and halfspaces (571;
+      ``chain36_case``, 200 iterations); the quadrotor at N = 57, 64 and
+      81 also at 32 and 96 tiles, with the cluster (``few_tiles``: the
+      batch from which the 4-lane layout takes the card from the
+      cluster).
 
-    With ``k2_only``, K2's cases alone."""
+    With ``k2_only``, K2's cases alone; with ``k1_only``, K1's."""
     from tinympc_julia_tpu_torch import make_problem
     from tinympc_julia_tpu_torch.models import cartpole, quadrotor, rocket
     from tinympc_julia_tpu_torch.ops.condensed import (build_condensed,
@@ -1277,7 +1381,7 @@ def switch_cases(dev, sms, k2_only=False):
         (name, n, t) for name, n in [("quadrotor", n) for n in (
             21, 30, 40, 50, 56, 57, 60)] + [("chain", 20)]
         for t in (128, 512)]
-    for name, N, tiles in k2_shapes:
+    for name, N, tiles in ([] if k1_only else k2_shapes):
         p, c, cons, x0 = problem(name, N)
         nx, nu = p.nx, p.nu
         kw = dict(plant=None, nx=nx, nu=nu, N=N, max_iter=300,
@@ -1304,9 +1408,11 @@ def switch_cases(dev, sms, k2_only=False):
                       _sw(nx, nu, N), plan, k2_layouts(
                           nx, nu, N, free, plan,
                           cluster=_sw(nx, nu, N) >= wide_from)))
-    f, plan = grid_case(dev, sms)
-    cases.append(("K2 quadrotor grid 8 x 512 (128 tiles)", K2, f,
-                  _sw(12, 4, 20), plan, k2_layouts(12, 4, 20, True, plan)))
+    if not k1_only:
+        f, plan = grid_case(dev, sms)
+        cases.append(("K2 quadrotor grid 8 x 512 (128 tiles)", K2, f,
+                      _sw(12, 4, 20), plan,
+                      k2_layouts(12, 4, 20, True, plan)))
     if k2_only:
         return cases
     k1_shapes = [(m, n, t, 0) for m, n in (("quadrotor", 9),
@@ -1330,9 +1436,55 @@ def switch_cases(dev, sms, k2_only=False):
                       + (f" head {head}" if head else ""), K, f,
                       _sw(nx, nu, N),
                       K.fused_tile_plan(nx, nu, N, head > 0, cons is None),
-                      [("4 lanes a thread", two._replace(lanes=4)),
+                      [("4 lanes a thread", K.four_lane_tile_plan(
+                          nx, nu, N, head > 0, cons is None)),
                        ("2 lanes a thread", two)]))
+    chain = chain36_case(dev, 512 * 32)
+    for name, N, tiles in [(m, n, t) for m, n in [("quadrotor", n) for n in (
+            21, 30, 40, 50, 56, 57, 60, 64, 70, 75, 81)]
+            + [("rocket", 40), ("chain", 20)] for t in (64, 128, 512)] + [
+            ("quadrotor", n, t) for n in (57, 64, 81) for t in (32, 96)]:
+        if name == "chain":
+            nx, nu, free = 20, 9, False
+            args, kw, _ = chain
+            args = args[:6] + (args[6][:32 * tiles].contiguous(), None)
+        else:
+            p, c, cons, x0 = problem(name, N)
+            nx, nu, free = p.nx, p.nu, cons is None
+            args = (build_condensed(p, c), float(c.rho), *bounds(p),
+                    x0[:32 * tiles].contiguous(), None)
+            kw = dict(nx=nx, nu=nu, N=N, max_iter=150, abs_pri_tol=1e-3,
+                      abs_dua_tol=1e-3, en_state_bound=not free,
+                      en_input_bound=True, relaxation_alpha=1.7,
+                      check_termination=4, warm_start=False, carry_out=True,
+                      constraints=cons)
+        f = functools.partial(K.condensed_fused_cuda, *args, **kw)
+        plan = K.fused_tile_plan(nx, nu, N, False, free,
+                                 busy_sms=K.card_busy_sms,
+                                 projected=not free, tiles=tiles, sms=sms)
+        cases.append((f"K1 {name} N={N} {tiles} tiles", K, f,
+                      _sw(nx, nu, N), plan, k1_layouts(
+                          nx, nu, N, free, plan,
+                          cluster=_sw(nx, nu, N) >= wide_from or (
+                              tiles < 128 and name != "rocket"))))
     return cases
+
+
+def k1_layouts(nx, nu, N, state_free, plan, cluster=False):
+    """K1's layouts of a streamed fp32 shape that the switches weigh, the
+    plan's first: tiles of 32 with 4 lanes a thread and with 2 (each where
+    it exists) and, with ``cluster``, the cluster the card's occupancy
+    picks, as [(name, plan)]."""
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    out = [("4 lanes a thread", K.four_lane_tile_plan(nx, nu, N, False,
+                                                      state_free)),
+           ("2 lanes a thread", K.shared_tile_plan(nx, nu, N, False,
+                                                   state_free))]
+    if cluster:
+        c = K.cluster_tile_plan(nx, nu, N, busy_sms=K.card_busy_sms)
+        out.append((f"a cluster of {c.cluster}", c))
+    return sorted([o for o in out if o[1] is not None],
+                  key=lambda o: o[1] != plan)
 
 
 def k2_layouts(nx, nu, N, state_free, plan, cluster=False):
@@ -1396,7 +1548,7 @@ def grid_case(dev, sms):
     return f, K2.adaptive_tile_plan(nx, 4, N, 2, tiles=G * L // 32, sms=sms)
 
 
-def switch_probe(reps=3, k2_only=False):
+def switch_probe(reps=3, k2_only=False, k1_only=False):
     """The batch-aware plans' switches (``switch_cases``) measured on each
     side: each case on each of its layouts, forced, held bit for bit
     against the first (the plan's), with its time (CUDA events, median of
@@ -1411,13 +1563,14 @@ def switch_probe(reps=3, k2_only=False):
         tile_iterations
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    names = ["condensed_adaptive"] + ([] if k2_only else ["condensed_fused"])
+    names = (([] if k1_only else ["condensed_adaptive"])
+             + ([] if k2_only else ["condensed_fused"]))
     for built in load_libraries(names):
         print(f"switch probe: {built.path.name} built in "
               f"{built.seconds:.1f} s", flush=True)
     out = {}
-    for label, mod, f, sw, taken, layouts in switch_cases(dev, sms,
-                                                          k2_only):
+    for label, mod, f, sw, taken, layouts in switch_cases(dev, sms, k2_only,
+                                                          k1_only):
         name = "adaptive_tile_plan" if mod is K2 else "fused_tile_plan"
         base, times = None, []
         for lname, plan in layouts:
@@ -1449,8 +1602,9 @@ def rows_probe(reps=5, k1=False):
     (2,048 slots), the group grid of phase 15b, phase 35b's chain and phase
     11w's bulk pass at N = 40 (``continuation_cases``, ``grid_case``,
     ``multi_pass_cases``); with ``k1`` K1's instead (the cartpole's
-    launches of phases 6, 20 and 22, ``cartpole_cases``, and the
-    requantized and bulk-sized K1d launches of ``continuation_cases``);
+    launches of phases 6, 20 and 22, ``cartpole_cases``, the requantized
+    and bulk-sized K1d launches of ``continuation_cases``, and phase 4w's
+    and phase 36's box-only launch, ``k1_multi_pass_cases``);
     each timed (CUDA events, median of ``reps`` after a warm-up) with its
     digest, so that two trees, each with this file, run in turns compare
     bit for bit.  Prints only; returns {name: ms}."""
@@ -1461,6 +1615,8 @@ def rows_probe(reps=5, k1=False):
              if (m is K2) != k1}
     if k1:
         cases.update({n: f for n, (_, f) in cartpole_cases(dev).items()})
+        cases.update({n: f for n, (_, f, _) in
+                      k1_multi_pass_cases(dev).items()})
     else:
         cases["K2 group grid 8 x 512 (phase 15b)"] = grid_case(dev, sms)[0]
         cases.update({n: f for n, (_, f, _) in
@@ -1477,11 +1633,64 @@ def rows_probe(reps=5, k1=False):
     return out
 
 
+def order_probe(B=2048):
+    """Whether a K1 launch's differences from its plain version are the
+    plain product's sum order (ROADMAP §3): the quadrotor at N = 40 (sw
+    636, where cuBLAS need not sum in index order) with |x| <= 2 and
+    without, and at N = 20 (where it does) with |x| <= 2, 200 iterations,
+    alpha 1.7, a check every iteration, ``B`` lanes (seed 33), the carry
+    out: the plan's launch against 2 lanes a thread, w2 in global memory
+    and a cluster of 2, forced (every one sums in index order: the same
+    bits), and the lanes whose counts or flags differ between the kernel,
+    the plain version in fp32 and the plain version in float64 (solved
+    lanes among them).  Prints only."""
+    from unittest import mock
+    from tinympc_julia_tpu_torch.ops.condensed import build_condensed
+    from tinympc_julia_tpu_torch.ops.cuda import condensed_kernel as K
+    dev = torch.device("cuda")
+
+    def differ(a, b):
+        d = (a[2] != b[2]) | (a[3] != b[3])
+        return int(d.sum()), int((d & (a[3] == 1) & (b[3] == 1)).sum())
+
+    for N, box in ((40, 2.0), (40, None), (20, 2.0)):
+        p, c = quad_problem(N, dev, box)
+        p64, c64 = quad_problem(N, dev, box, torch.float64)
+        x0 = torch.as_tensor(np.random.default_rng(33).uniform(
+            -0.3, 0.3, size=(B, 12)), dtype=torch.float32, device=dev)
+        kw = dict(nx=12, nu=4, N=N, max_iter=200, abs_pri_tol=1e-3,
+                  abs_dua_tol=1e-3, en_state_bound=box is not None,
+                  en_input_bound=True, relaxation_alpha=1.7,
+                  check_termination=1, warm_start=False, carry_out=True)
+        args = (build_condensed(p, c), float(c.rho), p.u_min, p.u_max,
+                p.x_min, p.x_max, x0, None)
+        k = K.condensed_fused_cuda(*args, **kw)
+        same = []
+        for plan in (K.shared_tile_plan(12, 4, N, False, box is None),
+                     K.global_tile_plan(12, 4, N),
+                     K.cluster_tile_plan(12, 4, N, blocks=2)):
+            with mock.patch.object(K, "fused_tile_plan",
+                                   lambda *a, **k_: plan):
+                same.append(same_bits(K.condensed_fused_cuda(*args, **kw),
+                                      k))
+        r32 = K.condensed_fused_reference(*args, **kw)
+        r64 = K.condensed_fused_reference(
+            build_condensed(p64, c64), float(c64.rho), p64.u_min, p64.u_max,
+            p64.x_min, p64.x_max, x0.double(), None, **kw)
+        print(f"order probe quadrotor N={N} |x| <= {box}, {B} lanes: 2 "
+              f"lanes, w2 in global memory, a cluster of 2 bit-equal to "
+              f"the plan's {same}; lanes whose counts or flags differ "
+              f"(solved on both among them): kernel / plain fp32 "
+              f"{differ(k, r32)}, kernel / plain float64 {differ(k, r64)}, "
+              f"plain fp32 / plain float64 {differ(r32, r64)}; solved "
+              f"{int(k[3].sum())}", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probe", nargs="?",
                     choices=("wide", "cluster", "far", "stage", "sections",
-                             "switch", "narrow", "rows"),
+                             "switch", "narrow", "rows", "order"),
                     default="cluster")
     ap.add_argument("--cartpole", action="store_true",
                     help="sections: the cartpole's launches (cartpole_cases) "
@@ -1492,23 +1701,24 @@ def main(argv=None):
     ap.add_argument("--k2", action="store_true",
                     help="sections, switch: K2's launches alone")
     ap.add_argument("--k1", action="store_true",
-                    help="rows: K1's launches instead of K2's")
+                    help="rows: K1's launches instead of K2's; sections, "
+                         "switch: K1's launches alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("layout_probe: needs an NVIDIA GPU")
     if args.probe == "sections":
         (sections_cartpole() if args.cartpole
-         else sections_main(args.sass, args.k2))
+         else sections_main(args.sass, args.k2, args.k1))
         return
     if args.probe == "switch":
-        switch_probe(k2_only=args.k2)
+        switch_probe(k2_only=args.k2, k1_only=args.k1)
         return
     if args.probe == "rows":
         rows_probe(k1=args.k1)
         return
     dict(wide=wide_layout_probe, cluster=cluster_probe,
          far=far_layout_probe, stage=stage_probe,
-         narrow=narrow_probe)[args.probe]()
+         narrow=narrow_probe, order=order_probe)[args.probe]()
 
 
 if __name__ == "__main__":
